@@ -10,7 +10,10 @@ with a leading N axis: ``(N, K)`` per-candidate values, ``(N,)``
 per-node values.
 
 ``cfg`` arguments are duck-typed ``core.wfagg.WFAggConfig`` instances and
-``stats`` arguments duck-typed ``RobustStats`` containers.
+``stats`` arguments duck-typed ``RobustStats`` containers.  The Alt-WFAgg
+filters (Multi-Krum, Clustering) read a (K, K) candidate Gram: the
+single-node masks take it as an argument, as the reference's do; the
+batched ``*_valid`` masks read it from ``stats.gram`` (N, K, K).
 """
 from __future__ import annotations
 
@@ -25,9 +28,9 @@ RobustStats = Any   # duck-typed: .dist2/.norm2/.cosine_to_median()/...
 _EPS = 1e-12
 
 GRAM_NOT_PORTED = (
-    "the Alt-WFAgg filters (multi_krum / clustering) read the (K, K) Gram "
-    "and are not ported yet: ROADMAP queue 2, item 1 (Gram variant of the "
-    "round kernel)")
+    "the Alt-WFAgg filters (multi_krum / clustering) on the gossip round "
+    "need the Gram variant of the round kernel, not ported yet: ROADMAP "
+    "queue 2, item 1")
 
 
 def wfagg_scores(mask_d: Tensor, mask_c: Tensor, mask_t: Tensor, cfg) -> Tensor:
@@ -92,29 +95,84 @@ def needs_gram(cfg) -> bool:
     return cfg.distance_filter == "multi_krum" or cfg.similarity_filter == "clustering"
 
 
+def sq_dists_from_gram(gram: Tensor, norm2: Tensor) -> Tensor:
+    """(..., K, K) squared distances from a Gram matrix and squared norms;
+    the self-distance, where the expansion cancels, is pinned to 0."""
+    d2 = norm2[..., :, None] + norm2[..., None, :] - 2.0 * gram
+    K = gram.shape[-1]
+    d2 = d2 * (1.0 - torch.eye(K, dtype=d2.dtype, device=d2.device))
+    return torch.clamp(d2, min=0.0)
+
+
+def cosine_dist_from_gram(gram: Tensor, norm2: Tensor) -> Tensor:
+    """(..., K, K) cosine distances from a Gram matrix and squared norms."""
+    n = torch.sqrt(torch.clamp(norm2, min=_EPS))
+    return 1.0 - gram / torch.clamp(n[..., :, None] * n[..., None, :], min=_EPS)
+
+
+def _multi_krum_m(cfg, K: int) -> int:
+    return cfg.multi_krum_m or max(1, K // 4)
+
+
+def fused_distance_mask(stats: RobustStats, gram: Optional[Tensor], cfg) -> Tensor:
+    """One node's distance-filter mask ``(K,)`` from its statistics:
+    WFAgg-D keeps the K - f - 1 candidates closest to the median;
+    Multi-Krum keeps the m best Krum scores of the Gram's distances."""
+    K = stats.dist2.shape[-1]
+    if cfg.distance_filter == "wfagg_d":
+        return agg.smallest_k_mask(stats.dist2, K - int(cfg.f) - 1)
+    if cfg.distance_filter == "multi_krum":
+        scores = agg.krum_scores_from_sq_dists(
+            sq_dists_from_gram(gram, stats.norm2), cfg.f)
+        return agg.smallest_k_mask(scores, _multi_krum_m(cfg, K))
+    raise ValueError(f"unknown distance filter {cfg.distance_filter!r}")
+
+
+def fused_similarity_mask(stats: RobustStats, gram: Optional[Tensor], cfg) -> Tensor:
+    """One node's similarity-filter mask ``(K,)``: WFAgg-C ranks the cosine
+    to the median (invariant to the norm clipping of Alg. 3, so the same
+    selection as ``wfagg_c_select``); Clustering keeps the larger cluster
+    of the Gram's cosine distances."""
+    K = stats.dist2.shape[-1]
+    if cfg.similarity_filter == "wfagg_c":
+        return agg.smallest_k_mask(stats.cosine_to_median(), K - int(cfg.f) - 1)
+    if cfg.similarity_filter == "clustering":
+        return agg.clustering_select_from_dist(cosine_dist_from_gram(gram, stats.norm2))
+    raise ValueError(f"unknown similarity filter {cfg.similarity_filter!r}")
+
+
 def fused_distance_mask_valid(stats: RobustStats, valid: Tensor, cfg) -> Tensor:
-    """Valid-aware WFAgg-D mask ``(N, K)``: keep the ``v - f - 1`` valid
-    candidates closest to the median (v = each node's true degree);
-    padded slots score +inf and are never selected."""
-    if cfg.distance_filter != "wfagg_d":
-        if cfg.distance_filter == "multi_krum":
-            raise NotImplementedError(GRAM_NOT_PORTED)
-        raise ValueError(f"unknown distance filter {cfg.distance_filter!r}")
+    """Valid-aware distance mask ``(N, K)``: keep counts follow each node's
+    true degree v, and padded slots score +inf and are never selected.
+    WFAgg-D keeps the ``v - f - 1`` valid candidates closest to the median;
+    Multi-Krum the ``min(m, v)`` best Krum scores over the valid peers."""
+    K = valid.shape[-1]
     v = valid.sum(-1)
-    scores = torch.where(valid, stats.dist2, torch.inf)
-    return agg.smallest_k_mask_dyn(scores, v - int(cfg.f) - 1)
+    if cfg.distance_filter == "wfagg_d":
+        scores = torch.where(valid, stats.dist2, torch.inf)
+        return agg.smallest_k_mask_dyn(scores, v - int(cfg.f) - 1)
+    if cfg.distance_filter == "multi_krum":
+        d2 = sq_dists_from_gram(stats.gram, stats.norm2)
+        vpair = valid[..., :, None] & valid[..., None, :]
+        scores = agg.krum_scores_from_sq_dists_dyn(
+            torch.where(vpair, d2, torch.inf), cfg.f, v)
+        return agg.smallest_k_mask_dyn(torch.where(valid, scores, torch.inf),
+                                       torch.clamp(v, max=_multi_krum_m(cfg, K)))
+    raise ValueError(f"unknown distance filter {cfg.distance_filter!r}")
 
 
 def fused_similarity_mask_valid(stats: RobustStats, valid: Tensor, cfg) -> Tensor:
-    """Valid-aware WFAgg-C mask ``(N, K)`` (cosine to the median model;
-    invariant to the norm clipping of Alg. 3)."""
-    if cfg.similarity_filter != "wfagg_c":
-        if cfg.similarity_filter == "clustering":
-            raise NotImplementedError(GRAM_NOT_PORTED)
-        raise ValueError(f"unknown similarity filter {cfg.similarity_filter!r}")
+    """Valid-aware similarity mask ``(N, K)`` (see
+    ``fused_distance_mask_valid``): WFAgg-C by cosine to the median, or
+    Clustering on the valid submatrix of the Gram's cosine distances."""
     v = valid.sum(-1)
-    scores = torch.where(valid, stats.cosine_to_median(), torch.inf)
-    return agg.smallest_k_mask_dyn(scores, v - int(cfg.f) - 1)
+    if cfg.similarity_filter == "wfagg_c":
+        scores = torch.where(valid, stats.cosine_to_median(), torch.inf)
+        return agg.smallest_k_mask_dyn(scores, v - int(cfg.f) - 1)
+    if cfg.similarity_filter == "clustering":
+        return agg.clustering_select_from_dist_dyn(
+            cosine_dist_from_gram(stats.gram, stats.norm2), valid)
+    raise ValueError(f"unknown similarity filter {cfg.similarity_filter!r}")
 
 
 def derive_trust_weights(
@@ -145,21 +203,23 @@ def derive_trust_weights(
     return mask_d, mask_c, mask_t, weights
 
 
-def combine_coefficients(weights: Tensor, alpha: float, valid: Tensor,
-                         mean_fallback: bool) -> Tuple[Tensor, Tensor]:
+def combine_coefficients(weights: Tensor, alpha: float,
+                         valid: Optional[Tensor] = None,
+                         mean_fallback: bool = False) -> Tuple[Tensor, Tensor]:
     """Normalize trust weights into the WFAgg-E combine coefficients:
-    returns ``(alpha_eff * w_norm (N, K), 1 - alpha_eff (N,))``.
+    returns ``(alpha_eff * w_norm (..., K), 1 - alpha_eff (...))`` for one
+    node's ``(K,)`` weights or a batch's ``(N, K)``.
 
     ``mean_fallback=True`` is the robust all-reduce convention: when every
     candidate is rejected the combine degrades to the uniform mean of the
-    valid candidates.  False is the DFL/Eq. 3 convention: the node keeps
-    its local model.
+    valid candidates (``valid`` is read only then).  False is the DFL /
+    Eq. 3 convention: the node keeps its local model.
     """
-    valid_f = valid.to(torch.float32)
     wsum = weights.sum(-1)
     w_norm = weights / torch.clamp(wsum, min=_EPS)[..., None]
     zero = torch.zeros_like(wsum)
     if mean_fallback:
+        valid_f = valid.to(torch.float32)
         vsum = valid_f.sum(-1)
         uniform = valid_f / torch.clamp(vsum, min=1.0)[..., None]
         w_norm = torch.where((wsum > 0)[..., None], w_norm, uniform)

@@ -1,25 +1,40 @@
-"""WFAgg, the paper's Byzantine-robust aggregation (Section IV): the
-gather-free batched gossip path (port of ``repro.core.wfagg``).
+"""WFAgg, the paper's Byzantine-robust aggregation (Section IV) (port of
+``repro.core.wfagg``).
 
-All N receiving nodes of a gossip round aggregate at once from the (M, d)
-model matrix and an (N, K) neighbour table; the (N, K, d) gossip tensor
-never exists on the fused path.
+Components (each maps to a paper algorithm):
+  wfagg_d_select   Alg. 2 - distance filter around the coordinate-wise median
+  wfagg_c_select   Alg. 3 - cosine-similarity filter with norm clipping
+  wfagg_t_select   Alg. 4 - temporal EWMA filter over round-to-round metrics
+  wfagg_e          Eq. 3  - exponential-smoothing weighted aggregation
+  wfagg            Alg. 1 - one node: 3 filters -> tau-weighted scoring
+                   (accept needs >= 2 filters) -> WFAgg-E aggregation
+  alt_wfagg_config paper Section VI-B2 - same scoring, with Multi-Krum as
+                   the distance filter and Clustering as the similarity one
+  wfagg_batch      all N receiving nodes of a gossip round at once, from
+                   the (M, d) model matrix and an (N, K) neighbour table
+                   (the (N, K, d) gossip tensor never exists on the fused
+                   path)
 
 Execution backends (``WFAggConfig.backend``):
-  fused      the single-launch round (``kernels.robust_stats.ops.
-             wfagg_round_indexed``): the CUDA kernel on CUDA tensors, its
-             plain PyTorch version on CPU tensors.
-  reference  the valid-aware plain-PyTorch pipeline: gathered statistics
-             (``robust_stats_indexed_ref``), the same trust logic on the
-             host, the Eq. 3 combine.  With ``valid=None`` it runs with an
-             all-true mask, which selects exactly as the static-count
-             filters do.
+  fused      single node (``wfagg``, the CFL server): one statistics
+             kernel (``kernels.robust_stats.ops.robust_stats``), the Gram
+             kernel when an Alt-WFAgg filter needs it
+             (``kernels.pairwise_dist.ops.pairwise_gram``), the scoring
+             stage on the host and the combine kernel
+             (``kernels.weighted_agg.ops.weighted_agg``).  Gossip round:
+             the single-launch round (``kernels.robust_stats.ops.
+             wfagg_round_indexed``).  CUDA kernels on CUDA tensors, their
+             plain PyTorch versions on CPU tensors.
+  reference  plain PyTorch: the per-filter pipeline for one node; for the
+             gossip round the valid-aware pipeline (gathered statistics,
+             the same trust logic, the Eq. 3 combine).
   fused_two_launch
-             not ported yet (ROADMAP queue 2, items 2-3).
+             single node: the same as fused (there is no single-launch
+             variant).  Gossip round: not ported yet (ROADMAP queue 2,
+             items 2-3).
 
-The single-node ``wfagg()``, the gathered ``wfagg_batch`` and the
-standalone filter aggregators are not ported yet (ROADMAP queue 1,
-item 10).
+The gathered ``wfagg_batch`` and the standalone filter aggregators are
+not ported yet (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -28,9 +43,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import aggregators as agg
 from repro_torch.core import trust
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.robust_stats.ops import wfagg_round_indexed
+from repro_torch.kernels.pairwise_dist.ops import pairwise_gram
+from repro_torch.kernels.robust_stats.ops import robust_stats, wfagg_round_indexed
+from repro_torch.kernels.weighted_agg.ops import weighted_agg
 from repro_torch.kernels.robust_stats.ref import RobustStats, robust_stats_indexed_ref
 
 Tensor = torch.Tensor
@@ -50,10 +68,11 @@ class WFAggConfig:
     transient: int = 3          # T_th - rounds before WFAgg-T activates
     ewma_decay: float = 0.5     # lambda of the exponentially weighted window
     use_temporal: bool = True   # disable to drop the prev-model state
-    # Alt-WFAgg filters ("multi_krum" / "clustering") are not ported yet
-    distance_filter: str = "wfagg_d"
-    similarity_filter: str = "wfagg_c"
-    multi_krum_m: Optional[int] = None
+    # Alt-WFAgg: swap in filters of the same family (single node only;
+    # the gossip round needs the round kernel's Gram variant, not ported)
+    distance_filter: str = "wfagg_d"     # or "multi_krum"
+    similarity_filter: str = "wfagg_c"   # or "clustering"
+    multi_krum_m: Optional[int] = None   # Multi-Krum m (default K // 4)
     backend: str = "fused"      # "fused" | "reference" (see module doc)
     # Non-finite payload sanitizer: a NaN/Inf candidate row is zeroed and
     # its edges demoted to invalid before any filter statistic (a no-op on
@@ -68,18 +87,69 @@ class WFAggConfig:
 
 
 class TemporalState(NamedTuple):
-    """Per-receiving-node WFAgg-T state (Alg. 4), leading N axis.
+    """WFAgg-T state (Alg. 4): each node keeps the last model of every
+    neighbour and a ring buffer of the last W metrics.
 
-    ``prev`` is the previous round's (M, d) model matrix (read through the
-    neighbour table, so edge (n, k)'s last model is ``prev[idx[n, k]]``)
-    or a per-edge (N, K, d) tensor (reference backend only).
+    One node (``wfagg``): ``prev (K, d)``, ``hist_s``/``hist_b (W, K)``,
+    ``count``/``t`` scalars.  Gossip round (``wfagg_batch``): a leading N
+    axis on the history, and ``prev`` the previous round's (M, d) model
+    matrix (read through the neighbour table, so edge (n, k)'s last model
+    is ``prev[idx[n, k]]``) or a per-edge (N, K, d) tensor (reference
+    backend only).
     """
 
-    prev: Tensor      # (M, d) or (N, K, d)
-    hist_s: Tensor    # (N, W, K) ring buffer of squared-distance metrics
-    hist_b: Tensor    # (N, W, K) ring buffer of cosine-distance metrics
-    count: Tensor     # (N,) number of metric rounds recorded so far
-    t: Tensor         # (N,) current round index
+    prev: Tensor      # (K, d), (M, d) or (N, K, d)
+    hist_s: Tensor    # ([N,] W, K) ring buffer of squared-distance metrics
+    hist_b: Tensor    # ([N,] W, K) ring buffer of cosine-distance metrics
+    count: Tensor     # ([N]) number of metric rounds recorded so far
+    t: Tensor         # ([N]) current round index
+
+
+def init_temporal_state(K: int, d: int, window: int, device=None) -> TemporalState:
+    """One node's empty WFAgg-T state: zero ``prev (K, d)`` and history."""
+    return TemporalState(
+        prev=torch.zeros((K, d), device=device),
+        hist_s=torch.zeros((window, K), device=device),
+        hist_b=torch.zeros((window, K), device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+        t=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# filters of one node, on its (K, d) candidate matrix
+# ---------------------------------------------------------------------------
+
+def wfagg_d_select(updates: Tensor, f: int) -> Tensor:
+    """Alg. 2: keep the K-f-1 candidates closest (L2) to the median model."""
+    K = updates.shape[0]
+    med = agg.coordinate_median(updates)
+    d2 = ((updates - med) ** 2).sum(-1)
+    return agg.smallest_k_mask(d2, K - int(f) - 1)
+
+
+def wfagg_c_stats(updates: Tensor) -> Tuple[Tensor, Tensor]:
+    """Cosine distances of norm-clipped candidates to the median model.
+
+    Returns (alpha_j (K,), clipped updates (K, d)).  Positive rescaling
+    cannot change a cosine, so clipping affects downstream magnitude only.
+    """
+    med = agg.coordinate_median(updates)
+    norms = torch.linalg.norm(updates, dim=-1)
+    tau_med = agg.coordinate_median(norms)
+    scale = torch.clamp(tau_med / torch.clamp(norms, min=_EPS), max=1.0)
+    clipped = updates * scale[:, None]
+    med_n = torch.linalg.norm(med)
+    cnorms = torch.linalg.norm(clipped, dim=-1)
+    cos = (clipped @ med) / torch.clamp(cnorms * med_n, min=_EPS)
+    return 1.0 - cos, clipped
+
+
+def wfagg_c_select(updates: Tensor, f: int) -> Tensor:
+    """Alg. 3: keep the K-f-1 candidates with smallest cosine distance."""
+    K = updates.shape[0]
+    alpha_j, _ = wfagg_c_stats(updates)
+    return agg.smallest_k_mask(alpha_j, K - int(f) - 1)
 
 
 def wfagg_t_decide(hist_s: Tensor, hist_b: Tensor, count: Tensor, t: Tensor,
@@ -95,17 +165,111 @@ def wfagg_t_decide(hist_s: Tensor, hist_b: Tensor, count: Tensor, t: Tensor,
     return (mask, *trust.push_history(hist_s, hist_b, count, t, s_t, b_t))
 
 
-def wfagg_e(local: Tensor, updates: Tensor, weights: Tensor, alpha: float) -> Tensor:
-    """Eq. 3 for every node: theta_n <- (1-a)*theta_n + a * sum_k w'_nk u_nk.
+def wfagg_t_select(state: TemporalState, updates: Tensor,
+                   cfg: WFAggConfig) -> Tuple[Tensor, TemporalState]:
+    """Alg. 4 for one node: flag candidates whose round-over-round change
+    is abrupt.  Returns (mask, new_state).  During the transient
+    (t <= T_th) no candidate passes, but the metric history accumulates
+    so the window is warm when the filter activates."""
+    prev = state.prev
+    s_t = ((updates - prev) ** 2).sum(-1)
+    num = (updates * prev).sum(-1)
+    den = torch.clamp(torch.linalg.norm(updates, dim=-1)
+                      * torch.linalg.norm(prev, dim=-1), min=_EPS)
+    mask, hist_s, hist_b, count, t = wfagg_t_decide(
+        state.hist_s, state.hist_b, state.count, state.t, s_t, 1.0 - num / den, cfg)
+    return mask, TemporalState(prev=updates, hist_s=hist_s, hist_b=hist_b,
+                               count=count, t=t)
 
-    ``local (N, d)``, ``updates (N, K, d)``, ``weights (N, K)``.  A node
-    whose neighbours were all rejected keeps its local model."""
+
+def wfagg_e(local: Tensor, updates: Tensor, weights: Tensor, alpha: float) -> Tensor:
+    """Eq. 3: theta_n <- (1-a)*theta_n + a * sum_k w'_nk u_nk, for one node
+    (``local (d,)``, ``updates (K, d)``, ``weights (K,)``) or every node
+    of a round (a leading N axis on all three).  A node whose neighbours
+    were all rejected keeps its local model."""
     wsum = weights.sum(-1)
     w_norm = weights / torch.clamp(wsum, min=_EPS)[..., None]
-    neighbor = torch.einsum("nk,nkd->nd", w_norm, updates)
+    neighbor = torch.einsum("...k,...kd->...d", w_norm, updates)
     zero = torch.zeros_like(wsum)
     eff_alpha = torch.where(wsum > 0, zero + alpha, zero)[..., None]
     return (1.0 - eff_alpha) * local + eff_alpha * neighbor
+
+
+def _distance_mask(updates: Tensor, cfg: WFAggConfig) -> Tensor:
+    if cfg.distance_filter == "wfagg_d":
+        return wfagg_d_select(updates, cfg.f)
+    if cfg.distance_filter == "multi_krum":
+        m = cfg.multi_krum_m or max(1, updates.shape[0] // 4)
+        return agg.smallest_k_mask(agg.krum_scores(updates, cfg.f), m)
+    raise ValueError(f"unknown distance filter {cfg.distance_filter!r}")
+
+
+def _similarity_mask(updates: Tensor, cfg: WFAggConfig) -> Tensor:
+    if cfg.similarity_filter == "wfagg_c":
+        return wfagg_c_select(updates, cfg.f)
+    if cfg.similarity_filter == "clustering":
+        return agg.clustering_select(updates)
+    raise ValueError(f"unknown similarity filter {cfg.similarity_filter!r}")
+
+
+def _info(mask_d, mask_c, mask_t, weights) -> dict:
+    return {"mask_d": mask_d, "mask_c": mask_c, "mask_t": mask_t,
+            "weights": weights, "n_accepted": (weights > 0).sum(-1)}
+
+
+def _wfagg_fused(local: Tensor, updates: Tensor, state: Optional[TemporalState],
+                 cfg: WFAggConfig) -> Tuple[Tensor, Optional[TemporalState], dict]:
+    """One node's fused WFAgg: every filter statistic from ONE read of the
+    candidates (the robust_stats kernel, without the d-sized centers; the
+    Gram kernel too when an Alt-WFAgg filter needs the (K, K) distances),
+    the scoring stage on the host, and one more read for the combine
+    kernel.  No value comes back to the host on the way."""
+    temporal = cfg.use_temporal and state is not None
+    prev = state.prev if temporal else None
+    stats = robust_stats(updates, prev=prev, need_center=False)
+    gram = pairwise_gram(updates)[0] if trust.needs_gram(cfg) else None
+    mask_d = trust.fused_distance_mask(stats, gram, cfg)
+    mask_c = trust.fused_similarity_mask(stats, gram, cfg)
+    if temporal:
+        mask_t, hist_s, hist_b, count, t = wfagg_t_decide(
+            state.hist_s, state.hist_b, state.count, state.t,
+            stats.prev_dist2, stats.cosine_to_prev(), cfg)
+        new_state = TemporalState(prev=updates, hist_s=hist_s, hist_b=hist_b,
+                                  count=count, t=t)
+    else:
+        mask_t = torch.zeros_like(mask_d)
+        new_state = state
+    weights = trust.wfagg_scores(mask_d, mask_c, mask_t, cfg)
+    out = weighted_agg(local, updates, weights, alpha=cfg.alpha)
+    return out, new_state, _info(mask_d, mask_c, mask_t, weights)
+
+
+def wfagg(local: Tensor, updates: Tensor, state: Optional[TemporalState],
+          cfg: WFAggConfig) -> Tuple[Tensor, Optional[TemporalState], dict]:
+    """Full WFAgg (Alg. 1) for one node: ``local (d,)`` is the WFAgg-E
+    anchor, ``updates (K, d)`` the received models, ``state`` its WFAgg-T
+    state (``init_temporal_state``) or None.  Runs on the tensors' device.
+    Returns ``(aggregated (d,), new_state, info)`` with the filter masks,
+    trust weights and accepted count in ``info``."""
+    if cfg.backend in ("fused", "fused_two_launch"):
+        return _wfagg_fused(local, updates, state, cfg)
+    if cfg.backend != "reference":
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    mask_d = _distance_mask(updates, cfg)
+    mask_c = _similarity_mask(updates, cfg)
+    if cfg.use_temporal and state is not None:
+        mask_t, new_state = wfagg_t_select(state, updates, cfg)
+    else:
+        mask_t = torch.zeros_like(mask_d)
+        new_state = state
+    weights = trust.wfagg_scores(mask_d, mask_c, mask_t, cfg)
+    out = wfagg_e(local, updates, weights, cfg.alpha)
+    return out, new_state, _info(mask_d, mask_c, mask_t, weights)
+
+
+def alt_wfagg_config(**kw) -> WFAggConfig:
+    """Alt-WFAgg (paper Section VI-B2): Multi-Krum + Clustering as the filters."""
+    return WFAggConfig(distance_filter="multi_krum", similarity_filter="clustering", **kw)
 
 
 def _indexed_scoring(stats: RobustStats, valid_b: Tensor,
@@ -162,7 +326,8 @@ def _wfagg_batch_indexed(local: Tensor, models: Tensor,
     prev = state.prev if temporal else None
 
     if cfg.backend == "reference":
-        stats = robust_stats_indexed_ref(models, idx, valid_b, prev)
+        stats = robust_stats_indexed_ref(models, idx, valid_b, prev,
+                                         need_gram=trust.needs_gram(cfg))
         mask_d, mask_c, mask_t, weights, new_state = _indexed_scoring(
             stats, valid_b, state, cfg, models, idx)
         out = wfagg_e(local, models[idx].to(torch.float32), weights, cfg.alpha)

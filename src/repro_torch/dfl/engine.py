@@ -7,17 +7,25 @@ Each of N nodes owns an independent local model.  One round =
      parameter dicts); Label-Flipping nodes poison their labels,
   2. model-poisoning attacks replace the Byzantine rows of the flat
      (N, d) model matrix,
-  3. gossip + aggregation: WFAgg over each node's K neighbours through
-     the single-launch round (``core.wfagg.wfagg_batch(neighbor_idx=…)``,
-     one CUDA kernel launch per round on the card), or the mean baseline
-     (plain gathered PyTorch), with WFAgg keeping per-node temporal
-     state (Alg. 4).
+  3. aggregation, one of
+     - gossip (DFL): WFAgg over each node's K neighbours through the
+       single-launch round (``core.wfagg.wfagg_batch(neighbor_idx=…)``,
+       one CUDA kernel launch per round on the card), or the mean
+       baseline (plain gathered PyTorch), with WFAgg keeping per-node
+       temporal state (Alg. 4);
+     - the centralized baseline (CFL, ``DFLConfig(centralized=True)``):
+       one server aggregates all N received models with WFAgg or
+       Alt-WFAgg (``core.wfagg.wfagg``: the statistics, Gram and combine
+       kernels on the card) or a baseline rule of
+       ``core.aggregators.AGGREGATORS``, and every node starts the next
+       round from the new global model.
 
 Entry points take ``device=None``, which means the card; without one
 they raise.  Not ported yet, and raising: dynamic schedules and chaos
 transport (ROADMAP queue 1, items 6 and 8), telemetry export (item 9),
-the CFL baseline and the other aggregators (item 10), Alt-WFAgg (queue 2,
-item 1), model-dimension sharding (queue 1, item 11).
+the decentralized baselines other than mean and the standalone WFAgg
+filters (item 10), decentralized Alt-WFAgg (queue 2, item 1),
+model-dimension sharding (queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -40,7 +48,9 @@ from repro_torch.models.lenet import MODELS, param_count, ravel, unravel
 from repro_torch.obs import decision as obs_decision
 
 Tensor = torch.Tensor
-PORTED_AGGREGATORS = ("wfagg", "mean")
+PORTED_AGGREGATORS = ("wfagg", "mean")           # gossip (DFL) rounds
+BASELINES = ("mean", "median", "trimmed_mean", "krum", "multi_krum", "clustering")
+CFL_AGGREGATORS = BASELINES + ("wfagg", "alt_wfagg")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +58,7 @@ class DFLConfig:
     aggregator: str = "wfagg"
     attack: str = "none"
     model: str = "mlp"            # mlp | lenet
-    centralized: bool = False     # CFL baseline (not ported yet)
+    centralized: bool = False     # CFL: one server aggregates all N models
     paper: PaperDFLConfig = PaperDFLConfig()
     batches_per_round: int = 4
     seed: int = 0
@@ -73,19 +83,20 @@ class DFLState(NamedTuple):
 
 
 def _check_supported(cfg: DFLConfig) -> None:
-    if cfg.centralized:
-        raise NotImplementedError(
-            "the CFL baseline (centralized=True) is not ported yet: ROADMAP "
-            "queue 1, item 10")
     if cfg.mesh_model_shards > 1:
         raise NotImplementedError(
             "model-dimension sharding is not ported yet: ROADMAP queue 1, "
             "item 11")
-    if cfg.aggregator == "alt_wfagg":
+    if cfg.centralized:
+        if cfg.aggregator not in CFL_AGGREGATORS:
+            raise NotImplementedError(
+                f"CFL aggregator {cfg.aggregator!r} is not ported yet (ported: "
+                f"{CFL_AGGREGATORS}): ROADMAP queue 1, item 10")
+    elif cfg.aggregator == "alt_wfagg":
         raise NotImplementedError(
-            "alt_wfagg needs the Gram variant of the round kernel: ROADMAP "
-            "queue 2, item 1")
-    if cfg.aggregator not in PORTED_AGGREGATORS:
+            "decentralized alt_wfagg needs the Gram variant of the round "
+            "kernel: ROADMAP queue 2, item 1")
+    elif cfg.aggregator not in PORTED_AGGREGATORS:
         raise NotImplementedError(
             f"aggregator {cfg.aggregator!r} is not ported yet (ported: "
             f"{PORTED_AGGREGATORS}): ROADMAP queue 1, item 10")
@@ -97,7 +108,9 @@ def init_dfl_state(cfg: DFLConfig, topo: Topology,
                    degree: Optional[int] = None, device=None) -> DFLState:
     """Fresh per-node models (drawn on the CPU from ``cfg.seed``, so every
     device starts from the same weights) and WFAgg-T state on ``device``.
-    ``degree`` overrides the neighbour-table width K."""
+    ``degree`` overrides the neighbour-table width K.  CFL keeps the one
+    server's state with a leading axis of 1, over K = N candidates, with a
+    per-edge ``prev (1, N, d)``."""
     _check_supported(cfg)
     dev = resolve_device(device)
     init_fn, _ = MODELS[cfg.model]
@@ -105,9 +118,14 @@ def init_dfl_state(cfg: DFLConfig, topo: Topology,
     params = {k: v.to(dev) for k, v in
               init_fn(N, torch.Generator().manual_seed(cfg.seed)).items()}
     momentum = {k: torch.zeros_like(v) for k, v in params.items()}
-    K = degree if degree is not None else topo.degree
+    K = degree if degree is not None else (N if cfg.centralized else topo.degree)
     temporal = None
-    if cfg.aggregator == "wfagg":
+    if cfg.centralized:
+        if cfg.aggregator in ("wfagg", "alt_wfagg"):
+            t0 = wf.init_temporal_state(K, param_count(params), cfg.paper.window,
+                                        device=dev)
+            temporal = wf.TemporalState(*(x[None] for x in t0))
+    elif cfg.aggregator == "wfagg":
         # the temporal ``prev`` is the previous round's (N, d) model
         # matrix, read through the neighbour table: prev[idx[n, k]] is
         # exactly edge (n, k)'s last received model
@@ -170,6 +188,45 @@ def _apply_attacks(cfg: DFLConfig, malicious: Tensor, flat: Tensor, rnd: int) ->
 
 
 # ---------------------------------------------------------------------------
+# aggregation dispatch (one aggregation over K received models)
+# ---------------------------------------------------------------------------
+
+def _wfagg_full_config(cfg: DFLConfig, K: int,
+                       backend: Optional[str] = None) -> wf.WFAggConfig:
+    """WFAggConfig for the full wfagg/alt_wfagg pipeline at candidate count K."""
+    wcfg = cfg.wfagg_config(backend=backend)
+    if cfg.aggregator == "alt_wfagg":
+        wcfg = dataclasses.replace(
+            wcfg, distance_filter="multi_krum", similarity_filter="clustering",
+            multi_krum_m=max(1, int(cfg.paper.multi_krum_m_frac * K)))
+    return wcfg
+
+
+def _aggregate_one(cfg: DFLConfig, local: Tensor, updates: Tensor,
+                   t_state: Optional[wf.TemporalState]):
+    """Aggregate K received models ``updates (K, d)`` for one node (the CFL
+    server), anchored at ``local (d,)``.  Returns ``(new_model (d,),
+    new_temporal_state)``."""
+    p = cfg.paper
+    name = cfg.aggregator
+    K = updates.shape[0]
+    if name in BASELINES:
+        kw: Dict[str, Any] = {"f": p.f}
+        if name == "trimmed_mean":
+            kw = {"beta": p.trim_beta}
+        if name == "multi_krum":
+            kw["m"] = max(1, int(p.multi_krum_m_frac * K))
+        if name == "clustering":
+            kw = {}
+        out, _ = agg_lib.AGGREGATORS[name](updates, **kw)
+        return out, t_state
+    if name in ("wfagg", "alt_wfagg"):
+        out, new_t, _ = wf.wfagg(local, updates, t_state, _wfagg_full_config(cfg, K))
+        return out, new_t
+    raise ValueError(name)
+
+
+# ---------------------------------------------------------------------------
 # the round function
 # ---------------------------------------------------------------------------
 
@@ -178,7 +235,13 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
                    faults=None, device=None) -> Callable:
     """One DFL round on ``device`` over the static topology:
     ``round_fn(state, batches=None) -> state`` (``(state, record)`` with
-    ``telemetry``, the per-edge ``obs.decision.DecisionRecord``)."""
+    ``telemetry``, the per-edge ``obs.decision.DecisionRecord``; a CFL
+    round has no edges and takes no ``telemetry``)."""
+    if cfg.centralized and telemetry:
+        raise NotImplementedError(
+            "telemetry records per-edge gossip verdicts; the CFL baseline has "
+            "one server and no edges (the reference raises too; ROADMAP queue "
+            "1, item 9)")
     if dynamic:
         raise NotImplementedError(
             "dynamic schedules are not ported yet: ROADMAP queue 1, item 6")
@@ -198,12 +261,25 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
     wcfg = cfg.wfagg_config()
 
     def round_fn(state: DFLState, batches=None):
+        # CFL: the server's WFAgg-E anchor is node 0's model from BEFORE
+        # local training (the previous round's global model; node 0's own
+        # initial weights in round 1), as the reference takes it
+        anchor = (ravel({k: v[:1] for k, v in state.node_params.items()})[0]
+                  if cfg.centralized else None)
         params, momentum = _local_train(cfg, data, malicious, state.node_params,
                                         state.node_momentum, state.rnd, batches)
         flat = ravel(params)
         flat = _apply_attacks(cfg, malicious, flat, state.rnd)
         record = None
-        if cfg.aggregator == "wfagg":
+        if cfg.centralized:
+            # one server-side aggregation over all N received models
+            t0 = (wf.TemporalState(*(x[0] for x in state.temporal))
+                  if state.temporal is not None else None)
+            new_global, new_t0 = _aggregate_one(cfg, anchor, flat, t0)
+            new_flat = new_global.expand(flat.shape)
+            new_temporal = (wf.TemporalState(*(x[None] for x in new_t0))
+                            if new_t0 is not None else None)
+        elif cfg.aggregator == "wfagg":
             new_flat, new_temporal, info = wf.wfagg_batch(
                 flat, flat, state.temporal, wcfg, neighbor_idx=neighbor_idx,
                 valid=neighbor_valid, device=dev)
@@ -269,40 +345,50 @@ def run_experiment(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
                    rounds: Optional[int] = None, eval_every: int = 1,
                    telemetry: bool = False, device=None) -> Dict[str, Any]:
     """Run a DFL experiment on ``device``; returns the per-round metric
-    trace and the columnar ``series`` (accuracy, consistency, the per-round
-    mean-fallback / degree-0 node counts and ``round_seconds``, the wall
-    time of each round from a synchronised start to a synchronised end)."""
+    trace and the columnar ``series``: accuracy, consistency and
+    ``round_seconds`` (the wall time of each round from a synchronised
+    start to a synchronised end), and for gossip runs the per-round
+    mean-fallback / degree-0 node counts (a CFL run has no edges, so it
+    tracks neither, as in the reference)."""
     if telemetry:
         raise NotImplementedError(
             "telemetry export is not ported yet: ROADMAP queue 1, item 9")
     dev = resolve_device(device)
     rounds = rounds or cfg.paper.rounds
+    track = not cfg.centralized
     state = init_dfl_state(cfg, topo, device=dev)
-    round_fn = build_round_fn(cfg, topo, data, telemetry=True, device=dev)
+    round_fn = build_round_fn(cfg, topo, data, telemetry=track, device=dev)
     trace = []
     fallback_counts, degree_zero_counts, round_seconds = [], [], []
+    mf = None
     for r in range(rounds):
         _sync(dev)
         t0 = time.perf_counter()
-        state, rec = round_fn(state)
+        if track:
+            state, rec = round_fn(state)
+        else:
+            state = round_fn(state)
         _sync(dev)
         round_seconds.append(time.perf_counter() - t0)
-        mf = rec.mean_fallback.cpu().numpy()
-        fallback_counts.append(int(mf.sum()))
-        degree_zero_counts.append(int(rec.degree_zero.sum()))
+        if track:
+            mf = rec.mean_fallback.cpu().numpy()
+            fallback_counts.append(int(mf.sum()))
+            degree_zero_counts.append(int(rec.degree_zero.sum()))
         if (r + 1) % eval_every == 0 or r == rounds - 1:
             e = evaluate(cfg, topo, data, state)
             e["round"] = r + 1
-            e["mean_fallback_nodes"] = np.flatnonzero(mf).tolist()
+            if mf is not None:
+                e["mean_fallback_nodes"] = np.flatnonzero(mf).tolist()
             trace.append(e)
     series = {
         "round": [e["round"] for e in trace],
         "acc_benign_mean": [e["acc_benign_mean"] for e in trace],
         "r_squared": [e["r_squared"] for e in trace],
-        "mean_fallback_count": fallback_counts,
-        "degree_zero_count": degree_zero_counts,
         "round_seconds": round_seconds,
     }
+    if track:
+        series["mean_fallback_count"] = fallback_counts
+        series["degree_zero_count"] = degree_zero_counts
     return {"trace": trace, "final": trace[-1], "series": series,
             "aggregator": cfg.aggregator, "attack": cfg.attack,
             "centralized": cfg.centralized, "device": str(dev)}

@@ -1,1 +1,1 @@
-"""The single-launch WFAgg round: CUDA kernel, plain version, oracle."""
+"""Robust statistics: the single-launch WFAgg round and the single-matrix statistics (CUDA kernels, plain versions, oracles)."""

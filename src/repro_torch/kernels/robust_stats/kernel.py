@@ -1,110 +1,63 @@
-"""Build, bind and launch the single-launch WFAgg round kernel.
+"""Bind and launch the robust-statistics kernels of the port.
 
-The kernel (``csrc/wfagg_round.cu``) replaces the Pallas TPU kernel
-``_wfagg_round_indexed_kernel`` / ``wfagg_round_indexed_pallas``
-(``src/repro/kernels/robust_stats/kernel.py:367`` / ``:511``).  It is
-bound by the bytes it must move: models, prev and local read once, out
-written once, at the card's memory rate.  One CTA per receiving node
-streams the node's neighbour rows twice (statistics, then the combine);
-the second pass hits L2 at the paper's size.  See the source's header
-for the design.
+* ``csrc/wfagg_round.cu`` replaces the Pallas TPU kernel
+  ``_wfagg_round_indexed_kernel`` / ``wfagg_round_indexed_pallas``
+  (``src/repro/kernels/robust_stats/kernel.py:367`` / ``:511``): the whole
+  gossip round in one launch.  It is bound by the bytes it must move:
+  models, prev and local read once, out written once.  One CTA per
+  receiving node streams the node's neighbour rows twice (statistics,
+  then the combine); the second pass hits L2 at the paper's size.
+* ``csrc/robust_stats.cu`` replaces ``_robust_stats_kernel`` /
+  ``robust_stats_pallas`` (``kernel.py:70`` / ``:136``, ``d_axis=0``): the
+  median, trimmed mean and WFAgg filter statistics of one (K, D)
+  candidate matrix, as the single-node ``wfagg()`` and the CFL server
+  call it.  Bound by bytes at the paper's K; see the source's header.
 
-It is compiled with ``nvcc`` into a shared library with a plain C entry
-point at first use (into ``kernels/_build/``, keyed by the source's
-hash) and called through ``ctypes`` on PyTorch's current stream.  Nothing
-here runs at import: this module imports on a machine without ``nvcc``.
+Each source is compiled with ``nvcc`` into a shared library with a plain
+C entry point at first use (``kernels.common.build``) and called through
+``ctypes`` on PyTorch's current stream.  Nothing here runs at import:
+this module imports on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import BUILD_DIR
-from repro_torch.kernels.robust_stats.ref import RobustStats
+from repro_torch.kernels import common
+from repro_torch.kernels.common import check_tensor as _check
+from repro_torch.kernels.common import ptr as _ptr
+from repro_torch.kernels.robust_stats.ref import RobustStats, trim_count
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "wfagg_round.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "wfagg_round.cu"
+STATS_SOURCE = CSRC / "robust_stats.cu"
 MAX_K = 32
+TILE = 256       # coordinates per tile of robust_stats.cu (its kThreads)
 
-# Kernel launches so far in this process: bumped once per launch, right
-# where the kernel is launched.  A run that must show it went through the
-# kernel sets it to 0 before and reads it after.
-launches = 0
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    if (home / "bin" / "nvcc").exists():
-        return str(home / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
-                       "CUDA kernel cannot be built")
+# Kernel launches so far in this process, one counter per kernel: bumped
+# once per launch, right where the kernel is launched.  A run that must
+# show it went through a kernel sets its counter to 0 before and reads it
+# after.
+launches = 0                 # wfagg_round.cu
+robust_stats_launches = 0    # robust_stats.cu
 
 
-def library_path() -> pathlib.Path:
-    """Where the library for the current source and flags lives."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libwfagg_round_{tag}.so"
+def _bind_round(lib: ctypes.CDLL) -> None:
+    fn = lib.wfagg_round_indexed_launch
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([P] * 18 + [I, I, ctypes.c_longlong, I, F, F, F, F, F, I, P])
+    fn.restype = I
 
 
-def build() -> pathlib.Path:
-    """Compile the kernel unless this source was built already; returns
-    the library's path.  The compiler's output (``-Xptxas -v``: registers,
-    shared memory, spills) is kept beside it as ``.log``."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.wfagg_round_indexed_launch
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([P] * 18 + [I, I, ctypes.c_longlong, I, F, F, F, F, F, I, P])
-        fn.restype = I
-        _lib = lib
-    return _lib
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _bind_stats(lib: ctypes.CDLL) -> None:
+    fn = lib.robust_stats_launch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, P, P, I, ctypes.c_longlong, I, I, P]
+    fn.restype = I
 
 
 def wfagg_round_indexed_cuda(
@@ -142,7 +95,7 @@ def wfagg_round_indexed_cuda(
         if prev is None:
             raise ValueError("tbands requires prev")
         _check("tbands", tbands, torch.float32, (N, 4 * K), dev)
-    fn = _load().wfagg_round_indexed_launch
+    fn = common.load(SOURCE, _bind_round).wfagg_round_indexed_launch
 
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((N, D), **f32)
@@ -162,9 +115,54 @@ def wfagg_round_indexed_cuda(
                  N, K, D, int(cfg.f), float(cfg.tau1), float(cfg.tau2),
                  float(cfg.tau3), floor, float(alpha), int(bool(mean_fallback)),
                  stream)
-    if err != 0:
-        raise RuntimeError(f"wfagg_round_indexed kernel launch failed: "
-                           f"cudaError {err}")
+    common.launch_error("wfagg_round_indexed", err)
     launches += 1
     stats = RobustStats(None, None, dist2, dotmed, norm2, mednorm2, *tail)
     return (out, weights, *masks, stats)
+
+
+def robust_stats_cuda(
+    updates: torch.Tensor,            # (K, D) f32
+    prev: Optional[torch.Tensor],     # (K, D) f32 or None
+    beta: float,
+    need_center: bool,
+) -> RobustStats:
+    """Launch the single-matrix statistics kernel on the tensors' CUDA
+    device and stream.
+
+    Every output is allocated here with ``torch.empty``: the (D,) centers
+    when ``need_center``, the per-CTA partial sums, and one flat vector
+    ``[dist2 | dotmed | norm2 | prev_dist2 | prev_dot | prev_norm2 |
+    mednorm2]`` that the returned ``RobustStats`` views.
+    """
+    global robust_stats_launches
+    K, D = updates.shape
+    dev = updates.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"the robust_stats kernel takes 1 <= K <= {MAX_K} "
+                         f"candidates, got K={K}")
+    n_trim = trim_count(K, beta)
+    if K - 2 * n_trim < 1:
+        raise ValueError(f"beta={beta} trims every one of the K={K} candidates")
+    _check("updates", updates, torch.float32, (K, D), dev)
+    if prev is not None:
+        _check("prev", prev, torch.float32, (K, D), dev)
+    fn = common.load(STATS_SOURCE, _bind_stats).robust_stats_launch
+    f32 = dict(dtype=torch.float32, device=dev)
+    med = torch.empty((D,), **f32) if need_center else None
+    trim = torch.empty((D,), **f32) if need_center else None
+    n_blocks = common.grid_blocks(dev, -(-D // TILE))
+    n_out = 6 * K + 1
+    partials = torch.empty((n_blocks, n_out), **f32)
+    flat = torch.empty((n_out,), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(_ptr(updates), _ptr(prev), _ptr(med), _ptr(trim),
+                 _ptr(partials), _ptr(flat), K, D, n_trim, n_blocks, stream)
+    common.launch_error("robust_stats", err)
+    robust_stats_launches += 1
+    f = [flat[i * K:(i + 1) * K] for i in range(6)]
+    tail = f[3:] if prev is not None else [None, None, None]
+    return RobustStats(med, trim, f[0], f[1], f[2], flat[6 * K], *tail)

@@ -1,11 +1,13 @@
-"""Public wrapper of the single-launch WFAgg round (port of
-``repro.kernels.robust_stats.ops.wfagg_round_indexed``).
+"""Public wrappers of the robust-statistics kernels (port of
+``repro.kernels.robust_stats.ops``): ``robust_stats`` over one (K, d)
+candidate matrix and the single-launch round ``wfagg_round_indexed``.
 
 Dispatch is by the tensors' device alone: CUDA tensors go to the
-hand-written kernel (``kernel.wfagg_round_indexed_cuda``), and a failed
-build or launch raises; CPU tensors go to ``wfagg_round_indexed_plain``,
-the same function in plain PyTorch.  There is no fallback from one to
-the other.
+hand-written kernel (``kernel.robust_stats_cuda``,
+``kernel.wfagg_round_indexed_cuda``), and a failed build or launch
+raises; CPU tensors go to ``robust_stats_plain`` /
+``wfagg_round_indexed_plain``, the same functions in plain PyTorch.
+There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -16,11 +18,57 @@ import torch
 from repro_torch.core import trust
 from repro_torch.kernels.common import pad_d
 from repro_torch.kernels.robust_stats import kernel
-from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+from repro_torch.kernels.robust_stats.ref import (
+    RobustStats, center_stats, median_and_trim, robust_stats_indexed_ref,
+    sort_columns)
 
 # rows padded to whole 128-byte lines, so every neighbour row the kernel
 # reads starts aligned (zero padding is exact, see common.pad_d)
 _ROW_ALIGN = 32
+
+
+def robust_stats_plain(updates: torch.Tensor, prev: Optional[torch.Tensor] = None,
+                       beta: float = 0.1, need_center: bool = True) -> RobustStats:
+    """The single-matrix statistics in plain PyTorch, as the kernel
+    computes them: a column holding a NaN sorts to all NaN (the kernel's
+    network propagates NaN like ``jnp.minimum``, as the Pallas kernel's
+    does), so its median and trimmed mean are NaN."""
+    u = updates.to(torch.float32)
+    med, trim = median_and_trim(sort_columns(u), beta)
+    if not need_center:
+        return center_stats(u, None, None, prev, center=med)
+    return center_stats(u, med, trim, prev)
+
+
+def robust_stats(
+    updates: torch.Tensor,                   # (K, d) candidate matrix
+    prev: Optional[torch.Tensor] = None,     # (K, d) previous-round rows
+    beta: float = 0.1,
+    need_center: bool = True,
+) -> RobustStats:
+    """Median / trimmed-mean / WFAgg filter statistics over (K, d) in one
+    pass.  With ``prev`` the WFAgg-T temporal tail (prev_dist2 / prev_dot /
+    prev_norm2) comes too; ``need_center=False`` skips the (d,)-sized
+    median and trimmed mean (``med``/``trim`` come back None).  K <= 32 on
+    every device (the kernel's limit)."""
+    if updates.ndim != 2:
+        raise ValueError(f"updates must be (K, d), got {tuple(updates.shape)}")
+    K = updates.shape[0]
+    if K > kernel.MAX_K:
+        raise ValueError(
+            f"robust_stats takes at most {kernel.MAX_K} candidates, got K={K} "
+            "(CFL with more than 32 nodes: ROADMAP queue 2, item 4)")
+    if prev is not None and prev.shape != updates.shape:
+        raise ValueError(f"prev has shape {tuple(prev.shape)}, expected "
+                         f"{tuple(updates.shape)}")
+    dev = updates.device
+    if dev.type == "cpu":
+        return robust_stats_plain(updates, prev, beta, need_center)
+    if dev.type != "cuda":
+        raise ValueError(f"robust_stats runs on cuda or cpu, not {dev}")
+    p = prev.to(torch.float32).contiguous() if prev is not None else None
+    return kernel.robust_stats_cuda(updates.to(torch.float32).contiguous(), p,
+                                    beta, need_center)
 
 
 def wfagg_round_indexed_plain(local, models, neighbor_idx, valid, cfg,

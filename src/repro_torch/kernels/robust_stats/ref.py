@@ -1,7 +1,11 @@
-"""Plain PyTorch oracle for the indexed robust statistics (port of
+"""Plain PyTorch oracles for the robust statistics (port of
 ``repro.kernels.robust_stats.ref``).
 
-For each receiving node n with candidate rows ``u_k = models[idx[n, k]]``:
+``robust_stats_ref`` takes one candidate matrix ``updates (K, D)`` and
+returns the median and beta-trimmed mean ``med, trim (D,)`` beside the
+statistics below with K-shaped fields (``mednorm2`` a scalar).
+``robust_stats_indexed_ref`` does the same for every receiving node n of a
+gossip round, with candidate rows ``u_k = models[idx[n, k]]``:
   dist2     (N, K)  squared L2 distance of each candidate to the median model
   dotmed    (N, K)  inner product of each candidate with the median model
   norm2     (N, K)  squared L2 norm of each candidate
@@ -107,3 +111,51 @@ def robust_stats_indexed_ref(
     gram = torch.einsum("nkd,njd->nkj", u, u) if need_gram else None
     return RobustStats(None, None, dist2, dotmed, norm2, mednorm2,
                        prev_dist2, prev_dot, prev_norm2, gram)
+
+
+def sort_columns(u: Tensor) -> Tensor:
+    """Columns of ``u (K, D)`` sorted along axis 0, a column holding a NaN
+    all NaN: what a sorting network whose compare-exchange propagates NaN
+    (``jnp.minimum``/``jnp.maximum``, the Pallas kernel's) returns, and
+    what ``jnp.median`` computes on."""
+    srt = torch.sort(u, dim=0).values
+    return torch.where(torch.isnan(u).any(0), torch.nan, srt)
+
+
+def median_and_trim(srt: Tensor, beta: float):
+    """Median (mean of the two middles for even K) and beta-trimmed mean of
+    columns already sorted along axis 0 of ``srt (K, D)``."""
+    K = srt.shape[0]
+    med = srt[K // 2] if K % 2 == 1 else 0.5 * (srt[K // 2 - 1] + srt[K // 2])
+    t = trim_count(K, beta)
+    return med, srt[t:K - t].mean(0)
+
+
+def center_stats(u: Tensor, med: Optional[Tensor], trim: Optional[Tensor],
+                 prev: Optional[Tensor] = None,
+                 center: Optional[Tensor] = None) -> RobustStats:
+    """The per-candidate sums of ``u (K, D)`` about the median ``center``
+    (``med`` unless given), with the temporal tail when ``prev (K, D)`` is
+    given; ``med``/``trim`` are passed through to the result."""
+    c = med if center is None else center
+    diff = u - c
+    prev_dist2 = prev_dot = prev_norm2 = None
+    if prev is not None:
+        pe = prev.to(torch.float32)
+        dp = u - pe
+        prev_dist2 = (dp * dp).sum(-1)
+        prev_dot = (u * pe).sum(-1)
+        prev_norm2 = (pe * pe).sum(-1)
+    return RobustStats(med, trim, (diff * diff).sum(-1), (u * c).sum(-1),
+                       (u * u).sum(-1), (c * c).sum(), prev_dist2, prev_dot,
+                       prev_norm2)
+
+
+def robust_stats_ref(updates: Tensor, beta: float = 0.1,
+                     prev: Optional[Tensor] = None) -> RobustStats:
+    """Oracle of the single-matrix statistics: sorted median and
+    beta-trimmed mean of ``updates (K, D)`` and the statistics about the
+    median."""
+    u = updates.to(torch.float32)
+    med, trim = median_and_trim(torch.sort(u, dim=0).values, beta)
+    return center_stats(u, med, trim, prev)

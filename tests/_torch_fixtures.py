@@ -1,5 +1,8 @@
-"""Shared numpy fixtures for the port's parity tests: each test builds its
-inputs here once and hands the same arrays to both packages."""
+"""Shared fixtures for the port's parity tests: each test builds its
+inputs here once, in numpy, and hands the same arrays to both packages;
+``jax_batches`` draws the reference engine's own per-node batches."""
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 
@@ -36,3 +39,16 @@ def ring_slate(N, K):
 def models(N, d, seed, shift=0.3):
     return (np.random.default_rng(seed).standard_normal((N, d))
             .astype(np.float32) + np.float32(shift))
+
+
+def jax_batches(data, N, rnd, n_batches, batch_size):
+    """The reference engine's per-node batches of round ``rnd`` as numpy
+    arrays, drawn with the same ``fold_in`` keys as
+    ``repro/dfl/engine.py:157``."""
+    @jax.jit
+    def draw(rnd, b):
+        keys = jax.vmap(lambda n: jax.random.fold_in(
+            jax.random.fold_in(jax.random.PRNGKey(data.seed), n), rnd * 1000 + b))(
+                jnp.arange(N))
+        return jax.vmap(lambda k: data.batch(k, batch_size))(keys)
+    return [tuple(np.array(x) for x in draw(rnd, b)) for b in range(n_batches)]
