@@ -8,7 +8,7 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
 Phases, each of which fails the run:
 
-  1. the card's name and power limit; build the four kernel libraries of
+  1. the card's name and power limit; build the six kernel libraries of
      the port from the sources in the checkout, one ``nvcc`` each, all
      started together (timed; ptxas registers and spills printed);
   2. hold each kernel against its plain PyTorch version on the card:
@@ -25,18 +25,37 @@ Phases, each of which fails the run:
        exactly symmetric, Multi-Krum and Clustering masks bit-equal);
      - the combine (``weighted_agg.cu``) within 3e-5, and exactly ``local``
        with all-zero weights;
+     - the round kernel's Gram variant (Alt-WFAgg) on the paper's ring and
+       on irregular slates with a degree-0 row at K=8/16/32, each with two
+       bit-identical rows: masks and weights equal to
+       ``derive_trust_weights`` of the kernel's own statistics and Gram and
+       bit-equal to the plain version, the Gram exactly symmetric and within
+       rtol 1e-4, ``out`` within 3e-5;
+     - the gather-free statistics (``robust_stats_indexed.cu``) on the same
+       slates with and without ``prev`` and the Gram (within rtol 1e-4,
+       Gram exactly symmetric, identical rows tied, masks bit-equal) and
+       the gather-free combine (``weighted_agg_indexed.cu``: within 1e-6 of
+       the output's scale, exactly ``local`` with zero weights and on a
+       degree-0 row);
      then time each kernel, its plain version, its bound and, where one
      PyTorch call computes the same function, that call, with CUDA
-     events: the round at N=64, K=16, d=2^20; the other three at the CFL
-     shape and at K=32, D=2^22 (512 MiB per matrix);
+     events: the round at N=64, K=16, d=2^20; the CFL kernels at the CFL
+     shape and at K=32, D=2^22 (512 MiB per matrix); the Gram round and
+     the two-launch kernels at the paper's shape and at N=64, K=16,
+     d=2^20; the Gram variant's cost by difference at N=64, K=32, d=8192;
+     and the gossip aggregation on ``fused`` against ``fused_two_launch``
+     at N=64, K=16, d=2^20;
   3. the main paths, each with every kernel's launch count set to 0 just
      before and read just after:
      - DFL: ``run_experiment`` at the paper's configuration (LeNet-5,
        20-node 8-regular ring, 2 Byzantine nodes placed close, IPM-100,
-       WFAgg on the single-launch backend, 6 rounds; one round-kernel
-       launch per round), the mean baseline beside it, the round checked
-       against the reference backend on the card, round by round, and the
-       paper's IPM-100 claim (WFAgg > 0.9 and > mean + 0.2) on the MLP;
+       6 rounds): WFAgg and Alt-WFAgg on the single-launch backend (one
+       round-kernel launch per round), Alt-WFAgg and WFAgg on the
+       two-launch backend (one statistics and one combine launch per
+       round), the mean baseline beside them, each replayed round by
+       round against the reference backend on the card, and the paper's
+       IPM-100 claim (WFAgg and Alt-WFAgg each > 0.9 and > mean + 0.2;
+       Multi-Krum and Clustering printed beside them) on the MLP;
      - CFL (``centralized=True``, the same topology and attack): WFAgg
        (one statistics and one combine launch per round, no Gram) and
        Alt-WFAgg (one of each of the three), each replayed round by round
@@ -77,6 +96,14 @@ KERNELS = {
     "weighted_agg": ("repro_torch.kernels.weighted_agg.kernel", "launches",
                      "src/repro_torch/kernels/weighted_agg/csrc/weighted_agg.cu",
                      "src/repro/kernels/weighted_agg/kernel.py:88"),
+    "robust_stats_indexed": ("repro_torch.kernels.robust_stats.kernel", "indexed_launches",
+                             "src/repro_torch/kernels/robust_stats/csrc/"
+                             "robust_stats_indexed.cu",
+                             "src/repro/kernels/robust_stats/kernel.py:271"),
+    "weighted_agg_indexed": ("repro_torch.kernels.weighted_agg.kernel", "indexed_launches",
+                             "src/repro_torch/kernels/weighted_agg/csrc/"
+                             "weighted_agg_indexed.cu",
+                             "src/repro/kernels/weighted_agg/kernel.py:56"),
 }
 
 
@@ -325,6 +352,298 @@ def compare_weighted_agg(torch, K, D, seed) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the Gram round and the two-launch kernels of the gossip round
+# ---------------------------------------------------------------------------
+
+def alt_config(K):
+    """Alt-WFAgg at candidate count K as the DFL engine configures it
+    (Multi-Krum m = max(1, int(0.25 K)), Clustering), with the bands of
+    ``round_inputs``."""
+    from repro_torch.core.wfagg import alt_wfagg_config
+
+    return alt_wfagg_config(transient=3, multi_krum_m=max(1, int(0.25 * K)))
+
+
+def tied_nodes(torch, idx_t, valid_t, dup):
+    """Nodes whose valid slate holds both bit-identical rows (their
+    previous-round rows differ), and the two slots of each."""
+    v = (torch.ones(idx_t.shape, dtype=torch.bool, device=idx_t.device)
+         if valid_t is None else valid_t)
+    a, b = (idx_t == dup[0]) & v, (idx_t == dup[1]) & v
+    both = torch.nonzero(a.any(1) & b.any(1)).flatten()
+    return [(int(n), int(a[n].nonzero()[0]), int(b[n].nonzero()[0])) for n in both]
+
+
+def check_ties(torch, label, stats, ties, fields):
+    """Identical rows got bit-identical statistics and Gram rows."""
+    for n, ka, kb in ties:
+        for name in fields:
+            x = getattr(stats, name)
+            if x is not None and not torch.equal(x[n, ka], x[n, kb]):
+                raise AssertionError(f"{label}: identical rows got different {name}")
+        if stats.gram is not None:
+            g = stats.gram[n]
+            others = [j for j in range(g.shape[0]) if j not in (ka, kb)]
+            if not (torch.equal(g[ka, others], g[kb, others])
+                    and torch.equal(g[ka, ka], g[kb, kb])):
+                raise AssertionError(f"{label}: identical rows got different Gram rows")
+
+
+def compare_gram_round(torch, label, N, K, d, idx, valid, seed, dup) -> float:
+    """The round kernel's Gram variant (Alt-WFAgg) against its plain
+    version, and its epilogue against ``derive_trust_weights`` of its own
+    statistics and Gram."""
+    from repro_torch.core import trust
+    from repro_torch.kernels.robust_stats import ops
+
+    models, prev, idx_t, valid_t, tbands, _ = round_inputs(
+        torch, N, K, d, idx, valid, seed, dup)
+    cfg = alt_config(K)
+    got = ops.wfagg_round_indexed(models, models, idx_t, valid_t, cfg,
+                                  prev=prev, tbands=tbands)
+    v = (torch.ones((N, K), dtype=torch.bool, device="cuda") if valid_t is None
+         else valid_t)
+    want = ops.wfagg_round_indexed_plain(models, models, idx_t, v, cfg, prev, tbands)
+    own = trust.derive_trust_weights(got[5], v, tbands, cfg)
+    torch.cuda.synchronize()
+    for name, g, w, o in zip(("mask_d", "mask_c", "mask_t"), got[2:5], want[2:5], own):
+        if not torch.equal(g, o):
+            raise AssertionError(f"{label}: the epilogue's {name} differs from "
+                                 f"derive_trust_weights of its own stats at "
+                                 f"{int((g != o).sum())} edges")
+        if not torch.equal(g, w):
+            raise AssertionError(f"{label}: {name} differs from the plain version "
+                                 f"at {int((g != w).sum())} edges")
+    if not torch.equal(got[1], own[3]):
+        raise AssertionError(f"{label}: the epilogue's weights differ from "
+                             "derive_trust_weights of its own stats")
+    gram, gp = got[5].gram, want[5].gram
+    if not torch.equal(gram, gram.transpose(1, 2)):
+        raise AssertionError(f"{label}: Gram not exactly symmetric")
+    torch.testing.assert_close(gram, gp, rtol=1e-4, atol=1e-6 * d)
+    torch.testing.assert_close(got[0], want[0], rtol=OUT_TOL, atol=OUT_TOL)
+    for name in ("dist2", "dotmed", "norm2", "mednorm2", "prev_dist2",
+                 "prev_dot", "prev_norm2"):
+        torch.testing.assert_close(getattr(got[5], name), getattr(want[5], name),
+                                   rtol=STAT_RTOL, atol=STAT_ATOL)
+    ties = tied_nodes(torch, idx_t, valid_t, dup)
+    check_ties(torch, label, got[5], ties, ("dist2", "dotmed", "norm2"))
+    err = float((got[0] - want[0]).abs().max())
+    print(f"  {label}: masks bit-equal to the plain version and to "
+          f"derive_trust_weights of the kernel's own stats and Gram (mask_d on "
+          f"{int(got[2].sum())}, mask_c on {int(got[3].sum())}, mask_t on "
+          f"{int(got[4].sum())} of {int(v.sum())} edges); Gram symmetric, max|err| "
+          f"{float((gram - gp).abs().max()):.3g}; {len(ties)} nodes with the tied "
+          f"rows; out max|err| {err:.3g}")
+    return err
+
+
+def compare_indexed_stats(torch, label, N, K, d, idx, valid, seed, dup,
+                          with_prev, need_gram) -> float:
+    """Kernel 2 against ``ref.robust_stats_indexed_ref``: statistics within
+    rtol 1e-4, Gram exactly symmetric, identical rows tied, and the masks
+    from its statistics bit-equal to those from the plain statistics."""
+    from repro_torch.core import trust
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.kernels.robust_stats import ops
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+
+    models, prev, idx_t, valid_t, _, _ = round_inputs(torch, N, K, d, idx, valid,
+                                                      seed, dup)
+    p = prev if with_prev else None
+    got = ops.robust_stats_indexed(models, idx_t, valid_t, p, need_gram=need_gram)
+    v = (torch.ones((N, K), dtype=torch.bool, device="cuda") if valid_t is None
+         else valid_t)
+    want = robust_stats_indexed_ref(models, idx_t, v, p, need_gram=need_gram)
+    torch.cuda.synchronize()
+    label = f"{label} prev={with_prev} gram={need_gram}"
+    fields = ("dist2", "dotmed", "norm2", "mednorm2") + (
+        ("prev_dist2", "prev_dot", "prev_norm2") if with_prev else ())
+    errs = []
+    for name in fields:
+        g, w = getattr(got, name), getattr(want, name)
+        torch.testing.assert_close(g, w, rtol=STAT_RTOL, atol=STAT_ATOL)
+        errs.append(float((g - w).abs().max()))
+    if not with_prev and got.prev_dist2 is not None:
+        raise AssertionError(f"{label}: a temporal tail without prev")
+    if need_gram:
+        if not torch.equal(got.gram, got.gram.transpose(1, 2)):
+            raise AssertionError(f"{label}: Gram not exactly symmetric")
+        torch.testing.assert_close(got.gram, want.gram, rtol=1e-4, atol=1e-6 * d)
+        errs.append(float((got.gram - want.gram).abs().max()))
+    elif got.gram is not None:
+        raise AssertionError(f"{label}: a Gram without need_gram")
+    ties = tied_nodes(torch, idx_t, valid_t, dup)
+    check_ties(torch, label, got, ties, fields[:3])
+    cfgs = [WFAggConfig()] + ([alt_config(K)] if need_gram else [])
+    for cfg in cfgs:
+        mk = lambda st: trust.derive_trust_weights(st, v, None, cfg)[:2]  # noqa: E731
+        for g, w in zip(mk(got), mk(want)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label}: masks from the kernel's statistics "
+                                     f"differ from the plain ones ({cfg.distance_filter})")
+    print(f"  {label}: statistics within rtol {STAT_RTOL}, masks bit-equal, "
+          f"{len(ties)} nodes with the tied rows tied, max|err| {max(errs):.3g}")
+    return max(errs)
+
+
+def compare_weighted_agg_indexed(torch, label, N, K, d, idx, valid, seed) -> float:
+    """Kernel 3 against its plain version (within 1e-6 of the output's
+    scale), exactly ``local`` with zero weights, and a degree-0 row keeps
+    its local model."""
+    from repro_torch.core.trust import combine_coefficients
+    from repro_torch.kernels.weighted_agg import ops
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    models = torch.randn((N, d), generator=g, device="cuda") + 0.3
+    local = torch.randn((N, d), generator=g, device="cuda")
+    idx_t = torch.as_tensor(idx, device="cuda")
+    v = (torch.ones((N, K), dtype=torch.bool, device="cuda") if valid is None
+         else torch.as_tensor(valid, device="cuda"))
+    w = torch.where(torch.rand((N, K), generator=g, device="cuda") < 0.3, 0.0, 0.8)
+    w = torch.where(v, w, 0.0)
+    got = ops.weighted_agg_indexed(local, models, idx_t, w, alpha=0.8)
+    want = ops.weighted_agg_indexed_plain(*combine_coefficients(w, 0.8), local, models,
+                                          idx_t)
+    zero = ops.weighted_agg_indexed(local, models, idx_t, torch.zeros_like(w), alpha=0.8)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if err > 1e-6 * scale:
+        raise AssertionError(f"{label}: weighted_agg_indexed off its plain version by "
+                             f"{err:.3g} (scale {scale:.3g})")
+    if not torch.equal(zero, local):
+        raise AssertionError(f"{label}: all-zero weights did not keep local")
+    deg0 = ~v.any(1)
+    if not torch.equal(got[deg0], local[deg0]):
+        raise AssertionError(f"{label}: a degree-0 row did not keep its local model")
+    print(f"  {label}: within 1e-6 of scale {scale:.3g} (max|err| {err:.3g}), zero "
+          f"weights give local exactly, {int(deg0.sum())} degree-0 rows keep local")
+    return err
+
+
+def time_dfl_kernels(torch, N, K, d, seed) -> dict:
+    """The round kernel's Gram variant, kernel 2 (with Gram and prev) and
+    kernel 3 through their ``*_cuda`` wrappers on a ring slate, their
+    plain versions, bounds and, for kernel 3, the library calls.  Returns
+    name -> {ms, plain_ms, bound_ms, bound_by, library_ms}."""
+    from repro_torch.core.trust import combine_coefficients
+    from repro_torch.kernels.common import pad_d
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.robust_stats import ops as rops
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+    from repro_torch.kernels.weighted_agg import kernel as wk
+    from repro_torch.kernels.weighted_agg import ops as wops
+
+    idx = [[(n + o) % N for o in range(1, K + 1)] for n in range(N)]
+    models, prev, idx_t, _, tbands, _ = round_inputs(torch, N, K, d, idx, None, seed)
+    cfg = alt_config(K)
+    local = models.clone()
+    v = torch.ones((N, K), dtype=torch.bool, device="cuda")
+    i32 = idx_t.to(torch.int32)
+    out = {}
+    # statistics (16 flops per candidate coordinate, as for the round) and
+    # the Gram's K(K+1) per node coordinate
+    n_ops = (16.0 * K + K * (K + 1.0)) * N * d
+    b = bound(4.0 * (3 * N * d + N * d), n_ops)   # models, prev, local, out
+    out["wfagg_round_indexed_gram"] = dict(
+        ms=time_cuda(torch, lambda: rk.wfagg_round_indexed_cuda(
+            local, models, i32, v, prev, tbands, cfg, cfg.alpha, False), 3, 25),
+        plain_ms=time_cuda(torch, lambda: rops.wfagg_round_indexed_plain(
+            local, models, idx_t, v, cfg, prev, tbands), 1, 5),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    b = bound(4.0 * 2 * N * d, n_ops)             # models and prev once
+    no_gram = time_cuda(torch, lambda: rk.robust_stats_indexed_cuda(
+        models, i32, v, prev, False), 3, 25)
+    print(f"  robust_stats_indexed N={N} K={K} d={d} with prev, without the Gram: "
+          f"kernel {no_gram:.4f} ms")
+    out["robust_stats_indexed"] = dict(
+        ms=time_cuda(torch, lambda: rk.robust_stats_indexed_cuda(
+            models, i32, v, prev, True), 3, 25),
+        plain_ms=time_cuda(torch, lambda: robust_stats_indexed_ref(
+            models, idx_t, v, prev, need_gram=True), 1, 5),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    # every node accepts someone, so lcoef is one number (beta of baddbmm)
+    w = torch.where(torch.arange(K, device="cuda") % 3 == 0, 0.6, 0.8).expand(N, K)
+    wvec, lcoef = combine_coefficients(w.contiguous(), 0.8)
+    lc = float(lcoef[0])
+    b = bound(4.0 * 3 * N * d, 2.0 * N * K * d)  # models, local, out
+    l4, m4 = pad_d(local, 4).contiguous(), pad_d(models, 4).contiguous()
+    out["weighted_agg_indexed"] = dict(
+        ms=time_cuda(torch, lambda: wk.weighted_agg_indexed_cuda(
+            wvec, lcoef, l4, m4, i32), 3, 25),
+        plain_ms=time_cuda(torch, lambda: wops.weighted_agg_indexed_plain(
+            wvec, lcoef, local, models, idx_t), 1, 5),
+        bound_ms=b[0], bound_by=b[1],
+        # two calls: the gather, then one batched matrix product
+        library_ms=time_cuda(torch, lambda: torch.baddbmm(
+            local[:, None], wvec[:, None], models[idx_t], beta=lc), 3, 25))
+    for name, t in out.items():
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms (models[idx] + torch.baddbmm)")
+        print(f"  {name} N={N} K={K} d={d}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}), library {lib}")
+    return out
+
+
+def time_gram_epilogue(torch, N, K, d, seed) -> None:
+    """What the Gram variant costs in the round kernel, by difference at a
+    short d where the epilogue shows: WFAgg (no Gram), Multi-Krum + WFAgg-C
+    (the Gram and the Krum scores) and Alt-WFAgg (also the Clustering
+    loop's K - 2 merge steps)."""
+    import dataclasses
+
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.kernels.robust_stats import kernel as rk
+
+    idx = [[(n + o) % N for o in range(1, K + 1)] for n in range(N)]
+    models, prev, idx_t, _, tbands, _ = round_inputs(torch, N, K, d, idx, None, seed)
+    v = torch.ones((N, K), dtype=torch.bool, device="cuda")
+    i32 = idx_t.to(torch.int32)
+    alt = alt_config(K)
+    ms = {}
+    for name, cfg in (("wfagg", WFAggConfig(transient=3)),
+                      ("multi_krum+wfagg_c", dataclasses.replace(
+                          alt, similarity_filter="wfagg_c")),
+                      ("alt_wfagg", alt)):
+        ms[name] = time_cuda(torch, lambda: rk.wfagg_round_indexed_cuda(
+            models, models, i32, v, prev, tbands, cfg, cfg.alpha, False), 3, 25)
+    print(f"  round kernel N={N} K={K} d={d}: " + ", ".join(
+        f"{k} {t:.4f} ms" for k, t in ms.items()) + " (the Gram and Krum: "
+        f"{ms['multi_krum+wfagg_c'] - ms['wfagg']:.4f} ms, the Clustering loop: "
+        f"{ms['alt_wfagg'] - ms['multi_krum+wfagg_c']:.4f} ms)")
+
+
+def time_dfl_backends(torch, N, K, d, seed) -> None:
+    """The gossip round's aggregation (``wfagg_batch``, host work included)
+    on ``fused`` (one launch) against ``fused_two_launch`` (two launches
+    and the host scoring stage), for WFAgg and Alt-WFAgg, on a ring slate
+    with live temporal state; in turns: fused, two-launch, two-launch,
+    fused."""
+    import dataclasses
+
+    from repro_torch.core import wfagg as wf
+
+    idx = [[(n + o) % N for o in range(1, K + 1)] for n in range(N)]
+    models, prev, idx_t, _, _, _ = round_inputs(torch, N, K, d, idx, None, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    hist = lambda: 1 + 0.1 * torch.rand((N, 3, K), generator=g, device="cuda")  # noqa: E731
+    state = wf.TemporalState(prev=prev, hist_s=hist(), hist_b=hist(),
+                             count=torch.full((N,), 3, dtype=torch.int32, device="cuda"),
+                             t=torch.full((N,), 5, dtype=torch.int32, device="cuda"))
+    for name, base in (("wfagg", wf.WFAggConfig()), ("alt_wfagg", alt_config(K))):
+        ms = {}
+        for backend in ("fused", "fused_two_launch", "fused_two_launch", "fused"):
+            cfg = dataclasses.replace(base, backend=backend)
+            ms.setdefault(backend, []).append(time_cuda(torch, lambda: wf.wfagg_batch(
+                models, models, state, cfg, neighbor_idx=idx_t), 2, 10))
+        print(f"  {name} aggregation N={N} K={K} d={d} (wfagg_batch, median ms of "
+              f"10, two turns each): fused {ms['fused']}, fused_two_launch "
+              f"{ms['fused_two_launch']}")
+
+
 def network_compare_exchanges(K: int) -> int:
     """Compare-exchanges of robust_stats.cu's bitonic network for K padded
     to 8, 16 or 32."""
@@ -405,47 +724,115 @@ def time_cfl_kernels(torch, K, D, seed) -> dict:
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
 
-def check_against_reference(torch, cfg, topo, data, rounds):
-    """Replay the fused run round by round: from each of its states, one
-    fused and one reference round (deterministic cuDNN, so local training
-    is identical) must give bit-equal verdicts and models within 3e-5."""
+def check_against_reference(torch, cfg, topo, data, rounds, against="reference"):
+    """Replay a DFL run round by round: from each of its states, one round
+    on the run's backend and one on the ``against`` backend (deterministic
+    cuDNN, so local training is identical) must give bit-equal verdicts and
+    models within 3e-5.  A round whose verdicts differ only where a float32
+    value sits within 1e-4 (relative) of a WFAgg-T band edge or of a
+    distance filter's keep boundary is reported with the filter and the
+    margin, and the replay goes on from the run's state; any other
+    difference fails."""
     import dataclasses
 
     from repro_torch.dfl import engine
     from repro_torch.models.lenet import ravel
 
-    ref_cfg = dataclasses.replace(cfg, wfagg_backend="reference")
+    ref_cfg = dataclasses.replace(cfg, wfagg_backend=against)
     fused = engine.build_round_fn(cfg, topo, data, telemetry=True)
     ref = engine.build_round_fn(ref_cfg, topo, data, telemetry=True)
     state = engine.init_dfl_state(cfg, topo)
     benign = torch.as_tensor(~topo.malicious, device="cuda")
+    label = f"{cfg.aggregator} on {cfg.wfagg_backend}"
+    vs = f"the {against} backend"
     torch.backends.cudnn.deterministic = True
     try:
-        t_fired, nonfinite = 0, []
+        t_fired, nonfinite, edge_rounds = 0, [], []
         for r in range(rounds):
             nxt, rec = fused(state)
             alt, rec_ref = ref(state)
-            if not torch.equal(rec.verdict, rec_ref.verdict):
-                raise AssertionError(f"round {r + 1}: verdicts differ from the "
-                                     "reference backend")
             flat = ravel(nxt.node_params)
             # an attacker's own model may go non-finite (the reference's
             # attack math carries it); every benign model must not
             finite = torch.isfinite(flat).all(1)
             if not finite[benign].all():
-                raise AssertionError(f"round {r + 1}: a benign model is not finite")
+                raise AssertionError(f"{label} round {r + 1}: a benign model is not finite")
             nonfinite.append(torch.nonzero(~finite).flatten().tolist())
-            torch.testing.assert_close(flat, ravel(alt.node_params), rtol=OUT_TOL,
-                                       atol=OUT_TOL, equal_nan=True)
+            if not torch.equal(rec.verdict, rec_ref.verdict):
+                report = explain_dfl_round(torch, cfg, topo, data, state, rec, rec_ref)
+                print(f"  {label} round {r + 1}: verdicts differ from {vs}: "
+                      f"(node, slot, filter, margin) {report}")
+                if not report or any(m is None or m > 1e-4 for _, _, _, m in report):
+                    raise AssertionError(f"{label} round {r + 1}: verdicts differ from "
+                                         f"{vs} away from any edge")
+                edge_rounds.append((r + 1, report))
+            else:
+                torch.testing.assert_close(flat, ravel(alt.node_params), rtol=OUT_TOL,
+                                           atol=OUT_TOL, equal_nan=True)
             t_fired += int(((rec.verdict >> 2) & 1).sum())
             state = nxt
     finally:
         torch.backends.cudnn.deterministic = False
-    print(f"  fused == reference backend on the card, {rounds} rounds: verdicts "
-          f"bit-equal, models within {OUT_TOL}; WFAgg-T accepted {t_fired} edges; "
+    print(f"  {label} == {vs} on the card, {rounds} rounds: verdicts "
+          f"bit-equal and models within {OUT_TOL} in {rounds - len(edge_rounds)} rounds "
+          f"(rounds on an edge: {edge_rounds}); WFAgg-T accepted {t_fired} edges; "
           f"non-finite (attacker) rows per round {nonfinite}")
     if t_fired == 0:
-        raise AssertionError("the in-kernel WFAgg-T band test never fired")
+        raise AssertionError(f"{label}: the WFAgg-T band test never fired")
+    return edge_rounds
+
+
+def explain_dfl_round(torch, cfg, topo, data, state, rec, rec_ref):
+    """On differing verdicts: for each differing (node, slot, filter), the
+    relative margin by which the reference's own float32 value clears the
+    decision: the nearest WFAgg-T band edge, or the gap between the last
+    kept and the first dropped score of the distance filter; None where no
+    margin is defined (the similarity filters)."""
+    from repro_torch.core import aggregators as agg
+    from repro_torch.core import trust
+    from repro_torch.dfl import engine
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+    from repro_torch.models.lenet import ravel
+
+    mal = torch.as_tensor(topo.malicious, device="cuda")
+    params, _ = engine._local_train(cfg, data, mal, state.node_params,
+                                    state.node_momentum, state.rnd)
+    flat = engine._apply_attacks(cfg, mal, ravel(params), state.rnd)
+    finite = torch.isfinite(flat).all(-1)
+    flat = torch.where(finite[:, None], flat, torch.zeros_like(flat))
+    idx = torch.as_tensor(topo.neighbor_indices, device="cuda").long()
+    v = finite[idx]
+    K = idx.shape[1]
+    wcfg = engine._wfagg_full_config(cfg, K)
+    ts = state.temporal
+    st = robust_stats_indexed_ref(flat, idx, v, ts.prev, need_gram=True)
+    tb = trust.temporal_bands(ts.hist_s, ts.hist_b, ts.count, ts.t, wcfg)
+    rel = lambda x, e: float(((x - e).abs() / x.abs().clamp(min=1e-30)).item())  # noqa: E731
+    if wcfg.distance_filter == "multi_krum":
+        d2 = trust.sq_dists_from_gram(st.gram, st.norm2)
+        vp = v[:, :, None] & v[:, None, :]
+        scores = agg.krum_scores_from_sq_dists_dyn(torch.where(vp, d2, torch.inf),
+                                                   wcfg.f, v.sum(-1))
+        keep = torch.clamp(v.sum(-1), max=trust.multi_krum_m(wcfg, K))
+    else:
+        scores, keep = st.dist2, v.sum(-1) - wcfg.f - 1
+    scores = torch.where(v, scores, torch.inf)
+    report = []
+    for n, k in torch.nonzero(rec.verdict != rec_ref.verdict).tolist():
+        diff = int(rec.verdict[n, k] ^ rec_ref.verdict[n, k])
+        for bit, name in ((0, "distance"), (1, "similarity"), (2, "WFAgg-T")):
+            if not (diff >> bit) & 1:
+                continue
+            margin = None
+            if bit == 2:
+                s_t, b_t = st.prev_dist2[n, k], st.cosine_to_prev()[n, k]
+                margin = min(rel(s_t, tb[n, k]), rel(s_t, tb[n, K + k]),
+                             rel(b_t, tb[n, 2 * K + k]), rel(b_t, tb[n, 3 * K + k]))
+            elif bit == 0 and 0 < int(keep[n]) < int(v[n].sum()):
+                srt = torch.sort(scores[n]).values
+                margin = rel(srt[int(keep[n])], srt[int(keep[n]) - 1])
+            report.append((n, k, name, margin))
+    return report
 
 
 def check_cfl_against_reference(torch, cfg, topo, data, rounds):
@@ -524,9 +911,12 @@ def main() -> int:
     libs = common.build(*(ROOT / src for _, _, src, _ in KERNELS.values()))
     print(f"[1] built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for so in libs:
+        entry = ""
         for line in so.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]     # the mangled kernel and its template
             if "registers" in line or "spill" in line:
-                print(f"    {so.name.rsplit('_', 1)[0]} ptxas: {line.strip()}")
+                print(f"    {so.name.rsplit('_', 1)[0]} {entry} ptxas: {line.strip()}")
 
     # ---- phase 2: kernel vs plain -------------------------------------------
     print("[2] kernel vs plain version on the card")
@@ -559,6 +949,31 @@ def main() -> int:
     time_cfl_kernels(torch, CFL_K, CFL_D, seed=11)
     timed.update(time_cfl_kernels(torch, BIG_K, BIG_D, seed=12))
 
+    print("[2] the gossip round's Gram variant and the two-launch kernels vs plain")
+    slates = [("paper ring N=20 K=8 d=44426", 20, 8, 44426, topo.neighbor_indices,
+               None, 21)]
+    for N, K, d, seed in ((20, 8, 44426, 22), (40, 16, 44426, 23), (48, 32, 20011, 24)):
+        idx, valid = irregular_slate(N, K, seed)
+        slates.append((f"irregular N={N} K={K} d={d} (degree 0)", N, K, d, idx, valid,
+                       seed))
+    errs["robust_stats_indexed"], errs["weighted_agg_indexed"] = [], []
+    for label, N, K, d, idx, valid, seed in slates:
+        errs["wfagg_round_indexed"].append(compare_gram_round(
+            torch, f"Gram round {label}", N, K, d, idx, valid, seed, dup=(0, 4)))
+        combos = (((False, False), (True, False), (False, True), (True, True))
+                  if K == 8 else ((False, False), (True, True)))
+        errs["robust_stats_indexed"] += [compare_indexed_stats(
+            torch, f"robust_stats_indexed {label}", N, K, d, idx, valid, seed, (0, 4),
+            with_prev, need_gram) for with_prev, need_gram in combos]
+        errs["weighted_agg_indexed"].append(compare_weighted_agg_indexed(
+            torch, f"weighted_agg_indexed {label}", N, K, d, idx, valid, seed))
+    time_dfl_kernels(torch, 20, 8, 44426, seed=25)
+    dfl_timed = time_dfl_kernels(torch, 64, 16, 1 << 20, seed=26)
+    timed["wfagg_round_indexed"]["gram_variant"] = dfl_timed.pop("wfagg_round_indexed_gram")
+    timed.update(dfl_timed)
+    time_gram_epilogue(torch, 64, 32, 8192, seed=28)
+    time_dfl_backends(torch, 64, 16, 1 << 20, seed=27)
+
     # ---- phase 3: the main paths --------------------------------------------
     print(f"[3] DFL main path: run_experiment, LeNet-5, paper topology, IPM-100, "
           f"{ROUNDS} rounds")
@@ -583,15 +998,53 @@ def main() -> int:
         raise AssertionError("non-finite accuracy on the main path")
     check_against_reference(torch, cfg, topo, data, ROUNDS)
 
+    print(f"[3] DFL Alt-WFAgg and the two-launch backend: run_experiment, LeNet-5, "
+          f"paper topology, IPM-100, {ROUNDS} rounds")
+    dfl_launches = dict(dfl_counts)
+    times = {"wfagg on fused": out, "mean": base}
+    for agg, backend in (("alt_wfagg", "fused"), ("alt_wfagg", "fused_two_launch"),
+                         ("wfagg", "fused_two_launch")):
+        cfg = DFLConfig(aggregator=agg, attack="ipm_100", model="lenet",
+                        wfagg_backend=backend)
+        zero_counts()
+        o = run_experiment(cfg, topo, data, rounds=ROUNDS)
+        counts = read_counts()
+        want = dict.fromkeys(KERNELS, 0)
+        if backend == "fused":
+            want["wfagg_round_indexed"] = ROUNDS
+        else:
+            want["robust_stats_indexed"] = want["weighted_agg_indexed"] = ROUNDS
+        if counts != want:
+            raise AssertionError(f"DFL {agg} on {backend} launches {counts}, "
+                                 f"expected {want}")
+        print(f"  launches on the DFL {agg} {backend} path: {counts}")
+        if not all(np.isfinite(e["acc_all"]).all() for e in o["trace"]):
+            raise AssertionError(f"non-finite accuracy on the DFL {agg} {backend} path")
+        for name in KERNELS:
+            dfl_launches[name] += counts[name]
+        times[f"{agg} on {backend}"] = o
+        check_against_reference(torch, cfg, topo, data, ROUNDS)
+        if agg == "alt_wfagg" and backend == "fused":
+            # the Gram epilogue against the second route: kernels 2 and 3
+            # and the host scoring stage
+            check_against_reference(torch, cfg, topo, data, ROUNDS,
+                                    against="fused_two_launch")
+    for name, o in times.items():
+        s = o["series"]
+        print(f"  {name:27s} benign acc per round "
+              f"{[round(a, 4) for a in s['acc_benign_mean']]}, round ms "
+              f"{[round(1e3 * t, 2) for t in s['round_seconds']]}")
+
     accs = {}
-    for agg in ("mean", "wfagg"):
+    for agg in ("mean", "wfagg", "alt_wfagg", "multi_krum", "clustering"):
         o = run_experiment(DFLConfig(aggregator=agg, attack="ipm_100", model="mlp"),
                            paper_topology(), data, rounds=4, eval_every=4)
         accs[agg] = o["final"]["acc_benign_mean"]
-    print(f"  IPM-100 claim (MLP, 4 rounds): wfagg {accs['wfagg']:.4f}, "
-          f"mean {accs['mean']:.4f}")
-    if not (accs["wfagg"] > 0.9 and accs["wfagg"] > accs["mean"] + 0.2):
-        raise AssertionError(f"IPM-100 claim does not hold: {accs}")
+    print("  DFL IPM-100 claim (MLP, 4 rounds): " + ", ".join(
+        f"{agg} {a:.4f}" for agg, a in accs.items()))
+    for agg in ("wfagg", "alt_wfagg"):
+        if not (accs[agg] > 0.9 and accs[agg] > accs["mean"] + 0.2):
+            raise AssertionError(f"DFL IPM-100 claim does not hold for {agg}: {accs}")
 
     print(f"[3] CFL main path: run_experiment(centralized=True), LeNet-5, the same "
           f"topology, IPM-100, {ROUNDS} rounds")
@@ -601,8 +1054,8 @@ def main() -> int:
         zero_counts()
         o = run_experiment(cfg, topo, data, rounds=ROUNDS)
         counts = read_counts()
-        want = {"wfagg_round_indexed": 0, "robust_stats": ROUNDS, "weighted_agg": ROUNDS,
-                "pairwise_gram": ROUNDS if agg == "alt_wfagg" else 0}
+        want = dict(dict.fromkeys(KERNELS, 0), robust_stats=ROUNDS, weighted_agg=ROUNDS,
+                    pairwise_gram=ROUNDS if agg == "alt_wfagg" else 0)
         s = o["series"]
         print(f"  {agg:9s} benign acc per round "
               f"{[round(a, 4) for a in s['acc_benign_mean']]}, round ms "
@@ -627,9 +1080,10 @@ def main() -> int:
     if not (accs["wfagg"] > accs["mean"] + 0.2 and accs["alt_wfagg"] > accs["mean"] + 0.2):
         raise AssertionError(f"CFL IPM-100 claim does not hold: {accs}")
 
-    # each kernel's launches on the main path that runs it: the round kernel
-    # on the DFL path, the other three on the two CFL runs together
-    launches = dict(cfl_launches, wfagg_round_indexed=dfl_counts["wfagg_round_indexed"])
+    # each kernel's launches on the main paths that run it: the round kernel
+    # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
+    # two-launch runs, the CFL kernels on the two CFL runs
+    launches = {name: dfl_launches[name] + cfl_launches[name] for name in KERNELS}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])

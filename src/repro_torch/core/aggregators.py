@@ -2,8 +2,10 @@
 ``repro.core.aggregators``, paper Section II-B).
 
 Every rule takes a candidate matrix ``updates (K, d)`` (the K received
-models, flattened) and returns ``(aggregated (d,), mask (K,) bool)``,
-``mask`` marking the candidates that took part:
+models, flattened), or a batch of them ``(..., K, d)`` (a leading N axis
+for the gossip round's gathered slates), and returns ``(aggregated
+(..., d), mask (..., K) bool)``, ``mask`` marking the candidates that took
+part:
   mean          FedAvg simplification [McMahan et al. 2016]
   median        coordinate-wise median [Yin et al. 2018]
   trimmed_mean  coordinate-wise beta-trimmed mean [Yin et al. 2018]
@@ -12,10 +14,10 @@ models, flattened) and returns ``(aggregated (d,), mask (K,) bool)``,
   clustering    2-way agglomerative clustering, average linkage, cosine
                 distance; aggregate the larger cluster [Sattler et al. 2020]
 
-The mask helpers, the Krum scores and the clustering merge also take any
-leading axes (a leading N axis for the per-node gossip batch) and select
-along the last axis (the last two for (K, K) matrices).  The valid-masked
-``DYN_AGGREGATORS`` are not ported yet (ROADMAP queue 1, item 10).
+The mask helpers, the Krum scores and the clustering merge take the same
+leading axes and select along the last axis (the last two for (K, K)
+matrices).  The valid-masked ``DYN_AGGREGATORS`` are not ported yet
+(ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -74,26 +76,29 @@ def mean_agg_dyn(updates: Tensor, valid: Tensor) -> Tuple[Tensor, Tensor]:
 # ---------------------------------------------------------------------------
 
 def _all(updates: Tensor) -> Tensor:
-    return torch.ones((updates.shape[0],), dtype=torch.bool, device=updates.device)
+    return torch.ones(updates.shape[:-1], dtype=torch.bool, device=updates.device)
 
 
 def coordinate_median(updates: Tensor) -> Tensor:
-    """Coordinate-wise median over axis 0; mean of the two middles if K
-    even; NaN where a column holds a NaN, as ``jnp.median``."""
+    """Coordinate-wise median over the K axis of ``(..., K, d)`` (the
+    median of a ``(K,)`` vector); mean of the two middles if K even; NaN
+    where a column holds a NaN, as ``jnp.median``."""
+    if updates.ndim == 1:
+        return coordinate_median(updates[:, None])[0]
     return median_and_trim(sort_columns(updates), 0.0)[0]
 
 
 def pairwise_sq_dists(updates: Tensor) -> Tensor:
-    """(K, K) squared Euclidean distances via the Gram expansion."""
+    """(..., K, K) squared Euclidean distances via the Gram expansion."""
     sq = (updates * updates).sum(-1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * (updates @ updates.T)
+    d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * (updates @ updates.transpose(-1, -2))
     return torch.clamp(d2, min=0.0)
 
 
 def cosine_distance_matrix(updates: Tensor) -> Tensor:
     norms = torch.linalg.norm(updates, dim=-1, keepdim=True)
     unit = updates / torch.clamp(norms, min=_EPS)
-    return 1.0 - unit @ unit.T
+    return 1.0 - unit @ unit.transpose(-1, -2)
 
 
 def median_agg(updates: Tensor) -> Tuple[Tensor, Tensor]:
@@ -102,7 +107,7 @@ def median_agg(updates: Tensor) -> Tuple[Tensor, Tensor]:
 
 def trimmed_mean_agg(updates: Tensor, beta: float = 0.1) -> Tuple[Tensor, Tensor]:
     """Remove the smallest/largest floor(beta*K) values per coordinate."""
-    return median_and_trim(torch.sort(updates, dim=0).values, beta)[1], _all(updates)
+    return median_and_trim(torch.sort(updates, dim=-2).values, beta)[1], _all(updates)
 
 
 def _plus_inf_diagonal(d2: Tensor) -> Tensor:
@@ -141,14 +146,14 @@ def krum_scores(updates: Tensor, f: int) -> Tensor:
 
 
 def krum_agg(updates: Tensor, f: int = 2) -> Tuple[Tensor, Tensor]:
-    best = torch.argmin(krum_scores(updates, f))
-    mask = torch.arange(updates.shape[0], device=updates.device) == best
-    return updates[best], mask
+    best = torch.argmin(krum_scores(updates, f), dim=-1, keepdim=True)
+    mask = torch.arange(updates.shape[-2], device=updates.device) == best
+    return torch.take_along_dim(updates, best[..., None], dim=-2)[..., 0, :], mask
 
 
 def multi_krum_agg(updates: Tensor, f: int = 2,
                    m: Optional[int] = None) -> Tuple[Tensor, Tensor]:
-    K = updates.shape[0]
+    K = updates.shape[-2]
     if m is None:
         m = max(1, K // 4)  # paper: m = K/4
     mask = smallest_k_mask(krum_scores(updates, f), m)

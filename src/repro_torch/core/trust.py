@@ -27,11 +27,6 @@ Tensor = torch.Tensor
 RobustStats = Any   # duck-typed: .dist2/.norm2/.cosine_to_median()/...
 _EPS = 1e-12
 
-GRAM_NOT_PORTED = (
-    "the Alt-WFAgg filters (multi_krum / clustering) on the gossip round "
-    "need the Gram variant of the round kernel, not ported yet: ROADMAP "
-    "queue 2, item 1")
-
 
 def wfagg_scores(mask_d: Tensor, mask_c: Tensor, mask_t: Tensor, cfg) -> Tensor:
     """Alg. 1 lines 9-22: tau-weighted filter votes with a 2-filter floor."""
@@ -110,7 +105,8 @@ def cosine_dist_from_gram(gram: Tensor, norm2: Tensor) -> Tensor:
     return 1.0 - gram / torch.clamp(n[..., :, None] * n[..., None, :], min=_EPS)
 
 
-def _multi_krum_m(cfg, K: int) -> int:
+def multi_krum_m(cfg, K: int) -> int:
+    """Multi-Krum's keep count m: the configured one, else max(1, K // 4)."""
     return cfg.multi_krum_m or max(1, K // 4)
 
 
@@ -124,7 +120,7 @@ def fused_distance_mask(stats: RobustStats, gram: Optional[Tensor], cfg) -> Tens
     if cfg.distance_filter == "multi_krum":
         scores = agg.krum_scores_from_sq_dists(
             sq_dists_from_gram(gram, stats.norm2), cfg.f)
-        return agg.smallest_k_mask(scores, _multi_krum_m(cfg, K))
+        return agg.smallest_k_mask(scores, multi_krum_m(cfg, K))
     raise ValueError(f"unknown distance filter {cfg.distance_filter!r}")
 
 
@@ -157,7 +153,7 @@ def fused_distance_mask_valid(stats: RobustStats, valid: Tensor, cfg) -> Tensor:
         scores = agg.krum_scores_from_sq_dists_dyn(
             torch.where(vpair, d2, torch.inf), cfg.f, v)
         return agg.smallest_k_mask_dyn(torch.where(valid, scores, torch.inf),
-                                       torch.clamp(v, max=_multi_krum_m(cfg, K)))
+                                       torch.clamp(v, max=multi_krum_m(cfg, K)))
     raise ValueError(f"unknown distance filter {cfg.distance_filter!r}")
 
 

@@ -30,8 +30,11 @@ Execution backends (``WFAggConfig.backend``):
              the same trust logic, the Eq. 3 combine).
   fused_two_launch
              single node: the same as fused (there is no single-launch
-             variant).  Gossip round: not ported yet (ROADMAP queue 2,
-             items 2-3).
+             variant).  Gossip round: two launches, the gather-free
+             statistics (``kernels.robust_stats.ops.robust_stats_indexed``,
+             the Gram riding along for an Alt-WFAgg filter), the scoring
+             stage on the host (``_indexed_scoring``) and the gather-free
+             combine (``kernels.weighted_agg.ops.weighted_agg_indexed``).
 
 The gathered ``wfagg_batch`` and the standalone filter aggregators are
 not ported yet (ROADMAP queue 1, item 10).
@@ -47,8 +50,9 @@ from repro_torch.core import aggregators as agg
 from repro_torch.core import trust
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.pairwise_dist.ops import pairwise_gram
-from repro_torch.kernels.robust_stats.ops import robust_stats, wfagg_round_indexed
-from repro_torch.kernels.weighted_agg.ops import weighted_agg
+from repro_torch.kernels.robust_stats.ops import (
+    robust_stats, robust_stats_indexed, wfagg_round_indexed)
+from repro_torch.kernels.weighted_agg.ops import weighted_agg, weighted_agg_indexed
 from repro_torch.kernels.robust_stats.ref import RobustStats, robust_stats_indexed_ref
 
 Tensor = torch.Tensor
@@ -68,12 +72,11 @@ class WFAggConfig:
     transient: int = 3          # T_th - rounds before WFAgg-T activates
     ewma_decay: float = 0.5     # lambda of the exponentially weighted window
     use_temporal: bool = True   # disable to drop the prev-model state
-    # Alt-WFAgg: swap in filters of the same family (single node only;
-    # the gossip round needs the round kernel's Gram variant, not ported)
+    # Alt-WFAgg: swap in filters of the same family
     distance_filter: str = "wfagg_d"     # or "multi_krum"
     similarity_filter: str = "wfagg_c"   # or "clustering"
     multi_krum_m: Optional[int] = None   # Multi-Krum m (default K // 4)
-    backend: str = "fused"      # "fused" | "reference" (see module doc)
+    backend: str = "fused"      # "fused" | "fused_two_launch" | "reference"
     # Non-finite payload sanitizer: a NaN/Inf candidate row is zeroed and
     # its edges demoted to invalid before any filter statistic (a no-op on
     # finite inputs, so it defaults on).
@@ -275,8 +278,9 @@ def alt_wfagg_config(**kw) -> WFAggConfig:
 def _indexed_scoring(stats: RobustStats, valid_b: Tensor,
                      state: Optional[TemporalState], cfg: WFAggConfig,
                      models: Tensor, neighbor_idx: Tensor):
-    """Host-side scoring stage of the reference backend: trust masks, the
-    WFAgg-T decision + ring-buffer update and the tau-weighted scores.
+    """Host-side scoring stage of the two-launch and reference backends:
+    trust masks, the WFAgg-T decision + ring-buffer update and the
+    tau-weighted scores.
     Returns (mask_d, mask_c, mask_t, weights, new_state)."""
     temporal = cfg.use_temporal and state is not None
     mask_d = trust.fused_distance_mask_valid(stats, valid_b, cfg)
@@ -349,9 +353,13 @@ def _wfagg_batch_indexed(local: Tensor, models: Tensor,
                 state, models if state.prev.ndim == 2 else models[idx],
                 stats.prev_dist2, stats.cosine_to_prev())
     elif cfg.backend == "fused_two_launch":
-        raise NotImplementedError(
-            "backend='fused_two_launch' needs the stats and combine kernels, "
-            "not ported yet: ROADMAP queue 2, items 2-3")
+        # the statistics launch (the Alt-WFAgg Gram rides along in the same
+        # pass), the scoring stage on the host, the combine launch
+        stats = robust_stats_indexed(models, idx, valid_b if cfg.sanitize else valid,
+                                     prev=prev, need_gram=trust.needs_gram(cfg))
+        mask_d, mask_c, mask_t, weights, new_state = _indexed_scoring(
+            stats, valid_b, state, cfg, models, idx)
+        out = weighted_agg_indexed(local, models, idx, weights, alpha=cfg.alpha)
     else:
         raise ValueError(f"unknown backend {cfg.backend!r}")
 

@@ -8,11 +8,13 @@ Each of N nodes owns an independent local model.  One round =
   2. model-poisoning attacks replace the Byzantine rows of the flat
      (N, d) model matrix,
   3. aggregation, one of
-     - gossip (DFL): WFAgg over each node's K neighbours through the
-       single-launch round (``core.wfagg.wfagg_batch(neighbor_idx=…)``,
-       one CUDA kernel launch per round on the card), or the mean
-       baseline (plain gathered PyTorch), with WFAgg keeping per-node
-       temporal state (Alg. 4);
+     - gossip (DFL): WFAgg or Alt-WFAgg over each node's K neighbours
+       (``core.wfagg.wfagg_batch(neighbor_idx=…)``: on the card one launch
+       of the round kernel per round on the default ``fused`` backend, or
+       one launch each of the statistics and combine kernels on
+       ``fused_two_launch``), keeping per-node temporal state (Alg. 4); or
+       a baseline rule of ``core.aggregators.AGGREGATORS`` on the gathered
+       (N, K, d) slates (plain PyTorch; on irregular graphs only the mean);
      - the centralized baseline (CFL, ``DFLConfig(centralized=True)``):
        one server aggregates all N received models with WFAgg or
        Alt-WFAgg (``core.wfagg.wfagg``: the statistics, Gram and combine
@@ -23,9 +25,9 @@ Each of N nodes owns an independent local model.  One round =
 Entry points take ``device=None``, which means the card; without one
 they raise.  Not ported yet, and raising: dynamic schedules and chaos
 transport (ROADMAP queue 1, items 6 and 8), telemetry export (item 9),
-the decentralized baselines other than mean and the standalone WFAgg
-filters (item 10), decentralized Alt-WFAgg (queue 2, item 1),
-model-dimension sharding (queue 1, item 11).
+the baselines other than mean on irregular graphs (``DYN_AGGREGATORS``)
+and the standalone WFAgg filters (item 10), model-dimension sharding
+(item 11).
 """
 from __future__ import annotations
 
@@ -48,9 +50,8 @@ from repro_torch.models.lenet import MODELS, param_count, ravel, unravel
 from repro_torch.obs import decision as obs_decision
 
 Tensor = torch.Tensor
-PORTED_AGGREGATORS = ("wfagg", "mean")           # gossip (DFL) rounds
 BASELINES = ("mean", "median", "trimmed_mean", "krum", "multi_krum", "clustering")
-CFL_AGGREGATORS = BASELINES + ("wfagg", "alt_wfagg")
+AGGREGATORS = BASELINES + ("wfagg", "alt_wfagg")   # DFL and CFL rounds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +64,7 @@ class DFLConfig:
     batches_per_round: int = 4
     seed: int = 0
     attack_params: atk.AttackConfig = atk.AttackConfig()
-    wfagg_backend: str = "fused"  # "fused" (one kernel launch) | "reference"
+    wfagg_backend: str = "fused"  # | "fused_two_launch" | "reference" (core/wfagg.py)
     mesh_model_shards: int = 0    # > 1 not ported yet
 
     def wfagg_config(self, use_temporal=True, backend: Optional[str] = None) -> wf.WFAggConfig:
@@ -87,19 +88,10 @@ def _check_supported(cfg: DFLConfig) -> None:
         raise NotImplementedError(
             "model-dimension sharding is not ported yet: ROADMAP queue 1, "
             "item 11")
-    if cfg.centralized:
-        if cfg.aggregator not in CFL_AGGREGATORS:
-            raise NotImplementedError(
-                f"CFL aggregator {cfg.aggregator!r} is not ported yet (ported: "
-                f"{CFL_AGGREGATORS}): ROADMAP queue 1, item 10")
-    elif cfg.aggregator == "alt_wfagg":
-        raise NotImplementedError(
-            "decentralized alt_wfagg needs the Gram variant of the round "
-            "kernel: ROADMAP queue 2, item 1")
-    elif cfg.aggregator not in PORTED_AGGREGATORS:
+    if cfg.aggregator not in AGGREGATORS:
         raise NotImplementedError(
             f"aggregator {cfg.aggregator!r} is not ported yet (ported: "
-            f"{PORTED_AGGREGATORS}): ROADMAP queue 1, item 10")
+            f"{AGGREGATORS}): ROADMAP queue 1, item 10")
     if cfg.model not in MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
 
@@ -125,7 +117,7 @@ def init_dfl_state(cfg: DFLConfig, topo: Topology,
             t0 = wf.init_temporal_state(K, param_count(params), cfg.paper.window,
                                         device=dev)
             temporal = wf.TemporalState(*(x[None] for x in t0))
-    elif cfg.aggregator == "wfagg":
+    elif cfg.aggregator in ("wfagg", "alt_wfagg"):
         # the temporal ``prev`` is the previous round's (N, d) model
         # matrix, read through the neighbour table: prev[idx[n, k]] is
         # exactly edge (n, k)'s last received model
@@ -202,24 +194,31 @@ def _wfagg_full_config(cfg: DFLConfig, K: int,
     return wcfg
 
 
+def _baseline(cfg: DFLConfig, updates: Tensor) -> Tensor:
+    """A baseline rule with the paper's keyword arguments on ``updates (...,
+    K, d)``: one node's K received models or a batch of slates."""
+    p = cfg.paper
+    name = cfg.aggregator
+    K = updates.shape[-2]
+    kw: Dict[str, Any] = {"f": p.f}
+    if name == "trimmed_mean":
+        kw = {"beta": p.trim_beta}
+    if name == "multi_krum":
+        kw["m"] = max(1, int(p.multi_krum_m_frac * K))
+    if name == "clustering":
+        kw = {}
+    return agg_lib.AGGREGATORS[name](updates, **kw)[0]
+
+
 def _aggregate_one(cfg: DFLConfig, local: Tensor, updates: Tensor,
                    t_state: Optional[wf.TemporalState]):
     """Aggregate K received models ``updates (K, d)`` for one node (the CFL
     server), anchored at ``local (d,)``.  Returns ``(new_model (d,),
     new_temporal_state)``."""
-    p = cfg.paper
     name = cfg.aggregator
     K = updates.shape[0]
     if name in BASELINES:
-        kw: Dict[str, Any] = {"f": p.f}
-        if name == "trimmed_mean":
-            kw = {"beta": p.trim_beta}
-        if name == "multi_krum":
-            kw["m"] = max(1, int(p.multi_krum_m_frac * K))
-        if name == "clustering":
-            kw = {}
-        out, _ = agg_lib.AGGREGATORS[name](updates, **kw)
-        return out, t_state
+        return _baseline(cfg, updates), t_state
     if name in ("wfagg", "alt_wfagg"):
         out, new_t, _ = wf.wfagg(local, updates, t_state, _wfagg_full_config(cfg, K))
         return out, new_t
@@ -249,6 +248,12 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
         raise NotImplementedError(
             "fault injection is not ported yet: ROADMAP queue 1, item 8")
     _check_supported(cfg)
+    if (not cfg.centralized and not topo.is_regular
+            and cfg.aggregator in BASELINES and cfg.aggregator != "mean"):
+        raise NotImplementedError(
+            f"decentralized {cfg.aggregator!r} on an irregular graph needs the "
+            "valid-masked DYN_AGGREGATORS, not ported yet: ROADMAP queue 1, "
+            "item 10")
     dev = resolve_device(device)
     table = np.asarray(topo.neighbor_indices)
     if table.size and (table.min() < 0 or table.max() >= topo.n_nodes):
@@ -258,7 +263,7 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
     neighbor_valid = (None if topo.is_regular else
                       torch.as_tensor(np.asarray(topo.neighbor_valid), device=dev))
     malicious = torch.as_tensor(np.asarray(topo.malicious), device=dev)
-    wcfg = cfg.wfagg_config()
+    wcfg = _wfagg_full_config(cfg, neighbor_idx.shape[1])
 
     def round_fn(state: DFLState, batches=None):
         # CFL: the server's WFAgg-E anchor is node 0's model from BEFORE
@@ -279,17 +284,17 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
             new_flat = new_global.expand(flat.shape)
             new_temporal = (wf.TemporalState(*(x[None] for x in new_t0))
                             if new_t0 is not None else None)
-        elif cfg.aggregator == "wfagg":
+        elif cfg.aggregator in ("wfagg", "alt_wfagg"):
             new_flat, new_temporal, info = wf.wfagg_batch(
                 flat, flat, state.temporal, wcfg, neighbor_idx=neighbor_idx,
                 valid=neighbor_valid, device=dev)
             if telemetry:
                 record = obs_decision.record_from_info(info)
-        else:   # mean: plain gathered PyTorch, no kernel
+        else:   # a baseline: plain gathered PyTorch, no kernel
             gathered = flat[neighbor_idx]                 # (N, K, d)
             if neighbor_valid is None:
-                new_flat, _ = agg_lib.mean_agg(gathered)
-            else:
+                new_flat = _baseline(cfg, gathered)
+            else:   # the mean (the others raised above)
                 mean, _ = agg_lib.mean_agg_dyn(gathered, neighbor_valid)
                 has_nbr = neighbor_valid.any(-1, keepdim=True)
                 new_flat = torch.where(has_nbr, mean, flat)  # degree 0: local

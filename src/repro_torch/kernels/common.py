@@ -8,8 +8,8 @@ and the entry points default to the card and raise without one.
 
 Every CUDA source under ``kernels/*/csrc/`` is one shared library with a
 plain C entry point: ``nvcc`` compiles it at first use into
-``kernels/_build/lib<stem>_<hash>.so`` (the hash covers the source and
-the flags, so an edited source builds anew), keeps the compiler's output
+``kernels/_build/lib<stem>_<hash>.so`` (the hash covers the source, the
+headers beside it and the flags, so an edited source builds anew), keeps the compiler's output
 (``-Xptxas -v``: registers, shared memory, spills) beside it as ``.log``,
 and ``ctypes`` loads it.  Nothing here runs at import: the modules import
 on a machine without ``nvcc``.
@@ -72,9 +72,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    """Where the library for this source and the current flags lives."""
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the library for this source, the headers beside it (``*.cuh``)
+    and the current flags lives."""
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{tag}.so"
 
 
@@ -132,6 +134,15 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_table(neighbor_idx: torch.Tensor, M: int) -> None:
+    """The indexed kernels read rows through the table: reject out-of-range
+    rows before any pointer is passed (one host read of two integers)."""
+    lo, hi = (int(x) for x in torch.aminmax(neighbor_idx))
+    if lo < 0 or hi >= M:
+        raise ValueError(f"neighbor_idx holds rows in [{lo}, {hi}], outside "
+                         f"[0, {M}) of the model matrix")
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -142,8 +153,10 @@ def launch_error(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def grid_blocks(device: torch.device, n_tiles: int, per_sm: int = 4) -> int:
-    """CTAs for a grid-stride kernel over ``n_tiles`` tiles: at most
-    ``per_sm`` per SM of the card, at least one."""
+def grid_blocks(device: torch.device, n_tiles: int, per_sm: int = 4,
+                rows: int = 1) -> int:
+    """CTAs per row for a grid of ``rows`` rows of a grid-stride kernel over
+    ``n_tiles`` tiles each: about ``per_sm`` CTAs per SM of the card over
+    the whole grid, at most ``n_tiles`` and at least one per row."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n_tiles, per_sm * sms))
+    return max(1, min(n_tiles, -(-per_sm * sms // rows)))

@@ -114,21 +114,22 @@ def robust_stats_indexed_ref(
 
 
 def sort_columns(u: Tensor) -> Tensor:
-    """Columns of ``u (K, D)`` sorted along axis 0, a column holding a NaN
-    all NaN: what a sorting network whose compare-exchange propagates NaN
-    (``jnp.minimum``/``jnp.maximum``, the Pallas kernel's) returns, and
-    what ``jnp.median`` computes on."""
-    srt = torch.sort(u, dim=0).values
-    return torch.where(torch.isnan(u).any(0), torch.nan, srt)
+    """Columns of ``u (..., K, D)`` sorted along the K axis, a column
+    holding a NaN all NaN: what a sorting network whose compare-exchange
+    propagates NaN (``jnp.minimum``/``jnp.maximum``, the Pallas kernel's)
+    returns, and what ``jnp.median`` computes on."""
+    srt = torch.sort(u, dim=-2).values
+    return torch.where(torch.isnan(u).any(-2, keepdim=True), torch.nan, srt)
 
 
 def median_and_trim(srt: Tensor, beta: float):
     """Median (mean of the two middles for even K) and beta-trimmed mean of
-    columns already sorted along axis 0 of ``srt (K, D)``."""
-    K = srt.shape[0]
-    med = srt[K // 2] if K % 2 == 1 else 0.5 * (srt[K // 2 - 1] + srt[K // 2])
+    columns already sorted along the K axis of ``srt (..., K, D)``."""
+    K = srt.shape[-2]
+    med = (srt[..., K // 2, :] if K % 2 == 1
+           else 0.5 * (srt[..., K // 2 - 1, :] + srt[..., K // 2, :]))
     t = trim_count(K, beta)
-    return med, srt[t:K - t].mean(0)
+    return med, srt[..., t:K - t, :].mean(-2)
 
 
 def center_stats(u: Tensor, med: Optional[Tensor], trim: Optional[Tensor],

@@ -90,7 +90,7 @@ def test_cfl_wfagg_resists_ipm100_where_mean_collapses():
     assert accs["alt_wfagg"] > accs["mean"] + 0.2, accs
 
 
-@pytest.mark.parametrize("aggregator", tengine.CFL_AGGREGATORS)
+@pytest.mark.parametrize("aggregator", tengine.AGGREGATORS)
 def test_every_cfl_aggregator_runs_a_round(aggregator):
     topo = make_topology(8, 4, 1, "ring", placement="close")
     cfg = tengine.DFLConfig(aggregator=aggregator, attack="ipm_100", model="mlp",

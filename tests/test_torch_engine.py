@@ -8,7 +8,9 @@ against the JAX package's engine.
 * The paper's IPM-100 claim on the port's own data
   (``tests/test_system.py:43-53``): WFAgg > 0.9 and > mean + 0.2.
 * The entry points run on the card by default and raise without one;
-  paths of later slices raise NotImplementedError."""
+  paths of later slices raise NotImplementedError.  Decentralized
+  Alt-WFAgg, the two-launch backend and the DFL baselines are held in
+  ``test_torch_dfl_alt.py``."""
 import dataclasses
 
 import jax
@@ -107,31 +109,38 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
                         neighbor_idx=torch.zeros((4, 2), dtype=torch.int64))
 
 
-@pytest.mark.parametrize("what", ["alt_wfagg", "krum", "centralized", "dynamic",
-                                  "faults", "telemetry", "mesh", "two_launch"])
+@pytest.mark.parametrize("what", ["wfagg_d", "krum_irregular", "centralized",
+                                  "dynamic", "faults", "telemetry", "mesh",
+                                  "gathered"])
 def test_later_slices_raise(what):
-    """Paths of later slices raise and name their ROADMAP item: decentralized
-    Alt-WFAgg (the round kernel's Gram variant) and baselines other than
-    mean, a CFL aggregator that is still unported (the standalone WFAgg-T
-    filter), dynamic schedules, faults, telemetry, sharding, the two-launch
-    gossip backend."""
+    """Paths of later slices raise and name their ROADMAP item: a
+    standalone WFAgg filter in DFL, a baseline other than the mean on an
+    irregular graph (the valid-masked DYN_AGGREGATORS), a CFL aggregator
+    that is still unported (the standalone WFAgg-T filter), dynamic
+    schedules, faults, telemetry, sharding, the gathered (N, K, d)
+    ``wfagg_batch``."""
     topo, data = paper_topology(), SyntheticImages()
     cfg = tengine.DFLConfig()
     kw = {}
-    if what in ("alt_wfagg", "krum"):
-        cfg = tengine.DFLConfig(aggregator=what)
+    if what == "wfagg_d":
+        cfg = tengine.DFLConfig(aggregator="wfagg_d")
+    elif what == "krum_irregular":
+        cfg = tengine.DFLConfig(aggregator="krum")
+        topo = make_topology(10, 4, 2, "erdos_renyi", seed=3)
+        assert not topo.is_regular
     elif what == "centralized":
         cfg = tengine.DFLConfig(centralized=True, aggregator="wfagg_t")
     elif what == "mesh":
         cfg = tengine.DFLConfig(mesh_model_shards=2)
-    elif what == "two_launch":
-        cfg = tengine.DFLConfig(wfagg_backend="fused_two_launch")
     elif what in ("dynamic", "faults"):
         kw = {"dynamic": True} if what == "dynamic" else {"faults": object()}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "telemetry":
             tengine.run_experiment(cfg, topo, data, rounds=1, telemetry=True,
                                    device="cpu")
+        elif what == "gathered":
+            u = torch.zeros((4, 3, 8))
+            twf.wfagg_batch(u[:, 0], u, None, twf.WFAggConfig(), device="cpu")
         else:
             fn = tengine.build_round_fn(cfg, topo, data, device="cpu", **kw)
             fn(tengine.init_dfl_state(cfg, topo, device="cpu"))

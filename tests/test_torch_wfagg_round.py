@@ -136,8 +136,7 @@ def test_wrapper_dispatches_by_device_and_rejects_unported_variants():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tops.wfagg_round_indexed(u, u, idx, None, cfg, prev=u, prev_idx=idx)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.wfagg_round_indexed(u, u, idx, None,
-                                 twf.WFAggConfig(distance_filter="multi_krum"))
+        tops.wfagg_round_indexed(u, u, idx, None, cfg, prev=u[idx])   # per-edge prev
     with pytest.raises(ValueError, match="CUDA tensors"):
         tkernel.wfagg_round_indexed_cuda(u, u, idx.int(), None, None, None,
                                          cfg, 0.8, False)
