@@ -45,6 +45,15 @@ Phases, each of which fails the run:
      d=2^20; the Gram variant's cost by difference at N=64, K=32, d=8192;
      and the gossip aggregation on ``fused`` against ``fused_two_launch``
      at N=64, K=16, d=2^20;
+     then the ``prev_idx`` variants of the round kernel (plain and Gram)
+     and of the gather-free statistics (with and without the Gram) on
+     stacked chaos matrices built by the port's own ``apply_transport``:
+     the paper's shape under ``churn`` + ``chaos`` (a degree-0 row, a
+     corrupt row, ``prev_idx`` != the table on most edges) and irregular
+     slates at K=16 and K=32 (masks bit-equal, ``out`` within 3e-5,
+     statistics within rtol 1e-4, the Gram within 1e-4 of its
+     Cauchy-Schwarz scale; with ``prev_idx`` = the table, bit-identical
+     to the launch without it), timed at N=64, K=16, d=2^20 (L=3, C=4);
   3. the main paths, each with every kernel's launch count set to 0 just
      before and read just after:
      - DFL: ``run_experiment`` at the paper's configuration (LeNet-5,
@@ -60,7 +69,19 @@ Phases, each of which fails the run:
        (one statistics and one combine launch per round, no Gram) and
        Alt-WFAgg (one of each of the three), each replayed round by round
        against the reference backend on the card, and the centralized
-       IPM-100 claim (WFAgg and Alt-WFAgg each > mean + 0.2) on the MLP.
+       IPM-100 claim (WFAgg and Alt-WFAgg each > mean + 0.2) on the MLP;
+     - dynamic topologies and chaos transport (``run_dynamic_experiment``,
+       the same model, topology and attack, 6 rounds): WFAgg on ``fused``
+       under ``churn`` (6 round-kernel launches, none of the ``prev_idx``
+       variant); under ``churn`` + ``chaos`` at intensity 0.4 WFAgg and
+       Alt-WFAgg on ``fused`` (6 round-kernel launches, all ``prev_idx``),
+       WFAgg on ``fused_two_launch`` (6 + 6, the statistics all
+       ``prev_idx``) and the mean (none); each WFAgg run replayed round by
+       round against the reference backend; one round of each under
+       ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside a
+       round); kill-and-resume (stop after 3, checkpoint, resume:
+       ``torch.equal`` final carry); every series finite under
+       ``corrupt`` at 0.5 (MLP); benign accuracy under chaos printed.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -104,6 +125,18 @@ KERNELS = {
                              "src/repro_torch/kernels/weighted_agg/csrc/"
                              "weighted_agg_indexed.cu",
                              "src/repro/kernels/weighted_agg/kernel.py:56"),
+    # the prev_idx variants (chaos transport): the same sources and kernels,
+    # counted apart as well
+    "wfagg_round_indexed[prev_idx]": ("repro_torch.kernels.robust_stats.kernel",
+                                      "prev_idx_launches",
+                                      "src/repro_torch/kernels/robust_stats/csrc/"
+                                      "wfagg_round.cu",
+                                      "src/repro/kernels/robust_stats/kernel.py:511"),
+    "robust_stats_indexed[prev_idx]": ("repro_torch.kernels.robust_stats.kernel",
+                                       "indexed_prev_idx_launches",
+                                       "src/repro_torch/kernels/robust_stats/csrc/"
+                                       "robust_stats_indexed.cu",
+                                       "src/repro/kernels/robust_stats/kernel.py:271"),
 }
 
 
@@ -375,8 +408,19 @@ def tied_nodes(torch, idx_t, valid_t, dup):
     return [(int(n), int(a[n].nonzero()[0]), int(b[n].nonzero()[0])) for n in both]
 
 
+def tie_mask(torch, ties, N, K):
+    """(N, K, K) bool: the slot pairs of ``tied_nodes``."""
+    m = torch.zeros((N, K, K), dtype=torch.bool, device="cuda")
+    for n, ka, kb in ties:
+        m[n, ka, kb] = m[n, kb, ka] = True
+    return m
+
+
 def check_ties(torch, label, stats, ties, fields):
-    """Identical rows got bit-identical statistics and Gram rows."""
+    """Identical rows got bit-identical statistics and Gram rows, and a
+    squared distance of exactly 0 to each other."""
+    from repro_torch.core import trust
+
     for n, ka, kb in ties:
         for name in fields:
             x = getattr(stats, name)
@@ -388,6 +432,9 @@ def check_ties(torch, label, stats, ties, fields):
             if not (torch.equal(g[ka, others], g[kb, others])
                     and torch.equal(g[ka, ka], g[kb, kb])):
                 raise AssertionError(f"{label}: identical rows got different Gram rows")
+            if trust.sq_dists_from_gram(g)[ka, kb] != 0:
+                raise AssertionError(f"{label}: identical rows at a squared distance "
+                                     "other than 0")
 
 
 def compare_gram_round(torch, label, N, K, d, idx, valid, seed, dup) -> float:
@@ -429,6 +476,7 @@ def compare_gram_round(torch, label, N, K, d, idx, valid, seed, dup) -> float:
                                    rtol=STAT_RTOL, atol=STAT_ATOL)
     ties = tied_nodes(torch, idx_t, valid_t, dup)
     check_ties(torch, label, got[5], ties, ("dist2", "dotmed", "norm2"))
+    check_twins(torch, f"{label} (plain)", gp, tie_mask(torch, ties, N, K))
     err = float((got[0] - want[0]).abs().max())
     print(f"  {label}: masks bit-equal to the plain version and to "
           f"derive_trust_weights of the kernel's own stats and Gram (mask_d on "
@@ -476,6 +524,8 @@ def compare_indexed_stats(torch, label, N, K, d, idx, valid, seed, dup,
         raise AssertionError(f"{label}: a Gram without need_gram")
     ties = tied_nodes(torch, idx_t, valid_t, dup)
     check_ties(torch, label, got, ties, fields[:3])
+    if need_gram:
+        check_twins(torch, f"{label} (plain)", want.gram, tie_mask(torch, ties, N, K))
     cfgs = [WFAggConfig()] + ([alt_config(K)] if need_gram else [])
     for cfg in cfgs:
         mk = lambda st: trust.derive_trust_weights(st, v, None, cfg)[:2]  # noqa: E731
@@ -721,6 +771,304 @@ def time_cfl_kernels(torch, K, D, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the prev_idx variants of kernels 1 and 2 (chaos transport)
+# ---------------------------------------------------------------------------
+
+def chaos_stack(torch, N, K, d, idx, valid, seed, fault_round=None, rnd=3, dup=(0, 4)):
+    """One round's stacked chaos matrix, built by the port's own
+    ``apply_transport`` on the card: models with two bit-identical attacker
+    rows, a ring of three earlier matrices, a random served-lag table and
+    a fault round (``fault_round``: numpy (drop, lag, dup, corrupt, down);
+    random by default, with no crashed node).  Returns ``(flat, tout)``."""
+    import numpy as np
+
+    from repro_torch.dfl import faults as flt
+
+    fcfg = flt.FaultConfig()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    flat = torch.randn((N, d), generator=g, device="cuda") + 0.3
+    flat[dup[1]] = flat[dup[0]] = -100.0 * flat.mean(0)
+    ring = flat + 0.2 * torch.randn((fcfg.ring_depth, N, d), generator=g, device="cuda")
+    rng = np.random.default_rng(seed)
+    served = rng.integers(0, 3, (N, K)).astype(np.int32)
+    if fault_round is None:
+        fault_round = (rng.random((N, K)) < 0.2, rng.integers(0, 3, (N, K)).astype(np.int32),
+                       rng.random((N, K)) < 0.1, rng.random((N, K)) < 0.3,
+                       np.zeros(N, bool))
+    up = lambda x: torch.as_tensor(np.asarray(x), device="cuda")  # noqa: E731
+    tout = flt.apply_transport(flat, flt.TransportState(ring, up(served)), up(idx),
+                               up(valid), flt.FaultRound(*map(up, fault_round)), fcfg, rnd)
+    return flat, tout
+
+
+def chaos_bands(torch, tout, seed):
+    """WFAgg-T bands around the round's own temporal metrics (prev read
+    through ``prev_idx``), so the band test both accepts and rejects; the
+    additive term keeps a band of width > 0 where an edge was served last
+    round's payload again (s_t = b_t = 0; ``zero_width_bands`` holds that
+    case)."""
+    from repro_torch.core import trust
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+
+    N, K = tout.eff_idx.shape
+    st = robust_stats_indexed_ref(tout.full, tout.eff_idx, tout.eff_valid, tout.full,
+                                  prev_idx=tout.prev_idx)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda: torch.randn((N, 3, K), generator=g, device="cuda")  # noqa: E731
+    jitter = lambda x: x[:, None, :] * (1 + 0.05 * rnd()) + 1e-3 * rnd()  # noqa: E731
+    return trust.temporal_bands(jitter(st.prev_dist2), jitter(st.cosine_to_prev()),
+                                torch.full((N,), 3, device="cuda"),
+                                torch.full((N,), 5, device="cuda"), WFAggConfig(transient=3))
+
+
+def zero_width_bands(torch, N, K):
+    """WFAgg-T bands from a metric history of zeros, what the no-delivery
+    hygiene leaves on an edge re-served its last payload round after
+    round: zero width, at 0, on every edge.  A re-served payload has
+    s_t = b_t = 0 exactly, on both edges of the band; the reference
+    accepts it (``lo <= x <= hi``)."""
+    from repro_torch.core import trust
+    from repro_torch.core.wfagg import WFAggConfig
+
+    z = torch.zeros((N, 3, K), device="cuda")
+    return trust.temporal_bands(z, z, torch.full((N,), 3, device="cuda"),
+                                torch.full((N,), 5, device="cuda"),
+                                WFAggConfig(transient=3))
+
+
+def twin_slots(torch, models, idx, v):
+    """(N, K, K) bool: pairs of distinct valid slots of a node that read
+    bit-identical nonzero rows (one row read twice, or two equal rows)."""
+    u = models[idx.long()]
+    K = idx.shape[1]
+    same = torch.stack([(x[:, None] == x[None]).all(-1) for x in u])
+    ok = v & (u != 0).any(-1)
+    eye = torch.eye(K, dtype=torch.bool, device=u.device)
+    return same & ok[:, :, None] & ok[:, None, :] & ~eye
+
+
+def check_twins(torch, label, gram, twins) -> None:
+    """Two slots that read bit-identical rows are at squared distance
+    exactly 0 in the distances Multi-Krum reads from ``gram``."""
+    from repro_torch.core import trust
+
+    d2 = trust.sq_dists_from_gram(gram)[twins]
+    if (d2 != 0).any():
+        raise AssertionError(f"{label}: {int((d2 != 0).sum())} pairs of bit-identical "
+                             f"candidates at a squared distance other than 0 "
+                             f"(max {float(d2.max()):.3g})")
+
+
+STAT_FIELDS = ("dist2", "dotmed", "norm2", "mednorm2", "prev_dist2", "prev_dot",
+               "prev_norm2")
+
+
+def same_outputs(torch, a, b) -> bool:
+    """Bit-identical round or statistics outputs (tensors, RobustStats)."""
+    if isinstance(a, tuple):
+        return all(same_outputs(torch, x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return torch.equal(a, b)
+
+
+def check_gram(torch, label, gram, want, d) -> None:
+    """A Gram of the stacked chaos matrix against the plain one: exactly
+    symmetric, and each entry within 1e-4 of its Cauchy-Schwarz scale
+    sqrt(G_ii G_jj) (+ 1e-6 d).  On the diagonal that is rtol 1e-4, as for
+    the clean slates; off it, a finite corrupt row (norm ~1e3 sqrt(d)) and
+    a plain one (~sqrt(d)) are nearly orthogonal, so their entry is a sum
+    that cancels, and float32 sums in another order differ by a small
+    fraction of the scale but more than 1e-4 of the entry."""
+    if not torch.equal(gram, gram.transpose(1, 2)):
+        raise AssertionError(f"{label}: Gram not exactly symmetric")
+    diag = torch.diagonal(want, dim1=1, dim2=2).clamp(min=0)
+    scale = torch.sqrt(diag[:, :, None] * diag[:, None, :])
+    excess = (gram - want).abs() - (1e-4 * scale + 1e-6 * d)
+    if (excess > 0).any():
+        raise AssertionError(f"{label}: Gram off the plain one by more than 1e-4 of "
+                             f"its scale at {int((excess > 0).sum())} entries")
+
+
+def compare_prev_idx(torch, label, flat, tout, seed) -> dict:
+    """Kernels 1 and 2 with ``prev_idx`` against their plain versions on one
+    stacked chaos matrix (masks bit-equal, ``out`` within 3e-5, statistics
+    within rtol 1e-4), for WFAgg and Alt-WFAgg (the Gram variant) and with
+    and without the Gram; bit-identical candidates at squared distance
+    exactly 0 in every Gram; under zero-width bands at 0, WFAgg-T accepting
+    exactly the valid edges re-served their last payload, as the plain
+    version does; and, with ``prev_idx = neighbor_idx``, every output
+    bit-identical to the launch without ``prev_idx``.  Returns the max
+    errors by kernel variant."""
+    from repro_torch.core import trust
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.kernels.robust_stats import ops
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+
+    full, idx, v, pidx = tout.full, tout.eff_idx, tout.eff_valid, tout.prev_idx
+    N, K = idx.shape
+    d = full.shape[1]
+    tb = chaos_bands(torch, tout, seed)
+    zb = zero_width_bands(torch, N, K)
+    # s_t = 0 exactly: the edge reads last round's payload again
+    reserved = v & (full[idx] == full[pidx]).all(-1)
+    if not reserved.any():
+        raise AssertionError(f"{label}: no valid edge was re-served its last payload")
+    twins = twin_slots(torch, full, idx, v)
+    errs = {"wfagg_round_indexed[prev_idx]": [], "robust_stats_indexed[prev_idx]": []}
+    fired = []
+    for cfg in (WFAggConfig(transient=3), alt_config(K)):
+        name = f"{label} {cfg.distance_filter}"
+        zk = ops.wfagg_round_indexed(flat, full, idx, v, cfg, prev=full, tbands=zb,
+                                     prev_idx=pidx)[4]
+        zp = ops.wfagg_round_indexed_plain(flat, full, idx, v, cfg, full, zb,
+                                           prev_idx=pidx)[4]
+        if not (torch.equal(zk, zp) and torch.equal(zp, reserved)):
+            raise AssertionError(f"{name}: under zero-width bands mask_t is not the set "
+                                 "of re-served edges in kernel and plain version")
+        got = ops.wfagg_round_indexed(flat, full, idx, v, cfg, prev=full, tbands=tb,
+                                      prev_idx=pidx)
+        want = ops.wfagg_round_indexed_plain(flat, full, idx, v, cfg, full, tb,
+                                             prev_idx=pidx)
+        same = ops.wfagg_round_indexed(flat, full, idx, v, cfg, prev=full, tbands=tb,
+                                       prev_idx=idx)
+        old = ops.wfagg_round_indexed(flat, full, idx, v, cfg, prev=full, tbands=tb)
+        torch.cuda.synchronize()
+        for m, g_, w in zip(("mask_d", "mask_c", "mask_t"), got[2:5], want[2:5]):
+            if not torch.equal(g_, w):
+                raise AssertionError(f"{name}: {m} differs from the plain version at "
+                                     f"{int((g_ != w).sum())} edges")
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+        torch.testing.assert_close(got[0], want[0], rtol=OUT_TOL, atol=OUT_TOL)
+        for f in STAT_FIELDS:
+            torch.testing.assert_close(getattr(got[5], f), getattr(want[5], f),
+                                       rtol=STAT_RTOL, atol=STAT_ATOL)
+        if got[5].gram is not None:
+            check_gram(torch, name, got[5].gram, want[5].gram, d)
+            check_twins(torch, name, got[5].gram, twins)
+            check_twins(torch, f"{name} (plain)", want[5].gram, twins)
+        if not same_outputs(torch, same, old):
+            raise AssertionError(f"{name}: prev_idx = neighbor_idx is not bit-identical "
+                                 "to the launch without prev_idx")
+        errs["wfagg_round_indexed[prev_idx]"].append(float((got[0] - want[0]).abs().max()))
+        fired.append(int(got[4].sum()))
+    for need_gram in (False, True):
+        got = ops.robust_stats_indexed(full, idx, v, full, need_gram=need_gram,
+                                       prev_idx=pidx)
+        want = robust_stats_indexed_ref(full, idx, v, full, need_gram=need_gram,
+                                        prev_idx=pidx)
+        same = ops.robust_stats_indexed(full, idx, v, full, need_gram=need_gram,
+                                        prev_idx=idx)
+        old = ops.robust_stats_indexed(full, idx, v, full, need_gram=need_gram)
+        torch.cuda.synchronize()
+        e = []
+        for f in STAT_FIELDS:
+            torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                       rtol=STAT_RTOL, atol=STAT_ATOL)
+            e.append(float((getattr(got, f) - getattr(want, f)).abs().max()))
+        if need_gram:
+            check_gram(torch, f"{label} robust_stats_indexed", got.gram, want.gram, d)
+            check_twins(torch, f"{label} robust_stats_indexed", got.gram, twins)
+            check_twins(torch, f"{label} robust_stats_indexed (plain)", want.gram, twins)
+        for cfg in (WFAggConfig(transient=3),) + ((alt_config(K),) if need_gram else ()):
+            mk = lambda st: trust.derive_trust_weights(st, v, tb, cfg)[:3]  # noqa: E731
+            for g_, w in zip(mk(got), mk(want)):
+                if not torch.equal(g_, w):
+                    raise AssertionError(f"{label} robust_stats_indexed: masks from the "
+                                         "kernel's statistics differ from the plain ones")
+            if not torch.equal(trust.derive_trust_weights(got, v, zb, cfg)[2], reserved):
+                raise AssertionError(f"{label} robust_stats_indexed: under zero-width "
+                                     "bands mask_t is not the set of re-served edges")
+        if not same_outputs(torch, tuple(same), tuple(old)):
+            raise AssertionError(f"{label} robust_stats_indexed gram={need_gram}: prev_idx "
+                                 "= neighbor_idx is not bit-identical to the launch "
+                                 "without prev_idx")
+        errs["robust_stats_indexed[prev_idx]"].append(max(e))
+    print(f"  {label}: masks bit-equal for WFAgg and Alt-WFAgg (mask_t on {fired} of "
+          f"{int(v.sum())} valid edges; under zero-width bands at 0 on the "
+          f"{int(reserved.sum())} re-served edges exactly), {int(twins.sum()) // 2} pairs "
+          f"of bit-identical candidates at squared distance 0 in every Gram, "
+          f"{int((~v.any(1)).sum())} degree-0 rows, "
+          f"prev_idx != neighbor_idx on {float((pidx != idx).float().mean()):.2f} of "
+          f"the edges; with prev_idx = neighbor_idx both kernels bit-identical to the "
+          f"launch without it; out max|err| "
+          f"{max(errs['wfagg_round_indexed[prev_idx]']):.3g}, statistics max|err| "
+          f"{max(errs['robust_stats_indexed[prev_idx]']):.3g}")
+    return errs
+
+
+def paper_chaos_stack(torch, d):
+    """The paper's round shape (N=20, K=8) under ``churn`` + ``chaos``: the
+    first round of the schedule that has a degree-0 row and a finite
+    corrupt (bank) row among the valid edges."""
+    from repro_torch.core.topology import make_topology
+    from repro_torch.dfl.dynamics import make_faulty_schedule
+
+    topo = make_topology(20, 8, 2, "ring", placement="close")
+    sched, fs = make_faulty_schedule("churn", topo, 8, fault="chaos", intensity=0.4,
+                                     seed=3, fault_seed=3)
+    M = topo.n_nodes
+    for r in range(sched.rounds):
+        fr = [x[r] for x in (fs.drop, fs.lag, fs.dup, fs.corrupt, fs.down)]
+        flat, tout = chaos_stack(torch, M, sched.width, d, sched.neighbor_idx[r],
+                                 sched.valid[r], seed=31, fault_round=fr)
+        bank_rows = tout.eff_idx >= tout.full.shape[0] - fs.config.bank_size
+        if (~tout.eff_valid.any(1)).any() and (bank_rows & tout.eff_valid).any():
+            return r, flat, tout
+    raise AssertionError("no round of the schedule has a degree-0 row and a corrupt row")
+
+
+def time_prev_idx_kernels(torch, N, K, d, seed) -> dict:
+    """Kernels 1 and 2 with ``prev_idx`` through their ``*_cuda`` wrappers on a
+    stacked chaos matrix (L=3, C=4: (L+1)·N + C rows) read through a ring
+    slate, beside the same launch without ``prev_idx``, their plain
+    versions and bounds.  The bound reads the distinct rows that the two
+    tables reach once (and, for the round, ``local`` once and ``out``)."""
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.robust_stats import ops as rops
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+
+    idx = [[(n + o) % N for o in range(1, K + 1)] for n in range(N)]
+    flat, tout = chaos_stack(torch, N, K, d, idx, [[True] * K] * N, seed)
+    full, v = tout.full, tout.eff_valid
+    i32, p32 = tout.eff_idx.to(torch.int32), tout.prev_idx.to(torch.int32)
+    tb = chaos_bands(torch, tout, seed)
+    cfg = WFAggConfig(transient=3)
+    rows = int(torch.unique(torch.cat([tout.eff_idx.flatten(),
+                                       tout.prev_idx.flatten()])).numel())
+    out = {}
+    base = time_cuda(torch, lambda: rk.wfagg_round_indexed_cuda(
+        flat, full, i32, v, full, tb, cfg, cfg.alpha, False), 3, 25)
+    b = bound(4.0 * d * (rows + 2 * N), 16.0 * N * K * d)
+    out["wfagg_round_indexed[prev_idx]"] = dict(
+        ms=time_cuda(torch, lambda: rk.wfagg_round_indexed_cuda(
+            flat, full, i32, v, full, tb, cfg, cfg.alpha, False, prev_idx=p32), 3, 25),
+        plain_ms=time_cuda(torch, lambda: rops.wfagg_round_indexed_plain(
+            flat, full, tout.eff_idx, v, cfg, full, tb, prev_idx=tout.prev_idx), 1, 5),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    base2 = time_cuda(torch, lambda: rk.robust_stats_indexed_cuda(
+        full, i32, v, full, False), 3, 25)
+    b = bound(4.0 * d * rows, 16.0 * N * K * d)
+    out["robust_stats_indexed[prev_idx]"] = dict(
+        ms=time_cuda(torch, lambda: rk.robust_stats_indexed_cuda(
+            full, i32, v, full, False, prev_idx=p32), 3, 25),
+        plain_ms=time_cuda(torch, lambda: robust_stats_indexed_ref(
+            full, tout.eff_idx, v, full, prev_idx=tout.prev_idx), 1, 5),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    print(f"  stacked chaos matrix N={N} K={K} d={d}: {full.shape[0]} rows, the two "
+          f"tables reach {rows} distinct rows; without prev_idx (prev through the "
+          f"neighbour table) the round kernel takes {base:.4f} ms and the statistics "
+          f"kernel {base2:.4f} ms")
+    for name, t in out.items():
+        print(f"  {name} N={N} K={K} d={d}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}); "
+              "no single PyTorch call computes this function")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
 
@@ -788,28 +1136,33 @@ def explain_dfl_round(torch, cfg, topo, data, state, rec, rec_ref):
     decision: the nearest WFAgg-T band edge, or the gap between the last
     kept and the first dropped score of the distance filter; None where no
     margin is defined (the similarity filters)."""
-    from repro_torch.core import aggregators as agg
-    from repro_torch.core import trust
     from repro_torch.dfl import engine
-    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
-    from repro_torch.models.lenet import ravel
 
     mal = torch.as_tensor(topo.malicious, device="cuda")
-    params, _ = engine._local_train(cfg, data, mal, state.node_params,
-                                    state.node_momentum, state.rnd)
-    flat = engine._apply_attacks(cfg, mal, ravel(params), state.rnd)
-    finite = torch.isfinite(flat).all(-1)
-    flat = torch.where(finite[:, None], flat, torch.zeros_like(flat))
     idx = torch.as_tensor(topo.neighbor_indices, device="cuda").long()
-    v = finite[idx]
+    wcfg = engine._wfagg_full_config(cfg, idx.shape[1])
+    valid = torch.ones(idx.shape, dtype=torch.bool, device="cuda")
+    return decision_margins(torch, wcfg, *aggregation_inputs(
+        torch, cfg, data, state, idx, valid, mal), state.temporal, rec, rec_ref)
+
+
+def decision_margins(torch, wcfg, models, idx, v, prev, prev_idx, ts, rec, rec_ref):
+    """For each differing (node, slot, filter) of a round that aggregated
+    ``models`` through the table ``idx`` (valid ``v``), with WFAgg-T ``prev``
+    read through ``prev_idx`` (None: through ``idx``) and the pre-round
+    temporal state ``ts``: the relative margin of the reference's own
+    float32 value to the decision (see ``explain_dfl_round``)."""
+    from repro_torch.core import aggregators as agg
+    from repro_torch.core import trust
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+
     K = idx.shape[1]
-    wcfg = engine._wfagg_full_config(cfg, K)
-    ts = state.temporal
-    st = robust_stats_indexed_ref(flat, idx, v, ts.prev, need_gram=True)
+    st = robust_stats_indexed_ref(models, idx, v, prev, need_gram=True,
+                                  prev_idx=prev_idx)
     tb = trust.temporal_bands(ts.hist_s, ts.hist_b, ts.count, ts.t, wcfg)
     rel = lambda x, e: float(((x - e).abs() / x.abs().clamp(min=1e-30)).item())  # noqa: E731
     if wcfg.distance_filter == "multi_krum":
-        d2 = trust.sq_dists_from_gram(st.gram, st.norm2)
+        d2 = trust.sq_dists_from_gram(st.gram)
         vp = v[:, :, None] & v[:, None, :]
         scores = agg.krum_scores_from_sq_dists_dyn(torch.where(vp, d2, torch.inf),
                                                    wcfg.f, v.sum(-1))
@@ -891,6 +1244,258 @@ def explain_cfl_round(torch, cfg, topo, data, state):
             for m in ("mask_d", "mask_c", "mask_t")))
 
 
+# ---------------------------------------------------------------------------
+# phase 3: dynamic topologies and chaos transport
+# ---------------------------------------------------------------------------
+
+def upload_schedule(torch, sched, fs=None):
+    """The schedule's stacks on the card: (idx, valid, malicious[, drop, lag,
+    dup, corrupt, down])."""
+    import numpy as np
+
+    xs = tuple(torch.as_tensor(np.asarray(a), device="cuda")
+               for a in (sched.neighbor_idx, sched.valid, sched.malicious))
+    return xs + (fs.xs("cuda") if fs is not None else ())
+
+
+def aggregation_inputs(torch, cfg, data, state, idx, val, mal, ts=None, fr=None,
+                       fcfg=None):
+    """What a round (a chaos round with ``ts``/``fr``) hands the WFAgg
+    aggregation after its sanitizer, from the engine's own steps before
+    it: ``(models, table, valid, prev, prev_idx)``."""
+    from repro_torch.core import wfagg as wf
+    from repro_torch.dfl import engine
+
+    if ts is None:
+        _, _, flat = engine._trained(cfg, data, state, mal)
+        models, v = wf.sanitize_rows(flat, idx.long(), val)
+        return models, idx.long(), v, state.temporal.prev, None
+    tout = engine.chaos_inputs(cfg, data, fcfg, state, idx, val, mal, ts, fr).tout
+    models, v = wf.sanitize_rows(tout.full, tout.eff_idx, tout.eff_valid)
+    return models, tout.eff_idx, v, models, tout.prev_idx
+
+
+def check_dynamic_against_reference(torch, cfg, topo, data, sched, fs=None):
+    """Replay a dynamic (with ``fs``, chaos) run round by round: from each
+    of its states, realigned to the round's slate, one round on the run's
+    backend and one on the reference backend (deterministic cuDNN) must
+    give bit-equal verdicts and models within 3e-5; a differing verdict
+    within 1e-4 (relative) of a band edge or keep boundary is reported
+    with its margin, any other difference fails (as
+    ``check_against_reference``)."""
+    import dataclasses
+
+    from repro_torch.dfl import engine
+    from repro_torch.dfl import faults as flt
+    from repro_torch.models.lenet import ravel
+
+    fcfg = fs.config if fs is not None else None
+    fns = [engine.build_round_fn(c, topo, data, dynamic=True, telemetry=True,
+                                 faults=fcfg, device="cuda")
+           for c in (cfg, dataclasses.replace(cfg, wfagg_backend="reference"))]
+    state = engine.init_dfl_state(cfg, topo, degree=sched.width, device="cuda")
+    xs = upload_schedule(torch, sched, fs)
+    ts = (flt.init_transport_state(fcfg, topo.n_nodes, sched.width,
+                                   ravel(state.node_params).shape[1], device="cuda")
+          if fs is not None else None)
+    label = f"{cfg.aggregator} on {cfg.wfagg_backend}" + (" under chaos" if fs else "")
+    prev = (xs[0][0], xs[1][0])
+    torch.backends.cudnn.deterministic = True
+    try:
+        edge_rounds, t_fired = [], 0
+        for r in range(sched.rounds):
+            idx, val, mal = (x[r] for x in xs[:3])
+            state, ts = engine.realign_to_slate(state, ts, *prev, idx, val)
+            fr = flt.FaultRound(*(x[r] for x in xs[3:])) if fs is not None else None
+            args = (state, idx, val, mal) + ((ts, fr) if fs is not None else ())
+            (nxt, *rest), (alt, *rest_ref) = fns[0](*args), fns[1](*args)
+            rec, rec_ref = rest[-1], rest_ref[-1]
+            flat = ravel(nxt.node_params)
+            if not torch.isfinite(flat[torch.as_tensor(~sched.malicious.any(0),
+                                                       device="cuda")]).all():
+                raise AssertionError(f"{label} round {r + 1}: a benign model is not finite")
+            if not torch.equal(rec.verdict, rec_ref.verdict):
+                inputs = aggregation_inputs(torch, cfg, data, state, idx, val, mal, ts,
+                                            fr, fcfg)
+                wcfg = engine._wfagg_full_config(cfg, sched.width)
+                report = decision_margins(torch, wcfg, *inputs, state.temporal, rec,
+                                          rec_ref)
+                print(f"  {label} round {r + 1}: verdicts differ from the reference "
+                      f"backend: (node, slot, filter, margin) {report}")
+                if not report or any(m is None or m > 1e-4 for _, _, _, m in report):
+                    raise AssertionError(f"{label} round {r + 1}: verdicts differ from the "
+                                         "reference backend away from any edge")
+                edge_rounds.append((r + 1, report))
+            else:
+                torch.testing.assert_close(flat, ravel(alt.node_params), rtol=OUT_TOL,
+                                           atol=OUT_TOL, equal_nan=True)
+            t_fired += int(((rec.verdict >> 2) & 1).sum())
+            state, ts = nxt, (rest[0] if fs is not None else None)
+            prev = (idx, val)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"  {label} == the reference backend on the card, {sched.rounds} rounds: "
+          f"verdicts bit-equal and models within {OUT_TOL} in "
+          f"{sched.rounds - len(edge_rounds)} rounds (rounds on an edge: {edge_rounds}); "
+          f"WFAgg-T accepted {t_fired} edges")
+    return edge_rounds
+
+
+def check_no_host_sync(torch, cfg, topo, data, sched, fs=None):
+    """One dynamic (with ``fs``, chaos) round, re-keying included, under
+    ``torch.cuda.set_sync_debug_mode("error")``: any operation that makes
+    the host wait on the card raises."""
+    from repro_torch.dfl import engine
+    from repro_torch.dfl import faults as flt
+    from repro_torch.models.lenet import ravel
+
+    fcfg = fs.config if fs is not None else None
+    fn = engine.build_round_fn(cfg, topo, data, dynamic=True, faults=fcfg, device="cuda")
+    state = engine.init_dfl_state(cfg, topo, degree=sched.width, device="cuda")
+    xs = upload_schedule(torch, sched, fs)
+    ts = (flt.init_transport_state(fcfg, topo.n_nodes, sched.width,
+                                   ravel(state.node_params).shape[1], device="cuda")
+          if fs is not None else None)
+    prev = (xs[0][0], xs[1][0])
+    for r in range(2):       # round 0 warms up (kernel libraries, allocator)
+        torch.cuda.synchronize()
+        if r == 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            idx, val, mal = (x[r] for x in xs[:3])
+            state, ts = engine.realign_to_slate(state, ts, *prev, idx, val)
+            if fs is None:
+                state = fn(state, idx, val, mal)
+            else:
+                state, ts = fn(state, idx, val, mal, ts,
+                               flt.FaultRound(*(x[r] for x in xs[3:])))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        prev = (idx, val)
+    torch.cuda.synchronize()
+    print(f"  {cfg.aggregator} on {cfg.wfagg_backend}" + (" under chaos" if fs else "")
+          + ": one round ran under set_sync_debug_mode('error') with no host sync")
+
+
+def check_kill_and_resume(torch, cfg, topo, data, sched, fs, stop):
+    """Stop a chaos run after ``stop`` rounds, checkpoint, resume, finish:
+    every array of the final carry (models, momentum, the WFAgg-T ring
+    buffers and prev, the transport ring and served-lag table, the slate,
+    the round counter) and the schedules are ``torch.equal`` to those of
+    the uninterrupted run, and so are the accuracy series."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.dfl.engine import run_dynamic_experiment
+
+    run = lambda **kw: run_dynamic_experiment(cfg, topo, data, sched, faults=fs,  # noqa: E731
+                                              device="cuda", **kw)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            full = run(checkpoint_dir=f"{tmp}/full")
+            part = run(stop_after=stop, checkpoint_dir=f"{tmp}/snap")
+            resumed = run(resume_from=f"{tmp}/snap", checkpoint_dir=f"{tmp}/resumed")
+            with np.load(f"{tmp}/full/chaos.npz") as a, \
+                    np.load(f"{tmp}/resumed/chaos.npz") as b:
+                if sorted(a.files) != sorted(b.files):
+                    raise AssertionError("kill-and-resume: the carries differ in structure")
+                differ = [k for k in a.files
+                          if not torch.equal(torch.from_numpy(a[k]), torch.from_numpy(b[k]))]
+                keys = a.files
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if differ:
+        raise AssertionError(f"kill-and-resume: {differ} differ from the uninterrupted run")
+    series = part["series"]["acc_benign_mean"] + resumed["series"]["acc_benign_mean"]
+    if series != full["series"]["acc_benign_mean"] or \
+            resumed["rounds_run"] != [stop, sched.rounds]:
+        raise AssertionError("kill-and-resume: the stitched series differ")
+    ring = [k for k in keys if "ring" in k or "served_lag" in k or "hist" in k]
+    print(f"  kill-and-resume ({cfg.aggregator}, {cfg.attack}, stop after {stop} of "
+          f"{sched.rounds} rounds): all {len(keys)} arrays of the final carry and "
+          f"schedules torch.equal to the uninterrupted run's (among them {ring}); "
+          "stitched accuracy series equal")
+
+
+def run_dynamic_paths(torch, topo, data) -> dict:
+    """Phase 3's dynamic and chaos paths: each run with every launch count
+    set to 0 just before and read just after, replayed against the
+    reference backend; a round under the sync check; kill-and-resume;
+    finite series under corruption; benign accuracy under chaos (printed
+    only).  Returns the launches of the runs by kernel."""
+    import numpy as np
+
+    from repro_torch.core.topology import paper_topology
+    from repro_torch.dfl.dynamics import make_faulty_schedule, make_schedule
+    from repro_torch.dfl.engine import DFLConfig, run_dynamic_experiment
+
+    total = dict.fromkeys(KERNELS, 0)
+    sched = make_schedule("churn", topo, ROUNDS, seed=1)
+    fsched, fs = make_faulty_schedule("churn", topo, ROUNDS, fault="chaos", intensity=0.4)
+    print(f"  churn: degree min/mean/max per round "
+          f"{[[round(float(x), 2) for x in row] for row in sched.degree_stats()]}; chaos "
+          f"schedule {fs.summary()}")
+    runs = [("wfagg", "fused", None), ("wfagg", "fused", fs), ("alt_wfagg", "fused", fs),
+            ("wfagg", "fused_two_launch", fs), ("mean", "fused", fs)]
+    for agg, backend, faults in runs:
+        cfg = DFLConfig(aggregator=agg, attack="ipm_100", model="lenet",
+                        wfagg_backend=backend)
+        s = fsched if faults is not None else sched
+        zero_counts()
+        o = run_dynamic_experiment(cfg, topo, data, s, faults=faults)
+        counts = read_counts()
+        want = dict.fromkeys(KERNELS, 0)
+        if agg != "mean" and backend == "fused":
+            want["wfagg_round_indexed"] = ROUNDS
+            want["wfagg_round_indexed[prev_idx]"] = ROUNDS if faults is not None else 0
+        elif agg != "mean":
+            want["robust_stats_indexed"] = want["weighted_agg_indexed"] = ROUNDS
+            want["robust_stats_indexed[prev_idx]"] = ROUNDS
+        label = f"{agg} on {backend}" + (" under chaos" if faults is not None else "")
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts}, expected {want}")
+        if not all(np.isfinite(e["acc_all"]).all() for e in o["trace"]):
+            raise AssertionError(f"{label}: non-finite accuracy")
+        print(f"  {label}: launches {dict((k, v) for k, v in counts.items() if v)}; "
+              f"benign acc per round {[round(a, 4) for a in o['series']['acc_benign_mean']]}"
+              f", round ms {[round(1e3 * t, 2) for t in o['series']['round_seconds']]}")
+        for name in KERNELS:
+            total[name] += counts[name]
+        if agg != "mean":
+            check_dynamic_against_reference(torch, cfg, topo, data, s, faults)
+    for agg, backend, faults in runs[:2] + runs[3:4]:
+        check_no_host_sync(torch, DFLConfig(aggregator=agg, attack="ipm_100",
+                                            model="lenet", wfagg_backend=backend),
+                           topo, data, fsched if faults is not None else sched, faults)
+    check_kill_and_resume(torch, DFLConfig(aggregator="wfagg", attack="alie",
+                                           model="lenet"), topo, data, fsched, fs, stop=3)
+
+    mlp_topo = paper_topology()
+    csched, cfs = make_faulty_schedule("churn", mlp_topo, 3, fault="corrupt",
+                                       intensity=0.5, seed=1, fault_seed=2)
+    for agg in ("wfagg", "mean"):
+        o = run_dynamic_experiment(DFLConfig(aggregator=agg, attack="none", model="mlp"),
+                                   mlp_topo, data, csched, faults=cfs)
+        s = o["series"]
+        if not (np.isfinite(s["acc_benign_mean"]).all() and np.isfinite(s["r_squared"]).all()
+                and np.isfinite(o["final"]["acc_benign_mean"])):
+            raise AssertionError(f"{agg} under corrupt@0.5: a series is not finite")
+        print(f"  {agg} under corrupt@0.5 (MLP, 3 rounds, corrupt rate "
+              f"{o['faults']['corrupt_rate']:.3f}): every series finite, benign acc "
+              f"{[round(a, 4) for a in s['acc_benign_mean']]}")
+    asched, afs = make_faulty_schedule("churn", mlp_topo, ROUNDS, fault="chaos",
+                                       intensity=0.4)
+    for agg in ("wfagg", "mean"):
+        o = run_dynamic_experiment(DFLConfig(aggregator=agg, attack="ipm_100", model="mlp"),
+                                   mlp_topo, data, asched, faults=afs)
+        print(f"  {agg} under churn + chaos@0.4, IPM-100 (MLP, {ROUNDS} rounds; printed "
+              f"only, the reference states no claim): benign acc per round "
+              f"{[round(a, 4) for a in o['series']['acc_benign_mean']]}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -908,7 +1513,7 @@ def main() -> int:
 
     # ---- phase 1: build -----------------------------------------------------
     t0 = time.perf_counter()
-    libs = common.build(*(ROOT / src for _, _, src, _ in KERNELS.values()))
+    libs = common.build(*dict.fromkeys(ROOT / src for _, _, src, _ in KERNELS.values()))
     print(f"[1] built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for so in libs:
         entry = ""
@@ -973,6 +1578,20 @@ def main() -> int:
     timed.update(dfl_timed)
     time_gram_epilogue(torch, 64, 32, 8192, seed=28)
     time_dfl_backends(torch, 64, 16, 1 << 20, seed=27)
+
+    print("[2] the prev_idx variants of the round and statistics kernels on stacked "
+          "chaos matrices (apply_transport)")
+    r, flat, tout = paper_chaos_stack(torch, 44426)
+    for name, e in compare_prev_idx(torch, f"paper N=20 K=8 d=44426 churn+chaos round {r}",
+                                    flat, tout, seed=41).items():
+        errs[name] = e
+    for N, K, d, seed in ((40, 16, 44426, 42), (48, 32, 20011, 43)):
+        idx, valid = irregular_slate(N, K, seed)
+        flat, tout = chaos_stack(torch, N, K, d, idx, valid, seed)
+        for name, e in compare_prev_idx(torch, f"irregular N={N} K={K} d={d} (degree 0)",
+                                        flat, tout, seed).items():
+            errs[name] += e
+    timed.update(time_prev_idx_kernels(torch, 64, 16, 1 << 20, seed=44))
 
     # ---- phase 3: the main paths --------------------------------------------
     print(f"[3] DFL main path: run_experiment, LeNet-5, paper topology, IPM-100, "
@@ -1080,10 +1699,16 @@ def main() -> int:
     if not (accs["wfagg"] > accs["mean"] + 0.2 and accs["alt_wfagg"] > accs["mean"] + 0.2):
         raise AssertionError(f"CFL IPM-100 claim does not hold: {accs}")
 
+    print(f"[3] dynamic topologies and chaos transport: run_dynamic_experiment, "
+          f"LeNet-5, the same topology, IPM-100, {ROUNDS} rounds")
+    dyn_launches = run_dynamic_paths(torch, topo, data)
+
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
-    # two-launch runs, the CFL kernels on the two CFL runs
-    launches = {name: dfl_launches[name] + cfl_launches[name] for name in KERNELS}
+    # two-launch runs, the CFL kernels on the two CFL runs, and the dynamic
+    # and chaos runs (the prev_idx variants on the chaos runs only)
+    launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
+                for name in KERNELS}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])

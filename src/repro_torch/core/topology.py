@@ -12,8 +12,12 @@ read; the self model is always finite) and ``neighbor_valid`` marks the
 real edges.  The aggregation honors the valid mask, so per-node degrees
 may differ freely, including degree 0 (the node keeps its own model).
 
-Round-varying schedules (``TopologySchedule``) come with the dynamic
-rounds: ROADMAP queue 1, item 6.
+Dynamic topologies are a SCHEDULE of padded tables: ``TopologySchedule``
+stacks one (N, K) neighbor table + valid mask + malicious mask per round
+(K = the max degree over ALL rounds, so every round shares one shape).
+``dfl.dynamics`` builds schedules from composable scenario generators
+(churn, link failure, partition, mobility, sleeper attackers, and the
+topology attacks).
 """
 from __future__ import annotations
 
@@ -134,7 +138,7 @@ def padded_neighbor_table(adj: np.ndarray, width: int = None):
 
     ``width`` forces the table to a wider K than this graph needs — the
     schedule builders use it so every round of a dynamic topology shares
-    ONE (N, K) shape (no retrace when the graph changes).
+    ONE (N, K) shape.
     """
     n = adj.shape[0]
     degs = adj.sum(axis=1).astype(np.int64)
@@ -151,6 +155,91 @@ def padded_neighbor_table(adj: np.ndarray, width: int = None):
         table[i, len(nbrs):] = i
         valid[i, : len(nbrs)] = True
     return table, valid
+
+
+# ---------------------------------------------------------------------------
+# topology schedules (dynamic graphs, one entry per gossip round)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TopologySchedule:
+    """A round-indexed stack of padded neighbor tables + Byzantine masks.
+
+    Every round is padded to ONE common width K (the max degree over all
+    rounds), so the whole schedule uploads to the device once as (R, N, K)
+    stacks and the round function reads ``(neighbor_idx[r], valid[r],
+    malicious[r])`` as views, however the graph changes.  Built by
+    ``schedule_from_adjacencies`` (or the scenario generators in
+    ``repro_torch.dfl.dynamics``).
+    """
+
+    neighbor_idx: np.ndarray   # (R, N, K) int32, padded with self
+    valid: np.ndarray          # (R, N, K) bool, False on padded slots
+    malicious: np.ndarray      # (R, N) bool - per-round Byzantine set
+    adjacency: np.ndarray      # (R, N, N) bool - kept for eval/diffing
+
+    @property
+    def rounds(self) -> int:
+        return int(self.neighbor_idx.shape[0])
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.neighbor_idx.shape[1])
+
+    @property
+    def width(self) -> int:
+        """Common table width K (= max degree over all rounds)."""
+        return int(self.neighbor_idx.shape[2])
+
+    def degrees(self) -> np.ndarray:
+        """(R, N) true per-round per-node degree."""
+        return self.valid.sum(axis=2)
+
+    def degree_stats(self) -> np.ndarray:
+        """(R, 3) per-round [min, mean, max] degree."""
+        d = self.degrees()
+        return np.stack([d.min(axis=1), d.mean(axis=1), d.max(axis=1)],
+                        axis=1)
+
+    def diff(self) -> np.ndarray:
+        """(R-1, 2) undirected edges [added, removed] at each transition —
+        the round-over-round graph churn a scenario realizes."""
+        a = np.triu(self.adjacency, 1)
+        added = (~a[:-1] & a[1:]).sum(axis=(1, 2))
+        removed = (a[:-1] & ~a[1:]).sum(axis=(1, 2))
+        return np.stack([added, removed], axis=1)
+
+
+def schedule_from_adjacencies(adjs: np.ndarray,
+                              malicious: np.ndarray) -> TopologySchedule:
+    """Pad a (R, N, N) adjacency stack into a ``TopologySchedule``.
+
+    All rounds share one table width (the max degree over the whole
+    schedule), so every round's inputs have one shape.
+    ``malicious`` may be static (N,) or per-round (R, N).
+    """
+    adjs = np.asarray(adjs, dtype=bool)
+    R, n, _ = adjs.shape
+    mal = np.asarray(malicious, dtype=bool)
+    if mal.ndim == 1:
+        mal = np.broadcast_to(mal, (R, n)).copy()
+    if mal.shape != (R, n):
+        raise ValueError(f"malicious shape {mal.shape} != {(R, n)}")
+    k_max = max(1, int(adjs.sum(axis=2).max()))
+    tables, valids = [], []
+    for r in range(R):
+        t, v = padded_neighbor_table(adjs[r], width=k_max)
+        tables.append(t)
+        valids.append(v)
+    return TopologySchedule(
+        neighbor_idx=np.stack(tables), valid=np.stack(valids),
+        malicious=mal, adjacency=adjs)
+
+
+def static_schedule(topo: Topology, rounds: int) -> TopologySchedule:
+    """The trivial schedule: the same graph + malicious set every round."""
+    adjs = np.broadcast_to(topo.adjacency, (rounds,) + topo.adjacency.shape)
+    return schedule_from_adjacencies(adjs, topo.malicious)
 
 
 def make_topology(

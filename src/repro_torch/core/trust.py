@@ -90,10 +90,19 @@ def needs_gram(cfg) -> bool:
     return cfg.distance_filter == "multi_krum" or cfg.similarity_filter == "clustering"
 
 
-def sq_dists_from_gram(gram: Tensor, norm2: Tensor) -> Tensor:
-    """(..., K, K) squared distances from a Gram matrix and squared norms;
-    the self-distance, where the expansion cancels, is pinned to 0."""
-    d2 = norm2[..., :, None] + norm2[..., None, :] - 2.0 * gram
+def sq_dists_from_gram(gram: Tensor) -> Tensor:
+    """(..., K, K) squared distances ``g_ii + g_jj - 2 g_ij`` from a Gram
+    matrix alone; the self-distance is pinned to 0.
+
+    The squared norms are the Gram's own diagonal, not separately summed
+    norms (the reference's ``norm2``): every kernel and the plain version
+    sum each Gram entry in one order, so two bit-identical candidates have
+    bit-equal entries and their distance cancels to exactly 0.  With norms
+    summed in another order it is a float32 difference of values as large
+    as the squared norms, whose rounding can exceed every other distance
+    of the slate (two corrupt slots reading one bank row)."""
+    n2 = torch.diagonal(gram, dim1=-2, dim2=-1)
+    d2 = n2[..., :, None] + n2[..., None, :] - 2.0 * gram
     K = gram.shape[-1]
     d2 = d2 * (1.0 - torch.eye(K, dtype=d2.dtype, device=d2.device))
     return torch.clamp(d2, min=0.0)
@@ -119,7 +128,7 @@ def fused_distance_mask(stats: RobustStats, gram: Optional[Tensor], cfg) -> Tens
         return agg.smallest_k_mask(stats.dist2, K - int(cfg.f) - 1)
     if cfg.distance_filter == "multi_krum":
         scores = agg.krum_scores_from_sq_dists(
-            sq_dists_from_gram(gram, stats.norm2), cfg.f)
+            sq_dists_from_gram(gram), cfg.f)
         return agg.smallest_k_mask(scores, multi_krum_m(cfg, K))
     raise ValueError(f"unknown distance filter {cfg.distance_filter!r}")
 
@@ -148,7 +157,7 @@ def fused_distance_mask_valid(stats: RobustStats, valid: Tensor, cfg) -> Tensor:
         scores = torch.where(valid, stats.dist2, torch.inf)
         return agg.smallest_k_mask_dyn(scores, v - int(cfg.f) - 1)
     if cfg.distance_filter == "multi_krum":
-        d2 = sq_dists_from_gram(stats.gram, stats.norm2)
+        d2 = sq_dists_from_gram(stats.gram)
         vpair = valid[..., :, None] & valid[..., None, :]
         scores = agg.krum_scores_from_sq_dists_dyn(
             torch.where(vpair, d2, torch.inf), cfg.f, v)

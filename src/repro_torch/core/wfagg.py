@@ -13,7 +13,11 @@ Components (each maps to a paper algorithm):
   wfagg_batch      all N receiving nodes of a gossip round at once, from
                    the (M, d) model matrix and an (N, K) neighbour table
                    (the (N, K, d) gossip tensor never exists on the fused
-                   path)
+                   path); with ``prev_idx`` the WFAgg-T ``prev`` rows come
+                   through their own table (chaos transport)
+  realign_temporal_history
+                   re-keys the slot-positional WFAgg-T ring buffers to a
+                   new slate by neighbour identity (dynamic topologies)
 
 Execution backends (``WFAggConfig.backend``):
   fused      single node (``wfagg``, the CFL server): one statistics
@@ -310,20 +314,35 @@ def _push_temporal_history(state: TemporalState, prev_new: Tensor,
                          count=count, t=t)
 
 
+def sanitize_rows(models: Tensor, idx: Tensor, valid: Tensor) -> Tuple[Tensor, Tensor]:
+    """The non-finite payload sanitizer: ``models (M, d)`` with each row
+    holding a NaN or Inf zeroed, and ``valid (N, K)`` with the edges that
+    read such a row through ``idx`` demoted."""
+    finite = torch.isfinite(models).all(-1)
+    return (torch.where(finite[:, None], models, torch.zeros_like(models)),
+            valid & finite[idx])
+
+
 def _wfagg_batch_indexed(local: Tensor, models: Tensor,
                          state: Optional[TemporalState], cfg: WFAggConfig,
-                         neighbor_idx: Tensor, valid: Optional[Tensor]):
+                         neighbor_idx: Tensor, valid: Optional[Tensor],
+                         prev_idx: Optional[Tensor] = None):
     """Gather-free batched WFAgg (see ``wfagg_batch``)."""
     N, K = neighbor_idx.shape
     idx = neighbor_idx.long()
     valid_b = (torch.ones((N, K), dtype=torch.bool, device=models.device)
                if valid is None else valid.to(torch.bool))
     temporal = cfg.use_temporal and state is not None
+    if prev_idx is not None and not (temporal and state.prev.ndim == 2):
+        prev_idx = None        # nothing matrix-formed to re-key
+    # the chaos round's prev IS the stacked model matrix: sanitize it once
+    # and keep it one tensor, so the kernel wrappers pad it once
+    shared = temporal and state.prev is models
     if cfg.sanitize:
-        finite = torch.isfinite(models).all(-1)
-        models = torch.where(finite[:, None], models, torch.zeros_like(models))
-        valid_b = valid_b & finite[idx]
-        if temporal:
+        models, valid_b = sanitize_rows(models, idx, valid_b)
+        if shared:
+            state = state._replace(prev=models)
+        elif temporal:
             pf = torch.isfinite(state.prev).all(-1)
             state = state._replace(prev=torch.where(
                 pf[..., None], state.prev, torch.zeros_like(state.prev)))
@@ -331,7 +350,8 @@ def _wfagg_batch_indexed(local: Tensor, models: Tensor,
 
     if cfg.backend == "reference":
         stats = robust_stats_indexed_ref(models, idx, valid_b, prev,
-                                         need_gram=trust.needs_gram(cfg))
+                                         need_gram=trust.needs_gram(cfg),
+                                         prev_idx=prev_idx)
         mask_d, mask_c, mask_t, weights, new_state = _indexed_scoring(
             stats, valid_b, state, cfg, models, idx)
         out = wfagg_e(local, models[idx].to(torch.float32), weights, cfg.alpha)
@@ -346,7 +366,7 @@ def _wfagg_batch_indexed(local: Tensor, models: Tensor,
                                           state.count, state.t, cfg)
         out, weights, mask_d, mask_c, mask_t, stats = wfagg_round_indexed(
             local, models, idx, valid_b if cfg.sanitize else valid, cfg,
-            prev=prev, tbands=tbands)
+            prev=prev, tbands=tbands, prev_idx=prev_idx)
         new_state = state
         if temporal:
             new_state = _push_temporal_history(
@@ -356,7 +376,8 @@ def _wfagg_batch_indexed(local: Tensor, models: Tensor,
         # the statistics launch (the Alt-WFAgg Gram rides along in the same
         # pass), the scoring stage on the host, the combine launch
         stats = robust_stats_indexed(models, idx, valid_b if cfg.sanitize else valid,
-                                     prev=prev, need_gram=trust.needs_gram(cfg))
+                                     prev=prev, need_gram=trust.needs_gram(cfg),
+                                     prev_idx=prev_idx)
         mask_d, mask_c, mask_t, weights, new_state = _indexed_scoring(
             stats, valid_b, state, cfg, models, idx)
         out = weighted_agg_indexed(local, models, idx, weights, alpha=cfg.alpha)
@@ -398,19 +419,45 @@ def wfagg_batch(
     ``updates`` is the (M, d) MODEL MATRIX the neighbour rows are read
     from.  ``valid (N, K)`` marks the real edges of padded irregular
     slates (None = regular).  ``state`` carries the WFAgg-T history with a
-    leading N axis.  Every input moves to ``device`` (None = the card,
-    which raises without one).  Returns ``(out (N, d), new_state, info)``
-    with the filter masks, valid mask and trust weights in ``info``.
+    leading N axis.  ``prev_idx (N, K)`` reads the WFAgg-T ``prev`` matrix
+    through its own table (chaos transport: ``state.prev`` is then the
+    stacked matrix, often ``updates`` itself); it is dropped when
+    ``prev`` is not a matrix.  Every input moves to ``device`` (None = the
+    card, which raises without one).  Returns ``(out (N, d), new_state,
+    info)`` with the filter masks, valid mask and trust weights in
+    ``info``.
     """
     if neighbor_idx is None:
         raise NotImplementedError(
             "the gathered (N, K, d) wfagg_batch is not ported yet: ROADMAP "
             "queue 1, item 10; pass neighbor_idx with the (M, d) matrix")
-    if prev_idx is not None:
-        raise NotImplementedError(
-            "prev_idx (chaos transport) is not ported yet: ROADMAP queue 1, "
-            "item 8")
     dev = resolve_device(device)
     return _wfagg_batch_indexed(
         local.to(dev), updates.to(dev), _to_device(state, dev), cfg,
-        neighbor_idx.to(dev), _to_device(valid, dev))
+        neighbor_idx.to(dev), _to_device(valid, dev), _to_device(prev_idx, dev))
+
+
+def realign_temporal_history(state: TemporalState, prev_idx: Tensor,
+                             prev_valid: Tensor, idx: Tensor,
+                             valid: Tensor) -> TemporalState:
+    """Re-key the slot-positional WFAgg-T ring buffers to a new slate.
+
+    ``hist_s``/``hist_b`` are (N, W, K) and keyed by neighbour SLOT; on a
+    round-varying topology a neighbour may occupy another slot than last
+    round, so without remapping Alg. 4 would score each neighbour against
+    another's history.  Column k_new receives the history of the k_old
+    with ``idx[n, k_new] == prev_idx[n, k_old]`` (both slots valid); a
+    neighbour unseen last round starts with a zeroed column.  The (N, d)
+    matrix ``prev`` needs no remap (it is indexed by node id), and on a
+    static slate the match is the identity.  The contraction is a float32
+    einsum over 0/1 weights (exact), as in the reference, so a neighbour
+    seen twice or never behaves the same.
+    """
+    match = ((idx[:, :, None] == prev_idx[:, None, :])
+             & valid.to(torch.bool)[:, :, None]
+             & prev_valid.to(torch.bool)[:, None, :])   # (N, K_new, K_old)
+    m = match.to(state.hist_s.dtype)
+    return state._replace(
+        hist_s=torch.einsum("nkj,nwj->nwk", m, state.hist_s),
+        hist_b=torch.einsum("nkj,nwj->nwk", m, state.hist_b),
+    )

@@ -1,5 +1,5 @@
 """Mode-A DFL round engine: the paper's experiment (port of
-``repro.dfl.engine``, static rounds).
+``repro.dfl.engine``).
 
 Each of N nodes owns an independent local model.  One round =
   1. local training: minibatch momentum-SGD on every node at once
@@ -22,12 +22,25 @@ Each of N nodes owns an independent local model.  One round =
        ``core.aggregators.AGGREGATORS``, and every node starts the next
        round from the new global model.
 
+Round-varying topologies (``run_dynamic_experiment``): a
+``TopologySchedule`` gives every round its own (N, K) neighbour table,
+valid mask and Byzantine mask; the tables are uploaded once, and a Python
+loop runs the rounds (``build_round_fn(dynamic=True)``), re-keying the
+slot-positional WFAgg-T history to each round's slate by neighbour
+identity.  With a ``FaultSchedule`` (chaos transport, ``dfl.faults``)
+each round also routes the gossip through drop / stale / duplicate /
+corrupt / crash delivery over a stacked ring matrix, which the WFAgg
+kernels read through the re-keyed table (and their ``prev_idx`` variant
+for WFAgg-T); such a run can stop, checkpoint and resume bit-exactly
+(``train.checkpoint``).  Nothing inside a round reads the card back to
+the host.
+
 Entry points take ``device=None``, which means the card; without one
-they raise.  Not ported yet, and raising: dynamic schedules and chaos
-transport (ROADMAP queue 1, items 6 and 8), telemetry export (item 9),
-the baselines other than mean on irregular graphs (``DYN_AGGREGATORS``)
-and the standalone WFAgg filters (item 10), model-dimension sharding
-(item 11).
+they raise.  Not ported yet, and raising: adaptive attacks (ROADMAP
+queue 1, item 7), telemetry export of the static ``run_experiment``
+(item 9), the baselines other than mean on irregular graphs and dynamic
+schedules (``DYN_AGGREGATORS``) and the standalone WFAgg filters (item
+10), model-dimension sharding (item 11).
 """
 from __future__ import annotations
 
@@ -42,16 +55,20 @@ from repro_torch.configs.lenet_mnist import PaperDFLConfig
 from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import attacks as atk
 from repro_torch.core import metrics as met
+from repro_torch.core import trust
 from repro_torch.core import wfagg as wf
-from repro_torch.core.topology import Topology
+from repro_torch.core.topology import Topology, TopologySchedule
 from repro_torch.data.synthetic import SyntheticImages
+from repro_torch.dfl import faults as flt
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.lenet import MODELS, param_count, ravel, unravel
 from repro_torch.obs import decision as obs_decision
+from repro_torch.train import checkpoint as ckpt
 
 Tensor = torch.Tensor
 BASELINES = ("mean", "median", "trimmed_mean", "krum", "multi_krum", "clustering")
 AGGREGATORS = BASELINES + ("wfagg", "alt_wfagg")   # DFL and CFL rounds
+DYNAMIC_AGGREGATORS = ("mean", "wfagg", "alt_wfagg")   # dynamic and chaos rounds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,6 +200,15 @@ def _apply_attacks(cfg: DFLConfig, malicious: Tensor, flat: Tensor, rnd: int) ->
 # aggregation dispatch (one aggregation over K received models)
 # ---------------------------------------------------------------------------
 
+def _trained(cfg: DFLConfig, data: SyntheticImages, state: DFLState,
+             malicious: Tensor, batches=None):
+    """A round's local training and attacks: ``(params, momentum, flat)``,
+    ``flat`` the (N, d) matrix of the models the nodes send."""
+    params, momentum = _local_train(cfg, data, malicious, state.node_params,
+                                    state.node_momentum, state.rnd, batches)
+    return params, momentum, _apply_attacks(cfg, malicious, ravel(params), state.rnd)
+
+
 def _wfagg_full_config(cfg: DFLConfig, K: int,
                        backend: Optional[str] = None) -> wf.WFAggConfig:
     """WFAggConfig for the full wfagg/alt_wfagg pipeline at candidate count K."""
@@ -231,23 +257,46 @@ def _aggregate_one(cfg: DFLConfig, local: Tensor, updates: Tensor,
 
 def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
                    dynamic: bool = False, telemetry: bool = False,
-                   faults=None, device=None) -> Callable:
-    """One DFL round on ``device`` over the static topology:
-    ``round_fn(state, batches=None) -> state`` (``(state, record)`` with
-    ``telemetry``, the per-edge ``obs.decision.DecisionRecord``; a CFL
-    round has no edges and takes no ``telemetry``)."""
+                   faults: Optional[flt.FaultConfig] = None,
+                   device=None) -> Callable:
+    """One DFL round on ``device``.
+
+    ``dynamic=False``: ``round_fn(state, batches=None) -> state`` over the
+    static topology (``(state, record)`` with ``telemetry``, the per-edge
+    ``obs.decision.DecisionRecord``; a CFL round has no edges and takes
+    no ``telemetry``).
+
+    ``dynamic=True``: ``round_fn(state, neighbor_idx, valid, mal_mask,
+    batches=None)`` takes the round's (N, K) table, (N, K) valid mask and
+    (N,) Byzantine mask as tensors on ``device``.  WFAgg / Alt-WFAgg take
+    the gather-free route with the round's valid mask; the mean keeps a
+    degree-0 node's own model.  The WFAgg-T ring buffers are keyed by
+    slot: a caller driving rounds by hand on a changing slate re-keys them
+    first (``wf.realign_temporal_history``), as ``run_dynamic_experiment``
+    does.
+
+    ``faults`` (a ``dfl.faults.FaultConfig``, with ``dynamic=True``) gives
+    the chaos round: ``round_fn(state, neighbor_idx, valid, mal_mask, ts,
+    fr, batches=None, bank=None) -> (state, ts[, record])`` also takes the
+    carried ``TransportState`` and the round's ``FaultRound`` (``bank``
+    replaces the drawn corrupt bank, for the parity tests).
+    """
     if cfg.centralized and telemetry:
         raise NotImplementedError(
             "telemetry records per-edge gossip verdicts; the CFL baseline has "
             "one server and no edges (the reference raises too; ROADMAP queue "
             "1, item 9)")
-    if dynamic:
+    if faults is not None and not dynamic:
         raise NotImplementedError(
-            "dynamic schedules are not ported yet: ROADMAP queue 1, item 6")
-    if faults is not None:
-        raise NotImplementedError(
-            "fault injection is not ported yet: ROADMAP queue 1, item 8")
+            "fault injection rides the dynamic round form (per-round "
+            "inputs); pass dynamic=True")
     _check_supported(cfg)
+    if dynamic:
+        _check_dynamic(cfg)
+        dev = resolve_device(device)
+        if faults is not None:
+            return _make_chaos_round(cfg, data, telemetry, faults, dev)
+        return _make_dynamic_round(cfg, data, telemetry, dev)
     if (not cfg.centralized and not topo.is_regular
             and cfg.aggregator in BASELINES and cfg.aggregator != "mean"):
         raise NotImplementedError(
@@ -271,10 +320,7 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
         # initial weights in round 1), as the reference takes it
         anchor = (ravel({k: v[:1] for k, v in state.node_params.items()})[0]
                   if cfg.centralized else None)
-        params, momentum = _local_train(cfg, data, malicious, state.node_params,
-                                        state.node_momentum, state.rnd, batches)
-        flat = ravel(params)
-        flat = _apply_attacks(cfg, malicious, flat, state.rnd)
+        params, momentum, flat = _trained(cfg, data, state, malicious, batches)
         record = None
         if cfg.centralized:
             # one server-side aggregation over all N received models
@@ -291,13 +337,10 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
             if telemetry:
                 record = obs_decision.record_from_info(info)
         else:   # a baseline: plain gathered PyTorch, no kernel
-            gathered = flat[neighbor_idx]                 # (N, K, d)
             if neighbor_valid is None:
-                new_flat = _baseline(cfg, gathered)
+                new_flat = _baseline(cfg, flat[neighbor_idx])   # (N, K, d)
             else:   # the mean (the others raised above)
-                mean, _ = agg_lib.mean_agg_dyn(gathered, neighbor_valid)
-                has_nbr = neighbor_valid.any(-1, keepdim=True)
-                new_flat = torch.where(has_nbr, mean, flat)  # degree 0: local
+                new_flat = _mean_slates(flat, flat, neighbor_idx, neighbor_valid)
             new_temporal = None
             if telemetry:
                 record = obs_decision.record_uniform(
@@ -310,13 +353,163 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
     return round_fn
 
 
+def _check_dynamic(cfg: DFLConfig) -> None:
+    if cfg.centralized:
+        raise NotImplementedError("dynamic schedules and chaos transport are a "
+                                  "gossip (decentralized) feature; CFL has no "
+                                  "slates")
+    if cfg.aggregator not in DYNAMIC_AGGREGATORS:
+        raise NotImplementedError(
+            f"{cfg.aggregator!r} on a dynamic schedule needs the valid-masked "
+            f"DYN_AGGREGATORS, not ported yet (ported: {DYNAMIC_AGGREGATORS}): "
+            "ROADMAP queue 1, item 10")
+    if cfg.attack in atk.ADAPTIVE_ATTACKS:
+        raise NotImplementedError(
+            f"the adaptive attack {cfg.attack!r} reads the defense's state and "
+            "is not ported yet: ROADMAP queue 1, item 7")
+
+
+def _mean_slates(models: Tensor, local: Tensor, idx: Tensor, valid: Tensor) -> Tensor:
+    """The valid-masked mean of each node's slate ``models[idx[n]]``; a
+    degree-0 node keeps ``local``."""
+    mean, _ = agg_lib.mean_agg_dyn(models[idx.long()], valid)
+    return torch.where(valid.any(-1, keepdim=True), mean, local)
+
+
+def _make_dynamic_round(cfg: DFLConfig, data: SyntheticImages, telemetry: bool,
+                        dev: torch.device) -> Callable:
+    def round_fn(state: DFLState, neighbor_idx: Tensor, valid: Tensor,
+                 mal_mask: Tensor, batches=None):
+        params, momentum, flat = _trained(cfg, data, state, mal_mask, batches)
+        if cfg.aggregator in ("wfagg", "alt_wfagg"):
+            wcfg = _wfagg_full_config(cfg, neighbor_idx.shape[1])
+            new_flat, new_temporal, info = wf.wfagg_batch(
+                flat, flat, state.temporal, wcfg, neighbor_idx=neighbor_idx,
+                valid=valid, device=dev)
+            record = obs_decision.record_from_info(info) if telemetry else None
+        else:   # the mean (the other baselines raised in _check_dynamic)
+            new_flat = _mean_slates(flat, flat, neighbor_idx, valid)
+            new_temporal = None
+            record = obs_decision.record_uniform(valid) if telemetry else None
+        new_params = {k: v.contiguous() for k, v in unravel(new_flat, params).items()}
+        new_state = DFLState(new_params, momentum, new_temporal, state.rnd + 1)
+        return (new_state, record) if telemetry else new_state
+
+    return round_fn
+
+
+def _newest(hist: Tensor, row: Tensor) -> Tensor:
+    """``hist (N, W, K)`` with its most recent entry (index 0) replaced."""
+    return torch.cat([row[:, None], hist[:, 1:]], dim=1)
+
+
+class ChaosInputs(NamedTuple):
+    """The chaos round up to its aggregation (``chaos_inputs``)."""
+    params: Dict[str, Tensor]      # after local training
+    momentum: Dict[str, Tensor]    # a down node's kept at last round's
+    flat: Tensor                   # (N, d) the models sent; a down node's frozen
+    prev_flat: Tensor              # (N, d) the models going into the round
+    down: Tensor                   # (N,) bool, the crashed nodes
+    tout: flt.TransportOut         # the re-keyed delivery over the stacked matrix
+
+
+def chaos_inputs(cfg: DFLConfig, data: SyntheticImages, fcfg: flt.FaultConfig,
+                 state: DFLState, neighbor_idx: Tensor, valid: Tensor,
+                 mal_mask: Tensor, ts: flt.TransportState, fr: flt.FaultRound,
+                 batches=None, bank=None) -> ChaosInputs:
+    """The chaos round's steps before it aggregates: local training and
+    attacks, the crash freeze, and ``faults.apply_transport``.  The chaos
+    round runs it; a replay that explains a round's decisions reads the
+    aggregation's inputs from it."""
+    prev_flat = ravel(state.node_params)
+    params, momentum, flat = _trained(cfg, data, state, mal_mask, batches)
+    # crash freeze: a down node broadcasts (and keeps) its stored model;
+    # its training step and momentum advance are discarded
+    down = fr.down.to(torch.bool)
+    flat = torch.where(down[:, None], prev_flat, flat)
+    momentum = {k: torch.where(down.reshape((-1,) + (1,) * (v.ndim - 1)),
+                               state.node_momentum[k], v)
+                for k, v in momentum.items()}
+    tout = flt.apply_transport(flat, ts, neighbor_idx, valid, fr, fcfg, state.rnd,
+                               bank=bank)
+    return ChaosInputs(params, momentum, flat, prev_flat, down, tout)
+
+
+def _make_chaos_round(cfg: DFLConfig, data: SyntheticImages, telemetry: bool,
+                      fcfg: flt.FaultConfig, dev: torch.device) -> Callable:
+    """The fault-injected round (port of ``_make_chaos_round_core``).
+
+    Differences from the dynamic round, in execution order:
+      * crash freeze: a down node neither trains nor transmits; its model
+        row and momentum stay at last round's values, and its own slate is
+        all-invalid (it keeps its local model);
+      * transport: ``faults.apply_transport`` re-keys the table over the
+        sanitized stacked ring matrix (fresh / stale / corrupt-bank rows),
+        giving the effective table, the surviving valid mask and the
+        WFAgg-T ``prev_idx`` re-keying;
+      * history hygiene: an edge with no accepted delivery this round
+        records the pre-round EWMA mean instead of a metric against a
+        payload it never saw.
+    """
+    def round_fn(state: DFLState, neighbor_idx: Tensor, valid: Tensor,
+                 mal_mask: Tensor, ts: flt.TransportState, fr: flt.FaultRound,
+                 batches=None, bank=None):
+        params, momentum, flat, prev_flat, down, tout = chaos_inputs(
+            cfg, data, fcfg, state, neighbor_idx, valid, mal_mask, ts, fr, batches, bank)
+        if cfg.aggregator in ("wfagg", "alt_wfagg"):
+            wcfg = _wfagg_full_config(cfg, neighbor_idx.shape[1])
+            t_in = state.temporal
+            mu_s = mu_b = None
+            if wcfg.use_temporal:
+                # pre-round EWMA centres: what a no-delivery edge pushes
+                # instead of a metric against a payload it never saw
+                mu_s, _ = trust.ewma_mean_std(t_in.hist_s, t_in.count, wcfg.ewma_decay)
+                mu_b, _ = trust.ewma_mean_std(t_in.hist_b, t_in.count, wcfg.ewma_decay)
+            # the carried (N, d) prev is superseded by the stacked matrix +
+            # prev_idx (the payload each edge actually served last round)
+            t_in = t_in._replace(prev=tout.full)
+            new_flat, new_temporal, info = wf.wfagg_batch(
+                flat, tout.full, t_in, wcfg, neighbor_idx=tout.eff_idx,
+                valid=tout.eff_valid, prev_idx=tout.prev_idx, device=dev)
+            hist_s, hist_b = new_temporal.hist_s, new_temporal.hist_b
+            if mu_s is not None:
+                hist_s = _newest(hist_s, torch.where(tout.eff_valid, hist_s[:, 0], mu_s))
+                hist_b = _newest(hist_b, torch.where(tout.eff_valid, hist_b[:, 0], mu_b))
+            new_temporal = new_temporal._replace(prev=flat, hist_s=hist_s,
+                                                 hist_b=hist_b)
+            record = obs_decision.record_from_info(info) if telemetry else None
+        else:   # the mean, on the post-fault slate
+            new_flat = _mean_slates(tout.full, flat, tout.eff_idx, tout.eff_valid)
+            new_temporal = None
+            record = obs_decision.record_uniform(tout.eff_valid) if telemetry else None
+        # a down receiver aggregates nothing (its slate is all-invalid, so
+        # this already holds on the WFAgg path; make it explicit)
+        new_flat = torch.where(down[:, None], prev_flat, new_flat)
+        new_params = {k: v.contiguous() for k, v in unravel(new_flat, params).items()}
+        new_ts = flt.advance_ring(ts, flat, tout.served_lag)
+        new_state = DFLState(new_params, momentum, new_temporal, state.rnd + 1)
+        if telemetry:
+            record = obs_decision.with_fault_bits(record, tout.dropped, tout.stale,
+                                                  tout.corrupt)
+            return new_state, new_ts, record
+        return new_state, new_ts
+
+    return round_fn
+
+
 # ---------------------------------------------------------------------------
 # evaluation
 # ---------------------------------------------------------------------------
 
 def evaluate(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
-             state: DFLState, n_test: int = 512) -> Dict[str, Any]:
-    """Per-node accuracy + consistency snapshot on the held-out set."""
+             state: DFLState, n_test: int = 512,
+             malicious: Optional[np.ndarray] = None,
+             adjacency: Optional[np.ndarray] = None) -> Dict[str, Any]:
+    """Per-node accuracy + consistency snapshot on the held-out set.
+
+    ``malicious``/``adjacency`` override the static topology's: dynamic
+    runs pass the schedule's ever-malicious set and the evaluation
+    round's graph."""
     _, fwd = MODELS[cfg.model]
     dev = next(iter(state.node_params.values())).device
     imgs, labels = data.test_set(n_test, dev)
@@ -324,10 +517,10 @@ def evaluate(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
         logits = torch.func.vmap(fwd, in_dims=(0, None))(state.node_params, imgs)
         accs = met.micro_accuracy(logits, labels[None]).cpu().numpy()
         flat = ravel(state.node_params)
-        mal = np.asarray(topo.malicious)
+        mal = np.asarray(topo.malicious if malicious is None else malicious)
         benign = ~mal
         r2 = float(met.r_squared(flat[torch.as_tensor(benign, device=dev)]))
-    adj = np.asarray(topo.adjacency)
+    adj = np.asarray(topo.adjacency if adjacency is None else adjacency)
     mal_nb = (adj & mal[None, :]).sum(axis=1)
     by_mn = {}
     for m in range(max(2, int(mal_nb.max(initial=0))) + 1):
@@ -338,6 +531,32 @@ def evaluate(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
         "acc_by_malicious_neighbors": by_mn,
         "r_squared": r2,
         "acc_all": accs.tolist(),
+    }
+
+
+def _series_from_trace(trace) -> Dict[str, list]:
+    """Columnar per-round series from a trace of ``evaluate`` dicts."""
+    return {
+        "round": [e["round"] for e in trace],
+        "acc_benign_mean": [e["acc_benign_mean"] for e in trace],
+        "r_squared": [e["r_squared"] for e in trace],
+    }
+
+
+def _telemetry_out(record, neighbor_idx, valid, malicious) -> Dict[str, Any]:
+    """Host-side telemetry bundle (numpy only): the stacked (R, …)
+    ``DecisionRecord`` fields plus the slate context (``(R, N, K)``
+    tables, ``(R, N)`` Byzantine masks) a report needs to split attacker
+    from benign edges."""
+    return {
+        "verdict": record.verdict.cpu().numpy(),
+        "accepted": record.accepted.cpu().numpy(),
+        "mean_fallback": record.mean_fallback.cpu().numpy(),
+        "degree_zero": record.degree_zero.cpu().numpy(),
+        "entropy": record.entropy.cpu().numpy(),
+        "neighbor_idx": np.asarray(neighbor_idx),
+        "valid": np.asarray(valid),
+        "malicious": np.asarray(malicious),
     }
 
 
@@ -385,15 +604,244 @@ def run_experiment(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
             if mf is not None:
                 e["mean_fallback_nodes"] = np.flatnonzero(mf).tolist()
             trace.append(e)
-    series = {
-        "round": [e["round"] for e in trace],
-        "acc_benign_mean": [e["acc_benign_mean"] for e in trace],
-        "r_squared": [e["r_squared"] for e in trace],
-        "round_seconds": round_seconds,
-    }
+    series = _series_from_trace(trace)
+    series["round_seconds"] = round_seconds
     if track:
         series["mean_fallback_count"] = fallback_counts
         series["degree_zero_count"] = degree_zero_counts
     return {"trace": trace, "final": trace[-1], "series": series,
             "aggregator": cfg.aggregator, "attack": cfg.attack,
             "centralized": cfg.centralized, "device": str(dev)}
+
+
+# ---------------------------------------------------------------------------
+# dynamic-topology experiments (round-varying schedules)
+# ---------------------------------------------------------------------------
+
+def realign_to_slate(state: DFLState, ts: Optional[flt.TransportState],
+                     prev_idx: Tensor, prev_valid: Tensor, idx: Tensor,
+                     valid: Tensor):
+    """Re-key the slot-keyed carry from the slate ``(prev_idx, prev_valid)``
+    to the round's ``(idx, valid)`` by neighbour identity: the WFAgg-T
+    history and, with chaos transport (``ts``), the served-lag table.
+    Returns ``(state, ts)``."""
+    if state.temporal is not None:
+        state = state._replace(temporal=wf.realign_temporal_history(
+            state.temporal, prev_idx, prev_valid, idx, valid))
+    if ts is not None:
+        ts = ts._replace(served_lag=flt.realign_served_lag(
+            ts.served_lag, prev_idx, prev_valid, idx, valid))
+    return state, ts
+
+
+def _check_schedule(schedule: TopologySchedule) -> None:
+    """Validate the schedule's tables once, on the host, before the loop
+    (inside it the kernels' table checks run on the device)."""
+    t = np.asarray(schedule.neighbor_idx)
+    if t.size and (t.min() < 0 or t.max() >= schedule.n_nodes):
+        raise ValueError("schedule neighbor_idx holds indices outside "
+                         f"[0, {schedule.n_nodes})")
+
+
+def build_dynamic_scan_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
+                          schedule: TopologySchedule, n_test: int = 256,
+                          telemetry: bool = False,
+                          faults: Optional[flt.FaultSchedule] = None,
+                          device=None):
+    """The round loop behind ``run_dynamic_experiment`` (port of the
+    reference's one-jit scan).
+
+    Returns ``(state, run, sched)``: the initial state, ``run(state,
+    neighbor_idx, valid, malicious) -> (state, out)``, and the schedule's
+    ``(R, N, K)`` / ``(R, N)`` stacks as tensors on ``device``, uploaded
+    here once.  ``run`` loops over the rounds of the stacks it is given;
+    before each round it re-keys the WFAgg-T history (and, with faults,
+    the served-lag table) to the round's slate by neighbour identity, and
+    after it evaluates every node on ``n_test`` held-out images with the
+    schedule's ever-malicious nodes out of the benign cohort.  ``out``
+    holds ``acc_all (R, N)``, ``acc_benign (R,)``, ``r2 (R,)`` as tensors,
+    ``record`` (the stacked ``DecisionRecord`` with ``telemetry``, else
+    None) and ``round_seconds`` (each round's wall time, realign included
+    and evaluation not, between synchronised ends).  Nothing inside a
+    round reads the card back to the host.
+
+    ``faults`` (a ``dfl.faults.FaultSchedule``) gives the chaos form: the
+    first return value is the full loop CARRY ``(state, prev_idx,
+    prev_val, TransportState)``, ``run(carry, neighbor_idx, valid,
+    malicious, drop, lag, dup, corrupt, down)`` takes and returns it (so a
+    checkpointed run can stop and resume mid-schedule), and ``sched`` has
+    the five fault stacks too.
+    """
+    if schedule.n_nodes != topo.n_nodes:
+        raise ValueError(
+            f"schedule is for {schedule.n_nodes} nodes, topology has "
+            f"{topo.n_nodes}")
+    if faults is not None and faults.rounds != schedule.rounds:
+        raise ValueError(
+            f"fault schedule has {faults.rounds} rounds, topology "
+            f"schedule has {schedule.rounds}")
+    _check_schedule(schedule)
+    dev = resolve_device(device)
+    state = init_dfl_state(cfg, topo, degree=schedule.width, device=dev)
+    round_fn = build_round_fn(cfg, topo, data, dynamic=True, telemetry=telemetry,
+                              faults=faults.config if faults else None, device=dev)
+    _, fwd = MODELS[cfg.model]
+    imgs, labels = data.test_set(n_test, dev)
+    sched = tuple(torch.as_tensor(np.asarray(a), device=dev) for a in (
+        schedule.neighbor_idx, schedule.valid, schedule.malicious))
+    if faults is not None:
+        sched = sched + faults.xs(dev)
+    # the evaluation cohort: a node malicious in ANY round is an attacker
+    bw = torch.as_tensor(~schedule.malicious.any(axis=0), device=dev).to(torch.float32)
+
+    def eval_out(st: DFLState):
+        with torch.no_grad():
+            logits = torch.func.vmap(fwd, in_dims=(0, None))(st.node_params, imgs)
+            accs = met.micro_accuracy(logits, labels[None])
+            acc_benign = (accs * bw).sum() / torch.clamp(bw.sum(), min=1.0)
+            return accs, acc_benign, met.r_squared(ravel(st.node_params), weights=bw)
+
+    def loop(carry, xs):
+        st, prev_idx, prev_val, ts = carry
+        evals, records, seconds = [], [], []
+        for r in range(xs[0].shape[0]):
+            idx, val, mal = (x[r] for x in xs[:3])
+            _sync(dev)
+            t0 = time.perf_counter()
+            st, ts = realign_to_slate(st, ts, prev_idx, prev_val, idx, val)
+            if ts is None:
+                res = round_fn(st, idx, val, mal)
+                st, record = res if telemetry else (res, None)
+            else:
+                res = round_fn(st, idx, val, mal, ts,
+                               flt.FaultRound(*(x[r] for x in xs[3:])))
+                st, ts, record = res if telemetry else (*res, None)
+            _sync(dev)
+            seconds.append(time.perf_counter() - t0)
+            evals.append(eval_out(st))
+            records.append(record)
+            prev_idx, prev_val = idx, val
+        acc_all, acc_benign, r2 = (torch.stack(x) for x in zip(*evals))
+        out = {"acc_all": acc_all, "acc_benign": acc_benign, "r2": r2,
+               "round_seconds": seconds,
+               "record": (obs_decision.DecisionRecord(
+                   *(torch.stack(x) for x in zip(*records))) if telemetry else None)}
+        return (st, prev_idx, prev_val, ts), out
+
+    if faults is not None:
+        ts0 = flt.init_transport_state(faults.config, topo.n_nodes, schedule.width,
+                                       ravel(state.node_params).shape[1], device=dev)
+        return ((state, sched[0][0], sched[1][0], ts0),
+                lambda carry, *xs: loop(carry, xs), sched)
+
+    def run(state, neighbor_idx, valid, malicious):
+        # the round-0 "previous" slate is round 0's own (identity match)
+        carry, out = loop((state, neighbor_idx[0], valid[0], None),
+                          (neighbor_idx, valid, malicious))
+        return carry[0], out
+
+    return state, run, sched
+
+
+def run_dynamic_experiment(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
+                           schedule: TopologySchedule, n_test: int = 256,
+                           telemetry: bool = False,
+                           faults: Optional[flt.FaultSchedule] = None,
+                           stop_after: Optional[int] = None,
+                           checkpoint_dir: Optional[str] = None,
+                           checkpoint_name: str = "chaos",
+                           resume_from: Optional[str] = None,
+                           device=None) -> Dict[str, Any]:
+    """Run a DFL experiment under a round-varying topology schedule on
+    ``device``; returns ``run_experiment``'s shape (trace / final /
+    series, with ``series["round_seconds"]`` and
+    ``series["degree_min_mean_max"]``).
+
+    ``telemetry=True`` adds the per-round (N, K) verdict bitmasks and
+    per-node summaries under ``out["telemetry"]`` (numpy), and the
+    mean-fallback / degree-0 / accepted-count series.  Model trajectories
+    are the same with telemetry on or off.
+
+    Chaos transport (``faults``, a ``dfl.faults.FaultSchedule``): the loop
+    also carries the delivery ring.  Fault runs can be checkpointed:
+    ``stop_after=r`` runs only rounds [0, r) and, with ``checkpoint_dir``,
+    snapshots the full carry (models, momentum, WFAgg-T ring buffers,
+    transport ring and served-lag table, the previous slate, the round
+    counter — every random stream is seeded from that counter) plus the
+    in-flight schedules (``train.checkpoint``).  ``resume_from=dir``
+    restores the snapshot and runs the remaining rounds, reproducing the
+    uninterrupted trajectory bit-exactly.  ``out["rounds_run"]`` records
+    the [start, end) window a partial run covered.
+    """
+    if (stop_after is not None or resume_from is not None
+            or checkpoint_dir is not None) and faults is None:
+        raise NotImplementedError(
+            "checkpoint/resume rides the chaos scan form (the run "
+            "function must return its carry); pass faults="
+            "make_fault_schedule('none', schedule, 0.0) for a "
+            "fault-free checkpointable run")
+    dev = resolve_device(device)
+    state, run, sched = build_dynamic_scan_fn(cfg, topo, data, schedule,
+                                              n_test=n_test, telemetry=telemetry,
+                                              faults=faults, device=dev)
+    ever_mal = schedule.malicious.any(axis=0)
+    R = schedule.rounds
+    r0, r_end = 0, R
+    if faults is None:
+        state, res = run(state, *sched)
+    else:
+        carry = state
+        if resume_from is not None:
+            # the snapshot carries the schedules too: the resumed loop
+            # replays the in-flight fault surface, not a reconstruction
+            carry, sched, meta = ckpt.restore_experiment_checkpoint(
+                resume_from, checkpoint_name, carry, sched)
+            r0 = int(meta["round"])
+        r_end = R if stop_after is None else int(stop_after)
+        if not r0 < r_end <= R:
+            raise ValueError(
+                f"round window [{r0}, {r_end}) is empty or exceeds the "
+                f"{R}-round schedule")
+        carry, res = run(carry, *(a[r0:r_end] for a in sched))
+        state = carry[0]
+        if checkpoint_dir is not None:
+            ckpt.save_experiment_checkpoint(
+                checkpoint_dir, checkpoint_name, carry, sched,
+                metadata={"round": r_end, "rounds_total": R,
+                          "fault_config": dataclasses.asdict(faults.config),
+                          "fault_summary": faults.summary()})
+    acc_all = res["acc_all"].cpu().numpy()
+    acc_benign = res["acc_benign"].cpu().numpy()
+    r2 = res["r2"].cpu().numpy()
+    trace = [{
+        "round": r0 + i + 1,
+        "acc_benign_mean": float(acc_benign[i]),
+        "r_squared": float(r2[i]),
+        "acc_all": acc_all[i].tolist(),
+    } for i in range(r_end - r0)]
+    # full evaluation (with the malicious-neighbour buckets) under the
+    # final round's graph and the ever-malicious cohort
+    final = evaluate(cfg, topo, data, state, n_test=n_test, malicious=ever_mal,
+                     adjacency=schedule.adjacency[r_end - 1])
+    final["round"] = r_end
+    series = _series_from_trace(trace)
+    series["degree_min_mean_max"] = schedule.degree_stats()[r0:r_end].tolist()
+    series["round_seconds"] = res["round_seconds"]
+    out = {"trace": trace, "final": final, "series": series,
+           "aggregator": cfg.aggregator, "attack": cfg.attack,
+           "centralized": cfg.centralized, "device": str(dev)}
+    if faults is not None:
+        out["faults"] = faults.summary()
+        out["rounds_run"] = [r0, r_end]
+    record = res["record"]
+    if record is not None:
+        series["mean_fallback_count"] = (
+            record.mean_fallback.sum(1).cpu().numpy().astype(int).tolist())
+        series["degree_zero_count"] = (
+            record.degree_zero.sum(1).cpu().numpy().astype(int).tolist())
+        series["accepted_mean"] = [
+            float(x) for x in record.accepted.cpu().numpy().mean(axis=1)]
+        out["telemetry"] = _telemetry_out(
+            record, schedule.neighbor_idx[r0:r_end], schedule.valid[r0:r_end],
+            schedule.malicious[r0:r_end])
+    return out

@@ -134,13 +134,25 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_table(neighbor_idx: torch.Tensor, M: int) -> None:
-    """The indexed kernels read rows through the table: reject out-of-range
-    rows before any pointer is passed (one host read of two integers)."""
-    lo, hi = (int(x) for x in torch.aminmax(neighbor_idx))
-    if lo < 0 or hi >= M:
-        raise ValueError(f"neighbor_idx holds rows in [{lo}, {hi}], outside "
-                         f"[0, {M}) of the model matrix")
+def check_table(table: torch.Tensor, M: int, name: str = "neighbor_idx") -> None:
+    """The indexed kernels read rows through the table: reject rows outside
+    [0, M) of the matrix before any pointer is passed.
+
+    A CPU table is read on the host and raises ``ValueError``.  A CUDA
+    table is checked on the device, with no host read: the check is a
+    device-side assertion queued on the stream ahead of the kernel
+    (``torch._assert_async``), so the round never waits on the card, and
+    a bad table fails the next synchronising call.  Callers that take
+    tables from outside (the round loops) validate them once on the host
+    before the first round."""
+    lo, hi = torch.aminmax(table)
+    if table.device.type == "cpu":
+        if int(lo) < 0 or int(hi) >= M:
+            raise ValueError(f"{name} holds rows in [{int(lo)}, {int(hi)}], "
+                             f"outside [0, {M}) of the matrix")
+        return
+    torch._assert_async((lo >= 0) & (hi < M),
+                        f"{name} holds rows outside [0, {M}) of the matrix")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -46,4 +46,4 @@ def pairwise_gram(updates: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def pairwise_sq_dists(updates: torch.Tensor) -> torch.Tensor:
     """(K, K) squared distances through the Gram expansion, clamped at 0,
     the diagonal pinned to 0 (``core.trust.sq_dists_from_gram``)."""
-    return trust.sq_dists_from_gram(*pairwise_gram(updates))
+    return trust.sq_dists_from_gram(pairwise_gram(updates)[0])

@@ -9,9 +9,11 @@
 // it computes the valid-masked coordinate-wise median med and
 //   dist2[n, k]  sum_d (u_k - med)^2     dotmed[n, k]  sum_d u_k * med
 //   norm2[n, k]  sum_d u_k^2             mednorm2[n]   sum_d med^2
-// with prev (the previous round's (M, D) model matrix, read through the same
-// table) the WFAgg-T tail prev_dist2 / prev_dot / prev_norm2, and with
-// need_gram the (K, K) candidate Gram of every node (Alt-WFAgg).
+// with prev (the previous round's model matrix, read through the same table,
+// or through its own (N, K) table prev_idx in the prev_idx variant: the chaos
+// transport's last served payload of each edge) the WFAgg-T tail prev_dist2 /
+// prev_dot / prev_norm2, and with need_gram the (K, K) candidate Gram of every
+// node (Alt-WFAgg).
 //
 // Bound on this card: bytes without the Gram.  It must read each node's K
 // rows (and prev rows) once: 4 * N * K * D bytes, twice with prev, at 3.35
@@ -41,6 +43,9 @@
 // What it leaves on the table: loads are 4 bytes a thread and wait on a
 // barrier per tile (no cp.async / TMA pipeline); the Gram reads shared memory
 // twice per multiply-add (no register blocking).
+//
+// prev may be models itself (the chaos round's stacked matrix): both are only
+// read, so the two __restrict__ pointers may alias.
 //
 // No fast-math: invalid slots sort as +inf.
 
@@ -78,7 +83,8 @@ template <int KP, bool kGram>
 __global__ void __launch_bounds__(kThreads)
 indexed_partials_kernel(const float* __restrict__ models, const int32_t* __restrict__ idx,
                         const uint8_t* __restrict__ valid, const float* __restrict__ prev,
-                        float* __restrict__ partials, int K, long long D) {
+                        const int32_t* __restrict__ prev_idx, float* __restrict__ partials,
+                        int K, long long D) {
   constexpr int S = KP / kWarps;  // candidates per warp
   extern __shared__ float smem[];
   const bool has_prev = prev != nullptr;
@@ -95,8 +101,9 @@ indexed_partials_kernel(const float* __restrict__ models, const int32_t* __restr
   const size_t nk = (size_t)n * K;
   if (tid < K) {
     const long long r = idx[nk + tid];
+    const long long pr = prev_idx != nullptr ? prev_idx[nk + tid] : r;
     rows[tid] = models + r * D;
-    prows[tid] = has_prev ? prev + r * D : nullptr;
+    prows[tid] = has_prev ? prev + pr * D : nullptr;
   }
   if (warp == 0) {
     const bool vk = lane < K && valid[nk + lane] != 0;
@@ -218,8 +225,9 @@ indexed_finish_kernel(const float* __restrict__ partials, float* __restrict__ ou
 
 template <int KP, bool kGram>
 cudaError_t launch(const float* models, const int32_t* idx, const uint8_t* valid,
-                   const float* prev, float* partials, float* out, float* gram, int N,
-                   int K, long long D, int n_chunks, cudaStream_t stream) {
+                   const float* prev, const int32_t* prev_idx, float* partials, float* out,
+                   float* gram, int N, int K, long long D, int n_chunks,
+                   cudaStream_t stream) {
   const size_t smem =
       ((size_t)K * kStride * (prev != nullptr ? 2 : 1) + kThreads) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(indexed_partials_kernel<KP, kGram>,
@@ -227,7 +235,7 @@ cudaError_t launch(const float* models, const int32_t* idx, const uint8_t* valid
                                        (int)smem);
   if (e != cudaSuccess) return e;
   indexed_partials_kernel<KP, kGram><<<dim3(n_chunks, N), kThreads, smem, stream>>>(
-      models, idx, valid, prev, partials, K, D);
+      models, idx, valid, prev, prev_idx, partials, K, D);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   indexed_finish_kernel<<<N, kThreads, 0, stream>>>(partials, out, gram, K, n_chunks);
@@ -236,30 +244,39 @@ cudaError_t launch(const float* models, const int32_t* idx, const uint8_t* valid
 
 template <int KP>
 cudaError_t launch_width(const float* models, const int32_t* idx, const uint8_t* valid,
-                         const float* prev, float* partials, float* out, float* gram,
-                         int N, int K, long long D, int n_chunks, cudaStream_t s) {
-  return gram != nullptr
-             ? launch<KP, true>(models, idx, valid, prev, partials, out, gram, N, K, D, n_chunks, s)
-             : launch<KP, false>(models, idx, valid, prev, partials, out, gram, N, K, D, n_chunks, s);
+                         const float* prev, const int32_t* prev_idx, float* partials,
+                         float* out, float* gram, int N, int K, long long D, int n_chunks,
+                         cudaStream_t s) {
+  return gram != nullptr ? launch<KP, true>(models, idx, valid, prev, prev_idx, partials, out,
+                                            gram, N, K, D, n_chunks, s)
+                         : launch<KP, false>(models, idx, valid, prev, prev_idx, partials, out,
+                                             gram, N, K, D, n_chunks, s);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Launches on `stream`, does not
 // synchronise, allocates nothing; returns the cudaError_t of the launches.
-// prev and gram may be null.  partials is (N, n_chunks, 6K + 1 [+ K(K+1)/2]),
+// prev, prev_idx and gram may be null (prev_idx needs prev; null reads prev
+// through idx).  partials is (N, n_chunks, 6K + 1 [+ K(K+1)/2]),
 // out is (N, 6K + 1): [dist2 | dotmed | norm2 | prev_dist2 | prev_dot |
 // prev_norm2 | mednorm2] per node (the prev fields are 0 without prev); gram
 // is (N, K, K).
 extern "C" int robust_stats_indexed_launch(const float* models, const int32_t* idx,
                                            const uint8_t* valid, const float* prev,
-                                           float* partials, float* out, float* gram,
-                                           int N, int K, long long D, int n_chunks,
-                                           void* stream) {
-  if (N <= 0 || N > 65535 || K <= 0 || K > 32 || D <= 0 || n_chunks <= 0)
+                                           const int32_t* prev_idx, float* partials,
+                                           float* out, float* gram, int N, int K,
+                                           long long D, int n_chunks, void* stream) {
+  if (N <= 0 || N > 65535 || K <= 0 || K > 32 || D <= 0 || n_chunks <= 0 ||
+      (prev_idx != nullptr && prev == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (K <= 8) return (int)launch_width<8>(models, idx, valid, prev, partials, out, gram, N, K, D, n_chunks, s);
-  if (K <= 16) return (int)launch_width<16>(models, idx, valid, prev, partials, out, gram, N, K, D, n_chunks, s);
-  return (int)launch_width<32>(models, idx, valid, prev, partials, out, gram, N, K, D, n_chunks, s);
+  if (K <= 8)
+    return (int)launch_width<8>(models, idx, valid, prev, prev_idx, partials, out, gram, N, K,
+                                D, n_chunks, s);
+  if (K <= 16)
+    return (int)launch_width<16>(models, idx, valid, prev, prev_idx, partials, out, gram, N,
+                                 K, D, n_chunks, s);
+  return (int)launch_width<32>(models, idx, valid, prev, prev_idx, partials, out, gram, N, K,
+                               D, n_chunks, s);
 }

@@ -7,8 +7,12 @@
 // one launch:
 //   phase 0   the valid-masked coordinate-wise median of the u_k and the
 //             sufficient statistics dist2, dotmed, norm2, mednorm2 and, with
-//             prev, prev_dist2 / prev_dot / prev_norm2 (WFAgg-T); in the Gram
-//             variant (need_gram, Alt-WFAgg) also the (K, K) candidate Gram;
+//             prev, prev_dist2 / prev_dot / prev_norm2 (WFAgg-T) against the
+//             rows p_k = prev[idx[n, k]], or p_k = prev[prev_idx[n, k]] in the
+//             prev_idx variant (chaos transport: the payload edge (n, k)
+//             actually served last round, its own (N, K) table into the same
+//             stacked matrix); in the Gram variant (need_gram, Alt-WFAgg) also
+//             the (K, K) candidate Gram;
 //   epilogue  the WFAgg scoring stage (core/trust.py: derive_trust_weights
 //             + combine_coefficients): the three filter masks (WFAgg-D or
 //             Multi-Krum, WFAgg-C or Clustering, WFAgg-T), the tau-weighted
@@ -47,7 +51,9 @@
 //     (from L2 at the paper's size) and skips the slots whose coefficient
 //     is 0, which adds exactly +-0 in the reference.
 // What it leaves on the table: one CTA per node under-fills the 132 SMs at
-// N = 20, and phase 1 reads the rows a second time.  Splitting D across CTAs
+// N = 20, and phase 1 reads the rows a second time.  In the prev_idx variant
+// the prev rows are other rows than the candidates, a second stream of loads
+// the CTA waits on (about 2x the launch whose prev rows are the candidates).  Splitting D across CTAs
 // needs a grid-wide barrier before phase 1; that is later work.  The
 // Clustering epilogue is K - 2 merge steps of a K^2 argmin in one warp.
 //
@@ -75,7 +81,8 @@ struct Args {
   const float* models;   // (M, D)
   const int32_t* idx;    // (N, K) rows into models (and prev)
   const uint8_t* valid;  // (N, K) bool
-  const float* prev;     // (M, D) or null
+  const float* prev;     // (Mp, D) or null
+  const int32_t* prev_idx;  // (N, K) rows into prev, or null = idx
   const float* tbands;   // (N, 4K) [lo_d | hi_d | lo_c | hi_c] or null
   float* out;            // (N, D)
   float* weights;        // (N, K)
@@ -148,8 +155,10 @@ struct Partials<KP, true> {  // shared memory, one column per thread
 // operation, in float32 with no contraction into fma (the __f*_rn
 // intrinsics), so that it decides as the plain version does:
 //   * squared distance of slots i != j, both valid:
-//       d2 = max((n_i + n_j) - 2 * g_ij, 0)   (the reference's (1 - eye)
-//       factor is 1 off the diagonal); the diagonal and invalid pairs are +inf;
+//       d2 = max((g_ii + g_jj) - 2 * g_ij, 0)   (the Gram's own diagonal, so
+//       two bit-identical candidates, whose Gram entries are bit-equal, are
+//       at distance exactly 0; the (1 - eye) factor is 1 off the diagonal);
+//       the diagonal and invalid pairs are +inf;
 //   * cosine distance: 1 - g_ij / max(sqrt(max(n_i, eps)) * sqrt(max(n_j, eps)),
 //       eps), eps = 1e-12; invalid pairs +inf;
 //   * Krum score of a valid slot: its row sorted ascending, the first
@@ -168,18 +177,17 @@ struct Partials<KP, true> {  // shared memory, one column per thread
 // every value built from them here, so exact ties resolve as in the plain
 // version.
 
-// Krum score of slot k (valid): G is the (K, K) Gram, n2 the squared norms
+// Krum score of slot k (valid): G is the (K, K) Gram
 template <int KP>
-__device__ __forceinline__ float krum_score(const float* G, const float* n2,
-                                            unsigned vbits, int K, int k,
-                                            int n_closest) {
-  const float nk = n2[k];
+__device__ __forceinline__ float krum_score(const float* G, unsigned vbits, int K,
+                                            int k, int n_closest) {
+  const float nk = G[k * K + k];
   float r[KP];
 #pragma unroll
   for (int j = 0; j < KP; ++j) {
     float x = INFINITY;
     if (j < K && j != k && ((vbits >> j) & 1u)) {
-      const float t = __fsub_rn(__fadd_rn(nk, n2[j]), __fmul_rn(2.f, G[k * K + j]));
+      const float t = __fsub_rn(__fadd_rn(nk, G[j * K + j]), __fmul_rn(2.f, G[k * K + j]));
       x = fmaxf(t, 0.f);
     }
     r[j] = x;
@@ -291,8 +299,9 @@ wfagg_round_kernel(const Args a) {
 
   if (tid < K) {
     const long long r = a.idx[nk + tid];
+    const long long pr = a.prev_idx != nullptr ? a.prev_idx[nk + tid] : r;
     rows[tid] = a.models + r * D;
-    prows[tid] = has_prev ? a.prev + r * D : nullptr;
+    prows[tid] = has_prev ? a.prev + pr * D : nullptr;
   }
   if (warp == 0) {
     const bool vk = lane < K && a.valid[nk + lane] != 0;
@@ -414,7 +423,7 @@ wfagg_round_kernel(const Args a) {
     bool cluster = false;
     if constexpr (kGram) {
       if (a.dist_krum) {
-        sd = vk ? krum_score<KP>(G, tot + F_N2 * KP, vbits, K, k, max(v - a.f - 2, 1))
+        sd = vk ? krum_score<KP>(G, vbits, K, k, max(v - a.f - 2, 1))
                 : INFINITY;
         keep_d = min(v, a.krum_m);
       }
@@ -520,10 +529,11 @@ cudaError_t launch_width(const Args& a, int N, cudaStream_t stream) {
 // Plain C entry point (bound with ctypes).  Launches on `stream`, does not
 // synchronise, allocates nothing; returns the cudaError_t of the launch.
 // gram is (N, K, K) when a Gram filter is on (dist_krum or sim_cluster), else
-// null.
+// null; prev_idx (N, K) needs prev, and null reads prev through idx.
 extern "C" int wfagg_round_indexed_launch(
     const float* local, const float* models, const int32_t* idx,
-    const uint8_t* valid, const float* prev, const float* tbands, float* out,
+    const uint8_t* valid, const float* prev, const int32_t* prev_idx,
+    const float* tbands, float* out,
     float* weights, uint8_t* mask_d, uint8_t* mask_c, uint8_t* mask_t,
     float* dist2, float* dotmed, float* norm2, float* mednorm2,
     float* prev_dist2, float* prev_dot, float* prev_norm2, float* gram, int N,
@@ -531,9 +541,10 @@ extern "C" int wfagg_round_indexed_launch(
     float accept_floor, float alpha, int mean_fallback, int dist_krum,
     int sim_cluster, int krum_m, void* stream) {
   if (N <= 0 || K <= 0 || K > 32 || D <= 0 ||
-      (gram != nullptr) != (dist_krum != 0 || sim_cluster != 0))
+      (gram != nullptr) != (dist_krum != 0 || sim_cluster != 0) ||
+      (prev_idx != nullptr && prev == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{local, models, idx, valid, prev, tbands, out, weights,
+  const Args a{local, models, idx, valid, prev, prev_idx, tbands, out, weights,
                mask_d, mask_c, mask_t, dist2, dotmed, norm2, mednorm2,
                prev_dist2, prev_dot, prev_norm2, gram, K, D, f, tau1, tau2,
                tau3, accept_floor, alpha, mean_fallback, dist_krum, sim_cluster,

@@ -9,12 +9,13 @@
   then the combine); the second pass hits L2 at the paper's size.
   With an Alt-WFAgg filter (Multi-Krum, Clustering) the Gram variant
   also accumulates each node's (K, K) Gram and runs those filters in the
-  epilogue.
+  epilogue.  The ``prev_idx`` variant (chaos transport) reads ``prev``
+  through its own (N, K) table instead of the neighbour table.
 * ``csrc/robust_stats_indexed.cu`` replaces ``_robust_stats_indexed_kernel``
   / ``robust_stats_indexed_pallas`` (``kernel.py:191`` / ``:271``): phase 0
-  of the round alone (statistics, optional Gram and temporal tail), the
-  statistics launch of the two-launch backend; bound by bytes without the
-  Gram.  Both sources include ``csrc/valid_median.cuh``.
+  of the round alone (statistics, optional Gram and temporal tail, with
+  the same ``prev_idx`` variant), the statistics launch of the two-launch
+  backend; bound by bytes without the Gram.  Both sources include ``csrc/valid_median.cuh``.
 * ``csrc/robust_stats.cu`` replaces ``_robust_stats_kernel`` /
   ``robust_stats_pallas`` (``kernel.py:70`` / ``:136``, ``d_axis=0``): the
   median, trimmed mean and WFAgg filter statistics of one (K, D)
@@ -53,14 +54,16 @@ TILE = 256       # coordinates per tile of robust_stats[_indexed].cu (kThreads)
 # show it went through a kernel sets its counter to 0 before and reads it
 # after.
 launches = 0                 # wfagg_round.cu
+prev_idx_launches = 0        # wfagg_round.cu launches of the prev_idx variant
 robust_stats_launches = 0    # robust_stats.cu
 indexed_launches = 0         # robust_stats_indexed.cu (its two kernels as one)
+indexed_prev_idx_launches = 0  # robust_stats_indexed.cu, prev_idx variant
 
 
 def _bind_round(lib: ctypes.CDLL) -> None:
     fn = lib.wfagg_round_indexed_launch
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([P] * 19 + [I, I, ctypes.c_longlong, I, F, F, F, F, F, I,
+    fn.argtypes = ([P] * 20 + [I, I, ctypes.c_longlong, I, F, F, F, F, F, I,
                                 I, I, I, P])
     fn.restype = I
 
@@ -68,7 +71,7 @@ def _bind_round(lib: ctypes.CDLL) -> None:
 def _bind_indexed(lib: ctypes.CDLL) -> None:
     fn = lib.robust_stats_indexed_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 7 + [I, I, ctypes.c_longlong, I, P]
+    fn.argtypes = [P] * 8 + [I, I, ctypes.c_longlong, I, P]
     fn.restype = I
 
 
@@ -84,6 +87,18 @@ def gram_filters(cfg, K: int):
             trust.multi_krum_m(cfg, K))
 
 
+def _check_prev(prev, prev_idx, M, N, K, D, dev) -> None:
+    """``prev`` is read through the neighbour table, so it has the model
+    matrix's rows, or through ``prev_idx``, so it has rows of its own."""
+    if prev_idx is not None:
+        if prev is None:
+            raise ValueError("prev_idx requires prev")
+        _check("prev_idx", prev_idx, torch.int32, (N, K), dev)
+    if prev is not None:
+        rows = M if prev_idx is None else prev.shape[0]
+        _check("prev", prev, torch.float32, (rows, D), dev)
+
+
 def _bind_stats(lib: ctypes.CDLL) -> None:
     fn = lib.robust_stats_launch
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -96,21 +111,24 @@ def wfagg_round_indexed_cuda(
     models: torch.Tensor,        # (M, D) f32
     neighbor_idx: torch.Tensor,  # (N, K) int32, values in [0, M)
     valid: torch.Tensor,         # (N, K) bool
-    prev: Optional[torch.Tensor],     # (M, D) f32 or None
+    prev: Optional[torch.Tensor],     # (M, D) f32, (Mp, D) with prev_idx, or None
     tbands: Optional[torch.Tensor],   # (N, 4K) f32 or None
     cfg,
     alpha: float,
     mean_fallback: bool,
+    prev_idx: Optional[torch.Tensor] = None,  # (N, K) int32, values in [0, Mp)
 ):
     """Launch the round kernel on the tensors' CUDA device and stream.
 
-    Every output is allocated here with ``torch.empty``.  Returns
+    ``prev`` may be the same tensor as ``models`` (the chaos round's
+    stacked matrix); the kernel only reads both.  Every output is
+    allocated here with ``torch.empty``.  Returns
     ``(out (N, D), weights (N, K), mask_d, mask_c, mask_t ((N, K) bool),
     stats)`` with ``stats`` a ``RobustStats`` of (N, K) / (N,) fields and,
     when ``cfg`` names a Multi-Krum or Clustering filter (the Gram
     variant), the (N, K, K) Gram in ``stats.gram``.
     """
-    global launches
+    global launches, prev_idx_launches
     M, D = models.shape
     N, K = neighbor_idx.shape
     dev = models.device
@@ -122,8 +140,7 @@ def wfagg_round_indexed_cuda(
     _check("local", local, torch.float32, (N, D), dev)
     _check("neighbor_idx", neighbor_idx, torch.int32, (N, K), dev)
     _check("valid", valid, torch.bool, (N, K), dev)
-    if prev is not None:
-        _check("prev", prev, torch.float32, (M, D), dev)
+    _check_prev(prev, prev_idx, M, N, K, D, dev)
     if tbands is not None:
         if prev is None:
             raise ValueError("tbands requires prev")
@@ -144,7 +161,7 @@ def wfagg_round_indexed_cuda(
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(_ptr(local), _ptr(models), _ptr(neighbor_idx), _ptr(valid),
-                 _ptr(prev), _ptr(tbands), _ptr(out), _ptr(weights),
+                 _ptr(prev), _ptr(prev_idx), _ptr(tbands), _ptr(out), _ptr(weights),
                  *(_ptr(m) for m in masks), _ptr(dist2), _ptr(dotmed),
                  _ptr(norm2), _ptr(mednorm2), *(_ptr(t) for t in tail),
                  _ptr(gram), N, K, D, int(cfg.f), float(cfg.tau1),
@@ -152,6 +169,8 @@ def wfagg_round_indexed_cuda(
                  int(bool(mean_fallback)), dist_krum, sim_cluster, krum_m, stream)
     common.launch_error("wfagg_round_indexed", err)
     launches += 1
+    if prev_idx is not None:
+        prev_idx_launches += 1
     stats = RobustStats(None, None, dist2, dotmed, norm2, mednorm2, *tail, gram)
     return (out, weights, *masks, stats)
 
@@ -160,18 +179,19 @@ def robust_stats_indexed_cuda(
     models: torch.Tensor,        # (M, D) f32
     neighbor_idx: torch.Tensor,  # (N, K) int32, values in [0, M)
     valid: torch.Tensor,         # (N, K) bool
-    prev: Optional[torch.Tensor],     # (M, D) f32 or None
+    prev: Optional[torch.Tensor],     # (M, D) f32, (Mp, D) with prev_idx, or None
     need_gram: bool,
+    prev_idx: Optional[torch.Tensor] = None,  # (N, K) int32, values in [0, Mp)
 ) -> RobustStats:
     """Launch the gather-free statistics kernel on the tensors' CUDA device
-    and stream.
+    and stream (``prev`` may be the same tensor as ``models``).
 
     Every output is allocated here with ``torch.empty``: the per-CTA
     partial rows, one (N, 6K+1) tensor ``[dist2 | dotmed | norm2 |
     prev_dist2 | prev_dot | prev_norm2 | mednorm2]`` that the returned
     ``RobustStats`` views, and the (N, K, K) Gram with ``need_gram``.
     """
-    global indexed_launches
+    global indexed_launches, indexed_prev_idx_launches
     M, D = models.shape
     N, K = neighbor_idx.shape
     dev = models.device
@@ -183,8 +203,7 @@ def robust_stats_indexed_cuda(
     _check("models", models, torch.float32, (M, D), dev)
     _check("neighbor_idx", neighbor_idx, torch.int32, (N, K), dev)
     _check("valid", valid, torch.bool, (N, K), dev)
-    if prev is not None:
-        _check("prev", prev, torch.float32, (M, D), dev)
+    _check_prev(prev, prev_idx, M, N, K, D, dev)
     fn = common.load(INDEXED_SOURCE, _bind_indexed).robust_stats_indexed_launch
     f32 = dict(dtype=torch.float32, device=dev)
     n_chunks = common.grid_blocks(dev, -(-D // TILE), rows=N)
@@ -196,9 +215,12 @@ def robust_stats_indexed_cuda(
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(_ptr(models), _ptr(neighbor_idx), _ptr(valid), _ptr(prev),
-                 _ptr(partials), _ptr(flat), _ptr(gram), N, K, D, n_chunks, stream)
+                 _ptr(prev_idx), _ptr(partials), _ptr(flat), _ptr(gram), N, K, D,
+                 n_chunks, stream)
     common.launch_error("robust_stats_indexed", err)
     indexed_launches += 1
+    if prev_idx is not None:
+        indexed_prev_idx_launches += 1
     f = [flat[:, i * K:(i + 1) * K] for i in range(6)]
     tail = f[3:] if prev is not None else [None, None, None]
     return RobustStats(None, None, f[0], f[1], f[2], flat[:, 6 * K], *tail, gram)

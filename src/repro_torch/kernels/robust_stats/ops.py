@@ -74,18 +74,31 @@ def robust_stats(
                                     beta, need_center)
 
 
-def _check_prev_form(prev: Optional[torch.Tensor],
-                     prev_idx: Optional[torch.Tensor], kernel_name: str) -> None:
-    if prev_idx is not None:
-        raise NotImplementedError(
-            f"prev_idx (the chaos transport's staleness re-keying) is not "
-            f"ported yet in {kernel_name}: ROADMAP queue 2, item 1 (prev_idx "
-            "variant)")
+def _check_prev(models: torch.Tensor, prev: Optional[torch.Tensor],
+                prev_idx: Optional[torch.Tensor], kernel_name: str) -> None:
+    """``prev`` is a matrix read through the neighbour table (the model
+    matrix's shape) or through ``prev_idx (N, K)`` (any row count, the
+    model matrix's width); rows of ``prev_idx`` are checked like the
+    neighbour table's."""
     if prev is not None and prev.ndim != 2:
         raise NotImplementedError(
             f"per-edge (N, K, d) prev is not ported yet in {kernel_name}: "
             "ROADMAP queue 2, item 1 (per-edge prev variant); pass the (M, d) "
             "matrix")
+    if prev_idx is not None:
+        if prev is None:
+            raise ValueError("prev_idx requires prev")
+        if prev.shape[1] != models.shape[1]:
+            raise ValueError(f"prev has shape {tuple(prev.shape)}, expected "
+                             f"(rows, {models.shape[1]})")
+        check_table(prev_idx, prev.shape[0], "prev_idx")
+    elif prev is not None and prev.shape != models.shape:
+        raise ValueError(f"prev has shape {tuple(prev.shape)}, expected "
+                         f"{tuple(models.shape)}")
+
+
+def _i32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(torch.int32).contiguous()
 
 
 def robust_stats_indexed(
@@ -94,41 +107,41 @@ def robust_stats_indexed(
     valid: Optional[torch.Tensor] = None,   # (N, K) bool; None = all valid
     prev: Optional[torch.Tensor] = None,    # (M, d) previous model matrix
     need_gram: bool = False,
-    prev_idx: Optional[torch.Tensor] = None,
+    prev_idx: Optional[torch.Tensor] = None,   # (N, K) rows into prev
 ) -> RobustStats:
     """Gather-free batched statistics of a gossip round: the valid-masked
     median of each node's K neighbour rows ``models[idx[n]]`` and the
     per-candidate sums about it (``RobustStats`` with (N, K) fields,
     ``mednorm2`` (N,), ``med``/``trim`` None), with ``prev`` the WFAgg-T
-    tail read through the same table, and with ``need_gram`` each node's
-    (K, K) candidate Gram in ``gram``.  Statistics of padded slots are
-    finite values the caller masks with ``valid``.  K <= 32."""
-    _check_prev_form(prev, prev_idx, "robust_stats_indexed")
+    tail read through the same table (or through ``prev_idx``: the chaos
+    transport's last served payload of each edge), and with ``need_gram``
+    each node's (K, K) candidate Gram in ``gram``.  Statistics of padded
+    slots are finite values the caller masks with ``valid``.  K <= 32."""
     N, K = neighbor_idx.shape
     M, d = models.shape
     if K > kernel.MAX_K:
         raise ValueError(f"robust_stats_indexed takes at most {kernel.MAX_K} "
                          f"neighbours, got K={K}")
-    if prev is not None and prev.shape != models.shape:
-        raise ValueError(f"prev has shape {tuple(prev.shape)}, expected "
-                         f"{tuple(models.shape)}")
     dev = models.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"robust_stats_indexed runs on cuda or cpu, not {dev}")
     check_table(neighbor_idx, M)
+    _check_prev(models, prev, prev_idx, "robust_stats_indexed")
     v = (torch.ones((N, K), dtype=torch.bool, device=dev) if valid is None
          else valid.to(torch.bool))
     if dev.type == "cpu":
-        return robust_stats_indexed_ref(models, neighbor_idx, v, prev, need_gram)
-    p = prev.to(torch.float32).contiguous() if prev is not None else None
+        return robust_stats_indexed_ref(models, neighbor_idx, v, prev, need_gram,
+                                        prev_idx=prev_idx)
+    m = models.to(torch.float32).contiguous()
+    p = None if prev is None else (
+        m if prev is models else prev.to(torch.float32).contiguous())
     return kernel.robust_stats_indexed_cuda(
-        models.to(torch.float32).contiguous(),
-        neighbor_idx.to(torch.int32).contiguous(), v.contiguous(), p, need_gram)
+        m, _i32(neighbor_idx), v.contiguous(), p, need_gram, prev_idx=_i32(prev_idx))
 
 
 def wfagg_round_indexed_plain(local, models, neighbor_idx, valid, cfg,
                               prev=None, tbands=None, alpha=None,
-                              mean_fallback=False):
+                              mean_fallback=False, prev_idx=None):
     """The round in plain PyTorch: gather, valid-masked median at the
     dynamic middles, the ported ``trust`` scoring stage, and the combine
     in the kernel's slot order.  Same arguments and returns as
@@ -136,7 +149,8 @@ def wfagg_round_indexed_plain(local, models, neighbor_idx, valid, cfg,
     flat (N, 4K))."""
     alpha = cfg.alpha if alpha is None else alpha
     stats = robust_stats_indexed_ref(models, neighbor_idx, valid, prev,
-                                     need_gram=trust.needs_gram(cfg))
+                                     need_gram=trust.needs_gram(cfg),
+                                     prev_idx=prev_idx)
     mask_d, mask_c, mask_t, weights = trust.derive_trust_weights(
         stats, valid, tbands, cfg)
     wcomb, lcoef = trust.combine_coefficients(weights, alpha, valid,
@@ -153,12 +167,15 @@ def wfagg_round_indexed(
     cfg,                            # WFAggConfig (sets the filters)
     prev: Optional[torch.Tensor] = None,     # (M, d) previous model matrix
     tbands: Optional[torch.Tensor] = None,   # (N, 4, K) or (N, 4K) bands
-    prev_idx: Optional[torch.Tensor] = None,
+    prev_idx: Optional[torch.Tensor] = None,  # (N, K) rows into prev
     alpha: Optional[float] = None,
     mean_fallback: bool = False,
 ):
     """One-launch gossip round: valid-masked median and filter statistics,
     the WFAgg scoring stage and the trust-weighted WFAgg-E combine.
+    ``prev`` is read through the neighbour table, or through ``prev_idx``
+    (the chaos transport's last served payload of each edge; ``prev`` may
+    then be ``models`` itself, the stacked matrix, padded once).
 
     Returns ``(out (N, d), weights (N, K), mask_d, mask_c, mask_t ((N, K)
     bool), stats)`` with ``stats`` a ``RobustStats`` of (N, K) fields
@@ -171,7 +188,6 @@ def wfagg_round_indexed(
         raise ValueError(
             "tbands requires prev: the in-kernel WFAgg-T band compare "
             "reads the kernel's own prev_dist2/cosine temporal statistics")
-    _check_prev_form(prev, prev_idx, "wfagg_round_indexed")
     alpha = cfg.alpha if alpha is None else float(alpha)
     N, K = neighbor_idx.shape
     M, d = models.shape
@@ -179,16 +195,21 @@ def wfagg_round_indexed(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"wfagg_round_indexed runs on cuda or cpu, not {dev}")
     check_table(neighbor_idx, M)
+    _check_prev(models, prev, prev_idx, "wfagg_round_indexed")
     v = (torch.ones((N, K), dtype=torch.bool, device=dev) if valid is None
          else valid.to(torch.bool))
     tb = tbands.reshape(N, 4 * K).to(torch.float32) if tbands is not None else None
     if dev.type == "cpu":
         return wfagg_round_indexed_plain(local, models, neighbor_idx, v, cfg,
-                                         prev, tb, alpha, mean_fallback)
+                                         prev, tb, alpha, mean_fallback, prev_idx)
     m = pad_d(models, _ROW_ALIGN).contiguous()
+    # the chaos round's prev IS its stacked model matrix: padded once, and
+    # passed as the same pointer
+    p = None if prev is None else (
+        m if prev is models else pad_d(prev, _ROW_ALIGN).contiguous())
     loc = pad_d(local, _ROW_ALIGN).contiguous()
-    p = pad_d(prev, _ROW_ALIGN).contiguous() if prev is not None else None
     out, weights, mask_d, mask_c, mask_t, stats = kernel.wfagg_round_indexed_cuda(
-        loc, m, neighbor_idx.to(torch.int32).contiguous(), v.contiguous(), p,
-        tb.contiguous() if tb is not None else None, cfg, alpha, mean_fallback)
+        loc, m, _i32(neighbor_idx), v.contiguous(), p,
+        tb.contiguous() if tb is not None else None, cfg, alpha, mean_fallback,
+        prev_idx=_i32(prev_idx))
     return out[:, :d], weights, mask_d, mask_c, mask_t, stats

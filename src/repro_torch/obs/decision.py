@@ -9,8 +9,13 @@ that test; a filter rejection is ``valid & ~bit``):
     bit 2  accepted by the temporal filter (mask_t)
     bit 3  the edge exists this round (padded slates)
     bit 4  final verdict: positive trust weight
+    bit 5  transport: delivery dropped / over budget
+    bit 6  transport: a stale (lag > 0) payload was served
+    bit 7  transport: corruption hit the edge's payload
 
-The chaos-transport bits 5-7 come with ROADMAP queue 1, item 8.
+Bits 5-7 are the chaos-transport attribution bits
+(``repro_torch.dfl.faults``), OR'd in by ``with_fault_bits`` on
+fault-injected rounds and always 0 on clean ones.
 """
 from __future__ import annotations
 
@@ -19,6 +24,20 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 Tensor = torch.Tensor
+
+BIT_D = 1 << 0
+BIT_C = 1 << 1
+BIT_T = 1 << 2
+BIT_VALID = 1 << 3
+BIT_ACCEPTED = 1 << 4
+BIT_DROPPED = 1 << 5
+BIT_STALE = 1 << 6
+BIT_CORRUPT = 1 << 7
+
+#: name -> bit position for the five masks ``pack_verdict`` packs
+BITS = {"mask_d": 0, "mask_c": 1, "mask_t": 2, "valid": 3, "accepted": 4}
+#: transport-attribution bits, OR'd in by ``with_fault_bits`` only
+FAULT_BITS = {"dropped": 5, "stale": 6, "corrupt": 7}
 
 _EPS = 1e-12
 
@@ -82,6 +101,20 @@ def record_from_info(info: Dict[str, Tensor],
         valid = torch.ones(w.shape, dtype=torch.bool, device=w.device)
     return record_from_masks(info["mask_d"], info["mask_c"], info["mask_t"],
                              valid, w)
+
+
+def with_fault_bits(record: DecisionRecord, dropped: Tensor, stale: Tensor,
+                    corrupt: Tensor) -> DecisionRecord:
+    """OR the chaos-transport attribution bits into a record's verdict
+    (uint8 bit math on the packed mask; the summaries are untouched).
+    ``dropped``/``stale``/``corrupt`` are the (…, K) telemetry masks of
+    ``faults.TransportOut``."""
+    u8 = lambda m: m.to(torch.uint8)  # noqa: E731 — bool->uint8, no floats
+    verdict = (record.verdict
+               | (u8(dropped) << 5)
+               | (u8(stale) << 6)
+               | (u8(corrupt) << 7))
+    return record._replace(verdict=verdict)
 
 
 def record_uniform(valid: Tensor) -> DecisionRecord:

@@ -134,8 +134,11 @@ def test_gram_helpers_and_single_node_masks(kind):
     u = _updates(kind, 12, seed=21)
     js, ts, gram = _stats_and_gram(u)
     jg, tg = jnp.asarray(gram), torch.as_tensor(gram)
-    np.testing.assert_allclose(ttrust.sq_dists_from_gram(tg, ts.norm2).numpy(),
-                               np.asarray(jtrust.sq_dists_from_gram(jg, js.norm2)),
+    # the port's norms are the Gram's own diagonal (exact 0 between
+    # bit-identical candidates); the expansion is the reference's
+    np.testing.assert_allclose(ttrust.sq_dists_from_gram(tg).numpy(),
+                               np.asarray(jtrust.sq_dists_from_gram(
+                                   jg, jnp.diagonal(jg, axis1=-2, axis2=-1))),
                                rtol=0, atol=0)
     np.testing.assert_allclose(ttrust.cosine_dist_from_gram(tg, ts.norm2).numpy(),
                                np.asarray(jtrust.cosine_dist_from_gram(jg, js.norm2)),

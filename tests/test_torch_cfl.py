@@ -23,6 +23,7 @@ from repro_torch.core import wfagg as twf
 from repro_torch.core.topology import make_topology, paper_topology
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.dfl import engine as tengine
+from repro_torch.dfl.faults import FaultConfig
 from repro_torch.models.lenet import params_from_jax, ravel
 
 from _torch_fixtures import jax_batches
@@ -110,9 +111,13 @@ def test_every_cfl_aggregator_runs_a_round(aggregator):
 
 @pytest.mark.parametrize("what", ["telemetry", "dynamic", "faults"])
 def test_cfl_paths_the_reference_refuses_raise(what):
+    """CFL has one server and no edges: per-edge telemetry, dynamic slates
+    and chaos transport are refused, as the reference refuses them."""
     topo, data = paper_topology(), SyntheticImages()
     cfg = tengine.DFLConfig(centralized=True)
     kw = {"telemetry": True} if what == "telemetry" else (
-        {"dynamic": True} if what == "dynamic" else {"faults": object()})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        {"dynamic": True} if what == "dynamic" else
+        {"dynamic": True, "faults": FaultConfig()})
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP" if what == "telemetry" else "gossip"):
         tengine.build_round_fn(cfg, topo, data, device="cpu", **kw)

@@ -25,6 +25,7 @@ from repro_torch.core import wfagg as twf
 from repro_torch.core.topology import make_topology, paper_topology
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.dfl import engine as tengine
+from repro_torch.dfl.faults import FaultConfig
 from repro_torch.models.lenet import params_from_jax, ravel
 
 from _torch_fixtures import jax_batches
@@ -116,9 +117,10 @@ def test_later_slices_raise(what):
     """Paths of later slices raise and name their ROADMAP item: a
     standalone WFAgg filter in DFL, a baseline other than the mean on an
     irregular graph (the valid-masked DYN_AGGREGATORS), a CFL aggregator
-    that is still unported (the standalone WFAgg-T filter), dynamic
-    schedules, faults, telemetry, sharding, the gathered (N, K, d)
-    ``wfagg_batch``."""
+    that is still unported (the standalone WFAgg-T filter), a baseline
+    other than the mean on a dynamic schedule (DYN_AGGREGATORS again), an
+    adaptive attack on the chaos round, telemetry export of the static
+    run, sharding, the gathered (N, K, d) ``wfagg_batch``."""
     topo, data = paper_topology(), SyntheticImages()
     cfg = tengine.DFLConfig()
     kw = {}
@@ -132,8 +134,11 @@ def test_later_slices_raise(what):
         cfg = tengine.DFLConfig(centralized=True, aggregator="wfagg_t")
     elif what == "mesh":
         cfg = tengine.DFLConfig(mesh_model_shards=2)
-    elif what in ("dynamic", "faults"):
-        kw = {"dynamic": True} if what == "dynamic" else {"faults": object()}
+    elif what == "dynamic":
+        cfg, kw = tengine.DFLConfig(aggregator="krum"), {"dynamic": True}
+    elif what == "faults":
+        cfg = tengine.DFLConfig(attack="min_max")
+        kw = {"dynamic": True, "faults": FaultConfig()}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "telemetry":
             tengine.run_experiment(cfg, topo, data, rounds=1, telemetry=True,

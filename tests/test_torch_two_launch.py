@@ -79,8 +79,8 @@ def test_indexed_stats_wrapper_rejects_unported_and_bad_input():
     u = torch.as_tensor(models(6, 64, seed=5))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trops.robust_stats_indexed(u, idx, prev=u[idx])          # per-edge prev
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trops.robust_stats_indexed(u, idx, prev=u, prev_idx=idx)
+    with pytest.raises(ValueError, match="outside"):
+        trops.robust_stats_indexed(u, idx, prev=u, prev_idx=torch.where(idx == 2, 6, idx))
     with pytest.raises(ValueError, match="outside"):
         trops.robust_stats_indexed(u, torch.where(idx == 2, 6, idx))
     with pytest.raises(ValueError, match="cuda or cpu"):

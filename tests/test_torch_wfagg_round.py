@@ -133,8 +133,9 @@ def test_wrapper_dispatches_by_device_and_rejects_unported_variants():
     for bad in (-1, 6):
         with pytest.raises(ValueError, match="outside"):
             tops.wfagg_round_indexed(u, u, torch.where(idx == 2, bad, idx), None, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.wfagg_round_indexed(u, u, idx, None, cfg, prev=u, prev_idx=idx)
+    with pytest.raises(ValueError, match="outside"):
+        tops.wfagg_round_indexed(u, u, idx, None, cfg, prev=u,
+                                 prev_idx=torch.where(idx == 2, -1, idx))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tops.wfagg_round_indexed(u, u, idx, None, cfg, prev=u[idx])   # per-edge prev
     with pytest.raises(ValueError, match="CUDA tensors"):
