@@ -10,7 +10,9 @@ Phases, each of which fails the run:
 
   1. the card's name and power limit; build the six kernel libraries of
      the port from the sources in the checkout, one ``nvcc`` each, all
-     started together (timed; ptxas registers and spills printed);
+     started together (timed; ptxas registers and spills printed; kernel
+     5 is a node axis on kernel 4's source, the per-edge variants are
+     kernels 1 and 2);
   2. hold each kernel against its plain PyTorch version on the card:
      - the gossip round (``wfagg_round.cu``) at the paper's round shape
        (N=20, K=8, d=44,426) and on irregular slates with a degree-0 row
@@ -54,6 +56,17 @@ Phases, each of which fails the run:
      statistics within rtol 1e-4, the Gram within 1e-4 of its
      Cauchy-Schwarz scale; with ``prev_idx`` = the table, bit-identical
      to the launch without it), timed at N=64, K=16, d=2^20 (L=3, C=4);
+     then kernel 5, the gathered statistics (``robust_stats.cu``'s node
+     axis), at the paper's gathered round (N=20, K=8, d=44,426, per-edge
+     prev) and at N=64, K=16, d=2^20 with per-edge prev and without prev
+     with the centers, each with two bit-identical rows per node and a NaN
+     row (median bit-equal with NaN in the same places, the NaN node's
+     median all NaN, sums within rtol 1e-4, tied rows tied, WFAgg-D/C
+     masks bit-equal), each timed; and the per-edge (N, K, d) ``prev``
+     variants of kernels 1 and 2 on the same slates as the Gram round
+     (with ``prev[idx]`` bit-identical to the matrix-prev launch; with a
+     per-edge prev of their own, masks bit-equal to the plain versions),
+     timed at N=64, K=16, d=2^20;
   3. the main paths, each with every kernel's launch count set to 0 just
      before and read just after:
      - DFL: ``run_experiment`` at the paper's configuration (LeNet-5,
@@ -64,12 +77,17 @@ Phases, each of which fails the run:
        round), the mean baseline beside them, each replayed round by
        round against the reference backend on the card, and the paper's
        IPM-100 claim (WFAgg and Alt-WFAgg each > 0.9 and > mean + 0.2;
-       Multi-Krum and Clustering printed beside them) on the MLP;
+       Multi-Krum and Clustering printed beside them) on the MLP, read
+       from Table I: all 12 aggregators in DFL and in CFL
+       (``run_experiment``, MLP, 4 rounds; kernels launched only under
+       WFAgg and Alt-WFAgg, exactly as counted; accuracies and round times
+       printed);
      - CFL (``centralized=True``, the same topology and attack): WFAgg
        (one statistics and one combine launch per round, no Gram) and
        Alt-WFAgg (one of each of the three), each replayed round by round
        against the reference backend on the card, and the centralized
-       IPM-100 claim (WFAgg and Alt-WFAgg each > mean + 0.2) on the MLP;
+       IPM-100 claim (WFAgg and Alt-WFAgg each > mean + 0.2) on the MLP,
+       from Table I;
      - dynamic topologies and chaos transport (``run_dynamic_experiment``,
        the same model, topology and attack, 6 rounds): WFAgg on ``fused``
        under ``churn`` (6 round-kernel launches, none of the ``prev_idx``
@@ -80,8 +98,22 @@ Phases, each of which fails the run:
        round against the reference backend; one round of each under
        ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside a
        round); kill-and-resume (stop after 3, checkpoint, resume:
-       ``torch.equal`` final carry); every series finite under
-       ``corrupt`` at 0.5 (MLP); benign accuracy under chaos printed.
+       ``torch.equal`` final carry); the padded baselines (median and
+       Multi-Krum under ``churn`` and under ``churn`` + ``chaos``, no
+       kernel); every series finite under ``corrupt`` at 0.5 for WFAgg,
+       the mean and the median (MLP); benign accuracy under chaos printed;
+     - the gathered ``wfagg_batch`` (``neighbor_idx`` None) with per-edge
+       WFAgg-T state over 6 rounds of the paper's DFL configuration
+       (LeNet-5, IPM-100; each node's 8 received models gathered from the
+       round's trained and attacked matrix, the output the next round's
+       models), WFAgg and Alt-WFAgg on ``fused``: one kernel-5 launch per
+       round; every round also on the gathered ``reference`` backend (no
+       kernel) and on the indexed ``fused`` (one per-edge round-kernel
+       launch) and ``fused_two_launch`` (one per-edge statistics and one
+       combine launch) paths fed the same per-edge state, masks equal (or
+       reported with filter and margin), outputs within 3e-5, nodes that
+       received a non-finite row compared with ``equal_nan`` against the
+       gathered reference and reported.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -137,6 +169,22 @@ KERNELS = {
                                        "src/repro_torch/kernels/robust_stats/csrc/"
                                        "robust_stats_indexed.cu",
                                        "src/repro/kernels/robust_stats/kernel.py:271"),
+    # kernel 5: the gathered statistics, a node axis on kernel 4's source
+    "robust_stats_batch": ("repro_torch.kernels.robust_stats.kernel", "batch_launches",
+                           "src/repro_torch/kernels/robust_stats/csrc/robust_stats.cu",
+                           "src/repro/kernels/robust_stats/kernel.py:652"),
+    # the per-edge (N, K, D) prev variants: the prev_idx launches over the
+    # per-edge tensor, counted apart
+    "wfagg_round_indexed[per_edge_prev]": ("repro_torch.kernels.robust_stats.kernel",
+                                           "per_edge_launches",
+                                           "src/repro_torch/kernels/robust_stats/csrc/"
+                                           "wfagg_round.cu",
+                                           "src/repro/kernels/robust_stats/kernel.py:511"),
+    "robust_stats_indexed[per_edge_prev]": ("repro_torch.kernels.robust_stats.kernel",
+                                            "indexed_per_edge_launches",
+                                            "src/repro_torch/kernels/robust_stats/csrc/"
+                                            "robust_stats_indexed.cu",
+                                            "src/repro/kernels/robust_stats/kernel.py:271"),
 }
 
 
@@ -184,7 +232,6 @@ def round_inputs(torch, N, K, d, idx, valid, seed, dup=None):
     round's own temporal metrics so the WFAgg-T test accepts some edges
     and rejects others.  ``dup`` makes two rows bit-identical (two
     attackers sending one model)."""
-    from repro_torch.core import trust
     from repro_torch.core.wfagg import WFAggConfig
     from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
 
@@ -196,13 +243,22 @@ def round_inputs(torch, N, K, d, idx, valid, seed, dup=None):
     idx_t = torch.as_tensor(idx, device="cuda")
     valid_t = None if valid is None else torch.as_tensor(valid, device="cuda")
     cfg = WFAggConfig(transient=3)
-    st = robust_stats_indexed_ref(models, idx_t, valid_t, prev)
+    tbands = jittered_bands(torch, robust_stats_indexed_ref(models, idx_t, valid_t, prev),
+                            g, cfg)
+    return models, prev, idx_t, valid_t, tbands, cfg
+
+
+def jittered_bands(torch, st, g, cfg):
+    """WFAgg-T bands from a history of each edge's own temporal metrics in
+    ``st``, each entry jittered by 5%: some edges pass, others fail."""
+    from repro_torch.core import trust
+
+    N, K = st.prev_dist2.shape
     jitter = lambda x: x[:, None, :] * (1 + 0.05 * torch.randn(  # noqa: E731
         (N, cfg.window, K), generator=g, device="cuda"))
-    tbands = trust.temporal_bands(
+    return trust.temporal_bands(
         jitter(st.prev_dist2), jitter(st.cosine_to_prev()),
         torch.full((N,), 3, device="cuda"), torch.full((N,), 5, device="cuda"), cfg)
-    return models, prev, idx_t, valid_t, tbands, cfg
 
 
 def compare_kernel(torch, label, N, K, d, idx, valid, seed, dup=None) -> float:
@@ -1069,6 +1125,266 @@ def time_prev_idx_kernels(torch, N, K, d, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: kernel 5 (the gathered statistics) and the per-edge variants of
+# kernels 1 and 2
+# ---------------------------------------------------------------------------
+
+def gathered_candidates(torch, N, K, d, seed, nan_node=None):
+    """A gathered (N, K, d) tensor on the card and its per-edge ``prev``:
+    every node's rows near a model of its own, row k at a noise scale of
+    0.05 (k + 1) (so the filters' scores are apart by more than float32
+    sums in another order can move them), rows 0 and ``K // 2`` one
+    bit-identical attacker model (their prev rows identical too), and with
+    ``nan_node`` a NaN row in that node's slot 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.randn((N, 1, d), generator=g, device="cuda")
+    scale = 0.05 * torch.arange(1, K + 1, device="cuda", dtype=torch.float32)
+    u = torch.randn((N, K, d), generator=g, device="cuda").mul_(scale[:, None]).add_(base)
+    prev = torch.randn((N, K, d), generator=g, device="cuda").mul_(0.05).add_(u)
+    tie = K // 2
+    u[:, 0] = -3.0 * base[:, 0]
+    u[:, tie] = u[:, 0]
+    prev[:, tie] = prev[:, 0]
+    if nan_node is not None:
+        u[nan_node, 1] = float("nan")
+    return u, prev, tie
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal values, NaN in the same places."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and \
+        torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+def compare_robust_stats_batch(torch, label, u, prev, tie, nan_node, need_center) -> float:
+    """Kernel 5 against its plain version (``ref.robust_stats_batch_ref``):
+    the median bit-equal with its NaN in the same places (the NaN node's
+    median all NaN), the trimmed mean within rtol 1e-5, the statistics
+    within rtol 1e-4 / atol 1e-3 with NaN in the same places, the tied rows
+    bit-equal sums, and the WFAgg-D/C masks of every finite node bit-equal."""
+    from repro_torch.core import trust
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.kernels.robust_stats import ops
+    from repro_torch.kernels.robust_stats.ref import robust_stats_batch_ref
+
+    N = u.shape[0]
+    got = ops.robust_stats_batch(u, prev, need_center=need_center)
+    want = robust_stats_batch_ref(u, prev, need_center=need_center)
+    torch.cuda.synchronize()
+    errs = []
+    if need_center:
+        if not same_bits(torch, got.med, want.med):
+            raise AssertionError(f"{label}: median differs from the plain version")
+        torch.testing.assert_close(got.trim, want.trim, rtol=1e-5, atol=1e-6,
+                                   equal_nan=True)
+        fin = torch.isfinite(want.trim)
+        errs.append(float((got.trim - want.trim)[fin].abs().max()))
+        if nan_node is not None and not torch.isnan(got.med[nan_node]).all():
+            raise AssertionError(f"{label}: the NaN row left a finite median")
+    elif got.med is not None or got.trim is not None:
+        raise AssertionError(f"{label}: centers returned without need_center")
+    fields = STAT_FIELDS if prev is not None else STAT_FIELDS[:4]
+    keep = torch.arange(N, device="cuda") != (-1 if nan_node is None else nan_node)
+    for name in fields:
+        g, w = getattr(got, name), getattr(want, name)
+        torch.testing.assert_close(g, w, rtol=STAT_RTOL, atol=STAT_ATOL, equal_nan=True)
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"{label}: {name} NaN in other places than the plain")
+        fin = torch.isfinite(w)
+        errs.append(float((g - w)[fin].abs().max()))
+        if g.ndim == 2 and not torch.equal(g[keep, 0], g[keep, tie]):
+            raise AssertionError(f"{label}: identical rows got different {name}")
+    if nan_node is not None and not torch.isnan(got.dist2[nan_node]).all():
+        raise AssertionError(f"{label}: the NaN row left finite distances")
+    cfg = WFAggConfig()
+    for fn in (trust.fused_distance_mask, trust.fused_similarity_mask):
+        if not torch.equal(fn(got, None, cfg)[keep], fn(want, None, cfg)[keep]):
+            raise AssertionError(f"{label}: {fn.__name__} differs from the plain version")
+    print(f"  {label}: median bit-equal, NaN in the same places"
+          f"{'' if nan_node is None else f' (node {nan_node} all NaN)'}, masks "
+          f"bit-equal, tied rows tied, max|err| {max(errs):.3g}")
+    return max(errs)
+
+
+def time_robust_stats_batch(torch, u, prev, need_center) -> dict:
+    """Kernel 5's wrapper (``robust_stats_batch_cuda``) on the padded tensor
+    the main path hands it, its plain version and its bound: read the
+    candidates (and prev) once, write the centers; 2 ops per
+    compare-exchange, 8 flops per candidate coordinate for dist2 / dotmed /
+    norm2 and 7 for the temporal tail."""
+    from repro_torch.kernels.common import pad_d
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.robust_stats.ref import robust_stats_batch_ref
+
+    N, K, d = u.shape
+    up = pad_d(u, 32).contiguous()
+    pp = None if prev is None else pad_d(prev, 32).contiguous()
+    nbytes = 4.0 * N * K * d * (2 if prev is not None else 1) + (
+        8.0 * N * d if need_center else 0.0)
+    ops = N * d * (2.0 * network_compare_exchanges(K) + (15.0 if prev is not None
+                                                         else 8.0) * K)
+    b = bound(nbytes, ops)
+    t = dict(ms=time_cuda(torch, lambda: rk.robust_stats_batch_cuda(up, pp, 0.1,
+                                                                    need_center), 3, 25),
+             plain_ms=time_cuda(torch, lambda: robust_stats_batch_ref(
+                 u, prev, need_center=need_center), 1, 5),
+             bound_ms=b[0], bound_by=b[1], library_ms=None)
+    print(f"  robust_stats_batch N={N} K={K} d={d} prev={prev is not None} "
+          f"centers={need_center}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}); no single PyTorch call "
+          "computes these statistics")
+    return t
+
+
+def check_kernel5(torch) -> tuple:
+    """Kernel 5 at the three shapes of PERF.md: the paper's gathered DFL
+    round (N=20, K=8, d=44,426, per-edge prev, no centers) and N=64, K=16,
+    d=2^20 with per-edge prev and no centers, and without prev with the
+    centers; each with tied rows and a NaN row, then timed.  Returns the
+    max errors and the times by shape."""
+    errs, times = [], {}
+    for N, K, d, with_prev, centers, seed in ((20, 8, 44426, True, False, 51),
+                                              (64, 16, 1 << 20, True, False, 52),
+                                              (64, 16, 1 << 20, False, True, 53)):
+        u, prev, tie = gathered_candidates(torch, N, K, d, seed, nan_node=3)
+        p = prev if with_prev else None
+        label = f"robust_stats_batch N={N} K={K} d={d} prev={with_prev} centers={centers}"
+        errs.append(compare_robust_stats_batch(torch, label, u, p, tie, 3, centers))
+        u[3, 1] = u[3, 2]     # time finite inputs
+        times[(N, K, d, with_prev, centers)] = time_robust_stats_batch(torch, u, p, centers)
+        del u, prev, p
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+def compare_per_edge(torch, label, N, K, d, idx, valid, seed, dup) -> dict:
+    """Kernels 1 and 2 with a per-edge (N, K, d) ``prev``: with ``prev[idx]``
+    of a matrix, bit-identical to the launch that reads that matrix through
+    the neighbour table; with a per-edge prev no matrix gives, against
+    their plain versions (masks bit-equal, ``out`` within 3e-5, statistics
+    within rtol 1e-4, the Gram within 1e-4 of its scale), for WFAgg and
+    Alt-WFAgg and with and without the Gram.  Returns the max errors."""
+    from repro_torch.core import trust
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.kernels.robust_stats import ops
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+
+    models, prev, idx_t, valid_t, tb, _ = round_inputs(torch, N, K, d, idx, valid,
+                                                       seed, dup)
+    v = (torch.ones((N, K), dtype=torch.bool, device="cuda") if valid_t is None
+         else valid_t)
+    edge = prev[idx_t.long()]
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    own = edge + 0.01 * torch.randn(edge.shape, generator=g, device="cuda")
+    # bands around the own prev's metrics (the matrix-prev pair reads ``tb``)
+    otb = jittered_bands(torch, robust_stats_indexed_ref(models, idx_t, valid_t, own), g,
+                         WFAggConfig(transient=3))
+    errs = {"wfagg_round_indexed[per_edge_prev]": [],
+            "robust_stats_indexed[per_edge_prev]": []}
+    for cfg in (WFAggConfig(transient=3), alt_config(K)):
+        name = f"{label} {cfg.distance_filter}"
+        same = ops.wfagg_round_indexed(models, models, idx_t, valid_t, cfg, prev=edge,
+                                       tbands=tb)
+        old = ops.wfagg_round_indexed(models, models, idx_t, valid_t, cfg, prev=prev,
+                                      tbands=tb)
+        got = ops.wfagg_round_indexed(models, models, idx_t, valid_t, cfg, prev=own,
+                                      tbands=otb)
+        want = ops.wfagg_round_indexed_plain(models, models, idx_t, v, cfg, own, otb)
+        torch.cuda.synchronize()
+        if not same_outputs(torch, same, old):
+            raise AssertionError(f"{name}: per-edge prev = prev[idx] is not bit-identical "
+                                 "to the matrix-prev launch")
+        for m, g_, w in zip(("mask_d", "mask_c", "mask_t"), got[2:5], want[2:5]):
+            if not torch.equal(g_, w):
+                raise AssertionError(f"{name}: {m} differs from the plain version at "
+                                     f"{int((g_ != w).sum())} edges")
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+        torch.testing.assert_close(got[0], want[0], rtol=OUT_TOL, atol=OUT_TOL)
+        for f in STAT_FIELDS:
+            torch.testing.assert_close(getattr(got[5], f), getattr(want[5], f),
+                                       rtol=STAT_RTOL, atol=STAT_ATOL)
+        if got[5].gram is not None:
+            check_gram(torch, name, got[5].gram, want[5].gram, d)
+        errs["wfagg_round_indexed[per_edge_prev]"].append(float((got[0] - want[0]).abs().max()))
+    for need_gram in (False, True):
+        same = ops.robust_stats_indexed(models, idx_t, valid_t, edge, need_gram=need_gram)
+        old = ops.robust_stats_indexed(models, idx_t, valid_t, prev, need_gram=need_gram)
+        got = ops.robust_stats_indexed(models, idx_t, valid_t, own, need_gram=need_gram)
+        want = robust_stats_indexed_ref(models, idx_t, v, own, need_gram=need_gram)
+        torch.cuda.synchronize()
+        if not same_outputs(torch, tuple(same), tuple(old)):
+            raise AssertionError(f"{label} robust_stats_indexed gram={need_gram}: "
+                                 "per-edge prev = prev[idx] is not bit-identical to the "
+                                 "matrix-prev launch")
+        e = []
+        for f in STAT_FIELDS:
+            torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                       rtol=STAT_RTOL, atol=STAT_ATOL)
+            e.append(float((getattr(got, f) - getattr(want, f)).abs().max()))
+        if need_gram:
+            check_gram(torch, f"{label} robust_stats_indexed", got.gram, want.gram, d)
+        for cfg in (WFAggConfig(transient=3),) + ((alt_config(K),) if need_gram else ()):
+            mk = lambda st: trust.derive_trust_weights(st, v, otb, cfg)[:3]  # noqa: E731
+            for g_, w in zip(mk(got), mk(want)):
+                if not torch.equal(g_, w):
+                    raise AssertionError(f"{label} robust_stats_indexed: masks from the "
+                                         "kernel's statistics differ from the plain ones")
+        errs["robust_stats_indexed[per_edge_prev]"].append(max(e))
+    print(f"  {label}: per-edge prev = prev[idx] bit-identical to the matrix-prev launch "
+          f"(round kernel, WFAgg and Alt-WFAgg; statistics, with and without the Gram); "
+          f"an own per-edge prev: masks bit-equal to the plain versions, out max|err| "
+          f"{max(errs['wfagg_round_indexed[per_edge_prev]']):.3g}, statistics max|err| "
+          f"{max(errs['robust_stats_indexed[per_edge_prev]']):.3g}")
+    return errs
+
+
+def time_per_edge_kernels(torch, N, K, d, seed) -> dict:
+    """Kernels 1 and 2 with a per-edge prev through their ``*_cuda``
+    wrappers on a ring slate, beside the matrix-prev launch, their plain
+    versions and bounds: the model rows the table reaches and the per-edge
+    prev read once (and, for the round, ``local`` once and ``out``)."""
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.robust_stats import ops as rops
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+
+    idx = [[(n + o) % N for o in range(1, K + 1)] for n in range(N)]
+    models, prev, idx_t, _, tb, _ = round_inputs(torch, N, K, d, idx, None, seed)
+    cfg = WFAggConfig(transient=3)
+    v = torch.ones((N, K), dtype=torch.bool, device="cuda")
+    i32 = idx_t.to(torch.int32)
+    edge = prev[idx_t.long()]
+    rows = int(torch.unique(idx_t).numel())
+    out = {}
+    base = time_cuda(torch, lambda: rk.wfagg_round_indexed_cuda(
+        models, models, i32, v, prev, tb, cfg, cfg.alpha, False), 3, 25)
+    b = bound(4.0 * d * (rows + N * K + 2 * N), 16.0 * N * K * d)
+    out["wfagg_round_indexed[per_edge_prev]"] = dict(
+        ms=time_cuda(torch, lambda: rk.wfagg_round_indexed_cuda(
+            models, models, i32, v, edge, tb, cfg, cfg.alpha, False), 3, 25),
+        plain_ms=time_cuda(torch, lambda: rops.wfagg_round_indexed_plain(
+            models, models, idx_t, v, cfg, edge, tb), 1, 5),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    base2 = time_cuda(torch, lambda: rk.robust_stats_indexed_cuda(
+        models, i32, v, prev, False), 3, 25)
+    b = bound(4.0 * d * (rows + N * K), 16.0 * N * K * d)
+    out["robust_stats_indexed[per_edge_prev]"] = dict(
+        ms=time_cuda(torch, lambda: rk.robust_stats_indexed_cuda(
+            models, i32, v, edge, False), 3, 25),
+        plain_ms=time_cuda(torch, lambda: robust_stats_indexed_ref(
+            models, idx_t, v, edge), 1, 5),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    print(f"  per-edge prev N={N} K={K} d={d} ({4 * N * K * d / 2**30:.1f} GiB): with "
+          f"the matrix prev read through the table the round kernel takes {base:.4f} ms "
+          f"and the statistics kernel {base2:.4f} ms")
+    for name, t in out.items():
+        print(f"  {name} N={N} K={K} d={d}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}); "
+              "no single PyTorch call computes this function")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
 
@@ -1438,7 +1754,9 @@ def run_dynamic_paths(torch, topo, data) -> dict:
           f"{[[round(float(x), 2) for x in row] for row in sched.degree_stats()]}; chaos "
           f"schedule {fs.summary()}")
     runs = [("wfagg", "fused", None), ("wfagg", "fused", fs), ("alt_wfagg", "fused", fs),
-            ("wfagg", "fused_two_launch", fs), ("mean", "fused", fs)]
+            ("wfagg", "fused_two_launch", fs), ("mean", "fused", fs),
+            ("median", "fused", None), ("multi_krum", "fused", None),
+            ("median", "fused", fs), ("multi_krum", "fused", fs)]
     for agg, backend, faults in runs:
         cfg = DFLConfig(aggregator=agg, attack="ipm_100", model="lenet",
                         wfagg_backend=backend)
@@ -1447,13 +1765,15 @@ def run_dynamic_paths(torch, topo, data) -> dict:
         o = run_dynamic_experiment(cfg, topo, data, s, faults=faults)
         counts = read_counts()
         want = dict.fromkeys(KERNELS, 0)
-        if agg != "mean" and backend == "fused":
+        wfagg = agg in ("wfagg", "alt_wfagg")
+        if wfagg and backend == "fused":
             want["wfagg_round_indexed"] = ROUNDS
             want["wfagg_round_indexed[prev_idx]"] = ROUNDS if faults is not None else 0
-        elif agg != "mean":
+        elif wfagg:
             want["robust_stats_indexed"] = want["weighted_agg_indexed"] = ROUNDS
             want["robust_stats_indexed[prev_idx]"] = ROUNDS
-        label = f"{agg} on {backend}" + (" under chaos" if faults is not None else "")
+        label = (f"{agg} on {backend}" if wfagg else agg) + (
+            " under chaos" if faults is not None else " under churn")
         if counts != want:
             raise AssertionError(f"{label}: launches {counts}, expected {want}")
         if not all(np.isfinite(e["acc_all"]).all() for e in o["trace"]):
@@ -1463,7 +1783,7 @@ def run_dynamic_paths(torch, topo, data) -> dict:
               f", round ms {[round(1e3 * t, 2) for t in o['series']['round_seconds']]}")
         for name in KERNELS:
             total[name] += counts[name]
-        if agg != "mean":
+        if wfagg:
             check_dynamic_against_reference(torch, cfg, topo, data, s, faults)
     for agg, backend, faults in runs[:2] + runs[3:4]:
         check_no_host_sync(torch, DFLConfig(aggregator=agg, attack="ipm_100",
@@ -1475,7 +1795,7 @@ def run_dynamic_paths(torch, topo, data) -> dict:
     mlp_topo = paper_topology()
     csched, cfs = make_faulty_schedule("churn", mlp_topo, 3, fault="corrupt",
                                        intensity=0.5, seed=1, fault_seed=2)
-    for agg in ("wfagg", "mean"):
+    for agg in ("wfagg", "mean", "median"):
         o = run_dynamic_experiment(DFLConfig(aggregator=agg, attack="none", model="mlp"),
                                    mlp_topo, data, csched, faults=cfs)
         s = o["series"]
@@ -1496,6 +1816,192 @@ def run_dynamic_paths(torch, topo, data) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the gathered wfagg_batch, Table I, the padded baselines
+# ---------------------------------------------------------------------------
+
+def verdicts(torch, info):
+    """The per-edge verdict bits of ``obs.decision`` from a ``wfagg_batch``
+    info dict: distance, similarity, WFAgg-T."""
+    import types
+
+    bits = (info["mask_d"].to(torch.int32) | (info["mask_c"].to(torch.int32) << 1)
+            | (info["mask_t"].to(torch.int32) << 2))
+    return types.SimpleNamespace(verdict=bits)
+
+
+def run_gathered_path(torch, topo, data) -> dict:
+    """The gathered ``wfagg_batch`` over the paper's DFL rounds (LeNet-5,
+    IPM-100, ``ROUNDS`` rounds), WFAgg and Alt-WFAgg on ``fused`` with the
+    per-edge WFAgg-T state carried round to round: each round's input is
+    each node's K received models gathered from the round's trained and
+    attacked matrix (``engine._trained`` on the engine's own state, which
+    the engine's round then advances, as ``aggregation_inputs`` builds
+    it).  Every round also runs, from the same models and state, the
+    gathered ``reference`` backend and the indexed ``fused`` and
+    ``fused_two_launch`` paths fed the per-edge state; each call has its
+    launch counts set to 0 just before and read just after (exactly one
+    kernel-5 launch on the gathered ``fused`` call; the per-edge variants
+    of kernels 1 and 2 on the indexed calls; none on the reference).  Masks
+    must be equal, or the round is reported with its filter and margin (as
+    ``check_against_reference``); outputs within 3e-5.  A node that
+    received a non-finite row (the attackers' rows, once their own models
+    diverge; the gathered form has no sanitizer, as in the reference) is
+    compared with ``equal_nan`` against the gathered reference and
+    reported; the indexed paths, which sanitize, are held to the finite
+    nodes.  Returns the launches by kernel."""
+    import dataclasses
+
+    from repro_torch.core import wfagg as wf
+    from repro_torch.dfl import engine
+    from repro_torch.models.lenet import ravel
+
+    idx = torch.as_tensor(topo.neighbor_indices, device="cuda").long()
+    N, K = idx.shape
+    mal = torch.as_tensor(topo.malicious, device="cuda")
+    total = dict.fromkeys(KERNELS, 0)
+    for agg in ("wfagg", "alt_wfagg"):
+        cfg = engine.DFLConfig(aggregator=agg, attack="ipm_100", model="lenet")
+        wcfg = engine._wfagg_full_config(cfg, K, backend="fused")
+        ref, two = (dataclasses.replace(wcfg, backend=b)
+                    for b in ("reference", "fused_two_launch"))
+        state = engine.init_dfl_state(cfg, topo)
+        advance = engine.build_round_fn(cfg, topo, data)
+        d = ravel(state.node_params).shape[1]
+        ts = wf.TemporalState(
+            prev=torch.zeros((N, K, d), device="cuda"),
+            hist_s=torch.zeros((N, wcfg.window, K), device="cuda"),
+            hist_b=torch.zeros((N, wcfg.window, K), device="cuda"),
+            count=torch.zeros((N,), dtype=torch.int32, device="cuda"),
+            t=torch.zeros((N,), dtype=torch.int32, device="cuda"))
+        # name -> (call on (flat, gathered, state), its exact launches)
+        calls = {
+            "gathered fused": (lambda flat, u, st: wf.wfagg_batch(flat, u, st, wcfg),
+                               {"robust_stats_batch": 1}),
+            "gathered reference": (lambda flat, u, st: wf.wfagg_batch(flat, u, st, ref),
+                                   {}),
+            "indexed fused": (lambda flat, u, st: wf.wfagg_batch(
+                flat, flat, st, wcfg, neighbor_idx=idx),
+                {"wfagg_round_indexed": 1, "wfagg_round_indexed[per_edge_prev]": 1}),
+            "indexed fused_two_launch": (lambda flat, u, st: wf.wfagg_batch(
+                flat, flat, st, two, neighbor_idx=idx),
+                {"robust_stats_indexed": 1, "robust_stats_indexed[per_edge_prev]": 1,
+                 "weighted_agg_indexed": 1}),
+        }
+        seconds, edges, nonfinite, t_fired = [], [], [], 0
+        for r in range(ROUNDS):
+            flat = engine._trained(cfg, data, state, mal)[2]
+            u = flat[idx]
+            res = {}
+            for name, (fn, want) in calls.items():
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[name] = fn(flat, u, ts)
+                torch.cuda.synchronize()
+                if name == "gathered fused":
+                    seconds.append(time.perf_counter() - t0)
+                counts = read_counts()
+                want = dict(dict.fromkeys(KERNELS, 0), **want)
+                if counts != want:
+                    raise AssertionError(f"gathered path {agg} round {r + 1} {name}: "
+                                         f"launches {counts}, expected {want}")
+                for k in KERNELS:
+                    total[k] += counts[k]
+            out, nts, info = res["gathered fused"]
+            bad = ~(torch.isfinite(u).all(-1).all(-1) & torch.isfinite(ts.prev).all(-1).all(-1))
+            nonfinite.append(torch.nonzero(bad).flatten().tolist())
+            rec = verdicts(torch, info)
+            for name in ("gathered reference", "indexed fused", "indexed fused_two_launch"):
+                o, st, inf = res[name]
+                rec_ref = verdicts(torch, inf)
+                differ = rec.verdict != rec_ref.verdict
+                if name != "gathered reference":
+                    differ &= ~bad[:, None]       # the sanitizer acts on these nodes
+                if differ.any():
+                    report = decision_margins(
+                        torch, wcfg, flat, idx, torch.ones((N, K), dtype=torch.bool,
+                                                          device="cuda"),
+                        ts.prev, None, ts, rec, rec_ref)
+                    report = [x for x in report if bool(differ[x[0], x[1]])]
+                    print(f"  gathered {agg} round {r + 1}: verdicts differ from the "
+                          f"{name} path: (node, slot, filter, margin) {report}")
+                    if not report or any(m is None or not m <= 1e-4
+                                         for _, _, _, m in report):
+                        raise AssertionError(f"gathered {agg} round {r + 1}: verdicts "
+                                             f"differ from the {name} path away from "
+                                             "any edge")
+                    edges.append((r + 1, name, report))
+                    continue
+                if name == "gathered reference":
+                    torch.testing.assert_close(out, o, rtol=OUT_TOL, atol=OUT_TOL,
+                                               equal_nan=True)
+                else:
+                    torch.testing.assert_close(out[~bad], o[~bad], rtol=OUT_TOL,
+                                               atol=OUT_TOL)
+                    if not torch.equal(st.prev[~bad], u[~bad]):
+                        raise AssertionError(f"gathered {agg} round {r + 1}: the {name} "
+                                             "path's per-edge state is not models[idx]")
+            if not same_bits(torch, nts.prev, u):
+                raise AssertionError(f"gathered {agg}: the new per-edge state is not "
+                                     "the round's gathered tensor")
+            t_fired += int(info["mask_t"][~bad].sum())
+            ts = nts
+            state = advance(state)
+        print(f"  gathered {agg} on fused, {ROUNDS} rounds: verdicts equal to the gathered "
+              f"reference and the indexed fused / fused_two_launch paths with per-edge "
+              f"state, outputs within {OUT_TOL} (rounds on an edge: {edges}); WFAgg-T "
+              f"accepted {t_fired} edges of finite nodes; nodes with a non-finite "
+              f"candidate or prev per round {nonfinite}; gathered fused aggregation ms "
+              f"{[round(1e3 * s_, 3) for s_ in seconds]}")
+        if t_fired == 0:
+            raise AssertionError(f"gathered {agg}: the WFAgg-T band test never fired")
+    return total
+
+
+def run_table1(torch, data) -> tuple:
+    """Table I on the MLP (paper topology, IPM-100, 4 rounds): all 12
+    aggregators in DFL and in CFL through ``run_experiment``, each with
+    the launch counts set to 0 just before and read just after (the kernels
+    run only under WFAgg and Alt-WFAgg: one round kernel per DFL round; one
+    statistics and one combine launch, and for Alt-WFAgg one Gram, per CFL
+    round).  Returns (final benign accuracy by (aggregator, centralized),
+    launches by kernel)."""
+    import numpy as np
+
+    from repro_torch.core.topology import paper_topology
+    from repro_torch.dfl.engine import AGGREGATORS, DFLConfig, run_experiment
+
+    accs, total, rows = {}, dict.fromkeys(KERNELS, 0), []
+    for centralized in (False, True):
+        for agg in AGGREGATORS:
+            cfg = DFLConfig(aggregator=agg, attack="ipm_100", model="mlp",
+                            centralized=centralized)
+            zero_counts()
+            o = run_experiment(cfg, paper_topology(), data, rounds=4, eval_every=4)
+            counts = read_counts()
+            want = dict.fromkeys(KERNELS, 0)
+            if agg in ("wfagg", "alt_wfagg") and not centralized:
+                want["wfagg_round_indexed"] = 4
+            elif agg in ("wfagg", "alt_wfagg"):
+                want["robust_stats"] = want["weighted_agg"] = 4
+                want["pairwise_gram"] = 4 if agg == "alt_wfagg" else 0
+            label = f"{'CFL' if centralized else 'DFL'} {agg}"
+            if counts != want:
+                raise AssertionError(f"Table I {label}: launches {counts}, expected {want}")
+            if not all(np.isfinite(e["acc_all"]).all() for e in o["trace"]):
+                raise AssertionError(f"Table I {label}: non-finite accuracy")
+            for k in KERNELS:
+                total[k] += counts[k]
+            accs[(agg, centralized)] = o["final"]["acc_benign_mean"]
+            ms = "/".join(str(round(1e3 * t, 1)) for t in o["series"]["round_seconds"])
+            rows.append(f"{agg} {accs[(agg, centralized)]:.4f} ({ms} ms)")
+        print(f"  Table I, {'CFL' if centralized else 'DFL'} (MLP, IPM-100, 4 rounds; "
+              f"final benign acc, round ms): " + "; ".join(rows))
+        rows = []
+    return accs, total
+
+
 def main() -> int:
     import torch
 
@@ -1504,7 +2010,7 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from repro_torch.core.topology import make_topology, paper_topology
+    from repro_torch.core.topology import make_topology
     from repro_torch.data.synthetic import SyntheticImages
     from repro_torch.dfl.engine import DFLConfig, run_experiment
     from repro_torch.kernels import common
@@ -1593,6 +2099,23 @@ def main() -> int:
             errs[name] += e
     timed.update(time_prev_idx_kernels(torch, 64, 16, 1 << 20, seed=44))
 
+    print("[2] kernel 5 (the gathered statistics) and the per-edge prev variants of the "
+          "round and statistics kernels")
+    errs["robust_stats_batch"], k5 = check_kernel5(torch)
+    (main_shape, main_t), *rest = [(s_, t) for s_, t in k5.items() if s_[0] == 64] + [
+        (s_, t) for s_, t in k5.items() if s_[0] != 64]
+    shape_label = lambda s_: (f"N={s_[0]} K={s_[1]} d={s_[2]} prev={s_[3]} "  # noqa: E731
+                              f"centers={s_[4]}")
+    timed["robust_stats_batch"] = dict(main_t, shape=shape_label(main_shape),
+                                       other_shapes={shape_label(s_): t for s_, t in rest})
+    errs["wfagg_round_indexed[per_edge_prev]"] = []
+    errs["robust_stats_indexed[per_edge_prev]"] = []
+    for label, N, K, d, idx, valid, seed in slates:
+        for name, e in compare_per_edge(torch, f"per-edge prev {label}", N, K, d, idx,
+                                        valid, seed + 30, (0, 4)).items():
+            errs[name] += e
+    timed.update(time_per_edge_kernels(torch, 64, 16, 1 << 20, seed=57))
+
     # ---- phase 3: the main paths --------------------------------------------
     print(f"[3] DFL main path: run_experiment, LeNet-5, paper topology, IPM-100, "
           f"{ROUNDS} rounds")
@@ -1654,11 +2177,11 @@ def main() -> int:
               f"{[round(a, 4) for a in s['acc_benign_mean']]}, round ms "
               f"{[round(1e3 * t, 2) for t in s['round_seconds']]}")
 
-    accs = {}
-    for agg in ("mean", "wfagg", "alt_wfagg", "multi_krum", "clustering"):
-        o = run_experiment(DFLConfig(aggregator=agg, attack="ipm_100", model="mlp"),
-                           paper_topology(), data, rounds=4, eval_every=4)
-        accs[agg] = o["final"]["acc_benign_mean"]
+    print("[3] Table I: run_experiment, MLP, paper topology (spaced), IPM-100, 4 rounds, "
+          "every aggregator in DFL and CFL")
+    table, table_launches = run_table1(torch, data)
+    accs = {agg: table[(agg, False)]
+            for agg in ("mean", "wfagg", "alt_wfagg", "multi_krum", "clustering")}
     print("  DFL IPM-100 claim (MLP, 4 rounds): " + ", ".join(
         f"{agg} {a:.4f}" for agg, a in accs.items()))
     for agg in ("wfagg", "alt_wfagg"):
@@ -1688,12 +2211,7 @@ def main() -> int:
             cfl_launches[name] += counts[name]
         check_cfl_against_reference(torch, cfg, topo, data, ROUNDS)
 
-    accs = {}
-    for agg in ("mean", "wfagg", "alt_wfagg"):
-        o = run_experiment(DFLConfig(aggregator=agg, attack="ipm_100", model="mlp",
-                                     centralized=True),
-                           paper_topology(), data, rounds=4, eval_every=4)
-        accs[agg] = o["final"]["acc_benign_mean"]
+    accs = {agg: table[(agg, True)] for agg in ("mean", "wfagg", "alt_wfagg")}
     print(f"  CFL IPM-100 claim (MLP, 4 rounds): wfagg {accs['wfagg']:.4f}, "
           f"alt_wfagg {accs['alt_wfagg']:.4f}, mean {accs['mean']:.4f}")
     if not (accs["wfagg"] > accs["mean"] + 0.2 and accs["alt_wfagg"] > accs["mean"] + 0.2):
@@ -1703,12 +2221,18 @@ def main() -> int:
           f"LeNet-5, the same topology, IPM-100, {ROUNDS} rounds")
     dyn_launches = run_dynamic_paths(torch, topo, data)
 
+    print(f"[3] the gathered wfagg_batch with per-edge WFAgg-T state: LeNet-5, the same "
+          f"topology, IPM-100, {ROUNDS} rounds")
+    gathered_launches = run_gathered_path(torch, topo, data)
+
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
-    # two-launch runs, the CFL kernels on the two CFL runs, and the dynamic
-    # and chaos runs (the prev_idx variants on the chaos runs only)
+    # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
+    # chaos runs (the prev_idx variants on the chaos runs only), Table I's
+    # WFAgg and Alt-WFAgg runs, and the gathered path (kernel 5; the
+    # per-edge variants on the indexed calls fed its state)
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
-                for name in KERNELS}
+                + table_launches[name] + gathered_launches[name] for name in KERNELS}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])

@@ -16,8 +16,14 @@ part:
 
 The mask helpers, the Krum scores and the clustering merge take the same
 leading axes and select along the last axis (the last two for (K, K)
-matrices).  The valid-masked ``DYN_AGGREGATORS`` are not ported yet
-(ROADMAP queue 1, item 10).
+matrices).
+
+``DYN_AGGREGATORS`` holds the valid-masked variants (``*_agg_dyn``) for
+padded gossip slates (irregular degrees, dynamic and chaos schedules):
+each also takes ``valid (..., K) bool``; invalid candidates never reach
+the aggregate or the participation mask, and with every slot valid each
+reduces to its static counterpart.  All of them are plain PyTorch, as the
+reference computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -227,6 +233,113 @@ def clustering_agg(updates: Tensor) -> Tuple[Tensor, Tensor]:
     mask = clustering_select(updates)
     return masked_mean(updates, mask), mask
 
+
+# ---------------------------------------------------------------------------
+# valid-masked variants (padded slates)
+# ---------------------------------------------------------------------------
+
+def fraction_count(x: float, v: Tensor) -> Tensor:
+    """``int(x * v)`` as the reference computes it on a traced count: the
+    product in float32, truncated to int32."""
+    return (torch.tensor(x, dtype=torch.float32, device=v.device)
+            * v.to(torch.float32)).to(torch.int32)
+
+
+def _sort_valid(updates: Tensor, valid: Tensor) -> Tensor:
+    """Columns of ``updates (..., K, d)`` sorted along K with the invalid
+    rows as +inf.  ``torch.sort`` puts a NaN last in its column, after the
+    +inf padding, as ``jnp.sort`` does: a NaN does not spread over the
+    column (unlike ``coordinate_median``)."""
+    return torch.sort(torch.where(valid[..., None], updates, torch.inf), dim=-2).values
+
+
+def masked_median(updates: Tensor, valid: Tensor) -> Tensor:
+    """Coordinate-wise median of the valid rows of ``updates (..., K, d)``:
+    the mean of the sorted values at the middles ``(v-1)//2`` and ``v//2``
+    of the node's valid count v (0 when v = 0).  A NaN makes the median NaN
+    only where a middle lands on it.  Matches ``coordinate_median`` on
+    finite inputs when every row is valid."""
+    K = updates.shape[-2]
+    valid = valid.to(torch.bool)
+    srt = _sort_valid(updates, valid)
+    v = valid.sum(-1)
+    take = lambda j: torch.gather(  # noqa: E731
+        srt, -2, torch.clamp(j, 0, K - 1)[..., None, None].expand(
+            *srt.shape[:-2], 1, srt.shape[-1]))[..., 0, :]
+    med = 0.5 * (take((v - 1) // 2) + take(v // 2))
+    return torch.where((v > 0)[..., None], med, torch.zeros_like(med))
+
+
+def median_agg_dyn(updates: Tensor, valid: Tensor) -> Tuple[Tensor, Tensor]:
+    return masked_median(updates, valid), valid.to(torch.bool)
+
+
+def trimmed_mean_agg_dyn(updates: Tensor, valid: Tensor,
+                         beta: float = 0.1) -> Tuple[Tensor, Tensor]:
+    """beta-trimmed mean over the valid rows: per coordinate, drop the
+    ``int(beta * v)`` smallest and largest valid values and average the
+    rest (0 when v = 0)."""
+    K = updates.shape[-2]
+    valid = valid.to(torch.bool)
+    v = valid.sum(-1)
+    t = fraction_count(beta, v)
+    srt = _sort_valid(updates, valid)
+    ranks = torch.arange(K, device=updates.device)[:, None]
+    keep = (ranks >= t[..., None, None]) & (ranks < (v - t)[..., None, None])
+    denom = torch.clamp((v - 2 * t).to(updates.dtype), min=1.0)
+    out = torch.where(keep, srt, torch.zeros_like(srt)).sum(-2) / denom[..., None]
+    return torch.where((v > 0)[..., None], out, torch.zeros_like(out)), valid
+
+
+def _masked_sq_dists(updates: Tensor, valid: Tensor) -> Tensor:
+    vpair = valid[..., :, None] & valid[..., None, :]
+    return torch.where(vpair, pairwise_sq_dists(updates), torch.inf)
+
+
+def _krum_scores_dyn(updates: Tensor, valid: Tensor, f: int) -> Tensor:
+    """Krum scores over the valid peers; invalid candidates score +inf."""
+    scores = krum_scores_from_sq_dists_dyn(_masked_sq_dists(updates, valid), f,
+                                           valid.sum(-1))
+    return torch.where(valid, scores, torch.inf)
+
+
+def krum_agg_dyn(updates: Tensor, valid: Tensor, f: int = 2) -> Tuple[Tensor, Tensor]:
+    valid = valid.to(torch.bool)
+    best = torch.argmin(_krum_scores_dyn(updates, valid, f), dim=-1, keepdim=True)
+    mask = (torch.arange(updates.shape[-2], device=updates.device) == best) & valid
+    return masked_mean(updates, mask), mask
+
+
+def multi_krum_agg_dyn(updates: Tensor, valid: Tensor, f: int = 2,
+                       m: Optional[Union[int, Tensor]] = None) -> Tuple[Tensor, Tensor]:
+    """Multi-Krum on the valid peers: keep the ``min(m, v)`` best scores
+    (``max(v // 4, 1)`` when ``m`` is None; ``m`` may be per-node)."""
+    valid = valid.to(torch.bool)
+    v = valid.sum(-1)
+    keep = (torch.clamp(v // 4, min=1) if m is None
+            else torch.minimum(torch.as_tensor(m, device=v.device), v))
+    mask = smallest_k_mask_dyn(_krum_scores_dyn(updates, valid, f), keep) & valid
+    return masked_mean(updates, mask), mask
+
+
+def clustering_agg_dyn(updates: Tensor, valid: Tensor) -> Tuple[Tensor, Tensor]:
+    valid = valid.to(torch.bool)
+    D = torch.where(valid[..., :, None] & valid[..., None, :],
+                    cosine_distance_matrix(updates), torch.inf)
+    mask = clustering_select_from_dist_dyn(D, valid)
+    return masked_mean(updates, mask), mask
+
+
+# valid-masked registry: AGGREGATORS' keyword convention after ``valid``
+DYN_AGGREGATORS: Dict[str, Callable[..., Tuple[Tensor, Tensor]]] = {
+    "mean": lambda u, v, **kw: mean_agg_dyn(u, v),
+    "median": lambda u, v, **kw: median_agg_dyn(u, v),
+    "trimmed_mean": lambda u, v, **kw: trimmed_mean_agg_dyn(u, v, beta=kw.get("beta", 0.1)),
+    "krum": lambda u, v, **kw: krum_agg_dyn(u, v, f=kw.get("f", 2)),
+    "multi_krum": lambda u, v, **kw: multi_krum_agg_dyn(u, v, f=kw.get("f", 2),
+                                                        m=kw.get("m")),
+    "clustering": lambda u, v, **kw: clustering_agg_dyn(u, v),
+}
 
 AGGREGATORS: Dict[str, Callable[..., Tuple[Tensor, Tensor]]] = {
     "mean": lambda u, **kw: mean_agg(u),

@@ -11,13 +11,21 @@ Components (each maps to a paper algorithm):
   alt_wfagg_config paper Section VI-B2 - same scoring, with Multi-Krum as
                    the distance filter and Clustering as the similarity one
   wfagg_batch      all N receiving nodes of a gossip round at once, from
-                   the (M, d) model matrix and an (N, K) neighbour table
-                   (the (N, K, d) gossip tensor never exists on the fused
-                   path); with ``prev_idx`` the WFAgg-T ``prev`` rows come
-                   through their own table (chaos transport)
+                   the gathered (N, K, d) candidates, or from the (M, d)
+                   model matrix and an (N, K) neighbour table (the (N, K,
+                   d) gossip tensor never exists on the fused path); with
+                   ``prev_idx`` the WFAgg-T ``prev`` rows come through
+                   their own table (chaos transport)
   realign_temporal_history
                    re-keys the slot-positional WFAgg-T ring buffers to a
                    new slate by neighbour identity (dynamic topologies)
+  wfagg_d_agg, wfagg_c_agg, wfagg_e_agg
+                   the standalone filters (Table I's WFAgg-D / -C / -E
+                   columns; WFAgg-T is ``wfagg_t_select`` + ``wfagg_e``)
+  memory_passes    (K, d)-sized memory passes per aggregation, by backend
+
+The reference-backend filters and the standalone aggregators take one
+node's (K, d) candidates or a batch with a leading N axis.
 
 Execution backends (``WFAggConfig.backend``):
   fused      single node (``wfagg``, the CFL server): one statistics
@@ -25,23 +33,27 @@ Execution backends (``WFAggConfig.backend``):
              kernel when an Alt-WFAgg filter needs it
              (``kernels.pairwise_dist.ops.pairwise_gram``), the scoring
              stage on the host and the combine kernel
-             (``kernels.weighted_agg.ops.weighted_agg``).  Gossip round:
-             the single-launch round (``kernels.robust_stats.ops.
-             wfagg_round_indexed``).  CUDA kernels on CUDA tensors, their
-             plain PyTorch versions on CPU tensors.
-  reference  plain PyTorch: the per-filter pipeline for one node; for the
-             gossip round the valid-aware pipeline (gathered statistics,
-             the same trust logic, the Eq. 3 combine).
+             (``kernels.weighted_agg.ops.weighted_agg``).  Indexed gossip
+             round: the single-launch round (``kernels.robust_stats.ops.
+             wfagg_round_indexed``).  Gathered gossip round: one launch of
+             the batched statistics kernel (``kernels.robust_stats.ops.
+             robust_stats_batch``), the Alt-WFAgg Gram as a ``torch.bmm``,
+             the scoring stage on the host and the batched Eq. 3 combine
+             in plain PyTorch (the reference computes the Gram and the
+             combine outside Pallas too).  CUDA kernels on CUDA tensors,
+             their plain PyTorch versions on CPU tensors.
+  reference  plain PyTorch: the per-filter pipeline for one node (or each
+             node of a gathered round, batched); for the indexed gossip
+             round the valid-aware pipeline (gathered statistics, the same
+             trust logic, the Eq. 3 combine).
   fused_two_launch
-             single node: the same as fused (there is no single-launch
-             variant).  Gossip round: two launches, the gather-free
-             statistics (``kernels.robust_stats.ops.robust_stats_indexed``,
-             the Gram riding along for an Alt-WFAgg filter), the scoring
-             stage on the host (``_indexed_scoring``) and the gather-free
-             combine (``kernels.weighted_agg.ops.weighted_agg_indexed``).
-
-The gathered ``wfagg_batch`` and the standalone filter aggregators are
-not ported yet (ROADMAP queue 1, item 10).
+             single node and gathered round: the same as fused (there is
+             no single-launch variant).  Indexed gossip round: two
+             launches, the gather-free statistics
+             (``kernels.robust_stats.ops.robust_stats_indexed``, the Gram
+             riding along for an Alt-WFAgg filter), the scoring stage on
+             the host (``_indexed_scoring``) and the gather-free combine
+             (``kernels.weighted_agg.ops.weighted_agg_indexed``).
 """
 from __future__ import annotations
 
@@ -55,12 +67,13 @@ from repro_torch.core import trust
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.pairwise_dist.ops import pairwise_gram
 from repro_torch.kernels.robust_stats.ops import (
-    robust_stats, robust_stats_indexed, wfagg_round_indexed)
+    robust_stats, robust_stats_batch, robust_stats_indexed, wfagg_round_indexed)
 from repro_torch.kernels.weighted_agg.ops import weighted_agg, weighted_agg_indexed
 from repro_torch.kernels.robust_stats.ref import RobustStats, robust_stats_indexed_ref
 
 Tensor = torch.Tensor
 _EPS = 1e-12
+_FUSED_BACKENDS = ("fused", "fused_two_launch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,10 +112,10 @@ class TemporalState(NamedTuple):
 
     One node (``wfagg``): ``prev (K, d)``, ``hist_s``/``hist_b (W, K)``,
     ``count``/``t`` scalars.  Gossip round (``wfagg_batch``): a leading N
-    axis on the history, and ``prev`` the previous round's (M, d) model
-    matrix (read through the neighbour table, so edge (n, k)'s last model
-    is ``prev[idx[n, k]]``) or a per-edge (N, K, d) tensor (reference
-    backend only).
+    axis on the history, and ``prev`` either the previous round's (M, d)
+    model matrix (indexed form only: read through the neighbour table, so
+    edge (n, k)'s last model is ``prev[idx[n, k]]``) or a per-edge (N, K,
+    d) tensor (both forms, every backend).
     """
 
     prev: Tensor      # (K, d), (M, d) or (N, K, d)
@@ -129,32 +142,33 @@ def init_temporal_state(K: int, d: int, window: int, device=None) -> TemporalSta
 
 def wfagg_d_select(updates: Tensor, f: int) -> Tensor:
     """Alg. 2: keep the K-f-1 candidates closest (L2) to the median model."""
-    K = updates.shape[0]
+    K = updates.shape[-2]
     med = agg.coordinate_median(updates)
-    d2 = ((updates - med) ** 2).sum(-1)
+    d2 = ((updates - med.unsqueeze(-2)) ** 2).sum(-1)
     return agg.smallest_k_mask(d2, K - int(f) - 1)
 
 
 def wfagg_c_stats(updates: Tensor) -> Tuple[Tensor, Tensor]:
     """Cosine distances of norm-clipped candidates to the median model.
 
-    Returns (alpha_j (K,), clipped updates (K, d)).  Positive rescaling
-    cannot change a cosine, so clipping affects downstream magnitude only.
+    Returns (alpha_j (..., K), clipped updates (..., K, d)).  Positive
+    rescaling cannot change a cosine, so clipping affects downstream
+    magnitude only.
     """
     med = agg.coordinate_median(updates)
     norms = torch.linalg.norm(updates, dim=-1)
-    tau_med = agg.coordinate_median(norms)
+    tau_med = agg.coordinate_median(norms.unsqueeze(-1))       # (..., 1)
     scale = torch.clamp(tau_med / torch.clamp(norms, min=_EPS), max=1.0)
-    clipped = updates * scale[:, None]
-    med_n = torch.linalg.norm(med)
+    clipped = updates * scale[..., None]
+    med_n = torch.linalg.norm(med, dim=-1, keepdim=True)
     cnorms = torch.linalg.norm(clipped, dim=-1)
-    cos = (clipped @ med) / torch.clamp(cnorms * med_n, min=_EPS)
+    cos = (clipped @ med.unsqueeze(-1))[..., 0] / torch.clamp(cnorms * med_n, min=_EPS)
     return 1.0 - cos, clipped
 
 
 def wfagg_c_select(updates: Tensor, f: int) -> Tensor:
     """Alg. 3: keep the K-f-1 candidates with smallest cosine distance."""
-    K = updates.shape[0]
+    K = updates.shape[-2]
     alpha_j, _ = wfagg_c_stats(updates)
     return agg.smallest_k_mask(alpha_j, K - int(f) - 1)
 
@@ -206,7 +220,7 @@ def _distance_mask(updates: Tensor, cfg: WFAggConfig) -> Tensor:
     if cfg.distance_filter == "wfagg_d":
         return wfagg_d_select(updates, cfg.f)
     if cfg.distance_filter == "multi_krum":
-        m = cfg.multi_krum_m or max(1, updates.shape[0] // 4)
+        m = cfg.multi_krum_m or max(1, updates.shape[-2] // 4)
         return agg.smallest_k_mask(agg.krum_scores(updates, cfg.f), m)
     raise ValueError(f"unknown distance filter {cfg.distance_filter!r}")
 
@@ -251,17 +265,11 @@ def _wfagg_fused(local: Tensor, updates: Tensor, state: Optional[TemporalState],
     return out, new_state, _info(mask_d, mask_c, mask_t, weights)
 
 
-def wfagg(local: Tensor, updates: Tensor, state: Optional[TemporalState],
-          cfg: WFAggConfig) -> Tuple[Tensor, Optional[TemporalState], dict]:
-    """Full WFAgg (Alg. 1) for one node: ``local (d,)`` is the WFAgg-E
-    anchor, ``updates (K, d)`` the received models, ``state`` its WFAgg-T
-    state (``init_temporal_state``) or None.  Runs on the tensors' device.
-    Returns ``(aggregated (d,), new_state, info)`` with the filter masks,
-    trust weights and accepted count in ``info``."""
-    if cfg.backend in ("fused", "fused_two_launch"):
-        return _wfagg_fused(local, updates, state, cfg)
-    if cfg.backend != "reference":
-        raise ValueError(f"unknown backend {cfg.backend!r}")
+def _wfagg_reference(local: Tensor, updates: Tensor,
+                     state: Optional[TemporalState],
+                     cfg: WFAggConfig) -> Tuple[Tensor, Optional[TemporalState], dict]:
+    """The per-filter pipeline of one node, or of every node of a gathered
+    round (a leading N axis on every input and on the state)."""
     mask_d = _distance_mask(updates, cfg)
     mask_c = _similarity_mask(updates, cfg)
     if cfg.use_temporal and state is not None:
@@ -272,6 +280,20 @@ def wfagg(local: Tensor, updates: Tensor, state: Optional[TemporalState],
     weights = trust.wfagg_scores(mask_d, mask_c, mask_t, cfg)
     out = wfagg_e(local, updates, weights, cfg.alpha)
     return out, new_state, _info(mask_d, mask_c, mask_t, weights)
+
+
+def wfagg(local: Tensor, updates: Tensor, state: Optional[TemporalState],
+          cfg: WFAggConfig) -> Tuple[Tensor, Optional[TemporalState], dict]:
+    """Full WFAgg (Alg. 1) for one node: ``local (d,)`` is the WFAgg-E
+    anchor, ``updates (K, d)`` the received models, ``state`` its WFAgg-T
+    state (``init_temporal_state``) or None.  Runs on the tensors' device.
+    Returns ``(aggregated (d,), new_state, info)`` with the filter masks,
+    trust weights and accepted count in ``info``."""
+    if cfg.backend in _FUSED_BACKENDS:
+        return _wfagg_fused(local, updates, state, cfg)
+    if cfg.backend != "reference":
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    return _wfagg_reference(local, updates, state, cfg)
 
 
 def alt_wfagg_config(**kw) -> WFAggConfig:
@@ -403,6 +425,41 @@ def _to_device(x, dev: torch.device):
     return x.to(dev)
 
 
+def _wfagg_batch_gathered(local: Tensor, updates: Tensor,
+                          state: Optional[TemporalState],
+                          cfg: WFAggConfig) -> Tuple[Tensor, Optional[TemporalState], dict]:
+    """Batched WFAgg over the gathered (N, K, d) candidates (see
+    ``wfagg_batch``).  No sanitizer and no valid mask, as in the
+    reference: a non-finite candidate reaches the statistics."""
+    if cfg.backend == "reference":
+        return _wfagg_reference(local, updates, state, cfg)
+    if cfg.backend not in _FUSED_BACKENDS:
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    temporal = cfg.use_temporal and state is not None
+    # one launch of the batched statistics kernel, without the centers
+    stats = robust_stats_batch(updates, prev=state.prev if temporal else None,
+                               need_center=False)
+    # one more read of the candidates for the Alt-WFAgg filters: the
+    # reference's einsum outside Pallas, a batched matrix product here
+    gram = (torch.bmm(updates, updates.transpose(1, 2))
+            if trust.needs_gram(cfg) else None)
+    mask_d = trust.fused_distance_mask(stats, gram, cfg)
+    mask_c = trust.fused_similarity_mask(stats, gram, cfg)
+    if temporal:
+        mask_t, hist_s, hist_b, count, t = wfagg_t_decide(
+            state.hist_s, state.hist_b, state.count, state.t,
+            stats.prev_dist2, stats.cosine_to_prev(), cfg)
+        new_state = TemporalState(prev=updates, hist_s=hist_s, hist_b=hist_b,
+                                  count=count, t=t)
+    else:
+        mask_t = torch.zeros_like(mask_d)
+        new_state = state
+    weights = trust.wfagg_scores(mask_d, mask_c, mask_t, cfg)
+    # the batched Eq. 3 combine: the second (K, d)-sized pass
+    out = wfagg_e(local, updates, weights, cfg.alpha)
+    return out, new_state, _info(mask_d, mask_c, mask_t, weights)
+
+
 def wfagg_batch(
     local: Tensor,
     updates: Tensor,
@@ -413,24 +470,47 @@ def wfagg_batch(
     prev_idx: Optional[Tensor] = None,
     device=None,
 ) -> Tuple[Tensor, Optional[TemporalState], dict]:
-    """Batched full WFAgg over all N receiving nodes of a gossip round.
+    """Batched full WFAgg over all N receiving nodes of a gossip round, in
+    one of two forms.  ``local (N, d)`` are the combine anchors; ``state``
+    carries the WFAgg-T history with a leading N axis.
 
-    ``local (N, d)`` are the combine anchors; with ``neighbor_idx (N, K)``,
-    ``updates`` is the (M, d) MODEL MATRIX the neighbour rows are read
-    from.  ``valid (N, K)`` marks the real edges of padded irregular
-    slates (None = regular).  ``state`` carries the WFAgg-T history with a
-    leading N axis.  ``prev_idx (N, K)`` reads the WFAgg-T ``prev`` matrix
-    through its own table (chaos transport: ``state.prev`` is then the
-    stacked matrix, often ``updates`` itself); it is dropped when
-    ``prev`` is not a matrix.  Every input moves to ``device`` (None = the
-    card, which raises without one).  Returns ``(out (N, d), new_state,
-    info)`` with the filter masks, valid mask and trust weights in
-    ``info``.
+    Gathered form (``neighbor_idx`` None): ``updates (N, K, d)`` holds each
+    node's K received models.  On ``fused`` / ``fused_two_launch`` (the
+    same here) the statistics are one launch of the batched kernel, the
+    Alt-WFAgg Gram a ``torch.bmm`` and the combine plain batched Eq. 3;
+    ``reference`` runs the per-node pipeline of ``wfagg``, batched.  No
+    sanitizer and no valid mask (``valid`` and ``prev_idx`` raise).
+
+    Indexed form (``neighbor_idx (N, K)`` given): ``updates`` is the (M, d)
+    MODEL MATRIX the neighbour rows are read from, and the (N, K, d)
+    gossip tensor never exists on the fused paths.  ``valid (N, K)`` marks
+    the real edges of padded irregular slates (None = regular);
+    non-finite rows are zeroed and their edges demoted (``cfg.sanitize``).
+    ``prev_idx (N, K)`` reads a matrix ``prev`` through its own table
+    (chaos transport: ``state.prev`` is then the stacked matrix, often
+    ``updates`` itself); it is dropped when ``prev`` is not a matrix.
+
+    ``state.prev`` is per edge in both forms, (N, K, d): edge (n, k)'s
+    last received model, which the new state replaces with this round's
+    (``updates`` gathered, ``updates[neighbor_idx]`` indexed); the indexed
+    form also takes the previous round's (M, d) model matrix, and then
+    keeps a matrix.  Every input moves to ``device`` (None = the card,
+    which raises without one).  Returns ``(out (N, d), new_state, info)``
+    with the filter masks and trust weights (and, indexed, the valid
+    mask) in ``info``.
     """
     if neighbor_idx is None:
-        raise NotImplementedError(
-            "the gathered (N, K, d) wfagg_batch is not ported yet: ROADMAP "
-            "queue 1, item 10; pass neighbor_idx with the (M, d) matrix")
+        if prev_idx is not None:
+            raise ValueError("prev_idx requires neighbor_idx (indexed path)")
+        if valid is not None:
+            raise ValueError("valid requires neighbor_idx (padded indexed path)")
+        if updates.ndim != 3:
+            raise ValueError("the gathered form takes updates (N, K, d), got "
+                             f"{tuple(updates.shape)}; pass neighbor_idx with "
+                             "the (M, d) model matrix")
+        dev = resolve_device(device)
+        return _wfagg_batch_gathered(local.to(dev), updates.to(dev),
+                                     _to_device(state, dev), cfg)
     dev = resolve_device(device)
     return _wfagg_batch_indexed(
         local.to(dev), updates.to(dev), _to_device(state, dev), cfg,
@@ -461,3 +541,70 @@ def realign_temporal_history(state: TemporalState, prev_idx: Tensor,
         hist_s=torch.einsum("nkj,nwj->nwk", m, state.hist_s),
         hist_b=torch.einsum("nkj,nwj->nwk", m, state.hist_b),
     )
+
+
+def memory_passes(cfg: WFAggConfig, include_gather: bool = False,
+                  indexed: bool = False) -> int:
+    """Number of (K, d)-sized memory passes per full-WFAgg aggregation.
+
+    reference: each filter re-reads the candidates: distance filter
+    (median sort + distances = 2, or 1 Gram pass for Multi-Krum),
+    similarity filter (median + norms/clip + cosine dots = 3, or 1 Gram
+    pass for Clustering), temporal metrics (1), WFAgg-E combine (1).
+    fused: one statistics read covers D/C/T, plus the combine (+ 1 Gram
+    pass when an Alt-WFAgg filter needs the K x K distances).
+
+    ``include_gather`` also counts the gossip exchange a DFL round pays
+    before aggregating: building the gathered (N, K, d) tensor is one more
+    candidate-sized pass, unless ``indexed`` (the gather-free path, which
+    reads neighbour rows from the (N, d) model matrix and also folds the
+    Alt-WFAgg Gram into the statistics pass).  Indexed ``fused`` is the
+    single-launch round: one streamed read; ``fused_two_launch`` keeps two.
+    """
+    t = 1 if cfg.use_temporal else 0
+    gather = 1 if (include_gather and not indexed) else 0
+    if cfg.backend in _FUSED_BACKENDS:
+        if indexed and cfg.backend == "fused":
+            return 1 + gather
+        gram = 1 if (trust.needs_gram(cfg) and not indexed) else 0
+        return 2 + gram + gather
+    d_passes = 1 if cfg.distance_filter == "multi_krum" else 2
+    c_passes = 1 if cfg.similarity_filter == "clustering" else 3
+    return d_passes + c_passes + t + 1 + gather
+
+
+# ---------------------------------------------------------------------------
+# standalone filters (Table I columns WFAgg-D / WFAgg-C / WFAgg-E; WFAgg-T
+# is wfagg_t_select + wfagg_e), on (K, d) or a batch (N, K, d)
+# ---------------------------------------------------------------------------
+
+def wfagg_d_agg(updates: Tensor, f: int = 2,
+                backend: str = "reference") -> Tuple[Tensor, Tensor]:
+    """WFAgg-D alone: the mean of the K-f-1 candidates closest to the
+    median.  ``backend="fused"`` ranks the statistics kernel's distances
+    (one matrix only).  Returns ``(aggregate, mask)``."""
+    if backend == "fused":
+        stats = robust_stats(updates, need_center=False)
+        mask = agg.smallest_k_mask(stats.dist2, updates.shape[-2] - int(f) - 1)
+    else:
+        mask = wfagg_d_select(updates, f)
+    return agg.masked_mean(updates, mask), mask
+
+
+def wfagg_c_agg(updates: Tensor, f: int = 2,
+                backend: str = "reference") -> Tuple[Tensor, Tensor]:
+    """WFAgg-C alone: the mean of the K-f-1 candidates of smallest cosine
+    distance to the median (``backend="fused"`` as in ``wfagg_d_agg``)."""
+    if backend == "fused":
+        stats = robust_stats(updates, need_center=False)
+        mask = agg.smallest_k_mask(stats.cosine_to_median(),
+                                   updates.shape[-2] - int(f) - 1)
+    else:
+        mask = wfagg_c_select(updates, f)
+    return agg.masked_mean(updates, mask), mask
+
+
+def wfagg_e_agg(local: Tensor, updates: Tensor, alpha: float = 0.8) -> Tensor:
+    """WFAgg-E alone: uniform weights over all neighbours (no filtering)."""
+    weights = torch.ones(updates.shape[:-1], dtype=torch.float32, device=updates.device)
+    return wfagg_e(local, updates, weights, alpha)

@@ -13,14 +13,16 @@ Each of N nodes owns an independent local model.  One round =
        of the round kernel per round on the default ``fused`` backend, or
        one launch each of the statistics and combine kernels on
        ``fused_two_launch``), keeping per-node temporal state (Alg. 4); or
-       a baseline rule of ``core.aggregators.AGGREGATORS`` on the gathered
-       (N, K, d) slates (plain PyTorch; on irregular graphs only the mean);
+       any other rule of Table I (``AGGREGATORS``) on the gathered (N, K,
+       d) slates, batched over the nodes in plain PyTorch: a baseline of
+       ``core.aggregators.AGGREGATORS`` (on padded slates its valid-masked
+       form, ``DYN_AGGREGATORS``) or a standalone WFAgg filter (WFAgg-D,
+       -C, -E, and WFAgg-T with per-edge state), as the reference does;
      - the centralized baseline (CFL, ``DFLConfig(centralized=True)``):
        one server aggregates all N received models with WFAgg or
        Alt-WFAgg (``core.wfagg.wfagg``: the statistics, Gram and combine
-       kernels on the card) or a baseline rule of
-       ``core.aggregators.AGGREGATORS``, and every node starts the next
-       round from the new global model.
+       kernels on the card) or any other rule of Table I, and every node
+       starts the next round from the new global model.
 
 Round-varying topologies (``run_dynamic_experiment``): a
 ``TopologySchedule`` gives every round its own (N, K) neighbour table,
@@ -32,15 +34,16 @@ each round also routes the gossip through drop / stale / duplicate /
 corrupt / crash delivery over a stacked ring matrix, which the WFAgg
 kernels read through the re-keyed table (and their ``prev_idx`` variant
 for WFAgg-T); such a run can stop, checkpoint and resume bit-exactly
-(``train.checkpoint``).  Nothing inside a round reads the card back to
-the host.
+(``train.checkpoint``).  The baselines run on the post-fault slates
+through ``DYN_AGGREGATORS``.  Nothing inside a round reads the card back
+to the host.
 
 Entry points take ``device=None``, which means the card; without one
-they raise.  Not ported yet, and raising: adaptive attacks (ROADMAP
-queue 1, item 7), telemetry export of the static ``run_experiment``
-(item 9), the baselines other than mean on irregular graphs and dynamic
-schedules (``DYN_AGGREGATORS``) and the standalone WFAgg filters (item
-10), model-dimension sharding (item 11).
+they raise.  As in the reference, the standalone WFAgg filters raise on
+irregular graphs and on dynamic and chaos schedules (they have no
+valid-masked form).  Not ported yet, and raising: adaptive attacks
+(ROADMAP queue 1, item 7), telemetry export of the static
+``run_experiment`` (item 9), model-dimension sharding (item 11).
 """
 from __future__ import annotations
 
@@ -67,8 +70,11 @@ from repro_torch.train import checkpoint as ckpt
 
 Tensor = torch.Tensor
 BASELINES = ("mean", "median", "trimmed_mean", "krum", "multi_krum", "clustering")
-AGGREGATORS = BASELINES + ("wfagg", "alt_wfagg")   # DFL and CFL rounds
-DYNAMIC_AGGREGATORS = ("mean", "wfagg", "alt_wfagg")   # dynamic and chaos rounds
+FILTERS = ("wfagg_d", "wfagg_c", "wfagg_t", "wfagg_e")   # standalone WFAgg filters
+# Table I's columns: static DFL and CFL rounds
+AGGREGATORS = BASELINES + FILTERS + ("wfagg", "alt_wfagg")
+# the rules with a valid-masked form: irregular graphs, dynamic and chaos rounds
+DYNAMIC_AGGREGATORS = BASELINES + ("wfagg", "alt_wfagg")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,9 +112,8 @@ def _check_supported(cfg: DFLConfig) -> None:
             "model-dimension sharding is not ported yet: ROADMAP queue 1, "
             "item 11")
     if cfg.aggregator not in AGGREGATORS:
-        raise NotImplementedError(
-            f"aggregator {cfg.aggregator!r} is not ported yet (ported: "
-            f"{AGGREGATORS}): ROADMAP queue 1, item 10")
+        raise ValueError(f"unknown aggregator {cfg.aggregator!r} (one of "
+                         f"{AGGREGATORS})")
     if cfg.model not in MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
 
@@ -117,9 +122,11 @@ def init_dfl_state(cfg: DFLConfig, topo: Topology,
                    degree: Optional[int] = None, device=None) -> DFLState:
     """Fresh per-node models (drawn on the CPU from ``cfg.seed``, so every
     device starts from the same weights) and WFAgg-T state on ``device``.
-    ``degree`` overrides the neighbour-table width K.  CFL keeps the one
-    server's state with a leading axis of 1, over K = N candidates, with a
-    per-edge ``prev (1, N, d)``."""
+    ``degree`` overrides the neighbour-table width K.  Decentralized WFAgg
+    and Alt-WFAgg keep the previous round's (N, d) model matrix as
+    ``prev``; the standalone WFAgg-T keeps a per-edge ``prev (N, K, d)``;
+    CFL keeps the one server's state with a leading axis of 1, over K = N
+    candidates, with a per-edge ``prev (1, N, d)``."""
     _check_supported(cfg)
     dev = resolve_device(device)
     init_fn, _ = MODELS[cfg.model]
@@ -129,11 +136,14 @@ def init_dfl_state(cfg: DFLConfig, topo: Topology,
     momentum = {k: torch.zeros_like(v) for k, v in params.items()}
     K = degree if degree is not None else (N if cfg.centralized else topo.degree)
     temporal = None
-    if cfg.centralized:
-        if cfg.aggregator in ("wfagg", "alt_wfagg"):
-            t0 = wf.init_temporal_state(K, param_count(params), cfg.paper.window,
-                                        device=dev)
-            temporal = wf.TemporalState(*(x[None] for x in t0))
+    if cfg.aggregator == "wfagg_t" or (cfg.centralized and cfg.aggregator in
+                                       ("wfagg", "alt_wfagg")):
+        # per-edge state: every receiving node (the one CFL server) keeps
+        # each of its K neighbours' last model
+        t0 = wf.init_temporal_state(K, param_count(params), cfg.paper.window,
+                                    device=dev)
+        n = 1 if cfg.centralized else N
+        temporal = wf.TemporalState(*(x.expand((n,) + x.shape).clone() for x in t0))
     elif cfg.aggregator in ("wfagg", "alt_wfagg"):
         # the temporal ``prev`` is the previous round's (N, d) model
         # matrix, read through the neighbour table: prev[idx[n, k]] is
@@ -237,18 +247,62 @@ def _baseline(cfg: DFLConfig, updates: Tensor) -> Tensor:
 
 
 def _aggregate_one(cfg: DFLConfig, local: Tensor, updates: Tensor,
-                   t_state: Optional[wf.TemporalState]):
+                   t_state: Optional[wf.TemporalState],
+                   wfagg_backend: Optional[str] = None):
     """Aggregate K received models ``updates (K, d)`` for one node (the CFL
-    server), anchored at ``local (d,)``.  Returns ``(new_model (d,),
-    new_temporal_state)``."""
+    server), anchored at ``local (d,)``, or every node of a gossip round at
+    once (``(N, K, d)`` slates, ``(N, d)`` anchors, state with a leading N
+    axis; every rule but the full WFAgg).  ``wfagg_backend`` overrides the
+    configured WFAgg backend.  Returns ``(new_model, new_temporal_state)``."""
+    p = cfg.paper
     name = cfg.aggregator
-    K = updates.shape[0]
+    K = updates.shape[-2]
     if name in BASELINES:
         return _baseline(cfg, updates), t_state
+    if name == "wfagg_d":     # the reference runs these two on its
+        return wf.wfagg_d_agg(updates, p.f)[0], t_state    # default backend
+    if name == "wfagg_c":
+        return wf.wfagg_c_agg(updates, p.f)[0], t_state
+    if name == "wfagg_e":
+        return wf.wfagg_e_agg(local, updates, p.alpha), t_state
+    if name == "wfagg_t":
+        mask, new_t = wf.wfagg_t_select(t_state, updates,
+                                        cfg.wfagg_config(backend=wfagg_backend))
+        return wf.wfagg_e(local, updates, mask.to(torch.float32), p.alpha), new_t
     if name in ("wfagg", "alt_wfagg"):
-        out, new_t, _ = wf.wfagg(local, updates, t_state, _wfagg_full_config(cfg, K))
+        out, new_t, _ = wf.wfagg(local, updates, t_state,
+                                 _wfagg_full_config(cfg, K, backend=wfagg_backend))
         return out, new_t
     raise ValueError(name)
+
+
+def _aggregate_one_dyn(cfg: DFLConfig, local: Tensor, updates: Tensor,
+                       valid: Tensor) -> Tensor:
+    """A baseline over padded slates ``updates (..., K, d)`` with ``valid
+    (..., K)``: the valid-masked ``DYN_AGGREGATORS`` rule with the paper's
+    arguments (Multi-Krum keeps ``max(int(0.25 * v), 1)`` of each node's v
+    valid candidates).  A degree-0 node keeps ``local``: there is nothing
+    to aggregate."""
+    p = cfg.paper
+    name = cfg.aggregator
+    valid = valid.to(torch.bool)
+    kw: Dict[str, Any] = {"f": p.f}
+    if name == "trimmed_mean":
+        kw = {"beta": p.trim_beta}
+    if name == "clustering":
+        kw = {}
+    if name == "multi_krum":
+        kw["m"] = torch.clamp(agg_lib.fraction_count(p.multi_krum_m_frac, valid.sum(-1)),
+                              min=1)
+    out, _ = agg_lib.DYN_AGGREGATORS[name](updates, valid, **kw)
+    return torch.where(valid.any(-1)[..., None], out, local)
+
+
+def _masked_form_required(cfg: DFLConfig, where: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"aggregator {cfg.aggregator!r} has no valid-mask-aware form; {where} "
+        "run through the wfagg/alt_wfagg gather-free path or the "
+        f"DYN_AGGREGATORS baselines {BASELINES}, as in the reference")
 
 
 # ---------------------------------------------------------------------------
@@ -269,8 +323,10 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
     ``dynamic=True``: ``round_fn(state, neighbor_idx, valid, mal_mask,
     batches=None)`` takes the round's (N, K) table, (N, K) valid mask and
     (N,) Byzantine mask as tensors on ``device``.  WFAgg / Alt-WFAgg take
-    the gather-free route with the round's valid mask; the mean keeps a
-    degree-0 node's own model.  The WFAgg-T ring buffers are keyed by
+    the gather-free route with the round's valid mask; the baselines run
+    their valid-masked form, and keep a degree-0 node's own model.  The
+    standalone WFAgg filters raise (no valid-masked form, as in the
+    reference).  The WFAgg-T ring buffers are keyed by
     slot: a caller driving rounds by hand on a changing slate re-keys them
     first (``wf.realign_temporal_history``), as ``run_dynamic_experiment``
     does.
@@ -298,11 +354,8 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
             return _make_chaos_round(cfg, data, telemetry, faults, dev)
         return _make_dynamic_round(cfg, data, telemetry, dev)
     if (not cfg.centralized and not topo.is_regular
-            and cfg.aggregator in BASELINES and cfg.aggregator != "mean"):
-        raise NotImplementedError(
-            f"decentralized {cfg.aggregator!r} on an irregular graph needs the "
-            "valid-masked DYN_AGGREGATORS, not ported yet: ROADMAP queue 1, "
-            "item 10")
+            and cfg.aggregator not in DYNAMIC_AGGREGATORS):
+        raise _masked_form_required(cfg, "irregular (padded) topologies")
     dev = resolve_device(device)
     table = np.asarray(topo.neighbor_indices)
     if table.size and (table.min() < 0 or table.max() >= topo.n_nodes):
@@ -336,12 +389,16 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
                 valid=neighbor_valid, device=dev)
             if telemetry:
                 record = obs_decision.record_from_info(info)
-        else:   # a baseline: plain gathered PyTorch, no kernel
-            if neighbor_valid is None:
-                new_flat = _baseline(cfg, flat[neighbor_idx])   # (N, K, d)
-            else:   # the mean (the others raised above)
-                new_flat = _mean_slates(flat, flat, neighbor_idx, neighbor_valid)
-            new_temporal = None
+        else:   # plain PyTorch on the gathered (N, K, d) slates, no kernel
+            gathered = flat[neighbor_idx]
+            if state.temporal is not None:     # the standalone WFAgg-T
+                new_flat, new_temporal = _aggregate_one(
+                    cfg, flat, gathered, state.temporal, wfagg_backend="reference")
+            elif neighbor_valid is not None:   # a baseline on padded slates
+                new_flat = _aggregate_one_dyn(cfg, flat, gathered, neighbor_valid)
+                new_temporal = None
+            else:
+                new_flat, new_temporal = _aggregate_one(cfg, flat, gathered, None)
             if telemetry:
                 record = obs_decision.record_uniform(
                     neighbor_valid if neighbor_valid is not None
@@ -359,21 +416,11 @@ def _check_dynamic(cfg: DFLConfig) -> None:
                                   "gossip (decentralized) feature; CFL has no "
                                   "slates")
     if cfg.aggregator not in DYNAMIC_AGGREGATORS:
-        raise NotImplementedError(
-            f"{cfg.aggregator!r} on a dynamic schedule needs the valid-masked "
-            f"DYN_AGGREGATORS, not ported yet (ported: {DYNAMIC_AGGREGATORS}): "
-            "ROADMAP queue 1, item 10")
+        raise _masked_form_required(cfg, "dynamic schedules and chaos transport")
     if cfg.attack in atk.ADAPTIVE_ATTACKS:
         raise NotImplementedError(
             f"the adaptive attack {cfg.attack!r} reads the defense's state and "
             "is not ported yet: ROADMAP queue 1, item 7")
-
-
-def _mean_slates(models: Tensor, local: Tensor, idx: Tensor, valid: Tensor) -> Tensor:
-    """The valid-masked mean of each node's slate ``models[idx[n]]``; a
-    degree-0 node keeps ``local``."""
-    mean, _ = agg_lib.mean_agg_dyn(models[idx.long()], valid)
-    return torch.where(valid.any(-1, keepdim=True), mean, local)
 
 
 def _make_dynamic_round(cfg: DFLConfig, data: SyntheticImages, telemetry: bool,
@@ -387,8 +434,8 @@ def _make_dynamic_round(cfg: DFLConfig, data: SyntheticImages, telemetry: bool,
                 flat, flat, state.temporal, wcfg, neighbor_idx=neighbor_idx,
                 valid=valid, device=dev)
             record = obs_decision.record_from_info(info) if telemetry else None
-        else:   # the mean (the other baselines raised in _check_dynamic)
-            new_flat = _mean_slates(flat, flat, neighbor_idx, valid)
+        else:   # a baseline, on the gathered padded slates
+            new_flat = _aggregate_one_dyn(cfg, flat, flat[neighbor_idx.long()], valid)
             new_temporal = None
             record = obs_decision.record_uniform(valid) if telemetry else None
         new_params = {k: v.contiguous() for k, v in unravel(new_flat, params).items()}
@@ -478,8 +525,9 @@ def _make_chaos_round(cfg: DFLConfig, data: SyntheticImages, telemetry: bool,
             new_temporal = new_temporal._replace(prev=flat, hist_s=hist_s,
                                                  hist_b=hist_b)
             record = obs_decision.record_from_info(info) if telemetry else None
-        else:   # the mean, on the post-fault slate
-            new_flat = _mean_slates(tout.full, flat, tout.eff_idx, tout.eff_valid)
+        else:   # a baseline, on the gathered post-fault slates
+            new_flat = _aggregate_one_dyn(cfg, flat, tout.full[tout.eff_idx],
+                                          tout.eff_valid)
             new_temporal = None
             record = obs_decision.record_uniform(tout.eff_valid) if telemetry else None
         # a down receiver aggregates nothing (its slate is all-invalid, so

@@ -10,17 +10,25 @@
   With an Alt-WFAgg filter (Multi-Krum, Clustering) the Gram variant
   also accumulates each node's (K, K) Gram and runs those filters in the
   epilogue.  The ``prev_idx`` variant (chaos transport) reads ``prev``
-  through its own (N, K) table instead of the neighbour table.
+  through its own (N, K) table instead of the neighbour table; the
+  per-edge variant (a per-edge (N, K, D) ``prev``, the state the gathered
+  path carries) is the same launch on that tensor viewed as (N*K, D),
+  read through the table ``n*K + k``: the Pallas kernel's per-edge
+  BlockSpec addresses.
 * ``csrc/robust_stats_indexed.cu`` replaces ``_robust_stats_indexed_kernel``
   / ``robust_stats_indexed_pallas`` (``kernel.py:191`` / ``:271``): phase 0
   of the round alone (statistics, optional Gram and temporal tail, with
-  the same ``prev_idx`` variant), the statistics launch of the two-launch
-  backend; bound by bytes without the Gram.  Both sources include ``csrc/valid_median.cuh``.
-* ``csrc/robust_stats.cu`` replaces ``_robust_stats_kernel`` /
-  ``robust_stats_pallas`` (``kernel.py:70`` / ``:136``, ``d_axis=0``): the
-  median, trimmed mean and WFAgg filter statistics of one (K, D)
-  candidate matrix, as the single-node ``wfagg()`` and the CFL server
-  call it.  Bound by bytes at the paper's K; see the source's header.
+  the same ``prev_idx`` and per-edge variants), the statistics launch of
+  the two-launch backend; bound by bytes without the Gram.  Both sources
+  include ``csrc/valid_median.cuh``.
+* ``csrc/robust_stats.cu`` replaces ``_robust_stats_kernel`` in both of
+  its launches: ``robust_stats_pallas`` (``kernel.py:70`` / ``:136``,
+  ``d_axis=0``, kernel 4), the median, trimmed mean and WFAgg filter
+  statistics of one (K, D) candidate matrix, as the single-node
+  ``wfagg()`` and the CFL server call it; and ``robust_stats_batch_pallas``
+  (``kernel.py:652``, ``d_axis=1``, kernel 5), the same for every node of
+  a gathered (N, K, D) tensor, as the gathered ``wfagg_batch`` calls it.
+  Bound by bytes at the paper's K; see the source's header.
 
 Each source is compiled with ``nvcc`` into a shared library with a plain
 C entry point at first use (``kernels.common.build``) and called through
@@ -55,9 +63,12 @@ TILE = 256       # coordinates per tile of robust_stats[_indexed].cu (kThreads)
 # after.
 launches = 0                 # wfagg_round.cu
 prev_idx_launches = 0        # wfagg_round.cu launches of the prev_idx variant
-robust_stats_launches = 0    # robust_stats.cu
+per_edge_launches = 0        # wfagg_round.cu launches with a per-edge prev
+robust_stats_launches = 0    # robust_stats.cu, one matrix (its two kernels as one)
+batch_launches = 0           # robust_stats.cu, a gathered tensor (its two kernels as one)
 indexed_launches = 0         # robust_stats_indexed.cu (its two kernels as one)
 indexed_prev_idx_launches = 0  # robust_stats_indexed.cu, prev_idx variant
+indexed_per_edge_launches = 0  # robust_stats_indexed.cu, per-edge prev
 
 
 def _bind_round(lib: ctypes.CDLL) -> None:
@@ -87,9 +98,18 @@ def gram_filters(cfg, K: int):
             trust.multi_krum_m(cfg, K))
 
 
-def _check_prev(prev, prev_idx, M, N, K, D, dev) -> None:
-    """``prev`` is read through the neighbour table, so it has the model
-    matrix's rows, or through ``prev_idx``, so it has rows of its own."""
+def _prev_rows(prev, prev_idx, M, N, K, D, dev):
+    """``prev`` as the kernels read it: a matrix through the neighbour table
+    (the model matrix's rows), a matrix through ``prev_idx`` (rows of its
+    own), or a per-edge (N, K, D) tensor, which is the matrix of its N*K
+    rows read through the table ``n*K + k`` (built on the device, no host
+    read).  Returns ``(prev, prev_idx, per_edge)`` for the launch."""
+    if prev is not None and prev.ndim == 3:
+        if prev_idx is not None:
+            raise ValueError("prev_idx requires a matrix-form prev")
+        _check("prev", prev, torch.float32, (N, K, D), dev)
+        table = torch.arange(N * K, dtype=torch.int32, device=dev).view(N, K)
+        return prev.view(N * K, D), table, True
     if prev_idx is not None:
         if prev is None:
             raise ValueError("prev_idx requires prev")
@@ -97,12 +117,16 @@ def _check_prev(prev, prev_idx, M, N, K, D, dev) -> None:
     if prev is not None:
         rows = M if prev_idx is None else prev.shape[0]
         _check("prev", prev, torch.float32, (rows, D), dev)
+    return prev, prev_idx, False
 
 
 def _bind_stats(lib: ctypes.CDLL) -> None:
-    fn = lib.robust_stats_launch
     P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.robust_stats_launch
     fn.argtypes = [P, P, P, P, P, P, I, ctypes.c_longlong, I, I, P]
+    fn.restype = I
+    fn = lib.robust_stats_batch_launch
+    fn.argtypes = [P, P, P, P, P, P, I, I, ctypes.c_longlong, I, I, P]
     fn.restype = I
 
 
@@ -111,7 +135,7 @@ def wfagg_round_indexed_cuda(
     models: torch.Tensor,        # (M, D) f32
     neighbor_idx: torch.Tensor,  # (N, K) int32, values in [0, M)
     valid: torch.Tensor,         # (N, K) bool
-    prev: Optional[torch.Tensor],     # (M, D) f32, (Mp, D) with prev_idx, or None
+    prev: Optional[torch.Tensor],     # (M, D) f32, (Mp, D) with prev_idx, (N, K, D), or None
     tbands: Optional[torch.Tensor],   # (N, 4K) f32 or None
     cfg,
     alpha: float,
@@ -121,14 +145,16 @@ def wfagg_round_indexed_cuda(
     """Launch the round kernel on the tensors' CUDA device and stream.
 
     ``prev`` may be the same tensor as ``models`` (the chaos round's
-    stacked matrix); the kernel only reads both.  Every output is
-    allocated here with ``torch.empty``.  Returns
+    stacked matrix); the kernel only reads both.  A per-edge ``prev``
+    (N, K, D) goes through the ``prev_idx`` variant (see ``_prev_rows``)
+    and is counted apart.  Every output is allocated here with
+    ``torch.empty``.  Returns
     ``(out (N, D), weights (N, K), mask_d, mask_c, mask_t ((N, K) bool),
     stats)`` with ``stats`` a ``RobustStats`` of (N, K) / (N,) fields and,
     when ``cfg`` names a Multi-Krum or Clustering filter (the Gram
     variant), the (N, K, K) Gram in ``stats.gram``.
     """
-    global launches, prev_idx_launches
+    global launches, prev_idx_launches, per_edge_launches
     M, D = models.shape
     N, K = neighbor_idx.shape
     dev = models.device
@@ -140,7 +166,7 @@ def wfagg_round_indexed_cuda(
     _check("local", local, torch.float32, (N, D), dev)
     _check("neighbor_idx", neighbor_idx, torch.int32, (N, K), dev)
     _check("valid", valid, torch.bool, (N, K), dev)
-    _check_prev(prev, prev_idx, M, N, K, D, dev)
+    prev, prev_idx, per_edge = _prev_rows(prev, prev_idx, M, N, K, D, dev)
     if tbands is not None:
         if prev is None:
             raise ValueError("tbands requires prev")
@@ -169,7 +195,9 @@ def wfagg_round_indexed_cuda(
                  int(bool(mean_fallback)), dist_krum, sim_cluster, krum_m, stream)
     common.launch_error("wfagg_round_indexed", err)
     launches += 1
-    if prev_idx is not None:
+    if per_edge:
+        per_edge_launches += 1
+    elif prev_idx is not None:
         prev_idx_launches += 1
     stats = RobustStats(None, None, dist2, dotmed, norm2, mednorm2, *tail, gram)
     return (out, weights, *masks, stats)
@@ -179,19 +207,21 @@ def robust_stats_indexed_cuda(
     models: torch.Tensor,        # (M, D) f32
     neighbor_idx: torch.Tensor,  # (N, K) int32, values in [0, M)
     valid: torch.Tensor,         # (N, K) bool
-    prev: Optional[torch.Tensor],     # (M, D) f32, (Mp, D) with prev_idx, or None
+    prev: Optional[torch.Tensor],     # (M, D) f32, (Mp, D) with prev_idx, (N, K, D), or None
     need_gram: bool,
     prev_idx: Optional[torch.Tensor] = None,  # (N, K) int32, values in [0, Mp)
 ) -> RobustStats:
     """Launch the gather-free statistics kernel on the tensors' CUDA device
-    and stream (``prev`` may be the same tensor as ``models``).
+    and stream (``prev`` may be the same tensor as ``models``; a per-edge
+    (N, K, D) ``prev`` goes through the ``prev_idx`` variant, counted
+    apart).
 
     Every output is allocated here with ``torch.empty``: the per-CTA
     partial rows, one (N, 6K+1) tensor ``[dist2 | dotmed | norm2 |
     prev_dist2 | prev_dot | prev_norm2 | mednorm2]`` that the returned
     ``RobustStats`` views, and the (N, K, K) Gram with ``need_gram``.
     """
-    global indexed_launches, indexed_prev_idx_launches
+    global indexed_launches, indexed_prev_idx_launches, indexed_per_edge_launches
     M, D = models.shape
     N, K = neighbor_idx.shape
     dev = models.device
@@ -203,7 +233,7 @@ def robust_stats_indexed_cuda(
     _check("models", models, torch.float32, (M, D), dev)
     _check("neighbor_idx", neighbor_idx, torch.int32, (N, K), dev)
     _check("valid", valid, torch.bool, (N, K), dev)
-    _check_prev(prev, prev_idx, M, N, K, D, dev)
+    prev, prev_idx, per_edge = _prev_rows(prev, prev_idx, M, N, K, D, dev)
     fn = common.load(INDEXED_SOURCE, _bind_indexed).robust_stats_indexed_launch
     f32 = dict(dtype=torch.float32, device=dev)
     n_chunks = common.grid_blocks(dev, -(-D // TILE), rows=N)
@@ -219,7 +249,9 @@ def robust_stats_indexed_cuda(
                  n_chunks, stream)
     common.launch_error("robust_stats_indexed", err)
     indexed_launches += 1
-    if prev_idx is not None:
+    if per_edge:
+        indexed_per_edge_launches += 1
+    elif prev_idx is not None:
         indexed_prev_idx_launches += 1
     f = [flat[:, i * K:(i + 1) * K] for i in range(6)]
     tail = f[3:] if prev is not None else [None, None, None]
@@ -271,3 +303,54 @@ def robust_stats_cuda(
     f = [flat[i * K:(i + 1) * K] for i in range(6)]
     tail = f[3:] if prev is not None else [None, None, None]
     return RobustStats(med, trim, f[0], f[1], f[2], flat[6 * K], *tail)
+
+
+def robust_stats_batch_cuda(
+    updates: torch.Tensor,            # (N, K, D) f32
+    prev: Optional[torch.Tensor],     # (N, K, D) f32 or None
+    beta: float,
+    need_center: bool,
+) -> RobustStats:
+    """Launch the batched statistics kernel (kernel 5) on the tensors' CUDA
+    device and stream: every node's (K, D) slab of the gathered tensor.
+
+    Every output is allocated here with ``torch.empty``: the (N, D)
+    centers when ``need_center``, the per-CTA partial rows (N, blocks,
+    6K+1), and one (N, 6K+1) tensor ``[dist2 | dotmed | norm2 | prev_dist2
+    | prev_dot | prev_norm2 | mednorm2]`` that the returned
+    ``RobustStats`` views ((N, K) fields, ``mednorm2`` (N,)).
+    """
+    global batch_launches
+    N, K, D = updates.shape
+    dev = updates.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"the robust_stats_batch kernel takes 1 <= K <= {MAX_K} "
+                         f"candidates, got K={K}")
+    if not 1 <= N <= 65535:
+        raise ValueError(f"the robust_stats_batch kernel takes 1 <= N <= 65535 "
+                         f"nodes, got N={N}")
+    n_trim = trim_count(K, beta)
+    if K - 2 * n_trim < 1:
+        raise ValueError(f"beta={beta} trims every one of the K={K} candidates")
+    _check("updates", updates, torch.float32, (N, K, D), dev)
+    if prev is not None:
+        _check("prev", prev, torch.float32, (N, K, D), dev)
+    fn = common.load(STATS_SOURCE, _bind_stats).robust_stats_batch_launch
+    f32 = dict(dtype=torch.float32, device=dev)
+    med = torch.empty((N, D), **f32) if need_center else None
+    trim = torch.empty((N, D), **f32) if need_center else None
+    n_blocks = common.grid_blocks(dev, -(-D // TILE), rows=N)
+    n_out = 6 * K + 1
+    partials = torch.empty((N, n_blocks, n_out), **f32)
+    flat = torch.empty((N, n_out), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(_ptr(updates), _ptr(prev), _ptr(med), _ptr(trim), _ptr(partials),
+                 _ptr(flat), N, K, D, n_trim, n_blocks, stream)
+    common.launch_error("robust_stats_batch", err)
+    batch_launches += 1
+    f = [flat[:, i * K:(i + 1) * K] for i in range(6)]
+    tail = f[3:] if prev is not None else [None, None, None]
+    return RobustStats(med, trim, f[0], f[1], f[2], flat[:, 6 * K], *tail)

@@ -1,15 +1,19 @@
 """Public wrappers of the robust-statistics kernels (port of
 ``repro.kernels.robust_stats.ops``): ``robust_stats`` over one (K, d)
-candidate matrix, the gather-free ``robust_stats_indexed`` of a gossip
-round and the single-launch round ``wfagg_round_indexed``.
+candidate matrix, ``robust_stats_batch`` over a gathered (N, K, d)
+tensor, the gather-free ``robust_stats_indexed`` of a gossip round and the
+single-launch round ``wfagg_round_indexed``.  The indexed wrappers take
+the WFAgg-T ``prev`` as a matrix (read through the neighbour table or
+``prev_idx``) or per edge, (N, K, d).
 
 Dispatch is by the tensors' device alone: CUDA tensors go to the
 hand-written kernel (``kernel.robust_stats_cuda``,
-``kernel.robust_stats_indexed_cuda``, ``kernel.wfagg_round_indexed_cuda``),
-and a failed build or launch raises; CPU tensors go to
-``robust_stats_plain`` / ``ref.robust_stats_indexed_ref`` /
-``wfagg_round_indexed_plain``, the same functions in plain PyTorch.
-There is no fallback from one to the other.
+``kernel.robust_stats_batch_cuda``, ``kernel.robust_stats_indexed_cuda``,
+``kernel.wfagg_round_indexed_cuda``), and a failed build or launch raises;
+CPU tensors go to ``robust_stats_plain`` / ``ref.robust_stats_batch_ref``
+/ ``ref.robust_stats_indexed_ref`` / ``wfagg_round_indexed_plain``, the
+same functions in plain PyTorch.  There is no fallback from one to the
+other.
 """
 from __future__ import annotations
 
@@ -21,8 +25,7 @@ from repro_torch.core import trust
 from repro_torch.kernels.common import check_table, pad_d
 from repro_torch.kernels.robust_stats import kernel
 from repro_torch.kernels.robust_stats.ref import (
-    RobustStats, center_stats, median_and_trim, robust_stats_indexed_ref,
-    sort_columns)
+    RobustStats, robust_stats_batch_ref, robust_stats_indexed_ref)
 from repro_torch.kernels.weighted_agg.ops import weighted_agg_indexed_plain
 
 # rows padded to whole 128-byte lines, so every neighbour row the kernel
@@ -35,12 +38,9 @@ def robust_stats_plain(updates: torch.Tensor, prev: Optional[torch.Tensor] = Non
     """The single-matrix statistics in plain PyTorch, as the kernel
     computes them: a column holding a NaN sorts to all NaN (the kernel's
     network propagates NaN like ``jnp.minimum``, as the Pallas kernel's
-    does), so its median and trimmed mean are NaN."""
-    u = updates.to(torch.float32)
-    med, trim = median_and_trim(sort_columns(u), beta)
-    if not need_center:
-        return center_stats(u, None, None, prev, center=med)
-    return center_stats(u, med, trim, prev)
+    does), so its median and trimmed mean are NaN.  The batched plain
+    version on one node."""
+    return robust_stats_batch_ref(updates, prev, beta, need_center)
 
 
 def robust_stats(
@@ -74,17 +74,54 @@ def robust_stats(
                                     beta, need_center)
 
 
+def robust_stats_batch(
+    updates: torch.Tensor,                   # (N, K, d) gathered candidates
+    prev: Optional[torch.Tensor] = None,     # (N, K, d) per-edge previous rows
+    beta: float = 0.1,
+    need_center: bool = True,
+) -> RobustStats:
+    """``robust_stats`` for every node of a gossip round at once, over the
+    gathered (N, K, d) tensor: one launch of the batched kernel.  Every
+    ``RobustStats`` field gains a leading N axis (``mednorm2`` (N,);
+    ``med``/``trim`` (N, d), None without ``need_center``).  K <= 32 on
+    every device (the kernel's limit)."""
+    if updates.ndim != 3:
+        raise ValueError(f"updates must be (N, K, d), got {tuple(updates.shape)}")
+    N, K, d = updates.shape
+    if K > kernel.MAX_K:
+        raise ValueError(
+            f"robust_stats_batch takes at most {kernel.MAX_K} candidates, got K={K} "
+            "(ROADMAP queue 2, item 4)")
+    if prev is not None and prev.shape != updates.shape:
+        raise ValueError(f"prev has shape {tuple(prev.shape)}, expected "
+                         f"{tuple(updates.shape)}")
+    dev = updates.device
+    if dev.type == "cpu":
+        return robust_stats_batch_ref(updates, prev, beta, need_center)
+    if dev.type != "cuda":
+        raise ValueError(f"robust_stats_batch runs on cuda or cpu, not {dev}")
+    u = pad_d(updates, _ROW_ALIGN).contiguous()
+    p = None if prev is None else pad_d(prev, _ROW_ALIGN).contiguous()
+    st = kernel.robust_stats_batch_cuda(u, p, beta, need_center)
+    if need_center and u.shape[-1] != d:
+        st = st._replace(med=st.med[:, :d], trim=st.trim[:, :d])
+    return st
+
+
 def _check_prev(models: torch.Tensor, prev: Optional[torch.Tensor],
-                prev_idx: Optional[torch.Tensor], kernel_name: str) -> None:
+                prev_idx: Optional[torch.Tensor], N: int, K: int) -> None:
     """``prev`` is a matrix read through the neighbour table (the model
     matrix's shape) or through ``prev_idx (N, K)`` (any row count, the
-    model matrix's width); rows of ``prev_idx`` are checked like the
-    neighbour table's."""
-    if prev is not None and prev.ndim != 2:
-        raise NotImplementedError(
-            f"per-edge (N, K, d) prev is not ported yet in {kernel_name}: "
-            "ROADMAP queue 2, item 1 (per-edge prev variant); pass the (M, d) "
-            "matrix")
+    model matrix's width), or a per-edge (N, K, d) tensor (no
+    ``prev_idx``); rows of ``prev_idx`` are checked like the neighbour
+    table's."""
+    if prev is not None and prev.ndim == 3:
+        if prev_idx is not None:
+            raise ValueError("prev_idx requires a matrix-form prev")
+        if prev.shape != (N, K, models.shape[1]):
+            raise ValueError(f"per-edge prev has shape {tuple(prev.shape)}, "
+                             f"expected {(N, K, models.shape[1])}")
+        return
     if prev_idx is not None:
         if prev is None:
             raise ValueError("prev_idx requires prev")
@@ -105,16 +142,17 @@ def robust_stats_indexed(
     models: torch.Tensor,                   # (M, d) model matrix
     neighbor_idx: torch.Tensor,             # (N, K) rows into models
     valid: Optional[torch.Tensor] = None,   # (N, K) bool; None = all valid
-    prev: Optional[torch.Tensor] = None,    # (M, d) previous model matrix
+    prev: Optional[torch.Tensor] = None,    # (M, d) matrix or (N, K, d) per edge
     need_gram: bool = False,
-    prev_idx: Optional[torch.Tensor] = None,   # (N, K) rows into prev
+    prev_idx: Optional[torch.Tensor] = None,   # (N, K) rows into a matrix prev
 ) -> RobustStats:
     """Gather-free batched statistics of a gossip round: the valid-masked
     median of each node's K neighbour rows ``models[idx[n]]`` and the
     per-candidate sums about it (``RobustStats`` with (N, K) fields,
     ``mednorm2`` (N,), ``med``/``trim`` None), with ``prev`` the WFAgg-T
     tail read through the same table (or through ``prev_idx``: the chaos
-    transport's last served payload of each edge), and with ``need_gram``
+    transport's last served payload of each edge; or a per-edge (N, K, d)
+    tensor, the gathered path's state), and with ``need_gram``
     each node's (K, K) candidate Gram in ``gram``.  Statistics of padded
     slots are finite values the caller masks with ``valid``.  K <= 32."""
     N, K = neighbor_idx.shape
@@ -126,7 +164,7 @@ def robust_stats_indexed(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"robust_stats_indexed runs on cuda or cpu, not {dev}")
     check_table(neighbor_idx, M)
-    _check_prev(models, prev, prev_idx, "robust_stats_indexed")
+    _check_prev(models, prev, prev_idx, N, K)
     v = (torch.ones((N, K), dtype=torch.bool, device=dev) if valid is None
          else valid.to(torch.bool))
     if dev.type == "cpu":
@@ -165,9 +203,9 @@ def wfagg_round_indexed(
     neighbor_idx: torch.Tensor,     # (N, K) rows into models
     valid: Optional[torch.Tensor],  # (N, K) bool; None = all valid
     cfg,                            # WFAggConfig (sets the filters)
-    prev: Optional[torch.Tensor] = None,     # (M, d) previous model matrix
+    prev: Optional[torch.Tensor] = None,     # (M, d) matrix or (N, K, d) per edge
     tbands: Optional[torch.Tensor] = None,   # (N, 4, K) or (N, 4K) bands
-    prev_idx: Optional[torch.Tensor] = None,  # (N, K) rows into prev
+    prev_idx: Optional[torch.Tensor] = None,  # (N, K) rows into a matrix prev
     alpha: Optional[float] = None,
     mean_fallback: bool = False,
 ):
@@ -175,7 +213,8 @@ def wfagg_round_indexed(
     the WFAgg scoring stage and the trust-weighted WFAgg-E combine.
     ``prev`` is read through the neighbour table, or through ``prev_idx``
     (the chaos transport's last served payload of each edge; ``prev`` may
-    then be ``models`` itself, the stacked matrix, padded once).
+    then be ``models`` itself, the stacked matrix, padded once), or is a
+    per-edge (N, K, d) tensor (the gathered path's state).
 
     Returns ``(out (N, d), weights (N, K), mask_d, mask_c, mask_t ((N, K)
     bool), stats)`` with ``stats`` a ``RobustStats`` of (N, K) fields
@@ -195,7 +234,7 @@ def wfagg_round_indexed(
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"wfagg_round_indexed runs on cuda or cpu, not {dev}")
     check_table(neighbor_idx, M)
-    _check_prev(models, prev, prev_idx, "wfagg_round_indexed")
+    _check_prev(models, prev, prev_idx, N, K)
     v = (torch.ones((N, K), dtype=torch.bool, device=dev) if valid is None
          else valid.to(torch.bool))
     tb = tbands.reshape(N, 4 * K).to(torch.float32) if tbands is not None else None

@@ -3,7 +3,9 @@
 
 ``robust_stats_ref`` takes one candidate matrix ``updates (K, D)`` and
 returns the median and beta-trimmed mean ``med, trim (D,)`` beside the
-statistics below with K-shaped fields (``mednorm2`` a scalar).
+statistics below with K-shaped fields (``mednorm2`` a scalar);
+``robust_stats_batch_ref`` does so for a gathered ``(N, K, D)`` tensor,
+every field with a leading N axis.
 ``robust_stats_indexed_ref`` does the same for every receiving node n of a
 gossip round, with candidate rows ``u_k = models[idx[n, k]]``:
   dist2     (N, K)  squared L2 distance of each candidate to the median model
@@ -135,10 +137,11 @@ def median_and_trim(srt: Tensor, beta: float):
 def center_stats(u: Tensor, med: Optional[Tensor], trim: Optional[Tensor],
                  prev: Optional[Tensor] = None,
                  center: Optional[Tensor] = None) -> RobustStats:
-    """The per-candidate sums of ``u (K, D)`` about the median ``center``
-    (``med`` unless given), with the temporal tail when ``prev (K, D)`` is
-    given; ``med``/``trim`` are passed through to the result."""
-    c = med if center is None else center
+    """The per-candidate sums of ``u (..., K, D)`` about the median
+    ``center (..., D)`` (``med`` unless given), with the temporal tail when
+    ``prev`` (``u``'s shape) is given; ``med``/``trim`` are passed through
+    to the result."""
+    c = (med if center is None else center).unsqueeze(-2)
     diff = u - c
     prev_dist2 = prev_dot = prev_norm2 = None
     if prev is not None:
@@ -148,7 +151,7 @@ def center_stats(u: Tensor, med: Optional[Tensor], trim: Optional[Tensor],
         prev_dot = (u * pe).sum(-1)
         prev_norm2 = (pe * pe).sum(-1)
     return RobustStats(med, trim, (diff * diff).sum(-1), (u * c).sum(-1),
-                       (u * u).sum(-1), (c * c).sum(), prev_dist2, prev_dot,
+                       (u * u).sum(-1), (c * c).sum((-2, -1)), prev_dist2, prev_dot,
                        prev_norm2)
 
 
@@ -159,4 +162,21 @@ def robust_stats_ref(updates: Tensor, beta: float = 0.1,
     median."""
     u = updates.to(torch.float32)
     med, trim = median_and_trim(torch.sort(u, dim=0).values, beta)
+    return center_stats(u, med, trim, prev)
+
+
+def robust_stats_batch_ref(updates: Tensor, prev: Optional[Tensor] = None,
+                           beta: float = 0.1, need_center: bool = True) -> RobustStats:
+    """The statistics of every node's gathered candidates ``updates (N, K,
+    D)`` (with ``prev (N, K, D)`` the per-edge temporal tail), as the
+    batched kernel computes them: every field with a leading N axis,
+    ``mednorm2`` (N,), ``med``/``trim`` (N, D) or None without
+    ``need_center``.  A column holding a NaN sorts to all NaN, as the
+    kernel's network does, so its median and trimmed mean are NaN (unlike
+    the reference's ``jnp.sort`` oracle, which sorts a NaN last).  The
+    plain version of the batched kernel: the tests and CPU tensors use it."""
+    u = updates.to(torch.float32)
+    med, trim = median_and_trim(sort_columns(u), beta)
+    if not need_center:
+        return center_stats(u, None, None, prev, center=med)
     return center_stats(u, med, trim, prev)

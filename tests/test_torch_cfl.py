@@ -97,7 +97,7 @@ def test_every_cfl_aggregator_runs_a_round(aggregator):
     cfg = tengine.DFLConfig(aggregator=aggregator, attack="ipm_100", model="mlp",
                             centralized=True, batches_per_round=1)
     state = tengine.init_dfl_state(cfg, topo, device="cpu")
-    if aggregator in ("wfagg", "alt_wfagg"):
+    if aggregator in ("wfagg", "alt_wfagg", "wfagg_t"):
         assert state.temporal.hist_s.shape == (1, cfg.paper.window, 8)
         assert state.temporal.count.shape == (1,)
     else:

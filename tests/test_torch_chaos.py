@@ -501,9 +501,13 @@ def test_unsupported_configurations_raise(what, tmp_path):
     data = SyntheticImages()
     cfg = tengine.DFLConfig(batches_per_round=1)
     if what == "krum":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tengine.build_round_fn(tengine.DFLConfig(aggregator="krum"), topo, data,
-                                   dynamic=True, device="cpu")
+        # the baselines run on chaos slates; a standalone WFAgg filter has
+        # no valid-masked form and raises, as in the reference
+        tengine.build_round_fn(tengine.DFLConfig(aggregator="krum"), topo, data,
+                               dynamic=True, faults=fs.config, device="cpu")
+        with pytest.raises(NotImplementedError, match="no valid-mask-aware form"):
+            tengine.build_round_fn(tengine.DFLConfig(aggregator="wfagg_c"), topo, data,
+                                   dynamic=True, faults=fs.config, device="cpu")
     elif what == "adaptive":
         with pytest.raises(NotImplementedError, match="item 7"):
             tengine.build_round_fn(tengine.DFLConfig(attack="band_rider"), topo, data,

@@ -8,7 +8,8 @@ against the JAX package's engine.
 * The paper's IPM-100 claim on the port's own data
   (``tests/test_system.py:43-53``): WFAgg > 0.9 and > mean + 0.2.
 * The entry points run on the card by default and raise without one;
-  paths of later slices raise NotImplementedError.  Decentralized
+  paths of later slices raise naming their ROADMAP item, and the
+  configurations the reference refuses raise as it does.  Decentralized
   Alt-WFAgg, the two-launch backend and the DFL baselines are held in
   ``test_torch_dfl_alt.py``."""
 import dataclasses
@@ -114,37 +115,49 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
                                   "dynamic", "faults", "telemetry", "mesh",
                                   "gathered"])
 def test_later_slices_raise(what):
-    """Paths of later slices raise and name their ROADMAP item: a
-    standalone WFAgg filter in DFL, a baseline other than the mean on an
-    irregular graph (the valid-masked DYN_AGGREGATORS), a CFL aggregator
-    that is still unported (the standalone WFAgg-T filter), a baseline
-    other than the mean on a dynamic schedule (DYN_AGGREGATORS again), an
-    adaptive attack on the chaos round, telemetry export of the static
-    run, sharding, the gathered (N, K, d) ``wfagg_batch``."""
+    """Paths that still raise.  Those of later slices name their ROADMAP
+    item: an adaptive attack on the chaos round, telemetry export of the
+    static run, sharding, and more than 32 candidates (a CFL server over 33
+    nodes, a gathered slate of 33).  Those the reference itself refuses
+    raise as it does: a standalone WFAgg filter has no valid-masked form,
+    so WFAgg-D on an irregular graph and WFAgg-T on a dynamic schedule
+    raise, while a baseline such as Krum runs on the same irregular graph
+    and WFAgg-C beside it raises."""
     topo, data = paper_topology(), SyntheticImages()
     cfg = tengine.DFLConfig()
     kw = {}
+    exc, match = NotImplementedError, "ROADMAP"
+    irregular = make_topology(10, 4, 2, "erdos_renyi", seed=3)
+    assert not irregular.is_regular
     if what == "wfagg_d":
-        cfg = tengine.DFLConfig(aggregator="wfagg_d")
+        cfg, topo = tengine.DFLConfig(aggregator="wfagg_d"), irregular
+        match = "no valid-mask-aware form"
     elif what == "krum_irregular":
-        cfg = tengine.DFLConfig(aggregator="krum")
-        topo = make_topology(10, 4, 2, "erdos_renyi", seed=3)
-        assert not topo.is_regular
+        krum = tengine.DFLConfig(aggregator="krum", model="mlp", batches_per_round=1)
+        fn = tengine.build_round_fn(krum, irregular, data, device="cpu")
+        assert fn(tengine.init_dfl_state(krum, irregular, device="cpu")).rnd == 1
+        cfg, topo = tengine.DFLConfig(aggregator="wfagg_c"), irregular
+        match = "no valid-mask-aware form"
     elif what == "centralized":
-        cfg = tengine.DFLConfig(centralized=True, aggregator="wfagg_t")
+        cfg = tengine.DFLConfig(centralized=True, aggregator="wfagg", batches_per_round=1)
+        topo = make_topology(33, 4, 2, "ring")
+        exc, match = ValueError, "ROADMAP queue 2, item 4"
     elif what == "mesh":
         cfg = tengine.DFLConfig(mesh_model_shards=2)
     elif what == "dynamic":
-        cfg, kw = tengine.DFLConfig(aggregator="krum"), {"dynamic": True}
+        cfg, kw = tengine.DFLConfig(aggregator="wfagg_t"), {"dynamic": True}
+        match = "no valid-mask-aware form"
     elif what == "faults":
         cfg = tengine.DFLConfig(attack="min_max")
         kw = {"dynamic": True, "faults": FaultConfig()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    elif what == "gathered":
+        exc = ValueError
+    with pytest.raises(exc, match=match):
         if what == "telemetry":
             tengine.run_experiment(cfg, topo, data, rounds=1, telemetry=True,
                                    device="cpu")
         elif what == "gathered":
-            u = torch.zeros((4, 3, 8))
+            u = torch.zeros((4, 33, 8))
             twf.wfagg_batch(u[:, 0], u, None, twf.WFAggConfig(), device="cpu")
         else:
             fn = tengine.build_round_fn(cfg, topo, data, device="cpu", **kw)

@@ -77,8 +77,10 @@ def test_indexed_stats_wrapper_matches_pallas_kernel(slate, with_prev, need_gram
 def test_indexed_stats_wrapper_rejects_unported_and_bad_input():
     idx = torch.as_tensor(ring_slate(6, 3))
     u = torch.as_tensor(models(6, 64, seed=5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trops.robust_stats_indexed(u, idx, prev=u[idx])          # per-edge prev
+    with pytest.raises(ValueError, match="matrix-form prev"):
+        trops.robust_stats_indexed(u, idx, prev=u[idx], prev_idx=idx)   # per-edge prev
+    with pytest.raises(ValueError, match="per-edge prev has shape"):
+        trops.robust_stats_indexed(u, idx, prev=u[idx][:, :2])
     with pytest.raises(ValueError, match="outside"):
         trops.robust_stats_indexed(u, idx, prev=u, prev_idx=torch.where(idx == 2, 6, idx))
     with pytest.raises(ValueError, match="outside"):

@@ -136,8 +136,10 @@ def test_wrapper_dispatches_by_device_and_rejects_unported_variants():
     with pytest.raises(ValueError, match="outside"):
         tops.wfagg_round_indexed(u, u, idx, None, cfg, prev=u,
                                  prev_idx=torch.where(idx == 2, -1, idx))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.wfagg_round_indexed(u, u, idx, None, cfg, prev=u[idx])   # per-edge prev
+    with pytest.raises(ValueError, match="matrix-form prev"):      # per-edge prev
+        tops.wfagg_round_indexed(u, u, idx, None, cfg, prev=u[idx], prev_idx=idx)
+    with pytest.raises(ValueError, match="per-edge prev has shape"):
+        tops.wfagg_round_indexed(u, u, idx, None, cfg, prev=u[idx][:, :, :9])
     with pytest.raises(ValueError, match="CUDA tensors"):
         tkernel.wfagg_round_indexed_cuda(u, u, idx.int(), None, None, None,
                                          cfg, 0.8, False)
