@@ -8,11 +8,11 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
 Phases, each of which fails the run:
 
-  1. the card's name and power limit; build the six kernel libraries of
+  1. the card's name and power limit; build the seven kernel libraries of
      the port from the sources in the checkout, one ``nvcc`` each, all
      started together (timed; ptxas registers and spills printed; kernel
      5 is a node axis on kernel 4's source, the per-edge variants are
-     kernels 1 and 2);
+     kernels 1 and 2, kernel 8 is ``flash_attn.cu``);
   2. hold each kernel against its plain PyTorch version on the card:
      - the gossip round (``wfagg_round.cu``) at the paper's round shape
        (N=20, K=8, d=44,426) and on irregular slates with a degree-0 row
@@ -67,6 +67,18 @@ Phases, each of which fails the run:
      (with ``prev[idx]`` bit-identical to the matrix-prev launch; with a
      per-edge prev of their own, masks bit-equal to the plain versions),
      timed at N=64, K=16, d=2^20;
+     then kernel 8, flash attention (``flash_attn.cu``), each case twice:
+     through the wrapper the prefill calls (``ops.flash_attention`` on
+     (B, H, S, hd) views) and at kernel level on inputs padded to the
+     reference's blocks: the six cases of ``tests/test_kernels.py:209-216``,
+     a case with Sq > Sk (rows with no live key), hd 80 and 128 with
+     ragged padding, and the prefill's attention at Qwen1.5-0.5B width
+     (B=2, 16 heads of 64, S=8192) in bf16 and in f32 (o, m and l within
+     2e-5 in f32; in bf16 o within one rounding of its plain version,
+     rtol 2^-7 and atol 1e-5, and m and l, which are f32, within 2e-5;
+     rows with no live key exactly o = 0, m = -1e30, l = 0), timed at
+     that shape beside its bound, the plain version and
+     ``F.scaled_dot_product_attention``;
   3. the main paths, each with every kernel's launch count set to 0 just
      before and read just after:
      - DFL: ``run_experiment`` at the paper's configuration (LeNet-5,
@@ -113,7 +125,19 @@ Phases, each of which fails the run:
        combine launch) paths fed the same per-edge state, masks equal (or
        reported with filter and margin), outputs within 3e-5, nodes that
        received a non-finite row compared with ``equal_nan`` against the
-       gathered reference and reported.
+       gathered reference and reported;
+     - serving Qwen1.5-0.5B at full width and depth (24 layers, d_model
+       1024, vocab 151,936; the port's own init, seed 0): ``build_prefill``
+       on 2 prompts of 8192 tokens (warm once, then timed: ms, prompt
+       tokens/s, peak memory; 24 kernel-8 launches a call), the same
+       prompts with ``flash=False`` (the chunked online softmax; the
+       logits of each prompt's last 256 positions compared),
+       ``build_decode_step`` at batch 4 against a cache of 32,768
+       positions (a 64-token prompt, then 32 greedy tokens: ms a step, no
+       kernel launch), and the 96 stepped logits against one prefill of
+       the same tokens.  Both logit comparisons hold a relative rms within
+       2e-2 and a largest difference within 0.125, and top-1 equal except
+       at near-ties (top-2 margin below 0.25), which are reported.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -185,6 +209,10 @@ KERNELS = {
                                             "src/repro_torch/kernels/robust_stats/csrc/"
                                             "robust_stats_indexed.cu",
                                             "src/repro/kernels/robust_stats/kernel.py:271"),
+    # kernel 8: the LM's prefill attention
+    "flash_attention": ("repro_torch.kernels.flash_attn.kernel", "launches",
+                        "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn/kernel.py:81"),
 }
 
 
@@ -2002,6 +2030,329 @@ def run_table1(torch, data) -> tuple:
     return accs, total
 
 
+# ---------------------------------------------------------------------------
+# phase 2: kernel 8, flash attention
+
+FLASH_F32_TOL = 2e-5   # tests/test_kernels.py:230
+# kernel 8's bf16 o against its plain version: both accumulate in f32 and
+# round o once, so they differ by at most one bf16 step (2^-8 to 2^-7 of
+# the value); m and l are f32 in both, held at the f32 tolerance.  The
+# reference's 2e-2 was set at Sk <= 384, where |o| ~ 0.1 and more; at
+# Sk = 8192 a typical |o| is 0.02-0.03, and 2e-2 would pass almost anything
+O_BF16_RTOL, O_BF16_ATOL = 2.0 ** -7, 1e-5
+# logits (bf16, |logit| up to ~4 on the seed-0 init) of two routes of the
+# same model: relative rms and largest difference (8 bf16 steps at 2-4).
+# A top-1 that differs where the top-2 margin is 2 * LOGIT_ATOL or more
+# cannot come from differences within LOGIT_ATOL
+LOGIT_RMS, LOGIT_ATOL = 2e-2, 0.125
+PREFILL_TAIL = 256   # positions of each prompt whose logits are compared
+# (B, H, Sq, Sk, hd, causal, dtype, block): the six cases of
+# tests/test_kernels.py:209-216 (block 64, as there), Sq > Sk (rows with no
+# live key), hd 80 and 128 with ragged padding, then the prefill's attention
+# at Qwen1.5-0.5B width (2 prompts of 8192 tokens, 16 heads of 64)
+FLASH_CASES = [
+    (1, 2, 128, 128, 64, True, "float32", 64),
+    (2, 1, 256, 256, 32, True, "float32", 64),
+    (1, 1, 128, 384, 64, True, "float32", 64),
+    (1, 2, 130, 200, 32, True, "float32", 64),
+    (1, 1, 128, 256, 64, False, "float32", 64),
+    (1, 2, 128, 128, 64, True, "bfloat16", 64),
+    (1, 2, 256, 128, 64, True, "float32", 128),
+    (1, 2, 256, 100, 80, True, "bfloat16", 128),
+    (2, 3, 300, 300, 80, True, "float32", 128),
+    (2, 2, 200, 333, 128, False, "float32", 128),
+    (1, 4, 256, 512, 128, True, "bfloat16", 128),
+    (2, 16, 8192, 8192, 64, True, "bfloat16", 128),
+    (2, 16, 8192, 8192, 64, True, "float32", 128),
+]
+SERVE_ARCH = "qwen1.5-0.5b"
+PREFILL_B, PREFILL_S, PREFILL_REPS = 2, 8192, 3
+DECODE_B, PROMPT, NEW_TOKENS = 4, 64, 32
+
+
+def flash_inputs(torch, BH, Sq, Sk, hd, dtype, seed):
+    """Unit-normal q (BH, Sq, hd), k and v (BH, Sk, hd) in ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn((BH, S, hd), generator=g, device="cuda").to(getattr(torch, dtype))
+                 for S in (Sq, Sk, Sk))
+
+
+def _hold(label, name, got, want, dtype) -> tuple:
+    """One output of kernel 8 against its plain version: o in bf16 within
+    one rounding, o in f32 and m and l (f32) within 2e-5.  Returns the
+    largest absolute and the relative rms difference."""
+    import torch
+
+    a, b = got.float(), want.float()
+    if name == "o" and dtype == "bfloat16":
+        rtol, atol = O_BF16_RTOL, O_BF16_ATOL
+    else:
+        rtol = atol = FLASH_F32_TOL
+    err = float((a - b).abs().max())
+    rel = float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt().clamp_min(1e-30))
+    if not torch.allclose(a, b, rtol=rtol, atol=atol):
+        raise AssertionError(f"flash_attention {label}: {name} differs from the plain "
+                             f"version by {err} (rtol {rtol}, atol {atol})")
+    return err, rel
+
+
+def compare_flash(torch, B, H, Sq, Sk, hd, causal, dtype, block, seed) -> float:
+    """Kernel 8 against its plain version, twice: through the wrapper the
+    prefill calls (``ops.flash_attention`` on (B, H, S, hd) views, which
+    passes ``sk_valid = Sk`` and ``q_offset = Sk - Sq``), o only; and at
+    kernel level on the reference's layout, Sq and Sk padded to ``block``
+    (the padding masked through ``sk_valid``), o, m and l.  The rows with
+    no live key are exactly o = 0, m = -1e30, l = 0 in both.  Returns o's
+    largest absolute difference."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.flash_attn.ref import NEG_INF, flash_attention_plain
+
+    q, k, v = flash_inputs(torch, B * H, Sq, Sk, hd, dtype, seed)
+    args = (float(1.0 / hd ** 0.5), causal, Sk, Sk - Sq)
+    label = f"B={B} H={H} Sq={Sq} Sk={Sk} hd={hd} causal={causal} {dtype}"
+    want = flash_attention_plain(q, k, v, *args)
+    o4 = fops.flash_attention(q.view(B, H, Sq, hd), k.view(B, H, Sk, hd),
+                              v.view(B, H, Sk, hd), args[0], causal)
+    wrapper = _hold(label + " (ops.flash_attention)", "o", o4.reshape(B * H, Sq, hd),
+                    want[0], dtype)
+    pq, pk = (-Sq) % block, (-Sk) % block
+    if pq or pk:
+        q = F.pad(q, (0, 0, 0, pq))
+        k, v = (F.pad(t, (0, 0, 0, pk)) for t in (k, v))
+        want = flash_attention_plain(q, k, v, *args)
+    got = fk.flash_attention_cuda(q, k, v, *args)
+    torch.cuda.synchronize()
+    errs = {name: _hold(label, name, a, b, dtype) for name, a, b in zip("oml", got, want)}
+    dead = torch.arange(q.shape[1], device="cuda") + (Sk - Sq) < 0
+    if not causal:
+        dead[:] = False
+    for o, m, l in (got, want):
+        if not (bool((o[:, dead] == 0).all()) and bool((m[:, dead] == NEG_INF).all())
+                and bool((l[:, dead] == 0).all())):
+            raise AssertionError(f"flash_attention {label}: a row with no live key is "
+                                 "not exactly o = 0, m = -1e30, l = 0")
+    print(f"  flash_attention {label}: through ops.flash_attention max |o - plain| "
+          f"{wrapper[0]:.3g} (relative rms {wrapper[1]:.3g}); padded to {block}: max |o - "
+          f"plain| {errs['o'][0]:.3g} (relative rms {errs['o'][1]:.3g}), m "
+          f"{errs['m'][0]:.3g}, l {errs['l'][0]:.3g}; {int(dead.sum())} rows with no live "
+          "key, exact")
+    return max(wrapper[0], errs["o"][0])
+
+
+def time_flash(torch, B, H, S, hd, seed) -> dict:
+    """Kernel 8 at the prefill's attention shape (causal, Sq = Sk = S) in
+    bf16, the main path's type (and in f32, printed): kernel, plain version,
+    bound and ``F.scaled_dot_product_attention`` (bf16 tensor cores, which
+    is not the reference's f32 arithmetic)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.flash_attn.ref import flash_attention_plain
+
+    scale = float(1.0 / hd ** 0.5)
+    live = B * H * S * (S + 1) / 2          # causal (query, key) pairs
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = flash_inputs(torch, B * H, S, S, hd, dtype, seed)
+        size = q.element_size()
+        b = bound(4.0 * B * H * S * hd * size + 8.0 * B * H * S, 4.0 * hd * live)
+        q4, k4, v4 = (t.view(B, H, S, hd) for t in (q, k, v))
+        out[dtype] = dict(
+            ms=time_cuda(torch, lambda: fk.flash_attention_cuda(q, k, v, scale, True, S, 0),
+                         2, 10),
+            plain_ms=time_cuda(torch, lambda: flash_attention_plain(q, k, v, scale, True,
+                                                                    S, 0), 1, 3),
+            bound_ms=b[0], bound_by=b[1],
+            library_ms=time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), 3, 20))
+        t = out[dtype]
+        print(f"  flash_attention B={B} H={H} S={S} hd={hd} causal {dtype}: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), F.scaled_dot_product_attention {t['library_ms']:.4f} ms; "
+              f"{4.0 * hd * live / t['ms'] / 1e9:.2f} TFLOP/s")
+    return dict(out["bfloat16"], shape=f"B={B} H={H} S={S} hd={hd} causal bf16",
+                f32=out["float32"])
+
+
+def check_flash(torch) -> tuple:
+    """Phase 2 for kernel 8: every case of ``FLASH_CASES``, then the times
+    at the prefill's shape.  Returns (o's errors, times)."""
+    errs = [compare_flash(torch, *case, seed=60 + i) for i, case in enumerate(FLASH_CASES)]
+    return errs, time_flash(torch, PREFILL_B, 16, PREFILL_S, 64, seed=80)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serving Qwen1.5-0.5B (prefill through kernel 8, KV-cache decode)
+
+
+def check_logits(torch, label, got, want) -> None:
+    """Two logit sets (..., V) of one model on two routes: relative rms
+    within ``LOGIT_RMS``, largest difference within ``LOGIT_ATOL``, and
+    top-1 tokens equal except at near-ties, positions whose top-2 margin
+    in ``want`` is below 2 * ``LOGIT_ATOL`` (the most that differences
+    within ``LOGIT_ATOL`` can flip), reported with their margin."""
+    d = got - want
+    rel = float(d.pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+    biggest = float(d.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    differ = got.argmax(-1) != want.argmax(-1)
+    print(f"  {label}: largest logit difference {biggest:.4g} (logits up to "
+          f"{float(want.abs().max()):.4g}), relative rms {rel:.3g}; top-1 differs at "
+          f"{int(differ.sum())} of {differ.numel()} positions")
+    if rel > LOGIT_RMS or biggest > LOGIT_ATOL:
+        raise AssertionError(f"{label}: relative rms {rel} (bound {LOGIT_RMS}), largest "
+                             f"difference {biggest} (bound {LOGIT_ATOL})")
+    if bool((differ & (margin >= 2 * LOGIT_ATOL)).any()):
+        raise AssertionError(f"{label}: top-1 differs where the top-2 margin is "
+                             f"{2 * LOGIT_ATOL} or more")
+    for i in differ.nonzero().tolist()[:8]:
+        print(f"  {label}: near-tie at {i}: top-2 margin {float(margin[tuple(i)]):.4g}")
+
+
+def run_serve_path(torch) -> dict:
+    """Phase 3's serving path at full Qwen1.5-0.5B width and depth on the
+    port's own init (seed 0): ``build_prefill`` on 2 prompts x 8192 tokens
+    (warm once, then timed; 24 kernel-8 launches per call), the same
+    prompts with ``flash=False``, ``build_decode_step`` at batch 4 against
+    a cache of ``decode_32k``'s 32,768 positions (a 64-token prompt, then
+    32 greedy tokens; no kernel), and the stepped logits against one
+    prefill of the same 96 tokens.  Returns launches by kernel."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import DECODE_32K
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train.serve import build_decode_step, build_prefill
+
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"of {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} f32 "
+          f"parameters, initialised in {time.perf_counter() - t0:.2f} s")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), generator=g,
+                            device="cuda", dtype=torch.int32)
+
+    # 1. prefill through kernel 8, warm once, then timed
+    prefill = build_prefill(cfg)
+    zero_counts()
+    logits = prefill(params, {"tokens": prompts})
+    if logits.shape != (PREFILL_B, PREFILL_S, cfg.vocab_size) or logits.dtype != torch.bfloat16:
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} {logits.dtype}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    del logits
+    torch.cuda.reset_peak_memory_stats()   # the timed calls' peak, not the checks'
+    times = []
+    for _ in range(PREFILL_REPS):
+        logits = None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    tail = logits[:, -PREFILL_TAIL:].float()   # the last timed call's, compared below
+    del logits
+    counts = read_counts()
+    calls = 1 + PREFILL_REPS
+    want = dict(dict.fromkeys(KERNELS, 0), flash_attention=cfg.n_layers * calls)
+    if counts != want:
+        raise AssertionError(f"prefill launches {counts}, expected {want}")
+    launches = dict(counts)
+    ms = 1e3 * statistics.median(times)
+    print(f"  prefill {PREFILL_B} x {PREFILL_S} tokens: {ms:.2f} ms (median of "
+          f"{PREFILL_REPS}; {[round(1e3 * t, 2) for t in times]}), "
+          f"{PREFILL_B * PREFILL_S / ms * 1e3:.0f} prompt tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; kernel 8 launches {counts['flash_attention']} in "
+          f"{calls} calls ({cfg.n_layers} a call)")
+
+    # 2. the same prompts on the reference's second route (flash=False)
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = build_prefill(cfg, flash=False)(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    chunked_ms = 1e3 * (time.perf_counter() - t)
+    ref_tail = logits[:, -PREFILL_TAIL:].float()
+    del logits
+    if read_counts() != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"flash=False launched {read_counts()}")
+    print(f"  prefill with flash=False (chunked online softmax): {chunked_ms:.2f} ms; top-1 "
+          f"at each prompt's last position {tail[:, -1].argmax(-1).tolist()} vs "
+          f"{ref_tail[:, -1].argmax(-1).tolist()}")
+    check_logits(torch, f"prefill flash vs flash=False, each prompt's last {PREFILL_TAIL} "
+                 "positions", tail, ref_tail)
+    del tail, ref_tail
+
+    # 3. decode against a 32k cache: a 64-token prompt, then 32 greedy tokens
+    cache = M.init_cache(cfg, DECODE_B, DECODE_32K.seq_len)
+    cache_gib = sum(t.numel() * t.element_size() for t in cache["layers"].values()) / 2**30
+    prompt = torch.randint(0, cfg.vocab_size, (DECODE_B, PROMPT), generator=g, device="cuda",
+                           dtype=torch.int32)
+    step = build_decode_step(cfg)
+    zero_counts()
+    stepped = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(PROMPT):
+        lg, cache = step(params, cache, prompt[:, i:i + 1])
+        stepped.append(lg)
+    torch.cuda.synchronize()
+    prompt_ms = 1e3 * (time.perf_counter() - t) / PROMPT
+    gen = []
+    t = time.perf_counter()
+    for _ in range(NEW_TOKENS):
+        gen.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+        lg, cache = step(params, cache, gen[-1])
+        stepped.append(lg)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t) / NEW_TOKENS
+    if read_counts() != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"decode launched {read_counts()}")
+    if cache["idx"] != PROMPT + NEW_TOKENS:
+        raise AssertionError(f"cache idx {cache['idx']}")
+    print(f"  decode batch {DECODE_B}, cache of {DECODE_32K.seq_len} positions "
+          f"({cache_gib:.2f} GiB bf16): {prompt_ms:.3f} ms a step through the prompt, "
+          f"{step_ms:.3f} ms a step over {NEW_TOKENS} greedy tokens "
+          f"({DECODE_B / step_ms * 1e3:.1f} tokens/s); kernel 8 launches 0")
+    # two parts of a step, timed alone on its shapes: one layer's dense
+    # attention over the whole cache (the reference's mask over the
+    # capacity), and the casts of every f32 weight to bf16
+    kc, vc = cache["layers"]["k"][0], cache["layers"]["v"][0]
+    qd = torch.randn((DECODE_B, cfg.n_heads, 1, cfg.head_dim_), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    live = (torch.arange(kc.shape[2], device="cuda") < cache["idx"])[None, None, None, :]
+    scale = 1.0 / cfg.head_dim_ ** 0.5
+    attn_ms = time_cuda(torch, lambda: L._sdpa(qd, kc, vc, live, scale), 3, 20)
+    cast_ms = time_cuda(torch, lambda: [p.to(torch.bfloat16) for p in params.parameters()],
+                        2, 5)
+    print(f"  of a decode step: attention over the cache {attn_ms:.3f} ms a layer "
+          f"({cfg.n_layers * attn_ms:.2f} ms for {cfg.n_layers}), the weights' casts "
+          f"{cast_ms:.3f} ms")
+
+    # 4. the stepped logits against one prefill of the same 96 tokens
+    seq = torch.cat([prompt] + gen, dim=1)
+    zero_counts()
+    pf = prefill(params, {"tokens": seq}).float()
+    if read_counts() != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"a prefill of {seq.shape[1]} tokens launched {read_counts()}")
+    st = torch.cat(stepped, dim=1).float()
+    if not bool(torch.isfinite(st).all()):
+        raise AssertionError("non-finite decode logits")
+    check_logits(torch, f"decode vs one prefill of the same {seq.shape[1]} tokens", st, pf)
+    del cache, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2116,6 +2467,9 @@ def main() -> int:
             errs[name] += e
     timed.update(time_per_edge_kernels(torch, 64, 16, 1 << 20, seed=57))
 
+    print("[2] kernel 8, flash attention")
+    errs["flash_attention"], timed["flash_attention"] = check_flash(torch)
+
     # ---- phase 3: the main paths --------------------------------------------
     print(f"[3] DFL main path: run_experiment, LeNet-5, paper topology, IPM-100, "
           f"{ROUNDS} rounds")
@@ -2225,14 +2579,20 @@ def main() -> int:
           f"topology, IPM-100, {ROUNDS} rounds")
     gathered_launches = run_gathered_path(torch, topo, data)
 
+    print(f"[3] serving {SERVE_ARCH} at full width: build_prefill (kernel 8 in every layer) "
+          f"and build_decode_step")
+    serve_launches = run_serve_path(torch)
+
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
     # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
     # chaos runs (the prev_idx variants on the chaos runs only), Table I's
     # WFAgg and Alt-WFAgg runs, and the gathered path (kernel 5; the
-    # per-edge variants on the indexed calls fed its state)
+    # per-edge variants on the indexed calls fed its state), and kernel 8 on the
+    # full-width prefills
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
-                + table_launches[name] + gathered_launches[name] for name in KERNELS}
+                + table_launches[name] + gathered_launches[name] + serve_launches[name]
+                for name in KERNELS}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])

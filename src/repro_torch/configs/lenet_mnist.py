@@ -1,7 +1,25 @@
 """The paper's own experiment config: LeNet-5-style CNN on (synthetic)
 MNIST, 20-node 8-regular DFL, 2 Byzantine nodes (Section V-A).  Port of
-``repro.configs.lenet_mnist.PaperDFLConfig``."""
+``repro.configs.lenet_mnist`` (``CONFIG`` and ``PaperDFLConfig``)."""
 import dataclasses
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="lenet-mnist",
+    family="cnn",
+    source="paper Section V-A (LeCun et al. 1998 LeNet-5)",
+    n_layers=7,
+    d_model=84,
+    n_heads=1,
+    n_kv_heads=1,
+    d_ff=120,
+    vocab_size=10,       # 10 classes
+    dtype="float32",
+    param_dtype="float32",
+    remat=False,
+    optimizer="sgd",
+)
 
 
 @dataclasses.dataclass(frozen=True)

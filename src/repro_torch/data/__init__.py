@@ -1,1 +1,1 @@
-"""Synthetic datasets."""
+"""Synthetic datasets and the LM input specs."""

@@ -1,1 +1,2 @@
-"""The paper's local models as functions of flat parameter dicts."""
+"""The paper's local models as functions of flat parameter dicts, and the
+dense decoder-only LM (``layers``, ``model``)."""

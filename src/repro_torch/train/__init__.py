@@ -1,1 +1,1 @@
-"""Training-run plumbing: checkpoints."""
+"""Run plumbing: checkpoints and the serving steps."""

@@ -1,0 +1,68 @@
+"""Serving step builders: prefill and single-token decode (port of
+``repro.train.serve``).
+
+``build_prefill`` runs the full-sequence forward; at prompt lengths of at
+least ``layers.SDPA_CHUNK_THRESHOLD`` it reaches the flash-attention kernel
+in every layer.  ``build_decode_step`` appends one token against a KV cache
+of the context's length and runs no kernel of the port (the dense scores of
+one query are small), as in the reference.  The reference's
+``ServeConfig``, mesh and shardings wait for the port's ``torch.distributed``
+layer (ROADMAP queue 1, item 11); on one card they are no-ops.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.data.specs import TensorSpec
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import model as M
+
+
+def cache_shapes(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
+    """The decode cache's layout for an input shape, without allocating it:
+    ``idx`` and the stacked ``k``/``v`` specs."""
+    cap = M._cache_capacity(cfg, shape.seq_len)
+    kv = TensorSpec((cfg.n_layers, shape.global_batch, cfg.n_kv_heads, cap, cfg.head_dim_),
+                    getattr(torch, cfg.dtype))
+    return {"idx": 0, "layers": {"k": kv, "v": kv}}
+
+
+def _on(dev: torch.device, params: M.DecoderLM) -> None:
+    p = params.embedding.embed
+    if p.device.type != dev.type:
+        raise ValueError(f"the model is on {p.device}, the step runs on {dev}")
+
+
+def build_decode_step(cfg: ArchConfig, device=None) -> Callable:
+    """fn(params, cache, tokens (B, 1)) -> (logits, cache), on ``device``
+    (None: the card).  The cache is updated in place (the reference donates
+    it)."""
+    dev = resolve_device(device)
+
+    @torch.inference_mode()
+    def fn(params, cache, tokens):
+        if isinstance(tokens, dict):
+            tokens = tokens["tokens"]
+        _on(dev, params)
+        return M.decode_step(cfg, params, cache, tokens.to(dev))
+
+    return fn
+
+
+def build_prefill(cfg: ArchConfig, device=None, flash: bool = True) -> Callable:
+    """fn(params, batch) -> logits (full-sequence forward), on ``device``
+    (None: the card).  ``flash=False`` is the port of
+    ``REPRO_FLASH_KERNEL=0``: the flash branch then runs the chunked
+    online softmax in plain PyTorch."""
+    dev = resolve_device(device)
+
+    @torch.inference_mode()
+    def fn(params, batch):
+        _on(dev, params)
+        logits, _ = M.forward(cfg, params, {"tokens": batch["tokens"].to(dev)}, flash=flash)
+        return logits
+
+    return fn
