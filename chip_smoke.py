@@ -10,9 +10,10 @@ Phases, each of which fails the run:
 
   1. the card's name and power limit; build the seven kernel libraries of
      the port from the sources in the checkout, one ``nvcc`` each, all
-     started together (timed; ptxas registers and spills printed; kernel
-     5 is a node axis on kernel 4's source, the per-edge variants are
-     kernels 1 and 2, kernel 8 is ``flash_attn.cu``);
+     started together (timed; ptxas registers and spills printed per
+     kernel and template, kernel 8's bf16 tensor-core kernel per head dim
+     among them; kernel 5 is a node axis on kernel 4's source, the
+     per-edge variants are kernels 1 and 2, kernel 8 is ``flash_attn.cu``);
   2. hold each kernel against its plain PyTorch version on the card:
      - the gossip round (``wfagg_round.cu``) at the paper's round shape
        (N=20, K=8, d=44,426) and on irregular slates with a degree-0 row
@@ -23,8 +24,12 @@ Phases, each of which fails the run:
        bit-equal, trimmed mean within rtol 1e-5, statistics within rtol
        1e-4 / atol 1e-3, WFAgg-D/C masks bit-equal, identical rows with
        identical sums);
-     - the Gram (``pairwise_gram.cu``) at K=20 and K=32 (within rtol 1e-4,
-       exactly symmetric, Multi-Krum and Clustering masks bit-equal);
+     - the Gram (``pairwise_gram.cu``) at K=20, d=44,426 (D % 4 = 2), at
+       K=32, D=2^22 and at K=7 and K=32 with D=37, less than a tile (within
+       rtol 1e-4, exactly symmetric, norm2 its diagonal, Multi-Krum and
+       Clustering masks bit-equal; two bit-identical rows a, b with
+       bit-identical Gram rows, G[a,a] == G[a,b] == G[b,b] and squared
+       distance exactly 0);
      - the combine (``weighted_agg.cu``) within 3e-5, and exactly ``local``
        with all-zero weights;
      - the round kernel's Gram variant (Alt-WFAgg) on the paper's ring and
@@ -67,18 +72,24 @@ Phases, each of which fails the run:
      (with ``prev[idx]`` bit-identical to the matrix-prev launch; with a
      per-edge prev of their own, masks bit-equal to the plain versions),
      timed at N=64, K=16, d=2^20;
-     then kernel 8, flash attention (``flash_attn.cu``), each case twice:
-     through the wrapper the prefill calls (``ops.flash_attention`` on
-     (B, H, S, hd) views) and at kernel level on inputs padded to the
-     reference's blocks: the six cases of ``tests/test_kernels.py:209-216``,
-     a case with Sq > Sk (rows with no live key), hd 80 and 128 with
-     ragged padding, and the prefill's attention at Qwen1.5-0.5B width
+     then kernel 8, flash attention (``flash_attn.cu``: bf16 on the tensor
+     cores, f32 on the CUDA cores), each case twice: through the wrapper
+     the prefill calls (``ops.flash_attention`` on (B, H, S, hd) views) and
+     at kernel level on inputs padded to the reference's blocks: the six
+     cases of ``tests/test_kernels.py:209-216``, a case with Sq > Sk (rows
+     with no live key), hd 80 and 128 with ragged padding, the same
+     branches in bf16 (hd 32 ragged, Sq > Sk, Sk not a multiple of 64, hd
+     128 non-causal), and the prefill's attention at Qwen1.5-0.5B width
      (B=2, 16 heads of 64, S=8192) in bf16 and in f32 (o, m and l within
      2e-5 in f32; in bf16 o within one rounding of its plain version,
      rtol 2^-7 and atol 1e-5, and m and l, which are f32, within 2e-5;
-     rows with no live key exactly o = 0, m = -1e30, l = 0), timed at
-     that shape beside its bound, the plain version and
-     ``F.scaled_dot_product_attention``;
+     rows with no live key exactly o = 0, m = -1e30, l = 0; every bf16
+     call on the tensor-core kernel; bf16 o a step off the plain version
+     counted beside the same count for the plain version's emulation of
+     the split of p); a misaligned bf16 pointer and an hd without a
+     kernel raise without a launch; timed at the prefill's shape beside
+     its bound (bf16 tensor-core rate in bf16, f32 CUDA-core rate in f32),
+     the plain version and ``F.scaled_dot_product_attention``;
   3. the main paths, each with every kernel's launch count set to 0 just
      before and read just after:
      - DFL: ``run_experiment`` at the paper's configuration (LeNet-5,
@@ -129,7 +140,8 @@ Phases, each of which fails the run:
      - serving Qwen1.5-0.5B at full width and depth (24 layers, d_model
        1024, vocab 151,936; the port's own init, seed 0): ``build_prefill``
        on 2 prompts of 8192 tokens (warm once, then timed: ms, prompt
-       tokens/s, peak memory; 24 kernel-8 launches a call), the same
+       tokens/s, peak memory; 24 kernel-8 launches a call, all on the bf16
+       tensor-core kernel), the same
        prompts with ``flash=False`` (the chunked online softmax; the
        logits of each prompt's last 256 positions compared),
        ``build_decode_step`` at batch 4 against a cache of 32,768
@@ -153,6 +165,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
 OUT_TOL = 3e-5                   # tests/test_one_launch.py:20
 STAT_RTOL, STAT_ATOL = 1e-4, 1e-3   # statistics: sums in another order
 CFL_K, CFL_D = 20, 44426         # the CFL server: N = 20 LeNet-5 models
@@ -224,6 +237,8 @@ def _module(name):
 def zero_counts() -> None:
     for name, (_, attr, _, _) in KERNELS.items():
         setattr(_module(name), attr, 0)
+    # kernel 8's bf16 tensor-core launches, also counted in its ``launches``
+    _module("flash_attention").launches_tc = 0
 
 
 def read_counts() -> dict:
@@ -434,9 +449,19 @@ def compare_gram(torch, K, D, seed) -> float:
     torch.testing.assert_close(norm2, np_, rtol=1e-4, atol=1e-6 * D)
     if not torch.equal(gram, gram.T):
         raise AssertionError(f"{label}: Gram not exactly symmetric")
+    if not torch.equal(norm2, torch.diagonal(gram)):
+        raise AssertionError(f"{label}: norm2 is not the Gram's diagonal")
+    # the tie invariant: the twins' Gram rows bit-identical, their own
+    # block of four entries one value, their distance exactly 0
     others = [j for j in range(K) if j not in (0, dup)]
     if not torch.equal(gram[0, others], gram[dup, others]):
         raise AssertionError(f"{label}: identical rows got different Gram rows")
+    tie = {float(gram[a, b]) for a in (0, dup) for b in (0, dup)}
+    if len(tie) != 1:
+        raise AssertionError(f"{label}: G[a,a], G[a,b], G[b,b] of twin rows differ: {tie}")
+    d2 = trust.sq_dists_from_gram(gram)
+    if float(d2[0, dup]) != 0.0 or float(d2[dup, 0]) != 0.0:
+        raise AssertionError(f"{label}: twin rows at squared distance {float(d2[0, dup])}")
     stats = robust_stats_plain(u, need_center=False)
     cfg = alt_wfagg_config(multi_krum_m=max(1, int(0.25 * K)))
     for fn in (trust.fused_distance_mask, trust.fused_similarity_mask):
@@ -444,7 +469,8 @@ def compare_gram(torch, K, D, seed) -> float:
             raise AssertionError(f"{label}: {fn.__name__} differs with the plain Gram")
     err = float((gram - gp).abs().max())
     print(f"  {label}: symmetric, Multi-Krum and Clustering masks bit-equal, "
-          f"identical rows tied, max|err| {err:.3g}")
+          f"identical rows tied (G[a,a] == G[a,b] == G[b,b], distance 0), max|err| "
+          f"{err:.3g}")
     return err
 
 
@@ -786,9 +812,9 @@ def network_compare_exchanges(K: int) -> int:
     return kp // 2 * lg * (lg + 1) // 2
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / FP32_OPS_PER_S * 1e3
+    op_ms = ops / ops_per_s * 1e3
     return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
 
 
@@ -2048,8 +2074,10 @@ LOGIT_RMS, LOGIT_ATOL = 2e-2, 0.125
 PREFILL_TAIL = 256   # positions of each prompt whose logits are compared
 # (B, H, Sq, Sk, hd, causal, dtype, block): the six cases of
 # tests/test_kernels.py:209-216 (block 64, as there), Sq > Sk (rows with no
-# live key), hd 80 and 128 with ragged padding, then the prefill's attention
-# at Qwen1.5-0.5B width (2 prompts of 8192 tokens, 16 heads of 64)
+# live key), hd 80 and 128 with ragged padding; the same branches of the bf16
+# tensor-core kernel (hd 32 ragged, Sq > Sk, Sk not a multiple of its 64-key
+# tile, hd 128 non-causal); then the prefill's attention at Qwen1.5-0.5B width
+# (2 prompts of 8192 tokens, 16 heads of 64)
 FLASH_CASES = [
     (1, 2, 128, 128, 64, True, "float32", 64),
     (2, 1, 256, 256, 32, True, "float32", 64),
@@ -2062,6 +2090,11 @@ FLASH_CASES = [
     (2, 3, 300, 300, 80, True, "float32", 128),
     (2, 2, 200, 333, 128, False, "float32", 128),
     (1, 4, 256, 512, 128, True, "bfloat16", 128),
+    (1, 2, 130, 200, 32, True, "bfloat16", 64),
+    (1, 2, 256, 128, 64, True, "bfloat16", 128),
+    (2, 3, 300, 300, 80, True, "bfloat16", 128),
+    (2, 2, 200, 333, 128, False, "bfloat16", 128),
+    (1, 1, 128, 256, 64, False, "bfloat16", 64),
     (2, 16, 8192, 8192, 64, True, "bfloat16", 128),
     (2, 16, 8192, 8192, 64, True, "float32", 128),
 ]
@@ -2112,6 +2145,7 @@ def compare_flash(torch, B, H, Sq, Sk, hd, causal, dtype, block, seed) -> float:
 
     q, k, v = flash_inputs(torch, B * H, Sq, Sk, hd, dtype, seed)
     args = (float(1.0 / hd ** 0.5), causal, Sk, Sk - Sq)
+    tc_before = fk.launches_tc
     label = f"B={B} H={H} Sq={Sq} Sk={Sk} hd={hd} causal={causal} {dtype}"
     want = flash_attention_plain(q, k, v, *args)
     o4 = fops.flash_attention(q.view(B, H, Sq, hd), k.view(B, H, Sk, hd),
@@ -2125,6 +2159,9 @@ def compare_flash(torch, B, H, Sq, Sk, hd, causal, dtype, block, seed) -> float:
         want = flash_attention_plain(q, k, v, *args)
     got = fk.flash_attention_cuda(q, k, v, *args)
     torch.cuda.synchronize()
+    tc = fk.launches_tc - tc_before
+    if tc != (2 if dtype == "bfloat16" else 0):
+        raise AssertionError(f"flash_attention {label}: {tc} tensor-core launches of 2 calls")
     errs = {name: _hold(label, name, a, b, dtype) for name, a, b in zip("oml", got, want)}
     dead = torch.arange(q.shape[1], device="cuda") + (Sk - Sq) < 0
     if not causal:
@@ -2134,19 +2171,31 @@ def compare_flash(torch, B, H, Sq, Sk, hd, causal, dtype, block, seed) -> float:
                 and bool((l[:, dead] == 0).all())):
             raise AssertionError(f"flash_attention {label}: a row with no live key is "
                                  "not exactly o = 0, m = -1e30, l = 0")
+    steps = ""
+    if dtype == "bfloat16":
+        # elements of o a bf16 step or more off the plain version, beside
+        # the same count for the kernel's arithmetic emulated in plain
+        # PyTorch (p as P_TERMS bf16 terms, exact products summed in f32)
+        emu = flash_attention_plain(q, k, v, *args, p_terms=fk.P_TERMS)[0]
+        steps = (f", {int((got[0] != want[0]).sum())} of {got[0].numel()} bf16 o differ "
+                 f"(the {fk.P_TERMS}-term emulation: {int((emu != want[0]).sum())})")
+        del emu
     print(f"  flash_attention {label}: through ops.flash_attention max |o - plain| "
           f"{wrapper[0]:.3g} (relative rms {wrapper[1]:.3g}); padded to {block}: max |o - "
           f"plain| {errs['o'][0]:.3g} (relative rms {errs['o'][1]:.3g}), m "
-          f"{errs['m'][0]:.3g}, l {errs['l'][0]:.3g}; {int(dead.sum())} rows with no live "
-          "key, exact")
+          f"{errs['m'][0]:.3g}, l {errs['l'][0]:.3g}{steps}; {int(dead.sum())} rows with no "
+          "live key, exact")
     return max(wrapper[0], errs["o"][0])
 
 
 def time_flash(torch, B, H, S, hd, seed) -> dict:
     """Kernel 8 at the prefill's attention shape (causal, Sq = Sk = S) in
-    bf16, the main path's type (and in f32, printed): kernel, plain version,
-    bound and ``F.scaled_dot_product_attention`` (bf16 tensor cores, which
-    is not the reference's f32 arithmetic)."""
+    bf16, the main path's type (the tensor-core kernel; and in f32, the
+    CUDA-core kernel, printed): kernel, plain version, bound and
+    ``F.scaled_dot_product_attention``.  The bound counts 4*hd operations
+    per live pair at the type's rate: bf16 on the tensor cores (whose
+    products are exact in f32, as the reference's), f32 on the CUDA cores
+    (TF32 off)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import kernel as fk
@@ -2158,7 +2207,8 @@ def time_flash(torch, B, H, S, hd, seed) -> dict:
     for dtype in ("bfloat16", "float32"):
         q, k, v = flash_inputs(torch, B * H, S, S, hd, dtype, seed)
         size = q.element_size()
-        b = bound(4.0 * B * H * S * hd * size + 8.0 * B * H * S, 4.0 * hd * live)
+        b = bound(4.0 * B * H * S * hd * size + 8.0 * B * H * S, 4.0 * hd * live,
+                  BF16_TC_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S)
         q4, k4, v4 = (t.view(B, H, S, hd) for t in (q, k, v))
         out[dtype] = dict(
             ms=time_cuda(torch, lambda: fk.flash_attention_cuda(q, k, v, scale, True, S, 0),
@@ -2177,10 +2227,33 @@ def time_flash(torch, B, H, S, hd, seed) -> dict:
                 f32=out["float32"])
 
 
+def check_flash_refusals(torch) -> None:
+    """No fallback on the card: a bf16 call the tensor-core kernel cannot
+    take (a pointer off 16 bytes, a head dim it has no instance for)
+    raises before any launch; it is never copied or sent to the f32 kernel
+    or the plain version."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+
+    before = (fk.launches, fk.launches_tc)
+    q = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16, device="cuda")[1:].view(2, 64, 64)
+    for label, args in (("misaligned q", (q, q.clone(), q.clone())),
+                        ("hd 48", (torch.zeros((2, 64, 48), dtype=torch.bfloat16,
+                                               device="cuda"),) * 3)):
+        try:
+            fk.flash_attention_cuda(*args, 0.125, True, 64, 0)
+        except ValueError as e:
+            print(f"  flash_attention bf16 {label}: refused ({e})")
+        else:
+            raise AssertionError(f"flash_attention bf16 {label}: ran instead of raising")
+    if (fk.launches, fk.launches_tc) != before:
+        raise AssertionError("a refused flash_attention call launched a kernel")
+
+
 def check_flash(torch) -> tuple:
-    """Phase 2 for kernel 8: every case of ``FLASH_CASES``, then the times
-    at the prefill's shape.  Returns (o's errors, times)."""
+    """Phase 2 for kernel 8: every case of ``FLASH_CASES``, the refusals,
+    then the times at the prefill's shape.  Returns (o's errors, times)."""
     errs = [compare_flash(torch, *case, seed=60 + i) for i, case in enumerate(FLASH_CASES)]
+    check_flash_refusals(torch)
     return errs, time_flash(torch, PREFILL_B, 16, PREFILL_S, 64, seed=80)
 
 
@@ -2220,7 +2293,8 @@ def run_serve_path(torch) -> dict:
     prompts with ``flash=False``, ``build_decode_step`` at batch 4 against
     a cache of ``decode_32k``'s 32,768 positions (a 64-token prompt, then
     32 greedy tokens; no kernel), and the stepped logits against one
-    prefill of the same 96 tokens.  Returns launches by kernel."""
+    prefill of the same 96 tokens.  Returns launches by kernel, and kernel
+    8's on the bf16 tensor-core kernel as ``flash_attention[tensor_core]``."""
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import DECODE_32K
     from repro_torch.models import layers as L
@@ -2266,13 +2340,18 @@ def run_serve_path(torch) -> dict:
     want = dict(dict.fromkeys(KERNELS, 0), flash_attention=cfg.n_layers * calls)
     if counts != want:
         raise AssertionError(f"prefill launches {counts}, expected {want}")
-    launches = dict(counts)
+    tc = _module("flash_attention").launches_tc
+    if tc != cfg.n_layers * calls:
+        raise AssertionError(f"{tc} of the prefill's {cfg.n_layers * calls} kernel-8 launches "
+                             "went to the bf16 tensor-core kernel")
+    launches = dict(counts, **{"flash_attention[tensor_core]": tc})
     ms = 1e3 * statistics.median(times)
     print(f"  prefill {PREFILL_B} x {PREFILL_S} tokens: {ms:.2f} ms (median of "
           f"{PREFILL_REPS}; {[round(1e3 * t, 2) for t in times]}), "
           f"{PREFILL_B * PREFILL_S / ms * 1e3:.0f} prompt tokens/s, peak memory "
           f"{peak / 2**30:.2f} GiB; kernel 8 launches {counts['flash_attention']} in "
-          f"{calls} calls ({cfg.n_layers} a call)")
+          f"{calls} calls ({cfg.n_layers} a call), {tc} of them on the bf16 tensor-core "
+          "kernel")
 
     # 2. the same prompts on the reference's second route (flash=False)
     zero_counts()
@@ -2396,7 +2475,8 @@ def main() -> int:
         for with_prev in (False, True) for centers in (True, False)]
     errs["robust_stats"] += [compare_robust_stats(torch, K, d, 8, True, True)
                              for K, d in ((7, 20011), (32, 20011))]
-    errs["pairwise_gram"] = [compare_gram(torch, K, CFL_D, 9) for K in (CFL_K, 32)]
+    errs["pairwise_gram"] = [compare_gram(torch, K, D, 9) for K, D in (
+        (CFL_K, CFL_D), (BIG_K, BIG_D), (7, 37), (32, 37))]
     errs["weighted_agg"] = [compare_weighted_agg(torch, K, d, 10)
                             for K, d in ((CFL_K, CFL_D), (32, 20011))]
     paper = time_round(torch, 20, 8, 44426, seed=5)
@@ -2593,6 +2673,7 @@ def main() -> int:
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
                 + table_launches[name] + gathered_launches[name] + serve_launches[name]
                 for name in KERNELS}
+    timed["flash_attention"]["launches_tc"] = serve_launches["flash_attention[tensor_core]"]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])

@@ -4,10 +4,23 @@
 ``flash_attention_pallas`` (``src/repro/kernels/flash_attn/kernel.py:29`` /
 ``:81``): causal, padded online-softmax attention over ``q (BH, Sq, hd)``
 and ``k``/``v (BH, Sk, hd)``, f32 or bf16, returning ``o`` in q's type and
-the f32 running max ``m`` and denominator ``l``.  It is bound by its f32
-operations (see the source's header).  Built with ``nvcc`` at first use
-(``kernels.common.build``) and called through ``ctypes`` on PyTorch's
-current stream; nothing runs at import.
+the f32 running max ``m`` and denominator ``l``.
+
+One source, two kernels (see its header):
+
+* bf16, the prefill's type, runs on the tensor cores (``mma.sync``
+  m16n8k16, f32 accumulators).  The reference multiplies the upcast bf16
+  inputs in f32, and a product of two bf16 values is exact in f32, so the
+  score products are the reference's.  ``p`` is f32 and is not rounded to
+  one bf16 value: ``P·V`` runs as ``P_TERMS`` bf16 products (``hi =
+  bf16(p)``, ``lo = bf16(p - hi)``), which holds o to one bf16 rounding of
+  the plain version.  Bound: tensor-core operations (989 TFLOP/s bf16).
+  Its pointers must be 16-byte aligned (``cp.async``); a misaligned one
+  raises here, it is never copied.
+* f32 runs on the CUDA cores, bound by f32 operations (TF32 stays off).
+
+Built with ``nvcc`` at first use (``kernels.common.build``) and called
+through ``ctypes`` on PyTorch's current stream; nothing runs at import.
 """
 from __future__ import annotations
 
@@ -22,10 +35,14 @@ from repro_torch.kernels import common
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"
 HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# bf16 terms of p in the tensor-core kernel's P·V (``kPTerms`` in the source)
+P_TERMS = 2
 
 # Kernel launches so far in this process: bumped once per launch, right
-# where the kernel is launched.
+# where the kernel is launched.  ``launches`` counts both kernels of the
+# source, ``launches_tc`` the bf16 tensor-core kernel's alone.
 launches = 0
+launches_tc = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -43,7 +60,7 @@ def flash_attention_cuda(q: torch.Tensor,   # (BH, Sq, hd) f32 or bf16
     """Launch the kernel on the tensors' CUDA device and stream; returns
     ``(o (BH, Sq, hd) in q's dtype, m (BH, Sq) f32, l (BH, Sq) f32)``,
     allocated here."""
-    global launches
+    global launches, launches_tc
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
     dev = q.device
@@ -56,6 +73,12 @@ def flash_attention_cuda(q: torch.Tensor,   # (BH, Sq, hd) f32 or bf16
     for name, t, shape in (("q", q, (BH, Sq, hd)), ("k", k, (BH, Sk, hd)),
                            ("v", v, (BH, Sk, hd))):
         common.check_tensor(name, t, q.dtype, shape, dev)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"the bf16 flash_attn kernel loads 16-byte rows with "
+                                 f"cp.async: {name} must be 16-byte aligned")
     fn = common.load(SOURCE, _bind).flash_attn_launch
     o = torch.empty_like(q)
     m = torch.empty((BH, Sq), dtype=torch.float32, device=dev)
@@ -63,8 +86,9 @@ def flash_attention_cuda(q: torch.Tensor,   # (BH, Sq, hd) f32 or bf16
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
-                 l.data_ptr(), BH, Sq, Sk, hd, int(q.dtype == torch.bfloat16),
+                 l.data_ptr(), BH, Sq, Sk, hd, int(bf16),
                  float(scale), int(bool(causal)), int(sk_valid), int(q_offset), stream)
     common.launch_error("flash_attn", err)
     launches += 1
+    launches_tc += bf16
     return o, m, l

@@ -10,6 +10,9 @@
   ``(BH, S, hd)`` arrays, with the Pallas kernel's masks and its fully
   masked rows (``o = 0``, ``m = -1e30``, ``l = 0``).  The wrapper takes it
   for CPU tensors; ``chip_smoke.py`` holds the CUDA kernel against it.
+  With ``p_terms`` it emulates the bf16 tensor-core kernel's ``P·V`` (``p``
+  as that many bf16 terms), which the tests and ``chip_smoke.py`` hold to
+  the exact version.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float, causal: bool = True,
-                          sk_valid: Optional[int] = None, q_offset: int = 0
+                          sk_valid: Optional[int] = None, q_offset: int = 0,
+                          p_terms: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: q (BH, Sq, hd), k/v (BH, Sk,
     hd) -> (o (BH, Sq, hd) in q's dtype, m (BH, Sq) f32, l (BH, Sq) f32).
@@ -50,7 +54,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row's largest score (-1e30 if none is live), ``l = sum p`` with ``p =
     exp(s - m)``, ``o = (p v) / max(l, 1e-30)``: the online softmax's final
     state, taken at once.  Query rows are independent, so they go in blocks
-    that keep the score block within 1 GiB."""
+    that keep the score block within 1 GiB.
+
+    ``p_terms = n`` takes ``p v`` as the bf16 tensor-core kernel does: ``p``
+    as n bf16 terms, each the bf16 rounding of what the earlier ones left,
+    each multiplied by v in f32 (exact for bf16 v); ``l`` stays the f32 sum."""
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
     sk_valid = Sk if sk_valid is None else min(int(sk_valid), Sk)
@@ -72,7 +80,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.where(live[None], torch.exp(s - mb[..., None]), 0.0)
         del s
         lb = p.sum(dim=-1)
-        o[:, r0:r1] = (torch.matmul(p, vf) / torch.clamp(lb, min=1e-30)[..., None]).to(q.dtype)
+        if p_terms is None:
+            pv = torch.matmul(p, vf)
+        else:
+            pv = torch.zeros((BH, r1 - r0, hd), dtype=torch.float32, device=q.device)
+            for _ in range(p_terms):
+                term = p.to(torch.bfloat16).to(torch.float32)
+                pv += torch.matmul(term, vf)
+                p -= term
+        o[:, r0:r1] = (pv / torch.clamp(lb, min=1e-30)[..., None]).to(q.dtype)
         m[:, r0:r1] = mb
         l[:, r0:r1] = lb
     return o, m, l

@@ -4,8 +4,12 @@
 ``_pairwise_kernel`` / ``pairwise_pallas``
 (``src/repro/kernels/pairwise_dist/kernel.py:17`` / ``:29``): the (K, K)
 Gram and the (K,) squared norms of a (K, D) candidate matrix.  It is
-bound by the bytes it reads (the matrix, once) at the K it serves; see
-the source's header for the design.  Built with ``nvcc`` at first use
+bound by the bytes it reads (the matrix, once) at the K it serves: a
+double-buffered ``cp.async`` stream of 256-coordinate tiles, reduced in
+4 x 4 register blocks of Gram entries, with every entry summed by the same
+expression tree so that bit-identical rows stay tied (see the source's
+header).  Any D and any float alignment: the kernel picks 16-, 8- or
+4-byte loads itself.  Built with ``nvcc`` at first use
 (``kernels.common.build``) and called through ``ctypes`` on PyTorch's
 current stream; nothing runs at import.
 """
@@ -21,7 +25,8 @@ from repro_torch.kernels import common
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "pairwise_gram.cu"
 MAX_K = 32
-TILE = 256       # coordinates per tile of pairwise_gram.cu
+TILE = 256       # coordinates per tile of pairwise_gram.cu (kTile)
+PER_SM = 2       # CTAs per SM (64 KiB of shared memory each at K = 32)
 
 # Kernel launches so far in this process: bumped once per launch, right
 # where the kernel is launched.
@@ -50,8 +55,8 @@ def pairwise_gram_cuda(updates: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     common.check_tensor("updates", updates, torch.float32, (K, D), dev)
     fn = common.load(SOURCE, _bind).pairwise_gram_launch
     f32 = dict(dtype=torch.float32, device=dev)
-    n_blocks = common.grid_blocks(dev, -(-D // TILE))
-    partials = torch.empty((n_blocks, K * (K + 1) // 2), **f32)
+    n_blocks = common.grid_blocks(dev, -(-D // TILE), per_sm=PER_SM)
+    partials = torch.empty((n_blocks, K * K), **f32)
     gram = torch.empty((K, K), **f32)
     norm2 = torch.empty((K,), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -9,7 +9,11 @@ in f32, 2e-2 in bf16.  The bf16 bound also covers the one deliberate
 deviation: the Pallas kernel rounds its running accumulator to bf16 after
 every KV block, the port keeps it in f32.  Fully masked rows are compared
 exactly (o = 0, m = -1e30, l = 0).  The CUDA kernel itself is held against
-the plain version on the card by ``chip_smoke.py``.
+the plain version on the card by ``chip_smoke.py``; here the bf16
+tensor-core kernel's arithmetic (exact bf16 products summed in f32, ``p``
+split into ``kernel.P_TERMS`` bf16 terms for ``P·V``) is emulated in plain
+PyTorch and held to the plain version at ``chip_smoke.py``'s tolerance for
+bf16 o (rtol 2^-7, atol 1e-5): one bf16 rounding.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +29,8 @@ from repro_torch.kernels.flash_attn import ref as tref
 from repro_torch.kernels.flash_attn.ref import NEG_INF, flash_attention_plain
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# chip_smoke.py's O_BF16_RTOL / O_BF16_ATOL: bf16 o within one rounding
+O_BF16_RTOL, O_BF16_ATOL = 2.0 ** -7, 1e-5
 
 # the six cases of tests/test_kernels.py:209-216
 CASES = [
@@ -145,9 +151,39 @@ def test_kernel_raises_where_it_cannot_run(monkeypatch, tmp_path):
 
 def test_kernel_source_and_counter():
     """The kernel is CUDA C++ for every head dim and dtype the wrapper
-    accepts, and the wrapper keeps a launch counter."""
+    accepts; bf16 runs on the tensor cores (``mma.sync`` on bf16 operands
+    with f32 accumulators, ``ldmatrix``, ``cp.async``) with ``p`` split into
+    the wrapper's ``P_TERMS`` bf16 terms; the wrapper keeps a launch counter
+    for the source and one for the tensor-core kernel."""
     src = tkernel.SOURCE.read_text()
     assert tkernel.SOURCE.suffix == ".cu" and 'extern "C" int flash_attn_launch' in src
     for hd in tkernel.HEAD_DIMS:
         assert f"FLASH_ATTN_CASE({hd})" in src
     assert "__nv_bfloat16" in src and isinstance(tkernel.launches, int)
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src and "cp.async" in src
+    assert f"constexpr int kPTerms = {tkernel.P_TERMS};" in src
+    assert isinstance(tkernel.launches_tc, int)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", tkernel.HEAD_DIMS)
+def test_split_p_holds_one_bf16_rounding(hd, causal):
+    """The tensor-core kernel's arithmetic, emulated by the plain version
+    (``p_terms``: bf16 q, k, v products exact in f32, ``p`` split into bf16
+    terms for ``P·V``): with ``P_TERMS`` terms its bf16 o stays within one
+    rounding of the exact version (ragged Sq, Sk and ``sk_valid`` padding
+    included); with one term, FlashAttention's usual rounding of ``p`` to
+    bf16, it does not."""
+    BH, Sq, Sk, sk_valid = 2, 200, 264, 250
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16)
+               for a in _inputs((BH, Sq, hd), (BH, Sk, hd), hd + causal))
+    scale = float(1.0 / hd ** 0.5)
+    args = (scale, causal, sk_valid, sk_valid - Sq)
+    want, m, l = flash_attention_plain(q, k, v, *args)
+    assert tkernel.P_TERMS >= 2
+    got, gm, gl = flash_attention_plain(q, k, v, *args, p_terms=tkernel.P_TERMS)
+    assert torch.equal(gm, m) and torch.equal(gl, l)      # l is summed before the split
+    torch.testing.assert_close(got.float(), want.float(), rtol=O_BF16_RTOL, atol=O_BF16_ATOL)
+    one = flash_attention_plain(q, k, v, *args, p_terms=1)[0]
+    assert not torch.allclose(one.float(), want.float(), rtol=O_BF16_RTOL, atol=O_BF16_ATOL)

@@ -59,6 +59,29 @@ def test_pairwise_gram_matches_pallas_kernel(K):
     assert (d2 >= 0).all()
 
 
+@pytest.mark.parametrize("K,D", [(20, 44426), (7, 37), (32, 1001)])
+def test_plain_gram_keeps_twin_rows_tied(K, D):
+    """The plain route (the CPU's) at D % 4 != 0 keeps the tie invariant
+    that the CUDA kernel keeps by summing every entry in one order: two
+    bit-identical rows a, b give G[a,a] == G[a,b] == G[b,b], bit-identical
+    Gram rows, equal squared norms and a squared distance of exactly 0
+    (``core.trust.sq_dists_from_gram``); against the JAX Gram within the
+    module's tolerance."""
+    u = models(K, D, seed=K + D)
+    a, b = 0, K - 1
+    u[b] = u[a]
+    before = pkernel.launches
+    g, n = pops.pairwise_gram(torch.as_tensor(u))
+    assert pkernel.launches == before                    # CPU: plain version
+    assert len({float(g[i, j]) for i in (a, b) for j in (a, b)}) == 1
+    assert torch.equal(g[a], g[b]) and torch.equal(g, g.T)
+    assert float(n[a]) == float(n[b])
+    d2 = pops.pairwise_sq_dists(torch.as_tensor(u))
+    assert float(d2[a, b]) == 0.0 and float(d2[b, a]) == 0.0
+    jg, _ = jpairwise_gram(jnp.asarray(u))
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-4)
+
+
 def test_pairwise_dist_ref_matches_reference_oracle():
     u = _candidates(6, seed=3)
     want = np.asarray(jpairwise_dist_ref(jnp.asarray(u)))
