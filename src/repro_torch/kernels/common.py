@@ -9,7 +9,8 @@ and the entry points default to the card and raise without one.
 Every CUDA source under ``kernels/*/csrc/`` is one shared library with a
 plain C entry point: ``nvcc`` compiles it at first use into
 ``kernels/_build/lib<stem>_<hash>.so`` (the hash covers the source, the
-headers beside it and the flags, so an edited source builds anew), keeps the compiler's output
+headers beside it and in ``kernels/csrc/`` and the flags, so an edited
+source builds anew), keeps the compiler's output
 (``-Xptxas -v``: registers, shared memory, spills) beside it as ``.log``,
 and ``ctypes`` loads it.  Nothing here runs at import: the modules import
 on a machine without ``nvcc``.
@@ -29,6 +30,8 @@ import torch.nn.functional as F
 
 # where kernels are compiled at first use (listed in .gitignore)
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+# headers shared by sources in several kernel directories (``-I``)
+INCLUDE_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,10 +75,10 @@ def _nvcc() -> str:
 
 
 def library_path(source: pathlib.Path) -> pathlib.Path:
-    """Where the library for this source, the headers beside it (``*.cuh``)
-    and the current flags lives."""
-    text = source.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    """Where the library for this source, the headers beside it and in
+    ``INCLUDE_DIR`` (``*.cuh``) and the current flags lives."""
+    headers = sorted(source.parent.glob("*.cuh")) + sorted(INCLUDE_DIR.glob("*.cuh"))
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
     tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{tag}.so"
 
@@ -94,7 +97,7 @@ def build(*sources: pathlib.Path) -> List[pathlib.Path]:
     for src, so in todo:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         procs.append((src, so, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for src, so, tmp, proc in procs:

@@ -23,7 +23,8 @@
 //     this one is reduced.  Loads are 16 bytes a thread when D % 4 == 0 and
 //     the matrix is 16-byte aligned; otherwise 8 or 4 bytes (the paper's
 //     d = 44,426 has D % 4 = 2), inside the kernel: nothing is padded.
-//     Coordinates past D are zero-filled through cp.async's src-size.
+//     Coordinates past D are zero-filled through cp.async's src-size
+//     (kernels/csrc/tile_stream.cuh, shared with kernels 1 and 2).
 //   * Thread (bp, s) of a CTA of 8 * (block pairs) threads owns block pair
 //     bp and slice s < 8 of each tile: the float4 groups s, s + 8, ...,
 //     s + 56.  Per group it reads its eight rows as float4 (the eight
@@ -46,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_stream.cuh"
+
 namespace {
 
 constexpr int kMaxK = 32;
@@ -66,16 +69,7 @@ __device__ __forceinline__ void pair_of(int p, int n, int& i, int& j) {
   j = i + p;
 }
 
-// VEC floats global -> shared; zero-filled when !in (src is then not read)
-template <int VEC>
-__device__ __forceinline__ void cp_async(uint32_t dst, const float* src, bool in) {
-  const int n = in ? 4 * VEC : 0;
-  if constexpr (VEC == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
-                 "n"(4 * VEC), "r"(n));
-}
+using tile_stream::cp_async;
 
 template <int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -211,11 +205,10 @@ extern "C" int pairwise_gram_launch(const float* u, float* partials, float* gram
                                     void* stream) {
   if (K <= 0 || K > kMaxK || D <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const uintptr_t at = (uintptr_t)u;
-  const cudaError_t e =
-      D % 4 == 0 && at % 16 == 0 ? launch_partials<4>(u, partials, K, D, n_blocks, s)
-      : D % 2 == 0 && at % 8 == 0 ? launch_partials<2>(u, partials, K, D, n_blocks, s)
-                                  : launch_partials<1>(u, partials, K, D, n_blocks, s);
+  const int vec = tile_stream::copy_width(D, {u});
+  const cudaError_t e = vec == 4   ? launch_partials<4>(u, partials, K, D, n_blocks, s)
+                        : vec == 2 ? launch_partials<2>(u, partials, K, D, n_blocks, s)
+                                   : launch_partials<1>(u, partials, K, D, n_blocks, s);
   if (e != cudaSuccess) return (int)e;
   gram_finish_kernel<<<1, kFinishThreads, 0, s>>>(partials, gram, norm2, K, n_blocks);
   return (int)cudaGetLastError();

@@ -1,6 +1,7 @@
-// Valid-masked coordinate-wise median of up to 32 candidate values, and the
-// Gram work split; shared by wfagg_round.cu (kernel 1) and
-// robust_stats_indexed.cu (kernel 2), so the two cannot drift apart.
+// Valid-masked coordinate-wise median of up to 32 candidate values, the
+// sorting network it runs on, and the upper-triangle pair order; shared by
+// wfagg_round.cu (kernel 1) and robust_stats_indexed.cu (kernel 2) through
+// indexed_phase0.cuh, so the two cannot drift apart.
 //
 // The median mirrors _valid_median of the Pallas kernels
 // (src/repro/kernels/robust_stats/kernel.py) and ref.valid_median of the port:
@@ -16,9 +17,6 @@
 #include <math.h>
 
 namespace wfagg_common {
-
-constexpr int kThreads = 256;          // threads per CTA = coordinates per tile
-constexpr int kStride = kThreads + 1;  // shared row stride of a staged tile
 
 template <int KP>
 __device__ __forceinline__ void bitonic_sort(float (&a)[KP]) {
@@ -59,91 +57,27 @@ __device__ __forceinline__ float valid_median(const float (&u)[KP], unsigned vbi
   return v > 0 ? 0.5f * (mlo + mhi) : 0.f;
 }
 
-// ---- the (K, K) Gram over a staged tile --------------------------------
-//
-// The P = K(K+1)/2 pairs i <= j of the row-major upper triangle are split
-// into P * S work items, S = max(1, kThreads / P) parts of the tile's
-// coordinates each: item w is pair w / S over coordinates [s*L, (s+1)*L) of
-// the tile, s = w % S, L = ceil(kThreads / S).  A thread keeps the running
-// sum of its items (at most kGramItems) over the tiles it walks, adding the
-// products in coordinate order with fmaf.  The parts of a pair are added in
-// part order at the end.  Every pair is split and ordered the same way, so
-// two bit-identical rows a, b give bit-identical sums for (a, x) and (b, x):
-// Multi-Krum's and Clustering's index tie-breaks rely on it.
-
+// valid_median when every one of the KP slots is valid (v == KP): the middles
+// are fixed, so the network needs no masks and the compiler drops the
+// compare-exchanges whose outputs no middle reads; bit-identical to
+// valid_median<KP>(u, all ones, KP)
 template <int KP>
-constexpr int kGramItems = (KP * (KP + 1) / 2 + kThreads - 1) / kThreads;
+__device__ __forceinline__ float full_median(const float (&u)[KP]) {
+  float s[KP];
+#pragma unroll
+  for (int k = 0; k < KP; ++k) s[k] = u[k];
+  bitonic_sort<KP>(s);
+  return 0.5f * (s[KP / 2 - 1] + s[KP / 2]);
+}
 
-// pair p of the row-major upper triangle (i <= j)
-__device__ __forceinline__ void pair_of(int p, int K, int& i, int& j) {
+// pair p of the row-major upper triangle (i <= j) of an n x n matrix
+__device__ __forceinline__ void pair_of(int p, int n, int& i, int& j) {
   i = 0;
-  while (p >= K - i) {
-    p -= K - i;
+  while (p >= n - i) {
+    p -= n - i;
     ++i;
   }
   j = i + p;
-}
-
-struct GramSplit {
-  int P, S, L;
-  __device__ __forceinline__ explicit GramSplit(int K)
-      : P(K * (K + 1) / 2),
-        S(P >= kThreads ? 1 : kThreads / P),
-        L((kThreads + S - 1) / S) {}
-};
-
-template <int KP>
-struct GramItems {
-  int a[kGramItems<KP>], b[kGramItems<KP>], c0[kGramItems<KP>], c1[kGramItems<KP>];
-  float acc[kGramItems<KP>];
-
-  __device__ __forceinline__ void init(const GramSplit& g, int K, int tid) {
-#pragma unroll
-    for (int r = 0; r < kGramItems<KP>; ++r) {
-      const int w = tid + r * kThreads;
-      a[r] = b[r] = 0;
-      c0[r] = c1[r] = 0;
-      acc[r] = 0.f;
-      if (w < g.P * g.S) {
-        int i, j;
-        pair_of(w / g.S, K, i, j);
-        a[r] = i * kStride;
-        b[r] = j * kStride;
-        c0[r] = (w % g.S) * g.L;
-        c1[r] = min(c0[r] + g.L, kThreads);
-      }
-    }
-  }
-
-  // add this tile's products; `tile` holds K rows of kThreads coordinates
-  __device__ __forceinline__ void add(const float* tile) {
-#pragma unroll
-    for (int r = 0; r < kGramItems<KP>; ++r) {
-      const float* x = tile + a[r];
-      const float* y = tile + b[r];
-      float t = acc[r];
-#pragma unroll 8
-      for (int c = c0[r]; c < c1[r]; ++c) t = fmaf(x[c], y[c], t);
-      acc[r] = t;
-    }
-  }
-
-  // this thread's item sums into part[w] (P * S floats)
-  __device__ __forceinline__ void store(const GramSplit& g, float* part, int tid) const {
-#pragma unroll
-    for (int r = 0; r < kGramItems<KP>; ++r) {
-      const int w = tid + r * kThreads;
-      if (w < g.P * g.S) part[w] = acc[r];
-    }
-  }
-};
-
-// sum of pair p's parts, in part order
-__device__ __forceinline__ float gram_pair_sum(const GramSplit& g, const float* part,
-                                               int p) {
-  float t = 0.f;
-  for (int s = 0; s < g.S; ++s) t += part[p * g.S + s];
-  return t;
 }
 
 }  // namespace wfagg_common

@@ -11,7 +11,8 @@
 //             rows p_k = prev[idx[n, k]], or p_k = prev[prev_idx[n, k]] in the
 //             prev_idx variant (chaos transport: the payload edge (n, k)
 //             actually served last round, its own (N, K) table into the same
-//             stacked matrix); in the Gram variant (need_gram, Alt-WFAgg) also
+//             stacked matrix; a per-edge (N, K, D) prev is this variant over
+//             its N K rows); in the Gram variant (need_gram, Alt-WFAgg) also
 //             the (K, K) candidate Gram;
 //   epilogue  the WFAgg scoring stage (core/trust.py: derive_trust_weights
 //             + combine_coefficients): the three filter masks (WFAgg-D or
@@ -21,41 +22,33 @@
 //
 // Bound on this card: bytes.  The function must read models, prev and local
 // once and write out once (4 * M * D * 4 bytes for M = N); at 3.35 TB/s that
-// is the floor.  Its arithmetic (about 16 flops per candidate coordinate plus
-// a sorting network) sits below the float32 peak at these byte counts; the
-// Gram adds K(K+1) flops per node coordinate, which at K = 16 is as much again.
+// is the floor, and only L2 lets nodes that share a neighbour share its
+// bytes.  Phase 1 reads the accepted rows a second time.  The arithmetic
+// (a sorting network and 12 flops per candidate coordinate; the Gram's
+// K (K + 1) per node coordinate) sits near the byte time at 67 TFLOP/s.
 //
-// Design, simple first:
-//   * One CTA of 256 threads per receiving node.  Threads stride over the
-//     coordinates j, so neighbouring threads read neighbouring addresses of
-//     each neighbour row (coalesced); rows are found through the index table,
-//     so the (N, K, D) gossip tensor never exists.
-//   * Per coordinate a thread holds the K values in registers and takes their
-//     valid-masked median (valid_median.cuh: a bitonic network over K padded
-//     to KP in {8, 16, 32}, invalid slots +inf, the dynamic middles of the
-//     valid count v; the empty median is 0).
-//   * Per-thread partial sums live in registers up to KP = 16 and in shared
-//     memory at KP = 32.  The block reduction has a fixed order (warp
-//     butterflies, then warps in index order) that is the same for every
-//     slot: two bit-identical neighbour rows get bit-identical statistics,
-//     so the stable-index tie-break of the masks picks the same slot as
-//     torch.argsort(stable=True).  No atomics: results repeat run to run.
-//   * Gram variant: the sort destroys slot order, so the Gram is taken from
-//     the unsorted values, staged per 256-coordinate tile in shared memory;
-//     each thread owns fixed (pair, coordinate range) items and sums them in
-//     a fixed order (valid_median.cuh), with no K^2 partials per thread.  The
-//     pairs i <= j are mirrored, so the Gram is exactly symmetric, and it is
-//     written out as an (N, K, K) output.
-//   * Warp 0 runs the scoring stage, one lane per slot, and leaves the
-//     combine coefficients in shared memory; phase 1 re-reads the rows
-//     (from L2 at the paper's size) and skips the slots whose coefficient
-//     is 0, which adds exactly +-0 in the reference.
-// What it leaves on the table: one CTA per node under-fills the 132 SMs at
-// N = 20, and phase 1 reads the rows a second time.  In the prev_idx variant
-// the prev rows are other rows than the candidates, a second stream of loads
-// the CTA waits on (about 2x the launch whose prev rows are the candidates).  Splitting D across CTAs
-// needs a grid-wide barrier before phase 1; that is later work.  The
-// Clustering epilogue is K - 2 merge steps of a K^2 argmin in one warp.
+// Design:
+//   * Phase 0 is the body of indexed_phase0.cuh, shared with the statistics
+//     kernel (robust_stats_indexed.cu): a cluster of C <= 8 CTAs per node
+//     splits D (rank r takes the 256-coordinate tiles r, r + C, ...), each
+//     CTA a 3-stage cp.async stream of the node's rows, the median one
+//     coordinate per thread, the per-slot sums one slot per warp from float4
+//     reads (the plain version's float32 terms, summed in double), the Gram
+//     in 4 x 4 register blocks; fixed-order sums, and rank 0
+//     adds the ranks' totals in rank order through distributed shared memory.
+//     Identical rows get bit-identical statistics and Gram rows.
+//   * Rank 0's warp 0 runs the scoring stage, one lane per slot, and
+//     publishes the combine coefficients in its shared memory.  After a
+//     cluster barrier every rank reads them through distributed shared
+//     memory and combines its own tiles (phase 1), skipping the slots whose
+//     coefficient is 0, which adds exactly +-0 in the reference.  The
+//     cluster barrier is the grid-wide barrier the round needs, scoped to
+//     one node: the round stays one launch, with no cooperative launch.
+// What it leaves on the table: phase 1 reads the accepted rows again (from
+// HBM at N = 64, d = 2^20: the node's rows exceed L2); every term of the
+// statistics is converted to double; the CTAs of a
+// cluster idle while rank 0's warp 0 scores; the Clustering epilogue is
+// K - 2 merge steps of a K^2 argmin in one warp.
 //
 // No fast-math: the bands carry +-inf, invalid rows sort as +inf, and the
 // cosines need IEEE sqrtf and division.
@@ -64,25 +57,26 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "valid_median.cuh"
+#include "indexed_phase0.cuh"
 
 namespace {
 
+using phase0::F_COUNT;
+using phase0::F_D2;
+using phase0::F_DM;
+using phase0::F_N2;
+using phase0::F_PD2;
+using phase0::F_PDT;
+using phase0::F_PN2;
+using phase0::kFull;
+using phase0::kThreads;
+using phase0::kTile;
+using phase0::warp_sum;
 using wfagg_common::bitonic_sort;
-using wfagg_common::GramItems;
-using wfagg_common::GramSplit;
-using wfagg_common::kStride;
-using wfagg_common::kThreads;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
+  phase0::Inputs in;     // models, idx, valid, prev, prev_idx, K, D, copy width
   const float* local;    // (N, D)
-  const float* models;   // (M, D)
-  const int32_t* idx;    // (N, K) rows into models (and prev)
-  const uint8_t* valid;  // (N, K) bool
-  const float* prev;     // (Mp, D) or null
-  const int32_t* prev_idx;  // (N, K) rows into prev, or null = idx
   const float* tbands;   // (N, 4K) [lo_d | hi_d | lo_c | hi_c] or null
   float* out;            // (N, D)
   float* weights;        // (N, K)
@@ -97,8 +91,6 @@ struct Args {
   float* prev_dot;
   float* prev_norm2;
   float* gram;           // (N, K, K), the Gram variant only
-  int K;
-  long long D;
   int f;
   float tau1, tau2, tau3;
   float accept_floor;    // accept_threshold - 1e-9, rounded to float32
@@ -107,43 +99,6 @@ struct Args {
   int dist_krum;         // distance filter: 1 Multi-Krum (Gram), 0 WFAgg-D
   int sim_cluster;       // similarity filter: 1 Clustering (Gram), 0 WFAgg-C
   int krum_m;            // Multi-Krum keep count m
-};
-
-// per-thread partial sums: six fields of KP slots, then mednorm2
-enum { F_D2 = 0, F_DM, F_N2, F_PD2, F_PDT, F_PN2, F_COUNT };
-
-template <int KP>
-__host__ __device__ constexpr int n_partials() { return F_COUNT * KP + 1; }
-
-// xor butterfly: every lane ends with the same, bit-identical sum
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-template <int KP, bool kShared>
-struct Partials;
-
-template <int KP>
-struct Partials<KP, false> {  // registers
-  float v[n_partials<KP>()];
-  __device__ __forceinline__ void init(float*, int) {
-#pragma unroll
-    for (int q = 0; q < n_partials<KP>(); ++q) v[q] = 0.f;
-  }
-  __device__ __forceinline__ float& operator[](int q) { return v[q]; }
-};
-
-template <int KP>
-struct Partials<KP, true> {  // shared memory, one column per thread
-  float* p;
-  __device__ __forceinline__ void init(float* smem, int tid) {
-    p = smem + tid;
-#pragma unroll 4
-    for (int q = 0; q < n_partials<KP>(); ++q) p[q * kThreads] = 0.f;
-  }
-  __device__ __forceinline__ float& operator[](int q) { return p[q * kThreads]; }
 };
 
 // ---- the Alt-WFAgg epilogue (Gram variant) ------------------------------
@@ -275,248 +230,191 @@ __device__ __forceinline__ bool clustering_mask(const float* G, float* Dm,
   return vl && asg == bi;
 }
 
-template <int KP, bool kShared, bool kGram>
-__global__ void __launch_bounds__(kThreads)
-wfagg_round_kernel(const Args a) {
-  constexpr int NP = n_partials<KP>();
-  // kShared: NP * kThreads floats of partials; kGram: then a K * kStride tile
-  // (and, without kShared, 2 K^2 floats of epilogue scratch)
-  extern __shared__ float dyn[];
-  __shared__ float red[kShared ? 1 : NP * kWarps];
-  __shared__ float tot[NP];
-  __shared__ const float* rows[KP];
-  __shared__ const float* prows[KP];
-  __shared__ float wcomb[KP];
-  __shared__ float lcoef;
-  __shared__ unsigned vbits_s;
-
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = a.K;
-  const long long D = a.D;
-  const bool has_prev = a.prev != nullptr;
-  const size_t nk = (size_t)n * K;
-
-  if (tid < K) {
-    const long long r = a.idx[nk + tid];
-    const long long pr = a.prev_idx != nullptr ? a.prev_idx[nk + tid] : r;
-    rows[tid] = a.models + r * D;
-    prows[tid] = has_prev ? a.prev + pr * D : nullptr;
-  }
-  if (warp == 0) {
-    const bool vk = lane < K && a.valid[nk + lane] != 0;
-    const unsigned b = __ballot_sync(kFull, vk);
-    if (lane == 0) vbits_s = b;
-  }
-  __syncthreads();
-  const unsigned vbits = vbits_s;
-  const int v = __popc(vbits);
-
-  float* tile = dyn + (kShared ? NP * kThreads : 0);
-  const GramSplit gs(K);
-  GramItems<KP> gi;
-  if constexpr (kGram) gi.init(gs, K, tid);
-
-  // ---- phase 0: median + sufficient statistics [+ Gram] -----------------
-  Partials<KP, kShared> acc;
-  acc.init(dyn, tid);
-  for (long long base = 0; base < D; base += kThreads) {
-    const long long j = base + tid;
-    const bool in = j < D;
-    float u[KP];
+// phase 1 on this rank's tiles: out = lc * local + sum_k wc_k u_k, in slot
+// order, VEC coordinates a thread
+template <int KP, int VEC>
+__device__ __forceinline__ void combine(const Args& a, const float* const* rows,
+                                        const float (&wc)[KP], float lc, int rank, int C) {
+  constexpr int VT = kTile / VEC;  // vectors per tile
+  const long long D = a.in.D;
+  const int K = a.in.K;
+  const float* loc = a.local + (size_t)blockIdx.y * D;
+  float* o = a.out + (size_t)blockIdx.y * D;
+  const long long total = phase0::rank_tiles(D, rank, C) * VT;
+  for (long long q = threadIdx.x; q < total; q += kThreads) {
+    const long long j = (rank + (q / VT) * C) * kTile + (q % VT) * VEC;
+    if (j >= D) continue;  // D % VEC == 0: a vector is all in or all out
+    float r[VEC];
+    tile_stream::load_vec<VEC>(r, loc + j);
 #pragma unroll
-    for (int k = 0; k < KP; ++k) u[k] = (k < K && in) ? __ldg(rows[k] + j) : 0.f;
-    if (in) {
-      const float med = wfagg_common::valid_median<KP>(u, vbits, v);
-      acc[F_COUNT * KP] += med * med;
+    for (int e = 0; e < VEC; ++e) r[e] = lc * r[e];
 #pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        if (k < K) {
-          const float x = u[k], dd = x - med;
-          acc[F_D2 * KP + k] += dd * dd;
-          acc[F_DM * KP + k] += x * med;
-          acc[F_N2 * KP + k] += x * x;
-          if (has_prev) {
-            const float p = __ldg(prows[k] + j), dp = x - p;
-            acc[F_PD2 * KP + k] += dp * dp;
-            acc[F_PDT * KP + k] += x * p;
-            acc[F_PN2 * KP + k] += p * p;
-          }
-        }
+    for (int k = 0; k < KP; ++k) {
+      if (k < K && wc[k] != 0.f) {
+        float x[VEC];
+        tile_stream::load_vec<VEC>(x, rows[k] + j);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) r[e] += wc[k] * x[e];
       }
     }
-    if constexpr (kGram) {
-#pragma unroll
-      for (int k = 0; k < KP; ++k)
-        if (k < K) tile[k * kStride + tid] = u[k];
-      __syncthreads();
-      gi.add(tile);
-      __syncthreads();
-    }
-  }
-  // the tile is dead (the loop ended on a barrier): it takes the Gram parts
-  if constexpr (kGram) gi.store(gs, tile, tid);
-
-  // ---- fixed-order block reduction into tot[] ---------------------------
-  if constexpr (kShared) {
-    __syncthreads();
-    for (int q = warp; q < NP; q += kWarps) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = lane; i < kThreads; i += 32) s += dyn[q * kThreads + i];
-      s = warp_sum(s);
-      if (lane == 0) tot[q] = s;
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      const float s = warp_sum(acc[q]);
-      if (lane == 0) red[q * kWarps + warp] = s;
-    }
-    __syncthreads();
-    for (int q = tid; q < NP; q += kThreads) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += red[q * kWarps + w];
-      tot[q] = s;
-    }
-  }
-  __syncthreads();
-
-  // ---- Gram: the parts of each pair in order, mirrored ------------------
-  // (K, K) Gram and clustering scratch: over the dead partials with kShared,
-  // after the tile otherwise
-  float* G = kShared ? dyn : tile + K * kStride;
-  float* Dm = G + K * K;
-  if constexpr (kGram) {
-    float* go = a.gram + (size_t)n * K * K;
-    for (int p = tid; p < gs.P; p += kThreads) {
-      int i, j;
-      wfagg_common::pair_of(p, K, i, j);
-      const float t = wfagg_common::gram_pair_sum(gs, tile, p);
-      G[i * K + j] = t;
-      G[j * K + i] = t;
-      go[i * K + j] = t;
-      go[j * K + i] = t;
-    }
-    __syncthreads();
-  }
-
-  // ---- epilogue: WFAgg scoring stage, one lane per slot ------------------
-  if (warp == 0) {
-    const int k = lane;
-    const bool real = k < K;
-    const bool vk = (vbits >> k) & 1u;  // false on lanes >= K
-    float d2 = 0.f, dm = 0.f, n2 = 0.f, pd2 = 0.f, pdt = 0.f, pn2 = 0.f;
-    if (real) {
-      d2 = tot[F_D2 * KP + k];
-      dm = tot[F_DM * KP + k];
-      n2 = tot[F_N2 * KP + k];
-      pd2 = tot[F_PD2 * KP + k];
-      pdt = tot[F_PDT * KP + k];
-      pn2 = tot[F_PN2 * KP + k];
-    }
-    const float m2 = tot[F_COUNT * KP];
-    const int keep_wf = v - a.f - 1;  // WFAgg-D and WFAgg-C keep counts
-    float sd = vk ? d2 : INFINITY;
-    int keep_d = keep_wf;
-    bool cluster = false;
-    if constexpr (kGram) {
-      if (a.dist_krum) {
-        sd = vk ? krum_score<KP>(G, vbits, K, k, max(v - a.f - 2, 1))
-                : INFINITY;
-        keep_d = min(v, a.krum_m);
-      }
-      if (a.sim_cluster) cluster = clustering_mask(G, Dm, tot + F_N2 * KP, vbits, v, K, lane);
-    }
-    const float sc = vk ? 1.f - dm / sqrtf(fmaxf(n2 * m2, 1e-24f)) : INFINITY;
-    // stable rank: #{j : s_j < s_k or (s_j == s_k and j < k)}
-    int rd = 0, rc = 0;
-#pragma unroll
-    for (int j = 0; j < KP; ++j) {
-      const float sdj = __shfl_sync(kFull, sd, j);
-      const float scj = __shfl_sync(kFull, sc, j);
-      if (j < K) {
-        rd += (sdj < sd) || (sdj == sd && j < k);
-        rc += (scj < sc) || (scj == sc && j < k);
-      }
-    }
-    const bool md = real && rd < min(max(keep_d, 0), K);
-    const bool mc = real && (kGram && a.sim_cluster ? cluster
-                                                    : rc < min(max(keep_wf, 0), K));
-    bool mt = false;
-    if (a.tbands != nullptr && real) {
-      const float* tb = a.tbands + (size_t)n * 4 * K;
-      const float bt = 1.f - pdt / sqrtf(fmaxf(n2 * pn2, 1e-24f));
-      mt = vk && pd2 >= tb[k] && pd2 <= tb[K + k] && bt >= tb[2 * K + k] &&
-           bt <= tb[3 * K + k];
-    }
-    float w = a.tau1 * (float)md + a.tau2 * (float)mc + a.tau3 * (float)mt;
-    w = w < a.accept_floor ? 0.f : w;
-    w = vk ? w : 0.f;
-    const float wsum = warp_sum(w);
-    float wn = w / fmaxf(wsum, 1e-12f);
-    float ea;
-    if (a.mean_fallback) {
-      const float vsum = (float)v;
-      wn = wsum > 0.f ? wn : (vk ? 1.f : 0.f) / fmaxf(vsum, 1.f);
-      ea = vsum > 0.f ? a.alpha : 0.f;
-    } else {
-      ea = wsum > 0.f ? a.alpha : 0.f;
-    }
-    if (real) {
-      const size_t e = nk + k;
-      a.weights[e] = w;
-      a.mask_d[e] = md;
-      a.mask_c[e] = mc;
-      a.mask_t[e] = mt;
-      a.dist2[e] = d2;
-      a.dotmed[e] = dm;
-      a.norm2[e] = n2;
-      if (has_prev) {
-        a.prev_dist2[e] = pd2;
-        a.prev_dot[e] = pdt;
-        a.prev_norm2[e] = pn2;
-      }
-    }
-    if (k < KP) wcomb[k] = real ? ea * wn : 0.f;
-    if (k == 0) {
-      lcoef = 1.f - ea;
-      a.mednorm2[n] = m2;
-    }
-  }
-  __syncthreads();
-
-  // ---- phase 1: WFAgg-E combine in slot order ---------------------------
-  float wc[KP];
-#pragma unroll
-  for (int k = 0; k < KP; ++k) wc[k] = wcomb[k];
-  const float lc = lcoef;
-  const float* loc = a.local + (size_t)n * D;
-  float* o = a.out + (size_t)n * D;
-  for (long long j = tid; j < D; j += kThreads) {
-    float r = lc * __ldg(loc + j);
-#pragma unroll
-    for (int k = 0; k < KP; ++k)
-      if (k < K && wc[k] != 0.f) r += wc[k] * __ldg(rows[k] + j);
-    o[j] = r;
+    tile_stream::store_vec<VEC>(o + j, r);
   }
 }
 
 template <int KP, bool kGram>
-cudaError_t launch(const Args& a, int N, cudaStream_t stream) {
-  constexpr bool kShared = KP > 16;
-  size_t floats = kShared ? (size_t)n_partials<KP>() * kThreads : 0;
-  if (kGram) floats += (size_t)a.K * kStride + (kShared ? 0 : 2 * (size_t)a.K * a.K);
-  const size_t smem = floats * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wfagg_round_kernel<KP, kShared, kGram>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+__global__ void __launch_bounds__(kThreads, KP > 16 ? 1 : 2)
+wfagg_round_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ phase0::Node<KP> sh;
+  __shared__ float wcomb[KP];   // rank 0: the combine coefficients
+  __shared__ float lcoef;
+  __shared__ float wc_s[KP + 1];  // every rank: its copy of them
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const int K = a.in.K;
+  const bool has_prev = a.in.prev != nullptr;
+  const phase0::Layout L(K, KP, has_prev, kGram);
+
+  // ---- phase 0: median + sufficient statistics [+ Gram] -----------------
+  phase0::node_totals<KP, kGram>(a.in, sh, smem, L, cl);
+  const int rank = (int)cl.block_rank(), C = (int)cl.num_blocks();
+  const int n = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  if (rank == 0) {
+    __syncthreads();
+    const float* tot = smem + L.tot;
+    const unsigned vbits = sh.vbits;
+    const int v = __popc(vbits);
+    const size_t nk = (size_t)n * K;
+    // (K, K) Gram and clustering scratch over the dead ring
+    float* G = smem;
+    float* Dm = G + K * K;
+    if constexpr (kGram) {
+      float* go = a.gram + (size_t)n * K * K;
+      for (int p = tid; p < K * (K + 1) / 2; p += kThreads) {
+        int i, j;
+        wfagg_common::pair_of(p, K, i, j);
+        const float t = tot[phase0::n_stats<KP>() + p];
+        G[i * K + j] = t;
+        G[j * K + i] = t;
+        go[i * K + j] = t;
+        go[j * K + i] = t;
+      }
+      __syncthreads();
+    }
+
+    // ---- epilogue: WFAgg scoring stage, one lane per slot ------------------
+    if (warp == 0) {
+      const int k = lane;
+      const bool real = k < K;
+      const bool vk = (vbits >> k) & 1u;  // false on lanes >= K
+      float d2 = 0.f, dm = 0.f, n2 = 0.f, pd2 = 0.f, pdt = 0.f, pn2 = 0.f;
+      if (real) {
+        d2 = tot[F_D2 * KP + k];
+        dm = tot[F_DM * KP + k];
+        n2 = tot[F_N2 * KP + k];
+        pd2 = tot[F_PD2 * KP + k];
+        pdt = tot[F_PDT * KP + k];
+        pn2 = tot[F_PN2 * KP + k];
+      }
+      const float m2 = tot[F_COUNT * KP];
+      const int keep_wf = v - a.f - 1;  // WFAgg-D and WFAgg-C keep counts
+      float sd = vk ? d2 : INFINITY;
+      int keep_d = keep_wf;
+      bool cluster = false;
+      if constexpr (kGram) {
+        if (a.dist_krum) {
+          sd = vk ? krum_score<KP>(G, vbits, K, k, max(v - a.f - 2, 1))
+                  : INFINITY;
+          keep_d = min(v, a.krum_m);
+        }
+        if (a.sim_cluster) cluster = clustering_mask(G, Dm, tot + F_N2 * KP, vbits, v, K, lane);
+      }
+      const float sc = vk ? 1.f - dm / sqrtf(fmaxf(n2 * m2, 1e-24f)) : INFINITY;
+      // stable rank: #{j : s_j < s_k or (s_j == s_k and j < k)}
+      int rd = 0, rc = 0;
+  #pragma unroll
+      for (int j = 0; j < KP; ++j) {
+        const float sdj = __shfl_sync(kFull, sd, j);
+        const float scj = __shfl_sync(kFull, sc, j);
+        if (j < K) {
+          rd += (sdj < sd) || (sdj == sd && j < k);
+          rc += (scj < sc) || (scj == sc && j < k);
+        }
+      }
+      const bool md = real && rd < min(max(keep_d, 0), K);
+      const bool mc = real && (kGram && a.sim_cluster ? cluster
+                                                      : rc < min(max(keep_wf, 0), K));
+      bool mt = false;
+      if (a.tbands != nullptr && real) {
+        const float* tb = a.tbands + (size_t)n * 4 * K;
+        const float bt = 1.f - pdt / sqrtf(fmaxf(n2 * pn2, 1e-24f));
+        mt = vk && pd2 >= tb[k] && pd2 <= tb[K + k] && bt >= tb[2 * K + k] &&
+             bt <= tb[3 * K + k];
+      }
+      float w = a.tau1 * (float)md + a.tau2 * (float)mc + a.tau3 * (float)mt;
+      w = w < a.accept_floor ? 0.f : w;
+      w = vk ? w : 0.f;
+      const float wsum = warp_sum(w);
+      float wn = w / fmaxf(wsum, 1e-12f);
+      float ea;
+      if (a.mean_fallback) {
+        const float vsum = (float)v;
+        wn = wsum > 0.f ? wn : (vk ? 1.f : 0.f) / fmaxf(vsum, 1.f);
+        ea = vsum > 0.f ? a.alpha : 0.f;
+      } else {
+        ea = wsum > 0.f ? a.alpha : 0.f;
+      }
+      if (real) {
+        const size_t e = nk + k;
+        a.weights[e] = w;
+        a.mask_d[e] = md;
+        a.mask_c[e] = mc;
+        a.mask_t[e] = mt;
+        a.dist2[e] = d2;
+        a.dotmed[e] = dm;
+        a.norm2[e] = n2;
+        if (has_prev) {
+          a.prev_dist2[e] = pd2;
+          a.prev_dot[e] = pdt;
+          a.prev_norm2[e] = pn2;
+        }
+      }
+      if (k < KP) wcomb[k] = real ? ea * wn : 0.f;
+      if (k == 0) {
+        lcoef = 1.f - ea;
+        a.mednorm2[n] = m2;
+      }
+    }
+    __syncthreads();
   }
-  wfagg_round_kernel<KP, kShared, kGram><<<N, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  // rank 0 has read every rank's totals and published wcomb / lcoef
+  cl.sync();
+
+  // ---- phase 1: WFAgg-E combine of this rank's tiles, in slot order ------
+  if (tid <= KP) wc_s[tid] = tid < KP ? cl.map_shared_rank(wcomb, 0)[tid]
+                                      : *cl.map_shared_rank(&lcoef, 0);
+  __syncthreads();
+  // rank 0's shared memory is read: it may exit once every rank is here
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  float wc[KP];
+#pragma unroll
+  for (int k = 0; k < KP; ++k) wc[k] = wc_s[k];
+  const float lc = wc_s[KP];
+  if (a.in.vec == 4)
+    combine<KP, 4>(a, sh.rows, wc, lc, rank, C);
+  else if (a.in.vec == 2)
+    combine<KP, 2>(a, sh.rows, wc, lc, rank, C);
+  else
+    combine<KP, 1>(a, sh.rows, wc, lc, rank, C);
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+template <int KP, bool kGram>
+cudaError_t launch(const Args& a, int N, cudaStream_t stream) {
+  const phase0::Layout L(a.in.K, KP, a.in.prev != nullptr, kGram);
+  return phase0::cluster_launch(wfagg_round_kernel<KP, kGram>, L.bytes(), N, a.in.D, stream,
+                                a);
 }
 
 template <int KP>
@@ -526,10 +424,11 @@ cudaError_t launch_width(const Args& a, int N, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches on `stream`, does not
-// synchronise, allocates nothing; returns the cudaError_t of the launch.
-// gram is (N, K, K) when a Gram filter is on (dist_krum or sim_cluster), else
-// null; prev_idx (N, K) needs prev, and null reads prev through idx.
+// Plain C entry point (bound with ctypes).  Launches one kernel on `stream`,
+// does not synchronise, allocates nothing; returns the cudaError_t of the
+// launch.  gram is (N, K, K) when a Gram filter is on (dist_krum or
+// sim_cluster), else null; prev_idx (N, K) needs prev, and null reads prev
+// through idx.
 extern "C" int wfagg_round_indexed_launch(
     const float* local, const float* models, const int32_t* idx,
     const uint8_t* valid, const float* prev, const int32_t* prev_idx,
@@ -540,15 +439,15 @@ extern "C" int wfagg_round_indexed_launch(
     int K, long long D, int f, float tau1, float tau2, float tau3,
     float accept_floor, float alpha, int mean_fallback, int dist_krum,
     int sim_cluster, int krum_m, void* stream) {
-  if (N <= 0 || K <= 0 || K > 32 || D <= 0 ||
+  if (N <= 0 || N > 65535 || K <= 0 || K > 32 || D <= 0 ||
       (gram != nullptr) != (dist_krum != 0 || sim_cluster != 0) ||
       (prev_idx != nullptr && prev == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{local, models, idx, valid, prev, prev_idx, tbands, out, weights,
-               mask_d, mask_c, mask_t, dist2, dotmed, norm2, mednorm2,
-               prev_dist2, prev_dot, prev_norm2, gram, K, D, f, tau1, tau2,
-               tau3, accept_floor, alpha, mean_fallback, dist_krum, sim_cluster,
-               krum_m};
+  const phase0::Inputs in{models, idx, valid, prev, prev_idx, K, D,
+                          tile_stream::copy_width(D, {models, prev, local, out})};
+  const Args a{in, local, tbands, out, weights, mask_d, mask_c, mask_t, dist2, dotmed,
+               norm2, mednorm2, prev_dist2, prev_dot, prev_norm2, gram, f, tau1, tau2,
+               tau3, accept_floor, alpha, mean_fallback, dist_krum, sim_cluster, krum_m};
   const cudaStream_t s = (cudaStream_t)stream;
   if (K <= 8) return (int)launch_width<8>(a, N, s);
   if (K <= 16) return (int)launch_width<16>(a, N, s);

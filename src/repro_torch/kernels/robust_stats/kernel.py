@@ -4,11 +4,13 @@
   ``_wfagg_round_indexed_kernel`` / ``wfagg_round_indexed_pallas``
   (``src/repro/kernels/robust_stats/kernel.py:367`` / ``:511``): the whole
   gossip round in one launch.  It is bound by the bytes it must move:
-  models, prev and local read once, out written once.  One CTA per
-  receiving node streams the node's neighbour rows twice (statistics,
-  then the combine); the second pass hits L2 at the paper's size.
-  With an Alt-WFAgg filter (Multi-Krum, Clustering) the Gram variant
-  also accumulates each node's (K, K) Gram and runs those filters in the
+  models, prev and local read once, out written once.  A cluster of up to
+  8 CTAs per receiving node splits D; each CTA streams its tiles of the
+  node's neighbour rows through shared memory (``cp.async``), rank 0 adds
+  the ranks' statistics in rank order and scores the node, and every rank
+  then combines its own tiles (the rows a second time).  With an Alt-WFAgg
+  filter (Multi-Krum, Clustering) the Gram variant also accumulates each
+  node's (K, K) Gram in register blocks and runs those filters in the
   epilogue.  The ``prev_idx`` variant (chaos transport) reads ``prev``
   through its own (N, K) table instead of the neighbour table; the
   per-edge variant (a per-edge (N, K, D) ``prev``, the state the gathered
@@ -19,8 +21,9 @@
   / ``robust_stats_indexed_pallas`` (``kernel.py:191`` / ``:271``): phase 0
   of the round alone (statistics, optional Gram and temporal tail, with
   the same ``prev_idx`` and per-edge variants), the statistics launch of
-  the two-launch backend; bound by bytes without the Gram.  Both sources
-  include ``csrc/valid_median.cuh``.
+  the two-launch backend, in one launch; bound by bytes.  Both sources run
+  one phase-0 body, ``csrc/indexed_phase0.cuh`` (with
+  ``csrc/valid_median.cuh`` and ``kernels/csrc/tile_stream.cuh``).
 * ``csrc/robust_stats.cu`` replaces ``_robust_stats_kernel`` in both of
   its launches: ``robust_stats_pallas`` (``kernel.py:70`` / ``:136``,
   ``d_axis=0``, kernel 4), the median, trimmed mean and WFAgg filter
@@ -55,7 +58,8 @@ SOURCE = CSRC / "wfagg_round.cu"
 STATS_SOURCE = CSRC / "robust_stats.cu"
 INDEXED_SOURCE = CSRC / "robust_stats_indexed.cu"
 MAX_K = 32
-TILE = 256       # coordinates per tile of robust_stats[_indexed].cu (kThreads)
+MAX_NODES = 65535  # nodes are the grid's y axis in kernels 1 and 2
+TILE = 256       # coordinates per tile of robust_stats.cu (kThreads)
 
 # Kernel launches so far in this process, one counter per kernel: bumped
 # once per launch, right where the kernel is launched.  A run that must
@@ -66,7 +70,7 @@ prev_idx_launches = 0        # wfagg_round.cu launches of the prev_idx variant
 per_edge_launches = 0        # wfagg_round.cu launches with a per-edge prev
 robust_stats_launches = 0    # robust_stats.cu, one matrix (its two kernels as one)
 batch_launches = 0           # robust_stats.cu, a gathered tensor (its two kernels as one)
-indexed_launches = 0         # robust_stats_indexed.cu (its two kernels as one)
+indexed_launches = 0         # robust_stats_indexed.cu
 indexed_prev_idx_launches = 0  # robust_stats_indexed.cu, prev_idx variant
 indexed_per_edge_launches = 0  # robust_stats_indexed.cu, per-edge prev
 
@@ -82,8 +86,17 @@ def _bind_round(lib: ctypes.CDLL) -> None:
 def _bind_indexed(lib: ctypes.CDLL) -> None:
     fn = lib.robust_stats_indexed_launch
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 8 + [I, I, ctypes.c_longlong, I, P]
+    fn.argtypes = [P] * 7 + [I, I, ctypes.c_longlong, P]
     fn.restype = I
+    lib.indexed_cluster_size.argtypes = [ctypes.c_longlong]
+    lib.indexed_cluster_size.restype = I
+
+
+def cluster_size(D: int) -> int:
+    """CTAs per node (the thread-block cluster size) that kernels 1 and 2
+    take over D coordinates, as ``csrc/indexed_phase0.cuh`` decides it;
+    builds the statistics library if needed, launches nothing."""
+    return common.load(INDEXED_SOURCE, _bind_indexed).indexed_cluster_size(D)
 
 
 def gram_filters(cfg, K: int):
@@ -162,6 +175,9 @@ def wfagg_round_indexed_cuda(
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if not 1 <= K <= MAX_K:
         raise ValueError(f"the round kernel takes 1 <= K <= {MAX_K}, got K={K}")
+    if not 1 <= N <= MAX_NODES:
+        raise ValueError(f"the round kernel takes 1 <= N <= {MAX_NODES} nodes, "
+                         f"got N={N}")
     _check("models", models, torch.float32, (M, D), dev)
     _check("local", local, torch.float32, (N, D), dev)
     _check("neighbor_idx", neighbor_idx, torch.int32, (N, K), dev)
@@ -216,10 +232,10 @@ def robust_stats_indexed_cuda(
     (N, K, D) ``prev`` goes through the ``prev_idx`` variant, counted
     apart).
 
-    Every output is allocated here with ``torch.empty``: the per-CTA
-    partial rows, one (N, 6K+1) tensor ``[dist2 | dotmed | norm2 |
-    prev_dist2 | prev_dot | prev_norm2 | mednorm2]`` that the returned
-    ``RobustStats`` views, and the (N, K, K) Gram with ``need_gram``.
+    Every output is allocated here with ``torch.empty``: one (N, 6K+1)
+    tensor ``[dist2 | dotmed | norm2 | prev_dist2 | prev_dot | prev_norm2
+    | mednorm2]`` that the returned ``RobustStats`` views, and the (N, K,
+    K) Gram with ``need_gram``.  One launch.
     """
     global indexed_launches, indexed_prev_idx_launches, indexed_per_edge_launches
     M, D = models.shape
@@ -230,23 +246,21 @@ def robust_stats_indexed_cuda(
     if not 1 <= K <= MAX_K:
         raise ValueError(f"the indexed statistics kernel takes 1 <= K <= {MAX_K}, "
                          f"got K={K}")
+    if not 1 <= N <= MAX_NODES:
+        raise ValueError(f"the indexed statistics kernel takes 1 <= N <= {MAX_NODES} "
+                         f"nodes, got N={N}")
     _check("models", models, torch.float32, (M, D), dev)
     _check("neighbor_idx", neighbor_idx, torch.int32, (N, K), dev)
     _check("valid", valid, torch.bool, (N, K), dev)
     prev, prev_idx, per_edge = _prev_rows(prev, prev_idx, M, N, K, D, dev)
     fn = common.load(INDEXED_SOURCE, _bind_indexed).robust_stats_indexed_launch
     f32 = dict(dtype=torch.float32, device=dev)
-    n_chunks = common.grid_blocks(dev, -(-D // TILE), rows=N)
-    n_stats = 6 * K + 1
-    n_fields = n_stats + (K * (K + 1) // 2 if need_gram else 0)
-    partials = torch.empty((N, n_chunks, n_fields), **f32)
-    flat = torch.empty((N, n_stats), **f32)
+    flat = torch.empty((N, 6 * K + 1), **f32)
     gram = torch.empty((N, K, K), **f32) if need_gram else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(_ptr(models), _ptr(neighbor_idx), _ptr(valid), _ptr(prev),
-                 _ptr(prev_idx), _ptr(partials), _ptr(flat), _ptr(gram), N, K, D,
-                 n_chunks, stream)
+                 _ptr(prev_idx), _ptr(flat), _ptr(gram), N, K, D, stream)
     common.launch_error("robust_stats_indexed", err)
     indexed_launches += 1
     if per_edge:

@@ -115,6 +115,125 @@ def robust_stats_indexed_ref(
                        prev_dist2, prev_dot, prev_norm2, gram)
 
 
+# the summation order of the CUDA kernels 1 and 2 (csrc/indexed_phase0.cuh)
+KERNEL_TILE = 256                # coordinates per tile (kTile)
+KERNEL_WARPS = 8                 # warps per CTA (kWarps)
+KERNEL_GROUPS = KERNEL_TILE // 4  # float4 groups of a tile row (kGroups)
+
+
+def _fma(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
+    """float32 ``fmaf(a, b, c)``: the product is exact in float64, rounded
+    once there and once to float32 (the hardware rounds once; the two agree
+    but for a rare double rounding)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _butterfly(x: Tensor) -> Tensor:
+    """The xor butterfly over the last (32-lane) axis: lane 0's sum."""
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        x = x + x[..., lanes ^ o]
+    return x[..., 0]
+
+
+def _in_order(parts: Tensor) -> Tensor:
+    """0 + parts[..., 0] + parts[..., 1] + ..., left to right."""
+    t = torch.zeros_like(parts[..., 0])
+    for r in range(parts.shape[-1]):
+        t = t + parts[..., r]
+    return t
+
+
+def robust_stats_indexed_kernel_order(
+    models: Tensor,
+    neighbor_idx: Tensor,
+    valid: Optional[Tensor] = None,
+    prev: Optional[Tensor] = None,
+    need_gram: bool = False,
+    prev_idx: Optional[Tensor] = None,
+    cluster: int = 8,
+) -> RobustStats:
+    """``robust_stats_indexed_ref`` summed in the order of the CUDA kernels
+    1 and 2 (``csrc/indexed_phase0.cuh``) with ``cluster`` CTAs per node:
+    the D axis in tiles of 256 coordinates, rank r of the cluster taking
+    tiles r, r + C, ... (C = min(cluster, tiles)); per slot, lane i of a
+    warp adds coordinates 4i .. 4i + 3 and 128 + 4i .. 128 + 4i + 3 of a
+    tile, each term the float32 value the plain version forms, into
+    running float64 sums (rounded to float32 last); the 32 lanes by an xor
+    butterfly; mednorm2 per thread (one coordinate of each tile, float64),
+    by warp butterflies and the 8 warps in order; the Gram, in float32,
+    per slice s of the S of each 4 x 4 block
+    pair (float4 groups s, s + S, ... of each tile, one fmaf chain over
+    all tiles), the slices in order; then the C ranks in order.  A plain
+    version of the order, for the CPU tests; the sums equal the kernel's
+    but for a rare double rounding of the Gram's ``_fma``."""
+    idx = neighbor_idx.long()
+    u = models[idx].to(torch.float32)                  # (N, K, D)
+    N, K, D = u.shape
+    v = (torch.ones((N, K), dtype=torch.bool, device=u.device) if valid is None
+         else valid.to(torch.bool))
+    n_tiles = -(-D // KERNEL_TILE)
+    C = min(cluster, n_tiles)
+    my = -(-n_tiles // C)                              # tiles of rank 0, the most
+    pad = my * C * KERNEL_TILE - D
+    # tile t = i C + r of rank r exists while t < n_tiles: (my, C)
+    exists = (torch.arange(my)[:, None] * C + torch.arange(C)[None, :]) < n_tiles
+    exists = exists.to(u.device)
+    tiles = lambda x: torch.nn.functional.pad(x, (0, pad)).reshape(  # noqa: E731
+        *x.shape[:-1], my, C, KERNEL_TILE)
+    med = valid_median(u, v)
+    U, M = tiles(u), tiles(med)                        # (N, K, my, C, T), (N, my, C, T)
+    P = None
+    if prev is not None:
+        if prev_idx is not None and prev.ndim != 2:
+            raise ValueError("prev_idx requires a matrix-form prev")
+        pidx = idx if prev_idx is None else prev_idx.long()
+        P = tiles((prev[pidx] if prev.ndim == 2 else prev).to(torch.float32))
+
+    # per-slot sums: fields (N, K, C, 32 lanes), float64
+    lane = lambda X, i, p, e: X[..., i, :, :].reshape(  # noqa: E731
+        *X.shape[:-3], C, 2, 32, 4)[..., p, :, e]
+    n_fields = 6 if P is not None else 3
+    acc = torch.zeros((n_fields, N, K, C, 32), dtype=torch.float64, device=u.device)
+    mn2 = torch.zeros((N, C, KERNEL_TILE), dtype=torch.float64, device=u.device)
+    for i in range(my):
+        live = exists[i][:, None]                      # (C, 1)
+        for p in range(2):
+            for e in range(4):
+                x, m = lane(U, i, p, e), lane(M, i, p, e)[:, None]
+                dd = x - m
+                terms = [dd * dd, x * m, x * x]
+                if P is not None:
+                    q = lane(P, i, p, e)
+                    dp = x - q
+                    terms += [dp * dp, x * q, q * q]
+                acc = torch.where(live, acc + torch.stack(terms).double(), acc)
+        mi = M[:, i]                                   # (N, C, T)
+        mn2 = torch.where(live, mn2 + (mi * mi).double(), mn2)
+    fields = _in_order(_butterfly(acc)).float()        # (n_fields, N, K)
+    warps = _butterfly(mn2.reshape(N, C, KERNEL_WARPS, 32))
+    mednorm2 = _in_order(_in_order(warps)).float()
+
+    gram = None
+    if need_gram:
+        nb = (K + 3) // 4
+        S = min(256 // (nb * (nb + 1) // 2), KERNEL_GROUPS)
+        steps = -(-KERNEL_GROUPS // S)
+        G = torch.zeros((N, K, K, C, S), device=u.device)
+        UG = U.reshape(N, K, my, C, KERNEL_GROUPS, 4)
+        for i in range(my):
+            for q in range(steps):
+                g = torch.arange(S, device=u.device) + S * q     # slice s's group
+                live = exists[i][:, None] & (g < KERNEL_GROUPS)[None, :]  # (C, S)
+                xg = UG[:, :, i].index_select(3, g.clamp(max=KERNEL_GROUPS - 1))
+                for e in range(4):
+                    x = xg[..., e]                               # (N, K, C, S)
+                    G = torch.where(live, _fma(x[:, :, None], x[:, None, :], G), G)
+        gram = _in_order(_in_order(G))                 # slices, then ranks
+    tail = tuple(fields[3:]) if P is not None else (None, None, None)
+    return RobustStats(None, None, fields[0], fields[1], fields[2], mednorm2, *tail, gram)
+
+
 def sort_columns(u: Tensor) -> Tensor:
     """Columns of ``u (..., K, D)`` sorted along the K axis, a column
     holding a NaN all NaN: what a sorting network whose compare-exchange
