@@ -15,6 +15,9 @@ Phases, each of which fails the run:
      among them; kernel 5 is a node axis on kernel 4's source, the
      per-edge variants are kernels 1 and 2, kernel 8 is ``flash_attn.cu``)
      and the thread-block cluster size (CTAs per node) of kernels 1 and 2;
+     and, for kernels 4 and 5 at their timed shapes, the stages of the
+     ``cp.async`` ring, the tile width, the CTAs per SM and per node and
+     the network's width;
   2. hold each kernel against its plain PyTorch version on the card (a
      mask of kernel 1 or 2 that differs from the plain version's must be a
      near-tie by phase 3's rule, ``NEAR_TIE``: within 1e-4, relative, of a
@@ -85,7 +88,12 @@ Phases, each of which fails the run:
      with the centers, each with two bit-identical rows per node and a NaN
      row (median bit-equal with NaN in the same places, the NaN node's
      median all NaN, sums within rtol 1e-4, tied rows tied, WFAgg-D/C
-     masks bit-equal), each timed; and the per-edge (N, K, d) ``prev``
+     masks bit-equal), each timed; kernels 4 and 5 bit for bit against
+     ``ref.robust_stats_kernel_order`` (the emulation of their order that
+     the CPU tests hold against the JAX package; the number of values
+     compared printed) at their timed shapes, at D % 4 = 2 (kernel 4 at
+     K=20 d=44,426, kernel 5 unpadded at N=20 K=8 d=44,426) and with the
+     centers, NaN in the same places; and the per-edge (N, K, d) ``prev``
      variants of kernels 1 and 2 on the same slates as the Gram round
      (with ``prev[idx]`` bit-identical to the matrix-prev launch; with a
      per-edge prev of their own, masks bit-equal to the plain versions),
@@ -916,6 +924,31 @@ def print_cluster_sizes() -> None:
         f"{rk.cluster_size(d)} at d={d}" for d in (44426, 1 << 20, 20011, 37)))
 
 
+# kernels 4 and 5 at their timed shapes: (label, N, K, D, prev, centers);
+# kernel 5's d is padded to a multiple of 32 (ops.robust_stats_batch)
+STATS_SHAPES = (
+    ("kernel 4, K=20 d=44426, prev", 1, CFL_K, CFL_D, True, False),
+    ("kernel 4, K=32 D=2^22, prev", 1, BIG_K, BIG_D, True, False),
+    ("kernel 5, N=20 K=8 d=44448, per-edge prev", 20, 8, 44448, True, False),
+    ("kernel 5, N=64 K=16 d=2^20, per-edge prev", 64, 16, 1 << 20, True, False),
+    ("kernel 5, N=64 K=16 d=2^20, centers", 64, 16, 1 << 20, False, True),
+)
+
+
+def print_stats_plans() -> None:
+    """How ``robust_stats.cu`` (kernels 4 and 5) runs at the timed shapes:
+    the stages of its ``cp.async`` ring, the tile width, the CTAs an SM
+    holds (the instance's occupancy) and the CTAs per node."""
+    from repro_torch.kernels.robust_stats import kernel as rk
+
+    for label, N, K, D, with_prev, centers in STATS_SHAPES:
+        p = rk.stats_plan(N, K, D, with_prev, centers, "cuda")
+        net = f"network width {p['kp']}" + (", specialised on K" if p["specialised"]
+                                           else ", +inf padding")
+        print(f"    {label}: {p['stages']} stages of {p['tile']}-coordinate tiles, "
+              f"{p['ctas_per_sm']} CTAs per SM, {p['blocks']} CTAs per node, {net}")
+
+
 def print_round_kernel_times(big: dict, paper: dict) -> None:
     """Kernels 1 and 2 in every variant at both shapes: time, bound, plain
     version, and the time before the redesign where PERF.md recorded one."""
@@ -936,17 +969,40 @@ def print_round_kernel_times(big: dict, paper: dict) -> None:
 
 
 def network_compare_exchanges(K: int) -> int:
-    """Compare-exchanges of robust_stats.cu's bitonic network for K padded
-    to 8, 16 or 32."""
+    """Compare-exchanges of robust_stats.cu's median network on K wires: the
+    odd-even merge sort on 8, 16 or 32 wires less those that touch a wire
+    past K (``ref.network_pairs``, counted here so that the timers also run
+    on a tree without it)."""
     kp = 8 if K <= 8 else 16 if K <= 16 else 32
     lg = kp.bit_length() - 1
-    return kp // 2 * lg * (lg + 1) // 2
+    return sum(lo >= k % p and (lo - k % p) % (2 * k) < k and lo + k < K
+               and lo // (2 * p) == (lo + k) // (2 * p)
+               for p, k in ((1 << a, 1 << b) for a in range(lg) for b in range(a + 1))
+               for lo in range(kp))
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / ops_per_s * 1e3
     return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
+
+
+def time_robust_stats(torch, u, prev) -> dict:
+    """Kernel 4's wrapper (``robust_stats_cuda``) as the CFL server calls
+    it, with the temporal tail and no centers, beside its plain version and
+    its bound: read u and prev once; 2 ops per compare-exchange, 8 flops
+    per candidate coordinate for dist2 / dotmed / norm2 and 7 for the
+    tail."""
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.robust_stats import ops as rops
+
+    K, D = u.shape
+    b = bound(4.0 * 2 * K * D, D * (2.0 * network_compare_exchanges(K) + 15.0 * K))
+    return dict(
+        ms=time_cuda(torch, lambda: rk.robust_stats_cuda(u, prev, 0.1, False), 3, 25),
+        plain_ms=time_cuda(torch, lambda: rops.robust_stats_plain(
+            u, prev, need_center=False), 1, 5),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
 
 
 def time_cfl_kernels(torch, K, D, seed) -> dict:
@@ -965,16 +1021,7 @@ def time_cfl_kernels(torch, K, D, seed) -> dict:
     from repro_torch.kernels.weighted_agg import ops as wops
 
     u, prev, dup = cfl_candidates(torch, K, D, seed)
-    out = {}
-    # statistics with the temporal tail and no centers (the main path's
-    # call): read u and prev once; 2 ops per compare-exchange, 8 flops per
-    # candidate coordinate for dist2 / dotmed / norm2 and 7 for the tail
-    b = bound(4.0 * 2 * K * D, D * (2.0 * network_compare_exchanges(K) + 15.0 * K))
-    out["robust_stats"] = dict(
-        ms=time_cuda(torch, lambda: rk.robust_stats_cuda(u, prev, 0.1, False), 3, 25),
-        plain_ms=time_cuda(torch, lambda: rops.robust_stats_plain(
-            u, prev, need_center=False), 1, 5),
-        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    out = {"robust_stats": time_robust_stats(torch, u, prev)}
     b = bound(4.0 * K * D, float(K * (K + 1)) * D)
     out["pairwise_gram"] = dict(
         ms=time_cuda(torch, lambda: pk.pairwise_gram_cuda(u), 3, 25),
@@ -1503,6 +1550,69 @@ def check_kernel5(torch) -> tuple:
         del u, prev, p
         torch.cuda.empty_cache()
     return errs, times
+
+
+def check_stats_kernel_order(torch) -> None:
+    """Kernels 4 and 5 (``robust_stats.cu``) bit for bit against
+    ``ref.robust_stats_kernel_order``, the plain emulation of their order
+    that the CPU tests hold against the JAX package, at the CTAs per node
+    the wrappers take: every center and statistic equal, NaN in the same
+    places.  Kernel 4 at its timed shapes (K=20 d=44,426, where D % 4 = 2
+    and the copies are 8 bytes; K=32 D=2^22) with prev, and with the
+    centers at K=20 and K=7; kernel 5 at its timed shapes (N=20 K=8 d
+    padded to 44,448; N=64 K=16 d=2^20 with per-edge prev, and without
+    prev with the centers) and unpadded at d=44,426, each with a NaN row
+    (node 3) and tied rows."""
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.robust_stats.ref import robust_stats_kernel_order
+
+    def hold(label, got, emu, blocks) -> int:
+        n = 0
+        for name in ("med", "trim") + STAT_FIELDS:
+            g, e = getattr(got, name), getattr(emu, name)
+            if (g is None) != (e is None):
+                raise AssertionError(f"kernel order {label}: {name} present in only one")
+            if g is None:
+                continue
+            if not same_bits(torch, g, e):
+                raise AssertionError(
+                    f"kernel order {label} ({blocks} CTAs per node): {name} differs from "
+                    f"the emulation at {int((g != e).sum())} of {g.numel()}")
+            n += g.numel()
+        return n
+
+    n_vals, n_cases = 0, 0
+    for K, D, with_prev, centers, seed in ((CFL_K, CFL_D, True, False, 71),
+                                           (CFL_K, CFL_D, True, True, 72),
+                                           (BIG_K, BIG_D, True, False, 73),
+                                           (7, 20011, False, True, 74)):
+        u, prev, _ = cfl_candidates(torch, K, D, seed)
+        p = prev if with_prev else None
+        blocks = rk.stats_plan(1, K, D, with_prev, centers, "cuda")["blocks"]
+        got = rk.robust_stats_cuda(u, p, 0.1, centers)
+        emu = robust_stats_kernel_order(u, p, 0.1, centers, blocks=blocks)
+        torch.cuda.synchronize()
+        n_vals += hold(f"kernel 4 K={K} D={D} prev={with_prev} centers={centers}", got,
+                       emu, blocks)
+        n_cases += 1
+        del u, prev, p, got, emu
+    for N, K, d, with_prev, centers, seed in ((20, 8, 44448, True, False, 75),
+                                              (20, 8, 44426, True, True, 76),
+                                              (64, 16, 1 << 20, True, False, 77),
+                                              (64, 16, 1 << 20, False, True, 78)):
+        u, prev, _ = gathered_candidates(torch, N, K, d, seed, nan_node=3)
+        p = prev if with_prev else None
+        blocks = rk.stats_plan(N, K, d, with_prev, centers, "cuda")["blocks"]
+        got = rk.robust_stats_batch_cuda(u, p, 0.1, centers)
+        emu = robust_stats_kernel_order(u, p, 0.1, centers, blocks=blocks)
+        torch.cuda.synchronize()
+        n_vals += hold(f"kernel 5 N={N} K={K} d={d} prev={with_prev} centers={centers}",
+                       got, emu, blocks)
+        n_cases += 1
+        del u, prev, p, got, emu
+        torch.cuda.empty_cache()
+    print(f"  kernels 4 and 5 == ref.robust_stats_kernel_order bit for bit ({n_vals} "
+          f"centers and statistics in {n_cases} launches, NaN in the same places)")
 
 
 def compare_per_edge(torch, label, N, K, d, idx, valid, seed, dup) -> dict:
@@ -2664,6 +2774,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {so.name.rsplit('_', 1)[0]} {entry} ptxas: {line.strip()}")
     print_cluster_sizes()
+    print_stats_plans()
 
     # ---- phase 2: kernel vs plain -------------------------------------------
     print("[2] kernel vs plain version on the card")
@@ -2743,6 +2854,7 @@ def main() -> int:
     print("[2] kernel 5 (the gathered statistics) and the per-edge prev variants of the "
           "round and statistics kernels")
     errs["robust_stats_batch"], k5 = check_kernel5(torch)
+    check_stats_kernel_order(torch)
     (main_shape, main_t), *rest = [(s_, t) for s_, t in k5.items() if s_[0] == 64] + [
         (s_, t) for s_, t in k5.items() if s_[0] != 64]
     shape_label = lambda s_: (f"N={s_[0]} K={s_[1]} d={s_[2]} prev={s_[3]} "  # noqa: E731

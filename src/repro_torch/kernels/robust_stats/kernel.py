@@ -31,7 +31,14 @@
   ``wfagg()`` and the CFL server call it; and ``robust_stats_batch_pallas``
   (``kernel.py:652``, ``d_axis=1``, kernel 5), the same for every node of
   a gathered (N, K, D) tensor, as the gathered ``wfagg_batch`` calls it.
-  Bound by bytes at the paper's K; see the source's header.
+  Bound by bytes.  B CTAs per node (B N about the CTAs the card holds,
+  from the instance's occupancy: ``stats_plan``) stream the node's tiles
+  through a ring of ``cp.async`` stages, sort each coordinate with an
+  odd-even merge network of ``fminf``/``fmaxf`` and a per-column NaN flag,
+  sum every term in float32 without fused multiply-adds (so
+  ``ref.robust_stats_kernel_order`` reproduces the sums bit for bit), and
+  the last CTA of a node, by a ticket, adds the CTAs' totals in block
+  order: one launch per call.
 
 Each source is compiled with ``nvcc`` into a shared library with a plain
 C entry point at first use (``kernels.common.build``) and called through
@@ -58,8 +65,7 @@ SOURCE = CSRC / "wfagg_round.cu"
 STATS_SOURCE = CSRC / "robust_stats.cu"
 INDEXED_SOURCE = CSRC / "robust_stats_indexed.cu"
 MAX_K = 32
-MAX_NODES = 65535  # nodes are the grid's y axis in kernels 1 and 2
-TILE = 256       # coordinates per tile of robust_stats.cu (kThreads)
+MAX_NODES = 65535  # nodes are the grid's y axis in kernels 1, 2 and 5
 
 # Kernel launches so far in this process, one counter per kernel: bumped
 # once per launch, right where the kernel is launched.  A run that must
@@ -68,8 +74,8 @@ TILE = 256       # coordinates per tile of robust_stats.cu (kThreads)
 launches = 0                 # wfagg_round.cu
 prev_idx_launches = 0        # wfagg_round.cu launches of the prev_idx variant
 per_edge_launches = 0        # wfagg_round.cu launches with a per-edge prev
-robust_stats_launches = 0    # robust_stats.cu, one matrix (its two kernels as one)
-batch_launches = 0           # robust_stats.cu, a gathered tensor (its two kernels as one)
+robust_stats_launches = 0    # robust_stats.cu, one matrix
+batch_launches = 0           # robust_stats.cu, a gathered tensor
 indexed_launches = 0         # robust_stats_indexed.cu
 indexed_prev_idx_launches = 0  # robust_stats_indexed.cu, prev_idx variant
 indexed_per_edge_launches = 0  # robust_stats_indexed.cu, per-edge prev
@@ -134,13 +140,93 @@ def _prev_rows(prev, prev_idx, M, N, K, D, dev):
 
 
 def _bind_stats(lib: ctypes.CDLL) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.robust_stats_launch
-    fn.argtypes = [P, P, P, P, P, P, I, ctypes.c_longlong, I, I, P]
+    fn.argtypes = [P] * 7 + [I, L, I, I, P]
     fn.restype = I
     fn = lib.robust_stats_batch_launch
-    fn.argtypes = [P, P, P, P, P, P, I, I, ctypes.c_longlong, I, I, P]
+    fn.argtypes = [P] * 7 + [I, I, L, I, I, P]
     fn.restype = I
+    lib.robust_stats_plan.argtypes = [I, I, I, P]
+    lib.robust_stats_plan.restype = I
+
+
+_plans: dict = {}
+
+
+def stats_plan(N: int, K: int, D: int, has_prev: bool, need_center: bool,
+               device) -> dict:
+    """How ``robust_stats.cu`` runs N nodes of K candidates over D
+    coordinates on ``device``, as its C side decides it (builds the
+    library if needed, launches nothing): ``stages`` of its ``cp.async``
+    ring, ``tile`` coordinates per tile, ``ctas_per_sm`` (the occupancy of
+    the instance), ``kp`` (the network's template width), ``specialised``
+    (no padding wires) and ``blocks``, the CTAs per node: the card's
+    resident CTAs shared among the N nodes, at least 1 and at most one per
+    tile, rounded down so the grid runs in one wave."""
+    dev = torch.device(device)
+    key = (K, bool(has_prev), bool(need_center), dev)
+    plan = _plans.get(key)
+    if plan is None:
+        fn = common.load(STATS_SOURCE, _bind_stats).robust_stats_plan
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev):
+            err = fn(K, int(bool(has_prev)), int(bool(need_center)), out)
+        common.launch_error("robust_stats_plan", err)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = dict(stages=out[0], tile=out[1], ctas_per_sm=out[2], kp=out[3],
+                    specialised=bool(out[4]), resident=out[2] * sms)
+        _plans[key] = plan
+    n_tiles = -(-D // plan["tile"])
+    return dict(plan, blocks=max(1, min(n_tiles, plan["resident"] // N)))
+
+
+_tickets: dict = {}
+
+
+def _zeroed_tickets(N: int, dev: torch.device, stream: int) -> torch.Tensor:
+    """At least N zeroed per-node counters for ``robust_stats.cu``'s
+    launches on ``stream``: each node's last CTA resets its counter, so the
+    buffer stays zero from one launch to the next (launches on one stream
+    run in order) and is allocated once per stream."""
+    t = _tickets.get((dev, stream))
+    if t is None or t.numel() < N:
+        t = torch.zeros((max(N, 64),), dtype=torch.int32, device=dev)
+        _tickets[(dev, stream)] = t
+    return t
+
+
+def _launch_stats(entry: str, updates, prev, beta, need_center, N, K, D,
+                  dev) -> RobustStats:
+    """Allocate the outputs of one ``robust_stats.cu`` launch over N nodes
+    (``entry`` ``robust_stats``: one matrix, no node axis) and launch it.
+    The kernel writes the sums as (N, 7, K): rows dist2, dotmed, norm2,
+    prev_dist2, prev_dot, prev_norm2, then mednorm2 at column 0 and zeros;
+    the returned ``RobustStats`` views them."""
+    n_trim = trim_count(K, beta)
+    if K - 2 * n_trim < 1:
+        raise ValueError(f"beta={beta} trims every one of the K={K} candidates")
+    lib = common.load(STATS_SOURCE, _bind_stats)
+    n_blocks = stats_plan(N, K, D, prev is not None, need_center, dev)["blocks"]
+    f32 = dict(dtype=torch.float32, device=dev)
+    lead = (N,) if entry == "robust_stats_batch" else ()
+    med = torch.empty(lead + (D,), **f32) if need_center else None
+    trim = torch.empty(lead + (D,), **f32) if need_center else None
+    n_part = N * n_blocks * (6 * K + 1)
+    # each CTA's totals, then the nodes' totals: one allocation
+    sums = torch.empty((n_part + N * 7 * K,), **f32)
+    out = sums[n_part:].view(lead + (7, K))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = _zeroed_tickets(N, dev, stream)
+    args = (_ptr(updates), _ptr(prev), _ptr(med), _ptr(trim), _ptr(sums), _ptr(tickets),
+            _ptr(out), *((K,) if entry == "robust_stats" else (N, K)), D, n_trim,
+            n_blocks, stream)
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"{entry}_launch")(*args)
+    common.launch_error(entry, err)
+    f = out.unbind(-2)  # the RobustStats views in two tensor operations
+    tail = f[3:6] if prev is not None else (None, None, None)
+    return RobustStats(med, trim, f[0], f[1], f[2], f[6][..., 0], *tail)
 
 
 def wfagg_round_indexed_cuda(
@@ -278,13 +364,12 @@ def robust_stats_cuda(
     beta: float,
     need_center: bool,
 ) -> RobustStats:
-    """Launch the single-matrix statistics kernel on the tensors' CUDA
-    device and stream.
+    """Launch the single-matrix statistics kernel (kernel 4) on the
+    tensors' CUDA device and stream.
 
     Every output is allocated here with ``torch.empty``: the (D,) centers
-    when ``need_center``, the per-CTA partial sums, and one flat vector
-    ``[dist2 | dotmed | norm2 | prev_dist2 | prev_dot | prev_norm2 |
-    mednorm2]`` that the returned ``RobustStats`` views.
+    when ``need_center``, and one buffer of the per-CTA partial sums and
+    the (7, K) sums that the returned ``RobustStats`` views.  One launch.
     """
     global robust_stats_launches
     K, D = updates.shape
@@ -294,29 +379,12 @@ def robust_stats_cuda(
     if not 1 <= K <= MAX_K:
         raise ValueError(f"the robust_stats kernel takes 1 <= K <= {MAX_K} "
                          f"candidates, got K={K}")
-    n_trim = trim_count(K, beta)
-    if K - 2 * n_trim < 1:
-        raise ValueError(f"beta={beta} trims every one of the K={K} candidates")
     _check("updates", updates, torch.float32, (K, D), dev)
     if prev is not None:
         _check("prev", prev, torch.float32, (K, D), dev)
-    fn = common.load(STATS_SOURCE, _bind_stats).robust_stats_launch
-    f32 = dict(dtype=torch.float32, device=dev)
-    med = torch.empty((D,), **f32) if need_center else None
-    trim = torch.empty((D,), **f32) if need_center else None
-    n_blocks = common.grid_blocks(dev, -(-D // TILE))
-    n_out = 6 * K + 1
-    partials = torch.empty((n_blocks, n_out), **f32)
-    flat = torch.empty((n_out,), **f32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(_ptr(updates), _ptr(prev), _ptr(med), _ptr(trim),
-                 _ptr(partials), _ptr(flat), K, D, n_trim, n_blocks, stream)
-    common.launch_error("robust_stats", err)
+    st = _launch_stats("robust_stats", updates, prev, beta, need_center, 1, K, D, dev)
     robust_stats_launches += 1
-    f = [flat[i * K:(i + 1) * K] for i in range(6)]
-    tail = f[3:] if prev is not None else [None, None, None]
-    return RobustStats(med, trim, f[0], f[1], f[2], flat[6 * K], *tail)
+    return st
 
 
 def robust_stats_batch_cuda(
@@ -329,10 +397,9 @@ def robust_stats_batch_cuda(
     device and stream: every node's (K, D) slab of the gathered tensor.
 
     Every output is allocated here with ``torch.empty``: the (N, D)
-    centers when ``need_center``, the per-CTA partial rows (N, blocks,
-    6K+1), and one (N, 6K+1) tensor ``[dist2 | dotmed | norm2 | prev_dist2
-    | prev_dot | prev_norm2 | mednorm2]`` that the returned
-    ``RobustStats`` views ((N, K) fields, ``mednorm2`` (N,)).
+    centers when ``need_center``, and one buffer of the per-CTA partial
+    rows (N, blocks, 6K+1) and the (N, 7, K) sums that the returned
+    ``RobustStats`` views ((N, K) fields, ``mednorm2`` (N,)).  One launch.
     """
     global batch_launches
     N, K, D = updates.shape
@@ -342,29 +409,13 @@ def robust_stats_batch_cuda(
     if not 1 <= K <= MAX_K:
         raise ValueError(f"the robust_stats_batch kernel takes 1 <= K <= {MAX_K} "
                          f"candidates, got K={K}")
-    if not 1 <= N <= 65535:
-        raise ValueError(f"the robust_stats_batch kernel takes 1 <= N <= 65535 "
+    if not 1 <= N <= MAX_NODES:
+        raise ValueError(f"the robust_stats_batch kernel takes 1 <= N <= {MAX_NODES} "
                          f"nodes, got N={N}")
-    n_trim = trim_count(K, beta)
-    if K - 2 * n_trim < 1:
-        raise ValueError(f"beta={beta} trims every one of the K={K} candidates")
     _check("updates", updates, torch.float32, (N, K, D), dev)
     if prev is not None:
         _check("prev", prev, torch.float32, (N, K, D), dev)
-    fn = common.load(STATS_SOURCE, _bind_stats).robust_stats_batch_launch
-    f32 = dict(dtype=torch.float32, device=dev)
-    med = torch.empty((N, D), **f32) if need_center else None
-    trim = torch.empty((N, D), **f32) if need_center else None
-    n_blocks = common.grid_blocks(dev, -(-D // TILE), rows=N)
-    n_out = 6 * K + 1
-    partials = torch.empty((N, n_blocks, n_out), **f32)
-    flat = torch.empty((N, n_out), **f32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(_ptr(updates), _ptr(prev), _ptr(med), _ptr(trim), _ptr(partials),
-                 _ptr(flat), N, K, D, n_trim, n_blocks, stream)
-    common.launch_error("robust_stats_batch", err)
+    st = _launch_stats("robust_stats_batch", updates, prev, beta, need_center, N, K, D,
+                       dev)
     batch_launches += 1
-    f = [flat[:, i * K:(i + 1) * K] for i in range(6)]
-    tail = f[3:] if prev is not None else [None, None, None]
-    return RobustStats(med, trim, f[0], f[1], f[2], flat[:, 6 * K], *tail)
+    return st

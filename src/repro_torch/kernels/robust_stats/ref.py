@@ -299,3 +299,111 @@ def robust_stats_batch_ref(updates: Tensor, prev: Optional[Tensor] = None,
     if not need_center:
         return center_stats(u, None, None, prev, center=med)
     return center_stats(u, med, trim, prev)
+
+
+def network_pairs(K: int) -> list:
+    """The compare-exchanges ``(lo, hi)`` of ``csrc/robust_stats.cu``'s
+    median network on K wires, in its order (``odd_even_sort``): Batcher's
+    odd-even merge sort on the template width (8, 16 or 32), every one
+    ascending (the smaller value to ``lo``), less those that touch a
+    padding wire ``>= K`` (they leave +inf in place)."""
+    kp = 8 if K <= 8 else 16 if K <= 16 else 32
+    lg = kp.bit_length() - 1
+    pairs = []
+    for lp in range(lg):
+        for lk in range(lp, -1, -1):
+            p, k = 1 << lp, 1 << lk
+            j0 = k % p
+            for lo in range(kp):
+                hi = lo + k
+                if (lo >= j0 and (lo - j0) % (2 * k) < k and hi < K
+                        and lo // (2 * p) == hi // (2 * p)):
+                    pairs.append((lo, hi))
+    return pairs
+
+
+def robust_stats_kernel_order(
+    updates: Tensor,
+    prev: Optional[Tensor] = None,
+    beta: float = 0.1,
+    need_center: bool = True,
+    blocks: int = 1,
+) -> RobustStats:
+    """``robust_stats_batch_ref`` of ``updates (N, K, D)`` (or ``(K, D)``,
+    kernel 4's single matrix, then every field without the N axis)
+    computed in the order of the CUDA kernels 4 and 5
+    (``csrc/robust_stats.cu``) with ``blocks`` CTAs per node: the median
+    network of ``network_pairs`` with ``torch.fmin`` / ``torch.fmax`` (a
+    NaN is dropped) and a per-column NaN flag that makes ``med`` and
+    ``trim`` NaN; ``trim`` the sorted ranks t .. K-t-1 added in rank order
+    and divided; D in tiles of 256 coordinates, CTA b taking tiles b, b +
+    B, ... (B = min(blocks, tiles)); per slot, lane i adding coordinates
+    4i .. 4i + 3 and 128 + 4i .. 128 + 4i + 3 of a tile, each term the
+    float32 value the plain version forms, into float32 running sums (no
+    fused multiply-add); the 32 lanes by an xor butterfly; mednorm2 per
+    thread (one coordinate of each tile), by warp butterflies and the 8
+    warps in order; then the B CTAs in block order.  Every operation is a
+    float32 operation the kernel also performs, so on the same inputs the
+    results equal the kernel's bit for bit."""
+    single = updates.ndim == 2
+    u = updates.to(torch.float32)
+    pe = None if prev is None else prev.to(torch.float32)
+    if single:
+        u = u[None]
+        pe = None if pe is None else pe[None]
+    N, K, D = u.shape
+
+    # the median network and the NaN flag
+    wires = list(u.unbind(1))
+    for lo, hi in network_pairs(K):
+        a, b = wires[lo], wires[hi]
+        wires[lo], wires[hi] = torch.fmin(a, b), torch.fmax(a, b)
+    nan = torch.isnan(u).any(1)                          # (N, D)
+    med = wires[K // 2] if K % 2 == 1 else 0.5 * (wires[K // 2 - 1] + wires[K // 2])
+    med = torch.where(nan, torch.nan, med)
+    trim = None
+    if need_center:
+        t = trim_count(K, beta)
+        tsum = torch.zeros_like(med)
+        for r in range(t, K - t):
+            tsum = tsum + wires[r]
+        trim = torch.where(nan, torch.nan, tsum / torch.full_like(tsum, K - 2 * t))
+
+    n_tiles = -(-D // KERNEL_TILE)
+    B = min(blocks, n_tiles)
+    my = -(-n_tiles // B)                                # tiles of CTA 0, the most
+    pad = my * B * KERNEL_TILE - D
+    exists = (torch.arange(my)[:, None] * B + torch.arange(B)[None, :]) < n_tiles
+    exists = exists.to(u.device)
+    tiles = lambda x: torch.nn.functional.pad(x, (0, pad)).reshape(  # noqa: E731
+        *x.shape[:-1], my, B, KERNEL_TILE)
+    U, M = tiles(u), tiles(med)                          # (N, K, my, B, T), (N, my, B, T)
+    P = None if pe is None else tiles(pe)
+    lane = lambda X, i, q, e: X[..., i, :, :].reshape(  # noqa: E731
+        *X.shape[:-3], B, 2, 32, 4)[..., q, :, e]
+    n_fields = 6 if P is not None else 3
+    acc = torch.zeros((n_fields, N, K, B, 32), dtype=torch.float32, device=u.device)
+    mn2 = torch.zeros((N, B, KERNEL_TILE), dtype=torch.float32, device=u.device)
+    for i in range(my):
+        live = exists[i][:, None]                        # (B, 1)
+        mi = M[:, i]                                     # (N, B, T)
+        mn2 = torch.where(live, mn2 + mi * mi, mn2)
+        for q in range(2):
+            for e in range(4):
+                x, m = lane(U, i, q, e), lane(M, i, q, e)[:, None]
+                dd = x - m
+                terms = [dd * dd, x * m, x * x]
+                if P is not None:
+                    p = lane(P, i, q, e)
+                    dp = x - p
+                    terms += [dp * dp, x * p, p * p]
+                acc = torch.where(live, acc + torch.stack(terms), acc)
+    fields = _in_order(_butterfly(acc))                  # (n_fields, N, K)
+    warps = _butterfly(mn2.reshape(N, B, KERNEL_WARPS, 32))
+    mednorm2 = _in_order(_in_order(warps))
+    tail = tuple(fields[3:]) if P is not None else (None, None, None)
+    st = RobustStats(med if need_center else None, trim, fields[0], fields[1],
+                     fields[2], mednorm2, *tail)
+    if single:
+        st = RobustStats(*(None if f is None else f[0] for f in st))
+    return st
