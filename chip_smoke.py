@@ -17,7 +17,8 @@ Phases, each of which fails the run:
      and the thread-block cluster size (CTAs per node) of kernels 1 and 2;
      and, for kernels 4 and 5 at their timed shapes, the stages of the
      ``cp.async`` ring, the tile width, the CTAs per SM and per node and
-     the network's width;
+     the network's width; and kernel 3's plan (nodes a CTA, tile, stages,
+     shared memory and CTAs at its timed and checked shapes);
   2. hold each kernel against its plain PyTorch version on the card (a
      mask of kernel 1 or 2 that differs from the plain version's must be a
      near-tie by phase 3's rule, ``NEAR_TIE``: within 1e-4, relative, of a
@@ -40,8 +41,11 @@ Phases, each of which fails the run:
        Clustering masks bit-equal; two bit-identical rows a, b with
        bit-identical Gram rows, G[a,a] == G[a,b] == G[b,b] and squared
        distance exactly 0);
-     - the combine (``weighted_agg.cu``) within 3e-5, and exactly ``local``
-       with all-zero weights;
+     - the combine (``weighted_agg.cu``, kernel 7) bit for bit (NaN in the
+       same places) at the CFL shape (K=20, d=44,426), K=32 d=20,011, K=32
+       D=2^22, on views 1-3 floats off a 16-byte boundary at D % 4 = 1 and
+       3, K=40 with a NaN row of weight 0, and K=1;
+       exactly ``local`` with all-zero weights;
      - the round kernel's Gram variant (Alt-WFAgg) on the paper's ring and
        on irregular slates with a degree-0 row at K=8/16/20/32 (K=20 at
        d=44,426, K=32 at d=20,011), each with two
@@ -52,9 +56,15 @@ Phases, each of which fails the run:
      - the gather-free statistics (``robust_stats_indexed.cu``) on the same
        slates with and without ``prev`` and the Gram (within rtol 1e-4,
        Gram exactly symmetric, identical rows tied, masks bit-equal) and
-       the gather-free combine (``weighted_agg_indexed.cu``: within 1e-6 of
-       the output's scale, exactly ``local`` with zero weights and on a
-       degree-0 row);
+       the gather-free combine (``weighted_agg_indexed.cu``, kernel 3: bit for
+       bit, NaN in the same places, exactly ``local`` with zero weights and
+       on a degree-0 row), also at N=64 K=16 d=2^20, at d % 4 = 1 and 3 on
+       misaligned views with a NaN row of weight 0, on the paper's stacked
+       chaos matrix with ``local`` a view of the matrix itself, and on a
+       stacked chaos matrix from ``apply_transport`` with a ring of 12 past
+       matrices, whose rows split the nodes into groups (G < N); the
+       combine wrappers at d % 4 = 2 allocate their output and O(N K)
+       coefficients only (peak memory);
      then time each kernel, its plain version, its bound and, where one
      PyTorch call computes the same function, that call, with CUDA
      events: the round at N=64, K=16, d=2^20; the CFL kernels at the CFL
@@ -62,7 +72,8 @@ Phases, each of which fails the run:
      the two-launch kernels at the paper's shape and at N=64, K=16,
      d=2^20 (kernels 1 and 2 in every variant at both shapes, printed in
      one table beside their bounds, plain versions and their times before
-     their redesign onto one phase-0 body); the Gram variant's cost by
+     their redesign onto one phase-0 body; kernels 3 and 7 at both shapes
+     beside their times before this redesign); the Gram variant's cost by
      difference at N=64, K=32, d=8192;
      and the gossip aggregation on ``fused`` against ``fused_two_launch``
      at N=64, K=16, d=2^20;
@@ -559,25 +570,67 @@ def compare_gram(torch, K, D, seed) -> float:
     return err
 
 
-def compare_weighted_agg(torch, K, D, seed) -> float:
+def misaligned(torch, shape, offset, g):
+    """A contiguous float32 view of ``shape`` on the card whose first element
+    sits ``offset`` floats past a 16-byte boundary (standard normal)."""
+    import math
+
+    n = math.prod(shape)
+    return torch.randn((n + 4,), generator=g, device="cuda")[offset:offset + n].view(shape)
+
+
+def compare_weighted_agg(torch, label, K, D, seed, offset=0, nan_row=None) -> float:
+    """Kernel 7 through ``ops.weighted_agg`` against its plain version, bit
+    for bit: the CFL server's candidates (two bit-identical attacker rows,
+    weights 0 on them) at ``offset`` = 0, else a view ``offset`` floats off
+    a 16-byte boundary; ``nan_row`` holds a NaN and weight 0, so its
+    coordinate is NaN in both.  All-zero weights give ``local``: NaN
+    exactly where a row holds one, ``local``'s values everywhere else."""
     from repro_torch.core.trust import combine_coefficients
     from repro_torch.kernels.weighted_agg import ops
 
-    u, _, dup = cfl_candidates(torch, K, D, seed)
-    local = u[1:].mean(0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if offset == 0:
+        u, _, dup = cfl_candidates(torch, K, D, seed)
+        local = u[1:].mean(0) if K > 1 else u[0] + 0.5
+    else:
+        u, local, dup = misaligned(torch, (K, D), offset, g), misaligned(torch, (D,), offset, g), 0
     w = torch.where(torch.arange(K, device="cuda") % 3 == 0, 0.6, 0.8)
-    w[0] = w[dup] = 0.0
+    if K > 1:
+        w[0] = w[dup] = 0.0
+    if nan_row is not None:
+        u[nan_row, D // 2] = float("nan")
+        w[nan_row] = 0.0
     got = ops.weighted_agg(local, u, w, alpha=0.8)
     want = ops.weighted_agg_plain(*combine_coefficients(w, 0.8), local, u)
     zero = ops.weighted_agg(local, u, torch.zeros_like(w), alpha=0.8)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=OUT_TOL, atol=OUT_TOL)
-    if not torch.equal(zero, local):
-        raise AssertionError(f"weighted_agg K={K}: all-zero weights did not keep local")
-    err = float((got - want).abs().max())
-    print(f"  weighted_agg K={K} D={D}: within {OUT_TOL}, zero weights give local "
-          f"exactly, max|err| {err:.3g}")
-    return err
+    if got.shape != (D,) or not got.is_contiguous():
+        raise AssertionError(f"{label}: out has shape {tuple(got.shape)}, contiguous "
+                             f"{got.is_contiguous()}")
+    if not bit_equal(torch, got, want):
+        raise AssertionError(f"{label}: weighted_agg differs from its plain version, max|err| "
+                             f"{float((got - want).nan_to_num().abs().max()):.3g}")
+    nan_at = combine_nan_places(torch, local[None], u, torch.arange(K, device="cuda")[None])[0]
+    if not keeps_local(torch, zero, local, nan_at):
+        raise AssertionError(f"{label}: all-zero weights did not keep local")
+    n_nan = int(torch.isnan(got).sum())
+    print(f"  {label}: bit for bit ({D} values, {n_nan} NaN where the plain version has "
+          f"them), zero weights give local exactly")
+    return float((got - want).nan_to_num().abs().max())
+
+
+# kernel 7's phase-2 cases: (label, K, D, seed, offset, nan_row); D % 4 = 2, 3,
+# 0, 1, 3, 1
+COMBINE_CASES = (
+    ("weighted_agg CFL K=20 d=44426", CFL_K, CFL_D, 10, 0, None),
+    ("weighted_agg K=32 d=20011", 32, 20011, 10, 0, None),
+    ("weighted_agg K=32 D=2^22", BIG_K, BIG_D, 10, 0, None),
+    ("weighted_agg K=7 d=4097, 1 float off 16 bytes", 7, 4097, 13, 1, None),
+    ("weighted_agg K=40 d=44427, 2 floats off, a NaN row of weight 0", 40, 44427, 14,
+     2, 3),
+    ("weighted_agg K=1 d=37, 3 floats off", 1, 37, 15, 3, None),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -722,53 +775,153 @@ def compare_indexed_stats(torch, label, N, K, d, idx, valid, seed, dup,
     return max(errs)
 
 
-def compare_weighted_agg_indexed(torch, label, N, K, d, idx, valid, seed) -> float:
-    """Kernel 3 against its plain version (within 1e-6 of the output's
-    scale), exactly ``local`` with zero weights, and a degree-0 row keeps
-    its local model."""
+def compare_weighted_agg_indexed(torch, label, N, K, d, idx, valid, seed, models=None,
+                                 local=None, offset=0, nan_row=None) -> float:
+    """Kernel 3 through ``ops.weighted_agg_indexed`` against its plain version,
+    bit for bit: random (N, d) models (or the given matrix and local: a
+    stacked chaos matrix), views ``offset`` floats off a 16-byte boundary
+    where ``offset`` > 0, 30% of the weights 0; ``nan_row`` (a row the
+    table reaches) holds a NaN at one coordinate, and the slots that read
+    it weight 0, so every node reading it has a NaN there.  All-zero
+    weights give ``local``, and a degree-0 row keeps its local model: NaN
+    exactly where the inputs put it (``combine_nan_places``), ``local``'s
+    values everywhere else."""
     from repro_torch.core.trust import combine_coefficients
+    from repro_torch.kernels.weighted_agg import kernel as wk
     from repro_torch.kernels.weighted_agg import ops
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    models = torch.randn((N, d), generator=g, device="cuda") + 0.3
-    local = torch.randn((N, d), generator=g, device="cuda")
+    if models is None:
+        models = misaligned(torch, (N, d), offset, g).add_(0.3)
+        local = misaligned(torch, (N, d), offset, g)
     idx_t = torch.as_tensor(idx, device="cuda")
     v = (torch.ones((N, K), dtype=torch.bool, device="cuda") if valid is None
          else torch.as_tensor(valid, device="cuda"))
     w = torch.where(torch.rand((N, K), generator=g, device="cuda") < 0.3, 0.0, 0.8)
     w = torch.where(v, w, 0.0)
+    if nan_row is not None:
+        models[nan_row, d // 2] = float("nan")
+        w = torch.where(idx_t == nan_row, 0.0, w)
     got = ops.weighted_agg_indexed(local, models, idx_t, w, alpha=0.8)
     want = ops.weighted_agg_indexed_plain(*combine_coefficients(w, 0.8), local, models,
                                           idx_t)
     zero = ops.weighted_agg_indexed(local, models, idx_t, torch.zeros_like(w), alpha=0.8)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    if err > 1e-6 * scale:
-        raise AssertionError(f"{label}: weighted_agg_indexed off its plain version by "
-                             f"{err:.3g} (scale {scale:.3g})")
-    if not torch.equal(zero, local):
+    if got.shape != (N, d) or not got.is_contiguous():
+        raise AssertionError(f"{label}: out has shape {tuple(got.shape)}, contiguous "
+                             f"{got.is_contiguous()}")
+    if not bit_equal(torch, got, want):
+        raise AssertionError(f"{label}: weighted_agg_indexed differs from its plain "
+                             f"version, max|err| "
+                             f"{float((got - want).nan_to_num().abs().max()):.3g}")
+    nan_at = combine_nan_places(torch, local, models, idx_t)
+    if not keeps_local(torch, zero, local, nan_at):
         raise AssertionError(f"{label}: all-zero weights did not keep local")
     deg0 = ~v.any(1)
-    if not torch.equal(got[deg0], local[deg0]):
+    if not keeps_local(torch, got[deg0], local[deg0], nan_at[deg0]):
         raise AssertionError(f"{label}: a degree-0 row did not keep its local model")
-    print(f"  {label}: within 1e-6 of scale {scale:.3g} (max|err| {err:.3g}), zero "
-          f"weights give local exactly, {int(deg0.sum())} degree-0 rows keep local")
-    return err
+    plan = wk.combine_plan(models.shape[0], N, K, d, "cuda")
+    print(f"  {label}: bit for bit ({N * d} values, {int(torch.isnan(got).sum())} NaN "
+          f"where the plain version has them), zero weights give local exactly, "
+          f"{int(deg0.sum())} degree-0 rows keep local; M={models.shape[0]}, G="
+          f"{plan['group']} ({plan['n_groups']} groups), T={plan['tile']}")
+    return float((got - want).nan_to_num().abs().max())
+
+
+def combine_nan_places(torch, local, models, idx):
+    """(N, d) bool: where a combine of ``local`` (N, d) and the rows of
+    ``models`` that the table ``idx`` (N, K) reaches is NaN whatever its
+    weights: a NaN in ``local``, or a value that is not finite in a row that
+    any slot reaches (no slot is skipped, and 0 * inf is NaN)."""
+    out = torch.isnan(local)
+    cols = torch.nonzero((~torch.isfinite(models)).any(0)).flatten()
+    if cols.numel():
+        out[:, cols] |= (~torch.isfinite(models[:, cols]))[idx.long()].any(1)
+    return out
+
+
+def keeps_local(torch, out, local, nan_at) -> bool:
+    """``out`` is NaN exactly at ``nan_at`` and equals ``local`` elsewhere."""
+    return torch.equal(torch.isnan(out), nan_at) and torch.equal(out[~nan_at], local[~nan_at])
+
+
+def check_combine_indexed_extra(torch) -> list:
+    """Kernel 3 beyond the Gram-round slates: at its timed shape, at d % 4 = 1
+    and 3 on misaligned views with a NaN row of weight 0, on the paper's
+    stacked chaos matrix with ``local`` a view of the matrix itself (its
+    rows then staged once with the table's), and on a stacked chaos matrix
+    deep enough (a ring of 12 past matrices) that the plan splits the nodes
+    into groups."""
+    from repro_torch.dfl import faults as flt
+    from repro_torch.kernels.weighted_agg import kernel as wk
+
+    ring = [[(n + o) % 64 for o in range(1, 17)] for n in range(64)]
+    errs = [compare_weighted_agg_indexed(torch, "weighted_agg_indexed ring N=64 K=16 d=2^20",
+                                         64, 16, 1 << 20, ring, None, 61)]
+    for N, K, d, off, seed in ((20, 8, 44425, 1, 62), (40, 16, 44427, 3, 63)):
+        idx, valid = irregular_slate(N, K, seed)
+        errs.append(compare_weighted_agg_indexed(
+            torch, f"weighted_agg_indexed irregular N={N} K={K} d={d} (degree 0), {off} "
+            f"floats off 16 bytes, a NaN row of weight 0", N, K, d, idx, valid, seed,
+            offset=off, nan_row=int(idx[0, 0])))
+    r, flat, tout = paper_chaos_stack(torch, 44426)
+    errs.append(compare_weighted_agg_indexed(
+        torch, f"weighted_agg_indexed paper churn+chaos round {r}, local = the matrix's "
+        f"first rows", 20, 8, 44426, tout.eff_idx, tout.eff_valid, 64, models=tout.full,
+        local=tout.full[:20]))
+    N, K, d = 48, 32, 20011
+    idx, valid = irregular_slate(N, K, 65)
+    flat, tout = chaos_stack(torch, N, K, d, idx, valid, 65,
+                             fcfg=flt.FaultConfig(ring_depth=12))
+    errs.append(compare_weighted_agg_indexed(
+        torch, f"weighted_agg_indexed irregular N={N} K={K} d={d} churn+chaos, ring depth "
+        f"12", N, K, d, tout.eff_idx, tout.eff_valid, 65, models=tout.full, local=flat))
+    if wk.combine_plan(tout.full.shape[0], N, K, d)["group"] >= N:
+        raise AssertionError("the deep chaos stack did not split the nodes into groups")
+    return errs
+
+
+def check_combine_memory(torch) -> None:
+    """The combine wrappers at d % 4 = 2 allocate their output and O(N K)
+    coefficients, nothing at the width of the rows: the peak allocation
+    above what was held before the call, against the output's bytes."""
+    from repro_torch.kernels.weighted_agg import ops
+
+    g = torch.Generator(device="cuda").manual_seed(66)
+    N, K, d = 20, 8, 44426
+    models = torch.randn((N, d), generator=g, device="cuda")
+    local = torch.randn((N, d), generator=g, device="cuda")
+    idx = torch.as_tensor([[(n + o) % N for o in range(1, K + 1)] for n in range(N)],
+                          device="cuda")
+    w = torch.rand((N, K), generator=g, device="cuda")
+    slack = 64 << 10                     # the O(N K) coefficients, in 512-byte blocks
+    for label, call, out_bytes in (
+            ("weighted_agg_indexed", lambda: ops.weighted_agg_indexed(local, models, idx, w),
+             4 * N * d),
+            ("weighted_agg", lambda: ops.weighted_agg(local[0], models[:K], w[0]), 4 * d)):
+        call()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        del out
+        if peak > out_bytes + slack:
+            raise AssertionError(f"{label} at d={d}: {peak} bytes allocated at the peak, "
+                                 f"for an output of {out_bytes}")
+        print(f"  {label} N={N} K={K} d={d}: {peak} bytes allocated at the peak, the "
+              f"output {out_bytes} (no copy of the rows)")
 
 
 def time_dfl_kernels(torch, N, K, d, seed) -> dict:
-    """The round kernel's Gram variant, kernel 2 (with Gram and prev) and
-    kernel 3 through their ``*_cuda`` wrappers on a ring slate, their
-    plain versions, bounds and, for kernel 3, the library calls.  Returns
-    name -> {ms, plain_ms, bound_ms, bound_by, library_ms}."""
-    from repro_torch.core.trust import combine_coefficients
-    from repro_torch.kernels.common import pad_d
+    """The round kernel's Gram variant and kernel 2 (with Gram and prev)
+    through their ``*_cuda`` wrappers on a ring slate, their plain versions
+    and bounds.  Returns name -> {ms, plain_ms, bound_ms, bound_by,
+    library_ms}."""
     from repro_torch.kernels.robust_stats import kernel as rk
     from repro_torch.kernels.robust_stats import ops as rops
     from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
-    from repro_torch.kernels.weighted_agg import kernel as wk
-    from repro_torch.kernels.weighted_agg import ops as wops
 
     idx = [[(n + o) % N for o in range(1, K + 1)] for n in range(N)]
     models, prev, idx_t, _, tbands, _ = round_inputs(torch, N, K, d, idx, None, seed)
@@ -801,29 +954,55 @@ def time_dfl_kernels(torch, N, K, d, seed) -> dict:
         plain_ms=time_cuda(torch, lambda: robust_stats_indexed_ref(
             models, idx_t, v, prev, need_gram=True), 1, 5),
         bound_ms=b[0], bound_by=b[1], library_ms=None)
-    # every node accepts someone, so lcoef is one number (beta of baddbmm)
-    w = torch.where(torch.arange(K, device="cuda") % 3 == 0, 0.6, 0.8).expand(N, K)
-    wvec, lcoef = combine_coefficients(w.contiguous(), 0.8)
-    lc = float(lcoef[0])
-    b = bound(4.0 * 3 * N * d, 2.0 * N * K * d)  # models, local, out
-    l4, m4 = pad_d(local, 4).contiguous(), pad_d(models, 4).contiguous()
-    out["weighted_agg_indexed"] = dict(
-        ms=time_cuda(torch, lambda: wk.weighted_agg_indexed_cuda(
-            wvec, lcoef, l4, m4, i32), 3, 25),
-        plain_ms=time_cuda(torch, lambda: wops.weighted_agg_indexed_plain(
-            wvec, lcoef, local, models, idx_t), 1, 5),
-        bound_ms=b[0], bound_by=b[1],
-        # two calls: the gather, then one batched matrix product
-        library_ms=time_cuda(torch, lambda: torch.baddbmm(
-            local[:, None], wvec[:, None], models[idx_t], beta=lc), 3, 25))
     for name, t in out.items():
-        lib = ("none" if t["library_ms"] is None
-               else f"{t['library_ms']:.4f} ms (models[idx] + torch.baddbmm)")
         name = name.replace("_no_gram", " (prev, without the Gram)")
         print(f"  {name} N={N} K={K} d={d}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-              f"({t['bound_by']}), library {lib}")
+              f"({t['bound_by']}), library none")
     return out
+
+
+def combine_indexed_inputs(torch, N, K, d, seed):
+    """Kernel 3's timed inputs: random models and a local matrix of their
+    own, a ring slate, weights that accept someone on every node (so lcoef
+    is one number, the beta of ``baddbmm``), and the coefficients."""
+    from repro_torch.core.trust import combine_coefficients
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    models = torch.randn((N, d), generator=g, device="cuda") + 0.3
+    local = torch.randn((N, d), generator=g, device="cuda")
+    idx = torch.as_tensor([[(n + o) % N for o in range(1, K + 1)] for n in range(N)],
+                          dtype=torch.int32, device="cuda")
+    w = torch.where(torch.arange(K, device="cuda") % 3 == 0, 0.6, 0.8).expand(N, K)
+    wvec, lcoef = combine_coefficients(w.contiguous(), 0.8)
+    return models, local, idx, w.contiguous(), wvec, lcoef
+
+
+def time_combine_indexed(torch, N, K, d, seed) -> dict:
+    """Kernel 3 through its ``*_cuda`` wrapper on a ring slate (every input
+    read once: models, local; out written once), its plain version, its
+    bound and the library calls (the gather, then one batched matrix
+    product), beside the ops-level wrapper as the main path calls it."""
+    from repro_torch.kernels.weighted_agg import kernel as wk
+    from repro_torch.kernels.weighted_agg import ops as wops
+
+    models, local, idx, w, wvec, lcoef = combine_indexed_inputs(torch, N, K, d, seed)
+    lc = float(lcoef[0])
+    b = bound(4.0 * 3 * N * d, 2.0 * N * K * d)
+    t = dict(
+        ms=time_cuda(torch, lambda: wk.weighted_agg_indexed_cuda(
+            wvec, lcoef, local, models, idx), 3, 25),
+        plain_ms=time_cuda(torch, lambda: wops.weighted_agg_indexed_plain(
+            wvec, lcoef, local, models, idx), 1, 5),
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=time_cuda(torch, lambda: torch.baddbmm(
+            local[:, None], wvec[:, None], models[idx.long()], beta=lc), 3, 25))
+    ops_ms = time_cuda(torch, lambda: wops.weighted_agg_indexed(local, models, idx, w), 3, 25)
+    print(f"  weighted_agg_indexed N={N} K={K} d={d}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+          f"library {t['library_ms']:.4f} ms (models[idx] + torch.baddbmm); "
+          f"ops.weighted_agg_indexed {ops_ms:.4f} ms")
+    return t
 
 
 def time_gram_epilogue(torch, N, K, d, seed) -> None:
@@ -854,12 +1033,12 @@ def time_gram_epilogue(torch, N, K, d, seed) -> None:
         f"{ms['alt_wfagg'] - ms['multi_krum+wfagg_c']:.4f} ms)")
 
 
-def time_dfl_backends(torch, N, K, d, seed) -> None:
+def time_dfl_backends(torch, N, K, d, seed, aggregators=("wfagg", "alt_wfagg")) -> dict:
     """The gossip round's aggregation (``wfagg_batch``, host work included)
     on ``fused`` (one launch) against ``fused_two_launch`` (two launches
     and the host scoring stage), for WFAgg and Alt-WFAgg, on a ring slate
     with live temporal state; in turns: fused, two-launch, two-launch,
-    fused."""
+    fused.  Returns aggregator -> backend -> [ms, ms]."""
     import dataclasses
 
     from repro_torch.core import wfagg as wf
@@ -871,8 +1050,10 @@ def time_dfl_backends(torch, N, K, d, seed) -> None:
     state = wf.TemporalState(prev=prev, hist_s=hist(), hist_b=hist(),
                              count=torch.full((N,), 3, dtype=torch.int32, device="cuda"),
                              t=torch.full((N,), 5, dtype=torch.int32, device="cuda"))
-    for name, base in (("wfagg", wf.WFAggConfig()), ("alt_wfagg", alt_config(K))):
-        ms = {}
+    out = {}
+    for name in aggregators:
+        base = wf.WFAggConfig() if name == "wfagg" else alt_config(K)
+        ms = out[name] = {}
         for backend in ("fused", "fused_two_launch", "fused_two_launch", "fused"):
             cfg = dataclasses.replace(base, backend=backend)
             ms.setdefault(backend, []).append(time_cuda(torch, lambda: wf.wfagg_batch(
@@ -880,12 +1061,16 @@ def time_dfl_backends(torch, N, K, d, seed) -> None:
         print(f"  {name} aggregation N={N} K={K} d={d} (wfagg_batch, median ms of "
               f"10, two turns each): fused {ms['fused']}, fused_two_launch "
               f"{ms['fused_two_launch']}")
+    return out
 
 
-# kernels 1 and 2 before their redesign onto one phase-0 body, in ms by
-# (entry, shape), as PERF.md section 6 records them; "big" is N=64, K=16,
-# d=2^20, "paper" N=20, K=8, d=44,426
+# kernels 1 and 2 before their redesign onto one phase-0 body, and kernels
+# 3 and 7 before theirs, in ms by (entry, shape), as PERF.md section 6
+# records them; "big" is N=64, K=16, d=2^20 for kernels 1-3 and
+# K=32, D=2^22 for kernel 7, "paper" N=20, K=8, d=44,426
 BEFORE_MS = {
+    ("weighted_agg_indexed", "big"): 0.6620,
+    ("weighted_agg", "big"): 0.2660,
     ("wfagg_round_indexed", "big"): 25.63,
     ("wfagg_round_indexed[prev_idx]", "big"): 31.32,
     ("wfagg_round_indexed[per_edge_prev]", "big"): 37.50,
@@ -933,6 +1118,35 @@ STATS_SHAPES = (
     ("kernel 5, N=64 K=16 d=2^20, per-edge prev", 64, 16, 1 << 20, True, False),
     ("kernel 5, N=64 K=16 d=2^20, centers", 64, 16, 1 << 20, False, True),
 )
+
+
+def print_combine_plans() -> None:
+    """How kernel 3 runs at its timed and checked shapes: its group of nodes
+    a CTA, tile, stages, shared memory and CTAs (``kernel.combine_plan``)."""
+    from repro_torch.kernels.weighted_agg import kernel as wk
+
+    for label, M, N, K, d in (("ring", 64, 64, 16, 1 << 20), ("paper ring", 20, 20, 8, 44426),
+                              ("paper chaos stack", 84, 20, 8, 44426),
+                              ("chaos stack", 260, 64, 16, 1 << 20),
+                              ("chaos stack, ring depth 12", 628, 48, 32, 20011)):
+        p = wk.combine_plan(M, N, K, d, "cuda")
+        print(f"    kernel 3, {label} M={M} N={N} K={K} d={d}: G={p['group']} "
+              f"({p['n_groups']} groups), {p['rows']} rows a stage, T={p['tile']}, "
+              f"{p['stages']} stages, {p['smem']} bytes, {p['ctas_per_sm']} CTAs per SM, "
+              f"{p['blocks']} CTAs per group")
+
+
+def print_combine_times(timed: dict) -> None:
+    """Kernels 3 and 7 at their timed shapes and the paper's: time, bound,
+    plain version, library call, and the time before their redesign."""
+    for name, big in (("weighted_agg_indexed", "N=64 K=16 d=2^20"),
+                      ("weighted_agg", "K=32 D=2^22")):
+        for where, t in ((big, timed[name]), ("paper shape", timed[name]["paper_shape"])):
+            before = BEFORE_MS.get((name, "big")) if where == big else None
+            was = f"{before} ms (PERF.md)" if before else "not recorded"
+            print(f"    {name:21s} {where:17s} {t['ms']:8.4f} / {t['bound_ms']:.5f} "
+                  f"({t['bound_by']}) / {t['plain_ms']:8.4f} / {t['library_ms']:.4f}; "
+                  f"before: {was}")
 
 
 def print_stats_plans() -> None:
@@ -1012,7 +1226,6 @@ def time_cfl_kernels(torch, K, D, seed) -> dict:
     function.  Returns name -> {ms, plain_ms, bound_ms, bound_by,
     library_ms}."""
     from repro_torch.core.trust import combine_coefficients
-    from repro_torch.kernels.common import pad_d
     from repro_torch.kernels.pairwise_dist import kernel as pk
     from repro_torch.kernels.pairwise_dist import ops as pops
     from repro_torch.kernels.robust_stats import kernel as rk
@@ -1033,18 +1246,16 @@ def time_cfl_kernels(torch, K, D, seed) -> dict:
     wvec, lcoef = combine_coefficients(w, 0.8)
     lcoef = lcoef.reshape(1)
     local = u[1:].mean(0)
-    u4, l4 = pad_d(u, 4).contiguous(), pad_d(local, 4).contiguous()
     lc = float(lcoef)
     b = bound(4.0 * (K + 2) * D, 2.0 * K * D)
     out["weighted_agg"] = dict(
-        ms=time_cuda(torch, lambda: wk.weighted_agg_cuda(wvec, lcoef, l4, u4), 3, 25),
+        ms=time_cuda(torch, lambda: wk.weighted_agg_cuda(wvec, lcoef, local, u), 3, 25),
         plain_ms=time_cuda(torch, lambda: wops.weighted_agg_plain(
             wvec, lcoef, local, u), 1, 5),
         bound_ms=b[0], bound_by=b[1],
         library_ms=time_cuda(torch, lambda: torch.addmv(local, u.t(), wvec, beta=lc),
                              3, 25))
-    # the ops-level wrappers as the main path calls them (coefficients, and
-    # the row padding of the combine when D % 4 != 0)
+    # the ops-level wrappers as the main path calls them (the coefficients)
     wrap = (time_cuda(torch, lambda: rops.robust_stats(u, prev, need_center=False), 3, 25),
             time_cuda(torch, lambda: pops.pairwise_gram(u), 3, 25),
             time_cuda(torch, lambda: wops.weighted_agg(local, u, w, alpha=0.8), 3, 25))
@@ -1062,17 +1273,19 @@ def time_cfl_kernels(torch, K, D, seed) -> dict:
 # phase 2: the prev_idx variants of kernels 1 and 2 (chaos transport)
 # ---------------------------------------------------------------------------
 
-def chaos_stack(torch, N, K, d, idx, valid, seed, fault_round=None, rnd=3, dup=(0, 4)):
+def chaos_stack(torch, N, K, d, idx, valid, seed, fault_round=None, rnd=3, dup=(0, 4),
+                fcfg=None):
     """One round's stacked chaos matrix, built by the port's own
     ``apply_transport`` on the card: models with two bit-identical attacker
-    rows, a ring of three earlier matrices, a random served-lag table and
-    a fault round (``fault_round``: numpy (drop, lag, dup, corrupt, down);
-    random by default, with no crashed node).  Returns ``(flat, tout)``."""
+    rows, a ring of earlier matrices (three, or ``fcfg.ring_depth``), a
+    random served-lag table and a fault round (``fault_round``: numpy
+    (drop, lag, dup, corrupt, down); random by default, with no crashed
+    node).  Returns ``(flat, tout)``."""
     import numpy as np
 
     from repro_torch.dfl import faults as flt
 
-    fcfg = flt.FaultConfig()
+    fcfg = fcfg or flt.FaultConfig()
     g = torch.Generator(device="cuda").manual_seed(seed)
     flat = torch.randn((N, d), generator=g, device="cuda") + 0.3
     flat[dup[1]] = flat[dup[0]] = -100.0 * flat.mean(0)
@@ -1449,6 +1662,13 @@ def same_bits(torch, a, b) -> bool:
     """Equal values, NaN in the same places."""
     return torch.equal(torch.isnan(a), torch.isnan(b)) and \
         torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+def bit_equal(torch, a, b) -> bool:
+    """The same float32 bits everywhere: the sign of a zero, an infinity
+    and a NaN's payload included."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
 
 
 def compare_robust_stats_batch(torch, label, u, prev, tie, nan_node, need_center) -> float:
@@ -2775,6 +2995,7 @@ def main() -> int:
                 print(f"    {so.name.rsplit('_', 1)[0]} {entry} ptxas: {line.strip()}")
     print_cluster_sizes()
     print_stats_plans()
+    print_combine_plans()
 
     # ---- phase 2: kernel vs plain -------------------------------------------
     print("[2] kernel vs plain version on the card")
@@ -2794,8 +3015,7 @@ def main() -> int:
                              for K, d in ((7, 20011), (32, 20011))]
     errs["pairwise_gram"] = [compare_gram(torch, K, D, 9) for K, D in (
         (CFL_K, CFL_D), (BIG_K, BIG_D), (7, 37), (32, 37))]
-    errs["weighted_agg"] = [compare_weighted_agg(torch, K, d, 10)
-                            for K, d in ((CFL_K, CFL_D), (32, 20011))]
+    errs["weighted_agg"] = [compare_weighted_agg(torch, *case) for case in COMBINE_CASES]
     paper = time_round(torch, 20, 8, 44426, seed=5)
     print(f"  paper shape N=20 K=8 d=44426: kernel {paper[0]:.4f} ms, plain "
           f"{paper[1]:.4f} ms, bound {paper[2]:.5f} ms ({paper[3]})")
@@ -2805,8 +3025,10 @@ def main() -> int:
           "this function, so there is no library time")
     timed = {"wfagg_round_indexed": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                          bound_by=bound_by, library_ms=None)}
-    time_cfl_kernels(torch, CFL_K, CFL_D, seed=11)
+    cfl_timed = time_cfl_kernels(torch, CFL_K, CFL_D, seed=11)
     timed.update(time_cfl_kernels(torch, BIG_K, BIG_D, seed=12))
+    for name, t in cfl_timed.items():
+        timed[name]["paper_shape"] = t
 
     print("[2] the gossip round's Gram variant and the two-launch kernels vs plain")
     slates = [("paper ring N=20 K=8 d=44426", 20, 8, 44426, topo.neighbor_indices,
@@ -2827,10 +3049,18 @@ def main() -> int:
             with_prev, need_gram) for with_prev, need_gram in combos]
         errs["weighted_agg_indexed"].append(compare_weighted_agg_indexed(
             torch, f"weighted_agg_indexed {label}", N, K, d, idx, valid, seed))
+    errs["weighted_agg_indexed"] += check_combine_indexed_extra(torch)
+    check_combine_memory(torch)
     paper_timed = time_dfl_kernels(torch, 20, 8, 44426, seed=25)
     dfl_timed = time_dfl_kernels(torch, 64, 16, 1 << 20, seed=26)
     timed["wfagg_round_indexed"]["gram_variant"] = dfl_timed.pop("wfagg_round_indexed_gram")
     timed.update(dfl_timed)
+    timed["weighted_agg_indexed"] = time_combine_indexed(torch, 64, 16, 1 << 20, seed=26)
+    timed["weighted_agg_indexed"]["paper_shape"] = time_combine_indexed(
+        torch, 20, 8, 44426, seed=25)
+    print("  kernels 3 and 7 (redesigned), kernel ms / bound ms / plain ms / library ms, "
+          "and before that redesign:")
+    print_combine_times(timed)
     time_gram_epilogue(torch, 64, 32, 8192, seed=28)
     time_dfl_backends(torch, 64, 16, 1 << 20, seed=27)
 

@@ -2,14 +2,15 @@
 """Time kernels 1 and 2 of the port (the single-launch gossip round,
 ``wfagg_round.cu``, and the indexed statistics, ``robust_stats_indexed.cu``)
 in every variant at N=64, K=16, d=2^20 and at the paper's N=20, K=8,
-d=44,426, and kernels 4 and 5 (``robust_stats.cu``: one matrix, and the
-gathered tensor) at their timed shapes, of one source tree, with
-``chip_smoke.py``'s timing functions (CUDA events, median of 25; kernels 4
-and 5 also by device time per call, ``torch.profiler``); prints the card
-and one JSON line.
+d=44,426, kernels 4 and 5 (``robust_stats.cu``: one matrix, and the
+gathered tensor) at their timed shapes, and kernels 3 and 7 (the combines,
+``weighted_agg_indexed.cu`` and ``weighted_agg.cu``) at theirs, of one
+source tree, with ``chip_smoke.py``'s timing functions (CUDA events,
+median of 25; kernels 3, 4, 5 and 7 also by device time per call,
+``torch.profiler``); prints the card and one JSON line.
 
     python3 scripts/compare_round_kernels.py [--src SRC] [--tag TAG]
-                                             [--only round|stats]
+                                             [--only round|stats|combine]
 
 SRC is the ``src`` directory whose ``repro_torch`` is timed (default: this
 checkout's); its kernels build into its own ``kernels/_build``.  ``--only
@@ -19,7 +20,16 @@ d=44,426 and K=32 D=2^22; kernel 5 with per-edge prev and no centers at
 N=20 K=8 d=44,426 and N=64 K=16 d=2^20, and without prev with the
 centers at N=64 K=16 d=2^20; and the gathered ``wfagg_batch`` (WFAgg) at
 N=64 K=16 d=2^20, the layer that calls kernel 5, and the CFL round's
-steady times, the end-to-end metric above kernel 4.  To compare two commits on one card, unpack
+steady times, the end-to-end metric above kernel 4.  ``--only combine``
+times kernels 3 and 7 alone: the ``*_cuda`` wrapper at N=64 K=16 d=2^20
+(kernel 3) and K=32 D=2^22 (kernel 7), and at the paper's shapes (N=20
+K=8 / K=20, d=44,426) where the tree takes rows of that width as they
+are, the ``ops`` wrapper the main path calls at both (where a tree that
+pads rows to a multiple of 4 copies them first), beside the
+one PyTorch call of each (the gather and ``torch.baddbmm``;
+``torch.addmv``), and the indexed ``wfagg_batch`` (WFAgg) on
+``fused_two_launch`` at N=64 K=16 d=2^20, the layer that calls kernel 3.
+To compare two commits on one card, unpack
 the other into a git-ignored directory (``git archive <commit> src | tar
 -x -C .archive/parent``) and run both in one call, in turns: parent,
 change, change, parent.  Needs one CUDA card.
@@ -102,6 +112,62 @@ def stats_kernels(torch, cs) -> dict:
     return out
 
 
+def combine_kernels(torch, cs) -> dict:
+    """Kernels 3 and 7 and what they are held against: event ms (median of 25)
+    and device ms per call of each call, at the timed and the paper's
+    shapes."""
+    from repro_torch.core.trust import combine_coefficients
+    from repro_torch.kernels.weighted_agg import kernel as wk
+    from repro_torch.kernels.weighted_agg import ops as wops
+
+    def both(fn) -> dict:
+        return dict(ms=round(cs.time_cuda(torch, fn, 3, 25), 4),
+                    device_ms=round(device_ms(torch, fn), 4))
+
+    def takes(fn) -> bool:
+        """The tree's ``*_cuda`` wrapper takes these rows as they are (a tree
+        that needs D % 4 == 0 raises)."""
+        try:
+            fn()
+        except ValueError:
+            return False
+        return True
+
+    out = {}
+    for N, K, d, seed in ((64, 16, 1 << 20, 26), (20, 8, 44426, 25)):
+        models, local, idx, w, wvec, lcoef = cs.combine_indexed_inputs(torch, N, K, d, seed)
+        lc = float(lcoef[0])
+        shape = f"N={N} K={K} d={d}"
+        cuda = lambda: wk.weighted_agg_indexed_cuda(wvec, lcoef, local, models, idx)  # noqa: E731
+        if takes(cuda):
+            out[f"weighted_agg_indexed_cuda {shape}"] = both(cuda)
+        out[f"ops.weighted_agg_indexed {shape}"] = both(
+            lambda: wops.weighted_agg_indexed(local, models, idx, w))
+        out[f"models[idx] + baddbmm {shape}"] = both(
+            lambda: torch.baddbmm(local[:, None], wvec[:, None], models[idx.long()], beta=lc))
+        del models, local
+        torch.cuda.empty_cache()
+    for K, D, seed in ((cs.BIG_K, cs.BIG_D, 12), (cs.CFL_K, cs.CFL_D, 11)):
+        u, _, dup = cs.cfl_candidates(torch, K, D, seed)
+        w = torch.where(torch.arange(K, device="cuda") % 3 == 0, 0.6, 0.8)
+        w[0] = w[dup] = 0.0
+        wvec, lcoef = combine_coefficients(w, 0.8)
+        lcoef = lcoef.reshape(1)
+        local = u[1:].mean(0)
+        lc = float(lcoef)
+        shape = f"K={K} D={D}"
+        cuda = lambda: wk.weighted_agg_cuda(wvec, lcoef, local, u)  # noqa: E731
+        if takes(cuda):
+            out[f"weighted_agg_cuda {shape}"] = both(cuda)
+        out[f"ops.weighted_agg {shape}"] = both(lambda: wops.weighted_agg(local, u, w))
+        out[f"addmv {shape}"] = both(lambda: torch.addmv(local, u.t(), wvec, beta=lc))
+        del u, local
+        torch.cuda.empty_cache()
+    ms = cs.time_dfl_backends(torch, 64, 16, 1 << 20, seed=27, aggregators=("wfagg",))
+    out["wfagg_batch WFAgg N=64 K=16 d=1048576"] = ms["wfagg"]
+    return out
+
+
 def cfl_round_ms() -> list:
     """The end-to-end metric above kernel 4: the steady round times (ms,
     rounds 2 to 6, host clock between synchronisations) of
@@ -143,7 +209,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--only", choices=("round", "stats"), default=None)
+    ap.add_argument("--only", choices=("round", "stats", "combine"), default=None)
     args = ap.parse_args()
     # the timed tree's package first: chip_smoke's helpers then use it
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
@@ -162,6 +228,8 @@ def main() -> int:
         out.update(round_kernels(torch, cs))
     if args.only in (None, "stats"):
         out["stats"] = stats_kernels(torch, cs)
+    if args.only in (None, "combine"):
+        out["combine"] = combine_kernels(torch, cs)
     print(cs.gpu_line())
     print(json.dumps({"tag": args.tag, "src": args.src, "ms": out}))
     return 0

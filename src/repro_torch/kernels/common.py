@@ -168,10 +168,8 @@ def launch_error(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def grid_blocks(device: torch.device, n_tiles: int, per_sm: int = 4,
-                rows: int = 1) -> int:
-    """CTAs per row for a grid of ``rows`` rows of a grid-stride kernel over
-    ``n_tiles`` tiles each: about ``per_sm`` CTAs per SM of the card over
-    the whole grid, at most ``n_tiles`` and at least one per row."""
+def grid_blocks(device: torch.device, n_tiles: int, per_sm: int = 4) -> int:
+    """CTAs of a grid-stride kernel over ``n_tiles`` tiles: about ``per_sm``
+    CTAs per SM of the card, at most ``n_tiles`` and at least one."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n_tiles, -(-per_sm * sms // rows)))
+    return max(1, min(n_tiles, per_sm * sms))

@@ -1,7 +1,9 @@
 // Streaming helpers shared by the port's hand-written kernels for Hopper
 // (sm_90a): asynchronous global -> shared copies (cp.async) and vector loads
 // of 16, 8 or 4 bytes.  Used by pairwise_dist/csrc/pairwise_gram.cu
-// (kernel 6) and robust_stats/csrc/indexed_phase0.cuh (kernels 1 and 2).
+// (kernel 6), robust_stats/csrc/indexed_phase0.cuh (kernels 1 and 2),
+// robust_stats/csrc/robust_stats.cu (kernels 4 and 5) and
+// weighted_agg/csrc/*.cu (kernels 3 and 7).
 //
 // A copy or a vector is VEC floats: 16 bytes where D % 4 == 0 and every
 // matrix is 16-byte aligned, else 8 bytes where D % 2 == 0 and 8-byte
@@ -37,6 +39,21 @@ __device__ __forceinline__ void commit() {
 template <int Pending>
 __device__ __forceinline__ void wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// every group but the newest n has landed, for a ring depth known only at
+// run time (cp.async.wait_group takes an immediate): exact for n = 0 .. 6,
+// and for n > 6 it waits for more than it must
+__device__ __forceinline__ void wait_pending(int n) {
+  switch (n < 0 ? 0 : n) {
+    case 0: wait<0>(); break;
+    case 1: wait<1>(); break;
+    case 2: wait<2>(); break;
+    case 3: wait<3>(); break;
+    case 4: wait<4>(); break;
+    case 5: wait<5>(); break;
+    default: wait<6>(); break;
+  }
 }
 
 __device__ __forceinline__ uint32_t shared_address(const void* p) {

@@ -190,16 +190,6 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// cp.async.wait_group takes an immediate: all but the newest n groups landed
-__device__ __forceinline__ void wait_pending(int n) {
-  switch (n) {
-    case 0: tile_stream::wait<0>(); break;
-    case 1: tile_stream::wait<1>(); break;
-    case 2: tile_stream::wait<2>(); break;
-    default: tile_stream::wait<3>(); break;
-  }
-}
-
 // copy one tile (coordinates c0 ..) of the K rows u and the K rows p (rows K
 // .. 2K - 1 of the stage) into the stage at shared address dst.  Thread t
 // copies column (t % CPR) VEC of rows t / CPR, t / CPR + 256 / CPR, ...;
@@ -267,7 +257,7 @@ stats_kernel(const Args a) {
     tile_stream::commit();
   }
   for (int i = 0; i <= my; ++i) {
-    wait_pending(n_st - 3);  // tile i has landed (this thread's copies)
+    tile_stream::wait_pending(n_st - 3);  // tile i has landed (this thread's copies)
     __syncthreads();         // everyone's; tile i - 2 and med row i & 1 are free
     if (i + n_st - 2 < my) load(i + n_st - 2);  // into tile i - 2's stage
     tile_stream::commit();

@@ -8,44 +8,58 @@
 // the device by the wrapper and read here through pointers, so the host never
 // waits for them.
 //
-// Bound on this card: bytes.  It must read U (K*D floats) and local and write
-// out: 4*(K+2)*D bytes at 3.35 TB/s, against 2*K*D flops.
+// Exact order: out[d] = round(lcoef * local[d]), then, for k = 0 .. K-1 in
+// slot order, plus round(wvec[k] * U[k][d]), each step rounded (__fmul_rn /
+// __fadd_rn, no fused multiply-add): what weighted_agg_plain (ops.py)
+// computes op for op, so the kernel equals it bit for bit.  No slot is
+// skipped: a zero weight times a NaN row is NaN, as in the reference's dot
+// product; with all-zero weights lcoef = 1 and every term adds +0, so out =
+// local (finite U).
 //
-// Design, simple first: each thread owns 4 consecutive coordinates and moves
-// them as float4 (16-byte loads and stores; the wrapper pads D to a multiple
-// of 4), walking the rows k = 0 .. K-1 in order with fmaf, in a grid-stride
-// loop of at most 4 CTAs of 256 threads per SM.  With all-zero weights
-// lcoef = 1 and every term is +0, so out = local exactly (for finite U).
-// No slot is skipped: a zero weight times a NaN row is NaN, as in the
-// reference's dot product.
+// Bound on this card: bytes.  The function must read U and local once and
+// write out: 4 (K + 2) D bytes at 3.35 TB/s (0.1703 ms at K = 32, D = 2^22),
+// against 2 K D flops (0.004 ms at 67 TFLOP/s).
+//
+// Design: a plain stream.  Each thread owns VEC consecutive coordinates in a
+// grid-stride loop of at most 4 CTAs of 256 threads per SM, and walks the
+// rows k = 0 .. K-1 with read-only vector loads of VEC floats: 16 bytes where
+// D % 4 == 0 and local, U and out are 16-byte aligned, else 8 or 4
+// (tile_stream::copy_width; nothing is padded in device memory).  The
+// weights are warp-uniform __ldg reads (L1 broadcasts).  A cp.async ring of
+// up to 32 rows a stage was tried and dropped: timed in turns with this
+// stream on one card, it was slower at K = 32, D = 2^22 and at K = 20, d =
+// 44,426 (PERF.md).
 //
 // No fast-math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_stream.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
+template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 weighted_agg_kernel(const float* __restrict__ wvec, const float* __restrict__ lcoef,
-                    const float4* __restrict__ local, const float4* __restrict__ U,
-                    float4* __restrict__ out, int K, long long D4) {
+                    const float* __restrict__ local, const float* __restrict__ U,
+                    float* __restrict__ out, int K, long long D) {
   const float lc = __ldg(lcoef);
-  for (long long q = (long long)blockIdx.x * kThreads + threadIdx.x; q < D4;
-       q += (long long)gridDim.x * kThreads) {
-    const float4 l = __ldg(local + q);
-    float4 r = make_float4(lc * l.x, lc * l.y, lc * l.z, lc * l.w);
+  for (long long j = ((long long)blockIdx.x * kThreads + threadIdx.x) * VEC; j < D;
+       j += (long long)gridDim.x * kThreads * VEC) {
+    float x[VEC], r[VEC];
+    tile_stream::load_vec<VEC>(x, local + j);
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) r[t] = __fmul_rn(lc, x[t]);
     for (int k = 0; k < K; ++k) {
       const float w = __ldg(wvec + k);
-      const float4 x = __ldg(U + (size_t)k * D4 + q);
-      r.x = fmaf(w, x.x, r.x);
-      r.y = fmaf(w, x.y, r.y);
-      r.z = fmaf(w, x.z, r.z);
-      r.w = fmaf(w, x.w, r.w);
+      tile_stream::load_vec<VEC>(x, U + (size_t)k * D + j);
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) r[t] = __fadd_rn(r[t], __fmul_rn(w, x[t]));
     }
-    out[q] = r;
+    tile_stream::store_vec<VEC>(out + j, r);
   }
 }
 
@@ -53,15 +67,17 @@ weighted_agg_kernel(const float* __restrict__ wvec, const float* __restrict__ lc
 
 // Plain C entry point (bound with ctypes).  Launches on `stream`, does not
 // synchronise, allocates nothing; returns the cudaError_t of the launch.
-// local / U / out must start on 16-byte boundaries and D % 4 == 0.
+// Any K >= 1, any D >= 1, any alignment of the float rows (the vector width
+// follows it); at most n_blocks CTAs, and none without a vector to combine.
 extern "C" int weighted_agg_launch(const float* wvec, const float* lcoef,
                                    const float* local, const float* U, float* out,
                                    int K, long long D, int n_blocks, void* stream) {
-  if (K <= 0 || D <= 0 || D % 4 != 0 || n_blocks <= 0 ||
-      ((uintptr_t)local | (uintptr_t)U | (uintptr_t)out) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  weighted_agg_kernel<<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      wvec, lcoef, reinterpret_cast<const float4*>(local),
-      reinterpret_cast<const float4*>(U), reinterpret_cast<float4*>(out), K, D / 4);
+  if (K <= 0 || D <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  const int vec = tile_stream::copy_width(D, {local, U, out});
+  const long long needed = (D / vec + kThreads - 1) / kThreads;
+  auto kernel = vec == 4 ? weighted_agg_kernel<4>
+                         : vec == 2 ? weighted_agg_kernel<2> : weighted_agg_kernel<1>;
+  kernel<<<(int)(needed < n_blocks ? needed : n_blocks), kThreads, 0, (cudaStream_t)stream>>>(
+      wvec, lcoef, local, U, out, K, D);
   return (int)cudaGetLastError();
 }

@@ -9,25 +9,26 @@ pointers, so no value comes back to the host.  Dispatch is by the
 tensors' device alone: CUDA tensors go to the hand-written kernels
 (``kernel.weighted_agg_cuda``, ``kernel.weighted_agg_indexed_cuda``), and
 a failed build or launch raises; CPU tensors go to ``weighted_agg_plain``
-/ ``weighted_agg_indexed_plain``.
+/ ``weighted_agg_indexed_plain``.  The plain versions take the kernels'
+order: ``round(lcoef * local)``, then each slot's rounded product added
+in slot order, so a kernel equals its plain version bit for bit on the
+card.  The kernels read rows of any width in place: the only tensor a
+wrapper allocates at the width of the rows is its output.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import trust
-from repro_torch.kernels.common import check_table, pad_d
+from repro_torch.kernels.common import check_table
 from repro_torch.kernels.weighted_agg import kernel
-
-# the kernel reads float4: rows padded to whole 16-byte vectors (zero
-# padding is exact, see common.pad_d)
-_VEC = 4
 
 
 def weighted_agg_plain(wvec: torch.Tensor, lcoef: torch.Tensor,
                        local: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
-    """``lcoef * local + sum_k wvec[k] * updates[k]`` in plain PyTorch, k in
-    the kernel's order."""
+    """``lcoef * local + sum_k wvec[k] * updates[k]`` in plain PyTorch, in
+    ``csrc/weighted_agg.cu``'s order: ``lcoef * local``, then each slot's
+    product added for k = 0 .. K-1, every op rounded to float32."""
     out = lcoef * local.to(torch.float32)
     for k in range(updates.shape[0]):
         out = out + wvec[k] * updates[k].to(torch.float32)
@@ -50,18 +51,18 @@ def weighted_agg(local: torch.Tensor, updates: torch.Tensor,
         return weighted_agg_plain(wvec, lcoef, local, updates)
     if dev.type != "cuda":
         raise ValueError(f"weighted_agg runs on cuda or cpu, not {dev}")
-    d = updates.shape[1]
-    out = kernel.weighted_agg_cuda(wvec.contiguous(), lcoef,
-                                   pad_d(local, _VEC).contiguous(),
-                                   pad_d(updates, _VEC).contiguous())
-    return out[:d]
+    return kernel.weighted_agg_cuda(wvec.contiguous(), lcoef,
+                                    local.to(torch.float32).contiguous(),
+                                    updates.to(torch.float32).contiguous())
 
 
 def weighted_agg_indexed_plain(wvec: torch.Tensor, lcoef: torch.Tensor,
                                local: torch.Tensor, models: torch.Tensor,
                                neighbor_idx: torch.Tensor) -> torch.Tensor:
     """``lcoef[n] * local[n] + sum_k wvec[n, k] * models[idx[n, k]]`` in plain
-    PyTorch: gathered, accumulated in the kernel's slot order."""
+    PyTorch: gathered, then ``csrc/weighted_agg_indexed.cu``'s order,
+    ``lcoef * local`` and each slot's product added for k = 0 .. K-1, every
+    op rounded to float32."""
     u = models[neighbor_idx.long()].to(torch.float32)         # (N, K, d)
     out = lcoef[:, None] * local.to(torch.float32) + wvec[:, 0, None] * u[:, 0]
     for k in range(1, u.shape[1]):
@@ -94,7 +95,6 @@ def weighted_agg_indexed(local: torch.Tensor, models: torch.Tensor,
     wvec, lcoef = trust.combine_coefficients(weights.to(torch.float32), alpha)
     if dev.type == "cpu":
         return weighted_agg_indexed_plain(wvec, lcoef, local, models, neighbor_idx)
-    out = kernel.weighted_agg_indexed_cuda(
-        wvec.contiguous(), lcoef.contiguous(), pad_d(local, _VEC).contiguous(),
-        pad_d(models, _VEC).contiguous(), neighbor_idx.to(torch.int32).contiguous())
-    return out[:, :d]
+    return kernel.weighted_agg_indexed_cuda(
+        wvec.contiguous(), lcoef.contiguous(), local.to(torch.float32).contiguous(),
+        models.to(torch.float32).contiguous(), neighbor_idx.to(torch.int32).contiguous())
