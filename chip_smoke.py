@@ -64,7 +64,11 @@ Phases, each of which fails the run:
        stacked chaos matrix from ``apply_transport`` with a ring of 12 past
        matrices, whose rows split the nodes into groups (G < N); the
        combine wrappers at d % 4 = 2 allocate their output and O(N K)
-       coefficients only (peak memory);
+       coefficients only (peak memory); kernels 1 and 5 on unpadded rows
+       at d = 50,890 and 44,426 (d % 32 = 10) bit for bit the launch on
+       rows padded to 32 floats (kernel 1 plain and Gram, kernel 5 with
+       and without the centers), their wrappers allocating their outputs
+       only (peak memory);
      then time each kernel, its plain version, its bound and, where one
      PyTorch call computes the same function, that call, with CUDA
      events: the round at N=64, K=16, d=2^20; the CFL kernels at the CFL
@@ -162,6 +166,28 @@ Phases, each of which fails the run:
        Multi-Krum under ``churn`` and under ``churn`` + ``chaos``, no
        kernel); every series finite under ``corrupt`` at 0.5 for WFAgg,
        the mean and the median (MLP); benign accuracy under chaos printed;
+     - the adaptive adversaries and the audit plane: the reference's
+       gate grid (``GATE_GRID``: {none, IPM-100, band_rider, min_max} x
+       {static, eclipse} x {mean, Multi-Krum, WFAgg on ``fused``}, MLP,
+       the 20-node close-placement ring, 6 rounds; one round-kernel
+       launch per WFAgg round, none otherwise), each cell's final_acc and
+       final_r2 printed beside ``benchmarks/BENCH_robustness.json`` with
+       the gate's one-sided comparator (reported only: the committed
+       cells come from the JAX package's data), the gate's two structural
+       claims and WFAgg > mean under IPM-100 on the port's own cells
+       (each failing the run); ``band_rider|eclipse`` and
+       ``min_max|static`` replayed round by round against the reference
+       backend (the ``NEAR_TIE`` rule; each round's ride and every
+       near-tie's distance from the band_rider target printed); backend
+       parity under band_rider, min_max and ipm (N=8: fused, two-launch
+       and reference within the reference test's tolerances); band_rider
+       on the chaos round under the sync check and kill-and-resume; the
+       flight run (``repro_torch.obs.report.main`` with its defaults:
+       8 round-kernel launches, the event log valid against ``SCHEMA``
+       in strict mode, the audit's last rounds, the ``profile`` event and
+       the top device kernels of the median steady round from the
+       ``torch.profiler`` capture with the device's busy share); CFL
+       under min_max (MLP, 4 rounds: 4 + 4 launches of kernels 4 and 7);
      - the gathered ``wfagg_batch`` (``neighbor_idx`` None) with per-edge
        WFAgg-T state over 6 rounds of the paper's DFL configuration
        (LeNet-5, IPM-100; each node's 8 received models gathered from the
@@ -881,6 +907,31 @@ def check_combine_indexed_extra(torch) -> list:
     return errs
 
 
+def peak_bytes(torch, call) -> int:
+    """The peak allocation of ``call()`` above what was held before it
+    (after one warm call)."""
+    call()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    del out
+    return peak
+
+
+def check_wrapper_memory(torch, label, call, out_bytes, slack) -> None:
+    """A wrapper allocates its outputs and ``slack`` bytes of small
+    buffers at most: nothing at the width of its input rows."""
+    peak = peak_bytes(torch, call)
+    if peak > out_bytes + slack:
+        raise AssertionError(f"{label}: {peak} bytes allocated at the peak, for "
+                             f"outputs of {out_bytes}")
+    print(f"  {label}: {peak} bytes allocated at the peak, the outputs {out_bytes} "
+          "(no copy of the rows)")
+
+
 def check_combine_memory(torch) -> None:
     """The combine wrappers at d % 4 = 2 allocate their output and O(N K)
     coefficients, nothing at the width of the rows: the peak allocation
@@ -895,23 +946,87 @@ def check_combine_memory(torch) -> None:
                           device="cuda")
     w = torch.rand((N, K), generator=g, device="cuda")
     slack = 64 << 10                     # the O(N K) coefficients, in 512-byte blocks
-    for label, call, out_bytes in (
-            ("weighted_agg_indexed", lambda: ops.weighted_agg_indexed(local, models, idx, w),
-             4 * N * d),
-            ("weighted_agg", lambda: ops.weighted_agg(local[0], models[:K], w[0]), 4 * d)):
-        call()
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = call()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - held
-        del out
-        if peak > out_bytes + slack:
-            raise AssertionError(f"{label} at d={d}: {peak} bytes allocated at the peak, "
-                                 f"for an output of {out_bytes}")
-        print(f"  {label} N={N} K={K} d={d}: {peak} bytes allocated at the peak, the "
-              f"output {out_bytes} (no copy of the rows)")
+    check_wrapper_memory(torch, f"weighted_agg_indexed N={N} K={K} d={d}",
+                         lambda: ops.weighted_agg_indexed(local, models, idx, w),
+                         4 * N * d, slack)
+    check_wrapper_memory(torch, f"weighted_agg N={N} K={K} d={d}",
+                         lambda: ops.weighted_agg(local[0], models[:K], w[0]), 4 * d, slack)
+
+
+# the MLP's and LeNet-5's d: 10 mod 32, 2 mod 4
+UNPADDED_D = (50890, 44426)
+
+
+def pad32(torch, x):
+    """``x`` zero-padded on its last axis to a multiple of 32 floats, as the
+    wrappers of kernels 1 and 5 padded every row before they took unpadded
+    rows (zero columns are exact: they add nothing to any sum)."""
+    pad = (-x.shape[-1]) % 32
+    return torch.nn.functional.pad(x, (0, pad)).contiguous()
+
+
+def check_unpadded_rows(torch) -> None:
+    """Kernels 1 and 5 take unpadded rows (ROADMAP queue 2, item A): at the
+    MLP's and LeNet-5's widths, the ops wrappers (unpadded) are bit for
+    bit the kernels launched on the rows padded to 32 floats, every output
+    and statistic (raw float32 bits; kernel 1 with prev and bands, plain
+    and Gram; kernel 5 with per-edge prev, with and without the centers),
+    and each wrapper allocates its outputs only (peak memory)."""
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.robust_stats import ops
+
+    N, K = 20, 8
+    ring = [[(n + o) % N for o in range(1, K + 1)] for n in range(N)]
+    slack = 256 << 10                    # O(N K) statistics and per-CTA partials
+    for d in UNPADDED_D:
+        models, prev, idx_t, _, tbands, cfg = round_inputs(torch, N, K, d, ring, None,
+                                                           seed=d % 97, dup=(0, 4))
+        v = torch.ones((N, K), dtype=torch.bool, device="cuda")
+        for label, c in (("WFAgg", cfg), ("Alt-WFAgg (Gram)", alt_config(K))):
+            got = ops.wfagg_round_indexed(models, models, idx_t, None, c, prev=prev,
+                                          tbands=tbands)
+            mp = pad32(torch, models)
+            want = rk.wfagg_round_indexed_cuda(mp, mp, idx_t.to(torch.int32), v,
+                                               pad32(torch, prev), tbands, c, c.alpha,
+                                               False)
+            same = [bit_equal(torch, got[0], want[0][:, :d].contiguous()),
+                    bit_equal(torch, got[1], want[1])] + [
+                torch.equal(a, b) for a, b in zip(got[2:5], want[2:5])] + [
+                bit_equal(torch, getattr(got[5], f), getattr(want[5], f))
+                for f in STAT_FIELDS + (("gram",) if got[5].gram is not None else ())]
+            if not all(same):
+                raise AssertionError(f"kernel 1 {label} d={d}: the unpadded launch "
+                                     f"differs from the padded one ({same})")
+            print(f"  wfagg_round_indexed {label} N={N} K={K} d={d} (d % 32 = "
+                  f"{d % 32}): unpadded == padded launch bit for bit (out, weights, "
+                  f"masks, {len(same) - 5} statistics)")
+        out_bytes = 4 * N * d + 4 * 8 * N * K
+        check_wrapper_memory(torch, f"wfagg_round_indexed N={N} K={K} d={d}",
+                             lambda: ops.wfagg_round_indexed(models, models, idx_t, None,
+                                                             cfg, prev=prev, tbands=tbands),
+                             out_bytes, slack)
+        del models, prev
+        u, uprev, _ = gathered_candidates(torch, N, K, d, seed=d % 89)
+        for centers in (True, False):
+            got = ops.robust_stats_batch(u, uprev, need_center=centers)
+            want = rk.robust_stats_batch_cuda(pad32(torch, u), pad32(torch, uprev), 0.1,
+                                              centers)
+            fields = STAT_FIELDS + (("med", "trim") if centers else ())
+            same = {f: bit_equal(torch, getattr(got, f),
+                                 getattr(want, f)[..., :d].contiguous()
+                                 if f in ("med", "trim") else getattr(want, f))
+                    for f in fields}
+            if not all(same.values()):
+                raise AssertionError(f"kernel 5 d={d} centers={centers}: the unpadded "
+                                     f"launch differs from the padded one ({same})")
+            print(f"  robust_stats_batch N={N} K={K} d={d} per-edge prev "
+                  f"centers={centers}: unpadded == padded launch bit for bit "
+                  f"({len(fields)} fields)")
+        check_wrapper_memory(torch, f"robust_stats_batch N={N} K={K} d={d} centers",
+                             lambda: ops.robust_stats_batch(u, uprev, need_center=True),
+                             8 * N * d, slack)
+        del u, uprev
+        torch.cuda.empty_cache()
 
 
 def time_dfl_kernels(torch, N, K, d, seed) -> dict:
@@ -1722,24 +1837,21 @@ def compare_robust_stats_batch(torch, label, u, prev, tie, nan_node, need_center
 
 
 def time_robust_stats_batch(torch, u, prev, need_center) -> dict:
-    """Kernel 5's wrapper (``robust_stats_batch_cuda``) on the padded tensor
-    the main path hands it, its plain version and its bound: read the
-    candidates (and prev) once, write the centers; 2 ops per
+    """Kernel 5's wrapper (``robust_stats_batch_cuda``) on the unpadded
+    tensor the main path hands it, its plain version and its bound: read
+    the candidates (and prev) once, write the centers; 2 ops per
     compare-exchange, 8 flops per candidate coordinate for dist2 / dotmed /
     norm2 and 7 for the temporal tail."""
-    from repro_torch.kernels.common import pad_d
     from repro_torch.kernels.robust_stats import kernel as rk
     from repro_torch.kernels.robust_stats.ref import robust_stats_batch_ref
 
     N, K, d = u.shape
-    up = pad_d(u, 32).contiguous()
-    pp = None if prev is None else pad_d(prev, 32).contiguous()
     nbytes = 4.0 * N * K * d * (2 if prev is not None else 1) + (
         8.0 * N * d if need_center else 0.0)
     ops = N * d * (2.0 * network_compare_exchanges(K) + (15.0 if prev is not None
                                                          else 8.0) * K)
     b = bound(nbytes, ops)
-    t = dict(ms=time_cuda(torch, lambda: rk.robust_stats_batch_cuda(up, pp, 0.1,
+    t = dict(ms=time_cuda(torch, lambda: rk.robust_stats_batch_cuda(u, prev, 0.1,
                                                                     need_center), 3, 25),
              plain_ms=time_cuda(torch, lambda: robust_stats_batch_ref(
                  u, prev, need_center=need_center), 1, 5),
@@ -2173,7 +2285,7 @@ def aggregation_inputs(torch, cfg, data, state, idx, val, mal, ts=None, fr=None,
     from repro_torch.dfl import engine
 
     if ts is None:
-        _, _, flat = engine._trained(cfg, data, state, mal)
+        _, _, flat = engine._trained(cfg, data, state, mal, neighbor_idx=idx, valid=val)
         models, v = wf.sanitize_rows(flat, idx.long(), val)
         return models, idx.long(), v, state.temporal.prev, None
     tout = engine.chaos_inputs(cfg, data, fcfg, state, idx, val, mal, ts, fr).tout
@@ -2181,14 +2293,17 @@ def aggregation_inputs(torch, cfg, data, state, idx, val, mal, ts=None, fr=None,
     return models, tout.eff_idx, v, models, tout.prev_idx
 
 
-def check_dynamic_against_reference(torch, cfg, topo, data, sched, fs=None):
+def check_dynamic_against_reference(torch, cfg, topo, data, sched, fs=None,
+                                    on_round=None):
     """Replay a dynamic (with ``fs``, chaos) run round by round: from each
     of its states, realigned to the round's slate, one round on the run's
     backend and one on the reference backend (deterministic cuDNN) must
     give bit-equal verdicts and models within 3e-5; a differing verdict
     within 1e-4 (relative) of a band edge or keep boundary is reported
     with its margin, any other difference fails (as
-    ``check_against_reference``)."""
+    ``check_against_reference``).  ``on_round(r, state, idx, val, mal, rec,
+    report)`` sees each round's pre-round state, slate, the run's record
+    and the near-tie report (None where the verdicts are equal)."""
     import dataclasses
 
     from repro_torch.dfl import engine
@@ -2216,6 +2331,7 @@ def check_dynamic_against_reference(torch, cfg, topo, data, sched, fs=None):
             args = (state, idx, val, mal) + ((ts, fr) if fs is not None else ())
             (nxt, *rest), (alt, *rest_ref) = fns[0](*args), fns[1](*args)
             rec, rec_ref = rest[-1], rest_ref[-1]
+            report = None
             flat = ravel(nxt.node_params)
             if not torch.isfinite(flat[torch.as_tensor(~sched.malicious.any(0),
                                                        device="cuda")]).all():
@@ -2236,6 +2352,8 @@ def check_dynamic_against_reference(torch, cfg, topo, data, sched, fs=None):
                 torch.testing.assert_close(flat, ravel(alt.node_params), rtol=OUT_TOL,
                                            atol=OUT_TOL, equal_nan=True)
             t_fired += int(((rec.verdict >> 2) & 1).sum())
+            if on_round is not None:
+                on_round(r, state, idx, val, mal, rec, report)
             state, ts = nxt, (rest[0] if fs is not None else None)
             prev = (idx, val)
     finally:
@@ -2403,6 +2521,361 @@ def run_dynamic_paths(torch, topo, data) -> dict:
         print(f"  {agg} under churn + chaos@0.4, IPM-100 (MLP, {ROUNDS} rounds; printed "
               f"only, the reference states no claim): benign acc per round "
               f"{[round(a, 4) for a in o['series']['acc_benign_mean']]}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the adaptive adversaries and the audit plane
+# ---------------------------------------------------------------------------
+
+# the reference's gated robustness grid (benchmarks/robustness_matrix.py:60-64;
+# the committed cells are benchmarks/BENCH_robustness.json, read as JSON)
+GATE_GRID = dict(
+    attacks=("none", "ipm_100", "band_rider", "min_max"),
+    scenarios=("static", "eclipse"),
+    aggregators=("mean", "multi_krum", "wfagg"),
+    rounds=6, nodes=20, degree=8, malicious=2, topology="ring",
+    placement="close", backend="fused", model="mlp", seed=0, n_test=256,
+)
+# scripts/robustness_gate.py:68-69 (per cell, reported) and :73, :76 (the
+# two structural claims, enforced on the port's own numbers)
+TOL_ACC, TOL_R2 = 0.06, 0.15
+DEGRADE_MIN, WFAGG_STATIC_TOL = 0.08, 0.06
+GATE_BASELINES = ("mean", "median", "trimmed_mean", "krum", "multi_krum", "clustering")
+
+
+def run_gate_grid(torch, topo, data, scheds) -> tuple:
+    """The 24 cells of ``GATE_GRID`` through ``run_dynamic_experiment`` on
+    the card, each with every launch count set to 0 just before and read
+    just after (a wfagg cell: one round-kernel launch per round; mean and
+    Multi-Krum: none), the wfagg cells with telemetry (their filter
+    attribution).  Prints each cell beside the committed one with the
+    gate's one-sided comparator (reported: the committed cells come from
+    the JAX package's data).  Returns (cells, launches, wall seconds)."""
+    import numpy as np
+
+    from repro_torch.dfl.engine import DFLConfig, run_dynamic_experiment
+    from repro_torch.obs import report
+
+    g = GATE_GRID
+    committed = json.loads((ROOT / "benchmarks" / "BENCH_robustness.json").read_text())
+    cells, launches = {}, dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    for scenario in g["scenarios"]:
+        for agg in g["aggregators"]:
+            for attack in g["attacks"]:
+                cfg = DFLConfig(aggregator=agg, attack=attack, model=g["model"],
+                                seed=g["seed"], wfagg_backend=g["backend"])
+                zero_counts()
+                out = run_dynamic_experiment(cfg, topo, data, scheds[scenario],
+                                             n_test=g["n_test"], telemetry=agg == "wfagg")
+                counts = read_counts()
+                want = dict.fromkeys(KERNELS, 0)
+                if agg == "wfagg":
+                    want["wfagg_round_indexed"] = g["rounds"]
+                key = f"{attack}|{scenario}|{agg}"
+                if counts != want:
+                    raise AssertionError(f"gate cell {key}: launches {counts}, expected "
+                                         f"{want}")
+                for name in KERNELS:
+                    launches[name] += counts[name]
+                acc = out["series"]["acc_benign_mean"]
+                cells[key] = dict(final_acc=out["final"]["acc_benign_mean"],
+                                  final_r2=out["final"]["r_squared"], min_acc=min(acc))
+                if not all(np.isfinite(v) for v in cells[key].values()):
+                    raise AssertionError(f"gate cell {key}: a non-finite result")
+                if agg == "wfagg":
+                    cells[key]["carried_by"] = report.attribution(
+                        report.telemetry_rates(out["telemetry"]))["carried_by"]
+    wall = time.perf_counter() - t0
+    print(f"  the {len(cells)} cells in {wall:.1f} s on the card (the committed grid: "
+          f"wall_s {committed['meta']['wall_s']}, a CPU run of the JAX package); cell: "
+          "final_acc (committed) final_r2 (committed) gate comparator [carried by]")
+    for key, cell in cells.items():
+        base = committed["cells"][key]
+        ok = (cell["final_acc"] >= base["final_acc"] - TOL_ACC
+              and cell["final_r2"] >= base["final_r2"] - TOL_R2)
+        print(f"    {key:28s} {cell['final_acc']:.4f} ({base['final_acc']:.4f}) "
+              f"{cell['final_r2']:.4f} ({base['final_r2']:.4f}) "
+              f"{'within' if ok else 'OUTSIDE'} TOL_ACC={TOL_ACC}/TOL_R2={TOL_R2}"
+              + (f" [{cell['carried_by']}]" if "carried_by" in cell else ""))
+    return cells, launches, wall
+
+
+def check_gate_claims(cells) -> None:
+    """The gate's structural claims (``scripts/robustness_gate.py:120-150``)
+    on the port's own cells, and WFAgg > mean under IPM-100 on both
+    scenarios; any of them failing fails the run."""
+    from repro_torch.core.attacks import ADAPTIVE_ATTACKS
+
+    g = GATE_GRID
+    cell = lambda a, s, agg: cells[f"{a}|{s}|{agg}"]["final_acc"]  # noqa: E731
+    for attack in g["attacks"]:
+        if attack not in ADAPTIVE_ATTACKS:
+            continue
+        drops = {(s, agg): cell("none", s, agg) - cell(attack, s, agg)
+                 for s in g["scenarios"] for agg in g["aggregators"]
+                 if agg in GATE_BASELINES}
+        bites = [k for k, v in drops.items() if v > DEGRADE_MIN]
+        print(f"  claim 1, {attack} degrades a baseline by > {DEGRADE_MIN}: "
+              f"{'holds' if bites else 'FAILS'} (drops "
+              f"{ {f'{s}|{a}': round(v, 4) for (s, a), v in drops.items()} })")
+        if not bites:
+            raise AssertionError(f"adaptive attack {attack!r} degrades no baseline "
+                                 f"aggregator by > {DEGRADE_MIN}")
+    clean = cell("none", "static", "wfagg")
+    for attack in g["attacks"]:
+        slack = cell(attack, "static", "wfagg") - (clean - WFAGG_STATIC_TOL)
+        print(f"  claim 2, wfagg static under {attack}: {cell(attack, 'static', 'wfagg'):.4f}"
+              f" against {clean:.4f} - {WFAGG_STATIC_TOL} (slack {slack:+.4f})")
+        if slack < 0:
+            raise AssertionError(f"wfagg static under {attack!r} falls more than "
+                                 f"{WFAGG_STATIC_TOL} below its attack-free cell")
+    for s in g["scenarios"]:
+        w, m = cell("ipm_100", s, "wfagg"), cell("ipm_100", s, "mean")
+        print(f"  ipm_100 on {s}: wfagg {w:.4f} > mean {m:.4f}")
+        if not w > m:
+            raise AssertionError(f"ipm_100 on {s}: wfagg {w} does not beat mean {m}")
+
+
+def ride_report(torch, cfg, data, state, idx, val, mal, fused_rec):
+    """How close band_rider puts its candidates to the WFAgg-T band edges
+    this round, on the reference's own float32 statistics: over the valid
+    (benign receiver, malicious sender) edges with an active band, the
+    count, the count WFAgg-T accepted (the kernel's verdict), and the
+    smallest relative distance of s_t to the band's upper edge.  Also
+    returns each malicious sender's distance target ``s*`` (NaN where it
+    rides no band)."""
+    from repro_torch.core import attacks as atk
+    from repro_torch.dfl import engine
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+
+    models, tidx, v, prev, _ = aggregation_inputs(torch, cfg, data, state, idx, val, mal)
+    st = robust_stats_indexed_ref(models, tidx, v, prev)
+    view = engine._defense_view(cfg, state, idx, val)
+    N, K = tidx.shape
+    lo_d, hi_d = atk._sender_band_limits(view, mal, N)[:2]
+    lo_s = lo_d.clamp(min=0.0)
+    s_tgt = lo_s + (1.0 - cfg.attack_params.adaptive_margin) * (hi_d - lo_s).clamp(min=0.0)
+    s_tgt = torch.where(torch.isfinite(hi_d) & (lo_d <= hi_d) & mal, s_tgt, torch.nan)
+    tb = view.tbands.reshape(N, 4, K)
+    edge = v & ~mal[:, None] & mal[tidx] & torch.isfinite(tb[:, 1])
+    n = int(edge.sum())
+    if n == 0:
+        return dict(edges=0), s_tgt
+    rel = ((tb[:, 1] - st.prev_dist2).abs() / tb[:, 1].abs().clamp(min=1e-30))[edge]
+    accepted = int((((fused_rec.verdict >> 2) & 1).bool() & edge).sum())
+    return dict(edges=n, t_accepted=accepted, min_rel_to_hi_d=float(rel.min())), s_tgt
+
+
+def check_adaptive_replays(torch, topo, data, scheds) -> None:
+    """``band_rider|eclipse|wfagg`` and ``min_max|static|wfagg`` replayed
+    round by round on ``fused`` against the ``reference`` backend
+    (``check_dynamic_against_reference``, its ``NEAR_TIE`` rule unchanged),
+    over all 6 rounds of the gate's schedule (WFAgg-T's bands first hold at
+    round 5, transient 3).  Under band_rider, each round's ride is printed
+    (``ride_report``), and every near-tie with its distance from the
+    attacker's band_rider target."""
+    from repro_torch.dfl.engine import DFLConfig
+
+    for attack, scenario in (("band_rider", "eclipse"), ("min_max", "static")):
+        cfg = DFLConfig(aggregator="wfagg", attack=attack, model="mlp",
+                        seed=GATE_GRID["seed"], wfagg_backend="fused")
+        label = f"{attack}|{scenario}"
+        ties = []
+
+        def rides(r, state, idx, val, mal, rec, report):
+            rep, s_tgt = ride_report(torch, cfg, data, state, idx, val, mal, rec)
+            print(f"    {label} round {r + 1}: ride {rep}")
+            for n, k, filt, margin in report or []:
+                j = int(idx[n, k])
+                ties.append((r + 1, n, k))
+                print(f"      near-tie (node {n}, slot {k}, {filt}, margin {margin:.3g}): "
+                      f"sender {j}{' (malicious)' if bool(mal[j]) else ''}, its "
+                      f"band_rider target s* {float(s_tgt[j]):.6g}")
+
+        print(f"  {label}|wfagg, fused replayed against the reference backend:")
+        check_dynamic_against_reference(torch, cfg, topo, data, scheds[scenario],
+                                        on_round=rides if attack == "band_rider" else None)
+        if attack == "band_rider" and not ties:
+            print(f"    {label}: no near-tie in {scheds[scenario].rounds} rounds")
+
+
+def check_adaptive_backends(torch) -> dict:
+    """``tests/test_adaptive_robustness.py:213`` on the card: under each
+    adaptive attack and ``ipm``, WFAgg on ``fused`` (kernel 1),
+    ``fused_two_launch`` (kernels 2 and 3) and ``reference`` over the
+    test's eclipse schedule (N=8, K=4, MLP, 3 rounds): final accuracies
+    within 3e-5 (fused vs two-launch) and 1e-3 (vs reference), as the test
+    holds them.  Returns the launches, each run counted from 0."""
+    import numpy as np
+
+    from repro_torch.core.topology import make_topology
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.dfl.dynamics import make_schedule
+    from repro_torch.dfl.engine import DFLConfig, run_dynamic_experiment
+
+    topo = make_topology(n_nodes=8, degree=4, n_malicious=2, kind="ring", seed=0,
+                         placement="close")
+    data = SyntheticImages(seed=0)
+    sched = make_schedule("eclipse", topo, 3, seed=2)
+    launches = dict.fromkeys(KERNELS, 0)
+    for attack in ("band_rider", "min_max", "ipm"):
+        finals = {}
+        for backend in ("fused", "fused_two_launch", "reference"):
+            cfg = DFLConfig(aggregator="wfagg", attack=attack, model="mlp", seed=0,
+                            batches_per_round=1, wfagg_backend=backend)
+            zero_counts()
+            out = run_dynamic_experiment(cfg, topo, data, sched, n_test=64)
+            counts = read_counts()
+            want = dict.fromkeys(KERNELS, 0)
+            if backend == "fused":
+                want["wfagg_round_indexed"] = 3
+            elif backend == "fused_two_launch":
+                want["robust_stats_indexed"] = want["weighted_agg_indexed"] = 3
+            if counts != want:
+                raise AssertionError(f"{attack} on {backend}: launches {counts}, "
+                                     f"expected {want}")
+            for name in KERNELS:
+                launches[name] += counts[name]
+            finals[backend] = np.asarray(out["final"]["acc_all"])
+        d_two = float(np.abs(finals["fused"] - finals["fused_two_launch"]).max())
+        d_ref = float(np.abs(finals["fused"] - finals["reference"]).max())
+        print(f"  backend parity under {attack} (N=8 K=4 eclipse, 3 rounds): fused vs "
+              f"fused_two_launch {d_two:.3g} (<= {OUT_TOL}), vs reference {d_ref:.3g} "
+              "(<= 1e-3)")
+        if d_two > OUT_TOL or d_ref > 1e-3:
+            raise AssertionError(f"backend parity under {attack} broke")
+    return launches
+
+
+def trace_round(torch, path, rnd) -> None:
+    """From a ``torch.profiler`` Chrome trace: the device kernels that ran
+    inside round ``rnd``'s span (its ``record_function`` "round r"), summed
+    by name, the top five with their share of the round's wall time, and
+    the device's busy share of the round."""
+    trace = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    spans = [e for e in trace if e.get("name") == f"round {rnd}"
+             and e.get("cat") == "user_annotation"]
+    if not spans:
+        raise AssertionError(f"the capture holds no span of round {rnd}")
+    t0, t1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    kernels = [e for e in trace if e.get("cat") == "kernel" and t0 <= e["ts"] < t1]
+    if not kernels:
+        raise AssertionError(f"the capture holds no device kernel inside round {rnd}")
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    busy = sum(by_name.values())
+    wall = t1 - t0
+    print(f"  round {rnd} (steady) in the torch.profiler capture: wall {wall / 1e3:.3f} ms, "
+          f"{len(kernels)} kernel launches, device busy {busy / 1e3:.3f} ms "
+          f"({100 * busy / wall:.1f}% of the round; idle {100 - 100 * busy / wall:.1f}%)")
+    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:5]:
+        print(f"    {us / 1e3:8.3f} ms {100 * us / wall:5.1f}%  {name[:100]}")
+
+
+def run_flight(torch) -> dict:
+    """``python -m repro_torch.obs.report`` with its defaults (the
+    acceptance scenario: 20-node ring, eclipse, band_rider, WFAgg on
+    ``fused``, 8 MLP rounds) on the card, with ``--out-events``,
+    ``--out-trace`` and ``--capture-dir`` in a temporary directory: one
+    round-kernel launch per round, the event log strictly valid against
+    ``SCHEMA``, both trace files written; prints the audit's last rounds
+    and attribution, the ``profile`` event and the top device kernels of a
+    steady round from the capture.  Returns the launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.obs import profile, recorder, report
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ev, tr, cap = f"{tmp}/flight.jsonl", f"{tmp}/trace.json", f"{tmp}/capture"
+        buf = io.StringIO()
+        zero_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = report.main(["--out-events", ev, "--out-trace", tr, "--capture-dir", cap])
+        counts = read_counts()
+        rounds = 8
+        want = dict(dict.fromkeys(KERNELS, 0), wfagg_round_indexed=rounds)
+        if rc != 0 or counts != want:
+            raise AssertionError(f"the flight run: rc {rc}, launches {counts}, expected "
+                                 f"{want}")
+        events = recorder.read_events(ev)
+        recorder.validate_events(events, strict=True)
+        if len([e for e in events if e["type"] == "round_decision"]) != rounds:
+            raise AssertionError("the flight log does not hold one decision per round")
+        if not json.loads(pathlib.Path(tr).read_text())["traceEvents"]:
+            raise AssertionError("the flight's Perfetto trace is empty")
+        lines = buf.getvalue().splitlines()
+        head = next(i for i, l in enumerate(lines) if l.strip().startswith("round"))
+        print("\n".join(f"  | {l}" for l in lines[:head + 1]))
+        print("\n".join(f"  | {l}" for l in lines[head + 1 + rounds - 3:]))
+        prof = next(e for e in events if e["type"] == "profile")
+        print(f"  flight log: {len(events)} events valid against SCHEMA (strict); profile: "
+              f"compile {prof['compile_s']:.4f} s, steady median "
+              f"{1e3 * prof['steady_s_median']:.3f} ms/round, "
+              f"{prof['bytes_per_round']:.0f} B/round (memory_passes), achieved "
+              f"{prof['achieved_bytes_per_s'] / 1e9:.3f} GB/s")
+        walls = {e["round"]: e["wall_s"] for e in events if e["type"] == "round_timing"}
+        steady = sorted(range(2, rounds + 1), key=lambda r: walls[r])[(rounds - 1) // 2]
+        trace_round(torch, f"{cap}/{profile.TRACE_FILE}", steady)
+    return counts
+
+
+def run_cfl_min_max(torch, topo, data) -> dict:
+    """CFL under min_max (``run_experiment(centralized=True)``, MLP, 4
+    rounds): no view, the attack's benign-radius caps only; kernels 4 and
+    7 once a round each.  Returns the launches."""
+    import numpy as np
+
+    from repro_torch.dfl.engine import DFLConfig, run_experiment
+
+    cfg = DFLConfig(aggregator="wfagg", attack="min_max", model="mlp", centralized=True)
+    zero_counts()
+    out = run_experiment(cfg, topo, data, rounds=4)
+    counts = read_counts()
+    want = dict(dict.fromkeys(KERNELS, 0), robust_stats=4, weighted_agg=4)
+    if counts != want:
+        raise AssertionError(f"CFL under min_max: launches {counts}, expected {want}")
+    acc = out["series"]["acc_benign_mean"]
+    if not np.isfinite(acc).all():
+        raise AssertionError("CFL under min_max: a non-finite accuracy")
+    print(f"  CFL wfagg under min_max (MLP, 4 rounds): launches "
+          f"{dict((k, v) for k, v in counts.items() if v)}; benign acc per round "
+          f"{[round(a, 4) for a in acc]}")
+    return counts
+
+
+def run_adaptive_paths(torch) -> dict:
+    """Phase 3's adaptive adversaries and audit plane; returns the launches
+    of every run that counts, by kernel."""
+    from repro_torch.core.topology import make_topology
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.dfl.dynamics import make_faulty_schedule, make_schedule
+    from repro_torch.dfl.engine import DFLConfig
+
+    g = GATE_GRID
+    topo = make_topology(n_nodes=g["nodes"], degree=g["degree"], n_malicious=g["malicious"],
+                         kind=g["topology"], placement=g["placement"], seed=g["seed"])
+    data = SyntheticImages(seed=g["seed"])
+    scheds = {s: make_schedule(s, topo, g["rounds"], seed=g["seed"])
+              for s in g["scenarios"]}
+    cells, total, _ = run_gate_grid(torch, topo, data, scheds)
+    check_gate_claims(cells)
+    check_adaptive_replays(torch, topo, data, scheds)
+    for name, n in check_adaptive_backends(torch).items():
+        total[name] += n
+    fsched, fs = make_faulty_schedule("churn", topo, ROUNDS, fault="chaos", intensity=0.4)
+    cfg = DFLConfig(aggregator="wfagg", attack="band_rider", model="mlp")
+    check_no_host_sync(torch, cfg, topo, data, fsched, fs)
+    check_kill_and_resume(torch, cfg, topo, data, fsched, fs, stop=3)
+    print("[3] the flight run: python -m repro_torch.obs.report (defaults) on the card")
+    for name, n in run_flight(torch).items():
+        total[name] += n
+    for name, n in run_cfl_min_max(torch, topo, data).items():
+        total[name] += n
     return total
 
 
@@ -3051,6 +3524,7 @@ def main() -> int:
             torch, f"weighted_agg_indexed {label}", N, K, d, idx, valid, seed))
     errs["weighted_agg_indexed"] += check_combine_indexed_extra(torch)
     check_combine_memory(torch)
+    check_unpadded_rows(torch)
     paper_timed = time_dfl_kernels(torch, 20, 8, 44426, seed=25)
     dfl_timed = time_dfl_kernels(torch, 64, 16, 1 << 20, seed=26)
     timed["wfagg_round_indexed"]["gram_variant"] = dfl_timed.pop("wfagg_round_indexed_gram")
@@ -3214,6 +3688,12 @@ def main() -> int:
           f"LeNet-5, the same topology, IPM-100, {ROUNDS} rounds")
     dyn_launches = run_dynamic_paths(torch, topo, data)
 
+    print(f"[3] adaptive adversaries and the audit plane: the gate grid "
+          f"(run_dynamic_experiment, MLP, {GATE_GRID['nodes']}-node ring, close placement, "
+          f"{GATE_GRID['rounds']} rounds), band_rider and min_max replays, backend "
+          "parity, band_rider on the chaos round, the flight run, CFL under min_max")
+    adaptive_launches = run_adaptive_paths(torch)
+
     print(f"[3] the gathered wfagg_batch with per-edge WFAgg-T state: LeNet-5, the same "
           f"topology, IPM-100, {ROUNDS} rounds")
     gathered_launches = run_gathered_path(torch, topo, data)
@@ -3225,12 +3705,15 @@ def main() -> int:
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
     # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
-    # chaos runs (the prev_idx variants on the chaos runs only), Table I's
+    # chaos runs (the prev_idx variants on the chaos runs only), the
+    # adaptive phase (the gate grid's wfagg cells, the backend-parity runs,
+    # the flight run, CFL under min_max), Table I's
     # WFAgg and Alt-WFAgg runs, and the gathered path (kernel 5; the
     # per-edge variants on the indexed calls fed its state), and kernel 8 on the
     # full-width prefills
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
-                + table_launches[name] + gathered_launches[name] + serve_launches[name]
+                + adaptive_launches[name] + table_launches[name]
+                + gathered_launches[name] + serve_launches[name]
                 for name in KERNELS}
     timed["flash_attention"]["launches_tc"] = serve_launches["flash_attention[tensor_core]"]
     print(json.dumps({"kernels": [dict(

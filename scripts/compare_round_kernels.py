@@ -80,7 +80,6 @@ def device_ms(torch, fn, calls=20) -> float:
 def stats_kernels(torch, cs) -> dict:
     """Kernels 4 and 5 at their timed shapes: ``chip_smoke``'s event time of
     the wrapper (``ms``) and the device time per call (``device_ms``)."""
-    from repro_torch.kernels.common import pad_d
     from repro_torch.kernels.robust_stats import kernel as rk
 
     out = {}
@@ -98,13 +97,12 @@ def stats_kernels(torch, cs) -> dict:
         u, prev, _ = cs.gathered_candidates(torch, N, K, d, seed)
         p = prev if with_prev else None
         t = cs.time_robust_stats_batch(torch, u, p, centers)
-        up = pad_d(u, 32).contiguous()
-        pp = None if p is None else pad_d(p, 32).contiguous()
-        dev = device_ms(torch, lambda: rk.robust_stats_batch_cuda(up, pp, 0.1, centers))
+        # the unpadded rows the main path hands the kernel
+        dev = device_ms(torch, lambda: rk.robust_stats_batch_cuda(u, p, 0.1, centers))
         label = "per-edge prev" if with_prev else "no prev, centers"
         out[f"robust_stats_batch N={N} K={K} d={d} {label}"] = dict(
             ms=round(t["ms"], 4), device_ms=round(dev, 4))
-        del u, prev, p, up, pp
+        del u, prev, p
         torch.cuda.empty_cache()
     out["wfagg_batch gathered N=64 K=16 d=1048576"] = dict(ms=round(gathered_round(torch, cs),
                                                                   4))

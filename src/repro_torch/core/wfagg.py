@@ -358,7 +358,7 @@ def _wfagg_batch_indexed(local: Tensor, models: Tensor,
     if prev_idx is not None and not (temporal and state.prev.ndim == 2):
         prev_idx = None        # nothing matrix-formed to re-key
     # the chaos round's prev IS the stacked model matrix: sanitize it once
-    # and keep it one tensor, so the kernel wrappers pad it once
+    # and keep it one tensor, so the kernel wrappers pass it as one pointer
     shared = temporal and state.prev is models
     if cfg.sanitize:
         models, valid_b = sanitize_rows(models, idx, valid_b)

@@ -38,12 +38,17 @@ for WFAgg-T); such a run can stop, checkpoint and resume bit-exactly
 through ``DYN_AGGREGATORS``.  Nothing inside a round reads the card back
 to the host.
 
+The adaptive attacks (``band_rider``, ``min_max``) see the defense
+through a ``core.attacks.DefenseView`` (``_defense_view``): the WFAgg-T
+bands the round's aggregation compares, from the same
+``trust.temporal_bands`` call on the pre-round state.
+
 Entry points take ``device=None``, which means the card; without one
 they raise.  As in the reference, the standalone WFAgg filters raise on
 irregular graphs and on dynamic and chaos schedules (they have no
-valid-masked form).  Not ported yet, and raising: adaptive attacks
-(ROADMAP queue 1, item 7), telemetry export of the static
-``run_experiment`` (item 9), model-dimension sharding (item 11).
+valid-masked form), and a CFL run records no per-edge telemetry.  Not
+ported yet, and raising: model-dimension sharding (ROADMAP queue 1,
+item 11).
 """
 from __future__ import annotations
 
@@ -104,6 +109,10 @@ class DFLState(NamedTuple):
     node_momentum: Dict[str, Tensor]
     temporal: Optional[wf.TemporalState]   # leading axis N (per receiving node)
     rnd: int
+
+
+_CFL_TELEMETRY = ("telemetry records per-edge gossip verdicts; the CFL baseline "
+                  "has one server and no edges (the reference refuses it too)")
 
 
 def _check_supported(cfg: DFLConfig) -> None:
@@ -196,14 +205,44 @@ def _local_train(cfg: DFLConfig, data: SyntheticImages, malicious: Tensor,
     return params, momentum
 
 
-def _apply_attacks(cfg: DFLConfig, malicious: Tensor, flat: Tensor, rnd: int) -> Tensor:
-    """Replace the Byzantine rows of the (N, d) model matrix."""
+def _apply_attacks(cfg: DFLConfig, malicious: Tensor, flat: Tensor, rnd: int,
+                   view: Optional[atk.DefenseView] = None) -> Tensor:
+    """Replace the Byzantine rows of the (N, d) model matrix; ``view``
+    feeds the adaptive attacks the round's filter state
+    (``_defense_view``)."""
     gen = None
     if cfg.attack == "noise":
         gen = torch.Generator(device=flat.device)
         gen.manual_seed((cfg.seed + 77) * 1_000_003 + rnd)
     return atk.apply_matrix_attack(cfg.attack, flat, malicious, gen,
-                                   cfg.attack_params)
+                                   cfg.attack_params, view=view)
+
+
+def _defense_view(cfg: DFLConfig, state: "DFLState", neighbor_idx: Tensor,
+                  neighbor_valid: Optional[Tensor]) -> Optional[atk.DefenseView]:
+    """The adaptive adversary's ``DefenseView`` for this round (None unless
+    the attack reads it; a CFL round has no gossip table).
+
+    The WFAgg-T bands come from ``trust.temporal_bands`` on the pre-round
+    temporal state, the call the round's own aggregation makes
+    (``core.wfagg._wfagg_batch_indexed``), so the adversary sees bit for
+    bit the bands the round kernel compares.  Bands and ``prev`` exist
+    only where ``temporal.prev`` is the (N, d) previous model matrix
+    (decentralized WFAgg and Alt-WFAgg: static, dynamic and chaos rounds
+    all carry it, the chaos round's stacked matrix is built per round);
+    other aggregators get a view without bands and the attacks fall back
+    to mimicry, as in the reference."""
+    if cfg.attack not in atk.ADAPTIVE_ATTACKS or cfg.centralized:
+        return None
+    tbands = prev = None
+    t = state.temporal
+    if t is not None and t.prev.ndim == 2 and cfg.aggregator in ("wfagg", "alt_wfagg"):
+        wcfg = _wfagg_full_config(cfg, neighbor_idx.shape[1])
+        if wcfg.use_temporal:
+            tbands = trust.temporal_bands(t.hist_s, t.hist_b, t.count, t.t, wcfg)
+            prev = t.prev
+    return atk.DefenseView(neighbor_idx=neighbor_idx, valid=neighbor_valid,
+                           prev=prev, tbands=tbands, f=cfg.paper.f)
 
 
 # ---------------------------------------------------------------------------
@@ -211,12 +250,19 @@ def _apply_attacks(cfg: DFLConfig, malicious: Tensor, flat: Tensor, rnd: int) ->
 # ---------------------------------------------------------------------------
 
 def _trained(cfg: DFLConfig, data: SyntheticImages, state: DFLState,
-             malicious: Tensor, batches=None):
+             malicious: Tensor, batches=None, neighbor_idx: Optional[Tensor] = None,
+             valid: Optional[Tensor] = None):
     """A round's local training and attacks: ``(params, momentum, flat)``,
-    ``flat`` the (N, d) matrix of the models the nodes send."""
+    ``flat`` the (N, d) matrix of the models the nodes send.  The round's
+    table ``neighbor_idx`` and ``valid`` mask (None: all valid) give the
+    adaptive attacks their view of the defense; every round passes them
+    (without a table an adaptive attack sees no view)."""
+    view = (None if neighbor_idx is None else
+            _defense_view(cfg, state, neighbor_idx, valid))
     params, momentum = _local_train(cfg, data, malicious, state.node_params,
                                     state.node_momentum, state.rnd, batches)
-    return params, momentum, _apply_attacks(cfg, malicious, ravel(params), state.rnd)
+    return params, momentum, _apply_attacks(cfg, malicious, ravel(params), state.rnd,
+                                            view)
 
 
 def _wfagg_full_config(cfg: DFLConfig, K: int,
@@ -338,10 +384,7 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
     replaces the drawn corrupt bank, for the parity tests).
     """
     if cfg.centralized and telemetry:
-        raise NotImplementedError(
-            "telemetry records per-edge gossip verdicts; the CFL baseline has "
-            "one server and no edges (the reference raises too; ROADMAP queue "
-            "1, item 9)")
+        raise NotImplementedError(_CFL_TELEMETRY)
     if faults is not None and not dynamic:
         raise NotImplementedError(
             "fault injection rides the dynamic round form (per-round "
@@ -373,7 +416,8 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
         # initial weights in round 1), as the reference takes it
         anchor = (ravel({k: v[:1] for k, v in state.node_params.items()})[0]
                   if cfg.centralized else None)
-        params, momentum, flat = _trained(cfg, data, state, malicious, batches)
+        params, momentum, flat = _trained(cfg, data, state, malicious, batches,
+                                          neighbor_idx, neighbor_valid)
         record = None
         if cfg.centralized:
             # one server-side aggregation over all N received models
@@ -417,17 +461,14 @@ def _check_dynamic(cfg: DFLConfig) -> None:
                                   "slates")
     if cfg.aggregator not in DYNAMIC_AGGREGATORS:
         raise _masked_form_required(cfg, "dynamic schedules and chaos transport")
-    if cfg.attack in atk.ADAPTIVE_ATTACKS:
-        raise NotImplementedError(
-            f"the adaptive attack {cfg.attack!r} reads the defense's state and "
-            "is not ported yet: ROADMAP queue 1, item 7")
 
 
 def _make_dynamic_round(cfg: DFLConfig, data: SyntheticImages, telemetry: bool,
                         dev: torch.device) -> Callable:
     def round_fn(state: DFLState, neighbor_idx: Tensor, valid: Tensor,
                  mal_mask: Tensor, batches=None):
-        params, momentum, flat = _trained(cfg, data, state, mal_mask, batches)
+        params, momentum, flat = _trained(cfg, data, state, mal_mask, batches,
+                                          neighbor_idx, valid)
         if cfg.aggregator in ("wfagg", "alt_wfagg"):
             wcfg = _wfagg_full_config(cfg, neighbor_idx.shape[1])
             new_flat, new_temporal, info = wf.wfagg_batch(
@@ -469,7 +510,8 @@ def chaos_inputs(cfg: DFLConfig, data: SyntheticImages, fcfg: flt.FaultConfig,
     round runs it; a replay that explains a round's decisions reads the
     aggregation's inputs from it."""
     prev_flat = ravel(state.node_params)
-    params, momentum, flat = _trained(cfg, data, state, mal_mask, batches)
+    params, momentum, flat = _trained(cfg, data, state, mal_mask, batches,
+                                      neighbor_idx, valid)
     # crash freeze: a down node broadcasts (and keeps) its stored model;
     # its training step and momentum advance are discarded
     down = fr.down.to(torch.bool)
@@ -621,16 +663,22 @@ def run_experiment(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
     ``round_seconds`` (the wall time of each round from a synchronised
     start to a synchronised end), and for gossip runs the per-round
     mean-fallback / degree-0 node counts (a CFL run has no edges, so it
-    tracks neither, as in the reference)."""
-    if telemetry:
-        raise NotImplementedError(
-            "telemetry export is not ported yet: ROADMAP queue 1, item 9")
+    tracks neither, as in the reference).
+
+    ``telemetry=True`` also returns the per-round, per-edge decision
+    record under ``out["telemetry"]`` (numpy, ``_telemetry_out``): the
+    stacked (R, N, K) verdicts and (R, N) summaries, with the static
+    topology's table, valid mask and Byzantine mask broadcast to (R, …)
+    so one report path serves this and ``run_dynamic_experiment``.  A CFL
+    run has no edges and refuses it, as the reference does."""
+    if telemetry and cfg.centralized:
+        raise NotImplementedError(_CFL_TELEMETRY)
     dev = resolve_device(device)
     rounds = rounds or cfg.paper.rounds
     track = not cfg.centralized
     state = init_dfl_state(cfg, topo, device=dev)
     round_fn = build_round_fn(cfg, topo, data, telemetry=track, device=dev)
-    trace = []
+    trace, records = [], []
     fallback_counts, degree_zero_counts, round_seconds = [], [], []
     mf = None
     for r in range(rounds):
@@ -646,6 +694,8 @@ def run_experiment(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
             mf = rec.mean_fallback.cpu().numpy()
             fallback_counts.append(int(mf.sum()))
             degree_zero_counts.append(int(rec.degree_zero.sum()))
+            if telemetry:
+                records.append(rec)
         if (r + 1) % eval_every == 0 or r == rounds - 1:
             e = evaluate(cfg, topo, data, state)
             e["round"] = r + 1
@@ -657,9 +707,20 @@ def run_experiment(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
     if track:
         series["mean_fallback_count"] = fallback_counts
         series["degree_zero_count"] = degree_zero_counts
-    return {"trace": trace, "final": trace[-1], "series": series,
-            "aggregator": cfg.aggregator, "attack": cfg.attack,
-            "centralized": cfg.centralized, "device": str(dev)}
+    out = {"trace": trace, "final": trace[-1], "series": series,
+           "aggregator": cfg.aggregator, "attack": cfg.attack,
+           "centralized": cfg.centralized, "device": str(dev)}
+    if telemetry:
+        record = obs_decision.DecisionRecord(*(torch.stack(x) for x in zip(*records)))
+        table = np.asarray(topo.neighbor_indices)
+        nv = (np.ones(table.shape, bool) if topo.is_regular
+              else np.asarray(topo.neighbor_valid, bool))
+        lead = (len(records),)
+        out["telemetry"] = _telemetry_out(
+            record, np.broadcast_to(table, lead + table.shape),
+            np.broadcast_to(nv, lead + nv.shape),
+            np.broadcast_to(np.asarray(topo.malicious), lead + (topo.n_nodes,)))
+    return out
 
 
 # ---------------------------------------------------------------------------

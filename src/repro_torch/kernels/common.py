@@ -1,5 +1,5 @@
-"""Shared kernel plumbing: device resolution, D padding, and the one
-``nvcc`` build-and-load helper of every kernel library.
+"""Shared kernel plumbing: device resolution and the one ``nvcc``
+build-and-load helper of every kernel library.
 
 The JAX package picks interpret mode off a TPU; the port has no such
 switch.  A wrapper runs its CUDA kernel on a CUDA tensor and its plain
@@ -26,7 +26,6 @@ import subprocess
 from typing import Callable, Dict, List, Optional, Union
 
 import torch
-import torch.nn.functional as F
 
 # where kernels are compiled at first use (listed in .gitignore)
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -47,16 +46,6 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
-
-
-def pad_d(x: torch.Tensor, multiple: int) -> torch.Tensor:
-    """Zero-pad the trailing (D) axis up to a multiple of ``multiple`` and
-    promote to f32.  Zero padding is exact for every kernel here: a zero
-    column has median 0 and adds nothing to any accumulated statistic,
-    distance, dot product or weighted combine."""
-    x = x.to(torch.float32)
-    pad = (-x.shape[-1]) % multiple
-    return F.pad(x, (0, pad)) if pad else x
 
 
 # ---------------------------------------------------------------------------

@@ -22,15 +22,11 @@ from typing import Optional
 import torch
 
 from repro_torch.core import trust
-from repro_torch.kernels.common import check_table, pad_d
+from repro_torch.kernels.common import check_table
 from repro_torch.kernels.robust_stats import kernel
 from repro_torch.kernels.robust_stats.ref import (
     RobustStats, robust_stats_batch_ref, robust_stats_indexed_ref)
 from repro_torch.kernels.weighted_agg.ops import weighted_agg_indexed_plain
-
-# rows padded to whole 128-byte lines, so every neighbour row the kernel
-# reads starts aligned (zero padding is exact, see common.pad_d)
-_ROW_ALIGN = 32
 
 
 def robust_stats_plain(updates: torch.Tensor, prev: Optional[torch.Tensor] = None,
@@ -87,7 +83,7 @@ def robust_stats_batch(
     every device (the kernel's limit)."""
     if updates.ndim != 3:
         raise ValueError(f"updates must be (N, K, d), got {tuple(updates.shape)}")
-    N, K, d = updates.shape
+    K = updates.shape[1]
     if K > kernel.MAX_K:
         raise ValueError(
             f"robust_stats_batch takes at most {kernel.MAX_K} candidates, got K={K} "
@@ -100,12 +96,9 @@ def robust_stats_batch(
         return robust_stats_batch_ref(updates, prev, beta, need_center)
     if dev.type != "cuda":
         raise ValueError(f"robust_stats_batch runs on cuda or cpu, not {dev}")
-    u = pad_d(updates, _ROW_ALIGN).contiguous()
-    p = None if prev is None else pad_d(prev, _ROW_ALIGN).contiguous()
-    st = kernel.robust_stats_batch_cuda(u, p, beta, need_center)
-    if need_center and u.shape[-1] != d:
-        st = st._replace(med=st.med[:, :d], trim=st.trim[:, :d])
-    return st
+    # unpadded rows: the kernel picks its copy width from d and the pointers
+    p = None if prev is None else _f32(prev)
+    return kernel.robust_stats_batch_cuda(_f32(updates), p, beta, need_center)
 
 
 def _check_prev(models: torch.Tensor, prev: Optional[torch.Tensor],
@@ -136,6 +129,12 @@ def _check_prev(models: torch.Tensor, prev: Optional[torch.Tensor],
 
 def _i32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.to(torch.int32).contiguous()
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """The float32 contiguous tensor a kernel reads (``t`` itself when it
+    already is one: no copy)."""
+    return t.to(torch.float32).contiguous()
 
 
 def robust_stats_indexed(
@@ -213,7 +212,7 @@ def wfagg_round_indexed(
     the WFAgg scoring stage and the trust-weighted WFAgg-E combine.
     ``prev`` is read through the neighbour table, or through ``prev_idx``
     (the chaos transport's last served payload of each edge; ``prev`` may
-    then be ``models`` itself, the stacked matrix, padded once), or is a
+    then be ``models`` itself, the stacked matrix, passed once), or is a
     per-edge (N, K, d) tensor (the gathered path's state).
 
     Returns ``(out (N, d), weights (N, K), mask_d, mask_c, mask_t ((N, K)
@@ -229,7 +228,7 @@ def wfagg_round_indexed(
             "reads the kernel's own prev_dist2/cosine temporal statistics")
     alpha = cfg.alpha if alpha is None else float(alpha)
     N, K = neighbor_idx.shape
-    M, d = models.shape
+    M = models.shape[0]
     dev = models.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"wfagg_round_indexed runs on cuda or cpu, not {dev}")
@@ -241,14 +240,12 @@ def wfagg_round_indexed(
     if dev.type == "cpu":
         return wfagg_round_indexed_plain(local, models, neighbor_idx, v, cfg,
                                          prev, tb, alpha, mean_fallback, prev_idx)
-    m = pad_d(models, _ROW_ALIGN).contiguous()
-    # the chaos round's prev IS its stacked model matrix: padded once, and
+    # unpadded rows (the kernel picks its copy width from d and the
+    # pointers); the chaos round's prev IS its stacked model matrix and is
     # passed as the same pointer
-    p = None if prev is None else (
-        m if prev is models else pad_d(prev, _ROW_ALIGN).contiguous())
-    loc = pad_d(local, _ROW_ALIGN).contiguous()
-    out, weights, mask_d, mask_c, mask_t, stats = kernel.wfagg_round_indexed_cuda(
-        loc, m, _i32(neighbor_idx), v.contiguous(), p,
+    m = _f32(models)
+    p = None if prev is None else (m if prev is models else _f32(prev))
+    return kernel.wfagg_round_indexed_cuda(
+        _f32(local), m, _i32(neighbor_idx), v.contiguous(), p,
         tb.contiguous() if tb is not None else None, cfg, alpha, mean_fallback,
         prev_idx=_i32(prev_idx))
-    return out[:, :d], weights, mask_d, mask_c, mask_t, stats

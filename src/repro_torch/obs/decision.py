@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -61,6 +62,18 @@ def pack_verdict(mask_d: Tensor, mask_c: Tensor, mask_t: Tensor,
             | (u8(mask_t) << 2)
             | (u8(valid) << 3)
             | (u8(accepted) << 4))
+
+
+def unpack_verdict(verdict) -> Dict[str, object]:
+    """Inverse of ``pack_verdict``: name -> boolean mask, a tensor for a
+    tensor and a numpy array for anything else.  Also unpacks the
+    transport bits (``FAULT_BITS``), zero unless ``with_fault_bits`` OR'd
+    them in."""
+    out = {}
+    for name, bit in {**BITS, **FAULT_BITS}.items():
+        b = (verdict >> bit) & 1
+        out[name] = b.to(torch.bool) if isinstance(b, torch.Tensor) else np.asarray(b) == 1
+    return out
 
 
 def record_from_masks(mask_d: Tensor, mask_c: Tensor, mask_t: Tensor,

@@ -119,5 +119,5 @@ def test_cfl_paths_the_reference_refuses_raise(what):
         {"dynamic": True} if what == "dynamic" else
         {"dynamic": True, "faults": FaultConfig()})
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP" if what == "telemetry" else "gossip"):
+                       match="no edges" if what == "telemetry" else "gossip"):
         tengine.build_round_fn(cfg, topo, data, device="cpu", **kw)

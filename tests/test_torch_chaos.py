@@ -15,7 +15,9 @@ the chaos round and kill-and-resume, against the JAX package.
   weights, with the reference's batches and corrupt bank injected, against
   the JAX chaos round on its ``fused`` backend (interpret mode, one D
   block): verdicts with their fault bits bit-equal, models within 1e-4,
-  the served-lag table equal.
+  the served-lag table equal; the same for WFAgg under the adaptive
+  attacks (``band_rider``, ``min_max``), whose view rides the carried
+  prev and the pre-round bands.
 * Kill-and-resume on the CPU: the resumed run's final carry equals the
   uninterrupted run's bit for bit.
 * An out-of-range table still raises on the CPU; unsupported
@@ -37,6 +39,7 @@ from repro.dfl import engine as jengine
 from repro.dfl import faults as jflt
 from repro.kernels.robust_stats import ops as jrops
 from repro.obs import decision as jdecision
+from repro_torch.core import attacks as tatk
 from repro_torch.core import trust
 from repro_torch.core import wfagg as twf
 from repro_torch.core.topology import make_topology
@@ -331,12 +334,12 @@ def test_bit_identical_candidates_are_at_distance_zero(slate):
                    & ~np.eye(idx.shape[1], dtype=bool)] > 0).all()
 
 
-def _chaos_pair(aggregator, N=10, K=4):
+def _chaos_pair(aggregator, N=10, K=4, attack="ipm_100"):
     jtopo, topo = jmake_topology(N, K, 2, "ring", placement="close"), _topos(N, K)[0]
     sched, fs = tdyn.make_faulty_schedule("churn", topo, 3, fault="chaos",
                                           intensity=0.6, seed=1, fault_seed=3)
     jdata = JImages()
-    kw = dict(aggregator=aggregator, attack="ipm_100", model="mlp", batches_per_round=1)
+    kw = dict(aggregator=aggregator, attack=attack, model="mlp", batches_per_round=1)
     jcfg = jengine.DFLConfig(**kw)
     jcfg = dataclasses.replace(jcfg, paper=dataclasses.replace(jcfg.paper, transient=1))
     cfg = tengine.DFLConfig(**kw)
@@ -346,7 +349,24 @@ def _chaos_pair(aggregator, N=10, K=4):
 
 @pytest.mark.parametrize("aggregator", ["wfagg", "alt_wfagg", "mean"])
 def test_three_chaos_rounds_match_reference_engine(aggregator):
-    jtopo, topo, sched, fs, jdata, jcfg, cfg = _chaos_pair(aggregator)
+    _hold_chaos_rounds(*_chaos_pair(aggregator))
+
+
+@pytest.mark.parametrize("attack", ["band_rider", "min_max"])
+def test_adaptive_chaos_rounds_match_reference_engine(attack):
+    """The adaptive attacks on the chaos round (each refused until they
+    were ported): three WFAgg rounds as above, the view's bands read from
+    the carried (N, d) prev and the pre-round history, band_rider riding
+    finite bands in round 3."""
+    rode = _hold_chaos_rounds(*_chaos_pair("wfagg", attack=attack))
+    assert rode > 0, "no attacker faced a finite WFAgg-T band"
+
+
+def _hold_chaos_rounds(jtopo, topo, sched, fs, jdata, jcfg, cfg):
+    """Three chaos rounds of the port against the reference's, from its
+    initial weights, batches and corrupt banks (see the module docstring).
+    Returns how many (round, malicious sender) pairs faced a finite
+    WFAgg-T band in their ``DefenseView``."""
     N = topo.n_nodes
     jfcfg = jflt.FaultConfig()
     jfn = jengine.build_round_fn(jcfg, jtopo, jdata, dynamic=True, telemetry=True,
@@ -361,7 +381,7 @@ def test_three_chaos_rounds_match_reference_engine(aggregator):
     ts = tflt.init_transport_state(fs.config, N, sched.width, d)
     jxs, xs = jnp, torch
     prev = (sched.neighbor_idx[0], sched.valid[0])
-    fault_bits = 0
+    fault_bits = rode = 0
     for r in range(3):
         idx, val, mal = sched.neighbor_idx[r], sched.valid[r], sched.malicious[r]
         fr = [x[r] for x in (fs.drop, fs.lag, fs.dup, fs.corrupt, fs.down)]
@@ -371,6 +391,10 @@ def test_three_chaos_rounds_match_reference_engine(aggregator):
                 jst.temporal, *(jxs.asarray(x) for x in slate)))
             st = st._replace(temporal=twf.realign_temporal_history(
                 st.temporal, *(xs.as_tensor(x) for x in slate)))
+        view = tengine._defense_view(cfg, st, torch.as_tensor(idx), torch.as_tensor(val))
+        if view is not None and view.tbands is not None:
+            hi_d = tatk._sender_band_limits(view, torch.as_tensor(mal), N)[1]
+            rode += int(torch.isfinite(hi_d[torch.as_tensor(mal)]).sum())
         jts = jts._replace(served_lag=jflt.realign_served_lag(
             jts.served_lag, *(jxs.asarray(x) for x in slate)))
         ts = ts._replace(served_lag=tflt.realign_served_lag(
@@ -397,6 +421,7 @@ def test_three_chaos_rounds_match_reference_engine(aggregator):
             assert st.temporal.prev.shape == (N, d)
         prev = (idx, val)
     assert fault_bits == 0b111          # dropped, stale and corrupt all seen
+    return rode
 
 
 def test_fault_bits_match_reference():
@@ -493,7 +518,7 @@ def test_out_of_range_tables_raise_on_the_cpu():
                                   prev_idx=idx)
 
 
-@pytest.mark.parametrize("what", ["krum", "adaptive", "centralized", "not_dynamic",
+@pytest.mark.parametrize("what", ["krum", "centralized", "not_dynamic",
                                   "no_faults_checkpoint", "window"])
 def test_unsupported_configurations_raise(what, tmp_path):
     topo = _topos()[0]
@@ -507,10 +532,6 @@ def test_unsupported_configurations_raise(what, tmp_path):
                                dynamic=True, faults=fs.config, device="cpu")
         with pytest.raises(NotImplementedError, match="no valid-mask-aware form"):
             tengine.build_round_fn(tengine.DFLConfig(aggregator="wfagg_c"), topo, data,
-                                   dynamic=True, faults=fs.config, device="cpu")
-    elif what == "adaptive":
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tengine.build_round_fn(tengine.DFLConfig(attack="band_rider"), topo, data,
                                    dynamic=True, faults=fs.config, device="cpu")
     elif what == "centralized":
         with pytest.raises(NotImplementedError, match="gossip"):

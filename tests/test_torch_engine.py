@@ -5,6 +5,14 @@ against the JAX package's engine.
   send bit-identical models, so the filters meet exact ties), starting
   from the reference's own initial weights and fed the reference's own
   per-node batches: verdict bitmasks bit-equal, models within 1e-4.
+* The adaptive attacks (``band_rider``, ``min_max``) on the static round
+  and on the dynamic round under ``eclipse``: three MLP rounds with
+  WFAgg-T active from the third (``transient=1``), so band_rider rides
+  the bands its ``DefenseView`` carries; verdicts bit-equal, models
+  within 1e-4.  (The chaos round's cases are in ``test_torch_chaos.py``.)
+* The static ``run_experiment(telemetry=True)`` export: the reference's
+  keys, shapes and dtypes, verdicts bit-equal to the reference's on the
+  same weights and batches.
 * The paper's IPM-100 claim on the port's own data
   (``tests/test_system.py:43-53``): WFAgg > 0.9 and > mean + 0.2.
 * The entry points run on the card by default and raise without one;
@@ -15,18 +23,22 @@ against the JAX package's engine.
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import wfagg as jwf
 from repro.core.topology import make_topology as jmake_topology
 from repro.data.synthetic import SyntheticImages as JImages
+from repro.dfl import dynamics as jdyn
 from repro.dfl import engine as jengine
+from repro_torch.core import attacks as tatk
 from repro_torch.core import wfagg as twf
 from repro_torch.core.topology import make_topology, paper_topology
 from repro_torch.data.synthetic import SyntheticImages
+from repro_torch.dfl import dynamics as tdyn
 from repro_torch.dfl import engine as tengine
-from repro_torch.dfl.faults import FaultConfig
 from repro_torch.models.lenet import params_from_jax, ravel
 
 from _torch_fixtures import jax_batches
@@ -58,6 +70,106 @@ def test_two_rounds_match_reference_engine():
                                    rtol=1e-4, atol=1e-4)
         np.testing.assert_array_equal(state.temporal.count.numpy(),
                                       np.asarray(jstate.temporal.count))
+
+
+def _transient(cfg, transient):
+    return dataclasses.replace(cfg, paper=dataclasses.replace(cfg.paper,
+                                                              transient=transient))
+
+
+@pytest.mark.parametrize("attack", ["band_rider", "min_max"])
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+def test_adaptive_rounds_match_reference_engine(mode, attack):
+    """Three MLP rounds under an adaptive attack, from the reference's
+    initial weights and batches: the static round on the close-placement
+    ring, the dynamic round on the ``eclipse`` schedule (the victim's slate
+    padded and all attackers).  WFAgg-T is active from round 3
+    (``transient=1``), where band_rider's senders face finite bands."""
+    N, K, R = 10, 4, 3
+    jtopo = jmake_topology(N, K, 2, "ring", placement="close")
+    topo = make_topology(N, K, 2, "ring", placement="close")
+    jdata = JImages()
+    kw = dict(aggregator="wfagg", attack=attack, model="mlp", batches_per_round=1)
+    jcfg = _transient(jengine.DFLConfig(**kw), 1)
+    cfg = _transient(tengine.DFLConfig(**kw), 1)
+    sched = tdyn.make_schedule("eclipse" if mode == "dynamic" else "static", topo, R)
+    jsched = jdyn.make_schedule("eclipse" if mode == "dynamic" else "static", jtopo, R)
+    assert np.array_equal(sched.neighbor_idx, jsched.neighbor_idx)
+    dynamic = mode == "dynamic"
+    jround = jengine.build_round_fn(jcfg, jtopo, jdata, dynamic=dynamic, telemetry=True)
+    round_fn = tengine.build_round_fn(cfg, topo, SyntheticImages(), dynamic=dynamic,
+                                      telemetry=True, device="cpu")
+    width = sched.width if dynamic else None
+    jstate = jax.jit(lambda: jengine.init_dfl_state(jcfg, jtopo, degree=width))()
+    state = tengine.init_dfl_state(cfg, topo, degree=width, device="cpu")._replace(
+        node_params=params_from_jax(jax.tree.map(np.array, jstate.node_params)))
+    prev, rode = (sched.neighbor_idx[0], sched.valid[0]), 0
+    for r in range(R):
+        batches = jax_batches(jdata, N, r, 1, cfg.paper.batch_size)
+        idx, val, mal = sched.neighbor_idx[r], sched.valid[r], sched.malicious[r]
+        if dynamic:
+            slate = (*prev, idx, val)
+            jstate = jstate._replace(temporal=jwf.realign_temporal_history(
+                jstate.temporal, *(jnp.asarray(x) for x in slate)))
+            state = state._replace(temporal=twf.realign_temporal_history(
+                state.temporal, *(torch.as_tensor(x) for x in slate)))
+        view = tengine._defense_view(cfg, state, torch.as_tensor(idx),
+                                     torch.as_tensor(val) if dynamic else None)
+        hi_d = tatk._sender_band_limits(view, torch.as_tensor(mal), N)[1]
+        rode += int(torch.isfinite(hi_d[torch.as_tensor(mal)]).sum())
+        if dynamic:
+            jstate, jrec = jround(jstate, *(jnp.asarray(x) for x in (idx, val, mal)))
+            state, rec = round_fn(state, *(torch.as_tensor(x) for x in (idx, val, mal)),
+                                  batches=batches)
+        else:
+            jstate, jrec = jround(jstate)
+            state, rec = round_fn(state, batches=batches)
+        assert np.array_equal(rec.verdict.numpy(), np.asarray(jrec.verdict)), r
+        want = np.asarray(jengine._ravel_nodes(jstate.node_params)[0])
+        np.testing.assert_allclose(ravel(state.node_params).numpy(), want,
+                                   rtol=1e-4, atol=1e-4, err_msg=f"round {r}")
+        prev = (idx, val)
+    assert rode > 0, "no attacker faced a finite WFAgg-T band"
+
+
+def test_static_telemetry_export_matches_reference(monkeypatch):
+    """``run_experiment(telemetry=True)``: ``out["telemetry"]`` has the
+    reference's keys, shapes and dtypes, with the static slate broadcast to
+    (R, ...); from the reference's weights (the port's ``init_dfl_state``
+    patched to them) and batches (``SyntheticImages.node_batches`` patched
+    to ``jax_batches``), every round's verdicts equal the reference's."""
+    N, K, R = 10, 4, 2
+    jtopo = jmake_topology(N, K, 2, "ring", placement="close")
+    topo = make_topology(N, K, 2, "ring", placement="close")
+    jdata = JImages()
+    jcfg = jengine.DFLConfig(aggregator="wfagg", attack="ipm_100", model="mlp",
+                             batches_per_round=1)
+    cfg = tengine.DFLConfig(aggregator="wfagg", attack="ipm_100", model="mlp",
+                            batches_per_round=1)
+    want = jengine.run_experiment(jcfg, jtopo, jdata, rounds=R, telemetry=True)
+    jstate = jax.jit(lambda: jengine.init_dfl_state(jcfg, jtopo))()
+    params = params_from_jax(jax.tree.map(np.array, jstate.node_params))
+
+    class RefBatches(SyntheticImages):
+        def node_batches(self, n_nodes, rnd, b, batch_size, device):
+            return tuple(torch.as_tensor(x) for x in
+                         jax_batches(jdata, n_nodes, rnd, b + 1, batch_size)[b])
+
+    init = tengine.init_dfl_state
+    monkeypatch.setattr(tengine, "init_dfl_state",
+                        lambda *a, **k: init(*a, **k)._replace(node_params=params))
+    got = tengine.run_experiment(cfg, topo, RefBatches(), rounds=R, telemetry=True,
+                                 device="cpu")
+    tel, jtel = got["telemetry"], want["telemetry"]
+    assert sorted(tel) == sorted(jtel)
+    for key in jtel:
+        assert tel[key].shape == jtel[key].shape, key
+        assert tel[key].dtype == jtel[key].dtype, key
+    for key in ("verdict", "accepted", "mean_fallback", "degree_zero", "neighbor_idx",
+                "valid", "malicious"):
+        assert np.array_equal(tel[key], jtel[key]), key
+    np.testing.assert_allclose(tel["entropy"], jtel["entropy"], rtol=1e-5, atol=1e-6)
+    assert got["series"]["mean_fallback_count"] == want["series"]["mean_fallback_count"]
 
 
 def test_fused_and_reference_backends_agree_on_lenet():
@@ -112,17 +224,17 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
 
 
 @pytest.mark.parametrize("what", ["wfagg_d", "krum_irregular", "centralized",
-                                  "dynamic", "faults", "telemetry", "mesh",
-                                  "gathered"])
+                                  "dynamic", "mesh", "gathered"])
 def test_later_slices_raise(what):
     """Paths that still raise.  Those of later slices name their ROADMAP
-    item: an adaptive attack on the chaos round, telemetry export of the
-    static run, sharding, and more than 32 candidates (a CFL server over 33
+    item: sharding, and more than 32 candidates (a CFL server over 33
     nodes, a gathered slate of 33).  Those the reference itself refuses
     raise as it does: a standalone WFAgg filter has no valid-masked form,
     so WFAgg-D on an irregular graph and WFAgg-T on a dynamic schedule
     raise, while a baseline such as Krum runs on the same irregular graph
-    and WFAgg-C beside it raises."""
+    and WFAgg-C beside it raises.  (The adaptive attacks and the static
+    telemetry export, which raised until they were ported, are held
+    against the reference above and in ``test_torch_chaos.py``.)"""
     topo, data = paper_topology(), SyntheticImages()
     cfg = tengine.DFLConfig()
     kw = {}
@@ -147,16 +259,10 @@ def test_later_slices_raise(what):
     elif what == "dynamic":
         cfg, kw = tengine.DFLConfig(aggregator="wfagg_t"), {"dynamic": True}
         match = "no valid-mask-aware form"
-    elif what == "faults":
-        cfg = tengine.DFLConfig(attack="min_max")
-        kw = {"dynamic": True, "faults": FaultConfig()}
     elif what == "gathered":
         exc = ValueError
     with pytest.raises(exc, match=match):
-        if what == "telemetry":
-            tengine.run_experiment(cfg, topo, data, rounds=1, telemetry=True,
-                                   device="cpu")
-        elif what == "gathered":
+        if what == "gathered":
             u = torch.zeros((4, 33, 8))
             twf.wfagg_batch(u[:, 0], u, None, twf.WFAggConfig(), device="cpu")
         else:
