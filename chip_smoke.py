@@ -3,9 +3,16 @@
 an NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only distributed   # phase 1, then the distributed phase
+    python3 chip_smoke.py --only cards         # phase 1, then its ranks on every card
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
+With ``--only distributed`` it builds the kernels, runs the distributed
+phase alone and prints that phase's launches, errors and times as one
+JSON line instead of the kernels line and the ok line; with ``--only
+cards`` it runs that phase's round, scan and engine parts on one ``nccl``
+rank per visible card (2 or more), the deployment sharding is for.
 Phases, each of which fails the run:
 
   1. the card's name and power limit; build the seven kernel libraries of
@@ -212,7 +219,42 @@ Phases, each of which fails the run:
        kernel launch), and the 96 stepped logits against one prefill of
        the same tokens.  Both logit comparisons hold a relative rms within
        2e-2 and a largest difference within 0.125, and top-1 equal except
-       at near-ties (top-2 margin below 0.25), which are reported.
+       at near-ties (top-2 margin below 0.25), which are reported;
+     - distributed (``repro_torch.distributed``): kernels 2 and 3 at the
+       per-shard shapes (N=64, K=16, d/S=131,072; N=20, K=8 at the
+       paper's shard widths 5,554 and 6,362, d/S = 2 mod 4) against their
+       plain versions and timed; 8 ``gloo`` ranks spawned on the one card
+       (the kernels built by this process first), each running the
+       sharded round of WFAgg and Alt-WFAgg at N=64, K=16, d=2^20 over 4
+       rounds with the WFAgg-T state carried (kernel 2 and kernel 3 once a
+       round on every rank, kernel 1 never), the sharded scan over 3
+       churned rounds, and the DFL engine with ``mesh_model_shards=8``
+       (LeNet-5 and the MLP, IPM-100, the 20-node ring: a static run of 6
+       rounds and 2 ``churn`` rounds); rank 0 holds every round to the
+       one-process emulation (``spmd.wfagg_batch_sharded_emulated``) bit
+       for bit and to the unsharded ``fused_two_launch`` round or engine
+       replayed from the same state (masks bit-equal or near-ties by
+       ``NEAR_TIE``; weights 1e-6, ``out`` and ``prev`` 2e-4, ``hist_s``
+       1e-4, engine models 3e-4: ``tests/_spmd_parity_main.py``), every
+       rank's results are hashed and must be equal, and a rank that fails
+       or passes the deadline (``DIST_TIMEOUT_S``) fails the run (the rest
+       are killed); S=1 on ``nccl`` in this process, bit for bit the
+       unsharded round; the stacked all-reduce (``robust_allreduce_
+       stacked``) over K=8 candidates shaped as Qwen1.5-0.5B's parameter
+       dict at full width and depth (the port's seed-0 init plus seeded
+       perturbations, 2 under ``ipm_100``; K*P = 3.7e9 > 2^31), 3 rounds
+       with WFAgg-T state, WFAgg, Alt-WFAgg, Multi-Krum, median and mean
+       on ``reference``, ``fused_two_launch`` and ``fused`` (kernel 1 at
+       N=1 with ``mean_fallback`` on ``fused`` WFAgg and Alt-WFAgg; kernel
+       4, and kernel 6 for the Gram rules, on the two-launch route; exact
+       launch counts; weights within 3e-5, outputs within rtol 1e-4 /
+       atol 3e-5, masks bit-equal or near-ties reported with their margin,
+       a route at a near-tie holding its output to the combine of its own
+       weights; peak memory printed); kernels 1, 4 and 6 at (8, P) against
+       their plain versions computed in column chunks (kernel 6 against
+       the Gram summed in float64), timed beside their bounds (kernel 1
+       beside the two-launch route); kernel 1's ``mean_fallback`` branch
+       with every candidate rejected (the uniform mean).
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -3440,9 +3482,1052 @@ def run_serve_path(torch) -> dict:
     return launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 3: the distributed paths (distributed/spmd.py, robust_allreduce.py)
+# ---------------------------------------------------------------------------
+
+SHARDS = 8                                   # gloo ranks, all on the one card
+SHARD_N, SHARD_K, SHARD_D = 64, 16, 1 << 20  # the sharded round: d/S = 131,072
+SHARD_ROUNDS = 4                             # WFAgg-T active from the third
+SHARD_BYZ = (3, 17, 40, 55)                  # rows scaled 40x
+DIST_TIMEOUT_S = 420                         # the ranks' deadline, all parts
+# the paper's widths split 8 ways (zero-padded to a multiple of 8)
+SHARD_WIDTHS = {"lenet": 5554, "mlp": 6362}
+STACK_ARCH = "qwen1.5-0.5b"
+STACK_K = 8
+STACK_ROUNDS = 3
+STACK_MALICIOUS = (2, 5)                     # under ipm_100
+STACK_METHODS = ("wfagg", "alt_wfagg", "multi_krum", "median", "mean")
+# the fused routes first: the reference pass compares against both and,
+# on a differing mask, measures the margin on its own statistics
+STACK_BACKENDS = ("fused", "fused_two_launch", "reference")
+STACK_W_TOL = 3e-5                           # tests/test_one_launch.py:20, 280-310
+STACK_RTOL, STACK_ATOL = 1e-4, 3e-5
+PLAIN_CHUNK = 1 << 25                        # columns a chunk of the plain versions
+
+
+def shard_cfgs():
+    """The sharded round's WFAgg and Alt-WFAgg (the DFL engine's Multi-Krum
+    m at K = 16), WFAgg-T active after one round, on the two-launch
+    backend the unsharded comparison runs."""
+    import dataclasses
+
+    from repro_torch.core import wfagg as wf
+
+    base = wf.WFAggConfig(backend="fused_two_launch", window=3, transient=1)
+    return {"wfagg": base,
+            "alt_wfagg": dataclasses.replace(
+                base, distance_filter="multi_krum", similarity_filter="clustering",
+                multi_krum_m=max(1, int(0.25 * SHARD_K)))}
+
+
+def shard_table(torch):
+    """(N, K) table: K distinct other nodes each, from a fixed seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(61)
+    idx = np.stack([rng.choice(np.delete(np.arange(SHARD_N), n), SHARD_K, replace=False)
+                    for n in range(SHARD_N)])
+    return torch.as_tensor(idx, dtype=torch.int64, device="cuda")
+
+
+def shard_models(torch, r):
+    """Round r's (N, d) model matrix, drawn on the card from fixed seeds (so
+    every rank draws the same): a common centre moving 0.05 a round, unit
+    spread, the Byzantine rows scaled 40x."""
+    g = torch.Generator(device="cuda").manual_seed(62)
+    centre = torch.randn((1, SHARD_D), generator=g, device="cuda")
+    g.manual_seed(6200 + r)
+    m = centre + 0.05 * r + torch.randn((SHARD_N, SHARD_D), generator=g, device="cuda")
+    m[list(SHARD_BYZ)] *= 40.0
+    return m
+
+
+def shard_state(torch, cfg, prev):
+    from repro_torch.distributed import spmd
+
+    return spmd.batched_matrix_state(SHARD_N, SHARD_K, SHARD_D, cfg.window,
+                                     device="cuda")._replace(prev=prev)
+
+
+def digest(torch, *xs) -> str:
+    """A hash of the raw bytes of tensors (or of a state's fields)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in xs:
+        for t in (x if isinstance(x, tuple) else (x,)):
+            if t is not None:
+                h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def same_on_ranks(torch, dist, label, value) -> None:
+    """Every rank's ``value`` (a digest) equal to rank 0's, checked on rank 0."""
+    vals = [None] * dist.get_world_size()
+    dist.all_gather_object(vals, value)
+    if dist.get_rank() == 0 and len(set(vals)) != 1:
+        raise AssertionError(f"{label}: the ranks' results differ: {vals}")
+
+
+def only_counts(**want) -> dict:
+    """``want`` (kernel name -> launches) for those kernels, 0 for the rest."""
+    return dict(dict.fromkeys(KERNELS, 0), **want)
+
+
+def hold_sharded(torch, label, got, want, models, idx, v, st, cfg):
+    """A sharded round's ``(out, state, info)`` against the unsharded
+    two-launch round's from the same pre-round state ``st``: masks
+    bit-equal, or each differing edge a near-tie by ``NEAR_TIE``
+    (reported); weights within 1e-6, ``out`` and ``prev`` within 2e-4 and
+    ``hist_s`` within 1e-4 (``tests/_spmd_parity_main.py:65-69, 86-90``)
+    on the other nodes.  Returns (largest ``out`` difference, near-tie
+    nodes)."""
+    from repro_torch.core import trust
+    from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
+
+    (o, ns, info), (o_ref, ns_ref, info_ref) = got, want
+    masks = ("mask_d", "mask_c", "mask_t")
+    flips = [(n, k, bit) for bit, m in enumerate(masks)
+             for n, k in (info[m] != info_ref[m]).nonzero().tolist()]
+    off = torch.zeros(idx.shape[0], dtype=torch.bool, device="cuda")
+    if flips:
+        stats = robust_stats_indexed_ref(models, idx, v, st.prev,
+                                         need_gram=trust.needs_gram(cfg))
+        tb = trust.temporal_bands(st.hist_s, st.hist_b, st.count, st.t, cfg)
+        report = flip_margins(torch, stats, v, tb, cfg, flips)
+        print(f"  {label}: masks differ from the unsharded round at (node, slot, "
+              f"filter, margin) {report}")
+        if not near_ties_only(report):
+            raise AssertionError(f"{label}: masks differ from the unsharded round away "
+                                 "from any edge")
+        off[[n for n, _, _ in flips]] = True
+    keep = ~off
+    torch.testing.assert_close(info["weights"][keep], info_ref["weights"][keep], rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(o[keep], o_ref[keep], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(ns.prev, ns_ref.prev, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(ns.hist_s, ns_ref.hist_s, rtol=2e-4, atol=1e-4)
+    return float((o[keep] - o_ref[keep]).abs().max()), int(off.sum())
+
+
+def hold_emulated(torch, label, got, emu) -> None:
+    """A rank's sharded round against the one-process emulation: every
+    output bit for bit."""
+    (o, ns, info), (o_e, ns_e, info_e) = got, emu
+    pairs = [("out", o, o_e)] + [(k, info[k], info_e[k]) for k in
+                                 ("weights", "mask_d", "mask_c", "mask_t")]
+    if ns is not None:
+        pairs += [(k, getattr(ns, k), getattr(ns_e, k)) for k in ns._fields]
+    for name, a, b in pairs:
+        same = bit_equal(torch, a, b) if a.dtype == torch.float32 else torch.equal(a, b)
+        if not same:
+            raise AssertionError(f"{label}: {name} differs from the one-process "
+                                 "emulation")
+
+
+def dist_round_part(torch, dist, group, report) -> dict:
+    """Every rank: ``SHARD_ROUNDS`` sharded rounds of WFAgg and Alt-WFAgg
+    at N=64, K=16, d=2^20 with the state carried (prev of round 0 is 0.97
+    of its models).  Each round's launches are counted alone (kernel 2
+    once, kernel 3 once, nothing else); rank 0 holds each round to the
+    emulation (bit for bit) and to the unsharded two-launch round from
+    the same state; every rank's outputs are the same bits."""
+    from repro_torch.core import wfagg as wf
+    from repro_torch.distributed import spmd
+
+    rank, S = dist.get_rank(), dist.get_world_size(group)
+    idx = shard_table(torch)
+    totals = dict.fromkeys(KERNELS, 0)
+    for name, cfg in shard_cfgs().items():
+        st = shard_state(torch, cfg, 0.97 * shard_models(torch, 0))
+        ms, ms_ref, ties, errs, fired = [], [], 0, [], [0, 0, 0]
+        for r in range(SHARD_ROUNDS):
+            m = shard_models(torch, r)
+            dist.barrier(group)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            got = spmd.wfagg_batch_sharded(m, m, st, cfg, idx, group=group)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            counts = read_counts()
+            want = only_counts(robust_stats_indexed=1, weighted_agg_indexed=1)
+            if counts != want:
+                raise AssertionError(f"rank {rank} {name} round {r}: launches {counts}")
+            for k in KERNELS:
+                totals[k] += counts[k]
+            same_on_ranks(torch, dist, f"sharded {name} round {r}", digest(
+                torch, got[0], got[1], *(got[2][k] for k in ("weights", "mask_d",
+                                                             "mask_c", "mask_t"))))
+            if rank == 0:
+                label = f"sharded {name} N={SHARD_N} K={SHARD_K} d=2^20 S={S} round {r}"
+                hold_emulated(torch, label, got, spmd.wfagg_batch_sharded_emulated(
+                    m, m, st, cfg, idx, n_shards=S))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = wf.wfagg_batch(m, m, st, cfg, neighbor_idx=idx)
+                torch.cuda.synchronize()
+                ms_ref.append(1e3 * (time.perf_counter() - t0))
+                v = torch.ones(idx.shape, dtype=torch.bool, device="cuda")
+                err, n_ties = hold_sharded(torch, label, got, ref, m, idx, v, st, cfg)
+                errs.append(err)
+                ties += n_ties
+                for i, k in enumerate(("mask_d", "mask_c", "mask_t")):
+                    fired[i] += int(got[2][k].sum())
+            st = got[1]
+        if rank == 0:
+            if not all(0 < f < SHARD_ROUNDS * SHARD_N * SHARD_K for f in fired):
+                raise AssertionError(f"sharded {name}: a filter accepted every edge or "
+                                     f"none over the rounds: {fired}")
+            report[f"round_{name}"] = dict(
+                ms=ms, unsharded_ms=ms_ref, max_out_err=max(errs), near_tie_nodes=ties,
+                accepted_d_c_t=fired)
+    # the round's two collectives alone: the O(N·K) partials (with prev and
+    # the Gram) and the gathered out shards, both staged through the host
+    F = 6 * SHARD_K + 1 + SHARD_K * SHARD_K
+    for key, shape in (("psum_ms", (SHARD_N, F)), ("out_gather_ms",
+                                                    (SHARD_N, SHARD_D // S))):
+        x = torch.zeros(shape, device="cuda")
+        times = []
+        for _ in range(3):
+            dist.barrier(group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            spmd.all_gather_in_rank_order(x, group)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        report[key] = statistics.median(times)
+    return totals
+
+
+def churned_schedule(torch, R):
+    """``_spmd_parity_main.py:44-57`` at the sharded round's shape: the table
+    rolled one slot a round, one slot per node dropped in later rounds."""
+    idx = shard_table(torch)
+    sched_idx = torch.stack([torch.roll(idx, r, dims=1) for r in range(R)])
+    sched_valid = torch.ones((R, SHARD_N, SHARD_K), dtype=torch.bool, device="cuda")
+    n = torch.arange(SHARD_N, device="cuda")
+    for r in range(1, R):
+        sched_valid[r, n, (n + r) % SHARD_K] = False
+    return sched_idx, sched_valid
+
+
+def dist_scan_part(torch, dist, group, report) -> dict:
+    """Every rank: ``wfagg_scan_sharded`` over three churned rounds (kernel 2
+    and kernel 3 three times each); rank 0 gathers the shards and holds
+    them to the one-process emulation loop (bit for bit) and to the loop
+    of realign + the unsharded two-launch round (2e-4; hist_s 1e-4)."""
+    from repro_torch.core import wfagg as wf
+    from repro_torch.distributed import spmd
+
+    R, S = 3, dist.get_world_size(group)
+    cfg = shard_cfgs()["wfagg"]
+    sched_idx, sched_valid = churned_schedule(torch, R)
+    models = shard_models(torch, 0)
+    st0 = shard_state(torch, cfg, models)
+    dist.barrier(group)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    m_sh, st_sh = spmd.wfagg_scan_sharded(models, st0, cfg, sched_idx, sched_valid,
+                                          group=group)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts()
+    if counts != only_counts(robust_stats_indexed=R, weighted_agg_indexed=R):
+        raise AssertionError(f"rank {dist.get_rank()} scan: launches {counts}")
+    full = torch.cat(spmd.all_gather_in_rank_order(m_sh, group), dim=1)
+    prev = torch.cat(spmd.all_gather_in_rank_order(st_sh.prev, group), dim=1)
+    same_on_ranks(torch, dist, "scan", digest(torch, full, prev, st_sh.hist_s,
+                                              st_sh.hist_b))
+    if dist.get_rank() == 0:
+        m_e, st_e = models, st0
+        m_r, st_r = models, st0
+        prev_idx, prev_val = sched_idx[0], torch.ones_like(sched_valid[0])
+        for r in range(R):
+            i, v = sched_idx[r], sched_valid[r]
+            st_e = wf.realign_temporal_history(st_e, prev_idx, prev_val, i, v)
+            m_e, st_e, _ = spmd.wfagg_batch_sharded_emulated(m_e, m_e, st_e, cfg, i, v,
+                                                             n_shards=S)
+            st_r = wf.realign_temporal_history(st_r, prev_idx, prev_val, i, v)
+            m_r, st_r, _ = wf.wfagg_batch(m_r, m_r, st_r, cfg, neighbor_idx=i, valid=v)
+            prev_idx, prev_val = i, v
+        if not (bit_equal(torch, full, m_e) and bit_equal(torch, st_sh.hist_s, st_e.hist_s)
+                and bit_equal(torch, prev, st_e.prev)):
+            raise AssertionError("scan: differs from the one-process emulation loop")
+        torch.testing.assert_close(full, m_r, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(prev, st_r.prev, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(st_sh.hist_s, st_r.hist_s, rtol=2e-4, atol=1e-4)
+        report["scan"] = dict(ms=ms, max_models_err=float((full - m_r).abs().max()))
+    return counts
+
+
+def engine_replay_report(torch, cfg, topo, data, pre, rec, rec_ref, slate=None):
+    """Margins of the differing verdicts of a sharded engine round and its
+    unsharded replay (``decision_margins`` on the round's own inputs)."""
+    from repro_torch.dfl import engine
+
+    if slate is None:
+        return explain_dfl_round(torch, cfg, topo, data, pre, rec, rec_ref)
+    idx, val, mal = slate
+    wcfg = engine._wfagg_full_config(cfg, idx.shape[1])
+    return decision_margins(torch, wcfg, *aggregation_inputs(
+        torch, cfg, data, pre, idx, val, mal), pre.temporal, rec, rec_ref)
+
+
+def dist_engine_part(torch, dist, group, report) -> dict:
+    """Every rank: the DFL engine with ``mesh_model_shards = 8`` (WFAgg,
+    IPM-100, the paper's 20-node ring): a static run of ``ROUNDS`` rounds
+    and two dynamic ``churn`` rounds, LeNet-5 and the MLP.  Each round:
+    kernel 2 and kernel 3 once on every rank, every rank's models,
+    momentum, WFAgg-T state and verdicts the same bits (rank 0 trains and
+    broadcasts); rank 0 replays each round from the same state on the
+    unsharded two-launch engine (models within 3e-4,
+    ``_spmd_parity_main.py:175-182``; verdicts bit-equal or near-ties).
+    The final evaluation is the same on every rank."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import wfagg as wf
+    from repro_torch.core.topology import make_topology
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.dfl import dynamics as dyn
+    from repro_torch.dfl import engine
+    from repro_torch.models.lenet import ravel
+
+    rank, S = dist.get_rank(), dist.get_world_size(group)
+    topo = make_topology(20, 8, 2, "ring", placement="close")
+    data = SyntheticImages()
+    totals = dict.fromkeys(KERNELS, 0)
+    sched = dyn.churn_schedule(topo, 2, seed=1)
+    xs = upload_schedule(torch, sched)
+    for model in ("lenet", "mlp"):
+        cfg = engine.DFLConfig(aggregator="wfagg", attack="ipm_100", model=model,
+                               wfagg_backend="fused_two_launch",
+                               mesh_model_shards=S)
+        ref_cfg = dataclasses.replace(cfg, mesh_model_shards=0)
+        runs = (("static", engine.build_round_fn(cfg, topo, data, telemetry=True),
+                 engine.build_round_fn(ref_cfg, topo, data, telemetry=True), ROUNDS,
+                 None),
+                ("churn", engine.build_round_fn(cfg, topo, data, dynamic=True,
+                                                telemetry=True),
+                 engine.build_round_fn(ref_cfg, topo, data, dynamic=True, telemetry=True),
+                 2, sched.width))
+        for kind, fn, ref_fn, R, width in runs:
+            state = engine.init_dfl_state(cfg, topo, degree=width)
+            errs, edges, ms = [], [], []
+            prev = (xs[0][0], xs[1][0])
+            for r in range(R):
+                slate = None
+                if width is not None:
+                    slate = tuple(x[r] for x in xs[:3])
+                    state = state._replace(temporal=wf.realign_temporal_history(
+                        state.temporal, *prev, *slate[:2]))
+                    prev = slate[:2]
+                pre = state
+                dist.barrier(group)
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                state, rec = fn(state) if slate is None else fn(state, *slate)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                counts = read_counts()
+                if counts != only_counts(robust_stats_indexed=1,
+                                         weighted_agg_indexed=1):
+                    raise AssertionError(f"rank {rank} engine {model} {kind} round {r}: "
+                                         f"launches {counts}")
+                for k in KERNELS:
+                    totals[k] += counts[k]
+                flat = ravel(state.node_params)
+                same_on_ranks(torch, dist, f"engine {model} {kind} round {r}", digest(
+                    torch, flat, ravel(state.node_momentum), tuple(state.temporal),
+                    rec.verdict))
+                if rank == 0:
+                    alt, rec_ref = ref_fn(pre) if slate is None else ref_fn(pre, *slate)
+                    if not torch.equal(rec.verdict, rec_ref.verdict):
+                        rep = engine_replay_report(torch, ref_cfg, topo, data, pre, rec,
+                                                   rec_ref, slate)
+                        print(f"  engine {model} {kind} round {r + 1}: verdicts differ "
+                              f"from the unsharded engine at (node, slot, filter, "
+                              f"margin) {rep}")
+                        if not near_ties_only(rep):
+                            raise AssertionError(f"engine {model} {kind} round {r + 1}: "
+                                                 "verdicts differ away from any edge")
+                        edges.append((r + 1, rep))
+                    else:
+                        ref_flat = ravel(alt.node_params)
+                        torch.testing.assert_close(flat, ref_flat, rtol=3e-4, atol=3e-4,
+                                                   equal_nan=True)
+                        errs.append(float((flat - ref_flat).nan_to_num().abs().max()))
+            ev = engine.evaluate(cfg, topo, data, state)
+            same_on_ranks(torch, dist, f"engine {model} {kind} evaluation",
+                          digest(torch, torch.as_tensor(np.asarray(ev["acc_all"]))))
+            if rank == 0:
+                report[f"engine_{model}_{kind}"] = dict(
+                    ms=ms, max_models_err=max(errs) if errs else None,
+                    rounds_on_an_edge=edges, acc_benign=ev["acc_benign_mean"])
+    return totals
+
+
+def dist_child(rank, S, store_path, out_dir, backend) -> None:
+    """One rank of the distributed phase: joins the ``backend`` group of S
+    ranks through the file store (on card ``rank`` modulo the cards), runs
+    the round, scan and engine parts, and writes its launch counts (and on
+    rank 0 the comparisons' report) as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    # the replays retrain rank 0's round: deterministic cuDNN, as phase 3's
+    torch.backends.cudnn.deterministic = True
+    res = {"rank": rank}
+    try:
+        dist.init_process_group(backend, store=dist.FileStore(store_path, S), rank=rank,
+                                world_size=S)
+        group = dist.group.WORLD
+        report = {}
+        try:
+            res["launches"] = {
+                "round": dist_round_part(torch, dist, group, report),
+                "scan": dist_scan_part(torch, dist, group, report),
+                "engine": dist_engine_part(torch, dist, group, report)}
+        finally:
+            dist.destroy_process_group()
+        res["report"] = report
+    except Exception:   # noqa: BLE001 - the parent fails the run on it
+        import traceback
+        res["error"] = traceback.format_exc()
+    pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def run_ranks(torch, backend, S) -> list:
+    """Spawn S processes, each a ``backend`` rank of the distributed phase
+    (``gloo``: all on the one card; ``nccl``: one card each); wait for all
+    of them within ``DIST_TIMEOUT_S`` (the stragglers are killed and the
+    run fails).  Returns each rank's JSON."""
+    import multiprocessing as mp
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    store = str(pathlib.Path(tmp, "store"))
+    procs = [ctx.Process(target=dist_child, args=(r, S, store, tmp, backend))
+             for r in range(S)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if hung:
+        raise AssertionError(f"distributed: ranks {hung} passed the {DIST_TIMEOUT_S} s "
+                             "deadline and were killed")
+    results = []
+    for r, p in enumerate(procs):
+        path = pathlib.Path(tmp, f"rank{r}.json")
+        if p.exitcode != 0 or not path.exists():
+            raise AssertionError(f"distributed: rank {r} exited with {p.exitcode}")
+        res = json.loads(path.read_text())
+        if "error" in res:
+            raise AssertionError(f"distributed: rank {r} failed:\n{res['error']}")
+        results.append(res)
+    return results
+
+
+def report_ranks(ranks, S, backend) -> tuple:
+    """Print the ranks' parts (rank 0's report) and check that every rank
+    launched the same kernels; returns (launches summed over the ranks,
+    rank 0's report)."""
+    launches = dict.fromkeys(KERNELS, 0)
+    per_rank = []
+    for res in ranks:
+        mine = dict.fromkeys(KERNELS, 0)
+        for counts in res["launches"].values():
+            for k, c in counts.items():
+                mine[k] += c
+        per_rank.append({k: c for k, c in mine.items() if c})
+        for k in KERNELS:
+            launches[k] += mine[k]
+    if any(r != per_rank[0] for r in per_rank):
+        raise AssertionError(f"the ranks launched differently: {per_rank}")
+    print(f"  launches on each rank (round, scan and engine parts): {per_rank[0]}")
+    rep = ranks[0]["report"]
+    for name in ("wfagg", "alt_wfagg"):
+        r = rep[f"round_{name}"]
+        print(f"  sharded {name} N={SHARD_N} K={SHARD_K} d=2^20 S={S} on {backend}: "
+              f"{SHARD_ROUNDS} rounds bit-equal to the one-process emulation and "
+              f"on every rank, within the harness's tolerances of the unsharded "
+              f"round (out max|diff| {r['max_out_err']:.3g}, near-tie nodes "
+              f"{r['near_tie_nodes']}; accepted edges D/C/T {r['accepted_d_c_t']}); "
+              f"round ms {[round(t, 2) for t in r['ms']]}, unsharded "
+              f"{[round(t, 2) for t in r['unsharded_ms']]}")
+    print(f"  the round's collectives alone (median of 3; gloo stages through the "
+          f"host): the partials {rep['psum_ms']:.3f} ms, the out gather "
+          f"{rep['out_gather_ms']:.3f} ms")
+    print(f"  scan (3 churned rounds): {rep['scan']['ms']:.2f} ms, bit-equal to the "
+          f"emulation loop, models within 2e-4 of the unsharded loop (max|diff| "
+          f"{rep['scan']['max_models_err']:.3g})")
+    for key, r in rep.items():
+        if key.startswith("engine_"):
+            print(f"  {key}: every rank bit-equal each round, models within 3e-4 of "
+                  f"the unsharded engine (max|diff| {r['max_models_err']}; rounds on an "
+                  f"edge {r['rounds_on_an_edge']}), benign acc {r['acc_benign']:.4f}, "
+                  f"round ms {[round(t, 2) for t in r['ms']]}")
+    return launches, rep
+
+
+def run_cards(torch) -> dict:
+    """The round, scan and engine parts on one ``nccl`` rank per visible
+    card (``--only cards``, at least 2 cards): the deployment the port's
+    sharding is for, where the collectives stay on the devices."""
+    S = torch.cuda.device_count()
+    if S < 2:
+        raise AssertionError(f"--only cards needs at least 2 cards, found {S}")
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, "nccl", S)
+    print(f"  {S} nccl ranks, one card each, done in {time.perf_counter() - t0:.1f} s")
+    launches, rep = report_ranks(ranks, S, "nccl")
+    return {"launches": launches, "report": rep}
+
+
+def run_nccl_one_rank(torch) -> dict:
+    """S=1 on ``nccl`` in this process (a world-size-1 group: the backend a
+    run over several cards would use): ``SHARD_ROUNDS`` sharded rounds of
+    WFAgg and Alt-WFAgg equal the unsharded two-launch round bit for bit
+    (every output, from the same state).  Returns the launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import wfagg as wf
+    from repro_torch.distributed import spmd
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(pathlib.Path(tmp, "s")), 1),
+                            rank=0, world_size=1)
+    totals = dict.fromkeys(KERNELS, 0)
+    try:
+        idx = shard_table(torch)
+        for name, cfg in shard_cfgs().items():
+            st = shard_state(torch, cfg, 0.97 * shard_models(torch, 0))
+            for r in range(SHARD_ROUNDS):
+                m = shard_models(torch, r)
+                zero_counts()
+                got = spmd.wfagg_batch_sharded(m, m, st, cfg, idx)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                if counts != only_counts(robust_stats_indexed=1,
+                                         weighted_agg_indexed=1):
+                    raise AssertionError(f"nccl S=1 {name} round {r}: launches {counts}")
+                for k in KERNELS:
+                    totals[k] += counts[k]
+                hold_emulated(torch, f"nccl S=1 {name} round {r} vs the unsharded round",
+                              got, wf.wfagg_batch(m, m, st, cfg, neighbor_idx=idx))
+                st = got[1]
+        print(f"  S=1 on nccl: {SHARD_ROUNDS} rounds each of WFAgg and Alt-WFAgg at "
+              f"N={SHARD_N} K={SHARD_K} d=2^20 equal the unsharded fused_two_launch "
+              "round bit for bit (out, weights, masks, prev, hist_s, hist_b, count, t)")
+    finally:
+        dist.destroy_process_group()
+    return totals
+
+
+def time_shard_kernels(torch) -> dict:
+    """Kernels 2 and 3 at the per-shard launch shape (M=N=64 rows, K=16,
+    d/S=131,072; kernel 2 with prev, with and without the Gram), their
+    plain versions, bounds and (kernel 3) the library call; and kernel 2 at
+    the paper's shard widths of the engine (N=20, K=8)."""
+    out = time_dfl_kernels(torch, SHARD_N, SHARD_K, SHARD_D // SHARDS, seed=71)
+    out.pop("wfagg_round_indexed_gram")
+    out["weighted_agg_indexed"] = time_combine_indexed(torch, SHARD_N, SHARD_K,
+                                                       SHARD_D // SHARDS, seed=72)
+    for model, w in SHARD_WIDTHS.items():
+        out[f"robust_stats_indexed_{model}"] = time_dfl_kernels(
+            torch, 20, 8, w, seed=73)["robust_stats_indexed_no_gram"]
+        out[f"weighted_agg_indexed_{model}"] = time_combine_indexed(torch, 20, 8, w,
+                                                                    seed=74)
+    return out
+
+
+def check_shard_kernels(torch) -> dict:
+    """Kernels 2 and 3 against their plain versions at the per-shard shapes:
+    N=64 K=16 d/S=131,072 and the paper's shard widths at N=20 K=8 (d/S
+    = 5,554 and 6,362: 2 mod 4), with and without prev and the Gram."""
+    from repro_torch.core.topology import make_topology
+
+    errs = {"robust_stats_indexed": [], "weighted_agg_indexed": []}
+    ring = make_topology(20, 8, 2, "ring", placement="close").neighbor_indices
+    big = shard_table(torch).cpu().numpy()
+    for label, N, K, d, idx in (("shard N=64 K=16 d/S=131072", SHARD_N, SHARD_K,
+                                 SHARD_D // SHARDS, big),
+                                *((f"{m} shard N=20 K=8 d/S={w}", 20, 8, w, ring)
+                                  for m, w in SHARD_WIDTHS.items())):
+        for with_prev, need_gram in ((True, False), (True, True)):
+            errs["robust_stats_indexed"].append(compare_indexed_stats(
+                torch, label, N, K, d, idx, None, 75, (0, 4), with_prev, need_gram))
+        errs["weighted_agg_indexed"].append(compare_weighted_agg_indexed(
+            torch, f"weighted_agg_indexed {label}", N, K, d, idx, None, 76))
+    return errs
+
+
+# ---- the stacked robust all-reduce over Qwen1.5-0.5B-shaped candidates ------
+
+def stack_base(torch) -> dict:
+    """Qwen1.5-0.5B's parameter dict at full width and depth, the port's
+    own init (seed 0 on the card), as the candidates' common base."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_params
+
+    model = init_params(get_config(STACK_ARCH))
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def stack_candidates(torch, base, r) -> dict:
+    """Round r's K candidates: the base plus seeded perturbations (0.1 of
+    each leaf's spread, 0.01 where it has none), then ``ipm_100`` on
+    ``STACK_MALICIOUS`` through ``apply_stacked_attack``."""
+    from repro_torch.distributed.robust_allreduce import apply_stacked_attack
+
+    g = torch.Generator(device="cuda").manual_seed(7100 + r)
+    cands = {}
+    for k in sorted(base):
+        b = base[k]
+        s = 0.1 * float(b.std()) if b.numel() > 1 else 0.0
+        z = torch.randn((STACK_K,) + tuple(b.shape), generator=g, device="cuda")
+        cands[k] = z.mul_(s or 0.01).add_(b)
+    mal = torch.zeros(STACK_K, dtype=torch.bool, device="cuda")
+    mal[list(STACK_MALICIOUS)] = True
+    return apply_stacked_attack(cands, mal, "ipm_100")
+
+
+def stack_cfg(method, backend):
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.distributed.robust_allreduce import RobustAggConfig
+
+    return RobustAggConfig(method=method, layout="stacked", backend=backend,
+                           wfagg=WFAggConfig(window=3, transient=1))
+
+
+def flat_of(torch, tree):
+    from repro_torch.distributed.robust_allreduce import _leaves
+
+    return torch.cat([leaf.reshape(-1) for leaf in _leaves(tree)])
+
+
+def stacked_margins(torch, cfg, cands, state, flips):
+    """(candidate, filter, margin) of each differing (k, bit) decision of the
+    stacked round, on the reference route's own statistics: the distance
+    filter and WFAgg-T as ``flip_margins``; WFAgg-C, which keeps the K - f
+    - 1 smallest cosine distances to the median as WFAgg-D keeps distances,
+    by the same relative gap between the last kept and the first dropped
+    value (Clustering has none)."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import trust
+    from repro_torch.core.wfagg import alt_wfagg_config
+    from repro_torch.distributed import robust_allreduce as ra
+
+    K = STACK_K
+    cs = ra._stacked_stats(cands, cfg)
+    if cfg.method == "multi_krum":
+        wcfg = alt_wfagg_config(f=cfg.wfagg.f, multi_krum_m=cfg.multi_krum_m or K // 4)
+    else:
+        wcfg = ra._effective_wfagg_config(cfg, K)
+    s = b = tb = None
+    if state is not None:
+        s, b = ra._stacked_temporal_metrics(cands, state.prev)
+        tb = trust.temporal_bands(state.hist_s, state.hist_b, state.count, state.t,
+                                  wcfg)[None]
+    st = SimpleNamespace(dist2=cs.dist2_med[None], gram=cs.gram[None],
+                         prev_dist2=None if s is None else s[None],
+                         cosine_to_prev=lambda: b[None])
+    v = torch.ones((1, K), dtype=torch.bool, device="cuda")
+    rep = []
+    for k, bit in flips:
+        if bit == 1 and wcfg.similarity_filter == "wfagg_c":
+            cos_d = 1.0 - cs.dot_med / torch.sqrt(torch.clamp(
+                torch.diagonal(cs.gram) * cs.med2, min=1e-24))
+            srt = torch.sort(cos_d).values
+            keep = K - wcfg.f - 1
+            rep.append((k, "WFAgg-C", float((srt[keep] - srt[keep - 1]).abs()
+                                            / srt[keep].abs().clamp(min=1e-30))))
+        else:
+            rep += [(k, f, m) for _, _, f, m in flip_margins(torch, st, v, tb, wcfg,
+                                                             [(0, k, bit)])]
+    return rep
+
+
+def combine_of(torch, cands, w):
+    """The stacked all-reduce's combine of ``cands`` under weights ``w``, as
+    one flat vector: the trust-normalized sum, the uniform mean if every
+    weight is 0 (the reference's ``tensordot``)."""
+    K = w.shape[0]
+    wn = w / w.sum() if float(w.sum()) > 0 else torch.full((K,), 1.0 / K, device=w.device)
+    return flat_of(torch, {k: torch.tensordot(wn, v, dims=([0], [0]))
+                           for k, v in cands.items()})
+
+
+def run_stacked_path(torch) -> tuple:
+    """``robust_allreduce_stacked`` over K=8 Qwen1.5-0.5B-shaped candidates
+    (2 under IPM-100), 3 rounds with WFAgg-T state, for each method on
+    each backend.  Counts each backend's launches over its 3 rounds (the
+    main path: kernel 1 on ``fused`` wfagg/alt_wfagg, kernel 4 (+ kernel 6
+    where a rule reads the Gram) on the two-launch route), and holds the
+    backends to each other: weights within 3e-5, outputs within rtol 1e-4 /
+    atol 3e-5, masks bit-equal or near-ties with their margins.  Returns
+    (launches, report, the base parameters)."""
+    from repro_torch.distributed import robust_allreduce as ra
+
+    base = stack_base(torch)
+    P = sum(v.numel() for v in base.values())
+    print(f"  {STACK_ARCH}: P = {P} parameters in {len(base)} leaves, K = {STACK_K}: "
+          f"K*P = {STACK_K * P} (2^31 = {2 ** 31})")
+    if STACK_K * P <= 2 ** 31:
+        raise AssertionError("the stacked candidates hold no more than 2^31 values")
+    launches = dict.fromkeys(KERNELS, 0)
+    report = {"P": P}
+    for method in STACK_METHODS:
+        kept = {}       # backend -> round -> (host out, weights, masks)
+        for backend in STACK_BACKENDS:
+            cfg = stack_cfg(method, backend)
+            state = (ra.init_tree_agg_state(cfg, STACK_K, base)
+                     if method in ("wfagg", "alt_wfagg") else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, counts_total, flips_seen = [], dict.fromkeys(KERNELS, 0), []
+            for r in range(STACK_ROUNDS):
+                cands = stack_candidates(torch, base, r)
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                out, new_state, info = ra.robust_allreduce_stacked(cands, cfg, state)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                for k, c in read_counts().items():
+                    counts_total[k] += c
+                o = flat_of(torch, out)
+                if not torch.isfinite(o).all():
+                    raise AssertionError(f"stacked {method} {backend} round {r}: "
+                                         "non-finite output")
+                masks = {k: info[k] for k in ("mask_d", "mask_c", "mask_t") if k in info}
+                if backend != "reference":
+                    kept.setdefault(backend, {})[r] = (o.cpu(), info["weights"], masks)
+                else:
+                    for other, rounds in kept.items():
+                        o2, w2, m2 = rounds[r]
+                        label = f"stacked {method} round {r} {other} vs reference"
+                        flips = [(k, bit) for bit, name in enumerate(
+                            ("mask_d", "mask_c", "mask_t")) if name in masks
+                            for k in (masks[name] != m2[name]).nonzero().flatten().tolist()]
+                        if method == "multi_krum":
+                            flips = [(k, 0) for k in (info["weights"] != w2).nonzero()
+                                     .flatten().tolist()]
+                        keep = torch.ones(STACK_K, dtype=torch.bool, device="cuda")
+                        o2 = o2.to("cuda")
+                        if flips:
+                            rep = stacked_margins(torch, cfg, cands, state, flips)
+                            print(f"  {label}: decisions differ at (candidate, filter, "
+                                  f"margin) {rep}")
+                            if not all(m is not None and m <= NEAR_TIE for _, _, m in rep):
+                                raise AssertionError(f"{label}: decisions differ away "
+                                                     "from any edge")
+                            flips_seen.append((r, other, rep))
+                            keep[[k for k, _ in flips]] = False
+                            # the route's output is the combine of its own weights
+                            torch.testing.assert_close(o2, combine_of(torch, cands, w2),
+                                                       rtol=STACK_RTOL, atol=STACK_ATOL)
+                        torch.testing.assert_close(w2[keep], info["weights"][keep],
+                                                   rtol=0, atol=STACK_W_TOL)
+                        if not flips:
+                            torch.testing.assert_close(o2, o, rtol=STACK_RTOL,
+                                                       atol=STACK_ATOL)
+                            report.setdefault(f"max_out_err_{method}", 0.0)
+                            report[f"max_out_err_{method}"] = max(
+                                report[f"max_out_err_{method}"],
+                                float((o2 - o).abs().max()))
+                        del o2
+                state, new_state = new_state, None
+                del cands, out, o, info
+            peak = torch.cuda.max_memory_allocated()
+            want = dict.fromkeys(KERNELS, 0)
+            if backend == "fused" and method in ("wfagg", "alt_wfagg"):
+                want["wfagg_round_indexed"] = STACK_ROUNDS
+            elif backend != "reference" and method in ("wfagg", "alt_wfagg", "multi_krum"):
+                want["robust_stats"] = STACK_ROUNDS
+                if method != "wfagg":
+                    want["pairwise_gram"] = STACK_ROUNDS
+            if counts_total != want:
+                raise AssertionError(f"stacked {method} on {backend}: launches "
+                                     f"{counts_total}, expected {want}")
+            for k in KERNELS:
+                launches[k] += counts_total[k]
+            report[f"{method}/{backend}"] = dict(ms=ms, peak_gib=peak / 2 ** 30,
+                                                 near_ties=flips_seen)
+            print(f"  stacked {method:10s} {backend:16s}: ms per round "
+                  f"{[round(t, 1) for t in ms]}, peak {peak / 2 ** 30:.2f} GiB, "
+                  f"launches {({k: c for k, c in counts_total.items() if c})}")
+            del state
+            torch.cuda.empty_cache()
+        print(f"  stacked {method}: fused and fused_two_launch == reference over "
+              f"{STACK_ROUNDS} rounds (weights within {STACK_W_TOL}, outputs within rtol "
+              f"{STACK_RTOL} / atol {STACK_ATOL}, masks bit-equal but the near-ties "
+              "above)")
+    return launches, report, base
+
+
+def chunked_plain_stats(torch, flat, prev):
+    """Kernel 4's plain version over (K, P) in column chunks (the sums of
+    the chunks' sums): the unchunked plain version would sort all of it at
+    once, more than the card holds beside its inputs."""
+    from repro_torch.kernels.robust_stats import ops as rops
+    from repro_torch.kernels.robust_stats.ref import RobustStats
+
+    tot = None
+    for a in range(0, flat.shape[1], PLAIN_CHUNK):
+        st = rops.robust_stats_plain(flat[:, a:a + PLAIN_CHUNK], prev[:, a:a + PLAIN_CHUNK],
+                                     need_center=False)
+        f = [st.dist2, st.dotmed, st.norm2, st.mednorm2, st.prev_dist2, st.prev_dot,
+             st.prev_norm2]
+        tot = f if tot is None else [x + y for x, y in zip(tot, f)]
+    return RobustStats(None, None, *tot)
+
+
+def chunked_plain_round(torch, local, flat, prev, nidx, v, tb, cfg):
+    """Kernel 1's plain version at N=1 over (K, P) in column chunks: the
+    indexed statistics summed chunk by chunk, the scoring stage, the
+    ``mean_fallback`` coefficients and the slot-order combine per chunk."""
+    from repro_torch.core import trust
+    from repro_torch.kernels.robust_stats.ref import RobustStats, robust_stats_indexed_ref
+    from repro_torch.kernels.weighted_agg.ops import weighted_agg_indexed_plain
+
+    tot = None
+    for a in range(0, flat.shape[1], PLAIN_CHUNK):
+        st = robust_stats_indexed_ref(flat[:, a:a + PLAIN_CHUNK].contiguous(), nidx, v,
+                                      prev[:, a:a + PLAIN_CHUNK].contiguous())
+        f = [st.dist2, st.dotmed, st.norm2, st.mednorm2, st.prev_dist2, st.prev_dot,
+             st.prev_norm2]
+        tot = f if tot is None else [x + y for x, y in zip(tot, f)]
+    stats = RobustStats(None, None, *tot)
+    md, mc, mt, w = trust.derive_trust_weights(stats, v, tb, cfg)
+    wcomb, lcoef = trust.combine_coefficients(w, 1.0, v, True)
+    out = torch.cat([weighted_agg_indexed_plain(
+        wcomb, lcoef, local[:, a:a + PLAIN_CHUNK], flat[:, a:a + PLAIN_CHUNK], nidx)
+        for a in range(0, flat.shape[1], PLAIN_CHUNK)], dim=1)
+    return out, w, md, mc, mt, stats
+
+
+def check_stacked_kernels(torch, base) -> tuple:
+    """Kernels 1, 4 and 6 at the stacked all-reduce's launch shape, (K=8,
+    P) with K*P > 2^31, against their plain versions (computed in column
+    chunks) on rounds 1 and 2's candidates (``prev`` round 1's), then
+    timed with their bounds: kernel 1 at N=1 on the identity slate with
+    ``alpha=1`` and ``mean_fallback`` (the bands jittered around the
+    candidates' own temporal metrics, so WFAgg-T accepts some and rejects
+    others) beside the two-launch route (kernel 4 + the contraction);
+    kernel 4 with prev; kernel 6 beside ``torch.mm``.  Then the
+    ``mean_fallback`` branch: every candidate rejected gives the uniform
+    mean, equal to the plain version.  Returns (errs, timed)."""
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.distributed import robust_allreduce as ra
+    from repro_torch.kernels.pairwise_dist import kernel as pk
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.robust_stats.ref import RobustStats
+
+    K = STACK_K
+    pflat = ra._concat_candidates(stack_candidates(torch, base, 1))
+    flat = ra._concat_candidates(stack_candidates(torch, base, 2))
+    P = flat.shape[1]
+    errs, timed = {}, {}
+    # kernel 4 with prev
+    got = rk.robust_stats_cuda(flat, pflat, 0.1, False)
+    t0 = time.perf_counter()
+    want = chunked_plain_stats(torch, flat, pflat)
+    torch.cuda.synchronize()
+    plain4 = 1e3 * (time.perf_counter() - t0)
+    errs["robust_stats"] = assert_stats_close(torch, got, want, STAT_FIELDS)
+    # kernel 6
+    gram, norm2 = pk.pairwise_gram_cuda(flat)
+    t0 = time.perf_counter()
+    gram_p = flat @ flat.T
+    torch.cuda.synchronize()
+    plain6 = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(gram, gram.T) or not torch.equal(torch.diagonal(gram), norm2):
+        raise AssertionError("pairwise_gram at (8, P): not exactly symmetric, or norm2 "
+                             "not its diagonal")
+    # float32 sums over 4.6e8 coordinates: both the kernel and cuBLAS are
+    # held to the Gram summed in float64 (chunk by chunk)
+    gram64 = sum(flat[:, a:a + PLAIN_CHUNK].double() @ flat[:, a:a + PLAIN_CHUNK].double().T
+                 for a in range(0, P, PLAIN_CHUNK))
+    rel = lambda g: float(((g.double() - gram64).abs() / gram64.abs()).max())  # noqa: E731
+    print(f"  kernel 6 at (8, P): largest relative difference from the float64 Gram "
+          f"{rel(gram):.3g} (flat @ flat.T in float32: {rel(gram_p):.3g})")
+    torch.testing.assert_close(gram.double(), gram64, rtol=1e-4, atol=1e-6 * P)
+    errs["pairwise_gram"] = float((gram.double() - gram64).abs().max())
+    # kernel 1 at N = 1: the bands jittered around the candidates' own
+    # temporal metrics (kernel 4's plain statistics, as one node's)
+    cfg = WFAggConfig(window=3, transient=1, alpha=1.0)
+    nidx = torch.arange(K, device="cuda")[None]
+    v = torch.ones((1, K), dtype=torch.bool, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(81)
+    one = RobustStats(None, None, *(getattr(want, f)[None] for f in STAT_FIELDS))
+    tb = jittered_bands(torch, one, g, cfg)
+    local = torch.zeros((1, P), device="cuda")
+    got = rk.wfagg_round_indexed_cuda(local, flat, nidx.int(), v, pflat, tb, cfg, 1.0, True)
+    t0 = time.perf_counter()
+    want1 = chunked_plain_round(torch, local, flat, pflat, nidx, v, tb, cfg)
+    torch.cuda.synchronize()
+    plain1 = 1e3 * (time.perf_counter() - t0)
+    err, n_ties = hold_round(torch, "kernel 1 N=1 K=8 D=P (Qwen1.5-0.5B)", got, want1, v,
+                             tb, cfg, local, flat, nidx)
+    errs["wfagg_round_indexed"] = err
+    print(f"  kernel 1 at N=1, K=8, D={P} (K*D = {K * P}), alpha=1, mean_fallback: masks "
+          f"{[int(m.sum()) for m in got[2:5]]} accepted (D, C, T) bit-equal"
+          f"{tie_note(n_ties)}, out max|err| {err:.3g}; kernel 4 with prev: sums within "
+          f"rtol {STAT_RTOL}, max|err| {errs['robust_stats']:.3g}; kernel 6: exactly "
+          f"symmetric, within rtol 1e-4 of the float64 Gram, max|err| "
+          f"{errs['pairwise_gram']:.3g}")
+    # times (CUDA events), bounds
+    i32 = nidx.int()
+    ms1 = time_cuda(torch, lambda: rk.wfagg_round_indexed_cuda(
+        local, flat, i32, v, pflat, tb, cfg, 1.0, True), 1, 3)
+    ms4 = time_cuda(torch, lambda: rk.robust_stats_cuda(flat, pflat, 0.1, False), 1, 3)
+    w = got[1][0] / got[1][0].sum().clamp(min=1e-12)
+    ms_mv = time_cuda(torch, lambda: w @ flat, 1, 3)
+    ms6 = time_cuda(torch, lambda: pk.pairwise_gram_cuda(flat), 1, 3)
+    lib6 = time_cuda(torch, lambda: torch.mm(flat, flat.t()), 1, 3)
+    b1 = bound(4.0 * (2 * K * P + 2 * P), 16.0 * K * P)
+    b4 = bound(4.0 * 2 * K * P, P * (2.0 * network_compare_exchanges(K) + 15.0 * K))
+    b6 = bound(4.0 * K * P, float(K * (K + 1)) * P)
+    shape = f"N=1 K={K} D={P}"
+    timed["wfagg_round_indexed"] = dict(shape=shape, ms=ms1, plain_ms=plain1,
+                                        bound_ms=b1[0], bound_by=b1[1], library_ms=None,
+                                        two_launch_ms=ms4 + ms_mv)
+    timed["robust_stats"] = dict(shape=f"K={K} D={P} prev", ms=ms4, plain_ms=plain4,
+                                 bound_ms=b4[0], bound_by=b4[1], library_ms=None)
+    timed["pairwise_gram"] = dict(shape=f"K={K} D={P}", ms=ms6, plain_ms=plain6,
+                                  bound_ms=b6[0], bound_by=b6[1], library_ms=lib6)
+    for name, t in timed.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.3f} ms"
+        print(f"  {name} {t['shape']}: kernel {t['ms']:.3f} ms, plain (chunked) "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
+              f"library {lib}")
+    print(f"  the stacked round at N=1: one launch of kernel 1 {ms1:.3f} ms against the "
+          f"two-launch route {ms4 + ms_mv:.3f} ms (kernel 4 {ms4:.3f} ms + the "
+          f"contraction {ms_mv:.3f} ms)")
+    del flat, pflat, got, want1, local
+    torch.cuda.empty_cache()
+    errs["wfagg_round_indexed"] = max(errs["wfagg_round_indexed"],
+                                      check_mean_fallback(torch))
+    return errs, timed
+
+
+def check_mean_fallback(torch) -> float:
+    """Kernel 1's ``mean_fallback`` branch at N=1, K=8, D=2^22: WFAgg-D and
+    WFAgg-C keep one candidate each (f = K - 2), not the same one, and
+    WFAgg-T has no prev, so every candidate is rejected; the output must be
+    the uniform mean of the candidates and equal the plain version."""
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.robust_stats import ops
+
+    K, D = STACK_K, 1 << 22
+    g = torch.Generator(device="cuda").manual_seed(82)
+    m0 = torch.randn((D,), generator=g, device="cuda")
+    noise = lambda s: m0 + s * torch.randn((D,), generator=g, device="cuda")  # noqa: E731
+    u = torch.stack([noise(0.3), 3.0 * m0] + [noise(2.0) for _ in range(K - 2)])
+    cfg = WFAggConfig(f=K - 2, alpha=1.0)
+    nidx = torch.arange(K, device="cuda")[None]
+    v = torch.ones((1, K), dtype=torch.bool, device="cuda")
+    local = torch.zeros((1, D), device="cuda")
+    before = rk.launches
+    got = ops.wfagg_round_indexed(local, u, nidx, v, cfg, alpha=1.0, mean_fallback=True)
+    want = ops.wfagg_round_indexed_plain(local, u, nidx, v, cfg, alpha=1.0,
+                                         mean_fallback=True)
+    torch.cuda.synchronize()
+    if rk.launches != before + 1:
+        raise AssertionError("mean_fallback: the round kernel did not launch")
+    md, mc = got[2][0], got[3][0]
+    if float(got[1].sum()) != 0.0 or not (md.any() and mc.any()) or (md & mc).any():
+        raise AssertionError(f"mean_fallback: not every candidate rejected: weights "
+                             f"{got[1].tolist()}, mask_d {md.tolist()}, mask_c {mc.tolist()}")
+    for a, b in zip(got[1:5], want[1:5]):
+        if not torch.equal(a, b):
+            raise AssertionError("mean_fallback: masks or weights differ from the plain "
+                                 "version")
+    torch.testing.assert_close(got[0], want[0], rtol=OUT_TOL, atol=OUT_TOL)
+    torch.testing.assert_close(got[0][0], u.mean(0), rtol=1e-6, atol=1e-6)
+    err = float((got[0] - want[0]).abs().max())
+    print(f"  kernel 1 mean_fallback at N=1 K={K} D=2^22: every candidate rejected "
+          f"(WFAgg-D keeps {md.nonzero().flatten().tolist()}, WFAgg-C "
+          f"{mc.nonzero().flatten().tolist()}), out the uniform mean within 1e-6 and "
+          f"within {OUT_TOL} of the plain version, max|err| {err:.3g}")
+    return err
+
+
+def run_distributed(torch) -> tuple:
+    """The distributed phase: kernels 2 and 3 at the per-shard shapes
+    against their plain versions and timed; the ``gloo`` ranks (round,
+    scan, engine); S=1 on ``nccl``; the stacked all-reduce over
+    Qwen1.5-0.5B-shaped candidates; kernels 1, 4 and 6 at its shape.
+    Returns (launches on the distributed main paths, errs, timed)."""
+    errs = check_shard_kernels(torch)
+    shard_timed = time_shard_kernels(torch)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, "gloo", SHARDS)
+    print(f"  {SHARDS} gloo ranks on the one card done in "
+          f"{time.perf_counter() - t0:.1f} s (spawn, CUDA start and all parts)")
+    launches, rep = report_ranks(ranks, SHARDS, "gloo")
+    for k, c in run_nccl_one_rank(torch).items():
+        launches[k] += c
+    torch.cuda.empty_cache()
+    print(f"  the stacked all-reduce: {STACK_ARCH} at full width and depth, K={STACK_K} "
+          f"candidates ({len(STACK_MALICIOUS)} under ipm_100), {STACK_ROUNDS} rounds, "
+          f"methods {STACK_METHODS} on {STACK_BACKENDS}")
+    stack_launches, stack_report, base = run_stacked_path(torch)
+    for k in KERNELS:
+        launches[k] += stack_launches[k]
+    stack_errs, stack_timed = check_stacked_kernels(torch, base)
+    del base
+    torch.cuda.empty_cache()
+    for k, e in stack_errs.items():
+        errs.setdefault(k, []).append(e)
+    timed = {k: dict(t, launches=stack_launches[k]) for k, t in stack_timed.items()}
+    n2 = launches["robust_stats_indexed"]
+    timed["robust_stats_indexed"] = dict(
+        shard_timed["robust_stats_indexed"], shape=f"M=N={SHARD_N} K={SHARD_K} "
+        f"d/S={SHARD_D // SHARDS} prev + Gram", launches=n2,
+        without_gram=shard_timed["robust_stats_indexed_no_gram"],
+        paper_shards={m: shard_timed[f"robust_stats_indexed_{m}"] for m in SHARD_WIDTHS},
+        round_ms={n: rep[f"round_{n}"]["ms"] for n in ("wfagg", "alt_wfagg")},
+        psum_ms=rep["psum_ms"], out_gather_ms=rep["out_gather_ms"],
+        unsharded_round_ms={n: rep[f"round_{n}"]["unsharded_ms"]
+                            for n in ("wfagg", "alt_wfagg")})
+    timed["weighted_agg_indexed"] = dict(
+        shard_timed["weighted_agg_indexed"], shape=f"N={SHARD_N} K={SHARD_K} "
+        f"d/S={SHARD_D // SHARDS}", launches=launches["weighted_agg_indexed"],
+        paper_shards={m: shard_timed[f"weighted_agg_indexed_{m}"] for m in SHARD_WIDTHS})
+    timed["stacked"] = stack_report
+    return launches, errs, timed
+
+
+def main(argv=()) -> int:
     import torch
 
+    only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
+    if argv and only not in ("distributed", "cards"):
+        print("usage: chip_smoke.py [--only distributed|cards]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -3469,6 +4554,17 @@ def main() -> int:
     print_cluster_sizes()
     print_stats_plans()
     print_combine_plans()
+    if only == "distributed":
+        print("[3] distributed alone (--only distributed): no kernels or ok line")
+        launches, errs, timed = run_distributed(torch)
+        print(json.dumps({"distributed": {"launches": launches, "max_abs_err": {
+            k: max(v) for k, v in errs.items()}, "timed": timed}}))
+        return 0
+    if only == "cards":
+        print(f"[3] the distributed parts on one nccl rank per card (--only cards): "
+              f"{torch.cuda.device_count()} cards; no kernels or ok line")
+        print(json.dumps({"cards": run_cards(torch)}))
+        return 0
 
     # ---- phase 2: kernel vs plain -------------------------------------------
     print("[2] kernel vs plain version on the card")
@@ -3702,6 +4798,16 @@ def main() -> int:
           f"and build_decode_step")
     serve_launches = run_serve_path(torch)
 
+    print(f"[3] distributed: the d-sharded round on {SHARDS} gloo ranks on the one card "
+          f"(round, scan, the sharded DFL engine), S=1 on nccl, and the stacked robust "
+          f"all-reduce over {STACK_ARCH}-shaped candidates")
+    dist_launches, dist_errs, dist_timed = run_distributed(torch)
+    for name, e in dist_errs.items():
+        errs[name] += e
+    for name, t in dist_timed.items():
+        if name in timed:
+            timed[name]["distributed"] = t
+
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
     # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
@@ -3713,7 +4819,7 @@ def main() -> int:
     # full-width prefills
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
                 + adaptive_launches[name] + table_launches[name]
-                + gathered_launches[name] + serve_launches[name]
+                + gathered_launches[name] + serve_launches[name] + dist_launches[name]
                 for name in KERNELS}
     timed["flash_attention"]["launches_tc"] = serve_launches["flash_attention[tensor_core]"]
     print(json.dumps({"kernels": [dict(
@@ -3727,4 +4833,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -345,6 +345,24 @@ def sanitize_rows(models: Tensor, idx: Tensor, valid: Tensor) -> Tuple[Tensor, T
             valid & finite[idx])
 
 
+def sanitize_round(models: Tensor, idx: Tensor, valid: Tensor,
+                   state: Optional[TemporalState], temporal: bool):
+    """``sanitize_rows`` for a round's inputs, and the WFAgg-T ``prev``
+    (when ``temporal``) with its non-finite rows zeroed.  The chaos round's
+    prev IS the stacked model matrix: it is sanitized once and stays one
+    tensor, so the kernel wrappers pass it as one pointer.  Returns
+    ``(models, valid, state)``."""
+    shared = temporal and state.prev is models
+    models, valid = sanitize_rows(models, idx, valid)
+    if shared:
+        state = state._replace(prev=models)
+    elif temporal:
+        pf = torch.isfinite(state.prev).all(-1)
+        state = state._replace(prev=torch.where(
+            pf[..., None], state.prev, torch.zeros_like(state.prev)))
+    return models, valid, state
+
+
 def _wfagg_batch_indexed(local: Tensor, models: Tensor,
                          state: Optional[TemporalState], cfg: WFAggConfig,
                          neighbor_idx: Tensor, valid: Optional[Tensor],
@@ -357,17 +375,8 @@ def _wfagg_batch_indexed(local: Tensor, models: Tensor,
     temporal = cfg.use_temporal and state is not None
     if prev_idx is not None and not (temporal and state.prev.ndim == 2):
         prev_idx = None        # nothing matrix-formed to re-key
-    # the chaos round's prev IS the stacked model matrix: sanitize it once
-    # and keep it one tensor, so the kernel wrappers pass it as one pointer
-    shared = temporal and state.prev is models
     if cfg.sanitize:
-        models, valid_b = sanitize_rows(models, idx, valid_b)
-        if shared:
-            state = state._replace(prev=models)
-        elif temporal:
-            pf = torch.isfinite(state.prev).all(-1)
-            state = state._replace(prev=torch.where(
-                pf[..., None], state.prev, torch.zeros_like(state.prev)))
+        models, valid_b, state = sanitize_round(models, idx, valid_b, state, temporal)
     prev = state.prev if temporal else None
 
     if cfg.backend == "reference":

@@ -46,9 +46,17 @@ bands the round's aggregation compares, from the same
 Entry points take ``device=None``, which means the card; without one
 they raise.  As in the reference, the standalone WFAgg filters raise on
 irregular graphs and on dynamic and chaos schedules (they have no
-valid-masked form), and a CFL run records no per-edge telemetry.  Not
-ported yet, and raising: model-dimension sharding (ROADMAP queue 1,
-item 11).
+valid-masked form), and a CFL run records no per-edge telemetry.
+
+Model-dimension sharding (``DFLConfig.mesh_model_shards > 1``) routes the
+WFAgg and Alt-WFAgg gossip round of the static and dynamic rounds through
+``distributed.spmd.wfagg_batch_sharded`` over the initialised default
+process group, which must have that many ranks (one process per shard;
+without it ``build_round_fn`` raises).  Every rank runs the same
+experiment: rank 0 trains and attacks, and broadcasts the round's sent
+models, parameters and momentum, so every rank aggregates, evaluates and
+carries bit-identical state.  The chaos round refuses sharding, and CFL
+and the other aggregators ignore the field, as in the reference.
 """
 from __future__ import annotations
 
@@ -68,6 +76,7 @@ from repro_torch.core import wfagg as wf
 from repro_torch.core.topology import Topology, TopologySchedule
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.dfl import faults as flt
+from repro_torch.distributed import spmd
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.lenet import MODELS, param_count, ravel, unravel
 from repro_torch.obs import decision as obs_decision
@@ -93,7 +102,9 @@ class DFLConfig:
     seed: int = 0
     attack_params: atk.AttackConfig = atk.AttackConfig()
     wfagg_backend: str = "fused"  # | "fused_two_launch" | "reference" (core/wfagg.py)
-    mesh_model_shards: int = 0    # > 1 not ported yet
+    # > 1: the WFAgg / Alt-WFAgg gossip round d-sharded over a process group
+    # of this many ranks (distributed/spmd.py); 0 or 1: unsharded
+    mesh_model_shards: int = 0
 
     def wfagg_config(self, use_temporal=True, backend: Optional[str] = None) -> wf.WFAggConfig:
         p = self.paper
@@ -116,10 +127,6 @@ _CFL_TELEMETRY = ("telemetry records per-edge gossip verdicts; the CFL baseline 
 
 
 def _check_supported(cfg: DFLConfig) -> None:
-    if cfg.mesh_model_shards > 1:
-        raise NotImplementedError(
-            "model-dimension sharding is not ported yet: ROADMAP queue 1, "
-            "item 11")
     if cfg.aggregator not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {cfg.aggregator!r} (one of "
                          f"{AGGREGATORS})")
@@ -263,6 +270,51 @@ def _trained(cfg: DFLConfig, data: SyntheticImages, state: DFLState,
                                     state.node_momentum, state.rnd, batches)
     return params, momentum, _apply_attacks(cfg, malicious, ravel(params), state.rnd,
                                             view)
+
+
+def _shard_group(cfg: DFLConfig):
+    """The process group of a sharded gossip round (None: unsharded).  Only
+    decentralized WFAgg and Alt-WFAgg shard, as in the reference; raises
+    ValueError without an initialised group of ``mesh_model_shards``
+    ranks."""
+    if (cfg.mesh_model_shards > 1 and not cfg.centralized
+            and cfg.aggregator in ("wfagg", "alt_wfagg")):
+        return spmd.aggregation_group(cfg.mesh_model_shards)
+    return None
+
+
+def _trained_on(group, cfg: DFLConfig, data: SyntheticImages, state: DFLState,
+                malicious: Tensor, batches=None, neighbor_idx: Optional[Tensor] = None,
+                valid: Optional[Tensor] = None):
+    """``_trained``, replicated over the ranks of a sharded round: rank 0
+    trains and attacks, and one broadcast gives every rank its sent models,
+    parameters and momentum bit for bit (the other ranks skip the training,
+    so no nondeterministic backward kernel can make them drift)."""
+    if group is None:
+        return _trained(cfg, data, state, malicious, batches, neighbor_idx, valid)
+    N = malicious.shape[0]
+    if torch.distributed.get_rank(group) == 0:
+        params, momentum, flat = _trained(cfg, data, state, malicious, batches,
+                                          neighbor_idx, valid)
+        buf = torch.cat([flat, ravel(params), ravel(momentum)])
+    else:
+        d = param_count(state.node_params)
+        buf = torch.empty((3 * N, d), dtype=torch.float32, device=malicious.device)
+    flat, p, m = spmd.broadcast_from_rank0(buf, group).split(N)
+    contiguous = lambda t: {k: v.contiguous() for k, v in t.items()}  # noqa: E731
+    return (contiguous(unravel(p, state.node_params)),
+            contiguous(unravel(m, state.node_momentum)), flat)
+
+
+def _gossip(group, wcfg: wf.WFAggConfig, flat: Tensor, temporal, neighbor_idx: Tensor,
+            valid: Optional[Tensor], dev: torch.device):
+    """The WFAgg / Alt-WFAgg gossip round over the (N, d) matrix: the
+    gather-free ``wfagg_batch``, or its d-sharded form over ``group``."""
+    if group is not None:
+        return spmd.wfagg_batch_sharded(flat, flat, temporal, wcfg, neighbor_idx,
+                                        valid, group=group, device=dev)
+    return wf.wfagg_batch(flat, flat, temporal, wcfg, neighbor_idx=neighbor_idx,
+                          valid=valid, device=dev)
 
 
 def _wfagg_full_config(cfg: DFLConfig, K: int,
@@ -409,6 +461,7 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
                       torch.as_tensor(np.asarray(topo.neighbor_valid), device=dev))
     malicious = torch.as_tensor(np.asarray(topo.malicious), device=dev)
     wcfg = _wfagg_full_config(cfg, neighbor_idx.shape[1])
+    group = _shard_group(cfg)
 
     def round_fn(state: DFLState, batches=None):
         # CFL: the server's WFAgg-E anchor is node 0's model from BEFORE
@@ -416,8 +469,8 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
         # initial weights in round 1), as the reference takes it
         anchor = (ravel({k: v[:1] for k, v in state.node_params.items()})[0]
                   if cfg.centralized else None)
-        params, momentum, flat = _trained(cfg, data, state, malicious, batches,
-                                          neighbor_idx, neighbor_valid)
+        params, momentum, flat = _trained_on(group, cfg, data, state, malicious,
+                                             batches, neighbor_idx, neighbor_valid)
         record = None
         if cfg.centralized:
             # one server-side aggregation over all N received models
@@ -428,9 +481,8 @@ def build_round_fn(cfg: DFLConfig, topo: Topology, data: SyntheticImages,
             new_temporal = (wf.TemporalState(*(x[None] for x in new_t0))
                             if new_t0 is not None else None)
         elif cfg.aggregator in ("wfagg", "alt_wfagg"):
-            new_flat, new_temporal, info = wf.wfagg_batch(
-                flat, flat, state.temporal, wcfg, neighbor_idx=neighbor_idx,
-                valid=neighbor_valid, device=dev)
+            new_flat, new_temporal, info = _gossip(group, wcfg, flat, state.temporal,
+                                                   neighbor_idx, neighbor_valid, dev)
             if telemetry:
                 record = obs_decision.record_from_info(info)
         else:   # plain PyTorch on the gathered (N, K, d) slates, no kernel
@@ -465,15 +517,16 @@ def _check_dynamic(cfg: DFLConfig) -> None:
 
 def _make_dynamic_round(cfg: DFLConfig, data: SyntheticImages, telemetry: bool,
                         dev: torch.device) -> Callable:
+    group = _shard_group(cfg)
+
     def round_fn(state: DFLState, neighbor_idx: Tensor, valid: Tensor,
                  mal_mask: Tensor, batches=None):
-        params, momentum, flat = _trained(cfg, data, state, mal_mask, batches,
-                                          neighbor_idx, valid)
+        params, momentum, flat = _trained_on(group, cfg, data, state, mal_mask, batches,
+                                             neighbor_idx, valid)
         if cfg.aggregator in ("wfagg", "alt_wfagg"):
             wcfg = _wfagg_full_config(cfg, neighbor_idx.shape[1])
-            new_flat, new_temporal, info = wf.wfagg_batch(
-                flat, flat, state.temporal, wcfg, neighbor_idx=neighbor_idx,
-                valid=valid, device=dev)
+            new_flat, new_temporal, info = _gossip(group, wcfg, flat, state.temporal,
+                                                   neighbor_idx, valid, dev)
             record = obs_decision.record_from_info(info) if telemetry else None
         else:   # a baseline, on the gathered padded slates
             new_flat = _aggregate_one_dyn(cfg, flat, flat[neighbor_idx.long()], valid)
@@ -540,6 +593,10 @@ def _make_chaos_round(cfg: DFLConfig, data: SyntheticImages, telemetry: bool,
         records the pre-round EWMA mean instead of a metric against a
         payload it never saw.
     """
+    if cfg.mesh_model_shards > 1:
+        raise NotImplementedError(
+            "chaos transport + model-dim sharding: the stacked ring "
+            "matrix is not sharded yet (see docs/FAULTS.md)")
     def round_fn(state: DFLState, neighbor_idx: Tensor, valid: Tensor,
                  mal_mask: Tensor, ts: flt.TransportState, fr: flt.FaultRound,
                  batches=None, bank=None):

@@ -1,0 +1,541 @@
+"""Byzantine-robust all-reduce over stacked candidates (port of the
+stacked layout of ``repro.distributed.robust_allreduce``): WFAgg, or a
+baseline, as a drop-in for the data-parallel mean-gradient all-reduce.
+
+``robust_allreduce_stacked`` takes the K candidate gradients (or models)
+as a dict of tensors whose leaves carry a leading K axis, the layout of
+the port's parameter dicts, and returns their robust aggregate (the K
+axis dropped).  Backends (``RobustAggConfig.backend``):
+
+  reference         the per-leaf plain PyTorch loop of the reference:
+                    coordinate median, distances, dots and the Gram per
+                    leaf, exact WFAgg-T metrics against ``state.prev``;
+  fused_two_launch  one statistics launch (kernel 4, ``robust_stats``)
+                    over the concatenated (K, P) candidates, with ``prev``
+                    for the WFAgg-T tail, and the Gram (kernel 6,
+                    ``pairwise_gram``) when a rule needs it; the host
+                    scoring stage; the combine a plain ``tensordot``, as
+                    in the reference;
+  fused             for wfagg / alt_wfagg, ONE launch of the gossip round
+                    kernel (kernel 1) at N = 1 over the identity slate,
+                    with ``alpha=1.0`` and ``mean_fallback=True``: the
+                    trust-weighted mean of the candidates, the uniform
+                    mean when every candidate is rejected; the other
+                    rules as ``fused_two_launch``.
+
+Mean, median and trimmed mean need no statistics.  The WFAgg-T state
+(``TreeAggState``) keeps every candidate's previous gradient exactly.
+
+The flat layout (``robust_allreduce``: chunked statistics, the AMS
+count-sketch of the temporal filter, ``apply_distributed_attack``) needs
+the trainer's data-parallel axis and waits with the trainer (ROADMAP
+queue 1, item 12).  ``state_from_jax`` turns the reference's state (as
+numpy arrays) into the port's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import aggregators as agg_lib
+from repro_torch.core import attacks as atk
+from repro_torch.core import trust
+from repro_torch.core.trust import wfagg_scores
+from repro_torch.core.wfagg import (
+    TemporalState, WFAggConfig, wfagg_t_decide, wfagg_t_select)
+from repro_torch.kernels.pairwise_dist.ops import pairwise_gram
+from repro_torch.kernels.robust_stats.ops import robust_stats, wfagg_round_indexed
+from repro_torch.obs import decision as obs_decision
+
+Tensor = torch.Tensor
+FLAT_LAYOUT = ("the flat layout (robust_allreduce, the chunked statistics and "
+               "the count-sketch temporal filter) is not ported yet: it waits "
+               "with the trainer, ROADMAP queue 1, item 12")
+
+
+@dataclasses.dataclass(frozen=True)
+class RobustAggConfig:
+    method: str = "wfagg"        # mean | median | trimmed_mean | krum | multi_krum |
+                                 # clustering | wfagg | alt_wfagg
+    wfagg: WFAggConfig = WFAggConfig()
+    trim_beta: float = 0.1
+    multi_krum_m: Optional[int] = None
+    chunk_size: int = 1 << 22    # coordinates per streamed chunk (flat layout)
+    sketch_dim: int = 4096       # AMS count-sketch width (flat layout's WFAgg-T)
+    seed: int = 0
+    # "flat" (the reference's default; not ported, item 12) or "stacked"
+    layout: str = "flat"
+    gather_dtype: Optional[str] = None   # e.g. "bfloat16": statistics of the
+                                         # candidates rounded to it (WFAgg-T
+                                         # metrics stay full precision)
+    # stacked statistics backend: "reference" | "fused_two_launch" | "fused"
+    backend: str = "reference"
+
+    @property
+    def needs_stats(self) -> bool:
+        return self.method in ("krum", "multi_krum", "clustering", "wfagg", "alt_wfagg")
+
+    @property
+    def streaming_output(self) -> bool:
+        return self.method in ("median", "trimmed_mean")
+
+
+class AggState(NamedTuple):
+    """Cross-step state of the flat layout: WFAgg-T over gradient sketches."""
+
+    temporal: TemporalState
+
+
+def init_agg_state(cfg: RobustAggConfig, n_candidates: int, device=None) -> AggState:
+    f32 = dict(dtype=torch.float32, device=device)
+    return AggState(temporal=TemporalState(
+        prev=torch.zeros((n_candidates, cfg.sketch_dim), **f32),
+        hist_s=torch.zeros((cfg.wfagg.window, n_candidates), **f32),
+        hist_b=torch.zeros((cfg.wfagg.window, n_candidates), **f32),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+        t=torch.zeros((), dtype=torch.int32, device=device),
+    ))
+
+
+class TreeAggState(NamedTuple):
+    """Cross-step state of the stacked layout: ``prev`` holds every
+    candidate's previous gradient (the candidates' tree, leading K axis),
+    giving WFAgg-T exact round-over-round metrics."""
+
+    prev: Any
+    hist_s: Tensor    # (W, K)
+    hist_b: Tensor    # (W, K)
+    count: Tensor
+    t: Tensor
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree) -> List[Tensor]:
+    """The leaves of a tree of dicts in the reference's order (sorted keys,
+    depth first, as ``jax.tree.leaves`` orders a dict)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def _unflatten(tree, leaves: List[Tensor]):
+    """A tree shaped like ``tree`` with ``leaves`` in ``_leaves`` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(tree)
+
+
+def init_tree_agg_state(cfg: RobustAggConfig, n_candidates: int, grads_like: Any,
+                        device=None) -> TreeAggState:
+    """Zero state: ``prev`` the candidates' tree (leading K axis) in f32 on
+    ``device`` (None: the device of ``grads_like``)."""
+    dev = device if device is not None else _leaves(grads_like)[0].device
+    return TreeAggState(
+        prev=_map(lambda l: torch.zeros((n_candidates,) + tuple(l.shape),
+                                        dtype=torch.float32, device=dev), grads_like),
+        hist_s=torch.zeros((cfg.wfagg.window, n_candidates), device=dev),
+        hist_b=torch.zeros((cfg.wfagg.window, n_candidates), device=dev),
+        count=torch.zeros((), dtype=torch.int32, device=dev),
+        t=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def state_from_jax(state, device=None):
+    """The reference's ``TreeAggState`` or ``AggState`` (its leaves as numpy
+    arrays, e.g. ``jax.tree.map(np.asarray, state)``) as the port's, on
+    ``device``, so both packages can be fed one state."""
+    t = lambda x: torch.as_tensor(np.asarray(x), device=device)  # noqa: E731
+    if hasattr(state, "temporal"):
+        return AggState(temporal=TemporalState(*(t(x) for x in state.temporal)))
+    return TreeAggState(prev=_map(t, state.prev), hist_s=t(state.hist_s),
+                        hist_b=t(state.hist_b),
+                        count=t(state.count), t=t(state.t))
+
+
+# ---------------------------------------------------------------------------
+# consensus weights from statistics
+# ---------------------------------------------------------------------------
+
+class ChunkStats(NamedTuple):
+    dist2_med: Tensor   # (K,)  sum ||g_j - med||^2
+    dot_med: Tensor     # (K,)  sum <g_j, med>
+    med2: Tensor        # ()    ||med||^2
+    gram: Tensor        # (K,K) candidate Gram matrix
+    sketch: Tensor      # (m,)  local candidate count-sketch (flat layout)
+
+
+def _krum_scores_from_gram(gram: Tensor, f: int) -> Tensor:
+    n = torch.diagonal(gram)
+    d2 = torch.clamp(n[:, None] + n[None, :] - 2.0 * gram, min=0.0)
+    return agg_lib.krum_scores_from_sq_dists(d2, f)
+
+
+def _clustering_from_gram(gram: Tensor) -> Tensor:
+    n = torch.sqrt(torch.clamp(torch.diagonal(gram), min=1e-24))
+    D0 = 1.0 - gram / (n[:, None] * n[None, :])
+    return agg_lib.clustering_select_from_dist(D0)
+
+
+def _weights_from_stats(
+    stats: ChunkStats,
+    sketches: Optional[Tensor],   # (K, m) gathered candidate sketches
+    state: Optional[AggState],
+    cfg: RobustAggConfig,
+    temporal_mask: Optional[Tensor] = None,   # stacked layout: exact WFAgg-T mask
+) -> Tuple[Tensor, Optional[AggState], Dict[str, Tensor]]:
+    K = stats.dist2_med.shape[0]
+    dev = stats.dist2_med.device
+    norm2 = torch.diagonal(stats.gram)
+    info: Dict[str, Tensor] = {}
+    w = cfg.wfagg
+
+    def mask_d() -> Tensor:
+        if cfg.method == "alt_wfagg" or w.distance_filter == "multi_krum":
+            scores = _krum_scores_from_gram(stats.gram, w.f)
+            # WFAggConfig.multi_krum_m is the filter's own knob; the
+            # RobustAggConfig field is the standalone-method fallback
+            m = w.multi_krum_m or cfg.multi_krum_m or max(1, K // 4)
+            return agg_lib.smallest_k_mask(scores, m)
+        return agg_lib.smallest_k_mask(stats.dist2_med, K - w.f - 1)
+
+    def mask_c() -> Tensor:
+        if cfg.method == "alt_wfagg" or w.similarity_filter == "clustering":
+            return _clustering_from_gram(stats.gram)
+        cos_d = 1.0 - stats.dot_med / torch.sqrt(torch.clamp(norm2 * stats.med2,
+                                                             min=1e-24))
+        return agg_lib.smallest_k_mask(cos_d, K - w.f - 1)
+
+    new_state = state
+    if cfg.method in ("wfagg", "alt_wfagg"):
+        md, mc = mask_d(), mask_c()
+        if temporal_mask is not None:
+            mt = temporal_mask
+        elif w.use_temporal and state is not None:
+            mt, new_t = wfagg_t_select(state.temporal, sketches, w)
+            new_state = AggState(temporal=new_t)
+        else:
+            mt = torch.zeros((K,), dtype=torch.bool, device=dev)
+        weights = wfagg_scores(md, mc, mt, w)
+        info.update(mask_d=md, mask_c=mc, mask_t=mt)
+        # the flight recorder's decision record, as a gossip round emits it
+        info["record"] = obs_decision.record_from_masks(
+            md, mc, mt, torch.ones(weights.shape, dtype=torch.bool, device=dev),
+            weights)
+    elif cfg.method == "krum":
+        scores = _krum_scores_from_gram(stats.gram, w.f)
+        weights = torch.nn.functional.one_hot(torch.argmin(scores), K).to(torch.float32)
+    elif cfg.method == "multi_krum":
+        scores = _krum_scores_from_gram(stats.gram, w.f)
+        m = cfg.multi_krum_m or max(1, K // 4)
+        weights = agg_lib.smallest_k_mask(scores, m).to(torch.float32)
+    elif cfg.method == "clustering":
+        weights = _clustering_from_gram(stats.gram).to(torch.float32)
+    elif cfg.method == "mean":
+        weights = torch.ones((K,), dtype=torch.float32, device=dev)
+    else:
+        raise ValueError(cfg.method)
+
+    info["weights"] = weights
+    info["n_accepted"] = (weights > 0).sum()
+    return weights, new_state, info
+
+
+# ---------------------------------------------------------------------------
+# the stacked layout
+# ---------------------------------------------------------------------------
+
+def _gather_dtype(cfg: RobustAggConfig) -> Optional[torch.dtype]:
+    return getattr(torch, cfg.gather_dtype) if cfg.gather_dtype else None
+
+
+def _stacked_stats(stacked: Any, cfg: RobustAggConfig) -> ChunkStats:
+    """WFAgg/Krum/Clustering statistics over stacked candidates, leaf by
+    leaf in plain PyTorch (the reference backend)."""
+    leaves = _leaves(stacked)
+    K = leaves[0].shape[0]
+    dev = leaves[0].device
+    gd = _gather_dtype(cfg)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dist2 = torch.zeros((K,), **f32)
+    dot_med = torch.zeros((K,), **f32)
+    med2 = torch.zeros((), **f32)
+    gram = torch.zeros((K, K), **f32)
+    for leaf in leaves:
+        g = (leaf.to(gd) if gd is not None else leaf).to(torch.float32).reshape(K, -1)
+        med = agg_lib.coordinate_median(g)
+        diff = g - med[None]
+        dist2 = dist2 + (diff * diff).sum(-1)
+        del diff
+        dot_med = dot_med + g @ med
+        med2 = med2 + (med * med).sum()
+        gram = gram + g @ g.T
+    return ChunkStats(dist2_med=dist2, dot_med=dot_med, med2=med2, gram=gram,
+                      sketch=torch.zeros((0,), **f32))
+
+
+def _concat_candidates(tree: Any, dtype=None) -> Tensor:
+    """Flatten a stacked candidate tree to one (K, P) float32 matrix."""
+    leaves = _leaves(tree)
+    K = leaves[0].shape[0]
+    return torch.cat([(l.to(dtype) if dtype is not None else l).to(torch.float32)
+                      .reshape(K, -1) for l in leaves], dim=1)
+
+
+def _split_like(flat: Tensor, stacked: Any) -> Any:
+    """Inverse of ``_concat_candidates`` for one aggregated (P,) vector:
+    the stacked tree's per-candidate leaf shapes (leading K axis dropped)
+    and dtypes."""
+    out, off = [], 0
+    for leaf in _leaves(stacked):
+        shape = leaf.shape[1:]
+        n = math.prod(shape)
+        out.append(flat[off:off + n].reshape(shape).to(leaf.dtype))
+        off += n
+    return _unflatten(stacked, out)
+
+
+def _effective_wfagg_config(cfg: RobustAggConfig, K: int) -> WFAggConfig:
+    """The WFAggConfig the trust-derivation stage sees: alt_wfagg swaps in
+    the Multi-Krum/Clustering filters, and the Multi-Krum m follows
+    ``_weights_from_stats``'s preference order (WFAggConfig.multi_krum_m,
+    then RobustAggConfig's, then K // 4)."""
+    w = cfg.wfagg
+    if cfg.method == "alt_wfagg":
+        w = dataclasses.replace(w, distance_filter="multi_krum",
+                                similarity_filter="clustering")
+    if w.distance_filter == "multi_krum":
+        m = w.multi_krum_m or cfg.multi_krum_m or max(1, K // 4)
+        w = dataclasses.replace(w, multi_krum_m=m)
+    return w
+
+
+def _stacked_stats_fused(stacked: Any, cfg: RobustAggConfig, prev: Optional[Any] = None):
+    """One-pass statistics of the concatenated (K, P) candidates through
+    the statistics kernel (kernel 4), with ``prev`` the exact WFAgg-T
+    tail; the (K, K) Gram from the Gram kernel (kernel 6) only when a
+    Krum/Clustering-family rule needs it.  Returns ``(ChunkStats,
+    RobustStats)``; the latter carries the temporal tail."""
+    flat = _concat_candidates(stacked, _gather_dtype(cfg))
+    pflat = _concat_candidates(prev) if prev is not None else None
+    stats = robust_stats(flat, prev=pflat, need_center=False)
+    del pflat
+    w = cfg.wfagg
+    needs_gram = (cfg.method in ("krum", "multi_krum", "clustering", "alt_wfagg")
+                  or w.distance_filter == "multi_krum"
+                  or w.similarity_filter == "clustering")
+    if needs_gram:
+        gram, _ = pairwise_gram(flat)
+    else:
+        # _weights_from_stats only reads the diagonal (norm2) in this case
+        gram = torch.diag(stats.norm2)
+    chunk = ChunkStats(dist2_med=stats.dist2, dot_med=stats.dotmed,
+                       med2=stats.mednorm2, gram=gram,
+                       sketch=torch.zeros((0,), dtype=torch.float32, device=flat.device))
+    return chunk, stats
+
+
+def _stacked_temporal_metrics(stacked: Any, prev: Any) -> Tuple[Tensor, Tensor]:
+    """Exact per-candidate round-over-round metrics (vectorized over K)."""
+    leaves = _leaves(stacked)
+    K = leaves[0].shape[0]
+    f32 = dict(dtype=torch.float32, device=leaves[0].device)
+    s = torch.zeros((K,), **f32)
+    dot = torch.zeros((K,), **f32)
+    n_new = torch.zeros((K,), **f32)
+    n_prev = torch.zeros((K,), **f32)
+    for g, p in zip(leaves, _leaves(prev)):
+        gf = g.to(torch.float32).reshape(K, -1)
+        pf = p.to(torch.float32).reshape(K, -1)
+        s = s + ((gf - pf) ** 2).sum(-1)
+        dot = dot + (gf * pf).sum(-1)
+        n_new = n_new + (gf * gf).sum(-1)
+        n_prev = n_prev + (pf * pf).sum(-1)
+    b = 1.0 - dot / torch.clamp(torch.sqrt(n_new * n_prev), min=1e-24)
+    return s, b
+
+
+def apply_stacked_attack(
+    stacked: Any,
+    malicious: Tensor,          # (K,) bool
+    attack: str,
+    generator: Optional[torch.Generator] = None,
+    noise_mu: float = 0.1,
+    noise_sigma: float = 0.1,
+    alie_zmax: float = 0.5,
+    prev: Any = None,
+    noise: Any = None,
+) -> Any:
+    """Model-poisoning attacks on stacked candidates, leaf by leaf through
+    ``core.attacks.apply_matrix_attack`` (the one copy of the masked-stack
+    attack math, shared with ``dfl.engine``).
+
+    The noise attack draws each leaf's standard normals from ``generator``
+    in leaf order, or takes them from ``noise`` (a tree like ``stacked``),
+    so two packages can be fed the same draws.  ``prev`` optionally carries
+    the previous-round stacked candidates (e.g. ``TreeAggState.prev``) so
+    the adaptive attacks see a prev-only ``DefenseView`` (band_rider then
+    falls back to mimicry, as in the reference)."""
+    if attack in ("none", "label_flip"):
+        return stacked
+    acfg = atk.AttackConfig(name=attack, noise_mu=noise_mu, noise_sigma=noise_sigma,
+                            alie_zmax=alie_zmax)
+    leaves = _leaves(stacked)
+    prev_leaves = _leaves(prev) if prev is not None else [None] * len(leaves)
+    noise_leaves = _leaves(noise) if noise is not None else [None] * len(leaves)
+    mal = malicious.to(torch.bool)
+    out = []
+    for leaf, pl, z in zip(leaves, prev_leaves, noise_leaves):
+        if attack == "noise" and z is not None:
+            m = mal.reshape((-1,) + (1,) * (leaf.ndim - 1))
+            out.append(torch.where(m, leaf + noise_mu + noise_sigma * z, leaf))
+            continue
+        out.append(atk.apply_matrix_attack(
+            attack, leaf, mal, generator, acfg,
+            view=(atk.DefenseView(prev=pl) if pl is not None else None)))
+    return _unflatten(stacked, out)
+
+
+def robust_allreduce_stacked(
+    stacked: Any,
+    cfg: RobustAggConfig,
+    state: Optional[TreeAggState] = None,
+) -> Tuple[Any, Optional[TreeAggState], Dict[str, Tensor]]:
+    """Robust aggregation over stacked candidate gradients.
+
+    Leaves are (K, *param_shape); the output drops the candidate axis.
+    WFAgg-T uses exact metrics against ``state.prev`` (every candidate's
+    previous gradient); the new state's ``prev`` is this call's
+    candidates (as float32: the same tensors when they already are).
+    Returns ``(aggregate, new_state, info)`` with the weights (and for
+    wfagg / alt_wfagg the masks and the decision ``record``) in ``info``.
+    Runs on the candidates' device."""
+    leaves = _leaves(stacked)
+    K = leaves[0].shape[0]
+    dev = leaves[0].device
+
+    if cfg.method == "mean":
+        out = _map(lambda l: l.mean(0), stacked)
+        return out, state, {"weights": torch.ones((K,), device=dev),
+                            "n_accepted": torch.tensor(K, device=dev)}
+
+    if cfg.streaming_output:
+        def one(leaf):
+            g = leaf.to(torch.float32).reshape(K, -1)
+            if cfg.method == "median":
+                o = agg_lib.coordinate_median(g)
+            else:
+                t = int(cfg.trim_beta * K)
+                srt = torch.sort(g, dim=0).values
+                o = (srt[t: K - t] if t > 0 else srt).mean(0)
+            return o.reshape(leaf.shape[1:]).to(leaf.dtype)
+        out = _map(one, stacked)
+        return out, state, {"weights": torch.ones((K,), device=dev),
+                            "n_accepted": torch.tensor(K, device=dev)}
+
+    fused = cfg.backend in ("fused", "fused_two_launch")
+    if cfg.backend not in ("fused", "fused_two_launch", "reference"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    temporal = (cfg.method in ("wfagg", "alt_wfagg") and cfg.wfagg.use_temporal
+                and state is not None)
+    # Single-launch route: statistics, in-kernel weights and the combine in
+    # one round-kernel launch.  gather_dtype forces the two-launch shape:
+    # the temporal metrics must stay full precision while the D/C
+    # statistics quantize, which one candidate read cannot provide.
+    if (cfg.backend == "fused" and cfg.method in ("wfagg", "alt_wfagg")
+            and cfg.gather_dtype is None):
+        return _stacked_one_launch(stacked, cfg, state, temporal)
+    fuse_temporal = fused and temporal and cfg.gather_dtype is None
+    if fused:
+        stats, kstats = _stacked_stats_fused(
+            stacked, cfg, prev=state.prev if fuse_temporal else None)
+    else:
+        stats = _stacked_stats(stacked, cfg)
+
+    new_state = state
+    temporal_mask = None
+    if temporal:
+        if fuse_temporal:
+            s_all, b_all = kstats.prev_dist2, kstats.cosine_to_prev()
+        else:
+            s_all, b_all = _stacked_temporal_metrics(stacked, state.prev)
+        temporal_mask, hist_s, hist_b, count, t = wfagg_t_decide(
+            state.hist_s, state.hist_b, state.count, state.t, s_all, b_all, cfg.wfagg)
+        new_state = TreeAggState(prev=_map(lambda g: g.to(torch.float32), stacked),
+                                 hist_s=hist_s, hist_b=hist_b, count=count, t=t)
+    weights, _, info = _weights_from_stats(stats, None, None, cfg,
+                                           temporal_mask=temporal_mask)
+
+    wsum = torch.clamp(weights.sum(), min=1e-12)
+    any_ok = weights.sum() > 0
+    w_norm = torch.where(any_ok, weights / wsum, torch.full((K,), 1.0 / K, device=dev))
+    # the reference's tensordot: a plain contraction over the K axis
+    out = _map(lambda l: torch.tensordot(w_norm, l.to(torch.float32), dims=([0], [0]))
+               .to(l.dtype), stacked)
+    return out, new_state, info
+
+
+def _stacked_one_launch(
+    stacked: Any,
+    cfg: RobustAggConfig,
+    state: Optional[TreeAggState],
+    temporal: bool,
+) -> Tuple[Any, Optional[TreeAggState], Dict[str, Tensor]]:
+    """Single-launch stacked wfagg/alt_wfagg: one round-kernel launch on
+    the concatenated (K, P) candidates does the statistics, the trust
+    weights and the combine (the N = 1, all-valid, identity-table
+    instance of the DFL round kernel).  ``alpha=1.0`` and
+    ``mean_fallback=True`` turn its WFAgg-E combine into the all-reduce
+    convention: the trust-weight-normalized mean of the candidates, the
+    uniform mean when every candidate is rejected (a gradient all-reduce
+    has no local-model anchor)."""
+    K = _leaves(stacked)[0].shape[0]
+    w = _effective_wfagg_config(cfg, K)
+    flat = _concat_candidates(stacked)                               # (K, P) f32
+    nidx = torch.arange(K, dtype=torch.int64, device=flat.device)[None, :]
+    prev = tbands = None
+    if temporal:
+        prev = _concat_candidates(state.prev)                        # (K, P)
+        tbands = trust.temporal_bands(state.hist_s, state.hist_b, state.count,
+                                      state.t, w)[None]
+    local = torch.zeros_like(flat[:1])                               # lcoef = 0
+    out_flat, weights, mask_d, mask_c, mask_t, kstats = wfagg_round_indexed(
+        local, flat, nidx, None, w, prev=prev, tbands=tbands, alpha=1.0,
+        mean_fallback=True)
+    del flat, prev
+    new_state = state
+    if temporal:
+        hist_s, hist_b, count, t = trust.push_history(
+            state.hist_s, state.hist_b, state.count, state.t,
+            kstats.prev_dist2[0], kstats.cosine_to_prev()[0])
+        new_state = TreeAggState(prev=_map(lambda g: g.to(torch.float32), stacked),
+                                 hist_s=hist_s, hist_b=hist_b, count=count, t=t)
+    out = _split_like(out_flat[0], stacked)
+    info = {
+        "mask_d": mask_d[0], "mask_c": mask_c[0], "mask_t": mask_t[0],
+        "weights": weights[0], "n_accepted": (weights[0] > 0).sum(),
+        "record": obs_decision.record_from_masks(
+            mask_d[0], mask_c[0], mask_t[0],
+            torch.ones(weights[0].shape, dtype=torch.bool, device=weights.device),
+            weights[0]),
+    }
+    return out, new_state, info
+
+
+def robust_allreduce(flat: Tensor, axis: Any, cfg: RobustAggConfig,
+                     state: Optional[AggState] = None):
+    """The flat layout's all-reduce: not ported yet (``FLAT_LAYOUT``)."""
+    raise NotImplementedError(FLAT_LAYOUT)

@@ -10,8 +10,9 @@ each use, as the reference does (``p["wq"].astype(dt)``).  Weights are laid
 out as the reference's, ``(d_in, d_out)``, and applied as ``x @ w``.
 
 The reference's sharding annotations (``shard``) are no-ops outside a mesh
-and are dropped; the mesh is ROADMAP queue 1, item 11.  MLA, MoE and head
-padding (``pad_heads_to``) are not ported (ROADMAP queue 1, item 12).
+and are dropped; the mode-B mesh is ROADMAP queue 1, item 12.  MLA, MoE
+and head padding (``pad_heads_to``) are not ported (ROADMAP queue 1, item
+12).
 """
 from __future__ import annotations
 

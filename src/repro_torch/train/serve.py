@@ -6,8 +6,8 @@ least ``layers.SDPA_CHUNK_THRESHOLD`` it reaches the flash-attention kernel
 in every layer.  ``build_decode_step`` appends one token against a KV cache
 of the context's length and runs no kernel of the port (the dense scores of
 one query are small), as in the reference.  The reference's
-``ServeConfig``, mesh and shardings wait for the port's ``torch.distributed``
-layer (ROADMAP queue 1, item 11); on one card they are no-ops.
+``ServeConfig``, mesh and shardings wait for the mode-B mesh stack
+(ROADMAP queue 1, item 12); on one card they are no-ops.
 """
 from __future__ import annotations
 

@@ -227,12 +227,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
                                   "dynamic", "mesh", "gathered"])
 def test_later_slices_raise(what):
     """Paths that still raise.  Those of later slices name their ROADMAP
-    item: sharding, and more than 32 candidates (a CFL server over 33
-    nodes, a gathered slate of 33).  Those the reference itself refuses
-    raise as it does: a standalone WFAgg filter has no valid-masked form,
-    so WFAgg-D on an irregular graph and WFAgg-T on a dynamic schedule
-    raise, while a baseline such as Krum runs on the same irregular graph
-    and WFAgg-C beside it raises.  (The adaptive attacks and the static
+    item: more than 32 candidates (a CFL server over 33 nodes, a gathered
+    slate of 33).  Sharding without an initialised process group of
+    ``mesh_model_shards`` ranks raises ValueError (``distributed/spmd.py``;
+    with a group it runs, ``test_torch_spmd.py``).  Those the reference
+    itself refuses raise as it does: a standalone WFAgg filter has no
+    valid-masked form, so WFAgg-D on an irregular graph and WFAgg-T on a
+    dynamic schedule raise, while a baseline such as Krum runs on the same
+    irregular graph and WFAgg-C beside it raises.  (The adaptive attacks and the static
     telemetry export, which raised until they were ported, are held
     against the reference above and in ``test_torch_chaos.py``.)"""
     topo, data = paper_topology(), SyntheticImages()
@@ -256,6 +258,7 @@ def test_later_slices_raise(what):
         exc, match = ValueError, "ROADMAP queue 2, item 4"
     elif what == "mesh":
         cfg = tengine.DFLConfig(mesh_model_shards=2)
+        exc, match = ValueError, "initialised torch.distributed"
     elif what == "dynamic":
         cfg, kw = tengine.DFLConfig(aggregator="wfagg_t"), {"dynamic": True}
         match = "no valid-mask-aware form"

@@ -19,9 +19,9 @@ package's, and its mirror of ``tests/test_telemetry.py``.
   valid log, a trace, a ``torch.profiler`` capture, a replay that renders
   the same audit, and decisions equal to ``run_dynamic_experiment``'s.
 
-Not mirrored: ``test_stacked_allreduce_record`` (mode B, ROADMAP queue 1,
-item 11) and ``test_microbench_timeit_median`` (a ``benchmarks/``
-script)."""
+``test_stacked_allreduce_record`` is mirrored with the stacked all-reduce
+in ``tests/test_torch_robust_allreduce.py``.  Not mirrored:
+``test_microbench_timeit_median`` (a ``benchmarks/`` script)."""
 import dataclasses
 import json
 import os
