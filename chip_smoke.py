@@ -5,6 +5,7 @@ an NVIDIA H100.
     python3 chip_smoke.py
     python3 chip_smoke.py --only distributed   # phase 1, then the distributed phase
     python3 chip_smoke.py --only cards         # phase 1, then its ranks on every card
+    python3 chip_smoke.py --only train         # phase 1, then the trainer
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
@@ -12,7 +13,8 @@ With ``--only distributed`` it builds the kernels, runs the distributed
 phase alone and prints that phase's launches, errors and times as one
 JSON line instead of the kernels line and the ok line; with ``--only
 cards`` it runs that phase's round, scan and engine parts on one ``nccl``
-rank per visible card (2 or more), the deployment sharding is for.
+rank per visible card (2 or more), the deployment sharding is for; with
+``--only train`` the training part alone, as one JSON line.
 Phases, each of which fails the run:
 
   1. the card's name and power limit; build the seven kernel libraries of
@@ -254,11 +256,34 @@ Phases, each of which fails the run:
        their plain versions computed in column chunks (kernel 6 against
        the Gram summed in float64), timed beside their bounds (kernel 1
        beside the two-launch route); kernel 1's ``mean_fallback`` branch
-       with every candidate rejected (the uniform mean).
+       with every candidate rejected (the uniform mean);
+     - training (``repro_torch.train.trainer``): Qwen1.5-0.5B uncut (the
+       port's seed-0 init) with K=8 candidate workers of one batch row
+       each at S=1025 (two whole loss chunks of 512), 2 of them under
+       IPM-100, AdamW at lr 1e-3: 5 steps each of WFAgg and Alt-WFAgg on
+       ``fused`` (WFAgg-T from step 4), every step's all-reduce also run
+       on ``fused_two_launch`` and ``reference`` from the step's state
+       (its prev, their own history) and held by ``hold_stacked_route``
+       (exact launches: kernel 1 once a step, kernel 4 once a step from
+       the hold, kernel 6 once a step for Alt-WFAgg; both attackers at
+       weight 0 in every step), and the mean beside them (WFAgg's last
+       loss below its first and below the mean's); ms per phase
+       (candidate gradients, attack, all-reduce, optimizer), tokens/s and
+       peak memory per run; one step's peak memory reading the (K, P)
+       buffers and with the two (K, P) copies; the flat layout on 4
+       ``gloo`` ranks on the one card (depth cut to 2, ALIE on 1, the
+       sketch WFAgg-T; every rank's parameters hashed after each step,
+       rank 0 holding each all-reduce to the one-process emulation:
+       weights within 1e-6, out within 2e-4, masks equal); the launcher
+       (``launch.train.main``, 2 steps at full width, a checkpoint, 2
+       launches of kernel 1).  ``--only train`` runs phase 1 and this part
+       alone.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
+import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -2791,30 +2816,34 @@ def check_adaptive_backends(torch) -> dict:
     return launches
 
 
-def trace_round(torch, path, rnd) -> None:
+def trace_round(torch, path, span, top=5) -> dict:
     """From a ``torch.profiler`` Chrome trace: the device kernels that ran
-    inside round ``rnd``'s span (its ``record_function`` "round r"), summed
-    by name, the top five with their share of the round's wall time, and
-    the device's busy share of the round."""
+    inside the ``record_function`` span ``span`` (e.g. "round 5"), summed
+    by name, the ``top`` with their share of the span's wall time, and the
+    device's busy share of the span.  Returns the span's wall and busy ms
+    and the top kernels' ms."""
     trace = json.loads(pathlib.Path(path).read_text())["traceEvents"]
-    spans = [e for e in trace if e.get("name") == f"round {rnd}"
+    spans = [e for e in trace if e.get("name") == span
              and e.get("cat") == "user_annotation"]
     if not spans:
-        raise AssertionError(f"the capture holds no span of round {rnd}")
+        raise AssertionError(f"the capture holds no span {span!r}")
     t0, t1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
     kernels = [e for e in trace if e.get("cat") == "kernel" and t0 <= e["ts"] < t1]
     if not kernels:
-        raise AssertionError(f"the capture holds no device kernel inside round {rnd}")
+        raise AssertionError(f"the capture holds no device kernel inside {span!r}")
     by_name = {}
     for e in kernels:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     busy = sum(by_name.values())
     wall = t1 - t0
-    print(f"  round {rnd} (steady) in the torch.profiler capture: wall {wall / 1e3:.3f} ms, "
+    print(f"  {span} in the torch.profiler capture: wall {wall / 1e3:.3f} ms, "
           f"{len(kernels)} kernel launches, device busy {busy / 1e3:.3f} ms "
-          f"({100 * busy / wall:.1f}% of the round; idle {100 - 100 * busy / wall:.1f}%)")
-    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:5]:
+          f"({100 * busy / wall:.1f}% of the span; idle {100 - 100 * busy / wall:.1f}%)")
+    ranked = sorted(by_name.items(), key=lambda x: -x[1])[:top]
+    for name, us in ranked:
         print(f"    {us / 1e3:8.3f} ms {100 * us / wall:5.1f}%  {name[:100]}")
+    return dict(wall_ms=wall / 1e3, busy_ms=busy / 1e3, launches=len(kernels),
+                top={name[:100]: us / 1e3 for name, us in ranked})
 
 
 def run_flight(torch) -> dict:
@@ -2862,7 +2891,8 @@ def run_flight(torch) -> dict:
               f"{prof['achieved_bytes_per_s'] / 1e9:.3f} GB/s")
         walls = {e["round"]: e["wall_s"] for e in events if e["type"] == "round_timing"}
         steady = sorted(range(2, rounds + 1), key=lambda r: walls[r])[(rounds - 1) // 2]
-        trace_round(torch, f"{cap}/{profile.TRACE_FILE}", steady)
+        print(f"  the steady round (the median's, round {steady}):")
+        trace_round(torch, f"{cap}/{profile.TRACE_FILE}", f"round {steady}")
     return counts
 
 
@@ -3903,18 +3933,19 @@ def dist_child(rank, S, store_path, out_dir, backend) -> None:
     pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
 
 
-def run_ranks(torch, backend, S) -> list:
-    """Spawn S processes, each a ``backend`` rank of the distributed phase
-    (``gloo``: all on the one card; ``nccl``: one card each); wait for all
-    of them within ``DIST_TIMEOUT_S`` (the stragglers are killed and the
-    run fails).  Returns each rank's JSON."""
+def run_ranks(torch, backend, S, child=None) -> list:
+    """Spawn S processes, each a ``backend`` rank running ``child`` (the
+    distributed phase's ``dist_child`` by default; ``gloo``: all on the one
+    card; ``nccl``: one card each); wait for all of them within
+    ``DIST_TIMEOUT_S`` (the stragglers are killed and the run fails).
+    Returns each rank's JSON."""
     import multiprocessing as mp
     import tempfile
 
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     store = str(pathlib.Path(tmp, "store"))
-    procs = [ctx.Process(target=dist_child, args=(r, S, store, tmp, backend))
+    procs = [ctx.Process(target=child or dist_child, args=(r, S, store, tmp, backend))
              for r in range(S)]
     for p in procs:
         p.start()
@@ -4177,6 +4208,40 @@ def combine_of(torch, cands, w):
                            for k, v in cands.items()})
 
 
+def hold_stacked_route(torch, label, cfg, cands, state, route, ref) -> tuple:
+    """One stacked all-reduce route's (out, weights, masks) against the
+    reference route's on the same candidates and state: masks bit-equal (or
+    for Multi-Krum the weights), or each differing decision a near-tie by
+    ``NEAR_TIE`` on the reference route's statistics (reported; the route's
+    output then the combine of its own weights); the other candidates'
+    weights within ``STACK_W_TOL``; without a near-tie the outputs within
+    rtol ``STACK_RTOL`` / atol ``STACK_ATOL``.  ``cfg`` is the reference
+    route's.  Returns (the near-ties' (candidate, filter, margin) list,
+    the largest output difference or None at a near-tie)."""
+    o2, w2, m2 = route
+    o, w, masks = ref
+    flips = [(k, bit) for bit, name in enumerate(("mask_d", "mask_c", "mask_t"))
+             if name in masks for k in (masks[name] != m2[name]).nonzero().flatten().tolist()]
+    if cfg.method == "multi_krum":
+        flips = [(k, 0) for k in (w != w2).nonzero().flatten().tolist()]
+    keep = torch.ones(w.shape[0], dtype=torch.bool, device="cuda")
+    rep = []
+    if flips:
+        rep = stacked_margins(torch, cfg, cands, state, flips)
+        print(f"  {label}: decisions differ at (candidate, filter, margin) {rep}")
+        if not all(m is not None and m <= NEAR_TIE for _, _, m in rep):
+            raise AssertionError(f"{label}: decisions differ away from any edge")
+        keep[[k for k, _ in flips]] = False
+        # the route's output is the combine of its own weights
+        torch.testing.assert_close(o2, combine_of(torch, cands, w2), rtol=STACK_RTOL,
+                                   atol=STACK_ATOL)
+    torch.testing.assert_close(w2[keep], w[keep], rtol=0, atol=STACK_W_TOL)
+    if flips:
+        return rep, None
+    torch.testing.assert_close(o2, o, rtol=STACK_RTOL, atol=STACK_ATOL)
+    return rep, float((o2 - o).abs().max())
+
+
 def run_stacked_path(torch) -> tuple:
     """``robust_allreduce_stacked`` over K=8 Qwen1.5-0.5B-shaped candidates
     (2 under IPM-100), 3 rounds with WFAgg-T state, for each method on
@@ -4225,37 +4290,15 @@ def run_stacked_path(torch) -> tuple:
                 else:
                     for other, rounds in kept.items():
                         o2, w2, m2 = rounds[r]
-                        label = f"stacked {method} round {r} {other} vs reference"
-                        flips = [(k, bit) for bit, name in enumerate(
-                            ("mask_d", "mask_c", "mask_t")) if name in masks
-                            for k in (masks[name] != m2[name]).nonzero().flatten().tolist()]
-                        if method == "multi_krum":
-                            flips = [(k, 0) for k in (info["weights"] != w2).nonzero()
-                                     .flatten().tolist()]
-                        keep = torch.ones(STACK_K, dtype=torch.bool, device="cuda")
-                        o2 = o2.to("cuda")
-                        if flips:
-                            rep = stacked_margins(torch, cfg, cands, state, flips)
-                            print(f"  {label}: decisions differ at (candidate, filter, "
-                                  f"margin) {rep}")
-                            if not all(m is not None and m <= NEAR_TIE for _, _, m in rep):
-                                raise AssertionError(f"{label}: decisions differ away "
-                                                     "from any edge")
+                        rep, err = hold_stacked_route(
+                            torch, f"stacked {method} round {r} {other} vs reference",
+                            cfg, cands, state, (o2.to("cuda"), w2, m2),
+                            (o, info["weights"], masks))
+                        if rep:
                             flips_seen.append((r, other, rep))
-                            keep[[k for k, _ in flips]] = False
-                            # the route's output is the combine of its own weights
-                            torch.testing.assert_close(o2, combine_of(torch, cands, w2),
-                                                       rtol=STACK_RTOL, atol=STACK_ATOL)
-                        torch.testing.assert_close(w2[keep], info["weights"][keep],
-                                                   rtol=0, atol=STACK_W_TOL)
-                        if not flips:
-                            torch.testing.assert_close(o2, o, rtol=STACK_RTOL,
-                                                       atol=STACK_ATOL)
-                            report.setdefault(f"max_out_err_{method}", 0.0)
+                        if err is not None:
                             report[f"max_out_err_{method}"] = max(
-                                report[f"max_out_err_{method}"],
-                                float((o2 - o).abs().max()))
-                        del o2
+                                report.get(f"max_out_err_{method}", 0.0), err)
                 state, new_state = new_state, None
                 del cands, out, o, info
             peak = torch.cuda.max_memory_allocated()
@@ -4521,12 +4564,402 @@ def run_distributed(torch) -> tuple:
     return launches, errs, timed
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the robust-DP trainer (train/trainer.py, launch/train.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_K = 8                      # candidate workers, one batch row each
+TRAIN_SEQ = 1025                 # S - 1 = 1024: two whole loss chunks of 512
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-3
+TRAIN_MALICIOUS = 2              # spaced_malicious(8, 2): candidates 2 and 6
+TRAIN_ATTACK = "ipm_100"
+FLAT_LAYERS = 2                  # the flat layout: Qwen width, depth cut to 2
+FLAT_K = 4                       # gloo ranks on the one card
+FLAT_STEPS = 3
+FLAT_W_TOL, FLAT_OUT_TOL = 1e-6, 2e-4   # tests/_spmd_parity_main.py
+
+
+def train_config(method, layout="stacked", **kw):
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.distributed.robust_allreduce import RobustAggConfig
+    from repro_torch.train.trainer import TrainConfig
+
+    wfagg = kw.pop("wfagg", WFAggConfig(f=2, transient=3, window=3))
+    return TrainConfig(agg=RobustAggConfig(method=method, layout=layout, backend="fused",
+                                           wfagg=wfagg),
+                       lr=TRAIN_LR, warmup=0, total_steps=TRAIN_STEPS, **kw)
+
+
+class TrainObserver:
+    """The trainer's ``observe`` hook on the card: each phase's ms (host
+    clock between ``torch.cuda.synchronize()`` calls) and, when ``hold``,
+    the stacked all-reduce's other backends at every step: after the
+    attack, ``fused_two_launch`` and ``reference`` aggregate the same
+    candidates from the step's state (its ``prev``, their own copies of
+    the history); after the all-reduce, both are held to each other and
+    the trajectory's ``fused`` route by ``hold_stacked_route``.  The
+    hold's own time is left out of every phase."""
+
+    ROUTES = ("fused_two_launch", "reference")
+
+    def __init__(self, torch, tc, agg_state, hold):
+        self.torch, self.tc, self.hold = torch, tc, hold
+        self.hist = ({b: tuple(getattr(agg_state, f).clone() for f in
+                               ("hist_s", "hist_b", "count", "t")) for b in self.ROUTES}
+                     if hold else None)
+        self.steps, self.peaks, self.near_ties, self.max_err = [], [], [], 0.0
+
+    def start(self):
+        self.torch.cuda.synchronize()
+        self.torch.cuda.reset_peak_memory_stats()
+        self.cur = {}
+        self.t = time.perf_counter()
+
+    def __call__(self, phase, **v):
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.cur[phase] = 1e3 * (time.perf_counter() - self.t)
+        if phase == "optimizer":
+            self.steps.append(self.cur)
+            self.peaks.append(round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+        elif self.hold and phase == "attack":
+            self.routes(v["candidates"], v["agg_state"])
+        elif self.hold and phase == "allreduce":
+            self.compare(v["grads"], v["info"])
+        torch.cuda.synchronize()
+        self.t = time.perf_counter()
+
+    def routes(self, cands, state):
+        import dataclasses
+
+        from repro_torch.distributed import robust_allreduce as ra
+
+        self.cands, self.state, self.out = cands, state, {}
+        for b in self.ROUTES:
+            st = ra.TreeAggState(state.prev, *self.hist[b])
+            o, ns, info = ra.robust_allreduce_stacked(
+                cands, dataclasses.replace(self.tc.agg, backend=b), st)
+            self.hist[b] = (ns.hist_s, ns.hist_b, ns.count, ns.t)
+            self.out[b] = (flat_of(self.torch, o), info["weights"],
+                           {k: info[k] for k in ("mask_d", "mask_c", "mask_t")})
+            del o
+
+    def compare(self, grads, info):
+        import dataclasses
+
+        step = len(self.steps)
+        ref = self.out.pop("reference")
+        routes = dict(self.out, fused=(flat_of(self.torch, grads), info["weights"],
+                                       {k: info[k] for k in ("mask_d", "mask_c", "mask_t")}))
+        cfg = dataclasses.replace(self.tc.agg, backend="reference")
+        for name, route in routes.items():
+            rep, err = hold_stacked_route(
+                self.torch, f"train {cfg.method} step {step + 1} {name} vs reference", cfg,
+                self.cands, self.state, route, ref)
+            if rep:
+                self.near_ties.append((step + 1, name, rep))
+            if err is not None:
+                self.max_err = max(self.max_err, err)
+        self.out, self.cands, self.state = {}, None, None
+
+
+def train_run(torch, cfg, tc, mesh, batches, hold) -> dict:
+    """``TRAIN_STEPS`` steps of ``build_train_step`` from the seed-0 state,
+    the launches counted from 0 over them; returns the run's losses,
+    weights, ms per phase, tokens/s, peak memory and the hold's findings."""
+    from repro_torch.train import trainer as tr
+
+    state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0),
+                                mesh)
+    obs = TrainObserver(torch, tc, state.agg_state, hold)
+    step = tr.build_train_step(cfg, tc, mesh, observe=obs)
+    losses, weights = [], []
+    zero_counts()
+    for batch in batches:
+        obs.start()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        weights.append([round(float(w), 4) for w in m["weights"]])
+    counts = read_counts()
+    ms = [{k: round(v, 2) for k, v in s.items()} for s in obs.steps]
+    tokens = batches[0]["tokens"].numel()
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, weights=weights, ms=ms,
+                tokens_per_s=[round(1e3 * tokens / sum(s.values()), 1) for s in obs.steps],
+                peak_gib=obs.peaks, launches={k: c for k, c in counts.items() if c},
+                counts=counts, near_ties=obs.near_ties, max_out_err=obs.max_err)
+
+
+def train_peak_memory(torch, cfg, mesh, batch) -> dict:
+    """Peak memory of one ``fused`` WFAgg step (no hold) with the candidates
+    and ``prev`` read as one (K, P) matrix, and with the two (K, P) copies
+    the fused route made before (``_one_matrix`` patched to find none)."""
+    from repro_torch.distributed import robust_allreduce as ra
+    from repro_torch.train import trainer as tr
+
+    tc = train_config("wfagg", attack=TRAIN_ATTACK, n_malicious=TRAIN_MALICIOUS)
+    out = {}
+    one_matrix = ra._one_matrix
+    try:
+        for name in ("views", "copies"):
+            ra._one_matrix = one_matrix if name == "views" else (lambda leaves: None)
+            state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0),
+                                        mesh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, _ = tr.build_train_step(cfg, tc, mesh)(state, batch)
+            torch.cuda.synchronize()
+            out[name] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        ra._one_matrix = one_matrix
+    return out
+
+
+def train_trace(torch, cfg, mesh, batches) -> dict:
+    """One steady ``fused`` WFAgg step (the second, no hold) under a
+    ``torch.profiler`` capture: its device kernels summed by name, the top
+    eight, and the device's busy share of the step."""
+    import tempfile
+
+    from repro_torch.obs import profile
+    from repro_torch.train import trainer as tr
+
+    tc = train_config("wfagg", attack=TRAIN_ATTACK, n_malicious=TRAIN_MALICIOUS)
+    state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0), mesh)
+    step = tr.build_train_step(cfg, tc, mesh)
+    state, _ = step(state, batches[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile.capture(tmp):
+            with profile.annotate("train step 2"):
+                state, _ = step(state, batches[1])
+                torch.cuda.synchronize()
+        out = trace_round(torch, f"{tmp}/{profile.TRACE_FILE}", "train step 2", top=8)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_flat_child(rank, S, store_path, out_dir, backend) -> None:
+    """One rank of the flat layout's training run: ``FLAT_STEPS`` steps of
+    the flat robust-DP step on the ``gloo`` group of S ranks (this rank's
+    candidate, its batch row), every rank's parameters hashed after each
+    step and compared; rank 0 also steps the one-process emulation
+    (``Emulated(S)``) from the same start and holds each step's all-reduce
+    to it (weights within 1e-6, the aggregated gradient within 2e-4)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.flatten import flat_buffer
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import trainer as tr
+
+    torch.cuda.set_device(0)
+    res = {"rank": rank}
+    try:
+        dist.init_process_group(backend, store=dist.FileStore(store_path, S), rank=rank,
+                                world_size=S)
+        try:
+            cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=FLAT_LAYERS)
+            tc = train_config("wfagg", layout="flat", attack="alie", n_malicious=1,
+                              wfagg=WFAggConfig(f=1, transient=1, window=2))
+            runs = [(make_test_mesh(data=S, group=dist.group.WORLD), {})]
+            if rank == 0:
+                runs.append((make_test_mesh(data=S), {}))
+            steps = []
+            for mesh, seen in runs:
+                state = tr.init_train_state(
+                    cfg, tc, torch.Generator(device="cuda").manual_seed(0), mesh)
+                fn = tr.build_train_step(cfg, tc, mesh,
+                                         observe=lambda p, seen=seen, **v: seen.update({p: v}))
+                steps.append([state, fn, seen])
+            stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, S)
+            ms, report = [], []
+            for i in range(FLAT_STEPS):
+                batch = stream.batch(i, device="cuda")
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps[0][0], m = steps[0][1](steps[0][0], batch)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                same_on_ranks(torch, dist, f"flat step {i + 1} parameters",
+                              digest(torch, flat_buffer(steps[0][0].params)))
+                if rank == 0:
+                    steps[1][0], m_e = steps[1][1](steps[1][0], batch)
+                    got, emu = steps[0][2]["allreduce"], steps[1][2]["allreduce"]
+                    for k in ("mask_d", "mask_c", "mask_t"):
+                        if not torch.equal(got["info"][k], emu["info"][k]):
+                            raise AssertionError(f"flat step {i + 1}: {k} differs from the "
+                                                 "emulation")
+                    torch.testing.assert_close(got["info"]["weights"], emu["info"]["weights"],
+                                               rtol=0, atol=FLAT_W_TOL)
+                    torch.testing.assert_close(got["grads"], emu["grads"], rtol=FLAT_OUT_TOL,
+                                               atol=FLAT_OUT_TOL)
+                    report.append(dict(
+                        loss=float(m["loss"]), loss_emulated=float(m_e["loss"]),
+                        weights=[round(float(w), 4) for w in m["weights"]],
+                        max_out_err=float((got["grads"] - emu["grads"]).abs().max()),
+                        masks_dct=[int(got["info"][k].sum()) for k in
+                                   ("mask_d", "mask_c", "mask_t")]))
+            res.update(ms=ms, report=report, P=flat_buffer(steps[0][0].params).numel())
+        finally:
+            dist.destroy_process_group()
+    except Exception:   # noqa: BLE001 - the parent fails the run on it
+        import traceback
+        res["error"] = traceback.format_exc()
+    pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def run_launcher(torch) -> dict:
+    """``repro_torch.launch.train.main`` at full width: 8 candidates, the
+    ``fused`` backend, 2 steps at S = 1025 under IPM-100, a checkpoint into
+    a temporary directory; its printed lines checked.  Returns its
+    launches and output."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launcher
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    buf = io.StringIO()
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            launcher.main(["--arch", TRAIN_ARCH, "--candidates", str(TRAIN_K),
+                           "--agg-backend", "fused", "--steps", "2",
+                           "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_K),
+                           "--attack", TRAIN_ATTACK, "--n-malicious", str(TRAIN_MALICIOUS),
+                           "--log-every", "1", "--ckpt-dir", tmp, "--ckpt-every", "2"])
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        out = buf.getvalue()
+        lines = out.strip().splitlines()
+        ckpt = pathlib.Path(tmp, "step_2.npz")
+        if not (lines[0].startswith(f"arch={TRAIN_ARCH}") and "step     2" in out
+                and lines[-1].startswith("done: 2 steps") and ckpt.exists()):
+            raise AssertionError(f"launcher: unexpected output or no checkpoint:\n{out}")
+        ckpt_gib = ckpt.stat().st_size / 2 ** 30
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if counts != only_counts(wfagg_round_indexed=2):
+        raise AssertionError(f"launcher: launches {counts}, expected 2 of kernel 1")
+    for line in lines:
+        print(f"    | {line}")
+    print(f"  launcher: {secs:.1f} s with set-up, checkpoint step_2.npz "
+          f"{ckpt_gib:.2f} GiB, launches {({k: c for k, c in counts.items() if c})}")
+    return dict(counts=counts, seconds=secs, lines=lines)
+
+
+def run_train_path(torch) -> tuple:
+    """The trainer on the card: stacked WFAgg and Alt-WFAgg at full width
+    (the backends held at every step), the mean beside them, the peak
+    memory with and without the (K, P) views, the flat layout on ``gloo``
+    ranks, the launcher.  Returns (launches on the main paths, report)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.topology import spaced_malicious
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.mesh import make_test_mesh
+
+    card = gpu_line()
+    cfg = get_config(TRAIN_ARCH)
+    mesh = make_test_mesh(data=TRAIN_K)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_K)
+    batches = [stream.batch(i, device="cuda") for i in range(TRAIN_STEPS)]
+    bad = spaced_malicious(TRAIN_K, TRAIN_MALICIOUS).nonzero()[0].tolist()
+    launches = dict.fromkeys(KERNELS, 0)
+    report = {"card": card}
+    print(f"  {card}: {TRAIN_ARCH} uncut (24 layers, d_model 1024, vocab 151,936; seed 0), "
+          f"K={TRAIN_K} candidates of one row at S={TRAIN_SEQ}, candidates {bad} under "
+          f"{TRAIN_ATTACK}, AdamW lr {TRAIN_LR}, warmup 0, {TRAIN_STEPS} steps")
+    for method in ("wfagg", "alt_wfagg", "mean"):
+        tc = train_config(method, attack=TRAIN_ATTACK, n_malicious=TRAIN_MALICIOUS)
+        hold = method != "mean"
+        r = train_run(torch, cfg, tc, mesh, batches, hold)
+        want = only_counts() if not hold else only_counts(
+            wfagg_round_indexed=TRAIN_STEPS, robust_stats=TRAIN_STEPS,
+            pairwise_gram=TRAIN_STEPS if method == "alt_wfagg" else 0)
+        if r["counts"] != want:
+            raise AssertionError(f"train {method}: launches {r['counts']}, expected {want}")
+        for k in KERNELS:
+            launches[k] += r["counts"][k]
+        if not all(map(math.isfinite, r["losses"])):
+            raise AssertionError(f"train {method}: non-finite loss {r['losses']}")
+        if hold and any(w[k] != 0.0 for w in r["weights"] for k in bad):
+            raise AssertionError(f"train {method}: an attacker got weight: {r['weights']}")
+        del r["counts"]
+        report[method] = r
+        print(f"  stacked {method:9s}: loss per step {[round(x, 4) for x in r['losses']]}, "
+              f"weights {r['weights']}")
+        phases = [[s.get(p) for p in ("grads", "attack", "allreduce", "optimizer")]
+                  for s in r["ms"]]
+        print(f"    ms per step (grads / attack / all-reduce / optimizer): {phases}"
+              f"; tokens/s {r['tokens_per_s']}; peak GiB per step {r['peak_gib']} (the "
+              f"hold's included); "
+              f"launches {r['launches']}")
+        if hold:
+            print(f"    fused and fused_two_launch held to reference at every step (weights "
+                  f"within {STACK_W_TOL}, outputs within rtol {STACK_RTOL} / atol "
+                  f"{STACK_ATOL}, max|diff| {r['max_out_err']:.3g}); near-ties "
+                  f"{r['near_ties'] or 'none'}")
+    w, mean = report["wfagg"]["losses"], report["mean"]["losses"]
+    if not (w[-1] < w[0] and w[-1] < mean[-1]):
+        raise AssertionError(f"train: WFAgg's step-{TRAIN_STEPS} loss {w[-1]} is not below "
+                             f"its first {w[0]} and the mean's {mean[-1]}")
+    print(f"  the paper's claim at trainer scale: WFAgg's loss {w[0]:.4f} -> {w[-1]:.4f}, "
+          f"the mean's {mean[0]:.4f} -> {mean[-1]:.4f} under {TRAIN_ATTACK}")
+    report["trace"] = train_trace(torch, cfg, mesh, batches)
+    report["peak_gib_one_step"] = train_peak_memory(torch, cfg, mesh, batches[0])
+    print(f"  peak memory of one fused WFAgg step: {report['peak_gib_one_step']['views']} GiB "
+          f"reading the (K, P) buffers, {report['peak_gib_one_step']['copies']} GiB with "
+          "the two (K, P) copies")
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  before the flat layout's ranks this process holds "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved)")
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, "gloo", FLAT_K, child=train_flat_child)
+    r0 = ranks[0]
+    report["flat"] = dict(ms=r0["ms"], steps=r0["report"], P=r0["P"],
+                          seconds=time.perf_counter() - t0)
+    print(f"  flat layout: {TRAIN_ARCH} width, depth cut to {FLAT_LAYERS} (P = {r0['P']}), "
+          f"{FLAT_K} gloo ranks on the one card, wfagg with the sketch WFAgg-T, 1 of "
+          f"{FLAT_K} under alie, {FLAT_STEPS} steps: parameters bit-equal on every rank "
+          f"after each step, each all-reduce within weights {FLAT_W_TOL} / out "
+          f"{FLAT_OUT_TOL} of the one-process emulation (max|diff| "
+          f"{[round(s['max_out_err'], 9) for s in r0['report']]}), masks equal; loss "
+          f"{[round(s['loss'], 4) for s in r0['report']]}, weights "
+          f"{[s['weights'] for s in r0['report']]}; ms per step (rank 0) "
+          f"{[round(t, 1) for t in r0['ms']]}; {report['flat']['seconds']:.1f} s in all")
+
+    r = run_launcher(torch)
+    for k in KERNELS:
+        launches[k] += r["counts"][k]
+    report["launcher"] = dict(seconds=r["seconds"], lines=r["lines"])
+    return launches, report
+
+
 def main(argv=()) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("distributed", "cards"):
-        print("usage: chip_smoke.py [--only distributed|cards]", file=sys.stderr)
+    if argv and only not in ("distributed", "cards", "train"):
+        print("usage: chip_smoke.py [--only distributed|cards|train]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4559,6 +4992,11 @@ def main(argv=()) -> int:
         launches, errs, timed = run_distributed(torch)
         print(json.dumps({"distributed": {"launches": launches, "max_abs_err": {
             k: max(v) for k, v in errs.items()}, "timed": timed}}))
+        return 0
+    if only == "train":
+        print("[3] the trainer alone (--only train): no kernels or ok line")
+        launches, report = run_train_path(torch)
+        print(json.dumps({"train": {"launches": launches, "report": report}}))
         return 0
     if only == "cards":
         print(f"[3] the distributed parts on one nccl rank per card (--only cards): "
@@ -4808,6 +5246,10 @@ def main(argv=()) -> int:
         if name in timed:
             timed[name]["distributed"] = t
 
+    print(f"[3] training: the robust-DP trainer on {TRAIN_ARCH} at full width (stacked "
+          f"layout, K={TRAIN_K}), the flat layout on {FLAT_K} gloo ranks, the launcher")
+    train_launches, _ = run_train_path(torch)
+
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
     # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
@@ -4815,12 +5257,13 @@ def main(argv=()) -> int:
     # adaptive phase (the gate grid's wfagg cells, the backend-parity runs,
     # the flight run, CFL under min_max), Table I's
     # WFAgg and Alt-WFAgg runs, and the gathered path (kernel 5; the
-    # per-edge variants on the indexed calls fed its state), and kernel 8 on the
-    # full-width prefills
+    # per-edge variants on the indexed calls fed its state), kernel 8 on the
+    # full-width prefills, and the trainer's kernels 1, 4 and 6 (the stacked
+    # runs with their hold, the launcher)
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
                 + adaptive_launches[name] + table_launches[name]
                 + gathered_launches[name] + serve_launches[name] + dist_launches[name]
-                for name in KERNELS}
+                + train_launches[name] for name in KERNELS}
     timed["flash_attention"]["launches_tc"] = serve_launches["flash_attention[tensor_core]"]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,

@@ -1,0 +1,225 @@
+"""Tree <-> flat-vector utilities (port of ``repro.core.flatten``).
+
+A tree is a nesting of dicts whose leaves are tensors.  Its leaf order is
+``jax.tree.leaves``'s for a dict (keys sorted, depth first), so a raveled
+tree is ``ravel_pytree``'s vector.  A ``DecoderLM`` stands for the
+reference's parameter tree (``module_tree``): each stacked leaf
+``layers/<path>`` holds layer 0's tensor, then layer 1's, and so on, the
+order in which ``models.model.params_from_jax`` unstacks it.
+
+``layout_flat`` puts a module's parameters into one (P,) buffer in that
+order, each parameter a view of it, so that raveling the model, its
+gradient and its optimizer step need no copies: ``module_tree`` of such a
+module is a tree of views of the buffer, the stacked leaves included.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# trees of dicts
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree) -> List[Tensor]:
+    """The leaves in the reference's order (sorted keys, depth first)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves: List[Tensor]):
+    """A tree shaped like ``tree`` with ``leaves`` in ``tree_leaves`` order."""
+    return _build(tree, iter(leaves))
+
+
+def _build(tree, it):
+    # a module-level function: a nested recursive closure would form a
+    # reference cycle holding the leaves until the garbage collector runs
+    if isinstance(tree, dict):
+        return {k: _build(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_size(tree) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(_as_tree(tree)))
+
+
+def tree_bytes(tree) -> int:
+    return sum(int(x.numel()) * x.element_size() for x in tree_leaves(_as_tree(tree)))
+
+
+# ---------------------------------------------------------------------------
+# a DecoderLM as the reference's tree
+# ---------------------------------------------------------------------------
+
+def _groups(model: nn.Module) -> List[Tuple[Tuple[str, ...], List[nn.Parameter]]]:
+    """(reference path, the module's parameters of that leaf) in ravel
+    order; a ``layers.<i>.<path>`` parameter joins leaf ``layers/<path>``
+    at position i."""
+    groups: Dict[Tuple[str, ...], Dict[Optional[int], nn.Parameter]] = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers" and parts[1].isdigit():
+            groups.setdefault(("layers",) + tuple(parts[2:]), {})[int(parts[1])] = p
+        else:
+            groups[tuple(parts)] = {None: p}
+    out = []
+    for path in sorted(groups):
+        g = groups[path]
+        if None not in g and sorted(g) != list(range(len(g))):
+            raise ValueError(f"{'/'.join(path)}: layers {sorted(g)} are not 0..L-1")
+        out.append((path, [g[i] for i in sorted(g, key=lambda i: -1 if i is None else i)]))
+    return out
+
+
+def _shape(path: Tuple[str, ...], params: List[nn.Parameter]) -> Tuple[int, ...]:
+    shape = tuple(params[0].shape)
+    return (len(params),) + shape if path[0] == "layers" else shape
+
+
+def module_params(model: nn.Module) -> List[nn.Parameter]:
+    """The module's parameters in the ravel order of the reference's tree."""
+    return [p for _, ps in _groups(model) for p in ps]
+
+
+def flat_buffer(model: nn.Module) -> Optional[Tensor]:
+    """The (P,) buffer whose views the module's parameters are, in ravel
+    order, or None if they are not laid out so (``layout_flat``)."""
+    params = module_params(model)
+    first = params[0]
+    ptr, off = first.untyped_storage().data_ptr(), first.storage_offset()
+    for p in params:
+        if (p.untyped_storage().data_ptr() != ptr or p.storage_offset() != off
+                or p.dtype != first.dtype or not p.is_contiguous()):
+            return None
+        off += p.numel()
+    return first.detach().as_strided((off - first.storage_offset(),), (1,),
+                                     first.storage_offset())
+
+
+def layout_flat(model: nn.Module) -> Tensor:
+    """Lay the module's parameters out in one (P,) buffer in ravel order and
+    make each parameter a view of it (one copy, the first time); returns
+    the buffer."""
+    flat = flat_buffer(model)
+    if flat is not None:
+        return flat
+    params = module_params(model)
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    off = 0
+    for p in params:
+        p.data = flat[off:off + p.numel()].view(p.shape)
+        off += p.numel()
+    return flat
+
+
+def module_tree(model: nn.Module) -> dict:
+    """The reference's parameter tree of a ``DecoderLM`` (layers stacked on
+    a leading L axis): views of the flat buffer when the module is laid out
+    (``layout_flat``), stacked copies otherwise."""
+    groups = _groups(model)
+    flat = flat_buffer(model)
+    if flat is not None:
+        return _unravel(flat, [(path, _shape(path, ps)) for path, ps in groups])
+    tree: dict = {}
+    for path, ps in groups:
+        leaf = torch.stack([p.detach() for p in ps]) if path[0] == "layers" else ps[0].detach()
+        _put(tree, path, leaf)
+    return tree
+
+
+def _put(tree: dict, path: Tuple[str, ...], leaf: Tensor) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def _paths(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Tensor]]:
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in _paths(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def _unravel(vec: Tensor, spec: List[Tuple[Tuple[str, ...], Tuple[int, ...]]]) -> dict:
+    """The tree of ``spec`` (path, shape) whose leaves are views of ``vec``."""
+    sizes = [math.prod(shape) for _, shape in spec]
+    tree: dict = {}
+    for (path, shape), part in zip(spec, vec.split(sizes)):
+        _put(tree, path, part.view(shape))
+    return tree
+
+
+def _as_tree(tree):
+    return module_tree(tree) if isinstance(tree, nn.Module) else tree
+
+
+# ---------------------------------------------------------------------------
+# ravel
+# ---------------------------------------------------------------------------
+
+def tree_ravel(tree) -> Tuple[Tensor, Callable[[Tensor], dict]]:
+    """Flatten a tree (or a ``DecoderLM``, as its reference tree) to
+    ``(vec, unravel)``: ``vec`` the leaves in order, concatenated;
+    ``unravel(v)`` the tree whose leaves are views of ``v``."""
+    tree = _as_tree(tree)
+    pl = _paths(tree)
+    spec = [(p, tuple(leaf.shape)) for p, leaf in pl]
+    vec = torch.cat([leaf.reshape(-1) for _, leaf in pl])
+    return vec, lambda v: _unravel(v, spec)
+
+
+def tree_stack_ravel(trees) -> Tuple[Tensor, Callable[[Tensor], dict]]:
+    """Stack a list of trees into a (K, d) matrix + the shared unravel."""
+    vecs, unravel = [], None
+    for t in trees:
+        v, unravel = tree_ravel(t)
+        vecs.append(v)
+    return torch.stack(vecs), unravel
+
+
+def vmap_ravel(batched_tree) -> Tuple[Tensor, Callable[[Tensor], dict]]:
+    """Ravel a tree whose leaves carry a leading axis K -> (K, d), and the
+    unravel of one (d,) row into an unbatched tree."""
+    pl = _paths(batched_tree)
+    K = pl[0][1].shape[0]
+    spec = [(p, tuple(leaf.shape[1:])) for p, leaf in pl]
+    mat = torch.cat([leaf.reshape(K, -1) for _, leaf in pl], dim=1)
+    return mat, lambda v: _unravel(v, spec)
+
+
+def unravel_like(vec: Tensor, like) -> dict:
+    """The tree of ``like`` whose leaves are views of the (P,) vector, in
+    ravel order."""
+    return _unravel(vec, [(p, tuple(leaf.shape)) for p, leaf in _paths(_as_tree(like))])
+
+
+def unravel_rows(mat: Tensor, like) -> dict:
+    """The tree of ``like`` (unbatched leaves) with a leading K axis, its
+    leaves views of the (K, P) matrix's column blocks in ravel order: the
+    candidate layout of the trainer's stacked gradients."""
+    pl = _paths(_as_tree(like))
+    P = sum(leaf.numel() for _, leaf in pl)
+    if P != mat.shape[1]:
+        raise ValueError(f"the matrix has {mat.shape[1]} columns, the tree {P} values")
+    K = mat.shape[0]
+    tree: dict = {}
+    off = 0
+    for path, leaf in pl:
+        n = leaf.numel()
+        _put(tree, path, mat[:, off:off + n].view((K,) + tuple(leaf.shape)))
+        off += n
+    return tree

@@ -1,11 +1,30 @@
-"""Byzantine-robust all-reduce over stacked candidates (port of the
-stacked layout of ``repro.distributed.robust_allreduce``): WFAgg, or a
-baseline, as a drop-in for the data-parallel mean-gradient all-reduce.
+"""Byzantine-robust all-reduce (port of
+``repro.distributed.robust_allreduce``): WFAgg, or a baseline, as a
+drop-in for the data-parallel mean-gradient all-reduce, in the
+reference's two layouts.
 
-``robust_allreduce_stacked`` takes the K candidate gradients (or models)
-as a dict of tensors whose leaves carry a leading K axis, the layout of
-the port's parameter dicts, and returns their robust aggregate (the K
-axis dropped).  Backends (``RobustAggConfig.backend``):
+**Flat** (``robust_allreduce``, the reference's default): each candidate
+worker holds its own flat gradient.  Phase 1 streams it in chunks of
+``cfg.chunk_size``: each chunk is all-gathered as a transient (K, chunk)
+block, whose coordinate median, distances, dots, Gram and the worker's
+AMS count-sketch (WFAgg-T's state) accumulate; phase 2 turns them into
+consensus weights and a second pass over the chunks sums the weighted
+candidates.  The candidate axis is either a ``torch.distributed`` process
+group with one rank per candidate (rank = candidate index) or
+``Emulated(K)``: one process holding all K candidates as a (K, P) tensor,
+which computes what every rank would (``jax.vmap(axis_name=...)`` over
+the reference is its counterpart).  Every sum over candidates is a
+gather and an add in rank order, in both forms, so every rank (and the
+emulation) holds the same bits; a reducing ``all_reduce`` would add in
+the backend's order.  The sketch's buckets and signs come from
+``sketch_hash``, a ``torch.Generator`` seeded by (seed, chunk), not the
+reference's ``jax.random`` bits (ROADMAP queue 3); the tests replace it
+with the reference's.
+
+**Stacked**: ``robust_allreduce_stacked`` takes the K candidate
+gradients (or models) as a dict of tensors whose leaves carry a leading K
+axis, the layout of the port's parameter dicts, and returns their robust
+aggregate (the K axis dropped).  Backends (``RobustAggConfig.backend``):
 
   reference         the per-leaf plain PyTorch loop of the reference:
                     coordinate median, distances, dots and the Gram per
@@ -25,36 +44,41 @@ axis dropped).  Backends (``RobustAggConfig.backend``):
 
 Mean, median and trimmed mean need no statistics.  The WFAgg-T state
 (``TreeAggState``) keeps every candidate's previous gradient exactly.
+Where the candidates' leaves are views of one (K, P) float32 matrix in
+ravel order (the trainer's gradient buffer, ``core.flatten.unravel_rows``;
+``init_tree_agg_state``'s ``prev``), the fused routes read that matrix
+itself instead of concatenating a copy, and the new state's ``prev`` is
+the candidates' own tree, so it stays such a matrix.
 
-The flat layout (``robust_allreduce``: chunked statistics, the AMS
-count-sketch of the temporal filter, ``apply_distributed_attack``) needs
-the trainer's data-parallel axis and waits with the trainer (ROADMAP
-queue 1, item 12).  ``state_from_jax`` turns the reference's state (as
-numpy arrays) into the port's.
+``state_from_jax`` turns the reference's state (as numpy arrays) into the
+port's.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import attacks as atk
 from repro_torch.core import trust
+from repro_torch.core.flatten import tree_leaves as _leaves
+from repro_torch.core.flatten import tree_map as _map
+from repro_torch.core.flatten import tree_unflatten as _unflatten
+from repro_torch.core.flatten import unravel_rows
 from repro_torch.core.trust import wfagg_scores
 from repro_torch.core.wfagg import (
     TemporalState, WFAggConfig, wfagg_t_decide, wfagg_t_select)
+from repro_torch.distributed.spmd import all_gather_in_rank_order
 from repro_torch.kernels.pairwise_dist.ops import pairwise_gram
 from repro_torch.kernels.robust_stats.ops import robust_stats, wfagg_round_indexed
 from repro_torch.obs import decision as obs_decision
 
 Tensor = torch.Tensor
-FLAT_LAYOUT = ("the flat layout (robust_allreduce, the chunked statistics and "
-               "the count-sketch temporal filter) is not ported yet: it waits "
-               "with the trainer, ROADMAP queue 1, item 12")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +91,7 @@ class RobustAggConfig:
     chunk_size: int = 1 << 22    # coordinates per streamed chunk (flat layout)
     sketch_dim: int = 4096       # AMS count-sketch width (flat layout's WFAgg-T)
     seed: int = 0
-    # "flat" (the reference's default; not ported, item 12) or "stacked"
+    # "flat" (robust_allreduce) or "stacked" (robust_allreduce_stacked)
     layout: str = "flat"
     gather_dtype: Optional[str] = None   # e.g. "bfloat16": statistics of the
                                          # candidates rounded to it (WFAgg-T
@@ -113,40 +137,16 @@ class TreeAggState(NamedTuple):
     t: Tensor
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree) -> List[Tensor]:
-    """The leaves of a tree of dicts in the reference's order (sorted keys,
-    depth first, as ``jax.tree.leaves`` orders a dict)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
-    return [tree]
-
-
-def _unflatten(tree, leaves: List[Tensor]):
-    """A tree shaped like ``tree`` with ``leaves`` in ``_leaves`` order."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-
-    return build(tree)
-
-
 def init_tree_agg_state(cfg: RobustAggConfig, n_candidates: int, grads_like: Any,
                         device=None) -> TreeAggState:
     """Zero state: ``prev`` the candidates' tree (leading K axis) in f32 on
-    ``device`` (None: the device of ``grads_like``)."""
+    ``device`` (None: the device of ``grads_like``), its leaves views of one
+    (K, P) zero matrix in ravel order."""
     dev = device if device is not None else _leaves(grads_like)[0].device
+    P = sum(l.numel() for l in _leaves(grads_like))
     return TreeAggState(
-        prev=_map(lambda l: torch.zeros((n_candidates,) + tuple(l.shape),
-                                        dtype=torch.float32, device=dev), grads_like),
+        prev=unravel_rows(torch.zeros((n_candidates, P), dtype=torch.float32, device=dev),
+                          grads_like),
         hist_s=torch.zeros((cfg.wfagg.window, n_candidates), device=dev),
         hist_b=torch.zeros((cfg.wfagg.window, n_candidates), device=dev),
         count=torch.zeros((), dtype=torch.int32, device=dev),
@@ -287,10 +287,34 @@ def _stacked_stats(stacked: Any, cfg: RobustAggConfig) -> ChunkStats:
                       sketch=torch.zeros((0,), **f32))
 
 
+def _one_matrix(leaves: List[Tensor]) -> Optional[Tensor]:
+    """The (K, P) float32 matrix whose column blocks the stacked leaves are,
+    in order (``core.flatten.unravel_rows``), or None if they are not such
+    views."""
+    first = leaves[0]
+    K = first.shape[0]
+    P = sum(l.numel() for l in leaves) // K
+    ptr, off = first.untyped_storage().data_ptr(), first.storage_offset()
+    for l in leaves:
+        n = l.numel() // K
+        want = (P,) + torch.empty(l.shape[1:], device="meta").stride()
+        if (l.dtype != torch.float32 or l.untyped_storage().data_ptr() != ptr
+                or l.storage_offset() != off or l.stride() != want):
+            return None
+        off += n
+    return first.as_strided((K, P), (P, 1), first.storage_offset())
+
+
 def _concat_candidates(tree: Any, dtype=None) -> Tensor:
-    """Flatten a stacked candidate tree to one (K, P) float32 matrix."""
+    """Flatten a stacked candidate tree to one (K, P) float32 matrix: the
+    matrix itself, without a copy, when the leaves are views of one in
+    ravel order and no ``dtype`` rounding is asked."""
     leaves = _leaves(tree)
     K = leaves[0].shape[0]
+    if dtype is None:
+        mat = _one_matrix(leaves)
+        if mat is not None:
+            return mat
     return torch.cat([(l.to(dtype) if dtype is not None else l).to(torch.float32)
                       .reshape(K, -1) for l in leaves], dim=1)
 
@@ -378,10 +402,13 @@ def apply_stacked_attack(
     alie_zmax: float = 0.5,
     prev: Any = None,
     noise: Any = None,
+    in_place: bool = False,
 ) -> Any:
     """Model-poisoning attacks on stacked candidates, leaf by leaf through
     ``core.attacks.apply_matrix_attack`` (the one copy of the masked-stack
-    attack math, shared with ``dfl.engine``).
+    attack math, shared with ``dfl.engine``).  ``in_place`` writes each
+    attacked leaf back into ``stacked`` as it goes (one leaf's transient),
+    so candidates that are views of one (K, P) matrix stay so.
 
     The noise attack draws each leaf's standard normals from ``generator``
     in leaf order, or takes them from ``noise`` (a tree like ``stacked``),
@@ -401,11 +428,15 @@ def apply_stacked_attack(
     for leaf, pl, z in zip(leaves, prev_leaves, noise_leaves):
         if attack == "noise" and z is not None:
             m = mal.reshape((-1,) + (1,) * (leaf.ndim - 1))
-            out.append(torch.where(m, leaf + noise_mu + noise_sigma * z, leaf))
-            continue
-        out.append(atk.apply_matrix_attack(
-            attack, leaf, mal, generator, acfg,
-            view=(atk.DefenseView(prev=pl) if pl is not None else None)))
+            new = torch.where(m, leaf + noise_mu + noise_sigma * z, leaf)
+        else:
+            new = atk.apply_matrix_attack(
+                attack, leaf, mal, generator, acfg,
+                view=(atk.DefenseView(prev=pl) if pl is not None else None))
+        if in_place:
+            leaf.copy_(new)
+            new = leaf
+        out.append(new)
     return _unflatten(stacked, out)
 
 
@@ -535,7 +566,230 @@ def _stacked_one_launch(
     return out, new_state, info
 
 
-def robust_allreduce(flat: Tensor, axis: Any, cfg: RobustAggConfig,
-                     state: Optional[AggState] = None):
-    """The flat layout's all-reduce: not ported yet (``FLAT_LAYOUT``)."""
-    raise NotImplementedError(FLAT_LAYOUT)
+# ---------------------------------------------------------------------------
+# the flat layout: the candidate axis
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Emulated:
+    """The candidate axis of ``size`` workers emulated in one process: every
+    local value carries a leading axis of the K candidates (row k is
+    candidate k's), as under ``jax.vmap(axis_name=...)``, and every
+    collective returns what each rank of a process group would."""
+
+    size: int
+
+
+# a ``torch.distributed`` process group with one rank per candidate, or Emulated
+Axis = Union[Emulated, Any]
+
+
+def axis_size(axis: Axis) -> int:
+    return axis.size if isinstance(axis, Emulated) else dist.get_world_size(axis)
+
+
+def my_index(axis: Axis, device=None) -> Tensor:
+    """This worker's candidate index: the rank, or (K,) ``arange`` emulated."""
+    if isinstance(axis, Emulated):
+        return torch.arange(axis.size, device=device)
+    return torch.tensor(dist.get_rank(axis), device=device)
+
+
+def _all_gather(x: Tensor, axis: Axis) -> Tensor:
+    """(K, ...) of every worker's ``x`` in rank order (emulated: ``x``)."""
+    if isinstance(axis, Emulated):
+        return x
+    return torch.stack(all_gather_in_rank_order(x, axis))
+
+
+def _rank_sum(parts: Tensor) -> Tensor:
+    """Sum over the leading candidate axis, one candidate after another in
+    rank order (the same float32 adds on every rank and in the emulation)."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def pmean(x: Tensor, axis: Axis) -> Tensor:
+    """The mean over the candidates of each worker's scalar ``x`` (emulated:
+    the (K,) values), summed in rank order."""
+    g = x if isinstance(axis, Emulated) else _all_gather(x.reshape(1), axis)[:, 0]
+    return _rank_sum(g) / axis_size(axis)
+
+
+def _pad_chunks(flat: Tensor, chunk: int) -> Iterator[Tuple[int, Tensor]]:
+    """(chunk index, chunk) over the last axis in chunks of ``chunk``
+    coordinates, the last zero-padded to ``chunk``: the reference's padded
+    chunks, without a padded copy of the whole vector."""
+    P = flat.shape[-1]
+    for ci in range(max(1, -(-P // chunk))):
+        part = flat[..., ci * chunk:(ci + 1) * chunk]
+        if part.shape[-1] < chunk:
+            part = torch.nn.functional.pad(part, (0, chunk - part.shape[-1]))
+        yield ci, part
+
+
+def _psum(flat: Tensor, axis: Axis, chunk: int, scale: Optional[Tensor] = None) -> Tensor:
+    """Sum over the candidates of each worker's ``flat`` (times its
+    ``scale[k]``), chunk by chunk: one gather of (K, chunk) at a time."""
+    P = flat.shape[-1]
+    out = torch.empty((P,), dtype=flat.dtype, device=flat.device)
+    for a in range(0, P, chunk):
+        g = _all_gather(flat[..., a:a + chunk], axis)
+        if scale is not None:
+            g = g * scale[:, None].to(g.dtype)
+        out[a:a + chunk] = _rank_sum(g)
+    return out
+
+
+def sketch_hash(n: int, m: int, seed: int, chunk_idx: int, device) -> Tuple[Tensor, Tensor]:
+    """The count-sketch's buckets (n,) in [0, m) and signs (n,) in {-1, +1}
+    of chunk ``chunk_idx``: the port's own draws from a ``torch.Generator``
+    on ``device`` seeded by (seed, chunk_idx), the same on every rank (the
+    reference draws them from ``jax.random``; tests replace this function
+    with the reference's bits)."""
+    g = torch.Generator(device=device).manual_seed((seed * 1_000_003 + chunk_idx) % (2 ** 63))
+    buckets = torch.randint(0, m, (n,), generator=g, device=device)
+    signs = torch.randint(0, 2, (n,), generator=g, device=device).to(torch.float32) * 2 - 1
+    return buckets, signs
+
+
+def _count_sketch(chunk: Tensor, chunk_idx: int, m: int, seed: int) -> Tensor:
+    """AMS count-sketch (m,) of one worker's chunk (L,): bucket + sign,
+    seeded by the chunk index (emulated: a (K, L) chunk, one row at a time)."""
+    if chunk.ndim == 2:
+        return torch.stack([_count_sketch(row, chunk_idx, m, seed) for row in chunk])
+    buckets, signs = sketch_hash(chunk.shape[0], m, seed, chunk_idx, chunk.device)
+    out = torch.zeros((m,), dtype=torch.float32, device=chunk.device)
+    return out.index_add_(0, buckets, chunk.to(torch.float32) * signs)
+
+
+# ---------------------------------------------------------------------------
+# the flat layout, phase 1: streamed statistics
+# ---------------------------------------------------------------------------
+
+def _stats_scan(flat: Tensor, axis: Axis, cfg: RobustAggConfig) -> ChunkStats:
+    """The candidates' statistics over all chunks: each chunk gathered as a
+    transient (K, chunk) block; the sketch is the worker's own."""
+    K = axis_size(axis)
+    f32 = dict(dtype=torch.float32, device=flat.device)
+    dist2 = torch.zeros((K,), **f32)
+    dot_med = torch.zeros((K,), **f32)
+    med2 = torch.zeros((), **f32)
+    gram = torch.zeros((K, K), **f32)
+    sketch = torch.zeros(flat.shape[:-1] + (cfg.sketch_dim,), **f32)
+    for ci, chunk in _pad_chunks(flat, cfg.chunk_size):
+        g = _all_gather(chunk, axis).reshape(K, -1).to(torch.float32)
+        med = agg_lib.coordinate_median(g)
+        diff = g - med[None, :]
+        dist2 = dist2 + (diff * diff).sum(1)
+        del diff
+        dot_med = dot_med + g @ med
+        med2 = med2 + (med * med).sum()
+        gram = gram + g @ g.T
+        sketch = sketch + _count_sketch(chunk, ci, cfg.sketch_dim, cfg.seed)
+    return ChunkStats(dist2_med=dist2, dot_med=dot_med, med2=med2, gram=gram,
+                      sketch=sketch)
+
+
+def _streaming_coordinate_agg(flat: Tensor, axis: Axis, cfg: RobustAggConfig) -> Tensor:
+    """Median / trimmed-mean aggregation: stream output chunks directly."""
+    K = axis_size(axis)
+    P = flat.shape[-1]
+    out = torch.empty((P,), dtype=flat.dtype, device=flat.device)
+    for ci, chunk in _pad_chunks(flat, cfg.chunk_size):
+        g = _all_gather(chunk, axis).reshape(K, -1).to(torch.float32)
+        if cfg.method == "median":
+            o = agg_lib.coordinate_median(g)
+        else:
+            t = int(cfg.trim_beta * K)
+            srt = torch.sort(g, dim=0).values
+            o = (srt[t: K - t] if t > 0 else srt).mean(0)
+        a = ci * cfg.chunk_size
+        out[a:a + cfg.chunk_size] = o[:P - a].to(flat.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the flat layout: public entry points
+# ---------------------------------------------------------------------------
+
+def robust_allreduce(
+    flat: Tensor,
+    axis: Axis,
+    cfg: RobustAggConfig,
+    state: Optional[AggState] = None,
+) -> Tuple[Tensor, Optional[AggState], Dict[str, Tensor]]:
+    """Robust-aggregate the workers' flat gradients across the candidate
+    axis: ``flat`` is this worker's (P,) gradient on a process group of one
+    rank per candidate, or the (K, P) candidates under ``Emulated(K)``.
+    Returns (the aggregated (P,) gradient, identical on every rank,
+    new_state, info)."""
+    K = axis_size(axis)
+    dev = flat.device
+    ones = {"weights": torch.ones((K,), device=dev), "n_accepted": torch.tensor(K, device=dev)}
+    if cfg.method == "mean":
+        return _psum(flat, axis, cfg.chunk_size) / K, state, ones
+    if cfg.streaming_output:
+        return _streaming_coordinate_agg(flat, axis, cfg), state, ones
+
+    stats = _stats_scan(flat, axis, cfg)
+    sketches = _all_gather(stats.sketch, axis).reshape(K, -1)
+    weights, new_state, info = _weights_from_stats(stats, sketches, state, cfg)
+
+    # phase 2: the weighted mean, each worker's gradient scaled by its
+    # weight; every candidate rejected: the mean (the host reads the sum)
+    if bool(weights.sum() > 0):
+        wsum = torch.clamp(weights.sum(), min=1e-12)
+        out = _psum(flat, axis, cfg.chunk_size, scale=weights / wsum)
+    else:
+        out = _psum(flat, axis, cfg.chunk_size) / K
+    return out, new_state, info
+
+
+def apply_distributed_attack(
+    flat: Tensor,
+    axis: Axis,
+    malicious: Tensor,            # (K,) bool: which workers are Byzantine
+    attack: str,
+    generator: Optional[torch.Generator] = None,
+    noise_mu: float = 0.1,
+    noise_sigma: float = 0.1,
+    alie_zmax: float = 0.5,
+    chunk_size: int = 1 << 22,
+) -> Tensor:
+    """Transform the worker's gradient if it is malicious (``flat`` as in
+    ``robust_allreduce``).  The omniscient attacks (ALIE, IPM) take the
+    benign cohort's mean (and variance) per coordinate from the gathered
+    chunks, summed in rank order.  The noise attack adds the same draw from
+    ``generator`` on every malicious worker, as the reference's shared key
+    does: seed it alike on every rank."""
+    if attack in ("none", "label_flip"):
+        return flat
+    K = axis_size(axis)
+    mal = malicious.to(device=flat.device, dtype=torch.bool)
+    me = my_index(axis, flat.device)
+    bad = mal[me] if flat.ndim == 1 else mal[me][:, None]
+    if attack == "noise":
+        z = torch.randn(flat.shape[-1:], generator=generator, device=flat.device,
+                        dtype=flat.dtype)
+        return torch.where(bad, flat + noise_mu + noise_sigma * z, flat)
+    if attack == "sign_flip":
+        return torch.where(bad, -flat, flat)
+    if not (attack.startswith("ipm") or attack == "alie"):
+        raise ValueError(f"unknown attack {attack!r}")
+    benign_w = (~mal).to(flat.dtype)[:, None]
+    n_benign = torch.clamp(K - mal.sum(), min=1).to(flat.dtype)
+    out = torch.empty_like(flat)
+    P = flat.shape[-1]
+    for a in range(0, P, chunk_size):
+        g = _all_gather(flat[..., a:a + chunk_size], axis)
+        mu = _rank_sum(g * benign_w) / n_benign
+        if attack.startswith("ipm"):
+            mal_val = -(100.0 if attack == "ipm_100" else 0.5) * mu
+        else:
+            var = _rank_sum(benign_w * (g - mu) ** 2) / n_benign
+            mal_val = mu - alie_zmax * torch.sqrt(var)
+        out[..., a:a + chunk_size] = torch.where(bad, mal_val, flat[..., a:a + chunk_size])
+    return out

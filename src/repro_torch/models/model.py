@@ -4,6 +4,7 @@
 Public API, as the reference's:
   init_params(cfg, generator, device)     -> DecoderLM
   forward(cfg, params, batch, flash=True) -> (logits, aux_loss)
+  loss_fn(cfg, params, batch)             -> (loss, {"ce", "aux"})
   init_cache(cfg, batch, total_len, ...)  -> decode cache
   decode_step(cfg, params, cache, tokens) -> (logits, cache)
   params_from_jax(tree, cfg, device)      -> DecoderLM with the reference's weights
@@ -103,20 +104,76 @@ def _trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, positions: torch
 # forward (prefill / single-shot)
 # ---------------------------------------------------------------------------
 
+def _hidden(cfg: ArchConfig, params: DecoderLM, tokens: torch.Tensor,
+            flash: bool) -> torch.Tensor:
+    """The trunk's output after the final norm, (B, S, d)."""
+    h = L.embed_fwd(params.embedding, tokens, _dtype(cfg))
+    B, S = h.shape[:2]
+    pos = torch.arange(S, device=h.device).expand(B, S)
+    h = _trunk(cfg, params, h, pos, flash=flash)
+    return L.norm_fwd(params.final_norm, h)
+
+
 def forward(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
             flash: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits, aux_loss); the dense FFN has
     no auxiliary loss, so aux is 0.  ``flash`` is the port of the
     reference's ``REPRO_FLASH_KERNEL`` (see ``layers.attention_fwd``)."""
-    dt = _dtype(cfg)
-    tokens = batch["tokens"]
-    h = L.embed_fwd(params.embedding, tokens, dt)
-    B, S = h.shape[:2]
-    pos = torch.arange(S, device=h.device).expand(B, S)
-    h = _trunk(cfg, params, h, pos, flash=flash)
-    h = L.norm_fwd(params.final_norm, h)
+    h = _hidden(cfg, params, batch["tokens"], flash)
     logits = L.unembed_fwd(params.embedding, h)
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _chunked_ce(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy without the whole (B, S, V) logits: the reference's
+    ``lax.map`` over sequence chunks of ``cfg.loss_chunk`` positions as a
+    loop.  As the reference, only the first ``(S // C) * C`` positions
+    count: with fewer than C positions the loss is 0 (and so is its
+    gradient)."""
+    C = cfg.loss_chunk
+    nC = h.shape[1] // C
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(nC):
+        sl = slice(c * C, (c + 1) * C)
+        logits = L.unembed_fwd(params.embedding, h[:, sl]).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, sl, None].long())[..., 0]
+        total = total + ((logz - gold) * mask[:, sl]).sum()
+        count = count + mask[:, sl].sum()
+    return total / torch.clamp(count, min=1.0)
+
+
+def loss_fn(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
+            flash: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy in float32 (log-sum-exp of float32 logits),
+    chunked over the sequence when ``cfg.loss_chunk`` is set.  ``flash``
+    defaults off, as the reference's ``REPRO_FLASH_KERNEL``; kernel 8 has
+    no backward in either package, so asking for it with gradients on
+    raises.  Returns (loss, {"ce", "aux"})."""
+    if flash and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "flash=True under autograd: kernel 8 (flash attention) has no backward yet "
+            "(ROADMAP queue 1, item 12); training runs flash=False, the reference's default")
+    tokens = batch["tokens"]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if cfg.loss_chunk:
+        h = _hidden(cfg, params, tokens, flash)
+        lab = tokens[:, 1:]
+        mask = torch.ones(lab.shape, dtype=torch.float32, device=tokens.device)
+        ce = _chunked_ce(cfg, params, h[:, :-1], lab, mask)
+        return ce + aux, {"ce": ce, "aux": aux}
+    logits, aux = forward(cfg, params, batch, flash=flash)
+    lg = logits[:, :-1].to(torch.float32)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    ce = (logz - gold).mean()
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Run plumbing: checkpoints and the serving steps."""
+"""Run plumbing: checkpoints, the serving steps and the trainer."""

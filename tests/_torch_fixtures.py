@@ -52,3 +52,17 @@ def jax_batches(data, N, rnd, n_batches, batch_size):
                 jnp.arange(N))
         return jax.vmap(lambda k: data.batch(k, batch_size))(keys)
     return [tuple(np.array(x) for x in draw(rnd, b)) for b in range(n_batches)]
+
+
+def reference_sketch_hash(n, m, seed, chunk_idx, device):
+    """The reference's count-sketch buckets and signs (the ``jax.random``
+    draws of ``repro.distributed.robust_allreduce._count_sketch``), in the
+    form the port's ``robust_allreduce.sketch_hash`` returns them."""
+    import torch
+
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), chunk_idx)
+    kb, ks = jax.random.split(key)
+    buckets = np.asarray(jax.random.randint(kb, (n,), 0, m))
+    signs = np.asarray(jax.random.rademacher(ks, (n,), jnp.float32))
+    return (torch.as_tensor(buckets.astype(np.int64), device=device),
+            torch.as_tensor(signs.copy(), device=device))

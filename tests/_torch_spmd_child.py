@@ -127,8 +127,36 @@ def task_group_size(rank, S, cfg, topo):
     return msgs
 
 
+def task_flat(rank, S, cfg, rounds, malicious, attack):
+    """The flat layout on this rank's candidate: ``apply_distributed_attack``
+    then ``robust_allreduce`` over the group, the WFAgg-T state carried over
+    the rounds; rank 0 also runs the one-process emulation over all S rows.
+    Per round the attacked row, the output, the weights, masks and state."""
+    from repro_torch.distributed import robust_allreduce as ra
+
+    mal = torch.as_tensor(malicious)
+
+    def run(axis, rows):
+        state = ra.init_agg_state(cfg, S)
+        out = []
+        for x in rounds:
+            x = torch.as_tensor(x)
+            local = x if isinstance(axis, ra.Emulated) else x[rank]
+            g = ra.apply_distributed_attack(local, axis, mal, attack)
+            o, state, info = ra.robust_allreduce(g, axis, cfg, state)
+            out.append({"attacked": _np(g if rows else g[None]), "out": _np(o),
+                        "state": _state_np(state.temporal),
+                        **{k: _np(v) for k, v in info.items() if k != "record"}})
+        return out
+
+    res = {"rank": run(dist.group.WORLD, False)}
+    if rank == 0:
+        res["emulated"] = run(ra.Emulated(S), True)
+    return res
+
+
 TASKS = {"round": task_round, "scan": task_scan, "engine": task_engine,
-         "group_size": task_group_size}
+         "group_size": task_group_size, "flat": task_flat}
 
 
 # ---------------------------------------------------------------------------

@@ -346,14 +346,49 @@ def test_state_from_jax_carries_the_reference_state():
     assert ft.temporal.count.dtype == torch.int32
 
 
-def test_flat_layout_waits_for_the_trainer():
-    cfg = tra.RobustAggConfig(method="wfagg")
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        tra.robust_allreduce(torch.zeros(8), "data", cfg)
+def test_unknown_stacked_backend_raises():
+    cfg = tra.RobustAggConfig(method="wfagg", layout="stacked", backend="pallas")
     with pytest.raises(ValueError, match="unknown backend"):
-        tra.robust_allreduce_stacked(_t(_tree(0, 4)),
-                                     dataclasses.replace(cfg, layout="stacked",
-                                                         backend="pallas"))
+        tra.robust_allreduce_stacked(_t(_tree(0, 4)), cfg)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_candidates_on_one_matrix_are_read_without_a_copy(backend):
+    """Candidates whose leaves are views of one (K, P) matrix in ravel order
+    (the trainer's gradient buffer) are that matrix to the fused routes: no
+    concatenated copy, the same bits as the copy, the same aggregate as on
+    separate leaves; the new state's prev is the matrix again, and
+    ``init_tree_agg_state``'s zero prev is one such matrix."""
+    from repro_torch.core.flatten import unravel_rows, vmap_ravel
+
+    K = 6
+    g = _t(_tree(4, K))
+    like = {k: v[0] for k, v in g.items()}
+    mat, _ = vmap_ravel(g)
+    views = unravel_rows(mat, like)
+    one = tra._concat_candidates(views)
+    assert one.data_ptr() == mat.data_ptr() and one.shape == mat.shape
+    assert torch.equal(one, torch.cat([v.reshape(K, -1) for v in
+                                       (g["b"], g["w"])], dim=1))
+    assert tra._concat_candidates(g).data_ptr() != g["b"].data_ptr()    # separate: a copy
+    assert tra._concat_candidates(views, torch.bfloat16).data_ptr() != mat.data_ptr()
+    _, ct = _configs("wfagg", backend)
+    st = tra.init_tree_agg_state(ct, K, like)
+    assert tra._concat_candidates(st.prev).shape == (K, mat.shape[1])
+    assert tra._one_matrix(tra._leaves(st.prev)) is not None
+    o1, s1, i1 = tra.robust_allreduce_stacked(views, ct, st)
+    o2, _, i2 = tra.robust_allreduce_stacked(g, ct, tra.init_tree_agg_state(ct, K, like))
+    assert torch.equal(i1["weights"], i2["weights"])
+    for k in o1:
+        assert torch.equal(o1[k], o2[k])
+    assert tra._concat_candidates(s1.prev).data_ptr() == mat.data_ptr()
+    # an attack in place keeps the candidates on the matrix
+    mal = torch.zeros(K, dtype=torch.bool)
+    mal[1] = True
+    out = tra.apply_stacked_attack(views, mal, "ipm_100", in_place=True)
+    assert tra._concat_candidates(out).data_ptr() == mat.data_ptr()
+    want = tra.apply_stacked_attack(g, mal, "ipm_100")
+    assert torch.equal(tra._concat_candidates(want), mat)
 
 
 def test_cpu_tensors_launch_no_kernel():

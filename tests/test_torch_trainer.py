@@ -1,0 +1,299 @@
+"""Port parity of the robust-DP trainer: ``repro_torch.train.trainer.
+build_train_step``, started from ``state_from_jax`` of the reference's
+``init_train_state`` pieces, against the reference's step composed from
+its pieces that run on jax 0.9 (its jitted step does not:
+ROADMAP queue 3): per candidate ``value_and_grad(loss_fn)`` on its rows,
+``apply_stacked_attack`` + ``robust_allreduce_stacked`` (stacked) or the
+``vmap``ped flat attack + all-reduce (flat), ``opt.update`` and the
+parameter add.  Both packages step 3 times on the same numpy tokens:
+params within rtol 1e-4 / atol 1e-5 after each step, masks, ``n_accepted``
+and weights equal, loss within rtol 1e-5.  The reduced config's SGD
+keeps a zero gradient's noise from being amplified (AdamW turns a
+rounding-level gradient, e.g. the key bias's, into a full step).  Also
+mirrors of ``test_microbatched_gradients_match_full_batch``,
+``_tiny_train``'s two tests and ``test_launcher_cli_end_to_end``."""
+import dataclasses
+import functools
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from repro.configs.registry import get_config as jget_config
+from repro.core import wfagg as jwf
+from repro.core.topology import spaced_malicious
+from repro.data.synthetic import TokenStream as JTokenStream
+from repro.distributed import robust_allreduce as jra
+from repro.models import model as JM
+from repro.optim import optimizers as jopt
+from repro.train import trainer as jtr
+from repro_torch.configs.registry import get_config
+from repro_torch.core import flatten as F
+from repro_torch.core import wfagg as twf
+from repro_torch.data.synthetic import TokenStream
+from repro_torch.distributed import robust_allreduce as tra
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.train import trainer as tr
+
+from _torch_fixtures import reference_sketch_hash
+
+STEPS = 3
+SMALL = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=128,
+             head_dim=32)
+
+
+def _cfgs():
+    return (dataclasses.replace(jget_config("qwen1.5-0.5b").reduced(), **SMALL),
+            dataclasses.replace(get_config("qwen1.5-0.5b").reduced(), **SMALL))
+
+
+def _tcs(K, **kw):
+    agg = kw.pop("agg", {})
+    wk = dict(f=2 if K == 8 else 1, transient=1, window=2)
+    common = dict(lr=1e-2, warmup=0, **kw)
+    return (jtr.TrainConfig(agg=jra.RobustAggConfig(wfagg=jwf.WFAggConfig(**wk), **agg),
+                            donate=False, **common),
+            tr.TrainConfig(agg=tra.RobustAggConfig(wfagg=twf.WFAggConfig(**wk), **agg),
+                           **common))
+
+
+def _reference_state(jcfg, jtc, K):
+    """The reference's ``init_train_state`` build, at K candidates."""
+    params = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    agg = None
+    if (jtc.mode == "robust_dp" and jtc.agg.method in ("wfagg", "alt_wfagg")
+            and jtc.agg.wfagg.use_temporal):
+        agg = (jra.init_tree_agg_state(jtc.agg, K, params) if jtc.agg.layout == "stacked"
+               else jra.init_agg_state(jtc.agg, K))
+    opt = jopt.make_optimizer(jcfg.optimizer)
+    return jtr.TrainState(params, opt.init(params), agg, jnp.zeros((), jnp.int32))
+
+
+class ReferenceStep:
+    """The reference's robust_dp / gspmd step from its pieces."""
+
+    def __init__(self, jcfg, jtc, K):
+        self.cfg, self.tc, self.K = jcfg, jtc, K
+        self.opt = jopt.make_optimizer(jcfg.optimizer)
+        self.lr_fn = jopt.warmup_cosine(jtc.lr, jtc.warmup, jtc.total_steps)
+        self.mal = jnp.asarray(spaced_malicious(K, jtc.n_malicious))
+        self.vg = jax.jit(jax.value_and_grad(
+            lambda p, t: JM.loss_fn(jcfg, p, {"tokens": t}), has_aux=True))
+
+    def rows(self, tokens, k):
+        b = tokens.shape[0] // self.K
+        x = tokens[k * b:(k + 1) * b]
+        if self.tc.attack == "label_flip" and bool(self.mal[k]):
+            x = (self.cfg.vocab_size - 1) - x
+        return x
+
+    def __call__(self, state, tokens):
+        tc, K = self.tc, self.K
+        attacking = tc.attack not in ("none", "label_flip") and tc.n_malicious > 0
+        key = jax.random.fold_in(jax.random.PRNGKey(tc.agg.seed + 1), state.step)
+        if tc.mode == "gspmd":
+            (loss, _), grads = self.vg(state.params, tokens)
+            info = {"n_accepted": K, "weights": np.ones(K, np.float32)}
+        else:
+            outs = [self.vg(state.params, self.rows(tokens, k)) for k in range(K)]
+            loss = jnp.mean(jnp.stack([o[0][0] for o in outs]))
+            if tc.agg.layout == "stacked":
+                stacked = jax.tree.map(lambda *g: jnp.stack(g), *[o[1] for o in outs])
+                if attacking:
+                    stacked = jra.apply_stacked_attack(stacked, self.mal, tc.attack, key)
+                grads, agg, info = jra.robust_allreduce_stacked(stacked, tc.agg,
+                                                                state.agg_state)
+            else:
+                flats = jnp.stack([ravel_pytree(o[1])[0] for o in outs])
+                unravel = ravel_pytree(outs[0][1])[1]
+                if attacking:
+                    flats = jax.vmap(lambda f: jra.apply_distributed_attack(
+                        f, "data", self.mal, tc.attack, key), axis_name="data")(flats)
+                out, agg, info = jax.vmap(
+                    lambda f, s: jra.robust_allreduce(f, "data", tc.agg, s),
+                    in_axes=(0, None), axis_name="data")(flats, state.agg_state)
+                grads = unravel(out[0])
+                agg = None if agg is None else jax.tree.map(lambda a: a[0], agg)
+                info = jax.tree.map(lambda a: a[0], info)
+            state = state._replace(agg_state=agg if tc.mode == "robust_dp" else None)
+        updates, new_opt = self.opt.update(grads, state.opt_state, state.params,
+                                           self.lr_fn(state.step))
+        params = jax.tree.map(lambda p, u: p + u, state.params, updates)
+        return jtr.TrainState(params, new_opt, state.agg_state, state.step + 1), \
+            {"loss": loss, **info}
+
+
+def _hold_trajectory(jcfg, cfg, jtc, tc, K, seq=32):
+    ref = ReferenceStep(jcfg, jtc, K)
+    sj = _reference_state(jcfg, jtc, K)
+    st = tr.state_from_jax(jax.tree.map(np.asarray, sj), cfg, device="cpu")
+    seen = {}
+    step = tr.build_train_step(cfg, tc, make_test_mesh(data=K),
+                               observe=lambda phase, **v: seen.update({phase: v}))
+    stream = JTokenStream(vocab_size=jcfg.vocab_size, seq_len=seq, batch_size=8)
+    for i in range(STEPS):
+        tokens = np.asarray(stream.batch(i)["tokens"])
+        st, mt = step(st, {"tokens": torch.as_tensor(tokens).long()})
+        sj, mj = ref(sj, jnp.asarray(tokens))
+        label = f"step {i}"
+        np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]), rtol=1e-5,
+                                   err_msg=label)
+        assert np.array_equal(mt["weights"].numpy(), np.asarray(mj["weights"])), label
+        assert int(mt["n_accepted"]) == int(mj["n_accepted"]), label
+        info = seen["allreduce"]["info"] if "allreduce" in seen else {}
+        for m in ("mask_d", "mask_c", "mask_t"):
+            assert (m in info) == (m in mj), (label, m)
+            if m in mj:
+                assert np.array_equal(info[m].numpy(), np.asarray(mj[m])), (label, m)
+        for (path, w), g in zip(jax.tree_util.tree_flatten_with_path(sj.params)[0],
+                                F.tree_leaves(F.module_tree(st.params))):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{label} {jax.tree_util.keystr(path)}")
+        assert int(st.step) == int(sj.step) == i + 1
+    return st, mt
+
+
+@pytest.mark.parametrize("attack,backend", [("ipm_100", "fused"), ("sign_flip", "reference"),
+                                            ("label_flip", "fused_two_launch")])
+def test_stacked_robust_dp_matches_reference(attack, backend):
+    jcfg, cfg = _cfgs()
+    jtc, tc = _tcs(8, attack=attack, n_malicious=2,
+                   agg=dict(method="wfagg", layout="stacked", backend="reference"))
+    tc = dataclasses.replace(tc, agg=dataclasses.replace(tc.agg, backend=backend))
+    st, m = _hold_trajectory(jcfg, cfg, jtc, tc, 8)
+    if attack == "ipm_100":        # both attackers rejected
+        assert float(m["weights"][2]) == float(m["weights"][6]) == 0.0
+    # the WFAgg-T state's prev is the last step's gradient matrix
+    assert tra._one_matrix(tra._leaves(st.agg_state.prev)) is not None
+
+
+def test_flat_robust_dp_matches_reference(monkeypatch):
+    monkeypatch.setattr(tra, "sketch_hash", functools.lru_cache(maxsize=None)(
+        reference_sketch_hash))
+    jcfg, cfg = _cfgs()
+    jtc, tc = _tcs(4, attack="ipm_100", n_malicious=1,
+                   agg=dict(method="wfagg", layout="flat", chunk_size=4096, sketch_dim=256))
+    st, m = _hold_trajectory(jcfg, cfg, jtc, tc, 4)
+    assert isinstance(st.agg_state, tra.AggState) and int(st.agg_state.temporal.count) > 0
+
+
+def test_gspmd_mean_matches_reference():
+    jcfg, cfg = _cfgs()
+    jtc, tc = _tcs(4, mode="gspmd", agg=dict(method="mean"))
+    st, _ = _hold_trajectory(jcfg, cfg, jtc, tc, 4)
+    assert st.agg_state is None
+
+
+def test_state_from_jax_carries_every_piece():
+    jcfg, cfg = _cfgs()
+    jtc, tc = _tcs(8, agg=dict(method="wfagg", layout="stacked"))
+    sj = jax.tree.map(np.asarray, _reference_state(
+        dataclasses.replace(jcfg, optimizer="adamw"), jtc, 8))
+    st = tr.state_from_jax(sj, dataclasses.replace(cfg, optimizer="adamw"), device="cpu")
+    assert F.tree_ravel(st.params)[0].numpy().tobytes() == \
+        np.asarray(ravel_pytree(sj.params)[0]).tobytes()
+    assert F.flat_buffer(st.params) is not None
+    assert st.opt_state["t"].dtype == torch.int32 and st.opt_state["t"].device.type == "cpu"
+    assert st.opt_state["m"]["layers"]["attn"]["wq"].shape == (2, 64, 64)
+    assert tra._one_matrix(tra._leaves(st.agg_state.prev)) is not None
+    assert st.agg_state.hist_s.shape == (2, 8) and int(st.step) == 0
+
+
+def test_microbatched_gradients_match_full_batch():
+    """tests/test_infra.py::test_microbatched_gradients_match_full_batch."""
+    _, cfg = _cfgs()
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=32, batch_size=8)
+    batch = stream.batch(0)
+    outs = {}
+    for m in (1, 4):
+        tc = tr.TrainConfig(agg=tra.RobustAggConfig(method="mean", layout="stacked"),
+                            microbatches=m, lr=1e-2, warmup=0)
+        mesh = make_test_mesh(data=2)
+        state = tr.init_train_state(cfg, tc, torch.Generator().manual_seed(0), mesh,
+                                    device="cpu")
+        new_state, metrics = tr.build_train_step(cfg, tc, mesh)(state, batch)
+        outs[m] = (metrics["loss"], F.tree_ravel(new_state.params)[0])
+    assert float(outs[1][0]) == pytest.approx(float(outs[4][0]), rel=1e-5)
+    torch.testing.assert_close(outs[1][1], outs[4][1], rtol=1e-4, atol=1e-6)
+
+
+def _tiny_train(attack, method, n_malicious, steps, K=4):
+    """tests/test_system.py::_tiny_train on K = 4 emulated candidates, at lr
+    1e-2 from the first step: at the reference's 1e-3 behind the default
+    100-step warmup this model's loss moves less in six steps than it
+    differs between batches (seen here: up and down by 0.01)."""
+    _, cfg = _cfgs()
+    mesh = make_test_mesh(data=K)
+    tc = tr.TrainConfig(
+        agg=tra.RobustAggConfig(method=method,
+                                wfagg=twf.WFAggConfig(f=1, transient=1, window=2),
+                                chunk_size=4096, sketch_dim=256),
+        attack=attack, n_malicious=n_malicious, lr=1e-2, warmup=0)
+    state = tr.init_train_state(cfg, tc, torch.Generator().manual_seed(0), mesh,
+                                device="cpu")
+    step = tr.build_train_step(cfg, tc, mesh)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=64, batch_size=8)
+    losses = []
+    for i in range(steps):
+        state, m = step(state, stream.batch(i))
+        losses.append(float(m["loss"]))
+    return losses, state
+
+
+def test_robust_dp_trainer_loss_decreases():
+    losses, _ = _tiny_train("none", "wfagg", 0, steps=6)
+    assert all(np.isfinite(losses))
+    assert losses[-1] < losses[0]
+
+
+def test_robust_dp_trainer_survives_ipm_attack():
+    losses, state = _tiny_train("ipm_100", "wfagg", 1, steps=4)
+    assert all(np.isfinite(losses))
+    assert int(state.step) == 4
+
+
+def test_launcher_cli_end_to_end(tmp_path, capsys):
+    """tests/test_infra.py::test_launcher_cli_end_to_end, on 4 candidates
+    under IPM-100 with the fused backend (its plain version here)."""
+    from repro_torch.launch import train as T
+    T.main([
+        "--arch", "qwen1.5-0.5b", "--reduced",
+        "--d-model", "64", "--n-layers", "2", "--vocab", "128",
+        "--steps", "3", "--seq-len", "32", "--global-batch", "4",
+        "--chunk-size", "4096", "--sketch-dim", "128",
+        "--log-every", "1", "--candidates", "4", "--agg-backend", "fused",
+        "--attack", "ipm_100", "--n-malicious", "1",
+        "--ckpt-dir", str(tmp_path), "--ckpt-every", "3",
+    ], device="cpu")
+    out = capsys.readouterr().out
+    assert "step     3" in out
+    assert "done: 3 steps" in out
+    assert os.path.exists(os.path.join(str(tmp_path), "step_3.npz"))
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    _, cfg = _cfgs()
+    tc = tr.TrainConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tr.init_train_state(cfg, tc, mesh=make_test_mesh(data=2))
+    from repro_torch.launch import train as T
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.main(["--reduced", "--steps", "1"])
+
+
+def test_multi_card_trainer_refused():
+    _, cfg = _cfgs()
+    mesh = make_test_mesh(data=2)
+    for tc in (tr.TrainConfig(fsdp_params=True), tr.TrainConfig(multi_pod=True)):
+        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+            tr.build_train_step(cfg, tc, mesh)
+    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+        make_test_mesh(data=2, model=2)
+    with pytest.raises(ValueError, match="mean"):
+        tr.build_train_step(cfg, tr.TrainConfig(mode="gspmd"), mesh)
