@@ -6,6 +6,7 @@ an NVIDIA H100.
     python3 chip_smoke.py --only distributed   # phase 1, then the distributed phase
     python3 chip_smoke.py --only cards         # phase 1, then its ranks on every card
     python3 chip_smoke.py --only train         # phase 1, then the trainer
+    python3 chip_smoke.py --only moe           # phase 1, then the MoE family
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
@@ -14,7 +15,8 @@ phase alone and prints that phase's launches, errors and times as one
 JSON line instead of the kernels line and the ok line; with ``--only
 cards`` it runs that phase's round, scan and engine parts on one ``nccl``
 rank per visible card (2 or more), the deployment sharding is for; with
-``--only train`` the training part alone, as one JSON line.
+``--only train`` the training part alone, as one JSON line; with ``--only
+moe`` the MoE part alone, as one JSON line.
 Phases, each of which fails the run:
 
   1. the card's name and power limit; build the seven kernel libraries of
@@ -277,7 +279,36 @@ Phases, each of which fails the run:
        weights within 1e-6, out within 2e-4, masks equal); the launcher
        (``launch.train.main``, 2 steps at full width, a checkpoint, 2
        launches of kernel 1).  ``--only train`` runs phase 1 and this part
-       alone.
+       alone;
+     - the MoE family, on the port's seed-0 init, each model freed before
+       the next, every run's peak memory printed: kernel 8 at the MoE
+       prefills' shapes (hd 128 at B=2, H=16, S=8192 through
+       ``compare_flash``; 64 heads of which 8 all-zero, as
+       ``pad_heads_to`` makes them, their o exactly 0; both timed beside
+       SDPA); DeepSeek-V2-Lite uncut (MLA + MoE), prefill 1 x 4096 (MLA
+       never takes kernel 8: 0 launches), Moonlight cut to 16 layers,
+       prefill 2 x 8192 with exactly 16 kernel-8 launches a call on the
+       tensor-core kernel, held against ``flash=False``, and Arctic cut to
+       2 layers (bf16 parameters, 56 heads padded to 64), prefill 1 x 8192
+       with 2 launches a call, held against ``flash=False``; each model's
+       decode at batch 2 against a cache of 32,768 positions (96 steps,
+       Arctic 8), held against one prefill of the same tokens at a
+       capacity that drops no pick, then 16 greedy steps timed.  bf16
+       routing is discontinuous and the deep models amplify bf16
+       rounding, so each hold has a truth route (``MOE_TRUTH``: f32
+       activations where the parameters are f32) whose routing the other
+       routes replay (``RouteRecorder``: their own probabilities as
+       gates); the f32 decode is held to it by ``check_logits``, and each
+       bf16 route under test may add at most that rule's error to the
+       bf16 route it stands for (``hold_against_truth``; Arctic's bf16
+       routes are held to each other); every route's own routing is held
+       by ``routing_diff``: every pick that differs is a near-tie of the
+       routes' probabilities.  Then DeepSeek-V2-Lite cut to 2 layers (1
+       dense prefix + 1 MoE, P = 1,026,698,240) on the stacked robust-DP
+       trainer, K=6 at S=1025, 2 under IPM-100, 5 steps each of WFAgg and
+       Alt-WFAgg on ``fused`` (held as above) and the mean, with the
+       training part's checks and candidate 0's ce and aux per step.
+       ``--only moe`` runs phase 1 and this part alone.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -4155,6 +4186,25 @@ def flat_of(torch, tree):
     return torch.cat([leaf.reshape(-1) for leaf in _leaves(tree)])
 
 
+def close_leafwise(torch, a, b, rtol, atol) -> float:
+    """``torch.testing.assert_close`` of two outputs, each one flat vector
+    or a tree of leaves in ravel order, leaf by leaf (no flat copy of a
+    tree that a flat vector does not force); returns the largest absolute
+    difference."""
+    from repro_torch.distributed.robust_allreduce import _leaves
+
+    if isinstance(a, torch.Tensor) != isinstance(b, torch.Tensor):
+        a, b = (x if isinstance(x, torch.Tensor) else flat_of(torch, x) for x in (a, b))
+    la, lb = ([x] if isinstance(x, torch.Tensor) else _leaves(x) for x in (a, b))
+    if len(la) != len(lb):
+        raise AssertionError(f"{len(la)} leaves against {len(lb)}")
+    err = 0.0
+    for x, y in zip(la, lb):
+        torch.testing.assert_close(x, y, rtol=rtol, atol=atol)
+        err = max(err, float((x - y).abs().max()))
+    return err
+
+
 def stacked_margins(torch, cfg, cands, state, flips):
     """(candidate, filter, margin) of each differing (k, bit) decision of the
     stacked round, on the reference route's own statistics: the distance
@@ -4168,7 +4218,7 @@ def stacked_margins(torch, cfg, cands, state, flips):
     from repro_torch.core.wfagg import alt_wfagg_config
     from repro_torch.distributed import robust_allreduce as ra
 
-    K = STACK_K
+    K = ra._leaves(cands)[0].shape[0]
     cs = ra._stacked_stats(cands, cfg)
     if cfg.method == "multi_krum":
         wcfg = alt_wfagg_config(f=cfg.wfagg.f, multi_krum_m=cfg.multi_krum_m or K // 4)
@@ -4200,12 +4250,13 @@ def stacked_margins(torch, cfg, cands, state, flips):
 
 def combine_of(torch, cands, w):
     """The stacked all-reduce's combine of ``cands`` under weights ``w``, as
-    one flat vector: the trust-normalized sum, the uniform mean if every
-    weight is 0 (the reference's ``tensordot``)."""
+    a tree like one candidate: the trust-normalized sum, the uniform mean
+    if every weight is 0 (the reference's ``tensordot``)."""
+    from repro_torch.distributed.robust_allreduce import _map
+
     K = w.shape[0]
     wn = w / w.sum() if float(w.sum()) > 0 else torch.full((K,), 1.0 / K, device=w.device)
-    return flat_of(torch, {k: torch.tensordot(wn, v, dims=([0], [0]))
-                           for k, v in cands.items()})
+    return _map(lambda v: torch.tensordot(wn, v, dims=([0], [0])), cands)
 
 
 def hold_stacked_route(torch, label, cfg, cands, state, route, ref) -> tuple:
@@ -4216,8 +4267,9 @@ def hold_stacked_route(torch, label, cfg, cands, state, route, ref) -> tuple:
     output then the combine of its own weights); the other candidates'
     weights within ``STACK_W_TOL``; without a near-tie the outputs within
     rtol ``STACK_RTOL`` / atol ``STACK_ATOL``.  ``cfg`` is the reference
-    route's.  Returns (the near-ties' (candidate, filter, margin) list,
-    the largest output difference or None at a near-tie)."""
+    route's; the outputs are flat vectors or trees (``close_leafwise``).
+    Returns (the near-ties' (candidate, filter, margin) list, the largest
+    output difference or None at a near-tie)."""
     o2, w2, m2 = route
     o, w, masks = ref
     flips = [(k, bit) for bit, name in enumerate(("mask_d", "mask_c", "mask_t"))
@@ -4233,13 +4285,11 @@ def hold_stacked_route(torch, label, cfg, cands, state, route, ref) -> tuple:
             raise AssertionError(f"{label}: decisions differ away from any edge")
         keep[[k for k, _ in flips]] = False
         # the route's output is the combine of its own weights
-        torch.testing.assert_close(o2, combine_of(torch, cands, w2), rtol=STACK_RTOL,
-                                   atol=STACK_ATOL)
+        close_leafwise(torch, o2, combine_of(torch, cands, w2), STACK_RTOL, STACK_ATOL)
     torch.testing.assert_close(w2[keep], w[keep], rtol=0, atol=STACK_W_TOL)
     if flips:
         return rep, None
-    torch.testing.assert_close(o2, o, rtol=STACK_RTOL, atol=STACK_ATOL)
-    return rep, float((o2 - o).abs().max())
+    return rep, close_leafwise(torch, o2, o, STACK_RTOL, STACK_ATOL)
 
 
 def run_stacked_path(torch) -> tuple:
@@ -4642,7 +4692,7 @@ class TrainObserver:
             o, ns, info = ra.robust_allreduce_stacked(
                 cands, dataclasses.replace(self.tc.agg, backend=b), st)
             self.hist[b] = (ns.hist_s, ns.hist_b, ns.count, ns.t)
-            self.out[b] = (flat_of(self.torch, o), info["weights"],
+            self.out[b] = (o, info["weights"],
                            {k: info[k] for k in ("mask_d", "mask_c", "mask_t")})
             del o
 
@@ -4651,7 +4701,7 @@ class TrainObserver:
 
         step = len(self.steps)
         ref = self.out.pop("reference")
-        routes = dict(self.out, fused=(flat_of(self.torch, grads), info["weights"],
+        routes = dict(self.out, fused=(grads, info["weights"],
                                        {k: info[k] for k in ("mask_d", "mask_c", "mask_t")}))
         cfg = dataclasses.replace(self.tc.agg, backend="reference")
         for name, route in routes.items():
@@ -4665,19 +4715,22 @@ class TrainObserver:
         self.out, self.cands, self.state = {}, None, None
 
 
-def train_run(torch, cfg, tc, mesh, batches, hold) -> dict:
+def train_run(torch, cfg, tc, mesh, batches, hold, probe=None) -> dict:
     """``TRAIN_STEPS`` steps of ``build_train_step`` from the seed-0 state,
     the launches counted from 0 over them; returns the run's losses,
-    weights, ms per phase, tokens/s, peak memory and the hold's findings."""
+    weights, ms per phase, tokens/s, peak memory and the hold's findings
+    (and ``probe(state, batch)`` before each step, untimed, as ``probes``)."""
     from repro_torch.train import trainer as tr
 
     state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0),
                                 mesh)
     obs = TrainObserver(torch, tc, state.agg_state, hold)
     step = tr.build_train_step(cfg, tc, mesh, observe=obs)
-    losses, weights = [], []
+    losses, weights, probes = [], [], []
     zero_counts()
     for batch in batches:
+        if probe is not None:
+            probes.append(probe(state, batch))
         obs.start()
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
@@ -4690,7 +4743,8 @@ def train_run(torch, cfg, tc, mesh, batches, hold) -> dict:
     return dict(losses=losses, weights=weights, ms=ms,
                 tokens_per_s=[round(1e3 * tokens / sum(s.values()), 1) for s in obs.steps],
                 peak_gib=obs.peaks, launches={k: c for k, c in counts.items() if c},
-                counts=counts, near_ties=obs.near_ties, max_out_err=obs.max_err)
+                counts=counts, near_ties=obs.near_ties, max_out_err=obs.max_err,
+                **({"probes": probes} if probe is not None else {}))
 
 
 def train_peak_memory(torch, cfg, mesh, batch) -> dict:
@@ -4954,12 +5008,606 @@ def run_train_path(torch) -> tuple:
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the MoE family (serving DeepSeek-V2-Lite, Moonlight and Arctic;
+# training an MoE through kernels 1, 4 and 6)
+# ---------------------------------------------------------------------------
+
+# (arch, depth kept or None for uncut, prefill (B, S), kernel-8 launches a
+# prefill, decode steps at batch MOE_DECODE_B (prompt, greedy), hold the
+# flash prefill against flash=False)
+MOE_SERVE = (
+    ("deepseek-v2-lite-16b", None, (1, 4096), 0, (64, 32), False),   # arXiv:2405.04434
+    ("moonshot-v1-16b-a3b", 16, (2, 8192), 16, (64, 32), True),      # 1 dense + 15 MoE
+    ("arctic-480b", 2, (1, 8192), 2, (8, 0), True),                  # 64 padded heads, bf16
+)
+MOE_DECODE_B = 2
+MOE_PREFILL_REPS = 2
+MOE_DECODE_TIMED = 16          # greedy steps timed after the held ones, no recorder
+MOE_TRAIN_ARCH = "deepseek-v2-lite-16b"
+MOE_TRAIN_LAYERS = 2           # 1 dense prefix + 1 MoE block, P = 1,026,698,240
+MOE_TRAIN_K = 6                # candidate workers, one batch row each
+
+
+# MOE_TRUTH: bf16 routing is discontinuous and a deep MoE on the reference's
+# init (expert fan-in 1/sqrt(E)) amplifies bf16 rounding: both bf16 routes of
+# DeepSeek-V2-Lite uncut sit ~13% (relative rms of the logits) from the f32
+# computation, each, and so ~12% from each other (PERF.md §6, an H100),
+# far past the dense rule's 2e-2 that holds two routes of Qwen1.5-0.5B.  So a
+# route under test is held against the f32 truth (the model in f32
+# activations, routing recorded and replayed into every other route) beside
+# the route it stands for: it may add at most the dense rule to that route's
+# own bf16 error (``hold_against_truth``), and the f32 routes of the same
+# function are held by the dense rule itself (``check_logits``).  Where the
+# parameters are bf16 (Arctic) there is no f32 truth that fits beside them,
+# and the bf16 routes are held to each other by the dense rule.
+
+
+def logit_gap(torch, label, got, want) -> tuple:
+    """Relative rms and largest difference of two logit sets, printed."""
+    d = got - want
+    rel = float(d.pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+    big = float(d.abs().max())
+    top = float((got.argmax(-1) != want.argmax(-1)).float().mean())
+    print(f"  {label}: relative rms {rel:.4g}, largest difference {big:.4g}, top-1 differs "
+          f"at {top:.3g} of the positions")
+    return rel, big
+
+
+def hold_against_truth(torch, label, got, ref_label, ref, truth) -> dict:
+    """``MOE_TRUTH``'s rule: a bf16 route ``got`` of a model whose bf16
+    error is large is held against the f32 truth beside a second bf16
+    route ``ref`` of the same model: its relative rms and largest
+    difference from the truth may exceed the second route's by at most
+    the dense rule's ``LOGIT_RMS`` and ``LOGIT_ATOL``."""
+    eg, mg = logit_gap(torch, f"{label} vs the truth", got, truth)
+    er, mr = logit_gap(torch, f"{ref_label} vs the truth", ref, truth)
+    if not (eg <= er + LOGIT_RMS and mg <= mr + LOGIT_ATOL):
+        raise AssertionError(f"{label}: relative rms {eg} / largest {mg} against the truth, "
+                             f"more than {LOGIT_RMS} / {LOGIT_ATOL} past {ref_label}'s "
+                             f"{er} / {mr}")
+    print(f"  {label}: within {LOGIT_RMS} / {LOGIT_ATOL} of {ref_label}'s own distance from "
+          f"the truth (relative rms {eg:.4g} vs {er:.4g}, largest {mg:.4g} vs {mr:.4g})")
+    return dict(rms=eg, largest=mg, ref_rms=er, ref_largest=mr)
+
+
+class RouteRecorder:
+    """While active, ``layers.moe_route`` (the router of every ``moe_fwd``
+    call) is wrapped to record each call's router probabilities (B, S, E)
+    and picks (B, S, k) in rank order.  With ``replay`` (one (B, S, k)
+    picks tensor per call, in call order) each call routes to the given
+    picks instead, its gates its own probabilities at them: the route then
+    follows another route's routing decisions, so what differs between the
+    two is continuous, while its own picks are recorded for
+    ``routing_diff``.  Calls come in layer order (a decode step calls
+    every MoE layer once)."""
+
+    def __init__(self, replay=None):
+        self.calls = []
+        self.replay = None if replay is None else list(replay)
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.L, self.orig = L, L.moe_route
+
+        def routed(cfg, p, x):
+            probs, top, idx = self.orig(cfg, p, x)
+            self.calls.append((probs, idx))
+            if self.replay is None:
+                return probs, top, idx
+            forced = self.replay.pop(0)
+            return probs, probs.gather(-1, forced), forced
+
+        L.moe_route = routed
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_route = self.orig
+        if exc[0] is None and self.replay:
+            raise AssertionError(f"{len(self.replay)} replayed routings left unused")
+
+    def per_layer(self, torch, n_moe):
+        """One (probs, picks) per MoE layer, the calls of that layer joined
+        along S (decode steps in order)."""
+        return [tuple(torch.cat([c[i] for c in self.calls[l::n_moe]], dim=1)
+                      for i in range(2)) for l in range(n_moe)]
+
+
+def routing_diff(torch, label, rec_a, rec_b, replayed=True) -> dict:
+    """Where two routes of one model route a token differently in some MoE
+    layer (route b's own picks, before a replay overrode them): each
+    difference must be a near-tie.  At the first rank j where the picks
+    differ, route a's gap between its j-th and (j+1)-th probabilities is at
+    most twice the largest difference of the two routes' probabilities at
+    that position, or no difference of the router's inputs that small
+    could reorder them.  Counts set flips (another expert in the top k)
+    and order swaps (the same k in another order).  ``replayed``: route b
+    followed route a's routing (else its inputs drift with its own)."""
+    flips = swaps = 0
+    worst = 0.0
+    shown = []
+    for layer, ((pa, ia), (pb, ib)) in enumerate(zip(rec_a, rec_b)):
+        swap = (ia != ib).any(-1)
+        if not bool(swap.any()):
+            continue
+        flip = (ia.sort(dim=-1).values != ib.sort(dim=-1).values).any(-1)
+        j = (ia != ib).int().argmax(-1)                                    # first rank
+        top = pa.sort(dim=-1, descending=True).values
+        gap = (top.gather(-1, j[..., None]) - top.gather(-1, j[..., None] + 1))[..., 0]
+        eps = (pa - pb).abs().amax(-1)
+        ratio = gap / (2 * eps).clamp_min(1e-30)
+        if bool((ratio[swap] > 1).any()):
+            raise AssertionError(f"{label}: layer {layer}: a routing difference whose gap "
+                                 "exceeds twice the routes' probability difference")
+        worst = max(worst, float(ratio[swap].max()))
+        for b, s_ in flip.nonzero().tolist()[:max(0, 3 - len(shown))]:
+            shown.append(f"layer {layer} row {b} pos {s_}: rank {int(j[b, s_])}, gap "
+                         f"{float(gap[b, s_]):.3g}, probability difference "
+                         f"{float(eps[b, s_]):.3g}")
+        flips += int(flip.sum())
+        swaps += int((swap & ~flip).sum())
+    n = rec_a[0][1].shape[0] * rec_a[0][1].shape[1] * len(rec_a)
+    how = "replays route a's" if replayed else "follows its own"
+    print(f"  {label}: the routes' own routing differs at {flips} of {n} (token, layer) "
+          f"picks by set and {swaps} by order only, each a near-tie (gap / (2 x probability "
+          f"difference) at most {worst:.3g}){'; e.g. ' + '; '.join(shown) if shown else ''}; "
+          f"route b {how} routing")
+    return dict(token_layers=n, set_flips=flips, order_swaps=swaps, worst_gap_ratio=worst)
+
+
+def moe_model(torch, name, n_layers):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(name)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    info = dict(params=n, param_gib=round(nbytes / 2 ** 30, 2), init_s=round(secs, 2),
+                init_peak_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+    print(f"  {name}{f' cut to {n_layers} layers' if n_layers else ' uncut'}: "
+          f"{cfg.n_layers} layers ({M._n_prefix(cfg)} dense prefix), d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim_}"
+          f"{f' padded to {cfg.pad_heads_to}' if cfg.pad_heads_to else ''}"
+          f"{f', MLA r={cfg.kv_lora_rank}' if cfg.use_mla else ''}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k} of ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n} {cfg.param_dtype} "
+          f"parameters ({info['param_gib']} GiB), initialised in {secs:.2f} s (peak "
+          f"{info['init_peak_gib']} GiB)")
+    return cfg, params, info
+
+
+def moe_prefill_check(torch, cfg, params, prompts, flash_layers, hold):
+    """``build_prefill`` on the prompts: warm once, then ``MOE_PREFILL_REPS``
+    timed calls and one traced (``trace_prefill``), each with
+    ``flash_layers`` kernel-8 launches, all on the tensor-core kernel;
+    with ``hold``, the last ``PREFILL_TAIL`` positions
+    of each prompt held by ``MOE_TRUTH``'s rule: the truth is the
+    ``flash=False`` route (f32 activations where the parameters are f32),
+    whose routing the other routes replay (``RouteRecorder``); one more
+    flash call (kernel 8) is held against it, beside the bf16
+    ``flash=False`` route where the truth is f32; every route's own
+    routing is held by ``routing_diff``.  Returns the prefill's numbers and
+    launches."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.train.serve import build_prefill
+
+    B, S = prompts.shape
+    prefill = build_prefill(cfg)
+    zero_counts()
+    logits = prefill(params, {"tokens": prompts})
+    if logits.shape != (B, S, cfg.vocab_size) or logits.dtype != torch.bfloat16:
+        raise AssertionError(f"{cfg.name} prefill logits {tuple(logits.shape)} {logits.dtype}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    del logits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(MOE_PREFILL_REPS):
+        logits = None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    del logits
+    out = {"trace": trace_prefill(torch, cfg, lambda: prefill(params, {"tokens": prompts}))}
+    calls = 2 + MOE_PREFILL_REPS
+    if hold:
+        n_moe = cfg.n_layers - M._n_prefix(cfg)
+        f32 = cfg.param_dtype == "float32"
+        truth = "f32" if f32 else cfg.dtype
+
+        def tail(pcfg, flash, replay=None):
+            with RouteRecorder(replay) as rec:
+                lg = build_prefill(pcfg, flash=flash)(params, {"tokens": prompts})
+            t = lg[:, -PREFILL_TAIL:].float()
+            del lg
+            return t, rec.per_layer(torch, n_moe)
+
+        label = f"{cfg.name} prefill {B} x {S}, each prompt's last {PREFILL_TAIL} positions"
+        want_t, rec_t = tail(dataclasses.replace(cfg, dtype="float32") if f32 else cfg, False)
+        picks = [idx for _, idx in rec_t]
+        got, rec_g = tail(cfg, True, picks)
+        calls += 1
+        out["routing_flash"] = routing_diff(
+            torch, f"{label}: the {truth} flash=False route (a) vs the flash route (b)",
+            rec_t, rec_g)
+        if f32:
+            ref, rec_r = tail(cfg, False, picks)
+            out["routing_chunked"] = routing_diff(
+                torch, f"{label}: the f32 flash=False route (a) vs the {cfg.dtype} "
+                "flash=False route (b)", rec_t, rec_r)
+            out["flash_vs_chunked"] = logit_gap(
+                torch, f"{label}: {cfg.dtype} flash vs {cfg.dtype} flash=False, both "
+                "replaying the f32 route's routing", got, ref)
+            out["vs_truth"] = hold_against_truth(
+                torch, f"{label}: the {cfg.dtype} flash route (kernel 8)", got,
+                f"the {cfg.dtype} flash=False route", ref, want_t)
+        else:
+            check_logits(torch, f"{label}: flash vs flash=False (its routing replayed)", got,
+                         want_t)
+        del want_t, got
+
+    counts = read_counts()
+    want = only_counts(flash_attention=flash_layers * calls)
+    if counts != want:
+        raise AssertionError(f"{cfg.name} prefill launches {counts}, expected {want}")
+    tc = _module("flash_attention").launches_tc
+    if tc != flash_layers * calls:
+        raise AssertionError(f"{cfg.name}: {tc} of {flash_layers * calls} kernel-8 launches "
+                             "on the bf16 tensor-core kernel")
+    ms = 1e3 * statistics.median(times)
+    out.update(ms=round(ms, 3), ms_each=[round(1e3 * t, 3) for t in times],
+               tokens_per_s=round(B * S / ms * 1e3, 1),
+               peak_gib=round(peak / 2 ** 30, 2), launches=flash_layers * calls,
+               launches_a_call=flash_layers)
+    print(f"  {cfg.name} prefill {B} x {S}: {ms:.2f} ms (median of {MOE_PREFILL_REPS}; "
+          f"{out['ms_each']}), {out['tokens_per_s']:.0f} prompt tokens/s, peak memory "
+          f"{out['peak_gib']} GiB; kernel 8 launches {flash_layers * calls} in {calls} calls "
+          f"({flash_layers} a call, all on the tensor-core kernel)")
+    return out
+
+
+def trace_prefill(torch, cfg, call) -> dict:
+    """One prefill ``call()`` under a ``torch.profiler`` capture: its device
+    kernels summed by name, the top eight, and the device's busy share
+    (``trace_round``)."""
+    import tempfile
+
+    from repro_torch.obs import profile
+
+    span = f"{cfg.name} prefill"
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile.capture(tmp):
+            with profile.annotate(span):
+                call()
+                torch.cuda.synchronize()
+        return trace_round(torch, f"{tmp}/{profile.TRACE_FILE}", span, top=8)
+
+
+def moe_decode_check(torch, cfg, params, prompt_len, new_tokens, g):
+    """``build_decode_step`` at batch ``MOE_DECODE_B`` against a cache of
+    ``decode_32k``'s positions: a random prompt stepped, then greedy
+    tokens, under the recorder; the stepped logits held against one
+    prefill of the same tokens at a capacity that drops no pick (capacity
+    factor E / top_k: capacity S, as a decode step's capacity 1 drops
+    none) by ``MOE_TRUTH``'s rule: the prefill in f32 activations (where
+    the parameters are f32) is the truth whose routing the replayed routes
+    follow (``RouteRecorder``); the bf16 decode, replayed on a cache of
+    the sequence's length, is held beside the bf16 prefill, and the f32
+    decode by the dense rule; every route's own routing is held by
+    ``routing_diff``.  Then ``MOE_DECODE_TIMED`` greedy steps timed
+    without the recorder.  No kernel launches."""
+    import dataclasses
+
+    from repro_torch.configs.shapes import DECODE_32K
+    from repro_torch.models import model as M
+    from repro_torch.train.serve import build_decode_step, build_prefill
+
+    B = MOE_DECODE_B
+    n_moe = cfg.n_layers - M._n_prefix(cfg)
+    cache = M.init_cache(cfg, B, DECODE_32K.seq_len)
+    cache_gib = sum(t.numel() * t.element_size() for t in
+                    [*cache["layers"].values()]
+                    + [t for c in cache.get("prefix", []) for t in c.values()]) / 2 ** 30
+    prompt = torch.randint(0, cfg.vocab_size, (B, prompt_len), generator=g, device="cuda",
+                           dtype=torch.int32)
+    step = build_decode_step(cfg)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stepped, gen = [], []
+    with RouteRecorder() as rec:
+        for i in range(prompt_len):
+            lg, cache = step(params, cache, prompt[:, i:i + 1])
+            stepped.append(lg)
+        for _ in range(new_tokens):
+            gen.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+            lg, cache = step(params, cache, gen[-1])
+            stepped.append(lg)
+    steps_held = prompt_len + new_tokens
+    rec_steps = rec.per_layer(torch, n_moe)
+    torch.cuda.synchronize()
+    times = []
+    nxt = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    for _ in range(MOE_DECODE_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = step(params, cache, nxt)
+        nxt = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    if read_counts() != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"{cfg.name} decode launched {read_counts()}")
+    if cache["idx"] != steps_held + MOE_DECODE_TIMED:
+        raise AssertionError(f"{cfg.name}: cache idx {cache['idx']}")
+    del cache
+    ms = 1e3 * statistics.median(times)
+    seq = torch.cat([prompt] + gen, dim=1)
+    st = torch.cat(stepped, dim=1).float()
+    del stepped
+    if not bool(torch.isfinite(st).all()):
+        raise AssertionError(f"{cfg.name}: non-finite decode logits")
+
+    # the truth (MOE_TRUTH): one prefill of the same tokens at a capacity
+    # that drops no pick, in f32 activations where the parameters are f32
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    f32 = cfg.param_dtype == "float32"
+    truth = "f32" if f32 else cfg.dtype
+    with RouteRecorder() as rec:
+        tr_logits = build_prefill(dataclasses.replace(no_drop, dtype="float32") if f32
+                                  else no_drop)(params, {"tokens": seq}).float()
+    rec_truth = rec.per_layer(torch, n_moe)
+    picks = [idx for _, idx in rec_truth]
+
+    def replayed_steps(dcfg):
+        c = M.init_cache(dcfg, B, steps_held)
+        fn = build_decode_step(dcfg)
+        outs = []
+        with RouteRecorder([p[:, t:t + 1] for t in range(steps_held) for p in picks]) as r:
+            for t in range(steps_held):
+                lg_t, c = fn(params, c, seq[:, t:t + 1])
+                outs.append(lg_t)
+        return torch.cat(outs, dim=1).float(), r.per_layer(torch, n_moe)
+
+    label = f"{cfg.name} {steps_held} tokens"
+    out = dict(routing_main=routing_diff(
+        torch, f"{label}: the {truth} prefill (a) vs the main path's decode (b)", rec_truth,
+        rec_steps, replayed=False))
+    del rec_steps
+    logit_gap(torch, f"{label}: the main path's decode (own routing) vs the {truth} prefill",
+              st, tr_logits)
+    d16, rec_d = replayed_steps(cfg)
+    out["routing_replayed_decode"] = routing_diff(
+        torch, f"{label}: the {truth} prefill (a) vs a {cfg.dtype} decode (b)", rec_truth, rec_d)
+    if f32:
+        with RouteRecorder(picks) as rec:
+            p16 = build_prefill(no_drop)(params, {"tokens": seq}).float()
+        out["routing_prefill"] = routing_diff(
+            torch, f"{label}: the f32 prefill (a) vs the {cfg.dtype} prefill (b)", rec_truth,
+            rec.per_layer(torch, n_moe))
+        d32, _ = replayed_steps(dataclasses.replace(cfg, dtype="float32"))
+        check_logits(torch, f"{label}: f32 decode vs the f32 prefill, its routing replayed",
+                     d32, tr_logits)
+        out["decode_vs_prefill"] = logit_gap(
+            torch, f"{label}: {cfg.dtype} decode vs the {cfg.dtype} prefill, both replaying "
+            "the f32 prefill's routing", d16, p16)
+        out["vs_truth"] = hold_against_truth(
+            torch, f"{label}: the {cfg.dtype} decode (the absorbed cache)"
+            if cfg.use_mla else f"{label}: the {cfg.dtype} decode", d16,
+            f"the {cfg.dtype} prefill", p16, tr_logits)
+    else:
+        check_logits(torch, f"{label}: {cfg.dtype} decode vs the {cfg.dtype} prefill, its "
+                     "routing replayed", d16, tr_logits)
+    if read_counts() != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"{cfg.name}: the decode check launched {read_counts()}")
+    out.update(ms_a_step=round(ms, 3), steps_held=steps_held, batch=B,
+               cache_positions=DECODE_32K.seq_len, cache_gib=round(cache_gib, 3),
+               tokens_per_s=round(B / ms * 1e3, 1), peak_gib=round(peak / 2 ** 30, 2))
+    print(f"  {cfg.name} decode batch {B}, cache of {DECODE_32K.seq_len} positions "
+          f"({cache_gib:.3f} GiB): {ms:.3f} ms a step (median of {MOE_DECODE_TIMED} greedy "
+          f"steps after the {steps_held} held), {out['tokens_per_s']:.1f} tokens/s, peak "
+          f"{out['peak_gib']} GiB; kernel 8 launches 0")
+    return out
+
+
+def check_moe_flash_shapes(torch) -> tuple:
+    """Kernel 8 at the MoE prefills' shapes: Moonlight's (B=2, H=16,
+    S=8192, hd 128) through ``compare_flash``, and Arctic's 64 padded heads
+    (B=1, S=8192, hd 128; heads 56-63 all-zero q, k and v, as the padding
+    makes them) against the plain version, the zero heads' o exactly 0 in
+    both; then both timed by ``time_flash``.  Returns (errors, times)."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.flash_attn.ref import flash_attention_plain
+
+    errs = [compare_flash(torch, 2, 16, 8192, 8192, 128, True, "bfloat16", 128, seed=90)]
+    q, k, v = flash_inputs(torch, 64, 8192, 8192, 128, "bfloat16", seed=91)
+    for t in (q, k, v):
+        t[56:] = 0
+    args = (float(1.0 / 128 ** 0.5), True, 8192, 0)
+    got = fk.flash_attention_cuda(q, k, v, *args)[0]
+    want = flash_attention_plain(q, k, v, *args)[0]
+    err, rel = _hold("64 padded heads (56 live) S=8192 hd=128 bf16", "o", got, want,
+                     "bfloat16")
+    if not (bool((got[56:] == 0).all()) and bool((want[56:] == 0).all())):
+        raise AssertionError("flash_attention: a zero-padded head's o is not exactly 0")
+    print(f"  flash_attention 64 padded heads (56 live, the rest zero) S=8192 hd=128 causal "
+          f"bf16: max |o - plain| {err:.3g} (relative rms {rel:.3g}); the 8 padded heads' o "
+          "exactly 0 in both")
+    errs.append(err)
+    del q, k, v, got, want
+    return errs, {"moonlight B=2 H=16 S=8192 hd=128": time_flash(torch, 2, 16, 8192, 128, 92),
+                  "arctic B=1 H=64 (56 + 8 padded) S=8192 hd=128": time_flash(
+                      torch, 1, 64, 8192, 128, 93)}
+
+
+def run_moe_serve(torch) -> tuple:
+    """The three MoE models served, one after another, each freed before
+    the next.  Returns (launches, report)."""
+    from repro_torch.models import model as M
+
+    report, launches = {}, dict.fromkeys(KERNELS, 0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for name, n_layers, (B, S), flash_layers, (prompt, new), hold in MOE_SERVE:
+        cfg, params, info = moe_model(torch, name, n_layers)
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda",
+                                dtype=torch.int32)
+        r = dict(info, prefill=moe_prefill_check(torch, cfg, params, prompts, flash_layers,
+                                                 hold))
+        launches["flash_attention"] += r["prefill"]["launches"]
+        del prompts
+        r["decode"] = moe_decode_check(torch, cfg, params, prompt, new, g)
+        report[name] = r
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name} freed: the process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+              "GiB")
+    return launches, report
+
+
+def run_moe_train(torch) -> tuple:
+    """DeepSeek-V2-Lite at full width cut to ``MOE_TRAIN_LAYERS`` (its dense
+    prefix block and one MoE block) on the stacked robust-DP trainer:
+    ``MOE_TRAIN_K`` candidates of one row at ``TRAIN_SEQ``, 2 under
+    IPM-100, AdamW, ``TRAIN_STEPS`` steps each of WFAgg and Alt-WFAgg on
+    ``fused`` (each all-reduce held against ``fused_two_launch`` and
+    ``reference``) and of the mean; candidate 0's ce and aux printed per
+    step.  The training part's checks: exact launches, the attackers at weight 0,
+    WFAgg's last loss below its first and the mean's.  Runs with the
+    allocator's expandable segments: a step with the hold fills the card
+    to within a few GiB, and blocks of the (K, P) buffers' and the leaves'
+    sizes left 9.83 GiB reserved but no 4.69 GiB block free on an 80 GB
+    H100 (PERF.md §6).  Returns (launches, report)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.topology import spaced_malicious
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    mesh = make_test_mesh(data=MOE_TRAIN_K)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, MOE_TRAIN_K)
+    batches = [stream.batch(i, device="cuda") for i in range(TRAIN_STEPS)]
+    bad = spaced_malicious(MOE_TRAIN_K, TRAIN_MALICIOUS).nonzero()[0].tolist()
+    launches = dict.fromkeys(KERNELS, 0)
+    P = sum(p.numel() for p in M.DecoderLM(cfg, torch.Generator(), "meta").parameters())
+    print(f"  {MOE_TRAIN_ARCH} cut to {cfg.n_layers} layers (1 dense prefix + 1 MoE) at full "
+          f"width, P = {P}, K={MOE_TRAIN_K} candidates of one row at S={TRAIN_SEQ}, "
+          f"candidates {bad} under {TRAIN_ATTACK}, AdamW lr {TRAIN_LR}, {TRAIN_STEPS} steps")
+
+    def probe(state, batch):
+        with torch.no_grad():
+            _, parts = M.loss_fn(cfg, state.params, {"tokens": batch["tokens"][:1]})
+        return {k: round(float(v), 5) for k, v in parts.items()}
+
+    report = {"arch": MOE_TRAIN_ARCH, "layers": cfg.n_layers, "K": MOE_TRAIN_K, "P": P}
+    gc.collect()
+    torch.cuda.empty_cache()
+    expandable_segments(torch, True)
+    try:
+        for method in ("wfagg", "alt_wfagg", "mean"):
+            tc = train_config(method, attack=TRAIN_ATTACK, n_malicious=TRAIN_MALICIOUS)
+            gc.collect()
+            torch.cuda.empty_cache()
+            report[method] = moe_train_run(torch, cfg, tc, mesh, batches, bad, probe,
+                                           launches)
+    finally:
+        expandable_segments(torch, False)
+    w, mean = report["wfagg"]["losses"], report["mean"]["losses"]
+    if not (w[-1] < w[0] and w[-1] < mean[-1]):
+        raise AssertionError(f"moe train: WFAgg's step-{TRAIN_STEPS} loss {w[-1]} is not "
+                             f"below its first {w[0]} and the mean's {mean[-1]}")
+    print(f"  the paper's claim on an MoE: WFAgg's loss {w[0]:.4f} -> {w[-1]:.4f}, the "
+          f"mean's {mean[0]:.4f} -> {mean[-1]:.4f} under {TRAIN_ATTACK}")
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def moe_train_run(torch, cfg, tc, mesh, batches, bad, probe, launches) -> dict:
+    """One of ``run_moe_train``'s runs (the hold on WFAgg's methods),
+    checked as the training part's; adds its launches."""
+    method = tc.agg.method
+    hold = method != "mean"
+    r = train_run(torch, cfg, tc, mesh, batches, hold, probe=probe)
+    want = only_counts() if not hold else only_counts(
+        wfagg_round_indexed=TRAIN_STEPS, robust_stats=TRAIN_STEPS,
+        pairwise_gram=TRAIN_STEPS if method == "alt_wfagg" else 0)
+    if r["counts"] != want:
+        raise AssertionError(f"moe train {method}: launches {r['counts']}, expected {want}")
+    for k in KERNELS:
+        launches[k] += r["counts"][k]
+    if not all(map(math.isfinite, r["losses"])):
+        raise AssertionError(f"moe train {method}: non-finite loss {r['losses']}")
+    if hold and any(w[k] != 0.0 for w in r["weights"] for k in bad):
+        raise AssertionError(f"moe train {method}: an attacker got weight: {r['weights']}")
+    del r["counts"]
+    print(f"  stacked {method:9s}: loss per step {[round(x, 4) for x in r['losses']]}, "
+          f"weights {r['weights']}")
+    print(f"    candidate 0's ce / aux per step (before the step): "
+          f"{[(p['ce'], p['aux']) for p in r['probes']]}")
+    phases = [[s.get(p) for p in ("grads", "attack", "allreduce", "optimizer")]
+              for s in r["ms"]]
+    print(f"    ms per step (grads / attack / all-reduce / optimizer): {phases}; tokens/s "
+          f"{r['tokens_per_s']}; peak GiB per step {r['peak_gib']} (the hold's "
+          f"included); launches {r['launches']}")
+    if hold:
+        print(f"    fused and fused_two_launch held to reference at every step (weights "
+              f"within {STACK_W_TOL}, outputs within rtol {STACK_RTOL} / atol "
+              f"{STACK_ATOL}, max|diff| {r['max_out_err']:.3g}); near-ties "
+              f"{r['near_ties'] or 'none'}")
+    return r
+
+
+def expandable_segments(torch, on: bool) -> None:
+    """The caching allocator's expandable segments, from here on (the
+    runtime form of ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``)."""
+    setting = f"expandable_segments:{on}"
+    if hasattr(torch._C, "_accelerator_setAllocatorSettings"):
+        torch._C._accelerator_setAllocatorSettings(setting)
+    else:
+        torch.cuda.memory._set_allocator_settings(setting)
+
+
+def run_moe_path(torch) -> tuple:
+    """The MoE part: kernel 8 at the MoE prefills' shapes, the three models
+    served, an MoE trained.  Returns (launches, kernel-8 errors, kernel-8
+    times, report)."""
+    card = gpu_line()
+    print(f"  {card}")
+    errs, flash_times = check_moe_flash_shapes(torch)
+    launches, serve = run_moe_serve(torch)
+    train_launches, train = run_moe_train(torch)
+    for k in KERNELS:
+        launches[k] += train_launches[k]
+    return launches, errs, flash_times, {"card": card, "serve": serve, "train": train}
+
+
 def main(argv=()) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("distributed", "cards", "train"):
-        print("usage: chip_smoke.py [--only distributed|cards|train]", file=sys.stderr)
+    if argv and only not in ("distributed", "cards", "train", "moe"):
+        print("usage: chip_smoke.py [--only distributed|cards|train|moe]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4997,6 +5645,12 @@ def main(argv=()) -> int:
         print("[3] the trainer alone (--only train): no kernels or ok line")
         launches, report = run_train_path(torch)
         print(json.dumps({"train": {"launches": launches, "report": report}}))
+        return 0
+    if only == "moe":
+        print("[3] the MoE family alone (--only moe): no kernels or ok line")
+        launches, errs, flash_times, report = run_moe_path(torch)
+        print(json.dumps({"moe": {"launches": launches, "flash_max_abs_err": max(errs),
+                                  "flash_times": flash_times, "report": report}}))
         return 0
     if only == "cards":
         print(f"[3] the distributed parts on one nccl rank per card (--only cards): "
@@ -5250,6 +5904,13 @@ def main(argv=()) -> int:
           f"layout, K={TRAIN_K}), the flat layout on {FLAT_K} gloo ranks, the launcher")
     train_launches, _ = run_train_path(torch)
 
+    print("[3] the MoE family: kernel 8 at the MoE prefills' shapes; DeepSeek-V2-Lite uncut, "
+          "Moonlight (16 layers) and Arctic (2 layers) served; DeepSeek-V2-Lite (2 layers) "
+          f"trained on the stacked robust-DP trainer, K={MOE_TRAIN_K}")
+    moe_launches, moe_errs, moe_flash, _ = run_moe_path(torch)
+    errs["flash_attention"] += moe_errs
+    timed["flash_attention"]["moe_shapes"] = moe_flash
+
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
     # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
@@ -5259,12 +5920,15 @@ def main(argv=()) -> int:
     # WFAgg and Alt-WFAgg runs, and the gathered path (kernel 5; the
     # per-edge variants on the indexed calls fed its state), kernel 8 on the
     # full-width prefills, and the trainer's kernels 1, 4 and 6 (the stacked
-    # runs with their hold, the launcher)
+    # runs with their hold, the launcher); the MoE part's kernel 8 (the
+    # Moonlight and Arctic prefills, all on the tensor-core kernel) and its
+    # training's kernels 1, 4 and 6
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
                 + adaptive_launches[name] + table_launches[name]
                 + gathered_launches[name] + serve_launches[name] + dist_launches[name]
-                + train_launches[name] for name in KERNELS}
-    timed["flash_attention"]["launches_tc"] = serve_launches["flash_attention[tensor_core]"]
+                + train_launches[name] + moe_launches[name] for name in KERNELS}
+    timed["flash_attention"]["launches_tc"] = (serve_launches["flash_attention[tensor_core]"]
+                                               + moe_launches["flash_attention"])
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])

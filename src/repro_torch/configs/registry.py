@@ -2,24 +2,33 @@
 ``repro.configs.registry``).
 
 The port serves the dense decoder-only family (Qwen1.5-0.5B, StableLM-3B,
-Yi-6B) and carries the paper's LeNet-5 config.  The reference's other seven
-architectures need MoE, MLA, SSM, hybrid, encoder-decoder or VLM modules
-that the port does not have yet: asking for one raises ``KeyError``.
+Yi-6B), the MoE family (DeepSeek-V2-Lite with MLA attention, Moonlight,
+Arctic with its dense residual and padded heads) and carries the paper's
+LeNet-5 config.  The reference's other four architectures need SSM,
+hybrid, encoder-decoder or VLM modules that the port does not have yet:
+asking for one raises ``KeyError``.
 """
 from __future__ import annotations
 
-from repro_torch.configs import lenet_mnist, qwen1_5_0_5b, stablelm_3b, yi_6b
+from repro_torch.configs import (
+    arctic_480b,
+    deepseek_v2_lite_16b,
+    lenet_mnist,
+    moonshot_v1_16b_a3b,
+    qwen1_5_0_5b,
+    stablelm_3b,
+    yi_6b,
+)
 from repro_torch.configs.base import ArchConfig
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (stablelm_3b, yi_6b, qwen1_5_0_5b)}
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (moonshot_v1_16b_a3b, stablelm_3b, arctic_480b,
+                                           deepseek_v2_lite_16b, yi_6b, qwen1_5_0_5b)}
 
 PAPER_ARCH = lenet_mnist.CONFIG
 ALL_ARCHS = dict(ARCHS, **{PAPER_ARCH.name: PAPER_ARCH})
 
 # the reference's architectures whose families the port does not run yet
-NOT_PORTED = ("moonshot-v1-16b-a3b", "zamba2-1.2b", "arctic-480b",
-              "deepseek-v2-lite-16b", "seamless-m4t-medium", "falcon-mamba-7b",
-              "llava-next-34b")
+NOT_PORTED = ("zamba2-1.2b", "seamless-m4t-medium", "falcon-mamba-7b", "llava-next-34b")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,11 +1,13 @@
 """Tree <-> flat-vector utilities (port of ``repro.core.flatten``).
 
-A tree is a nesting of dicts whose leaves are tensors.  Its leaf order is
-``jax.tree.leaves``'s for a dict (keys sorted, depth first), so a raveled
-tree is ``ravel_pytree``'s vector.  A ``DecoderLM`` stands for the
-reference's parameter tree (``module_tree``): each stacked leaf
-``layers/<path>`` holds layer 0's tensor, then layer 1's, and so on, the
-order in which ``models.model.params_from_jax`` unstacks it.
+A tree is a nesting of dicts and lists whose leaves are tensors.  Its leaf
+order is ``jax.tree.leaves``'s (a dict's keys sorted, a list in index
+order, depth first), so a raveled tree is ``ravel_pytree``'s vector.  A
+``DecoderLM`` stands for the reference's parameter tree (``module_tree``):
+each stacked leaf ``layers/<path>`` holds layer 0's tensor, then layer
+1's, and so on, the order in which ``models.model.params_from_jax``
+unstacks it; an MoE model's ``prefix_layers`` is a list of block trees,
+after ``layers`` (sorted keys), ordered by their integer index.
 
 ``layout_flat`` puts a module's parameters into one (P,) buffer in that
 order, each parameter a view of it, so that raveling the model, its
@@ -28,9 +30,12 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 
 def tree_leaves(tree) -> List[Tensor]:
-    """The leaves in the reference's order (sorted keys, depth first)."""
+    """The leaves in the reference's order (sorted keys, lists in order,
+    depth first)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for node in tree for leaf in tree_leaves(node)]
     return [tree]
 
 
@@ -44,6 +49,8 @@ def _build(tree, it):
     # reference cycle holding the leaves until the garbage collector runs
     if isinstance(tree, dict):
         return {k: _build(tree[k], it) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_build(node, it) for node in tree]
     return next(it)
 
 
@@ -51,6 +58,8 @@ def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the matching leaves of ``rest``."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, node, *(r[i] for r in rest)) for i, node in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -66,15 +75,21 @@ def tree_bytes(tree) -> int:
 # a DecoderLM as the reference's tree
 # ---------------------------------------------------------------------------
 
-def _groups(model: nn.Module) -> List[Tuple[Tuple[str, ...], List[nn.Parameter]]]:
+Path = Tuple[object, ...]     # dict keys (str) and list indices (int)
+
+
+def _groups(model: nn.Module) -> List[Tuple[Path, List[nn.Parameter]]]:
     """(reference path, the module's parameters of that leaf) in ravel
     order; a ``layers.<i>.<path>`` parameter joins leaf ``layers/<path>``
-    at position i."""
-    groups: Dict[Tuple[str, ...], Dict[Optional[int], nn.Parameter]] = {}
+    at position i; a ``prefix_layers.<i>.<path>`` parameter is leaf
+    ``("prefix_layers", i, *path)`` of the list."""
+    groups: Dict[Path, Dict[Optional[int], nn.Parameter]] = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "layers" and parts[1].isdigit():
             groups.setdefault(("layers",) + tuple(parts[2:]), {})[int(parts[1])] = p
+        elif parts[0] == "prefix_layers":
+            groups[("prefix_layers", int(parts[1])) + tuple(parts[2:])] = {None: p}
         else:
             groups[tuple(parts)] = {None: p}
     out = []
@@ -86,7 +101,7 @@ def _groups(model: nn.Module) -> List[Tuple[Tuple[str, ...], List[nn.Parameter]]
     return out
 
 
-def _shape(path: Tuple[str, ...], params: List[nn.Parameter]) -> Tuple[int, ...]:
+def _shape(path: Path, params: List[nn.Parameter]) -> Tuple[int, ...]:
     shape = tuple(params[0].shape)
     return (len(params),) + shape if path[0] == "layers" else shape
 
@@ -139,28 +154,41 @@ def module_tree(model: nn.Module) -> dict:
     for path, ps in groups:
         leaf = torch.stack([p.detach() for p in ps]) if path[0] == "layers" else ps[0].detach()
         _put(tree, path, leaf)
-    return tree
+    return _listify(tree)
 
 
-def _put(tree: dict, path: Tuple[str, ...], leaf: Tensor) -> None:
+def _put(tree: dict, path: Path, leaf: Tensor) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
     tree[path[-1]] = leaf
 
 
-def _paths(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Tensor]]:
+def _listify(tree):
+    """A tree built by ``_put`` with its integer-keyed dicts made lists."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(isinstance(k, int) for k in tree):
+        if sorted(tree) != list(range(len(tree))):
+            raise ValueError(f"list indices {sorted(tree)} are not 0..n-1")
+        return [_listify(tree[i]) for i in range(len(tree))]
+    return {k: _listify(v) for k, v in tree.items()}
+
+
+def _paths(tree, prefix=()) -> List[Tuple[Path, Tensor]]:
     if isinstance(tree, dict):
         return [pl for k in sorted(tree) for pl in _paths(tree[k], prefix + (k,))]
+    if isinstance(tree, list):
+        return [pl for i, node in enumerate(tree) for pl in _paths(node, prefix + (i,))]
     return [(prefix, tree)]
 
 
-def _unravel(vec: Tensor, spec: List[Tuple[Tuple[str, ...], Tuple[int, ...]]]) -> dict:
+def _unravel(vec: Tensor, spec: List[Tuple[Path, Tuple[int, ...]]]) -> dict:
     """The tree of ``spec`` (path, shape) whose leaves are views of ``vec``."""
     sizes = [math.prod(shape) for _, shape in spec]
     tree: dict = {}
     for (path, shape), part in zip(spec, vec.split(sizes)):
         _put(tree, path, part.view(shape))
-    return tree
+    return _listify(tree)
 
 
 def _as_tree(tree):
@@ -222,4 +250,4 @@ def unravel_rows(mat: Tensor, like) -> dict:
         n = leaf.numel()
         _put(tree, path, mat[:, off:off + n].view((K,) + tuple(leaf.shape)))
         off += n
-    return tree
+    return _listify(tree)

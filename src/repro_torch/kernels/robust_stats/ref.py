@@ -234,13 +234,25 @@ def robust_stats_indexed_kernel_order(
     return RobustStats(None, None, fields[0], fields[1], fields[2], mednorm2, *tail, gram)
 
 
+SORT_CHUNK = 1 << 24      # elements a column block of ``sort_columns`` sorts at once
+
+
 def sort_columns(u: Tensor) -> Tensor:
     """Columns of ``u (..., K, D)`` sorted along the K axis, a column
     holding a NaN all NaN: what a sorting network whose compare-exchange
     propagates NaN (``jnp.minimum``/``jnp.maximum``, the Pallas kernel's)
-    returns, and what ``jnp.median`` computes on."""
-    srt = torch.sort(u, dim=-2).values
-    return torch.where(torch.isnan(u).any(-2, keepdim=True), torch.nan, srt)
+    returns, and what ``jnp.median`` computes on.  Sorted in blocks of
+    columns of about ``SORT_CHUNK`` elements, so that the sort's indices
+    (8 bytes an element) and the NaN mask never exist for the whole of a
+    large ``u`` (an LM's stacked (K, P) leaf)."""
+    step = max(1, SORT_CHUNK // max(1, u[..., 0].numel()))
+    if u.shape[-1] <= step:
+        srt = torch.sort(u, dim=-2).values
+        return torch.where(torch.isnan(u).any(-2, keepdim=True), torch.nan, srt)
+    out = torch.empty_like(u)
+    for c in range(0, u.shape[-1], step):
+        out[..., c:c + step] = sort_columns(u[..., c:c + step])
+    return out
 
 
 def median_and_trim(srt: Tensor, beta: float):

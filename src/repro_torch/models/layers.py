@@ -1,18 +1,19 @@
-"""Dense decoder layers: norms, RoPE, GQA attention with a ring-buffer KV
-cache, SwiGLU MLP, embeddings (port of the dense parts of
-``repro.models.layers``).
+"""Decoder layers: norms, RoPE, GQA attention with a ring-buffer KV cache
+and head padding, MLA attention with its latent cache, the SwiGLU MLP, the
+MoE FFN, embeddings (port of ``repro.models.layers``).
 
 Each parameter set is an ``nn.Module`` whose parameter names are the
 reference's dictionary keys, so a ``state_dict`` reads like the
 reference's parameter paths (``attn.wq``, ``ln1.scale``, ...).  Parameters
-stay in ``cfg.param_dtype`` (f32) and are cast to the activation dtype at
-each use, as the reference does (``p["wq"].astype(dt)``).  Weights are laid
-out as the reference's, ``(d_in, d_out)``, and applied as ``x @ w``.
+stay in ``cfg.param_dtype`` and are cast to the activation dtype at each
+use, as the reference does (``p["wq"].astype(dt)``).  Weights are laid
+out as the reference's, ``(d_in, d_out)``, and applied as ``x @ w``; the
+experts' weights are stacked on a leading expert axis.
 
 The reference's sharding annotations (``shard``) are no-ops outside a mesh
-and are dropped; the mode-B mesh is ROADMAP queue 1, item 12.  MLA, MoE
-and head padding (``pad_heads_to``) are not ported (ROADMAP queue 1, item
-12).
+and are dropped; the mode-B mesh is ROADMAP queue 1, item 12.  Cross-
+attention (``kv_source``) serves the encoder-decoder family, not ported
+(ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -40,24 +41,53 @@ def _param(shape, device, dtype=torch.float32) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
 
 
-def _dense_init_(p: torch.Tensor, generator: torch.Generator) -> None:
-    """The reference's ``_dense_init``: a unit normal truncated to [-2, 2],
-    times 1/sqrt(fan_in).  Drawn from ``generator``; the values are not
-    the reference's (its ``jax.random`` bits)."""
+def _pdtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def _parts(p: torch.Tensor):
+    """A leaf one expert slab at a time (a stacked (E, ...) leaf), else whole."""
+    return p.unbind(0) if p.dim() == 3 else (p,)
+
+
+def _draw_(p: torch.Tensor, draw) -> None:
+    """``draw(t)`` fills an f32 tensor in place; each part of ``p`` is drawn
+    in f32 and cast into it, as the reference draws in f32 and casts every
+    leaf to ``param_dtype``: a bf16 leaf never has a whole f32 twin."""
     with torch.no_grad():
-        nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        p.mul_(1.0 / math.sqrt(p.shape[0]))
+        for part in _parts(p):
+            if part.dtype == torch.float32:
+                draw(part)
+            else:
+                tmp = torch.empty(part.shape, dtype=torch.float32, device=part.device)
+                draw(tmp)
+                part.copy_(tmp)
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise for what the port's dense stack does not run."""
-    if cfg.use_mla:
-        raise NotImplementedError(f"MLA attention {NOT_PORTED}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"the MoE FFN {NOT_PORTED}")
-    if cfg.pad_heads_to and cfg.n_heads < cfg.pad_heads_to:
-        raise NotImplementedError(f"pad_heads_to {NOT_PORTED}")
-    if cfg.family != "dense" or cfg.is_encoder_decoder or cfg.modality != "text":
+def _dense_init_(p: torch.Tensor, generator: torch.Generator, scale=None) -> None:
+    """The reference's ``_dense_init``: a unit normal truncated to [-2, 2],
+    times ``scale`` (default 1/sqrt(shape[0]), the reference's fan-in: the
+    expert count for a stacked (E, d_in, d_out) leaf).  Drawn from
+    ``generator``; the values are not the reference's (its ``jax.random``
+    bits)."""
+    scale = 1.0 / math.sqrt(p.shape[0]) if scale is None else scale
+
+    def draw(t):
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        t.mul_(scale)
+
+    _draw_(p, draw)
+
+
+def check_family(cfg: ArchConfig) -> None:
+    """Raise for the families the port's decoder does not run."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(f"the {cfg.family!r} family ({cfg.name}) {NOT_PORTED}")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"the encoder-decoder family ({cfg.name}) {NOT_PORTED}")
+    if cfg.modality != "text":
+        raise NotImplementedError(f"{cfg.modality} inputs ({cfg.name}) {NOT_PORTED}")
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"the {cfg.family!r} family ({cfg.name}) {NOT_PORTED}")
 
 
@@ -72,10 +102,10 @@ class Norm(nn.Module):
         super().__init__()
         self.layernorm = cfg.norm == "layernorm"
         self.eps = float(cfg.norm_eps)
-        self.scale = _param((d,), device)
+        self.scale = _param((d,), device, _pdtype(cfg))
         nn.init.ones_(self.scale)
         if self.layernorm:
-            self.bias = _param((d,), device)
+            self.bias = _param((d,), device, _pdtype(cfg))
             nn.init.zeros_(self.bias)
 
 
@@ -125,21 +155,43 @@ class Attention(nn.Module):
         hd, H, Hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
         for name, shape in (("wq", (d, H * hd)), ("wk", (d, Hkv * hd)),
                             ("wv", (d, Hkv * hd)), ("wo", (H * hd, d))):
-            setattr(self, name, _param(shape, device))
+            setattr(self, name, _param(shape, device, _pdtype(cfg)))
             _dense_init_(getattr(self, name), generator)
         if cfg.qkv_bias:
             for name, n in (("bq", H * hd), ("bk", Hkv * hd), ("bv", Hkv * hd)):
-                setattr(self, name, _param((n,), device))
+                setattr(self, name, _param((n,), device, _pdtype(cfg)))
                 nn.init.zeros_(getattr(self, name))
+
+
+class MLAAttention(nn.Module):
+    """``init_attention`` with ``use_mla`` (DeepSeek-V2): ``wq (d,
+    H*(hd+rd))``, the latent's down projection ``w_dkv (d, r)``, the shared
+    rope key ``w_kr (d, rd)``, the up projections ``w_uk``/``w_uv (r,
+    H*hd)``, ``wo (H*hd, d)`` and the latent's norm ``kv_norm (r,)`` (ones)."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
+        super().__init__()
+        d, hd, H = cfg.d_model, cfg.head_dim_, cfg.n_heads
+        r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+        for name, shape in (("wq", (d, H * (hd + rd))), ("w_dkv", (d, r)), ("w_kr", (d, rd)),
+                            ("w_uk", (r, H * hd)), ("w_uv", (r, H * hd)), ("wo", (H * hd, d))):
+            setattr(self, name, _param(shape, device, _pdtype(cfg)))
+            _dense_init_(getattr(self, name), generator)
+        self.kv_norm = _param((r,), device, _pdtype(cfg))
+        nn.init.ones_(self.kv_norm)
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, capacity: int, dtype, device=None,
                   lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
     """Zero ``k``/``v`` of shape ``lead + (batch, Hkv, capacity, hd)``
-    (``lead = (L,)`` stacks the layers, as the reference's vmap does)."""
+    (``lead = (L,)`` stacks the layers, as the reference's vmap does); with
+    MLA the latent ``ckv`` ``lead + (batch, capacity, r)`` and the rope key
+    ``krope`` ``lead + (batch, capacity, rd)``."""
     hd, Hkv = cfg.head_dim_, cfg.n_kv_heads
     if cfg.use_mla:
-        raise NotImplementedError(f"the MLA cache {NOT_PORTED}")
+        lead = tuple(lead) + (batch, capacity)
+        return {"ckv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype, device=device),
+                "krope": torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dtype, device=device)}
     shape = tuple(lead) + (batch, Hkv, capacity, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -235,11 +287,8 @@ def attention_fwd(
 
     if cache is not None:
         cap = cache["k"].shape[2]
-        # the reference's dynamic_update_slice clamps the start so that the
-        # S rows fit; decode has S == 1
-        slot = min(cache_index % cap, cap - S)
-        cache["k"][:, :, slot:slot + S] = k.to(cache["k"].dtype)
-        cache["v"][:, :, slot:slot + S] = v.to(cache["v"].dtype)
+        _write_ring(cache["k"], k.to(cache["k"].dtype), cache_index, 2)
+        _write_ring(cache["v"], v.to(cache["v"].dtype), cache_index, 2)
         k, v = cache["k"].to(dt), cache["v"].to(dt)
         n_valid = min(cache_index + S, cap)
         # Before the ring buffer wraps, slot j holds absolute position j, so
@@ -266,8 +315,14 @@ def attention_fwd(
 
     k = _repeat_kv(k, H // Hkv)
     v = _repeat_kv(v, H // Hkv)
-    # 1 / sqrt(hd) in f32, as the reference's ``1.0 / jnp.sqrt(hd)``
-    scale = float(1.0 / torch.tensor(float(hd), dtype=torch.float32).sqrt())
+    Hp = cfg.pad_heads_to
+    if Hp and H < Hp:
+        # the reference pads the head axis after the GQA repeat to a count
+        # its model axis divides; the padded heads' q, k and v are zeros, so
+        # their outputs are zeros (uniform weights over zero values), sliced
+        # off before ``wo``
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, Hp - H)) for t in (q, k, v))
+    scale = _inv_sqrt(hd)
     # the chunked (or flash) route only when both dims are large: a decode
     # step's (B, H, 1, Sk) scores are small
     if k.shape[2] >= SDPA_CHUNK_THRESHOLD and q.shape[2] >= 128:
@@ -277,7 +332,88 @@ def attention_fwd(
             out = _sdpa_chunked(q, k, v, scale, mask_chunk_fn)
     else:
         out = _sdpa(q, k, v, mask_chunk_fn(0, k.shape[2]), scale)
-    out = out.transpose(1, 2).reshape(B, S, H * hd)
+    out = out[:, :H].transpose(1, 2).reshape(B, S, H * hd)
+    return out @ p.wo.to(dt), cache
+
+
+def _inv_sqrt(n: int) -> float:
+    """1 / sqrt(n) in f32, as the reference's ``1.0 / jnp.sqrt(n)``."""
+    return float(1.0 / torch.tensor(float(n), dtype=torch.float32).sqrt())
+
+
+def _write_ring(buf: torch.Tensor, x: torch.Tensor, cache_index: int, axis: int) -> None:
+    """Write the S rows of ``x`` into the ring buffer at ``cache_index`` mod
+    its capacity, in place; the start is clamped so that the rows fit, as
+    the reference's ``dynamic_update_slice`` does (decode has S == 1)."""
+    cap, S = buf.shape[axis], x.shape[axis]
+    slot = min(cache_index % cap, cap - S)
+    buf.narrow(axis, slot, S).copy_(x)
+
+
+def mla_attention_fwd(
+    cfg: ArchConfig,
+    p: MLAAttention,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_index: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Multi-head Latent Attention (DeepSeek-V2).
+
+    Prefill / train (cache=None): K and V materialised from the latent and
+    the dense ``_sdpa`` at every length, as the reference (never the
+    chunked route or the flash kernel).  Decode: only the latent ``ckv`` and
+    the rope key ``krope`` are cached (written in place at ``cache_index``)
+    and attention runs in the absorbed form, q projected into the latent
+    space.  Returns (out, cache)."""
+    B, S, d = x.shape
+    hd, H = cfg.head_dim_, cfg.n_heads
+    r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+    dt = x.dtype
+    scale = _inv_sqrt(hd + rd)
+
+    q = (x @ p.wq.to(dt)).reshape(B, S, H, hd + rd)
+    q_nope, q_rope = q[..., :hd], rope(q[..., hd:], positions, cfg.rope_theta)
+
+    ckv = x @ p.w_dkv.to(dt)                                        # (B, S, r)
+    # the latent's RMS norm: eps 1e-6 (not cfg.norm_eps), the mean in f32
+    ckv = ckv * torch.rsqrt(ckv.to(torch.float32).pow(2).mean(-1, keepdim=True)
+                            + 1e-6).to(dt)
+    ckv = ckv * p.kv_norm.to(dt)
+    krope = rope((x @ p.w_kr.to(dt)).reshape(B, S, 1, rd), positions,
+                 cfg.rope_theta).reshape(B, S, rd)
+
+    if cache is None:
+        k_nope = (ckv @ p.w_uk.to(dt)).reshape(B, S, H, hd)
+        v = (ckv @ p.w_uv.to(dt)).reshape(B, S, H, hd)
+        k = torch.cat([k_nope, krope[:, :, None, :].expand(B, S, H, rd)], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        mask = (positions[:, None, :] <= positions[:, :, None])[:, None, :, :]
+        out = _sdpa(qq.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask, scale)
+        out = out.transpose(1, 2).reshape(B, S, H * hd)
+        return out @ p.wo.to(dt), None
+
+    cckv, ckr = cache["ckv"], cache["krope"]
+    cap = cckv.shape[1]
+    _write_ring(cckv, ckv.to(cckv.dtype), cache_index, 1)
+    _write_ring(ckr, krope.to(ckr.dtype), cache_index, 1)
+    slots = torch.arange(cap, device=x.device)
+    valid = (slots < min(cache_index + S, cap))[None, :]
+    if cache_index + S <= cap:       # not wrapped: slot j holds position j
+        qpos = cache_index + torch.arange(S, device=x.device)
+        valid = valid & (slots[None, :] <= qpos[:, None])
+    valid = valid[None, None]                                       # (1, 1, S, cap)
+
+    w_uk = p.w_uk.to(dt).reshape(r, H, hd)
+    q_eff = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)            # (B, S, H, r)
+    scores = (torch.einsum("bshr,bcr->bhsc", q_eff, cckv.to(dt))
+              + torch.einsum("bshr,bcr->bhsc", q_rope, ckr.to(dt)))
+    scores = torch.where(valid, scores.to(torch.float32) * scale, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    ctx = torch.einsum("bhsc,bcr->bshr", w, cckv.to(dt))            # (B, S, H, r)
+    w_uv = p.w_uv.to(dt).reshape(r, H, hd)
+    out = torch.einsum("bshr,rhd->bshd", ctx, w_uv).reshape(B, S, H * hd)
     return out @ p.wo.to(dt), cache
 
 
@@ -286,13 +422,15 @@ def attention_fwd(
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """``init_mlp`` (SwiGLU): ``w_gate``/``w_up (d, ff)``, ``w_down (ff, d)``."""
+    """``init_mlp`` (SwiGLU): ``w_gate``/``w_up (d, ff)``, ``w_down (ff, d)``;
+    ``ff`` defaults to ``cfg.d_ff``."""
 
-    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None,
+                 ff: Optional[int] = None):
         super().__init__()
-        d, ff = cfg.d_model, cfg.d_ff
+        d, ff = cfg.d_model, ff or cfg.d_ff
         for name, shape in (("w_gate", (d, ff)), ("w_up", (d, ff)), ("w_down", (ff, d))):
-            setattr(self, name, _param(shape, device))
+            setattr(self, name, _param(shape, device, _pdtype(cfg)))
             _dense_init_(getattr(self, name), generator)
 
 
@@ -300,6 +438,107 @@ def mlp_fwd(p: MLP, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
     return h @ p.w_down.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MoE (the reference's scatter-based capacity dispatch, one group per batch row)
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """``init_moe``: ``router (d, E)`` (0.02 * truncated normal), the experts'
+    ``w_gate``/``w_up (E, d, ff)`` and ``w_down (E, ff, d)``, and the
+    optional ``shared`` MLP (``n_shared_experts * ff`` wide) and
+    ``dense_residual`` MLP (``dense_residual_ff or ff``)."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
+        super().__init__()
+        d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = _param((d, E), device, _pdtype(cfg))
+        _dense_init_(self.router, generator, scale=0.02)
+        for name, shape in (("w_gate", (E, d, ff)), ("w_up", (E, d, ff)),
+                            ("w_down", (E, ff, d))):
+            setattr(self, name, _param(shape, device, _pdtype(cfg)))
+            _dense_init_(getattr(self, name), generator)
+        if cfg.n_shared_experts:
+            self.shared = MLP(cfg, generator, device, ff=cfg.n_shared_experts * ff)
+        if cfg.moe_dense_residual:
+            self.dense_residual = MLP(cfg, generator, device, ff=cfg.dense_residual_ff or ff)
+
+
+def moe_route(cfg: ArchConfig, p: MoE, x: torch.Tensor):
+    """The router: softmax probabilities (B, S, E) in f32 and the top-k
+    picks (B, S, k) in descending order.  ``jax.lax.top_k`` breaks ties
+    towards the lower index; a stable descending sort keeps that order,
+    which ``torch.topk`` does not promise."""
+    logits = (x @ p.router.to(x.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return probs, top[..., :cfg.top_k], idx[..., :cfg.top_k]
+
+
+def moe_capacity(cfg: ArchConfig, S: int) -> int:
+    """Slots per expert and batch row: the reference's floor (its docstring
+    says ceil), at least 1, so a decode step (S = 1) has 1."""
+    return max(1, int(cfg.capacity_factor * cfg.top_k * S / cfg.n_experts))
+
+
+def moe_dispatch(idx: torch.Tensor, n_experts: int, capacity: int):
+    """Per batch row, the picks in the reference's slot order: every token's
+    first choice, then every token's second, and so on (``e_flat`` (B,
+    k*S)); ``pos`` each pick's slot, the count of earlier picks of its
+    expert in that order; ``within`` pos < capacity, the picks kept.
+    Returns (e_flat, pos with the dropped picks at slot ``capacity``,
+    within)."""
+    B, S, k = idx.shape
+    e_flat = idx.transpose(1, 2).reshape(B, k * S)
+    # the one-hot laid out (B, E, k*S), so that the count runs along the
+    # contiguous axis: a scan along the picks of a (B, k*S, E) one-hot took
+    # a third to a half of an MoE prefill on the card
+    onehot = torch.zeros((B, n_experts, k * S), dtype=torch.int32, device=idx.device)
+    onehot.scatter_(1, e_flat[:, None, :], 1)
+    seen = torch.cumsum(onehot, dim=-1, dtype=torch.int32).gather(1, e_flat[:, None, :])
+    pos = seen[:, 0].long() - 1
+    within = pos < capacity
+    return e_flat, torch.where(within, pos, capacity), within
+
+
+def moe_fwd(cfg: ArchConfig, p: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out, aux loss): top-k routing with per-row expert
+    capacity (a pick past its expert's capacity is dropped), the experts'
+    SwiGLU as one batched product per weight over the expert axis, the
+    gate-weighted combine, plus the shared and dense-residual MLPs.  The
+    dispatch buffer is laid out (E, B, capacity + 1, d), so each expert's
+    rows of every batch row meet its weights in one ``bmm`` (a (B, E, C,
+    d) @ (E, d, ff) broadcast would copy the weights B times); its last
+    slot takes the dropped picks, is zeroed before the products and so
+    gathers zeros, the reference's ``mode="drop"`` / ``mode="fill"``."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    dt = x.dtype
+
+    probs, gate, idx = moe_route(cfg, p, x)
+    gate = (gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)).to(dt)
+    # the load-balance loss (Switch / GShard form), in f32
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(idx[..., 0], E).to(torch.float32).mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce) * cfg.router_aux_coef
+
+    C = moe_capacity(cfg, S)
+    e_flat, pos, _ = moe_dispatch(idx, E, C)
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, k * S)
+    buf = x.new_zeros((E, B, C + 1, d))
+    buf.index_put_((e_flat, rows, pos), x.repeat(1, k, 1))
+    buf[:, :, C] = 0
+    buf = buf.view(E, B * (C + 1), d)
+    h = F.silu(torch.bmm(buf, p.w_gate.to(dt))) * torch.bmm(buf, p.w_up.to(dt))
+    yb = torch.bmm(h, p.w_down.to(dt)).view(E, B, C + 1, d)
+    y_rep = yb[e_flat, rows, pos].reshape(B, k, S, d)
+    out = (y_rep * gate.transpose(1, 2)[..., None]).sum(dim=1)
+    if cfg.n_shared_experts:
+        out = out + mlp_fwd(p.shared, x)
+    if cfg.moe_dense_residual:
+        out = out + mlp_fwd(p.dense_residual, x)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -313,11 +552,10 @@ class Embedding(nn.Module):
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
         super().__init__()
         self.tied = cfg.tie_embeddings
-        self.embed = _param((cfg.vocab_size, cfg.d_model), device)
-        with torch.no_grad():
-            self.embed.normal_(0.0, 1.0, generator=generator).mul_(0.02)
+        self.embed = _param((cfg.vocab_size, cfg.d_model), device, _pdtype(cfg))
+        _draw_(self.embed, lambda t: t.normal_(0.0, 1.0, generator=generator).mul_(0.02))
         if not self.tied:
-            self.unembed = _param((cfg.d_model, cfg.vocab_size), device)
+            self.unembed = _param((cfg.d_model, cfg.vocab_size), device, _pdtype(cfg))
             _dense_init_(self.unembed, generator)
 
 

@@ -1,5 +1,5 @@
-"""The dense decoder-only LM (port of the dense branch of
-``repro.models.model``).
+"""The decoder-only LM of the dense and MoE families (port of the
+decoder-only branch of ``repro.models.model``).
 
 Public API, as the reference's:
   init_params(cfg, generator, device)     -> DecoderLM
@@ -10,10 +10,17 @@ Public API, as the reference's:
   params_from_jax(tree, cfg, device)      -> DecoderLM with the reference's weights
 
 The reference scans stacked layers; here the layers are a ``ModuleList``
-and the scan a loop.  The decode cache keeps the reference's layout
-(``{"idx", "layers": {"k", "v"}}`` with the layers stacked on a leading
-axis) and ``decode_step`` writes it in place.  The other families (MoE,
-MLA, SSM, hybrid, encoder-decoder, VLM) raise (ROADMAP queue 1, item 12).
+and the scan a loop.  An MoE model (``cfg.n_experts``) has
+``first_dense_layers`` dense blocks first, the reference's unstacked
+``prefix_layers`` list, then MoE blocks; MLA (``cfg.use_mla``) replaces
+GQA attention in every block.  The decode cache keeps the reference's
+layout (``{"idx", "prefix": [...], "layers": {"k", "v"} or {"ckv",
+"krope"}}`` with the scanned layers stacked on a leading axis) and
+``decode_step`` writes it in place.  Parameters are created in
+``cfg.param_dtype`` (Arctic's bf16: each leaf, or each expert slab,
+drawn in f32 and cast, as the reference casts its f32 init).  The other
+families (SSM, hybrid, encoder-decoder, VLM) raise (ROADMAP queue 1, item
+12).
 """
 from __future__ import annotations
 
@@ -39,42 +46,64 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """``init_block`` of the dense kind: ``ln1``, ``attn``, ``ln2``, ``ffn``."""
+    """``init_block``: ``ln1``, ``attn`` (GQA, or MLA with ``cfg.use_mla``),
+    ``ln2`` and ``ffn``, the SwiGLU MLP (``kind="dense"``) or the MoE FFN
+    (``kind="moe"``)."""
 
-    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None,
+                 kind: str = "dense"):
         super().__init__()
+        self.kind = kind
         self.ln1 = L.Norm(cfg, cfg.d_model, device)
-        self.attn = L.Attention(cfg, generator, device)
+        self.attn = (L.MLAAttention if cfg.use_mla else L.Attention)(cfg, generator, device)
         self.ln2 = L.Norm(cfg, cfg.d_model, device)
-        self.ffn = L.MLP(cfg, generator, device)
+        self.ffn = (L.MoE if kind == "moe" else L.MLP)(cfg, generator, device)
 
 
 def block_fwd(cfg: ArchConfig, p: Block, h: torch.Tensor, positions: torch.Tensor, *,
               cache: Optional[Params] = None, cache_index=None,
-              flash: bool = True) -> Tuple[torch.Tensor, Optional[Params]]:
+              flash: bool = True) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Returns (h, cache, aux): the MoE FFN's load-balance loss, else 0."""
     a_in = L.norm_fwd(p.ln1, h)
-    attn_out, new_cache = L.attention_fwd(cfg, p.attn, a_in, positions, cache=cache,
-                                          cache_index=cache_index, flash=flash)
+    if cfg.use_mla:
+        attn_out, new_cache = L.mla_attention_fwd(cfg, p.attn, a_in, positions, cache=cache,
+                                                  cache_index=cache_index)
+    else:
+        attn_out, new_cache = L.attention_fwd(cfg, p.attn, a_in, positions, cache=cache,
+                                              cache_index=cache_index, flash=flash)
     h = h + attn_out
     f_in = L.norm_fwd(p.ln2, h)
-    return h + L.mlp_fwd(p.ffn, f_in), new_cache
+    if p.kind == "moe":
+        f_out, aux = L.moe_fwd(cfg, p.ffn, f_in)
+    else:
+        f_out = L.mlp_fwd(p.ffn, f_in)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + f_out, new_cache, aux
+
+
+def _n_prefix(cfg: ArchConfig) -> int:
+    return cfg.first_dense_layers if cfg.n_experts else 0
 
 
 class DecoderLM(nn.Module):
-    """``init_params`` of the dense decoder: ``embedding``, ``final_norm`` and
-    ``layers`` (the reference's stacked L axis, one module per layer)."""
+    """``init_params`` of the decoder: ``embedding``, ``final_norm``, for an
+    MoE model ``prefix_layers`` (its ``first_dense_layers`` dense blocks),
+    and ``layers`` (the reference's stacked L axis, one module per layer;
+    MoE blocks in an MoE model)."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
         super().__init__()
-        L.check_dense(cfg)
-        if cfg.param_dtype != "float32":
-            raise NotImplementedError(f"param_dtype {cfg.param_dtype!r}: the port keeps "
-                                      "f32 parameters (ROADMAP queue 1, item 12)")
+        L.check_family(cfg)
         self.cfg = cfg
         self.embedding = L.Embedding(cfg, generator, device)
         self.final_norm = L.Norm(cfg, cfg.d_model, device)
-        self.layers = nn.ModuleList(Block(cfg, generator, device)
-                                    for _ in range(cfg.n_layers))
+        n_prefix = _n_prefix(cfg)
+        if n_prefix:
+            self.prefix_layers = nn.ModuleList(Block(cfg, generator, device)
+                                               for _ in range(n_prefix))
+        kind = "moe" if cfg.n_experts else "dense"
+        self.layers = nn.ModuleList(Block(cfg, generator, device, kind)
+                                    for _ in range(cfg.n_layers - n_prefix))
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -90,14 +119,24 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 
 def _trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, positions: torch.Tensor,
            caches: Optional[Params] = None, cache_index=None, flash: bool = True
-           ) -> torch.Tensor:
-    """The reference's ``_scan_blocks`` as a loop; the caches' layer slices
-    are views of the stacked tensors, written in place."""
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prefix blocks, then the reference's ``_scan_blocks`` as a loop;
+    the stacked caches' layer slices are views, written in place.  Returns
+    (h, aux): the prefix blocks' aux added in order, then the scanned
+    layers' sum, as the reference."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i, lp in enumerate(getattr(params, "prefix_layers", ())):
+        cache = None if caches is None else caches["prefix"][i]
+        h, _, a = block_fwd(cfg, lp, h, positions, cache=cache, cache_index=cache_index,
+                            flash=flash)
+        aux = aux + a
+    auxs = []
     for i, lp in enumerate(params.layers):
-        cache = None if caches is None else {"k": caches["k"][i], "v": caches["v"][i]}
-        h, _ = block_fwd(cfg, lp, h, positions, cache=cache, cache_index=cache_index,
-                         flash=flash)
-    return h
+        cache = None if caches is None else {n: t[i] for n, t in caches["layers"].items()}
+        h, _, a = block_fwd(cfg, lp, h, positions, cache=cache, cache_index=cache_index,
+                            flash=flash)
+        auxs.append(a)
+    return h, (aux + torch.stack(auxs).sum()) if auxs else aux
 
 
 # ---------------------------------------------------------------------------
@@ -105,23 +144,22 @@ def _trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, positions: torch
 # ---------------------------------------------------------------------------
 
 def _hidden(cfg: ArchConfig, params: DecoderLM, tokens: torch.Tensor,
-            flash: bool) -> torch.Tensor:
-    """The trunk's output after the final norm, (B, S, d)."""
+            flash: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The trunk's output after the final norm, (B, S, d), and its aux."""
     h = L.embed_fwd(params.embedding, tokens, _dtype(cfg))
     B, S = h.shape[:2]
     pos = torch.arange(S, device=h.device).expand(B, S)
-    h = _trunk(cfg, params, h, pos, flash=flash)
-    return L.norm_fwd(params.final_norm, h)
+    h, aux = _trunk(cfg, params, h, pos, flash=flash)
+    return L.norm_fwd(params.final_norm, h), aux
 
 
 def forward(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
             flash: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits, aux_loss); the dense FFN has
-    no auxiliary loss, so aux is 0.  ``flash`` is the port of the
+    """Full-sequence forward.  Returns (logits, aux_loss): the MoE blocks'
+    load-balance loss (0 for a dense model).  ``flash`` is the port of the
     reference's ``REPRO_FLASH_KERNEL`` (see ``layers.attention_fwd``)."""
-    h = _hidden(cfg, params, batch["tokens"], flash)
-    logits = L.unembed_fwd(params.embedding, h)
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = _hidden(cfg, params, batch["tokens"], flash)
+    return L.unembed_fwd(params.embedding, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +190,8 @@ def _chunked_ce(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, labels: tor
 def loss_fn(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
             flash: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in float32 (log-sum-exp of float32 logits),
-    chunked over the sequence when ``cfg.loss_chunk`` is set.  ``flash``
+    chunked over the sequence when ``cfg.loss_chunk`` is set, plus the MoE
+    aux loss.  ``flash``
     defaults off, as the reference's ``REPRO_FLASH_KERNEL``; kernel 8 has
     no backward in either package, so asking for it with gradients on
     raises.  Returns (loss, {"ce", "aux"})."""
@@ -161,9 +200,8 @@ def loss_fn(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
             "flash=True under autograd: kernel 8 (flash attention) has no backward yet "
             "(ROADMAP queue 1, item 12); training runs flash=False, the reference's default")
     tokens = batch["tokens"]
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.loss_chunk:
-        h = _hidden(cfg, params, tokens, flash)
+        h, aux = _hidden(cfg, params, tokens, flash)
         lab = tokens[:, 1:]
         mask = torch.ones(lab.shape, dtype=torch.float32, device=tokens.device)
         ce = _chunked_ce(cfg, params, h[:, :-1], lab, mask)
@@ -189,14 +227,21 @@ def _cache_capacity(cfg: ArchConfig, total_len: int) -> int:
 def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
                device=None) -> Params:
     """Decode cache for a context of ``total_len`` positions: ``idx`` (the
-    next position, a host int) and the layers' ``k``/``v`` stacked as
-    ``(L, B, Hkv, capacity, hd)``, on ``device`` (None: the card)."""
-    L.check_dense(cfg)
+    next position, a host int), for an MoE model ``prefix`` (a list of one
+    cache per prefix block), and the scanned layers' ``k``/``v`` stacked as
+    ``(L, B, Hkv, capacity, hd)`` (MLA: ``ckv`` (L, B, capacity, r) and
+    ``krope`` (L, B, capacity, rd)), on ``device`` (None: the card)."""
+    L.check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or _dtype(cfg)
     cap = _cache_capacity(cfg, total_len)
-    return {"idx": 0,
-            "layers": L.init_kv_cache(cfg, batch, cap, dt, dev, lead=(cfg.n_layers,))}
+    n_prefix = _n_prefix(cfg)
+    cache: Params = {"idx": 0}
+    if n_prefix:
+        cache["prefix"] = [L.init_kv_cache(cfg, batch, cap, dt, dev) for _ in range(n_prefix)]
+    cache["layers"] = L.init_kv_cache(cfg, batch, cap, dt, dev,
+                                      lead=(cfg.n_layers - n_prefix,))
+    return cache
 
 
 def decode_step(cfg: ArchConfig, params: DecoderLM, cache: Params, tokens: torch.Tensor
@@ -209,39 +254,57 @@ def decode_step(cfg: ArchConfig, params: DecoderLM, cache: Params, tokens: torch
     B = tokens.shape[0]
     pos = torch.full((B, 1), idx, dtype=torch.int64, device=tokens.device)
     h = L.embed_fwd(params.embedding, tokens, dt)
-    h = _trunk(cfg, params, h, pos, caches=cache["layers"], cache_index=idx)
+    h, _ = _trunk(cfg, params, h, pos, caches=cache, cache_index=idx)
     h = L.norm_fwd(params.final_norm, h)
     logits = L.unembed_fwd(params.embedding, h)
-    return logits, {"idx": idx + 1, "layers": cache["layers"]}
+    return logits, dict(cache, idx=idx + 1)
 
 
 # ---------------------------------------------------------------------------
 # weights carried across from the reference
 # ---------------------------------------------------------------------------
 
-def _flatten(node: Params, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(node, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Dicts and lists (``prefix_layers``) of numpy leaves by dotted path."""
     out: Dict[str, np.ndarray] = {}
-    for key, val in node.items():
-        if isinstance(val, dict):
+    items = node.items() if isinstance(node, dict) else enumerate(node)
+    for key, val in items:
+        if isinstance(val, (dict, list, tuple)):
             out.update(_flatten(val, f"{prefix}{key}."))
         else:
-            out[f"{prefix}{key}"] = np.asarray(val, np.float32)
+            out[f"{prefix}{key}"] = np.asarray(val)
     return out
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own type; a bf16 leaf (``ml_dtypes``)
+    goes across by its bits."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
 def params_from_jax(tree: Params, cfg: ArchConfig, device=None) -> DecoderLM:
-    """The reference's ``init_params`` pytree (numpy leaves, the layers
-    stacked on a leading L axis) as a ``DecoderLM`` on ``device`` (None:
-    the card): each stacked leaf ``layers/<path>`` becomes ``layers.<i>.<path>``."""
+    """The reference's ``init_params`` pytree (numpy leaves, the scanned
+    layers stacked on a leading axis, an MoE model's ``prefix_layers`` a
+    list) as a ``DecoderLM`` on ``device`` (None: the card): each stacked
+    leaf ``layers/<path>`` becomes ``layers.<i>.<path>``, each
+    ``prefix_layers[i]/<path>`` ``prefix_layers.<i>.<path>``.  Every leaf
+    keeps its type (bf16 stays bf16), and every leaf of either side must
+    find its counterpart."""
     dev = resolve_device(device)
+    n_stacked = cfg.n_layers - _n_prefix(cfg)
     state = _flatten({k: v for k, v in tree.items() if k != "layers"})
     for path, arr in _flatten(tree["layers"]).items():
-        if arr.shape[0] != cfg.n_layers:
+        if arr.shape[0] != n_stacked:
             raise ValueError(f"layers/{path} has {arr.shape[0]} layers, expected "
-                             f"{cfg.n_layers}")
-        for i in range(cfg.n_layers):
+                             f"{n_stacked}")
+        for i in range(n_stacked):
             state[f"layers.{i}.{path}"] = arr[i]
     model = DecoderLM(cfg, torch.Generator(device="cpu").manual_seed(0), "cpu")
-    model.load_state_dict({k: torch.tensor(v)
-                           for k, v in state.items()}, strict=True)
+    want = model.state_dict()
+    for k, v in state.items():
+        if k in want and v.dtype.name != str(want[k].dtype).removeprefix("torch."):
+            raise ValueError(f"{k}: a {v.dtype.name} leaf for a {want[k].dtype} parameter")
+    model.load_state_dict({k: _tensor(v) for k, v in state.items()}, strict=True)
     return model.to(dev)

@@ -23,11 +23,24 @@ from repro_torch.models import model as M
 
 def cache_shapes(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
     """The decode cache's layout for an input shape, without allocating it:
-    ``idx`` and the stacked ``k``/``v`` specs."""
+    ``idx``, an MoE model's ``prefix`` list and the stacked layers' specs
+    (``k``/``v``, or MLA's ``ckv``/``krope``)."""
     cap = M._cache_capacity(cfg, shape.seq_len)
-    kv = TensorSpec((cfg.n_layers, shape.global_batch, cfg.n_kv_heads, cap, cfg.head_dim_),
-                    getattr(torch, cfg.dtype))
-    return {"idx": 0, "layers": {"k": kv, "v": kv}}
+    B, dt = shape.global_batch, getattr(torch, cfg.dtype)
+
+    def layer(lead):
+        if cfg.use_mla:
+            return {"ckv": TensorSpec(lead + (B, cap, cfg.kv_lora_rank), dt),
+                    "krope": TensorSpec(lead + (B, cap, cfg.qk_rope_dim), dt)}
+        kv = TensorSpec(lead + (B, cfg.n_kv_heads, cap, cfg.head_dim_), dt)
+        return {"k": kv, "v": kv}
+
+    n_prefix = M._n_prefix(cfg)
+    out: Dict[str, Any] = {"idx": 0}
+    if n_prefix:
+        out["prefix"] = [layer(()) for _ in range(n_prefix)]
+    out["layers"] = layer((cfg.n_layers - n_prefix,))
+    return out
 
 
 def _on(dev: torch.device, params: M.DecoderLM) -> None:

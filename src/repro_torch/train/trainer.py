@@ -83,6 +83,14 @@ class TrainState(NamedTuple):
     step: Tensor               # int32, on the host
 
 
+def _check_params(cfg: ArchConfig) -> None:
+    if cfg.param_dtype != "float32":
+        raise NotImplementedError(
+            f"training with {cfg.param_dtype} parameters ({cfg.name}) is not ported yet: "
+            "it is Arctic's multi-card plan, whose optimizers and robust all-reduce keep "
+            "f32 here (ROADMAP queue 1, item 12)")
+
+
 def _check(tc: TrainConfig, mesh: Mesh) -> None:
     if tc.multi_pod or tc.fsdp_params or mesh.shape.get("model", 1) != 1:
         raise NotImplementedError(MULTI_CARD)
@@ -98,6 +106,7 @@ def init_train_state(cfg: ArchConfig, tc: TrainConfig,
     """The model (``models.model.init_params`` from ``generator``), laid out
     on one flat buffer, its optimizer state, the all-reduce's state for the
     mesh's K candidates and step 0, on ``device`` (None: the card)."""
+    _check_params(cfg)
     dev = resolve_device(device)
     model = M.init_params(cfg, generator, dev)
     layout_flat(model)
@@ -128,6 +137,7 @@ def state_from_jax(state, cfg: ArchConfig, device=None) -> TrainState:
     params through ``params_from_jax``, the optimizer state leaf for leaf,
     the all-reduce's state (a stacked ``prev`` laid out as one (K, P)
     matrix) and the step."""
+    _check_params(cfg)
     dev = resolve_device(device)
     model = M.params_from_jax(state.params, cfg, dev)
     layout_flat(model)
@@ -203,6 +213,7 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
     ``info``) and "optimizer" (``params``); the caller may time the phases
     or check them there (the gspmd step has "grads" and "optimizer"
     only)."""
+    _check_params(cfg)
     _check(tc, mesh)
     opt = make_optimizer(cfg.optimizer)
     lr_fn = warmup_cosine(tc.lr, tc.warmup, tc.total_steps)

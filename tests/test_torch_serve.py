@@ -34,6 +34,7 @@ from repro_torch.train import serve as tserve
 TOL = 1e-4
 NAMES = ["qwen1.5-0.5b", "stablelm-3b", "yi-6b", "yi-6b-gqa2"]
 DENSE = ["qwen1.5-0.5b", "stablelm-3b", "yi-6b"]
+MOE = ["deepseek-v2-lite-16b", "moonshot-v1-16b-a3b", "arctic-480b"]
 
 
 def _configs(name, **over):
@@ -65,7 +66,7 @@ def _close(got, want):
 # configs and weights
 
 
-@pytest.mark.parametrize("name", DENSE + ["lenet-mnist"])
+@pytest.mark.parametrize("name", DENSE + MOE + ["lenet-mnist"])
 def test_configs_match_the_reference(name):
     """The port's copies of the configs: every field, the reduced variant
     and the analytic parameter count equal the reference's."""
@@ -241,18 +242,38 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
 
 
 def test_other_families_raise():
-    """The families of later slices raise and name their ROADMAP item."""
-    with pytest.raises(KeyError, match="ROADMAP queue 1, item 12"):
-        tregistry.get_config("deepseek-v2-lite-16b")
+    """The families of later slices raise and name their ROADMAP item: the
+    SSM, hybrid, encoder-decoder and VLM configs and those families as
+    overrides of a served config, and training with bf16 parameters (MoE,
+    MLA and head padding run since their slice: tests/test_torch_moe*.py)."""
+    from repro.configs.registry import ARCHS as JARCHS
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import trainer as tr
+    for name in ("falcon-mamba-7b", "zamba2-1.2b", "seamless-m4t-medium", "llava-next-34b"):
+        assert name in JARCHS and name in tregistry.NOT_PORTED
+        with pytest.raises(KeyError, match="ROADMAP queue 1, item 12"):
+            tregistry.get_config(name)
+    for name in MOE:
+        assert tregistry.get_config(name).name == name
     with pytest.raises(KeyError, match="unknown arch"):
         tregistry.get_config("gpt-2")
     cfg = tregistry.get_config("qwen1.5-0.5b").reduced()
-    for over in ({"n_experts": 4, "top_k": 2}, {"use_mla": True}, {"family": "ssm"},
-                 {"pad_heads_to": 8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-            TM.init_params(dataclasses.replace(cfg, **over), device="cpu")
+    for over in ({"family": "ssm"}, {"family": "hybrid"}, {"is_encoder_decoder": True},
+                 {"family": "vlm", "modality": "vision"}, {"modality": "audio"}):
+        bad = dataclasses.replace(cfg, **over)
+        for call in (lambda: TM.init_params(bad, device="cpu"),
+                     lambda: TM.init_cache(bad, 1, 8, device="cpu")):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
+                call()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
         TM.init_params(tregistry.get_config("lenet-mnist"), device="cpu")
+    bf16 = dataclasses.replace(tregistry.get_config("arctic-480b").reduced(),
+                               param_dtype="bfloat16")
+    for call in (lambda: tr.init_train_state(bf16, tr.TrainConfig(),
+                                             mesh=make_test_mesh(data=2), device="cpu"),
+                 lambda: tr.build_train_step(bf16, tr.TrainConfig(), make_test_mesh(data=2))):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
+            call()
 
 
 def test_port_init_is_seeded_and_finite():
