@@ -7,6 +7,7 @@ an NVIDIA H100.
     python3 chip_smoke.py --only cards         # phase 1, then its ranks on every card
     python3 chip_smoke.py --only train         # phase 1, then the trainer
     python3 chip_smoke.py --only moe           # phase 1, then the MoE family
+    python3 chip_smoke.py --only ssm           # phase 1, then the SSM and hybrid families
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
@@ -16,7 +17,8 @@ JSON line instead of the kernels line and the ok line; with ``--only
 cards`` it runs that phase's round, scan and engine parts on one ``nccl``
 rank per visible card (2 or more), the deployment sharding is for; with
 ``--only train`` the training part alone, as one JSON line; with ``--only
-moe`` the MoE part alone, as one JSON line.
+moe`` the MoE part alone, and with ``--only ssm`` the SSM part alone, each
+as one JSON line.
 Phases, each of which fails the run:
 
   1. the card's name and power limit; build the seven kernel libraries of
@@ -308,7 +310,26 @@ Phases, each of which fails the run:
        trainer, K=6 at S=1025, 2 under IPM-100, 5 steps each of WFAgg and
        Alt-WFAgg on ``fused`` (held as above) and the mean, with the
        training part's checks and candidate 0's ce and aux per step.
-       ``--only moe`` runs phase 1 and this part alone.
+       ``--only moe`` runs phase 1 and this part alone;
+     - the SSM and hybrid families, on the port's seed-0 init, each model
+       freed before the next: kernel 8 at Zamba2's prefill shape (B=2,
+       H=32, S=8192, hd=64, bf16) through ``compare_flash``, timed beside
+       SDPA; Falcon-Mamba-7B uncut (64 Mamba-1 layers), prefill 2 x 8192
+       (0 kernel launches), and Zamba2-1.2B uncut (38 Mamba-2 layers, the
+       shared block once a group), prefill 2 x 8192 with exactly 19
+       kernel-8 launches a call on the tensor-core kernel, held against
+       ``flash=False``; each prefill timed with its peak memory and traced
+       (the top device kernels); Falcon-Mamba's decode at batch 4 through
+       a 96-token prompt (48 tokens in one stateful call, then a token a
+       step), Zamba2's at batch 2 against a cache of 32,768 positions over
+       64 prompt and 32 greedy steps, each held against one prefill of
+       the same tokens, then 16 greedy steps timed.  The two bf16 routes
+       of a hold are held to each other by the dense rule, or, where they
+       differ past it, each against the f32 route beside its counterpart
+       (``SSM_TRUTH``); the f32 decode is held to the f32 prefill by the
+       dense rule.  Then Zamba2 cut to 4 layers (2 groups, P =
+       309,967,616) on the stacked robust-DP trainer, as the MoE's.
+       ``--only ssm`` runs phase 1 and this part alone.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -5483,12 +5504,19 @@ def run_moe_serve(torch) -> tuple:
 
 def run_moe_train(torch) -> tuple:
     """DeepSeek-V2-Lite at full width cut to ``MOE_TRAIN_LAYERS`` (its dense
-    prefix block and one MoE block) on the stacked robust-DP trainer:
-    ``MOE_TRAIN_K`` candidates of one row at ``TRAIN_SEQ``, 2 under
-    IPM-100, AdamW, ``TRAIN_STEPS`` steps each of WFAgg and Alt-WFAgg on
-    ``fused`` (each all-reduce held against ``fused_two_launch`` and
-    ``reference``) and of the mean; candidate 0's ce and aux printed per
-    step.  The training part's checks: exact launches, the attackers at weight 0,
+    prefix block and one MoE block) on the stacked robust-DP trainer
+    (``run_lm_train``).  Returns (launches, report)."""
+    return run_lm_train(torch, "moe train", MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_K,
+                        "1 dense prefix + 1 MoE")
+
+
+def run_lm_train(torch, label, arch, n_layers, K, what) -> tuple:
+    """``arch`` at full width cut to ``n_layers`` on the stacked robust-DP
+    trainer: ``K`` candidates of one row at ``TRAIN_SEQ``, 2 under IPM-100,
+    AdamW, ``TRAIN_STEPS`` steps each of WFAgg and Alt-WFAgg on ``fused``
+    (each all-reduce held against ``fused_two_launch`` and ``reference``)
+    and of the mean; candidate 0's ce and aux printed per step.  The
+    training part's checks: exact launches, the attackers at weight 0,
     WFAgg's last loss below its first and the mean's.  Runs with the
     allocator's expandable segments: a step with the hold fills the card
     to within a few GiB, and blocks of the (K, P) buffers' and the leaves'
@@ -5502,23 +5530,23 @@ def run_moe_train(torch) -> tuple:
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
-    mesh = make_test_mesh(data=MOE_TRAIN_K)
-    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, MOE_TRAIN_K)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    mesh = make_test_mesh(data=K)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, K)
     batches = [stream.batch(i, device="cuda") for i in range(TRAIN_STEPS)]
-    bad = spaced_malicious(MOE_TRAIN_K, TRAIN_MALICIOUS).nonzero()[0].tolist()
+    bad = spaced_malicious(K, TRAIN_MALICIOUS).nonzero()[0].tolist()
     launches = dict.fromkeys(KERNELS, 0)
     P = sum(p.numel() for p in M.DecoderLM(cfg, torch.Generator(), "meta").parameters())
-    print(f"  {MOE_TRAIN_ARCH} cut to {cfg.n_layers} layers (1 dense prefix + 1 MoE) at full "
-          f"width, P = {P}, K={MOE_TRAIN_K} candidates of one row at S={TRAIN_SEQ}, "
-          f"candidates {bad} under {TRAIN_ATTACK}, AdamW lr {TRAIN_LR}, {TRAIN_STEPS} steps")
+    print(f"  {arch} cut to {cfg.n_layers} layers ({what}) at full width, P = {P}, K={K} "
+          f"candidates of one row at S={TRAIN_SEQ}, candidates {bad} under {TRAIN_ATTACK}, "
+          f"AdamW lr {TRAIN_LR}, {TRAIN_STEPS} steps")
 
     def probe(state, batch):
         with torch.no_grad():
             _, parts = M.loss_fn(cfg, state.params, {"tokens": batch["tokens"][:1]})
         return {k: round(float(v), 5) for k, v in parts.items()}
 
-    report = {"arch": MOE_TRAIN_ARCH, "layers": cfg.n_layers, "K": MOE_TRAIN_K, "P": P}
+    report = {"arch": arch, "layers": cfg.n_layers, "K": K, "P": P}
     gc.collect()
     torch.cuda.empty_cache()
     expandable_segments(torch, True)
@@ -5527,15 +5555,15 @@ def run_moe_train(torch) -> tuple:
             tc = train_config(method, attack=TRAIN_ATTACK, n_malicious=TRAIN_MALICIOUS)
             gc.collect()
             torch.cuda.empty_cache()
-            report[method] = moe_train_run(torch, cfg, tc, mesh, batches, bad, probe,
-                                           launches)
+            report[method] = lm_train_run(torch, label, cfg, tc, mesh, batches, bad, probe,
+                                          launches)
     finally:
         expandable_segments(torch, False)
     w, mean = report["wfagg"]["losses"], report["mean"]["losses"]
     if not (w[-1] < w[0] and w[-1] < mean[-1]):
-        raise AssertionError(f"moe train: WFAgg's step-{TRAIN_STEPS} loss {w[-1]} is not "
+        raise AssertionError(f"{label}: WFAgg's step-{TRAIN_STEPS} loss {w[-1]} is not "
                              f"below its first {w[0]} and the mean's {mean[-1]}")
-    print(f"  the paper's claim on an MoE: WFAgg's loss {w[0]:.4f} -> {w[-1]:.4f}, the "
+    print(f"  the paper's claim on {arch}: WFAgg's loss {w[0]:.4f} -> {w[-1]:.4f}, the "
           f"mean's {mean[0]:.4f} -> {mean[-1]:.4f} under {TRAIN_ATTACK}")
     del batches
     gc.collect()
@@ -5543,8 +5571,8 @@ def run_moe_train(torch) -> tuple:
     return launches, report
 
 
-def moe_train_run(torch, cfg, tc, mesh, batches, bad, probe, launches) -> dict:
-    """One of ``run_moe_train``'s runs (the hold on WFAgg's methods),
+def lm_train_run(torch, label, cfg, tc, mesh, batches, bad, probe, launches) -> dict:
+    """One of ``run_lm_train``'s runs (the hold on WFAgg's methods),
     checked as the training part's; adds its launches."""
     method = tc.agg.method
     hold = method != "mean"
@@ -5553,13 +5581,13 @@ def moe_train_run(torch, cfg, tc, mesh, batches, bad, probe, launches) -> dict:
         wfagg_round_indexed=TRAIN_STEPS, robust_stats=TRAIN_STEPS,
         pairwise_gram=TRAIN_STEPS if method == "alt_wfagg" else 0)
     if r["counts"] != want:
-        raise AssertionError(f"moe train {method}: launches {r['counts']}, expected {want}")
+        raise AssertionError(f"{label} {method}: launches {r['counts']}, expected {want}")
     for k in KERNELS:
         launches[k] += r["counts"][k]
     if not all(map(math.isfinite, r["losses"])):
-        raise AssertionError(f"moe train {method}: non-finite loss {r['losses']}")
+        raise AssertionError(f"{label} {method}: non-finite loss {r['losses']}")
     if hold and any(w[k] != 0.0 for w in r["weights"] for k in bad):
-        raise AssertionError(f"moe train {method}: an attacker got weight: {r['weights']}")
+        raise AssertionError(f"{label} {method}: an attacker got weight: {r['weights']}")
     del r["counts"]
     print(f"  stacked {method:9s}: loss per step {[round(x, 4) for x in r['losses']]}, "
           f"weights {r['weights']}")
@@ -5602,12 +5630,294 @@ def run_moe_path(torch) -> tuple:
     return launches, errs, flash_times, {"card": card, "serve": serve, "train": train}
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the SSM and hybrid families (serving Falcon-Mamba-7B and
+# Zamba2-1.2B uncut; training a hybrid through kernels 1, 4 and 6)
+# ---------------------------------------------------------------------------
+
+# (arch, prefill (B, S), kernel-8 launches a prefill, decode batch, decode
+# cache positions, random prompt tokens, of them taken in one stateful call
+# before the single steps, greedy steps held): each decode's held logits
+# (prompt and greedy, 96 positions) against one prefill of the same tokens
+SSM_SERVE = (
+    ("falcon-mamba-7b", (2, 8192), 0, 4, 96, 96, 48, 0),        # arXiv:2410.05355
+    ("zamba2-1.2b", (2, 8192), 19, 2, 32768, 64, 0, 32),        # arXiv:2411.15242
+)
+SSM_DECODE_TIMED = 16          # greedy steps timed after the held ones
+SSM_TRAIN_ARCH = "zamba2-1.2b"
+SSM_TRAIN_LAYERS = 4           # 2 groups: the shared block serves two; P = 309,967,616
+SSM_TRAIN_K = 6
+SSM_FLASH = (2, 32, 8192, 64)  # kernel 8 at Zamba2's prefill: B, H (no GQA), S, hd
+
+
+# SSM_TRUTH: two bf16 routes of one model (kernel 8's prefill and the
+# flash=False one; a decode and a prefill) are held to each other by the
+# dense rule (``check_logits``).  Where the two differ by more than its
+# relative rms or largest difference, 64 (Falcon-Mamba) or 38 + 19 (Zamba2)
+# bf16 layers may have amplified rounding beyond it: the route under test
+# is then held by ``MOE_TRUTH``'s rule instead, against the f32-activation
+# route of the same model beside its counterpart (``hold_against_truth``).
+# Either way the f32 routes of the same function (the f32 decode and the
+# f32 prefill) are held to each other by the dense rule.  The rule is
+# chosen by the measured distance alone, never by the outcome of a hold.
+
+
+def hold_bf16_route(torch, label, got, ref_label, ref, truth) -> dict:
+    """``SSM_TRUTH``'s rule for the bf16 route ``got`` against its bf16
+    counterpart ``ref``, the f32 route ``truth`` beside (every distance
+    printed).  Returns the distances and the rule applied."""
+    rel, big = logit_gap(torch, f"{label} vs {ref_label}", got, ref)
+    out = dict(rms=rel, largest=big)
+    if rel <= LOGIT_RMS and big <= LOGIT_ATOL:
+        check_logits(torch, f"{label} vs {ref_label}", got, ref)
+        return dict(out, rule="dense")
+    print(f"  {label}: {rel:.4g} / {big:.4g} from {ref_label}, past the dense rule's "
+          f"{LOGIT_RMS} / {LOGIT_ATOL}: held against the f32 route (SSM_TRUTH)")
+    return dict(out, rule="truth", vs_truth=hold_against_truth(torch, label, got, ref_label,
+                                                               ref, truth))
+
+
+def ssm_model(torch, name):
+    """The uncut model on the seed-0 init, its size and init time printed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    info = dict(params=n, param_gib=round(nbytes / 2 ** 30, 2), init_s=round(secs, 2))
+    shared = (f", one shared attention block ({cfg.n_heads} heads of {cfg.head_dim_}, d_ff "
+              f"{cfg.d_ff}) every {cfg.shared_attn_every} layers"
+              if cfg.family == "hybrid" else "")
+    print(f"  {name} uncut: {cfg.n_layers} {cfg.ssm_variant} layers, d_model {cfg.d_model}, "
+          f"d_inner {cfg.d_inner_}, state {cfg.ssm_state}{shared}, vocab {cfg.vocab_size}; "
+          f"{n} {cfg.param_dtype} parameters ({info['param_gib']} GiB), initialised in "
+          f"{secs:.2f} s")
+    return cfg, params, info
+
+
+def ssm_prefill_check(torch, cfg, params, prompts, flash_layers):
+    """``build_prefill`` on the prompts, one call timed (its peak memory;
+    a second call differed by 1.6%, PERF.md §6) and one traced
+    (``trace_prefill``), each with ``flash_layers`` kernel-8 launches, all
+    on the tensor-core kernel.  With kernel 8 on the path, each prompt's
+    last ``PREFILL_TAIL`` positions of the timed call are held against the
+    ``flash=False`` route by ``SSM_TRUTH``'s rule, the f32-activation
+    ``flash=False`` prefill its truth.  Returns the prefill's numbers and
+    launches."""
+    import dataclasses
+
+    from repro_torch.train.serve import build_prefill
+
+    B, S = prompts.shape
+    prefill = build_prefill(cfg)
+    zero_counts()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    logits = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    peak = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+    if logits.shape != (B, S, cfg.vocab_size) or logits.dtype != torch.bfloat16:
+        raise AssertionError(f"{cfg.name} prefill logits {tuple(logits.shape)} {logits.dtype}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    got = logits[:, -PREFILL_TAIL:].float()
+    del logits
+    out = {"trace": trace_prefill(torch, cfg, lambda: prefill(params, {"tokens": prompts}))}
+    calls = 2
+    if flash_layers:
+        label = f"{cfg.name} prefill {B} x {S}, each prompt's last {PREFILL_TAIL} positions"
+
+        def tail(pcfg):
+            lg = build_prefill(pcfg, flash=False)(params, {"tokens": prompts})
+            t = lg[:, -PREFILL_TAIL:].float()
+            del lg
+            return t
+
+        ref = tail(cfg)
+        truth = tail(dataclasses.replace(cfg, dtype="float32"))
+        out["flash_vs_truth"] = logit_gap(
+            torch, f"{label}: the {cfg.dtype} flash route (kernel 8) vs the f32 flash=False "
+            "route", got, truth)
+        out["chunked_vs_truth"] = logit_gap(
+            torch, f"{label}: the {cfg.dtype} flash=False route vs the f32 flash=False route",
+            ref, truth)
+        out["flash_vs_chunked"] = hold_bf16_route(
+            torch, f"{label}: the {cfg.dtype} flash route (kernel 8)", got,
+            f"the {cfg.dtype} flash=False route", ref, truth)
+        del ref, truth
+    del got
+    counts = read_counts()
+    want = only_counts(flash_attention=flash_layers * calls)
+    if counts != want:
+        raise AssertionError(f"{cfg.name} prefill launches {counts}, expected {want}")
+    tc = _module("flash_attention").launches_tc
+    if tc != flash_layers * calls:
+        raise AssertionError(f"{cfg.name}: {tc} of {flash_layers * calls} kernel-8 launches "
+                             "on the bf16 tensor-core kernel")
+    out.update(ms=round(ms, 3), tokens_per_s=round(B * S / ms * 1e3, 1), peak_gib=peak,
+               launches=flash_layers * calls, launches_a_call=flash_layers)
+    print(f"  {cfg.name} prefill {B} x {S}: {ms:.2f} ms, {out['tokens_per_s']:.0f} prompt "
+          f"tokens/s, peak memory {peak} GiB; kernel 8 launches "
+          f"{flash_layers * calls} in {calls} calls ({flash_layers} a call, all on the "
+          "tensor-core kernel)")
+    return out
+
+
+def ssm_decode_check(torch, cfg, params, batch, positions, prompt_len, one_call, greedy, g):
+    """``build_decode_step`` at ``batch`` against a cache of ``positions``: a
+    random prompt (its first ``one_call`` tokens in one stateful call, the
+    rest a token a step), then ``greedy`` greedy tokens; the held logits
+    against one prefill of the same tokens: in f32 (the same calls
+    replayed) by the dense rule, in the model's activations by
+    ``SSM_TRUTH``'s rule; then ``SSM_DECODE_TIMED`` greedy steps timed.  No
+    kernel launches."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.train.serve import build_decode_step, build_prefill
+
+    cache = M.init_cache(cfg, batch, positions)
+    cache_gib = sum(t.numel() * t.element_size() for t in
+                    [t for v in cache["layers"].values()
+                     for t in (v.values() if isinstance(v, dict) else [v])]) / 2 ** 30
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g, device="cuda",
+                           dtype=torch.int32)
+    step = build_decode_step(cfg)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    splits = ([(0, one_call)] if one_call else []) + [(i, i + 1)
+                                                      for i in range(one_call, prompt_len)]
+    stepped, gen = [], []
+    for a, b in splits:
+        lg, cache = step(params, cache, prompt[:, a:b])
+        stepped.append(lg)
+    for _ in range(greedy):
+        gen.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+        lg, cache = step(params, cache, gen[-1])
+        stepped.append(lg)
+    torch.cuda.synchronize()
+    times = []
+    nxt = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    for _ in range(SSM_DECODE_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = step(params, cache, nxt)
+        nxt = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    if read_counts() != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"{cfg.name} decode launched {read_counts()}")
+    n_calls = len(splits) + greedy + SSM_DECODE_TIMED
+    if cache["idx"] != n_calls:
+        raise AssertionError(f"{cfg.name}: cache idx {cache['idx']}, {n_calls} calls")
+    del cache
+    ms = 1e3 * statistics.median(times)
+    seq = torch.cat([prompt] + gen, dim=1)
+    st = torch.cat(stepped, dim=1).float()
+    del stepped
+    if st.shape != (batch, seq.shape[1], cfg.vocab_size) or not bool(torch.isfinite(st).all()):
+        raise AssertionError(f"{cfg.name}: decode logits {tuple(st.shape)}, finite "
+                             f"{bool(torch.isfinite(st).all())}")
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    pf = build_prefill(cfg)(params, {"tokens": seq}).float()
+    truth = build_prefill(f32)(params, {"tokens": seq}).float()
+    c32 = M.init_cache(f32, batch, seq.shape[1])
+    step32 = build_decode_step(f32)
+    d32 = []
+    for a, b in splits + [(t, t + 1) for t in range(prompt_len, seq.shape[1])]:
+        lg32, c32 = step32(params, c32, seq[:, a:b])
+        d32.append(lg32.float())
+    d32 = torch.cat(d32, dim=1)
+    del c32
+    label = f"{cfg.name} {seq.shape[1]} tokens"
+    out = {"decode_vs_truth": logit_gap(torch, f"{label}: the {cfg.dtype} decode vs the f32 "
+                                        "prefill", st, truth),
+           "prefill_vs_truth": logit_gap(torch, f"{label}: the {cfg.dtype} prefill vs the f32 "
+                                         "prefill", pf, truth)}
+    check_logits(torch, f"{label}: f32 decode vs the f32 prefill", d32, truth)
+    out["decode_vs_prefill"] = hold_bf16_route(
+        torch, f"{label}: the {cfg.dtype} decode", st, f"the {cfg.dtype} prefill", pf, truth)
+    if read_counts() != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"{cfg.name}: the decode check launched {read_counts()}")
+    out.update(ms_a_step=round(ms, 3), steps_held=seq.shape[1], calls_held=len(splits) + greedy,
+               batch=batch, cache_positions=positions, cache_gib=round(cache_gib, 3),
+               tokens_per_s=round(batch / ms * 1e3, 1), peak_gib=round(peak / 2 ** 30, 2))
+    how = f"{one_call} tokens in one stateful call, then " if one_call else ""
+    print(f"  {cfg.name} decode batch {batch}, cache for {positions} positions "
+          f"({cache_gib:.3f} GiB): {how}{prompt_len - one_call} prompt tokens and {greedy} "
+          f"greedy a step held; {ms:.3f} ms a step (median of {SSM_DECODE_TIMED} greedy steps "
+          f"after them), {out['tokens_per_s']:.1f} tokens/s, peak {out['peak_gib']} GiB; "
+          "kernel 8 launches 0")
+    return out
+
+
+def check_ssm_flash_shape(torch) -> tuple:
+    """Kernel 8 at Zamba2's prefill shape (``SSM_FLASH``) through
+    ``compare_flash``, then timed by ``time_flash``.  Returns (error,
+    times)."""
+    B, H, S, hd = SSM_FLASH
+    err = compare_flash(torch, B, H, S, S, hd, True, "bfloat16", 128, seed=95)
+    return err, time_flash(torch, B, H, S, hd, 96)
+
+
+def run_ssm_serve(torch) -> tuple:
+    """Falcon-Mamba-7B and Zamba2-1.2B served uncut, one after another, each
+    freed before the next.  Returns (launches, report)."""
+    report, launches = {}, dict.fromkeys(KERNELS, 0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for name, (B, S), flash_layers, batch, positions, prompt, one_call, greedy in SSM_SERVE:
+        cfg, params, info = ssm_model(torch, name)
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda",
+                                dtype=torch.int32)
+        r = dict(info, prefill=ssm_prefill_check(torch, cfg, params, prompts, flash_layers))
+        launches["flash_attention"] += r["prefill"]["launches"]
+        del prompts
+        r["decode"] = ssm_decode_check(torch, cfg, params, batch, positions, prompt, one_call,
+                                       greedy, g)
+        report[name] = r
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name} freed: the process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+              "GiB")
+    return launches, report
+
+
+def run_ssm_path(torch) -> tuple:
+    """The SSM part: kernel 8 at Zamba2's prefill shape, Falcon-Mamba-7B and
+    Zamba2-1.2B served, Zamba2 trained.  Returns (launches, kernel-8 error,
+    kernel-8 times, report)."""
+    card = gpu_line()
+    print(f"  {card}")
+    err, flash_times = check_ssm_flash_shape(torch)
+    launches, serve = run_ssm_serve(torch)
+    train_launches, train = run_lm_train(
+        torch, "ssm train", SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS, SSM_TRAIN_K,
+        f"{SSM_TRAIN_LAYERS // 2} groups: the shared block twice")
+    for k in KERNELS:
+        launches[k] += train_launches[k]
+    return launches, err, flash_times, {"card": card, "serve": serve, "train": train}
+
+
 def main(argv=()) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("distributed", "cards", "train", "moe"):
-        print("usage: chip_smoke.py [--only distributed|cards|train|moe]", file=sys.stderr)
+    if argv and only not in ("distributed", "cards", "train", "moe", "ssm"):
+        print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5650,6 +5960,12 @@ def main(argv=()) -> int:
         print("[3] the MoE family alone (--only moe): no kernels or ok line")
         launches, errs, flash_times, report = run_moe_path(torch)
         print(json.dumps({"moe": {"launches": launches, "flash_max_abs_err": max(errs),
+                                  "flash_times": flash_times, "report": report}}))
+        return 0
+    if only == "ssm":
+        print("[3] the SSM and hybrid families alone (--only ssm): no kernels or ok line")
+        launches, err, flash_times, report = run_ssm_path(torch)
+        print(json.dumps({"ssm": {"launches": launches, "flash_max_abs_err": err,
                                   "flash_times": flash_times, "report": report}}))
         return 0
     if only == "cards":
@@ -5911,6 +6227,14 @@ def main(argv=()) -> int:
     errs["flash_attention"] += moe_errs
     timed["flash_attention"]["moe_shapes"] = moe_flash
 
+    print("[3] the SSM and hybrid families: kernel 8 at Zamba2's prefill shape; "
+          "Falcon-Mamba-7B and Zamba2-1.2B served uncut; Zamba2 "
+          f"({SSM_TRAIN_LAYERS} layers) trained on the stacked robust-DP trainer, "
+          f"K={SSM_TRAIN_K}")
+    ssm_launches, ssm_err, ssm_flash, _ = run_ssm_path(torch)
+    errs["flash_attention"].append(ssm_err)
+    timed["flash_attention"]["zamba2_shape"] = ssm_flash
+
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
     # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
@@ -5922,13 +6246,17 @@ def main(argv=()) -> int:
     # full-width prefills, and the trainer's kernels 1, 4 and 6 (the stacked
     # runs with their hold, the launcher); the MoE part's kernel 8 (the
     # Moonlight and Arctic prefills, all on the tensor-core kernel) and its
-    # training's kernels 1, 4 and 6
+    # training's kernels 1, 4 and 6; the SSM part's kernel 8 (Zamba2's
+    # prefills, on the tensor-core kernel) and its training's kernels 1, 4
+    # and 6
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
                 + adaptive_launches[name] + table_launches[name]
                 + gathered_launches[name] + serve_launches[name] + dist_launches[name]
-                + train_launches[name] + moe_launches[name] for name in KERNELS}
+                + train_launches[name] + moe_launches[name] + ssm_launches[name]
+                for name in KERNELS}
     timed["flash_attention"]["launches_tc"] = (serve_launches["flash_attention[tensor_core]"]
-                                               + moe_launches["flash_attention"])
+                                               + moe_launches["flash_attention"]
+                                               + ssm_launches["flash_attention"])
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])

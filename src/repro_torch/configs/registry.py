@@ -3,32 +3,37 @@
 
 The port serves the dense decoder-only family (Qwen1.5-0.5B, StableLM-3B,
 Yi-6B), the MoE family (DeepSeek-V2-Lite with MLA attention, Moonlight,
-Arctic with its dense residual and padded heads) and carries the paper's
-LeNet-5 config.  The reference's other four architectures need SSM,
-hybrid, encoder-decoder or VLM modules that the port does not have yet:
-asking for one raises ``KeyError``.
+Arctic with its dense residual and padded heads), the SSM family
+(Falcon-Mamba-7B, Mamba-1) and the hybrid family (Zamba2-1.2B, Mamba-2
+with a shared attention block), and carries the paper's LeNet-5 config.
+The reference's other two architectures need encoder-decoder or VLM
+modules that the port does not have yet: asking for one raises
+``KeyError``.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (
     arctic_480b,
     deepseek_v2_lite_16b,
+    falcon_mamba_7b,
     lenet_mnist,
     moonshot_v1_16b_a3b,
     qwen1_5_0_5b,
     stablelm_3b,
     yi_6b,
+    zamba2_1_2b,
 )
 from repro_torch.configs.base import ArchConfig
 
 ARCHS = {m.CONFIG.name: m.CONFIG for m in (moonshot_v1_16b_a3b, stablelm_3b, arctic_480b,
-                                           deepseek_v2_lite_16b, yi_6b, qwen1_5_0_5b)}
+                                           deepseek_v2_lite_16b, yi_6b, qwen1_5_0_5b,
+                                           falcon_mamba_7b, zamba2_1_2b)}
 
 PAPER_ARCH = lenet_mnist.CONFIG
 ALL_ARCHS = dict(ARCHS, **{PAPER_ARCH.name: PAPER_ARCH})
 
 # the reference's architectures whose families the port does not run yet
-NOT_PORTED = ("zamba2-1.2b", "seamless-m4t-medium", "falcon-mamba-7b", "llava-next-34b")
+NOT_PORTED = ("seamless-m4t-medium", "llava-next-34b")
 
 
 def get_config(name: str) -> ArchConfig:

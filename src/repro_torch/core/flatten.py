@@ -7,7 +7,10 @@ order, depth first), so a raveled tree is ``ravel_pytree``'s vector.  A
 each stacked leaf ``layers/<path>`` holds layer 0's tensor, then layer
 1's, and so on, the order in which ``models.model.params_from_jax``
 unstacks it; an MoE model's ``prefix_layers`` is a list of block trees,
-after ``layers`` (sorted keys), ordered by their integer index.
+after ``layers`` (sorted keys), ordered by their integer index; a hybrid's
+``shared_attn`` is one unstacked tree, after ``layers``.  Keys sort as
+Python strings, capitals first (a Mamba mixer's ``A_log``, ``D``, then
+``bc_proj``, ...), as ``jax.tree.leaves`` sorts them.
 
 ``layout_flat`` puts a module's parameters into one (P,) buffer in that
 order, each parameter a view of it, so that raveling the model, its

@@ -1,6 +1,7 @@
 """Decoder layers: norms, RoPE, GQA attention with a ring-buffer KV cache
 and head padding, MLA attention with its latent cache, the SwiGLU MLP, the
-MoE FFN, embeddings (port of ``repro.models.layers``).
+MoE FFN, embeddings (port of ``repro.models.layers``).  The Mamba mixers
+of the SSM and hybrid families are ``models.ssm``.
 
 Each parameter set is an ``nn.Module`` whose parameter names are the
 reference's dictionary keys, so a ``state_dict`` reads like the
@@ -12,8 +13,8 @@ experts' weights are stacked on a leading expert axis.
 
 The reference's sharding annotations (``shard``) are no-ops outside a mesh
 and are dropped; the mode-B mesh is ROADMAP queue 1, item 12.  Cross-
-attention (``kv_source``) serves the encoder-decoder family, not ported
-(ROADMAP queue 1, item 12).
+attention (``kv_source``) serves the encoder-decoder family, and the modal
+projector the VLM family, neither ported (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -80,14 +81,23 @@ def _dense_init_(p: torch.Tensor, generator: torch.Generator, scale=None) -> Non
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for the families the port's decoder does not run."""
+    """Raise for the families the port's decoder does not run (the
+    encoder-decoder and VLM families), and for an SSM or hybrid config
+    without a Mamba variant or, hybrid, whose layers do not split into
+    whole groups."""
     if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"the {cfg.family!r} family ({cfg.name}) {NOT_PORTED}")
+        if cfg.ssm_variant not in ("mamba1", "mamba2"):
+            raise ValueError(f"{cfg.name}: the {cfg.family!r} family needs ssm_variant "
+                             f"'mamba1' or 'mamba2', not {cfg.ssm_variant!r}")
+        if cfg.family == "hybrid" and (cfg.shared_attn_every < 1
+                                       or cfg.n_layers % cfg.shared_attn_every):
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split into groups "
+                             f"of shared_attn_every = {cfg.shared_attn_every}")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"the encoder-decoder family ({cfg.name}) {NOT_PORTED}")
     if cfg.modality != "text":
         raise NotImplementedError(f"{cfg.modality} inputs ({cfg.name}) {NOT_PORTED}")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"the {cfg.family!r} family ({cfg.name}) {NOT_PORTED}")
 
 

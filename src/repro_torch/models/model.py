@@ -1,5 +1,5 @@
-"""The decoder-only LM of the dense and MoE families (port of the
-decoder-only branch of ``repro.models.model``).
+"""The decoder-only LM of the dense, MoE, SSM and hybrid families (port of
+the decoder-only, ``ssm`` and ``hybrid`` branches of ``repro.models.model``).
 
 Public API, as the reference's:
   init_params(cfg, generator, device)     -> DecoderLM
@@ -13,14 +13,21 @@ The reference scans stacked layers; here the layers are a ``ModuleList``
 and the scan a loop.  An MoE model (``cfg.n_experts``) has
 ``first_dense_layers`` dense blocks first, the reference's unstacked
 ``prefix_layers`` list, then MoE blocks; MLA (``cfg.use_mla``) replaces
-GQA attention in every block.  The decode cache keeps the reference's
-layout (``{"idx", "prefix": [...], "layers": {"k", "v"} or {"ckv",
-"krope"}}`` with the scanned layers stacked on a leading axis) and
-``decode_step`` writes it in place.  Parameters are created in
-``cfg.param_dtype`` (Arctic's bf16: each leaf, or each expert slab,
-drawn in f32 and cast, as the reference casts its f32 init).  The other
-families (SSM, hybrid, encoder-decoder, VLM) raise (ROADMAP queue 1, item
-12).
+GQA attention in every block.  An SSM model (Falcon-Mamba) is a stack of
+``MambaBlock``s (Mamba-1); a hybrid (Zamba2) is a stack of Mamba-2
+``MambaBlock``s in G = ``n_layers / shared_attn_every`` groups, each group
+led by one ``shared_attn`` block (its parameters shared by every group) on
+``concat(h, h0) @ in_proj``, ``h0`` the embedding output.  The decode
+cache keeps the reference's layout, the scanned layers stacked on a
+leading axis (``{"idx", "prefix": [...], "layers": {"k", "v"} or {"ckv",
+"krope"}}``; SSM ``{"idx", "layers": {"conv", "h"}}``; hybrid ``{"idx",
+"layers": {"attn": {"k", "v"}, "mamba": {"conv", "h"}}}`` stacked (G, ...)
+and (G, every, ...)), and ``decode_step`` writes it in place.  Parameters
+are created in ``cfg.param_dtype`` (Arctic's bf16: each leaf, or each
+expert slab, drawn in f32 and cast, as the reference casts its f32 init).
+With ``cfg.remat`` the Mamba layer and the hybrid's group are recomputed in
+the backward (the reference's ``jax.checkpoint`` of those scanned bodies).
+The encoder-decoder and VLM families raise (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -29,10 +36,12 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
 
@@ -81,6 +90,32 @@ def block_fwd(cfg: ArchConfig, p: Block, h: torch.Tensor, positions: torch.Tenso
     return h + f_out, new_cache, aux
 
 
+class MambaBlock(nn.Module):
+    """``init_mamba_block``: ``ln`` and the Mamba ``mixer``."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
+        super().__init__()
+        self.ln = L.Norm(cfg, cfg.d_model, device)
+        self.mixer = SSM.Mamba(cfg, generator, device)
+
+
+def mamba_block_fwd(cfg: ArchConfig, p: MambaBlock, h: torch.Tensor, state=None):
+    """Returns (h, the mixer's new state or None)."""
+    out, new_state = SSM.mamba_fwd(cfg, p.mixer, L.norm_fwd(p.ln, h), state)
+    return h + out, new_state
+
+
+class SharedAttention(nn.Module):
+    """The hybrid's ``shared_attn``: ``in_proj (2d, d)`` and one dense
+    ``block``, invoked once a group."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
+        super().__init__()
+        self.in_proj = L._param((2 * cfg.d_model, cfg.d_model), device, L._pdtype(cfg))
+        L._dense_init_(self.in_proj, generator)
+        self.block = Block(cfg, generator, device)
+
+
 def _n_prefix(cfg: ArchConfig) -> int:
     return cfg.first_dense_layers if cfg.n_experts else 0
 
@@ -89,7 +124,8 @@ class DecoderLM(nn.Module):
     """``init_params`` of the decoder: ``embedding``, ``final_norm``, for an
     MoE model ``prefix_layers`` (its ``first_dense_layers`` dense blocks),
     and ``layers`` (the reference's stacked L axis, one module per layer;
-    MoE blocks in an MoE model)."""
+    MoE blocks in an MoE model, ``MambaBlock``s in an SSM or hybrid model);
+    a hybrid adds ``shared_attn``."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
         super().__init__()
@@ -97,6 +133,12 @@ class DecoderLM(nn.Module):
         self.cfg = cfg
         self.embedding = L.Embedding(cfg, generator, device)
         self.final_norm = L.Norm(cfg, cfg.d_model, device)
+        if cfg.family in ("ssm", "hybrid"):
+            self.layers = nn.ModuleList(MambaBlock(cfg, generator, device)
+                                        for _ in range(cfg.n_layers))
+            if cfg.family == "hybrid":
+                self.shared_attn = SharedAttention(cfg, generator, device)
+            return
         n_prefix = _n_prefix(cfg)
         if n_prefix:
             self.prefix_layers = nn.ModuleList(Block(cfg, generator, device)
@@ -117,14 +159,81 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         return DecoderLM(cfg, generator, dev)
 
 
+def _remat(cfg: ArchConfig, fn, *args):
+    """``fn(*args)``; under autograd with ``cfg.remat``, checkpointed: its
+    activations are recomputed in the backward instead of kept (the
+    reference's ``jax.checkpoint`` of a scanned body)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _scan_mamba(cfg: ArchConfig, blocks, h: torch.Tensor,
+                states: Optional[Params] = None) -> torch.Tensor:
+    """The reference's ``_scan_mamba`` as a loop over ``blocks``; with
+    ``states`` (``conv`` and ``h`` stacked on a leading axis, one slice a
+    block) each block's new state is written into its slice in place."""
+    for i, lp in enumerate(blocks):
+        if states is None:
+            h = _remat(cfg, lambda x, lp=lp: mamba_block_fwd(cfg, lp, x)[0], h)
+            continue
+        h, new = mamba_block_fwd(cfg, lp, h, {k: t[i] for k, t in states.items()})
+        for k, t in states.items():
+            t[i].copy_(new[k])
+    return h
+
+
+def _shared_attn_apply(cfg: ArchConfig, p_sh: SharedAttention, h: torch.Tensor,
+                       h0: torch.Tensor, positions: torch.Tensor, cache=None,
+                       cache_index=None, flash: bool = True) -> torch.Tensor:
+    """Zamba's shared block: ``concat(h, h0) @ in_proj`` through the dense
+    block, added to ``h``.  The block adds its own input as well, so that
+    input enters twice, as in the reference."""
+    x = torch.cat([h, h0], dim=-1) @ p_sh.in_proj.to(h.dtype)
+    out, _, _ = block_fwd(cfg, p_sh.block, x, positions, cache=cache, cache_index=cache_index,
+                          flash=flash)
+    return h + out
+
+
+def _hybrid_trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor,
+                  positions: torch.Tensor, caches: Optional[Params] = None, cache_index=None,
+                  flash: bool = True) -> torch.Tensor:
+    """The reference's ``_hybrid_trunk``: G groups, each the shared block,
+    then ``shared_attn_every`` Mamba layers (group g: layers g * every ..
+    (g + 1) * every - 1).  With ``caches`` (``attn`` stacked (G, ...),
+    ``mamba`` (G, every, ...)) each group's slices are written in place."""
+    every = cfg.shared_attn_every
+    h0 = h
+    for g in range(cfg.n_layers // every):
+        blocks = params.layers[g * every:(g + 1) * every]
+        if caches is None:
+            def group(x, x0, blocks=blocks):
+                x = _shared_attn_apply(cfg, params.shared_attn, x, x0, positions, flash=flash)
+                return _scan_mamba(cfg, blocks, x)
+
+            h = _remat(cfg, group, h, h0)
+            continue
+        attn = {k: t[g] for k, t in caches["attn"].items()}
+        h = _shared_attn_apply(cfg, params.shared_attn, h, h0, positions, attn, cache_index,
+                               flash)
+        h = _scan_mamba(cfg, blocks, h, {k: t[g] for k, t in caches["mamba"].items()})
+    return h
+
+
 def _trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, positions: torch.Tensor,
            caches: Optional[Params] = None, cache_index=None, flash: bool = True
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The prefix blocks, then the reference's ``_scan_blocks`` as a loop;
     the stacked caches' layer slices are views, written in place.  Returns
     (h, aux): the prefix blocks' aux added in order, then the scanned
-    layers' sum, as the reference."""
+    layers' sum, as the reference.  The SSM and hybrid trunks have no aux
+    (0)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    layer_caches = None if caches is None else caches["layers"]
+    if cfg.family == "ssm":
+        return _scan_mamba(cfg, params.layers, h, layer_caches), aux
+    if cfg.family == "hybrid":
+        return _hybrid_trunk(cfg, params, h, positions, layer_caches, cache_index, flash), aux
     for i, lp in enumerate(getattr(params, "prefix_layers", ())):
         cache = None if caches is None else caches["prefix"][i]
         h, _, a = block_fwd(cfg, lp, h, positions, cache=cache, cache_index=cache_index,
@@ -230,13 +339,25 @@ def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
     next position, a host int), for an MoE model ``prefix`` (a list of one
     cache per prefix block), and the scanned layers' ``k``/``v`` stacked as
     ``(L, B, Hkv, capacity, hd)`` (MLA: ``ckv`` (L, B, capacity, r) and
-    ``krope`` (L, B, capacity, rd)), on ``device`` (None: the card)."""
+    ``krope`` (L, B, capacity, rd)), on ``device`` (None: the card).  SSM:
+    the layers' ``conv`` (L, B, kw - 1, di) and f32 ``h``; hybrid: the
+    shared block's ``attn`` ``k``/``v`` for each of the G groups, (G, B,
+    Hkv, capacity, hd), and ``mamba`` (G, every, ...) (``ssm.state_shapes``)."""
     L.check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or _dtype(cfg)
     cap = _cache_capacity(cfg, total_len)
     n_prefix = _n_prefix(cfg)
     cache: Params = {"idx": 0}
+    if cfg.family == "ssm":
+        cache["layers"] = SSM.init_ssm_state(cfg, batch, dt, dev, lead=(cfg.n_layers,))
+        return cache
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        G = cfg.n_layers // every
+        cache["layers"] = {"attn": L.init_kv_cache(cfg, batch, cap, dt, dev, lead=(G,)),
+                           "mamba": SSM.init_ssm_state(cfg, batch, dt, dev, lead=(G, every))}
+        return cache
     if n_prefix:
         cache["prefix"] = [L.init_kv_cache(cfg, batch, cap, dt, dev) for _ in range(n_prefix)]
     cache["layers"] = L.init_kv_cache(cfg, batch, cap, dt, dev,
@@ -247,8 +368,14 @@ def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
 def decode_step(cfg: ArchConfig, params: DecoderLM, cache: Params, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, Params]:
     """One-token decode: tokens (B, 1) -> (logits (B, 1, V), cache).  The
-    token's K/V go into slot ``idx % capacity`` of the cache's tensors, in
-    place; the returned cache holds the same tensors and ``idx + 1``."""
+    token's K/V go into slot ``idx % capacity`` of the cache's tensors (an
+    SSM layer's ``conv`` and ``h`` are replaced), in place; the returned
+    cache holds the same tensors and ``idx + 1``.  As the reference's, a
+    call may take S > 1 tokens (B, S): the SSM state folds them all in, and
+    attention writes S slots from ``idx`` under the causal mask; every
+    token's position is then ``idx`` and ``idx`` advances by one, so only
+    an attention-free (SSM) model takes a prompt in one call as a prefill
+    does."""
     dt = _dtype(cfg)
     idx = int(cache["idx"])
     B = tokens.shape[0]
@@ -289,7 +416,9 @@ def params_from_jax(tree: Params, cfg: ArchConfig, device=None) -> DecoderLM:
     layers stacked on a leading axis, an MoE model's ``prefix_layers`` a
     list) as a ``DecoderLM`` on ``device`` (None: the card): each stacked
     leaf ``layers/<path>`` becomes ``layers.<i>.<path>``, each
-    ``prefix_layers[i]/<path>`` ``prefix_layers.<i>.<path>``.  Every leaf
+    ``prefix_layers[i]/<path>`` ``prefix_layers.<i>.<path>``, a hybrid's
+    ``shared_attn/<path>`` ``shared_attn.<path>`` (its ``layers`` stay
+    stacked over all ``n_layers``: group g is layers g * every ..).  Every leaf
     keeps its type (bf16 stays bf16), and every leaf of either side must
     find its counterpart."""
     dev = resolve_device(device)

@@ -3,11 +3,13 @@
 
 ``build_prefill`` runs the full-sequence forward; at prompt lengths of at
 least ``layers.SDPA_CHUNK_THRESHOLD`` it reaches the flash-attention kernel
-in every layer.  ``build_decode_step`` appends one token against a KV cache
-of the context's length and runs no kernel of the port (the dense scores of
-one query are small), as in the reference.  The reference's
-``ServeConfig``, mesh and shardings wait for the mode-B mesh stack
-(ROADMAP queue 1, item 12); on one card they are no-ops.
+in every attention layer (a hybrid's shared block: once a group; an SSM
+model has none).  ``build_decode_step`` appends one token against a KV
+cache of the context's length (an SSM layer: its O(1) state) and runs no
+kernel of the port (the dense scores of one query are small), as in the
+reference.  The reference's ``ServeConfig``, mesh and shardings wait for
+the mode-B mesh stack (ROADMAP queue 1, item 12); on one card they are
+no-ops.
 """
 from __future__ import annotations
 
@@ -19,14 +21,30 @@ from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.data.specs import TensorSpec
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models import ssm as SSM
 
 
 def cache_shapes(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
     """The decode cache's layout for an input shape, without allocating it:
     ``idx``, an MoE model's ``prefix`` list and the stacked layers' specs
-    (``k``/``v``, or MLA's ``ckv``/``krope``)."""
+    (``k``/``v``, or MLA's ``ckv``/``krope``); SSM: ``conv`` (L, B, kw - 1,
+    di) and ``h`` (f32); hybrid: ``attn`` ``k``/``v`` stacked (G, ...) and
+    ``mamba`` ``conv``/``h`` stacked (G, every, ...)."""
     cap = M._cache_capacity(cfg, shape.seq_len)
     B, dt = shape.global_batch, getattr(torch, cfg.dtype)
+
+    def ssm(lead):
+        shapes = SSM.state_shapes(cfg, B)
+        return {"conv": TensorSpec(lead + shapes["conv"], dt),
+                "h": TensorSpec(lead + shapes["h"], torch.float32)}
+
+    if cfg.family == "ssm":
+        return {"idx": 0, "layers": ssm((cfg.n_layers,))}
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        kv = TensorSpec((cfg.n_layers // every, B, cfg.n_kv_heads, cap, cfg.head_dim_), dt)
+        return {"idx": 0, "layers": {"attn": {"k": kv, "v": kv},
+                                     "mamba": ssm((cfg.n_layers // every, every))}}
 
     def layer(lead):
         if cfg.use_mla:

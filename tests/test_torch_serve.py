@@ -243,22 +243,32 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
 
 def test_other_families_raise():
     """The families of later slices raise and name their ROADMAP item: the
-    SSM, hybrid, encoder-decoder and VLM configs and those families as
-    overrides of a served config, and training with bf16 parameters (MoE,
-    MLA and head padding run since their slice: tests/test_torch_moe*.py)."""
+    encoder-decoder and VLM configs and those families as overrides of a
+    served config, and training with bf16 parameters (MoE, MLA and head
+    padding run since their slice: tests/test_torch_moe*.py; the SSM and
+    hybrid families since theirs: tests/test_torch_ssm*.py, and as an
+    override of a config without a Mamba variant they raise ValueError)."""
     from repro.configs.registry import ARCHS as JARCHS
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.train import trainer as tr
-    for name in ("falcon-mamba-7b", "zamba2-1.2b", "seamless-m4t-medium", "llava-next-34b"):
+    for name in ("seamless-m4t-medium", "llava-next-34b"):
         assert name in JARCHS and name in tregistry.NOT_PORTED
         with pytest.raises(KeyError, match="ROADMAP queue 1, item 12"):
             tregistry.get_config(name)
-    for name in MOE:
+    assert tregistry.NOT_PORTED == ("seamless-m4t-medium", "llava-next-34b")
+    for name in MOE + ["falcon-mamba-7b", "zamba2-1.2b"]:
         assert tregistry.get_config(name).name == name
     with pytest.raises(KeyError, match="unknown arch"):
         tregistry.get_config("gpt-2")
     cfg = tregistry.get_config("qwen1.5-0.5b").reduced()
-    for over in ({"family": "ssm"}, {"family": "hybrid"}, {"is_encoder_decoder": True},
+    for over in ({"family": "ssm"}, {"family": "hybrid"}):
+        bad = dataclasses.replace(cfg, **over)
+        with pytest.raises(ValueError, match="ssm_variant"):
+            TM.init_params(bad, device="cpu")
+    bad = dataclasses.replace(tregistry.get_config("zamba2-1.2b").reduced(), n_layers=3)
+    with pytest.raises(ValueError, match="groups of shared_attn_every"):
+        TM.init_cache(bad, 1, 8, device="cpu")
+    for over in ({"is_encoder_decoder": True},
                  {"family": "vlm", "modality": "vision"}, {"modality": "audio"}):
         bad = dataclasses.replace(cfg, **over)
         for call in (lambda: TM.init_params(bad, device="cpu"),
