@@ -8,6 +8,7 @@ an NVIDIA H100.
     python3 chip_smoke.py --only train         # phase 1, then the trainer
     python3 chip_smoke.py --only moe           # phase 1, then the MoE family
     python3 chip_smoke.py --only ssm           # phase 1, then the SSM and hybrid families
+    python3 chip_smoke.py --only encdec        # phase 1, then the encoder-decoder and VLM
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
@@ -17,8 +18,9 @@ JSON line instead of the kernels line and the ok line; with ``--only
 cards`` it runs that phase's round, scan and engine parts on one ``nccl``
 rank per visible card (2 or more), the deployment sharding is for; with
 ``--only train`` the training part alone, as one JSON line; with ``--only
-moe`` the MoE part alone, and with ``--only ssm`` the SSM part alone, each
-as one JSON line.
+moe`` the MoE part alone, with ``--only ssm`` the SSM part alone, and with
+``--only encdec`` the encoder-decoder and VLM part alone, each as one JSON
+line.
 Phases, each of which fails the run:
 
   1. the card's name and power limit; build the seven kernel libraries of
@@ -329,7 +331,25 @@ Phases, each of which fails the run:
        (``SSM_TRUTH``); the f32 decode is held to the f32 prefill by the
        dense rule.  Then Zamba2 cut to 4 layers (2 groups, P =
        309,967,616) on the stacked robust-DP trainer, as the MoE's.
-       ``--only ssm`` runs phase 1 and this part alone.
+       ``--only ssm`` runs phase 1 and this part alone;
+     - the encoder-decoder and VLM families, on the port's seed-0 init,
+       each model freed before the next (``ENCDEC_SERVE``):
+       SeamlessM4T-medium uncut (12 + 12 layers), prefill 2 x 8192 (frames
+       and tokens) with exactly 12 kernel-8 launches a call (the decoder's
+       causal self-attention; the encoder's non-causal self-attention and
+       the cross-attention take the chunked online softmax), held against
+       ``flash=False`` by the dense rule; LLaVA-NeXT-34B at full width cut
+       to 24 of 60 layers, prefill 1 x 8192 (576 patch embeddings through
+       the projector and 7,616 tokens) with one launch a layer at 64
+       padded heads, held as the SSM part's; each prefill timed with its
+       peak memory and traced.  Each decode at batch 2 against a cache of
+       32,768 positions (Seamless's ``enc_out``: ``_encode``'s output of
+       4,096 frames) over 64 prompt and 32 greedy steps, held against one
+       prefill of the same frames and tokens (LLaVA: text only) as the SSM
+       part's, then 16 greedy steps timed.  Then Seamless cut to 6 + 6
+       layers (P = 752,316,416) on the stacked robust-DP trainer, frames
+       beside the tokens, as the MoE's.  ``--only encdec`` runs phase 1 and
+       this part alone.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -5510,8 +5530,10 @@ def run_moe_train(torch) -> tuple:
                         "1 dense prefix + 1 MoE")
 
 
-def run_lm_train(torch, label, arch, n_layers, K, what) -> tuple:
-    """``arch`` at full width cut to ``n_layers`` on the stacked robust-DP
+def run_lm_train(torch, label, arch, n_layers, K, what, n_enc_layers=None) -> tuple:
+    """``arch`` at full width cut to ``n_layers`` (an encoder-decoder's
+    encoder to ``n_enc_layers``, its frames drawn from seed 2 beside the
+    tokens) on the stacked robust-DP
     trainer: ``K`` candidates of one row at ``TRAIN_SEQ``, 2 under IPM-100,
     AdamW, ``TRAIN_STEPS`` steps each of WFAgg and Alt-WFAgg on ``fused``
     (each all-reduce held against ``fused_two_launch`` and ``reference``)
@@ -5531,19 +5553,27 @@ def run_lm_train(torch, label, arch, n_layers, K, what) -> tuple:
     from repro_torch.models import model as M
 
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    if n_enc_layers is not None:
+        cfg = dataclasses.replace(cfg, n_enc_layers=n_enc_layers)
     mesh = make_test_mesh(data=K)
     stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, K)
     batches = [stream.batch(i, device="cuda") for i in range(TRAIN_STEPS)]
+    if cfg.is_encoder_decoder:
+        g = torch.Generator(device="cuda").manual_seed(2)
+        for b in batches:
+            b["frames"] = torch.randn((K, TRAIN_SEQ, cfg.d_model), generator=g, device="cuda",
+                                      dtype=getattr(torch, cfg.dtype))
     bad = spaced_malicious(K, TRAIN_MALICIOUS).nonzero()[0].tolist()
     launches = dict.fromkeys(KERNELS, 0)
     P = sum(p.numel() for p in M.DecoderLM(cfg, torch.Generator(), "meta").parameters())
-    print(f"  {arch} cut to {cfg.n_layers} layers ({what}) at full width, P = {P}, K={K} "
+    print(f"  {arch} cut to {cfg.n_layers} layers ({what}) at full width, P = {P} "
+          f"({4 * P / 2 ** 30:.2f} GiB a copy), K={K} "
           f"candidates of one row at S={TRAIN_SEQ}, candidates {bad} under {TRAIN_ATTACK}, "
           f"AdamW lr {TRAIN_LR}, {TRAIN_STEPS} steps")
 
     def probe(state, batch):
         with torch.no_grad():
-            _, parts = M.loss_fn(cfg, state.params, {"tokens": batch["tokens"][:1]})
+            _, parts = M.loss_fn(cfg, state.params, {k: v[:1] for k, v in batch.items()})
         return {k: round(float(v), 5) for k, v in parts.items()}
 
     report = {"arch": arch, "layers": cfg.n_layers, "K": K, "P": P}
@@ -5703,27 +5733,31 @@ def ssm_model(torch, name):
     return cfg, params, info
 
 
-def ssm_prefill_check(torch, cfg, params, prompts, flash_layers):
-    """``build_prefill`` on the prompts, one call timed (its peak memory;
-    a second call differed by 1.6%, PERF.md §6) and one traced
-    (``trace_prefill``), each with ``flash_layers`` kernel-8 launches, all
-    on the tensor-core kernel.  With kernel 8 on the path, each prompt's
-    last ``PREFILL_TAIL`` positions of the timed call are held against the
-    ``flash=False`` route by ``SSM_TRUTH``'s rule, the f32-activation
-    ``flash=False`` prefill its truth.  Returns the prefill's numbers and
-    launches."""
+def lm_prefill_check(torch, cfg, params, prompts, flash_layers, extra=None, dense=False):
+    """``build_prefill`` on the prompts (with the ``extra`` entries of the
+    batch: an encoder-decoder's ``frames``, a VLM's ``patch_embeds``, whose
+    positions lead the logits), one call timed (its peak memory; a second
+    call differed by 1.6%, PERF.md §6) and one traced (``trace_prefill``),
+    each with ``flash_layers`` kernel-8 launches, all on the tensor-core
+    kernel.  With kernel 8 on the path, each prompt's last
+    ``PREFILL_TAIL`` positions of the timed call are held against the
+    ``flash=False`` route: with ``dense`` by the dense rule alone, else by
+    ``SSM_TRUTH``'s rule, the f32-activation ``flash=False`` prefill its
+    truth.  Returns the prefill's numbers and launches."""
     import dataclasses
 
     from repro_torch.train.serve import build_prefill
 
-    B, S = prompts.shape
+    batch = {"tokens": prompts, **(extra or {})}
+    B = prompts.shape[0]
+    S = prompts.shape[1] + (batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0)
     prefill = build_prefill(cfg)
     zero_counts()
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    logits = prefill(params, {"tokens": prompts})
+    logits = prefill(params, batch)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t)
     peak = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
@@ -5733,18 +5767,25 @@ def ssm_prefill_check(torch, cfg, params, prompts, flash_layers):
         raise AssertionError(f"{cfg.name}: non-finite prefill logits")
     got = logits[:, -PREFILL_TAIL:].float()
     del logits
-    out = {"trace": trace_prefill(torch, cfg, lambda: prefill(params, {"tokens": prompts}))}
+    out = {"trace": trace_prefill(torch, cfg, lambda: prefill(params, batch))}
     calls = 2
     if flash_layers:
         label = f"{cfg.name} prefill {B} x {S}, each prompt's last {PREFILL_TAIL} positions"
 
         def tail(pcfg):
-            lg = build_prefill(pcfg, flash=False)(params, {"tokens": prompts})
+            lg = build_prefill(pcfg, flash=False)(params, batch)
             t = lg[:, -PREFILL_TAIL:].float()
             del lg
             return t
 
         ref = tail(cfg)
+    if flash_layers and dense:
+        check_logits(torch, f"{label}: the {cfg.dtype} flash route (kernel 8) vs the "
+                     f"{cfg.dtype} flash=False route", got, ref)
+        out["flash_vs_chunked"] = dict(zip(("rms", "largest"), logit_gap(
+            torch, f"{label}: flash vs flash=False", got, ref)), rule="dense")
+        del ref
+    elif flash_layers:
         truth = tail(dataclasses.replace(cfg, dtype="float32"))
         out["flash_vs_truth"] = logit_gap(
             torch, f"{label}: the {cfg.dtype} flash route (kernel 8) vs the f32 flash=False "
@@ -5774,20 +5815,32 @@ def ssm_prefill_check(torch, cfg, params, prompts, flash_layers):
     return out
 
 
-def ssm_decode_check(torch, cfg, params, batch, positions, prompt_len, one_call, greedy, g):
+def lm_decode_check(torch, cfg, params, batch, positions, prompt_len, one_call, greedy, g,
+                    frames=None):
     """``build_decode_step`` at ``batch`` against a cache of ``positions``: a
     random prompt (its first ``one_call`` tokens in one stateful call, the
     rest a token a step), then ``greedy`` greedy tokens; the held logits
     against one prefill of the same tokens: in f32 (the same calls
     replayed) by the dense rule, in the model's activations by
-    ``SSM_TRUTH``'s rule; then ``SSM_DECODE_TIMED`` greedy steps timed.  No
+    ``SSM_TRUTH``'s rule; then ``SSM_DECODE_TIMED`` greedy steps timed.  An
+    encoder-decoder's caches hold ``_encode``'s output of ``frames`` (in
+    the route's activations), and its prefills take those frames.  No
     kernel launches."""
     import dataclasses
 
     from repro_torch.models import model as M
     from repro_torch.train.serve import build_decode_step, build_prefill
 
-    cache = M.init_cache(cfg, batch, positions)
+    extra = {} if frames is None else {"frames": frames}
+
+    def new_cache(ccfg, total):
+        c = M.init_cache(ccfg, batch, total, enc_len=0 if frames is None else frames.shape[1])
+        if frames is not None:
+            with torch.inference_mode():
+                c["enc_out"].copy_(M._encode(ccfg, params, frames))
+        return c
+
+    cache = new_cache(cfg, positions)
     cache_gib = sum(t.numel() * t.element_size() for t in
                     [t for v in cache["layers"].values()
                      for t in (v.values() if isinstance(v, dict) else [v])]) / 2 ** 30
@@ -5832,9 +5885,9 @@ def ssm_decode_check(torch, cfg, params, batch, positions, prompt_len, one_call,
                              f"{bool(torch.isfinite(st).all())}")
 
     f32 = dataclasses.replace(cfg, dtype="float32")
-    pf = build_prefill(cfg)(params, {"tokens": seq}).float()
-    truth = build_prefill(f32)(params, {"tokens": seq}).float()
-    c32 = M.init_cache(f32, batch, seq.shape[1])
+    pf = build_prefill(cfg)(params, {"tokens": seq, **extra}).float()
+    truth = build_prefill(f32)(params, {"tokens": seq, **extra}).float()
+    c32 = new_cache(f32, seq.shape[1])
     step32 = build_decode_step(f32)
     d32 = []
     for a, b in splits + [(t, t + 1) for t in range(prompt_len, seq.shape[1])]:
@@ -5882,11 +5935,11 @@ def run_ssm_serve(torch) -> tuple:
         cfg, params, info = ssm_model(torch, name)
         prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda",
                                 dtype=torch.int32)
-        r = dict(info, prefill=ssm_prefill_check(torch, cfg, params, prompts, flash_layers))
+        r = dict(info, prefill=lm_prefill_check(torch, cfg, params, prompts, flash_layers))
         launches["flash_attention"] += r["prefill"]["launches"]
         del prompts
-        r["decode"] = ssm_decode_check(torch, cfg, params, batch, positions, prompt, one_call,
-                                       greedy, g)
+        r["decode"] = lm_decode_check(torch, cfg, params, batch, positions, prompt, one_call,
+                                      greedy, g)
         report[name] = r
         del params
         gc.collect()
@@ -5912,12 +5965,128 @@ def run_ssm_path(torch) -> tuple:
     return launches, err, flash_times, {"card": card, "serve": serve, "train": train}
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the encoder-decoder and VLM families (serving SeamlessM4T-medium
+# uncut and LLaVA-NeXT-34B at full width cut in depth; training the
+# encoder-decoder through kernels 1, 4 and 6)
+# ---------------------------------------------------------------------------
+
+# (arch, layers (None: uncut), prefill (B, S positions), kernel-8 launches a
+# prefill, decode batch, decode cache positions, random prompt tokens,
+# greedy steps held, the prefill hold's rule): each decode's held logits
+# (prompt and greedy, 96 positions) against one prefill of the same tokens.
+# Seamless's S positions are S frames and S tokens, its decode caches
+# ``ENC_LEN_DECODE`` encoded frames; LLaVA's are ``n_modal_tokens`` patches
+# and S - n_modal tokens, its decode and the prefill it is held to take
+# text only (the reference's ``decode_step`` embeds tokens only).
+ENCDEC_SERVE = (
+    ("seamless-m4t-medium", None, (2, 8192), 12, 2, 32768, 64, 32, "dense"),  # 2308.11596
+    # 24 of 60 layers: 53.51 GiB of f32 parameters (uncut 128.33 GiB); at 20
+    # layers the part's peak was 54.0 GiB, so 24 leave ~16 GiB of the card free
+    ("llava-next-34b", 24, (1, 8192), 24, 2, 32768, 64, 32, "truth"),
+)
+ENCDEC_TRAIN_ARCH = "seamless-m4t-medium"
+ENCDEC_TRAIN_LAYERS = 6        # 6 encoder + 6 decoder layers: P = 752,316,416
+ENCDEC_TRAIN_K = 6
+
+
+def family_model(torch, name, n_layers):
+    """The model on the seed-0 init, cut to ``n_layers`` (None: uncut), its
+    size and init time printed."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(name)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    info = dict(params=n, param_gib=round(nbytes / 2 ** 30, 2), init_s=round(secs, 2))
+    enc = (f"{cfg.n_enc_layers} encoder + " if cfg.is_encoder_decoder else "")
+    pad = f" padded to {cfg.pad_heads_to}" if cfg.pad_heads_to else ""
+    modal = (f", {cfg.n_modal_tokens} patch embeddings through the projector"
+             if cfg.n_modal_tokens else "")
+    print(f"  {name}{f' cut to {n_layers} layers' if n_layers else ' uncut'}: {enc}"
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim_}{pad} ({cfg.n_kv_heads} KV), d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}{modal}; {n} {cfg.param_dtype} parameters ({info['param_gib']} "
+          f"GiB), initialised in {secs:.2f} s")
+    return cfg, params, info
+
+
+def run_encdec_serve(torch) -> tuple:
+    """SeamlessM4T-medium and LLaVA-NeXT-34B (``ENCDEC_SERVE``) served, one
+    after another, each freed before the next: the prefill with its frames
+    or patches (``lm_prefill_check``), then the decode (``lm_decode_check``;
+    Seamless's caches hold ``_encode``'s output of ``ENC_LEN_DECODE``
+    frames).  Returns (launches, report)."""
+    from repro_torch.data.specs import ENC_LEN_DECODE
+    from repro_torch.models.model import MODAL_EMBED_DIM
+
+    report, launches = {}, dict.fromkeys(KERNELS, 0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for (name, n_layers, (B, S), flash_layers, batch, positions, prompt, greedy,
+         rule) in ENCDEC_SERVE:
+        cfg, params, info = family_model(torch, name, n_layers)
+        dt = getattr(torch, cfg.dtype)
+        if cfg.is_encoder_decoder:
+            extra = {"frames": torch.randn((B, S, cfg.d_model), generator=g, device="cuda",
+                                           dtype=dt)}
+            n_tok = S
+        else:
+            extra = {"patch_embeds": torch.randn((B, cfg.n_modal_tokens, MODAL_EMBED_DIM),
+                                                 generator=g, device="cuda", dtype=dt)}
+            n_tok = S - cfg.n_modal_tokens
+        prompts = torch.randint(0, cfg.vocab_size, (B, n_tok), generator=g, device="cuda",
+                                dtype=torch.int32)
+        r = dict(info, prefill=lm_prefill_check(torch, cfg, params, prompts, flash_layers,
+                                                extra, dense=rule == "dense"))
+        launches["flash_attention"] += r["prefill"]["launches"]
+        del prompts, extra
+        frames = (torch.randn((batch, ENC_LEN_DECODE, cfg.d_model), generator=g,
+                              device="cuda", dtype=dt) if cfg.is_encoder_decoder else None)
+        r["decode"] = lm_decode_check(torch, cfg, params, batch, positions, prompt, 0, greedy,
+                                      g, frames=frames)
+        report[name] = r
+        del params, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name} freed: the process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+              "GiB")
+    return launches, report
+
+
+def run_encdec_path(torch) -> tuple:
+    """The encoder-decoder and VLM part: Seamless and LLaVA served, Seamless
+    trained.  Returns (launches, report)."""
+    card = gpu_line()
+    print(f"  {card}")
+    launches, serve = run_encdec_serve(torch)
+    train_launches, train = run_lm_train(
+        torch, "encdec train", ENCDEC_TRAIN_ARCH, ENCDEC_TRAIN_LAYERS, ENCDEC_TRAIN_K,
+        f"{ENCDEC_TRAIN_LAYERS} encoder + {ENCDEC_TRAIN_LAYERS} decoder",
+        n_enc_layers=ENCDEC_TRAIN_LAYERS)
+    for k in KERNELS:
+        launches[k] += train_launches[k]
+    return launches, {"card": card, "serve": serve, "train": train}
+
+
 def main(argv=()) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("distributed", "cards", "train", "moe", "ssm"):
-        print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm]", file=sys.stderr)
+    if argv and only not in ("distributed", "cards", "train", "moe", "ssm", "encdec"):
+        print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm|encdec]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5967,6 +6136,12 @@ def main(argv=()) -> int:
         launches, err, flash_times, report = run_ssm_path(torch)
         print(json.dumps({"ssm": {"launches": launches, "flash_max_abs_err": err,
                                   "flash_times": flash_times, "report": report}}))
+        return 0
+    if only == "encdec":
+        print("[3] the encoder-decoder and VLM families alone (--only encdec): no kernels or "
+              "ok line")
+        launches, report = run_encdec_path(torch)
+        print(json.dumps({"encdec": {"launches": launches, "report": report}}))
         return 0
     if only == "cards":
         print(f"[3] the distributed parts on one nccl rank per card (--only cards): "
@@ -6235,6 +6410,12 @@ def main(argv=()) -> int:
     errs["flash_attention"].append(ssm_err)
     timed["flash_attention"]["zamba2_shape"] = ssm_flash
 
+    print("[3] the encoder-decoder and VLM families: SeamlessM4T-medium uncut and "
+          f"LLaVA-NeXT-34B ({ENCDEC_SERVE[1][1]} layers) served; Seamless "
+          f"({ENCDEC_TRAIN_LAYERS} + {ENCDEC_TRAIN_LAYERS} layers) trained on the stacked "
+          f"robust-DP trainer, K={ENCDEC_TRAIN_K}")
+    encdec_launches, _ = run_encdec_path(torch)
+
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
     # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
@@ -6248,15 +6429,18 @@ def main(argv=()) -> int:
     # Moonlight and Arctic prefills, all on the tensor-core kernel) and its
     # training's kernels 1, 4 and 6; the SSM part's kernel 8 (Zamba2's
     # prefills, on the tensor-core kernel) and its training's kernels 1, 4
-    # and 6
+    # and 6; the encoder-decoder and VLM part's kernel 8 (the Seamless and
+    # LLaVA prefills, on the tensor-core kernel) and its training's kernels
+    # 1, 4 and 6
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
                 + adaptive_launches[name] + table_launches[name]
                 + gathered_launches[name] + serve_launches[name] + dist_launches[name]
                 + train_launches[name] + moe_launches[name] + ssm_launches[name]
-                for name in KERNELS}
+                + encdec_launches[name] for name in KERNELS}
     timed["flash_attention"]["launches_tc"] = (serve_launches["flash_attention[tensor_core]"]
                                                + moe_launches["flash_attention"]
-                                               + ssm_launches["flash_attention"])
+                                               + ssm_launches["flash_attention"]
+                                               + encdec_launches["flash_attention"])
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])

@@ -6,8 +6,9 @@ order, depth first), so a raveled tree is ``ravel_pytree``'s vector.  A
 ``DecoderLM`` stands for the reference's parameter tree (``module_tree``):
 each stacked leaf ``layers/<path>`` holds layer 0's tensor, then layer
 1's, and so on, the order in which ``models.model.params_from_jax``
-unstacks it; an MoE model's ``prefix_layers`` is a list of block trees,
-after ``layers`` (sorted keys), ordered by their integer index; a hybrid's
+unstacks it (an encoder-decoder's ``enc_layers/<path>`` likewise); an
+MoE model's ``prefix_layers`` is a list of block trees, after ``layers``
+(sorted keys), ordered by their integer index; a hybrid's
 ``shared_attn`` is one unstacked tree, after ``layers``.  Keys sort as
 Python strings, capitals first (a Mamba mixer's ``A_log``, ``D``, then
 ``bc_proj``, ...), as ``jax.tree.leaves`` sorts them.
@@ -80,17 +81,20 @@ def tree_bytes(tree) -> int:
 
 Path = Tuple[object, ...]     # dict keys (str) and list indices (int)
 
+# the module lists that stand for a stacked leading L axis of the tree
+STACKED = ("layers", "enc_layers")
+
 
 def _groups(model: nn.Module) -> List[Tuple[Path, List[nn.Parameter]]]:
     """(reference path, the module's parameters of that leaf) in ravel
     order; a ``layers.<i>.<path>`` parameter joins leaf ``layers/<path>``
-    at position i; a ``prefix_layers.<i>.<path>`` parameter is leaf
-    ``("prefix_layers", i, *path)`` of the list."""
+    at position i (``enc_layers`` likewise); a ``prefix_layers.<i>.<path>``
+    parameter is leaf ``("prefix_layers", i, *path)`` of the list."""
     groups: Dict[Path, Dict[Optional[int], nn.Parameter]] = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "layers" and parts[1].isdigit():
-            groups.setdefault(("layers",) + tuple(parts[2:]), {})[int(parts[1])] = p
+        if parts[0] in STACKED and parts[1].isdigit():
+            groups.setdefault((parts[0],) + tuple(parts[2:]), {})[int(parts[1])] = p
         elif parts[0] == "prefix_layers":
             groups[("prefix_layers", int(parts[1])) + tuple(parts[2:])] = {None: p}
         else:
@@ -106,7 +110,7 @@ def _groups(model: nn.Module) -> List[Tuple[Path, List[nn.Parameter]]]:
 
 def _shape(path: Path, params: List[nn.Parameter]) -> Tuple[int, ...]:
     shape = tuple(params[0].shape)
-    return (len(params),) + shape if path[0] == "layers" else shape
+    return (len(params),) + shape if path[0] in STACKED else shape
 
 
 def module_params(model: nn.Module) -> List[nn.Parameter]:
@@ -155,7 +159,7 @@ def module_tree(model: nn.Module) -> dict:
         return _unravel(flat, [(path, _shape(path, ps)) for path, ps in groups])
     tree: dict = {}
     for path, ps in groups:
-        leaf = torch.stack([p.detach() for p in ps]) if path[0] == "layers" else ps[0].detach()
+        leaf = torch.stack([p.detach() for p in ps]) if path[0] in STACKED else ps[0].detach()
         _put(tree, path, leaf)
     return _listify(tree)
 

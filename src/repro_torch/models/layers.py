@@ -12,9 +12,9 @@ out as the reference's, ``(d_in, d_out)``, and applied as ``x @ w``; the
 experts' weights are stacked on a leading expert axis.
 
 The reference's sharding annotations (``shard``) are no-ops outside a mesh
-and are dropped; the mode-B mesh is ROADMAP queue 1, item 12.  Cross-
-attention (``kv_source``) serves the encoder-decoder family, and the modal
-projector the VLM family, neither ported (ROADMAP queue 1, item 12).
+and are dropped; the mode-B mesh is ROADMAP queue 1, item 12.  Non-causal
+attention serves the encoder-decoder's encoder, and cross-attention
+(``kv_source``) its decoder; neither reaches the causal flash kernel.
 """
 from __future__ import annotations
 
@@ -28,7 +28,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attn.ops import flash_attention
 
-NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 12)"
+# the families of ``repro.models.model``: ``vlm`` and ``audio`` (the
+# encoder-decoder) are decoders too, with a modal prefix or an encoder
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio")
 
 # KV lengths at or above this take the chunked online-softmax route (or
 # the flash kernel); below it the dense scores are cheaper
@@ -81,10 +83,10 @@ def _dense_init_(p: torch.Tensor, generator: torch.Generator, scale=None) -> Non
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise for the families the port's decoder does not run (the
-    encoder-decoder and VLM families), and for an SSM or hybrid config
-    without a Mamba variant or, hybrid, whose layers do not split into
-    whole groups."""
+    """Raise for what the reference's model cannot run: a family that is
+    not a language model (the paper's CNN is ``models.lenet``), an SSM or
+    hybrid config without a Mamba variant or, hybrid, whose layers do not
+    split into whole groups."""
     if cfg.family in ("ssm", "hybrid"):
         if cfg.ssm_variant not in ("mamba1", "mamba2"):
             raise ValueError(f"{cfg.name}: the {cfg.family!r} family needs ssm_variant "
@@ -93,12 +95,10 @@ def check_family(cfg: ArchConfig) -> None:
                                        or cfg.n_layers % cfg.shared_attn_every):
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split into groups "
                              f"of shared_attn_every = {cfg.shared_attn_every}")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"the encoder-decoder family ({cfg.name}) {NOT_PORTED}")
-    if cfg.modality != "text":
-        raise NotImplementedError(f"{cfg.modality} inputs ({cfg.name}) {NOT_PORTED}")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"the {cfg.family!r} family ({cfg.name}) {NOT_PORTED}")
+    if cfg.family not in LM_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family ({cfg.name}) is not a language model: the "
+            f"decoder runs {LM_FAMILIES}; the paper's CNN is repro_torch.models.lenet")
 
 
 # ---------------------------------------------------------------------------
@@ -207,10 +207,12 @@ def init_kv_cache(cfg: ArchConfig, batch: int, capacity: int, dtype, device=None
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _sdpa(q, k, v, mask: torch.Tensor, scale) -> torch.Tensor:
-    """q (B,H,Sq,hd), k/v (B,H,Sk,hd) -> (B,H,Sq,hd)."""
+def _sdpa(q, k, v, mask: Optional[torch.Tensor], scale) -> torch.Tensor:
+    """q (B,H,Sq,hd), k/v (B,H,Sk,hd) -> (B,H,Sq,hd); ``mask`` None: every
+    key."""
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
-    scores = torch.where(mask, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", w, v)
 
@@ -219,7 +221,8 @@ def _sdpa_chunked(q, k, v, scale, mask_chunk_fn, chunk: int = SDPA_CHUNK) -> tor
     """Online-softmax attention over KV chunks with a running (max,
     denominator, accumulator); ``mask_chunk_fn(offset, C)`` gives the mask
     block (broadcastable to (B, 1|H, Sq, C)) of KV slots [offset, offset+C),
-    so neither the (Sq, Sk) scores nor the mask exist whole."""
+    so neither the (Sq, Sk) scores nor the mask exist whole; None masks
+    only the padding past Sk."""
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
     nc = -(-Sk // chunk)
@@ -235,7 +238,8 @@ def _sdpa_chunked(q, k, v, scale, mask_chunk_fn, chunk: int = SDPA_CHUNK) -> tor
         kc, vc = k[:, :, off:off + chunk], v[:, :, off:off + chunk]
         s = torch.einsum("bhqd,bhkd->bhqk", q, kc).to(torch.float32) * scale
         msk = ((off + torch.arange(chunk, device=q.device)) < Sk)[None, None, None, :]
-        msk = msk & mask_chunk_fn(off, chunk)
+        if mask_chunk_fn is not None:
+            msk = msk & mask_chunk_fn(off, chunk)
         s = torch.where(msk, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.where(msk, torch.exp(s - m_new[..., None]), 0.0)
@@ -260,36 +264,48 @@ def attention_fwd(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    causal: bool = True,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_index: Optional[int] = None,
+    kv_source: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
     flash: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Causal GQA self-attention.
+    """GQA attention.
 
     Modes:
-      prefill: cache=None -> full causal self-attention.
+      prefill: cache=None -> full self-attention, causal unless ``causal``
+               is False (the encoder: no mask at all).
       decode:  cache given -> write x's K/V at ``cache_index`` (ring buffer
                modulo capacity, i.e. a sliding window when the capacity is
                below the positions seen), in place, and attend to the cache.
+      cross:   ``kv_source`` (B, Sk, d) given -> K and V from it, over its
+               own length: no RoPE, no cache write.  RoPE applies to
+               self-attention with ``use_rope``.
     ``flash`` is the port of the reference's ``REPRO_FLASH_KERNEL`` switch
-    (``src/repro/models/layers.py:172``): with it, self-attention without
-    a cache over at least ``SDPA_CHUNK_THRESHOLD`` keys and 128
-    queries runs the flash kernel; without it that branch runs
-    ``_sdpa_chunked``.  Returns (out, cache)."""
+    (``src/repro/models/layers.py:172``): with it, causal self-attention
+    without a cache over at least ``SDPA_CHUNK_THRESHOLD`` keys and 128
+    queries runs the flash kernel; every other attention at that size
+    (without it, non-causal, cross or cached) runs ``_sdpa_chunked``.
+    Returns (out, cache)."""
     B, S, d = x.shape
     hd, H, Hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
     dt = x.dtype
+    src = x if kv_source is None else kv_source
 
     q = x @ p.wq.to(dt)
-    k = x @ p.wk.to(dt)
-    v = x @ p.wv.to(dt)
+    k = src @ p.wk.to(dt)
+    v = src @ p.wv.to(dt)
     if cfg.qkv_bias:
         q = q + p.bq.to(dt)
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
-    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, S, Hkv, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, S, Hkv, hd)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, src.shape[1], Hkv, hd)
+    v = v.reshape(B, src.shape[1], Hkv, hd)
+    if use_rope and kv_source is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     q = q.transpose(1, 2)  # (B,H,S,hd)
     k = k.transpose(1, 2)  # (B,Hkv,S,hd)
@@ -315,13 +331,15 @@ def attention_fwd(
             return valid & (slots_c[None, :] <= qpos[:, None])[None, None, :, :]
 
         mask_chunk_fn = _cache_mask
-    else:
+    elif causal:
         def _causal_mask(off, C):
             pos = F.pad(positions, (0, (-positions.shape[1]) % C))
             kpos_c = pos[:, off:off + C]
             return kpos_c[:, None, None, :] <= positions[:, None, :, None]
 
         mask_chunk_fn = _causal_mask
+    else:
+        mask_chunk_fn = None
 
     k = _repeat_kv(k, H // Hkv)
     v = _repeat_kv(v, H // Hkv)
@@ -336,12 +354,13 @@ def attention_fwd(
     # the chunked (or flash) route only when both dims are large: a decode
     # step's (B, H, 1, Sk) scores are small
     if k.shape[2] >= SDPA_CHUNK_THRESHOLD and q.shape[2] >= 128:
-        if flash and cache is None:
+        if flash and cache is None and causal and kv_source is None:
             out = flash_attention(q, k, v, float(1.0 / hd ** 0.5), causal=True)
         else:
             out = _sdpa_chunked(q, k, v, scale, mask_chunk_fn)
     else:
-        out = _sdpa(q, k, v, mask_chunk_fn(0, k.shape[2]), scale)
+        mask = None if mask_chunk_fn is None else mask_chunk_fn(0, k.shape[2])
+        out = _sdpa(q, k, v, mask, scale)
     out = out[:, :H].transpose(1, 2).reshape(B, S, H * hd)
     return out @ p.wo.to(dt), cache
 

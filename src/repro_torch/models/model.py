@@ -1,5 +1,5 @@
-"""The decoder-only LM of the dense, MoE, SSM and hybrid families (port of
-the decoder-only, ``ssm`` and ``hybrid`` branches of ``repro.models.model``).
+"""The LM of every family of ``repro.models.model``: the decoder-only dense,
+MoE, SSM, hybrid and VLM families and the encoder-decoder.
 
 Public API, as the reference's:
   init_params(cfg, generator, device)     -> DecoderLM
@@ -22,12 +22,19 @@ cache keeps the reference's layout, the scanned layers stacked on a
 leading axis (``{"idx", "prefix": [...], "layers": {"k", "v"} or {"ckv",
 "krope"}}``; SSM ``{"idx", "layers": {"conv", "h"}}``; hybrid ``{"idx",
 "layers": {"attn": {"k", "v"}, "mamba": {"conv", "h"}}}`` stacked (G, ...)
-and (G, every, ...)), and ``decode_step`` writes it in place.  Parameters
+and (G, every, ...); encoder-decoder ``{"idx", "enc_out", "layers"}``),
+and ``decode_step`` writes it in place.  The encoder-decoder (Seamless)
+runs stub frame embeddings (B, S_enc, d) through ``enc_in_proj``, a stack
+of non-causal dense ``enc_layers`` and ``enc_norm``; its decoder blocks
+cross-attend to that output (``Block(cross=True)``: ``ln_x``, ``xattn``,
+between the self-attention and the FFN).  The VLM (LLaVA) maps stub patch
+embeddings (B, n_modal, ``MODAL_EMBED_DIM``) through the two-layer GELU
+``projector`` and prepends them to the token embeddings.  Parameters
 are created in ``cfg.param_dtype`` (Arctic's bf16: each leaf, or each
 expert slab, drawn in f32 and cast, as the reference casts its f32 init).
 With ``cfg.remat`` the Mamba layer and the hybrid's group are recomputed in
-the backward (the reference's ``jax.checkpoint`` of those scanned bodies).
-The encoder-decoder and VLM families raise (ROADMAP queue 1, item 12).
+the backward (the reference's ``jax.checkpoint`` of those scanned bodies);
+the dense blocks' remat is ROADMAP queue 1, item 12.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -44,6 +52,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
+
+MODAL_EMBED_DIM = 1024  # stubbed ViT/conv frontend output width
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -57,30 +67,43 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 class Block(nn.Module):
     """``init_block``: ``ln1``, ``attn`` (GQA, or MLA with ``cfg.use_mla``),
     ``ln2`` and ``ffn``, the SwiGLU MLP (``kind="dense"``) or the MoE FFN
-    (``kind="moe"``)."""
+    (``kind="moe"``); with ``cross`` (the encoder-decoder's decoder) also
+    ``ln_x`` and the cross-attention ``xattn``."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None,
-                 kind: str = "dense"):
+                 kind: str = "dense", cross: bool = False):
         super().__init__()
         self.kind = kind
         self.ln1 = L.Norm(cfg, cfg.d_model, device)
         self.attn = (L.MLAAttention if cfg.use_mla else L.Attention)(cfg, generator, device)
         self.ln2 = L.Norm(cfg, cfg.d_model, device)
         self.ffn = (L.MoE if kind == "moe" else L.MLP)(cfg, generator, device)
+        if cross:
+            self.ln_x = L.Norm(cfg, cfg.d_model, device)
+            self.xattn = L.Attention(cfg, generator, device)
 
 
 def block_fwd(cfg: ArchConfig, p: Block, h: torch.Tensor, positions: torch.Tensor, *,
-              cache: Optional[Params] = None, cache_index=None,
+              causal: bool = True, cache: Optional[Params] = None, cache_index=None,
+              enc_out: Optional[torch.Tensor] = None,
               flash: bool = True) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """Returns (h, cache, aux): the MoE FFN's load-balance loss, else 0."""
+    """Returns (h, cache, aux): the MoE FFN's load-balance loss, else 0.
+    ``causal=False``: the encoder's self-attention; ``enc_out`` (B, S_enc,
+    d): a cross block attends to it (no mask, no RoPE) after its
+    self-attention."""
     a_in = L.norm_fwd(p.ln1, h)
     if cfg.use_mla:
         attn_out, new_cache = L.mla_attention_fwd(cfg, p.attn, a_in, positions, cache=cache,
                                                   cache_index=cache_index)
     else:
-        attn_out, new_cache = L.attention_fwd(cfg, p.attn, a_in, positions, cache=cache,
-                                              cache_index=cache_index, flash=flash)
+        attn_out, new_cache = L.attention_fwd(cfg, p.attn, a_in, positions, causal=causal,
+                                              cache=cache, cache_index=cache_index,
+                                              flash=flash)
     h = h + attn_out
+    if enc_out is not None:
+        x_out, _ = L.attention_fwd(cfg, p.xattn, L.norm_fwd(p.ln_x, h), positions,
+                                   causal=False, kv_source=enc_out, use_rope=False)
+        h = h + x_out
     f_in = L.norm_fwd(p.ln2, h)
     if p.kind == "moe":
         f_out, aux = L.moe_fwd(cfg, p.ffn, f_in)
@@ -116,16 +139,35 @@ class SharedAttention(nn.Module):
         self.block = Block(cfg, generator, device)
 
 
+class Projector(nn.Module):
+    """The VLM's modal ``projector``: ``w1 (MODAL_EMBED_DIM, d)``, ``w2 (d,
+    d)``."""
+
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
+        super().__init__()
+        for name, shape in (("w1", (MODAL_EMBED_DIM, cfg.d_model)),
+                            ("w2", (cfg.d_model, cfg.d_model))):
+            setattr(self, name, L._param(shape, device, L._pdtype(cfg)))
+            L._dense_init_(getattr(self, name), generator)
+
+
 def _n_prefix(cfg: ArchConfig) -> int:
     return cfg.first_dense_layers if cfg.n_experts else 0
 
 
+def _has_projector(cfg: ArchConfig) -> bool:
+    return cfg.family == "vlm" or cfg.modality == "vision"
+
+
 class DecoderLM(nn.Module):
-    """``init_params`` of the decoder: ``embedding``, ``final_norm``, for an
+    """``init_params`` of the LM: ``embedding``, ``final_norm``, for an
     MoE model ``prefix_layers`` (its ``first_dense_layers`` dense blocks),
     and ``layers`` (the reference's stacked L axis, one module per layer;
-    MoE blocks in an MoE model, ``MambaBlock``s in an SSM or hybrid model);
-    a hybrid adds ``shared_attn``."""
+    MoE blocks in an MoE model, ``MambaBlock``s in an SSM or hybrid model,
+    cross blocks in an encoder-decoder); a hybrid adds ``shared_attn``, an
+    encoder-decoder ``enc_in_proj (d, d)``, ``enc_layers`` (``n_enc_layers``
+    dense blocks, stacked as ``layers``) and ``enc_norm``, a VLM the
+    ``projector``."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
         super().__init__()
@@ -139,6 +181,15 @@ class DecoderLM(nn.Module):
             if cfg.family == "hybrid":
                 self.shared_attn = SharedAttention(cfg, generator, device)
             return
+        if cfg.is_encoder_decoder:
+            self.enc_in_proj = L._param((cfg.d_model, cfg.d_model), device, L._pdtype(cfg))
+            L._dense_init_(self.enc_in_proj, generator)
+            self.enc_layers = nn.ModuleList(Block(cfg, generator, device)
+                                            for _ in range(cfg.n_enc_layers))
+            self.enc_norm = L.Norm(cfg, cfg.d_model, device)
+            self.layers = nn.ModuleList(Block(cfg, generator, device, cross=True)
+                                        for _ in range(cfg.n_layers))
+            return
         n_prefix = _n_prefix(cfg)
         if n_prefix:
             self.prefix_layers = nn.ModuleList(Block(cfg, generator, device)
@@ -146,6 +197,8 @@ class DecoderLM(nn.Module):
         kind = "moe" if cfg.n_experts else "dense"
         self.layers = nn.ModuleList(Block(cfg, generator, device, kind)
                                     for _ in range(cfg.n_layers - n_prefix))
+        if _has_projector(cfg):
+            self.projector = Projector(cfg, generator, device)
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -221,13 +274,13 @@ def _hybrid_trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor,
 
 
 def _trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, positions: torch.Tensor,
-           caches: Optional[Params] = None, cache_index=None, flash: bool = True
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
+           caches: Optional[Params] = None, cache_index=None, flash: bool = True,
+           enc_out: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The prefix blocks, then the reference's ``_scan_blocks`` as a loop;
-    the stacked caches' layer slices are views, written in place.  Returns
-    (h, aux): the prefix blocks' aux added in order, then the scanned
-    layers' sum, as the reference.  The SSM and hybrid trunks have no aux
-    (0)."""
+    the stacked caches' layer slices are views, written in place; every
+    block cross-attends to ``enc_out`` when it is given.  Returns (h,
+    aux): the prefix blocks' aux added in order, then the scanned layers'
+    sum, as the reference.  The SSM and hybrid trunks have no aux (0)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     layer_caches = None if caches is None else caches["layers"]
     if cfg.family == "ssm":
@@ -243,7 +296,7 @@ def _trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, positions: torch
     for i, lp in enumerate(params.layers):
         cache = None if caches is None else {n: t[i] for n, t in caches["layers"].items()}
         h, _, a = block_fwd(cfg, lp, h, positions, cache=cache, cache_index=cache_index,
-                            flash=flash)
+                            enc_out=enc_out, flash=flash)
         auxs.append(a)
     return h, (aux + torch.stack(auxs).sum()) if auxs else aux
 
@@ -252,22 +305,54 @@ def _trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, positions: torch
 # forward (prefill / single-shot)
 # ---------------------------------------------------------------------------
 
-def _hidden(cfg: ArchConfig, params: DecoderLM, tokens: torch.Tensor,
+def _encode(cfg: ArchConfig, params: DecoderLM, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder-decoder's encoder: ``frames @ enc_in_proj``, the
+    non-causal dense ``enc_layers`` (positions 0 .. S_enc - 1) and
+    ``enc_norm``, (B, S_enc, d) in the activation dtype.  ``decode_step``
+    reads it from ``cache["enc_out"]``, which the caller fills."""
+    dt = _dtype(cfg)
+    frames = frames.to(dt)
+    h = frames @ params.enc_in_proj.to(dt)
+    pos = torch.arange(frames.shape[1], device=h.device).expand(frames.shape[:2])
+    for lp in params.enc_layers:
+        h, _, _ = block_fwd(cfg, lp, h, pos, causal=False)
+    return L.norm_fwd(params.enc_norm, h)
+
+
+def _project(cfg: ArchConfig, params: DecoderLM, patch_embeds: torch.Tensor) -> torch.Tensor:
+    """The VLM's ``gelu(pe @ w1) @ w2``: ``jax.nn.gelu``'s default is the tanh
+    form."""
+    dt = _dtype(cfg)
+    proj = params.projector
+    pe = F.gelu(patch_embeds.to(dt) @ proj.w1.to(dt), approximate="tanh")
+    return pe @ proj.w2.to(dt)
+
+
+def _hidden(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
             flash: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The trunk's output after the final norm, (B, S, d), and its aux."""
-    h = L.embed_fwd(params.embedding, tokens, _dtype(cfg))
+    """The trunk's output after the final norm, (B, S, d), and its aux: an
+    encoder-decoder's decoder over ``tokens`` cross-attending to the
+    encoded ``frames``; otherwise the projected ``patch_embeds``, if given,
+    before the token embeddings, the positions over the whole sequence."""
+    enc_out = _encode(cfg, params, batch["frames"]) if cfg.is_encoder_decoder else None
+    h = L.embed_fwd(params.embedding, batch["tokens"], _dtype(cfg))
+    if enc_out is None and "patch_embeds" in batch:
+        h = torch.cat([_project(cfg, params, batch["patch_embeds"]), h], dim=1)
     B, S = h.shape[:2]
     pos = torch.arange(S, device=h.device).expand(B, S)
-    h, aux = _trunk(cfg, params, h, pos, flash=flash)
+    h, aux = _trunk(cfg, params, h, pos, flash=flash, enc_out=enc_out)
     return L.norm_fwd(params.final_norm, h), aux
 
 
 def forward(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
             flash: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits, aux_loss): the MoE blocks'
+    """Full-sequence forward: ``batch`` holds ``tokens`` and, for an
+    encoder-decoder, ``frames`` (B, S_enc, d), for a VLM optionally
+    ``patch_embeds`` (B, n_modal, ``MODAL_EMBED_DIM``), whose positions
+    lead the logits.  Returns (logits, aux_loss): the MoE blocks'
     load-balance loss (0 for a dense model).  ``flash`` is the port of the
     reference's ``REPRO_FLASH_KERNEL`` (see ``layers.attention_fwd``)."""
-    h, aux = _hidden(cfg, params, batch["tokens"], flash)
+    h, aux = _hidden(cfg, params, batch, flash)
     return L.unembed_fwd(params.embedding, h), aux
 
 
@@ -299,8 +384,13 @@ def _chunked_ce(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, labels: tor
 def loss_fn(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
             flash: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in float32 (log-sum-exp of float32 logits),
-    chunked over the sequence when ``cfg.loss_chunk`` is set, plus the MoE
-    aux loss.  ``flash``
+    chunked over the sequence when ``cfg.loss_chunk`` is set (never for an
+    encoder-decoder: its full logits are made), plus the MoE aux loss.  A
+    VLM's loss counts text positions only, by the reference's two
+    conventions, one position apart: chunked, the labels are the tokens
+    after ``n_modal`` zeros, masked below position ``n_modal - 1`` (the
+    last patch predicts the first token); unchunked, the text logits
+    predict the next token.  ``flash``
     defaults off, as the reference's ``REPRO_FLASH_KERNEL``; kernel 8 has
     no backward in either package, so asking for it with gradients on
     raises.  Returns (loss, {"ce", "aux"})."""
@@ -309,14 +399,20 @@ def loss_fn(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
             "flash=True under autograd: kernel 8 (flash attention) has no backward yet "
             "(ROADMAP queue 1, item 12); training runs flash=False, the reference's default")
     tokens = batch["tokens"]
-    if cfg.loss_chunk:
-        h, aux = _hidden(cfg, params, tokens, flash)
-        lab = tokens[:, 1:]
+    n_modal = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    if cfg.loss_chunk and not cfg.is_encoder_decoder:
+        h, aux = _hidden(cfg, params, batch, flash)
+        labels = (torch.cat([tokens.new_zeros((tokens.shape[0], n_modal)), tokens], dim=1)
+                  if n_modal else tokens)
+        lab = labels[:, 1:]
         mask = torch.ones(lab.shape, dtype=torch.float32, device=tokens.device)
+        if n_modal:
+            mask = mask * (torch.arange(lab.shape[1], device=tokens.device)
+                           >= n_modal - 1)[None, :]
         ce = _chunked_ce(cfg, params, h[:, :-1], lab, mask)
         return ce + aux, {"ce": ce, "aux": aux}
     logits, aux = forward(cfg, params, batch, flash=flash)
-    lg = logits[:, :-1].to(torch.float32)
+    lg = logits[:, n_modal:-1].to(torch.float32)
     logz = torch.logsumexp(lg, dim=-1)
     gold = lg.gather(-1, tokens[:, 1:, None].long())[..., 0]
     ce = (logz - gold).mean()
@@ -334,7 +430,7 @@ def _cache_capacity(cfg: ArchConfig, total_len: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
-               device=None) -> Params:
+               device=None, enc_len: int = 0) -> Params:
     """Decode cache for a context of ``total_len`` positions: ``idx`` (the
     next position, a host int), for an MoE model ``prefix`` (a list of one
     cache per prefix block), and the scanned layers' ``k``/``v`` stacked as
@@ -342,7 +438,9 @@ def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
     ``krope`` (L, B, capacity, rd)), on ``device`` (None: the card).  SSM:
     the layers' ``conv`` (L, B, kw - 1, di) and f32 ``h``; hybrid: the
     shared block's ``attn`` ``k``/``v`` for each of the G groups, (G, B,
-    Hkv, capacity, hd), and ``mamba`` (G, every, ...) (``ssm.state_shapes``)."""
+    Hkv, capacity, hd), and ``mamba`` (G, every, ...) (``ssm.state_shapes``);
+    encoder-decoder: ``enc_out``, zeros (B, ``enc_len``, d) for the caller to
+    fill with ``_encode``'s output, and the decoder layers' ``k``/``v``."""
     L.check_family(cfg)
     dev = resolve_device(device)
     dt = dtype or _dtype(cfg)
@@ -358,6 +456,8 @@ def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
         cache["layers"] = {"attn": L.init_kv_cache(cfg, batch, cap, dt, dev, lead=(G,)),
                            "mamba": SSM.init_ssm_state(cfg, batch, dt, dev, lead=(G, every))}
         return cache
+    if cfg.is_encoder_decoder:
+        cache["enc_out"] = torch.zeros((batch, enc_len, cfg.d_model), dtype=dt, device=dev)
     if n_prefix:
         cache["prefix"] = [L.init_kv_cache(cfg, batch, cap, dt, dev) for _ in range(n_prefix)]
     cache["layers"] = L.init_kv_cache(cfg, batch, cap, dt, dev,
@@ -375,13 +475,15 @@ def decode_step(cfg: ArchConfig, params: DecoderLM, cache: Params, tokens: torch
     attention writes S slots from ``idx`` under the causal mask; every
     token's position is then ``idx`` and ``idx`` advances by one, so only
     an attention-free (SSM) model takes a prompt in one call as a prefill
-    does."""
+    does.  An encoder-decoder's blocks cross-attend to ``cache["enc_out"]``
+    (carried as it is); a VLM's step embeds tokens only."""
     dt = _dtype(cfg)
     idx = int(cache["idx"])
     B = tokens.shape[0]
     pos = torch.full((B, 1), idx, dtype=torch.int64, device=tokens.device)
     h = L.embed_fwd(params.embedding, tokens, dt)
-    h, _ = _trunk(cfg, params, h, pos, caches=cache, cache_index=idx)
+    enc_out = cache["enc_out"].to(dt) if cfg.is_encoder_decoder else None
+    h, _ = _trunk(cfg, params, h, pos, caches=cache, cache_index=idx, enc_out=enc_out)
     h = L.norm_fwd(params.final_norm, h)
     logits = L.unembed_fwd(params.embedding, h)
     return logits, dict(cache, idx=idx + 1)
@@ -415,21 +517,25 @@ def params_from_jax(tree: Params, cfg: ArchConfig, device=None) -> DecoderLM:
     """The reference's ``init_params`` pytree (numpy leaves, the scanned
     layers stacked on a leading axis, an MoE model's ``prefix_layers`` a
     list) as a ``DecoderLM`` on ``device`` (None: the card): each stacked
-    leaf ``layers/<path>`` becomes ``layers.<i>.<path>``, each
+    leaf ``layers/<path>`` becomes ``layers.<i>.<path>`` (an encoder-decoder's
+    ``enc_layers/<path>`` ``enc_layers.<i>.<path>``), each
     ``prefix_layers[i]/<path>`` ``prefix_layers.<i>.<path>``, a hybrid's
     ``shared_attn/<path>`` ``shared_attn.<path>`` (its ``layers`` stay
     stacked over all ``n_layers``: group g is layers g * every ..).  Every leaf
     keeps its type (bf16 stays bf16), and every leaf of either side must
     find its counterpart."""
     dev = resolve_device(device)
-    n_stacked = cfg.n_layers - _n_prefix(cfg)
-    state = _flatten({k: v for k, v in tree.items() if k != "layers"})
-    for path, arr in _flatten(tree["layers"]).items():
-        if arr.shape[0] != n_stacked:
-            raise ValueError(f"layers/{path} has {arr.shape[0]} layers, expected "
-                             f"{n_stacked}")
-        for i in range(n_stacked):
-            state[f"layers.{i}.{path}"] = arr[i]
+    stacks = {"layers": cfg.n_layers - _n_prefix(cfg)}
+    if cfg.is_encoder_decoder:
+        stacks["enc_layers"] = cfg.n_enc_layers
+    state = _flatten({k: v for k, v in tree.items() if k not in stacks})
+    for name, n_stacked in stacks.items():
+        for path, arr in _flatten(tree[name]).items():
+            if arr.shape[0] != n_stacked:
+                raise ValueError(f"{name}/{path} has {arr.shape[0]} layers, expected "
+                                 f"{n_stacked}")
+            for i in range(n_stacked):
+                state[f"{name}.{i}.{path}"] = arr[i]
     model = DecoderLM(cfg, torch.Generator(device="cpu").manual_seed(0), "cpu")
     want = model.state_dict()
     for k, v in state.items():

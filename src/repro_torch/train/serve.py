@@ -3,8 +3,9 @@
 
 ``build_prefill`` runs the full-sequence forward; at prompt lengths of at
 least ``layers.SDPA_CHUNK_THRESHOLD`` it reaches the flash-attention kernel
-in every attention layer (a hybrid's shared block: once a group; an SSM
-model has none).  ``build_decode_step`` appends one token against a KV
+in every causal self-attention layer (a hybrid's shared block: once a
+group; an SSM model has none; an encoder-decoder's encoder and
+cross-attention never).  ``build_decode_step`` appends one token against a KV
 cache of the context's length (an SSM layer: its O(1) state) and runs no
 kernel of the port (the dense scores of one query are small), as in the
 reference.  The reference's ``ServeConfig``, mesh and shardings wait for
@@ -18,7 +19,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
-from repro_torch.data.specs import TensorSpec
+from repro_torch.data.specs import ENC_LEN_DECODE, TensorSpec
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models import ssm as SSM
@@ -29,7 +30,9 @@ def cache_shapes(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
     ``idx``, an MoE model's ``prefix`` list and the stacked layers' specs
     (``k``/``v``, or MLA's ``ckv``/``krope``); SSM: ``conv`` (L, B, kw - 1,
     di) and ``h`` (f32); hybrid: ``attn`` ``k``/``v`` stacked (G, ...) and
-    ``mamba`` ``conv``/``h`` stacked (G, every, ...)."""
+    ``mamba`` ``conv``/``h`` stacked (G, every, ...); an encoder-decoder adds
+    ``enc_out`` (B, ``ENC_LEN_DECODE``, d), the encoder output a decode
+    step reads."""
     cap = M._cache_capacity(cfg, shape.seq_len)
     B, dt = shape.global_batch, getattr(torch, cfg.dtype)
 
@@ -55,6 +58,8 @@ def cache_shapes(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
 
     n_prefix = M._n_prefix(cfg)
     out: Dict[str, Any] = {"idx": 0}
+    if cfg.is_encoder_decoder:
+        out["enc_out"] = TensorSpec((B, ENC_LEN_DECODE, cfg.d_model), dt)
     if n_prefix:
         out["prefix"] = [layer(()) for _ in range(n_prefix)]
     out["layers"] = layer((cfg.n_layers - n_prefix,))
@@ -85,7 +90,9 @@ def build_decode_step(cfg: ArchConfig, device=None) -> Callable:
 
 def build_prefill(cfg: ArchConfig, device=None, flash: bool = True) -> Callable:
     """fn(params, batch) -> logits (full-sequence forward), on ``device``
-    (None: the card).  ``flash=False`` is the port of
+    (None: the card); every tensor of ``batch`` (``tokens``, and
+    ``frames`` or ``patch_embeds``) goes to the device.  ``flash=False``
+    is the port of
     ``REPRO_FLASH_KERNEL=0``: the flash branch then runs the chunked
     online softmax in plain PyTorch."""
     dev = resolve_device(device)
@@ -93,7 +100,8 @@ def build_prefill(cfg: ArchConfig, device=None, flash: bool = True) -> Callable:
     @torch.inference_mode()
     def fn(params, batch):
         _on(dev, params)
-        logits, _ = M.forward(cfg, params, {"tokens": batch["tokens"].to(dev)}, flash=flash)
+        logits, _ = M.forward(cfg, params, {k: v.to(dev) for k, v in batch.items()},
+                              flash=flash)
         return logits
 
     return fn

@@ -178,18 +178,21 @@ def loss_and_grad(cfg: ArchConfig, model, batch: Dict[str, Tensor],
     return loss.detach(), torch.cat(parts, out=out)
 
 
-def _worker_grad(cfg: ArchConfig, model, tokens: Tensor, mb: int, out: Tensor) -> Tensor:
+def _worker_grad(cfg: ArchConfig, model, batch: Dict[str, Tensor], mb: int,
+                 out: Tensor) -> Tensor:
     """One candidate's gradient into ``out`` (P,): the mean over ``mb``
-    microbatches of its rows, accumulated as the reference's scan does;
-    returns its loss, the mean of the microbatches' losses."""
+    microbatches of its rows (of every entry of ``batch``), accumulated as
+    the reference's scan does; returns its loss, the mean of the
+    microbatches' losses."""
     if mb == 1:
-        return loss_and_grad(cfg, model, {"tokens": tokens}, out)[0]
-    rows = tokens.reshape((mb, tokens.shape[0] // mb) + tuple(tokens.shape[1:]))
+        return loss_and_grad(cfg, model, batch, out)[0]
+    rows = {k: v.reshape((mb, v.shape[0] // mb) + tuple(v.shape[1:]))
+            for k, v in batch.items()}
     out.zero_()
-    loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    loss = torch.zeros((), dtype=torch.float32, device=out.device)
     tmp = torch.empty_like(out)
     for m in range(mb):
-        lm, _ = loss_and_grad(cfg, model, {"tokens": rows[m]}, tmp)
+        lm, _ = loss_and_grad(cfg, model, {k: v[m] for k, v in rows.items()}, tmp)
         out += tmp.div_(mb)
         loss = loss + lm / mb
     return loss
@@ -206,7 +209,9 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
                      observe: Optional[Observe] = None) -> Callable:
     """Returns fn(state, batch) -> (state, metrics); ``batch["tokens"]`` is
     the global (B, S) batch on the model's device (every rank passes the
-    same one).  The step updates ``state.params`` in place.  ``observe``,
+    same one), with an encoder-decoder's ``frames`` or a VLM's
+    ``patch_embeds`` beside it; each candidate takes its rows of every
+    entry.  The step updates ``state.params`` in place.  ``observe``,
     if given, is called after each phase as ``observe(phase, **values)``:
     "grads" (``candidates``, ``losses``), "attack" (``candidates``, the
     ``agg_state`` going in), "allreduce" (``grads``, ``agg_state``,
@@ -223,10 +228,13 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
     attacking = tc.attack not in ("none", "label_flip") and tc.n_malicious > 0
     flipping = tc.attack == "label_flip" and tc.n_malicious > 0
 
-    def rows_of(tokens: Tensor, k: int) -> Tensor:
-        b = tokens.shape[0] // K
-        rows = tokens[k * b:(k + 1) * b]
-        return (cfg.vocab_size - 1) - rows if flipping and mal_np[k] else rows
+    def rows_of(batch: Dict[str, Tensor], k: int) -> Dict[str, Tensor]:
+        b = batch["tokens"].shape[0] // K
+        rows = {name: v[k * b:(k + 1) * b] for name, v in batch.items()}
+        if flipping and mal_np[k]:
+            # the reference flips the target ids only
+            rows["tokens"] = (cfg.vocab_size - 1) - rows["tokens"]
+        return rows
 
     def attack_generator(step: Tensor, dev) -> torch.Generator:
         # the reference's fold_in(PRNGKey(seed + 1), step), from the port's bits
@@ -251,7 +259,7 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
         model, tokens = state.params, batch["tokens"]
         P = layout_flat(model).numel()
         G = torch.empty((K, P), dtype=torch.float32, device=tokens.device)
-        losses = torch.stack([_worker_grad(cfg, model, rows_of(tokens, k),
+        losses = torch.stack([_worker_grad(cfg, model, rows_of(batch, k),
                                            tc.microbatches, G[k]) for k in range(K)])
         stacked = unravel_rows(G, module_tree(model))
         see("grads", candidates=stacked, losses=losses)
@@ -273,7 +281,7 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
         axis = ra.Emulated(K) if group is None else group
         mine = range(K) if group is None else [torch.distributed.get_rank(group)]
         G = torch.empty((len(mine), P), dtype=torch.float32, device=tokens.device)
-        losses = torch.stack([_worker_grad(cfg, model, rows_of(tokens, k), tc.microbatches,
+        losses = torch.stack([_worker_grad(cfg, model, rows_of(batch, k), tc.microbatches,
                                            G[i]) for i, k in enumerate(mine)])
         local = G if group is None else G[0]
         see("grads", candidates=local, losses=losses)
@@ -291,8 +299,8 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
                       loss, gn)
 
     def gspmd_step(state: TrainState, batch):
-        model, tokens = state.params, batch["tokens"]
-        loss, g = loss_and_grad(cfg, model, {"tokens": tokens})
+        model = state.params
+        loss, g = loss_and_grad(cfg, model, batch)
         see("grads", candidates=g, losses=loss[None])
         return finish(state, unravel_like(g, module_tree(model)), None, {}, loss,
                       torch.sqrt((g ** 2).sum()))

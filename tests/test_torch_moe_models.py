@@ -6,14 +6,14 @@ f32 activations), held against the JAX package with the same weights
 carried by ``params_from_jax`` and the same numpy tokens.
 
 Logits, caches and aux within rtol = atol = 1e-4, as
-``tests/test_torch_serve.py``: prefill on the dense route, decode over 3
-steps (MLA's ``ckv`` / ``krope`` ring and the ``prefix`` caches
-included), decode through a prompt against one prefill, and Arctic's long
-route (``SDPA_CHUNK_THRESHOLD`` monkeypatched to 128 in both packages,
-``REPRO_FLASH_KERNEL`` 1 and 0: the flash kernel sees 64 padded heads).
-The ravel order with the ``prefix_layers`` list is ``ravel_pytree``'s
-bit for bit.  The loss, its backward and the trainer on the MoE family:
-``tests/test_torch_moe_train.py``.  No file of the JAX package changes."""
+``tests/test_torch_serve.py``: prefill on the dense route and Arctic's
+long route (``SDPA_CHUNK_THRESHOLD`` monkeypatched to 128 in both
+packages, ``REPRO_FLASH_KERNEL`` 1 and 0: the flash kernel sees 64 padded
+heads), the reference's init and forward jitted.  The ravel order with
+the ``prefix_layers`` list is ``ravel_pytree``'s bit for bit.  Decode:
+``tests/test_torch_moe_decode.py``; the loss, its backward and the
+trainer on the MoE family: ``tests/test_torch_moe_train.py``.  No file of
+the JAX package changes."""
 import dataclasses
 import functools
 
@@ -51,9 +51,17 @@ def _configs(name, **over):
 
 @functools.lru_cache(maxsize=None)
 def _reference(jcfg, seed):
-    """The reference's parameters of a config, made once a module."""
-    jparams = JM.init_params(jcfg, jax.random.PRNGKey(seed))
+    """The reference's parameters of a config, made once a module (jitted:
+    the eager init takes several seconds)."""
+    jparams = jax.jit(functools.partial(JM.init_params, jcfg))(jax.random.PRNGKey(seed))
     return jparams, jax.tree.map(np.asarray, jparams)
+
+
+def _jax_forward(jcfg, jparams, tok):
+    """The reference's ``forward``, jitted anew on each call: a trace reads
+    ``SDPA_CHUNK_THRESHOLD`` and ``REPRO_FLASH_KERNEL``, which tests
+    monkeypatch."""
+    return jax.jit(functools.partial(JM.forward, jcfg))(jparams, {"tokens": jnp.asarray(tok)})
 
 
 def _models(name, seed=0, **over):
@@ -102,7 +110,8 @@ def test_params_from_jax_carries_every_leaf(name):
 
 def test_params_from_jax_refuses_a_leaf_of_another_type():
     jcfg, tcfg = _configs("arctic-480b-bf16")
-    tree = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0)))
+    tree = dict(_reference(jcfg, 0)[1])
+    tree["final_norm"] = dict(tree["final_norm"])
     tree["final_norm"]["scale"] = tree["final_norm"]["scale"].astype(np.float32)
     with pytest.raises(ValueError, match="final_norm.scale"):
         TM.params_from_jax(tree, tcfg, device="cpu")
@@ -116,7 +125,7 @@ def test_module_ravel_with_prefix_layers_is_ravel_pytree(name):
     10 after 9, not after 1)."""
     for over in ({}, {"first_dense_layers": 11, "n_layers": 12}):
         jcfg, tcfg = _configs(name, **over)
-        tree = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0)))
+        tree = _reference(jcfg, 0)[1]
         want = np.asarray(ravel_pytree(tree)[0])
         model = TM.params_from_jax(tree, tcfg, device="cpu")
         assert F.tree_ravel(model)[0].numpy().tobytes() == want.tobytes()
@@ -163,7 +172,7 @@ def test_cache_shapes_match_the_reference():
 def test_prefill_matches_forward_dense_route(name):
     jcfg, jparams, tcfg, model = _models(name)
     tok = _tokens(tcfg, 2, 32)
-    want, waux = JM.forward(jcfg, jparams, {"tokens": jnp.asarray(tok)})
+    want, waux = _jax_forward(jcfg, jparams, tok)
     got = tserve.build_prefill(tcfg, device="cpu")(model, {"tokens": torch.as_tensor(tok)})
     assert got.shape == (2, 32, tcfg.vocab_size) and got.dtype == torch.float32
     _close(got, want)
@@ -193,7 +202,7 @@ def test_prefill_matches_forward_long_route(name, flash, monkeypatch):
                         lambda q, *a, **k: shapes.append(tuple(q.shape)) or plain(q, *a, **k))
     jcfg, jparams, tcfg, model = _models(name)
     tok = _tokens(tcfg, 1, 256)
-    want, _ = JM.forward(jcfg, jparams, {"tokens": jnp.asarray(tok)})
+    want, _ = _jax_forward(jcfg, jparams, tok)
     got = tserve.build_prefill(tcfg, device="cpu", flash=flash)(
         model, {"tokens": torch.as_tensor(tok)})
     _close(got, want)
@@ -201,92 +210,3 @@ def test_prefill_matches_forward_long_route(name, flash, monkeypatch):
         assert shapes == [(tcfg.pad_heads_to, 256, tcfg.head_dim_)] * tcfg.n_layers
     else:
         assert shapes == []
-
-
-# ---------------------------------------------------------------------------
-# decode
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_decode_step(jcfg):
-    return jax.jit(functools.partial(JM.decode_step, jcfg))
-
-
-def _jax_steps(jcfg, jparams, B, total, toks):
-    cache = JM.init_cache(jcfg, B, total)
-    step = _jax_decode_step(jcfg)
-    out = []
-    for t in toks:
-        logits, cache = step(jparams, cache, jnp.asarray(t))
-        out.append(np.asarray(logits))
-    return out, cache
-
-
-def _port_steps(tcfg, model, B, total, toks):
-    cache = TM.init_cache(tcfg, B, total, device="cpu")
-    step = tserve.build_decode_step(tcfg, device="cpu")
-    out = []
-    for t in toks:
-        logits, cache = step(model, cache, torch.as_tensor(t))
-        out.append(logits)
-    return out, cache
-
-
-@pytest.mark.parametrize("name", NAMES)
-def test_decode_steps_match_decode_step(name):
-    """Three decode steps: logits and every cache tensor (MLA: the latent
-    ``ckv`` (B, capacity, r) and ``krope`` (B, capacity, rd); the prefix
-    block's own cache) against the reference's ``decode_step``."""
-    jcfg, jparams, tcfg, model = _models(name)
-    B, total = 2, 16
-    toks = [_tokens(tcfg, B, 1, seed=s) for s in range(3)]
-    want, jcache = _jax_steps(jcfg, jparams, B, total, toks)
-    got, tcache = _port_steps(tcfg, model, B, total, toks)
-    for g, w in zip(got, want):
-        assert g.shape == (B, 1, tcfg.vocab_size)
-        _close(g, w)
-    assert tcache["idx"] == int(jcache["idx"]) == 3
-    assert set(tcache) == set(jcache)
-    if tcfg.use_mla:
-        assert tcache["layers"]["ckv"].shape == (1, B, total, tcfg.kv_lora_rank)
-        assert tcache["layers"]["krope"].shape == (1, B, total, tcfg.qk_rope_dim)
-    leaves = jax.tree_util.tree_flatten_with_path({k: v for k, v in jcache.items()
-                                                  if k != "idx"})[0]
-    ported = F.tree_leaves({k: v for k, v in tcache.items() if k != "idx"})
-    assert len(leaves) == len(ported)
-    for (path, w), g in zip(leaves, ported):
-        assert tuple(g.shape) == w.shape, path
-        _close(g, w)
-
-
-@pytest.mark.parametrize("name", NAMES)
-def test_decode_through_a_prompt_matches_prefill(name):
-    """Stepping one token at a time through a prompt (MLA: the absorbed
-    form on the latent cache) gives, at every position, the logits of one
-    prefill of the same tokens (MLA: materialised K and V).  The prefill
-    runs at ``capacity_factor = E / top_k`` (capacity S: no pick can
-    drop), as a decode step does (capacity 1, one token's distinct
-    experts); at the config's factor a prefill's per-row capacity drops
-    picks, in the reference as here, and its logits are other ones."""
-    _, _, tcfg, model = _models(name)
-    tok = _tokens(tcfg, 2, 12, seed=5)
-    no_drop = dataclasses.replace(tcfg, capacity_factor=tcfg.n_experts / tcfg.top_k)
-    assert tlayers.moe_capacity(no_drop, 12) == 12
-    prefill = tserve.build_prefill(no_drop, device="cpu")(model,
-                                                          {"tokens": torch.as_tensor(tok)})
-    stepped, cache = _port_steps(tcfg, model, 2, 12, [tok[:, i:i + 1] for i in range(12)])
-    _close(torch.cat(stepped, dim=1), prefill)
-    assert cache["idx"] == 12
-
-
-def test_mla_ring_wraps_like_the_reference():
-    """A latent ring of 8 slots (``sliding_window`` 8) over 12 steps: the
-    reference's masks before and after the wrap."""
-    jcfg, jparams, tcfg, model = _models("deepseek-v2-lite-16b", sliding_window=8)
-    toks = [_tokens(tcfg, 2, 1, seed=20 + s) for s in range(12)]
-    want, jcache = _jax_steps(jcfg, jparams, 2, 32, toks)
-    got, tcache = _port_steps(tcfg, model, 2, 32, toks)
-    assert tcache["layers"]["ckv"].shape[2] == 8
-    for g, w in zip(got, want):
-        _close(g, w)
-    _close(tcache["layers"]["ckv"], jcache["layers"]["ckv"])

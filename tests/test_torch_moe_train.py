@@ -9,6 +9,7 @@ trajectories of a narrowed DeepSeek-V2-Lite against the reference's
 composed step (``tests/test_torch_trainer.py``'s harness).  No file of the
 JAX package changes."""
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -28,6 +29,17 @@ SMALL = dict(d_model=64, n_heads=2, n_kv_heads=2, head_dim=32, d_ff=128, vocab_s
              kv_lora_rank=16, qk_rope_dim=8)
 
 
+@functools.lru_cache(maxsize=None)
+def _eager_tree(name):
+    """The reference's parameters of the reduced config, made once a module
+    by the eager init.  Not the jitted one of ``_reference``: its other bits
+    put one of Moonlight's embedding-gradient values 7.4e-7 past this
+    test's atol (the two packages' sums over the positions in other
+    orders)."""
+    jcfg, _ = _configs(name)
+    return jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0)))
+
+
 @pytest.mark.parametrize("chunk", [0, 8])
 @pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "moonshot-v1-16b-a3b"])
 def test_loss_and_grad_match_reference(name, chunk):
@@ -35,10 +47,10 @@ def test_loss_and_grad_match_reference(name, chunk):
     aux), its aux and ce, and every gradient leaf, the experts' stacked
     leaves, the router and the prefix block's included."""
     jcfg, tcfg = _configs(name, loss_chunk=chunk)
-    tree = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0)))
+    tree = _eager_tree(name)
     tokens = _tokens(tcfg, 2, 17, seed=2)
-    (lj, mj), gj = jax.value_and_grad(
-        lambda p: JM.loss_fn(jcfg, p, {"tokens": tokens}), has_aux=True)(tree)
+    (lj, mj), gj = jax.jit(jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, {"tokens": tokens}), has_aux=True))(tree)
     model = TM.params_from_jax(tree, tcfg, device="cpu")
     F.layout_flat(model)
     lt, gt = tr.loss_and_grad(tcfg, model, {"tokens": torch.as_tensor(tokens).long()})
@@ -65,24 +77,13 @@ def test_robust_dp_matches_reference(layout, monkeypatch):
     backend (its plain version here) and flat (the count sketch's bits
     the reference's), one candidate under IPM-100, and the gspmd mean:
     loss, weights, masks and every parameter after each step; the loss is
-    ce + aux.  The reference's all-reduce, attack and optimizer update run
-    under ``jax.jit`` (eagerly, each of the MoE tree's leaf shapes
-    compiles its own ops: 670 compiles, ~50 s for the stacked case)."""
+    ce + aux.  The reference's pieces run under ``jax.jit``
+    (``ReferenceStep``)."""
     import functools
 
-    from repro.distributed import robust_allreduce as jra
-    from repro.optim import optimizers as jopt
     from repro_torch.distributed import robust_allreduce as tra
     from _torch_fixtures import reference_sketch_hash
     from test_torch_trainer import _hold_trajectory, _tcs
-
-    monkeypatch.setattr(jra, "robust_allreduce_stacked",
-                        jax.jit(jra.robust_allreduce_stacked, static_argnums=(1,)))
-    monkeypatch.setattr(jra, "apply_stacked_attack",
-                        jax.jit(jra.apply_stacked_attack, static_argnums=(2,)))
-    make = jopt.make_optimizer
-    monkeypatch.setattr(jopt, "make_optimizer", lambda *a, **k: (
-        lambda opt: opt._replace(update=jax.jit(opt.update)))(make(*a, **k)))
 
     jcfg, cfg = _configs("deepseek-v2-lite-16b", **SMALL)
     if layout == "gspmd":

@@ -98,31 +98,16 @@ def test_remat_gradients_are_bit_equal(name, monkeypatch):
     assert runs[True][1].numpy().tobytes() == runs[False][1].numpy().tobytes()
 
 
-def test_robust_dp_matches_reference(monkeypatch):
+def test_robust_dp_matches_reference():
     """Three steps of the trainer on Zamba2 at two groups and ``SMALL``
     width, K=4, against the reference's composed step: robust_dp stacked
     on the fused backend (its plain version here), one candidate under
     IPM-100: loss, weights, masks and every parameter after each step (the
     gspmd and flat layouts share everything but the all-reduce with the
-    dense and MoE trajectories, ``tests/test_torch_{trainer,moe_train}.py``).  The reference's init, all-reduce, attack and
-    optimizer update run under ``jax.jit``."""
-    import functools
-
-    from repro.distributed import robust_allreduce as jra
-    from repro.optim import optimizers as jopt
+    dense and MoE trajectories, ``tests/test_torch_{trainer,moe_train}.py``).  The
+    reference's init and step pieces run under ``jax.jit``
+    (``ReferenceStep``)."""
     from test_torch_trainer import _hold_trajectory, _tcs
-
-    init = JM.init_params
-    monkeypatch.setattr(JM, "init_params", lambda cfg, key: jax.jit(
-        functools.partial(init, cfg))(key))
-
-    monkeypatch.setattr(jra, "robust_allreduce_stacked",
-                        jax.jit(jra.robust_allreduce_stacked, static_argnums=(1,)))
-    monkeypatch.setattr(jra, "apply_stacked_attack",
-                        jax.jit(jra.apply_stacked_attack, static_argnums=(2,)))
-    make = jopt.make_optimizer
-    monkeypatch.setattr(jopt, "make_optimizer", lambda *a, **k: (
-        lambda opt: opt._replace(update=jax.jit(opt.update)))(make(*a, **k)))
 
     jcfg, cfg = _configs("zamba2-1.2b-g2", **SMALL)
     agg = dict(method="wfagg", layout="stacked", backend="reference")

@@ -62,8 +62,9 @@ def _tcs(K, **kw):
 
 
 def _reference_state(jcfg, jtc, K):
-    """The reference's ``init_train_state`` build, at K candidates."""
-    params = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    """The reference's ``init_train_state`` build, at K candidates (its init
+    jitted)."""
+    params = jax.jit(functools.partial(JM.init_params, jcfg))(jax.random.PRNGKey(0))
     agg = None
     if (jtc.mode == "robust_dp" and jtc.agg.method in ("wfagg", "alt_wfagg")
             and jtc.agg.wfagg.use_temporal):
@@ -74,60 +75,72 @@ def _reference_state(jcfg, jtc, K):
 
 
 class ReferenceStep:
-    """The reference's robust_dp / gspmd step from its pieces."""
+    """The reference's robust_dp / gspmd step from its pieces, each under
+    ``jax.jit`` (eagerly, every leaf shape compiles its own ops).  A batch
+    is a dict (``tokens``, and ``frames`` or ``patch_embeds``): each
+    candidate takes its rows of every entry; label flipping flips the
+    tokens only."""
 
     def __init__(self, jcfg, jtc, K):
         self.cfg, self.tc, self.K = jcfg, jtc, K
         self.opt = jopt.make_optimizer(jcfg.optimizer)
         self.lr_fn = jopt.warmup_cosine(jtc.lr, jtc.warmup, jtc.total_steps)
-        self.mal = jnp.asarray(spaced_malicious(K, jtc.n_malicious))
+        mal = self.mal = jnp.asarray(spaced_malicious(K, jtc.n_malicious))
         self.vg = jax.jit(jax.value_and_grad(
-            lambda p, t: JM.loss_fn(jcfg, p, {"tokens": t}), has_aux=True))
+            lambda p, b: JM.loss_fn(jcfg, p, b), has_aux=True))
+        self.update = jax.jit(self.opt.update)
+        self.stacked_attack = jax.jit(jra.apply_stacked_attack, static_argnums=(2,))
+        self.stacked_allreduce = jax.jit(jra.robust_allreduce_stacked, static_argnums=(1,))
+        self.flat_attack = jax.jit(jax.vmap(lambda f, key: jra.apply_distributed_attack(
+            f, "data", mal, jtc.attack, key), in_axes=(0, None), axis_name="data"))
+        self.flat_allreduce = jax.jit(jax.vmap(
+            lambda f, s: jra.robust_allreduce(f, "data", jtc.agg, s),
+            in_axes=(0, None), axis_name="data"))
 
-    def rows(self, tokens, k):
-        b = tokens.shape[0] // self.K
-        x = tokens[k * b:(k + 1) * b]
+    def rows(self, batch, k):
+        b = batch["tokens"].shape[0] // self.K
+        x = {name: v[k * b:(k + 1) * b] for name, v in batch.items()}
         if self.tc.attack == "label_flip" and bool(self.mal[k]):
-            x = (self.cfg.vocab_size - 1) - x
+            x["tokens"] = (self.cfg.vocab_size - 1) - x["tokens"]
         return x
 
-    def __call__(self, state, tokens):
+    def __call__(self, state, batch):
         tc, K = self.tc, self.K
         attacking = tc.attack not in ("none", "label_flip") and tc.n_malicious > 0
         key = jax.random.fold_in(jax.random.PRNGKey(tc.agg.seed + 1), state.step)
         if tc.mode == "gspmd":
-            (loss, _), grads = self.vg(state.params, tokens)
+            (loss, _), grads = self.vg(state.params, batch)
             info = {"n_accepted": K, "weights": np.ones(K, np.float32)}
         else:
-            outs = [self.vg(state.params, self.rows(tokens, k)) for k in range(K)]
+            outs = [self.vg(state.params, self.rows(batch, k)) for k in range(K)]
             loss = jnp.mean(jnp.stack([o[0][0] for o in outs]))
             if tc.agg.layout == "stacked":
                 stacked = jax.tree.map(lambda *g: jnp.stack(g), *[o[1] for o in outs])
                 if attacking:
-                    stacked = jra.apply_stacked_attack(stacked, self.mal, tc.attack, key)
-                grads, agg, info = jra.robust_allreduce_stacked(stacked, tc.agg,
-                                                                state.agg_state)
+                    stacked = self.stacked_attack(stacked, self.mal, tc.attack, key)
+                grads, agg, info = self.stacked_allreduce(stacked, tc.agg, state.agg_state)
             else:
                 flats = jnp.stack([ravel_pytree(o[1])[0] for o in outs])
                 unravel = ravel_pytree(outs[0][1])[1]
                 if attacking:
-                    flats = jax.vmap(lambda f: jra.apply_distributed_attack(
-                        f, "data", self.mal, tc.attack, key), axis_name="data")(flats)
-                out, agg, info = jax.vmap(
-                    lambda f, s: jra.robust_allreduce(f, "data", tc.agg, s),
-                    in_axes=(0, None), axis_name="data")(flats, state.agg_state)
+                    flats = self.flat_attack(flats, key)
+                out, agg, info = self.flat_allreduce(flats, state.agg_state)
                 grads = unravel(out[0])
                 agg = None if agg is None else jax.tree.map(lambda a: a[0], agg)
                 info = jax.tree.map(lambda a: a[0], info)
             state = state._replace(agg_state=agg if tc.mode == "robust_dp" else None)
-        updates, new_opt = self.opt.update(grads, state.opt_state, state.params,
-                                           self.lr_fn(state.step))
+        updates, new_opt = self.update(grads, state.opt_state, state.params,
+                                       self.lr_fn(state.step))
         params = jax.tree.map(lambda p, u: p + u, state.params, updates)
         return jtr.TrainState(params, new_opt, state.agg_state, state.step + 1), \
             {"loss": loss, **info}
 
 
-def _hold_trajectory(jcfg, cfg, jtc, tc, K, seq=32):
+def _hold_trajectory(jcfg, cfg, jtc, tc, K, seq=32, extra=None):
+    """Both packages step ``STEPS`` times from the reference's initial
+    state on the same numpy batches: ``TokenStream``'s tokens and, with
+    ``extra``, the entries ``extra(i)`` adds to batch i (frames, patch
+    embeddings)."""
     ref = ReferenceStep(jcfg, jtc, K)
     sj = _reference_state(jcfg, jtc, K)
     st = tr.state_from_jax(jax.tree.map(np.asarray, sj), cfg, device="cpu")
@@ -136,9 +149,10 @@ def _hold_trajectory(jcfg, cfg, jtc, tc, K, seq=32):
                                observe=lambda phase, **v: seen.update({phase: v}))
     stream = JTokenStream(vocab_size=jcfg.vocab_size, seq_len=seq, batch_size=8)
     for i in range(STEPS):
-        tokens = np.asarray(stream.batch(i)["tokens"])
-        st, mt = step(st, {"tokens": torch.as_tensor(tokens).long()})
-        sj, mj = ref(sj, jnp.asarray(tokens))
+        batch = {"tokens": np.asarray(stream.batch(i)["tokens"]), **(extra(i) if extra else {})}
+        st, mt = step(st, {k: torch.as_tensor(v).long() if k == "tokens" else torch.as_tensor(v)
+                           for k, v in batch.items()})
+        sj, mj = ref(sj, {k: jnp.asarray(v) for k, v in batch.items()})
         label = f"step {i}"
         np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]), rtol=1e-5,
                                    err_msg=label)
