@@ -9,6 +9,7 @@ an NVIDIA H100.
     python3 chip_smoke.py --only moe           # phase 1, then the MoE family
     python3 chip_smoke.py --only ssm           # phase 1, then the SSM and hybrid families
     python3 chip_smoke.py --only encdec        # phase 1, then the encoder-decoder and VLM
+    python3 chip_smoke.py --only tp            # phase 1, then the model (TP) axis
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
@@ -18,9 +19,11 @@ JSON line instead of the kernels line and the ok line; with ``--only
 cards`` it runs that phase's round, scan and engine parts on one ``nccl``
 rank per visible card (2 or more), the deployment sharding is for; with
 ``--only train`` the training part alone, as one JSON line; with ``--only
-moe`` the MoE part alone, with ``--only ssm`` the SSM part alone, and with
-``--only encdec`` the encoder-decoder and VLM part alone, each as one JSON
-line.
+moe`` the MoE part alone, with ``--only ssm`` the SSM part alone, with
+``--only encdec`` the encoder-decoder and VLM part alone, and with ``--only
+tp`` the model-axis part alone, each as one JSON line.  ``--only cards``
+also runs the model-axis part on one ``nccl`` rank per card (and, on four,
+StableLM-3B uncut at M = 4).
 Phases, each of which fails the run:
 
   1. the card's name and power limit; build the seven kernel libraries of
@@ -316,8 +319,9 @@ Phases, each of which fails the run:
      - the SSM and hybrid families, on the port's seed-0 init, each model
        freed before the next: kernel 8 at Zamba2's prefill shape (B=2,
        H=32, S=8192, hd=64, bf16) through ``compare_flash``, timed beside
-       SDPA; Falcon-Mamba-7B uncut (64 Mamba-1 layers), prefill 2 x 8192
-       (0 kernel launches), and Zamba2-1.2B uncut (38 Mamba-2 layers, the
+       SDPA; Falcon-Mamba-7B at full width cut to 16 of its 64 Mamba-1
+       layers (the whole script's time limit), prefill 2 x 8192 (0 kernel
+       launches), and Zamba2-1.2B uncut (38 Mamba-2 layers, the
        shared block once a group), prefill 2 x 8192 with exactly 19
        kernel-8 launches a call on the tensor-core kernel, held against
        ``flash=False``; each prefill timed with its peak memory and traced
@@ -349,7 +353,22 @@ Phases, each of which fails the run:
        part's, then 16 greedy steps timed.  Then Seamless cut to 6 + 6
        layers (P = 752,316,416) on the stacked robust-DP trainer, frames
        beside the tokens, as the MoE's.  ``--only encdec`` runs phase 1 and
-       this part alone.
+       this part alone.  Last, the model (tensor-parallel) axis: Qwen1.5-0.5B
+       uncut split over two ``gloo`` ranks sharing the card (each rank's
+       H/M heads, ff/M columns and V/M vocabulary rows; every all-reduce
+       gathered and added in rank order, through host memory): prefill 2 x
+       8192 with 24 kernel-8 launches a call on each rank, the gathered
+       last 256 positions held to the M = 1 prefill and decode at batch 4
+       against 32,768 slots held to a prefill, by the dense rule; then
+       K = 8 training, WFAgg on ``fused`` and ``fused_two_launch``,
+       Alt-WFAgg and the mean, 5 steps each under IPM-100, with the
+       planned launches of kernels 4, 6 and 7 on every rank every step (0
+       of kernel 1), the step-1 candidates held to M = 1's gradients
+       (relative rms ``TP_GRAD_RMS``) and every step's aggregation to the
+       reference backend's model-axis route on the same candidates (masks
+       bit-equal or near-ties, weights and blocks within 3e-5), the
+       activation all-reduces and ``psum_stats`` timed apart.  ``--only
+       tp`` runs phase 1 and this part alone.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -4005,23 +4024,23 @@ def dist_child(rank, S, store_path, out_dir, backend) -> None:
     pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
 
 
-def run_ranks(torch, backend, S, child=None) -> list:
+def run_ranks(torch, backend, S, child=None, tmp=None, timeout=DIST_TIMEOUT_S) -> list:
     """Spawn S processes, each a ``backend`` rank running ``child`` (the
     distributed phase's ``dist_child`` by default; ``gloo``: all on the one
-    card; ``nccl``: one card each); wait for all of them within
-    ``DIST_TIMEOUT_S`` (the stragglers are killed and the run fails).
-    Returns each rank's JSON."""
+    card; ``nccl``: one card each) with ``tmp`` (default: a new directory)
+    for its files; wait for all of them within ``timeout`` seconds (the
+    stragglers are killed and the run fails).  Returns each rank's JSON."""
     import multiprocessing as mp
     import tempfile
 
     ctx = mp.get_context("spawn")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    tmp = tmp or tempfile.mkdtemp(prefix="chip_smoke_dist_")
     store = str(pathlib.Path(tmp, "store"))
     procs = [ctx.Process(target=child or dist_child, args=(r, S, store, tmp, backend))
              for r in range(S)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + DIST_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
@@ -4032,7 +4051,7 @@ def run_ranks(torch, backend, S, child=None) -> list:
                 p.kill()
                 p.join()
     if hung:
-        raise AssertionError(f"distributed: ranks {hung} passed the {DIST_TIMEOUT_S} s "
+        raise AssertionError(f"distributed: ranks {hung} passed the {timeout} s "
                              "deadline and were killed")
     results = []
     for r, p in enumerate(procs):
@@ -4248,13 +4267,8 @@ def close_leafwise(torch, a, b, rtol, atol) -> float:
 
 def stacked_margins(torch, cfg, cands, state, flips):
     """(candidate, filter, margin) of each differing (k, bit) decision of the
-    stacked round, on the reference route's own statistics: the distance
-    filter and WFAgg-T as ``flip_margins``; WFAgg-C, which keeps the K - f
-    - 1 smallest cosine distances to the median as WFAgg-D keeps distances,
-    by the same relative gap between the last kept and the first dropped
-    value (Clustering has none)."""
-    from types import SimpleNamespace
-
+    stacked round, on the reference route's own statistics (``margins_of``;
+    Clustering has none)."""
     from repro_torch.core import trust
     from repro_torch.core.wfagg import alt_wfagg_config
     from repro_torch.distributed import robust_allreduce as ra
@@ -4270,15 +4284,29 @@ def stacked_margins(torch, cfg, cands, state, flips):
         s, b = ra._stacked_temporal_metrics(cands, state.prev)
         tb = trust.temporal_bands(state.hist_s, state.hist_b, state.count, state.t,
                                   wcfg)[None]
-    st = SimpleNamespace(dist2=cs.dist2_med[None], gram=cs.gram[None],
+    return margins_of(torch, wcfg, cs.dist2_med, cs.gram, cs.dot_med, cs.med2, s, b, tb,
+                      flips)
+
+
+def margins_of(torch, wcfg, dist2, gram, dot_med, med2, s, b, tb, flips):
+    """(candidate, filter, margin) of each differing (k, bit) decision from
+    a stacked round's statistics (the temporal ``s``, ``b`` and bands ``tb``
+    None without WFAgg-T): the distance filter and WFAgg-T as
+    ``flip_margins``; WFAgg-C, which keeps the K - f - 1 smallest cosine
+    distances to the median as WFAgg-D keeps distances, by the same
+    relative gap between the last kept and the first dropped value."""
+    from types import SimpleNamespace
+
+    K = dist2.shape[0]
+    st = SimpleNamespace(dist2=dist2[None], gram=gram[None],
                          prev_dist2=None if s is None else s[None],
                          cosine_to_prev=lambda: b[None])
-    v = torch.ones((1, K), dtype=torch.bool, device="cuda")
+    v = torch.ones((1, K), dtype=torch.bool, device=dist2.device)
     rep = []
     for k, bit in flips:
         if bit == 1 and wcfg.similarity_filter == "wfagg_c":
-            cos_d = 1.0 - cs.dot_med / torch.sqrt(torch.clamp(
-                torch.diagonal(cs.gram) * cs.med2, min=1e-24))
+            cos_d = 1.0 - dot_med / torch.sqrt(torch.clamp(torch.diagonal(gram) * med2,
+                                                           min=1e-24))
             srt = torch.sort(cos_d).values
             keep = K - wcfg.f - 1
             rep.append((k, "WFAgg-C", float((srt[keep] - srt[keep - 1]).abs()
@@ -5670,8 +5698,10 @@ def run_moe_path(torch) -> tuple:
 # before the single steps, greedy steps held): each decode's held logits
 # (prompt and greedy, 96 positions) against one prefill of the same tokens
 SSM_SERVE = (
-    ("falcon-mamba-7b", (2, 8192), 0, 4, 96, 96, 48, 0),        # arXiv:2410.05355
-    ("zamba2-1.2b", (2, 8192), 19, 2, 32768, 64, 0, 32),        # arXiv:2411.15242
+    # 16 of 64 layers: uncut, its prefill took 21 s a call (PERF.md §6, PR 25),
+    # the part 237 s of the whole script's 1,200
+    ("falcon-mamba-7b", 16, (2, 8192), 0, 4, 96, 96, 48, 0),    # arXiv:2410.05355
+    ("zamba2-1.2b", None, (2, 8192), 19, 2, 32768, 64, 0, 32),  # arXiv:2411.15242
 )
 SSM_DECODE_TIMED = 16          # greedy steps timed after the held ones
 SSM_TRAIN_ARCH = "zamba2-1.2b"
@@ -5707,12 +5737,18 @@ def hold_bf16_route(torch, label, got, ref_label, ref, truth) -> dict:
                                                                ref, truth))
 
 
-def ssm_model(torch, name):
-    """The uncut model on the seed-0 init, its size and init time printed."""
+def ssm_model(torch, name, n_layers=None):
+    """The model on the seed-0 init, uncut or cut to ``n_layers`` at full
+    width, its size and init time printed."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as M
 
     cfg = get_config(name)
+    cut = f"cut to {n_layers} of {cfg.n_layers} layers" if n_layers else "uncut"
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5726,7 +5762,7 @@ def ssm_model(torch, name):
     shared = (f", one shared attention block ({cfg.n_heads} heads of {cfg.head_dim_}, d_ff "
               f"{cfg.d_ff}) every {cfg.shared_attn_every} layers"
               if cfg.family == "hybrid" else "")
-    print(f"  {name} uncut: {cfg.n_layers} {cfg.ssm_variant} layers, d_model {cfg.d_model}, "
+    print(f"  {name} {cut}: {cfg.n_layers} {cfg.ssm_variant} layers, d_model {cfg.d_model}, "
           f"d_inner {cfg.d_inner_}, state {cfg.ssm_state}{shared}, vocab {cfg.vocab_size}; "
           f"{n} {cfg.param_dtype} parameters ({info['param_gib']} GiB), initialised in "
           f"{secs:.2f} s")
@@ -5927,12 +5963,13 @@ def check_ssm_flash_shape(torch) -> tuple:
 
 
 def run_ssm_serve(torch) -> tuple:
-    """Falcon-Mamba-7B and Zamba2-1.2B served uncut, one after another, each
-    freed before the next.  Returns (launches, report)."""
+    """Falcon-Mamba-7B (16 of 64 layers) and Zamba2-1.2B (uncut) served, one
+    after another, each freed before the next.  Returns (launches, report)."""
     report, launches = {}, dict.fromkeys(KERNELS, 0)
     g = torch.Generator(device="cuda").manual_seed(1)
-    for name, (B, S), flash_layers, batch, positions, prompt, one_call, greedy in SSM_SERVE:
-        cfg, params, info = ssm_model(torch, name)
+    for name, depth, (B, S), flash_layers, batch, positions, prompt, one_call, greedy \
+            in SSM_SERVE:
+        cfg, params, info = ssm_model(torch, name, depth)
         prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda",
                                 dtype=torch.int32)
         r = dict(info, prefill=lm_prefill_check(torch, cfg, params, prompts, flash_layers))
@@ -6080,12 +6117,670 @@ def run_encdec_path(torch) -> tuple:
     return launches, {"card": card, "serve": serve, "train": train}
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the model (tensor-parallel) axis (distributed/sharding.py,
+# logical.py, the model axis of launch/mesh.py, the TP layers, the stacked
+# all-reduce's model-axis route)
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "qwen1.5-0.5b"
+TP_M = 2                       # gloo ranks sharing the one card
+# (method, backend, steps) of the TP training runs; the attackers (2 and 6)
+# under IPM-100 as the one-card trainer's.  On the model axis fused and
+# fused_two_launch are one route (kernels 4, 6 and 7): the second runs 2
+# steps, held bit for bit to the first's; Alt-WFAgg 2 steps for kernel 6
+TP_RUNS = (("wfagg", "fused", 5), ("wfagg", "fused_two_launch", 2), ("alt_wfagg", "fused", 2),
+           ("mean", "fused", 5))
+# the step-1 candidate gradients at M against M = 1 on the same parameters
+# and batch: relative rms of each candidate's whole gradient.  Both are bf16
+# activations on f32 parameters, rounded in another order (partial sums of a
+# split product rounded to bf16 before they meet); fixed before the first
+# run: a wrong block, a missing or doubled all-reduce is an O(1) error
+TP_GRAD_RMS = 5e-2
+TP_TIMEOUT_S = 900             # the ranks' deadline
+CARDS_TP_ARCH = "stablelm-3b"  # --only cards at 4 cards: its state exists only across them
+CARDS_TP_STEPS = 3
+
+
+class CollectiveClock:
+    """The model axis's collectives timed apart: the activation all-reduces
+    (``layers.all_reduce_model`` / ``all_max_model``, the TP layers' and the
+    vocabulary-parallel loss's) and ``psum_stats`` (the all-reduce's
+    statistics), host clock between ``torch.cuda.synchronize()`` calls."""
+
+    def __init__(self, torch):
+        from repro_torch.distributed import robust_allreduce as ra
+        from repro_torch.models import layers as L
+
+        self.torch, self.L, self.ra = torch, L, ra
+        self.orig = (L.all_reduce_model, L.all_max_model, ra.psum_stats)
+        self.ms = {"activations": 0.0, "psum_stats": 0.0}
+        self.calls = {"activations": 0, "psum_stats": 0}
+        L.all_reduce_model = self.wrap(self.orig[0], "activations")
+        L.all_max_model = self.wrap(self.orig[1], "activations")
+        ra.psum_stats = self.wrap(self.orig[2], "psum_stats")
+
+    def wrap(self, fn, key):
+        def timed(*a, **k):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.ms[key] += 1e3 * (time.perf_counter() - t)
+            self.calls[key] += 1
+            return out
+        return timed
+
+    def take(self) -> dict:
+        out = {k: round(v, 2) for k, v in self.ms.items()}
+        out.update({f"{k}_calls": c for k, c in self.calls.items()})
+        self.ms = dict.fromkeys(self.ms, 0.0)
+        self.calls = dict.fromkeys(self.calls, 0)
+        return out
+
+    def close(self):
+        self.L.all_reduce_model, self.L.all_max_model, self.ra.psum_stats = self.orig
+
+
+def tp_plan(rank, method, backend, needs_gram) -> dict:
+    """The launches one TP step plans on model rank ``rank``: kernel 4 on the
+    split (K, P_s) matrix, and on rank 0 on the replicated (K, P_r) one
+    too; kernel 6 likewise where the rule needs the Gram; kernel 7 on both
+    matrices on every rank; kernel 1 never (the mean: none)."""
+    if method == "mean":
+        return only_counts()
+    mats = 2 if rank == 0 else 1
+    return only_counts(robust_stats=mats, pairwise_gram=mats if needs_gram else 0,
+                       weighted_agg=2)
+
+
+def tp_margins(torch, cfg, cands, state, flips, shards):
+    """``stacked_margins`` on the model axis: the reference route's
+    statistics of the rank's candidate blocks, summed over the model group
+    (every rank takes part)."""
+    from repro_torch.core import trust
+    from repro_torch.distributed import robust_allreduce as ra
+
+    leaves = ra._leaves(cands)
+    K = leaves[0].shape[0]
+    split = [d is not None for d in shards.split_dims]
+    groups = [[l for l, s in zip(leaves, split) if s], [l for l, s in zip(leaves, split) if not s]]
+    prev = None
+    if state is not None:
+        pl = ra._leaves(state.prev)
+        prev = [[p for p, s in zip(pl, split) if s], [p for p, s in zip(pl, split) if not s]]
+    mine = [0] if shards.axis.rank else [0, 1]
+    st = ra.psum_stats(ra._partial_stats(
+        K, leaves[0].device, [groups[i] for i in mine],
+        None if prev is None else [prev[i] for i in mine], cfg), shards.axis.group)
+    st = ra.RobustStats(*(None if v is None else v[0] for v in st))
+    wcfg = ra._effective_wfagg_config(cfg, K)
+    s = b = tb = None
+    if state is not None:
+        tb = trust.temporal_bands(state.hist_s, state.hist_b, state.count, state.t, wcfg)[None]
+        s = st.prev_dist2
+        b = 1.0 - st.prev_dot / torch.clamp(torch.sqrt(st.norm2 * st.prev_norm2), min=1e-24)
+    return margins_of(torch, wcfg, st.dist2, st.gram, st.dotmed, st.mednorm2, s, b, tb, flips)
+
+
+class TPObserver:
+    """The TP trainer's ``observe`` hook on one rank: each phase's ms, the
+    collectives apart (``CollectiveClock``), the launches of the step's own
+    route (the hold's excluded), peak memory; with ``hold``, at every step
+    the model-axis route of the reference backend (per leaf plain
+    statistics of the rank's blocks, summed over the model group, the
+    reference's scoring and ``tensordot`` combine) on the same candidates
+    and state, held to the step's route: masks bit-equal or near-ties
+    (``NEAR_TIE``, ``tp_margins``), weights within ``STACK_W_TOL``, the
+    rank's aggregate blocks within rtol ``STACK_RTOL`` / atol
+    ``STACK_ATOL``; and at step 1 the candidates (before the attack)
+    against the M = 1 gradients of ``grads_m1`` (a (K, P) float32 file in
+    ravel order), block by block."""
+
+    def __init__(self, torch, tc, agg_state, hold, clock, model, grads_m1=None):
+        self.torch, self.tc, self.hold, self.clock = torch, tc, hold, clock
+        self.model, self.grads_m1 = model, grads_m1
+        self.hist = (tuple(getattr(agg_state, f).clone() for f in
+                           ("hist_s", "hist_b", "count", "t")) if hold else None)
+        self.steps, self.peaks, self.launches, self.near_ties = [], [], [], []
+        self.max_err, self.grad_rms = 0.0, None
+
+    def start(self):
+        self.torch.cuda.synchronize()
+        self.torch.cuda.reset_peak_memory_stats()
+        self.cur, self.held = {}, 0.0
+        self.clock.take()
+        zero_counts()
+        self.t = time.perf_counter()
+
+    def __call__(self, phase, **v):
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.cur[phase] = 1e3 * (time.perf_counter() - self.t)
+        if phase == "optimizer":
+            self.cur.update(self.clock.take())
+            self.steps.append(self.cur)
+            self.peaks.append(round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+            self.launches.append({k: c for k, c in read_counts().items() if c})
+        else:
+            counts = read_counts()
+            clock = dict(self.clock.ms), dict(self.clock.calls)
+            if phase == "grads" and self.grads_m1 is not None and not self.steps:
+                self.grad_rms = self.hold_grads(v["candidates"])
+            elif self.hold and phase == "attack":
+                self.route(v["candidates"], v["agg_state"])
+            elif self.hold and phase == "allreduce":
+                self.compare(v["grads"], v["info"])
+            # the hold's own launches and collectives are not the step's
+            for name, (mod, attr, _, _) in KERNELS.items():
+                setattr(_module(name), attr, counts[name])
+            self.clock.ms, self.clock.calls = clock
+        torch.cuda.synchronize()
+        self.t = time.perf_counter()
+
+    def hold_grads(self, cands) -> list:
+        """Each candidate's relative rms against M = 1 over the whole
+        gradient: this rank's blocks read from the file, the squared sums
+        summed over the model group (the replicated leaves on rank 0)."""
+        import numpy as np
+
+        from repro_torch.core import flatten as F
+        from repro_torch.distributed import robust_allreduce as ra
+        from repro_torch.models import layers as L
+
+        torch = self.torch
+        axis = self.model.tp
+        full = np.memmap(self.grads_m1, dtype=np.float32, mode="r")
+        leaves = ra._leaves(cands)
+        K = leaves[0].shape[0]
+        full = full.reshape(K, -1)
+        num = torch.zeros((K,), dtype=torch.float64, device="cuda")
+        den = torch.zeros((K,), dtype=torch.float64, device="cuda")
+        off = 0
+        for leaf, dim in zip(leaves, F.split_dims(self.model)):
+            shape = list(leaf.shape[1:])
+            if dim is not None:
+                shape[dim] *= axis.size
+            n = math.prod(shape)
+            want = torch.from_numpy(np.ascontiguousarray(full[:, off:off + n])).view(
+                [K] + shape)
+            off += n
+            if dim is not None:
+                want = want.narrow(dim + 1, axis.rank * leaf.shape[dim + 1], leaf.shape[dim + 1])
+            elif axis.rank:
+                continue
+            want = want.to("cuda")
+            num += ((leaf - want).double() ** 2).reshape(K, -1).sum(-1)
+            den += (want.double() ** 2).reshape(K, -1).sum(-1)
+            del want
+        if off != full.shape[1]:
+            raise AssertionError(f"tp grads: {off} of {full.shape[1]} values read")
+        tot = L.all_reduce_model(torch.stack([num, den]).float(), axis.group)
+        rms = (tot[0] / tot[1]).sqrt().tolist()
+        if max(rms) > TP_GRAD_RMS:
+            raise AssertionError(f"tp step 1: candidate gradients at relative rms {rms} of "
+                                 f"M = 1's (bound {TP_GRAD_RMS})")
+        return [round(r, 6) for r in rms]
+
+    def route(self, cands, state):
+        import dataclasses
+
+        from repro_torch.core import flatten as F
+        from repro_torch.distributed import robust_allreduce as ra
+
+        self.shards = ra.ModelShards(self.model.tp, tuple(F.split_dims(self.model)))
+        self.cfg_ref = dataclasses.replace(self.tc.agg, backend="reference")
+        st = ra.TreeAggState(state.prev, *self.hist)
+        self.cands, self.state = cands, st
+        o, ns, info = ra.robust_allreduce_stacked(cands, self.cfg_ref, st,
+                                                  model_shards=self.shards)
+        self.hist = (ns.hist_s, ns.hist_b, ns.count, ns.t)
+        self.ref = (o, info["weights"], {k: info[k] for k in ("mask_d", "mask_c", "mask_t")})
+
+    def compare(self, grads, info):
+        from repro_torch.models import layers as L
+
+        torch = self.torch
+        o, w, masks = self.ref
+        flips = [(k, bit) for bit, name in enumerate(("mask_d", "mask_c", "mask_t"))
+                 for k in (masks[name] != info[name]).nonzero().flatten().tolist()]
+        label = f"tp {self.tc.agg.method} {self.tc.agg.backend} step {len(self.steps) + 1}"
+        keep = torch.ones(w.shape[0], dtype=torch.bool, device="cuda")
+        if flips:
+            rep = tp_margins(torch, self.cfg_ref, self.cands, self.state, flips, self.shards)
+            print(f"  {label}: decisions differ at (candidate, filter, margin) {rep}")
+            if not all(m is not None and m <= NEAR_TIE for _, _, m in rep):
+                raise AssertionError(f"{label}: decisions differ away from any edge")
+            self.near_ties.append((len(self.steps) + 1, rep))
+            keep[[k for k, _ in flips]] = False
+        torch.testing.assert_close(info["weights"][keep], w[keep], rtol=0, atol=STACK_W_TOL)
+        if not flips:
+            err = close_leafwise(torch, grads, o, STACK_RTOL, STACK_ATOL)
+            err = float(L.all_max_model(torch.tensor([err], device="cuda"),
+                                        self.model.tp.group)[0])
+            self.max_err = max(self.max_err, err)
+        self.ref = self.cands = self.state = None
+
+
+def tp_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
+    """The TP serving part on one rank: ``build_prefill(mesh=)`` on 2 x 8192
+    (warm once, then timed; kernel 8 on the rank's H/M heads, 24 launches
+    a call), the last ``PREFILL_TAIL`` positions' logits gathered and, on
+    rank 0, held to the M = 1 prefill's (written by the parent) by the
+    dense rule; decode at batch 4 against 32,768 slots over a 64-token
+    prompt and 32 greedy tokens (0 launches), held to one prefill of the
+    96 tokens.  Returns (launches, report)."""
+    from repro_torch.configs.shapes import DECODE_32K
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.train import serve as sv
+
+    rep = {}
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+    torch.cuda.synchronize()
+    rep["init_s"] = round(time.perf_counter() - t0, 2)
+    rep["params_rank"] = sum(p.numel() for p in params.parameters())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), generator=g,
+                            device="cuda", dtype=torch.int32)
+    clock = CollectiveClock(torch)
+    try:
+        prefill = sv.build_prefill(cfg, mesh=mesh, gather=False)
+        zero_counts()
+        logits = prefill(params, {"tokens": prompts})
+        if logits.shape != (PREFILL_B, PREFILL_S, cfg.vocab_size // mesh.shape["model"]):
+            raise AssertionError(f"tp prefill logits {tuple(logits.shape)}")
+        del logits
+        clock.take()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        times, colls = [time.perf_counter() - t], [clock.take()]
+        rep["prefill_peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+        counts = read_counts()
+        tc = _module("flash_attention").launches_tc
+        want = only_counts(flash_attention=cfg.n_layers * 2)
+        if counts != want or tc != cfg.n_layers * 2:
+            raise AssertionError(f"tp prefill launches {counts} ({tc} tensor-core), "
+                                 f"expected {cfg.n_layers} a call, all tensor-core")
+        launches = dict(counts, **{"flash_attention[tensor_core]": tc})
+        rep["prefill_ms"] = [round(1e3 * t, 2) for t in times]
+        rep["prefill_tokens_per_s"] = round(PREFILL_B * PREFILL_S / min(times), 1)
+        rep["prefill_collectives"] = colls
+        tail = shd.gather_tensor(logits[:, -PREFILL_TAIL:].contiguous(),
+                                 (None, None, "model"), mesh).float()
+        del logits
+        if rank == 0:
+            want_tail = torch.load(pathlib.Path(out_dir, "prefill_tail.pt")).to("cuda")
+            check_logits(torch, f"tp M={TP_M} prefill vs M=1, each prompt's last "
+                         f"{PREFILL_TAIL} positions", tail, want_tail)
+            del want_tail
+        del tail
+
+        cache = M.init_cache(cfg, DECODE_B, DECODE_32K.seq_len, mesh=mesh)
+        prompt = torch.randint(0, cfg.vocab_size, (DECODE_B, PROMPT), generator=g,
+                               device="cuda", dtype=torch.int32)
+        step = sv.build_decode_step(cfg, mesh=mesh)
+        zero_counts()
+        stepped = []
+        for i in range(PROMPT):
+            lg, cache = step(params, cache, prompt[:, i:i + 1])
+            stepped.append(lg)
+        gen = []
+        clock.take()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(NEW_TOKENS):
+            gen.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+            lg, cache = step(params, cache, gen[-1])
+            stepped.append(lg)
+        torch.cuda.synchronize()
+        rep["decode_ms"] = round(1e3 * (time.perf_counter() - t) / NEW_TOKENS, 3)
+        rep["decode_collectives_per_step"] = {k: round(v / NEW_TOKENS, 3)
+                                              for k, v in clock.take().items()}
+        rep["decode_tokens_per_s"] = round(DECODE_B / rep["decode_ms"] * 1e3, 1)
+        rep["cache_heads"] = cache["layers"]["k"].shape[2]
+        if read_counts() != only_counts():
+            raise AssertionError(f"tp decode launched {read_counts()}")
+        seq = torch.cat([prompt] + gen, dim=1)
+        pf = sv.build_prefill(cfg, mesh=mesh)(params, {"tokens": seq}).float()
+        st = torch.cat(stepped, dim=1).float()
+        if not bool(torch.isfinite(st).all()):
+            raise AssertionError("tp: non-finite decode logits")
+        if rank == 0:
+            check_logits(torch, f"tp M={TP_M} decode vs one prefill of the same "
+                         f"{seq.shape[1]} tokens", st, pf)
+        rep["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+    finally:
+        clock.close()
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rep
+
+
+def tp_train(torch, cfg, M_, rank, runs, grads_file=None, hold=True) -> tuple:
+    """The TP training part on one rank: per (method, backend, steps) of
+    ``runs`` that many steps of ``build_train_step`` on the mesh {data K, model M}
+    from seed 0, IPM-100 on 2 of K, AdamW; the hold of ``TPObserver`` (the
+    step-1 gradients only with ``grads_file``, the route only with
+    ``hold``).  Returns (launches, report)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.core import flatten as F
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import trainer as tr
+
+    mesh = make_test_mesh(data=TRAIN_K, model=M_, model_group=dist.group.WORLD)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_K)
+    batches = [stream.batch(i, device="cuda") for i in range(max(r[2] for r in runs))]
+    launches = dict.fromkeys(KERNELS, 0)
+    report = {}
+    clock = CollectiveClock(torch)
+    try:
+        for method, backend, steps in runs:
+            tc = train_config(method, attack=TRAIN_ATTACK, n_malicious=TRAIN_MALICIOUS)
+            tc = dataclasses.replace(tc, agg=dataclasses.replace(tc.agg, backend=backend))
+            state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0),
+                                        mesh)
+            obs = TPObserver(torch, tc, state.agg_state, hold and method != "mean", clock,
+                             state.params,
+                             grads_m1=grads_file if (method, backend) == runs[0][:2] else None)
+            step = tr.build_train_step(cfg, tc, mesh, observe=obs)
+            losses, weights = [], []
+            for b in batches[:steps]:
+                obs.start()
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+                weights.append([round(float(w), 4) for w in m["weights"]])
+            needs_gram = method == "alt_wfagg"
+            plan = {k: c for k, c in tp_plan(rank, method, backend, needs_gram).items() if c}
+            for i, got in enumerate(obs.launches):
+                if got != plan:
+                    raise AssertionError(f"tp {method} {backend} step {i + 1} on rank {rank}: "
+                                         f"launches {got}, planned {plan}")
+            for k, c in plan.items():
+                launches[k] += c * steps
+            label = f"{method} {backend}"
+            report[label] = dict(P=[b.numel() for b in F.layout_split(state.params)],
+                                 losses=losses, weights=weights, ms=[
+                {k: round(v, 2) for k, v in s.items()} for s in obs.steps],
+                peak_gib=obs.peaks, launches_per_step=plan, near_ties=obs.near_ties,
+                max_out_err=obs.max_err, grad_rms_vs_m1=obs.grad_rms,
+                tokens_per_s=[round(1e3 * batches[0]["tokens"].numel()
+                                    / sum(s[p] for p in ("grads", "attack", "allreduce",
+                                                         "optimizer")), 1)
+                              for s in obs.steps])
+            del state, step, obs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        clock.close()
+    return launches, report
+
+
+def tp_child(rank, S, store_path, out_dir, backend) -> None:
+    """One rank of the model-axis part: joins the ``backend`` group of S
+    ranks (on card ``rank`` modulo the cards); the serving part, then the
+    training part (``out_dir``/``tp_job.json`` names the model, the runs and
+    the steps); writes its launches and report as JSON."""
+    import os
+
+    job = json.loads(pathlib.Path(out_dir, "tp_job.json").read_text())
+    if job.get("expandable"):
+        # before the first allocation: a card nearly full of train state
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    res = {"rank": rank}
+    try:
+        from repro_torch.configs.registry import get_config
+        from repro_torch.launch.mesh import make_test_mesh
+
+        dist.init_process_group(backend, store=dist.FileStore(store_path, S), rank=rank,
+                                world_size=S)
+        try:
+            cfg = get_config(job["arch"])
+            launches = dict.fromkeys(KERNELS, 0)
+            res["report"] = {}
+            if job["serve"]:
+                mesh = make_test_mesh(data=1, model=S, model_group=dist.group.WORLD)
+                la, res["report"]["serve"] = tp_serve(torch, cfg, mesh, out_dir, rank)
+                for k in KERNELS:
+                    launches[k] += la[k]
+                res["tc"] = la["flash_attention[tensor_core]"]
+            la, res["report"]["train"] = tp_train(
+                torch, cfg, S, rank, [tuple(r) for r in job["runs"]],
+                grads_file=job.get("grads"), hold=job["hold"])
+            for k in KERNELS:
+                launches[k] += la[k]
+            res["launches"] = {"tp": launches}
+        finally:
+            dist.destroy_process_group()
+    except Exception:   # noqa: BLE001 - the parent fails the run on it
+        import traceback
+        res["error"] = traceback.format_exc()
+    pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def tp_reference(torch, out_dir) -> None:
+    """What the ranks are held to at M = 1, computed here before they start
+    and freed: the seed-0 Qwen's prefill tail (2 x 8192, its last
+    ``PREFILL_TAIL`` positions, f32) and the K candidate gradients of the
+    first training batch on the same parameters (a (K, P) float32 file in
+    ravel order)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.flatten import layout_flat
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.train import serve as sv
+    from repro_torch.train import trainer as tr
+
+    cfg = get_config(TP_ARCH)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), generator=g,
+                            device="cuda", dtype=torch.int32)
+    logits = sv.build_prefill(cfg)(params, {"tokens": prompts})
+    torch.save(logits[:, -PREFILL_TAIL:].float().cpu(), pathlib.Path(out_dir, "prefill_tail.pt"))
+    del logits
+    P = layout_flat(params).numel()
+    batch = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_K).batch(0, device="cuda")
+    rows = batch["tokens"].shape[0] // TRAIN_K
+    with open(pathlib.Path(out_dir, "grads_m1.f32"), "wb") as f:
+        G = torch.empty((P,), dtype=torch.float32, device="cuda")
+        for k in range(TRAIN_K):
+            tr.loss_and_grad(cfg, params, {"tokens": batch["tokens"][k * rows:(k + 1) * rows]},
+                             G)
+            f.write(G.cpu().numpy().tobytes())
+    del params, G
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def time_tp_kernels(torch, K, D, heads) -> dict:
+    """Kernels 4 and 7 at the model axis's launch shape, (K, D = P_s) with
+    ``prev`` and the combine with ``lcoef`` = 0 (the wrappers ``*_cuda``,
+    median CUDA-event ms), beside their plain versions (kernel 4's in
+    column chunks), bounds and, for kernel 7, ``addmv``; and kernel 8 at a
+    rank's heads of the TP prefill (``time_flash``)."""
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.weighted_agg import kernel as wk
+    from repro_torch.kernels.weighted_agg import ops as wops
+
+    g = torch.Generator(device="cuda").manual_seed(61)
+    u = torch.randn((K, D), generator=g, device="cuda")
+    prev = torch.randn((K, D), generator=g, device="cuda")
+    out = {}
+    b = bound(4.0 * 2 * K * D, D * (2.0 * network_compare_exchanges(K) + 15.0 * K))
+    out["robust_stats"] = dict(
+        ms=time_cuda(torch, lambda: rk.robust_stats_cuda(u, prev, 0.1, False), 2, 10),
+        plain_ms=time_cuda(torch, lambda: chunked_plain_stats(torch, u, prev), 1, 3),
+        bound_ms=b[0], bound_by=b[1], library_ms=None, shape=f"K={K} D={D}, prev")
+    del prev
+    w = torch.ones((K,), device="cuda")
+    w[2] = w[6] = 0.0
+    wvec = w / w.sum()
+    lcoef = torch.zeros((1,), device="cuda")
+    local = torch.zeros((D,), device="cuda")
+    b = bound(4.0 * (K + 2) * D, 2.0 * K * D)
+    out["weighted_agg"] = dict(
+        ms=time_cuda(torch, lambda: wk.weighted_agg_cuda(wvec, lcoef, local, u), 2, 10),
+        plain_ms=time_cuda(torch, lambda: wops.weighted_agg_plain(wvec, lcoef, local, u),
+                           1, 3),
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=time_cuda(torch, lambda: torch.addmv(local, u.t(), wvec, beta=0.0), 2, 10),
+        shape=f"K={K} D={D}, lcoef 0")
+    for name, t in out.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        print(f"  {name} at the model axis's shape {t['shape']}: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"library {lib}")
+    del u, local
+    torch.cuda.empty_cache()
+    # kernel 8 at a rank's heads of Qwen's prefill: B=2, H/M, S=8192, hd=64
+    out["flash_attention"] = time_flash(torch, PREFILL_B, heads, PREFILL_S, 64, seed=62)
+    return out
+
+
+def run_tp_path(torch, backend="gloo", S=TP_M) -> tuple:
+    """The model axis on one card: ``TP_M`` gloo ranks share it (a
+    ``FileStore``, as the distributed phase's), each one TP shard of
+    Qwen1.5-0.5B uncut (seed 0): serving (``tp_serve``) and training
+    (``tp_train``: WFAgg on ``fused`` and ``fused_two_launch``, Alt-WFAgg on
+    ``fused``, the mean; K = 8, S = 1025, IPM-100 on 2, AdamW lr 1e-3,
+    the steps of ``TP_RUNS``), held to M = 1 (``tp_reference``) and to the
+    reference backend's route.  Returns (launches summed over the ranks,
+    report)."""
+    import tempfile
+
+    card = gpu_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_reference(torch, tmp)
+    ref_s = time.perf_counter() - t0
+    pathlib.Path(tmp, "tp_job.json").write_text(json.dumps(dict(
+        arch=TP_ARCH, serve=True, runs=TP_RUNS, hold=True,
+        grads=str(pathlib.Path(tmp, "grads_m1.f32")))))
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(torch, backend, S, child=tp_child, tmp=tmp, timeout=TP_TIMEOUT_S)
+    finally:
+        for name in ("grads_m1.f32", "prefill_tail.pt"):
+            pathlib.Path(tmp, name).unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
+    launches, rep = report_tp(ranks, card, ref_s, seconds, TP_ARCH,
+                              "gloo, one card" if backend == "gloo" else f"nccl, {S} cards")
+    P_s = ranks[0]["report"]["train"]["wfagg fused"]["P"][0]
+    rep["kernels"] = time_tp_kernels(torch, TRAIN_K, P_s, 16 // S)
+    return launches, rep
+
+
+def run_tp_cards(torch) -> dict:
+    """``--only cards``' model-axis part: Qwen1.5-0.5B on M = the number of
+    cards (``nccl``, one rank a card) with the one-card part's checks; with
+    four cards also ``CARDS_TP_ARCH`` uncut at M = 4, K = 8, WFAgg-T on
+    ``fused``, ``CARDS_TP_STEPS`` steps under IPM-100, its train state
+    existing only across the cards (peak per card and step time; no
+    one-card hold fits)."""
+    import tempfile
+
+    S = torch.cuda.device_count()
+    launches, rep = run_tp_path(torch, "nccl", S)
+    out = {"qwen": rep}
+    if S == 4:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+        pathlib.Path(tmp, "tp_job.json").write_text(json.dumps(dict(
+            arch=CARDS_TP_ARCH, serve=False, runs=(("wfagg", "fused", CARDS_TP_STEPS),),
+            hold=False, expandable=True)))
+        t0 = time.perf_counter()
+        ranks = run_ranks(torch, "nccl", S, child=tp_child, tmp=tmp, timeout=TP_TIMEOUT_S)
+        la, out["stablelm"] = report_tp(ranks, gpu_line(), 0.0, time.perf_counter() - t0,
+                                        CARDS_TP_ARCH, f"nccl, {S} cards")
+        for k in KERNELS:
+            launches[k] += la[k]
+    out["launches"] = {k: c for k, c in launches.items() if c}
+    return out
+
+
+def report_tp(ranks, card, ref_s, seconds, arch, where) -> tuple:
+    """Print the TP ranks' reports; the WFAgg loss claim; returns (launches
+    summed over the ranks, report)."""
+    launches = dict.fromkeys(KERNELS, 0)
+    for r in ranks:
+        for k, c in r["launches"]["tp"].items():
+            launches[k] += c
+    rep = {"card": card, "ranks": len(ranks), "reference_s": round(ref_s, 1),
+           "ranks_s": round(seconds, 1), "per_rank": [r["report"] for r in ranks]}
+    r0 = ranks[0]["report"]
+    print(f"  {card}: {arch} on {len(ranks)} model ranks ({where}); M = 1 reference "
+          f"{ref_s:.1f} s, the ranks {seconds:.1f} s")
+    if "serve" in r0:
+        for r in ranks:
+            s = r["report"]["serve"]
+            print(f"  rank {r['rank']} serve: {s['params_rank']} parameters; prefill "
+                  f"{PREFILL_B} x {PREFILL_S} ms {s['prefill_ms']} ({s['prefill_tokens_per_s']} "
+                  f"tokens/s; collectives per call {s['prefill_collectives']}), peak "
+                  f"{s['prefill_peak_gib']} GiB; decode batch {DECODE_B} at 32,768 slots "
+                  f"({s['cache_heads']} KV heads a rank) {s['decode_ms']} ms a step "
+                  f"({s['decode_tokens_per_s']} tokens/s; collectives per step "
+                  f"{s['decode_collectives_per_step']}), peak {s['peak_gib']} GiB")
+    for label in r0["train"]:
+        for r in ranks:
+            t = r["report"]["train"][label]
+            phases = [{p: s.get(p) for p in ("grads", "attack", "allreduce", "optimizer",
+                                             "activations", "psum_stats")} for s in t["ms"]]
+            print(f"  rank {r['rank']} train {label}: loss {[round(x, 4) for x in t['losses']]}"
+                  f", weights {t['weights'][-1]}; launches a step {t['launches_per_step']}; "
+                  f"ms per step {phases}; tokens/s {t['tokens_per_s']}; peak GiB "
+                  f"{t['peak_gib']}; held to the reference route (max|diff| "
+                  f"{t['max_out_err']:.3g}, near-ties {t['near_ties'] or 'none'})"
+                  + (f"; step-1 candidates vs M = 1, relative rms {t['grad_rms_vs_m1']}"
+                     if t["grad_rms_vs_m1"] else ""))
+    tr0 = r0["train"]
+    bad = [2, 6]
+    for label, t in tr0.items():
+        if not all(map(math.isfinite, t["losses"])):
+            raise AssertionError(f"tp {label}: non-finite loss {t['losses']}")
+        if not label.startswith("mean") and any(w[k] != 0.0 for w in t["weights"] for k in bad):
+            raise AssertionError(f"tp {label}: an attacker got weight: {t['weights']}")
+    two = tr0.get("wfagg fused_two_launch")
+    if two is not None:
+        one = tr0["wfagg fused"]
+        n = len(two["losses"])
+        if two["losses"] != one["losses"][:n] or two["weights"] != one["weights"][:n]:
+            raise AssertionError(f"tp: fused_two_launch {two['losses']} {two['weights']} is "
+                                 f"not the fused route's first {n} steps")
+        print(f"  fused_two_launch equals the fused route bit for bit over {n} steps (one "
+              "route on the model axis)")
+    if "mean fused" not in tr0:
+        return launches, rep
+    w = tr0["wfagg fused"]["losses"]
+    mean = tr0["mean fused"]["losses"]
+    if not (w[-1] < w[0] and w[-1] < mean[-1]):
+        raise AssertionError(f"tp: WFAgg's last loss {w[-1]} is not below its first {w[0]} "
+                             f"and the mean's {mean[-1]}")
+    print(f"  the claim on the model axis: WFAgg's loss {w[0]:.4f} -> {w[-1]:.4f}, the "
+          f"mean's {mean[0]:.4f} -> {mean[-1]:.4f} under {TRAIN_ATTACK}")
+    return launches, rep
+
+
 def main(argv=()) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("distributed", "cards", "train", "moe", "ssm", "encdec"):
-        print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm|encdec]",
+    if argv and only not in ("distributed", "cards", "train", "moe", "ssm", "encdec", "tp"):
+        print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm|encdec|tp]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6099,6 +6794,11 @@ def main(argv=()) -> int:
     from repro_torch.kernels import common
 
     print(gpu_line())
+    t_main = time.perf_counter()
+
+    def at() -> str:
+        """Phase 3's headers carry the seconds since the build began."""
+        return f"[3 +{time.perf_counter() - t_main:.0f} s]"
 
     # ---- phase 1: build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -6143,10 +6843,22 @@ def main(argv=()) -> int:
         launches, report = run_encdec_path(torch)
         print(json.dumps({"encdec": {"launches": launches, "report": report}}))
         return 0
+    if only == "tp":
+        print(f"[3] the model axis alone (--only tp): {TP_ARCH} on {TP_M} gloo ranks sharing "
+              "the card; no kernels or ok line")
+        launches, report = run_tp_path(torch)
+        print(json.dumps({"tp": {"launches": {k: c for k, c in launches.items() if c},
+                                 "report": report}}))
+        return 0
     if only == "cards":
         print(f"[3] the distributed parts on one nccl rank per card (--only cards): "
               f"{torch.cuda.device_count()} cards; no kernels or ok line")
-        print(json.dumps({"cards": run_cards(torch)}))
+        cards = run_cards(torch)
+        print(f"[3] the model axis on one nccl rank per card: {TP_ARCH} at M = "
+              f"{torch.cuda.device_count()}" + (f", then {CARDS_TP_ARCH} uncut at M = 4"
+                                                if torch.cuda.device_count() == 4 else ""))
+        cards["tp"] = run_tp_cards(torch)
+        print(json.dumps({"cards": cards}))
         return 0
 
     # ---- phase 2: kernel vs plain -------------------------------------------
@@ -6263,7 +6975,7 @@ def main(argv=()) -> int:
     errs["flash_attention"], timed["flash_attention"] = check_flash(torch)
 
     # ---- phase 3: the main paths --------------------------------------------
-    print(f"[3] DFL main path: run_experiment, LeNet-5, paper topology, IPM-100, "
+    print(f"{at()} DFL main path: run_experiment, LeNet-5, paper topology, IPM-100, "
           f"{ROUNDS} rounds")
     data = SyntheticImages()
     cfg = DFLConfig(aggregator="wfagg", attack="ipm_100", model="lenet",
@@ -6286,7 +6998,7 @@ def main(argv=()) -> int:
         raise AssertionError("non-finite accuracy on the main path")
     check_against_reference(torch, cfg, topo, data, ROUNDS)
 
-    print(f"[3] DFL Alt-WFAgg and the two-launch backend: run_experiment, LeNet-5, "
+    print(f"{at()} DFL Alt-WFAgg and the two-launch backend: run_experiment, LeNet-5, "
           f"paper topology, IPM-100, {ROUNDS} rounds")
     dfl_launches = dict(dfl_counts)
     times = {"wfagg on fused": out, "mean": base}
@@ -6323,7 +7035,7 @@ def main(argv=()) -> int:
               f"{[round(a, 4) for a in s['acc_benign_mean']]}, round ms "
               f"{[round(1e3 * t, 2) for t in s['round_seconds']]}")
 
-    print("[3] Table I: run_experiment, MLP, paper topology (spaced), IPM-100, 4 rounds, "
+    print(f"{at()} Table I: run_experiment, MLP, paper topology (spaced), IPM-100, 4 rounds, "
           "every aggregator in DFL and CFL")
     table, table_launches = run_table1(torch, data)
     accs = {agg: table[(agg, False)]
@@ -6334,7 +7046,7 @@ def main(argv=()) -> int:
         if not (accs[agg] > 0.9 and accs[agg] > accs["mean"] + 0.2):
             raise AssertionError(f"DFL IPM-100 claim does not hold for {agg}: {accs}")
 
-    print(f"[3] CFL main path: run_experiment(centralized=True), LeNet-5, the same "
+    print(f"{at()} CFL main path: run_experiment(centralized=True), LeNet-5, the same "
           f"topology, IPM-100, {ROUNDS} rounds")
     cfl_launches = dict.fromkeys(KERNELS, 0)
     for agg in ("wfagg", "alt_wfagg"):
@@ -6363,25 +7075,25 @@ def main(argv=()) -> int:
     if not (accs["wfagg"] > accs["mean"] + 0.2 and accs["alt_wfagg"] > accs["mean"] + 0.2):
         raise AssertionError(f"CFL IPM-100 claim does not hold: {accs}")
 
-    print(f"[3] dynamic topologies and chaos transport: run_dynamic_experiment, "
+    print(f"{at()} dynamic topologies and chaos transport: run_dynamic_experiment, "
           f"LeNet-5, the same topology, IPM-100, {ROUNDS} rounds")
     dyn_launches = run_dynamic_paths(torch, topo, data)
 
-    print(f"[3] adaptive adversaries and the audit plane: the gate grid "
+    print(f"{at()} adaptive adversaries and the audit plane: the gate grid "
           f"(run_dynamic_experiment, MLP, {GATE_GRID['nodes']}-node ring, close placement, "
           f"{GATE_GRID['rounds']} rounds), band_rider and min_max replays, backend "
           "parity, band_rider on the chaos round, the flight run, CFL under min_max")
     adaptive_launches = run_adaptive_paths(torch)
 
-    print(f"[3] the gathered wfagg_batch with per-edge WFAgg-T state: LeNet-5, the same "
+    print(f"{at()} the gathered wfagg_batch with per-edge WFAgg-T state: LeNet-5, the same "
           f"topology, IPM-100, {ROUNDS} rounds")
     gathered_launches = run_gathered_path(torch, topo, data)
 
-    print(f"[3] serving {SERVE_ARCH} at full width: build_prefill (kernel 8 in every layer) "
+    print(f"{at()} serving {SERVE_ARCH} at full width: build_prefill (kernel 8 in every layer) "
           f"and build_decode_step")
     serve_launches = run_serve_path(torch)
 
-    print(f"[3] distributed: the d-sharded round on {SHARDS} gloo ranks on the one card "
+    print(f"{at()} distributed: the d-sharded round on {SHARDS} gloo ranks on the one card "
           f"(round, scan, the sharded DFL engine), S=1 on nccl, and the stacked robust "
           f"all-reduce over {STACK_ARCH}-shaped candidates")
     dist_launches, dist_errs, dist_timed = run_distributed(torch)
@@ -6391,30 +7103,38 @@ def main(argv=()) -> int:
         if name in timed:
             timed[name]["distributed"] = t
 
-    print(f"[3] training: the robust-DP trainer on {TRAIN_ARCH} at full width (stacked "
+    print(f"{at()} training: the robust-DP trainer on {TRAIN_ARCH} at full width (stacked "
           f"layout, K={TRAIN_K}), the flat layout on {FLAT_K} gloo ranks, the launcher")
     train_launches, _ = run_train_path(torch)
 
-    print("[3] the MoE family: kernel 8 at the MoE prefills' shapes; DeepSeek-V2-Lite uncut, "
+    print(f"{at()} the MoE family: kernel 8 at the MoE prefills' shapes; DeepSeek-V2-Lite uncut, "
           "Moonlight (16 layers) and Arctic (2 layers) served; DeepSeek-V2-Lite (2 layers) "
           f"trained on the stacked robust-DP trainer, K={MOE_TRAIN_K}")
     moe_launches, moe_errs, moe_flash, _ = run_moe_path(torch)
     errs["flash_attention"] += moe_errs
     timed["flash_attention"]["moe_shapes"] = moe_flash
 
-    print("[3] the SSM and hybrid families: kernel 8 at Zamba2's prefill shape; "
-          "Falcon-Mamba-7B and Zamba2-1.2B served uncut; Zamba2 "
+    print(f"{at()} the SSM and hybrid families: kernel 8 at Zamba2's prefill shape; "
+          "Falcon-Mamba-7B (16 of 64 layers) and Zamba2-1.2B (uncut) served; Zamba2 "
           f"({SSM_TRAIN_LAYERS} layers) trained on the stacked robust-DP trainer, "
           f"K={SSM_TRAIN_K}")
     ssm_launches, ssm_err, ssm_flash, _ = run_ssm_path(torch)
     errs["flash_attention"].append(ssm_err)
     timed["flash_attention"]["zamba2_shape"] = ssm_flash
 
-    print("[3] the encoder-decoder and VLM families: SeamlessM4T-medium uncut and "
+    print(f"{at()} the encoder-decoder and VLM families: SeamlessM4T-medium uncut and "
           f"LLaVA-NeXT-34B ({ENCDEC_SERVE[1][1]} layers) served; Seamless "
           f"({ENCDEC_TRAIN_LAYERS} + {ENCDEC_TRAIN_LAYERS} layers) trained on the stacked "
           f"robust-DP trainer, K={ENCDEC_TRAIN_K}")
     encdec_launches, _ = run_encdec_path(torch)
+
+    print(f"{at()} the model axis: {TP_ARCH} uncut split over {TP_M} gloo ranks sharing the "
+          f"card: served (prefill 2 x 8192 through kernel 8 on each rank's heads, decode) "
+          f"and trained (K={TRAIN_K}, WFAgg on fused and fused_two_launch, Alt-WFAgg, the "
+          "mean; kernels 4, 6 and 7 on each rank's blocks)")
+    tp_launches, tp_report = run_tp_path(torch)
+    for name, t in tp_report["kernels"].items():
+        timed[name]["model_axis"] = t
 
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
@@ -6431,20 +7151,25 @@ def main(argv=()) -> int:
     # prefills, on the tensor-core kernel) and its training's kernels 1, 4
     # and 6; the encoder-decoder and VLM part's kernel 8 (the Seamless and
     # LLaVA prefills, on the tensor-core kernel) and its training's kernels
-    # 1, 4 and 6
+    # 1, 4 and 6; the model axis's kernel 8 (each rank's prefills) and its
+    # training's kernels 4, 6 and 7, summed over the ranks
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
                 + adaptive_launches[name] + table_launches[name]
                 + gathered_launches[name] + serve_launches[name] + dist_launches[name]
                 + train_launches[name] + moe_launches[name] + ssm_launches[name]
-                + encdec_launches[name] for name in KERNELS}
+                + encdec_launches[name] + tp_launches[name] for name in KERNELS}
+    # the model axis's prefills run on the tensor-core kernel only (checked
+    # per rank), so its kernel-8 launches are all tensor-core launches
     timed["flash_attention"]["launches_tc"] = (serve_launches["flash_attention[tensor_core]"]
                                                + moe_launches["flash_attention"]
                                                + ssm_launches["flash_attention"]
-                                               + encdec_launches["flash_attention"])
+                                               + encdec_launches["flash_attention"]
+                                               + tp_launches["flash_attention"])
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])
         for name, (_, _, src, replaces) in KERNELS.items()]}))
+    print(f"{at()} done")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,6 +17,14 @@ Python strings, capitals first (a Mamba mixer's ``A_log``, ``D``, then
 order, each parameter a view of it, so that raveling the model, its
 gradient and its optimizer step need no copies: ``module_tree`` of such a
 module is a tree of views of the buffer, the stacked leaves included.
+
+On the model axis (a model cut by ``models.model.cut_model_``)
+``layout_split`` puts a rank's parameters into two buffers instead, each
+in ravel order: the leaves split over the model axis (P_s,) and the
+replicated ones (P_r,): norm scales and biases, and the KV projections
+where M does not divide the KV heads.  ``module_tree`` then gives views
+of both, and ``unravel_rows_split`` lays (K, P_s) and (K, P_r) candidate
+matrices out as one candidate tree.
 """
 from __future__ import annotations
 
@@ -118,10 +126,9 @@ def module_params(model: nn.Module) -> List[nn.Parameter]:
     return [p for _, ps in _groups(model) for p in ps]
 
 
-def flat_buffer(model: nn.Module) -> Optional[Tensor]:
-    """The (P,) buffer whose views the module's parameters are, in ravel
-    order, or None if they are not laid out so (``layout_flat``)."""
-    params = module_params(model)
+def _run(params: List[Tensor]) -> Optional[Tensor]:
+    """The 1-D buffer whose consecutive views ``params`` are, in order, or
+    None if they are not."""
     first = params[0]
     ptr, off = first.untyped_storage().data_ptr(), first.storage_offset()
     for p in params:
@@ -133,6 +140,24 @@ def flat_buffer(model: nn.Module) -> Optional[Tensor]:
                                      first.storage_offset())
 
 
+def flat_buffer(model: nn.Module) -> Optional[Tensor]:
+    """The (P,) buffer whose views the module's parameters are, in ravel
+    order, or None if they are not laid out so (``layout_flat``)."""
+    return _run(module_params(model))
+
+
+def _lay_out(params: List[nn.Parameter], like: Tensor) -> Tensor:
+    """``params`` made consecutive views of one new buffer, in order (an
+    empty buffer for none)."""
+    flat = (torch.cat([p.detach().reshape(-1) for p in params]) if params
+            else torch.empty((0,), dtype=like.dtype, device=like.device))
+    off = 0
+    for p in params:
+        p.data = flat[off:off + p.numel()].view(p.shape)
+        off += p.numel()
+    return flat
+
+
 def layout_flat(model: nn.Module) -> Tensor:
     """Lay the module's parameters out in one (P,) buffer in ravel order and
     make each parameter a view of it (one copy, the first time); returns
@@ -141,26 +166,80 @@ def layout_flat(model: nn.Module) -> Tensor:
     if flat is not None:
         return flat
     params = module_params(model)
-    flat = torch.cat([p.detach().reshape(-1) for p in params])
-    off = 0
-    for p in params:
-        p.data = flat[off:off + p.numel()].view(p.shape)
-        off += p.numel()
-    return flat
+    return _lay_out(params, params[0])
+
+
+def split_groups(model: nn.Module):
+    """The reference tree's leaves of a model cut over the model axis, in
+    ravel order, as two lists of (path, parameters): the leaves split over
+    the model axis, then the replicated ones (``model.tp_specs``); every
+    leaf replicated on a whole model."""
+    specs = getattr(model, "tp_specs", {})
+    split = {id(p) for name, p in model.named_parameters() if "model" in specs.get(name, ())}
+    groups = _groups(model)
+    return ([g for g in groups if id(g[1][0]) in split],
+            [g for g in groups if id(g[1][0]) not in split])
+
+
+def layout_split(model: nn.Module) -> Tuple[Tensor, Tensor]:
+    """Lay a model rank's parameters out in two buffers, each in ravel
+    order (one copy each, the first time): the split leaves (P_s,) and the
+    replicated ones (P_r,); every parameter a view of one of them."""
+    out = []
+    first = module_params(model)[0]
+    for groups in split_groups(model):
+        params = [p for _, ps in groups for p in ps]
+        run = _run(params) if params else None
+        out.append(run if run is not None else _lay_out(params, first))
+    return out[0], out[1]
 
 
 def module_tree(model: nn.Module) -> dict:
     """The reference's parameter tree of a ``DecoderLM`` (layers stacked on
-    a leading L axis): views of the flat buffer when the module is laid out
-    (``layout_flat``), stacked copies otherwise."""
-    groups = _groups(model)
-    flat = flat_buffer(model)
-    if flat is not None:
-        return _unravel(flat, [(path, _shape(path, ps)) for path, ps in groups])
+    a leading L axis): each leaf a view of its buffer when its parameters
+    are consecutive views of one (``layout_flat``, ``layout_split``), a
+    stacked copy otherwise."""
     tree: dict = {}
-    for path, ps in groups:
-        leaf = torch.stack([p.detach() for p in ps]) if path[0] in STACKED else ps[0].detach()
+    for path, ps in _groups(model):
+        run = _run(ps)
+        if run is not None:
+            leaf = run.view(_shape(path, ps))
+        elif path[0] in STACKED:
+            leaf = torch.stack([p.detach() for p in ps])
+        else:
+            leaf = ps[0].detach()
         _put(tree, path, leaf)
+    return _listify(tree)
+
+
+def split_dims(model: nn.Module) -> List[Optional[int]]:
+    """Per leaf of ``module_tree(model)``, in ravel order, the dim split over
+    the model axis (a stacked leaf's L axis counted), or None for a
+    replicated leaf."""
+    specs = getattr(model, "tp_specs", {})
+    names = {id(p): name for name, p in model.named_parameters()}
+    out = []
+    for path, ps in _groups(model):
+        spec = specs.get(names[id(ps[0])], ())
+        dim = spec.index("model") if "model" in spec else None
+        out.append(None if dim is None else dim + (1 if path[0] in STACKED else 0))
+    return out
+
+
+def unravel_rows_split(mats: Tuple[Tensor, Tensor], model: nn.Module) -> dict:
+    """The candidate tree of a model rank (leading K axis) whose split
+    leaves are views of ``mats[0]`` (K, P_s) and whose replicated leaves
+    are views of ``mats[1]`` (K, P_r), each in ravel order."""
+    tree: dict = {}
+    for mat, groups in zip(mats, split_groups(model)):
+        K, off = mat.shape[0], 0
+        for path, ps in groups:
+            shape = _shape(path, ps)
+            n = math.prod(shape)
+            _put(tree, path, mat[:, off:off + n].view((K,) + shape))
+            off += n
+        if off != mat.shape[1]:
+            raise ValueError(f"the matrix has {mat.shape[1]} columns, the leaves {off}")
     return _listify(tree)
 
 

@@ -50,6 +50,33 @@ ravel order (the trainer's gradient buffer, ``core.flatten.unravel_rows``;
 itself instead of concatenating a copy, and the new state's ``prev`` is
 the candidates' own tree, so it stays such a matrix.
 
+**On the model axis** (``model_shards=``, a ``ModelShards``): each rank
+holds its tensor-parallel block of every candidate, its leaves views of
+two matrices, (K, P_s) of the leaves split over the model axis and (K,
+P_r) of the replicated ones (``core.flatten.unravel_rows_split``).  Every
+statistic the scoring reads is a sum over coordinates and the median is
+taken per coordinate, so (the reference's property: "the (K,)/(K,K)
+statistic partials meet in a tiny all-reduce; no unsharded gradient ever
+exists"):
+
+  per shard   kernel 4 (``robust_stats``) on the rank's (K, P_s) with its
+              ``prev`` block; the replicated (K, P_r) counted on model
+              rank 0 only, or every distance and norm would count those
+              leaves M times; kernel 6 (``pairwise_gram``) likewise where
+              a Krum, Clustering or Alt-WFAgg rule needs the Gram (the
+              reference backend: its per-leaf plain statistics);
+  psum        ``spmd.psum_stats`` over the model group, summed in rank
+              order, so every rank scores on bit-identical statistics;
+  scoring     the reference's, on every rank;
+  combine     kernel 7 (``weighted_agg``: ``lcoef`` = 0, the normalised
+              weights, the uniform mean when every candidate is rejected)
+              on each matrix (the reference backend: a ``tensordot``).
+
+``fused`` and ``fused_two_launch`` are the same route there: kernel 1's
+in-kernel scoring needs whole-model sums, and kernel 2's thread-block
+cluster per node streams N = 1 through 8 SMs (ROADMAP queue 2, B).  Mean,
+median and trimmed mean are per coordinate and need no collective.
+
 ``state_from_jax`` turns the reference's state (as numpy arrays) into the
 port's.
 """
@@ -73,9 +100,12 @@ from repro_torch.core.flatten import unravel_rows
 from repro_torch.core.trust import wfagg_scores
 from repro_torch.core.wfagg import (
     TemporalState, WFAggConfig, wfagg_t_decide, wfagg_t_select)
-from repro_torch.distributed.spmd import all_gather_in_rank_order
+from repro_torch.distributed.spmd import all_gather_in_rank_order, psum_stats
 from repro_torch.kernels.pairwise_dist.ops import pairwise_gram
 from repro_torch.kernels.robust_stats.ops import robust_stats, wfagg_round_indexed
+from repro_torch.kernels.robust_stats.ref import RobustStats
+from repro_torch.kernels.weighted_agg.ops import weighted_agg
+from repro_torch.launch.mesh import TP_QUEUE
 from repro_torch.obs import decision as obs_decision
 
 Tensor = torch.Tensor
@@ -106,6 +136,16 @@ class RobustAggConfig:
     @property
     def streaming_output(self) -> bool:
         return self.method in ("median", "trimmed_mean")
+
+
+class ModelShards(NamedTuple):
+    """A candidate tree's place on the model axis: ``axis`` the rank's
+    ``launch.mesh.ModelAxis``; ``split_dims``, per leaf in tree order, the
+    dim of the unbatched leaf split over the model axis, None for a
+    replicated leaf (``core.flatten.split_dims``)."""
+
+    axis: Any
+    split_dims: Tuple[Optional[int], ...]
 
 
 class AggState(NamedTuple):
@@ -372,22 +412,28 @@ def _stacked_stats_fused(stacked: Any, cfg: RobustAggConfig, prev: Optional[Any]
     return chunk, stats
 
 
-def _stacked_temporal_metrics(stacked: Any, prev: Any) -> Tuple[Tensor, Tensor]:
-    """Exact per-candidate round-over-round metrics (vectorized over K)."""
-    leaves = _leaves(stacked)
+def _temporal_sums(leaves: List[Tensor], prev_leaves: List[Tensor]):
+    """Per candidate: sum ||g - prev||^2, <g, prev>, ||g||^2, ||prev||^2
+    over the leaves, leaf by leaf."""
     K = leaves[0].shape[0]
     f32 = dict(dtype=torch.float32, device=leaves[0].device)
     s = torch.zeros((K,), **f32)
     dot = torch.zeros((K,), **f32)
     n_new = torch.zeros((K,), **f32)
     n_prev = torch.zeros((K,), **f32)
-    for g, p in zip(leaves, _leaves(prev)):
+    for g, p in zip(leaves, prev_leaves):
         gf = g.to(torch.float32).reshape(K, -1)
         pf = p.to(torch.float32).reshape(K, -1)
         s = s + ((gf - pf) ** 2).sum(-1)
         dot = dot + (gf * pf).sum(-1)
         n_new = n_new + (gf * gf).sum(-1)
         n_prev = n_prev + (pf * pf).sum(-1)
+    return s, dot, n_new, n_prev
+
+
+def _stacked_temporal_metrics(stacked: Any, prev: Any) -> Tuple[Tensor, Tensor]:
+    """Exact per-candidate round-over-round metrics (vectorized over K)."""
+    s, dot, n_new, n_prev = _temporal_sums(_leaves(stacked), _leaves(prev))
     b = 1.0 - dot / torch.clamp(torch.sqrt(n_new * n_prev), min=1e-24)
     return s, b
 
@@ -403,6 +449,7 @@ def apply_stacked_attack(
     prev: Any = None,
     noise: Any = None,
     in_place: bool = False,
+    model_shards: Optional[ModelShards] = None,
 ) -> Any:
     """Model-poisoning attacks on stacked candidates, leaf by leaf through
     ``core.attacks.apply_matrix_attack`` (the one copy of the masked-stack
@@ -415,12 +462,26 @@ def apply_stacked_attack(
     so two packages can be fed the same draws.  ``prev`` optionally carries
     the previous-round stacked candidates (e.g. ``TreeAggState.prev``) so
     the adaptive attacks see a prev-only ``DefenseView`` (band_rider then
-    falls back to mimicry, as in the reference)."""
+    falls back to mimicry, as in the reference).
+
+    On the model axis (``model_shards``) the coordinate-wise attacks
+    (IPM, ALIE, sign flip) act on the rank's block alone; noise draws each
+    whole leaf's normals in leaf order, as at M = 1, and keeps the rank's
+    block (one leaf's transient), so its draws are M = 1's; the adaptive
+    attacks, which read whole-vector statistics, raise."""
     if attack in ("none", "label_flip"):
         return stacked
     acfg = atk.AttackConfig(name=attack, noise_mu=noise_mu, noise_sigma=noise_sigma,
                             alie_zmax=alie_zmax)
     leaves = _leaves(stacked)
+    if model_shards is not None:
+        if attack in atk.ADAPTIVE_ATTACKS:
+            raise NotImplementedError(
+                f"the adaptive attack {attack!r} on the model axis reads whole-vector "
+                f"statistics across the model group ({TP_QUEUE})")
+        if attack == "noise" and noise is None:
+            noise = _unflatten(stacked, [_noise_block(l, dim, model_shards.axis, generator)
+                                         for l, dim in zip(leaves, model_shards.split_dims)])
     prev_leaves = _leaves(prev) if prev is not None else [None] * len(leaves)
     noise_leaves = _leaves(noise) if noise is not None else [None] * len(leaves)
     mal = malicious.to(torch.bool)
@@ -440,10 +501,24 @@ def apply_stacked_attack(
     return _unflatten(stacked, out)
 
 
+def _noise_block(leaf: Tensor, dim: Optional[int], axis, generator) -> Tensor:
+    """Standard normals of the whole (K, ...) leaf, drawn as at M = 1, cut to
+    the rank's block along ``dim`` (of the unbatched leaf)."""
+    if dim is None:
+        return torch.randn(leaf.shape, generator=generator, dtype=leaf.dtype,
+                           device=leaf.device)
+    shape = list(leaf.shape)
+    n = shape[dim + 1]
+    shape[dim + 1] = n * axis.size
+    z = torch.randn(shape, generator=generator, dtype=leaf.dtype, device=leaf.device)
+    return z.narrow(dim + 1, axis.rank * n, n).contiguous()
+
+
 def robust_allreduce_stacked(
     stacked: Any,
     cfg: RobustAggConfig,
     state: Optional[TreeAggState] = None,
+    model_shards: Optional[ModelShards] = None,
 ) -> Tuple[Any, Optional[TreeAggState], Dict[str, Tensor]]:
     """Robust aggregation over stacked candidate gradients.
 
@@ -453,7 +528,8 @@ def robust_allreduce_stacked(
     candidates (as float32: the same tensors when they already are).
     Returns ``(aggregate, new_state, info)`` with the weights (and for
     wfagg / alt_wfagg the masks and the decision ``record``) in ``info``.
-    Runs on the candidates' device."""
+    Runs on the candidates' device.  ``model_shards``: the candidates are
+    a model rank's blocks (the module docstring's model-axis route)."""
     leaves = _leaves(stacked)
     K = leaves[0].shape[0]
     dev = leaves[0].device
@@ -482,6 +558,8 @@ def robust_allreduce_stacked(
         raise ValueError(f"unknown backend {cfg.backend!r}")
     temporal = (cfg.method in ("wfagg", "alt_wfagg") and cfg.wfagg.use_temporal
                 and state is not None)
+    if model_shards is not None and model_shards.axis is not None:
+        return _stacked_model_axis(stacked, cfg, state, temporal, model_shards)
     # Single-launch route: statistics, in-kernel weights and the combine in
     # one round-kernel launch.  gather_dtype forces the two-launch shape:
     # the temporal metrics must stay full precision while the D/C
@@ -564,6 +642,131 @@ def _stacked_one_launch(
             weights[0]),
     }
     return out, new_state, info
+
+
+def _needs_gram(cfg: RobustAggConfig) -> bool:
+    w = cfg.wfagg
+    return (cfg.method in ("krum", "multi_krum", "clustering", "alt_wfagg")
+            or w.distance_filter == "multi_krum" or w.similarity_filter == "clustering")
+
+
+def _partial_stats(K: int, dev, groups: List[List[Tensor]],
+                   prev_groups: Optional[List[List[Tensor]]], cfg: RobustAggConfig,
+                   mats: List[Tensor] = (), prevs: List[Optional[Tensor]] = ()
+                   ) -> RobustStats:
+    """This rank's coordinate sums over its groups of K-candidate leaves
+    (each (K, ...)), as one ``RobustStats`` with a leading axis of 1
+    (``psum_stats``'s node axis): on ``fused`` and ``fused_two_launch``
+    kernels 4 and 6 (their plain versions on the CPU) on each group's (K,
+    D) matrix ``mats`` (with ``prevs``); on ``reference`` the reference
+    backend's plain sums leaf by leaf (``prev_*``: the exact WFAgg-T sums;
+    ``norm2``: the candidates' squared norms)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    fields = ["dist2", "dotmed", "norm2", "mednorm2"]
+    if prev_groups is not None:
+        fields += ["prev_dist2", "prev_dot", "prev_norm2"]
+    if _needs_gram(cfg) or cfg.backend == "reference":
+        fields.append("gram")
+    acc = {f: torch.zeros((K, K) if f == "gram" else () if f == "mednorm2" else (K,), **f32)
+           for f in fields}
+    if cfg.backend == "reference":
+        for gi, leaves in enumerate(groups):
+            st = _stacked_stats(leaves, cfg) if leaves else None
+            if st is None:
+                continue
+            parts = dict(dist2=st.dist2_med, dotmed=st.dot_med, mednorm2=st.med2,
+                         gram=st.gram)
+            parts["norm2"] = sum((l.to(torch.float32).reshape(K, -1) ** 2).sum(-1)
+                                 for l in leaves)
+            if prev_groups is not None:
+                s_, dot, _, n_prev = _temporal_sums(leaves, prev_groups[gi])
+                parts.update(prev_dist2=s_, prev_dot=dot, prev_norm2=n_prev)
+            for f, v in parts.items():
+                acc[f] = acc[f] + v
+    else:
+        for mat, prev in zip(mats, prevs):
+            if mat.shape[1] == 0:
+                continue
+            st = robust_stats(mat, prev=prev, need_center=False)
+            for f in fields:
+                acc[f] = acc[f] + (pairwise_gram(mat)[0] if f == "gram" else getattr(st, f))
+    return RobustStats(med=None, trim=None, **{f: v[None] for f, v in acc.items()})
+
+
+def _stacked_model_axis(
+    stacked: Any,
+    cfg: RobustAggConfig,
+    state: Optional[TreeAggState],
+    temporal: bool,
+    shards: ModelShards,
+) -> Tuple[Any, Optional[TreeAggState], Dict[str, Tensor]]:
+    """The robust all-reduce of a model rank's candidate blocks (the module
+    docstring's model-axis route)."""
+    if cfg.gather_dtype is not None:
+        raise NotImplementedError(f"gather_dtype on the model axis ({TP_QUEUE})")
+    axis = shards.axis
+    leaves = _leaves(stacked)
+    K = leaves[0].shape[0]
+    dev = leaves[0].device
+    split = [d is not None for d in shards.split_dims]
+    groups = [[l for l, s_ in zip(leaves, split) if s_],
+              [l for l, s_ in zip(leaves, split) if not s_]]
+    fused = cfg.backend != "reference"
+
+    def matrix(g):
+        return _concat_candidates(g) if g else torch.zeros((K, 0), device=dev)
+
+    # the reference backend needs no (K, P) matrix: it reads the leaves
+    mats = [matrix(g) for g in groups] if fused else [None, None]
+    prev_groups, prevs = None, [None, None]
+    if temporal:
+        pl = _leaves(state.prev)
+        prev_groups = [[p for p, s_ in zip(pl, split) if s_],
+                       [p for p, s_ in zip(pl, split) if not s_]]
+        if fused:
+            prevs = [matrix(g) for g in prev_groups]
+    # the replicated leaves count once: on model rank 0
+    mine = [0] if axis.rank else [0, 1]
+    stats = psum_stats(_partial_stats(
+        K, dev, [groups[i] for i in mine],
+        None if prev_groups is None else [prev_groups[i] for i in mine], cfg,
+        [mats[i] for i in mine], [prevs[i] for i in mine]), axis.group)
+    st = RobustStats(*(None if v is None else v[0] for v in stats))
+    # _weights_from_stats reads only the Gram's diagonal (norm2) without it
+    gram = st.gram if st.gram is not None else torch.diag(st.norm2)
+    chunk = ChunkStats(dist2_med=st.dist2, dot_med=st.dotmed, med2=st.mednorm2, gram=gram,
+                       sketch=torch.zeros((0,), dtype=torch.float32, device=dev))
+    new_state, temporal_mask = state, None
+    if temporal:
+        if cfg.backend == "reference":
+            b = 1.0 - st.prev_dot / torch.clamp(torch.sqrt(st.norm2 * st.prev_norm2),
+                                                min=1e-24)
+        else:
+            b = st.cosine_to_prev()
+        temporal_mask, hist_s, hist_b, count, t = wfagg_t_decide(
+            state.hist_s, state.hist_b, state.count, state.t, st.prev_dist2, b, cfg.wfagg)
+        new_state = TreeAggState(prev=stacked, hist_s=hist_s, hist_b=hist_b, count=count,
+                                 t=t)
+    weights, _, info = _weights_from_stats(chunk, None, None, cfg,
+                                           temporal_mask=temporal_mask)
+    any_ok = weights.sum() > 0
+    if not fused:
+        wsum = torch.clamp(weights.sum(), min=1e-12)
+        w_norm = torch.where(any_ok, weights / wsum, torch.full((K,), 1.0 / K, device=dev))
+        out = _map(lambda l: torch.tensordot(w_norm, l.to(torch.float32), dims=([0], [0]))
+                   .to(l.dtype), stacked)
+        return out, new_state, info
+    # kernel 7 with lcoef = 0: alpha 1 over weights that never sum to 0
+    w_eff = torch.where(any_ok, weights, torch.ones_like(weights))
+    outs = [weighted_agg(torch.zeros((m.shape[1],), dtype=torch.float32, device=dev), m,
+                         w_eff, alpha=1.0) if m.shape[1] else m[0] for m in mats]
+    parts, offs = [], [0, 0]
+    for leaf, s_ in zip(leaves, split):
+        i = 0 if s_ else 1
+        n = leaf[0].numel()
+        parts.append(outs[i][offs[i]:offs[i] + n].view(leaf.shape[1:]).to(leaf.dtype))
+        offs[i] += n
+    return _unflatten(stacked, parts), new_state, info
 
 
 # ---------------------------------------------------------------------------

@@ -7,24 +7,37 @@ token pipeline, and runs with periodic logging and checkpointing:
     python -m repro_torch.launch.train --candidates 8 --agg-backend fused
 
 ``--candidates`` is the number of candidate workers K on the mesh's
-``data`` axis (the reference's forced host-device count), and
-``--agg-backend`` picks the stacked all-reduce's backend (the reference's
-``RobustAggConfig.backend``).  The flat layout runs over the default
-``torch.distributed`` group when one of K ranks is initialised (one rank
-per candidate), else emulates the K candidates in this process.  It runs
-on the card; ``main(argv, device="cpu")`` runs it on the host.
+``data`` axis (the reference's forced host-device count; times 2 pods
+with ``--multi-pod``), and ``--agg-backend`` picks the stacked
+all-reduce's backend (the reference's ``RobustAggConfig.backend``).  The
+flat layout runs over the default ``torch.distributed`` group when one of
+K ranks is initialised (one rank per candidate), else emulates the K
+candidates in this process.  ``--model-parallel M`` splits a dense model
+over the M ranks of the initialised default group, one tensor-parallel
+shard each (every rank runs all K candidates on its shard), e.g. on M
+cards:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --model-parallel 2 \
+        --candidates 8 --agg-backend fused
+
+(each rank takes the card ``LOCAL_RANK`` names and joins an ``nccl``
+group; on the CPU, ``gloo``).  Without such a group it raises.  Model rank
+0 prints and writes the checkpoints, gathered to the whole model's
+format.  ``--production-mesh`` needs 256 (512) ranks and is refused
+(ROADMAP queue 1, item 12.2b).  It runs on the card; ``main(argv,
+device="cpu")`` runs it on the host.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config
-from repro_torch.core.flatten import module_tree
 from repro_torch.core.wfagg import WFAggConfig
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.distributed.robust_allreduce import RobustAggConfig
@@ -50,12 +63,16 @@ def build_everything(args):
     if args.production_mesh:
         mesh = make_production_mesh(multi_pod=args.multi_pod)
     else:
-        group = None
-        if (args.layout == "flat" and dist.is_initialized()
+        group = model_group = None
+        if args.model_parallel > 1:
+            if dist.is_initialized():
+                model_group = dist.group.WORLD
+        elif (args.layout == "flat" and dist.is_initialized()
                 and dist.get_world_size() == args.candidates):
             group = dist.group.WORLD
         mesh = make_test_mesh(data=args.candidates, model=args.model_parallel,
-                              group=group)
+                              pod=2 if args.multi_pod else 0, group=group,
+                              model_group=model_group)
 
     tc = tr.TrainConfig(
         mode=args.mode,
@@ -119,12 +136,18 @@ def main(argv=None, device=None) -> None:
     args = ap.parse_args(argv)
 
     dev = resolve_device(device)
+    if dev.type == "cuda" and args.model_parallel > 1 and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
     cfg, mesh, tc = build_everything(args)
-    K = mesh.shape["data"]
-    print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"device={dev} mesh={dict(mesh.shape)} "
-          f"mode={tc.mode} agg={tc.agg.method} backend={tc.agg.backend} "
-          f"attack={tc.attack} malicious={tc.n_malicious}/{K}")
+    K = tr._n_candidates(mesh, tc)
+    axis = mesh.model_axis()
+    main_rank = axis is None or axis.rank == 0
+    say = print if main_rank else (lambda *a, **k: None)
+    say(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
+        f"device={dev} mesh={dict(mesh.shape)} "
+        f"mode={tc.mode} agg={tc.agg.method} backend={tc.agg.backend} "
+        f"attack={tc.attack} malicious={tc.n_malicious}/{K}")
 
     state = tr.init_train_state(cfg, tc, torch.Generator(device=dev).manual_seed(0), mesh,
                                 device=dev)
@@ -139,13 +162,15 @@ def main(argv=None, device=None) -> None:
             loss = float(m["loss"])
             acc = int(m["n_accepted"])
             dt = time.time() - t0
-            print(f"step {i + 1:5d}  loss {loss:8.4f}  "
-                  f"grad_norm {float(m['grad_norm']):9.3e}  "
-                  f"accepted {acc}  {dt / (i + 1):6.2f}s/step")
+            say(f"step {i + 1:5d}  loss {loss:8.4f}  "
+                f"grad_norm {float(m['grad_norm']):9.3e}  "
+                f"accepted {acc}  {dt / (i + 1):6.2f}s/step")
         if args.ckpt_dir and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
-            ckpt.save_checkpoint(args.ckpt_dir, f"step_{i + 1}", module_tree(state.params),
-                                 {"step": i + 1, "loss": float(m["loss"])})
-    print(f"done: {args.steps} steps, final loss {float(m['loss']):.4f}")
+            whole = tr.full_params(state.params, mesh)
+            if main_rank:
+                ckpt.save_checkpoint(args.ckpt_dir, f"step_{i + 1}", whole,
+                                     {"step": i + 1, "loss": float(m["loss"])})
+    say(f"done: {args.steps} steps, final loss {float(m['loss']):.4f}")
 
 
 if __name__ == "__main__":

@@ -11,10 +11,28 @@ use, as the reference does (``p["wq"].astype(dt)``).  Weights are laid
 out as the reference's, ``(d_in, d_out)``, and applied as ``x @ w``; the
 experts' weights are stacked on a leading expert axis.
 
-The reference's sharding annotations (``shard``) are no-ops outside a mesh
-and are dropped; the mode-B mesh is ROADMAP queue 1, item 12.  Non-causal
-attention serves the encoder-decoder's encoder, and cross-attention
-(``kv_source``) its decoder; neither reaches the causal flash kernel.
+Non-causal attention serves the encoder-decoder's encoder, and
+cross-attention (``kv_source``) its decoder; neither reaches the causal
+flash kernel.
+
+**The model axis (tensor parallelism).**  On a mesh with ``model`` = M >
+1 a dense model's ``Attention`` holds its rank's H/M query heads (``wq``,
+``bq`` by columns, ``wo`` by rows) and Hkv/M KV heads, or every KV head
+when ``n_kv_heads % M != 0`` (then each rank uses the ones its query heads
+map to); ``MLP`` holds ff/M (``w_gate``, ``w_up`` by columns, ``w_down``
+by rows); ``Embedding`` holds V/M vocabulary rows (and ``unembed`` V/M
+columns): a lookup masks the ids outside the rank's range and all-reduces,
+and the unembedding gives the rank's vocabulary block of the logits.  Two
+autograd functions carry the collectives (Megatron's f and g):
+``copy_to_model`` (identity forward, all-reduce of the gradient) before a
+column-split product, ``reduce_from_model`` (all-reduce forward, identity
+backward) after a row-split one.  Every all-reduce gathers the M parts in
+rank order and adds them in float32 in that order, so every rank holds
+the same bits.  The layers find their ``ModelAxis`` in their ``tp``
+attribute (None: whole, M = 1), which ``models.model`` sets when it cuts
+a model; the reference's ``shard`` annotations check the local extents
+(``distributed.logical``).  ``check_family`` refuses the other families'
+layers at M > 1.
 """
 from __future__ import annotations
 
@@ -26,6 +44,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.logical import shard
+from repro_torch.launch.mesh import TP_QUEUE
 from repro_torch.kernels.flash_attn.ops import flash_attention
 
 # the families of ``repro.models.model``: ``vlm`` and ``audio`` (the
@@ -82,11 +102,23 @@ def _dense_init_(p: torch.Tensor, generator: torch.Generator, scale=None) -> Non
     _draw_(p, draw)
 
 
-def check_family(cfg: ArchConfig) -> None:
+TP_FAMILIES = ("dense",)
+
+
+def check_family(cfg: ArchConfig, model_parallel: int = 1) -> None:
     """Raise for what the reference's model cannot run: a family that is
     not a language model (the paper's CNN is ``models.lenet``), an SSM or
     hybrid config without a Mamba variant or, hybrid, whose layers do not
-    split into whole groups."""
+    split into whole groups; and, at ``model_parallel`` > 1, every family
+    but the dense one (its MoE, MLA, Mamba, cross-attention and projector
+    layers have no TP form yet)."""
+    if model_parallel > 1 and (cfg.family not in TP_FAMILIES or cfg.use_mla
+                               or cfg.n_experts or cfg.is_encoder_decoder
+                               or cfg.modality == "vision" or cfg.pad_heads_to):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on model = {model_parallel}: the model axis runs the "
+            f"dense family only; the MoE, MLA, SSM, hybrid, encoder-decoder and VLM layers' "
+            f"TP forms are {TP_QUEUE}")
     if cfg.family in ("ssm", "hybrid"):
         if cfg.ssm_variant not in ("mamba1", "mamba2"):
             raise ValueError(f"{cfg.name}: the {cfg.family!r} family needs ssm_variant "
@@ -99,6 +131,64 @@ def check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.name}) is not a language model: the "
             f"decoder runs {LM_FAMILIES}; the paper's CNN is repro_torch.models.lenet")
+
+
+# ---------------------------------------------------------------------------
+# the model axis: collectives with autograd
+# ---------------------------------------------------------------------------
+
+def all_reduce_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every model rank's ``x``: gathered in rank order, added in
+    float32 in that order, cast back to ``x``'s dtype (the same bits on
+    every rank)."""
+    from repro_torch.distributed.spmd import all_gather_in_rank_order
+
+    parts = all_gather_in_rank_order(x, group)
+    acc = parts[0].to(torch.float32)
+    for part in parts[1:]:
+        acc = acc + part.to(torch.float32)
+    return acc.to(x.dtype)
+
+
+def all_max_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of every model rank's ``x`` (no gradient)."""
+    from repro_torch.distributed.spmd import all_gather_in_rank_order
+
+    return torch.stack(all_gather_in_rank_order(x.detach(), group)).amax(dim=0)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_model(g.contiguous(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_model(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """Identity forward, the gradient all-reduced over the model axis: the
+    replicated input of a column-split product (or a replicated weight used
+    by part of the ranks' heads).  ``tp`` None: ``x``."""
+    return x if tp is None else _CopyToModel.apply(x, tp.group)
+
+
+def reduce_from_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """All-reduce forward, identity backward: the partial sums of a
+    row-split product.  ``tp`` None: ``x``."""
+    return x if tp is None else _ReduceFromModel.apply(x, tp.group)
 
 
 # ---------------------------------------------------------------------------
@@ -192,12 +282,14 @@ class MLAAttention(nn.Module):
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, capacity: int, dtype, device=None,
-                  lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+                  lead: Tuple[int, ...] = (), n_kv: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
     """Zero ``k``/``v`` of shape ``lead + (batch, Hkv, capacity, hd)``
-    (``lead = (L,)`` stacks the layers, as the reference's vmap does); with
+    (``lead = (L,)`` stacks the layers, as the reference's vmap does; Hkv
+    ``n_kv``, default ``cfg.n_kv_heads``: a model rank's KV heads); with
     MLA the latent ``ckv`` ``lead + (batch, capacity, r)`` and the rope key
     ``krope`` ``lead + (batch, capacity, rd)``."""
-    hd, Hkv = cfg.head_dim_, cfg.n_kv_heads
+    hd, Hkv = cfg.head_dim_, n_kv or cfg.n_kv_heads
     if cfg.use_mla:
         lead = tuple(lead) + (batch, capacity)
         return {"ckv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype, device=device),
@@ -289,20 +381,27 @@ def attention_fwd(
     (without it, non-causal, cross or cached) runs ``_sdpa_chunked``.
     Returns (out, cache)."""
     B, S, d = x.shape
-    hd, H, Hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim_
+    tp = getattr(p, "tp", None)
+    # the rank's heads: H/M query heads, Hkv/M KV heads or (replicated) all
+    H, Hkv = p.wq.shape[1] // hd, p.wk.shape[1] // hd
     dt = x.dtype
-    src = x if kv_source is None else kv_source
+    x = copy_to_model(x, tp)
+    src = x if kv_source is None else copy_to_model(kv_source, tp)
+    # replicated KV weights serve part of the ranks' heads each: their
+    # gradients are summed over the model axis
+    kv_tp = tp if (tp is not None and Hkv == cfg.n_kv_heads) else None
 
     q = x @ p.wq.to(dt)
-    k = src @ p.wk.to(dt)
-    v = src @ p.wv.to(dt)
+    k = src @ copy_to_model(p.wk, kv_tp).to(dt)
+    v = src @ copy_to_model(p.wv, kv_tp).to(dt)
     if cfg.qkv_bias:
         q = q + p.bq.to(dt)
-        k = k + p.bk.to(dt)
-        v = v + p.bv.to(dt)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, src.shape[1], Hkv, hd)
-    v = v.reshape(B, src.shape[1], Hkv, hd)
+        k = k + copy_to_model(p.bk, kv_tp).to(dt)
+        v = v + copy_to_model(p.bv, kv_tp).to(dt)
+    q = shard(q.reshape(B, S, H, hd), "batch", "seq", "heads", None)
+    k = shard(k.reshape(B, src.shape[1], Hkv, hd), "batch", "seq", "kv_heads", None)
+    v = shard(v.reshape(B, src.shape[1], Hkv, hd), "batch", "seq", "kv_heads", None)
     if use_rope and kv_source is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -341,8 +440,13 @@ def attention_fwd(
     else:
         mask_chunk_fn = None
 
-    k = _repeat_kv(k, H // Hkv)
-    v = _repeat_kv(v, H // Hkv)
+    if kv_tp is not None:
+        # every KV head held: take the ones this rank's query heads map to
+        heads = (tp.rank * H + torch.arange(H, device=k.device)) // (cfg.n_heads // Hkv)
+        k, v = k[:, heads], v[:, heads]
+    else:
+        k = _repeat_kv(k, H // Hkv)
+        v = _repeat_kv(v, H // Hkv)
     Hp = cfg.pad_heads_to
     if Hp and H < Hp:
         # the reference pads the head axis after the GQA repeat to a count
@@ -362,7 +466,7 @@ def attention_fwd(
         mask = None if mask_chunk_fn is None else mask_chunk_fn(0, k.shape[2])
         out = _sdpa(q, k, v, mask, scale)
     out = out[:, :H].transpose(1, 2).reshape(B, S, H * hd)
-    return out @ p.wo.to(dt), cache
+    return reduce_from_model(out @ p.wo.to(dt), tp), cache
 
 
 def _inv_sqrt(n: int) -> float:
@@ -464,9 +568,13 @@ class MLP(nn.Module):
 
 
 def mlp_fwd(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU; on the model axis over the rank's ff/M columns, the row-split
+    ``w_down``'s partial sums all-reduced."""
     dt = x.dtype
-    h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
-    return h @ p.w_down.to(dt)
+    tp = getattr(p, "tp", None)
+    x = copy_to_model(x, tp)
+    h = shard(F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt)), "batch", "seq", "ff")
+    return reduce_from_model(h @ p.w_down.to(dt), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -588,14 +696,38 @@ class Embedding(nn.Module):
             _dense_init_(self.unembed, generator)
 
 
+def vocab_range(p: Embedding) -> Tuple[int, int]:
+    """The [start, end) of the vocabulary block this rank holds (the whole
+    vocabulary at M = 1)."""
+    tp = getattr(p, "tp", None)
+    n = p.embed.shape[0]
+    start = 0 if tp is None else tp.rank * n
+    return start, start + n
+
+
 def embed_fwd(p: Embedding, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """The reference casts the whole table and gathers; gathering first and
-    casting the rows gives the same values without the table's copy."""
-    return p.embed[tokens.long()].to(dtype)
+    casting the rows gives the same values without the table's copy.  On
+    the model axis each rank looks up the ids in its vocabulary block (the
+    others' rows zero) and the ranks' rows are summed: exactly one is not
+    zero."""
+    tp = getattr(p, "tp", None)
+    if tp is None:
+        return p.embed[tokens.long()].to(dtype)
+    start, end = vocab_range(p)
+    ids = tokens.long() - start
+    inside = (ids >= 0) & (ids < end - start)
+    rows = p.embed[ids.clamp(0, end - start - 1)] * inside[..., None]
+    return reduce_from_model(rows.to(dtype), tp)
 
 
 def unembed_fwd(p: Embedding, h: torch.Tensor) -> torch.Tensor:
+    """The logits; on the model axis the rank's vocabulary block of them
+    (``vocab_range``)."""
     dt = h.dtype
+    h = copy_to_model(h, getattr(p, "tp", None))
     if p.tied:
-        return h @ p.embed.to(dt).T
-    return h @ p.unembed.to(dt)
+        out = h @ p.embed.to(dt).T
+    else:
+        out = h @ p.unembed.to(dt)
+    return shard(out, "batch", "seq", "vocab")

@@ -35,6 +35,13 @@ expert slab, drawn in f32 and cast, as the reference casts its f32 init).
 With ``cfg.remat`` the Mamba layer and the hybrid's group are recomputed in
 the backward (the reference's ``jax.checkpoint`` of those scanned bodies);
 the dense blocks' remat is ROADMAP queue 1, item 12.
+
+On a mesh with a ``model`` axis of M > 1 a dense model is cut
+(``cut_model_``): each rank holds its blocks of the one-card model (the
+tensor-parallel layers of ``models.layers``), the logits are its
+vocabulary block, and the cross-entropy meets across the model group
+(``_nll``: the max, the sum of exponentials and the target's logit from
+the rank that holds it), chunked or not as at M = 1.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import ModelAxis, model_size
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 
@@ -173,6 +181,9 @@ class DecoderLM(nn.Module):
         super().__init__()
         L.check_family(cfg)
         self.cfg = cfg
+        # the model axis: set by ``cut_model_``
+        self.tp = None
+        self.tp_specs: Dict[str, tuple] = {}
         self.embedding = L.Embedding(cfg, generator, device)
         self.final_norm = L.Norm(cfg, cfg.d_model, device)
         if cfg.family in ("ssm", "hybrid"):
@@ -201,15 +212,51 @@ class DecoderLM(nn.Module):
             self.projector = Projector(cfg, generator, device)
 
 
+def cut_model_(cfg: ArchConfig, model: DecoderLM, mesh, rank: Optional[int] = None
+               ) -> DecoderLM:
+    """Keep, in place, the block of every parameter that model rank
+    ``rank`` (default: this process's rank in ``mesh.model_group``) holds
+    (``distributed.sharding.tp_layout``), and give the TP layers their
+    ``ModelAxis``; ``model.tp_specs`` maps each parameter's name to its
+    spec.  A mesh of M = 1 leaves the model whole."""
+    from repro_torch.distributed import sharding as shd
+
+    M = model_size(mesh)
+    model.tp_specs = {}
+    if M == 1:
+        return model
+    L.check_family(cfg, M)
+    axis = mesh.model_axis() if rank is None else ModelAxis(mesh.model_group, M, rank)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            spec = shd.tp_layout(cfg, name.rsplit(".", 1)[-1], tuple(p.shape), mesh)
+            model.tp_specs[name] = spec
+            if "model" in spec:
+                p.data = shd.shard_tensor(p.data, spec, mesh, axis.rank)
+    for name, mod in model.named_modules():
+        if isinstance(mod, L.Attention):
+            mod.tp = axis
+        elif isinstance(mod, L.MLP):
+            mod.tp = axis if "model" in model.tp_specs[f"{name}.w_gate"] else None
+        elif isinstance(mod, L.Embedding):
+            mod.tp = axis if "model" in model.tp_specs[f"{name}.embed"] else None
+    model.tp = axis
+    return model
+
+
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> DecoderLM:
-    """A randomly initialised model on ``device`` (None: the card), its
-    values drawn from ``generator`` (default: seed 0 on that device)."""
+                device=None, mesh=None, rank: Optional[int] = None) -> DecoderLM:
+    """A randomly initialised model on ``device`` (None: the card; "meta":
+    shapes only), its values drawn from ``generator`` (default: seed 0 on
+    that device).  On a mesh with ``model`` = M > 1 the whole model is
+    drawn as at M = 1 and model rank ``rank`` keeps its blocks
+    (``cut_model_``): the M ranks' model is the one-card model, cut."""
     dev = resolve_device(device)
-    if generator is None:
+    L.check_family(cfg, model_size(mesh))
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
-        return DecoderLM(cfg, generator, dev)
+        return cut_model_(cfg, DecoderLM(cfg, generator, dev), mesh, rank)
 
 
 def _remat(cfg: ArchConfig, fn, *args):
@@ -351,7 +398,9 @@ def forward(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
     ``patch_embeds`` (B, n_modal, ``MODAL_EMBED_DIM``), whose positions
     lead the logits.  Returns (logits, aux_loss): the MoE blocks'
     load-balance loss (0 for a dense model).  ``flash`` is the port of the
-    reference's ``REPRO_FLASH_KERNEL`` (see ``layers.attention_fwd``)."""
+    reference's ``REPRO_FLASH_KERNEL`` (see ``layers.attention_fwd``).  On
+    the model axis the logits are the rank's vocabulary block
+    (``layers.vocab_range``; ``train.serve.build_prefill`` gathers them)."""
     h, aux = _hidden(cfg, params, batch, flash)
     return L.unembed_fwd(params.embedding, h), aux
 
@@ -360,13 +409,33 @@ def forward(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
 # loss
 # ---------------------------------------------------------------------------
 
+def _nll(p: L.Embedding, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logsumexp(logits) - logits[label]`` per position from float32
+    logits.  On the model axis ``logits`` is the rank's vocabulary block:
+    the max, the sum of exponentials and the target's logit (from the rank
+    that holds it) meet across the model group."""
+    tp = getattr(p, "tp", None)
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        return logz - logits.gather(-1, labels[..., None].long())[..., 0]
+    start, end = L.vocab_range(p)
+    m = L.all_max_model(logits.amax(dim=-1), tp.group)
+    sumexp = L.reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1), tp)
+    ids = labels.long() - start
+    inside = (ids >= 0) & (ids < end - start)
+    gold = logits.gather(-1, ids.clamp(0, end - start - 1)[..., None])[..., 0]
+    gold = L.reduce_from_model(torch.where(inside, gold, 0.0), tp)
+    return m + torch.log(sumexp) - gold
+
+
 def _chunked_ce(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, labels: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
     """Cross-entropy without the whole (B, S, V) logits: the reference's
     ``lax.map`` over sequence chunks of ``cfg.loss_chunk`` positions as a
     loop.  As the reference, only the first ``(S // C) * C`` positions
     count: with fewer than C positions the loss is 0 (and so is its
-    gradient)."""
+    gradient).  On the model axis each chunk's logits are the rank's
+    vocabulary block (``_nll``)."""
     C = cfg.loss_chunk
     nC = h.shape[1] // C
     total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -374,9 +443,7 @@ def _chunked_ce(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, labels: tor
     for c in range(nC):
         sl = slice(c * C, (c + 1) * C)
         logits = L.unembed_fwd(params.embedding, h[:, sl]).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[:, sl, None].long())[..., 0]
-        total = total + ((logz - gold) * mask[:, sl]).sum()
+        total = total + (_nll(params.embedding, logits, labels[:, sl]) * mask[:, sl]).sum()
         count = count + mask[:, sl].sum()
     return total / torch.clamp(count, min=1.0)
 
@@ -412,10 +479,8 @@ def loss_fn(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
         ce = _chunked_ce(cfg, params, h[:, :-1], lab, mask)
         return ce + aux, {"ce": ce, "aux": aux}
     logits, aux = forward(cfg, params, batch, flash=flash)
-    lg = logits[:, n_modal:-1].to(torch.float32)
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = lg.gather(-1, tokens[:, 1:, None].long())[..., 0]
-    ce = (logz - gold).mean()
+    ce = _nll(params.embedding, logits[:, n_modal:-1].to(torch.float32),
+              tokens[:, 1:]).mean()
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -430,7 +495,7 @@ def _cache_capacity(cfg: ArchConfig, total_len: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
-               device=None, enc_len: int = 0) -> Params:
+               device=None, enc_len: int = 0, mesh=None) -> Params:
     """Decode cache for a context of ``total_len`` positions: ``idx`` (the
     next position, a host int), for an MoE model ``prefix`` (a list of one
     cache per prefix block), and the scanned layers' ``k``/``v`` stacked as
@@ -440,12 +505,18 @@ def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
     shared block's ``attn`` ``k``/``v`` for each of the G groups, (G, B,
     Hkv, capacity, hd), and ``mamba`` (G, every, ...) (``ssm.state_shapes``);
     encoder-decoder: ``enc_out``, zeros (B, ``enc_len``, d) for the caller to
-    fill with ``_encode``'s output, and the decoder layers' ``k``/``v``."""
-    L.check_family(cfg)
+    fill with ``_encode``'s output, and the decoder layers' ``k``/``v``.
+    On a mesh with ``model`` = M > 1 the KV heads are a model rank's, as
+    ``distributed.sharding.cache_specs`` places them: Hkv/M, or all of
+    them when M does not divide Hkv."""
+    M = model_size(mesh)
+    L.check_family(cfg, M)
     dev = resolve_device(device)
     dt = dtype or _dtype(cfg)
     cap = _cache_capacity(cfg, total_len)
     n_prefix = _n_prefix(cfg)
+    n_kv = cfg.n_kv_heads // M if (cfg.n_kv_heads > 1 and cfg.n_kv_heads % M == 0) \
+        else cfg.n_kv_heads
     cache: Params = {"idx": 0}
     if cfg.family == "ssm":
         cache["layers"] = SSM.init_ssm_state(cfg, batch, dt, dev, lead=(cfg.n_layers,))
@@ -461,7 +532,7 @@ def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
     if n_prefix:
         cache["prefix"] = [L.init_kv_cache(cfg, batch, cap, dt, dev) for _ in range(n_prefix)]
     cache["layers"] = L.init_kv_cache(cfg, batch, cap, dt, dev,
-                                      lead=(cfg.n_layers - n_prefix,))
+                                      lead=(cfg.n_layers - n_prefix,), n_kv=n_kv)
     return cache
 
 
@@ -513,7 +584,8 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def params_from_jax(tree: Params, cfg: ArchConfig, device=None) -> DecoderLM:
+def params_from_jax(tree: Params, cfg: ArchConfig, device=None, mesh=None,
+                    rank: Optional[int] = None) -> DecoderLM:
     """The reference's ``init_params`` pytree (numpy leaves, the scanned
     layers stacked on a leading axis, an MoE model's ``prefix_layers`` a
     list) as a ``DecoderLM`` on ``device`` (None: the card): each stacked
@@ -523,8 +595,10 @@ def params_from_jax(tree: Params, cfg: ArchConfig, device=None) -> DecoderLM:
     ``shared_attn/<path>`` ``shared_attn.<path>`` (its ``layers`` stay
     stacked over all ``n_layers``: group g is layers g * every ..).  Every leaf
     keeps its type (bf16 stays bf16), and every leaf of either side must
-    find its counterpart."""
+    find its counterpart.  On a mesh with ``model`` > 1 model rank ``rank``
+    keeps its blocks (``cut_model_``)."""
     dev = resolve_device(device)
+    L.check_family(cfg, model_size(mesh))
     stacks = {"layers": cfg.n_layers - _n_prefix(cfg)}
     if cfg.is_encoder_decoder:
         stacks["enc_layers"] = cfg.n_enc_layers
@@ -542,4 +616,4 @@ def params_from_jax(tree: Params, cfg: ArchConfig, device=None) -> DecoderLM:
         if k in want and v.dtype.name != str(want[k].dtype).removeprefix("torch."):
             raise ValueError(f"{k}: a {v.dtype.name} leaf for a {want[k].dtype} parameter")
     model.load_state_dict({k: _tensor(v) for k, v in state.items()}, strict=True)
-    return model.to(dev)
+    return cut_model_(cfg, model.to(dev), mesh, rank)

@@ -8,21 +8,72 @@ group; an SSM model has none; an encoder-decoder's encoder and
 cross-attention never).  ``build_decode_step`` appends one token against a KV
 cache of the context's length (an SSM layer: its O(1) state) and runs no
 kernel of the port (the dense scores of one query are small), as in the
-reference.  The reference's ``ServeConfig``, mesh and shardings wait for
-the mode-B mesh stack (ROADMAP queue 1, item 12); on one card they are
-no-ops.
+reference.
+
+On a mesh with ``model`` = M > 1 (a dense model cut by
+``models.model.init_params(..., mesh=)``, a cache from
+``models.model.init_cache(..., mesh=)``) every model rank runs the step on its H/M
+heads (the prefill at S >= 8192 reaches kernel 8 on them) and ff/M
+columns, and the logits come back gathered over the model group (or the
+rank's vocabulary block: ``build_prefill(gather=False)``).  ``ServeConfig``,
+``serve_rules`` and ``serve_shardings`` are the reference's; the specs'
+FSDP part over ``data`` (serving a model across the data axis's
+processes) is ROADMAP queue 1, item 12.2b.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+import contextlib
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.data.specs import ENC_LEN_DECODE, TensorSpec
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.logical import use_sharding
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import model_size
 from repro_torch.models import model as M
 from repro_torch.models import ssm as SSM
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    multi_pod: bool = False
+
+    def data_axes(self) -> Tuple[str, ...]:
+        return ("pod", "data") if self.multi_pod else ("data",)
+
+
+def serve_rules(sc: ServeConfig) -> Dict[str, Any]:
+    return shd.activation_rules("gspmd", sc.multi_pod)
+
+
+def serve_shardings(cfg: ArchConfig, sc: ServeConfig, mesh, params_shape: Any,
+                    cache_shape: Any):
+    """The reference's (parameter specs, cache specs): parameters FSDP + TP
+    (``param_specs(fsdp=True)``), the cache batch over the data axes and
+    heads over ``model``; plain tuples.  The port serves the TP part
+    (``models.model.cut_model_``, ``init_cache(mesh=)``)."""
+    data_axes = sc.data_axes()
+    return (shd.param_specs(cfg, params_shape, fsdp=True, data_axes=data_axes, mesh=mesh),
+            shd.cache_specs(cfg, cache_shape, data_axes=data_axes, mesh=mesh))
+
+
+def _sharded(cfg: ArchConfig, sc: Optional[ServeConfig], mesh):
+    """The step's ``use_sharding`` context: a no-op at M = 1."""
+    if model_size(mesh) == 1:
+        return contextlib.nullcontext
+    rules = shd.tp_rules(cfg, serve_rules(sc or ServeConfig()), mesh)
+    return lambda: use_sharding(mesh, rules, shd.model_dims(cfg))
+
+
+def _gathered(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """The logits over the whole vocabulary (a model rank's block gathered)."""
+    if model_size(mesh) == 1:
+        return logits
+    return shd.gather_tensor(logits, (None, None, "model"), mesh)
 
 
 def cache_shapes(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
@@ -72,36 +123,45 @@ def _on(dev: torch.device, params: M.DecoderLM) -> None:
         raise ValueError(f"the model is on {p.device}, the step runs on {dev}")
 
 
-def build_decode_step(cfg: ArchConfig, device=None) -> Callable:
+def build_decode_step(cfg: ArchConfig, device=None, *, sc: Optional[ServeConfig] = None,
+                      mesh=None) -> Callable:
     """fn(params, cache, tokens (B, 1)) -> (logits, cache), on ``device``
     (None: the card).  The cache is updated in place (the reference donates
-    it)."""
+    it).  ``mesh``: see the module docstring (the cache from
+    ``models.model.init_cache(..., mesh=mesh)``)."""
     dev = resolve_device(device)
+    ctx = _sharded(cfg, sc, mesh)
 
     @torch.inference_mode()
     def fn(params, cache, tokens):
         if isinstance(tokens, dict):
             tokens = tokens["tokens"]
         _on(dev, params)
-        return M.decode_step(cfg, params, cache, tokens.to(dev))
+        with ctx():
+            logits, cache = M.decode_step(cfg, params, cache, tokens.to(dev))
+        return _gathered(logits, mesh), cache
 
     return fn
 
 
-def build_prefill(cfg: ArchConfig, device=None, flash: bool = True) -> Callable:
+def build_prefill(cfg: ArchConfig, device=None, flash: bool = True, *,
+                  sc: Optional[ServeConfig] = None, mesh=None,
+                  gather: bool = True) -> Callable:
     """fn(params, batch) -> logits (full-sequence forward), on ``device``
     (None: the card); every tensor of ``batch`` (``tokens``, and
     ``frames`` or ``patch_embeds``) goes to the device.  ``flash=False``
     is the port of
     ``REPRO_FLASH_KERNEL=0``: the flash branch then runs the chunked
-    online softmax in plain PyTorch."""
+    online softmax in plain PyTorch.  ``mesh``: see the module docstring."""
     dev = resolve_device(device)
+    ctx = _sharded(cfg, sc, mesh)
 
     @torch.inference_mode()
     def fn(params, batch):
         _on(dev, params)
-        logits, _ = M.forward(cfg, params, {k: v.to(dev) for k, v in batch.items()},
-                              flash=flash)
-        return logits
+        with ctx():
+            logits, _ = M.forward(cfg, params, {k: v.to(dev) for k, v in batch.items()},
+                                  flash=flash)
+        return _gathered(logits, mesh) if gather else logits
 
     return fn

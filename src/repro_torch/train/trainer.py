@@ -33,27 +33,43 @@ reference's stacked tree of views of it (``core.flatten.module_tree``), so
 a leaf-wide statistic spans all L layers as in the reference, and
 ``updates`` are added to the parameters in place.  Parameters are
 created without gradients (``requires_grad=False``); a worker's gradient
-is taken by enabling them for its backward alone.  The multi-card trainer
-(``fsdp_params``, ``multi_pod``, a ``model`` axis above 1, the GSPMD
-naming of ``sharding.py`` / ``logical.py``) is ROADMAP queue 1, item 12.
+is taken by enabling them for its backward alone.
+
+**The model axis.**  On a mesh with ``model`` = M > 1 (a dense model)
+every process is one tensor-parallel rank and runs all K candidates on
+its shard of the model (``models.model.cut_model_``), its parameters
+views of two buffers (``core.flatten.layout_split``: the split leaves and
+the replicated ones), its candidate gradients two (K, P_s) and (K, P_r)
+matrices; the stacked all-reduce's model-axis route (kernels 4, 6 and 7,
+the statistics summed over the model group) keeps every gradient leaf in
+its TP split through aggregation, as the reference's does ("no unsharded
+gradient ever exists"), and the optimizer steps each rank's blocks.
+``multi_pod`` runs pod x data candidates.  ``fsdp_params``, the flat
+layout at M > 1 and the data axis as processes are ROADMAP queue 1, item
+12.2b.  ``state_shardings`` / ``batch_shardings`` give the reference's
+specs (plain tuples, ``distributed.sharding``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.flatten import (
-    layout_flat, module_params, module_tree, tree_leaves, tree_map, unravel_like,
-    unravel_rows, vmap_ravel)
+    layout_flat, layout_split, module_params, module_tree, split_dims, split_groups,
+    tree_leaves, tree_map, tree_unflatten, unravel_like, unravel_rows, unravel_rows_split,
+    vmap_ravel)
 from repro_torch.core.topology import spaced_malicious
 from repro_torch.distributed import robust_allreduce as ra
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.logical import use_sharding
 from repro_torch.distributed.robust_allreduce import RobustAggConfig, TreeAggState
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.mesh import MULTI_CARD, Mesh
+from repro_torch.launch.mesh import MULTI_CARD, TP_QUEUE, Mesh, model_size
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
 
@@ -75,6 +91,9 @@ class TrainConfig:
     # averaged: the candidate gradient is the mean over its microbatches
     microbatches: int = 1
 
+    def candidate_axes(self) -> Tuple[str, ...]:
+        return ("pod", "data") if self.multi_pod else ("data",)
+
 
 class TrainState(NamedTuple):
     params: Any          # DecoderLM, its parameters views of one (P,) buffer
@@ -91,34 +110,154 @@ def _check_params(cfg: ArchConfig) -> None:
             "f32 here (ROADMAP queue 1, item 12)")
 
 
-def _check(tc: TrainConfig, mesh: Mesh) -> None:
-    if tc.multi_pod or tc.fsdp_params or mesh.shape.get("model", 1) != 1:
-        raise NotImplementedError(MULTI_CARD)
+def _n_candidates(mesh: Optional[Mesh], tc: TrainConfig) -> int:
+    """K: the data axis, times the pods under ``multi_pod``."""
+    if mesh is None:
+        return 1
+    n = mesh.shape["data"]
+    if tc.multi_pod:
+        n *= mesh.shape.get("pod", 1)
+    return int(n)
+
+
+def _check(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh) -> None:
     if tc.mode not in ("robust_dp", "gspmd"):
         raise ValueError(f"unknown mode {tc.mode!r}")
     if tc.mode == "gspmd" and tc.agg.method != "mean":
         raise ValueError("gspmd mode supports mean aggregation only")
+    if tc.fsdp_params:
+        raise NotImplementedError(MULTI_CARD)
+    if tc.multi_pod and "pod" not in mesh.shape:
+        raise ValueError("multi_pod needs a mesh with a pod axis")
+    size = model_size(mesh)
+    if size > 1:
+        L.check_family(cfg, size)
+        if tc.mode == "robust_dp" and tc.agg.layout != "stacked":
+            raise NotImplementedError(f"the flat layout on model = {size}: {MULTI_CARD}")
+        if cfg.optimizer == "adafactor":
+            raise NotImplementedError(
+                f"adafactor on model = {size}: its leaf-wide statistics would span one "
+                f"block ({TP_QUEUE})")
+
+
+def _layout(model, mesh: Optional[Mesh]):
+    """Lay the model's parameters out (one buffer at M = 1, the split and
+    the replicated buffers on the model axis); returns the buffers."""
+    if model_size(mesh) == 1:
+        return (layout_flat(model),)
+    return layout_split(model)
+
+
+def _candidate_rows(model, mesh: Optional[Mesh], K: int, dev) -> Tuple[Any, tuple]:
+    """K zero candidate rows of the model in its layout: (the candidate
+    tree, its matrices)."""
+    mats = tuple(torch.zeros((K, b.numel()), dtype=torch.float32, device=dev)
+                 for b in _layout(model, mesh))
+    if len(mats) == 1:
+        return unravel_rows(mats[0], module_tree(model)), mats
+    return unravel_rows_split(mats, model), mats
 
 
 def init_train_state(cfg: ArchConfig, tc: TrainConfig,
                      generator: Optional[torch.Generator] = None,
-                     mesh: Optional[Mesh] = None, device=None) -> TrainState:
-    """The model (``models.model.init_params`` from ``generator``), laid out
-    on one flat buffer, its optimizer state, the all-reduce's state for the
-    mesh's K candidates and step 0, on ``device`` (None: the card)."""
+                     mesh: Optional[Mesh] = None, device=None,
+                     abstract: bool = False) -> TrainState:
+    """The model (``models.model.init_params`` from ``generator``; on the
+    model axis this rank's blocks of it), laid out on its buffers, its
+    optimizer state, the all-reduce's state for the mesh's K candidates
+    and step 0, on ``device`` (None: the card).  ``abstract=True`` builds
+    it on the ``meta`` device, shapes and dtypes only (the reference's
+    ``eval_shape``); on the model axis it then needs the model group only
+    for the rank."""
     _check_params(cfg)
-    dev = resolve_device(device)
-    model = M.init_params(cfg, generator, dev)
-    layout_flat(model)
+    dev = torch.device("meta") if abstract else resolve_device(device)
+    if mesh is not None:
+        _check(cfg, tc, mesh)
+    model = M.init_params(cfg, generator, dev, mesh=mesh)
+    _layout(model, mesh)
     tree = module_tree(model)
-    K = mesh.shape["data"] if mesh is not None else 1
+    K = _n_candidates(mesh, tc)
     agg_state = None
     if (tc.mode == "robust_dp" and tc.agg.method in ("wfagg", "alt_wfagg")
             and tc.agg.wfagg.use_temporal):
-        agg_state = (ra.init_tree_agg_state(tc.agg, K, tree) if tc.agg.layout == "stacked"
-                     else ra.init_agg_state(tc.agg, K, device=dev))
+        if tc.agg.layout == "stacked":
+            agg_state = ra.init_tree_agg_state(tc.agg, K, tree)._replace(
+                prev=_candidate_rows(model, mesh, K, dev)[0])
+        else:
+            agg_state = ra.init_agg_state(tc.agg, K, device=dev)
     return TrainState(model, make_optimizer(cfg.optimizer).init(tree), agg_state,
                       torch.zeros((), dtype=torch.int32))
+
+
+def state_shardings(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
+                    state_shape: TrainState) -> TrainState:
+    """The reference's specs of the train state under the chosen mode (plain
+    tuples, ``distributed.sharding``), from a whole-model state's shapes
+    (``init_train_state(abstract=True)`` on a mesh of M = 1): parameters
+    by ``param_specs`` (FSDP under gspmd or ``fsdp_params``), optimizer
+    leaves as the parameter of their shape, else replicated; a stacked
+    ``prev`` its candidate axis over the data axes before the parameter's
+    TP spec."""
+    data_axes = tc.candidate_axes()
+    fsdp = tc.mode == "gspmd" or (tc.fsdp_params and tc.agg.layout == "stacked")
+    params = module_tree(state_shape.params)
+    pspecs = shd.param_specs(cfg, params, fsdp=fsdp, data_axes=data_axes, mesh=mesh)
+    p_shapes = {tuple(l.shape): sp for l, sp in zip(tree_leaves(params), tree_leaves(pspecs))}
+
+    def opt_spec(leaf):
+        return p_shapes.get(tuple(leaf.shape), ()) if hasattr(leaf, "shape") else ()
+
+    ospecs = tree_map(opt_spec, state_shape.opt_state)
+    if state_shape.agg_state is None:
+        aspecs = None
+    elif isinstance(state_shape.agg_state, TreeAggState):
+        prev_p = shd.param_specs(cfg, params, fsdp=False, data_axes=data_axes, mesh=mesh)
+        dax = data_axes if len(data_axes) > 1 else data_axes[0]
+        aspecs = TreeAggState(prev=tree_map(lambda sp: (dax,) + tuple(sp), prev_p),
+                              hist_s=(), hist_b=(), count=(), t=())
+    else:
+        aspecs = type(state_shape.agg_state)(*(
+            tree_map(lambda _: (), x) for x in state_shape.agg_state))
+    return TrainState(params=pspecs, opt_state=ospecs, agg_state=aspecs, step=())
+
+
+def batch_shardings(tc: TrainConfig, mesh: Mesh, batch_shape: Any) -> Any:
+    """The batch's specs over the candidate axes."""
+    return shd.batch_specs(batch_shape, data_axes=tc.candidate_axes(), mesh=mesh)
+
+
+def full_params(model, mesh: Optional[Mesh]) -> dict:
+    """The whole model's reference tree (``module_tree``) from a model
+    rank's blocks, gathered over the model group in rank order (every rank
+    takes part and gets it); the model's own tree at M = 1.  A checkpoint
+    of it has today's format, whatever M saved it."""
+    tree = module_tree(model)
+    if model_size(mesh) == 1:
+        return tree
+    leaves = tree_leaves(tree)
+    out = []
+    for leaf, dim in zip(leaves, split_dims(model)):
+        if dim is None:
+            out.append(leaf)
+            continue
+        spec = tuple("model" if i == dim else None for i in range(leaf.ndim))
+        out.append(shd.gather_tensor(leaf, spec, mesh))
+    return tree_unflatten(tree, out)
+
+
+def load_params_(model, tree: dict, mesh: Optional[Mesh]) -> None:
+    """Copy a whole model's reference tree (e.g. a restored checkpoint) into
+    the model's parameters in place, each model rank its blocks."""
+    axis = None if model_size(mesh) == 1 else mesh.model_axis()
+    _layout(model, mesh)
+    with torch.no_grad():
+        for dst, src, dim in zip(tree_leaves(module_tree(model)), tree_leaves(tree),
+                                 split_dims(model)):
+            src = torch.as_tensor(src)
+            if dim is not None:
+                n = dst.shape[dim]
+                src = src.narrow(dim, axis.rank * n, n)
+            dst.copy_(src)
 
 
 def _to_torch(tree, dev):
@@ -131,24 +270,56 @@ def _to_torch(tree, dev):
     return torch.as_tensor(arr.copy(), device=dev if arr.dtype.kind == "f" else "cpu")
 
 
-def state_from_jax(state, cfg: ArchConfig, device=None) -> TrainState:
+def _cut(tree, params: dict, model, rank: int, lead: int = 0):
+    """Every subtree of ``tree`` laid out as the parameter tree ``params``
+    cut to model rank ``rank``'s blocks (``lead`` leading axes before the
+    parameter's own), the rest as it is."""
+    if isinstance(tree, dict) and isinstance(params, dict) and set(tree) == set(params):
+        dims = iter(split_dims(model))
+        leaves = []
+        for leaf in tree_leaves(tree):
+            d = next(dims)
+            if d is not None:
+                n = leaf.shape[lead + d] // model.tp.size
+                leaf = leaf.narrow(lead + d, rank * n, n).contiguous()
+            leaves.append(leaf)
+        return tree_unflatten(tree, leaves)
+    if isinstance(tree, dict):
+        return {k: _cut(v, params, model, rank, lead) for k, v in tree.items()}
+    return tree
+
+
+def state_from_jax(state, cfg: ArchConfig, device=None, mesh: Optional[Mesh] = None
+                   ) -> TrainState:
     """The reference's ``TrainState`` (its leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, state)``) as the port's, on ``device``:
     params through ``params_from_jax``, the optimizer state leaf for leaf,
     the all-reduce's state (a stacked ``prev`` laid out as one (K, P)
-    matrix) and the step."""
+    matrix) and the step.  On a mesh with ``model`` > 1 each piece is
+    this model rank's blocks, laid out as ``init_train_state``'s."""
     _check_params(cfg)
     dev = resolve_device(device)
-    model = M.params_from_jax(state.params, cfg, dev)
-    layout_flat(model)
+    model = M.params_from_jax(state.params, cfg, dev, mesh=mesh)
+    _layout(model, mesh)
+    opt = _to_torch(state.opt_state, dev)
     agg = state.agg_state
     if agg is not None:
         agg = ra.state_from_jax(agg, device=dev)
+    tp = model.tp
+    if tp is not None:
+        params = module_tree(model)
+        opt = _cut(opt, params, model, tp.rank)
         if isinstance(agg, TreeAggState):
-            mat, _ = vmap_ravel(agg.prev)
-            agg = agg._replace(prev=unravel_rows(
-                mat.contiguous(), tree_map(lambda leaf: leaf[0], agg.prev)))
-    return TrainState(model, _to_torch(state.opt_state, dev), agg,
+            prev, _ = _candidate_rows(model, mesh, tree_leaves(agg.prev)[0].shape[0], dev)
+            for dst, src in zip(tree_leaves(prev), tree_leaves(_cut(agg.prev, params, model,
+                                                                    tp.rank, lead=1))):
+                dst.copy_(src)
+            agg = agg._replace(prev=prev)
+    elif isinstance(agg, TreeAggState):
+        mat, _ = vmap_ravel(agg.prev)
+        agg = agg._replace(prev=unravel_rows(
+            mat.contiguous(), tree_map(lambda leaf: leaf[0], agg.prev)))
+    return TrainState(model, opt, agg,
                       torch.tensor(int(np.asarray(state.step)), dtype=torch.int32))
 
 
@@ -156,13 +327,24 @@ def state_from_jax(state, cfg: ArchConfig, device=None) -> TrainState:
 # a worker's gradient
 # ---------------------------------------------------------------------------
 
+def _param_groups(model) -> List[List[torch.nn.Parameter]]:
+    """The parameters in ravel order: one list at M = 1; on the model axis
+    the split ones, then the replicated ones (``layout_split``'s order)."""
+    if getattr(model, "tp", None) is None:
+        return [module_params(model)]
+    return [[p for _, ps in groups for p in ps] for groups in split_groups(model)]
+
+
 def loss_and_grad(cfg: ArchConfig, model, batch: Dict[str, Tensor],
-                  out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                  out=None) -> Tuple[Tensor, Any]:
     """The loss on ``batch`` and its gradient as one (P,) float32 vector in
     ravel order, written into ``out`` when given.  A loss that does not
     reach the parameters (chunked CE over fewer positions than a chunk)
-    has gradient 0, as in the reference."""
-    params = module_params(model)
+    has gradient 0, as in the reference.  On the model axis the gradient is
+    a pair, (P_s,) of the split leaves and (P_r,) of the replicated ones
+    (``out`` a pair too), each in ravel order."""
+    groups = _param_groups(model)
+    params = [p for g in groups for p in g]
     with torch.enable_grad():
         for p in params:
             p.requires_grad_(True)
@@ -175,25 +357,35 @@ def loss_and_grad(cfg: ArchConfig, model, batch: Dict[str, Tensor],
                 p.requires_grad_(False)
     parts = [(g if g is not None else torch.zeros_like(p)).reshape(-1).to(torch.float32)
              for g, p in zip(grads, params)]
-    return loss.detach(), torch.cat(parts, out=out)
+    outs = out if isinstance(out, tuple) else (out,) * len(groups)
+    vecs, i = [], 0
+    for g, o in zip(groups, outs):
+        vecs.append(torch.cat(parts[i:i + len(g)], out=o) if g else
+                    torch.zeros((0,), dtype=torch.float32, device=params[0].device))
+        i += len(g)
+    return loss.detach(), vecs[0] if len(vecs) == 1 else tuple(vecs)
 
 
 def _worker_grad(cfg: ArchConfig, model, batch: Dict[str, Tensor], mb: int,
-                 out: Tensor) -> Tensor:
-    """One candidate's gradient into ``out`` (P,): the mean over ``mb``
-    microbatches of its rows (of every entry of ``batch``), accumulated as
-    the reference's scan does; returns its loss, the mean of the
-    microbatches' losses."""
+                 out) -> Tensor:
+    """One candidate's gradient into ``out`` (P,) (on the model axis a
+    pair, ``loss_and_grad``'s): the mean over ``mb`` microbatches of its
+    rows (of every entry of ``batch``), accumulated as the reference's scan
+    does; returns its loss, the mean of the microbatches' losses."""
     if mb == 1:
         return loss_and_grad(cfg, model, batch, out)[0]
     rows = {k: v.reshape((mb, v.shape[0] // mb) + tuple(v.shape[1:]))
             for k, v in batch.items()}
-    out.zero_()
-    loss = torch.zeros((), dtype=torch.float32, device=out.device)
-    tmp = torch.empty_like(out)
+    outs = out if isinstance(out, tuple) else (out,)
+    for o in outs:
+        o.zero_()
+    loss = torch.zeros((), dtype=torch.float32, device=outs[0].device)
+    tmps = tuple(torch.empty_like(o) for o in outs)
     for m in range(mb):
-        lm, _ = loss_and_grad(cfg, model, {k: v[m] for k, v in rows.items()}, tmp)
-        out += tmp.div_(mb)
+        lm, _ = loss_and_grad(cfg, model, {k: v[m] for k, v in rows.items()},
+                              tmps if isinstance(out, tuple) else tmps[0])
+        for o, t in zip(outs, tmps):
+            o += t.div_(mb)
         loss = loss + lm / mb
     return loss
 
@@ -219,10 +411,12 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
     or check them there (the gspmd step has "grads" and "optimizer"
     only)."""
     _check_params(cfg)
-    _check(tc, mesh)
+    _check(cfg, tc, mesh)
     opt = make_optimizer(cfg.optimizer)
     lr_fn = warmup_cosine(tc.lr, tc.warmup, tc.total_steps)
-    K = mesh.shape["data"]
+    K = _n_candidates(mesh, tc)
+    tp = mesh.model_axis()
+    rules = shd.tp_rules(cfg, shd.activation_rules(tc.mode, tc.multi_pod), mesh)
     mal_np = spaced_malicious(K, tc.n_malicious)
     see = observe or (lambda phase, **values: None)
     attacking = tc.attack not in ("none", "label_flip") and tc.n_malicious > 0
@@ -255,24 +449,44 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
                    "weights": info.get("weights", torch.ones((K,), device=dev))}
         return TrainState(state.params, new_opt, new_agg, state.step + 1), metrics
 
+    def grad_norm(grads, model) -> Tensor:
+        """The aggregate's norm; on the model axis the split leaves' squares
+        summed over the model group, the replicated leaves' counted once."""
+        if tp is None:
+            return torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in tree_leaves(grads)))
+        sq = [(g.to(torch.float32) ** 2).sum() for g in tree_leaves(grads)]
+        dims = split_dims(model)
+        part = sum(q for q, d in zip(sq, dims) if d is not None)
+        if tp.rank == 0:
+            part = part + sum(q for q, d in zip(sq, dims) if d is None)
+        return torch.sqrt(L.all_reduce_model(part.reshape(1), tp.group)[0])
+
     def stacked_step(state: TrainState, batch):
         model, tokens = state.params, batch["tokens"]
-        P = layout_flat(model).numel()
-        G = torch.empty((K, P), dtype=torch.float32, device=tokens.device)
-        losses = torch.stack([_worker_grad(cfg, model, rows_of(batch, k),
-                                           tc.microbatches, G[k]) for k in range(K)])
-        stacked = unravel_rows(G, module_tree(model))
+        bufs = _layout(model, mesh)
+        G = tuple(torch.empty((K, b.numel()), dtype=torch.float32, device=tokens.device)
+                  for b in bufs)
+        losses = torch.stack([_worker_grad(cfg, model, rows_of(batch, k), tc.microbatches,
+                                           G[0][k] if tp is None else (G[0][k], G[1][k]))
+                              for k in range(K)])
+        shards = None
+        if tp is None:
+            stacked = unravel_rows(G[0], module_tree(model))
+        else:
+            stacked = unravel_rows_split(G, model)
+            shards = ra.ModelShards(tp, tuple(split_dims(model)))
+        del G
         see("grads", candidates=stacked, losses=losses)
         if attacking:
             mal = torch.as_tensor(mal_np, device=tokens.device)
             ra.apply_stacked_attack(stacked, mal, tc.attack,
                                     attack_generator(state.step, tokens.device),
-                                    in_place=True)
+                                    in_place=True, model_shards=shards)
         see("attack", candidates=stacked, agg_state=state.agg_state)
-        grads, new_agg, info = ra.robust_allreduce_stacked(stacked, tc.agg, state.agg_state)
+        grads, new_agg, info = ra.robust_allreduce_stacked(stacked, tc.agg, state.agg_state,
+                                                           model_shards=shards)
         see("allreduce", grads=grads, agg_state=new_agg, info=info)
-        gn = torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in tree_leaves(grads)))
-        return finish(state, grads, new_agg, info, losses.mean(), gn)
+        return finish(state, grads, new_agg, info, losses.mean(), grad_norm(grads, model))
 
     def flat_step(state: TrainState, batch):
         model, tokens = state.params, batch["tokens"]
@@ -300,11 +514,21 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
 
     def gspmd_step(state: TrainState, batch):
         model = state.params
+        _layout(model, mesh)
         loss, g = loss_and_grad(cfg, model, batch)
         see("grads", candidates=g, losses=loss[None])
-        return finish(state, unravel_like(g, module_tree(model)), None, {}, loss,
-                      torch.sqrt((g ** 2).sum()))
+        if tp is None:
+            return finish(state, unravel_like(g, module_tree(model)), None, {}, loss,
+                          torch.sqrt((g ** 2).sum()))
+        grads = tree_map(lambda l: l[0], unravel_rows_split(tuple(v[None] for v in g), model))
+        return finish(state, grads, None, {}, loss, grad_norm(grads, model))
 
-    if tc.mode == "gspmd":
-        return gspmd_step
-    return stacked_step if tc.agg.layout == "stacked" else flat_step
+    step = gspmd_step if tc.mode == "gspmd" else \
+        stacked_step if tc.agg.layout == "stacked" else flat_step
+    dims = shd.model_dims(cfg)
+
+    def sharded(state: TrainState, batch):
+        with use_sharding(mesh, rules, dims):
+            return step(state, batch)
+
+    return step if tp is None else sharded

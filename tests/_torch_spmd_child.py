@@ -21,7 +21,7 @@ TIMEOUT_S = 120
 
 def _np(x):
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return x.detach().cpu().numpy().copy()   # never a view of live storage
     if isinstance(x, dict):
         return {k: _np(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
@@ -155,8 +155,193 @@ def task_flat(rank, S, cfg, rounds, malicious, attack):
     return res
 
 
+def _gather_leaves(leaves, model, mesh, lead=0):
+    """A model rank's blocks of the tree's leaves (ravel order; ``lead``
+    leading axes before each parameter's own), gathered whole over the
+    model group, as numpy."""
+    from repro_torch.core import flatten as F
+    from repro_torch.distributed import sharding as shd
+
+    out = []
+    for leaf, dim in zip(leaves, F.split_dims(model)):
+        if dim is not None:
+            leaf = shd.gather_tensor(leaf, tuple("model" if i == dim + lead else None
+                                                 for i in range(leaf.ndim)), mesh)
+        out.append(_np(leaf))
+    return out
+
+
+def _tp_gather(model, mesh, vecs):
+    """The whole tree of a model rank's (P_s,) and (P_r,) vectors (a
+    gradient) as numpy leaves in ravel order."""
+    from repro_torch.core import flatten as F
+
+    tree = F.unravel_rows_split(tuple(v.reshape(1, -1) for v in vecs), model)
+    return _gather_leaves([leaf[0] for leaf in F.tree_leaves(tree)], model, mesh)
+
+
+def _tp_candidates(model, tree, K, rank):
+    """The rank's candidate tree laid out on (K, P_s) and (K, P_r) matrices,
+    each leaf its block of the whole numpy ``tree`` (leaves (K, ...))."""
+    from repro_torch.core import flatten as F
+
+    mats = [torch.zeros((K, b.numel())) for b in F.layout_split(model)]
+    cand = F.unravel_rows_split(tuple(mats), model)
+    for dst, src, dim in zip(F.tree_leaves(cand), F.tree_leaves(tree), F.split_dims(model)):
+        src = torch.as_tensor(src)
+        if dim is not None:
+            n = dst.shape[dim + 1]
+            src = src.narrow(dim + 1, rank * n, n)
+        dst.copy_(src)
+    return cand
+
+
+def _tp_tree_np(tree):
+    from repro_torch.core import flatten as F
+    return [_np(x) for x in F.tree_leaves(tree)]
+
+
+def task_tp(rank, S, cfg, params, tokens, parts, cands=None, methods=(), wcfg=None,
+            train=None, prompts=None, ckpt_dir=None):
+    """The model axis on S ranks (M = S), a dense model from the reference's
+    initial ``params`` (numpy): per part in ``parts``, what rank 0 returns
+    as numpy, the gathered whole where a rank holds a block.
+
+      forward    the gathered logits of ``tokens``;
+      grads      the loss and the gathered gradient leaves (ravel order);
+      allreduce  per round of ``cands`` (whole candidate trees) and per
+                 (method, backend): the gathered aggregate, weights and
+                 masks; WFAgg-T's state carried; also the psum'd
+                 statistics of round 0;
+      noise      the noise attack's gathered candidates (seed 7);
+      train      ``train["steps"]`` steps of the trainer from the
+                 reference's state: per step loss, weights, masks, the
+                 gathered params; a checkpoint of the last at ``ckpt_dir``
+                 (rank 0) and the M = 1 checkpoint at ``ckpt_dir``/m1
+                 loaded back;
+      launcher   ``launch.train.main`` with ``--model-parallel S`` for 2
+                 reduced steps, a checkpoint at ``ckpt_dir``/launcher;
+      serve      the gathered prefill logits of ``prompts`` (flash branch
+                 at a lowered threshold) and 4 greedy decode steps."""
+    import types
+
+    from repro_torch.core import flatten as F
+    from repro_torch.distributed import robust_allreduce as ra
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import serve as sv
+    from repro_torch.train import trainer as tr
+
+    mesh = make_test_mesh(data=1, model=S, model_group=dist.group.WORLD)
+    model = M.params_from_jax(params, cfg, "cpu", mesh=mesh)
+    out = {"split_dims": F.split_dims(model)}
+    batch = {"tokens": torch.as_tensor(tokens).long()}
+    if "forward" in parts:
+        logits, _ = M.forward(cfg, model, batch)
+        out["logits"] = _np(shd.gather_tensor(logits, (None, None, "model"), mesh))
+    if "grads" in parts:
+        loss, g = tr.loss_and_grad(cfg, model, batch)
+        out["loss"] = float(loss)
+        out["grads"] = _tp_gather(model, mesh, g)
+    if "allreduce" in parts:
+        K = F.tree_leaves(cands[0]["tree"])[0].shape[0]
+        shards = ra.ModelShards(mesh.model_axis(), tuple(F.split_dims(model)))
+        res = {}
+        for method, backend in methods:
+            cfg_a = ra.RobustAggConfig(method=method, wfagg=wcfg, backend=backend,
+                                       layout="stacked")
+            state = ra.init_tree_agg_state(cfg_a, K, F.module_tree(model))._replace(
+                prev=_tp_candidates(model, cands[0]["prev"], K, rank))
+            rounds = []
+            for c in cands:
+                cand = _tp_candidates(model, c["tree"], K, rank)
+                agg, state, info = ra.robust_allreduce_stacked(cand, cfg_a, state,
+                                                               model_shards=shards)
+                rounds.append({"out": _gather_leaves(F.tree_leaves(agg), model, mesh),
+                               **{k: _np(v) for k, v in info.items() if k != "record"}})
+            res[(method, backend)] = rounds
+        cand = _tp_candidates(model, cands[0]["tree"], K, rank)
+        leaves = F.tree_leaves(cand)
+        dims = F.split_dims(model)
+        groups = [[l for l, d in zip(leaves, dims) if d is not None],
+                  [l for l, d in zip(leaves, dims) if d is None]]
+        mats = [ra._concat_candidates(g) for g in groups]
+        cfg_s = ra.RobustAggConfig(method="alt_wfagg", backend="fused")
+        mine = [0] if rank else [0, 1]
+        st = ra.psum_stats(ra._partial_stats(K, "cpu", [groups[i] for i in mine], None, cfg_s,
+                                             [mats[i] for i in mine], [None, None]),
+                           dist.group.WORLD)
+        out["stats"] = {f: _np(getattr(st, f)[0]) for f in ("dist2", "norm2", "gram")}
+        out["allreduce"] = res
+    if "noise" in parts:
+        K = F.tree_leaves(cands[0]["tree"])[0].shape[0]
+        cand = _tp_candidates(model, cands[0]["tree"], K, rank)
+        shards = ra.ModelShards(mesh.model_axis(), tuple(F.split_dims(model)))
+        ra.apply_stacked_attack(cand, torch.tensor([k % 2 == 1 for k in range(K)]), "noise",
+                                torch.Generator().manual_seed(7), in_place=True,
+                                model_shards=shards)
+        out["noise"] = _gather_leaves(F.tree_leaves(cand), model, mesh, lead=1)
+    if "train" in parts:
+        tc, K = train["tc"], train["K"]
+        js = train["state"]
+        agg = None if js["agg_state"] is None else types.SimpleNamespace(**js["agg_state"])
+        st = tr.state_from_jax(types.SimpleNamespace(
+            params=js["params"], opt_state=js["opt_state"], agg_state=agg, step=js["step"]),
+            cfg, device="cpu", mesh=make_test_mesh(data=K, model=S,
+                                                   model_group=dist.group.WORLD))
+        tmesh = make_test_mesh(data=K, model=S, model_group=dist.group.WORLD)
+        seen = {}
+        step = tr.build_train_step(cfg, tc, tmesh,
+                                   observe=lambda phase, **v: seen.update({phase: v}))
+        steps = []
+        for b in train["batches"]:
+            st, m = step(st, {"tokens": torch.as_tensor(b).long()})
+            info = seen["allreduce"]["info"]
+            steps.append({"loss": float(m["loss"]), "weights": _np(m["weights"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "masks": {k: _np(info[k]) for k in ("mask_d", "mask_c", "mask_t")
+                                    if k in info},
+                          "params": _tp_tree_np(tr.full_params(st.params, tmesh))})
+        out["train"] = steps
+        whole = tr.full_params(st.params, tmesh)
+        if rank == 0:
+            ckpt.save_checkpoint(ckpt_dir, "tp", whole, {"model": S})
+        dist.barrier()
+        m1, _ = ckpt.restore_checkpoint(ckpt_dir + "/m1", "m1", whole)
+        tr.load_params_(st.params, m1, tmesh)
+        out["loaded"] = _tp_tree_np(tr.full_params(st.params, tmesh))
+    if "launcher" in parts:
+        from repro_torch.launch import train as T
+        T.main(["--reduced", "--d-model", "64", "--n-layers", "2", "--vocab", "128",
+                "--candidates", "4", "--steps", "2", "--seq-len", "32", "--global-batch", "4",
+                "--agg-backend", "fused", "--attack", "ipm_100", "--n-malicious", "1",
+                "--model-parallel", str(S), "--ckpt-dir", ckpt_dir + "/launcher",
+                "--ckpt-every", "2"], device="cpu")
+    if "serve" in parts:
+        L.SDPA_CHUNK_THRESHOLD = 128
+        p = torch.as_tensor(prompts).long()
+        pre = sv.build_prefill(cfg, device="cpu", mesh=mesh)
+        out["prefill"] = _np(pre(model, {"tokens": p}))
+        cache = M.init_cache(cfg, p.shape[0], p.shape[1] + 4, device="cpu", mesh=mesh)
+        out["cache_heads"] = cache["layers"]["k"].shape[2]
+        dec = sv.build_decode_step(cfg, device="cpu", mesh=mesh)
+        logits = []
+        for i in range(p.shape[1]):
+            lg, cache = dec(model, cache, p[:, i:i + 1])
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        for _ in range(4):
+            logits.append(_np(lg))
+            lg, cache = dec(model, cache, tok)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+        out["decode"] = logits
+    return out
+
+
 TASKS = {"round": task_round, "scan": task_scan, "engine": task_engine,
-         "group_size": task_group_size, "flat": task_flat}
+         "group_size": task_group_size, "flat": task_flat, "tp": task_tp}
 
 
 # ---------------------------------------------------------------------------

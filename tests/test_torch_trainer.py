@@ -302,12 +302,25 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 
 
 def test_multi_card_trainer_refused():
+    """What the multi-card trainer still refuses: a model axis without its
+    process group, FSDP parameters and the flat layout on the model axis
+    (ROADMAP queue 1, item 12.2b), a family without a TP form on it (item
+    12.8), and gspmd with a robust rule."""
+    from repro_torch.launch.mesh import Mesh
+
     _, cfg = _cfgs()
     mesh = make_test_mesh(data=2)
-    for tc in (tr.TrainConfig(fsdp_params=True), tr.TrainConfig(multi_pod=True)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-            tr.build_train_step(cfg, tc, mesh)
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 12.2b"):
+        tr.build_train_step(cfg, tr.TrainConfig(fsdp_params=True), mesh)
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         make_test_mesh(data=2, model=2)
+    tp_mesh = Mesh(shape={"data": 2, "model": 2})     # the group is never reached
+    flat = tr.TrainConfig(agg=tra.RobustAggConfig(layout="flat"))
+    with pytest.raises(NotImplementedError, match="queue 1, item 12.2b"):
+        tr.build_train_step(cfg, flat, tp_mesh)
+    moe = get_config("deepseek-v2-lite-16b").reduced()
+    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
+        tr.build_train_step(moe, tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
+                            tp_mesh)
     with pytest.raises(ValueError, match="mean"):
         tr.build_train_step(cfg, tr.TrainConfig(mode="gspmd"), mesh)
