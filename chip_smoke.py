@@ -10,6 +10,7 @@ an NVIDIA H100.
     python3 chip_smoke.py --only ssm           # phase 1, then the SSM and hybrid families
     python3 chip_smoke.py --only encdec        # phase 1, then the encoder-decoder and VLM
     python3 chip_smoke.py --only tp            # phase 1, then the model (TP) axis
+    python3 chip_smoke.py --only grid          # phase 1, then the K x M grid
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
@@ -319,11 +320,12 @@ Phases, each of which fails the run:
      - the SSM and hybrid families, on the port's seed-0 init, each model
        freed before the next: kernel 8 at Zamba2's prefill shape (B=2,
        H=32, S=8192, hd=64, bf16) through ``compare_flash``, timed beside
-       SDPA; Falcon-Mamba-7B at full width cut to 16 of its 64 Mamba-1
+       SDPA; Falcon-Mamba-7B at full width cut to 8 of its 64 Mamba-1
        layers (the whole script's time limit), prefill 2 x 8192 (0 kernel
-       launches), and Zamba2-1.2B uncut (38 Mamba-2 layers, the
-       shared block once a group), prefill 2 x 8192 with exactly 19
-       kernel-8 launches a call on the tensor-core kernel, held against
+       launches), and Zamba2-1.2B at full width cut to 20 of its 38
+       Mamba-2 layers (10 groups, the shared block once a group), prefill
+       2 x 8192 with exactly 10 kernel-8 launches a call on the
+       tensor-core kernel, held against
        ``flash=False``; each prefill timed with its peak memory and traced
        (the top device kernels); Falcon-Mamba's decode at batch 4 through
        a 96-token prompt (48 tokens in one stateful call, then a token a
@@ -359,16 +361,37 @@ Phases, each of which fails the run:
        gathered and added in rank order, through host memory): prefill 2 x
        8192 with 24 kernel-8 launches a call on each rank, the gathered
        last 256 positions held to the M = 1 prefill and decode at batch 4
-       against 32,768 slots held to a prefill, by the dense rule; then
-       K = 8 training, WFAgg on ``fused`` and ``fused_two_launch``,
-       Alt-WFAgg and the mean, 5 steps each under IPM-100, with the
+       against 32,768 slots over ``TP_PROMPT`` + ``TP_NEW_TOKENS`` tokens
+       held to a prefill, by the dense rule; then K = 8 training, WFAgg on
+       ``fused`` and ``fused_two_launch``, Alt-WFAgg and the mean (the
+       steps of ``TP_RUNS``) under IPM-100, with the
        planned launches of kernels 4, 6 and 7 on every rank every step (0
        of kernel 1), the step-1 candidates held to M = 1's gradients
        (relative rms ``TP_GRAD_RMS``) and every step's aggregation to the
        reference backend's model-axis route on the same candidates (masks
        bit-equal or near-ties, weights and blocks within 3e-5), the
        activation all-reduces and ``psum_stats`` timed apart.  ``--only
-       tp`` runs phase 1 and this part alone.
+       tp`` runs phase 1 and this part alone.  Last, the data axis as
+       processes: Qwen1.5-0.5B uncut on a K = 4 x M = 2 grid of ``gloo``
+       ranks sharing the card (``launch.mesh.make_grid``), each rank
+       holding the FSDP blocks of its model block: a prefill of 4 x 8192,
+       one row a data rank, each layer's weights gathered over the data
+       group just before it, with 24 kernel-8 launches on each rank, and
+       decode at batch 4 against 32,768 slots over ``GRID_DECODE``
+       teacher-forced tokens, both gathered and held by the dense rule to
+       one process's logits of the same tokens; then K = 4 training with
+       ``fsdp_params``, one candidate a data rank (WFAgg 3 steps,
+       Alt-WFAgg and the mean 2), IPM-100 on one, with each rank's planned
+       launches of kernels 4, 6 and 7 every step (0 of kernel 1), the
+       step-1 candidate held to one process's gradient (relative rms
+       ``GRID_GRAD_RMS``) and every step's aggregation to the reference
+       backend's data-axis route on the same column block (masks bit-equal
+       or near-ties, weights and blocks within 3e-5), the param all-gather,
+       the exchange, ``psum_stats`` and the activation all-reduces timed
+       apart; then kernels 4, 6, 7 and 8 at a rank's shapes held against
+       their plain versions and timed.  ``--only grid`` runs phase 1 and
+       this part alone; ``--only cards`` on four cards adds StableLM-3B
+       uncut at K = 4 x M = 1 and Qwen at K = 2 x M = 2 on ``nccl``.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -5690,7 +5713,8 @@ def run_moe_path(torch) -> tuple:
 
 # ---------------------------------------------------------------------------
 # phase 3: the SSM and hybrid families (serving Falcon-Mamba-7B and
-# Zamba2-1.2B uncut; training a hybrid through kernels 1, 4 and 6)
+# Zamba2-1.2B at full width, cut in depth; training a hybrid through
+# kernels 1, 4 and 6)
 # ---------------------------------------------------------------------------
 
 # (arch, prefill (B, S), kernel-8 launches a prefill, decode batch, decode
@@ -5698,10 +5722,12 @@ def run_moe_path(torch) -> tuple:
 # before the single steps, greedy steps held): each decode's held logits
 # (prompt and greedy, 96 positions) against one prefill of the same tokens
 SSM_SERVE = (
-    # 16 of 64 layers: uncut, its prefill took 21 s a call (PERF.md §6, PR 25),
-    # the part 237 s of the whole script's 1,200
-    ("falcon-mamba-7b", 16, (2, 8192), 0, 4, 96, 96, 48, 0),    # arXiv:2410.05355
-    ("zamba2-1.2b", None, (2, 8192), 19, 2, 32768, 64, 0, 32),  # arXiv:2411.15242
+    # cut at full width to fit the whole script's 1,200 s beside the grid
+    # part: Falcon-Mamba-7B to 8 of 64 layers (uncut its prefill took 21 s
+    # a call, PERF.md §6, PR 25), Zamba2-1.2B to 20 of 38 layers (10 groups,
+    # the shared block once a group; uncut 10.4 s a prefill, PR 27 D)
+    ("falcon-mamba-7b", 8, (2, 8192), 0, 4, 96, 96, 48, 0),     # arXiv:2410.05355
+    ("zamba2-1.2b", 20, (2, 8192), 10, 2, 32768, 64, 0, 32),    # arXiv:2411.15242
 )
 SSM_DECODE_TIMED = 16          # greedy steps timed after the held ones
 SSM_TRAIN_ARCH = "zamba2-1.2b"
@@ -5963,7 +5989,7 @@ def check_ssm_flash_shape(torch) -> tuple:
 
 
 def run_ssm_serve(torch) -> tuple:
-    """Falcon-Mamba-7B (16 of 64 layers) and Zamba2-1.2B (uncut) served, one
+    """Falcon-Mamba-7B (8 of 64 layers) and Zamba2-1.2B (20 of 38) served, one
     after another, each freed before the next.  Returns (launches, report)."""
     report, launches = {}, dict.fromkeys(KERNELS, 0)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -6129,8 +6155,10 @@ TP_M = 2                       # gloo ranks sharing the one card
 # under IPM-100 as the one-card trainer's.  On the model axis fused and
 # fused_two_launch are one route (kernels 4, 6 and 7): the second runs 2
 # steps, held bit for bit to the first's; Alt-WFAgg 2 steps for kernel 6
-TP_RUNS = (("wfagg", "fused", 5), ("wfagg", "fused_two_launch", 2), ("alt_wfagg", "fused", 2),
-           ("mean", "fused", 5))
+# (WFAgg on fused and the mean cut from 5 steps to 3 beside the grid part,
+# the whole script's 1,200 s)
+TP_RUNS = (("wfagg", "fused", 3), ("wfagg", "fused_two_launch", 2), ("alt_wfagg", "fused", 2),
+           ("mean", "fused", 3))
 # the step-1 candidate gradients at M against M = 1 on the same parameters
 # and batch: relative rms of each candidate's whole gradient.  Both are bf16
 # activations on f32 parameters, rounded in another order (partial sums of a
@@ -6138,6 +6166,9 @@ TP_RUNS = (("wfagg", "fused", 5), ("wfagg", "fused_two_launch", 2), ("alt_wfagg"
 # run: a wrong block, a missing or doubled all-reduce is an O(1) error
 TP_GRAD_RMS = 5e-2
 TP_TIMEOUT_S = 900             # the ranks' deadline
+# the TP decode's prompt and greedy tokens (cut from the serving path's 64 +
+# 32 beside the grid part: each step's 49 host-staged all-reduces ~170 ms)
+TP_PROMPT, TP_NEW_TOKENS = 32, 16
 CARDS_TP_ARCH = "stablelm-3b"  # --only cards at 4 cards: its state exists only across them
 CARDS_TP_STEPS = 3
 
@@ -6367,9 +6398,10 @@ def tp_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
     (warm once, then timed; kernel 8 on the rank's H/M heads, 24 launches
     a call), the last ``PREFILL_TAIL`` positions' logits gathered and, on
     rank 0, held to the M = 1 prefill's (written by the parent) by the
-    dense rule; decode at batch 4 against 32,768 slots over a 64-token
-    prompt and 32 greedy tokens (0 launches), held to one prefill of the
-    96 tokens.  Returns (launches, report)."""
+    dense rule; decode at batch 4 against 32,768 slots over a
+    ``TP_PROMPT``-token prompt and ``TP_NEW_TOKENS`` greedy tokens (0
+    launches), held to one prefill of the same tokens.  Returns (launches,
+    report)."""
     from repro_torch.configs.shapes import DECODE_32K
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import model as M
@@ -6421,25 +6453,25 @@ def tp_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
         del tail
 
         cache = M.init_cache(cfg, DECODE_B, DECODE_32K.seq_len, mesh=mesh)
-        prompt = torch.randint(0, cfg.vocab_size, (DECODE_B, PROMPT), generator=g,
+        prompt = torch.randint(0, cfg.vocab_size, (DECODE_B, TP_PROMPT), generator=g,
                                device="cuda", dtype=torch.int32)
         step = sv.build_decode_step(cfg, mesh=mesh)
         zero_counts()
         stepped = []
-        for i in range(PROMPT):
+        for i in range(TP_PROMPT):
             lg, cache = step(params, cache, prompt[:, i:i + 1])
             stepped.append(lg)
         gen = []
         clock.take()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for _ in range(NEW_TOKENS):
+        for _ in range(TP_NEW_TOKENS):
             gen.append(lg[:, -1].argmax(-1, keepdim=True).to(torch.int32))
             lg, cache = step(params, cache, gen[-1])
             stepped.append(lg)
         torch.cuda.synchronize()
-        rep["decode_ms"] = round(1e3 * (time.perf_counter() - t) / NEW_TOKENS, 3)
-        rep["decode_collectives_per_step"] = {k: round(v / NEW_TOKENS, 3)
+        rep["decode_ms"] = round(1e3 * (time.perf_counter() - t) / TP_NEW_TOKENS, 3)
+        rep["decode_collectives_per_step"] = {k: round(v / TP_NEW_TOKENS, 3)
                                               for k, v in clock.take().items()}
         rep["decode_tokens_per_s"] = round(DECODE_B / rep["decode_ms"] * 1e3, 1)
         rep["cache_heads"] = cache["layers"]["k"].shape[2]
@@ -6607,11 +6639,12 @@ def tp_reference(torch, out_dir) -> None:
 
 
 def time_tp_kernels(torch, K, D, heads) -> dict:
-    """Kernels 4 and 7 at the model axis's launch shape, (K, D = P_s) with
-    ``prev`` and the combine with ``lcoef`` = 0 (the wrappers ``*_cuda``,
-    median CUDA-event ms), beside their plain versions (kernel 4's in
-    column chunks), bounds and, for kernel 7, ``addmv``; and kernel 8 at a
-    rank's heads of the TP prefill (``time_flash``)."""
+    """Kernels 4, 6 and 7 at the model axis's launch shape, (K, D = P_s)
+    with ``prev``, the Gram and the combine with ``lcoef`` = 0 (the wrappers
+    ``*_cuda``, median CUDA-event ms), beside their plain versions (kernel
+    4's in column chunks), bounds and ``torch.mm`` (kernel 6) and ``addmv``
+    (kernel 7); and kernel 8 at a rank's heads of the TP prefill
+    (``time_flash``)."""
     from repro_torch.kernels.robust_stats import kernel as rk
     from repro_torch.kernels.weighted_agg import kernel as wk
     from repro_torch.kernels.weighted_agg import ops as wops
@@ -6626,6 +6659,15 @@ def time_tp_kernels(torch, K, D, heads) -> dict:
         plain_ms=time_cuda(torch, lambda: chunked_plain_stats(torch, u, prev), 1, 3),
         bound_ms=b[0], bound_by=b[1], library_ms=None, shape=f"K={K} D={D}, prev")
     del prev
+    from repro_torch.kernels.pairwise_dist import kernel as pk
+    from repro_torch.kernels.pairwise_dist import ops as pops
+
+    b = bound(4.0 * K * D, float(K * (K + 1)) * D)
+    out["pairwise_gram"] = dict(
+        ms=time_cuda(torch, lambda: pk.pairwise_gram_cuda(u), 2, 10),
+        plain_ms=time_cuda(torch, lambda: pops.pairwise_gram_plain(u), 1, 3),
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=time_cuda(torch, lambda: torch.mm(u, u.t()), 2, 10), shape=f"K={K} D={D}")
     w = torch.ones((K,), device="cuda")
     w[2] = w[6] = 0.0
     wvec = w / w.sum()
@@ -6775,12 +6817,718 @@ def report_tp(ranks, card, ref_s, seconds, arch, where) -> tuple:
     return launches, rep
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the data axis as processes (the K x M grid of launch/mesh.py,
+# FSDP blocks of core/flatten.py and models/model.py, the stacked
+# all-reduce's data-axis route, serving FSDP over data)
+# ---------------------------------------------------------------------------
+
+GRID_ARCH = "qwen1.5-0.5b"
+GRID_K, GRID_M = 4, 2          # 8 gloo ranks sharing the one card
+# (method, backend, steps) of the grid's training runs, fsdp_params on,
+# IPM-100 on spaced_malicious(4, 1) = candidate 2
+GRID_RUNS = (("wfagg", "fused", 3), ("alt_wfagg", "fused", 2), ("mean", "fused", 2))
+GRID_MALICIOUS = 1
+GRID_F = 1                     # WFAgg's f at K = 4: the one attacker
+# the step-1 candidate gradients on the grid against one process's on the
+# same parameters and rows: relative rms of each candidate's whole gradient.
+# A grid rank computes its candidate at M = 2 as the model axis does (bf16
+# partial sums rounded before they meet); fixed before the first run as
+# TP_GRAD_RMS: a wrong block, row or gather is an O(1) error
+GRID_GRAD_RMS = 5e-2
+# decode on the grid: a teacher-forced sequence of this many tokens a row
+# (each step gathers every layer's weights over the data group), the last
+# GRID_DECODE_TIMED steps timed
+GRID_DECODE, GRID_DECODE_TIMED = 4, 2
+GRID_TIMEOUT_S = 600
+CARDS_GRID_ARCH = "stablelm-3b"   # --only cards: K = 4 x M = 1 on four nccl cards
+CARDS_GRID_STEPS = 3
+
+
+class GridClock(CollectiveClock):
+    """The grid's collectives timed apart, besides the model axis's
+    (``CollectiveClock``): the FSDP gathers of the parameters over the data
+    group (``spmd.all_gather_rows`` where the model calls it: once a step
+    for training, once a layer for serving) and the trainer's exchange
+    (``all_to_all_rows``, and ``all_gather_rows`` for the leaves whole over
+    data)."""
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        from repro_torch.distributed import spmd
+        from repro_torch.train import trainer as tr
+
+        self.spmd, self.tr = spmd, tr
+        self.grid_orig = (spmd.all_gather_rows, tr.all_to_all_rows, tr.all_gather_rows)
+        self.ms.update(param_gather=0.0, exchange=0.0)
+        self.calls.update(param_gather=0, exchange=0)
+        spmd.all_gather_rows = self.wrap(self.grid_orig[0], "param_gather")
+        tr.all_to_all_rows = self.wrap(self.grid_orig[1], "exchange")
+        tr.all_gather_rows = self.wrap(self.grid_orig[2], "exchange")
+
+    def close(self):
+        super().close()
+        self.spmd.all_gather_rows, self.tr.all_to_all_rows, self.tr.all_gather_rows = \
+            self.grid_orig
+
+
+def grid_plan(model, mesh, method) -> dict:
+    """The launches one grid step plans on this rank: kernel 4 on each
+    non-empty column group the rank counts (the model-split, data-split
+    one everywhere; those whole over data on data rank 0, the
+    model-replicated ones on model rank 0), kernel 6 likewise for
+    Alt-WFAgg, kernel 7 on every non-empty group; the mean: none."""
+    from repro_torch.core import flatten as F
+    from repro_torch.train import trainer as tr
+
+    if method == "mean":
+        return {}
+    shards = tr.grid_shards(model, mesh)
+    live = [w > 0 for w in F.fsdp_widths(model)]
+    counted = sum(1 for c, n in zip(shards.counted, live) if c and n)
+    plan = {"robust_stats": counted, "weighted_agg": sum(live)}
+    if method == "alt_wfagg":
+        plan["pairwise_gram"] = counted
+    return plan
+
+
+class GridObserver(TPObserver):
+    """The grid trainer's ``observe`` hook on one rank: ``TPObserver``'s
+    phases, launches, peak memory and holds, on the rank's column block:
+    at every step the data-axis route of the reference backend (per leaf
+    plain statistics of the counted column groups, summed over the grid,
+    the reference's scoring and ``tensordot`` combine) on the same column
+    block and state, held to the step's route (masks bit-equal or near-ties
+    by ``NEAR_TIE``, weights within ``STACK_W_TOL``, the aggregate's blocks
+    within rtol ``STACK_RTOL`` / atol ``STACK_ATOL``); and at step 1 the
+    rank's candidate gradient against one process's (row k of
+    ``grads_m1``, cut to the rank's model block), the squared sums summed
+    over the model group."""
+
+    def __init__(self, torch, tc, agg_state, hold, clock, model, mesh, grads_m1=None):
+        super().__init__(torch, tc, agg_state, hold, clock, model, grads_m1)
+        self.mesh = mesh
+
+    def __call__(self, phase, **v):
+        if phase == "exchange":
+            self.torch.cuda.synchronize()
+            self.cur[phase] = 1e3 * (time.perf_counter() - self.t)
+            self.torch.cuda.synchronize()
+            self.t = time.perf_counter()
+            return
+        super().__call__(phase, **v)
+
+    def hold_grads(self, vecs) -> list:
+        import numpy as np
+
+        from repro_torch.core import flatten as F
+        from repro_torch.models import layers as L
+
+        torch = self.torch
+        model, mesh = self.model, self.mesh
+        axis = mesh.model_axis()
+        k = mesh.data_axis().rank
+        lay = model.fsdp
+        full = np.memmap(self.grads_m1, dtype=np.float32, mode="r")
+        K = mesh.data_axis().size
+        full = full.reshape(K, -1)[k]
+        sets = (F.split_groups(model) if axis is not None else [F.leaf_params(model)])
+        num = torch.zeros((), dtype=torch.float64, device="cuda")
+        den = torch.zeros((), dtype=torch.float64, device="cuda")
+        # the whole gradient's ravel order: each leaf's place in it
+        offs, off = {}, 0
+        for (path, ps), mdim in zip(F.leaf_params(model), F.split_dims(model)):
+            shape = ([len(ps)] if path[0] in F.STACKED else []) + list(lay.shapes[path])
+            if mdim is not None:
+                shape[mdim] *= axis.size
+            offs[path] = (off, shape, mdim)
+            off += math.prod(shape)
+        if off != full.shape[0]:
+            raise AssertionError(f"grid grads: {off} of {full.shape[0]} values")
+        for b, (vec, leaves) in enumerate(zip(vecs, sets)):
+            if b == 1 and axis.rank:
+                continue            # the replicated leaves count on model rank 0
+            at = 0
+            for path, ps in leaves:
+                o, shape, mdim = offs[path]
+                n = math.prod(shape)
+                want = torch.from_numpy(np.ascontiguousarray(full[o:o + n])).view(shape)
+                if mdim is not None:
+                    m = shape[mdim] // axis.size
+                    want = want.narrow(mdim, axis.rank * m, m)
+                want = want.to("cuda").reshape(-1)
+                got = vec[at:at + want.numel()]
+                at += want.numel()
+                num += ((got - want).double() ** 2).sum()
+                den += (want.double() ** 2).sum()
+                del want
+        tot = torch.stack([num, den]).float()
+        if axis is not None:
+            tot = L.all_reduce_model(tot, axis.group)
+        rms = float((tot[0] / tot[1]).sqrt())
+        if rms > GRID_GRAD_RMS:
+            raise AssertionError(f"grid step 1: candidate {k}'s gradient at relative rms "
+                                 f"{rms} of one process's (bound {GRID_GRAD_RMS})")
+        return [round(rms, 6)]
+
+    def route(self, cands, state):
+        import dataclasses
+
+        from repro_torch.distributed import robust_allreduce as ra
+        from repro_torch.train import trainer as tr
+
+        self.shards = tr.grid_shards(self.model, self.mesh)
+        self.cfg_ref = dataclasses.replace(self.tc.agg, backend="reference")
+        st = ra.TreeAggState(state.prev, *self.hist)
+        self.cands, self.state = cands, st
+        o, ns, info = ra.robust_allreduce_stacked(cands, self.cfg_ref, st,
+                                                  model_shards=self.shards)
+        self.hist = (ns.hist_s, ns.hist_b, ns.count, ns.t)
+        self.ref = (o, info["weights"], {k: info[k] for k in ("mask_d", "mask_c", "mask_t")})
+
+    def compare(self, grads, info):
+        from repro_torch.models import layers as L
+
+        torch = self.torch
+        o, w, masks = self.ref
+        flips = [(k, bit) for bit, name in enumerate(("mask_d", "mask_c", "mask_t"))
+                 for k in (masks[name] != info[name]).nonzero().flatten().tolist()]
+        label = f"grid {self.tc.agg.method} {self.tc.agg.backend} step {len(self.steps) + 1}"
+        keep = torch.ones(w.shape[0], dtype=torch.bool, device="cuda")
+        if flips:
+            rep = grid_margins(torch, self.cfg_ref, self.cands, self.state, flips, self.shards)
+            print(f"  {label}: decisions differ at (candidate, filter, margin) {rep}")
+            if not all(m is not None and m <= NEAR_TIE for _, _, m in rep):
+                raise AssertionError(f"{label}: decisions differ away from any edge")
+            self.near_ties.append((len(self.steps) + 1, rep))
+            keep[[k for k, _ in flips]] = False
+        torch.testing.assert_close(info["weights"][keep], w[keep], rtol=0, atol=STACK_W_TOL)
+        if not flips:
+            err = close_leafwise(torch, grads, o, STACK_RTOL, STACK_ATOL)
+            err = float(L.all_max_model(torch.tensor([err], device="cuda"),
+                                        self.shards.group)[0])
+            self.max_err = max(self.max_err, err)
+        self.ref = self.cands = self.state = None
+
+
+def grid_margins(torch, cfg, cands, state, flips, shards):
+    """``stacked_margins`` on the grid: the reference route's statistics of
+    the rank's counted column groups, summed over the grid (every rank
+    takes part)."""
+    from repro_torch.core import trust
+    from repro_torch.distributed import robust_allreduce as ra
+
+    leaves = ra._leaves(cands)
+    K = leaves[0].shape[0]
+    n = len(shards.counted)
+    groups = [[l for l, g in zip(leaves, shards.leaf_groups) if g == i] for i in range(n)]
+    prev = None
+    if state is not None:
+        pl = ra._leaves(state.prev)
+        prev = [[p for p, g in zip(pl, shards.leaf_groups) if g == i] for i in range(n)]
+    mine = [i for i in range(n) if shards.counted[i]]
+    st = ra.psum_stats(ra._partial_stats(
+        K, leaves[0].device, [groups[i] for i in mine],
+        None if prev is None else [prev[i] for i in mine], cfg), shards.group)
+    st = ra.RobustStats(*(None if v is None else v[0] for v in st))
+    wcfg = ra._effective_wfagg_config(cfg, K)
+    s = b = tb = None
+    if state is not None:
+        tb = trust.temporal_bands(state.hist_s, state.hist_b, state.count, state.t, wcfg)[None]
+        s = st.prev_dist2
+        b = 1.0 - st.prev_dot / torch.clamp(torch.sqrt(st.norm2 * st.prev_norm2), min=1e-24)
+    return margins_of(torch, wcfg, st.dist2, st.gram, st.dotmed, st.mednorm2, s, b, tb, flips)
+
+
+def grid_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
+    """The grid's serving part on one rank: the model as FSDP blocks of the
+    rank's model block (``init_params(mesh=)``), a prefill of K x 8192 (one
+    row a data rank; each layer's weights gathered over the data group just
+    before it; kernel 8 on the rank's H/M heads, one launch a layer), the
+    last ``PREFILL_TAIL`` positions' logits gathered and, on rank 0, held
+    to one process's (written by the parent) by the dense rule; decode at
+    batch K against 32,768 slots over ``GRID_DECODE`` teacher-forced
+    tokens (0 launches), the gathered logits held to one process's by the
+    dense rule.  Returns (launches, report)."""
+    from repro_torch.configs.shapes import DECODE_32K
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.train import serve as sv
+
+    rep = {}
+    K = mesh.shape["data"]
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+    torch.cuda.synchronize()
+    rep["init_s"] = round(time.perf_counter() - t0, 2)
+    rep["params_rank"] = sum(p.numel() for p in params.parameters())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (K, PREFILL_S), generator=g, device="cuda",
+                            dtype=torch.int32)
+    clock = GridClock(torch)
+    try:
+        prefill = sv.build_prefill(cfg, mesh=mesh, gather=False)
+        zero_counts()
+        clock.take()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        rep["prefill_collectives"] = clock.take()
+        rep["prefill_peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+        M_ = mesh.shape["model"]
+        if logits.shape != (1, PREFILL_S, cfg.vocab_size // M_):
+            raise AssertionError(f"grid prefill logits {tuple(logits.shape)}")
+        counts = read_counts()
+        tc = _module("flash_attention").launches_tc
+        want = only_counts(flash_attention=cfg.n_layers)
+        if counts != want or tc != cfg.n_layers:
+            raise AssertionError(f"grid prefill launches {counts} ({tc} tensor-core), "
+                                 f"expected {cfg.n_layers}, all tensor-core")
+        launches = dict(counts, **{"flash_attention[tensor_core]": tc})
+        rep["prefill_ms"] = round(ms, 2)
+        rep["prefill_tokens_per_s"] = round(K * PREFILL_S / ms * 1e3, 1)
+        tail = shd.gather_tensor(logits[:, -PREFILL_TAIL:].contiguous(),
+                                 ("data", None, "model"), mesh).float()
+        del logits
+        if rank == 0:
+            want_tail = torch.load(pathlib.Path(out_dir, "prefill_tail.pt")).to("cuda")
+            check_logits(torch, f"grid {K} x {M_} prefill vs one process, each prompt's "
+                         f"last {PREFILL_TAIL} positions", tail, want_tail)
+            del want_tail
+        del tail
+
+        cache = M.init_cache(cfg, K, DECODE_32K.seq_len, mesh=mesh)
+        rep["cache_rows"] = cache["layers"]["k"].shape[1]
+        rep["cache_heads"] = cache["layers"]["k"].shape[2]
+        seq = torch.randint(0, cfg.vocab_size, (K, GRID_DECODE), generator=g, device="cuda",
+                            dtype=torch.int32)
+        step = sv.build_decode_step(cfg, mesh=mesh)
+        zero_counts()
+        stepped = []
+        for i in range(GRID_DECODE):
+            if i == GRID_DECODE - GRID_DECODE_TIMED:
+                clock.take()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            lg, cache = step(params, cache, seq[:, i:i + 1])
+            stepped.append(lg)
+        torch.cuda.synchronize()
+        rep["decode_ms"] = round(1e3 * (time.perf_counter() - t) / GRID_DECODE_TIMED, 3)
+        rep["decode_collectives_per_step"] = {k_: round(v / GRID_DECODE_TIMED, 3)
+                                              for k_, v in clock.take().items()}
+        if read_counts() != only_counts():
+            raise AssertionError(f"grid decode launched {read_counts()}")
+        st = torch.cat(stepped, dim=1).float()
+        if not bool(torch.isfinite(st).all()):
+            raise AssertionError("grid: non-finite decode logits")
+        if rank == 0:
+            want_dec = torch.load(pathlib.Path(out_dir, "decode.pt")).to("cuda")
+            check_logits(torch, f"grid {K} x {M_} decode at batch {K}, 32,768 slots, vs one "
+                         f"process over the same {GRID_DECODE} tokens", st, want_dec)
+            del want_dec
+        rep["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+    finally:
+        clock.close()
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rep
+
+
+def grid_train(torch, cfg, mesh, rank, runs, grads_file=None, hold=True, arch_tc=False
+               ) -> tuple:
+    """The grid's training part on one rank: per (method, backend, steps) of
+    ``runs`` that many steps of ``build_train_step`` on the grid from seed
+    0, K candidates of one row each at S = ``TRAIN_SEQ``, IPM-100 on
+    ``GRID_MALICIOUS``, AdamW, ``fsdp_params`` on (``arch_tc``: the
+    configuration ``launch.specs.train_config`` picks for the model, its
+    backend the run's); the holds of ``GridObserver`` (the step-1 gradients
+    only with ``grads_file``, the route only with ``hold``).  Returns
+    (launches, report)."""
+    import dataclasses
+
+    from repro_torch.core import flatten as F
+    from repro_torch.core.wfagg import WFAggConfig
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch import specs
+    from repro_torch.train import trainer as tr
+
+    K = mesh.shape["data"]
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, K)
+    batches = [stream.batch(i, device="cuda") for i in range(max(r[2] for r in runs))]
+    launches = dict.fromkeys(KERNELS, 0)
+    report = {}
+    clock = GridClock(torch)
+    try:
+        for method, backend, steps in runs:
+            if arch_tc:
+                tc = specs.train_config(cfg, multi_pod=False)
+                tc = dataclasses.replace(tc, attack=TRAIN_ATTACK, n_malicious=GRID_MALICIOUS,
+                                         lr=TRAIN_LR, warmup=0)
+            else:
+                tc = train_config(method, attack=TRAIN_ATTACK, n_malicious=GRID_MALICIOUS,
+                                  wfagg=WFAggConfig(f=GRID_F, transient=3, window=3),
+                                  fsdp_params=True)
+            tc = dataclasses.replace(tc, agg=dataclasses.replace(tc.agg, method=method,
+                                                                 backend=backend))
+            state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0),
+                                        mesh)
+            obs = GridObserver(torch, tc, state.agg_state, hold and method != "mean", clock,
+                               state.params, mesh,
+                               grads_m1=grads_file if (method, backend) == runs[0][:2] else None)
+            step = tr.build_train_step(cfg, tc, mesh, observe=obs)
+            losses, weights = [], []
+            for b in batches[:steps]:
+                obs.start()
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+                weights.append([round(float(w), 4) for w in m["weights"]])
+            plan = grid_plan(state.params, mesh, method)
+            for i, got in enumerate(obs.launches):
+                if got != plan:
+                    raise AssertionError(f"grid {method} {backend} step {i + 1} on rank {rank}: "
+                                         f"launches {got}, planned {plan}")
+            for k, c in plan.items():
+                launches[k] += c * steps
+            report[f"{method} {backend}"] = dict(
+                fsdp=tc.fsdp_params, widths=F.fsdp_widths(state.params), losses=losses,
+                weights=weights, ms=[{k: round(v, 2) for k, v in s.items()} for s in obs.steps],
+                peak_gib=obs.peaks, launches_per_step=plan, near_ties=obs.near_ties,
+                max_out_err=obs.max_err, grad_rms_vs_one=obs.grad_rms,
+                tokens_per_s=[round(1e3 * batches[0]["tokens"].numel()
+                                    / sum(s[p] for p in ("grads", "exchange", "attack",
+                                                         "allreduce", "optimizer")), 1)
+                              for s in obs.steps])
+            del state, step, obs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        clock.close()
+    return launches, report
+
+
+def grid_child(rank, S, store_path, out_dir, backend) -> None:
+    """One rank of the grid part: joins the ``backend`` group of S ranks (on
+    card ``rank`` modulo the cards), builds the grid (``make_grid``); the
+    serving part, then the training part (``out_dir``/``grid_job.json``
+    names the model, K, M, the runs and the holds); writes its launches and
+    report as JSON."""
+    import os
+
+    job = json.loads(pathlib.Path(out_dir, "grid_job.json").read_text())
+    if job.get("expandable"):
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    res = {"rank": rank}
+    try:
+        from repro_torch.configs.registry import get_config
+        from repro_torch.launch.mesh import make_grid
+
+        dist.init_process_group(backend, store=dist.FileStore(store_path, S), rank=rank,
+                                 world_size=S)
+        try:
+            cfg = get_config(job["arch"])
+            mesh = make_grid(job["K"], job["M"])
+            launches = dict.fromkeys(KERNELS, 0)
+            res["report"] = {}
+            if job["serve"]:
+                la, res["report"]["serve"] = grid_serve(torch, cfg, mesh, out_dir, rank)
+                for k in KERNELS:
+                    launches[k] += la[k]
+                res["tc"] = la["flash_attention[tensor_core]"]
+            la, res["report"]["train"] = grid_train(
+                torch, cfg, mesh, rank, [tuple(r) for r in job["runs"]],
+                grads_file=job.get("grads"), hold=job["hold"], arch_tc=job.get("arch_tc", False))
+            for k in KERNELS:
+                launches[k] += la[k]
+            res["launches"] = {"grid": launches}
+        finally:
+            dist.destroy_process_group()
+    except Exception:   # noqa: BLE001 - the parent fails the run on it
+        import traceback
+        res["error"] = traceback.format_exc()
+    pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def grid_reference(torch, out_dir, arch, K, serve=True) -> None:
+    """What the grid's ranks are held to in one process, computed here
+    before they start and freed: the seed-0 model's prefill tail (K rows
+    of 8192, one at a time, the last ``PREFILL_TAIL`` positions, f32), the
+    decode logits of the same ``GRID_DECODE`` teacher-forced tokens at
+    batch K against 32,768 slots, and the K candidate gradients of the
+    first training batch (a (K, P) float32 file in ravel order)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import DECODE_32K
+    from repro_torch.core.flatten import layout_flat
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.train import serve as sv
+    from repro_torch.train import trainer as tr
+
+    cfg = get_config(arch)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    if serve:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab_size, (K, PREFILL_S), generator=g,
+                                device="cuda", dtype=torch.int32)
+        prefill = sv.build_prefill(cfg)
+        tails = [prefill(params, {"tokens": prompts[r:r + 1]})[:, -PREFILL_TAIL:].float().cpu()
+                 for r in range(K)]
+        torch.save(torch.cat(tails), pathlib.Path(out_dir, "prefill_tail.pt"))
+        seq = torch.randint(0, cfg.vocab_size, (K, GRID_DECODE), generator=g, device="cuda",
+                            dtype=torch.int32)
+        cache = M.init_cache(cfg, K, DECODE_32K.seq_len)
+        step = sv.build_decode_step(cfg)
+        out = []
+        for i in range(GRID_DECODE):
+            lg, cache = step(params, cache, seq[:, i:i + 1])
+            out.append(lg.float().cpu())
+        torch.save(torch.cat(out, dim=1), pathlib.Path(out_dir, "decode.pt"))
+        del cache
+    P = layout_flat(params).numel()
+    batch = TokenStream(cfg.vocab_size, TRAIN_SEQ, K).batch(0, device="cuda")
+    rows = batch["tokens"].shape[0] // K
+    with open(pathlib.Path(out_dir, "grads_one.f32"), "wb") as f:
+        G = torch.empty((P,), dtype=torch.float32, device="cuda")
+        for k in range(K):
+            tr.loss_and_grad(cfg, params, {"tokens": batch["tokens"][k * rows:(k + 1) * rows]},
+                             G)
+            f.write(G.cpu().numpy().tobytes())
+    del params, G
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_grid_kernels(torch, K, D, heads) -> tuple:
+    """Kernels 4, 6, 7 and 8 at a grid rank's launch shapes, each held
+    against its plain version and timed (the wrappers ``*_cuda``, median
+    CUDA-event ms) beside its bound and the PyTorch call: kernel 4 on the
+    (K, D) column block with ``prev`` (statistics within rtol
+    ``STAT_RTOL`` / atol ``STAT_ATOL`` of the column-chunked plain
+    version), kernel 6 (the Gram within rtol 1e-4 of ``u @ u.T``, exactly
+    symmetric; ``torch.mm``), kernel 7 with ``lcoef`` 0 (bit for bit;
+    ``addmv``), kernel 8 at a rank's prefill (one row, H/M heads: o within
+    one bf16 rounding; SDPA).  Returns (errors, times)."""
+    from repro_torch.kernels.pairwise_dist import kernel as pk
+    from repro_torch.kernels.pairwise_dist import ops as pops
+    from repro_torch.kernels.robust_stats import kernel as rk
+    from repro_torch.kernels.weighted_agg import kernel as wk
+    from repro_torch.kernels.weighted_agg import ops as wops
+
+    g = torch.Generator(device="cuda").manual_seed(71)
+    # gradient-like candidates: a shared direction plus each one's own part,
+    # prev the last step's (sums over D that do not cancel to nothing, as
+    # the column blocks' do not: check_stacked_kernels' pattern)
+    base = torch.randn((D,), generator=g, device="cuda")
+    u = base + 0.5 * torch.randn((K, D), generator=g, device="cuda")
+    prev = base + 0.5 * torch.randn((K, D), generator=g, device="cuda")
+    del base
+    errs, out = {}, {}
+    got = rk.robust_stats_cuda(u, prev, 0.1, False)
+    want = chunked_plain_stats(torch, u, prev)
+    err = 0.0
+    for f in ("dist2", "dotmed", "norm2", "mednorm2", "prev_dist2", "prev_dot", "prev_norm2"):
+        a, b = getattr(got, f).reshape(-1), getattr(want, f).reshape(-1)
+        torch.testing.assert_close(a, b, rtol=STAT_RTOL, atol=STAT_ATOL)
+        err = max(err, float((a - b).abs().max()))
+    errs["robust_stats"] = err
+    b4 = bound(4.0 * 2 * K * D, D * (2.0 * network_compare_exchanges(K) + 15.0 * K))
+    out["robust_stats"] = dict(
+        ms=time_cuda(torch, lambda: rk.robust_stats_cuda(u, prev, 0.1, False), 2, 10),
+        plain_ms=time_cuda(torch, lambda: chunked_plain_stats(torch, u, prev), 1, 3),
+        bound_ms=b4[0], bound_by=b4[1], library_ms=None, shape=f"K={K} D={D}, prev")
+    del prev, got, want
+    gram, norm2 = pk.pairwise_gram_cuda(u)
+    gp, _ = pops.pairwise_gram_plain(u)
+    if not torch.equal(gram, gram.T) or not torch.equal(torch.diagonal(gram), norm2):
+        raise AssertionError("pairwise_gram at the grid's shape: not exactly symmetric")
+    torch.testing.assert_close(gram, gp, rtol=1e-4, atol=1e-6 * D)
+    errs["pairwise_gram"] = float((gram - gp).abs().max())
+    b6 = bound(4.0 * K * D, float(K * (K + 1)) * D)
+    out["pairwise_gram"] = dict(
+        ms=time_cuda(torch, lambda: pk.pairwise_gram_cuda(u), 2, 10),
+        plain_ms=time_cuda(torch, lambda: pops.pairwise_gram_plain(u), 1, 3),
+        bound_ms=b6[0], bound_by=b6[1],
+        library_ms=time_cuda(torch, lambda: torch.mm(u, u.t()), 2, 10),
+        shape=f"K={K} D={D}")
+    del gram, gp
+    w = torch.ones((K,), device="cuda")
+    w[2] = 0.0
+    wvec = w / w.sum()
+    lcoef = torch.zeros((1,), device="cuda")
+    local = torch.zeros((D,), device="cuda")
+    a = wk.weighted_agg_cuda(wvec, lcoef, local, u)
+    b = wops.weighted_agg_plain(wvec, lcoef, local, u)
+    if not bit_equal(torch, a, b):
+        raise AssertionError("weighted_agg at the grid's shape: not bit-equal to its plain "
+                             "version")
+    errs["weighted_agg"] = 0.0
+    b7 = bound(4.0 * (K + 2) * D, 2.0 * K * D)
+    out["weighted_agg"] = dict(
+        ms=time_cuda(torch, lambda: wk.weighted_agg_cuda(wvec, lcoef, local, u), 2, 10),
+        plain_ms=time_cuda(torch, lambda: wops.weighted_agg_plain(wvec, lcoef, local, u),
+                           1, 3),
+        bound_ms=b7[0], bound_by=b7[1],
+        library_ms=time_cuda(torch, lambda: torch.addmv(local, u.t(), wvec, beta=0.0), 2, 10),
+        shape=f"K={K} D={D}, lcoef 0")
+    del u, local, a, b
+    torch.cuda.empty_cache()
+    for name, t in out.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        print(f"  {name} at a grid rank's shape {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"library {lib}; max |kernel - plain| {errs[name]:.3g}")
+    errs["flash_attention"] = compare_flash(torch, 1, heads, PREFILL_S, PREFILL_S, 64, True,
+                                            "bfloat16", 128, 72)
+    out["flash_attention"] = time_flash(torch, 1, heads, PREFILL_S, 64, seed=73)
+    return errs, out
+
+
+def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH) -> tuple:
+    """The data axis as processes on one card: K x M ``gloo`` ranks share
+    it (a ``FileStore``), a grid (``make_grid``) of ``arch`` uncut (seed 0)
+    whose ranks each hold their FSDP blocks: serving (``grid_serve``) and
+    training (``grid_train``: ``GRID_RUNS``, K = 4 candidates of one row at
+    S = 1025, IPM-100 on 1, AdamW lr 1e-3, ``fsdp_params``), held to one
+    process (``grid_reference``) and to the reference backend's route; then
+    kernels 4, 6, 7 and 8 at a rank's shapes (``check_grid_kernels``).
+    Returns (launches summed over the ranks, errors, report)."""
+    import tempfile
+
+    card = gpu_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_grid_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grid_reference(torch, tmp, arch, K)
+    ref_s = time.perf_counter() - t0
+    pathlib.Path(tmp, "grid_job.json").write_text(json.dumps(dict(
+        arch=arch, K=K, M=M_, serve=True, runs=GRID_RUNS, hold=True,
+        grads=str(pathlib.Path(tmp, "grads_one.f32")))))
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(torch, backend, K * M_, child=grid_child, tmp=tmp,
+                          timeout=GRID_TIMEOUT_S)
+    finally:
+        for name in ("grads_one.f32", "prefill_tail.pt", "decode.pt"):
+            pathlib.Path(tmp, name).unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
+    launches, rep = report_grid(ranks, card, ref_s, seconds, arch, K, M_,
+                                "gloo, one card" if backend == "gloo" else "nccl")
+    D = ranks[0]["report"]["train"]["wfagg fused"]["widths"][0]
+    errs, rep["kernels"] = check_grid_kernels(torch, K, D, 16 // M_)
+    return launches, errs, rep
+
+
+def run_grid_cards(torch) -> dict:
+    """``--only cards``' grid part on four cards (``nccl``, one rank a card):
+    ``CARDS_GRID_ARCH`` uncut at K = 4 x M = 1 with the configuration
+    ``launch.specs.train_config`` picks (stacked, WFAgg, ``fsdp_params``),
+    on the ``fused`` route, ``CARDS_GRID_STEPS`` steps under IPM-100 with
+    the route's hold (peak per card; no one-process gradient fits a card
+    beside its ranks), then Qwen1.5-0.5B at K = 2 x M = 2 served and
+    trained with the mean (at K = 2 both candidates sit at one distance
+    from their median: WFAgg needs K > 2)."""
+    import tempfile
+
+    out = {}
+    launches = dict.fromkeys(KERNELS, 0)
+    for arch, K, M_, runs, serve, arch_tc in (
+            (CARDS_GRID_ARCH, 4, 1, (("wfagg", "fused", CARDS_GRID_STEPS),), False, True),
+            (GRID_ARCH, 2, 2, (("mean", "fused", 2),), True, False)):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_grid_")
+        if serve:
+            grid_reference(torch, tmp, arch, K)
+        pathlib.Path(tmp, "grid_job.json").write_text(json.dumps(dict(
+            arch=arch, K=K, M=M_, serve=serve, runs=runs, hold=True, arch_tc=arch_tc,
+            expandable=not serve)))
+        t0 = time.perf_counter()
+        try:
+            ranks = run_ranks(torch, "nccl", K * M_, child=grid_child, tmp=tmp,
+                              timeout=GRID_TIMEOUT_S)
+        finally:
+            for name in ("grads_one.f32", "prefill_tail.pt", "decode.pt"):
+                pathlib.Path(tmp, name).unlink(missing_ok=True)
+        la, out[f"{arch} {K}x{M_}"] = report_grid(ranks, gpu_line(), 0.0,
+                                                  time.perf_counter() - t0, arch, K, M_,
+                                                  "nccl, one rank a card")
+        for k in KERNELS:
+            launches[k] += la[k]
+    out["launches"] = {k: c for k, c in launches.items() if c}
+    return out
+
+
+def report_grid(ranks, card, ref_s, seconds, arch, K, M_, where) -> tuple:
+    """Print the grid ranks' reports; the attacker at weight 0, WFAgg's loss
+    claim; returns (launches summed over the ranks, report)."""
+    import numpy as np
+
+    from repro_torch.core.topology import spaced_malicious
+
+    launches = dict.fromkeys(KERNELS, 0)
+    for r in ranks:
+        for k, c in r["launches"]["grid"].items():
+            launches[k] += c
+    rep = {"card": card, "ranks": len(ranks), "reference_s": round(ref_s, 1),
+           "ranks_s": round(seconds, 1), "per_rank": [r["report"] for r in ranks]}
+    r0 = ranks[0]["report"]
+    print(f"  {card}: {arch} on a grid of {K} x {M_} ranks ({where}); one-process reference "
+          f"{ref_s:.1f} s, the ranks {seconds:.1f} s")
+    if "serve" in r0:
+        for r in ranks:
+            s = r["report"]["serve"]
+            print(f"  rank {r['rank']} serve: {s['params_rank']} parameters (FSDP blocks); "
+                  f"prefill {K} x {PREFILL_S} (one row a data rank) {s['prefill_ms']} ms "
+                  f"({s['prefill_tokens_per_s']} tokens/s; collectives {s['prefill_collectives']}"
+                  f"), peak {s['prefill_peak_gib']} GiB; decode batch {K} at 32,768 slots "
+                  f"({s['cache_rows']} row(s), {s['cache_heads']} KV heads a rank) "
+                  f"{s['decode_ms']} ms a step (collectives a step "
+                  f"{s['decode_collectives_per_step']}), peak {s['peak_gib']} GiB")
+    for label in r0["train"]:
+        for r in ranks:
+            t = r["report"]["train"][label]
+            phases = [{p: s.get(p) for p in ("grads", "param_gather", "exchange", "attack",
+                                             "allreduce", "psum_stats", "optimizer",
+                                             "activations")} for s in t["ms"]]
+            print(f"  rank {r['rank']} train {label} (fsdp_params {t['fsdp']}, column groups "
+                  f"{t['widths']}): loss {[round(x, 4) for x in t['losses']]}, weights "
+                  f"{t['weights'][-1]}; launches a step {t['launches_per_step']}; ms per step "
+                  f"{phases}; tokens/s {t['tokens_per_s']}; peak GiB {t['peak_gib']}; held to "
+                  f"the reference route (max|diff| {t['max_out_err']:.3g}, near-ties "
+                  f"{t['near_ties'] or 'none'})"
+                  + (f"; step-1 candidate vs one process, relative rms {t['grad_rms_vs_one']}"
+                     if t["grad_rms_vs_one"] else ""))
+    tr0 = r0["train"]
+    bad = np.flatnonzero(spaced_malicious(K, GRID_MALICIOUS)).tolist()
+    for label, t in tr0.items():
+        if not all(map(math.isfinite, t["losses"])):
+            raise AssertionError(f"grid {label}: non-finite loss {t['losses']}")
+        if not label.startswith("mean") and any(w[k] != 0.0 for w in t["weights"] for k in bad):
+            raise AssertionError(f"grid {label}: an attacker got weight: {t['weights']}")
+    if "mean fused" in tr0 and "wfagg fused" in tr0:
+        w = tr0["wfagg fused"]["losses"]
+        mean = tr0["mean fused"]["losses"]
+        if not (w[-1] < w[0] and w[-1] < mean[-1]):
+            raise AssertionError(f"grid: WFAgg's last loss {w[-1]} is not below its first "
+                                 f"{w[0]} and the mean's {mean[-1]}")
+        print(f"  the claim on the grid: WFAgg's loss {w[0]:.4f} -> {w[-1]:.4f}, the mean's "
+              f"{mean[0]:.4f} -> {mean[-1]:.4f} under {TRAIN_ATTACK}")
+    return launches, rep
+
+
 def main(argv=()) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("distributed", "cards", "train", "moe", "ssm", "encdec", "tp"):
-        print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm|encdec|tp]",
+    if argv and only not in ("distributed", "cards", "train", "moe", "ssm", "encdec", "tp",
+                             "grid"):
+        print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm|encdec|tp|grid]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6850,6 +7598,13 @@ def main(argv=()) -> int:
         print(json.dumps({"tp": {"launches": {k: c for k, c in launches.items() if c},
                                  "report": report}}))
         return 0
+    if only == "grid":
+        print(f"[3] the grid alone (--only grid): {GRID_ARCH} on {GRID_K} x {GRID_M} gloo "
+              "ranks sharing the card; no kernels or ok line")
+        launches, errs, report = run_grid_path(torch)
+        print(json.dumps({"grid": {"launches": {k: c for k, c in launches.items() if c},
+                                   "max_abs_err": errs, "report": report}}))
+        return 0
     if only == "cards":
         print(f"[3] the distributed parts on one nccl rank per card (--only cards): "
               f"{torch.cuda.device_count()} cards; no kernels or ok line")
@@ -6858,6 +7613,10 @@ def main(argv=()) -> int:
               f"{torch.cuda.device_count()}" + (f", then {CARDS_TP_ARCH} uncut at M = 4"
                                                 if torch.cuda.device_count() == 4 else ""))
         cards["tp"] = run_tp_cards(torch)
+        if torch.cuda.device_count() == 4:
+            print(f"[3] the grid on one nccl rank per card: {CARDS_GRID_ARCH} uncut at K = 4 x "
+                  f"M = 1 (fsdp_params), then {GRID_ARCH} at K = 2 x M = 2")
+            cards["grid"] = run_grid_cards(torch)
         print(json.dumps({"cards": cards}))
         return 0
 
@@ -7115,7 +7874,7 @@ def main(argv=()) -> int:
     timed["flash_attention"]["moe_shapes"] = moe_flash
 
     print(f"{at()} the SSM and hybrid families: kernel 8 at Zamba2's prefill shape; "
-          "Falcon-Mamba-7B (16 of 64 layers) and Zamba2-1.2B (uncut) served; Zamba2 "
+          "Falcon-Mamba-7B (8 of 64 layers) and Zamba2-1.2B (20 of 38) served; Zamba2 "
           f"({SSM_TRAIN_LAYERS} layers) trained on the stacked robust-DP trainer, "
           f"K={SSM_TRAIN_K}")
     ssm_launches, ssm_err, ssm_flash, _ = run_ssm_path(torch)
@@ -7136,6 +7895,17 @@ def main(argv=()) -> int:
     for name, t in tp_report["kernels"].items():
         timed[name]["model_axis"] = t
 
+    print(f"{at()} the grid: {GRID_ARCH} uncut on {GRID_K} x {GRID_M} gloo ranks sharing the "
+          "card (the data axis as processes, FSDP blocks): served (prefill "
+          f"{GRID_K} x 8192, one row a data rank, kernel 8 on each rank's heads; decode) and "
+          f"trained (K={GRID_K}, one candidate a data rank, fsdp_params; WFAgg, Alt-WFAgg, the "
+          "mean; kernels 4, 6 and 7 on each rank's column block)")
+    grid_launches, grid_errs, grid_report = run_grid_path(torch)
+    for name, t in grid_report["kernels"].items():
+        timed[name]["grid"] = t
+    for name, e in grid_errs.items():
+        errs[name].append(e)
+
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
     # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
@@ -7152,19 +7922,23 @@ def main(argv=()) -> int:
     # and 6; the encoder-decoder and VLM part's kernel 8 (the Seamless and
     # LLaVA prefills, on the tensor-core kernel) and its training's kernels
     # 1, 4 and 6; the model axis's kernel 8 (each rank's prefills) and its
-    # training's kernels 4, 6 and 7, summed over the ranks
+    # training's kernels 4, 6 and 7, summed over the ranks; the grid's kernel
+    # 8 (each rank's prefill) and its training's kernels 4, 6 and 7, summed
+    # over the ranks
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
                 + adaptive_launches[name] + table_launches[name]
                 + gathered_launches[name] + serve_launches[name] + dist_launches[name]
                 + train_launches[name] + moe_launches[name] + ssm_launches[name]
-                + encdec_launches[name] + tp_launches[name] for name in KERNELS}
-    # the model axis's prefills run on the tensor-core kernel only (checked
-    # per rank), so its kernel-8 launches are all tensor-core launches
+                + encdec_launches[name] + tp_launches[name] + grid_launches[name]
+                for name in KERNELS}
+    # the model axis's and the grid's prefills run on the tensor-core kernel
+    # only (checked per rank), so their kernel-8 launches are all tensor-core
     timed["flash_attention"]["launches_tc"] = (serve_launches["flash_attention[tensor_core]"]
                                                + moe_launches["flash_attention"]
                                                + ssm_launches["flash_attention"]
                                                + encdec_launches["flash_attention"]
-                                               + tp_launches["flash_attention"])
+                                               + tp_launches["flash_attention"]
+                                               + grid_launches["flash_attention"])
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])

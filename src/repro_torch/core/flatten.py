@@ -25,11 +25,27 @@ replicated ones (P_r,): norm scales and biases, and the KV projections
 where M does not divide the KV heads.  ``module_tree`` then gives views
 of both, and ``unravel_rows_split`` lays (K, P_s) and (K, P_r) candidate
 matrices out as one candidate tree.
+
+On the data axis as processes (a grid of K x M ranks) a rank holds its
+FSDP blocks (``layout_fsdp``): each leaf split over the data axis at the
+dim ``FSDPLayout.dims`` names (``distributed.sharding.fsdp_dim``, the
+reference's ``param_specs(fsdp=True)`` rule) keeps its data rank's 1/K
+slice, the rest whole.  The leaves fall into column groups
+(``fsdp_groups``): per natural buffer (the one buffer at M = 1; the split
+and the replicated buffer on the model axis) the leaves split over data,
+then those whole over it, each in ravel order.  A group's block buffer
+holds, leaf after leaf, each leaf's layers' blocks in layer order, so a
+stacked leaf's block is a view (L, *block) of it.  ``pack_fsdp`` turns a
+whole model block's values (its natural buffers, e.g. a gradient) into
+each group's block order, a (K, D) matrix whose row j is data rank j's
+blocks (the ``all_to_all`` send buffer), and ``unpack_fsdp`` the gathered
+rows back; ``unravel_fsdp`` lays such matrices (or one rank's (D,) rows)
+out as a tree.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -93,7 +109,7 @@ Path = Tuple[object, ...]     # dict keys (str) and list indices (int)
 STACKED = ("layers", "enc_layers")
 
 
-def _groups(model: nn.Module) -> List[Tuple[Path, List[nn.Parameter]]]:
+def leaf_params(model: nn.Module) -> List[Tuple[Path, List[nn.Parameter]]]:
     """(reference path, the module's parameters of that leaf) in ravel
     order; a ``layers.<i>.<path>`` parameter joins leaf ``layers/<path>``
     at position i (``enc_layers`` likewise); a ``prefix_layers.<i>.<path>``
@@ -116,14 +132,15 @@ def _groups(model: nn.Module) -> List[Tuple[Path, List[nn.Parameter]]]:
     return out
 
 
-def _shape(path: Path, params: List[nn.Parameter]) -> Tuple[int, ...]:
+def leaf_shape(path: Path, params: List[nn.Parameter]) -> Tuple[int, ...]:
+    """The reference tree's shape of a leaf of the module's parameters."""
     shape = tuple(params[0].shape)
     return (len(params),) + shape if path[0] in STACKED else shape
 
 
 def module_params(model: nn.Module) -> List[nn.Parameter]:
     """The module's parameters in the ravel order of the reference's tree."""
-    return [p for _, ps in _groups(model) for p in ps]
+    return [p for _, ps in leaf_params(model) for p in ps]
 
 
 def _run(params: List[Tensor]) -> Optional[Tensor]:
@@ -176,7 +193,7 @@ def split_groups(model: nn.Module):
     leaf replicated on a whole model."""
     specs = getattr(model, "tp_specs", {})
     split = {id(p) for name, p in model.named_parameters() if "model" in specs.get(name, ())}
-    groups = _groups(model)
+    groups = leaf_params(model)
     return ([g for g in groups if id(g[1][0]) in split],
             [g for g in groups if id(g[1][0]) not in split])
 
@@ -200,10 +217,10 @@ def module_tree(model: nn.Module) -> dict:
     are consecutive views of one (``layout_flat``, ``layout_split``), a
     stacked copy otherwise."""
     tree: dict = {}
-    for path, ps in _groups(model):
+    for path, ps in leaf_params(model):
         run = _run(ps)
         if run is not None:
-            leaf = run.view(_shape(path, ps))
+            leaf = run.view(leaf_shape(path, ps))
         elif path[0] in STACKED:
             leaf = torch.stack([p.detach() for p in ps])
         else:
@@ -219,7 +236,7 @@ def split_dims(model: nn.Module) -> List[Optional[int]]:
     specs = getattr(model, "tp_specs", {})
     names = {id(p): name for name, p in model.named_parameters()}
     out = []
-    for path, ps in _groups(model):
+    for path, ps in leaf_params(model):
         spec = specs.get(names[id(ps[0])], ())
         dim = spec.index("model") if "model" in spec else None
         out.append(None if dim is None else dim + (1 if path[0] in STACKED else 0))
@@ -234,7 +251,7 @@ def unravel_rows_split(mats: Tuple[Tensor, Tensor], model: nn.Module) -> dict:
     for mat, groups in zip(mats, split_groups(model)):
         K, off = mat.shape[0], 0
         for path, ps in groups:
-            shape = _shape(path, ps)
+            shape = leaf_shape(path, ps)
             n = math.prod(shape)
             _put(tree, path, mat[:, off:off + n].view((K,) + shape))
             off += n
@@ -337,3 +354,246 @@ def unravel_rows(mat: Tensor, like) -> dict:
         _put(tree, path, mat[:, off:off + n].view((K,) + tuple(leaf.shape)))
         off += n
     return _listify(tree)
+
+
+# ---------------------------------------------------------------------------
+# FSDP blocks over the data axis
+# ---------------------------------------------------------------------------
+
+class FSDPLayout(NamedTuple):
+    """A model block's place on the data axis: K (``size``), this rank's
+    index (``rank``), per leaf path the dim of its stacked leaf split over
+    the data axis or None (``dims``), and each leaf's per-layer shape in the
+    whole model block (``shapes``)."""
+
+    size: int
+    rank: int
+    dims: Dict[Path, Optional[int]]
+    shapes: Dict[Path, Tuple[int, ...]]
+
+
+def _layer_dim(path: Path, dim: Optional[int]) -> Optional[int]:
+    """A stacked leaf's dim as its per-layer parameter's."""
+    if dim is None:
+        return None
+    return dim - 1 if path[0] in STACKED else dim
+
+
+def _natural_sets(model: nn.Module) -> List[List[Tuple[Path, List[nn.Parameter]]]]:
+    """The leaves of each natural buffer, in ravel order: one at M = 1; the
+    split and the replicated leaves on the model axis."""
+    if getattr(model, "tp", None) is None:
+        return [leaf_params(model)]
+    return list(split_groups(model))
+
+
+def fsdp_groups(model: nn.Module) -> List[List[Tuple[Path, List[nn.Parameter]]]]:
+    """The column groups (``model.fsdp``'s): per natural buffer its leaves
+    split over the data axis, then those whole over it, in ravel order."""
+    dims = model.fsdp.dims
+    out = []
+    for leaves in _natural_sets(model):
+        out.append([(p, ps) for p, ps in leaves if dims[p] is not None])
+        out.append([(p, ps) for p, ps in leaves if dims[p] is None])
+    return out
+
+
+def fsdp_split(model: nn.Module) -> List[bool]:
+    """Per column group, whether its leaves are split over the data axis."""
+    return [g % 2 == 0 for g in range(2 * len(_natural_sets(model)))]
+
+
+def _block_shape(lay: FSDPLayout, path: Path) -> Tuple[int, ...]:
+    shape = list(lay.shapes[path])
+    d = _layer_dim(path, lay.dims[path])
+    if d is not None:
+        shape[d] //= lay.size
+    return tuple(shape)
+
+
+def _point(model: nn.Module, bufs: Sequence[Tensor]) -> None:
+    """Every parameter a view of its column group's block buffer."""
+    lay = model.fsdp
+    for buf, group in zip(bufs, fsdp_groups(model)):
+        off = 0
+        for path, ps in group:
+            shape = _block_shape(lay, path)
+            n = math.prod(shape)
+            for p in ps:
+                p.data = buf[off:off + n].view(shape)
+                off += n
+        if off != buf.numel():
+            raise ValueError(f"a block buffer of {buf.numel()} values, its leaves {off}")
+    model.fsdp_blocks = True
+
+
+def layout_fsdp(model: nn.Module, layout: FSDPLayout) -> Tuple[Tensor, ...]:
+    """Keep, of a whole model block, the FSDP blocks of data rank
+    ``layout.rank``: each column group's blocks in one new buffer, every
+    parameter a view of it (``model.fsdp`` = ``layout``); returns the
+    buffers."""
+    model.fsdp = layout
+    first = module_params(model)[0]
+    bufs = []
+    for group in fsdp_groups(model):
+        parts = []
+        for path, ps in group:
+            d = _layer_dim(path, layout.dims[path])
+            for p in ps:
+                x = p.detach()
+                if d is not None:
+                    n = x.shape[d] // layout.size
+                    x = x.narrow(d, layout.rank * n, n)
+                parts.append(x.reshape(-1))
+        bufs.append(torch.cat(parts) if parts else
+                    torch.empty((0,), dtype=first.dtype, device=first.device))
+    _point(model, bufs)
+    return tuple(bufs)
+
+
+def fsdp_buffers(model: nn.Module) -> Tuple[Tensor, ...]:
+    """The column groups' block buffers whose views the parameters are
+    (``layout_fsdp``)."""
+    first = module_params(model)[0]
+    out = []
+    for group in fsdp_groups(model):
+        ps = [p for _, g in group for p in g]
+        run = _run(ps) if ps else torch.empty((0,), dtype=first.dtype, device=first.device)
+        if run is None:
+            raise ValueError("the parameters are not views of their FSDP block buffers")
+        out.append(run)
+    return tuple(out)
+
+
+def point_fsdp_(model: nn.Module, bufs: Sequence[Tensor]) -> None:
+    """Make the parameters views of the block buffers ``bufs`` again."""
+    _point(model, bufs)
+
+
+def _entries(model: nn.Module):
+    """Per natural buffer b: its leaves in ravel order as (path, params,
+    per-layer dim split over data or None, per-layer shape, column group)."""
+    lay = model.fsdp
+    for b, leaves in enumerate(_natural_sets(model)):
+        yield b, [(path, ps, _layer_dim(path, lay.dims[path]), lay.shapes[path],
+                   2 * b + (0 if lay.dims[path] is not None else 1)) for path, ps in leaves]
+
+
+def fsdp_widths(model: nn.Module) -> List[int]:
+    """Per column group, the values of a rank's blocks (D)."""
+    K = model.fsdp.size
+    split = fsdp_split(model)
+    widths = [0] * len(split)
+    for _, leaves in _entries(model):
+        for path, ps, d, shape, g in leaves:
+            widths[g] += math.prod(shape) * len(ps) // (K if split[g] else 1)
+    return widths
+
+
+def pack_fsdp(model: nn.Module, vecs: Sequence[Tensor]) -> List[Tensor]:
+    """A whole model block's values in its natural buffers ``vecs`` (one at
+    M = 1, split and replicated on the model axis, each in ravel order)
+    in block order: per column group a (K, D) matrix whose row j holds data
+    rank j's blocks (split groups), or the (D,) values (whole groups)."""
+    K = model.fsdp.size
+    split = fsdp_split(model)
+    widths = fsdp_widths(model)
+    v0 = vecs[0]
+    out = [torch.empty((K, w) if s else (w,), dtype=v0.dtype, device=v0.device)
+           for w, s in zip(widths, split)]
+    offs = [0] * len(split)
+    for b, leaves in _entries(model):
+        off = 0
+        for path, ps, d, shape, g in leaves:
+            n = math.prod(shape)
+            for _ in ps:
+                src = vecs[b][off:off + n].view(shape)
+                if d is None:
+                    out[g][offs[g]:offs[g] + n].copy_(src.reshape(-1))
+                    offs[g] += n
+                else:
+                    m = n // K
+                    blk = list(shape)
+                    blk[d] //= K
+                    out[g][:, offs[g]:offs[g] + m].view([K] + blk).copy_(
+                        src.unflatten(d, (K, shape[d] // K)).movedim(d, 0))
+                    offs[g] += m
+                off += n
+    return out
+
+
+def unpack_fsdp(model: nn.Module, mats: Sequence[Tensor]) -> List[Tensor]:
+    """The inverse of ``pack_fsdp``: the natural buffers of the whole model
+    block from every column group's gathered rows ((K, D), split groups) or
+    values ((D,), whole groups)."""
+    K = model.fsdp.size
+    m0 = mats[0]
+    out = []
+    for b, leaves in _entries(model):
+        total = sum(math.prod(shape) * len(ps) for _, ps, _, shape, _ in leaves)
+        vec = torch.empty((total,), dtype=m0.dtype, device=m0.device)
+        out.append(vec)
+    offs = [0] * len(mats)
+    for b, leaves in _entries(model):
+        off = 0
+        for path, ps, d, shape, g in leaves:
+            n = math.prod(shape)
+            for _ in ps:
+                dst = out[b][off:off + n].view(shape)
+                if d is None:
+                    dst.copy_(mats[g][offs[g]:offs[g] + n].view(shape))
+                    offs[g] += n
+                else:
+                    m = n // K
+                    blk = list(shape)
+                    blk[d] //= K
+                    dst.unflatten(d, (K, shape[d] // K)).movedim(d, 0).copy_(
+                        mats[g][:, offs[g]:offs[g] + m].view([K] + blk))
+                    offs[g] += m
+                off += n
+    return out
+
+
+def unpack_fsdp_(model: nn.Module, mats: Sequence[Tensor]) -> List[Tensor]:
+    """``unpack_fsdp``, and every parameter made a view of the natural
+    buffers it returns (the whole model block, in ravel order)."""
+    vecs = unpack_fsdp(model, mats)
+    for vec, leaves in zip(vecs, _natural_sets(model)):
+        off = 0
+        for path, ps in leaves:
+            shape = model.fsdp.shapes[path]
+            n = math.prod(shape)
+            for p in ps:
+                p.data = vec[off:off + n].view(shape)
+                off += n
+    model.fsdp_blocks = False
+    return vecs
+
+
+def unravel_fsdp(mats: Sequence[Tensor], model: nn.Module) -> dict:
+    """The tree of the column groups' matrices: (K', D) rows (a leading axis
+    of K' candidates) or (D,) values per group, each leaf a view (K', *leaf
+    block) or (*leaf block) in the group's block order."""
+    lay = model.fsdp
+    tree: dict = {}
+    for mat, group in zip(mats, fsdp_groups(model)):
+        lead = tuple(mat.shape[:-1])
+        off = 0
+        for path, ps in group:
+            blk = _block_shape(lay, path)
+            shape = (len(ps),) + blk if path[0] in STACKED else blk
+            n = math.prod(shape)
+            _put(tree, path, mat[..., off:off + n].view(lead + shape))
+            off += n
+        if off != mat.shape[-1]:
+            raise ValueError(f"the matrix has {mat.shape[-1]} columns, the leaves {off}")
+    return _listify(tree)
+
+
+def fsdp_leaf_groups(model: nn.Module) -> List[int]:
+    """Per leaf of ``unravel_fsdp``'s tree (ravel order), its column group."""
+    where = {}
+    for g, group in enumerate(fsdp_groups(model)):
+        for path, _ in group:
+            where[path] = g
+    return [where[path] for path, _ in leaf_params(model)]

@@ -77,6 +77,37 @@ in-kernel scoring needs whole-model sums, and kernel 2's thread-block
 cluster per node streams N = 1 through 8 SMs (ROADMAP queue 2, B).  Mean,
 median and trimmed mean are per coordinate and need no collective.
 
+**On the data axis as processes** (``model_shards=``, a ``GridShards``):
+each candidate lives on another rank of a K x M grid, one candidate's
+gradient per rank on its model block (``launch.mesh``).  The trainer's
+exchange (one ``all_to_all`` over the data group of the gradient in
+column-block order, ``core.flatten.pack_fsdp``; an all-gather of the
+leaves whole over data) gives each rank its column block of all K
+candidates: its FSDP block of every leaf split over data, and every leaf
+left whole over it (the reference's ``prune_spec``), as (K, D) matrices
+per column group (``core.flatten.unravel_fsdp``).  On them:
+
+  per block   the coordinate-wise attacks (IPM, ALIE, sign flip); noise
+              draws each leaf's normals as one process does and keeps the
+              rank's part (one leaf the transient); kernel 4 with
+              ``prev``'s column block and kernel 6 where a rule needs the
+              Gram, on the column groups this rank counts: a coordinate
+              more than one rank holds is counted by exactly one of them
+              (model-replicated leaves on model rank 0, leaves whole over
+              data on data rank 0);
+  psum        ``spmd.psum_stats`` over all K x M ranks in rank order;
+  scoring     the reference's, on every rank, on bit-identical statistics;
+  combine     kernel 7 (``lcoef`` 0, the uniform mean when every candidate
+              is rejected) on every column group: the aggregate's block,
+              which is the optimizer's FSDP block.
+
+WFAgg-T's ``prev`` is the column block of the K candidates (each rank
+holds 1/K of the (K, P) bytes, as the reference's candidate-sharded
+``prev``).  ``fused``, ``fused_two_launch`` and ``reference`` behave as on
+the model axis, and the model axis is the grid's route at K in one
+process (its two column groups, the replicated one counted on model rank
+0).
+
 ``state_from_jax`` turns the reference's state (as numpy arrays) into the
 port's.
 """
@@ -146,6 +177,35 @@ class ModelShards(NamedTuple):
 
     axis: Any
     split_dims: Tuple[Optional[int], ...]
+
+
+class GridShards(NamedTuple):
+    """A candidate tree's place on the grid (or the model axis): ``group``
+    the ranks whose partial statistics add up to the whole candidates'
+    (every rank of the grid); per leaf in tree order its column group
+    (``leaf_groups``) and per group whether this rank counts it
+    (``counted``); for the noise attack, per leaf the cuts of its whole
+    (K, ...) normals to this rank's part: ``cuts``, (dim of the unbatched
+    leaf, parts, this rank's part) in the order they apply."""
+
+    group: Any
+    leaf_groups: Tuple[int, ...]
+    counted: Tuple[bool, ...]
+    cuts: Tuple[Tuple[Tuple[int, int, int], ...], ...]
+
+
+def _as_grid(shards) -> GridShards:
+    """A ``ModelShards`` as the grid's description: the split leaves the
+    first column group, the replicated ones the second (model rank 0's)."""
+    if isinstance(shards, GridShards):
+        return shards
+    axis = shards.axis
+    return GridShards(
+        group=axis.group,
+        leaf_groups=tuple(0 if d is not None else 1 for d in shards.split_dims),
+        counted=(True, axis.rank == 0),
+        cuts=tuple(() if d is None else ((d, axis.size, axis.rank),)
+                   for d in shards.split_dims))
 
 
 class AggState(NamedTuple):
@@ -464,11 +524,12 @@ def apply_stacked_attack(
     the adaptive attacks see a prev-only ``DefenseView`` (band_rider then
     falls back to mimicry, as in the reference).
 
-    On the model axis (``model_shards``) the coordinate-wise attacks
-    (IPM, ALIE, sign flip) act on the rank's block alone; noise draws each
-    whole leaf's normals in leaf order, as at M = 1, and keeps the rank's
-    block (one leaf's transient), so its draws are M = 1's; the adaptive
-    attacks, which read whole-vector statistics, raise."""
+    On the model axis or the grid (``model_shards``) the coordinate-wise
+    attacks (IPM, ALIE, sign flip) act on the rank's block alone; noise
+    draws each whole leaf's normals in leaf order, as one process does,
+    and keeps the rank's block (one leaf's transient), so its draws are
+    one process's; the adaptive attacks, which read whole-vector
+    statistics, raise."""
     if attack in ("none", "label_flip"):
         return stacked
     acfg = atk.AttackConfig(name=attack, noise_mu=noise_mu, noise_sigma=noise_sigma,
@@ -480,8 +541,8 @@ def apply_stacked_attack(
                 f"the adaptive attack {attack!r} on the model axis reads whole-vector "
                 f"statistics across the model group ({TP_QUEUE})")
         if attack == "noise" and noise is None:
-            noise = _unflatten(stacked, [_noise_block(l, dim, model_shards.axis, generator)
-                                         for l, dim in zip(leaves, model_shards.split_dims)])
+            noise = _unflatten(stacked, [_noise_block(l, cuts, generator) for l, cuts in
+                                         zip(leaves, _as_grid(model_shards).cuts)])
     prev_leaves = _leaves(prev) if prev is not None else [None] * len(leaves)
     noise_leaves = _leaves(noise) if noise is not None else [None] * len(leaves)
     mal = malicious.to(torch.bool)
@@ -501,17 +562,18 @@ def apply_stacked_attack(
     return _unflatten(stacked, out)
 
 
-def _noise_block(leaf: Tensor, dim: Optional[int], axis, generator) -> Tensor:
-    """Standard normals of the whole (K, ...) leaf, drawn as at M = 1, cut to
-    the rank's block along ``dim`` (of the unbatched leaf)."""
-    if dim is None:
-        return torch.randn(leaf.shape, generator=generator, dtype=leaf.dtype,
-                           device=leaf.device)
+def _noise_block(leaf: Tensor, cuts, generator) -> Tensor:
+    """Standard normals of the whole (K, ...) leaf, drawn as one process
+    does, cut to the rank's block by each (dim of the unbatched leaf,
+    parts, part) of ``cuts``."""
     shape = list(leaf.shape)
-    n = shape[dim + 1]
-    shape[dim + 1] = n * axis.size
+    for dim, parts, _ in cuts:
+        shape[dim + 1] *= parts
     z = torch.randn(shape, generator=generator, dtype=leaf.dtype, device=leaf.device)
-    return z.narrow(dim + 1, axis.rank * n, n).contiguous()
+    for dim, parts, part in cuts:
+        n = z.shape[dim + 1] // parts
+        z = z.narrow(dim + 1, part * n, n)
+    return z.contiguous() if cuts else z
 
 
 def robust_allreduce_stacked(
@@ -529,7 +591,9 @@ def robust_allreduce_stacked(
     Returns ``(aggregate, new_state, info)`` with the weights (and for
     wfagg / alt_wfagg the masks and the decision ``record``) in ``info``.
     Runs on the candidates' device.  ``model_shards``: the candidates are
-    a model rank's blocks (the module docstring's model-axis route)."""
+    a model rank's blocks (a ``ModelShards``, the module docstring's
+    model-axis route) or a grid rank's column block (a ``GridShards``, the
+    data-axis route)."""
     leaves = _leaves(stacked)
     K = leaves[0].shape[0]
     dev = leaves[0].device
@@ -558,8 +622,9 @@ def robust_allreduce_stacked(
         raise ValueError(f"unknown backend {cfg.backend!r}")
     temporal = (cfg.method in ("wfagg", "alt_wfagg") and cfg.wfagg.use_temporal
                 and state is not None)
-    if model_shards is not None and model_shards.axis is not None:
-        return _stacked_model_axis(stacked, cfg, state, temporal, model_shards)
+    if isinstance(model_shards, GridShards) or (model_shards is not None
+                                                and model_shards.axis is not None):
+        return _stacked_sharded(stacked, cfg, state, temporal, _as_grid(model_shards))
     # Single-launch route: statistics, in-kernel weights and the combine in
     # one round-kernel launch.  gather_dtype forces the two-launch shape:
     # the temporal metrics must stay full precision while the D/C
@@ -693,44 +758,45 @@ def _partial_stats(K: int, dev, groups: List[List[Tensor]],
     return RobustStats(med=None, trim=None, **{f: v[None] for f, v in acc.items()})
 
 
-def _stacked_model_axis(
+def _stacked_sharded(
     stacked: Any,
     cfg: RobustAggConfig,
     state: Optional[TreeAggState],
     temporal: bool,
-    shards: ModelShards,
+    shards: GridShards,
 ) -> Tuple[Any, Optional[TreeAggState], Dict[str, Tensor]]:
-    """The robust all-reduce of a model rank's candidate blocks (the module
-    docstring's model-axis route)."""
+    """The robust all-reduce of a rank's candidate blocks: a model rank's
+    or a grid rank's column block (the module docstring's model-axis and
+    data-axis routes)."""
     if cfg.gather_dtype is not None:
-        raise NotImplementedError(f"gather_dtype on the model axis ({TP_QUEUE})")
-    axis = shards.axis
+        raise NotImplementedError(f"gather_dtype on the model axis or a grid ({TP_QUEUE})")
     leaves = _leaves(stacked)
     K = leaves[0].shape[0]
     dev = leaves[0].device
-    split = [d is not None for d in shards.split_dims]
-    groups = [[l for l, s_ in zip(leaves, split) if s_],
-              [l for l, s_ in zip(leaves, split) if not s_]]
+    n_groups = len(shards.counted)
+    groups = [[l for l, g in zip(leaves, shards.leaf_groups) if g == i]
+              for i in range(n_groups)]
     fused = cfg.backend != "reference"
 
     def matrix(g):
         return _concat_candidates(g) if g else torch.zeros((K, 0), device=dev)
 
     # the reference backend needs no (K, P) matrix: it reads the leaves
-    mats = [matrix(g) for g in groups] if fused else [None, None]
-    prev_groups, prevs = None, [None, None]
+    mats = [matrix(g) for g in groups] if fused else [None] * n_groups
+    prev_groups, prevs = None, [None] * n_groups
     if temporal:
         pl = _leaves(state.prev)
-        prev_groups = [[p for p, s_ in zip(pl, split) if s_],
-                       [p for p, s_ in zip(pl, split) if not s_]]
+        prev_groups = [[p for p, g in zip(pl, shards.leaf_groups) if g == i]
+                       for i in range(n_groups)]
         if fused:
             prevs = [matrix(g) for g in prev_groups]
-    # the replicated leaves count once: on model rank 0
-    mine = [0] if axis.rank else [0, 1]
+    # a coordinate several ranks hold counts once: on the rank that counts
+    # its group
+    mine = [i for i in range(n_groups) if shards.counted[i]]
     stats = psum_stats(_partial_stats(
         K, dev, [groups[i] for i in mine],
         None if prev_groups is None else [prev_groups[i] for i in mine], cfg,
-        [mats[i] for i in mine], [prevs[i] for i in mine]), axis.group)
+        [mats[i] for i in mine], [prevs[i] for i in mine]), shards.group)
     st = RobustStats(*(None if v is None else v[0] for v in stats))
     # _weights_from_stats reads only the Gram's diagonal (norm2) without it
     gram = st.gram if st.gram is not None else torch.diag(st.norm2)
@@ -760,9 +826,8 @@ def _stacked_model_axis(
     w_eff = torch.where(any_ok, weights, torch.ones_like(weights))
     outs = [weighted_agg(torch.zeros((m.shape[1],), dtype=torch.float32, device=dev), m,
                          w_eff, alpha=1.0) if m.shape[1] else m[0] for m in mats]
-    parts, offs = [], [0, 0]
-    for leaf, s_ in zip(leaves, split):
-        i = 0 if s_ else 1
+    parts, offs = [], [0] * n_groups
+    for leaf, i in zip(leaves, shards.leaf_groups):
         n = leaf[0].numel()
         parts.append(outs[i][offs[i]:offs[i] + n].view(leaf.shape[1:]).to(leaf.dtype))
         offs[i] += n

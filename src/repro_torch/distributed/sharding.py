@@ -19,8 +19,10 @@ of dicts and lists whose leaves have a ``shape`` (tensors, ``meta``
 tensors, ``data.specs.TensorSpec``) or are Python numbers.
 
 ``shard_tensor`` cuts a rank's block out of a whole tensor and
-``gather_tensor`` puts the blocks of the model axis back together (in rank
-order, over the model group).  The reference's ``shard_map_compat`` (a
+``gather_tensor`` puts the blocks back together (in rank order, over the
+data group, then over the model group); ``fsdp_dim`` names the dim of a
+leaf that the FSDP rule splits over the data axes (the grid's training
+and serving layout, ``core.flatten.layout_fsdp``).  The reference's ``shard_map_compat`` (a
 ``jax.shard_map`` shim across jax versions) has no counterpart: the port
 runs one process per shard and names its collectives itself.
 
@@ -298,19 +300,34 @@ def shard_tensor(full: torch.Tensor, spec: Spec, mesh,
 
 
 def gather_tensor(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """The whole tensor from every model rank's block (``local``, this
-    rank's), concatenated in rank order over ``mesh.model_group``; every
-    rank gets it.  Only the model axis gathers: a dim split over a data
-    axis raises (the data axis as processes is ROADMAP queue 1, item
-    12.2b)."""
+    """The whole tensor from every rank's block (``local``, this rank's):
+    each dim split over a data axis (``"data"``, ``("pod", "data")``)
+    concatenated in rank order over ``mesh.group`` (the data group), then
+    each dim split over ``model`` in rank order over ``mesh.model_group``;
+    every rank gets it.  A dim split over a data axis the mesh runs in one
+    process raises."""
     from repro_torch.distributed.spmd import all_gather_in_rank_order
-    from repro_torch.launch.mesh import MULTI_CARD
 
     out = local
-    for dim, ax in enumerate(spec):
-        if ax is None or _axis_size(mesh, ax) == 1:
-            continue
-        if ax != "model":
-            raise NotImplementedError(MULTI_CARD)
-        out = torch.cat(all_gather_in_rank_order(out, mesh.model_group), dim=dim)
+    for axes in ("data", "model"):
+        for dim, ax in enumerate(spec):
+            if ax is None or _axis_size(mesh, ax) == 1 or (ax == "model") != (axes == "model"):
+                continue
+            group = getattr(mesh, "model_group" if ax == "model" else "group", None)
+            if group is None:
+                raise ValueError(f"dim {dim} is split over {ax!r}, which the mesh runs in "
+                                 "one process")
+            out = torch.cat(all_gather_in_rank_order(out, group), dim=dim)
     return out
+
+
+def fsdp_dim(cfg: Optional[ArchConfig], name: str, shape: Tuple[int, ...],
+             data_axes: Tuple[str, ...], mesh) -> Optional[int]:
+    """The dim of a parameter leaf (``name``, its whole ``shape``, layers
+    stacked) that ``param_specs(fsdp=True)`` splits over the data axes, or
+    None where it leaves the leaf whole over them (no dim of at least
+    ``_FSDP_MIN_DIM`` free of ``model``, or one the data size does not
+    divide)."""
+    spec = leaf_spec(cfg, name, shape, fsdp=True, data_axes=data_axes, mesh=mesh)
+    dax = _data_axis(data_axes)
+    return spec.index(dax) if dax in spec else None

@@ -156,6 +156,38 @@ def all_gather_in_rank_order(x: Tensor, group: ProcessGroup) -> List[Tensor]:
     return [p.to(x.device) for p in parts]
 
 
+def all_gather_rows(x: Tensor, group: ProcessGroup) -> Tensor:
+    """Every rank's ``x`` stacked in rank order, (S, *x.shape), on ``x``'s
+    device, the output allocated once (``nccl``: one
+    ``all_gather_into_tensor``; ``gloo``: through host memory)."""
+    S = dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.empty((S,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    if dist.get_backend(group) == dist.Backend.GLOO:
+        parts = [torch.empty(x.shape, dtype=x.dtype) for _ in range(S)]
+        dist.all_gather(parts, x.cpu(), group=group)
+        for row, part in zip(out, parts):
+            row.copy_(part)
+        return out
+    dist.all_gather_into_tensor(out.view(-1), x.view(-1), group=group)
+    return out
+
+
+def all_to_all_rows(send: Tensor, group: ProcessGroup) -> Tensor:
+    """The rows exchange of a (S, n) matrix over the S ranks of ``group``:
+    row j of ``send`` goes to rank j, and row j of the result came from
+    rank j (one ``all_to_all_single``; ``gloo`` through host memory)."""
+    send = send.contiguous()
+    if dist.get_backend(group) == dist.Backend.GLOO:
+        host = send.cpu()
+        recv = torch.empty_like(host)
+        dist.all_to_all_single(recv, host, group=group)
+        return recv.to(send.device)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv
+
+
 def broadcast_from_rank0(x: Tensor, group: ProcessGroup) -> Tensor:
     """Rank 0's ``x`` on every rank (the other ranks pass a buffer of its
     shape and dtype), on ``x``'s device."""

@@ -21,10 +21,20 @@ cards:
         --candidates 8 --agg-backend fused
 
 (each rank takes the card ``LOCAL_RANK`` names and joins an ``nccl``
-group; on the CPU, ``gloo``).  Without such a group it raises.  Model rank
-0 prints and writes the checkpoints, gathered to the whole model's
-format.  ``--production-mesh`` needs 256 (512) ranks and is refused
-(ROADMAP queue 1, item 12.2b).  It runs on the card; ``main(argv,
+group; on the CPU, ``gloo``).  Without such a group it raises.  Under
+``torchrun`` with W ranks and ``--model-parallel M`` < W the data axis is
+W / M processes (the reference's ``make_test_mesh(data=n_dev // model,
+model=model)``): a grid of W / M candidates x M model shards
+(``launch.mesh.make_grid``), each rank computing one candidate's gradient;
+``--candidates`` (times 2 with ``--multi-pod``) must then equal W / M:
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --model-parallel 2 \
+        --candidates 4 --agg-backend fused
+
+(the flat layout at M = 1 runs over the W ranks as one data group).
+``--production-mesh`` builds the reference's 16 x 16 (2 x 16 x 16) grid
+from 256 (512) ranks.  Rank 0 prints and writes the checkpoints, gathered
+to the whole model's format.  It runs on the card; ``main(argv,
 device="cpu")`` runs it on the host.
 """
 from __future__ import annotations
@@ -42,7 +52,7 @@ from repro_torch.core.wfagg import WFAggConfig
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.distributed.robust_allreduce import RobustAggConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+from repro_torch.launch.mesh import make_grid, make_production_mesh, make_test_mesh
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import trainer as tr
 
@@ -60,19 +70,29 @@ def build_everything(args):
     if args.vocab:
         cfg = dataclasses.replace(cfg, vocab_size=args.vocab)
 
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    pods = 2 if args.multi_pod else 1
     if args.production_mesh:
         mesh = make_production_mesh(multi_pod=args.multi_pod)
+    elif world > args.model_parallel:
+        # the data axis as processes: W / M candidates, one rank each
+        if world % args.model_parallel or args.candidates * pods != world // args.model_parallel:
+            raise ValueError(
+                f"{world} ranks at --model-parallel {args.model_parallel} run "
+                f"{world / args.model_parallel:g} candidates, one a rank: --candidates "
+                f"{args.candidates}{' x 2 pods' if args.multi_pod else ''} does not match")
+        if args.layout == "flat" and args.model_parallel == 1 and args.mode == "robust_dp":
+            mesh = make_test_mesh(data=args.candidates, pod=2 if args.multi_pod else 0,
+                                  group=dist.group.WORLD)
+        else:
+            mesh = make_grid(args.candidates, args.model_parallel,
+                             pod=2 if args.multi_pod else 0)
     else:
-        group = model_group = None
-        if args.model_parallel > 1:
-            if dist.is_initialized():
-                model_group = dist.group.WORLD
-        elif (args.layout == "flat" and dist.is_initialized()
-                and dist.get_world_size() == args.candidates):
-            group = dist.group.WORLD
+        model_group = None
+        if args.model_parallel > 1 and dist.is_initialized():
+            model_group = dist.group.WORLD
         mesh = make_test_mesh(data=args.candidates, model=args.model_parallel,
-                              pod=2 if args.multi_pod else 0, group=group,
-                              model_group=model_group)
+                              pod=2 if args.multi_pod else 0, model_group=model_group)
 
     tc = tr.TrainConfig(
         mode=args.mode,
@@ -136,13 +156,13 @@ def main(argv=None, device=None) -> None:
     args = ap.parse_args(argv)
 
     dev = resolve_device(device)
-    if dev.type == "cuda" and args.model_parallel > 1 and "LOCAL_RANK" in os.environ:
+    if (dev.type == "cuda" and dist.is_initialized() and dist.get_world_size() > 1
+            and "LOCAL_RANK" in os.environ):
         dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(dev)
     cfg, mesh, tc = build_everything(args)
     K = tr._n_candidates(mesh, tc)
-    axis = mesh.model_axis()
-    main_rank = axis is None or axis.rank == 0
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
     say = print if main_rank else (lambda *a, **k: None)
     say(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
         f"device={dev} mesh={dict(mesh.shape)} "

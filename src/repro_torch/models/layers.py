@@ -105,20 +105,22 @@ def _dense_init_(p: torch.Tensor, generator: torch.Generator, scale=None) -> Non
 TP_FAMILIES = ("dense",)
 
 
-def check_family(cfg: ArchConfig, model_parallel: int = 1) -> None:
+def check_family(cfg: ArchConfig, model_parallel: int = 1, grid: bool = False) -> None:
     """Raise for what the reference's model cannot run: a family that is
     not a language model (the paper's CNN is ``models.lenet``), an SSM or
     hybrid config without a Mamba variant or, hybrid, whose layers do not
-    split into whole groups; and, at ``model_parallel`` > 1, every family
-    but the dense one (its MoE, MLA, Mamba, cross-attention and projector
-    layers have no TP form yet)."""
-    if model_parallel > 1 and (cfg.family not in TP_FAMILIES or cfg.use_mla
-                               or cfg.n_experts or cfg.is_encoder_decoder
-                               or cfg.modality == "vision" or cfg.pad_heads_to):
+    split into whole groups; and, at ``model_parallel`` > 1 or on a grid
+    (``grid``: the data axis as processes, FSDP blocks), every family but
+    the dense one (its MoE, MLA, Mamba, cross-attention and projector
+    layers have no TP or FSDP form yet)."""
+    if (model_parallel > 1 or grid) and (cfg.family not in TP_FAMILIES or cfg.use_mla
+                                         or cfg.n_experts or cfg.is_encoder_decoder
+                                         or cfg.modality == "vision" or cfg.pad_heads_to):
+        where = f"model = {model_parallel}" if model_parallel > 1 else "a grid"
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on model = {model_parallel}: the model axis runs the "
+            f"{cfg.name} ({cfg.family}) on {where}: the model axis and the grid run the "
             f"dense family only; the MoE, MLA, SSM, hybrid, encoder-decoder and VLM layers' "
-            f"TP forms are {TP_QUEUE}")
+            f"TP and FSDP forms are {TP_QUEUE}")
     if cfg.family in ("ssm", "hybrid"):
         if cfg.ssm_variant not in ("mamba1", "mamba2"):
             raise ValueError(f"{cfg.name}: the {cfg.family!r} family needs ssm_variant "

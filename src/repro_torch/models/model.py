@@ -42,9 +42,19 @@ tensor-parallel layers of ``models.layers``), the logits are its
 vocabulary block, and the cross-entropy meets across the model group
 (``_nll``: the max, the sum of exponentials and the target's logit from
 the rank that holds it), chunked or not as at M = 1.
+
+On a grid (``launch.mesh``: the data axis as processes) a dense model is
+also cut over ``data`` (``shard_data_``): each rank keeps the FSDP blocks
+of its model block (``core.flatten.layout_fsdp``, the reference's
+``param_specs(fsdp=True)``).  The forward gathers each layer's weights
+over the data group just before that layer and frees them after it (the
+reference's "weights all-gather per layer"): the embedding, each block,
+the final norm, the unembedding, one at a time (``_gathered``).  The
+trainer gathers the whole model block once per step (``whole_block``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -54,6 +64,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import flatten as FL
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch.mesh import ModelAxis, model_size
 from repro_torch.models import layers as L
@@ -184,6 +195,13 @@ class DecoderLM(nn.Module):
         # the model axis: set by ``cut_model_``
         self.tp = None
         self.tp_specs: Dict[str, tuple] = {}
+        # the data axis: set by ``shard_data_`` (``fsdp_blocks``: the
+        # parameters are their FSDP blocks, not the whole model block;
+        # ``fsdp_dims``: id of each parameter split over data -> its dim)
+        self.dp = None
+        self.fsdp = None
+        self.fsdp_blocks = False
+        self.fsdp_dims: Dict[int, int] = {}
         self.embedding = L.Embedding(cfg, generator, device)
         self.final_norm = L.Norm(cfg, cfg.d_model, device)
         if cfg.family in ("ssm", "hybrid"):
@@ -244,19 +262,123 @@ def cut_model_(cfg: ArchConfig, model: DecoderLM, mesh, rank: Optional[int] = No
     return model
 
 
+def fsdp_layout(cfg: ArchConfig, model: DecoderLM, mesh) -> FL.FSDPLayout:
+    """The FSDP layout of a model block (whole, or cut over ``model``) on
+    the grid's data axis: per leaf the dim ``sharding.fsdp_dim`` splits
+    over the data axes (``("pod", "data")`` across pods), judged on the
+    whole leaf's shape, and the block's per-layer shapes."""
+    from repro_torch.distributed import sharding as shd
+
+    dax = mesh.data_axis()
+    data_axes = ("pod", "data") if mesh.shape.get("pod") else ("data",)
+    M = model_size(mesh)
+    dims, shapes = {}, {}
+    for (path, ps), mdim in zip(FL.leaf_params(model), FL.split_dims(model)):
+        shape = list(FL.leaf_shape(path, ps))
+        if mdim is not None:
+            shape[mdim] *= M
+        name = [k for k in path if isinstance(k, str)][-1]
+        dims[path] = shd.fsdp_dim(cfg, name, tuple(shape), data_axes, mesh)
+        shapes[path] = tuple(ps[0].shape)
+    return FL.FSDPLayout(dax.size, dax.rank, dims, shapes)
+
+
+def shard_data_(cfg: ArchConfig, model: DecoderLM, mesh,
+                blocks: Optional[bool] = True) -> DecoderLM:
+    """On a grid, keep in place the FSDP blocks of the model block that this
+    rank's data index holds (``core.flatten.layout_fsdp``; ``blocks=False``:
+    the layout only, the parameters stay the whole model block; None: the
+    model as it is, e.g. for the flat layout over the data group).  A mesh
+    whose data axis runs in one process leaves the model as it is."""
+    dax = None if mesh is None else mesh.data_axis()
+    if dax is None or blocks is None:
+        return model
+    L.check_family(cfg, model_size(mesh), grid=True)
+    model.dp = dax
+    layout = fsdp_layout(cfg, model, mesh)
+    if blocks:
+        FL.layout_fsdp(model, layout)
+        model.fsdp_dims = {id(p): d - 1 if path[0] in FL.STACKED else d
+                           for path, ps in FL.leaf_params(model)
+                           if (d := layout.dims[path]) is not None for p in ps}
+    else:
+        model.fsdp = layout
+    return model
+
+
+@contextlib.contextmanager
+def whole_block(model: DecoderLM):
+    """The whole model block for a step: every column group's blocks
+    gathered over the data group in rank order (one all-gather a group) and
+    the parameters made views of the model block's natural buffers
+    (``core.flatten.unpack_fsdp_``); after it the blocks again, the
+    gathered block freed.  A model that holds its whole block: as it is."""
+    if not model.fsdp_blocks:
+        yield
+        return
+    from repro_torch.distributed.spmd import all_gather_rows
+
+    bufs = FL.fsdp_buffers(model)
+    K = model.dp.size
+    mats = [(all_gather_rows(b, model.dp.group) if b.numel() else b.view(K, 0)) if split
+            else b for b, split in zip(bufs, FL.fsdp_split(model))]
+    FL.unpack_fsdp_(model, mats)
+    del mats
+    try:
+        yield
+    finally:
+        FL.point_fsdp_(model, bufs)
+
+
+@contextlib.contextmanager
+def _gathered(model: DecoderLM, *mods: nn.Module):
+    """The modules' parameters whole for the enclosed use: their FSDP
+    blocks gathered over the data group in rank order (one all-gather) and
+    freed after it.  A model that holds its whole block: as it is."""
+    if not model.fsdp_blocks:
+        yield
+        return
+    from repro_torch.distributed.spmd import all_gather_rows
+
+    dims = model.fsdp_dims
+    ps = [p for m in mods for p in m.parameters() if id(p) in dims]
+    blocks = [p.data for p in ps]
+    if ps:
+        K = model.dp.size
+        rows = all_gather_rows(torch.cat([b.reshape(-1) for b in blocks]), model.dp.group)
+        off = 0
+        for p, b in zip(ps, blocks):
+            n, d = b.numel(), dims[id(p)]
+            shape = list(b.shape)
+            shape[d] *= K
+            p.data = rows[:, off:off + n].view((K,) + tuple(b.shape)).movedim(0, d) \
+                .reshape(shape)
+            off += n
+        del rows
+    try:
+        yield
+    finally:
+        for p, b in zip(ps, blocks):
+            p.data = b
+
+
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
-                device=None, mesh=None, rank: Optional[int] = None) -> DecoderLM:
+                device=None, mesh=None, rank: Optional[int] = None,
+                fsdp: Optional[bool] = True) -> DecoderLM:
     """A randomly initialised model on ``device`` (None: the card; "meta":
     shapes only), its values drawn from ``generator`` (default: seed 0 on
     that device).  On a mesh with ``model`` = M > 1 the whole model is
     drawn as at M = 1 and model rank ``rank`` keeps its blocks
-    (``cut_model_``): the M ranks' model is the one-card model, cut."""
+    (``cut_model_``): the M ranks' model is the one-card model, cut.  On a
+    grid (the data axis as processes) each rank then keeps its FSDP blocks
+    (``shard_data_``; ``fsdp=False``: the whole model block)."""
     dev = resolve_device(device)
     L.check_family(cfg, model_size(mesh))
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
-        return cut_model_(cfg, DecoderLM(cfg, generator, dev), mesh, rank)
+        model = cut_model_(cfg, DecoderLM(cfg, generator, dev), mesh, rank)
+        return shard_data_(cfg, model, mesh, blocks=fsdp)
 
 
 def _remat(cfg: ArchConfig, fn, *args):
@@ -342,8 +464,9 @@ def _trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, positions: torch
     auxs = []
     for i, lp in enumerate(params.layers):
         cache = None if caches is None else {n: t[i] for n, t in caches["layers"].items()}
-        h, _, a = block_fwd(cfg, lp, h, positions, cache=cache, cache_index=cache_index,
-                            enc_out=enc_out, flash=flash)
+        with _gathered(params, lp):
+            h, _, a = block_fwd(cfg, lp, h, positions, cache=cache, cache_index=cache_index,
+                                enc_out=enc_out, flash=flash)
         auxs.append(a)
     return h, (aux + torch.stack(auxs).sum()) if auxs else aux
 
@@ -382,13 +505,15 @@ def _hidden(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
     encoded ``frames``; otherwise the projected ``patch_embeds``, if given,
     before the token embeddings, the positions over the whole sequence."""
     enc_out = _encode(cfg, params, batch["frames"]) if cfg.is_encoder_decoder else None
-    h = L.embed_fwd(params.embedding, batch["tokens"], _dtype(cfg))
+    with _gathered(params, params.embedding):
+        h = L.embed_fwd(params.embedding, batch["tokens"], _dtype(cfg))
     if enc_out is None and "patch_embeds" in batch:
         h = torch.cat([_project(cfg, params, batch["patch_embeds"]), h], dim=1)
     B, S = h.shape[:2]
     pos = torch.arange(S, device=h.device).expand(B, S)
     h, aux = _trunk(cfg, params, h, pos, flash=flash, enc_out=enc_out)
-    return L.norm_fwd(params.final_norm, h), aux
+    with _gathered(params, params.final_norm):
+        return L.norm_fwd(params.final_norm, h), aux
 
 
 def forward(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
@@ -402,7 +527,8 @@ def forward(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
     the model axis the logits are the rank's vocabulary block
     (``layers.vocab_range``; ``train.serve.build_prefill`` gathers them)."""
     h, aux = _hidden(cfg, params, batch, flash)
-    return L.unembed_fwd(params.embedding, h), aux
+    with _gathered(params, params.embedding):
+        return L.unembed_fwd(params.embedding, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -440,11 +566,12 @@ def _chunked_ce(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, labels: tor
     nC = h.shape[1] // C
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c in range(nC):
-        sl = slice(c * C, (c + 1) * C)
-        logits = L.unembed_fwd(params.embedding, h[:, sl]).to(torch.float32)
-        total = total + (_nll(params.embedding, logits, labels[:, sl]) * mask[:, sl]).sum()
-        count = count + mask[:, sl].sum()
+    with _gathered(params, params.embedding):
+        for c in range(nC):
+            sl = slice(c * C, (c + 1) * C)
+            logits = L.unembed_fwd(params.embedding, h[:, sl]).to(torch.float32)
+            total = total + (_nll(params.embedding, logits, labels[:, sl]) * mask[:, sl]).sum()
+            count = count + mask[:, sl].sum()
     return total / torch.clamp(count, min=1.0)
 
 
@@ -488,6 +615,18 @@ def loss_fn(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
 # decode
 # ---------------------------------------------------------------------------
 
+def local_rows(batch: int, mesh) -> Tuple[int, int]:
+    """(first row, rows) of a global batch that this rank serves: on a grid
+    its data rank's B/K rows (``sharding.batch_specs`` / ``cache_specs``),
+    every row where K does not divide B (the spec pruned), as without a
+    grid."""
+    dax = None if mesh is None else mesh.data_axis()
+    if dax is None or batch % dax.size:
+        return 0, batch
+    n = batch // dax.size
+    return dax.rank * n, n
+
+
 def _cache_capacity(cfg: ArchConfig, total_len: int) -> int:
     if cfg.sliding_window:
         return min(cfg.sliding_window, total_len)
@@ -508,9 +647,11 @@ def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
     fill with ``_encode``'s output, and the decoder layers' ``k``/``v``.
     On a mesh with ``model`` = M > 1 the KV heads are a model rank's, as
     ``distributed.sharding.cache_specs`` places them: Hkv/M, or all of
-    them when M does not divide Hkv."""
+    them when M does not divide Hkv; on a grid ``batch`` is the global
+    batch and the cache holds this rank's rows of it (``local_rows``)."""
     M = model_size(mesh)
-    L.check_family(cfg, M)
+    L.check_family(cfg, M, grid=mesh is not None and mesh.data_axis() is not None)
+    batch = local_rows(batch, mesh)[1]
     dev = resolve_device(device)
     dt = dtype or _dtype(cfg)
     cap = _cache_capacity(cfg, total_len)
@@ -552,11 +693,14 @@ def decode_step(cfg: ArchConfig, params: DecoderLM, cache: Params, tokens: torch
     idx = int(cache["idx"])
     B = tokens.shape[0]
     pos = torch.full((B, 1), idx, dtype=torch.int64, device=tokens.device)
-    h = L.embed_fwd(params.embedding, tokens, dt)
+    with _gathered(params, params.embedding):
+        h = L.embed_fwd(params.embedding, tokens, dt)
     enc_out = cache["enc_out"].to(dt) if cfg.is_encoder_decoder else None
     h, _ = _trunk(cfg, params, h, pos, caches=cache, cache_index=idx, enc_out=enc_out)
-    h = L.norm_fwd(params.final_norm, h)
-    logits = L.unembed_fwd(params.embedding, h)
+    with _gathered(params, params.final_norm):
+        h = L.norm_fwd(params.final_norm, h)
+    with _gathered(params, params.embedding):
+        logits = L.unembed_fwd(params.embedding, h)
     return logits, dict(cache, idx=idx + 1)
 
 
@@ -585,7 +729,7 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def params_from_jax(tree: Params, cfg: ArchConfig, device=None, mesh=None,
-                    rank: Optional[int] = None) -> DecoderLM:
+                    rank: Optional[int] = None, fsdp: Optional[bool] = True) -> DecoderLM:
     """The reference's ``init_params`` pytree (numpy leaves, the scanned
     layers stacked on a leading axis, an MoE model's ``prefix_layers`` a
     list) as a ``DecoderLM`` on ``device`` (None: the card): each stacked
@@ -596,7 +740,8 @@ def params_from_jax(tree: Params, cfg: ArchConfig, device=None, mesh=None,
     stacked over all ``n_layers``: group g is layers g * every ..).  Every leaf
     keeps its type (bf16 stays bf16), and every leaf of either side must
     find its counterpart.  On a mesh with ``model`` > 1 model rank ``rank``
-    keeps its blocks (``cut_model_``)."""
+    keeps its blocks (``cut_model_``), and on a grid its data rank its FSDP
+    blocks (``shard_data_``, as ``init_params``)."""
     dev = resolve_device(device)
     L.check_family(cfg, model_size(mesh))
     stacks = {"layers": cfg.n_layers - _n_prefix(cfg)}
@@ -616,4 +761,5 @@ def params_from_jax(tree: Params, cfg: ArchConfig, device=None, mesh=None,
         if k in want and v.dtype.name != str(want[k].dtype).removeprefix("torch."):
             raise ValueError(f"{k}: a {v.dtype.name} leaf for a {want[k].dtype} parameter")
     model.load_state_dict({k: _tensor(v) for k, v in state.items()}, strict=True)
-    return cut_model_(cfg, model.to(dev), mesh, rank)
+    with torch.no_grad():
+        return shard_data_(cfg, cut_model_(cfg, model.to(dev), mesh, rank), mesh, blocks=fsdp)

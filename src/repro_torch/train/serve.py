@@ -14,11 +14,15 @@ On a mesh with ``model`` = M > 1 (a dense model cut by
 ``models.model.init_params(..., mesh=)``, a cache from
 ``models.model.init_cache(..., mesh=)``) every model rank runs the step on its H/M
 heads (the prefill at S >= 8192 reaches kernel 8 on them) and ff/M
-columns, and the logits come back gathered over the model group (or the
-rank's vocabulary block: ``build_prefill(gather=False)``).  ``ServeConfig``,
-``serve_rules`` and ``serve_shardings`` are the reference's; the specs'
-FSDP part over ``data`` (serving a model across the data axis's
-processes) is ROADMAP queue 1, item 12.2b.
+columns.  On a grid (the data axis as processes) the batch rows split
+over ``data`` as well: each data rank runs its B/K rows of the global
+batch every rank passes (``models.model.local_rows``; the cache holds
+them), its model the FSDP blocks of ``serve_shardings``'s parameter specs,
+each layer's weights gathered over the data group just before the layer
+(``models.model._gathered``).  The logits come back gathered over the
+data group, then the model group (or the rank's block of rows and
+vocabulary: ``gather=False``).  ``ServeConfig``, ``serve_rules`` and
+``serve_shardings`` are the reference's.
 """
 from __future__ import annotations
 
@@ -54,8 +58,8 @@ def serve_shardings(cfg: ArchConfig, sc: ServeConfig, mesh, params_shape: Any,
                     cache_shape: Any):
     """The reference's (parameter specs, cache specs): parameters FSDP + TP
     (``param_specs(fsdp=True)``), the cache batch over the data axes and
-    heads over ``model``; plain tuples.  The port serves the TP part
-    (``models.model.cut_model_``, ``init_cache(mesh=)``)."""
+    heads over ``model``; plain tuples.  The port serves both on a grid
+    (``models.model.init_params(..., mesh=)``, ``init_cache(mesh=)``)."""
     data_axes = sc.data_axes()
     return (shd.param_specs(cfg, params_shape, fsdp=True, data_axes=data_axes, mesh=mesh),
             shd.cache_specs(cfg, cache_shape, data_axes=data_axes, mesh=mesh))
@@ -69,11 +73,21 @@ def _sharded(cfg: ArchConfig, sc: Optional[ServeConfig], mesh):
     return lambda: use_sharding(mesh, rules, shd.model_dims(cfg))
 
 
-def _gathered(logits: torch.Tensor, mesh) -> torch.Tensor:
-    """The logits over the whole vocabulary (a model rank's block gathered)."""
-    if model_size(mesh) == 1:
+def _rows(batch: Dict[str, torch.Tensor], mesh, dev) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every entry of a global batch, on ``dev``."""
+    a, n = M.local_rows(next(iter(batch.values())).shape[0], mesh)
+    return {k: v[a:a + n].to(dev) for k, v in batch.items()}
+
+
+def _gathered(logits: torch.Tensor, mesh, batch: int) -> torch.Tensor:
+    """The logits of the whole batch over the whole vocabulary: the data
+    ranks' rows, then the model ranks' vocabulary blocks, gathered."""
+    rows = M.local_rows(batch, mesh)[1] != batch
+    spec = (("pod", "data") if mesh.shape.get("pod") else "data") if rows else None, None, \
+        "model" if model_size(mesh) > 1 else None
+    if spec == (None, None, None):
         return logits
-    return shd.gather_tensor(logits, (None, None, "model"), mesh)
+    return shd.gather_tensor(logits, spec, mesh)
 
 
 def cache_shapes(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
@@ -137,9 +151,11 @@ def build_decode_step(cfg: ArchConfig, device=None, *, sc: Optional[ServeConfig]
         if isinstance(tokens, dict):
             tokens = tokens["tokens"]
         _on(dev, params)
+        B = tokens.shape[0]
         with ctx():
-            logits, cache = M.decode_step(cfg, params, cache, tokens.to(dev))
-        return _gathered(logits, mesh), cache
+            logits, cache = M.decode_step(cfg, params, cache,
+                                          _rows({"tokens": tokens}, mesh, dev)["tokens"])
+        return (logits if mesh is None else _gathered(logits, mesh, B)), cache
 
     return fn
 
@@ -159,9 +175,9 @@ def build_prefill(cfg: ArchConfig, device=None, flash: bool = True, *,
     @torch.inference_mode()
     def fn(params, batch):
         _on(dev, params)
+        B = next(iter(batch.values())).shape[0]
         with ctx():
-            logits, _ = M.forward(cfg, params, {k: v.to(dev) for k, v in batch.items()},
-                                  flash=flash)
-        return _gathered(logits, mesh) if gather else logits
+            logits, _ = M.forward(cfg, params, _rows(batch, mesh, dev), flash=flash)
+        return _gathered(logits, mesh, B) if gather and mesh is not None else logits
 
     return fn

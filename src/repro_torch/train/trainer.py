@@ -44,10 +44,33 @@ matrices; the stacked all-reduce's model-axis route (kernels 4, 6 and 7,
 the statistics summed over the model group) keeps every gradient leaf in
 its TP split through aggregation, as the reference's does ("no unsharded
 gradient ever exists"), and the optimizer steps each rank's blocks.
-``multi_pod`` runs pod x data candidates.  ``fsdp_params``, the flat
-layout at M > 1 and the data axis as processes are ROADMAP queue 1, item
-12.2b.  ``state_shardings`` / ``batch_shardings`` give the reference's
-specs (plain tuples, ``distributed.sharding``).
+``multi_pod`` runs pod x data candidates.
+
+**The grid.**  On a mesh whose data axis is processes (``launch.mesh``:
+K x M ranks, the stacked layout or gspmd) every rank computes ONE
+candidate's gradient, its data index's rows (``label_flip`` when that
+candidate is malicious), on its model block.  With ``fsdp_params`` (and
+always under gspmd, as the reference's specs say) the rank holds the FSDP
+blocks of its model block and of the optimizer state
+(``models.model.shard_data_``): the step gathers the whole model block
+once, before the gradient (``models.model.whole_block``; the reference's
+"one param all-gather per step at the grad shard_map boundary"), and
+frees it after.  The gradient goes out in column-block order
+(``core.flatten.pack_fsdp``) through one ``all_to_all`` over the data
+group (an all-gather for the leaves whole over data); the stacked
+all-reduce's data-axis route aggregates the rank's column block of the K
+candidates (``distributed.robust_allreduce``); the aggregate's block is
+the optimizer's block, so AdamW steps the blocks with no gradient
+all-gather.  Without ``fsdp_params`` the rank holds the whole model block
+and the optimizer state, and one all-gather over the data group gives the
+whole aggregate.  The loss is the rank-order mean of the K candidates'
+losses, ``grad_norm`` the aggregate's squares summed once per coordinate
+over the grid.  gspmd on the grid is the mean of the exchanged column
+block (the mean gradient, each data rank on its rows).  WFAgg-T's
+``prev`` is the column block.  The flat layout at M > 1 on a grid is
+ROADMAP queue 1, item 12.2c; Adafactor and the adaptive attacks stay
+refused there (item 12.8).  ``state_shardings`` / ``batch_shardings`` give
+the reference's specs (plain tuples, ``distributed.sharding``).
 """
 from __future__ import annotations
 
@@ -58,6 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import flatten as F
 from repro_torch.core.flatten import (
     layout_flat, layout_split, module_params, module_tree, split_dims, split_groups,
     tree_leaves, tree_map, tree_unflatten, unravel_like, unravel_rows, unravel_rows_split,
@@ -68,7 +92,8 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.logical import use_sharding
 from repro_torch.distributed.robust_allreduce import RobustAggConfig, TreeAggState
 from repro_torch.kernels.common import resolve_device
-from repro_torch.launch.mesh import MULTI_CARD, TP_QUEUE, Mesh, model_size
+from repro_torch.distributed.spmd import all_gather_rows, all_to_all_rows
+from repro_torch.launch.mesh import MULTI_CARD, TP_QUEUE, Mesh, data_axis, model_size
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
@@ -120,23 +145,38 @@ def _n_candidates(mesh: Optional[Mesh], tc: TrainConfig) -> int:
     return int(n)
 
 
+def _on_grid(mesh: Optional[Mesh], tc: TrainConfig) -> bool:
+    """The step runs the grid: the data axis as processes, the stacked
+    layout or gspmd (the flat layout runs over the data group at M = 1)."""
+    return (data_axis(mesh) is not None
+            and (tc.mode == "gspmd" or tc.agg.layout == "stacked"))
+
+
+def _fsdp_state(tc: TrainConfig) -> bool:
+    """Whether a grid holds FSDP blocks of the train state: under gspmd, or
+    with ``fsdp_params`` on the stacked layout (the reference's specs)."""
+    return tc.mode == "gspmd" or (tc.fsdp_params and tc.agg.layout == "stacked")
+
+
 def _check(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh) -> None:
     if tc.mode not in ("robust_dp", "gspmd"):
         raise ValueError(f"unknown mode {tc.mode!r}")
     if tc.mode == "gspmd" and tc.agg.method != "mean":
         raise ValueError("gspmd mode supports mean aggregation only")
-    if tc.fsdp_params:
-        raise NotImplementedError(MULTI_CARD)
     if tc.multi_pod and "pod" not in mesh.shape:
         raise ValueError("multi_pod needs a mesh with a pod axis")
     size = model_size(mesh)
-    if size > 1:
-        L.check_family(cfg, size)
-        if tc.mode == "robust_dp" and tc.agg.layout != "stacked":
+    grid = _on_grid(mesh, tc)
+    if grid and mesh.shape.get("pod") and not tc.multi_pod:
+        raise ValueError("a grid with a pod axis runs pod x data candidates: multi_pod")
+    if size > 1 or grid:
+        L.check_family(cfg, size, grid=grid)
+        if tc.mode == "robust_dp" and tc.agg.layout != "stacked" and size > 1:
             raise NotImplementedError(f"the flat layout on model = {size}: {MULTI_CARD}")
         if cfg.optimizer == "adafactor":
+            where = f"model = {size}" if size > 1 else "a grid"
             raise NotImplementedError(
-                f"adafactor on model = {size}: its leaf-wide statistics would span one "
+                f"adafactor on {where}: its leaf-wide statistics would span one "
                 f"block ({TP_QUEUE})")
 
 
@@ -146,6 +186,13 @@ def _layout(model, mesh: Optional[Mesh]):
     if model_size(mesh) == 1:
         return (layout_flat(model),)
     return layout_split(model)
+
+
+def _column_block(model, K: int, dev) -> dict:
+    """A grid rank's zero column block of K candidates, as a tree: per
+    column group a (K, D) float32 matrix (``core.flatten.unravel_fsdp``)."""
+    return F.unravel_fsdp([torch.zeros((K, w), dtype=torch.float32, device=dev)
+                           for w in F.fsdp_widths(model)], model)
 
 
 def _candidate_rows(model, mesh: Optional[Mesh], K: int, dev) -> Tuple[Any, tuple]:
@@ -173,14 +220,20 @@ def init_train_state(cfg: ArchConfig, tc: TrainConfig,
     dev = torch.device("meta") if abstract else resolve_device(device)
     if mesh is not None:
         _check(cfg, tc, mesh)
-    model = M.init_params(cfg, generator, dev, mesh=mesh)
-    _layout(model, mesh)
+    grid = _on_grid(mesh, tc)
+    model = M.init_params(cfg, generator, dev, mesh=mesh,
+                          fsdp=_fsdp_state(tc) if grid else None)
+    if not model.fsdp_blocks:
+        _layout(model, mesh)
     tree = module_tree(model)
     K = _n_candidates(mesh, tc)
     agg_state = None
     if (tc.mode == "robust_dp" and tc.agg.method in ("wfagg", "alt_wfagg")
             and tc.agg.wfagg.use_temporal):
-        if tc.agg.layout == "stacked":
+        if grid:
+            agg_state = ra.init_tree_agg_state(tc.agg, K, tree)._replace(
+                prev=_column_block(model, K, dev))
+        elif tc.agg.layout == "stacked":
             agg_state = ra.init_tree_agg_state(tc.agg, K, tree)._replace(
                 prev=_candidate_rows(model, mesh, K, dev)[0])
         else:
@@ -226,37 +279,51 @@ def batch_shardings(tc: TrainConfig, mesh: Mesh, batch_shape: Any) -> Any:
     return shd.batch_specs(batch_shape, data_axes=tc.candidate_axes(), mesh=mesh)
 
 
+def _data_dims(model) -> List[Optional[int]]:
+    """Per leaf (ravel order) the dim its FSDP block splits over the data
+    axis, None for a leaf whole over it (or a model without blocks)."""
+    if not model.fsdp_blocks:
+        return [None] * len(split_dims(model))
+    return [model.fsdp.dims[path] for path, _ in F.leaf_params(model)]
+
+
 def full_params(model, mesh: Optional[Mesh]) -> dict:
-    """The whole model's reference tree (``module_tree``) from a model
-    rank's blocks, gathered over the model group in rank order (every rank
-    takes part and gets it); the model's own tree at M = 1.  A checkpoint
-    of it has today's format, whatever M saved it."""
+    """The whole model's reference tree (``module_tree``) from a rank's
+    blocks, gathered in rank order over the data group (FSDP blocks), then
+    over the model group (every rank takes part and gets it); the model's
+    own tree at M = 1 without blocks.  A checkpoint of it has today's
+    format, whatever grid saved it."""
     tree = module_tree(model)
-    if model_size(mesh) == 1:
+    if model_size(mesh) == 1 and not model.fsdp_blocks:
         return tree
-    leaves = tree_leaves(tree)
+    dax = ("pod", "data") if mesh.shape.get("pod") else "data"
     out = []
-    for leaf, dim in zip(leaves, split_dims(model)):
-        if dim is None:
-            out.append(leaf)
-            continue
-        spec = tuple("model" if i == dim else None for i in range(leaf.ndim))
-        out.append(shd.gather_tensor(leaf, spec, mesh))
+    for leaf, mdim, ddim in zip(tree_leaves(tree), split_dims(model), _data_dims(model)):
+        spec = tuple("model" if i == mdim else dax if i == ddim else None
+                     for i in range(leaf.ndim))
+        out.append(shd.gather_tensor(leaf, spec, mesh) if mdim is not None or
+                   ddim is not None else leaf)
     return tree_unflatten(tree, out)
 
 
 def load_params_(model, tree: dict, mesh: Optional[Mesh]) -> None:
     """Copy a whole model's reference tree (e.g. a restored checkpoint) into
-    the model's parameters in place, each model rank its blocks."""
+    the model's parameters in place, each rank its blocks (over the model
+    axis, then its FSDP blocks over the data axis)."""
     axis = None if model_size(mesh) == 1 else mesh.model_axis()
-    _layout(model, mesh)
+    if not model.fsdp_blocks:
+        _layout(model, mesh)
+    lay = model.fsdp
     with torch.no_grad():
-        for dst, src, dim in zip(tree_leaves(module_tree(model)), tree_leaves(tree),
-                                 split_dims(model)):
+        for dst, src, dim, ddim in zip(tree_leaves(module_tree(model)), tree_leaves(tree),
+                                       split_dims(model), _data_dims(model)):
             src = torch.as_tensor(src)
             if dim is not None:
-                n = dst.shape[dim]
+                n = src.shape[dim] // axis.size
                 src = src.narrow(dim, axis.rank * n, n)
+            if ddim is not None:
+                n = src.shape[ddim] // lay.size
+                src = src.narrow(ddim, lay.rank * n, n)
             dst.copy_(src)
 
 
@@ -270,49 +337,69 @@ def _to_torch(tree, dev):
     return torch.as_tensor(arr.copy(), device=dev if arr.dtype.kind == "f" else "cpu")
 
 
-def _cut(tree, params: dict, model, rank: int, lead: int = 0):
+def _cut(tree, params: dict, model, lead: int = 0, data: Optional[List] = None):
     """Every subtree of ``tree`` laid out as the parameter tree ``params``
-    cut to model rank ``rank``'s blocks (``lead`` leading axes before the
-    parameter's own), the rest as it is."""
+    cut to this rank's blocks (``lead`` leading axes before the parameter's
+    own): its model rank's, then, per leaf, its data rank's block along
+    ``data``'s dim (None: whole); the rest as it is."""
     if isinstance(tree, dict) and isinstance(params, dict) and set(tree) == set(params):
-        dims = iter(split_dims(model))
         leaves = []
-        for leaf in tree_leaves(tree):
-            d = next(dims)
+        ddims = data or [None] * len(split_dims(model))
+        for leaf, d, dd in zip(tree_leaves(tree), split_dims(model), ddims):
             if d is not None:
                 n = leaf.shape[lead + d] // model.tp.size
-                leaf = leaf.narrow(lead + d, rank * n, n).contiguous()
-            leaves.append(leaf)
+                leaf = leaf.narrow(lead + d, model.tp.rank * n, n)
+            if dd is not None:
+                n = leaf.shape[lead + dd] // model.fsdp.size
+                leaf = leaf.narrow(lead + dd, model.fsdp.rank * n, n)
+            leaves.append(leaf.contiguous())
         return tree_unflatten(tree, leaves)
     if isinstance(tree, dict):
-        return {k: _cut(v, params, model, rank, lead) for k, v in tree.items()}
+        return {k: _cut(v, params, model, lead, data) for k, v in tree.items()}
     return tree
 
 
-def state_from_jax(state, cfg: ArchConfig, device=None, mesh: Optional[Mesh] = None
-                   ) -> TrainState:
+def state_from_jax(state, cfg: ArchConfig, device=None, mesh: Optional[Mesh] = None,
+                   tc: Optional[TrainConfig] = None) -> TrainState:
     """The reference's ``TrainState`` (its leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, state)``) as the port's, on ``device``:
     params through ``params_from_jax``, the optimizer state leaf for leaf,
     the all-reduce's state (a stacked ``prev`` laid out as one (K, P)
     matrix) and the step.  On a mesh with ``model`` > 1 each piece is
-    this model rank's blocks, laid out as ``init_train_state``'s."""
+    this model rank's blocks, laid out as ``init_train_state``'s; on a grid
+    the parameters and the optimizer state are also cut to the rank's FSDP
+    blocks when ``tc`` holds them so (``fsdp_params``, gspmd), and ``prev``
+    to the rank's column block."""
+    tc = tc or TrainConfig()
     _check_params(cfg)
     dev = resolve_device(device)
-    model = M.params_from_jax(state.params, cfg, dev, mesh=mesh)
-    _layout(model, mesh)
+    model = M.params_from_jax(state.params, cfg, dev, mesh=mesh,
+                              fsdp=_fsdp_state(tc) if _on_grid(mesh, tc) else None)
+    if not model.fsdp_blocks:
+        _layout(model, mesh)
     opt = _to_torch(state.opt_state, dev)
     agg = state.agg_state
     if agg is not None:
         agg = ra.state_from_jax(agg, device=dev)
     tp = model.tp
-    if tp is not None:
+    if model.fsdp is not None:
         params = module_tree(model)
-        opt = _cut(opt, params, model, tp.rank)
+        opt = _cut(opt, params, model, data=_data_dims(model))
+        if isinstance(agg, TreeAggState):
+            K = tree_leaves(agg.prev)[0].shape[0]
+            prev = _column_block(model, K, dev)
+            dims = [model.fsdp.dims[path] for path, _ in F.leaf_params(model)]
+            for dst, src in zip(tree_leaves(prev), tree_leaves(
+                    _cut(agg.prev, params, model, lead=1, data=dims))):
+                dst.copy_(src)
+            agg = agg._replace(prev=prev)
+    elif tp is not None:
+        params = module_tree(model)
+        opt = _cut(opt, params, model)
         if isinstance(agg, TreeAggState):
             prev, _ = _candidate_rows(model, mesh, tree_leaves(agg.prev)[0].shape[0], dev)
             for dst, src in zip(tree_leaves(prev), tree_leaves(_cut(agg.prev, params, model,
-                                                                    tp.rank, lead=1))):
+                                                                    lead=1))):
                 dst.copy_(src)
             agg = agg._replace(prev=prev)
     elif isinstance(agg, TreeAggState):
@@ -409,7 +496,10 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
     ``agg_state`` going in), "allreduce" (``grads``, ``agg_state``,
     ``info``) and "optimizer" (``params``); the caller may time the phases
     or check them there (the gspmd step has "grads" and "optimizer"
-    only)."""
+    only).  On a grid the phases are "grads" (``candidates``, the rank's
+    gradient in its natural buffers, ``losses``), "exchange"
+    (``candidates``, the column block's tree), "attack", "allreduce" and
+    "optimizer", for gspmd too."""
     _check_params(cfg)
     _check(cfg, tc, mesh)
     opt = make_optimizer(cfg.optimizer)
@@ -523,7 +613,76 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
         grads = tree_map(lambda l: l[0], unravel_rows_split(tuple(v[None] for v in g), model))
         return finish(state, grads, None, {}, loss, grad_norm(grads, model))
 
-    step = gspmd_step if tc.mode == "gspmd" else \
+    def grid_step(state: TrainState, batch):
+        model, tokens = state.params, batch["tokens"]
+        dev = tokens.device
+        dax = mesh.data_axis()
+        with M.whole_block(model):
+            bufs = _layout(model, mesh)
+            G = tuple(torch.empty((b.numel(),), dtype=torch.float32, device=dev)
+                      for b in bufs)
+            del bufs
+            loss = _worker_grad(cfg, model, rows_of(batch, dax.rank), tc.microbatches,
+                                G[0] if tp is None else G)
+        # the gathered model block is freed: the gradient alone goes out
+        see("grads", candidates=G, losses=loss[None])
+        send = F.pack_fsdp(model, G)
+        del G
+        cols = [(all_to_all_rows(m, dax.group) if split else all_gather_rows(m, dax.group))
+                if m.numel() else m.new_zeros((K, 0))
+                for m, split in zip(send, F.fsdp_split(model))]
+        del send
+        cand = F.unravel_fsdp(cols, model)
+        del cols
+        see("exchange", candidates=cand)
+        shards = grid_shards(model, mesh)
+        if attacking:
+            ra.apply_stacked_attack(cand, torch.as_tensor(mal_np, device=dev), tc.attack,
+                                    attack_generator(state.step, dev), in_place=True,
+                                    model_shards=shards)
+        see("attack", candidates=cand, agg_state=state.agg_state)
+        agg_cfg = RobustAggConfig(method="mean") if tc.mode == "gspmd" else tc.agg
+        grads, new_agg, info = ra.robust_allreduce_stacked(cand, agg_cfg, state.agg_state,
+                                                           model_shards=shards)
+        del cand
+        see("allreduce", grads=grads, agg_state=new_agg, info=info)
+        gn = grid_norm(grads, shards)
+        if not model.fsdp_blocks:
+            grads = whole_aggregate(grads, model)
+        if tc.mode == "gspmd":
+            new_agg, info = None, {}
+        return finish(state, grads, new_agg, info, ra.pmean(loss, dax.group), gn)
+
+    def grid_norm(grads, shards) -> Tensor:
+        """The aggregate's norm from the rank's blocks: each coordinate's
+        square counted by the one rank that counts its column group, summed
+        over the grid in rank order."""
+        part = torch.zeros((), dtype=torch.float32, device=tree_leaves(grads)[0].device)
+        for g, i in zip(tree_leaves(grads), shards.leaf_groups):
+            if shards.counted[i]:
+                part = part + (g.to(torch.float32) ** 2).sum()
+        return torch.sqrt(L.all_reduce_model(part.reshape(1), shards.group)[0])
+
+    def whole_aggregate(grads, model) -> Any:
+        """The whole model block's aggregate from every data rank's blocks
+        (one all-gather a column group), as the model's natural tree."""
+        leaves = tree_leaves(grads)
+        where = F.fsdp_leaf_groups(model)
+        split = F.fsdp_split(model)
+        mats = []
+        for i, s_ in enumerate(split):
+            mine = [l.reshape(-1) for l, g in zip(leaves, where) if g == i]
+            vec = torch.cat(mine) if mine else leaves[0].new_zeros((0,))
+            mats.append((all_gather_rows(vec, mesh.group) if vec.numel() else
+                         vec.new_zeros((K, 0))) if s_ else vec)
+        vecs = F.unpack_fsdp(model, mats)
+        if tp is None:
+            return unravel_like(vecs[0], module_tree(model))
+        return tree_map(lambda l: l[0], unravel_rows_split(tuple(v[None] for v in vecs),
+                                                            model))
+
+    grid = _on_grid(mesh, tc)
+    step = grid_step if grid else gspmd_step if tc.mode == "gspmd" else \
         stacked_step if tc.agg.layout == "stacked" else flat_step
     dims = shd.model_dims(cfg)
 
@@ -532,3 +691,27 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
             return step(state, batch)
 
     return step if tp is None else sharded
+
+
+def grid_shards(model, mesh: Mesh) -> ra.GridShards:
+    """A grid rank's column block's place (``robust_allreduce.GridShards``):
+    its column groups (``core.flatten.fsdp_groups``), those it counts (the
+    model-replicated ones on model rank 0, those whole over data on data
+    rank 0), and each leaf's cuts over the model and the data axis."""
+    dax = mesh.data_axis()
+    maxis = mesh.model_axis()
+    mrank = 0 if maxis is None else maxis.rank
+    n = len(F.fsdp_split(model))
+    counted = tuple((g % 2 == 0 or dax.rank == 0) and (g // 2 == 0 or mrank == 0)
+                    for g in range(n))
+    cuts = []
+    for (path, _), mdim in zip(F.leaf_params(model), split_dims(model)):
+        c = []
+        if mdim is not None:
+            c.append((mdim, maxis.size, maxis.rank))
+        ddim = model.fsdp.dims[path]
+        if ddim is not None:
+            c.append((ddim, dax.size, dax.rank))
+        cuts.append(tuple(c))
+    return ra.GridShards(group=mesh.grid_group(), leaf_groups=tuple(F.fsdp_leaf_groups(model)),
+                         counted=counted, cuts=tuple(cuts))

@@ -340,8 +340,198 @@ def task_tp(rank, S, cfg, params, tokens, parts, cands=None, methods=(), wcfg=No
     return out
 
 
+def _grid_column_block(model, tree, K):
+    """A grid rank's column block of the whole numpy candidate ``tree``
+    (leaves (K, ...)): each leaf cut to the rank's model block, then its
+    FSDP block, laid out on the column groups' (K, D) matrices."""
+    from repro_torch.core import flatten as F
+    from repro_torch.train import trainer as tr
+
+    cand = tr._column_block(model, K, "cpu")
+    dims = [model.fsdp.dims[path] for path, _ in F.leaf_params(model)]
+    cut = tr._cut({"c": _as_tensors(tree)}, {"c": F.module_tree(model)}, model, lead=1,
+                  data=dims)["c"]
+    for dst, src in zip(F.tree_leaves(cand), F.tree_leaves(cut)):
+        dst.copy_(src)
+    return cand
+
+
+def _as_tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _as_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_tensors(v) for v in tree]
+    return torch.as_tensor(np.array(tree))
+
+
+def _grid_whole(model, mesh, tree, lead):
+    """The whole leaves (numpy, ravel order) of a grid rank's block tree
+    (``lead`` leading axes): gathered over the data group, then the model
+    group."""
+    from repro_torch.core import flatten as F
+    from repro_torch.distributed import sharding as shd
+
+    out = []
+    for leaf, (path, _), mdim in zip(F.tree_leaves(tree), F.leaf_params(model),
+                                     F.split_dims(model)):
+        ddim = model.fsdp.dims[path]
+        spec = tuple("model" if i == (None if mdim is None else mdim + lead) else
+                     "data" if i == (None if ddim is None else ddim + lead) else None
+                     for i in range(leaf.ndim))
+        out.append(_np(shd.gather_tensor(leaf, spec, mesh)))
+    return out
+
+
+def task_grid(rank, S, K, M, cfg, params, parts, runs=(), cands=None, methods=(),
+              wcfg=None, prompts=None, ckpt_dir=None, resume=None, fsdp_min_dim=64):
+    """The data axis as processes: a K x M grid of S = K * M ranks
+    (``launch.mesh.make_grid``), the FSDP rule's threshold lowered to
+    ``fsdp_min_dim`` so that the reduced widths split over data; a dense
+    model from the reference's initial ``params`` (numpy).  Per part:
+
+      stats      the psum'd statistics of ``cands[0]`` (whole candidate
+                 trees, leaves (K, ...)) on the rank's column block;
+      allreduce  per (method, backend) of ``methods`` and round of
+                 ``cands``: the gathered aggregate, weights and masks;
+      noise      the noise attack on the column block of ``cands[0]``
+                 (seed 7), gathered whole;
+      train      per run of ``runs`` (``tc``, ``state``: the reference's
+                 initial state as numpy, ``batches``): per step loss,
+                 grad_norm, weights, masks and the gathered params; a
+                 run with ``save`` checkpoints its last params at
+                 ``ckpt_dir`` (rank 0);
+      resume     the checkpoint ``resume`` loaded into a fresh state of
+                 ``runs[0]``'s config and one step taken on its first batch;
+      launcher   ``launch.train.main`` on the grid for 2 reduced steps, a
+                 checkpoint at ``ckpt_dir``/launcher, and a ``--candidates``
+                 that does not match the ranks (its error);
+      serve      the gathered prefill logits of ``prompts`` (the flash
+                 branch at a lowered threshold) and 4 greedy decode steps;
+                 the cache's rows a rank."""
+    import types
+
+    from repro_torch.core import flatten as F
+    from repro_torch.distributed import robust_allreduce as ra
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as Mo
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import serve as sv
+    from repro_torch.train import trainer as tr
+
+    shd._FSDP_MIN_DIM = fsdp_min_dim
+    mesh = make_grid(K, M)
+    out = {}
+    model = Mo.params_from_jax(params, cfg, "cpu", mesh=mesh)
+    out["groups"] = [len(g) for g in F.fsdp_groups(model)]
+    shards = tr.grid_shards(model, mesh)
+    out["counted"] = shards.counted
+    if "stats" in parts:
+        cand = _grid_column_block(model, cands[0]["tree"], K)
+        leaves = F.tree_leaves(cand)
+        groups = [[l for l, g in zip(leaves, shards.leaf_groups) if g == i]
+                  for i in range(len(shards.counted))]
+        mine = [i for i, c in enumerate(shards.counted) if c]
+        cfg_s = ra.RobustAggConfig(method="alt_wfagg", backend="fused")
+        st = ra.psum_stats(ra._partial_stats(
+            K, "cpu", [groups[i] for i in mine], None, cfg_s,
+            [ra._concat_candidates(groups[i]) if groups[i] else torch.zeros((K, 0))
+             for i in mine], [None] * len(mine)), shards.group)
+        out["stats"] = {f: _np(getattr(st, f)[0]) for f in ("dist2", "norm2", "gram")}
+    if "allreduce" in parts:
+        res = {}
+        for method, backend in methods:
+            cfg_a = ra.RobustAggConfig(method=method, wfagg=wcfg, backend=backend,
+                                       layout="stacked")
+            state = ra.init_tree_agg_state(cfg_a, K, F.module_tree(model))._replace(
+                prev=_grid_column_block(model, cands[0]["prev"], K))
+            rounds = []
+            for c in cands:
+                cand = _grid_column_block(model, c["tree"], K)
+                agg, state, info = ra.robust_allreduce_stacked(cand, cfg_a, state,
+                                                               model_shards=shards)
+                rounds.append({"out": _grid_whole(model, mesh, agg, 0),
+                               **{k: _np(v) for k, v in info.items() if k != "record"}})
+            res[(method, backend)] = rounds
+        out["allreduce"] = res
+    if "noise" in parts:
+        cand = _grid_column_block(model, cands[0]["tree"], K)
+        ra.apply_stacked_attack(cand, torch.tensor([k % 2 == 1 for k in range(K)]), "noise",
+                                torch.Generator().manual_seed(7), in_place=True,
+                                model_shards=shards)
+        out["noise"] = _grid_whole(model, mesh, cand, 1)
+    if "train" in parts or "resume" in parts:
+        out["train"] = []
+        for run in runs:
+            tc, js = run["tc"], run["state"]
+            agg = None if js["agg_state"] is None else types.SimpleNamespace(**js["agg_state"])
+            st = tr.state_from_jax(types.SimpleNamespace(
+                params=js["params"], opt_state=js["opt_state"], agg_state=agg,
+                step=js["step"]), cfg, device="cpu", mesh=mesh, tc=tc)
+            seen = {}
+            step = tr.build_train_step(cfg, tc, mesh,
+                                       observe=lambda phase, **v: seen.update({phase: v}))
+            batches = run["batches"]
+            if "resume" in parts:
+                whole = tr.full_params(st.params, mesh)
+                tree, _ = ckpt.restore_checkpoint(resume, "grid", whole)
+                tr.load_params_(st.params, tree, mesh)
+                batches = batches[:1]
+            steps = []
+            for b in batches:
+                st, m = step(st, {"tokens": torch.as_tensor(b).long()})
+                info = seen["allreduce"]["info"]
+                steps.append({"loss": float(m["loss"]), "weights": _np(m["weights"]),
+                              "grad_norm": float(m["grad_norm"]),
+                              "masks": {k: _np(info[k]) for k in ("mask_d", "mask_c",
+                                                                  "mask_t") if k in info},
+                              "params": _tp_tree_np(tr.full_params(st.params, mesh))})
+            out["train"].append(steps)
+            if run.get("save"):
+                whole = tr.full_params(st.params, mesh)
+                if rank == 0:
+                    ckpt.save_checkpoint(ckpt_dir, "grid", whole, {"grid": [K, M]})
+                dist.barrier()
+            if "resume" in parts:
+                break
+    if "launcher" in parts:
+        from repro_torch.launch import train as T
+        argv = ["--reduced", "--d-model", "64", "--n-layers", "2", "--vocab", "128",
+                "--steps", "2", "--seq-len", "32", "--global-batch", "4",
+                "--agg-backend", "fused", "--attack", "ipm_100", "--n-malicious", "1",
+                "--model-parallel", str(M), "--ckpt-dir", ckpt_dir + "/launcher",
+                "--ckpt-every", "2"]
+        T.main(argv + ["--candidates", str(K)], device="cpu")
+        try:
+            T.main(argv + ["--candidates", str(K + 1)], device="cpu")
+            out["mismatch"] = None
+        except ValueError as e:
+            out["mismatch"] = str(e)
+    if "serve" in parts:
+        L.SDPA_CHUNK_THRESHOLD = 128
+        model = Mo.params_from_jax(params, cfg, "cpu", mesh=mesh)
+        p = torch.as_tensor(prompts).long()
+        pre = sv.build_prefill(cfg, device="cpu", mesh=mesh)
+        out["prefill"] = _np(pre(model, {"tokens": p}))
+        out["blocks_after"] = bool(model.fsdp_blocks)
+        cache = Mo.init_cache(cfg, p.shape[0], p.shape[1] + 4, device="cpu", mesh=mesh)
+        out["cache_rows"] = cache["layers"]["k"].shape[1]
+        dec = sv.build_decode_step(cfg, device="cpu", mesh=mesh)
+        for i in range(p.shape[1]):
+            lg, cache = dec(model, cache, p[:, i:i + 1])
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        logits = []
+        for _ in range(4):
+            logits.append(_np(lg))
+            lg, cache = dec(model, cache, tok)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+        out["decode"] = logits
+    return out
+
+
 TASKS = {"round": task_round, "scan": task_scan, "engine": task_engine,
-         "group_size": task_group_size, "flat": task_flat, "tp": task_tp}
+         "group_size": task_group_size, "flat": task_flat, "tp": task_tp, "grid": task_grid}
 
 
 # ---------------------------------------------------------------------------

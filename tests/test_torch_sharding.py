@@ -171,6 +171,24 @@ def test_shard_and_gather_roundtrip():
     with pytest.raises(NotImplementedError, match="query heads"):
         tshd.tp_layout(dataclasses.replace(cfg, n_heads=6), "wq", (256, 384),
                        StandIn(data=1, model=4))
+    # the data axes: a rank's block by its coordinates on (pod, data), model
+    grid = StandIn(pod=2, data=2, model=2)
+    blocks = {(p, d, m): tshd.shard_tensor(full, (("pod", "data"), "model"), grid,
+                                           {"pod": p, "data": d, "model": m})
+              for p in range(2) for d in range(2) for m in range(2)}
+    rows = [torch.cat([blocks[(i // 2, i % 2, m)] for m in range(2)], dim=1)
+            for i in range(4)]
+    assert torch.equal(torch.cat(rows, dim=0), full)
+    # the FSDP rule's dim over the data axes, None where it leaves the leaf
+    # whole (no dim >= _FSDP_MIN_DIM free of 'model', or one data does not divide)
+    big = StandIn(data=4, model=2)
+    assert tshd.fsdp_dim(cfg, "wq", (2, 1024, 2048), ("data",), big) == 1
+    assert tshd.fsdp_dim(cfg, "bq", (2, 2048), ("data",), big) is None
+    assert tshd.fsdp_dim(cfg, "wq", (2, 1026, 2048), ("data",), big) is None
+    assert tshd.fsdp_dim(cfg, "scale", (2, 1024), ("pod", "data"),
+                         StandIn(pod=2, data=4, model=2)) == 1
+    with pytest.raises(ValueError, match="one process"):
+        tshd.gather_tensor(full, ("data", None), StandIn(data=2, model=1))
 
 
 def test_logical_shard_checks_local_extents():

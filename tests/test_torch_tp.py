@@ -203,7 +203,7 @@ def test_loss_and_gradients_match_reference(which, request):
 def test_pruned_kv_heads_are_whole_on_every_rank(tp4):
     """n_kv_heads = 2 over M = 4: wk/wv replicated (counted as such), wq,
     wo, the MLP and the vocabulary split; the cache holds both KV heads."""
-    cut = dict(zip([p for p, _ in F._groups(_m1(tp4))], tp4.out["split_dims"]))
+    cut = dict(zip([p for p, _ in F.leaf_params(_m1(tp4))], tp4.out["split_dims"]))
     assert cut[("layers", "attn", "wk")] is None and cut[("layers", "attn", "wv")] is None
     assert cut[("layers", "attn", "wq")] == 2 and cut[("layers", "attn", "wo")] == 1
     assert cut[("layers", "ffn", "w_down")] == 1 and cut[("embedding", "embed")] == 0

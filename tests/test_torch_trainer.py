@@ -303,24 +303,38 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 
 def test_multi_card_trainer_refused():
     """What the multi-card trainer still refuses: a model axis without its
-    process group, FSDP parameters and the flat layout on the model axis
-    (ROADMAP queue 1, item 12.2b), a family without a TP form on it (item
-    12.8), and gspmd with a robust rule."""
-    from repro_torch.launch.mesh import Mesh
+    process group, the flat layout on the model axis (ROADMAP queue 1, item
+    12.2c), a family without a TP form on it, Adafactor and the adaptive
+    attacks on a grid (item 12.8), and gspmd with a robust rule.
+    ``fsdp_params`` is served since the grid (the data axis as processes):
+    with the data axis in one process the state is whole, as before."""
+    from repro_torch.launch.mesh import DataAxis, Mesh
 
     _, cfg = _cfgs()
     mesh = make_test_mesh(data=2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.2b"):
-        tr.build_train_step(cfg, tr.TrainConfig(fsdp_params=True), mesh)
+    assert callable(tr.build_train_step(cfg, tr.TrainConfig(fsdp_params=True), mesh))
     with pytest.raises(ValueError, match="process group of 2 ranks"):
         make_test_mesh(data=2, model=2)
     tp_mesh = Mesh(shape={"data": 2, "model": 2})     # the group is never reached
     flat = tr.TrainConfig(agg=tra.RobustAggConfig(layout="flat"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.2b"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 12.2c"):
         tr.build_train_step(cfg, flat, tp_mesh)
     moe = get_config("deepseek-v2-lite-16b").reduced()
     with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
         tr.build_train_step(moe, tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
                             tp_mesh)
+
+    class Grid(Mesh):     # the data axis as processes, no live group reached
+        def data_axis(self):
+            return DataAxis(None, self.shape["data"], 0)
+
+    stacked = tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked"))
+    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
+        tr._check(dataclasses.replace(cfg, optimizer="adafactor"), stacked,
+                  Grid(shape={"data": 2, "model": 1}))
+    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
+        tra.apply_stacked_attack({"w": torch.zeros((2, 3))}, torch.zeros(2, dtype=torch.bool),
+                                 "min_max", model_shards=tra.GridShards(None, (0,), (True,),
+                                                                        ((),)))
     with pytest.raises(ValueError, match="mean"):
         tr.build_train_step(cfg, tr.TrainConfig(mode="gspmd"), mesh)
