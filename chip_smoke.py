@@ -11,6 +11,8 @@ an NVIDIA H100.
     python3 chip_smoke.py --only encdec        # phase 1, then the encoder-decoder and VLM
     python3 chip_smoke.py --only tp            # phase 1, then the model (TP) axis
     python3 chip_smoke.py --only grid          # phase 1, then the K x M grid
+    python3 chip_smoke.py --only tpfam         # phase 1, then the families split over ranks
+    python3 chip_smoke.py --only tpfamcards    # phase 1, then the families on every card
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
@@ -254,7 +256,7 @@ Phases, each of which fails the run:
        unsharded round; the stacked all-reduce (``robust_allreduce_
        stacked``) over K=8 candidates shaped as Qwen1.5-0.5B's parameter
        dict at full width and depth (the port's seed-0 init plus seeded
-       perturbations, 2 under ``ipm_100``; K*P = 3.7e9 > 2^31), 3 rounds
+       perturbations, 2 under ``ipm_100``; K*P = 3.7e9 > 2^31), 2 rounds
        with WFAgg-T state, WFAgg, Alt-WFAgg, Multi-Krum, median and mean
        on ``reference``, ``fused_two_launch`` and ``fused`` (kernel 1 at
        N=1 with ``mean_fallback`` on ``fused`` WFAgg and Alt-WFAgg; kernel
@@ -270,7 +272,7 @@ Phases, each of which fails the run:
      - training (``repro_torch.train.trainer``): Qwen1.5-0.5B uncut (the
        port's seed-0 init) with K=8 candidate workers of one batch row
        each at S=1025 (two whole loss chunks of 512), 2 of them under
-       IPM-100, AdamW at lr 1e-3: 5 steps each of WFAgg and Alt-WFAgg on
+       IPM-100, AdamW at lr 1e-3: 4 steps each of WFAgg and Alt-WFAgg on
        ``fused`` (WFAgg-T from step 4), every step's all-reduce also run
        on ``fused_two_launch`` and ``reference`` from the step's state
        (its prev, their own history) and held by ``hold_stacked_route``
@@ -313,18 +315,18 @@ Phases, each of which fails the run:
        by ``routing_diff``: every pick that differs is a near-tie of the
        routes' probabilities.  Then DeepSeek-V2-Lite cut to 2 layers (1
        dense prefix + 1 MoE, P = 1,026,698,240) on the stacked robust-DP
-       trainer, K=6 at S=1025, 2 under IPM-100, 5 steps each of WFAgg and
+       trainer, K=6 at S=1025, 2 under IPM-100, 2 steps each of WFAgg and
        Alt-WFAgg on ``fused`` (held as above) and the mean, with the
        training part's checks and candidate 0's ce and aux per step.
        ``--only moe`` runs phase 1 and this part alone;
      - the SSM and hybrid families, on the port's seed-0 init, each model
        freed before the next: kernel 8 at Zamba2's prefill shape (B=2,
        H=32, S=8192, hd=64, bf16) through ``compare_flash``, timed beside
-       SDPA; Falcon-Mamba-7B at full width cut to 8 of its 64 Mamba-1
+       SDPA; Falcon-Mamba-7B at full width cut to 4 of its 64 Mamba-1
        layers (the whole script's time limit), prefill 2 x 8192 (0 kernel
-       launches), and Zamba2-1.2B at full width cut to 20 of its 38
-       Mamba-2 layers (10 groups, the shared block once a group), prefill
-       2 x 8192 with exactly 10 kernel-8 launches a call on the
+       launches), and Zamba2-1.2B at full width cut to 8 of its 38
+       Mamba-2 layers (4 groups, the shared block once a group), prefill
+       2 x 8192 with exactly 4 kernel-8 launches a call on the
        tensor-core kernel, held against
        ``flash=False``; each prefill timed with its peak memory and traced
        (the top device kernels); Falcon-Mamba's decode at batch 4 through
@@ -345,7 +347,7 @@ Phases, each of which fails the run:
        causal self-attention; the encoder's non-causal self-attention and
        the cross-attention take the chunked online softmax), held against
        ``flash=False`` by the dense rule; LLaVA-NeXT-34B at full width cut
-       to 24 of 60 layers, prefill 1 x 8192 (576 patch embeddings through
+       to 12 of 60 layers, prefill 1 x 8192 (576 patch embeddings through
        the projector and 7,616 tokens) with one launch a layer at 64
        padded heads, held as the SSM part's; each prefill timed with its
        peak memory and traced.  Each decode at batch 2 against a cache of
@@ -381,7 +383,7 @@ Phases, each of which fails the run:
        teacher-forced tokens, both gathered and held by the dense rule to
        one process's logits of the same tokens; then K = 4 training with
        ``fsdp_params``, one candidate a data rank (WFAgg 3 steps,
-       Alt-WFAgg and the mean 2), IPM-100 on one, with each rank's planned
+       Alt-WFAgg 1, the mean 2), IPM-100 on one, with each rank's planned
        launches of kernels 4, 6 and 7 every step (0 of kernel 1), the
        step-1 candidate held to one process's gradient (relative rms
        ``GRID_GRAD_RMS``) and every step's aggregation to the reference
@@ -391,7 +393,28 @@ Phases, each of which fails the run:
        apart; then kernels 4, 6, 7 and 8 at a rank's shapes held against
        their plain versions and timed.  ``--only grid`` runs phase 1 and
        this part alone; ``--only cards`` on four cards adds StableLM-3B
-       uncut at K = 4 x M = 1 and Qwen at K = 2 x M = 2 on ``nccl``.
+       uncut at K = 4 x M = 1 and Qwen at K = 2 x M = 2 on ``nccl``.  Last,
+       the MoE, SSM and hybrid families split over ranks (``FAM_JOBS``):
+       one process's references first (prompts, prefill tails, decode
+       logits, every MoE call's routing, an f32 truth where the parameters
+       are f32, candidate 0's step-1 gradient with its routing), then two
+       ``gloo`` ranks sharing the card serve DeepSeek-V2-Lite (4 layers,
+       MLA and the MoE, 2 x 4096, no kernel 8), Zamba2-1.2B (4 layers, 2 x
+       8192, kernel 8 on each rank's 16 heads once a group), Falcon-Mamba-7B
+       (2 layers) and Arctic (1 layer, bf16, 28 live heads a rank padded to
+       32, kernel 8 at hd 128) with the reference's routing replayed and
+       the gathered logits held by the dense rule or ``SSM_TRUTH``'s,
+       routing flips as near-ties, decode over ``FAM_DECODE`` teacher-forced
+       tokens likewise; and train the first three at K = 4 (IPM-100 on one,
+       WFAgg f = 1) with ``TP_RUNS``' holds (an MoE's step-1 candidate
+       through the reference's routing); then Zamba2 (4 layers) on the 4 x
+       2 grid with the grid part's holds (``SSM_TRUTH`` where the dense
+       rule does not hold); then kernels 4, 6, 7 and 8 at the new shapes
+       held against their plain versions and timed.  ``--only tpfam`` runs
+       phase 1 and this part alone; ``--only cards`` on four cards adds
+       Moonlight uncut served and DeepSeek-V2-Lite (6 layers) and
+       Falcon-Mamba-7B (32 layers) trained at M = 4 on ``nccl``, which
+       ``--only tpfamcards`` runs alone.
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -3639,7 +3662,8 @@ DIST_TIMEOUT_S = 420                         # the ranks' deadline, all parts
 SHARD_WIDTHS = {"lenet": 5554, "mlp": 6362}
 STACK_ARCH = "qwen1.5-0.5b"
 STACK_K = 8
-STACK_ROUNDS = 3
+# 3 rounds before the families' part; 2 still run WFAgg-T (transient 1)
+STACK_ROUNDS = 2
 STACK_MALICIOUS = (2, 5)                     # under ipm_100
 STACK_METHODS = ("wfagg", "alt_wfagg", "multi_krum", "median", "mean")
 # the fused routes first: the reference pass compares against both and,
@@ -4386,8 +4410,8 @@ def hold_stacked_route(torch, label, cfg, cands, state, route, ref) -> tuple:
 
 def run_stacked_path(torch) -> tuple:
     """``robust_allreduce_stacked`` over K=8 Qwen1.5-0.5B-shaped candidates
-    (2 under IPM-100), 3 rounds with WFAgg-T state, for each method on
-    each backend.  Counts each backend's launches over its 3 rounds (the
+    (2 under IPM-100), ``STACK_ROUNDS`` rounds with WFAgg-T state, for each method on
+    each backend.  Counts each backend's launches over its rounds (the
     main path: kernel 1 on ``fused`` wfagg/alt_wfagg, kernel 4 (+ kernel 6
     where a rule reads the Gram) on the two-launch route), and holds the
     backends to each other: weights within 3e-5, outputs within rtol 1e-4 /
@@ -4713,7 +4737,12 @@ def run_distributed(torch) -> tuple:
 TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_K = 8                      # candidate workers, one batch row each
 TRAIN_SEQ = 1025                 # S - 1 = 1024: two whole loss chunks of 512
-TRAIN_STEPS = 5
+# 5 steps before the families' model-axis part, then 4: every block is
+# rematerialised since (a second forward a candidate)
+TRAIN_STEPS = 4
+# the families' one-card training runs (run_lm_train): cut from 5 steps to 2
+# beside the families' model-axis part, the whole script's time
+LM_TRAIN_STEPS = 2
 TRAIN_LR = 1e-3
 TRAIN_MALICIOUS = 2              # spaced_malicious(8, 2): candidates 2 and 6
 TRAIN_ATTACK = "ipm_100"
@@ -5202,8 +5231,7 @@ class RouteRecorder:
     def per_layer(self, torch, n_moe):
         """One (probs, picks) per MoE layer, the calls of that layer joined
         along S (decode steps in order)."""
-        return [tuple(torch.cat([c[i] for c in self.calls[l::n_moe]], dim=1)
-                      for i in range(2)) for l in range(n_moe)]
+        return rec_per_layer(torch, self.calls, n_moe)
 
 
 def routing_diff(torch, label, rec_a, rec_b, replayed=True) -> dict:
@@ -5586,7 +5614,7 @@ def run_lm_train(torch, label, arch, n_layers, K, what, n_enc_layers=None) -> tu
     encoder to ``n_enc_layers``, its frames drawn from seed 2 beside the
     tokens) on the stacked robust-DP
     trainer: ``K`` candidates of one row at ``TRAIN_SEQ``, 2 under IPM-100,
-    AdamW, ``TRAIN_STEPS`` steps each of WFAgg and Alt-WFAgg on ``fused``
+    AdamW, ``LM_TRAIN_STEPS`` steps each of WFAgg and Alt-WFAgg on ``fused``
     (each all-reduce held against ``fused_two_launch`` and ``reference``)
     and of the mean; candidate 0's ce and aux printed per step.  The
     training part's checks: exact launches, the attackers at weight 0,
@@ -5608,7 +5636,7 @@ def run_lm_train(torch, label, arch, n_layers, K, what, n_enc_layers=None) -> tu
         cfg = dataclasses.replace(cfg, n_enc_layers=n_enc_layers)
     mesh = make_test_mesh(data=K)
     stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, K)
-    batches = [stream.batch(i, device="cuda") for i in range(TRAIN_STEPS)]
+    batches = [stream.batch(i, device="cuda") for i in range(LM_TRAIN_STEPS)]
     if cfg.is_encoder_decoder:
         g = torch.Generator(device="cuda").manual_seed(2)
         for b in batches:
@@ -5620,7 +5648,7 @@ def run_lm_train(torch, label, arch, n_layers, K, what, n_enc_layers=None) -> tu
     print(f"  {arch} cut to {cfg.n_layers} layers ({what}) at full width, P = {P} "
           f"({4 * P / 2 ** 30:.2f} GiB a copy), K={K} "
           f"candidates of one row at S={TRAIN_SEQ}, candidates {bad} under {TRAIN_ATTACK}, "
-          f"AdamW lr {TRAIN_LR}, {TRAIN_STEPS} steps")
+          f"AdamW lr {TRAIN_LR}, {LM_TRAIN_STEPS} steps")
 
     def probe(state, batch):
         with torch.no_grad():
@@ -5642,7 +5670,7 @@ def run_lm_train(torch, label, arch, n_layers, K, what, n_enc_layers=None) -> tu
         expandable_segments(torch, False)
     w, mean = report["wfagg"]["losses"], report["mean"]["losses"]
     if not (w[-1] < w[0] and w[-1] < mean[-1]):
-        raise AssertionError(f"{label}: WFAgg's step-{TRAIN_STEPS} loss {w[-1]} is not "
+        raise AssertionError(f"{label}: WFAgg's step-{LM_TRAIN_STEPS} loss {w[-1]} is not "
                              f"below its first {w[0]} and the mean's {mean[-1]}")
     print(f"  the paper's claim on {arch}: WFAgg's loss {w[0]:.4f} -> {w[-1]:.4f}, the "
           f"mean's {mean[0]:.4f} -> {mean[-1]:.4f} under {TRAIN_ATTACK}")
@@ -5658,9 +5686,9 @@ def lm_train_run(torch, label, cfg, tc, mesh, batches, bad, probe, launches) -> 
     method = tc.agg.method
     hold = method != "mean"
     r = train_run(torch, cfg, tc, mesh, batches, hold, probe=probe)
+    n = len(batches)
     want = only_counts() if not hold else only_counts(
-        wfagg_round_indexed=TRAIN_STEPS, robust_stats=TRAIN_STEPS,
-        pairwise_gram=TRAIN_STEPS if method == "alt_wfagg" else 0)
+        wfagg_round_indexed=n, robust_stats=n, pairwise_gram=n if method == "alt_wfagg" else 0)
     if r["counts"] != want:
         raise AssertionError(f"{label} {method}: launches {r['counts']}, expected {want}")
     for k in KERNELS:
@@ -5722,12 +5750,13 @@ def run_moe_path(torch) -> tuple:
 # before the single steps, greedy steps held): each decode's held logits
 # (prompt and greedy, 96 positions) against one prefill of the same tokens
 SSM_SERVE = (
-    # cut at full width to fit the whole script's 1,200 s beside the grid
-    # part: Falcon-Mamba-7B to 8 of 64 layers (uncut its prefill took 21 s
-    # a call, PERF.md §6, PR 25), Zamba2-1.2B to 20 of 38 layers (10 groups,
-    # the shared block once a group; uncut 10.4 s a prefill, PR 27 D)
-    ("falcon-mamba-7b", 8, (2, 8192), 0, 4, 96, 96, 48, 0),     # arXiv:2410.05355
-    ("zamba2-1.2b", 20, (2, 8192), 10, 2, 32768, 64, 0, 32),    # arXiv:2411.15242
+    # cut at full width to fit the whole script's time beside the grid and
+    # the families' parts: Falcon-Mamba-7B to 4 of 64 layers (uncut its
+    # prefill took 21 s a call on one H100, PERF.md §6),
+    # Zamba2-1.2B to 8 of 38 layers (4 groups, the shared block once a
+    # group; uncut 10.4 s a prefill on one H100)
+    ("falcon-mamba-7b", 4, (2, 8192), 0, 4, 96, 96, 48, 0),     # arXiv:2410.05355
+    ("zamba2-1.2b", 8, (2, 8192), 4, 2, 32768, 64, 0, 32),      # arXiv:2411.15242
 )
 SSM_DECODE_TIMED = 16          # greedy steps timed after the held ones
 SSM_TRAIN_ARCH = "zamba2-1.2b"
@@ -5989,7 +6018,7 @@ def check_ssm_flash_shape(torch) -> tuple:
 
 
 def run_ssm_serve(torch) -> tuple:
-    """Falcon-Mamba-7B (8 of 64 layers) and Zamba2-1.2B (20 of 38) served, one
+    """Falcon-Mamba-7B (4 of 64 layers) and Zamba2-1.2B (8 of 38) served, one
     after another, each freed before the next.  Returns (launches, report)."""
     report, launches = {}, dict.fromkeys(KERNELS, 0)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -6044,9 +6073,9 @@ def run_ssm_path(torch) -> tuple:
 # text only (the reference's ``decode_step`` embeds tokens only).
 ENCDEC_SERVE = (
     ("seamless-m4t-medium", None, (2, 8192), 12, 2, 32768, 64, 32, "dense"),  # 2308.11596
-    # 24 of 60 layers: 53.51 GiB of f32 parameters (uncut 128.33 GiB); at 20
-    # layers the part's peak was 54.0 GiB, so 24 leave ~16 GiB of the card free
-    ("llava-next-34b", 24, (1, 8192), 24, 2, 32768, 64, 32, "truth"),
+    # 12 of 60 layers (53.51 GiB of f32 parameters at 24 layers; uncut
+    # 128.33 GiB), cut beside the families' part for the whole script's time
+    ("llava-next-34b", 12, (1, 8192), 12, 2, 32768, 64, 32, "truth"),
 )
 ENCDEC_TRAIN_ARCH = "seamless-m4t-medium"
 ENCDEC_TRAIN_LAYERS = 6        # 6 encoder + 6 decoder layers: P = 752,316,416
@@ -6153,12 +6182,13 @@ TP_ARCH = "qwen1.5-0.5b"
 TP_M = 2                       # gloo ranks sharing the one card
 # (method, backend, steps) of the TP training runs; the attackers (2 and 6)
 # under IPM-100 as the one-card trainer's.  On the model axis fused and
-# fused_two_launch are one route (kernels 4, 6 and 7): the second runs 2
-# steps, held bit for bit to the first's; Alt-WFAgg 2 steps for kernel 6
-# (WFAgg on fused and the mean cut from 5 steps to 3 beside the grid part,
-# the whole script's 1,200 s)
-TP_RUNS = (("wfagg", "fused", 3), ("wfagg", "fused_two_launch", 2), ("alt_wfagg", "fused", 2),
-           ("mean", "fused", 3))
+# fused_two_launch are one route (kernels 4, 6 and 7): the second runs 1
+# step, held bit for bit to the first's; Alt-WFAgg 1 step for kernel 6
+# (WFAgg on fused and the mean cut from 5 steps to 3 beside the grid part;
+# since the families' part WFAgg to 2, the second route and Alt-WFAgg to 1
+# and the mean to 2, the whole script's 1,050 s)
+TP_RUNS = (("wfagg", "fused", 2), ("wfagg", "fused_two_launch", 1), ("alt_wfagg", "fused", 1),
+           ("mean", "fused", 2))
 # the step-1 candidate gradients at M against M = 1 on the same parameters
 # and batch: relative rms of each candidate's whole gradient.  Both are bf16
 # activations on f32 parameters, rounded in another order (partial sums of a
@@ -6297,7 +6327,8 @@ class TPObserver:
             counts = read_counts()
             clock = dict(self.clock.ms), dict(self.clock.calls)
             if phase == "grads" and self.grads_m1 is not None and not self.steps:
-                self.grad_rms = self.hold_grads(v["candidates"])
+                self.grad_rms = self.hold_grads(
+                    v["candidates"] if self.grads_route is None else self.replayed_grads())
             elif self.hold and phase == "attack":
                 self.route(v["candidates"], v["agg_state"])
             elif self.hold and phase == "allreduce":
@@ -6309,6 +6340,35 @@ class TPObserver:
         torch.cuda.synchronize()
         self.t = time.perf_counter()
 
+    grads_route = None
+    batch = None
+
+    def replayed_grads(self):
+        """An MoE model's candidate 0 gradient for the step-1 hold: its rows
+        of ``self.batch`` through the rank's model with the one-process
+        gradient's routing replayed (``grads_route``: its picks per MoE
+        layer, remat off so that each layer routes once), so that what
+        differs from one process is continuous (``MOE_TRUTH``); its own
+        routing held to the one-process routing by ``routing_diff`` on
+        model rank 0.  Returns the candidate tree of that one row."""
+        import dataclasses
+
+        from repro_torch.core import flatten as F
+        from repro_torch.train import trainer as tr
+
+        torch = self.torch
+        route = torch.load(self.grads_route, weights_only=False)
+        cfg = dataclasses.replace(route["cfg"], remat=False)
+        rows = self.batch["tokens"].shape[0] // self.tc_k
+        with RouteRecorder([c[1].to("cuda") for c in route["calls"]]) as rec:
+            _, g = tr.loss_and_grad(cfg, self.model, {"tokens": self.batch["tokens"][:rows]})
+        if self.model.tp.rank == 0:
+            self.routing = routing_diff(
+                torch, f"{cfg.name} step-1 candidate 0 routing vs one process",
+                [tuple(t.to("cuda") for t in c) for c in route["calls"]],
+                [tuple(t.detach() for t in c) for c in rec.calls])
+        return F.unravel_rows_split(tuple(x[None] for x in g), self.model)
+
     def hold_grads(self, cands) -> list:
         """Each candidate's relative rms against M = 1 over the whole
         gradient: this rank's blocks read from the file, the squared sums
@@ -6319,29 +6379,34 @@ class TPObserver:
         from repro_torch.distributed import robust_allreduce as ra
         from repro_torch.models import layers as L
 
+        from repro_torch.distributed import sharding as shd
+
         torch = self.torch
         axis = self.model.tp
         full = np.memmap(self.grads_m1, dtype=np.float32, mode="r")
         leaves = ra._leaves(cands)
-        K = leaves[0].shape[0]
+        P = sum(math.prod(leaf.shape[1:]) * (axis.size if c is not None else 1)
+                for leaf, c in zip(leaves, F.split_cuts(self.model)))
+        # the file holds the first K of the candidates (all of them, or fewer)
+        K = full.shape[0] // P
         full = full.reshape(K, -1)
         num = torch.zeros((K,), dtype=torch.float64, device="cuda")
         den = torch.zeros((K,), dtype=torch.float64, device="cuda")
         off = 0
-        for leaf, dim in zip(leaves, F.split_dims(self.model)):
+        for leaf, c in zip(leaves, F.split_cuts(self.model)):
             shape = list(leaf.shape[1:])
-            if dim is not None:
-                shape[dim] *= axis.size
+            if c is not None:
+                shape[c[0].dim] *= axis.size
             n = math.prod(shape)
             want = torch.from_numpy(np.ascontiguousarray(full[:, off:off + n])).view(
                 [K] + shape)
             off += n
-            if dim is not None:
-                want = want.narrow(dim + 1, axis.rank * leaf.shape[dim + 1], leaf.shape[dim + 1])
+            if c is not None:
+                want = shd.take_block(want, c[0].shifted(1), axis.size, axis.rank)
             elif axis.rank:
                 continue
             want = want.to("cuda")
-            num += ((leaf - want).double() ** 2).reshape(K, -1).sum(-1)
+            num += ((leaf[:K] - want).double() ** 2).reshape(K, -1).sum(-1)
             den += (want.double() ** 2).reshape(K, -1).sum(-1)
             del want
         if off != full.shape[1]:
@@ -6359,7 +6424,9 @@ class TPObserver:
         from repro_torch.core import flatten as F
         from repro_torch.distributed import robust_allreduce as ra
 
-        self.shards = ra.ModelShards(self.model.tp, tuple(F.split_dims(self.model)))
+        from repro_torch.train import trainer as tr
+
+        self.shards = ra.ModelShards(self.model.tp, tuple(tr._model_cuts(self.model)))
         self.cfg_ref = dataclasses.replace(self.tc.agg, backend="reference")
         st = ra.TreeAggState(state.prev, *self.hist)
         self.cands, self.state = cands, st
@@ -6494,12 +6561,15 @@ def tp_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
     return launches, rep
 
 
-def tp_train(torch, cfg, M_, rank, runs, grads_file=None, hold=True) -> tuple:
+def tp_train(torch, cfg, M_, rank, runs, grads_file=None, hold=True, K=TRAIN_K,
+             n_mal=TRAIN_MALICIOUS, f=2) -> tuple:
     """The TP training part on one rank: per (method, backend, steps) of
     ``runs`` that many steps of ``build_train_step`` on the mesh {data K, model M}
-    from seed 0, IPM-100 on 2 of K, AdamW; the hold of ``TPObserver`` (the
-    step-1 gradients only with ``grads_file``, the route only with
-    ``hold``).  Returns (launches, report)."""
+    from seed 0, IPM-100 on ``n_mal`` of K, AdamW; the hold of
+    ``TPObserver`` (the step-1 gradients only with ``grads_file``, the
+    route only with ``hold``); WFAgg's ``f``.  Returns (launches, report)."""
+    from repro_torch.core.wfagg import WFAggConfig
+
     import dataclasses
 
     import torch.distributed as dist
@@ -6509,25 +6579,31 @@ def tp_train(torch, cfg, M_, rank, runs, grads_file=None, hold=True) -> tuple:
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.train import trainer as tr
 
-    mesh = make_test_mesh(data=TRAIN_K, model=M_, model_group=dist.group.WORLD)
-    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_K)
+    mesh = make_test_mesh(data=K, model=M_, model_group=dist.group.WORLD)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, K)
     batches = [stream.batch(i, device="cuda") for i in range(max(r[2] for r in runs))]
     launches = dict.fromkeys(KERNELS, 0)
     report = {}
     clock = CollectiveClock(torch)
     try:
         for method, backend, steps in runs:
-            tc = train_config(method, attack=TRAIN_ATTACK, n_malicious=TRAIN_MALICIOUS)
+            tc = train_config(method, attack=TRAIN_ATTACK, n_malicious=n_mal,
+                              wfagg=WFAggConfig(f=f, transient=3, window=3))
             tc = dataclasses.replace(tc, agg=dataclasses.replace(tc.agg, backend=backend))
             state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0),
                                         mesh)
             obs = TPObserver(torch, tc, state.agg_state, hold and method != "mean", clock,
                              state.params,
                              grads_m1=grads_file if (method, backend) == runs[0][:2] else None)
+            obs.tc_k = K
+            route = pathlib.Path(str(grads_file or "") + ".route")
+            if cfg.n_experts and obs.grads_m1 is not None and route.is_file():
+                obs.grads_route = str(route)
             step = tr.build_train_step(cfg, tc, mesh, observe=obs)
             losses, weights = [], []
             for b in batches[:steps]:
                 obs.start()
+                obs.batch = b
                 state, m = step(state, b)
                 losses.append(float(m["loss"]))
                 weights.append([round(float(w), 4) for w in m["weights"]])
@@ -6545,6 +6621,7 @@ def tp_train(torch, cfg, M_, rank, runs, grads_file=None, hold=True) -> tuple:
                 {k: round(v, 2) for k, v in s.items()} for s in obs.steps],
                 peak_gib=obs.peaks, launches_per_step=plan, near_ties=obs.near_ties,
                 max_out_err=obs.max_err, grad_rms_vs_m1=obs.grad_rms,
+                grad_routing=getattr(obs, "routing", None),
                 tokens_per_s=[round(1e3 * batches[0]["tokens"].numel()
                                     / sum(s[p] for p in ("grads", "attack", "allreduce",
                                                          "optimizer")), 1)
@@ -6755,9 +6832,12 @@ def run_tp_cards(torch) -> dict:
     return out
 
 
-def report_tp(ranks, card, ref_s, seconds, arch, where) -> tuple:
-    """Print the TP ranks' reports; the WFAgg loss claim; returns (launches
-    summed over the ranks, report)."""
+def report_tp(ranks, card, ref_s, seconds, arch, where, K=TRAIN_K, n_mal=TRAIN_MALICIOUS
+              ) -> tuple:
+    """Print the TP ranks' reports; the attackers at weight 0 and the WFAgg
+    loss claim; returns (launches summed over the ranks, report)."""
+    from repro_torch.core.topology import spaced_malicious
+
     launches = dict.fromkeys(KERNELS, 0)
     for r in ranks:
         for k, c in r["launches"]["tp"].items():
@@ -6790,7 +6870,7 @@ def report_tp(ranks, card, ref_s, seconds, arch, where) -> tuple:
                   + (f"; step-1 candidates vs M = 1, relative rms {t['grad_rms_vs_m1']}"
                      if t["grad_rms_vs_m1"] else ""))
     tr0 = r0["train"]
-    bad = [2, 6]
+    bad = [k for k, m in enumerate(spaced_malicious(K, n_mal)) if m]
     for label, t in tr0.items():
         if not all(map(math.isfinite, t["losses"])):
             raise AssertionError(f"tp {label}: non-finite loss {t['losses']}")
@@ -6826,8 +6906,9 @@ def report_tp(ranks, card, ref_s, seconds, arch, where) -> tuple:
 GRID_ARCH = "qwen1.5-0.5b"
 GRID_K, GRID_M = 4, 2          # 8 gloo ranks sharing the one card
 # (method, backend, steps) of the grid's training runs, fsdp_params on,
-# IPM-100 on spaced_malicious(4, 1) = candidate 2
-GRID_RUNS = (("wfagg", "fused", 3), ("alt_wfagg", "fused", 2), ("mean", "fused", 2))
+# IPM-100 on spaced_malicious(4, 1) = candidate 2 (WFAgg cut from 3 steps
+# to 2 and Alt-WFAgg from 2 to 1 beside the families' part)
+GRID_RUNS = (("wfagg", "fused", 2), ("alt_wfagg", "fused", 1), ("mean", "fused", 2))
 GRID_MALICIOUS = 1
 GRID_F = 1                     # WFAgg's f at K = 4: the one attacker
 # the step-1 candidate gradients on the grid against one process's on the
@@ -6936,12 +7017,14 @@ class GridObserver(TPObserver):
         num = torch.zeros((), dtype=torch.float64, device="cuda")
         den = torch.zeros((), dtype=torch.float64, device="cuda")
         # the whole gradient's ravel order: each leaf's place in it
+        from repro_torch.distributed import sharding as shd
+
         offs, off = {}, 0
-        for (path, ps), mdim in zip(F.leaf_params(model), F.split_dims(model)):
+        for (path, ps), c in zip(F.leaf_params(model), F.split_cuts(model)):
             shape = ([len(ps)] if path[0] in F.STACKED else []) + list(lay.shapes[path])
-            if mdim is not None:
-                shape[mdim] *= axis.size
-            offs[path] = (off, shape, mdim)
+            if c is not None:
+                shape[c[0].dim] *= axis.size
+            offs[path] = (off, shape, None if c is None else c[0])
             off += math.prod(shape)
         if off != full.shape[0]:
             raise AssertionError(f"grid grads: {off} of {full.shape[0]} values")
@@ -6950,12 +7033,11 @@ class GridObserver(TPObserver):
                 continue            # the replicated leaves count on model rank 0
             at = 0
             for path, ps in leaves:
-                o, shape, mdim = offs[path]
+                o, shape, cut = offs[path]
                 n = math.prod(shape)
                 want = torch.from_numpy(np.ascontiguousarray(full[o:o + n])).view(shape)
-                if mdim is not None:
-                    m = shape[mdim] // axis.size
-                    want = want.narrow(mdim, axis.rank * m, m)
+                if cut is not None:
+                    want = shd.take_block(want, cut, axis.size, axis.rank)
                 want = want.to("cuda").reshape(-1)
                 got = vec[at:at + want.numel()]
                 at += want.numel()
@@ -7083,10 +7165,11 @@ def grid_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
             raise AssertionError(f"grid prefill logits {tuple(logits.shape)}")
         counts = read_counts()
         tc = _module("flash_attention").launches_tc
-        want = only_counts(flash_attention=cfg.n_layers)
-        if counts != want or tc != cfg.n_layers:
+        n_flash = flash_layers(cfg)
+        want = only_counts(flash_attention=n_flash)
+        if counts != want or tc != n_flash:
             raise AssertionError(f"grid prefill launches {counts} ({tc} tensor-core), "
-                                 f"expected {cfg.n_layers}, all tensor-core")
+                                 f"expected {n_flash}, all tensor-core")
         launches = dict(counts, **{"flash_attention[tensor_core]": tc})
         rep["prefill_ms"] = round(ms, 2)
         rep["prefill_tokens_per_s"] = round(K * PREFILL_S / ms * 1e3, 1)
@@ -7094,15 +7177,14 @@ def grid_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
                                  ("data", None, "model"), mesh).float()
         del logits
         if rank == 0:
-            want_tail = torch.load(pathlib.Path(out_dir, "prefill_tail.pt")).to("cuda")
-            check_logits(torch, f"grid {K} x {M_} prefill vs one process, each prompt's "
-                         f"last {PREFILL_TAIL} positions", tail, want_tail)
-            del want_tail
+            grid_hold(torch, out_dir, "prefill_tail", f"grid {K} x {M_} prefill, each "
+                      f"prompt's last {PREFILL_TAIL} positions,", tail)
         del tail
 
         cache = M.init_cache(cfg, K, DECODE_32K.seq_len, mesh=mesh)
-        rep["cache_rows"] = cache["layers"]["k"].shape[1]
-        rep["cache_heads"] = cache["layers"]["k"].shape[2]
+        kv = cache["layers"]["attn"] if cfg.family == "hybrid" else cache["layers"]
+        rep["cache_rows"] = kv["k"].shape[-4]
+        rep["cache_heads"] = kv["k"].shape[-3]
         seq = torch.randint(0, cfg.vocab_size, (K, GRID_DECODE), generator=g, device="cuda",
                             dtype=torch.int32)
         step = sv.build_decode_step(cfg, mesh=mesh)
@@ -7125,10 +7207,8 @@ def grid_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
         if not bool(torch.isfinite(st).all()):
             raise AssertionError("grid: non-finite decode logits")
         if rank == 0:
-            want_dec = torch.load(pathlib.Path(out_dir, "decode.pt")).to("cuda")
-            check_logits(torch, f"grid {K} x {M_} decode at batch {K}, 32,768 slots, vs one "
-                         f"process over the same {GRID_DECODE} tokens", st, want_dec)
-            del want_dec
+            grid_hold(torch, out_dir, "decode", f"grid {K} x {M_} decode at batch {K}, 32,768 "
+                      f"slots, over the same {GRID_DECODE} tokens,", st)
         rep["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
     finally:
         clock.close()
@@ -7136,6 +7216,19 @@ def grid_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     return launches, rep
+
+
+def grid_hold(torch, out_dir, name, label, got) -> None:
+    """The grid's gathered logits against one process's (``name``.pt): the
+    dense rule, or, where ``name``_truth.pt exists (an SSM or hybrid model)
+    and the bf16 routes sit past it, ``SSM_TRUTH``'s rule."""
+    want = torch.load(pathlib.Path(out_dir, f"{name}.pt")).to("cuda")
+    truth = pathlib.Path(out_dir, f"{name}_truth.pt")
+    if truth.exists():
+        hold_bf16_route(torch, f"{label} grid", got, "one process", want,
+                        torch.load(truth).to("cuda"))
+    else:
+        check_logits(torch, f"{label} vs one process", got, want)
 
 
 def grid_train(torch, cfg, mesh, rank, runs, grads_file=None, hold=True, arch_tc=False
@@ -7233,7 +7326,7 @@ def grid_child(rank, S, store_path, out_dir, backend) -> None:
         dist.init_process_group(backend, store=dist.FileStore(store_path, S), rank=rank,
                                  world_size=S)
         try:
-            cfg = get_config(job["arch"])
+            cfg = job_config(get_config, job)
             mesh = make_grid(job["K"], job["M"])
             launches = dict.fromkeys(KERNELS, 0)
             res["report"] = {}
@@ -7256,13 +7349,17 @@ def grid_child(rank, S, store_path, out_dir, backend) -> None:
     pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
 
 
-def grid_reference(torch, out_dir, arch, K, serve=True) -> None:
+def grid_reference(torch, out_dir, arch, K, serve=True, layers=None) -> None:
     """What the grid's ranks are held to in one process, computed here
     before they start and freed: the seed-0 model's prefill tail (K rows
     of 8192, one at a time, the last ``PREFILL_TAIL`` positions, f32), the
     decode logits of the same ``GRID_DECODE`` teacher-forced tokens at
     batch K against 32,768 slots, and the K candidate gradients of the
-    first training batch (a (K, P) float32 file in ravel order)."""
+    first training batch (a (K, P) float32 file in ravel order); ``layers``
+    cuts the model's depth.  An SSM or hybrid model's prefill and decode
+    also in f32 activations (``*_truth.pt``)."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import DECODE_32K
     from repro_torch.core.flatten import layout_flat
@@ -7271,26 +7368,32 @@ def grid_reference(torch, out_dir, arch, K, serve=True) -> None:
     from repro_torch.train import serve as sv
     from repro_torch.train import trainer as tr
 
-    cfg = get_config(arch)
+    cfg = job_config(get_config, {"arch": arch, "layers": layers})
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     if serve:
         g = torch.Generator(device="cuda").manual_seed(1)
         prompts = torch.randint(0, cfg.vocab_size, (K, PREFILL_S), generator=g,
                                 device="cuda", dtype=torch.int32)
-        prefill = sv.build_prefill(cfg)
-        tails = [prefill(params, {"tokens": prompts[r:r + 1]})[:, -PREFILL_TAIL:].float().cpu()
-                 for r in range(K)]
-        torch.save(torch.cat(tails), pathlib.Path(out_dir, "prefill_tail.pt"))
         seq = torch.randint(0, cfg.vocab_size, (K, GRID_DECODE), generator=g, device="cuda",
                             dtype=torch.int32)
-        cache = M.init_cache(cfg, K, DECODE_32K.seq_len)
-        step = sv.build_decode_step(cfg)
-        out = []
-        for i in range(GRID_DECODE):
-            lg, cache = step(params, cache, seq[:, i:i + 1])
-            out.append(lg.float().cpu())
-        torch.save(torch.cat(out, dim=1), pathlib.Path(out_dir, "decode.pt"))
-        del cache
+        # an SSM or hybrid model also in f32 activations: the truth of
+        # SSM_TRUTH's rule for its bf16 routes
+        truth = cfg.family in ("ssm", "hybrid") and cfg.dtype != "float32"
+        for c, tag in ((cfg, ""), (dataclasses.replace(cfg, dtype="float32"), "_truth")):
+            if tag and not truth:
+                continue
+            prefill = sv.build_prefill(c)
+            tails = [prefill(params, {"tokens": prompts[r:r + 1]})[:, -PREFILL_TAIL:].float()
+                     .cpu() for r in range(K)]
+            torch.save(torch.cat(tails), pathlib.Path(out_dir, f"prefill_tail{tag}.pt"))
+            cache = M.init_cache(c, K, DECODE_32K.seq_len)
+            step = sv.build_decode_step(c)
+            out = []
+            for i in range(GRID_DECODE):
+                lg, cache = step(params, cache, seq[:, i:i + 1])
+                out.append(lg.float().cpu())
+            torch.save(torch.cat(out, dim=1), pathlib.Path(out_dir, f"decode{tag}.pt"))
+            del cache
     P = layout_flat(params).numel()
     batch = TokenStream(cfg.vocab_size, TRAIN_SEQ, K).batch(0, device="cuda")
     rows = batch["tokens"].shape[0] // K
@@ -7305,14 +7408,41 @@ def grid_reference(torch, out_dir, arch, K, serve=True) -> None:
     torch.cuda.empty_cache()
 
 
-def check_grid_kernels(torch, K, D, heads) -> tuple:
+# above this many columns two float32 Gram orders drift apart past rtol
+# 1e-4 (at K = 4, D = 5.1e8: 4.3e-4 between the kernel and its plain
+# version, measured on one H100): each is then held to the float64 Gram
+GRAM_F64_D = 1 << 27
+
+
+def hold_gram_f64(torch, u, gram, gp, where) -> None:
+    """Kernel 6's Gram ``gram`` and its plain version's ``gp`` against the
+    float64 Gram (column chunks of 2^24): the kernel's largest error may
+    exceed the plain version's by at most rtol 1e-4 of the largest entry
+    (``MOE_TRUTH``'s form: the two float32 sums' orders differ, and at
+    this length neither is within 1e-4 of the other)."""
+    want = torch.zeros((u.shape[0], u.shape[0]), dtype=torch.float64, device=u.device)
+    for c in range(0, u.shape[1], 1 << 24):
+        blk = u[:, c:c + (1 << 24)].double()
+        want += blk @ blk.T
+    ek = float((gram.double() - want).abs().max())
+    ep = float((gp.double() - want).abs().max())
+    top = float(want.abs().max())
+    print(f"  pairwise_gram at {where} shape K={u.shape[0]} D={u.shape[1]} vs the float64 Gram: "
+          f"kernel {ek:.4g}, plain {ep:.4g} (largest entry {top:.4g})")
+    if ek > ep + 1e-4 * top:
+        raise AssertionError(f"pairwise_gram at {where} shape: {ek} from the float64 Gram, "
+                             f"more than 1e-4 of {top} past the plain version's {ep}")
+
+
+def check_grid_kernels(torch, K, D, heads, where="a grid rank's") -> tuple:
     """Kernels 4, 6, 7 and 8 at a grid rank's launch shapes, each held
     against its plain version and timed (the wrappers ``*_cuda``, median
     CUDA-event ms) beside its bound and the PyTorch call: kernel 4 on the
     (K, D) column block with ``prev`` (statistics within rtol
     ``STAT_RTOL`` / atol ``STAT_ATOL`` of the column-chunked plain
-    version), kernel 6 (the Gram within rtol 1e-4 of ``u @ u.T``, exactly
-    symmetric; ``torch.mm``), kernel 7 with ``lcoef`` 0 (bit for bit;
+    version), kernel 6 (the Gram within rtol 1e-4 of ``u @ u.T``, or past
+    ``GRAM_F64_D`` columns by ``hold_gram_f64``, exactly symmetric;
+    ``torch.mm``), kernel 7 with ``lcoef`` 0 (bit for bit;
     ``addmv``), kernel 8 at a rank's prefill (one row, H/M heads: o within
     one bf16 rounding; SDPA).  Returns (errors, times)."""
     from repro_torch.kernels.pairwise_dist import kernel as pk
@@ -7348,7 +7478,10 @@ def check_grid_kernels(torch, K, D, heads) -> tuple:
     gp, _ = pops.pairwise_gram_plain(u)
     if not torch.equal(gram, gram.T) or not torch.equal(torch.diagonal(gram), norm2):
         raise AssertionError("pairwise_gram at the grid's shape: not exactly symmetric")
-    torch.testing.assert_close(gram, gp, rtol=1e-4, atol=1e-6 * D)
+    if D <= GRAM_F64_D:
+        torch.testing.assert_close(gram, gp, rtol=1e-4, atol=1e-6 * D)
+    else:
+        hold_gram_f64(torch, u, gram, gp, where)
     errs["pairwise_gram"] = float((gram - gp).abs().max())
     b6 = bound(4.0 * K * D, float(K * (K + 1)) * D)
     out["pairwise_gram"] = dict(
@@ -7381,7 +7514,7 @@ def check_grid_kernels(torch, K, D, heads) -> tuple:
     torch.cuda.empty_cache()
     for name, t in out.items():
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        print(f"  {name} at a grid rank's shape {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+        print(f"  {name} at {where} shape {t['shape']}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"library {lib}; max |kernel - plain| {errs[name]:.3g}")
     errs["flash_attention"] = compare_flash(torch, 1, heads, PREFILL_S, PREFILL_S, 64, True,
@@ -7390,7 +7523,8 @@ def check_grid_kernels(torch, K, D, heads) -> tuple:
     return errs, out
 
 
-def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH) -> tuple:
+def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH, layers=None,
+                  runs=GRID_RUNS) -> tuple:
     """The data axis as processes on one card: K x M ``gloo`` ranks share
     it (a ``FileStore``), a grid (``make_grid``) of ``arch`` uncut (seed 0)
     whose ranks each hold their FSDP blocks: serving (``grid_serve``) and
@@ -7398,31 +7532,35 @@ def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH) ->
     S = 1025, IPM-100 on 1, AdamW lr 1e-3, ``fsdp_params``), held to one
     process (``grid_reference``) and to the reference backend's route; then
     kernels 4, 6, 7 and 8 at a rank's shapes (``check_grid_kernels``).
+    ``layers`` cuts the model's depth, ``runs`` replaces ``GRID_RUNS``.
     Returns (launches summed over the ranks, errors, report)."""
     import tempfile
+
+    from repro_torch.configs.registry import get_config
 
     card = gpu_line()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_grid_")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    grid_reference(torch, tmp, arch, K)
+    grid_reference(torch, tmp, arch, K, layers=layers)
     ref_s = time.perf_counter() - t0
     pathlib.Path(tmp, "grid_job.json").write_text(json.dumps(dict(
-        arch=arch, K=K, M=M_, serve=True, runs=GRID_RUNS, hold=True,
+        arch=arch, layers=layers, K=K, M=M_, serve=True, runs=runs, hold=True,
         grads=str(pathlib.Path(tmp, "grads_one.f32")))))
     t0 = time.perf_counter()
     try:
         ranks = run_ranks(torch, backend, K * M_, child=grid_child, tmp=tmp,
                           timeout=GRID_TIMEOUT_S)
     finally:
-        for name in ("grads_one.f32", "prefill_tail.pt", "decode.pt"):
+        for name in ("grads_one.f32", "prefill_tail.pt", "decode.pt", "prefill_tail_truth.pt",
+                     "decode_truth.pt"):
             pathlib.Path(tmp, name).unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     launches, rep = report_grid(ranks, card, ref_s, seconds, arch, K, M_,
                                 "gloo, one card" if backend == "gloo" else "nccl")
     D = ranks[0]["report"]["train"]["wfagg fused"]["widths"][0]
-    errs, rep["kernels"] = check_grid_kernels(torch, K, D, 16 // M_)
+    errs, rep["kernels"] = check_grid_kernels(torch, K, D, get_config(arch).n_heads // M_)
     return launches, errs, rep
 
 
@@ -7522,14 +7660,483 @@ def report_grid(ranks, card, ref_s, seconds, arch, K, M_, where) -> tuple:
     return launches, rep
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the MoE, SSM and hybrid families on the model axis and the grid
+# (models/layers.py's expert split, MLA and padded heads, models/ssm.py's
+# Mamba over d_inner, the shared block; remat of every block)
+# ---------------------------------------------------------------------------
+
+FAM_M = 2                      # gloo ranks sharing the one card
+FAM_K, FAM_MALICIOUS = 4, 1    # candidates; IPM-100 on spaced_malicious(4, 1) = candidate 2
+FAM_DECODE_B, FAM_DECODE = 4, 6    # decode batch and teacher-forced tokens
+# (arch, serving layers, prefill (B, S), decode, training layers, training runs):
+# DeepSeek-V2-Lite served at 4 of 27 layers (1 dense prefix + 3 MoE) and
+# trained at 2 (the one-card MoE step's depth: K = 4 candidates hold 2K + 7
+# copies of a 1.03e9-parameter model on one card); Zamba2 at 4 of 38 (two
+# groups); Falcon-Mamba at 2 of 64; Arctic (bf16 parameters, 128 experts)
+# at 1 of 35, served only (bf16 training is ROADMAP item 12.4)
+FAM_JOBS = (
+    ("deepseek-v2-lite-16b", 4, (2, 4096), True, 2,
+     (("wfagg", "fused", 2), ("mean", "fused", 2))),
+    ("zamba2-1.2b", 4, (2, 8192), True, 4, (("wfagg", "fused", 2), ("mean", "fused", 2))),
+    ("falcon-mamba-7b", 2, (2, 8192), True, 2, (("wfagg", "fused", 2),)),
+    ("arctic-480b", 1, (1, 8192), False, 0, ()),
+)
+FAM_GRID = ("zamba2-1.2b", 4, (("wfagg", "fused", 1),))   # on the GRID_K x GRID_M grid
+FAM_TIMEOUT_S = 900
+# --only cards at four cards: Moonlight uncut served at M = 4; DeepSeek-V2-Lite at
+# 6 of 27 layers (8 would hold ~68 GB of its 2K + 7 copies a card, too close
+# to 80 GB for a one-shot run) and Falcon-Mamba-7B at 32 of 64 trained at
+# M = 4, K = 4
+CARDS_FAM_JOBS = (
+    ("moonshot-v1-16b-a3b", None, (2, 8192), True, 0, ()),
+    ("deepseek-v2-lite-16b", None, None, False, 6, (("wfagg", "fused", 2),)),
+    ("falcon-mamba-7b", None, None, False, 32, (("wfagg", "fused", 2),)),
+)
+
+
+def job_config(get_config, job):
+    """A job's config: ``job["arch"]`` cut to ``job["layers"]`` layers (None:
+    uncut)."""
+    import dataclasses
+
+    cfg = get_config(job["arch"])
+    return dataclasses.replace(cfg, n_layers=job["layers"]) if job.get("layers") else cfg
+
+
+def flash_layers(cfg) -> int:
+    """Kernel-8 launches of one prefill call at S >= 8192: every attention
+    layer of a GQA model, the hybrid's shared block once a group, none for
+    MLA (the dense ``_sdpa``) or an SSM."""
+    if cfg.family == "ssm" or cfg.use_mla:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
+
+
+def fam_jobs(rows, hold=True) -> list:
+    return [dict(arch=a, layers=sl, prefill=pf, decode=dec, train_layers=tl, runs=runs,
+                 hold=hold) for a, sl, pf, dec, tl, runs in rows]
+
+
+def fam_reference(torch, out_dir, i, job) -> None:
+    """What job ``i``'s ranks are held to in one process, computed here
+    before they start and freed: the prompts and the prefill's last
+    ``PREFILL_TAIL`` positions' logits (f32), the decode logits of
+    ``FAM_DECODE`` teacher-forced tokens at batch ``FAM_DECODE_B`` against
+    32,768 slots, each with the routing of every MoE call (probabilities
+    and picks, ``RouteRecorder``), and candidate 0's gradient of the first
+    training batch at the training depth (one row of ravel order)."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import DECODE_32K
+    from repro_torch.core.flatten import layout_flat
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.train import serve as sv
+    from repro_torch.train import trainer as tr
+
+    d = pathlib.Path(out_dir)
+    if job["prefill"]:
+        cfg = job_config(get_config, job)
+        moe = bool(cfg.n_experts)
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        g = torch.Generator(device="cuda").manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab_size, job["prefill"], generator=g, device="cuda",
+                                dtype=torch.int32)
+        # the f32 truth (SSM_TRUTH, MOE_TRUTH): the model in f32 activations,
+        # the bf16 route's routing replayed; none beside bf16 parameters, and
+        # none for Falcon-Mamba at 2 layers, whose model-axis route sits at a
+        # third of the dense rule from one process (measured on one H100)
+        truth = (cfg.param_dtype == "float32" and cfg.dtype != "float32"
+                 and cfg.family in ("moe", "hybrid"))
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        with (RouteRecorder() if moe else contextlib.nullcontext()) as rec:
+            logits = sv.build_prefill(cfg)(params, {"tokens": prompts})
+        out = {"prompts": prompts.cpu(), "tail": logits[:, -PREFILL_TAIL:].float().cpu(),
+               "route": [tuple(t.cpu() for t in c) for c in rec.calls] if moe else None}
+        del logits
+        if truth:
+            with (RouteRecorder([c[1] for c in rec.calls]) if moe
+                  else contextlib.nullcontext()):
+                out["truth"] = sv.build_prefill(cfg32)(params, {"tokens": prompts})[
+                    :, -PREFILL_TAIL:].cpu()
+        torch.save(out, d / f"fam{i}_prefill.pt")
+        del out, rec
+        if job["decode"]:
+            seq = torch.randint(0, cfg.vocab_size, (FAM_DECODE_B, FAM_DECODE), generator=g,
+                                device="cuda", dtype=torch.int32)
+            out = {"seq": seq.cpu()}
+            for c, key in ((cfg, "logits"), (cfg32, "truth")):
+                if key == "truth" and not truth:
+                    continue
+                cache = M.init_cache(c, FAM_DECODE_B, DECODE_32K.seq_len)
+                step = sv.build_decode_step(c)
+                lgs = []
+                replay = ([r[1].to("cuda") for r in out["route"]] if key == "truth" and moe
+                          else None)
+                with (RouteRecorder(replay) if moe else contextlib.nullcontext()) as rec:
+                    for t in range(FAM_DECODE):
+                        lg, cache = step(params, cache, seq[:, t:t + 1])
+                        lgs.append(lg.float().cpu())
+                out[key] = torch.cat(lgs, dim=1)
+                if key == "logits":
+                    out["route"] = [tuple(t.cpu() for t in c_) for c_ in rec.calls] if moe \
+                        else None
+                del cache, rec
+            torch.save(out, d / f"fam{i}_decode.pt")
+            del out
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if job["train_layers"] and job["hold"]:
+        cfg = dataclasses.replace(get_config(job["arch"]), n_layers=job["train_layers"])
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        P = layout_flat(params).numel()
+        batch = TokenStream(cfg.vocab_size, TRAIN_SEQ, FAM_K).batch(0, device="cuda")
+        rows = batch["tokens"].shape[0] // FAM_K
+        G = torch.empty((P,), dtype=torch.float32, device="cuda")
+        # an MoE's routing recorded (remat off: each layer routes once) for
+        # the ranks to replay in their step-1 hold (TPObserver.replayed_grads)
+        moe = bool(cfg.n_experts)
+        with (RouteRecorder() if moe else contextlib.nullcontext()) as rec:
+            tr.loss_and_grad(dataclasses.replace(cfg, remat=False) if moe else cfg, params,
+                             {"tokens": batch["tokens"][:rows]}, G)
+        with open(d / f"fam{i}_grads.f32", "wb") as f:
+            f.write(G.cpu().numpy().tobytes())
+        if moe:
+            torch.save({"cfg": cfg, "calls": [tuple(t.detach().cpu() for t in c)
+                                              for c in rec.calls]},
+                       d / f"fam{i}_grads.f32.route")
+        del rec
+        del params, G
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def fam_serve(torch, cfg, mesh, out_dir, rank, i, job) -> tuple:
+    """Job ``i``'s serving part on one model rank: the model cut at init
+    (``init_params(mesh=)``; ranks sharing a card one after another, so
+    that one whole block exists on a card at a time), a warm prefill, then a
+    timed one that replays the one-process prefill's routing
+    (``RouteRecorder``; its own picks recorded); kernel 8 on the rank's
+    heads at ``flash_layers`` launches a call; the last ``PREFILL_TAIL``
+    positions' logits gathered and, on rank 0, held to one process's by
+    the dense rule, with every routing difference a near-tie
+    (``routing_diff``); decode of the same teacher-forced tokens against
+    32,768 slots (0 launches), its routing replayed, held likewise.
+    Returns (launches, report)."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.shapes import DECODE_32K
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.train import serve as sv
+
+    rep, d = {}, pathlib.Path(out_dir)
+    M_ = mesh.shape["model"]
+    moe = bool(cfg.n_experts)
+    n_moe = cfg.n_layers - cfg.first_dense_layers if moe else 0
+    t0 = time.perf_counter()
+    # ranks sharing a card draw one after another
+    turns = M_ if torch.cuda.device_count() < M_ else 1
+    for r in range(turns):
+        if turns == 1 or r == rank:
+            params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   mesh=mesh)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    rep["init_s"] = round(time.perf_counter() - t0, 2)
+    rep["params_rank"] = sum(p.numel() for p in params.parameters())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    if (d / f"fam{i}_prefill.pt").exists():
+        ref = torch.load(d / f"fam{i}_prefill.pt")
+        prompts = ref["prompts"].to("cuda")
+    else:       # no one-process model fits: held to nothing but its own checks
+        ref = None
+        prompts = torch.randint(0, cfg.vocab_size, job["prefill"], generator=g, device="cuda",
+                                dtype=torch.int32)
+    moe = moe and ref is not None
+    clock = CollectiveClock(torch)
+    try:
+        prefill = sv.build_prefill(cfg, mesh=mesh, gather=False)
+        zero_counts()
+        warm = prefill(params, {"tokens": prompts})
+        del warm
+        clock.take()
+        torch.cuda.reset_peak_memory_stats()
+        replay = [c[1].to("cuda") for c in ref["route"]] if moe else None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with (RouteRecorder(replay) if moe else contextlib.nullcontext()) as rec:
+            logits = prefill(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        rep["prefill_collectives"] = clock.take()
+        rep["prefill_peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+        counts = read_counts()
+        tc = _module("flash_attention").launches_tc
+        n_flash = 2 * flash_layers(cfg)
+        if counts != only_counts(flash_attention=n_flash) or tc != n_flash:
+            raise AssertionError(f"{cfg.name} prefill launches {counts} ({tc} tensor-core), "
+                                 f"expected {n_flash} over two calls, all tensor-core")
+        launches = dict(counts, **{"flash_attention[tensor_core]": tc})
+        B, S = prompts.shape
+        rep["prefill_ms"] = round(ms, 2)
+        rep["prefill_tokens_per_s"] = round(B * S / ms * 1e3, 1)
+        tail = shd.gather_tensor(logits[:, -PREFILL_TAIL:].contiguous(),
+                                 (None, None, "model"), mesh).float()
+        del logits
+        if not bool(torch.isfinite(tail).all()):
+            raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+        if rank == 0 and ref is not None:
+            label = f"{cfg.name} ({cfg.n_layers} layers) at M = {M_}"
+            rep["prefill_hold"] = hold_fam(torch, f"{label} prefill {B} x {S}, the last "
+                                           f"{PREFILL_TAIL} positions,", tail, ref)
+            if moe:
+                rep["prefill_routing"] = routing_diff(
+                    torch, f"{label} prefill routing vs one process",
+                    [tuple(t.to("cuda") for t in c) for c in ref["route"]],
+                    [tuple(t for t in c) for c in rec.calls])
+        del tail, ref, rec, replay
+        if job["decode"]:
+            ref = torch.load(d / f"fam{i}_decode.pt") if (d / f"fam{i}_decode.pt").exists() \
+                else None
+            seq = ref["seq"].to("cuda") if ref is not None else torch.randint(
+                0, cfg.vocab_size, (FAM_DECODE_B, FAM_DECODE), generator=g, device="cuda",
+                dtype=torch.int32)
+            cache = M.init_cache(cfg, FAM_DECODE_B, DECODE_32K.seq_len, mesh=mesh)
+            step = sv.build_decode_step(cfg, mesh=mesh)
+            replay = [c[1].to("cuda") for c in ref["route"]] if moe else None
+            zero_counts()
+            clock.take()
+            out = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with (RouteRecorder(replay) if moe else contextlib.nullcontext()) as rec:
+                for j in range(FAM_DECODE):
+                    lg, cache = step(params, cache, seq[:, j:j + 1])
+                    out.append(lg)
+                torch.cuda.synchronize()
+            rep["decode_ms"] = round(1e3 * (time.perf_counter() - t) / FAM_DECODE, 3)
+            rep["decode_collectives_per_step"] = {k: round(v / FAM_DECODE, 3)
+                                                  for k, v in clock.take().items()}
+            if read_counts() != only_counts():
+                raise AssertionError(f"{cfg.name} decode launched {read_counts()}")
+            st = torch.cat(out, dim=1).float()
+            if not bool(torch.isfinite(st).all()):
+                raise AssertionError(f"{cfg.name}: non-finite decode logits")
+            if rank == 0 and ref is not None:
+                label = f"{cfg.name} ({cfg.n_layers} layers) at M = {M_}"
+                rep["decode_hold"] = hold_fam(
+                    torch, f"{label} decode at batch {FAM_DECODE_B}, 32,768 slots, over "
+                    f"{FAM_DECODE} teacher-forced tokens,", st, dict(ref, tail=ref["logits"]))
+                if moe:
+                    rep["decode_routing"] = routing_diff(
+                        torch, f"{label} decode routing vs one process",
+                        rec_per_layer(torch, [tuple(t.to("cuda") for t in c)
+                                              for c in ref["route"]], n_moe),
+                        rec.per_layer(torch, n_moe))
+            del cache, ref, st, out, rec
+        rep["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+    finally:
+        clock.close()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rep
+
+
+def hold_fam(torch, label, got, ref) -> dict:
+    """The model-axis route's logits ``got`` against one process's
+    (``ref["tail"]``): the dense rule, or, where a bf16 route sits past it
+    and an f32 truth exists (``ref["truth"]``), ``SSM_TRUTH``'s rule
+    (``hold_bf16_route``)."""
+    want = ref["tail"].to("cuda")
+    if ref.get("truth") is None:
+        check_logits(torch, f"{label} vs one process", got, want)
+        return {"rule": "dense"}
+    return hold_bf16_route(torch, f"{label} model axis", got, "one process", want,
+                           ref["truth"].to("cuda").float())
+
+
+def rec_per_layer(torch, calls, n_moe):
+    """Recorded (probs, picks) calls as one pair per MoE layer, the calls of
+    that layer joined along S (decode steps in order)."""
+    return [tuple(torch.cat([c[i] for c in calls[l::n_moe]], dim=1) for i in range(2))
+            for l in range(n_moe)]
+
+
+def fam_child(rank, S, store_path, out_dir, backend) -> None:
+    """One rank of the families' model-axis part: joins the ``backend``
+    group of S ranks (on card ``rank`` modulo the cards); per job of
+    ``out_dir``/``fam_job.json`` the serving part, then the training part
+    (``tp_train`` at ``FAM_K`` candidates); writes its launches and
+    reports as JSON."""
+    import os
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    jobs = json.loads(pathlib.Path(out_dir, "fam_job.json").read_text())
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    res = {"rank": rank, "jobs": []}
+    try:
+        from repro_torch.configs.registry import get_config
+        from repro_torch.launch.mesh import make_test_mesh
+
+        dist.init_process_group(backend, store=dist.FileStore(store_path, S), rank=rank,
+                                world_size=S)
+        try:
+            mesh = make_test_mesh(data=1, model=S, model_group=dist.group.WORLD)
+            for i, job in enumerate(jobs):
+                launches = dict.fromkeys(KERNELS, 0)
+                out = {"arch": job["arch"], "report": {}}
+                if job["prefill"]:
+                    cfg = job_config(get_config, job)
+                    la, out["report"]["serve"] = fam_serve(torch, cfg, mesh, out_dir, rank, i,
+                                                           job)
+                    for k in KERNELS:
+                        launches[k] += la[k]
+                    out["tc"] = la["flash_attention[tensor_core]"]
+                if job["train_layers"]:
+                    cfg = dataclasses.replace(get_config(job["arch"]),
+                                              n_layers=job["train_layers"])
+                    grads = pathlib.Path(out_dir, f"fam{i}_grads.f32")
+                    la, out["report"]["train"] = tp_train(
+                        torch, cfg, S, rank, [tuple(r) for r in job["runs"]],
+                        grads_file=str(grads) if grads.exists() else None, hold=job["hold"],
+                        K=FAM_K, n_mal=FAM_MALICIOUS, f=FAM_MALICIOUS)
+                    for k in KERNELS:
+                        launches[k] += la[k]
+                out["launches"] = {"tp": launches}
+                res["jobs"].append(out)
+        finally:
+            dist.destroy_process_group()
+    except Exception:   # noqa: BLE001 - the parent fails the run on it
+        import traceback
+        res["error"] = traceback.format_exc()
+    pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def run_fam_path(torch, backend="gloo", S=FAM_M, rows=FAM_JOBS, hold=True) -> tuple:
+    """The MoE, SSM and hybrid families on the model axis: S ranks (``gloo``
+    sharing the one card, or ``nccl`` one a card) serve and train each job
+    of ``rows`` at full width (``fam_serve``, ``tp_train``), held to one
+    process (``fam_reference``, with ``hold``) and to the reference
+    backend's route.  Returns (launches summed over the ranks and jobs,
+    report)."""
+    import tempfile
+
+    card = gpu_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fam_")
+    jobs = fam_jobs(rows, hold)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if hold:
+        for i, job in enumerate(jobs):
+            fam_reference(torch, tmp, i, job)
+    ref_s = time.perf_counter() - t0
+    pathlib.Path(tmp, "fam_job.json").write_text(json.dumps(jobs))
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(torch, backend, S, child=fam_child, tmp=tmp, timeout=FAM_TIMEOUT_S)
+    finally:
+        for f in pathlib.Path(tmp).glob("fam*_*"):
+            f.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
+    where = "gloo, one card" if backend == "gloo" else f"nccl, {S} cards"
+    print(f"  {card}: the families on {S} model ranks ({where}); one-process references "
+          f"{ref_s:.1f} s, the ranks {seconds:.1f} s")
+    launches = dict.fromkeys(KERNELS, 0)
+    launches["flash_attention[tensor_core]"] = 0
+    report = {"card": card, "reference_s": round(ref_s, 1), "ranks_s": round(seconds, 1)}
+    for i, job in enumerate(jobs):
+        per = [r["jobs"][i] for r in ranks]
+        rep = {"per_rank": [p["report"] for p in per]}
+        if job["prefill"]:
+            for r, p in enumerate(per):
+                s_ = p["report"]["serve"]
+                B, S_ = job["prefill"]
+                dec = (f"; decode batch {FAM_DECODE_B} at 32,768 slots {s_['decode_ms']} ms a "
+                       f"step (collectives a step {s_['decode_collectives_per_step']})"
+                       if job["decode"] else "")
+                print(f"  rank {r} {job['arch']} serve ({job['layers'] or 'all'} layers): "
+                      f"{s_['params_rank']} parameters, init {s_['init_s']} s; prefill {B} x "
+                      f"{S_} {s_['prefill_ms']} ms ({s_['prefill_tokens_per_s']} tokens/s; "
+                      f"collectives {s_['prefill_collectives']}), peak "
+                      f"{s_['prefill_peak_gib']} GiB{dec}; peak {s_['peak_gib']} GiB")
+                launches["flash_attention[tensor_core]"] += p.get("tc", 0)
+        if job["train_layers"]:
+            print(f"  {job['arch']} trained at {job['train_layers']} layers, K = {FAM_K}:")
+            la, rep["train"] = report_tp([{"rank": r, "report": {"train": p["report"]["train"]},
+                                           "launches": p["launches"]}
+                                          for r, p in enumerate(per)],
+                                         card, 0.0, seconds, job["arch"], where, K=FAM_K,
+                                         n_mal=FAM_MALICIOUS)
+        for p in per:
+            for k, c in p["launches"]["tp"].items():
+                launches[k] += c
+        report[job["arch"]] = rep
+    return launches, report
+
+
+def check_fam_kernels(torch, D) -> tuple:
+    """Kernels 4, 6 and 7 at the families' largest model-axis launch shape
+    (the DeepSeek step's (``FAM_K``, D = P_s) split matrix) and kernel 8
+    at a rank's heads of Arctic's prefill (B = 1, 28 live heads padded to
+    32, hd 128) and of Zamba2's shared block (B = 2, 16 heads, hd 64),
+    each held against its plain version and timed beside its bound and
+    the PyTorch call (``check_grid_kernels``, ``compare_flash``,
+    ``time_flash``).  Returns (errors, times)."""
+    errs, out = check_grid_kernels(torch, FAM_K, D, 16, where="the families' model-axis")
+    errs["flash_attention"] = [errs["flash_attention"]]
+    out["flash_attention"] = {"zamba2_rank": time_flash(torch, 2, 16, PREFILL_S, 64, seed=81)}
+    errs["flash_attention"].append(compare_flash(torch, 1, 32, PREFILL_S, PREFILL_S, 128, True,
+                                                 "bfloat16", 128, 82))
+    out["flash_attention"]["arctic_rank"] = time_flash(torch, 1, 32, PREFILL_S, 128, seed=83)
+    return errs, out
+
+
+def run_tpfam(torch) -> tuple:
+    """The families' part: ``run_fam_path`` on ``FAM_M`` gloo ranks, then
+    ``FAM_GRID`` on the ``GRID_K`` x ``GRID_M`` grid (``run_grid_path``),
+    then kernels 4, 6, 7 and 8 at the new shapes (``check_fam_kernels``).
+    Returns (launches summed over both, errors, report)."""
+    launches, report = run_fam_path(torch)
+    arch, layers, runs = FAM_GRID
+    print(f"  {arch} ({layers} layers) on the {GRID_K} x {GRID_M} grid:")
+    la, gerrs, report["grid"] = run_grid_path(torch, arch=arch, layers=layers, runs=runs)
+    for k in KERNELS:
+        launches[k] += la[k]
+    train = report["deepseek-v2-lite-16b"]["train"]["per_rank"][0]["train"]
+    errs, report["kernels"] = check_fam_kernels(torch, train["wfagg fused"]["P"][0])
+    report["grid_kernels"] = report["grid"].pop("kernels")
+    for name, e in gerrs.items():
+        errs.setdefault(name, [])
+        errs[name] = (errs[name] if isinstance(errs[name], list) else [errs[name]]) + [e]
+    return launches, errs, report
+
+
 def main(argv=()) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only not in ("distributed", "cards", "train", "moe", "ssm", "encdec", "tp",
-                             "grid"):
-        print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm|encdec|tp|grid]",
-              file=sys.stderr)
+                             "grid", "tpfam", "tpfamcards"):
+        print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm|encdec|tp|grid|"
+              "tpfam|tpfamcards]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7605,6 +8212,22 @@ def main(argv=()) -> int:
         print(json.dumps({"grid": {"launches": {k: c for k, c in launches.items() if c},
                                    "max_abs_err": errs, "report": report}}))
         return 0
+    if only == "tpfam":
+        print(f"[3] the MoE, SSM and hybrid families on the model axis and the grid alone "
+              f"(--only tpfam): {FAM_M} gloo ranks sharing the card, then {FAM_GRID[0]} on "
+              f"{GRID_K} x {GRID_M}; no kernels or ok line")
+        launches, errs, report = run_tpfam(torch)
+        print(json.dumps({"tpfam": {"launches": {k: c for k, c in launches.items() if c},
+                                    "max_abs_err": errs, "report": report}}))
+        return 0
+    if only == "tpfamcards":
+        print(f"[3] the families on one nccl rank per card alone (--only tpfamcards): "
+              f"{torch.cuda.device_count()} cards; no kernels or ok line")
+        la, report = run_fam_path(torch, "nccl", torch.cuda.device_count(), CARDS_FAM_JOBS,
+                                  hold=False)
+        print(json.dumps({"tpfamcards": {"launches": {k: c for k, c in la.items() if c},
+                                         "report": report}}))
+        return 0
     if only == "cards":
         print(f"[3] the distributed parts on one nccl rank per card (--only cards): "
               f"{torch.cuda.device_count()} cards; no kernels or ok line")
@@ -7617,6 +8240,11 @@ def main(argv=()) -> int:
             print(f"[3] the grid on one nccl rank per card: {CARDS_GRID_ARCH} uncut at K = 4 x "
                   f"M = 1 (fsdp_params), then {GRID_ARCH} at K = 2 x M = 2")
             cards["grid"] = run_grid_cards(torch)
+            print("[3] the families on one nccl rank per card at M = 4: Moonlight uncut served, "
+                  "DeepSeek-V2-Lite (6 layers) and Falcon-Mamba-7B (32 layers) trained, K = "
+                  f"{FAM_K}")
+            la, cards["families"] = run_fam_path(torch, "nccl", 4, CARDS_FAM_JOBS, hold=False)
+            cards["families"]["launches"] = {k: c for k, c in la.items() if c}
         print(json.dumps({"cards": cards}))
         return 0
 
@@ -7874,7 +8502,7 @@ def main(argv=()) -> int:
     timed["flash_attention"]["moe_shapes"] = moe_flash
 
     print(f"{at()} the SSM and hybrid families: kernel 8 at Zamba2's prefill shape; "
-          "Falcon-Mamba-7B (8 of 64 layers) and Zamba2-1.2B (20 of 38) served; Zamba2 "
+          "Falcon-Mamba-7B (4 of 64 layers) and Zamba2-1.2B (8 of 38) served; Zamba2 "
           f"({SSM_TRAIN_LAYERS} layers) trained on the stacked robust-DP trainer, "
           f"K={SSM_TRAIN_K}")
     ssm_launches, ssm_err, ssm_flash, _ = run_ssm_path(torch)
@@ -7906,6 +8534,19 @@ def main(argv=()) -> int:
     for name, e in grid_errs.items():
         errs[name].append(e)
 
+    print(f"{at()} the MoE, SSM and hybrid families on the model axis: DeepSeek-V2-Lite, "
+          f"Zamba2-1.2B, Falcon-Mamba-7B and Arctic at full width, cut in depth, split over "
+          f"{FAM_M} gloo ranks sharing the card (served; the first three trained at K = "
+          f"{FAM_K}); {FAM_GRID[0]} ({FAM_GRID[1]} layers) on the {GRID_K} x {GRID_M} grid; "
+          "kernels 4, 6, 7 and 8 at their shapes")
+    fam_launches, fam_errs, fam_report = run_tpfam(torch)
+    for name, t in fam_report["kernels"].items():
+        timed[name]["families"] = t
+    for name, t in fam_report["grid_kernels"].items():
+        timed[name]["families_grid"] = t
+    for name, e in fam_errs.items():
+        errs[name] += e if isinstance(e, list) else [e]
+
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
     # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
@@ -7924,13 +8565,15 @@ def main(argv=()) -> int:
     # 1, 4 and 6; the model axis's kernel 8 (each rank's prefills) and its
     # training's kernels 4, 6 and 7, summed over the ranks; the grid's kernel
     # 8 (each rank's prefill) and its training's kernels 4, 6 and 7, summed
-    # over the ranks
+    # over the ranks; the families' kernel 8 (Zamba2's and Arctic's prefills on
+    # the model axis, Zamba2's on the grid) and kernels 4, 6 and 7 of their
+    # training, summed over the ranks
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
                 + adaptive_launches[name] + table_launches[name]
                 + gathered_launches[name] + serve_launches[name] + dist_launches[name]
                 + train_launches[name] + moe_launches[name] + ssm_launches[name]
                 + encdec_launches[name] + tp_launches[name] + grid_launches[name]
-                for name in KERNELS}
+                + fam_launches[name] for name in KERNELS}
     # the model axis's and the grid's prefills run on the tensor-core kernel
     # only (checked per rank), so their kernel-8 launches are all tensor-core
     timed["flash_attention"]["launches_tc"] = (serve_launches["flash_attention[tensor_core]"]
@@ -7938,7 +8581,8 @@ def main(argv=()) -> int:
                                                + ssm_launches["flash_attention"]
                                                + encdec_launches["flash_attention"]
                                                + tp_launches["flash_attention"]
-                                               + grid_launches["flash_attention"])
+                                               + grid_launches["flash_attention"]
+                                               + fam_launches["flash_attention"])
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=replaces,
         launches=launches[name], max_abs_err=max(errs[name]), **timed[name])

@@ -243,6 +243,21 @@ def split_dims(model: nn.Module) -> List[Optional[int]]:
     return out
 
 
+def split_cuts(model: nn.Module) -> List[Optional[Tuple[object, int]]]:
+    """Per leaf of ``module_tree(model)``, in ravel order, (its cut over the
+    model axis, ``distributed.sharding.Cut`` with a stacked leaf's L axis
+    counted; the whole extent of that dim) or None for a replicated leaf."""
+    cuts = getattr(model, "tp_cuts", {})
+    names = {id(p): name for name, p in model.named_parameters()}
+    out = []
+    for path, ps in leaf_params(model):
+        c = cuts.get(names[id(ps[0])])
+        if c is not None and path[0] in STACKED:
+            c = (c[0]._replace(dim=c[0].dim + 1), c[1])
+        out.append(c)
+    return out
+
+
 def unravel_rows_split(mats: Tuple[Tensor, Tensor], model: nn.Module) -> dict:
     """The candidate tree of a model rank (leading K axis) whose split
     leaves are views of ``mats[0]`` (K, P_s) and whose replicated leaves

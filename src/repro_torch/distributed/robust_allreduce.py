@@ -131,6 +131,7 @@ from repro_torch.core.flatten import unravel_rows
 from repro_torch.core.trust import wfagg_scores
 from repro_torch.core.wfagg import (
     TemporalState, WFAggConfig, wfagg_t_decide, wfagg_t_select)
+from repro_torch.distributed.sharding import as_cut, take_block
 from repro_torch.distributed.spmd import all_gather_in_rank_order, psum_stats
 from repro_torch.kernels.pairwise_dist.ops import pairwise_gram
 from repro_torch.kernels.robust_stats.ops import robust_stats, wfagg_round_indexed
@@ -172,8 +173,10 @@ class RobustAggConfig:
 class ModelShards(NamedTuple):
     """A candidate tree's place on the model axis: ``axis`` the rank's
     ``launch.mesh.ModelAxis``; ``split_dims``, per leaf in tree order, the
-    dim of the unbatched leaf split over the model axis, None for a
-    replicated leaf (``core.flatten.split_dims``)."""
+    dim of the unbatched leaf split over the model axis (an int, or a
+    ``distributed.sharding.Cut`` where the rank's block is not one plain
+    block of it), None for a replicated leaf (``core.flatten.split_dims``,
+    ``split_cuts``)."""
 
     axis: Any
     split_dims: Tuple[Optional[int], ...]
@@ -186,7 +189,8 @@ class GridShards(NamedTuple):
     (``leaf_groups``) and per group whether this rank counts it
     (``counted``); for the noise attack, per leaf the cuts of its whole
     (K, ...) normals to this rank's part: ``cuts``, (dim of the unbatched
-    leaf, parts, this rank's part) in the order they apply."""
+    leaf or its ``sharding.Cut``, parts, this rank's part) in the order
+    they apply."""
 
     group: Any
     leaf_groups: Tuple[int, ...]
@@ -568,11 +572,10 @@ def _noise_block(leaf: Tensor, cuts, generator) -> Tensor:
     parts, part) of ``cuts``."""
     shape = list(leaf.shape)
     for dim, parts, _ in cuts:
-        shape[dim + 1] *= parts
+        shape[as_cut(dim).dim + 1] *= parts
     z = torch.randn(shape, generator=generator, dtype=leaf.dtype, device=leaf.device)
     for dim, parts, part in cuts:
-        n = z.shape[dim + 1] // parts
-        z = z.narrow(dim + 1, part * n, n)
+        z = take_block(z, as_cut(dim).shifted(1), parts, part)
     return z.contiguous() if cuts else z
 
 

@@ -30,11 +30,28 @@ runs one process per shard and names its collectives itself.
 where a split would cut a head: KV heads are replicated when ``n_kv_heads
 % M != 0``, where the reference's GSPMD may split a head's columns (a
 layout it pays for in collectives; the port's explicit collectives sit
-at head boundaries).
+at head boundaries).  ``tp_cut`` says how a rank's block sits in the
+whole leaf where it is not one contiguous block of the spec's dim (the
+port's two other deviations, named in ROADMAP queue 3):
+
+  runs     a Mamba mixer's ``in_proj`` (d, 2 di) holds x's columns, then
+           z's; the spec cuts the 2 di columns in M contiguous blocks (at
+           M = 2 one rank all of x, the other all of z), the port gives
+           rank r its block of x beside its block of z (two runs, each
+           split over model), so that the mixer runs on the rank's di/M
+           channels without an exchange;
+  padded   a padded-head config (``pad_heads_to``) whose query heads M
+           does not divide (Arctic's 56 at M = 16): ``wq``/``bq``/``wo``
+           are zero-padded to ``pad_heads_to`` heads and each rank holds
+           ``pad_heads_to / M`` of them, the live ones in order (the spec
+           splits the 56 heads' columns mid-head).
+
+``shard_tensor`` / ``gather_tensor`` / ``take_block`` take the cut and
+invert each other bit for bit.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -230,18 +247,27 @@ def activation_rules(mode: str, multi_pod: bool) -> Dict[str, Any]:
 # the port's own: what a rank holds, and moving between whole and shard
 # ---------------------------------------------------------------------------
 
-def model_dims(cfg: ArchConfig) -> Dict[str, int]:
-    """The global sizes of the logical axes the dense family's layers
-    annotate (``logical.shard`` checks the local extents against them)."""
-    return {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "ff": cfg.d_ff,
-            "vocab": cfg.vocab_size}
+def model_dims(cfg: ArchConfig, mesh=None) -> Dict[str, int]:
+    """The global sizes of the logical axes the layers annotate
+    (``logical.shard`` checks the local extents against them): the query
+    heads are the ``pad_heads_to`` head slots where the ranks hold slots
+    (``padded_heads``); ``expert`` the routed experts, ``inner`` a Mamba
+    mixer's ``d_inner`` channels."""
+    slots = padded_heads(cfg, _axis_size(mesh, "model"))
+    dims = {"heads": cfg.pad_heads_to if slots else cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+            "ff": cfg.d_ff, "vocab": cfg.vocab_size}
+    if cfg.n_experts:
+        dims["expert"] = cfg.n_experts
+    if cfg.family in ("ssm", "hybrid"):
+        dims["inner"] = cfg.d_inner_
+    return dims
 
 
 def tp_rules(cfg: ArchConfig, rules: Dict[str, Any], mesh) -> Dict[str, Any]:
     """``rules`` with every logical axis that the mesh axis it maps to does
     not divide mapped to None, as ``prune_spec`` replicates such dims (KV
     heads over a model axis that does not divide them)."""
-    dims = model_dims(cfg)
+    dims = model_dims(cfg, mesh)
     return {a: (None if a in dims and dims[a] % _axis_size(mesh, ax) else ax)
             for a, ax in rules.items()}
 
@@ -249,21 +275,108 @@ _KV = ("wk", "wv", "bk", "bv")
 _HEADS = ("wq", "bq", "wo")
 
 
+def padded_heads(cfg: ArchConfig, M: int) -> bool:
+    """Whether a rank holds ``pad_heads_to / M`` head slots of the padded
+    layout (``tp_cut``'s ``padded``): a padded-head config whose query
+    heads M does not divide."""
+    return bool(M > 1 and cfg.pad_heads_to and cfg.n_heads % M)
+
+
 def tp_layout(cfg: ArchConfig, name: str, shape: Tuple[int, ...], mesh) -> Spec:
     """The spec of the block of a parameter leaf (``name``, whole ``shape``)
     that a rank of the model axis holds: ``param_specs``'s tp_only rule,
     with the KV projections replicated when ``n_kv_heads % M != 0``.  A
-    query-head split that would cut a head raises."""
-    spec = leaf_spec(cfg, name, shape, mesh=mesh)
+    query-head split that would cut a head raises, except for a
+    padded-head config (``tp_cut``'s head slots); so does a split of the
+    experts that leaves a rank none whole."""
     M = _axis_size(mesh, "model")
+    if name in _HEADS and padded_heads(cfg, M):
+        # the spec of the padded leaf: its head slots split over model
+        hd = shape[1 if name == "wq" else 0] // cfg.n_heads
+        shape = tuple(cfg.pad_heads_to * hd if i == (1 if name == "wq" else 0) else n
+                      for i, n in enumerate(shape))
+    spec = leaf_spec(cfg, name, shape, mesh=mesh)
     if M == 1:
         return spec
     if name in _KV and cfg.n_kv_heads % M:
         return (None,) * len(shape)
-    if name in _HEADS and "model" in spec and cfg.n_heads % M:
+    if name in _HEADS and "model" in spec and cfg.n_heads % M and not cfg.pad_heads_to:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_heads} query heads do not split over model = {M}")
+    if name in ("w_gate", "w_up", "w_down") and len(shape) == 3 and "model" not in spec:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_experts} experts do not split over model = {M}")
     return spec
+
+
+class Cut(NamedTuple):
+    """How a rank's block of a leaf split over ``model`` sits in the whole
+    leaf: along ``dim``, the dim zero-padded to ``padded`` first (0: not
+    padded), then cut into ``runs`` equal runs, each split into M blocks;
+    the rank's block is its block of each run, concatenated."""
+
+    dim: int
+    runs: int = 1
+    padded: int = 0
+
+    def shifted(self, lead: int) -> "Cut":
+        return self._replace(dim=self.dim + lead)
+
+
+def tp_cut(cfg: ArchConfig, param: str, shape: Tuple[int, ...], mesh) -> Optional[Cut]:
+    """The cut of a parameter (its dotted module name, e.g.
+    ``layers.0.mixer.in_proj``; its whole per-layer ``shape``) on the model
+    axis, or None where a rank holds it whole (see the module docstring)."""
+    name = param.rsplit(".", 1)[-1]
+    spec = tp_layout(cfg, name, shape, mesh)
+    if "model" not in spec:
+        return None
+    dim = spec.index("model")
+    runs = 2 if name == "in_proj" and f".{param}".endswith(".mixer.in_proj") else 1
+    padded = 0
+    if name in _HEADS and padded_heads(cfg, _axis_size(mesh, "model")):
+        padded = cfg.pad_heads_to * (shape[dim] // cfg.n_heads)
+    return Cut(dim, runs, padded)
+
+
+def as_cut(cut: Union[int, Cut]) -> Cut:
+    return cut if isinstance(cut, Cut) else Cut(cut)
+
+
+def take_block(full: torch.Tensor, cut: Union[int, Cut], parts: int, part: int
+               ) -> torch.Tensor:
+    """Block ``part`` of ``parts`` of ``full`` along a ``Cut`` (an int: a
+    plain split of that dim), a view where it can be."""
+    cut = as_cut(cut)
+    d = cut.dim
+    if cut.padded and cut.padded != full.shape[d]:
+        pad = [0, 0] * (full.ndim - 1 - d) + [0, cut.padded - full.shape[d]]
+        full = torch.nn.functional.pad(full, pad)
+    n = full.shape[d]
+    if n % (cut.runs * parts):
+        raise ValueError(f"dim {d} of {tuple(full.shape)} does not split into "
+                         f"{cut.runs} x {parts}")
+    if cut.runs == 1:
+        step = n // parts
+        return full.narrow(d, part * step, step)
+    runs = full.unflatten(d, (cut.runs, parts, n // (cut.runs * parts)))
+    return runs.select(d + 1, part).flatten(d, d + 1)
+
+
+def join_blocks(blocks: Sequence[torch.Tensor], cut: Union[int, Cut],
+                whole: int = 0) -> torch.Tensor:
+    """The inverse of ``take_block``: the whole leaf from every rank's block
+    in rank order; a padded dim cut back to ``whole``."""
+    cut = as_cut(cut)
+    d = cut.dim
+    if cut.runs == 1:
+        out = torch.cat(list(blocks), dim=d)
+    else:
+        runs = [b.unflatten(d, (cut.runs, b.shape[d] // cut.runs)) for b in blocks]
+        out = torch.cat(runs, dim=d + 1).flatten(d, d + 1)
+    if cut.padded and whole:
+        out = out.narrow(d, 0, whole)
+    return out
 
 
 def _coords(rank: Union[int, Dict[str, int]]) -> Dict[str, int]:
@@ -282,28 +395,34 @@ def _block(axis, mesh, coords: Dict[str, int]) -> Tuple[int, int]:
 
 
 def shard_tensor(full: torch.Tensor, spec: Spec, mesh,
-                 rank: Union[int, Dict[str, int]]) -> torch.Tensor:
+                 rank: Union[int, Dict[str, int]], cut: Optional[Cut] = None
+                 ) -> torch.Tensor:
     """The block of ``full`` that ``rank`` holds under ``spec`` (an int: the
     rank's index on the model axis; a dict: its index on each axis), a
-    contiguous copy."""
+    contiguous copy; ``cut`` (``tp_cut``) the model dim's, where it is not
+    a plain split."""
     coords = _coords(rank)
     out = full
     for dim, ax in enumerate(spec):
         if ax is None:
             continue
         i, n = _block(ax, mesh, coords)
-        if out.shape[dim] % n:
+        mine = cut if (ax == "model" and cut is not None) else dim
+        if as_cut(mine).padded == 0 and out.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split over {n}")
-        step = out.shape[dim] // n
-        out = out.narrow(dim, i * step, step)
-    return out.contiguous()
+        out = take_block(out, mine, n, i)
+    # a copy even where the block is a contiguous view (a split of the
+    # leading dim): a view would keep the whole tensor's storage alive
+    return out.clone(memory_format=torch.contiguous_format)
 
 
-def gather_tensor(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def gather_tensor(local: torch.Tensor, spec: Spec, mesh, cut: Optional[Cut] = None,
+                  whole: int = 0) -> torch.Tensor:
     """The whole tensor from every rank's block (``local``, this rank's):
     each dim split over a data axis (``"data"``, ``("pod", "data")``)
     concatenated in rank order over ``mesh.group`` (the data group), then
-    each dim split over ``model`` in rank order over ``mesh.model_group``;
+    each dim split over ``model`` in rank order over ``mesh.model_group``
+    (``join_blocks`` along ``cut``, a padded dim cut back to ``whole``);
     every rank gets it.  A dim split over a data axis the mesh runs in one
     process raises."""
     from repro_torch.distributed.spmd import all_gather_in_rank_order
@@ -317,7 +436,8 @@ def gather_tensor(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
             if group is None:
                 raise ValueError(f"dim {dim} is split over {ax!r}, which the mesh runs in "
                                  "one process")
-            out = torch.cat(all_gather_in_rank_order(out, group), dim=dim)
+            mine = cut if (ax == "model" and cut is not None) else dim
+            out = join_blocks(all_gather_in_rank_order(out, group), mine, whole)
     return out
 
 

@@ -41,8 +41,9 @@ import torch.distributed as dist
 # what the grid does not run yet: the flat layout at model > 1
 MULTI_CARD = ("the flat layout on a grid with a model axis (model > 1) is not ported yet "
               "(ROADMAP queue 1, item 12.2c)")
-# what the model axis and the grid do not run yet: the other families' layers,
-# the adaptive attacks, Adafactor, gather_dtype
+# what the model axis and the grid do not run yet: the encoder-decoder and VLM
+# layers, the adaptive attacks, Adafactor, gather_dtype, and training with the
+# head slots of a padded layout
 TP_QUEUE = "ROADMAP queue 1, item 12.8"
 
 

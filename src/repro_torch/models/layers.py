@@ -26,13 +26,40 @@ and the unembedding gives the rank's vocabulary block of the logits.  Two
 autograd functions carry the collectives (Megatron's f and g):
 ``copy_to_model`` (identity forward, all-reduce of the gradient) before a
 column-split product, ``reduce_from_model`` (all-reduce forward, identity
-backward) after a row-split one.  Every all-reduce gathers the M parts in
-rank order and adds them in float32 in that order, so every rank holds
-the same bits.  The layers find their ``ModelAxis`` in their ``tp``
-attribute (None: whole, M = 1), which ``models.model`` sets when it cuts
-a model; the reference's ``shard`` annotations check the local extents
-(``distributed.logical``).  ``check_family`` refuses the other families'
-layers at M > 1.
+backward) after a row-split one; ``sum_over_model`` (all-reduce both
+ways) for a sum of partial values that every rank then uses for its own
+part (a row-split product feeding column-split ones, a norm's sum of
+squares), ``gather_from_model`` (all-gather forward, the rank's slice
+backward) where a column-split product's whole output is needed.  Every
+all-reduce gathers the M parts in rank order and adds them in float32 in
+that order, so every rank holds the same bits.  The layers find their
+``ModelAxis`` in their ``tp`` attribute (None: whole, M = 1), which
+``models.model`` sets when it cuts a model; the reference's ``shard``
+annotations check the local extents (``distributed.logical``).
+
+The other families on the model axis (the reference's GSPMD layout of the
+same leaves, ``activation_rules``' ``"expert"`` and ``"inner"``):
+
+* ``MoE``: the router is replicated, the expert slabs split E/M a rank.
+  Every rank routes every token on the replicated activations (the same
+  bits, the same picks, the global capacity and slots), keeps the picks of
+  its experts, runs its experts' three ``bmm``s and combines its picks;
+  the shared and dense-residual MLPs run their TP form, and one
+  all-reduce sums the parts.  The gate path's probabilities carry a
+  summed gradient (each rank's combine reads its picks only); the aux
+  loss, whole on every rank, reads them directly, so its router gradient
+  counts once.
+* ``MLAAttention``: H/M heads a rank (``wq``, ``w_uk``, ``w_uv`` by
+  columns, ``wo`` by rows); the latent's down projections and norm are
+  replicated, their gradients summed; the latent cache is replicated.
+* padded heads (``pad_heads_to``): where M divides the live heads a rank
+  splits them as ``wq``'s spec does and pads its own to ``pad_heads_to /
+  M`` for attention (the reference's activation layout); where it does
+  not, a rank holds ``pad_heads_to / M`` head slots of the padded layout
+  (``distributed.sharding.tp_cut``), the pad slots' q, k and v zero.
+
+``check_family`` refuses the encoder-decoder and VLM layers at M > 1 and
+on a grid.
 """
 from __future__ import annotations
 
@@ -102,7 +129,7 @@ def _dense_init_(p: torch.Tensor, generator: torch.Generator, scale=None) -> Non
     _draw_(p, draw)
 
 
-TP_FAMILIES = ("dense",)
+TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ArchConfig, model_parallel: int = 1, grid: bool = False) -> None:
@@ -110,16 +137,16 @@ def check_family(cfg: ArchConfig, model_parallel: int = 1, grid: bool = False) -
     not a language model (the paper's CNN is ``models.lenet``), an SSM or
     hybrid config without a Mamba variant or, hybrid, whose layers do not
     split into whole groups; and, at ``model_parallel`` > 1 or on a grid
-    (``grid``: the data axis as processes, FSDP blocks), every family but
-    the dense one (its MoE, MLA, Mamba, cross-attention and projector
-    layers have no TP or FSDP form yet)."""
-    if (model_parallel > 1 or grid) and (cfg.family not in TP_FAMILIES or cfg.use_mla
-                                         or cfg.n_experts or cfg.is_encoder_decoder
-                                         or cfg.modality == "vision" or cfg.pad_heads_to):
+    (``grid``: the data axis as processes, FSDP blocks), the
+    encoder-decoder and VLM families (their cross-attention, encoder and
+    projector layers have no TP or FSDP form yet)."""
+    if (model_parallel > 1 or grid) and (cfg.family not in TP_FAMILIES
+                                         or cfg.is_encoder_decoder
+                                         or cfg.modality == "vision"):
         where = f"model = {model_parallel}" if model_parallel > 1 else "a grid"
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on {where}: the model axis and the grid run the "
-            f"dense family only; the MoE, MLA, SSM, hybrid, encoder-decoder and VLM layers' "
+            f"dense, MoE, SSM and hybrid families; the encoder-decoder and VLM layers' "
             f"TP and FSDP forms are {TP_QUEUE}")
     if cfg.family in ("ssm", "hybrid"):
         if cfg.ssm_variant not in ("mamba1", "mamba2"):
@@ -180,6 +207,19 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        from repro_torch.distributed.spmd import all_gather_in_rank_order
+
+        ctx.rank, ctx.n = rank, x.shape[-1]
+        return torch.cat(all_gather_in_rank_order(x.contiguous(), group), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.rank * ctx.n, ctx.n), None, None
+
+
 def copy_to_model(x: torch.Tensor, tp) -> torch.Tensor:
     """Identity forward, the gradient all-reduced over the model axis: the
     replicated input of a column-split product (or a replicated weight used
@@ -191,6 +231,21 @@ def reduce_from_model(x: torch.Tensor, tp) -> torch.Tensor:
     """All-reduce forward, identity backward: the partial sums of a
     row-split product.  ``tp`` None: ``x``."""
     return x if tp is None else _ReduceFromModel.apply(x, tp.group)
+
+
+def sum_over_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """All-reduce forward and backward: the sum of every rank's partial
+    ``x``, which every rank then uses for its own part only, so that the
+    uses' gradients are summed too.  ``tp`` None: ``x``."""
+    return copy_to_model(reduce_from_model(x, tp), tp)
+
+
+def gather_from_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """The ranks' blocks of the last dim joined in rank order (all-gather
+    forward, the rank's block of the gradient backward): the whole output
+    of a column-split product.  ``tp`` None: ``x``."""
+    return x if tp is None else _GatherFromModel.apply(x, tp.group, tp.rank)
+
 
 
 # ---------------------------------------------------------------------------
@@ -442,14 +497,25 @@ def attention_fwd(
     else:
         mask_chunk_fn = None
 
-    if kv_tp is not None:
+    # (first, count) of the head slots of the padded layout a rank holds
+    # (set when the model is cut: ``distributed.sharding.padded_heads``)
+    slots = getattr(p, "slots", None)
+    if slots is not None:
+        # head slots of the padded layout (every KV head held): the live
+        # slots take their query head's KV head, the pad slots zeros
+        g = slots[0] + torch.arange(H, device=k.device)
+        live = (g < cfg.n_heads)[None, :, None, None]
+        heads = g.clamp(max=cfg.n_heads - 1) // (cfg.n_heads // Hkv)
+        k, v = k[:, heads] * live, v[:, heads] * live
+    elif kv_tp is not None:
         # every KV head held: take the ones this rank's query heads map to
         heads = (tp.rank * H + torch.arange(H, device=k.device)) // (cfg.n_heads // Hkv)
         k, v = k[:, heads], v[:, heads]
     else:
         k = _repeat_kv(k, H // Hkv)
         v = _repeat_kv(v, H // Hkv)
-    Hp = cfg.pad_heads_to
+    # a rank's share of the padded head count (its own heads padded to it)
+    Hp = cfg.pad_heads_to // (1 if tp is None else tp.size)
     if Hp and H < Hp:
         # the reference pads the head axis after the GQA repeat to a count
         # its model axis divides; the padded heads' q, k and v are zeros, so
@@ -501,22 +567,26 @@ def mla_attention_fwd(
     chunked route or the flash kernel).  Decode: only the latent ``ckv`` and
     the rope key ``krope`` are cached (written in place at ``cache_index``)
     and attention runs in the absorbed form, q projected into the latent
-    space.  Returns (out, cache)."""
+    space.  On the model axis a rank runs its H/M heads on the replicated
+    latent (its weights' gradients summed over the model group) and the
+    cache is replicated.  Returns (out, cache)."""
     B, S, d = x.shape
-    hd, H = cfg.head_dim_, cfg.n_heads
-    r, rd = cfg.kv_lora_rank, cfg.qk_rope_dim
+    hd, r, rd = cfg.head_dim_, cfg.kv_lora_rank, cfg.qk_rope_dim
+    tp = getattr(p, "tp", None)
+    H = p.wq.shape[1] // (hd + rd)           # the rank's heads
     dt = x.dtype
     scale = _inv_sqrt(hd + rd)
+    x = copy_to_model(x, tp)
 
-    q = (x @ p.wq.to(dt)).reshape(B, S, H, hd + rd)
+    q = shard((x @ p.wq.to(dt)).reshape(B, S, H, hd + rd), "batch", "seq", "heads", None)
     q_nope, q_rope = q[..., :hd], rope(q[..., hd:], positions, cfg.rope_theta)
 
-    ckv = x @ p.w_dkv.to(dt)                                        # (B, S, r)
+    ckv = x @ copy_to_model(p.w_dkv, tp).to(dt)                     # (B, S, r)
     # the latent's RMS norm: eps 1e-6 (not cfg.norm_eps), the mean in f32
     ckv = ckv * torch.rsqrt(ckv.to(torch.float32).pow(2).mean(-1, keepdim=True)
                             + 1e-6).to(dt)
-    ckv = ckv * p.kv_norm.to(dt)
-    krope = rope((x @ p.w_kr.to(dt)).reshape(B, S, 1, rd), positions,
+    ckv = ckv * copy_to_model(p.kv_norm, tp).to(dt)
+    krope = rope((x @ copy_to_model(p.w_kr, tp).to(dt)).reshape(B, S, 1, rd), positions,
                  cfg.rope_theta).reshape(B, S, rd)
 
     if cache is None:
@@ -527,7 +597,7 @@ def mla_attention_fwd(
         mask = (positions[:, None, :] <= positions[:, :, None])[:, None, :, :]
         out = _sdpa(qq.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask, scale)
         out = out.transpose(1, 2).reshape(B, S, H * hd)
-        return out @ p.wo.to(dt), None
+        return reduce_from_model(out @ p.wo.to(dt), tp), None
 
     cckv, ckr = cache["ckv"], cache["krope"]
     cap = cckv.shape[1]
@@ -549,7 +619,7 @@ def mla_attention_fwd(
     ctx = torch.einsum("bhsc,bcr->bshr", w, cckv.to(dt))            # (B, S, H, r)
     w_uv = p.w_uv.to(dt).reshape(r, H, hd)
     out = torch.einsum("bshr,rhd->bshd", ctx, w_uv).reshape(B, S, H * hd)
-    return out @ p.wo.to(dt), cache
+    return reduce_from_model(out @ p.wo.to(dt), tp), cache
 
 
 # ---------------------------------------------------------------------------
@@ -564,19 +634,26 @@ class MLP(nn.Module):
                  ff: Optional[int] = None):
         super().__init__()
         d, ff = cfg.d_model, ff or cfg.d_ff
+        # the ``ff`` logical axis is d_ff wide: a shared-expert or
+        # dense-residual MLP of another width is not checked against it
+        self.checked = ff == cfg.d_ff
         for name, shape in (("w_gate", (d, ff)), ("w_up", (d, ff)), ("w_down", (ff, d))):
             setattr(self, name, _param(shape, device, _pdtype(cfg)))
             _dense_init_(getattr(self, name), generator)
 
 
-def mlp_fwd(p: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp_fwd(p: MLP, x: torch.Tensor, reduce: bool = True) -> torch.Tensor:
     """SwiGLU; on the model axis over the rank's ff/M columns, the row-split
-    ``w_down``'s partial sums all-reduced."""
+    ``w_down``'s partial sums all-reduced (``reduce=False``: the rank's
+    partial sum, for the caller to add to others before one all-reduce)."""
     dt = x.dtype
     tp = getattr(p, "tp", None)
     x = copy_to_model(x, tp)
-    h = shard(F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt)), "batch", "seq", "ff")
-    return reduce_from_model(h @ p.w_down.to(dt), tp)
+    h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
+    if p.checked:
+        h = shard(h, "batch", "seq", "ff")
+    out = h @ p.w_down.to(dt)
+    return reduce_from_model(out, tp) if reduce else out
 
 
 # ---------------------------------------------------------------------------
@@ -654,29 +731,52 @@ def moe_fwd(cfg: ArchConfig, p: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, tor
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     dt = x.dtype
+    tp = getattr(p, "tp", None)
+    El = p.w_gate.shape[0]                   # the rank's experts
+    e0 = 0 if tp is None else tp.rank * El
 
     probs, gate, idx = moe_route(cfg, p, x)
+    if tp is not None:
+        # the combine reads the rank's picks only: the gate path's gradient
+        # is summed over the model group; the aux loss reads ``probs``
+        # itself, whole on every rank, so its gradient counts once
+        gate = copy_to_model(probs, tp).gather(-1, idx)
     gate = (gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)).to(dt)
     # the load-balance loss (Switch / GShard form), in f32
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(idx[..., 0], E).to(torch.float32).mean(dim=(0, 1))
     aux = E * torch.sum(me * ce) * cfg.router_aux_coef
 
+    # the global capacity and slots, from every expert's picks
     C = moe_capacity(cfg, S)
     e_flat, pos, _ = moe_dispatch(idx, E, C)
+    if tp is not None:
+        # the picks of other ranks' experts go to the dropped slot
+        mine = (e_flat >= e0) & (e_flat < e0 + El)
+        e_flat = torch.where(mine, e_flat - e0, 0)
+        pos = torch.where(mine, pos, C)
+    xd = copy_to_model(x, tp)
     rows = torch.arange(B, device=x.device)[:, None].expand(B, k * S)
-    buf = x.new_zeros((E, B, C + 1, d))
-    buf.index_put_((e_flat, rows, pos), x.repeat(1, k, 1))
+    buf = x.new_zeros((El, B, C + 1, d))
+    buf.index_put_((e_flat, rows, pos), xd.repeat(1, k, 1))
     buf[:, :, C] = 0
-    buf = buf.view(E, B * (C + 1), d)
+    buf = shard(buf.view(El, B * (C + 1), d), "expert", None, None)
     h = F.silu(torch.bmm(buf, p.w_gate.to(dt))) * torch.bmm(buf, p.w_up.to(dt))
-    yb = torch.bmm(h, p.w_down.to(dt)).view(E, B, C + 1, d)
+    yb = torch.bmm(h, p.w_down.to(dt)).view(El, B, C + 1, d)
     y_rep = yb[e_flat, rows, pos].reshape(B, k, S, d)
     out = (y_rep * gate.transpose(1, 2)[..., None]).sum(dim=1)
-    if cfg.n_shared_experts:
-        out = out + mlp_fwd(p.shared, x)
-    if cfg.moe_dense_residual:
-        out = out + mlp_fwd(p.dense_residual, x)
+    whole = []
+    for name in ("shared", "dense_residual"):
+        mlp = getattr(p, name, None)
+        if mlp is None:
+            continue
+        if tp is not None and getattr(mlp, "tp", None) is not None:
+            out = out + mlp_fwd(mlp, x, reduce=False)   # one all-reduce with the experts'
+        else:
+            whole.append(mlp_fwd(mlp, x))
+    out = reduce_from_model(out, tp)
+    for part in whole:
+        out = out + part
     return out, aux
 
 

@@ -32,25 +32,31 @@ embeddings (B, n_modal, ``MODAL_EMBED_DIM``) through the two-layer GELU
 ``projector`` and prepends them to the token embeddings.  Parameters
 are created in ``cfg.param_dtype`` (Arctic's bf16: each leaf, or each
 expert slab, drawn in f32 and cast, as the reference casts its f32 init).
-With ``cfg.remat`` the Mamba layer and the hybrid's group are recomputed in
-the backward (the reference's ``jax.checkpoint`` of those scanned bodies);
-the dense blocks' remat is ROADMAP queue 1, item 12.
+With ``cfg.remat`` every block (the dense, MoE and cross blocks, the MoE's
+dense prefix blocks, the encoder's blocks), the Mamba layer and the
+hybrid's group are recomputed in the backward (the reference's
+``jax.checkpoint`` of its scanned bodies): the same values, less memory.
 
-On a mesh with a ``model`` axis of M > 1 a dense model is cut
-(``cut_model_``): each rank holds its blocks of the one-card model (the
-tensor-parallel layers of ``models.layers``), the logits are its
-vocabulary block, and the cross-entropy meets across the model group
-(``_nll``: the max, the sum of exponentials and the target's logit from
-the rank that holds it), chunked or not as at M = 1.
+On a mesh with a ``model`` axis of M > 1 a dense, MoE, SSM or hybrid
+model is cut (``cut_model_``): each rank holds its blocks of the one-card
+model (the tensor-parallel layers of ``models.layers`` and
+``models.ssm``), the logits are its vocabulary block, and the
+cross-entropy meets across the model group (``_nll``: the max, the sum of
+exponentials and the target's logit from the rank that holds it), chunked
+or not as at M = 1.  The hybrid's shared block holds its ``in_proj``'s
+d/M output columns; their outputs are gathered over the model group
+before the block (``layers.gather_from_model``).
 
-On a grid (``launch.mesh``: the data axis as processes) a dense model is
-also cut over ``data`` (``shard_data_``): each rank keeps the FSDP blocks
-of its model block (``core.flatten.layout_fsdp``, the reference's
+On a grid (``launch.mesh``: the data axis as processes) the model is also
+cut over ``data`` (``shard_data_``): each rank keeps the FSDP blocks of
+its model block (``core.flatten.layout_fsdp``, the reference's
 ``param_specs(fsdp=True)``).  The forward gathers each layer's weights
 over the data group just before that layer and frees them after it (the
-reference's "weights all-gather per layer"): the embedding, each block,
-the final norm, the unembedding, one at a time (``_gathered``).  The
-trainer gathers the whole model block once per step (``whole_block``).
+reference's "weights all-gather per layer"): the embedding, each prefix
+block, block or Mamba layer, the final norm, the unembedding, one at a
+time (``_gathered``); the hybrid's shared block is gathered at each of
+its uses, once a group.  The trainer gathers the whole model block once
+per step (``whole_block``).
 """
 from __future__ import annotations
 
@@ -188,13 +194,18 @@ class DecoderLM(nn.Module):
     dense blocks, stacked as ``layers``) and ``enc_norm``, a VLM the
     ``projector``."""
 
-    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
+    def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None,
+                 cut: Optional[Tuple[Any, int]] = None):
         super().__init__()
         L.check_family(cfg)
         self.cfg = cfg
-        # the model axis: set by ``cut_model_``
+        # the model axis: set by ``cut_model_``; ``cut`` (mesh, model rank)
+        # keeps each module's blocks as soon as it is drawn (``_keep``), so
+        # that one whole module exists at a time
         self.tp = None
         self.tp_specs: Dict[str, tuple] = {}
+        self.tp_cuts: Dict[str, tuple] = {}
+        self._cut = cut
         # the data axis: set by ``shard_data_`` (``fsdp_blocks``: the
         # parameters are their FSDP blocks, not the whole model block;
         # ``fsdp_dims``: id of each parameter split over data -> its dim)
@@ -202,13 +213,14 @@ class DecoderLM(nn.Module):
         self.fsdp = None
         self.fsdp_blocks = False
         self.fsdp_dims: Dict[int, int] = {}
-        self.embedding = L.Embedding(cfg, generator, device)
+        keep = self._keep
+        self.embedding = keep("embedding", L.Embedding(cfg, generator, device))
         self.final_norm = L.Norm(cfg, cfg.d_model, device)
         if cfg.family in ("ssm", "hybrid"):
-            self.layers = nn.ModuleList(MambaBlock(cfg, generator, device)
-                                        for _ in range(cfg.n_layers))
+            self.layers = nn.ModuleList(keep(f"layers.{i}", MambaBlock(cfg, generator, device))
+                                        for i in range(cfg.n_layers))
             if cfg.family == "hybrid":
-                self.shared_attn = SharedAttention(cfg, generator, device)
+                self.shared_attn = keep("shared_attn", SharedAttention(cfg, generator, device))
             return
         if cfg.is_encoder_decoder:
             self.enc_in_proj = L._param((cfg.d_model, cfg.d_model), device, L._pdtype(cfg))
@@ -221,45 +233,89 @@ class DecoderLM(nn.Module):
             return
         n_prefix = _n_prefix(cfg)
         if n_prefix:
-            self.prefix_layers = nn.ModuleList(Block(cfg, generator, device)
-                                               for _ in range(n_prefix))
+            self.prefix_layers = nn.ModuleList(keep(f"prefix_layers.{i}",
+                                                    Block(cfg, generator, device))
+                                               for i in range(n_prefix))
         kind = "moe" if cfg.n_experts else "dense"
-        self.layers = nn.ModuleList(Block(cfg, generator, device, kind)
-                                    for _ in range(cfg.n_layers - n_prefix))
+        self.layers = nn.ModuleList(keep(f"layers.{i}", Block(cfg, generator, device, kind))
+                                    for i in range(cfg.n_layers - n_prefix))
         if _has_projector(cfg):
             self.projector = Projector(cfg, generator, device)
+
+    def _keep(self, prefix: str, mod: nn.Module) -> nn.Module:
+        """``mod`` (the submodule at ``prefix``), its parameters cut to the
+        model rank's blocks when the model is drawn cut."""
+        if self._cut is not None:
+            _cut_params_(self.cfg, mod, prefix, *self._cut, self.tp_specs, self.tp_cuts)
+        return mod
+
+
+def _cut_params_(cfg: ArchConfig, mod: nn.Module, prefix: str, mesh, rank: int,
+                 specs: Dict[str, tuple], cuts: Dict[str, tuple]) -> None:
+    """Keep, in place, model rank ``rank``'s block of every parameter of
+    ``mod`` not cut yet (``specs`` names the cut ones), recording each
+    parameter's spec in ``specs`` and each split one's cut and whole
+    extent in ``cuts`` (names prefixed with ``prefix``)."""
+    from repro_torch.distributed import sharding as shd
+
+    with torch.no_grad():
+        for name, p in mod.named_parameters():
+            name = f"{prefix}.{name}" if prefix else name
+            if name in specs:
+                continue
+            spec = shd.tp_layout(cfg, name.rsplit(".", 1)[-1], tuple(p.shape), mesh)
+            specs[name] = spec
+            if "model" in spec:
+                cut = shd.tp_cut(cfg, name, tuple(p.shape), mesh)
+                cuts[name] = (cut, p.shape[cut.dim])
+                p.data = shd.shard_tensor(p.data, spec, mesh, rank, cut)
 
 
 def cut_model_(cfg: ArchConfig, model: DecoderLM, mesh, rank: Optional[int] = None
                ) -> DecoderLM:
     """Keep, in place, the block of every parameter that model rank
     ``rank`` (default: this process's rank in ``mesh.model_group``) holds
-    (``distributed.sharding.tp_layout``), and give the TP layers their
-    ``ModelAxis``; ``model.tp_specs`` maps each parameter's name to its
-    spec.  A mesh of M = 1 leaves the model whole."""
+    (``distributed.sharding.tp_layout`` and ``tp_cut``), and give the TP
+    layers their ``ModelAxis``; ``model.tp_specs`` maps each parameter's
+    name to its spec, ``model.tp_cuts`` each split one's to its cut and
+    whole extent.  A mesh of M = 1 leaves the model whole."""
     from repro_torch.distributed import sharding as shd
 
     M = model_size(mesh)
-    model.tp_specs = {}
+    if model._cut is None:
+        model.tp_specs, model.tp_cuts = {}, {}
     if M == 1:
         return model
-    L.check_family(cfg, M)
+    _check_split(cfg, M)
     axis = mesh.model_axis() if rank is None else ModelAxis(mesh.model_group, M, rank)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            spec = shd.tp_layout(cfg, name.rsplit(".", 1)[-1], tuple(p.shape), mesh)
-            model.tp_specs[name] = spec
-            if "model" in spec:
-                p.data = shd.shard_tensor(p.data, spec, mesh, axis.rank)
+    # the parameters drawn cut (``DecoderLM(cut=)``) are kept as they are
+    _cut_params_(cfg, model, "", mesh, axis.rank, model.tp_specs, model.tp_cuts)
+    model._cut = None
+    slots = cfg.pad_heads_to // M if shd.padded_heads(cfg, M) else 0
     for name, mod in model.named_modules():
-        if isinstance(mod, L.Attention):
+        if isinstance(mod, (L.Attention, L.MLAAttention, L.MoE, SSM.Mamba)):
             mod.tp = axis
+            if slots and isinstance(mod, L.Attention):
+                mod.slots = (axis.rank * slots, slots)
         elif isinstance(mod, L.MLP):
             mod.tp = axis if "model" in model.tp_specs[f"{name}.w_gate"] else None
         elif isinstance(mod, L.Embedding):
             mod.tp = axis if "model" in model.tp_specs[f"{name}.embed"] else None
+        elif isinstance(mod, SharedAttention):
+            mod.tp = axis if "model" in model.tp_specs[f"{name}.in_proj"] else None
     model.tp = axis
     return model
+
+
+def _check_split(cfg: ArchConfig, M: int) -> None:
+    """Raise for a model the model axis of M cannot cut: a family without a
+    TP form, a Mamba mixer whose channels or heads M does not divide."""
+    L.check_family(cfg, M)
+    if cfg.family in ("ssm", "hybrid") and (cfg.d_inner_ % M or (
+            cfg.ssm_variant == "mamba2" and cfg.n_ssm_heads % M)):
+        raise NotImplementedError(
+            f"{cfg.name}: d_inner = {cfg.d_inner_} ({cfg.n_ssm_heads} heads) does not split "
+            f"over model = {M}")
 
 
 def fsdp_layout(cfg: ArchConfig, model: DecoderLM, mesh) -> FL.FSDPLayout:
@@ -371,13 +427,20 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     drawn as at M = 1 and model rank ``rank`` keeps its blocks
     (``cut_model_``): the M ranks' model is the one-card model, cut.  On a
     grid (the data axis as processes) each rank then keeps its FSDP blocks
-    (``shard_data_``; ``fsdp=False``: the whole model block)."""
+    (``shard_data_``; ``fsdp=False``: the whole model block).  Each block
+    is cut as soon as it is drawn, so one whole block exists at a time
+    beside the rank's blocks: a model whose whole exceeds the card is
+    drawn cut."""
     dev = resolve_device(device)
-    L.check_family(cfg, model_size(mesh))
+    M = model_size(mesh)
+    cut = None
+    if M > 1:
+        _check_split(cfg, M)
+        cut = (mesh, mesh.model_axis().rank if rank is None else rank)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
-        model = cut_model_(cfg, DecoderLM(cfg, generator, dev), mesh, rank)
+        model = cut_model_(cfg, DecoderLM(cfg, generator, dev, cut=cut), mesh, rank)
         return shard_data_(cfg, model, mesh, blocks=fsdp)
 
 
@@ -390,16 +453,18 @@ def _remat(cfg: ArchConfig, fn, *args):
     return fn(*args)
 
 
-def _scan_mamba(cfg: ArchConfig, blocks, h: torch.Tensor,
+def _scan_mamba(cfg: ArchConfig, params: "DecoderLM", blocks, h: torch.Tensor,
                 states: Optional[Params] = None) -> torch.Tensor:
-    """The reference's ``_scan_mamba`` as a loop over ``blocks``; with
-    ``states`` (``conv`` and ``h`` stacked on a leading axis, one slice a
-    block) each block's new state is written into its slice in place."""
+    """The reference's ``_scan_mamba`` as a loop over ``blocks`` (of
+    ``params``); with ``states`` (``conv`` and ``h`` stacked on a leading
+    axis, one slice a block) each block's new state is written into its
+    slice in place."""
     for i, lp in enumerate(blocks):
-        if states is None:
-            h = _remat(cfg, lambda x, lp=lp: mamba_block_fwd(cfg, lp, x)[0], h)
-            continue
-        h, new = mamba_block_fwd(cfg, lp, h, {k: t[i] for k, t in states.items()})
+        with _gathered(params, lp):
+            if states is None:
+                h = _remat(cfg, lambda x, lp=lp: mamba_block_fwd(cfg, lp, x)[0], h)
+                continue
+            h, new = mamba_block_fwd(cfg, lp, h, {k: t[i] for k, t in states.items()})
         for k, t in states.items():
             t[i].copy_(new[k])
     return h
@@ -411,7 +476,9 @@ def _shared_attn_apply(cfg: ArchConfig, p_sh: SharedAttention, h: torch.Tensor,
     """Zamba's shared block: ``concat(h, h0) @ in_proj`` through the dense
     block, added to ``h``.  The block adds its own input as well, so that
     input enters twice, as in the reference."""
-    x = torch.cat([h, h0], dim=-1) @ p_sh.in_proj.to(h.dtype)
+    tp = getattr(p_sh, "tp", None)
+    x = L.copy_to_model(torch.cat([h, h0], dim=-1), tp) @ p_sh.in_proj.to(h.dtype)
+    x = L.gather_from_model(x, tp)
     out, _, _ = block_fwd(cfg, p_sh.block, x, positions, cache=cache, cache_index=cache_index,
                           flash=flash)
     return h + out
@@ -430,15 +497,18 @@ def _hybrid_trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor,
         blocks = params.layers[g * every:(g + 1) * every]
         if caches is None:
             def group(x, x0, blocks=blocks):
-                x = _shared_attn_apply(cfg, params.shared_attn, x, x0, positions, flash=flash)
-                return _scan_mamba(cfg, blocks, x)
+                with _gathered(params, params.shared_attn):
+                    x = _shared_attn_apply(cfg, params.shared_attn, x, x0, positions,
+                                           flash=flash)
+                return _scan_mamba(cfg, params, blocks, x)
 
             h = _remat(cfg, group, h, h0)
             continue
         attn = {k: t[g] for k, t in caches["attn"].items()}
-        h = _shared_attn_apply(cfg, params.shared_attn, h, h0, positions, attn, cache_index,
-                               flash)
-        h = _scan_mamba(cfg, blocks, h, {k: t[g] for k, t in caches["mamba"].items()})
+        with _gathered(params, params.shared_attn):
+            h = _shared_attn_apply(cfg, params.shared_attn, h, h0, positions, attn,
+                                   cache_index, flash)
+        h = _scan_mamba(cfg, params, blocks, h, {k: t[g] for k, t in caches["mamba"].items()})
     return h
 
 
@@ -453,22 +523,32 @@ def _trunk(cfg: ArchConfig, params: DecoderLM, h: torch.Tensor, positions: torch
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     layer_caches = None if caches is None else caches["layers"]
     if cfg.family == "ssm":
-        return _scan_mamba(cfg, params.layers, h, layer_caches), aux
+        return _scan_mamba(cfg, params, params.layers, h, layer_caches), aux
     if cfg.family == "hybrid":
         return _hybrid_trunk(cfg, params, h, positions, layer_caches, cache_index, flash), aux
     for i, lp in enumerate(getattr(params, "prefix_layers", ())):
         cache = None if caches is None else caches["prefix"][i]
-        h, _, a = block_fwd(cfg, lp, h, positions, cache=cache, cache_index=cache_index,
-                            flash=flash)
+        with _gathered(params, lp):
+            h, a = _block(cfg, lp, h, positions, cache, cache_index, flash=flash)
         aux = aux + a
     auxs = []
     for i, lp in enumerate(params.layers):
         cache = None if caches is None else {n: t[i] for n, t in caches["layers"].items()}
         with _gathered(params, lp):
-            h, _, a = block_fwd(cfg, lp, h, positions, cache=cache, cache_index=cache_index,
-                                enc_out=enc_out, flash=flash)
+            h, a = _block(cfg, lp, h, positions, cache, cache_index, enc_out=enc_out,
+                          flash=flash)
         auxs.append(a)
     return h, (aux + torch.stack(auxs).sum()) if auxs else aux
+
+
+def _block(cfg: ArchConfig, lp: Block, h: torch.Tensor, positions: torch.Tensor, cache,
+           cache_index, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block's (h, aux); without a cache under ``_remat`` (a decode
+    step writes its cache in place and is never rematerialised)."""
+    if cache is not None:
+        h, _, a = block_fwd(cfg, lp, h, positions, cache=cache, cache_index=cache_index, **kw)
+        return h, a
+    return _remat(cfg, lambda x: block_fwd(cfg, lp, x, positions, **kw)[::2], h)
 
 
 # ---------------------------------------------------------------------------
@@ -485,7 +565,7 @@ def _encode(cfg: ArchConfig, params: DecoderLM, frames: torch.Tensor) -> torch.T
     h = frames @ params.enc_in_proj.to(dt)
     pos = torch.arange(frames.shape[1], device=h.device).expand(frames.shape[:2])
     for lp in params.enc_layers:
-        h, _, _ = block_fwd(cfg, lp, h, pos, causal=False)
+        h, _ = _block(cfg, lp, h, pos, None, None, causal=False)
     return L.norm_fwd(params.enc_norm, h)
 
 
@@ -647,7 +727,8 @@ def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
     fill with ``_encode``'s output, and the decoder layers' ``k``/``v``.
     On a mesh with ``model`` = M > 1 the KV heads are a model rank's, as
     ``distributed.sharding.cache_specs`` places them: Hkv/M, or all of
-    them when M does not divide Hkv; on a grid ``batch`` is the global
+    them when M does not divide Hkv; an SSM state's di/M channels (Hm/M
+    heads); MLA's latent cache whole (replicated); on a grid ``batch`` is the global
     batch and the cache holds this rank's rows of it (``local_rows``)."""
     M = model_size(mesh)
     L.check_family(cfg, M, grid=mesh is not None and mesh.data_axis() is not None)
@@ -660,18 +741,21 @@ def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
         else cfg.n_kv_heads
     cache: Params = {"idx": 0}
     if cfg.family == "ssm":
-        cache["layers"] = SSM.init_ssm_state(cfg, batch, dt, dev, lead=(cfg.n_layers,))
+        cache["layers"] = SSM.init_ssm_state(cfg, batch, dt, dev, lead=(cfg.n_layers,), M=M)
         return cache
     if cfg.family == "hybrid":
         every = cfg.shared_attn_every
         G = cfg.n_layers // every
-        cache["layers"] = {"attn": L.init_kv_cache(cfg, batch, cap, dt, dev, lead=(G,)),
-                           "mamba": SSM.init_ssm_state(cfg, batch, dt, dev, lead=(G, every))}
+        cache["layers"] = {"attn": L.init_kv_cache(cfg, batch, cap, dt, dev, lead=(G,),
+                                                   n_kv=n_kv),
+                           "mamba": SSM.init_ssm_state(cfg, batch, dt, dev, lead=(G, every),
+                                                       M=M)}
         return cache
     if cfg.is_encoder_decoder:
         cache["enc_out"] = torch.zeros((batch, enc_len, cfg.d_model), dtype=dt, device=dev)
     if n_prefix:
-        cache["prefix"] = [L.init_kv_cache(cfg, batch, cap, dt, dev) for _ in range(n_prefix)]
+        cache["prefix"] = [L.init_kv_cache(cfg, batch, cap, dt, dev, n_kv=n_kv)
+                           for _ in range(n_prefix)]
     cache["layers"] = L.init_kv_cache(cfg, batch, cap, dt, dev,
                                       lead=(cfg.n_layers - n_prefix,), n_kv=n_kv)
     return cache

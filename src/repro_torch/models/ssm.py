@@ -24,6 +24,19 @@ contracted with C at once, so that only one chunk's states exist.  The
 scan is plain PyTorch, as the reference's is plain JAX: no TPU kernel of
 the repo computes it.
 
+**The model axis.**  A rank of M holds di/M channels (Mamba-2: Hm/M
+heads): its block of x's and of z's columns of ``in_proj``
+(``distributed.sharding.tp_cut``'s two runs), its channels' ``conv_w``,
+``conv_b``, ``dt_bias``, ``D``, Mamba-1's ``A_log`` rows and ``dt_proj``
+columns, Mamba-2's ``dt_proj`` columns and ``gnorm``; the row-split
+``x_proj`` / ``bc_proj`` give partial (B, S, dtr + 2n) / (B, S, 2n)
+products, summed over the model group before the scan
+(``layers.sum_over_model``); Mamba-2's replicated ``A_log`` is sliced to
+the rank's heads (its gradient summed) and its RMS norm over the whole
+``d_inner`` sums the squares over the model group; the row-split
+``out_proj``'s partial sums are all-reduced.  The scan runs unchanged on
+the rank's channels, and the decode state holds them.
+
 ``delta`` is a softplus in the activation dtype, cast to f32 afterwards,
 as the reference's.  ``F.softplus`` returns x itself above its threshold
 of 20, where ``jax.nn.softplus`` adds log1p(exp(-x)) < 2.1e-9: below half
@@ -39,7 +52,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.logical import shard
 from repro_torch.models import layers as L
+from repro_torch.models.layers import copy_to_model, reduce_from_model, sum_over_model
 
 # positions a chunk of the scan: its states are (B, SCAN_CHUNK, d_inner, n)
 # f32 (Mamba-2: (B, SCAN_CHUNK, H, p, n)), 128 MiB at batch 2 for
@@ -99,20 +114,22 @@ class Mamba(nn.Module):
             param("gnorm", (di,), fill(1.0))
 
 
-def state_shapes(cfg: ArchConfig, batch: int) -> Dict[str, Tuple[int, ...]]:
-    """One layer's decode state: the conv ring ``(B, kw - 1, di)`` and ``h``."""
-    di, n = cfg.d_inner_, cfg.ssm_state
+def state_shapes(cfg: ArchConfig, batch: int, M: int = 1) -> Dict[str, Tuple[int, ...]]:
+    """One layer's decode state: the conv ring ``(B, kw - 1, di)`` and ``h``;
+    a model rank's of M holds di/M channels (Hm/M heads), as
+    ``distributed.sharding.cache_specs`` places them."""
+    di, n = cfg.d_inner_ // M, cfg.ssm_state
     h = ((batch, di, n) if cfg.ssm_variant == "mamba1"
-         else (batch, cfg.n_ssm_heads, cfg.ssm_head_dim, n))
+         else (batch, cfg.n_ssm_heads // M, cfg.ssm_head_dim, n))
     return {"conv": (batch, cfg.ssm_conv - 1, di), "h": h}
 
 
 def init_ssm_state(cfg: ArchConfig, batch: int, dtype, device=None,
-                   lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+                   lead: Tuple[int, ...] = (), M: int = 1) -> Dict[str, torch.Tensor]:
     """Zero decode state: ``conv`` in ``dtype`` (the activations'), ``h`` in
     f32, each ``lead + state_shapes(...)`` (``lead`` stacks layers, as the
-    reference's vmap does)."""
-    shapes = state_shapes(cfg, batch)
+    reference's vmap does; a model rank's of M)."""
+    shapes = state_shapes(cfg, batch, M)
     return {"conv": torch.zeros(tuple(lead) + shapes["conv"], dtype=dtype, device=device),
             "h": torch.zeros(tuple(lead) + shapes["h"], dtype=torch.float32, device=device)}
 
@@ -173,20 +190,24 @@ def mamba_fwd(cfg: ArchConfig, p: Mamba, x: torch.Tensor,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Mamba mixer forward.  x (B, S, d).  With ``state`` ({"conv", "h"})
     the call is stateful at any S (S > 1 folds ``h`` in, as the
-    reference's); returns (out, the new state, or None without one)."""
+    reference's); returns (out, the new state, or None without one).  On
+    the model axis over the rank's channels (see the module docstring)."""
     B, S, _ = x.shape
-    di, n = cfg.d_inner_, cfg.ssm_state
+    tp = getattr(p, "tp", None)
+    di, n = p.conv_w.shape[1], cfg.ssm_state          # the rank's channels
     dt, f32 = x.dtype, torch.float32
+    x = copy_to_model(x, tp)
 
     xz = x @ p.in_proj.to(dt)
     xin, z = xz.chunk(2, dim=-1)
+    xin = shard(xin, "batch", "seq", "inner")
     xc, new_conv = _causal_conv(cfg, p, xin, None if state is None else state["conv"])
     xc = F.silu(xc)
     h0 = None if state is None else state["h"]
 
     if cfg.ssm_variant == "mamba1":
         dtr = cfg.dt_rank_
-        proj = xc @ p.x_proj.to(dt)                                 # (B, S, dtr + 2n)
+        proj = sum_over_model(xc @ p.x_proj.to(dt), tp)            # (B, S, dtr + 2n)
         dt_in, Bc, Cc = proj.split([dtr, n, n], dim=-1)
         delta = F.softplus(dt_in @ p.dt_proj.to(dt) + p.dt_bias.to(dt))
         A = -torch.exp(p.A_log).to(f32)                             # (di, n)
@@ -199,11 +220,13 @@ def mamba_fwd(cfg: ArchConfig, p: Mamba, x: torch.Tensor,
             lambda h, sl: torch.matmul(h, Cf[:, sl, :, None])[..., 0].to(dt), h0)
         y = y + xc * p.D.to(dt)
     else:  # mamba2 / SSD
-        Hm, hp = cfg.n_ssm_heads, cfg.ssm_head_dim
-        bc = xc @ p.bc_proj.to(dt)
+        Hm, hp = p.dt_bias.shape[0], cfg.ssm_head_dim               # the rank's heads
+        bc = sum_over_model(xc @ p.bc_proj.to(dt), tp)
         Bc, Cc = bc.chunk(2, dim=-1)                                # (B, S, n) each
         delta = F.softplus(x @ p.dt_proj.to(dt) + p.dt_bias.to(dt))  # (B, S, Hm)
-        A = -torch.exp(p.A_log).to(f32)                             # (Hm,)
+        A_log = p.A_log if tp is None else \
+            copy_to_model(p.A_log, tp).narrow(0, tp.rank * Hm, Hm)
+        A = -torch.exp(A_log).to(f32)                               # (Hm,)
         deltaf = delta.to(f32)
         decay = torch.exp(deltaf * A)[..., None, None]              # (B, S, Hm, 1, 1)
         u = deltaf[..., None] * xc.reshape(B, S, Hm, hp).to(f32)    # (B, S, Hm, hp)
@@ -215,9 +238,13 @@ def mamba_fwd(cfg: ArchConfig, p: Mamba, x: torch.Tensor,
         y = y.reshape(B, S, di) + xc * p.D.to(dt).repeat_interleave(hp)
         # grouped RMS norm over the whole d_inner axis (Mamba-2 normalises
         # before the gate): the mean in f32, eps 1e-6
-        y = y * torch.rsqrt(y.to(f32).pow(2).mean(-1, keepdim=True) + 1e-6).to(dt)
+        if tp is None:
+            ms = y.to(f32).pow(2).mean(-1, keepdim=True)
+        else:
+            ms = sum_over_model(y.to(f32).pow(2).sum(-1, keepdim=True), tp) / cfg.d_inner_
+        y = y * torch.rsqrt(ms + 1e-6).to(dt)
         y = y * p.gnorm.to(dt)
 
     y = y * F.silu(z)
-    out = y @ p.out_proj.to(dt)
+    out = reduce_from_model(y @ p.out_proj.to(dt), tp)
     return out, (None if state is None else {"conv": new_conv, "h": new_h})

@@ -10,11 +10,11 @@ cache of the context's length (an SSM layer: its O(1) state) and runs no
 kernel of the port (the dense scores of one query are small), as in the
 reference.
 
-On a mesh with ``model`` = M > 1 (a dense model cut by
-``models.model.init_params(..., mesh=)``, a cache from
-``models.model.init_cache(..., mesh=)``) every model rank runs the step on its H/M
-heads (the prefill at S >= 8192 reaches kernel 8 on them) and ff/M
-columns.  On a grid (the data axis as processes) the batch rows split
+On a mesh with ``model`` = M > 1 (a dense, MoE, SSM or hybrid model cut
+by ``models.model.init_params(..., mesh=)``, a cache from
+``models.model.init_cache(..., mesh=)``) every model rank runs the step on
+its H/M heads (the prefill at S >= 8192 reaches kernel 8 on them; MLA
+never), ff/M columns, E/M experts and di/M Mamba channels.  On a grid (the data axis as processes) the batch rows split
 over ``data`` as well: each data rank runs its B/K rows of the global
 batch every rank passes (``models.model.local_rows``; the cache holds
 them), its model the FSDP blocks of ``serve_shardings``'s parameter specs,
@@ -70,7 +70,7 @@ def _sharded(cfg: ArchConfig, sc: Optional[ServeConfig], mesh):
     if model_size(mesh) == 1:
         return contextlib.nullcontext
     rules = shd.tp_rules(cfg, serve_rules(sc or ServeConfig()), mesh)
-    return lambda: use_sharding(mesh, rules, shd.model_dims(cfg))
+    return lambda: use_sharding(mesh, rules, shd.model_dims(cfg, mesh))
 
 
 def _rows(batch: Dict[str, torch.Tensor], mesh, dev) -> Dict[str, torch.Tensor]:

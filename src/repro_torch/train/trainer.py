@@ -35,8 +35,8 @@ a leaf-wide statistic spans all L layers as in the reference, and
 created without gradients (``requires_grad=False``); a worker's gradient
 is taken by enabling them for its backward alone.
 
-**The model axis.**  On a mesh with ``model`` = M > 1 (a dense model)
-every process is one tensor-parallel rank and runs all K candidates on
+**The model axis.**  On a mesh with ``model`` = M > 1 (a dense, MoE, SSM
+or hybrid model) every process is one tensor-parallel rank and runs all K candidates on
 its shard of the model (``models.model.cut_model_``), its parameters
 views of two buffers (``core.flatten.layout_split``: the split leaves and
 the replicated ones), its candidate gradients two (K, P_s) and (K, P_r)
@@ -68,8 +68,9 @@ losses, ``grad_norm`` the aggregate's squares summed once per coordinate
 over the grid.  gspmd on the grid is the mean of the exchanged column
 block (the mean gradient, each data rank on its rows).  WFAgg-T's
 ``prev`` is the column block.  The flat layout at M > 1 on a grid is
-ROADMAP queue 1, item 12.2c; Adafactor and the adaptive attacks stay
-refused there (item 12.8).  ``state_shardings`` / ``batch_shardings`` give
+ROADMAP queue 1, item 12.2c; Adafactor, the adaptive attacks, the
+encoder-decoder and VLM families and training on a padded layout's head
+slots stay refused there (item 12.8).  ``state_shardings`` / ``batch_shardings`` give
 the reference's specs (plain tuples, ``distributed.sharding``).
 """
 from __future__ import annotations
@@ -173,6 +174,11 @@ def _check(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh) -> None:
         L.check_family(cfg, size, grid=grid)
         if tc.mode == "robust_dp" and tc.agg.layout != "stacked" and size > 1:
             raise NotImplementedError(f"the flat layout on model = {size}: {MULTI_CARD}")
+        if shd.padded_heads(cfg, size):
+            raise NotImplementedError(
+                f"{cfg.name}: training on model = {size}, whose ranks hold head slots of the "
+                f"padded layout ({cfg.n_heads} heads padded to {cfg.pad_heads_to}): the pad "
+                f"slots would take attacked and aggregated values; serving only ({TP_QUEUE})")
         if cfg.optimizer == "adafactor":
             where = f"model = {size}" if size > 1 else "a grid"
             raise NotImplementedError(
@@ -279,6 +285,13 @@ def batch_shardings(tc: TrainConfig, mesh: Mesh, batch_shape: Any) -> Any:
     return shd.batch_specs(batch_shape, data_axes=tc.candidate_axes(), mesh=mesh)
 
 
+def _model_cuts(model) -> List[Optional[shd.Cut]]:
+    """Per leaf (ravel order) its cut over the model axis
+    (``distributed.sharding.Cut``, a stacked leaf's L axis counted), None
+    for a replicated leaf (or a whole model)."""
+    return [None if c is None else c[0] for c in F.split_cuts(model)]
+
+
 def _data_dims(model) -> List[Optional[int]]:
     """Per leaf (ravel order) the dim its FSDP block splits over the data
     axis, None for a leaf whole over it (or a model without blocks)."""
@@ -298,10 +311,11 @@ def full_params(model, mesh: Optional[Mesh]) -> dict:
         return tree
     dax = ("pod", "data") if mesh.shape.get("pod") else "data"
     out = []
-    for leaf, mdim, ddim in zip(tree_leaves(tree), split_dims(model), _data_dims(model)):
+    for leaf, mc, ddim in zip(tree_leaves(tree), F.split_cuts(model), _data_dims(model)):
+        mdim = None if mc is None else mc[0].dim
         spec = tuple("model" if i == mdim else dax if i == ddim else None
                      for i in range(leaf.ndim))
-        out.append(shd.gather_tensor(leaf, spec, mesh) if mdim is not None or
+        out.append(shd.gather_tensor(leaf, spec, mesh, *(mc or ())) if mdim is not None or
                    ddim is not None else leaf)
     return tree_unflatten(tree, out)
 
@@ -315,12 +329,11 @@ def load_params_(model, tree: dict, mesh: Optional[Mesh]) -> None:
         _layout(model, mesh)
     lay = model.fsdp
     with torch.no_grad():
-        for dst, src, dim, ddim in zip(tree_leaves(module_tree(model)), tree_leaves(tree),
-                                       split_dims(model), _data_dims(model)):
+        for dst, src, cut, ddim in zip(tree_leaves(module_tree(model)), tree_leaves(tree),
+                                       _model_cuts(model), _data_dims(model)):
             src = torch.as_tensor(src)
-            if dim is not None:
-                n = src.shape[dim] // axis.size
-                src = src.narrow(dim, axis.rank * n, n)
+            if cut is not None:
+                src = shd.take_block(src, cut, axis.size, axis.rank)
             if ddim is not None:
                 n = src.shape[ddim] // lay.size
                 src = src.narrow(ddim, lay.rank * n, n)
@@ -345,10 +358,9 @@ def _cut(tree, params: dict, model, lead: int = 0, data: Optional[List] = None):
     if isinstance(tree, dict) and isinstance(params, dict) and set(tree) == set(params):
         leaves = []
         ddims = data or [None] * len(split_dims(model))
-        for leaf, d, dd in zip(tree_leaves(tree), split_dims(model), ddims):
-            if d is not None:
-                n = leaf.shape[lead + d] // model.tp.size
-                leaf = leaf.narrow(lead + d, model.tp.rank * n, n)
+        for leaf, cut, dd in zip(tree_leaves(tree), _model_cuts(model), ddims):
+            if cut is not None:
+                leaf = shd.take_block(leaf, cut.shifted(lead), model.tp.size, model.tp.rank)
             if dd is not None:
                 n = leaf.shape[lead + dd] // model.fsdp.size
                 leaf = leaf.narrow(lead + dd, model.fsdp.rank * n, n)
@@ -564,7 +576,7 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
             stacked = unravel_rows(G[0], module_tree(model))
         else:
             stacked = unravel_rows_split(G, model)
-            shards = ra.ModelShards(tp, tuple(split_dims(model)))
+            shards = ra.ModelShards(tp, tuple(_model_cuts(model)))
         del G
         see("grads", candidates=stacked, losses=losses)
         if attacking:
@@ -684,7 +696,7 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
     grid = _on_grid(mesh, tc)
     step = grid_step if grid else gspmd_step if tc.mode == "gspmd" else \
         stacked_step if tc.agg.layout == "stacked" else flat_step
-    dims = shd.model_dims(cfg)
+    dims = shd.model_dims(cfg, mesh)
 
     def sharded(state: TrainState, batch):
         with use_sharding(mesh, rules, dims):
@@ -705,10 +717,10 @@ def grid_shards(model, mesh: Mesh) -> ra.GridShards:
     counted = tuple((g % 2 == 0 or dax.rank == 0) and (g // 2 == 0 or mrank == 0)
                     for g in range(n))
     cuts = []
-    for (path, _), mdim in zip(F.leaf_params(model), split_dims(model)):
+    for (path, _), mcut in zip(F.leaf_params(model), _model_cuts(model)):
         c = []
-        if mdim is not None:
-            c.append((mdim, maxis.size, maxis.rank))
+        if mcut is not None:
+            c.append((mcut, maxis.size, maxis.rank))
         ddim = model.fsdp.dims[path]
         if ddim is not None:
             c.append((ddim, dax.size, dax.rank))

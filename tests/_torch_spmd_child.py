@@ -163,10 +163,11 @@ def _gather_leaves(leaves, model, mesh, lead=0):
     from repro_torch.distributed import sharding as shd
 
     out = []
-    for leaf, dim in zip(leaves, F.split_dims(model)):
-        if dim is not None:
-            leaf = shd.gather_tensor(leaf, tuple("model" if i == dim + lead else None
-                                                 for i in range(leaf.ndim)), mesh)
+    for leaf, c in zip(leaves, F.split_cuts(model)):
+        if c is not None:
+            cut, whole = c[0].shifted(lead), c[1]
+            leaf = shd.gather_tensor(leaf, tuple("model" if i == cut.dim else None
+                                                 for i in range(leaf.ndim)), mesh, cut, whole)
         out.append(_np(leaf))
     return out
 
@@ -185,13 +186,14 @@ def _tp_candidates(model, tree, K, rank):
     each leaf its block of the whole numpy ``tree`` (leaves (K, ...))."""
     from repro_torch.core import flatten as F
 
+    from repro_torch.distributed import sharding as shd
+
     mats = [torch.zeros((K, b.numel())) for b in F.layout_split(model)]
     cand = F.unravel_rows_split(tuple(mats), model)
-    for dst, src, dim in zip(F.tree_leaves(cand), F.tree_leaves(tree), F.split_dims(model)):
-        src = torch.as_tensor(src)
-        if dim is not None:
-            n = dst.shape[dim + 1]
-            src = src.narrow(dim + 1, rank * n, n)
+    for dst, src, c in zip(F.tree_leaves(cand), F.tree_leaves(tree), F.split_cuts(model)):
+        src = torch.as_tensor(np.array(src))
+        if c is not None:
+            src = shd.take_block(src, c[0].shifted(1), model.tp.size, rank)
         dst.copy_(src)
     return cand
 
@@ -372,13 +374,14 @@ def _grid_whole(model, mesh, tree, lead):
     from repro_torch.distributed import sharding as shd
 
     out = []
-    for leaf, (path, _), mdim in zip(F.tree_leaves(tree), F.leaf_params(model),
-                                     F.split_dims(model)):
+    for leaf, (path, _), c in zip(F.tree_leaves(tree), F.leaf_params(model),
+                                  F.split_cuts(model)):
         ddim = model.fsdp.dims[path]
-        spec = tuple("model" if i == (None if mdim is None else mdim + lead) else
+        cut = None if c is None else c[0].shifted(lead)
+        spec = tuple("model" if i == (None if cut is None else cut.dim) else
                      "data" if i == (None if ddim is None else ddim + lead) else None
                      for i in range(leaf.ndim))
-        out.append(_np(shd.gather_tensor(leaf, spec, mesh)))
+        out.append(_np(shd.gather_tensor(leaf, spec, mesh, cut, 0 if c is None else c[1])))
     return out
 
 
@@ -530,7 +533,174 @@ def task_grid(rank, S, K, M, cfg, params, parts, runs=(), cands=None, methods=()
     return out
 
 
-TASKS = {"round": task_round, "scan": task_scan, "engine": task_engine,
+def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launcher=None):
+    """The MoE, SSM and hybrid families on a mesh of S ranks: ``mesh_shape``
+    (K, M), a K x M grid when K > 1 (``launch.mesh.make_grid``, the FSDP
+    threshold lowered to ``fsdp_min_dim``), else the model axis of M = S.
+    Per run of ``runs`` (a dict: ``cfg``, the reference's initial
+    ``params`` as numpy, ``tokens``, ``prompts``, ``parts``, and
+    ``train``'s ``tc`` / ``state`` / ``batches`` / ``K``), what rank 0
+    returns, gathered whole where a rank holds a block:
+
+      forward    the logits of ``tokens`` and the aux loss;
+      grads      (model axis) the loss and the gradient leaves;
+      roundtrip  every parameter leaf gathered (``trainer.full_params``)
+                 and the rank's blocks of that tree cut again
+                 (``load_params_``): whether both are bit-equal; and the
+                 gathered leaves of ``init_params(mesh=)`` from seed 0;
+      stats      the psum'd statistics of ``cands`` (whole candidate
+                 trees) on the rank's blocks;
+      train      per step loss, grad_norm, weights, masks and the params;
+                 the last params saved at ``ckpt`` (rank 0) and the
+                 checkpoint ``load`` loaded back;
+      serve      the prefill logits of ``prompts`` (flash branch at a
+                 lowered threshold, kernel 8's plain version), and the
+                 decode of the prompts' first ``decode_len`` tokens then 4
+                 greedy steps.
+    ``remat_check``: a run index whose gradients are taken again with
+    ``cfg.remat`` on (``grads_remat``).  ``launcher``: (arch, checkpoint
+    directory) for ``launch.train.main`` with ``--model-parallel M``, 2
+    reduced steps, the last checkpointed."""
+    import dataclasses
+    import types
+
+    from repro_torch.core import flatten as F
+    from repro_torch.distributed import robust_allreduce as ra
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_grid, make_test_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as Mo
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import serve as sv
+    from repro_torch.train import trainer as tr
+
+    K, M = mesh_shape
+    grid = K > 1
+    if grid:
+        shd._FSDP_MIN_DIM = fsdp_min_dim
+        mesh = make_grid(K, M)
+    else:
+        mesh = make_test_mesh(data=1, model=M, model_group=dist.group.WORLD)
+    results = []
+    for i, run in enumerate(runs):
+        cfg, params, parts = run["cfg"], run["params"], run["parts"]
+        out = {}
+        model = Mo.params_from_jax(params, cfg, "cpu", mesh=mesh)
+        if not grid:
+            out["split_dims"] = F.split_dims(model)
+        if "forward" in parts:
+            L.SDPA_CHUNK_THRESHOLD = 8192
+            tok = torch.as_tensor(run["tokens"]).long()
+            a, n = Mo.local_rows(tok.shape[0], mesh)
+            logits, aux = Mo.forward(cfg, model, {"tokens": tok[a:a + n]})
+            out["logits"] = _np(sv._gathered(logits, mesh, tok.shape[0]))
+            out["aux"] = float(aux) if n == tok.shape[0] else None
+        if "grads" in parts:
+            for key, c in (("grads", cfg), ("grads_remat", dataclasses.replace(cfg, remat=True))):
+                if key == "grads_remat" and remat_check != i:
+                    continue
+                loss, g = tr.loss_and_grad(c, model, {"tokens": torch.as_tensor(
+                    run["tokens"]).long()})
+                out[key] = (float(loss), _tp_gather(model, mesh, g))
+        if "roundtrip" in parts:
+            whole = tr.full_params(model, mesh)
+            same = all(np.array_equal(_np(a), np.asarray(b)) for a, b in
+                       zip(F.tree_leaves(whole), F.tree_leaves(_as_tensors(params))))
+            before = [_np(x) for x in F.tree_leaves(F.module_tree(model))]
+            tr.load_params_(model, whole, mesh)
+            after = [_np(x) for x in F.tree_leaves(F.module_tree(model))]
+            out["roundtrip"] = same and all(np.array_equal(a, b) for a, b in zip(before, after))
+            # the port's own init on the mesh: drawn one block at a time and cut
+            drawn = Mo.init_params(cfg, torch.Generator().manual_seed(0), "cpu", mesh=mesh)
+            out["init"] = [_np(x) for x in F.tree_leaves(tr.full_params(drawn, mesh))]
+        if "stats" in parts:
+            cands = run["cands"]
+            Kc = F.tree_leaves(cands)[0].shape[0]
+            cfg_s = ra.RobustAggConfig(method="alt_wfagg", backend="fused")
+            if grid:
+                shards = tr.grid_shards(model, mesh)
+                cand = _grid_column_block(model, cands, Kc)
+            else:
+                shards = ra._as_grid(ra.ModelShards(mesh.model_axis(),
+                                                    tuple(tr._model_cuts(model))))
+                cand = _tp_candidates(model, cands, Kc, mesh.model_axis().rank)
+            leaves = F.tree_leaves(cand)
+            groups = [[l for l, g in zip(leaves, shards.leaf_groups) if g == j]
+                      for j in range(len(shards.counted))]
+            mine = [j for j, c in enumerate(shards.counted) if c]
+            st = ra.psum_stats(ra._partial_stats(
+                Kc, "cpu", [groups[j] for j in mine], None, cfg_s,
+                [ra._concat_candidates(groups[j]) if groups[j] else torch.zeros((Kc, 0))
+                 for j in mine], [None] * len(mine)), shards.group)
+            out["stats"] = {f: _np(getattr(st, f)[0]) for f in ("dist2", "norm2", "gram")}
+        if "train" in parts:
+            t = run["train"]
+            js = t["state"]
+            agg = None if js["agg_state"] is None else types.SimpleNamespace(**js["agg_state"])
+            tmesh = mesh if grid else make_test_mesh(data=t["K"], model=M,
+                                                     model_group=dist.group.WORLD)
+            st = tr.state_from_jax(types.SimpleNamespace(
+                params=js["params"], opt_state=js["opt_state"], agg_state=agg,
+                step=js["step"]), cfg, device="cpu", mesh=tmesh, tc=t["tc"])
+            seen = {}
+            step = tr.build_train_step(cfg, t["tc"], tmesh,
+                                       observe=lambda phase, **v: seen.update({phase: v}))
+            steps = []
+            for b in t["batches"]:
+                st, m = step(st, {"tokens": torch.as_tensor(b).long()})
+                info = seen["allreduce"]["info"]
+                steps.append({"loss": float(m["loss"]), "weights": _np(m["weights"]),
+                              "grad_norm": float(m["grad_norm"]),
+                              "masks": {k: _np(info[k]) for k in ("mask_d", "mask_c",
+                                                                  "mask_t") if k in info},
+                              "params": _tp_tree_np(tr.full_params(st.params, tmesh))})
+            out["train"] = steps
+            whole = tr.full_params(st.params, tmesh)
+            if rank == 0:
+                ckpt.save_checkpoint(t["ckpt"], "fam", whole, {"mesh": [K, M]})
+            dist.barrier()
+            tree, _ = ckpt.restore_checkpoint(t["load"], "one", whole)
+            tr.load_params_(st.params, tree, tmesh)
+            out["loaded"] = _tp_tree_np(tr.full_params(st.params, tmesh))
+        if "serve" in parts:
+            L.SDPA_CHUNK_THRESHOLD = 128
+            model = Mo.params_from_jax(params, cfg, "cpu", mesh=mesh)
+            p = torch.as_tensor(run["prompts"]).long()
+            out["prefill"] = _np(sv.build_prefill(cfg, device="cpu", mesh=mesh)(
+                model, {"tokens": p}))
+            p = p[:, :run["decode_len"]]
+            cache = Mo.init_cache(cfg, p.shape[0], p.shape[1] + 4, device="cpu", mesh=mesh)
+            out["cache"] = {"/".join(map(str, k)): tuple(v.shape)
+                            for k, v in _cache_leaves(cache)}
+            dec = sv.build_decode_step(cfg, device="cpu", mesh=mesh)
+            for j in range(p.shape[1]):
+                lg, cache = dec(model, cache, p[:, j:j + 1])
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            logits = []
+            for _ in range(4):
+                logits.append(_np(lg))
+                lg, cache = dec(model, cache, tok)
+                tok = lg[:, -1].argmax(-1, keepdim=True)
+            out["decode"] = logits
+        results.append(out)
+    if launcher:
+        from repro_torch.launch import train as T
+        T.main(["--arch", launcher[0], "--reduced", "--candidates", "4", "--steps", "2",
+                "--seq-len", "32", "--global-batch", "4", "--agg-backend", "fused",
+                "--attack", "ipm_100", "--n-malicious", "1", "--model-parallel", str(M),
+                "--ckpt-dir", launcher[1], "--ckpt-every", "2"], device="cpu")
+    return results
+
+
+def _cache_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _cache_leaves(tree[k], prefix + (k,))]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree) for kv in _cache_leaves(v, prefix + (i,))]
+    return [(prefix, tree)] if isinstance(tree, torch.Tensor) else []
+
+
+TASKS = {"fam": task_fam, "round": task_round, "scan": task_scan, "engine": task_engine,
          "group_size": task_group_size, "flat": task_flat, "tp": task_tp, "grid": task_grid}
 
 

@@ -445,8 +445,9 @@ def test_prefill_and_decode_match_one_process(which, request, monkeypatch):
 
 
 def test_grid_refusals():
-    """What the grid still refuses (ROADMAP queue 1, items 12.2c and 12.8),
-    and a grid without its groups."""
+    """What the grid still refuses (ROADMAP queue 1, items 12.2c and 12.8:
+    the flat layout at model > 1, Adafactor, the encoder-decoder and VLM
+    families, the adaptive attacks), and a grid without its groups."""
     from repro_torch.launch.mesh import Mesh
 
     class Axis:        # a data axis that is processes, without a live group
@@ -467,10 +468,11 @@ def test_grid_refusals():
         tr._check(dataclasses.replace(cfg, optimizer="adafactor"),
                   tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")), Axis(
                       {"data": 2, "model": 1}))
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-        tr._check(get_config("deepseek-v2-lite-16b").reduced(),
-                  tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
-                  Axis({"data": 2, "model": 1}))
+    for arch in ("seamless-m4t-medium", "llava-next-34b"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
+            tr._check(get_config(arch).reduced(),
+                      tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
+                      Axis({"data": 2, "model": 1}))
     shards = tra.GridShards(group=None, leaf_groups=(0,), counted=(True,), cuts=((),))
     with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
         tra.apply_stacked_attack({"w": torch.zeros((4, 3))}, torch.zeros(4, dtype=torch.bool),

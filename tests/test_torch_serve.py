@@ -262,8 +262,9 @@ def test_other_families_raise():
     hybrid families since theirs: tests/test_torch_ssm*.py, and as an
     override of a config without a Mamba variant they raise ValueError),
     and ``NOT_PORTED`` is empty.  What still raises: the paper's CNN as a
-    language model, and training with bf16 parameters (ROADMAP queue 1,
-    item 12)."""
+    language model, training with bf16 parameters (ROADMAP queue 1, item
+    12), and the encoder-decoder and VLM families on the model axis or a
+    grid (item 12.8; the dense, MoE, SSM and hybrid families run there)."""
     from repro.configs.registry import ARCHS as JARCHS
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.train import trainer as tr
@@ -286,6 +287,17 @@ def test_other_families_raise():
                  lambda: TM.init_cache(lenet, 1, 8, device="cpu")):
         with pytest.raises(NotImplementedError, match="not a language model"):
             call()
+    for name in JARCHS:
+        c = tregistry.get_config(name)
+        if c.family == "cnn":
+            continue
+        if c.is_encoder_decoder or c.modality == "vision":
+            for kw in ({"model_parallel": 2}, {"grid": True}):
+                with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
+                    tlayers.check_family(c, **kw)
+        else:
+            tlayers.check_family(c, 2)
+            tlayers.check_family(c, grid=True)
     bf16 = dataclasses.replace(tregistry.get_config("arctic-480b").reduced(),
                                param_dtype="bfloat16")
     for call in (lambda: tr.init_train_state(bf16, tr.TrainConfig(),

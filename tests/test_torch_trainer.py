@@ -304,8 +304,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 def test_multi_card_trainer_refused():
     """What the multi-card trainer still refuses: a model axis without its
     process group, the flat layout on the model axis (ROADMAP queue 1, item
-    12.2c), a family without a TP form on it, Adafactor and the adaptive
-    attacks on a grid (item 12.8), and gspmd with a robust rule.
+    12.2c), a family without a TP form on it (the encoder-decoder; the MoE,
+    SSM and hybrid families have theirs: tests/test_torch_tp_families.py),
+    Adafactor and the adaptive attacks on a grid (item 12.8), and gspmd
+    with a robust rule.
     ``fsdp_params`` is served since the grid (the data axis as processes):
     with the data axis in one process the state is whole, as before."""
     from repro_torch.launch.mesh import DataAxis, Mesh
@@ -319,9 +321,9 @@ def test_multi_card_trainer_refused():
     flat = tr.TrainConfig(agg=tra.RobustAggConfig(layout="flat"))
     with pytest.raises(NotImplementedError, match="queue 1, item 12.2c"):
         tr.build_train_step(cfg, flat, tp_mesh)
-    moe = get_config("deepseek-v2-lite-16b").reduced()
+    encdec = get_config("seamless-m4t-medium").reduced()
     with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-        tr.build_train_step(moe, tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
+        tr.build_train_step(encdec, tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
                             tp_mesh)
 
     class Grid(Mesh):     # the data axis as processes, no live group reached
