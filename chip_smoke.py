@@ -13,6 +13,7 @@ an NVIDIA H100.
     python3 chip_smoke.py --only grid          # phase 1, then the K x M grid
     python3 chip_smoke.py --only tpfam         # phase 1, then the families split over ranks
     python3 chip_smoke.py --only tpfamcards    # phase 1, then the families on every card
+    python3 chip_smoke.py --only tpcards       # phase 1, then the model axis on every card
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
@@ -364,9 +365,15 @@ Phases, each of which fails the run:
        8192 with 24 kernel-8 launches a call on each rank, the gathered
        last 256 positions held to the M = 1 prefill and decode at batch 4
        against 32,768 slots over ``TP_PROMPT`` + ``TP_NEW_TOKENS`` tokens
-       held to a prefill, by the dense rule; then K = 8 training, WFAgg on
+       held to a prefill, by the dense rule; then K = 8 training at
+       ``TP_TRAIN_LAYERS`` of the 24 layers, WFAgg on
        ``fused`` and ``fused_two_launch``, Alt-WFAgg and the mean (the
-       steps of ``TP_RUNS``) under IPM-100, with the
+       steps of ``TP_RUNS``) under IPM-100, then ``TP_FLAT_RUNS``: the
+       flat layout's WFAgg and mean (no kernel launch; each step held to
+       the one-process flat route on the whole candidates gathered on rank
+       0, ``FlatObserver``) and one stacked step under min_max with
+       gather_dtype bfloat16 and Adafactor (its update held to one
+       process's, ``hold_adafactor``), with the
        planned launches of kernels 4, 6 and 7 on every rank every step (0
        of kernel 1), the step-1 candidates held to M = 1's gradients
        (relative rms ``TP_GRAD_RMS``) and every step's aggregation to the
@@ -374,16 +381,17 @@ Phases, each of which fails the run:
        bit-equal or near-ties, weights and blocks within 3e-5), the
        activation all-reduces and ``psum_stats`` timed apart.  ``--only
        tp`` runs phase 1 and this part alone.  Last, the data axis as
-       processes: Qwen1.5-0.5B uncut on a K = 4 x M = 2 grid of ``gloo``
-       ranks sharing the card (``launch.mesh.make_grid``), each rank
+       processes: Qwen1.5-0.5B at ``GRID_LAYERS`` of 24 layers on a K = 4 x
+       M = 2 grid of ``gloo`` ranks sharing the card (``launch.mesh.make_grid``), each rank
        holding the FSDP blocks of its model block: a prefill of 4 x 8192,
        one row a data rank, each layer's weights gathered over the data
        group just before it, with 24 kernel-8 launches on each rank, and
        decode at batch 4 against 32,768 slots over ``GRID_DECODE``
        teacher-forced tokens, both gathered and held by the dense rule to
        one process's logits of the same tokens; then K = 4 training with
-       ``fsdp_params``, one candidate a data rank (WFAgg 3 steps,
-       Alt-WFAgg 1, the mean 2), IPM-100 on one, with each rank's planned
+       ``fsdp_params``, one candidate a data rank (WFAgg 2 steps,
+       Alt-WFAgg 1, the mean 2; then the flat layout's WFAgg, 2 steps, its
+       first held as the model axis's), IPM-100 on one, with each rank's planned
        launches of kernels 4, 6 and 7 every step (0 of kernel 1), the
        step-1 candidate held to one process's gradient (relative rms
        ``GRID_GRAD_RMS``) and every step's aggregation to the reference
@@ -6189,6 +6197,29 @@ TP_M = 2                       # gloo ranks sharing the one card
 # and the mean to 2, the whole script's 1,050 s)
 TP_RUNS = (("wfagg", "fused", 2), ("wfagg", "fused_two_launch", 1), ("alt_wfagg", "fused", 1),
            ("mean", "fused", 2))
+# then (method, backend, steps, options): the flat layout on the model axis
+# (robust_allreduce.FlatShards: the chunked all-reduce on each rank's blocks,
+# no kernel, as the reference's flat layout reaches no Pallas kernel), WFAgg
+# and the mean, each step held to the one-process flat route on the gathered
+# whole candidates; and one stacked step that runs the options the model axis
+# used to refuse at once: min_max (its partial sums over the model group)
+# instead of IPM-100, gather_dtype bfloat16 (kernels 4 and 6 on the rounded
+# blocks, kernel 7 on the f32 ones) and Adafactor (its update held to one
+# process's on the gathered aggregate)
+TP_FLAT_RUNS = (("wfagg", "fused", 1, {"layout": "flat"}), ("mean", "fused", 1, {"layout": "flat"}),
+                ("wfagg", "fused", 1, {"attack": "min_max", "gather_dtype": "bfloat16",
+                                       "optimizer": "adafactor"}))
+# the flat layout's hold, fixed before the first run: the rank's decisions
+# and weights those of the one-process route on the whole candidates (masks
+# bit-equal or a D/C near-tie by NEAR_TIE, weights within FLAT_W_TOL) and
+# its aggregate within FLAT_OUT_TOL at its coordinates (the flat layout's
+# bounds, as tests/test_torch_flat_tp.py's); Adafactor's updated blocks
+# within 1e-5 of the leaf's largest update of one process's (the leaf-wide
+# means add M blocks' sums)
+ADAFACTOR_TOL = 1e-5
+# the TP training runs at 12 of Qwen's 24 layers (cut in this slice beside
+# its three new steps, the whole script's time; serving stays uncut)
+TP_TRAIN_LAYERS = 12
 # the step-1 candidate gradients at M against M = 1 on the same parameters
 # and batch: relative rms of each candidate's whole gradient.  Both are bf16
 # activations on f32 parameters, rounded in another order (partial sums of a
@@ -6198,9 +6229,34 @@ TP_GRAD_RMS = 5e-2
 TP_TIMEOUT_S = 900             # the ranks' deadline
 # the TP decode's prompt and greedy tokens (cut from the serving path's 64 +
 # 32 beside the grid part: each step's 49 host-staged all-reduces ~170 ms)
-TP_PROMPT, TP_NEW_TOKENS = 32, 16
+TP_PROMPT, TP_NEW_TOKENS = 16, 8
 CARDS_TP_ARCH = "stablelm-3b"  # --only cards at 4 cards: its state exists only across them
 CARDS_TP_STEPS = 3
+MASKS = ("mask_d", "mask_c", "mask_t")
+
+
+def run_label(method, backend, opts) -> str:
+    """A training run's name in the reports: method and backend, then its
+    options (the flat layout, another attack, gather_dtype, the optimizer)."""
+    extra = [("flat" if v == "flat" else v) for k, v in sorted(opts.items())
+             if k in ("layout", "attack", "optimizer")]
+    if opts.get("gather_dtype"):
+        extra.append(f"{opts['gather_dtype']}-gather")
+    return " ".join([method, backend] + extra)
+
+
+def run_config(cfg, method, backend, opts, **kw):
+    """A training run's (model config, TrainConfig): ``train_config`` with
+    the run's backend and options."""
+    import dataclasses
+
+    tc = train_config(method, layout=opts.get("layout", "stacked"),
+                      attack=opts.get("attack", TRAIN_ATTACK), **kw)
+    tc = dataclasses.replace(tc, agg=dataclasses.replace(
+        tc.agg, backend=backend, gather_dtype=opts.get("gather_dtype")))
+    if "optimizer" in opts:
+        cfg = dataclasses.replace(cfg, optimizer=opts["optimizer"])
+    return cfg, tc
 
 
 class CollectiveClock:
@@ -6323,6 +6379,11 @@ class TPObserver:
             self.steps.append(self.cur)
             self.peaks.append(round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
             self.launches.append({k: c for k, c in read_counts().items() if c})
+            if self.adafactor is not None:
+                grads, old = self.adafactor
+                self.adafactor_err = hold_adafactor(torch, self.model, self.mesh, grads, old,
+                                                    v["params"], self.tc)
+                self.adafactor = None
         else:
             counts = read_counts()
             clock = dict(self.clock.ms), dict(self.clock.calls)
@@ -6333,6 +6394,12 @@ class TPObserver:
                 self.route(v["candidates"], v["agg_state"])
             elif self.hold and phase == "allreduce":
                 self.compare(v["grads"], v["info"])
+            if phase == "allreduce" and self.hold_ada:
+                from repro_torch.core import flatten as F
+
+                # the step's aggregate and the parameters before the update
+                self.adafactor = (v["grads"], [x.clone() for x in
+                                               F.tree_leaves(F.module_tree(self.model))])
             # the hold's own launches and collectives are not the step's
             for name, (mod, attr, _, _) in KERNELS.items():
                 setattr(_module(name), attr, counts[name])
@@ -6342,6 +6409,10 @@ class TPObserver:
 
     grads_route = None
     batch = None
+    hold_ada = False          # hold each Adafactor update to one process's
+    adafactor = None          # (aggregate, old parameters) while an Adafactor step is held
+    adafactor_err = None
+    mesh = None
 
     def replayed_grads(self):
         """An MoE model's candidate 0 gradient for the step-1 hold: its rows
@@ -6460,6 +6531,195 @@ class TPObserver:
         self.ref = self.cands = self.state = None
 
 
+def gather_root(torch, x):
+    """Every rank's ``x`` on the world's rank 0, in rank order (None
+    elsewhere): one ``gather``, through host memory on ``gloo``."""
+    import torch.distributed as dist
+
+    w = x.contiguous()
+    if dist.get_backend() == "gloo":
+        w = w.cpu()
+    parts = ([torch.empty_like(w) for _ in range(dist.get_world_size())]
+             if dist.get_rank() == 0 else None)
+    dist.gather(w, parts, dst=0)
+    return parts
+
+
+def world_fails(torch, failed: bool) -> bool:
+    """Whether any rank of the world failed its hold (every rank learns it,
+    so that all raise together instead of waiting on a collective)."""
+    import torch.distributed as dist
+
+    t = torch.tensor([1.0 if failed else 0.0],
+                     device="cpu" if dist.get_backend() == "gloo" else "cuda")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item() > 0)
+
+
+def rank_places(places, mrank):
+    """Model rank ``mrank``'s places of a buffer whose places on this rank
+    are ``places`` (every rank's blocks sit alike, each its own part)."""
+    return [p._replace(part=mrank) if p.parts > 1 else p for p in places]
+
+
+def flat_whole(torch, model, mesh, bufs):
+    """The whole candidates (K, P) float32 in ravel order on the world's
+    rank 0 (None elsewhere), from every rank's flat buffers: on the model
+    axis each rank's (K, P_s) and (K, P_r), the K candidates emulated; on a
+    grid each rank's (P_s,) and (P_r,), its data index's candidate.  One
+    row a gather, placed by ``core.flatten.global_index``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import flatten as F
+
+    places, P = F.coord_places(model)
+    M_ = mesh.model_axis().size
+    dax = mesh.data_axis()
+    K = bufs[0].shape[0] if dax is None else dax.size
+    root = dist.get_rank() == 0
+    whole = torch.zeros((K, P), dtype=torch.float32, device="cuda") if root else None
+    for b, buf in enumerate(bufs):
+        for j in range(buf.shape[0] if dax is None else 1):
+            parts = gather_root(torch, buf[j] if dax is None else buf)
+            if not root:
+                continue
+            for r, part in enumerate(parts):
+                k = j if dax is None else r // M_
+                pl = rank_places(places[b], r % M_)
+                for a in range(0, part.shape[0], 1 << 25):
+                    e = min(part.shape[0], a + (1 << 25))
+                    whole[k, F.global_index(pl, a, e, "cuda")] = part[a:e].to("cuda")
+            del parts
+    return whole
+
+
+class FlatObserver(TPObserver):
+    """The flat layout's ``observe`` hook on one rank of the model axis or a
+    grid: ``TPObserver``'s phases, launches and peak memory; with ``hold``,
+    at every step the candidates after the attack gathered whole on the
+    world's rank 0 (``flat_whole``) and the one-process flat route
+    (``robust_allreduce`` over ``Emulated(K)``, from the step's WFAgg-T
+    state) run there; after the all-reduce every rank's aggregate
+    gathered there too and held to it at its coordinates (``FLAT_OUT_TOL``),
+    the decisions masks bit-equal or WFAgg-D/C near-ties (``NEAR_TIE``, by
+    the one-process statistics), the weights within ``FLAT_W_TOL``
+    (``first_only``: the first step's alone)."""
+
+    def __init__(self, torch, tc, agg_state, hold, clock, model, mesh, first_only=False):
+        super().__init__(torch, tc, agg_state, False, clock, model)
+        self.hold, self.mesh, self.first_only = hold, mesh, first_only
+        self.whole = None
+
+    def __call__(self, phase, **v):
+        if phase == "exchange":
+            return
+        super().__call__(phase, **v)
+
+    def route(self, cands, state):
+        from repro_torch.distributed import robust_allreduce as ra
+
+        bufs = cands if isinstance(cands, tuple) else (cands,)
+        self.whole = flat_whole(self.torch, self.model, self.mesh, bufs)
+        self.ref = None
+        if self.whole is not None:
+            K = self.whole.shape[0]
+            o, _, info = ra.robust_allreduce(self.whole, ra.Emulated(K), self.tc.agg, state)
+            self.ref = (o, info["weights"], {k: info[k] for k in MASKS if k in info})
+
+    def compare(self, grads, info):
+        import torch.distributed as dist
+
+        from repro_torch.core import flatten as F
+        from repro_torch.distributed import robust_allreduce as ra
+
+        torch = self.torch
+        label = (f"{'grid' if self.mesh.data_axis() is not None else 'tp'} flat "
+                 f"{self.tc.agg.method} step {len(self.steps) + 1}")
+        places, _ = F.coord_places(self.model)
+        M_ = self.mesh.model_axis().size
+        fail, err, rep = None, 0.0, []
+        root = dist.get_rank() == 0
+        flips = []
+        if root:
+            o, w, masks = self.ref
+            flips = [(k, bit) for bit, name in enumerate(MASKS) if name in masks
+                     for k in (masks[name] != info[name]).nonzero().flatten().tolist()]
+            keep = torch.ones(w.shape[0], dtype=torch.bool, device=w.device)
+            if flips:
+                K = self.whole.shape[0]
+                st = ra._stats_scan(self.whole, ra.Emulated(K), self.tc.agg)
+                wcfg = ra._effective_wfagg_config(self.tc.agg, K)
+                rep = [(k, "WFAgg-T", None) for k, bit in flips if bit == 2]
+                rep += margins_of(torch, wcfg, st.dist2_med, st.gram, st.dot_med, st.med2,
+                                  None, None, None, [f for f in flips if f[1] != 2])
+                print(f"  {label}: decisions differ at (candidate, filter, margin) {rep}")
+                if not all(m is not None and m <= NEAR_TIE for _, _, m in rep):
+                    fail = f"{label}: decisions differ away from any edge: {rep}"
+                keep[[k for k, _ in flips]] = False
+            werr = float((info["weights"][keep] - w[keep]).abs().max()) if keep.any() else 0.0
+            if werr > FLAT_W_TOL:
+                fail = f"{label}: weights {info['weights'].tolist()} against {w.tolist()}"
+        for b, vec in enumerate(grads if isinstance(grads, tuple) else (grads,)):
+            parts = gather_root(torch, vec)
+            if not root or flips:
+                continue
+            for r, part in enumerate(parts):
+                pl = rank_places(places[b], r % M_)
+                for a in range(0, part.shape[0], 1 << 25):
+                    e = min(part.shape[0], a + (1 << 25))
+                    want = o[F.global_index(pl, a, e, "cuda")]
+                    err = max(err, float((part[a:e].to("cuda") - want).abs().max()))
+            del parts
+        if root and err > FLAT_OUT_TOL:
+            fail = f"{label}: the aggregate at max|diff| {err} of the one-process route"
+        if fail:
+            print(f"  {fail}")
+        if world_fails(torch, fail is not None):
+            raise AssertionError(fail or f"{label}: the hold failed on rank 0")
+        if root and flips:
+            self.near_ties.append((len(self.steps) + 1, rep))
+        self.max_err = max(self.max_err, err)
+        self.ref = self.whole = None
+        self.hold = self.hold and not self.first_only
+        # the ranks share the card: the hold's whole candidates go back to it
+        torch.cuda.empty_cache()
+
+
+def hold_adafactor(torch, model, mesh, grads, old, new, tc) -> float:
+    """The Adafactor step on the model axis against one process's: per leaf
+    the aggregate's and the old parameters' blocks gathered whole, one
+    Adafactor update of the whole leaf from a zero state (step 1), and the
+    rank's block of ``old + update`` against its new block; returns the
+    largest difference over the leaf's largest update, the max over the
+    model group (raises past ``ADAFACTOR_TOL``)."""
+    from repro_torch.core import flatten as F
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+    from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
+
+    axis = model.tp
+    lr = warmup_cosine(tc.lr, tc.warmup, tc.total_steps)(0)
+    opt = make_optimizer("adafactor")
+    worst = 0.0
+    for g, p0, p1, c in zip(F.tree_leaves(grads), old, F.tree_leaves(new), F.split_cuts(model)):
+        if c is not None:
+            spec = tuple("model" if i == c[0].dim else None for i in range(g.ndim))
+            g = shd.gather_tensor(g, spec, mesh, c[0], c[1])
+            p0 = shd.gather_tensor(p0, spec, mesh, c[0], c[1])
+        u, _ = opt.update({"x": g}, opt.init({"x": p0}), {"x": p0}, lr)
+        want = p0 + u["x"]
+        if c is not None:
+            want = shd.take_block(want, c[0], axis.size, axis.rank)
+        scale = float(u["x"].abs().max().clamp(min=1e-30))
+        worst = max(worst, float((p1 - want).abs().max()) / scale)
+        del g, p0, u, want
+    worst = float(L.all_max_model(torch.tensor([worst], device="cuda"), axis.group)[0])
+    if worst > ADAFACTOR_TOL:
+        raise AssertionError(f"tp adafactor: updated blocks at {worst:.3g} of the leaf's largest "
+                             f"update from one process's (bound {ADAFACTOR_TOL})")
+    return worst
+
+
 def tp_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
     """The TP serving part on one rank: ``build_prefill(mesh=)`` on 2 x 8192
     (warm once, then timed; kernel 8 on the rank's H/M heads, 24 launches
@@ -6570,8 +6830,6 @@ def tp_train(torch, cfg, M_, rank, runs, grads_file=None, hold=True, K=TRAIN_K,
     route only with ``hold``); WFAgg's ``f``.  Returns (launches, report)."""
     from repro_torch.core.wfagg import WFAggConfig
 
-    import dataclasses
-
     import torch.distributed as dist
 
     from repro_torch.core import flatten as F
@@ -6586,20 +6844,27 @@ def tp_train(torch, cfg, M_, rank, runs, grads_file=None, hold=True, K=TRAIN_K,
     report = {}
     clock = CollectiveClock(torch)
     try:
-        for method, backend, steps in runs:
-            tc = train_config(method, attack=TRAIN_ATTACK, n_malicious=n_mal,
-                              wfagg=WFAggConfig(f=f, transient=3, window=3))
-            tc = dataclasses.replace(tc, agg=dataclasses.replace(tc.agg, backend=backend))
-            state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0),
-                                        mesh)
-            obs = TPObserver(torch, tc, state.agg_state, hold and method != "mean", clock,
-                             state.params,
-                             grads_m1=grads_file if (method, backend) == runs[0][:2] else None)
-            obs.tc_k = K
+        for method, backend, steps, *rest in runs:
+            opts = rest[0] if rest else {}
+            flat = opts.get("layout") == "flat"
+            run_cfg, tc = run_config(cfg, method, backend, opts, n_malicious=n_mal,
+                                     wfagg=WFAggConfig(f=f, transient=3, window=3))
+            state = tr.init_train_state(run_cfg, tc,
+                                        torch.Generator(device="cuda").manual_seed(0), mesh)
+            if flat:
+                obs = FlatObserver(torch, tc, state.agg_state, hold and method != "mean",
+                                   clock, state.params, mesh)
+            else:
+                obs = TPObserver(torch, tc, state.agg_state, hold and method != "mean", clock,
+                                 state.params,
+                                 grads_m1=grads_file if (method, backend, opts) == (
+                                     *runs[0][:2], {}) else None)
+            obs.tc_k, obs.mesh = K, mesh
+            obs.hold_ada = hold and run_cfg.optimizer == "adafactor"
             route = pathlib.Path(str(grads_file or "") + ".route")
             if cfg.n_experts and obs.grads_m1 is not None and route.is_file():
                 obs.grads_route = str(route)
-            step = tr.build_train_step(cfg, tc, mesh, observe=obs)
+            step = tr.build_train_step(run_cfg, tc, mesh, observe=obs)
             losses, weights = [], []
             for b in batches[:steps]:
                 obs.start()
@@ -6607,20 +6872,22 @@ def tp_train(torch, cfg, M_, rank, runs, grads_file=None, hold=True, K=TRAIN_K,
                 state, m = step(state, b)
                 losses.append(float(m["loss"]))
                 weights.append([round(float(w), 4) for w in m["weights"]])
-            needs_gram = method == "alt_wfagg"
-            plan = {k: c for k, c in tp_plan(rank, method, backend, needs_gram).items() if c}
+            needs_gram = method == "alt_wfagg" or tc.agg.gather_dtype is not None
+            plan = ({} if flat else
+                    {k: c for k, c in tp_plan(rank, method, backend, needs_gram).items() if c})
+            label = run_label(method, backend, opts)
             for i, got in enumerate(obs.launches):
                 if got != plan:
-                    raise AssertionError(f"tp {method} {backend} step {i + 1} on rank {rank}: "
+                    raise AssertionError(f"tp {label} step {i + 1} on rank {rank}: "
                                          f"launches {got}, planned {plan}")
             for k, c in plan.items():
                 launches[k] += c * steps
-            label = f"{method} {backend}"
             report[label] = dict(P=[b.numel() for b in F.layout_split(state.params)],
-                                 losses=losses, weights=weights, ms=[
+                                 attack=tc.attack, losses=losses, weights=weights, ms=[
                 {k: round(v, 2) for k, v in s.items()} for s in obs.steps],
                 peak_gib=obs.peaks, launches_per_step=plan, near_ties=obs.near_ties,
                 max_out_err=obs.max_err, grad_rms_vs_m1=obs.grad_rms,
+                adafactor_err=obs.adafactor_err,
                 grad_routing=getattr(obs, "routing", None),
                 tokens_per_s=[round(1e3 * batches[0]["tokens"].numel()
                                     / sum(s[p] for p in ("grads", "attack", "allreduce",
@@ -6666,6 +6933,8 @@ def tp_child(rank, S, store_path, out_dir, backend) -> None:
                 for k in KERNELS:
                     launches[k] += la[k]
                 res["tc"] = la["flash_attention[tensor_core]"]
+            # training at the job's depth (serving is uncut)
+            cfg = job_config(get_config, {"arch": job["arch"], "layers": job.get("train_layers")})
             la, res["report"]["train"] = tp_train(
                 torch, cfg, S, rank, [tuple(r) for r in job["runs"]],
                 grads_file=job.get("grads"), hold=job["hold"])
@@ -6680,12 +6949,14 @@ def tp_child(rank, S, store_path, out_dir, backend) -> None:
     pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
 
 
-def tp_reference(torch, out_dir) -> None:
+def tp_reference(torch, out_dir, train_layers=None) -> None:
     """What the ranks are held to at M = 1, computed here before they start
     and freed: the seed-0 Qwen's prefill tail (2 x 8192, its last
     ``PREFILL_TAIL`` positions, f32) and the K candidate gradients of the
-    first training batch on the same parameters (a (K, P) float32 file in
-    ravel order)."""
+    first training batch on the seed-0 model cut to ``train_layers`` (a
+    (K, P) float32 file in ravel order)."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_config
     from repro_torch.core.flatten import layout_flat
     from repro_torch.data.synthetic import TokenStream
@@ -6701,6 +6972,10 @@ def tp_reference(torch, out_dir) -> None:
     logits = sv.build_prefill(cfg)(params, {"tokens": prompts})
     torch.save(logits[:, -PREFILL_TAIL:].float().cpu(), pathlib.Path(out_dir, "prefill_tail.pt"))
     del logits
+    if train_layers:
+        del params
+        cfg = dataclasses.replace(cfg, n_layers=train_layers)
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     P = layout_flat(params).numel()
     batch = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_K).batch(0, device="cuda")
     rows = batch["tokens"].shape[0] // TRAIN_K
@@ -6786,10 +7061,11 @@ def run_tp_path(torch, backend="gloo", S=TP_M) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    tp_reference(torch, tmp)
+    tp_reference(torch, tmp, TP_TRAIN_LAYERS)
     ref_s = time.perf_counter() - t0
     pathlib.Path(tmp, "tp_job.json").write_text(json.dumps(dict(
-        arch=TP_ARCH, serve=True, runs=TP_RUNS, hold=True,
+        arch=TP_ARCH, serve=True, runs=TP_RUNS + TP_FLAT_RUNS, hold=True,
+        train_layers=TP_TRAIN_LAYERS,
         grads=str(pathlib.Path(tmp, "grads_m1.f32")))))
     t0 = time.perf_counter()
     try:
@@ -6811,7 +7087,9 @@ def run_tp_cards(torch) -> dict:
     four cards also ``CARDS_TP_ARCH`` uncut at M = 4, K = 8, WFAgg-T on
     ``fused``, ``CARDS_TP_STEPS`` steps under IPM-100, its train state
     existing only across the cards (peak per card and step time; no
-    one-card hold fits)."""
+    one-card hold fits), on the stacked layout and then on the flat layout
+    (each rank's (K, P_s) and (K, P_r) buffers, no ``prev``: its peak a card
+    beside the stacked route's)."""
     import tempfile
 
     S = torch.cuda.device_count()
@@ -6820,12 +7098,18 @@ def run_tp_cards(torch) -> dict:
     if S == 4:
         tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
         pathlib.Path(tmp, "tp_job.json").write_text(json.dumps(dict(
-            arch=CARDS_TP_ARCH, serve=False, runs=(("wfagg", "fused", CARDS_TP_STEPS),),
+            arch=CARDS_TP_ARCH, serve=False, runs=(
+                ("wfagg", "fused", CARDS_TP_STEPS),
+                ("wfagg", "fused", CARDS_TP_STEPS, {"layout": "flat"})),
             hold=False, expandable=True)))
         t0 = time.perf_counter()
         ranks = run_ranks(torch, "nccl", S, child=tp_child, tmp=tmp, timeout=TP_TIMEOUT_S)
         la, out["stablelm"] = report_tp(ranks, gpu_line(), 0.0, time.perf_counter() - t0,
                                         CARDS_TP_ARCH, f"nccl, {S} cards")
+        peaks = {label: max(t["peak_gib"]) for label, t in
+                 ranks[0]["report"]["train"].items()}
+        print(f"  {CARDS_TP_ARCH} at M = {S}, K = {TRAIN_K}: peak GiB a card {peaks} "
+              f"({gpu_line()})")
         for k in KERNELS:
             launches[k] += la[k]
     out["launches"] = {k: c for k, c in launches.items() if c}
@@ -6862,19 +7146,25 @@ def report_tp(ranks, card, ref_s, seconds, arch, where, K=TRAIN_K, n_mal=TRAIN_M
             t = r["report"]["train"][label]
             phases = [{p: s.get(p) for p in ("grads", "attack", "allreduce", "optimizer",
                                              "activations", "psum_stats")} for s in t["ms"]]
+            route = ("the one-process flat route on the whole candidates" if " flat" in label
+                     else "the reference route")
             print(f"  rank {r['rank']} train {label}: loss {[round(x, 4) for x in t['losses']]}"
                   f", weights {t['weights'][-1]}; launches a step {t['launches_per_step']}; "
                   f"ms per step {phases}; tokens/s {t['tokens_per_s']}; peak GiB "
-                  f"{t['peak_gib']}; held to the reference route (max|diff| "
+                  f"{t['peak_gib']}; held to {route} (max|diff| "
                   f"{t['max_out_err']:.3g}, near-ties {t['near_ties'] or 'none'})"
                   + (f"; step-1 candidates vs M = 1, relative rms {t['grad_rms_vs_m1']}"
-                     if t["grad_rms_vs_m1"] else ""))
+                     if t["grad_rms_vs_m1"] else "")
+                  + (f"; Adafactor's blocks vs one process, largest difference "
+                     f"{t['adafactor_err']:.3g} of the leaf's largest update"
+                     if t.get("adafactor_err") is not None else ""))
     tr0 = r0["train"]
     bad = [k for k, m in enumerate(spaced_malicious(K, n_mal)) if m]
     for label, t in tr0.items():
         if not all(map(math.isfinite, t["losses"])):
             raise AssertionError(f"tp {label}: non-finite loss {t['losses']}")
-        if not label.startswith("mean") and any(w[k] != 0.0 for w in t["weights"] for k in bad):
+        if (not label.startswith("mean") and t["attack"] == TRAIN_ATTACK
+                and any(w[k] != 0.0 for w in t["weights"] for k in bad)):
             raise AssertionError(f"tp {label}: an attacker got weight: {t['weights']}")
     two = tr0.get("wfagg fused_two_launch")
     if two is not None:
@@ -6908,7 +7198,11 @@ GRID_K, GRID_M = 4, 2          # 8 gloo ranks sharing the one card
 # (method, backend, steps) of the grid's training runs, fsdp_params on,
 # IPM-100 on spaced_malicious(4, 1) = candidate 2 (WFAgg cut from 3 steps
 # to 2 and Alt-WFAgg from 2 to 1 beside the families' part)
-GRID_RUNS = (("wfagg", "fused", 2), ("alt_wfagg", "fused", 1), ("mean", "fused", 2))
+GRID_RUNS = (("wfagg", "fused", 2), ("alt_wfagg", "fused", 1), ("mean", "fused", 2),
+             # the flat layout on the grid (no FSDP blocks; the chunked all-reduce
+             # over the data group on each rank's model block, the statistics
+             # summed over the model group), held to the one-process flat route
+             ("wfagg", "fused", 2, {"layout": "flat"}))
 GRID_MALICIOUS = 1
 GRID_F = 1                     # WFAgg's f at K = 4: the one attacker
 # the step-1 candidate gradients on the grid against one process's on the
@@ -6922,6 +7216,9 @@ GRID_GRAD_RMS = 5e-2
 # GRID_DECODE_TIMED steps timed
 GRID_DECODE, GRID_DECODE_TIMED = 4, 2
 GRID_TIMEOUT_S = 600
+# Qwen on the grid at 12 of its 24 layers, served and trained (cut in this
+# slice beside its flat run, the whole script's time)
+GRID_LAYERS = 12
 CARDS_GRID_ARCH = "stablelm-3b"   # --only cards: K = 4 x M = 1 on four nccl cards
 CARDS_GRID_STEPS = 3
 
@@ -7256,22 +7553,31 @@ def grid_train(torch, cfg, mesh, rank, runs, grads_file=None, hold=True, arch_tc
     report = {}
     clock = GridClock(torch)
     try:
-        for method, backend, steps in runs:
+        for method, backend, steps, *rest in runs:
+            opts = rest[0] if rest else {}
+            flat = opts.get("layout") == "flat"
             if arch_tc:
                 tc = specs.train_config(cfg, multi_pod=False)
                 tc = dataclasses.replace(tc, attack=TRAIN_ATTACK, n_malicious=GRID_MALICIOUS,
                                          lr=TRAIN_LR, warmup=0)
+                tc = dataclasses.replace(tc, agg=dataclasses.replace(tc.agg, method=method,
+                                                                     backend=backend))
             else:
-                tc = train_config(method, attack=TRAIN_ATTACK, n_malicious=GRID_MALICIOUS,
-                                  wfagg=WFAggConfig(f=GRID_F, transient=3, window=3),
-                                  fsdp_params=True)
-            tc = dataclasses.replace(tc, agg=dataclasses.replace(tc.agg, method=method,
-                                                                 backend=backend))
+                _, tc = run_config(cfg, method, backend, opts, n_malicious=GRID_MALICIOUS,
+                                   wfagg=WFAggConfig(f=GRID_F, transient=3, window=3),
+                                   fsdp_params=not flat)
             state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0),
                                         mesh)
-            obs = GridObserver(torch, tc, state.agg_state, hold and method != "mean", clock,
-                               state.params, mesh,
-                               grads_m1=grads_file if (method, backend) == runs[0][:2] else None)
+            if flat:
+                # the grid holds its first flat step: each hold moves K whole
+                # candidates through host memory to rank 0
+                obs = FlatObserver(torch, tc, state.agg_state, hold and method != "mean",
+                                   clock, state.params, mesh, first_only=True)
+            else:
+                obs = GridObserver(torch, tc, state.agg_state, hold and method != "mean", clock,
+                                   state.params, mesh,
+                                   grads_m1=grads_file if (method, backend, opts) == (
+                                       *runs[0][:2], {}) else None)
             step = tr.build_train_step(cfg, tc, mesh, observe=obs)
             losses, weights = [], []
             for b in batches[:steps]:
@@ -7279,21 +7585,25 @@ def grid_train(torch, cfg, mesh, rank, runs, grads_file=None, hold=True, arch_tc
                 state, m = step(state, b)
                 losses.append(float(m["loss"]))
                 weights.append([round(float(w), 4) for w in m["weights"]])
-            plan = grid_plan(state.params, mesh, method)
+            plan = {} if flat else grid_plan(state.params, mesh, method)
+            label = run_label(method, backend, opts)
             for i, got in enumerate(obs.launches):
                 if got != plan:
-                    raise AssertionError(f"grid {method} {backend} step {i + 1} on rank {rank}: "
+                    raise AssertionError(f"grid {label} step {i + 1} on rank {rank}: "
                                          f"launches {got}, planned {plan}")
             for k, c in plan.items():
                 launches[k] += c * steps
-            report[f"{method} {backend}"] = dict(
-                fsdp=tc.fsdp_params, widths=F.fsdp_widths(state.params), losses=losses,
+            report[label] = dict(
+                fsdp=tc.fsdp_params, losses=losses,
+                widths=[b.numel() for b in F.layout_split(state.params)] if flat else
+                F.fsdp_widths(state.params),
                 weights=weights, ms=[{k: round(v, 2) for k, v in s.items()} for s in obs.steps],
                 peak_gib=obs.peaks, launches_per_step=plan, near_ties=obs.near_ties,
                 max_out_err=obs.max_err, grad_rms_vs_one=obs.grad_rms,
                 tokens_per_s=[round(1e3 * batches[0]["tokens"].numel()
-                                    / sum(s[p] for p in ("grads", "exchange", "attack",
-                                                         "allreduce", "optimizer")), 1)
+                                    / sum(s.get(p, 0.0) for p in ("grads", "exchange",
+                                                                  "attack", "allreduce",
+                                                                  "optimizer")), 1)
                               for s in obs.steps])
             del state, step, obs
             gc.collect()
@@ -7523,8 +7833,8 @@ def check_grid_kernels(torch, K, D, heads, where="a grid rank's") -> tuple:
     return errs, out
 
 
-def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH, layers=None,
-                  runs=GRID_RUNS) -> tuple:
+def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH,
+                  layers=GRID_LAYERS, runs=GRID_RUNS) -> tuple:
     """The data axis as processes on one card: K x M ``gloo`` ranks share
     it (a ``FileStore``), a grid (``make_grid``) of ``arch`` uncut (seed 0)
     whose ranks each hold their FSDP blocks: serving (``grid_serve``) and
@@ -7634,11 +7944,14 @@ def report_grid(ranks, card, ref_s, seconds, arch, K, M_, where) -> tuple:
             phases = [{p: s.get(p) for p in ("grads", "param_gather", "exchange", "attack",
                                              "allreduce", "psum_stats", "optimizer",
                                              "activations")} for s in t["ms"]]
-            print(f"  rank {r['rank']} train {label} (fsdp_params {t['fsdp']}, column groups "
+            groups = "buffers" if " flat" in label else "column groups"
+            route = ("the one-process flat route on the whole candidates" if " flat" in label
+                     else "the reference route")
+            print(f"  rank {r['rank']} train {label} (fsdp_params {t['fsdp']}, {groups} "
                   f"{t['widths']}): loss {[round(x, 4) for x in t['losses']]}, weights "
                   f"{t['weights'][-1]}; launches a step {t['launches_per_step']}; ms per step "
                   f"{phases}; tokens/s {t['tokens_per_s']}; peak GiB {t['peak_gib']}; held to "
-                  f"the reference route (max|diff| {t['max_out_err']:.3g}, near-ties "
+                  f"{route} (max|diff| {t['max_out_err']:.3g}, near-ties "
                   f"{t['near_ties'] or 'none'})"
                   + (f"; step-1 candidate vs one process, relative rms {t['grad_rms_vs_one']}"
                      if t["grad_rms_vs_one"] else ""))
@@ -7649,14 +7962,16 @@ def report_grid(ranks, card, ref_s, seconds, arch, K, M_, where) -> tuple:
             raise AssertionError(f"grid {label}: non-finite loss {t['losses']}")
         if not label.startswith("mean") and any(w[k] != 0.0 for w in t["weights"] for k in bad):
             raise AssertionError(f"grid {label}: an attacker got weight: {t['weights']}")
-    if "mean fused" in tr0 and "wfagg fused" in tr0:
-        w = tr0["wfagg fused"]["losses"]
+    for wlabel in ("wfagg fused", "wfagg fused flat"):
+        if "mean fused" not in tr0 or wlabel not in tr0:
+            continue
+        w = tr0[wlabel]["losses"]
         mean = tr0["mean fused"]["losses"]
         if not (w[-1] < w[0] and w[-1] < mean[-1]):
-            raise AssertionError(f"grid: WFAgg's last loss {w[-1]} is not below its first "
+            raise AssertionError(f"grid: {wlabel}'s last loss {w[-1]} is not below its first "
                                  f"{w[0]} and the mean's {mean[-1]}")
-        print(f"  the claim on the grid: WFAgg's loss {w[0]:.4f} -> {w[-1]:.4f}, the mean's "
-              f"{mean[0]:.4f} -> {mean[-1]:.4f} under {TRAIN_ATTACK}")
+        print(f"  the claim on the grid ({wlabel}): WFAgg's loss {w[0]:.4f} -> {w[-1]:.4f}, the "
+              f"mean's {mean[0]:.4f} -> {mean[-1]:.4f} under {TRAIN_ATTACK}")
     return launches, rep
 
 
@@ -8134,9 +8449,9 @@ def main(argv=()) -> int:
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only not in ("distributed", "cards", "train", "moe", "ssm", "encdec", "tp",
-                             "grid", "tpfam", "tpfamcards"):
+                             "grid", "tpfam", "tpfamcards", "tpcards"):
         print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm|encdec|tp|grid|"
-              "tpfam|tpfamcards]", file=sys.stderr)
+              "tpfam|tpfamcards|tpcards]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8227,6 +8542,13 @@ def main(argv=()) -> int:
                                   hold=False)
         print(json.dumps({"tpfamcards": {"launches": {k: c for k, c in la.items() if c},
                                          "report": report}}))
+        return 0
+    if only == "tpcards":
+        print(f"[3] the model axis on one nccl rank per card alone (--only tpcards): {TP_ARCH} "
+              f"at M = {torch.cuda.device_count()}" + (
+                  f", then {CARDS_TP_ARCH} uncut at M = 4, stacked and flat"
+                  if torch.cuda.device_count() == 4 else "") + "; no kernels or ok line")
+        print(json.dumps({"tpcards": run_tp_cards(torch)}))
         return 0
     if only == "cards":
         print(f"[3] the distributed parts on one nccl rank per card (--only cards): "
@@ -8515,19 +8837,22 @@ def main(argv=()) -> int:
           f"robust-DP trainer, K={ENCDEC_TRAIN_K}")
     encdec_launches, _ = run_encdec_path(torch)
 
-    print(f"{at()} the model axis: {TP_ARCH} uncut split over {TP_M} gloo ranks sharing the "
-          f"card: served (prefill 2 x 8192 through kernel 8 on each rank's heads, decode) "
-          f"and trained (K={TRAIN_K}, WFAgg on fused and fused_two_launch, Alt-WFAgg, the "
-          "mean; kernels 4, 6 and 7 on each rank's blocks)")
+    print(f"{at()} the model axis: {TP_ARCH} split over {TP_M} gloo ranks sharing the "
+          f"card: served uncut (prefill 2 x 8192 through kernel 8 on each rank's heads, "
+          f"decode) and trained at {TP_TRAIN_LAYERS} layers (K={TRAIN_K}, WFAgg on fused and "
+          "fused_two_launch, Alt-WFAgg, the mean; kernels 4, 6 and 7 on each rank's blocks; "
+          "the flat layout's WFAgg and mean, no kernel; min_max with gather_dtype bfloat16 "
+          "and Adafactor)")
     tp_launches, tp_report = run_tp_path(torch)
     for name, t in tp_report["kernels"].items():
         timed[name]["model_axis"] = t
 
-    print(f"{at()} the grid: {GRID_ARCH} uncut on {GRID_K} x {GRID_M} gloo ranks sharing the "
-          "card (the data axis as processes, FSDP blocks): served (prefill "
+    print(f"{at()} the grid: {GRID_ARCH} at {GRID_LAYERS} layers on {GRID_K} x {GRID_M} gloo "
+          "ranks sharing the card (the data axis as processes, FSDP blocks): served (prefill "
           f"{GRID_K} x 8192, one row a data rank, kernel 8 on each rank's heads; decode) and "
           f"trained (K={GRID_K}, one candidate a data rank, fsdp_params; WFAgg, Alt-WFAgg, the "
-          "mean; kernels 4, 6 and 7 on each rank's column block)")
+          "mean; kernels 4, 6 and 7 on each rank's column block; the flat layout's WFAgg, no "
+          "kernel)")
     grid_launches, grid_errs, grid_report = run_grid_path(torch)
     for name, t in grid_report["kernels"].items():
         timed[name]["grid"] = t

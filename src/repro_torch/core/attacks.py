@@ -25,7 +25,7 @@ for it.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -248,6 +248,7 @@ def min_max_attack(
     models: Tensor,             # (K, P) flat candidate stack
     malicious: Tensor,          # (K,) bool
     cfg: AttackConfig,
+    reduce: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Tensor:
     """Min-max deviation (Shejwalkar & Houmansadr 2021, adapted to the
     WFAgg filter radii): ``c = mu + gamma * u`` with the largest gamma
@@ -265,43 +266,78 @@ def min_max_attack(
     come from the (K, K) Gram ``mf @ mf.T`` (``torch.mm``, float32 with
     TF32 off as the package sets it); with fewer than two benign rows or a
     non-finite gamma the attack sends the benign mean.
+
+    Three steps, so that a stack split over ranks by coordinates runs it:
+    per-coordinate moments and two rounds of partial sums over the
+    coordinates (``min_max_direction``: ||sd||^2 and ||mu||^2, which fix
+    ``u``; ``min_max_partials``: the row norms, the Gram, ``(mu - x_b).u``,
+    ``||mu - x_b||^2``, the distances to the coordinate median and
+    ``(med - mu)``'s terms), each passed through ``reduce`` (the sum over
+    the ranks that hold the other coordinates; None: this stack is whole),
+    the closed form on the summed scalars (``min_max_gamma``), and the
+    per-coordinate ``mu + gamma u``.
     """
     mf = models.to(torch.float32)
     benign = ~malicious.to(torch.bool)
-    benign_w = benign.to(torch.float32)
-    mu, sd, _ = _masked_moments(mf, benign_w)
+    red = reduce if reduce is not None else (lambda x: x)
+    mu, u = min_max_direction(mf, benign, red)
+    gamma = min_max_gamma(red(min_max_partials(mf, benign, mu, u)), benign, cfg)
+    return (mu + gamma * u).expand(mf.shape)
 
-    sdn = torch.linalg.vector_norm(sd)
-    mun = torch.linalg.vector_norm(mu)
+
+def min_max_direction(mf: Tensor, benign: Tensor,
+                      reduce: Callable[[Tensor], Tensor]) -> Tuple[Tensor, Tensor]:
+    """(mu, u) of ``min_max_attack``: the benign mean and the unit
+    direction ``-sd / ||sd||`` (``-mu / ||mu||`` where sd vanishes), the
+    norms from the reduced ||sd||^2 and ||mu||^2."""
+    mu, sd, _ = _masked_moments(mf, benign.to(torch.float32))
+    sums = reduce(torch.stack([(sd * sd).sum(), (mu * mu).sum()]))
+    sdn, mun = torch.sqrt(sums[0]), torch.sqrt(sums[1])
     u = torch.where(sdn > 1e-6, -sd / torch.clamp(sdn, min=_EPS),
                     -mu / torch.clamp(mun, min=_EPS))
+    return mu, u
 
-    # max pairwise benign squared distance via the Gram expansion
+
+def min_max_partials(mf: Tensor, benign: Tensor, mu: Tensor, u: Tensor) -> Tensor:
+    """The coordinate sums ``min_max_gamma`` reads, as one vector: per row
+    its squared norm (K), the Gram (K x K), ``(mu - x_b).u`` (K),
+    ``||mu - x_b||^2`` (K) and ``||x_b - med||^2`` (K), then ``(mu -
+    med).u`` and ``||mu - med||^2``."""
     sq = (mf * mf).sum(-1)
     gram = torch.mm(mf, mf.t())
-    d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * gram, min=0.0)
-    bpair = benign[:, None] & benign[None, :]
-    dmax2 = torch.where(bpair, d2, -torch.inf).max()
-
-    # cap 1: ||mu + g u - x_b||^2 <= dmax^2 for every benign b
     delta = mu[None, :] - mf                  # (K, P)
     A = torch.mv(delta, u)                    # (K,)
     n2 = (delta * delta).sum(-1)
+    del delta
+    med = _masked_coordinate_median(mf, benign)
+    rmed = ((mf - med[None, :]) ** 2).sum(-1)
+    dm = mu - med
+    return torch.cat([sq, gram.reshape(-1), A, n2, rmed, torch.dot(dm, u).reshape(1),
+                      (dm * dm).sum().reshape(1)])
+
+
+def min_max_gamma(sums: Tensor, benign: Tensor, cfg: AttackConfig) -> Tensor:
+    """``min_max_attack``'s step along ``u`` from the summed
+    ``min_max_partials``: the smaller of the two caps, times ``1 -
+    margin``; 0 when it is not finite or fewer than two rows are benign."""
+    K = benign.shape[0]
+    sq, gram, A, n2, rmed, Am, dm2 = sums.split([K, K * K, K, K, K, 1, 1])
+    gram = gram.view(K, K)
+    # max pairwise benign squared distance via the Gram expansion
+    d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * gram, min=0.0)
+    bpair = benign[:, None] & benign[None, :]
+    dmax2 = torch.where(bpair, d2, -torch.inf).max()
+    # cap 1: ||mu + g u - x_b||^2 <= dmax^2 for every benign b
     g_pair = -A + torch.sqrt(torch.clamp(A * A + dmax2 - n2, min=0.0))
     g_pair = torch.where(benign, g_pair, torch.inf).min()
-
     # cap 2: ||mu + g u - med||^2 <= max_b ||x_b - med||^2 (WFAgg-D radius)
-    med = _masked_coordinate_median(mf, benign)
-    rmed2 = torch.where(benign, ((mf - med[None, :]) ** 2).sum(-1), -torch.inf).max()
-    dm = mu - med
-    Am = torch.dot(dm, u)
-    g_med = -Am + torch.sqrt(torch.clamp(Am * Am + rmed2 - (dm * dm).sum(), min=0.0))
-
+    rmed2 = torch.where(benign, rmed, -torch.inf).max()
+    Am, dm2 = Am[0], dm2[0]
+    g_med = -Am + torch.sqrt(torch.clamp(Am * Am + rmed2 - dm2, min=0.0))
     gamma = (1.0 - cfg.adaptive_margin) * torch.clamp(torch.minimum(g_pair, g_med),
                                                       min=0.0)
-    ok = torch.isfinite(gamma) & (benign_w.sum() >= 2)
-    c = mu + torch.where(ok, gamma, torch.zeros_like(gamma)) * u
-    return c.expand(mf.shape)
+    ok = torch.isfinite(gamma) & (benign.to(torch.float32).sum() >= 2)
+    return torch.where(ok, gamma, torch.zeros_like(gamma))
 
 
 def apply_model_attack(

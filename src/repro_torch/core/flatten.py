@@ -24,7 +24,10 @@ in ravel order: the leaves split over the model axis (P_s,) and the
 replicated ones (P_r,): norm scales and biases, and the KV projections
 where M does not divide the KV heads.  ``module_tree`` then gives views
 of both, and ``unravel_rows_split`` lays (K, P_s) and (K, P_r) candidate
-matrices out as one candidate tree.
+matrices out as one candidate tree.  ``coord_places`` says where each
+leaf's block sits in the whole model's ravel, and ``global_index`` turns
+a range of a buffer's columns into the whole ravel's indices (the flat
+all-reduce's count-sketch and noise draws on the model axis).
 
 On the data axis as processes (a grid of K x M ranks) a rank holds its
 FSDP blocks (``layout_fsdp``): each leaf split over the data axis at the
@@ -256,6 +259,88 @@ def split_cuts(model: nn.Module) -> List[Optional[Tuple[object, int]]]:
             c = (c[0]._replace(dim=c[0].dim + 1), c[1])
         out.append(c)
     return out
+
+
+class CoordPlace(NamedTuple):
+    """Where a leaf's block, as a model rank holds it in one of its buffers,
+    sits in the whole model's ravel (``layout_flat`` order): the block is
+    ``buffer[start:start + size]``; the whole leaf's first coordinate is
+    ``offset``, its dims collapse to (outer, n, inner) around the cut dim
+    of ``n`` values, which is cut into ``runs`` runs each split into
+    ``parts`` blocks, and the rank holds block ``part`` of each run (a
+    ``distributed.sharding.Cut``); a leaf the rank holds whole has outer
+    1, n its size, inner 1, one run, one part."""
+
+    start: int
+    size: int
+    offset: int
+    outer: int
+    n: int
+    inner: int
+    runs: int = 1
+    parts: int = 1
+    part: int = 0
+
+
+def coord_places(model: nn.Module) -> Tuple[List[List[CoordPlace]], int]:
+    """Per natural buffer of a model cut over the model axis (the split and
+    the replicated buffer, ``layout_split``), the places of its leaves'
+    blocks in the whole model's ravel, in buffer order; and the whole
+    model's size P.  Each place is a handful of ints: a coordinate's index
+    is computed when it is needed (``global_index``), never stored."""
+    axis = model.tp
+    split_paths = {path for path, _ in split_groups(model)[0]}
+    places: List[List[CoordPlace]] = [[], []]
+    starts = [0, 0]
+    offset = 0
+    for (path, ps), c in zip(leaf_params(model), split_cuts(model)):
+        shape = leaf_shape(path, ps)
+        size = math.prod(shape)
+        b = 0 if path in split_paths else 1
+        if (c is None) != (b == 1):
+            raise ValueError(f"{'/'.join(map(str, path))}: its cut and its buffer disagree")
+        if c is None:
+            place = CoordPlace(starts[b], size, offset, 1, size, 1)
+        else:
+            cut, n = c
+            if cut.padded:
+                raise NotImplementedError(
+                    f"{'/'.join(map(str, path))}: a padded layout's head slots have no place "
+                    "in the whole model's ravel")
+            d = cut.dim
+            if shape[d] * axis.size != n:
+                raise ValueError(f"{'/'.join(map(str, path))}: a block of {shape[d]} of {n} "
+                                 f"values at model = {axis.size}")
+            place = CoordPlace(starts[b], size, offset, math.prod(shape[:d]), n,
+                               math.prod(shape[d + 1:]), cut.runs, axis.size, axis.rank)
+        places[b].append(place)
+        starts[b] += size
+        offset += place.outer * place.n * place.inner
+    return places, offset
+
+
+def global_index(places: Sequence[CoordPlace], a: int, b: int, device=None) -> Tensor:
+    """The whole model's ravel index (int64) of columns [a, b) of a rank's
+    buffer whose leaves sit at ``places`` (``coord_places``), computed from
+    each leaf's place: one transient of b - a ints."""
+    out = []
+    for pl in places:
+        lo, hi = max(a, pl.start), min(b, pl.start + pl.size)
+        if lo >= hi:
+            continue
+        e = torch.arange(lo - pl.start, hi - pl.start, dtype=torch.int64, device=device)
+        nb = pl.n // pl.parts                   # the block's extent of the cut dim
+        run = nb // pl.runs                     # its extent of one run
+        o = torch.div(e, nb * pl.inner, rounding_mode="floor")
+        r = e - o * (nb * pl.inner)
+        j = torch.div(r, pl.inner, rounding_mode="floor")
+        i = r - j * pl.inner
+        jr = torch.div(j, run, rounding_mode="floor")
+        wj = jr * (pl.n // pl.runs) + pl.part * run + (j - jr * run)
+        out.append(pl.offset + (o * pl.n + wj) * pl.inner + i)
+    if not out:
+        return torch.zeros((0,), dtype=torch.int64, device=device)
+    return torch.cat(out) if len(out) > 1 else out[0]
 
 
 def unravel_rows_split(mats: Tuple[Tensor, Tensor], model: nn.Module) -> dict:

@@ -108,6 +108,22 @@ the model axis, and the model axis is the grid's route at K in one
 process (its two column groups, the replicated one counted on model rank
 0).
 
+**The flat layout on the model axis or the grid** (``robust_allreduce``'s
+``model_shards=``, a ``FlatShards``): each rank's gradient is two buffers,
+(P_s,) of its split leaves' blocks and (P_r,) of the replicated leaves
+(emulated: (K, P_s) and (K, P_r)), and the result is the values the whole
+vector's route gives those coordinates.  The reference ravels the whole
+gradient (a model-axis all-gather); here each rank streams its own
+coordinates: the (K, chunk) gathers stay over the candidate axis (the data
+group on a grid), the statistics and the count-sketch are partial sums
+(each coordinate sketched under its whole-vector chunk and position,
+``core.flatten.global_index``; the sketch is linear) added over the model
+group in rank order in one collective, the replicated buffer counted on
+model rank 0; the median, trimmed mean, attacks and the weighted sum are
+per coordinate.  ``gather_dtype`` on the stacked routes rounds each block
+before the D/C statistics and the Gram (kernels 4 and 6 on a rounded
+copy, then kernel 7), WFAgg-T's sums staying float32.
+
 ``state_from_jax`` turns the reference's state (as numpy arrays) into the
 port's.
 """
@@ -127,17 +143,17 @@ from repro_torch.core import trust
 from repro_torch.core.flatten import tree_leaves as _leaves
 from repro_torch.core.flatten import tree_map as _map
 from repro_torch.core.flatten import tree_unflatten as _unflatten
-from repro_torch.core.flatten import unravel_rows
+from repro_torch.core.flatten import CoordPlace, global_index, unravel_rows
 from repro_torch.core.trust import wfagg_scores
 from repro_torch.core.wfagg import (
     TemporalState, WFAggConfig, wfagg_t_decide, wfagg_t_select)
 from repro_torch.distributed.sharding import as_cut, take_block
-from repro_torch.distributed.spmd import all_gather_in_rank_order, psum_stats
+from repro_torch.distributed.spmd import (
+    all_gather_rows, all_reduce_in_rank_order, psum_stats)
 from repro_torch.kernels.pairwise_dist.ops import pairwise_gram
 from repro_torch.kernels.robust_stats.ops import robust_stats, wfagg_round_indexed
 from repro_torch.kernels.robust_stats.ref import RobustStats
 from repro_torch.kernels.weighted_agg.ops import weighted_agg
-from repro_torch.launch.mesh import TP_QUEUE
 from repro_torch.obs import decision as obs_decision
 
 Tensor = torch.Tensor
@@ -532,29 +548,39 @@ def apply_stacked_attack(
     attacks (IPM, ALIE, sign flip) act on the rank's block alone; noise
     draws each whole leaf's normals in leaf order, as one process does,
     and keeps the rank's block (one leaf's transient), so its draws are
-    one process's; the adaptive attacks, which read whole-vector
-    statistics, raise."""
+    one process's.  ``band_rider`` sees a view without temporal bands, so
+    it takes its ALIE-style fallback, which is per coordinate.
+    ``min_max`` reads whole-leaf sums: per leaf its two rounds of partial
+    sums (``core.attacks.min_max_direction`` / ``min_max_partials``) are
+    added over ``model_shards.group`` in rank order, each rank
+    contributing where it counts the leaf's column group (zeros where it
+    does not), so that every rank solves the leaf's closed form on the
+    same bits; a group of None is one process."""
     if attack in ("none", "label_flip"):
         return stacked
     acfg = atk.AttackConfig(name=attack, noise_mu=noise_mu, noise_sigma=noise_sigma,
                             alie_zmax=alie_zmax)
     leaves = _leaves(stacked)
-    if model_shards is not None:
-        if attack in atk.ADAPTIVE_ATTACKS:
-            raise NotImplementedError(
-                f"the adaptive attack {attack!r} on the model axis reads whole-vector "
-                f"statistics across the model group ({TP_QUEUE})")
+    reducers = [None] * len(leaves)
+    if model_shards is not None and (isinstance(model_shards, GridShards)
+                                     or model_shards.axis is not None):
+        grid = _as_grid(model_shards)
         if attack == "noise" and noise is None:
             noise = _unflatten(stacked, [_noise_block(l, cuts, generator) for l, cuts in
-                                         zip(leaves, _as_grid(model_shards).cuts)])
+                                         zip(leaves, grid.cuts)])
+        if attack == "min_max" and grid.group is not None:
+            reducers = [_leaf_reducer(grid.group, grid.counted[g]) for g in grid.leaf_groups]
     prev_leaves = _leaves(prev) if prev is not None else [None] * len(leaves)
     noise_leaves = _leaves(noise) if noise is not None else [None] * len(leaves)
     mal = malicious.to(torch.bool)
     out = []
-    for leaf, pl, z in zip(leaves, prev_leaves, noise_leaves):
+    for leaf, pl, z, red in zip(leaves, prev_leaves, noise_leaves, reducers):
+        m = mal.reshape((-1,) + (1,) * (leaf.ndim - 1))
         if attack == "noise" and z is not None:
-            m = mal.reshape((-1,) + (1,) * (leaf.ndim - 1))
             new = torch.where(m, leaf + noise_mu + noise_sigma * z, leaf)
+        elif attack == "min_max" and red is not None:
+            c = atk.min_max_attack(leaf.reshape(leaf.shape[0], -1), mal, acfg, reduce=red)
+            new = torch.where(m, c.reshape(leaf.shape).to(leaf.dtype), leaf)
         else:
             new = atk.apply_matrix_attack(
                 attack, leaf, mal, generator, acfg,
@@ -564,6 +590,12 @@ def apply_stacked_attack(
             new = leaf
         out.append(new)
     return _unflatten(stacked, out)
+
+
+def _leaf_reducer(group, counted: bool):
+    """The sum over ``group`` in rank order of a leaf's partial sums, this
+    rank's part zero where it does not count the leaf's column group."""
+    return lambda x: all_reduce_in_rank_order(x if counted else torch.zeros_like(x), group)
 
 
 def _noise_block(leaf: Tensor, cuts, generator) -> Tensor:
@@ -728,12 +760,20 @@ def _partial_stats(K: int, dev, groups: List[List[Tensor]],
     kernels 4 and 6 (their plain versions on the CPU) on each group's (K,
     D) matrix ``mats`` (with ``prevs``); on ``reference`` the reference
     backend's plain sums leaf by leaf (``prev_*``: the exact WFAgg-T sums;
-    ``norm2``: the candidates' squared norms)."""
+    ``norm2``: the candidates' squared norms).
+
+    With ``cfg.gather_dtype`` the D/C statistics and the Gram are the
+    candidates' rounded to it (the fused routes: kernel 4 without ``prev``
+    and kernel 6 on a rounded copy of each matrix, the two-launch shape),
+    while ``norm2`` and WFAgg-T's sums stay float32, as at M = 1; the Gram
+    is then always taken, so that WFAgg-C reads the rounded norms from its
+    diagonal."""
     f32 = dict(dtype=torch.float32, device=dev)
+    gd = _gather_dtype(cfg)
     fields = ["dist2", "dotmed", "norm2", "mednorm2"]
     if prev_groups is not None:
         fields += ["prev_dist2", "prev_dot", "prev_norm2"]
-    if _needs_gram(cfg) or cfg.backend == "reference":
+    if _needs_gram(cfg) or cfg.backend == "reference" or gd is not None:
         fields.append("gram")
     acc = {f: torch.zeros((K, K) if f == "gram" else () if f == "mednorm2" else (K,), **f32)
            for f in fields}
@@ -755,10 +795,38 @@ def _partial_stats(K: int, dev, groups: List[List[Tensor]],
         for mat, prev in zip(mats, prevs):
             if mat.shape[1] == 0:
                 continue
-            st = robust_stats(mat, prev=prev, need_center=False)
+            if gd is None:
+                st = robust_stats(mat, prev=prev, need_center=False)
+                for f in fields:
+                    acc[f] = acc[f] + (pairwise_gram(mat)[0] if f == "gram"
+                                       else getattr(st, f))
+                continue
+            r = mat.to(gd).to(torch.float32)
+            st = robust_stats(r, need_center=False)
+            parts = dict(dist2=st.dist2, dotmed=st.dotmed, mednorm2=st.mednorm2,
+                         gram=pairwise_gram(r)[0])
+            del r
+            parts.update(_row_sums(mat, prev))
             for f in fields:
-                acc[f] = acc[f] + (pairwise_gram(mat)[0] if f == "gram" else getattr(st, f))
+                acc[f] = acc[f] + parts[f]
     return RobustStats(med=None, trim=None, **{f: v[None] for f, v in acc.items()})
+
+
+def _row_sums(mat: Tensor, prev: Optional[Tensor], chunk: int = 1 << 22) -> Dict[str, Tensor]:
+    """Per candidate of a (K, D) float32 matrix its squared norm and, with
+    ``prev``, WFAgg-T's sums (``_temporal_sums``), in column chunks."""
+    K = mat.shape[0]
+    names = ["norm2"] + (["prev_dist2", "prev_dot", "prev_norm2"] if prev is not None else [])
+    out = {f: torch.zeros((K,), dtype=torch.float32, device=mat.device) for f in names}
+    for a in range(0, mat.shape[1], chunk):
+        g = mat[:, a:a + chunk]
+        out["norm2"] = out["norm2"] + (g * g).sum(-1)
+        if prev is not None:
+            p = prev[:, a:a + chunk]
+            out["prev_dist2"] = out["prev_dist2"] + ((g - p) ** 2).sum(-1)
+            out["prev_dot"] = out["prev_dot"] + (g * p).sum(-1)
+            out["prev_norm2"] = out["prev_norm2"] + (p * p).sum(-1)
+    return out
 
 
 def _stacked_sharded(
@@ -771,8 +839,6 @@ def _stacked_sharded(
     """The robust all-reduce of a rank's candidate blocks: a model rank's
     or a grid rank's column block (the module docstring's model-axis and
     data-axis routes)."""
-    if cfg.gather_dtype is not None:
-        raise NotImplementedError(f"gather_dtype on the model axis or a grid ({TP_QUEUE})")
     leaves = _leaves(stacked)
     K = leaves[0].shape[0]
     dev = leaves[0].device
@@ -870,7 +936,7 @@ def _all_gather(x: Tensor, axis: Axis) -> Tensor:
     """(K, ...) of every worker's ``x`` in rank order (emulated: ``x``)."""
     if isinstance(axis, Emulated):
         return x
-    return torch.stack(all_gather_in_rank_order(x, axis))
+    return all_gather_rows(x, axis)
 
 
 def _rank_sum(parts: Tensor) -> Tensor:
@@ -937,46 +1003,149 @@ def _count_sketch(chunk: Tensor, chunk_idx: int, m: int, seed: int) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the flat layout on the model axis: a rank's part of the whole vector
+# ---------------------------------------------------------------------------
+
+class FlatShards(NamedTuple):
+    """A model rank's part of the whole flat gradient (the flat layout's
+    ``model_shards``): ``group`` the model group, over which the partial
+    statistics meet (summed in rank order); per buffer of the rank's
+    gradient (the split leaves' and the replicated leaves', each in ravel
+    order) whether this rank counts it (``counted``: the replicated buffer
+    on model rank 0 only, as ``GridShards.counted``) and its leaves'
+    places in the whole model's ravel (``places``,
+    ``core.flatten.coord_places``); ``size`` the whole model's P."""
+
+    group: Any
+    counted: Tuple[bool, ...]
+    places: Tuple[Tuple[CoordPlace, ...], ...]
+    size: int
+
+
+def _buffers(flat) -> Tuple[Tensor, ...]:
+    return tuple(flat) if isinstance(flat, (tuple, list)) else (flat,)
+
+
+def _hash_of(cfg: RobustAggConfig, device):
+    """``sketch_hash`` of the whole vector's chunk ``ci`` (length
+    ``cfg.chunk_size``), the last one kept: a rank's coordinates meet the
+    global chunks in increasing order within a buffer."""
+    memo: Dict[int, Tuple[Tensor, Tensor]] = {}
+
+    def get(ci: int) -> Tuple[Tensor, Tensor]:
+        if ci not in memo:
+            memo.clear()
+            memo[ci] = sketch_hash(cfg.chunk_size, cfg.sketch_dim, cfg.seed, ci, device)
+        return memo[ci]
+    return get
+
+
+def _sketch_coords(piece: Tensor, gidx: Tensor, cfg: RobustAggConfig, hashes) -> Tensor:
+    """The count-sketch (m,) (emulated: (K, m)) of a rank's coordinates
+    ``piece`` (..., n), each under its whole-vector chunk and in-chunk
+    position (``gidx``, their indices in the whole ravel): the terms the
+    M = 1 sketch of the whole vector takes from them (it is linear)."""
+    L = cfg.chunk_size
+    ci = torch.div(gidx, L, rounding_mode="floor")
+    pos = gidx - ci * L
+    out = torch.zeros(piece.shape[:-1] + (cfg.sketch_dim,), dtype=torch.float32,
+                      device=piece.device)
+    cis, counts = torch.unique_consecutive(ci, return_counts=True)
+    off = 0
+    for c, n in zip(cis.tolist(), counts.tolist()):
+        buckets, signs = hashes(c)
+        p = pos[off:off + n]
+        part = torch.zeros_like(out).index_add_(
+            out.ndim - 1, buckets[p], piece[..., off:off + n].to(torch.float32) * signs[p])
+        out = out + part
+        off += n
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the flat layout, phase 1: streamed statistics
 # ---------------------------------------------------------------------------
 
-def _stats_scan(flat: Tensor, axis: Axis, cfg: RobustAggConfig) -> ChunkStats:
+def _add_chunk(st: ChunkStats, g: Tensor) -> ChunkStats:
+    """``st`` plus the statistics of one gathered (K, chunk) block."""
+    med = agg_lib.coordinate_median(g)
+    diff = g - med[None, :]
+    dist2 = st.dist2_med + (diff * diff).sum(1)
+    del diff
+    return st._replace(dist2_med=dist2, dot_med=st.dot_med + g @ med,
+                       med2=st.med2 + (med * med).sum(), gram=st.gram + g @ g.T)
+
+
+def _zero_stats(K: int, sketch_shape, device) -> ChunkStats:
+    f32 = dict(dtype=torch.float32, device=device)
+    return ChunkStats(dist2_med=torch.zeros((K,), **f32), dot_med=torch.zeros((K,), **f32),
+                      med2=torch.zeros((), **f32), gram=torch.zeros((K, K), **f32),
+                      sketch=torch.zeros(tuple(sketch_shape), **f32))
+
+
+def _stats_scan(flat, axis: Axis, cfg: RobustAggConfig,
+                model_shards: Optional[FlatShards] = None) -> ChunkStats:
     """The candidates' statistics over all chunks: each chunk gathered as a
-    transient (K, chunk) block; the sketch is the worker's own."""
+    transient (K, chunk) block; the sketch is the worker's own.  With
+    ``model_shards`` (``flat`` the rank's buffers): the chunks of the
+    coordinates this rank counts, the sketch taken under each coordinate's
+    whole-vector chunk and position, and the partial sums added over the
+    model group in rank order in one collective."""
+    if model_shards is not None:
+        return _stats_scan_sharded(_buffers(flat), axis, cfg, model_shards)
     K = axis_size(axis)
-    f32 = dict(dtype=torch.float32, device=flat.device)
-    dist2 = torch.zeros((K,), **f32)
-    dot_med = torch.zeros((K,), **f32)
-    med2 = torch.zeros((), **f32)
-    gram = torch.zeros((K, K), **f32)
-    sketch = torch.zeros(flat.shape[:-1] + (cfg.sketch_dim,), **f32)
+    st = _zero_stats(K, flat.shape[:-1] + (cfg.sketch_dim,), flat.device)
     for ci, chunk in _pad_chunks(flat, cfg.chunk_size):
         g = _all_gather(chunk, axis).reshape(K, -1).to(torch.float32)
-        med = agg_lib.coordinate_median(g)
-        diff = g - med[None, :]
-        dist2 = dist2 + (diff * diff).sum(1)
-        del diff
-        dot_med = dot_med + g @ med
-        med2 = med2 + (med * med).sum()
-        gram = gram + g @ g.T
-        sketch = sketch + _count_sketch(chunk, ci, cfg.sketch_dim, cfg.seed)
-    return ChunkStats(dist2_med=dist2, dot_med=dot_med, med2=med2, gram=gram,
-                      sketch=sketch)
+        st = _add_chunk(st, g)
+        st = st._replace(sketch=st.sketch + _count_sketch(chunk, ci, cfg.sketch_dim,
+                                                          cfg.seed))
+    return st
 
 
-def _streaming_coordinate_agg(flat: Tensor, axis: Axis, cfg: RobustAggConfig) -> Tensor:
-    """Median / trimmed-mean aggregation: stream output chunks directly."""
+def _stats_scan_sharded(bufs: Tuple[Tensor, ...], axis: Axis, cfg: RobustAggConfig,
+                        shards: FlatShards) -> ChunkStats:
+    K = axis_size(axis)
+    dev = bufs[0].device
+    st = _zero_stats(K, bufs[0].shape[:-1] + (cfg.sketch_dim,), dev)
+    hashes = _hash_of(cfg, dev)
+    for buf, counted, places in zip(bufs, shards.counted, shards.places):
+        if not counted:
+            continue
+        n = buf.shape[-1]
+        for a in range(0, n, cfg.chunk_size):
+            b = min(n, a + cfg.chunk_size)
+            piece = buf[..., a:b]
+            st = _add_chunk(st, _all_gather(piece, axis).reshape(K, -1).to(torch.float32))
+            st = st._replace(sketch=st.sketch + _sketch_coords(
+                piece, global_index(places, a, b, dev), cfg, hashes))
+    sizes = [x.numel() for x in st]
+    summed = all_reduce_in_rank_order(torch.cat([x.reshape(-1) for x in st]), shards.group)
+    return ChunkStats(*(v.view(x.shape) for v, x in zip(summed.split(sizes), st)))
+
+
+def _coordinate_agg(g: Tensor, cfg: RobustAggConfig) -> Tensor:
+    if cfg.method == "median":
+        return agg_lib.coordinate_median(g)
+    K = g.shape[0]
+    t = int(cfg.trim_beta * K)
+    srt = torch.sort(g, dim=0).values
+    return (srt[t: K - t] if t > 0 else srt).mean(0)
+
+
+def _streaming_coordinate_agg(flat, axis: Axis, cfg: RobustAggConfig,
+                              model_shards: Optional[FlatShards] = None):
+    """Median / trimmed-mean aggregation: stream output chunks directly
+    (with ``model_shards``, over each of the rank's buffers: per coordinate,
+    so no collective over the model group)."""
+    if model_shards is not None:
+        return tuple(_streaming_coordinate_agg(b, axis, cfg) for b in _buffers(flat))
     K = axis_size(axis)
     P = flat.shape[-1]
     out = torch.empty((P,), dtype=flat.dtype, device=flat.device)
     for ci, chunk in _pad_chunks(flat, cfg.chunk_size):
         g = _all_gather(chunk, axis).reshape(K, -1).to(torch.float32)
-        if cfg.method == "median":
-            o = agg_lib.coordinate_median(g)
-        else:
-            t = int(cfg.trim_beta * K)
-            srt = torch.sort(g, dim=0).values
-            o = (srt[t: K - t] if t > 0 else srt).mean(0)
+        o = _coordinate_agg(g, cfg)
         a = ci * cfg.chunk_size
         out[a:a + cfg.chunk_size] = o[:P - a].to(flat.dtype)
     return out
@@ -987,25 +1156,42 @@ def _streaming_coordinate_agg(flat: Tensor, axis: Axis, cfg: RobustAggConfig) ->
 # ---------------------------------------------------------------------------
 
 def robust_allreduce(
-    flat: Tensor,
+    flat,
     axis: Axis,
     cfg: RobustAggConfig,
     state: Optional[AggState] = None,
-) -> Tuple[Tensor, Optional[AggState], Dict[str, Tensor]]:
+    model_shards: Optional[FlatShards] = None,
+) -> Tuple[Any, Optional[AggState], Dict[str, Tensor]]:
     """Robust-aggregate the workers' flat gradients across the candidate
     axis: ``flat`` is this worker's (P,) gradient on a process group of one
     rank per candidate, or the (K, P) candidates under ``Emulated(K)``.
     Returns (the aggregated (P,) gradient, identical on every rank,
-    new_state, info)."""
-    K = axis_size(axis)
-    dev = flat.device
-    ones = {"weights": torch.ones((K,), device=dev), "n_accepted": torch.tensor(K, device=dev)}
-    if cfg.method == "mean":
-        return _psum(flat, axis, cfg.chunk_size) / K, state, ones
-    if cfg.streaming_output:
-        return _streaming_coordinate_agg(flat, axis, cfg), state, ones
+    new_state, info).
 
-    stats = _stats_scan(flat, axis, cfg)
+    On the model axis (``model_shards``, a ``FlatShards``) ``flat`` is the
+    rank's pair of buffers, (P_s,) and (P_r,) (emulated: (K, P_s) and (K,
+    P_r)), and so is the aggregate: the values the whole vector's route
+    gives these coordinates, computed without gathering the whole vector.
+    The (K, chunk) gathers stay over ``axis``; ``dist2_med``, ``dot_med``,
+    ``med2``, the Gram and the sketch are partial sums added over the
+    model group once (every rank then derives the same weights from the
+    same bits); the median, trimmed mean and the weighted sum are per
+    coordinate."""
+    K = axis_size(axis)
+    bufs = _buffers(flat)
+    dev = bufs[0].device
+    ones = {"weights": torch.ones((K,), device=dev), "n_accepted": torch.tensor(K, device=dev)}
+
+    def each(fn):
+        out = tuple(fn(b) for b in bufs)
+        return out if model_shards is not None else out[0]
+
+    if cfg.method == "mean":
+        return each(lambda b: _psum(b, axis, cfg.chunk_size) / K), state, ones
+    if cfg.streaming_output:
+        return _streaming_coordinate_agg(flat, axis, cfg, model_shards), state, ones
+
+    stats = _stats_scan(flat, axis, cfg, model_shards)
     sketches = _all_gather(stats.sketch, axis).reshape(K, -1)
     weights, new_state, info = _weights_from_stats(stats, sketches, state, cfg)
 
@@ -1013,14 +1199,14 @@ def robust_allreduce(
     # weight; every candidate rejected: the mean (the host reads the sum)
     if bool(weights.sum() > 0):
         wsum = torch.clamp(weights.sum(), min=1e-12)
-        out = _psum(flat, axis, cfg.chunk_size, scale=weights / wsum)
+        out = each(lambda b: _psum(b, axis, cfg.chunk_size, scale=weights / wsum))
     else:
-        out = _psum(flat, axis, cfg.chunk_size) / K
+        out = each(lambda b: _psum(b, axis, cfg.chunk_size) / K)
     return out, new_state, info
 
 
 def apply_distributed_attack(
-    flat: Tensor,
+    flat,
     axis: Axis,
     malicious: Tensor,            # (K,) bool: which workers are Byzantine
     attack: str,
@@ -1029,38 +1215,64 @@ def apply_distributed_attack(
     noise_sigma: float = 0.1,
     alie_zmax: float = 0.5,
     chunk_size: int = 1 << 22,
-) -> Tensor:
+    in_place: bool = False,
+    model_shards: Optional[FlatShards] = None,
+):
     """Transform the worker's gradient if it is malicious (``flat`` as in
     ``robust_allreduce``).  The omniscient attacks (ALIE, IPM) take the
     benign cohort's mean (and variance) per coordinate from the gathered
     chunks, summed in rank order.  The noise attack adds the same draw from
     ``generator`` on every malicious worker, as the reference's shared key
-    does: seed it alike on every rank."""
+    does: seed it alike on every rank.  ``in_place`` writes the result into
+    ``flat`` chunk by chunk (no second (K, P)) and returns it.
+
+    On the model axis (``model_shards``, ``flat`` the rank's buffers) every
+    attack is per coordinate and acts on the rank's buffers; noise draws the
+    whole (P,) vector's normals as one process does (one transient of P
+    floats) and gives each of the rank's coordinates its value there
+    (``core.flatten.global_index``, a chunk at a time)."""
     if attack in ("none", "label_flip"):
         return flat
+    bufs = _buffers(flat)
+    dev = bufs[0].device
     K = axis_size(axis)
-    mal = malicious.to(device=flat.device, dtype=torch.bool)
-    me = my_index(axis, flat.device)
-    bad = mal[me] if flat.ndim == 1 else mal[me][:, None]
-    if attack == "noise":
-        z = torch.randn(flat.shape[-1:], generator=generator, device=flat.device,
-                        dtype=flat.dtype)
-        return torch.where(bad, flat + noise_mu + noise_sigma * z, flat)
-    if attack == "sign_flip":
-        return torch.where(bad, -flat, flat)
-    if not (attack.startswith("ipm") or attack == "alie"):
+    mal = malicious.to(device=dev, dtype=torch.bool)
+    me = my_index(axis, dev)
+    bad = mal[me] if bufs[0].ndim == 1 else mal[me][:, None]
+    if attack not in ("noise", "sign_flip") and not (attack.startswith("ipm")
+                                                    or attack == "alie"):
         raise ValueError(f"unknown attack {attack!r}")
-    benign_w = (~mal).to(flat.dtype)[:, None]
-    n_benign = torch.clamp(K - mal.sum(), min=1).to(flat.dtype)
-    out = torch.empty_like(flat)
-    P = flat.shape[-1]
-    for a in range(0, P, chunk_size):
-        g = _all_gather(flat[..., a:a + chunk_size], axis)
-        mu = _rank_sum(g * benign_w) / n_benign
-        if attack.startswith("ipm"):
-            mal_val = -(100.0 if attack == "ipm_100" else 0.5) * mu
-        else:
-            var = _rank_sum(benign_w * (g - mu) ** 2) / n_benign
-            mal_val = mu - alie_zmax * torch.sqrt(var)
-        out[..., a:a + chunk_size] = torch.where(bad, mal_val, flat[..., a:a + chunk_size])
-    return out
+    z = None
+    if attack == "noise":
+        # the whole vector's normals, drawn as one process draws them
+        P = model_shards.size if model_shards is not None else bufs[0].shape[-1]
+        z = torch.randn((P,), generator=generator, device=dev, dtype=bufs[0].dtype)
+    benign_w = (~mal).to(bufs[0].dtype)[:, None]
+    n_benign = torch.clamp(K - mal.sum(), min=1).to(bufs[0].dtype)
+    outs = []
+    for i, buf in enumerate(bufs):
+        out = buf if in_place else torch.empty_like(buf)
+        P = buf.shape[-1]
+        for a in range(0, P, chunk_size):
+            b = min(P, a + chunk_size)
+            piece = buf[..., a:b]
+            if attack == "noise":
+                zc = z[a:b] if model_shards is None else z[global_index(
+                    model_shards.places[i], a, b, dev)]
+                new = torch.where(bad, piece + noise_mu + noise_sigma * zc, piece)
+            elif attack == "sign_flip":
+                new = torch.where(bad, -piece, piece)
+            else:
+                g = _all_gather(piece, axis)
+                mu = _rank_sum(g * benign_w) / n_benign
+                if attack.startswith("ipm"):
+                    mal_val = -(100.0 if attack == "ipm_100" else 0.5) * mu
+                else:
+                    var = _rank_sum(benign_w * (g - mu) ** 2) / n_benign
+                    mal_val = mu - alie_zmax * torch.sqrt(var)
+                del g
+                new = torch.where(bad, mal_val, piece)
+            out[..., a:b] = new
+            del new
+        outs.append(out)
+    return tuple(outs) if isinstance(flat, (tuple, list)) else outs[0]

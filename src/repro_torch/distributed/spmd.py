@@ -156,6 +156,17 @@ def all_gather_in_rank_order(x: Tensor, group: ProcessGroup) -> List[Tensor]:
     return [p.to(x.device) for p in parts]
 
 
+def all_reduce_in_rank_order(x: Tensor, group: ProcessGroup) -> Tensor:
+    """The sum of every rank's ``x`` over ``group``: gathered, then added
+    in rank order, so that every rank holds the same bits (a reducing
+    ``all_reduce`` adds in the backend's order)."""
+    parts = all_gather_in_rank_order(x, group)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
 def all_gather_rows(x: Tensor, group: ProcessGroup) -> Tensor:
     """Every rank's ``x`` stacked in rank order, (S, *x.shape), on ``x``'s
     device, the output allocated once (``nccl``: one

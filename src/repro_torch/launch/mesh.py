@@ -10,7 +10,7 @@ port:
   processes: ``group``, a ``torch.distributed`` process group of K ranks,
   one per candidate (the rank's data group).  At M = 1 the flat layout of
   ``distributed.robust_allreduce`` runs over it; the stacked layout, the
-  gspmd step and serving run the grid below.
+  gspmd step, serving and the flat layout at M > 1 run the grid below.
 * ``model`` is the tensor-parallel (TP) axis: ``model_group``, a process
   group of M ranks, one per TP shard of the model (``gloo`` on the CPU or
   M ranks sharing one card, ``nccl`` on M cards).  A mesh with ``model >
@@ -38,12 +38,8 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch.distributed as dist
 
-# what the grid does not run yet: the flat layout at model > 1
-MULTI_CARD = ("the flat layout on a grid with a model axis (model > 1) is not ported yet "
-              "(ROADMAP queue 1, item 12.2c)")
 # what the model axis and the grid do not run yet: the encoder-decoder and VLM
-# layers, the adaptive attacks, Adafactor, gather_dtype, and training with the
-# head slots of a padded layout
+# layers' TP and FSDP forms, and training with the head slots of a padded layout
 TP_QUEUE = "ROADMAP queue 1, item 12.8"
 
 

@@ -32,6 +32,13 @@ model=model)``): a grid of W / M candidates x M model shards
         --candidates 4 --agg-backend fused
 
 (the flat layout at M = 1 runs over the W ranks as one data group).
+``--layout flat --model-parallel M`` runs the flat all-reduce on each
+rank's model block: over the data group on a grid, over the K candidates
+in the process on M ranks alone; the statistics' partial sums meet over
+the model group:
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --model-parallel 2 \
+        --candidates 4 --layout flat --chunk-size 4194304
 ``--production-mesh`` builds the reference's 16 x 16 (2 x 16 x 16) grid
 from 256 (512) ranks.  Rank 0 prints and writes the checkpoints, gathered
 to the whole model's format.  It runs on the card; ``main(argv,

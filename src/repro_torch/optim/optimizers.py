@@ -16,12 +16,13 @@ operation in the tensor's float32, as ``jnp``'s weak types do.
 Implemented:
   sgd        momentum SGD (paper Section V-A: momentum=0.9)
   adamw      decoupled weight decay Adam
-  adafactor  factored second moments, update clipping
+  adafactor  factored second moments, update clipping (over blocks of
+             the leaves too: ``LeafBlock``)
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -93,47 +94,90 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 # Adafactor (simplified: factored second moment, update clipping)
 # ---------------------------------------------------------------------------
 
+class LeafBlock(NamedTuple):
+    """A parameter leaf of which this rank holds a block: the whole leaf's
+    (logical) ``shape``, and per cut dim ``(dim, group)``, the process
+    group whose ranks hold the other blocks along it (a leaf cut over the
+    model axis and the data axis has two)."""
+
+    shape: Tuple[int, ...]
+    cuts: Tuple[Tuple[int, Any], ...] = ()
+
+
+def _mean(x: Tensor, dims: Tuple[int, ...], n: int, groups, keepdim: bool = False) -> Tensor:
+    """The mean of ``x`` over ``dims`` of a leaf of ``n`` values there: the
+    block's sum added over each group whose ranks hold the rest, over n (a
+    block that is the whole: ``x.mean``)."""
+    if not groups:
+        return x.mean(dims, keepdim=keepdim) if dims else x.mean()
+    from repro_torch.distributed.spmd import all_reduce_in_rank_order
+
+    s = x.sum(dims, keepdim=keepdim) if dims else x.sum()
+    for group in groups:
+        s = all_reduce_in_rank_order(s, group)
+    return s / n
+
+
 def adafactor(decay: float = 0.99, eps: float = 1e-30, clip_threshold: float = 1.0,
-              min_dim_factored: int = 128) -> Optimizer:
-    def factored(p) -> bool:
-        return (p.ndim >= 2 and p.shape[-1] >= min_dim_factored
-                and p.shape[-2] >= min_dim_factored)
+              min_dim_factored: int = 128,
+              blocks: Optional[Sequence[Optional[LeafBlock]]] = None) -> Optimizer:
+    """Adafactor.  ``blocks`` (per leaf in tree order, None for a leaf
+    held whole) describes a rank that holds blocks of the leaves (the model
+    axis, a grid's FSDP blocks): ``factored`` is decided from the whole
+    leaf's shape, and each mean over a cut dim (``g2``'s over the last dim
+    where the leaf is cut on it, over dim -2 and ``vr``'s over its last
+    where it is cut on -2, the update clip's RMS over the whole leaf) adds
+    the block's sum over that cut's group; ``vr`` and ``vc`` are the
+    blocks of the whole leaf's factors (whole along a dim they reduce)."""
+    def factored(shape) -> bool:
+        return (len(shape) >= 2 and shape[-1] >= min_dim_factored
+                and shape[-2] >= min_dim_factored)
+
+    def leaf_blocks(params):
+        return list(blocks) if blocks is not None else [None] * len(tree_leaves(params))
 
     def init(params):
         # second-moment statistics as a list aligned with the leaves of the
         # reference's tree (factored leaves hold dicts)
-        def make(p):
+        def make(p, blk):
             z = dict(dtype=F32, device=p.device)
-            if factored(p):
+            if factored(blk.shape if blk is not None else p.shape):
                 return {"vr": torch.zeros(p.shape[:-1], **z),
                         "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
             return {"v": torch.zeros(p.shape, **z)}
 
-        return {"v": [make(p) for p in tree_leaves(params)], "t": _count()}
+        return {"v": [make(p, blk) for p, blk in zip(tree_leaves(params), leaf_blocks(params))],
+                "t": _count()}
 
     def update(grads, state, params, lr):
         t = state["t"] + 1
 
-        def upd(g, v, p):
+        def upd(g, v, p, blk):
+            shape = blk.shape if blk is not None else tuple(p.shape)
+            cuts = blk.cuts if blk is not None else ()
+            nd = len(shape)
+            on = lambda d: [grp for dim, grp in cuts if dim == d]  # noqa: E731
             gf = g.to(F32)
             g2 = torch.square(gf) + eps
-            if factored(p):
-                vr = decay * v["vr"] + (1 - decay) * g2.mean(-1)
-                vc = decay * v["vc"] + (1 - decay) * g2.mean(-2)
+            if factored(shape):
+                vr = decay * v["vr"] + (1 - decay) * _mean(g2, (-1,), shape[-1], on(nd - 1))
+                vc = decay * v["vc"] + (1 - decay) * _mean(g2, (-2,), shape[-2], on(nd - 2))
                 new_v = {"vr": vr, "vc": vc}
-                denom = torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+                denom = torch.clamp(_mean(vr, (-1,), shape[-2], on(nd - 2), keepdim=True),
+                                    min=eps)
                 vhat = vr[..., None] * vc[..., None, :] / denom[..., None]
             else:
                 vhat = decay * v["v"] + (1 - decay) * g2
                 new_v = {"v": vhat}
             u = gf * torch.rsqrt(vhat + eps)
             # update clipping (RMS <= threshold) over the whole leaf
-            rms = torch.sqrt(torch.square(u).mean() + eps)
+            rms = torch.sqrt(_mean(torch.square(u), (), math.prod(shape),
+                                   [grp for _, grp in cuts]) + eps)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             return (-lr * u).to(p.dtype), new_v
 
-        outs = [upd(g, v, p) for g, v, p in zip(tree_leaves(grads), state["v"],
-                                                 tree_leaves(params))]
+        outs = [upd(g, v, p, blk) for g, v, p, blk in zip(
+            tree_leaves(grads), state["v"], tree_leaves(params), leaf_blocks(params))]
         updates = tree_unflatten(grads, [o[0] for o in outs])
         return updates, {"v": [o[1] for o in outs], "t": t}
 
@@ -143,7 +187,14 @@ def adafactor(decay: float = 0.99, eps: float = 1e-30, clip_threshold: float = 1
 OPTIMIZERS = {"sgd": sgd, "adamw": adamw, "adafactor": adafactor}
 
 
-def make_optimizer(name: str, **hp) -> Optimizer:
+def make_optimizer(name: str, blocks: Optional[Sequence[Optional[LeafBlock]]] = None,
+                   **hp) -> Optimizer:
+    """The optimizer ``name`` with hyper-parameters ``hp``; ``blocks``: the
+    leaves' places where this rank holds blocks of them (``LeafBlock``),
+    which Adafactor's leaf-wide statistics need (SGD and AdamW act per
+    coordinate)."""
+    if name == "adafactor":
+        hp["blocks"] = blocks
     return OPTIMIZERS[name](**hp)
 
 

@@ -16,10 +16,14 @@ Two execution modes:
              reads it without a copy (kernel 1 on ``fused``, kernels 4 and
              6 on ``fused_two_launch``), and its WFAgg-T ``prev`` is the
              last step's buffer;
-    flat     ``apply_distributed_attack`` and the chunked
-             ``robust_allreduce`` over the mesh's process group (one rank
-             per candidate, this process computing its own candidate) or,
+    flat     ``apply_distributed_attack`` (in place) and the chunked
+             ``robust_allreduce`` over the mesh's data group (one rank per
+             candidate, this process computing its own candidate) or,
              without one, ``Emulated(K)`` (this process computing all K).
+             On the model axis each rank runs it on its two buffers of the
+             candidates' blocks (``robust_allreduce.FlatShards``): the
+             whole vector's values, the statistics' partial sums added over
+             the model group, no whole gradient gathered.
 
   On one card the K candidates run one after another in one process,
   not batched, so activation memory stays at one worker's.
@@ -44,7 +48,9 @@ matrices; the stacked all-reduce's model-axis route (kernels 4, 6 and 7,
 the statistics summed over the model group) keeps every gradient leaf in
 its TP split through aggregation, as the reference's does ("no unsharded
 gradient ever exists"), and the optimizer steps each rank's blocks.
-``multi_pod`` runs pod x data candidates.
+``multi_pod`` runs pod x data candidates.  The flat layout there runs
+the chunked all-reduce on the rank's (K, P_s) and (K, P_r) buffers with
+the K candidates emulated (``flat_step``).
 
 **The grid.**  On a mesh whose data axis is processes (``launch.mesh``:
 K x M ranks, the stacked layout or gspmd) every rank computes ONE
@@ -67,11 +73,17 @@ whole aggregate.  The loss is the rank-order mean of the K candidates'
 losses, ``grad_norm`` the aggregate's squares summed once per coordinate
 over the grid.  gspmd on the grid is the mean of the exchanged column
 block (the mean gradient, each data rank on its rows).  WFAgg-T's
-``prev`` is the column block.  The flat layout at M > 1 on a grid is
-ROADMAP queue 1, item 12.2c; Adafactor, the adaptive attacks, the
-encoder-decoder and VLM families and training on a padded layout's head
-slots stay refused there (item 12.8).  ``state_shardings`` / ``batch_shardings`` give
-the reference's specs (plain tuples, ``distributed.sharding``).
+``prev`` is the column block.  The flat layout at M > 1 on a grid has no
+FSDP blocks (the reference's ``fsdp_params`` is the stacked layout's):
+each rank takes its candidate's gradient on its whole model block and the
+flat all-reduce runs over the data group on the rank's two buffers, the
+statistics summed over the model group (``flat_step``).  Adafactor runs
+on blocks everywhere (``optim.LeafBlock``: its leaf-wide means add the
+block's sums over the cut's group).  The encoder-decoder and VLM families
+and training on a padded layout's head slots stay refused on the model
+axis and the grid (ROADMAP queue 1, item 12.8).  ``state_shardings`` /
+``batch_shardings`` give the reference's specs (plain tuples,
+``distributed.sharding``).
 """
 from __future__ import annotations
 
@@ -94,10 +106,10 @@ from repro_torch.distributed.logical import use_sharding
 from repro_torch.distributed.robust_allreduce import RobustAggConfig, TreeAggState
 from repro_torch.kernels.common import resolve_device
 from repro_torch.distributed.spmd import all_gather_rows, all_to_all_rows
-from repro_torch.launch.mesh import MULTI_CARD, TP_QUEUE, Mesh, data_axis, model_size
+from repro_torch.launch.mesh import TP_QUEUE, Mesh, data_axis, model_size
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
-from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
+from repro_torch.optim.optimizers import LeafBlock, make_optimizer, warmup_cosine
 
 Tensor = torch.Tensor
 
@@ -146,16 +158,25 @@ def _n_candidates(mesh: Optional[Mesh], tc: TrainConfig) -> int:
     return int(n)
 
 
+def _flat(tc: TrainConfig) -> bool:
+    return tc.mode == "robust_dp" and tc.agg.layout != "stacked"
+
+
 def _on_grid(mesh: Optional[Mesh], tc: TrainConfig) -> bool:
-    """The step runs the grid: the data axis as processes, the stacked
-    layout or gspmd (the flat layout runs over the data group at M = 1)."""
+    """The step runs the grid: the data axis as processes, with the stacked
+    layout, gspmd, or the flat layout at M > 1 (at M = 1 the flat layout
+    runs over the data group as its candidate axis, without a grid)."""
     return (data_axis(mesh) is not None
-            and (tc.mode == "gspmd" or tc.agg.layout == "stacked"))
+            and (not _flat(tc) or model_size(mesh) > 1))
 
 
-def _fsdp_state(tc: TrainConfig) -> bool:
+def _fsdp_state(tc: TrainConfig) -> Optional[bool]:
     """Whether a grid holds FSDP blocks of the train state: under gspmd, or
-    with ``fsdp_params`` on the stacked layout (the reference's specs)."""
+    with ``fsdp_params`` on the stacked layout (the reference's specs);
+    None for the flat layout, which has no FSDP layout (each rank holds
+    its whole model block)."""
+    if _flat(tc):
+        return None
     return tc.mode == "gspmd" or (tc.fsdp_params and tc.agg.layout == "stacked")
 
 
@@ -172,18 +193,11 @@ def _check(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh) -> None:
         raise ValueError("a grid with a pod axis runs pod x data candidates: multi_pod")
     if size > 1 or grid:
         L.check_family(cfg, size, grid=grid)
-        if tc.mode == "robust_dp" and tc.agg.layout != "stacked" and size > 1:
-            raise NotImplementedError(f"the flat layout on model = {size}: {MULTI_CARD}")
         if shd.padded_heads(cfg, size):
             raise NotImplementedError(
                 f"{cfg.name}: training on model = {size}, whose ranks hold head slots of the "
                 f"padded layout ({cfg.n_heads} heads padded to {cfg.pad_heads_to}): the pad "
                 f"slots would take attacked and aggregated values; serving only ({TP_QUEUE})")
-        if cfg.optimizer == "adafactor":
-            where = f"model = {size}" if size > 1 else "a grid"
-            raise NotImplementedError(
-                f"adafactor on {where}: its leaf-wide statistics would span one "
-                f"block ({TP_QUEUE})")
 
 
 def _layout(model, mesh: Optional[Mesh]):
@@ -236,16 +250,16 @@ def init_train_state(cfg: ArchConfig, tc: TrainConfig,
     agg_state = None
     if (tc.mode == "robust_dp" and tc.agg.method in ("wfagg", "alt_wfagg")
             and tc.agg.wfagg.use_temporal):
-        if grid:
+        if _flat(tc):
+            agg_state = ra.init_agg_state(tc.agg, K, device=dev)
+        elif grid:
             agg_state = ra.init_tree_agg_state(tc.agg, K, tree)._replace(
                 prev=_column_block(model, K, dev))
-        elif tc.agg.layout == "stacked":
+        else:
             agg_state = ra.init_tree_agg_state(tc.agg, K, tree)._replace(
                 prev=_candidate_rows(model, mesh, K, dev)[0])
-        else:
-            agg_state = ra.init_agg_state(tc.agg, K, device=dev)
-    return TrainState(model, make_optimizer(cfg.optimizer).init(tree), agg_state,
-                      torch.zeros((), dtype=torch.int32))
+    opt = make_optimizer(cfg.optimizer, blocks=opt_blocks(model))
+    return TrainState(model, opt.init(tree), agg_state, torch.zeros((), dtype=torch.int32))
 
 
 def state_shardings(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
@@ -290,6 +304,29 @@ def _model_cuts(model) -> List[Optional[shd.Cut]]:
     (``distributed.sharding.Cut``, a stacked leaf's L axis counted), None
     for a replicated leaf (or a whole model)."""
     return [None if c is None else c[0] for c in F.split_cuts(model)]
+
+
+def opt_blocks(model) -> Optional[List[Optional[LeafBlock]]]:
+    """Per leaf (ravel order) the optimizer's ``LeafBlock`` where this rank
+    holds a block of it: the whole leaf's shape and the groups its model
+    cut (the model group) and its FSDP block (the data group) lie over;
+    None for a leaf held whole, and for a whole model."""
+    tp = getattr(model, "tp", None)
+    if tp is None and not model.fsdp_blocks:
+        return None
+    out = []
+    for (path, ps), c, ddim in zip(F.leaf_params(model), F.split_cuts(model),
+                                   _data_dims(model)):
+        shape = list(F.leaf_shape(path, ps))
+        cuts = []
+        if c is not None:
+            shape[c[0].dim] = c[1]
+            cuts.append((c[0].dim, tp.group))
+        if ddim is not None:
+            shape[ddim] *= model.fsdp.size
+            cuts.append((ddim, model.dp.group))
+        out.append(LeafBlock(tuple(shape), tuple(cuts)) if cuts else None)
+    return out
 
 
 def _data_dims(model) -> List[Optional[int]]:
@@ -355,6 +392,9 @@ def _cut(tree, params: dict, model, lead: int = 0, data: Optional[List] = None):
     cut to this rank's blocks (``lead`` leading axes before the parameter's
     own): its model rank's, then, per leaf, its data rank's block along
     ``data``'s dim (None: whole); the rest as it is."""
+    if (lead == 0 and isinstance(tree, dict) and isinstance(tree.get("v"), list)
+            and isinstance(params, dict) and "v" not in params):
+        return {k: _cut_factors(v, model, data) if k == "v" else v for k, v in tree.items()}
     if isinstance(tree, dict) and isinstance(params, dict) and set(tree) == set(params):
         leaves = []
         ddims = data or [None] * len(split_dims(model))
@@ -369,6 +409,31 @@ def _cut(tree, params: dict, model, lead: int = 0, data: Optional[List] = None):
     if isinstance(tree, dict):
         return {k: _cut(v, params, model, lead, data) for k, v in tree.items()}
     return tree
+
+
+def _cut_factors(vs: List[dict], model, data: Optional[List] = None) -> List[dict]:
+    """Adafactor's per-leaf second moments of the whole model (ravel order)
+    cut to this rank's blocks: ``v`` as its leaf, ``vr`` (the leaf without
+    its last dim) and ``vc`` (without dim -2) along each cut of the leaf
+    on a dim they keep, whole along the one they reduce."""
+    out = []
+    ddims = data or [None] * len(vs)
+    for v, (path, ps), cut, dd in zip(vs, F.leaf_params(model), _model_cuts(model), ddims):
+        nd = len(F.leaf_shape(path, ps))
+        keeps = {"v": list(range(nd)), "vr": list(range(nd - 1)),
+                 "vc": list(range(nd - 2)) + [nd - 1]}
+        new = {}
+        for k, x in v.items():
+            keep = keeps[k]
+            if cut is not None and cut.dim in keep:
+                x = shd.take_block(x, cut._replace(dim=keep.index(cut.dim)), model.tp.size,
+                                   model.tp.rank)
+            if dd is not None and dd in keep:
+                n = x.shape[keep.index(dd)] // model.fsdp.size
+                x = x.narrow(keep.index(dd), model.fsdp.rank * n, n)
+            new[k] = x.contiguous()
+        out.append(new)
+    return out
 
 
 def state_from_jax(state, cfg: ArchConfig, device=None, mesh: Optional[Mesh] = None,
@@ -514,7 +579,6 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
     "optimizer", for gspmd too."""
     _check_params(cfg)
     _check(cfg, tc, mesh)
-    opt = make_optimizer(cfg.optimizer)
     lr_fn = warmup_cosine(tc.lr, tc.warmup, tc.total_steps)
     K = _n_candidates(mesh, tc)
     tp = mesh.model_axis()
@@ -540,6 +604,7 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
     def finish(state: TrainState, grads, new_agg, info, loss: Tensor, gn: Tensor):
         params = module_tree(state.params)
         lr = lr_fn(state.step)
+        opt = make_optimizer(cfg.optimizer, blocks=opt_blocks(state.params))
         updates, new_opt = opt.update(grads, state.opt_state, params, lr)
         with torch.no_grad():
             for p, u in zip(tree_leaves(params), tree_leaves(updates)):
@@ -592,27 +657,41 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
 
     def flat_step(state: TrainState, batch):
         model, tokens = state.params, batch["tokens"]
-        P = layout_flat(model).numel()
-        group = mesh.group
-        axis = ra.Emulated(K) if group is None else group
-        mine = range(K) if group is None else [torch.distributed.get_rank(group)]
-        G = torch.empty((len(mine), P), dtype=torch.float32, device=tokens.device)
+        dev = tokens.device
+        bufs = _layout(model, mesh)
+        dax = mesh.data_axis()
+        axis = ra.Emulated(K) if dax is None else dax.group
+        mine = range(K) if dax is None else [dax.rank]
+        G = tuple(torch.empty((len(mine), b.numel()), dtype=torch.float32, device=dev)
+                  for b in bufs)
+        del bufs
         losses = torch.stack([_worker_grad(cfg, model, rows_of(batch, k), tc.microbatches,
-                                           G[i]) for i, k in enumerate(mine)])
-        local = G if group is None else G[0]
+                                           G[0][i] if tp is None else (G[0][i], G[1][i]))
+                              for i, k in enumerate(mine)])
+        local = tuple(g if dax is None else g[0] for g in G)
+        del G
+        shards = None
+        if tp is None:
+            local = local[0]
+        else:
+            shards = flat_shards(model, mesh)
         see("grads", candidates=local, losses=losses)
         if attacking:
-            mal = torch.as_tensor(mal_np, device=tokens.device)
-            local = ra.apply_distributed_attack(
-                local, axis, mal, tc.attack, attack_generator(state.step, tokens.device),
-                chunk_size=tc.agg.chunk_size)
+            ra.apply_distributed_attack(
+                local, axis, torch.as_tensor(mal_np, device=dev), tc.attack,
+                attack_generator(state.step, dev), chunk_size=tc.agg.chunk_size,
+                in_place=True, model_shards=shards)
         see("attack", candidates=local, agg_state=state.agg_state)
-        agg_flat, new_agg, info = ra.robust_allreduce(local, axis, tc.agg, state.agg_state)
-        see("allreduce", grads=agg_flat, agg_state=new_agg, info=info)
-        gn = torch.sqrt((agg_flat.to(torch.float32) ** 2).sum())
-        loss = ra.pmean(losses if group is None else losses[0], axis)
-        return finish(state, unravel_like(agg_flat, module_tree(model)), new_agg, info,
-                      loss, gn)
+        agg, new_agg, info = ra.robust_allreduce(local, axis, tc.agg, state.agg_state,
+                                                 model_shards=shards)
+        del local
+        see("allreduce", grads=agg, agg_state=new_agg, info=info)
+        loss = ra.pmean(losses if dax is None else losses[0], axis)
+        if tp is None:
+            return finish(state, unravel_like(agg, module_tree(model)), new_agg, info, loss,
+                          torch.sqrt((agg.to(torch.float32) ** 2).sum()))
+        grads = tree_map(lambda l: l[0], unravel_rows_split(tuple(v[None] for v in agg), model))
+        return finish(state, grads, new_agg, info, loss, grad_norm(grads, model))
 
     def gspmd_step(state: TrainState, batch):
         model = state.params
@@ -693,9 +772,8 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
         return tree_map(lambda l: l[0], unravel_rows_split(tuple(v[None] for v in vecs),
                                                             model))
 
-    grid = _on_grid(mesh, tc)
-    step = grid_step if grid else gspmd_step if tc.mode == "gspmd" else \
-        stacked_step if tc.agg.layout == "stacked" else flat_step
+    step = flat_step if _flat(tc) else grid_step if _on_grid(mesh, tc) else \
+        gspmd_step if tc.mode == "gspmd" else stacked_step
     dims = shd.model_dims(cfg, mesh)
 
     def sharded(state: TrainState, batch):
@@ -703,6 +781,17 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
             return step(state, batch)
 
     return step if tp is None else sharded
+
+
+def flat_shards(model, mesh: Mesh) -> ra.FlatShards:
+    """A model rank's part of the whole flat gradient
+    (``robust_allreduce.FlatShards``): its split and replicated buffers'
+    places in the whole model's ravel, the replicated one counted on model
+    rank 0, the partial statistics summed over the model group."""
+    axis = mesh.model_axis()
+    places, P = F.coord_places(model)
+    return ra.FlatShards(group=axis.group, counted=(True, axis.rank == 0),
+                         places=tuple(tuple(p) for p in places), size=P)
 
 
 def grid_shards(model, mesh: Mesh) -> ra.GridShards:

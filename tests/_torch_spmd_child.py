@@ -692,6 +692,238 @@ def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launc
     return results
 
 
+def _tp_mats(model, tree, K, rank):
+    """The rank's (K, P_s) and (K, P_r) candidate matrices of the whole numpy
+    candidate ``tree`` (leaves (K, ...)), each leaf its block."""
+    from repro_torch.core import flatten as F
+
+    cand = _tp_candidates(model, tree, K, rank)
+    leaves = F.tree_leaves(cand)
+    dims = F.split_dims(model)
+    mats = []
+    for want in (True, False):
+        ls = [leaf for leaf, d in zip(leaves, dims) if (d is not None) == want]
+        mats.append(torch.cat([leaf.reshape(K, -1) for leaf in ls], 1) if ls
+                    else torch.zeros((K, 0)))
+    return tuple(mats)
+
+
+def _whole_rows(model, mesh, mats):
+    """The whole candidates (numpy (K', P) in ravel order) of a rank's (K',
+    P_s) and (K', P_r) matrices, gathered over the model group."""
+    from repro_torch.core import flatten as F
+
+    tree = F.unravel_rows_split(tuple(m.contiguous() for m in mats), model)
+    leaves = _gather_leaves(F.tree_leaves(tree), model, mesh, lead=1)
+    K = mats[0].shape[0]
+    return np.concatenate([leaf.reshape(K, -1) for leaf in leaves], 1)
+
+
+def task_flatmesh(rank, S, K, M, flat=(), train=(), stacked=(), adafactor=None, sketch=None,
+                  launcher=None):
+    """The flat layout, the adaptive attacks, ``gather_dtype`` and
+    Adafactor on the model axis (``K`` = 1: the K candidates emulated on M
+    = S ranks) or on a K x M grid (S = K * M ranks, one candidate a rank).
+    ``sketch``: the count-sketch's buckets and signs per whole-vector chunk
+    (numpy), installed as ``robust_allreduce.sketch_hash``.  What rank 0
+    returns, gathered whole, per part:
+
+      flat       per run of ``flat`` (``cfg``, ``params``, ``agg`` a
+                 ``RobustAggConfig``, ``attack``, ``malicious``, ``rounds``
+                 of whole candidate trees with leaves (Kc, ...)): per round
+                 the attacked candidates (emulated only), the aggregate
+                 (ravel order), weights, masks and the WFAgg-T state;
+      train      per run of ``train`` (``cfg``, ``tc``, ``K``, ``state``
+                 the reference's as numpy, ``batches``): per step loss,
+                 grad_norm, weights, masks, the agg state and the params;
+      stacked    per run of ``stacked`` (``cfg``, ``params``, ``tree``, and
+                 ``attack`` / ``malicious`` or ``agg`` / ``prev``):
+                 ``apply_stacked_attack`` on the rank's blocks (the model
+                 axis: ``ModelShards``; the grid: the column block)
+                 gathered, or two rounds of the stacked all-reduce from
+                 ``prev`` (the aggregate, weights and masks) with the
+                 first round's psum'd statistics;
+      adafactor  ``adafactor`` (``cfg``, ``params``, ``grads`` a list of
+                 whole gradient trees, ``fsdp``): that many optimizer
+                 steps on the rank's blocks from a zero state, the updates
+                 and the state gathered whole;
+      launcher   ``launch.train.main`` with ``--layout flat
+                 --model-parallel M`` for 2 reduced steps (``K``
+                 candidates on the grid, 4 emulated on the model axis),
+                 the last checkpointed at ``launcher`` (the chunk and sketch
+                 widths those of ``sketch``'s table)."""
+    import types
+
+    from repro_torch.core import flatten as F
+    from repro_torch.distributed import robust_allreduce as ra
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_grid, make_test_mesh
+    from repro_torch.models import model as Mo
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train import trainer as tr
+
+    if sketch is not None:
+        table = {ci: (torch.as_tensor(b), torch.as_tensor(sg)) for ci, (b, sg) in sketch.items()}
+        ra.sketch_hash = lambda n, m, seed, ci, device: table[ci]
+    grid = K > 1
+    if grid:
+        shd._FSDP_MIN_DIM = 64
+        mesh = make_grid(K, M)
+    else:
+        mesh = make_test_mesh(data=1, model=M, model_group=dist.group.WORLD)
+    maxis = mesh.model_axis()
+    dax = mesh.data_axis()
+    out = {}
+    if flat:
+        res = []
+        for run in flat:
+            cfg = run["cfg"]
+            model = Mo.params_from_jax(run["params"], cfg, "cpu", mesh=mesh, fsdp=None)
+            shards = tr.flat_shards(model, mesh)
+            Kc = F.tree_leaves(run["rounds"][0])[0].shape[0]
+            axis = ra.Emulated(Kc) if dax is None else dax.group
+            mal = torch.as_tensor(run["malicious"])
+            state = ra.init_agg_state(run["agg"], Kc)
+            rounds = []
+            for i, tree in enumerate(run["rounds"]):
+                mats = _tp_mats(model, tree, Kc, maxis.rank)
+                local = mats if dax is None else tuple(m[dax.rank] for m in mats)
+                local = ra.apply_distributed_attack(
+                    local, axis, mal, run["attack"], torch.Generator().manual_seed(7 + i),
+                    chunk_size=run["agg"].chunk_size, in_place=True, model_shards=shards)
+                o, state, info = ra.robust_allreduce(local, axis, run["agg"], state,
+                                                     model_shards=shards)
+                r = {"out": _whole_rows(model, mesh, tuple(v[None] for v in o))[0],
+                     "state": _state_np(state.temporal) if state is not None else None,
+                     **{k: _np(v) for k, v in info.items() if k != "record"}}
+                if dax is None:
+                    r["attacked"] = _whole_rows(model, mesh, local)
+                rounds.append(r)
+            res.append(rounds)
+        out["flat"] = res
+    if train:
+        res = []
+        for run in train:
+            cfg, tc, js = run["cfg"], run["tc"], run["state"]
+            tmesh = mesh if grid else make_test_mesh(data=run["K"], model=M,
+                                                     model_group=dist.group.WORLD)
+            agg = js["agg_state"]
+            if agg is not None:
+                agg = (types.SimpleNamespace(temporal=tuple(agg["temporal"]))
+                       if "temporal" in agg else types.SimpleNamespace(**agg))
+            st = tr.state_from_jax(types.SimpleNamespace(
+                params=js["params"], opt_state=js["opt_state"], agg_state=agg,
+                step=js["step"]), cfg, device="cpu", mesh=tmesh, tc=tc)
+            seen = {}
+            step = tr.build_train_step(cfg, tc, tmesh,
+                                       observe=lambda phase, **v: seen.update({phase: v}))
+            steps = []
+            for b in run["batches"]:
+                st, m = step(st, {"tokens": torch.as_tensor(b).long()})
+                info = seen["allreduce"]["info"]
+                steps.append({"loss": float(m["loss"]), "weights": _np(m["weights"]),
+                              "grad_norm": float(m["grad_norm"]),
+                              "masks": {k: _np(info[k]) for k in ("mask_d", "mask_c",
+                                                                  "mask_t") if k in info},
+                              "agg": None if st.agg_state is None else
+                              _state_np(getattr(st.agg_state, "temporal", st.agg_state)),
+                              "params": _tp_tree_np(tr.full_params(st.params, tmesh))})
+            res.append(steps)
+        out["train"] = res
+    if stacked:
+        res = []
+        for run in stacked:
+            cfg = run["cfg"]
+            model = Mo.params_from_jax(run["params"], cfg, "cpu", mesh=mesh,
+                                       fsdp=False if grid else None)
+            Kc = F.tree_leaves(run["tree"])[0].shape[0]
+            if grid:
+                shards = tr.grid_shards(model, mesh)
+                block = lambda t: _grid_column_block(model, t, Kc)  # noqa: E731
+                whole = lambda t, lead: _grid_whole(model, mesh, t, lead)  # noqa: E731
+            else:
+                shards = ra.ModelShards(maxis, tuple(tr._model_cuts(model)))
+                block = lambda t: _tp_candidates(model, t, Kc, maxis.rank)  # noqa: E731
+                whole = lambda t, lead: _gather_leaves(F.tree_leaves(t), model, mesh,  # noqa
+                                                       lead=lead)
+            cand = block(run["tree"])
+            if run.get("attack"):
+                ra.apply_stacked_attack(cand, torch.as_tensor(run["malicious"]), run["attack"],
+                                        in_place=True, model_shards=shards)
+                res.append(whole(cand, 1))
+                continue
+            cfg_a = run["agg"]
+            state = ra.init_tree_agg_state(cfg_a, Kc, F.module_tree(model))._replace(
+                prev=block(run["prev"]))
+            g = ra._as_grid(shards)
+            leaves, pleaves = F.tree_leaves(cand), F.tree_leaves(state.prev)
+            mine = [j for j, c in enumerate(g.counted) if c]
+            groups = [[x for x, j in zip(leaves, g.leaf_groups) if j == i] for i in mine]
+            pgroups = [[x for x, j in zip(pleaves, g.leaf_groups) if j == i] for i in mine]
+            st = ra.psum_stats(ra._partial_stats(
+                Kc, "cpu", groups, pgroups, cfg_a,
+                [ra._concat_candidates(x) if x else torch.zeros((Kc, 0)) for x in groups],
+                [ra._concat_candidates(x) if x else torch.zeros((Kc, 0)) for x in pgroups]),
+                g.group)
+            rounds = []
+            for tree in (run["tree"], run["tree2"]):
+                o, state, info = ra.robust_allreduce_stacked(block(tree), cfg_a, state,
+                                                             model_shards=shards)
+                rounds.append({"out": whole(o, 0),
+                               **{k: _np(v) for k, v in info.items() if k != "record"}})
+            res.append({"rounds": rounds, "stats": {
+                f: _np(getattr(st, f)[0]) for f in ("dist2", "dotmed", "mednorm2", "norm2",
+                                                    "gram", "prev_dist2", "prev_dot")}})
+        out["stacked"] = res
+    if adafactor is not None:
+        a = adafactor
+        model = Mo.params_from_jax(a["params"], a["cfg"], "cpu", mesh=mesh,
+                                   fsdp=a["fsdp"] if grid else None)
+        tree = F.module_tree(model)
+        opt = opt_lib.make_optimizer("adafactor", blocks=tr.opt_blocks(model))
+        state = opt.init(tree)
+        lr = torch.tensor(1e-2)
+        ups = []
+        dims = tr._data_dims(model)
+        for g in a["grads"]:
+            gb = tr._cut({"g": _as_tensors(g)}, {"g": tree}, model, data=dims)["g"]
+            upd, state = opt.update(gb, state, tree, lr)
+            ups.append(_grid_whole(model, mesh, upd, 0) if grid else
+                       _gather_leaves(F.tree_leaves(upd), model, mesh))
+        factors = []
+        for (path, ps), c, dd, v in zip(F.leaf_params(model), F.split_cuts(model), dims,
+                                        state["v"]):
+            nd = len(F.leaf_shape(path, ps))
+            keeps = {"v": list(range(nd)), "vr": list(range(nd - 1)),
+                     "vc": list(range(nd - 2)) + [nd - 1]}
+            got = {}
+            for k, x in v.items():
+                keep = keeps[k]
+                if dd is not None and dd in keep:
+                    x = torch.cat(_all_gather(x, dax.group), keep.index(dd))
+                if c is not None and c[0].dim in keep:
+                    x = shd.join_blocks(_all_gather(x, maxis.group),
+                                        c[0]._replace(dim=keep.index(c[0].dim)))
+                got[k] = _np(x)
+            factors.append(got)
+        out["adafactor"] = {"updates": ups, "factors": factors,
+                            "factored": [("vr" in v) for v in state["v"]]}
+    if launcher:
+        from repro_torch.launch import train as T
+        T.main(["--reduced", "--d-model", "64", "--n-layers", "2", "--vocab", "128",
+                "--candidates", str(K if grid else 4), "--steps", "2", "--seq-len", "32",
+                "--global-batch", str(2 * (K if grid else 4)), "--layout", "flat",
+                "--chunk-size", "2048", "--sketch-dim", "128", "--attack", "ipm_100",
+                "--n-malicious", "1", "--f", "1", "--model-parallel", str(M),
+                "--ckpt-dir", launcher, "--ckpt-every", "2"], device="cpu")
+    return out
+
+
+def _all_gather(x, group):
+    from repro_torch.distributed.spmd import all_gather_in_rank_order
+    return all_gather_in_rank_order(x.contiguous(), group)
+
+
 def _cache_leaves(tree, prefix=()):
     if isinstance(tree, dict):
         return [kv for k in sorted(tree) for kv in _cache_leaves(tree[k], prefix + (k,))]
@@ -701,7 +933,8 @@ def _cache_leaves(tree, prefix=()):
 
 
 TASKS = {"fam": task_fam, "round": task_round, "scan": task_scan, "engine": task_engine,
-         "group_size": task_group_size, "flat": task_flat, "tp": task_tp, "grid": task_grid}
+         "group_size": task_group_size, "flat": task_flat, "tp": task_tp, "grid": task_grid,
+         "flatmesh": task_flatmesh}
 
 
 # ---------------------------------------------------------------------------

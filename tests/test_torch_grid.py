@@ -444,10 +444,14 @@ def test_prefill_and_decode_match_one_process(which, request, monkeypatch):
     assert same_on_every_rank([r["decode"] for r in g.ranks])
 
 
-def test_grid_refusals():
-    """What the grid still refuses (ROADMAP queue 1, items 12.2c and 12.8:
-    the flat layout at model > 1, Adafactor, the encoder-decoder and VLM
-    families, the adaptive attacks), and a grid without its groups."""
+def test_grid_refusals(monkeypatch):
+    """What the grid still refuses (ROADMAP queue 1, item 12.8: the
+    encoder-decoder and VLM families) and a grid without its groups; and
+    what it now runs: the flat layout at model > 1 (item 12.2c), Adafactor
+    and band_rider on a rank's column block, which takes its
+    per-coordinate fallback (its ``torch.roll`` branch, which reads the
+    whole vector, is never reached)."""
+    from repro_torch.core import attacks as tatk
     from repro_torch.launch.mesh import Mesh
 
     class Axis:        # a data axis that is processes, without a live group
@@ -462,21 +466,29 @@ def test_grid_refusals():
 
     _, cfg = _cfgs(QWEN)
     grid = Axis({"data": 2, "model": 2})
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.2c"):
-        tr._check(cfg, tr.TrainConfig(agg=tra.RobustAggConfig(layout="flat")), grid)
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-        tr._check(dataclasses.replace(cfg, optimizer="adafactor"),
-                  tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")), Axis(
-                      {"data": 2, "model": 1}))
+    assert tr._check(cfg, tr.TrainConfig(agg=tra.RobustAggConfig(layout="flat")), grid) is None
+    assert tr._check(dataclasses.replace(cfg, optimizer="adafactor"),
+                     tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
+                     Axis({"data": 2, "model": 1})) is None
     for arch in ("seamless-m4t-medium", "llava-next-34b"):
         with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
             tr._check(get_config(arch).reduced(),
                       tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
                       Axis({"data": 2, "model": 1}))
     shards = tra.GridShards(group=None, leaf_groups=(0,), counted=(True,), cuts=((),))
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-        tra.apply_stacked_attack({"w": torch.zeros((4, 3))}, torch.zeros(4, dtype=torch.bool),
-                                 "band_rider", model_shards=shards)
+    x = torch.randn((4, 3), generator=torch.Generator().manual_seed(0))
+    mal = torch.tensor([False, True, False, False])
+
+    def no_roll(*a, **k):
+        raise AssertionError("band_rider reached its torch.roll branch")
+
+    monkeypatch.setattr(tatk.torch, "roll", no_roll)
+    got = tra.apply_stacked_attack({"w": x.clone()}, mal, "band_rider", model_shards=shards,
+                                   prev={"w": torch.zeros_like(x)})
+    benign = x[~mal]
+    want = benign.mean(0) - 0.5 * benign.std(0, correction=0)
+    torch.testing.assert_close(got["w"][1], want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got["w"][~mal], x[~mal])
     with pytest.raises(RuntimeError, match="initialised torch.distributed"):
         tmesh.make_grid(2, 2)
     assert Mesh(shape={"data": 2, "model": 1}).data_axis() is None

@@ -271,10 +271,16 @@ def test_noise_draws_equal_one_rank(tp2):
 
 
 def test_adaptive_attacks_refused_on_the_model_axis():
+    """The adaptive attacks are no longer refused on the model axis
+    (``tests/test_torch_flat_tp.py`` holds them over ranks); a
+    ``ModelShards`` without an axis is one process: its values."""
     shards = tra.ModelShards(axis=None, split_dims=(None,))
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-        tra.apply_stacked_attack({"w": torch.zeros((4, 3))}, torch.zeros(4, dtype=torch.bool),
-                                 "min_max", model_shards=shards)
+    x = torch.randn((4, 3), generator=torch.Generator().manual_seed(1))
+    mal = torch.tensor([False, False, True, False])
+    for attack in ("min_max", "band_rider"):
+        got = tra.apply_stacked_attack({"w": x.clone()}, mal, attack, model_shards=shards)
+        want = tra.apply_stacked_attack({"w": x.clone()}, mal, attack)
+        assert torch.equal(got["w"], want["w"]) and not torch.equal(got["w"][2], x[2])
 
 
 def test_trajectory_matches_reference_and_one_rank(tp2):

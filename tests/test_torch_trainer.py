@@ -302,12 +302,13 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 
 
 def test_multi_card_trainer_refused():
-    """What the multi-card trainer still refuses: a model axis without its
-    process group, the flat layout on the model axis (ROADMAP queue 1, item
-    12.2c), a family without a TP form on it (the encoder-decoder; the MoE,
-    SSM and hybrid families have theirs: tests/test_torch_tp_families.py),
-    Adafactor and the adaptive attacks on a grid (item 12.8), and gspmd
-    with a robust rule.
+    """What the multi-card trainer still refuses, and what it now runs: a
+    model axis without its process group and a family without a TP form
+    on it (the encoder-decoder; the MoE, SSM and hybrid families have
+    theirs: tests/test_torch_tp_families.py) raise, as does gspmd with a
+    robust rule; the flat layout on the model axis (ROADMAP queue 1, item
+    12.2c), Adafactor on a grid and the adaptive attacks on a rank's
+    blocks run (tests/test_torch_flat_tp.py holds their values).
     ``fsdp_params`` is served since the grid (the data axis as processes):
     with the data axis in one process the state is whole, as before."""
     from repro_torch.launch.mesh import DataAxis, Mesh
@@ -319,8 +320,7 @@ def test_multi_card_trainer_refused():
         make_test_mesh(data=2, model=2)
     tp_mesh = Mesh(shape={"data": 2, "model": 2})     # the group is never reached
     flat = tr.TrainConfig(agg=tra.RobustAggConfig(layout="flat"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.2c"):
-        tr.build_train_step(cfg, flat, tp_mesh)
+    assert tr._check(cfg, flat, tp_mesh) is None
     encdec = get_config("seamless-m4t-medium").reduced()
     with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
         tr.build_train_step(encdec, tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
@@ -331,12 +331,14 @@ def test_multi_card_trainer_refused():
             return DataAxis(None, self.shape["data"], 0)
 
     stacked = tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-        tr._check(dataclasses.replace(cfg, optimizer="adafactor"), stacked,
-                  Grid(shape={"data": 2, "model": 1}))
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-        tra.apply_stacked_attack({"w": torch.zeros((2, 3))}, torch.zeros(2, dtype=torch.bool),
-                                 "min_max", model_shards=tra.GridShards(None, (0,), (True,),
-                                                                        ((),)))
+    assert tr._check(dataclasses.replace(cfg, optimizer="adafactor"), stacked,
+                     Grid(shape={"data": 2, "model": 1})) is None
+    # min_max on a rank's blocks: a group of None is one process
+    x = torch.randn((4, 3), generator=torch.Generator().manual_seed(0))
+    mal = torch.tensor([False, False, True, False])
+    got = tra.apply_stacked_attack({"w": x.clone()}, mal, "min_max",
+                                   model_shards=tra.GridShards(None, (0,), (True,), ((),)))
+    want = tra.apply_stacked_attack({"w": x.clone()}, mal, "min_max")
+    assert torch.equal(got["w"], want["w"]) and not torch.equal(got["w"][2], x[2])
     with pytest.raises(ValueError, match="mean"):
         tr.build_train_step(cfg, tr.TrainConfig(mode="gspmd"), mesh)
