@@ -270,11 +270,12 @@ Phases, each of which fails the run:
        the Gram summed in float64), timed beside their bounds (kernel 1
        beside the two-launch route); kernel 1's ``mean_fallback`` branch
        with every candidate rejected (the uniform mean);
-     - training (``repro_torch.train.trainer``): Qwen1.5-0.5B uncut (the
-       port's seed-0 init) with K=8 candidate workers of one batch row
-       each at S=1025 (two whole loss chunks of 512), 2 of them under
-       IPM-100, AdamW at lr 1e-3: 4 steps each of WFAgg and Alt-WFAgg on
-       ``fused`` (WFAgg-T from step 4), every step's all-reduce also run
+     - training (``repro_torch.train.trainer``): Qwen1.5-0.5B at full
+       width, ``TRAIN_LAYERS`` of its 24 layers (the port's seed-0 init)
+       with K=8 candidate workers of one batch row each at S=1025 (two
+       whole loss chunks of 512), 2 of them under IPM-100, AdamW at lr
+       1e-3: ``TRAIN_STEPS`` steps each of WFAgg and Alt-WFAgg on
+       ``fused``, every step's all-reduce also run
        on ``fused_two_launch`` and ``reference`` from the step's state
        (its prev, their own history) and held by ``hold_stacked_route``
        (exact launches: kernel 1 once a step, kernel 4 once a step from
@@ -283,12 +284,14 @@ Phases, each of which fails the run:
        loss below its first and below the mean's); ms per phase
        (candidate gradients, attack, all-reduce, optimizer), tokens/s and
        peak memory per run; one step's peak memory reading the (K, P)
-       buffers and with the two (K, P) copies; the flat layout on 4
-       ``gloo`` ranks on the one card (depth cut to 2, ALIE on 1, the
+       buffers and with the two (K, P) copies; under ``--only train``
+       the flat layout on 4 ``gloo`` ranks on the one card (depth cut to
+       2, ALIE on 1, the
        sketch WFAgg-T; every rank's parameters hashed after each step,
        rank 0 holding each all-reduce to the one-process emulation:
        weights within 1e-6, out within 2e-4, masks equal); the launcher
-       (``launch.train.main``, 2 steps at full width, a checkpoint, 2
+       (``launch.train.main``, 2 steps at full width and
+       ``TRAIN_LAYERS`` layers, a checkpoint, 2
        launches of kernel 1).  ``--only train`` runs phase 1 and this part
        alone;
      - the MoE family, on the port's seed-0 init, each model freed before
@@ -304,7 +307,7 @@ Phases, each of which fails the run:
        with 2 launches a call, held against ``flash=False``; each model's
        decode at batch 2 against a cache of 32,768 positions (96 steps,
        Arctic 8), held against one prefill of the same tokens at a
-       capacity that drops no pick, then 16 greedy steps timed.  bf16
+       capacity that drops no pick, then 8 greedy steps timed.  bf16
        routing is discontinuous and the deep models amplify bf16
        rounding, so each hold has a truth route (``MOE_TRUTH``: f32
        activations where the parameters are f32) whose routing the other
@@ -331,10 +334,10 @@ Phases, each of which fails the run:
        tensor-core kernel, held against
        ``flash=False``; each prefill timed with its peak memory and traced
        (the top device kernels); Falcon-Mamba's decode at batch 4 through
-       a 96-token prompt (48 tokens in one stateful call, then a token a
+       a 24-token prompt (12 tokens in one stateful call, then a token a
        step), Zamba2's at batch 2 against a cache of 32,768 positions over
-       64 prompt and 32 greedy steps, each held against one prefill of
-       the same tokens, then 16 greedy steps timed.  The two bf16 routes
+       16 prompt and 8 greedy steps, each held against one prefill of
+       the same tokens, then 8 greedy steps timed.  The two bf16 routes
        of a hold are held to each other by the dense rule, or, where they
        differ past it, each against the f32 route beside its counterpart
        (``SSM_TRUTH``); the f32 decode is held to the f32 prefill by the
@@ -348,15 +351,15 @@ Phases, each of which fails the run:
        causal self-attention; the encoder's non-causal self-attention and
        the cross-attention take the chunked online softmax), held against
        ``flash=False`` by the dense rule; LLaVA-NeXT-34B at full width cut
-       to 12 of 60 layers, prefill 1 x 8192 (576 patch embeddings through
+       to 6 of 60 layers, prefill 1 x 8192 (576 patch embeddings through
        the projector and 7,616 tokens) with one launch a layer at 64
        padded heads, held as the SSM part's; each prefill timed with its
        peak memory and traced.  Each decode at batch 2 against a cache of
        32,768 positions (Seamless's ``enc_out``: ``_encode``'s output of
-       4,096 frames) over 64 prompt and 32 greedy steps, held against one
+       4,096 frames) over 16 prompt and 8 greedy steps, held against one
        prefill of the same frames and tokens (LLaVA: text only) as the SSM
-       part's, then 16 greedy steps timed.  Then Seamless cut to 6 + 6
-       layers (P = 752,316,416) on the stacked robust-DP trainer, frames
+       part's, then 8 greedy steps timed.  Then Seamless cut to 2 + 2
+       layers on the stacked robust-DP trainer, frames
        beside the tokens, as the MoE's.  ``--only encdec`` runs phase 1 and
        this part alone.  Last, the model (tensor-parallel) axis: Qwen1.5-0.5B
        uncut split over two ``gloo`` ranks sharing the card (each rank's
@@ -406,7 +409,7 @@ Phases, each of which fails the run:
        one process's references first (prompts, prefill tails, decode
        logits, every MoE call's routing, an f32 truth where the parameters
        are f32, candidate 0's step-1 gradient with its routing), then two
-       ``gloo`` ranks sharing the card serve DeepSeek-V2-Lite (4 layers,
+       ``gloo`` ranks sharing the card serve DeepSeek-V2-Lite (2 layers,
        MLA and the MoE, 2 x 4096, no kernel 8), Zamba2-1.2B (4 layers, 2 x
        8192, kernel 8 on each rank's 16 heads once a group), Falcon-Mamba-7B
        (2 layers) and Arctic (1 layer, bf16, 28 live heads a rank padded to
@@ -415,14 +418,22 @@ Phases, each of which fails the run:
        routing flips as near-ties, decode over ``FAM_DECODE`` teacher-forced
        tokens likewise; and train the first three at K = 4 (IPM-100 on one,
        WFAgg f = 1) with ``TP_RUNS``' holds (an MoE's step-1 candidate
-       through the reference's routing); then Zamba2 (4 layers) on the 4 x
+       through the reference's routing); then Zamba2 (2 layers) on the 4 x
        2 grid with the grid part's holds (``SSM_TRUTH`` where the dense
        rule does not hold); then kernels 4, 6, 7 and 8 at the new shapes
        held against their plain versions and timed.  ``--only tpfam`` runs
        phase 1 and this part alone; ``--only cards`` on four cards adds
        Moonlight uncut served and DeepSeek-V2-Lite (6 layers) and
        Falcon-Mamba-7B (32 layers) trained at M = 4 on ``nccl``, which
-       ``--only tpfamcards`` runs alone.
+       ``--only tpfamcards`` runs alone.  Then bf16 parameters and pad head
+       slots (``run_bf16_path``): the reduced Arctic in bf16 with Adafactor
+       at M = 1 (kernel 1), on 2 ``gloo`` ranks (kernels 4, 6, 7) and the 2
+       x 2 grid, both layouts, and the 7-of-8-head config on 4 ranks, each
+       step's gathered candidates through the one-process route, the pad
+       slots exactly 0; ``--only bf16`` runs phase 1 and this part alone.
+       ``--only tpcards`` on four cards first trains Arctic at 1 of 35
+       layers, full width, bf16, Adafactor, flat, M = 4
+       (``run_arctic_cards``).
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 """
@@ -437,6 +448,15 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+if __name__ in ("__main__", "__mp_main__") and (ROOT / "src" / "repro_torch").is_dir():
+    # A Python that writes no bytecode compiles every module it imports in
+    # every process: torch (~11 s on the H100 machine) and torch._dynamo,
+    # which torch.utils.checkpoint imports at its first call (~13 s), in
+    # each rank this script spawns.  Cache the bytecode in the checkout's
+    # build directory instead, for this process and its ranks ("spawn" runs
+    # this file again as __mp_main__).
+    sys.pycache_prefix = str(ROOT / "src" / "repro_torch" / "kernels" / "_build" / "pycache")
+    sys.dont_write_bytecode = False
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
@@ -4088,6 +4108,8 @@ def run_ranks(torch, backend, S, child=None, tmp=None, timeout=DIST_TIMEOUT_S) -
     import multiprocessing as mp
     import tempfile
 
+    import torch._dynamo  # noqa: F401 - cached here once, not compiled in every rank
+
     ctx = mp.get_context("spawn")
     tmp = tmp or tempfile.mkdtemp(prefix="chip_smoke_dist_")
     store = str(pathlib.Path(tmp, "store"))
@@ -4743,11 +4765,16 @@ def run_distributed(torch) -> tuple:
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "qwen1.5-0.5b"
+# the one-card trainer's depth: 4 of Qwen's 24 layers at full width (uncut
+# until the bf16 / pad-slot part, then 12, then 4, the whole script's time;
+# the launcher and serving stay uncut)
+TRAIN_LAYERS = 4
 TRAIN_K = 8                      # candidate workers, one batch row each
 TRAIN_SEQ = 1025                 # S - 1 = 1024: two whole loss chunks of 512
 # 5 steps before the families' model-axis part, then 4: every block is
-# rematerialised since (a second forward a candidate)
-TRAIN_STEPS = 4
+# rematerialised since (a second forward a candidate); 3, then 2 beside the
+# bf16 / pad-slot part, the whole script's time
+TRAIN_STEPS = 2
 # the families' one-card training runs (run_lm_train): cut from 5 steps to 2
 # beside the families' model-axis part, the whole script's time
 LM_TRAIN_STEPS = 2
@@ -5004,7 +5031,8 @@ def train_flat_child(rank, S, store_path, out_dir, backend) -> None:
 
 
 def run_launcher(torch) -> dict:
-    """``repro_torch.launch.train.main`` at full width: 8 candidates, the
+    """``repro_torch.launch.train.main`` at full width, ``TRAIN_LAYERS``
+    layers (uncut until the bf16 / pad-slot part): 8 candidates, the
     ``fused`` backend, 2 steps at S = 1025 under IPM-100, a checkpoint into
     a temporary directory; its printed lines checked.  Returns its
     launches and output."""
@@ -5021,7 +5049,8 @@ def run_launcher(torch) -> dict:
         zero_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            launcher.main(["--arch", TRAIN_ARCH, "--candidates", str(TRAIN_K),
+            launcher.main(["--arch", TRAIN_ARCH, "--n-layers", str(TRAIN_LAYERS),
+                           "--candidates", str(TRAIN_K),
                            "--agg-backend", "fused", "--steps", "2",
                            "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_K),
                            "--attack", TRAIN_ATTACK, "--n-malicious", str(TRAIN_MALICIOUS),
@@ -5046,25 +5075,29 @@ def run_launcher(torch) -> dict:
     return dict(counts=counts, seconds=secs, lines=lines)
 
 
-def run_train_path(torch) -> tuple:
+def run_train_path(torch, flat_ranks=True) -> tuple:
     """The trainer on the card: stacked WFAgg and Alt-WFAgg at full width
     (the backends held at every step), the mean beside them, the peak
     memory with and without the (K, P) views, the flat layout on ``gloo``
-    ranks, the launcher.  Returns (launches on the main paths, report)."""
+    ranks (with ``flat_ranks``), the launcher.  Returns (launches on the
+    main paths, report)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.topology import spaced_malicious
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.launch.mesh import make_test_mesh
 
+    import dataclasses
+
     card = gpu_line()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     mesh = make_test_mesh(data=TRAIN_K)
     stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_K)
     batches = [stream.batch(i, device="cuda") for i in range(TRAIN_STEPS)]
     bad = spaced_malicious(TRAIN_K, TRAIN_MALICIOUS).nonzero()[0].tolist()
     launches = dict.fromkeys(KERNELS, 0)
     report = {"card": card}
-    print(f"  {card}: {TRAIN_ARCH} uncut (24 layers, d_model 1024, vocab 151,936; seed 0), "
+    print(f"  {card}: {TRAIN_ARCH} at {TRAIN_LAYERS} of 24 layers (d_model 1024, vocab 151,936; "
+          "seed 0), "
           f"K={TRAIN_K} candidates of one row at S={TRAIN_SEQ}, candidates {bad} under "
           f"{TRAIN_ATTACK}, AdamW lr {TRAIN_LR}, warmup 0, {TRAIN_STEPS} steps")
     for method in ("wfagg", "alt_wfagg", "mean"):
@@ -5111,15 +5144,25 @@ def run_train_path(torch) -> tuple:
     del batches
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"  before the flat layout's ranks this process holds "
-          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
-          f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved)")
+    if flat_ranks:
+        print(f"  before the flat layout's ranks this process holds "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+              f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved)")
+        report["flat"] = run_flat_ranks(torch)
+    r = run_launcher(torch)
+    for k in KERNELS:
+        launches[k] += r["counts"][k]
+    report["launcher"] = dict(seconds=r["seconds"], lines=r["lines"])
+    return launches, report
 
+
+def run_flat_ranks(torch) -> dict:
+    """The flat layout on ``FLAT_K`` ``gloo`` ranks (``train_flat_child``);
+    returns rank 0's times and steps."""
     t0 = time.perf_counter()
     ranks = run_ranks(torch, "gloo", FLAT_K, child=train_flat_child)
     r0 = ranks[0]
-    report["flat"] = dict(ms=r0["ms"], steps=r0["report"], P=r0["P"],
-                          seconds=time.perf_counter() - t0)
+    flat = dict(ms=r0["ms"], steps=r0["report"], P=r0["P"], seconds=time.perf_counter() - t0)
     print(f"  flat layout: {TRAIN_ARCH} width, depth cut to {FLAT_LAYERS} (P = {r0['P']}), "
           f"{FLAT_K} gloo ranks on the one card, wfagg with the sketch WFAgg-T, 1 of "
           f"{FLAT_K} under alie, {FLAT_STEPS} steps: parameters bit-equal on every rank "
@@ -5128,13 +5171,8 @@ def run_train_path(torch) -> tuple:
           f"{[round(s['max_out_err'], 9) for s in r0['report']]}), masks equal; loss "
           f"{[round(s['loss'], 4) for s in r0['report']]}, weights "
           f"{[s['weights'] for s in r0['report']]}; ms per step (rank 0) "
-          f"{[round(t, 1) for t in r0['ms']]}; {report['flat']['seconds']:.1f} s in all")
-
-    r = run_launcher(torch)
-    for k in KERNELS:
-        launches[k] += r["counts"][k]
-    report["launcher"] = dict(seconds=r["seconds"], lines=r["lines"])
-    return launches, report
+          f"{[round(t, 1) for t in r0['ms']]}; {flat['seconds']:.1f} s in all")
+    return flat
 
 
 # ---------------------------------------------------------------------------
@@ -5144,7 +5182,11 @@ def run_train_path(torch) -> tuple:
 
 # (arch, depth kept or None for uncut, prefill (B, S), kernel-8 launches a
 # prefill, decode steps at batch MOE_DECODE_B (prompt, greedy), hold the
-# flash prefill against flash=False)
+# flash prefill against flash=False).  The decodes keep their 64 + 32 held
+# steps: DeepSeek-V2-Lite's hold against the truth compares two largest
+# differences of ~0.8, and over 16 + 8 steps its bf16 decode's came out 0.014
+# past the rule (the bf16 prefill's fewer positions gave a smaller largest
+# difference; PERF.md §6)
 MOE_SERVE = (
     ("deepseek-v2-lite-16b", None, (1, 4096), 0, (64, 32), False),   # arXiv:2405.04434
     ("moonshot-v1-16b-a3b", 16, (2, 8192), 16, (64, 32), True),      # 1 dense + 15 MoE
@@ -5152,7 +5194,8 @@ MOE_SERVE = (
 )
 MOE_DECODE_B = 2
 MOE_PREFILL_REPS = 2
-MOE_DECODE_TIMED = 16          # greedy steps timed after the held ones, no recorder
+MOE_DECODE_TIMED = 8           # greedy steps timed after the held ones, no recorder (16
+                               # until the bf16 / pad-slot part, the whole script's time)
 MOE_TRAIN_ARCH = "deepseek-v2-lite-16b"
 MOE_TRAIN_LAYERS = 2           # 1 dense prefix + 1 MoE block, P = 1,026,698,240
 MOE_TRAIN_K = 6                # candidate workers, one batch row each
@@ -5756,17 +5799,18 @@ def run_moe_path(torch) -> tuple:
 # (arch, prefill (B, S), kernel-8 launches a prefill, decode batch, decode
 # cache positions, random prompt tokens, of them taken in one stateful call
 # before the single steps, greedy steps held): each decode's held logits
-# (prompt and greedy, 96 positions) against one prefill of the same tokens
+# (prompt and greedy, 24 positions) against one prefill of the same tokens
 SSM_SERVE = (
     # cut at full width to fit the whole script's time beside the grid and
     # the families' parts: Falcon-Mamba-7B to 4 of 64 layers (uncut its
     # prefill took 21 s a call on one H100, PERF.md §6),
     # Zamba2-1.2B to 8 of 38 layers (4 groups, the shared block once a
-    # group; uncut 10.4 s a prefill on one H100)
-    ("falcon-mamba-7b", 4, (2, 8192), 0, 4, 96, 96, 48, 0),     # arXiv:2410.05355
-    ("zamba2-1.2b", 8, (2, 8192), 4, 2, 32768, 64, 0, 32),      # arXiv:2411.15242
+    # group; uncut 10.4 s a prefill on one H100); the decodes' held tokens
+    # cut from 96 to 24 beside the bf16 / pad-slot part, the whole script's time
+    ("falcon-mamba-7b", 4, (2, 8192), 0, 4, 96, 24, 12, 0),     # arXiv:2410.05355
+    ("zamba2-1.2b", 8, (2, 8192), 4, 2, 32768, 16, 0, 8),       # arXiv:2411.15242
 )
-SSM_DECODE_TIMED = 16          # greedy steps timed after the held ones
+SSM_DECODE_TIMED = 8           # greedy steps timed after the held ones
 SSM_TRAIN_ARCH = "zamba2-1.2b"
 SSM_TRAIN_LAYERS = 4           # 2 groups: the shared block serves two; P = 309,967,616
 SSM_TRAIN_K = 6
@@ -6074,19 +6118,23 @@ def run_ssm_path(torch) -> tuple:
 # (arch, layers (None: uncut), prefill (B, S positions), kernel-8 launches a
 # prefill, decode batch, decode cache positions, random prompt tokens,
 # greedy steps held, the prefill hold's rule): each decode's held logits
-# (prompt and greedy, 96 positions) against one prefill of the same tokens.
+# (prompt and greedy, 24 positions: 96 until the bf16 / pad-slot part, the
+# whole script's time) against one prefill of the same tokens.
 # Seamless's S positions are S frames and S tokens, its decode caches
 # ``ENC_LEN_DECODE`` encoded frames; LLaVA's are ``n_modal_tokens`` patches
 # and S - n_modal tokens, its decode and the prefill it is held to take
 # text only (the reference's ``decode_step`` embeds tokens only).
 ENCDEC_SERVE = (
-    ("seamless-m4t-medium", None, (2, 8192), 12, 2, 32768, 64, 32, "dense"),  # 2308.11596
-    # 12 of 60 layers (53.51 GiB of f32 parameters at 24 layers; uncut
-    # 128.33 GiB), cut beside the families' part for the whole script's time
-    ("llava-next-34b", 12, (1, 8192), 12, 2, 32768, 64, 32, "truth"),
+    ("seamless-m4t-medium", None, (2, 8192), 12, 2, 32768, 16, 8, "dense"),  # 2308.11596
+    # 6 of 60 layers (53.51 GiB of f32 parameters at 24 layers; uncut
+    # 128.33 GiB), cut beside the families' part (to 12) and the bf16 /
+    # pad-slot part (to 6) for the whole script's time
+    ("llava-next-34b", 6, (1, 8192), 6, 2, 32768, 16, 8, "truth"),
 )
 ENCDEC_TRAIN_ARCH = "seamless-m4t-medium"
-ENCDEC_TRAIN_LAYERS = 6        # 6 encoder + 6 decoder layers: P = 752,316,416
+# 2 encoder + 2 decoder layers (6 + 6 until the bf16 / pad-slot part, the
+# whole script's time)
+ENCDEC_TRAIN_LAYERS = 2
 ENCDEC_TRAIN_K = 6
 
 
@@ -6217,9 +6265,13 @@ TP_FLAT_RUNS = (("wfagg", "fused", 1, {"layout": "flat"}), ("mean", "fused", 1, 
 # within 1e-5 of the leaf's largest update of one process's (the leaf-wide
 # means add M blocks' sums)
 ADAFACTOR_TOL = 1e-5
-# the TP training runs at 12 of Qwen's 24 layers (cut in this slice beside
-# its three new steps, the whole script's time; serving stays uncut)
-TP_TRAIN_LAYERS = 12
+# the TP training runs at 2 of Qwen's 24 layers (12 beside the flat steps,
+# then 6 and 2 beside the bf16 / pad-slot part, the whole script's time;
+# serving stays uncut)
+TP_TRAIN_LAYERS = 2
+# the one-card model axis serves 12 of Qwen's 24 layers (uncut until the bf16
+# / pad-slot part, the whole script's time; --only cards serves it uncut)
+TP_SERVE_LAYERS = 12
 # the step-1 candidate gradients at M against M = 1 on the same parameters
 # and batch: relative rms of each candidate's whole gradient.  Both are bf16
 # activations on f32 parameters, rounded in another order (partial sums of a
@@ -6722,8 +6774,8 @@ def hold_adafactor(torch, model, mesh, grads, old, new, tc) -> float:
 
 def tp_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
     """The TP serving part on one rank: ``build_prefill(mesh=)`` on 2 x 8192
-    (warm once, then timed; kernel 8 on the rank's H/M heads, 24 launches
-    a call), the last ``PREFILL_TAIL`` positions' logits gathered and, on
+    (warm once, then timed; kernel 8 on the rank's H/M heads, one launch a
+    layer), the last ``PREFILL_TAIL`` positions' logits gathered and, on
     rank 0, held to the M = 1 prefill's (written by the parent) by the
     dense rule; decode at batch 4 against 32,768 slots over a
     ``TP_PROMPT``-token prompt and ``TP_NEW_TOKENS`` greedy tokens (0
@@ -6924,7 +6976,8 @@ def tp_child(rank, S, store_path, out_dir, backend) -> None:
         dist.init_process_group(backend, store=dist.FileStore(store_path, S), rank=rank,
                                 world_size=S)
         try:
-            cfg = get_config(job["arch"])
+            cfg = job_config(get_config, {"arch": job["arch"],
+                                          "layers": job.get("serve_layers")})
             launches = dict.fromkeys(KERNELS, 0)
             res["report"] = {}
             if job["serve"]:
@@ -6933,7 +6986,7 @@ def tp_child(rank, S, store_path, out_dir, backend) -> None:
                 for k in KERNELS:
                     launches[k] += la[k]
                 res["tc"] = la["flash_attention[tensor_core]"]
-            # training at the job's depth (serving is uncut)
+            # training at the job's depth (serving at its serve_layers, or uncut)
             cfg = job_config(get_config, {"arch": job["arch"], "layers": job.get("train_layers")})
             la, res["report"]["train"] = tp_train(
                 torch, cfg, S, rank, [tuple(r) for r in job["runs"]],
@@ -6949,12 +7002,12 @@ def tp_child(rank, S, store_path, out_dir, backend) -> None:
     pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
 
 
-def tp_reference(torch, out_dir, train_layers=None) -> None:
+def tp_reference(torch, out_dir, train_layers=None, serve_layers=None) -> None:
     """What the ranks are held to at M = 1, computed here before they start
-    and freed: the seed-0 Qwen's prefill tail (2 x 8192, its last
-    ``PREFILL_TAIL`` positions, f32) and the K candidate gradients of the
-    first training batch on the seed-0 model cut to ``train_layers`` (a
-    (K, P) float32 file in ravel order)."""
+    and freed: the seed-0 Qwen's prefill tail (cut to ``serve_layers``; 2 x
+    8192, its last ``PREFILL_TAIL`` positions, f32) and the K candidate
+    gradients of the first training batch on the seed-0 model cut to
+    ``train_layers`` (a (K, P) float32 file in ravel order)."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -6964,7 +7017,7 @@ def tp_reference(torch, out_dir, train_layers=None) -> None:
     from repro_torch.train import serve as sv
     from repro_torch.train import trainer as tr
 
-    cfg = get_config(TP_ARCH)
+    cfg = job_config(get_config, {"arch": TP_ARCH, "layers": serve_layers})
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     g = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), generator=g,
@@ -7045,10 +7098,11 @@ def time_tp_kernels(torch, K, D, heads) -> dict:
     return out
 
 
-def run_tp_path(torch, backend="gloo", S=TP_M) -> tuple:
+def run_tp_path(torch, backend="gloo", S=TP_M, serve_layers=None) -> tuple:
     """The model axis on one card: ``TP_M`` gloo ranks share it (a
     ``FileStore``, as the distributed phase's), each one TP shard of
-    Qwen1.5-0.5B uncut (seed 0): serving (``tp_serve``) and training
+    Qwen1.5-0.5B (seed 0; uncut, or served at ``serve_layers``): serving
+    (``tp_serve``) and training
     (``tp_train``: WFAgg on ``fused`` and ``fused_two_launch``, Alt-WFAgg on
     ``fused``, the mean; K = 8, S = 1025, IPM-100 on 2, AdamW lr 1e-3,
     the steps of ``TP_RUNS``), held to M = 1 (``tp_reference``) and to the
@@ -7061,11 +7115,11 @@ def run_tp_path(torch, backend="gloo", S=TP_M) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    tp_reference(torch, tmp, TP_TRAIN_LAYERS)
+    tp_reference(torch, tmp, TP_TRAIN_LAYERS, serve_layers)
     ref_s = time.perf_counter() - t0
     pathlib.Path(tmp, "tp_job.json").write_text(json.dumps(dict(
         arch=TP_ARCH, serve=True, runs=TP_RUNS + TP_FLAT_RUNS, hold=True,
-        train_layers=TP_TRAIN_LAYERS,
+        train_layers=TP_TRAIN_LAYERS, serve_layers=serve_layers,
         grads=str(pathlib.Path(tmp, "grads_m1.f32")))))
     t0 = time.perf_counter()
     try:
@@ -7093,8 +7147,12 @@ def run_tp_cards(torch) -> dict:
     import tempfile
 
     S = torch.cuda.device_count()
+    out = {}
+    if S == 4:
+        # first: the run this slice adds, and the largest
+        out["arctic"] = run_arctic_cards(torch)
     launches, rep = run_tp_path(torch, "nccl", S)
-    out = {"qwen": rep}
+    out["qwen"] = rep
     if S == 4:
         tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
         pathlib.Path(tmp, "tp_job.json").write_text(json.dumps(dict(
@@ -7504,8 +7562,9 @@ def grid_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
         if not bool(torch.isfinite(st).all()):
             raise AssertionError("grid: non-finite decode logits")
         if rank == 0:
-            grid_hold(torch, out_dir, "decode", f"grid {K} x {M_} decode at batch {K}, 32,768 "
-                      f"slots, over the same {GRID_DECODE} tokens,", st)
+            rep["decode_vs_f32"] = grid_hold(
+                torch, out_dir, "decode", f"grid {K} x {M_} decode at batch {K}, 32,768 "
+                f"slots, over the same {GRID_DECODE} tokens,", st)
         rep["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
     finally:
         clock.close()
@@ -7515,17 +7574,34 @@ def grid_serve(torch, cfg, mesh, out_dir, rank) -> tuple:
     return launches, rep
 
 
-def grid_hold(torch, out_dir, name, label, got) -> None:
+def grid_hold(torch, out_dir, name, label, got):
     """The grid's gathered logits against one process's (``name``.pt): the
     dense rule, or, where ``name``_truth.pt exists (an SSM or hybrid model)
-    and the bf16 routes sit past it, ``SSM_TRUTH``'s rule."""
+    and the bf16 routes sit past it, ``SSM_TRUTH``'s rule.  Where
+    ``name``_f32.pt exists (a dense model's decode in f32 activations, the
+    measurement of where the grid's bf16 decode drift comes from), each
+    token's distance of the grid and of one process from it is printed and
+    returned (measured only: the hold stays the dense rule)."""
     want = torch.load(pathlib.Path(out_dir, f"{name}.pt")).to("cuda")
     truth = pathlib.Path(out_dir, f"{name}_truth.pt")
+    f32 = pathlib.Path(out_dir, f"{name}_f32.pt")
+    per_token = None
+    if f32.exists():
+        t = torch.load(f32).to("cuda")
+        per_token = []
+        for i in range(t.shape[1]):
+            g = logit_gap(torch, f"{label} token {i}: the grid vs f32", got[:, i], t[:, i])
+            o = logit_gap(torch, f"{label} token {i}: one process vs f32", want[:, i], t[:, i])
+            b = logit_gap(torch, f"{label} token {i}: the grid vs one process", got[:, i],
+                          want[:, i])
+            per_token.append({"grid_vs_f32": g, "one_vs_f32": o, "grid_vs_one": b})
+        del t
     if truth.exists():
         hold_bf16_route(torch, f"{label} grid", got, "one process", want,
                         torch.load(truth).to("cuda"))
     else:
         check_logits(torch, f"{label} vs one process", got, want)
+    return per_token
 
 
 def grid_train(torch, cfg, mesh, rank, runs, grads_file=None, hold=True, arch_tc=False
@@ -7704,6 +7780,19 @@ def grid_reference(torch, out_dir, arch, K, serve=True, layers=None) -> None:
                 out.append(lg.float().cpu())
             torch.save(torch.cat(out, dim=1), pathlib.Path(out_dir, f"decode{tag}.pt"))
             del cache
+        if cfg.dtype != "float32" and not truth:
+            # a dense model's decode in f32 activations beside its bf16 one:
+            # each token's distance from it, printed by grid_hold (measured
+            # only, the hold stays the dense rule)
+            c = dataclasses.replace(cfg, dtype="float32")
+            cache = M.init_cache(c, K, DECODE_32K.seq_len)
+            step = sv.build_decode_step(c)
+            out = []
+            for i in range(GRID_DECODE):
+                lg, cache = step(params, cache, seq[:, i:i + 1])
+                out.append(lg.float().cpu())
+            torch.save(torch.cat(out, dim=1), pathlib.Path(out_dir, "decode_f32.pt"))
+            del cache, step
     P = layout_flat(params).numel()
     batch = TokenStream(cfg.vocab_size, TRAIN_SEQ, K).batch(0, device="cuda")
     rows = batch["tokens"].shape[0] // K
@@ -7834,7 +7923,7 @@ def check_grid_kernels(torch, K, D, heads, where="a grid rank's") -> tuple:
 
 
 def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH,
-                  layers=GRID_LAYERS, runs=GRID_RUNS) -> tuple:
+                  layers=GRID_LAYERS, runs=GRID_RUNS, serve=True) -> tuple:
     """The data axis as processes on one card: K x M ``gloo`` ranks share
     it (a ``FileStore``), a grid (``make_grid``) of ``arch`` uncut (seed 0)
     whose ranks each hold their FSDP blocks: serving (``grid_serve``) and
@@ -7842,8 +7931,9 @@ def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH,
     S = 1025, IPM-100 on 1, AdamW lr 1e-3, ``fsdp_params``), held to one
     process (``grid_reference``) and to the reference backend's route; then
     kernels 4, 6, 7 and 8 at a rank's shapes (``check_grid_kernels``).
-    ``layers`` cuts the model's depth, ``runs`` replaces ``GRID_RUNS``.
-    Returns (launches summed over the ranks, errors, report)."""
+    ``layers`` cuts the model's depth, ``runs`` replaces ``GRID_RUNS``;
+    without ``serve`` the ranks only train.  Returns (launches summed over
+    the ranks, errors, report)."""
     import tempfile
 
     from repro_torch.configs.registry import get_config
@@ -7853,10 +7943,10 @@ def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH,
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    grid_reference(torch, tmp, arch, K, layers=layers)
+    grid_reference(torch, tmp, arch, K, serve=serve, layers=layers)
     ref_s = time.perf_counter() - t0
     pathlib.Path(tmp, "grid_job.json").write_text(json.dumps(dict(
-        arch=arch, layers=layers, K=K, M=M_, serve=True, runs=runs, hold=True,
+        arch=arch, layers=layers, K=K, M=M_, serve=serve, runs=runs, hold=True,
         grads=str(pathlib.Path(tmp, "grads_one.f32")))))
     t0 = time.perf_counter()
     try:
@@ -7864,7 +7954,7 @@ def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH,
                           timeout=GRID_TIMEOUT_S)
     finally:
         for name in ("grads_one.f32", "prefill_tail.pt", "decode.pt", "prefill_tail_truth.pt",
-                     "decode_truth.pt"):
+                     "decode_truth.pt", "decode_f32.pt"):
             pathlib.Path(tmp, name).unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     launches, rep = report_grid(ranks, card, ref_s, seconds, arch, K, M_,
@@ -7901,7 +7991,7 @@ def run_grid_cards(torch) -> dict:
             ranks = run_ranks(torch, "nccl", K * M_, child=grid_child, tmp=tmp,
                               timeout=GRID_TIMEOUT_S)
         finally:
-            for name in ("grads_one.f32", "prefill_tail.pt", "decode.pt"):
+            for name in ("grads_one.f32", "prefill_tail.pt", "decode.pt", "decode_f32.pt"):
                 pathlib.Path(tmp, name).unlink(missing_ok=True)
         la, out[f"{arch} {K}x{M_}"] = report_grid(ranks, gpu_line(), 0.0,
                                                   time.perf_counter() - t0, arch, K, M_,
@@ -7938,6 +8028,13 @@ def report_grid(ranks, card, ref_s, seconds, arch, K, M_, where) -> tuple:
                   f"({s['cache_rows']} row(s), {s['cache_heads']} KV heads a rank) "
                   f"{s['decode_ms']} ms a step (collectives a step "
                   f"{s['decode_collectives_per_step']}), peak {s['peak_gib']} GiB")
+        drift = r0["serve"].get("decode_vs_f32")
+        if drift:
+            print("  the decode's bf16 drift per token, (relative rms, largest difference) "
+                  "from the f32-activation decode: " + "; ".join(
+                      f"token {i}: grid {d['grid_vs_f32'][0]:.5g} / {d['grid_vs_f32'][1]:.4g}, "
+                      f"one process {d['one_vs_f32'][0]:.5g} / {d['one_vs_f32'][1]:.4g}, grid "
+                      f"vs one process {d['grid_vs_one'][0]:.5g}" for i, d in enumerate(drift)))
     for label in r0["train"]:
         for r in ranks:
             t = r["report"]["train"][label]
@@ -7985,19 +8082,27 @@ FAM_M = 2                      # gloo ranks sharing the one card
 FAM_K, FAM_MALICIOUS = 4, 1    # candidates; IPM-100 on spaced_malicious(4, 1) = candidate 2
 FAM_DECODE_B, FAM_DECODE = 4, 6    # decode batch and teacher-forced tokens
 # (arch, serving layers, prefill (B, S), decode, training layers, training runs):
-# DeepSeek-V2-Lite served at 4 of 27 layers (1 dense prefix + 3 MoE) and
-# trained at 2 (the one-card MoE step's depth: K = 4 candidates hold 2K + 7
-# copies of a 1.03e9-parameter model on one card); Zamba2 at 4 of 38 (two
-# groups); Falcon-Mamba at 2 of 64; Arctic (bf16 parameters, 128 experts)
-# at 1 of 35, served only (bf16 training is ROADMAP item 12.4)
+# DeepSeek-V2-Lite served and trained at 2 of 27 layers (1 dense prefix + 1
+# MoE; served at 4 until the bf16 / pad-slot part, the whole script's time;
+# the one-card MoE step's depth: K = 4 candidates hold 2K + 7 copies of a
+# 1.03e9-parameter model on one card); Zamba2 served at 4 of 38 (two groups)
+# and trained at 2 (4 until the bf16 / pad-slot part); Falcon-Mamba at 2 of
+# 64; Arctic (bf16 parameters, 128 experts)
+# at 1 of 35, served only: one card cannot hold its training, which
+# ``run_arctic_cards`` runs on four (--only tpcards), the bf16 trainer on one
+# card ``run_bf16_path``
 FAM_JOBS = (
-    ("deepseek-v2-lite-16b", 4, (2, 4096), True, 2,
+    ("deepseek-v2-lite-16b", 2, (2, 4096), True, 2,
      (("wfagg", "fused", 2), ("mean", "fused", 2))),
-    ("zamba2-1.2b", 4, (2, 8192), True, 4, (("wfagg", "fused", 2), ("mean", "fused", 2))),
+    ("zamba2-1.2b", 4, (2, 8192), True, 2, (("wfagg", "fused", 2), ("mean", "fused", 2))),
     ("falcon-mamba-7b", 2, (2, 8192), True, 2, (("wfagg", "fused", 2),)),
     ("arctic-480b", 1, (1, 8192), False, 0, ()),
 )
-FAM_GRID = ("zamba2-1.2b", 4, (("wfagg", "fused", 1),))   # on the GRID_K x GRID_M grid
+# Zamba2 on the GRID_K x GRID_M grid, 2 of 38 layers (4 until the bf16 / pad-slot
+# part, the whole script's time), served and trained; the whole script only
+# trains it there since the bf16 / pad-slot part (its time; the grid part
+# serves Qwen on the grid, the model-axis part Zamba2 split over ranks)
+FAM_GRID = ("zamba2-1.2b", 2, (("wfagg", "fused", 1),))
 FAM_TIMEOUT_S = 900
 # --only cards at four cards: Moonlight uncut served at M = 4; DeepSeek-V2-Lite at
 # 6 of 27 layers (8 would hold ~68 GB of its 2K + 7 copies a card, too close
@@ -8424,15 +8529,18 @@ def check_fam_kernels(torch, D) -> tuple:
     return errs, out
 
 
-def run_tpfam(torch) -> tuple:
+def run_tpfam(torch, grid_serve=True) -> tuple:
     """The families' part: ``run_fam_path`` on ``FAM_M`` gloo ranks, then
-    ``FAM_GRID`` on the ``GRID_K`` x ``GRID_M`` grid (``run_grid_path``),
-    then kernels 4, 6, 7 and 8 at the new shapes (``check_fam_kernels``).
-    Returns (launches summed over both, errors, report)."""
+    ``FAM_GRID`` on the ``GRID_K`` x ``GRID_M`` grid (``run_grid_path``;
+    served too with ``grid_serve``), then kernels 4, 6, 7 and 8 at the new
+    shapes (``check_fam_kernels``).  Returns (launches summed over both,
+    errors, report)."""
     launches, report = run_fam_path(torch)
     arch, layers, runs = FAM_GRID
-    print(f"  {arch} ({layers} layers) on the {GRID_K} x {GRID_M} grid:")
-    la, gerrs, report["grid"] = run_grid_path(torch, arch=arch, layers=layers, runs=runs)
+    print(f"  {arch} ({layers} layers) on the {GRID_K} x {GRID_M} grid, "
+          f"{'served and ' if grid_serve else ''}trained:")
+    la, gerrs, report["grid"] = run_grid_path(torch, arch=arch, layers=layers, runs=runs,
+                                              serve=grid_serve)
     for k in KERNELS:
         launches[k] += la[k]
     train = report["deepseek-v2-lite-16b"]["train"]["per_rank"][0]["train"]
@@ -8444,14 +8552,686 @@ def run_tpfam(torch) -> tuple:
     return launches, errs, report
 
 
+# ---------------------------------------------------------------------------
+# phase 3: bf16 parameters and a padded layout's head slots (train/trainer.py,
+# optim/optimizers.py's LeafBlock.live, core/flatten.py's places of the pad
+# slots, the noise attack drawn a whole-vector chunk at a time)
+# ---------------------------------------------------------------------------
+
+BF16_K = 4                     # candidates on the model axis; noise on spaced_malicious(4, 1)
+BF16_STEPS = 3
+BF16_SEQ = 257                 # one row of S = 257 a candidate
+BF16_CHUNK = 1 << 18           # the flat layout's chunk: the reduced Arctic is 17 of them
+# the padded config of tests/test_torch_tp_families.py: 7 live heads padded to 8,
+# 1 KV head, on the reduced Arctic (float32)
+PAD_CFG = dict(d_model=64, vocab_size=128, n_layers=1, n_heads=7, n_kv_heads=1,
+               pad_heads_to=8, head_dim=16, d_ff=32, dense_residual_ff=32, n_experts=4,
+               top_k=2)
+# (label, config, layout, method): M = 1 in this process
+BF16_ONE = (("bf16 M=1 stacked", "bf16", "stacked", "wfagg"),
+            ("bf16 M=1 flat", "bf16", "flat", "wfagg"))
+# (mesh (K, M), runs): gloo ranks sharing the card, a K x M grid where K > 1 (K
+# candidates, one a data rank), else the model axis with BF16_K candidates each
+BF16_JOBS = (((1, 2), (("bf16 M=2 stacked", "bf16", "stacked", "wfagg"),
+                       ("bf16 M=2 stacked alt", "bf16", "stacked", "alt_wfagg"),
+                       ("bf16 M=2 flat", "bf16", "flat", "wfagg"))),
+             ((2, 2), (("bf16 2x2 stacked", "bf16", "stacked", "wfagg"),
+                       ("bf16 2x2 flat", "bf16", "flat", "wfagg"))),
+             ((1, 4), (("padded M=4 stacked", "padded", "stacked", "alt_wfagg"),
+                       ("padded M=4 flat", "padded", "flat", "wfagg"))))
+BF16_TIMEOUT_S = 300
+
+
+def bf16_configs() -> dict:
+    """The part's configs: the reduced Arctic in bf16 with Adafactor
+    (Arctic's own plan; ``reduced()`` is float32 with SGD), and the padded
+    one (float32, Adafactor)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    base = get_config("arctic-480b").reduced()
+    return {"bf16": dataclasses.replace(base, param_dtype="bfloat16", optimizer="adafactor"),
+            "padded": dataclasses.replace(base, optimizer="adafactor", **PAD_CFG)}
+
+
+def bf16_tc(method, layout, K):
+    """The runs' TrainConfig: WFAgg(-T) on ``fused``, noise on one of K,
+    f = 1 (0 at K = 2), chunks of ``BF16_CHUNK``."""
+    import dataclasses
+
+    from repro_torch.core.wfagg import WFAggConfig
+
+    tc = train_config(method, layout=layout, attack="noise", n_malicious=1,
+                      wfagg=WFAggConfig(f=1 if K > 2 else 0, transient=3, window=3))
+    return dataclasses.replace(tc, agg=dataclasses.replace(tc.agg, chunk_size=BF16_CHUNK))
+
+
+def whole_of(torch, model, x, lead, mesh=None, rows=False, columns=False):
+    """The whole model's ravel ((K, P) with ``lead`` 1, (P,) with 0) of a
+    rank's candidates or aggregate ``x``: a tree of its blocks (stacked),
+    or its flat buffers (a tuple, or one tensor at M = 1); gathered over
+    the model group (a padded cut back to the live heads) and over the
+    data group: ``columns``, a grid's column block (its FSDP dims);
+    ``rows``, one candidate a data rank, gathered as rows.  Every rank
+    gets it."""
+    from repro_torch.core import flatten as F
+    from repro_torch.distributed import sharding as shd
+
+    if getattr(model, "tp", None) is None and not rows and not columns:
+        if isinstance(x, torch.Tensor):
+            return x
+        return torch.cat([leaf.reshape((leaf.shape[0], -1) if lead else (-1,))
+                          for leaf in F.tree_leaves(x)], -1)
+    if not isinstance(x, dict):
+        bufs = x if isinstance(x, tuple) else (x,)
+        bufs = tuple(b if b.ndim == 2 else b[None] for b in bufs)
+        x = (F.unravel_rows_split(bufs, model) if getattr(model, "tp", None) is not None
+             else F.unravel_rows(bufs[0], F.module_tree(model)))
+        if lead == 0:
+            x = F.tree_map(lambda leaf: leaf[0], x)
+    dims = dict(model.fsdp.dims) if columns else {}
+    out = []
+    for leaf, (path, _), c in zip(F.tree_leaves(x), F.leaf_params(model),
+                                  F.split_cuts(model)):
+        cut = None if c is None else c[0].shifted(lead)
+        ddim = dims.get(path)
+        spec = tuple("model" if cut is not None and i == cut.dim else
+                     "data" if ((ddim is not None and i == ddim + lead)
+                                or (rows and lead and i == 0)) else None
+                     for i in range(leaf.ndim))
+        w = shd.gather_tensor(leaf.contiguous(), spec, mesh, cut, 0 if c is None else c[1])
+        out.append(w.reshape((w.shape[0], -1) if lead else (-1,)))
+    return torch.cat(out, -1)
+
+
+class Bf16Hold:
+    """The bf16 / pad-slot part's ``observe`` hook on one rank (or the one
+    process at M = 1): each phase's ms, the step's launches and peak
+    memory; at every step the candidates after the attack gathered whole
+    (``whole_of``: every rank gets them) and the one-process M = 1 route
+    run on them from the step's WFAgg-T state (stacked: ``fused``, kernel 1
+    at N = 1; at M = 1 itself: the ``reference`` backend; flat:
+    ``Emulated(K)``; the flat M = 1 run is that route), its launches not
+    the step's; after the all-reduce the aggregate gathered whole and held
+    to it: masks bit-equal or near-ties (``NEAR_TIE``, on the one-process
+    statistics), weights within ``FLAT_W_TOL``, the aggregate within
+    ``FLAT_OUT_TOL`` (float32) or one bf16 rounding, 2^-7 |want| (bf16);
+    the rank's pad head slots exactly 0 in its candidates after the attack
+    and in its parameters after the step."""
+
+    def __init__(self, torch, tc, model, mesh, K, pdtype):
+        from repro_torch.core import flatten as F
+
+        self.torch, self.tc, self.model, self.mesh, self.K = torch, tc, model, mesh, K
+        self.pdtype = pdtype
+        self.tails = F.pad_tails(model)
+        self.grid = mesh.data_axis() is not None
+        self.rows = self.grid and tc.agg.layout == "flat"
+        self.columns = self.grid and tc.agg.layout == "stacked"
+        self.one = getattr(model, "tp", None) is None and not self.grid
+        self.hold = not (self.one and tc.agg.layout == "flat")
+        self.prev = None
+        self.steps, self.peaks, self.launches, self.near_ties = [], [], [], []
+        self.max_err, self.pad_checks = 0.0, 0
+
+    def start(self):
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        self.cur = {}
+        self.t = time.perf_counter()
+
+    def __call__(self, phase, **v):
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.cur[phase] = round(1e3 * (time.perf_counter() - self.t), 2)
+        counts = read_counts()
+        if phase == "attack":
+            self.check_pads(v["candidates"], 1)
+            if self.hold:
+                self.route(v["candidates"], v["agg_state"])
+        elif phase == "allreduce" and self.hold:
+            self.compare(v["grads"], v["info"])
+        elif phase == "optimizer":
+            self.check_pads(v["params"], 0)
+            self.steps.append(self.cur)
+            self.peaks.append(round(torch.cuda.max_memory_allocated() / 2 ** 30, 3))
+            self.launches.append({k: c for k, c in counts.items() if c})
+        # the hold's own launches are not the step's
+        for name, (mod, attr, _, _) in KERNELS.items():
+            setattr(_module(name), attr, counts[name])
+        torch.cuda.synchronize()
+        self.t = time.perf_counter()
+
+    def check_pads(self, tree, lead) -> None:
+        from repro_torch.core import flatten as F
+
+        if not any(t is not None for t in self.tails):
+            return
+        if not isinstance(tree, dict):
+            bufs = tree if isinstance(tree, tuple) else (tree,)
+            tree = F.unravel_rows_split(tuple(b if b.ndim == 2 else b[None] for b in bufs),
+                                        self.model)
+            lead = 1
+        for leaf, t in zip(F.tree_leaves(tree), self.tails):
+            if t is not None:
+                d, live = t
+                tail = leaf.narrow(lead + d, live, leaf.shape[lead + d] - live)
+                if bool((tail != 0).any()):
+                    raise AssertionError(f"a pad head slot holds {float(tail.abs().max())}")
+                self.pad_checks += 1
+
+    def route(self, cands, state):
+        import dataclasses
+
+        from repro_torch.distributed import robust_allreduce as ra
+
+        torch = self.torch
+        self.whole = whole_of(torch, self.model, cands, 1, self.mesh, self.rows, self.columns)
+        agg = self.tc.agg
+        if agg.layout == "flat":
+            o, _, info = ra.robust_allreduce(self.whole, ra.Emulated(self.K), agg, state)
+        else:
+            if self.one:
+                agg = dataclasses.replace(agg, backend="reference")
+            w = self.whole.to(torch.float32)
+            st = None
+            if state is not None:
+                prev = self.prev if self.prev is not None else torch.zeros_like(w)
+                st = ra.TreeAggState(prev={"w": prev}, hist_s=state.hist_s.clone(),
+                                     hist_b=state.hist_b.clone(), count=state.count.clone(),
+                                     t=state.t.clone())
+            o, _, info = ra.robust_allreduce_stacked({"w": w}, agg, st)
+            o = o["w"].to(self.pdtype)
+            self.prev = w
+        self.ref = (o, info["weights"], {k: info[k] for k in MASKS if k in info})
+
+    def compare(self, grads, info):
+        from repro_torch.distributed import robust_allreduce as ra
+
+        torch = self.torch
+        label = f"{self.tc.agg.layout} {self.tc.agg.method} step {len(self.steps) + 1}"
+        got = whole_of(torch, self.model, grads, 0, self.mesh, columns=self.columns).float()
+        o, w, masks = self.ref
+        o = o.float()
+        flips = [(k, bit) for bit, name in enumerate(MASKS) if name in masks
+                 for k in (masks[name] != info[name]).nonzero().flatten().tolist()]
+        keep = torch.ones(w.shape[0], dtype=torch.bool, device=w.device)
+        if flips:
+            st = ra._stats_scan(self.whole.float(), ra.Emulated(self.K), self.tc.agg)
+            wcfg = ra._effective_wfagg_config(self.tc.agg, self.K)
+            rep = [(k, "WFAgg-T", None) for k, bit in flips if bit == 2]
+            rep += margins_of(torch, wcfg, st.dist2_med, st.gram, st.dot_med, st.med2,
+                              None, None, None, [f for f in flips if f[1] != 2])
+            print(f"  {label}: decisions differ at (candidate, filter, margin) {rep}")
+            if not all(m is not None and m <= NEAR_TIE for _, _, m in rep):
+                raise AssertionError(f"{label}: decisions differ away from any edge: {rep}")
+            self.near_ties.append((len(self.steps) + 1, rep))
+            keep[[k for k, _ in flips]] = False
+        werr = float((info["weights"][keep] - w[keep]).abs().max()) if keep.any() else 0.0
+        if werr > FLAT_W_TOL:
+            raise AssertionError(f"{label}: weights {info['weights'].tolist()} against "
+                                 f"{w.tolist()}")
+        if flips:
+            return
+        err = (got - o).abs()
+        if self.pdtype == torch.bfloat16:
+            bad = err > 2.0 ** -7 * o.abs() + 1e-30
+        else:
+            bad = err > FLAT_OUT_TOL
+        if bool(bad.any()):
+            raise AssertionError(f"{label}: the aggregate {float(err.max())} from the "
+                                 "one-process route's")
+        self.max_err = max(self.max_err, float(err.max()))
+
+
+def bf16_plan(model, mesh, tc, K) -> dict:
+    """One step's launches on this rank: kernel 1 at M = 1 (stacked); on
+    the model axis or a grid, kernel 4 (and 6 where the rule needs the
+    Gram) per column group this rank counts and kernel 7 per group, each
+    where the group has columns; none on the flat layout."""
+    from repro_torch.core import flatten as F
+    from repro_torch.distributed import robust_allreduce as ra
+    from repro_torch.train import trainer as tr
+
+    if tc.agg.layout == "flat":
+        return {}
+    grid = mesh.data_axis() is not None
+    if getattr(model, "tp", None) is None and not grid:
+        return {"wfagg_round_indexed": 1}
+    if grid:
+        shards = tr.grid_shards(model, mesh)
+        widths = F.fsdp_widths(model)
+    else:
+        shards = ra._as_grid(ra.ModelShards(model.tp, tuple(tr._model_cuts(model))))
+        widths = [b.numel() for b in F.layout_split(model)]
+    counted = sum(1 for c, n in zip(shards.counted, widths) if c and n)
+    plan = {"robust_stats": counted, "weighted_agg": sum(1 for n in widths if n)}
+    if ra._needs_gram(tc.agg):
+        plan["pairwise_gram"] = counted
+    return plan
+
+
+def bf16_train(torch, mesh, runs, K) -> tuple:
+    """The part's training runs on one rank (or the one process): per
+    (label, config, layout, method) ``BF16_STEPS`` steps of
+    ``build_train_step`` from seed 0 under ``Bf16Hold``, each step's
+    launches held to ``bf16_plan``.  Returns (launches, report)."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.train import trainer as tr
+
+    cfgs = bf16_configs()
+    launches = dict.fromkeys(KERNELS, 0)
+    report = {}
+    for label, key, layout, method in runs:
+        cfg = cfgs[key]
+        tc = bf16_tc(method, layout, K)
+        t0 = time.perf_counter()
+        state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0),
+                                    mesh)
+        pdtype = getattr(torch, cfg.param_dtype)
+        obs = Bf16Hold(torch, tc, state.params, mesh, K, pdtype)
+        step = tr.build_train_step(cfg, tc, mesh, observe=obs)
+        stream = TokenStream(cfg.vocab_size, BF16_SEQ, K)
+        losses, weights = [], []
+        for i in range(BF16_STEPS):
+            b = stream.batch(i, device="cuda")
+            obs.start()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            weights.append([round(float(x), 4) for x in m["weights"]])
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        dtypes = sorted({str(p.dtype) for p in state.params.parameters()})
+        if dtypes != [str(pdtype)]:
+            raise AssertionError(f"{label}: parameters in {dtypes}")
+        plan = bf16_plan(state.params, mesh, tc, K)
+        for i, got in enumerate(obs.launches):
+            if got != {k: c for k, c in plan.items() if c}:
+                raise AssertionError(f"{label} step {i + 1}: launches {got}, planned {plan}")
+        for k, c in plan.items():
+            launches[k] += c * BF16_STEPS
+        report[label] = dict(losses=losses, weights=weights, ms=obs.steps, peak_gib=obs.peaks,
+                             launches_per_step=plan, near_ties=obs.near_ties,
+                             max_out_err=obs.max_err, pad_checks=obs.pad_checks,
+                             seconds=round(time.perf_counter() - t0, 2))
+        del state, step, obs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, report
+
+
+def bf16_child(rank, S, store_path, out_dir, backend) -> None:
+    """One rank of the part's multi-rank jobs: joins the ``backend`` group
+    of S ranks, builds the job's mesh (``bf16_job.json``: a K x M grid where
+    K > 1, else the model axis of M = S) and runs ``bf16_train``."""
+    import torch
+    import torch.distributed as dist
+
+    job = json.loads(pathlib.Path(out_dir, "bf16_job.json").read_text())
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    res = {"rank": rank}
+    try:
+        from repro_torch.launch.mesh import make_grid, make_test_mesh
+
+        dist.init_process_group(backend, store=dist.FileStore(store_path, S), rank=rank,
+                                world_size=S)
+        try:
+            Kg, M_ = job["mesh"]
+            if Kg > 1:
+                mesh, K = make_grid(Kg, M_), Kg
+            else:
+                mesh = make_test_mesh(data=BF16_K, model=M_, model_group=dist.group.WORLD)
+                K = BF16_K
+            la, res["report"] = bf16_train(torch, mesh, [tuple(r) for r in job["runs"]], K)
+            res["launches"] = la
+        finally:
+            dist.destroy_process_group()
+    except Exception:   # noqa: BLE001 - the parent fails the run on it
+        import traceback
+        res["error"] = traceback.format_exc()
+    pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def run_bf16_path(torch) -> tuple:
+    """bf16 parameters and a padded layout's head slots on the card: the
+    bf16 reduced Arctic (Adafactor) at M = 1 in this process (stacked on
+    ``fused``: kernel 1 at N = 1; flat), on 2 gloo ranks (stacked WFAgg and
+    Alt-WFAgg: kernels 4, 6 and 7 on blocks; flat) and on the 2 x 2 grid
+    (stacked, flat); the padded config on 4 gloo ranks (stacked Alt-WFAgg,
+    flat): K = 4 (2 on the grid) under noise, ``BF16_STEPS`` steps each,
+    every step held to the one-process route (``Bf16Hold``), the pad slots
+    exactly 0, each step's launches as planned.  Prints the part's time and
+    peak memory.  Returns (launches summed over the runs and ranks,
+    report)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    card = gpu_line()
+    torch.cuda.reset_peak_memory_stats()
+    from repro_torch.launch.mesh import make_test_mesh
+
+    launches, report = bf16_train(torch, make_test_mesh(data=BF16_K), BF16_ONE, BF16_K)
+    report = {"M=1": report}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for (Kg, M_), runs in BF16_JOBS:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+        pathlib.Path(tmp, "bf16_job.json").write_text(json.dumps(dict(mesh=[Kg, M_],
+                                                                      runs=runs)))
+        ranks = run_ranks(torch, "gloo", Kg * M_, child=bf16_child, tmp=tmp,
+                          timeout=BF16_TIMEOUT_S)
+        where = f"{Kg} x {M_} grid" if Kg > 1 else f"M = {M_}"
+        report[where] = [r["report"] for r in ranks]
+        for r in ranks:
+            for k, c in r["launches"].items():
+                launches[k] += c
+        for label in ranks[0]["report"]:
+            per = [r["report"][label] for r in ranks]
+            if any(p["losses"] != per[0]["losses"] for p in per):
+                raise AssertionError(f"{label}: the ranks' losses differ")
+            peak = max(peak, max(max(p["peak_gib"]) for p in per))
+    for where, rep in report.items():
+        reps = rep if isinstance(rep, list) else [rep]
+        for label, t in reps[0].items():
+            pads = sum(r[label]["pad_checks"] for r in reps)
+            print(f"  {card}: {label} ({where}): loss {[round(x, 4) for x in t['losses']]}, "
+                  f"weights {t['weights'][-1]}; launches a step (rank 0) "
+                  f"{t['launches_per_step']}; ms a step (rank 0) {t['ms']}; peak GiB "
+                  f"{t['peak_gib']}; held to the one-process route (max|diff| "
+                  f"{t['max_out_err']:.3g}, near-ties {t['near_ties'] or 'none'}); pad slots "
+                  f"checked 0 {pads} times")
+    seconds = time.perf_counter() - t0
+    print(f"  the bf16 / pad-slot part: {seconds:.1f} s, peak {peak:.3f} GiB a process "
+          f"({card})")
+    return launches, dict(report, seconds=round(seconds, 1), peak_gib=round(peak, 3))
+
+
+# ---------------------------------------------------------------------------
+# --only tpcards at four cards: Arctic's own plan at full width (bf16
+# parameters, Adafactor, the flat layout, M = 4) at 1 of its 35 layers
+# ---------------------------------------------------------------------------
+
+ARCTIC_ARCH = "arctic-480b"
+ARCTIC_LAYERS = 1              # of 35: a card's block of one layer is 3.52e9 parameters
+ARCTIC_K = 4                   # candidates, emulated on every rank; noise on spaced_malicious(4, 1)
+ARCTIC_STEPS = 3
+ARCTIC_SAMPLES = 4             # whole-vector chunks gathered for the hold
+ARCTIC_TIMEOUT_S = 900
+ARCTIC_STATS_RTOL = 1e-4       # a chunk's statistics, the ranks' partials against the whole's
+
+
+def chunk_pieces(torch, places, buf, A, B):
+    """The columns of a rank's buffer ``buf`` (K, n) whose whole-ravel
+    index falls in [A, B): a list of (their values (K, m), their indices
+    minus A); each leaf's block is found by bisection on ``global_index``
+    (increasing along a block without pad slots)."""
+    from repro_torch.core import flatten as F
+
+    out = []
+    dev = buf.device
+    for pl in places:
+        lo_w, hi_w = pl.offset, pl.offset + pl.outer * pl.n * pl.inner
+        if hi_w <= A or lo_w >= B:
+            continue
+
+        def first_at(v):
+            lo, hi = pl.start, pl.start + pl.size
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if int(F.global_index([pl], mid, mid + 1, dev)[0]) < v:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            return lo
+        a, b = first_at(A), first_at(B)
+        if a < b:
+            out.append((buf[:, a:b], F.global_index([pl], a, b, dev) - A))
+    return out
+
+
+class ArcticHold:
+    """``observe`` of the four-card Arctic run on one rank: each phase's ms
+    and the step's peak; after the attack, ``ARCTIC_SAMPLES`` whole-vector
+    chunks of the K candidates gathered on every rank (each rank's
+    coordinates in them, ``chunk_pieces``, summed over the model group: one
+    rank holds each coordinate), their statistics (median, the distance and
+    dot sums, the Gram, the count-sketch) recomputed whole and held to the
+    ranks' partial sums over their own coordinates, summed in rank order
+    (``ARCTIC_STATS_RTOL``, relative to |value| + 1e-3); after the all-reduce, every rank's weights
+    and masks equal to rank 0's, and each chunk's weighted aggregate from
+    the step's weights (the bf16 rank sum, ``robust_allreduce._psum``'s
+    arithmetic) equal, within one bf16 rounding, to the ranks' aggregate
+    there."""
+
+    def __init__(self, torch, tc, model, mesh):
+        from repro_torch.core import flatten as F
+
+        self.torch, self.tc, self.model, self.mesh = torch, tc, model, mesh
+        self.places, self.P = F.coord_places(model)
+        self.counted = (True, model.tp.rank == 0)
+        L = tc.agg.chunk_size
+        n = -(-self.P // L)
+        self.chunks = sorted({int(round(i * (n - 1) / (ARCTIC_SAMPLES - 1)))
+                              for i in range(ARCTIC_SAMPLES)})
+        self.steps, self.peaks, self.errs = [], [], []
+
+    def start(self):
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.cur = {}
+        self.t = time.perf_counter()
+
+    def __call__(self, phase, **v):
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.cur[phase] = round(1e3 * (time.perf_counter() - self.t), 1)
+        if phase == "attack":
+            self.gather(v["candidates"])
+        elif phase == "allreduce":
+            self.hold(v["grads"], v["info"])
+        elif phase == "optimizer":
+            self.cur["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2 ** 30, 2)
+            self.steps.append(self.cur)
+        torch.cuda.synchronize()
+        self.t = time.perf_counter()
+
+    def pieces(self, bufs, c):
+        L = self.tc.agg.chunk_size
+        out = []
+        for buf, counted, places in zip(bufs, self.counted, self.places):
+            if counted:
+                out += chunk_pieces(self.torch, places, buf, c * L, (c + 1) * L)
+        return out
+
+    def whole_chunk(self, bufs, c, K):
+        """The whole (K, L) float32 chunk c on every rank, and how many ranks
+        gave each coordinate."""
+        from repro_torch.models import layers as L_
+
+        torch = self.torch
+        L = self.tc.agg.chunk_size
+        dev = bufs[0].device
+        acc = torch.zeros((K + 1, L), dtype=torch.float32, device=dev)
+        for vals, pos in self.pieces(bufs, c):
+            acc[:K, pos] = vals.float()
+            acc[K, pos] = 1.0
+        acc = L_.all_reduce_model(acc, self.model.tp.group)
+        return acc[:K], acc[K]
+
+    def gather(self, cands):
+        from repro_torch.distributed import robust_allreduce as ra
+        from repro_torch.distributed.spmd import all_reduce_in_rank_order
+
+        torch = self.torch
+        bufs = cands if isinstance(cands, tuple) else (cands,)
+        K = bufs[0].shape[0]
+        cfg = self.tc.agg
+        L = cfg.chunk_size
+        self.whole = {}
+        worst = 0.0
+        hashes = ra._hash_of(cfg, bufs[0].device)
+        for c in self.chunks:
+            w, cover = self.whole_chunk(bufs, c, K)
+            n = min(L, self.P - c * L)
+            if not (bool((cover[:n] == 1).all()) and bool((cover[n:] == 0).all())):
+                raise AssertionError(f"arctic chunk {c}: coordinates held {cover.unique()}")
+            self.whole[c] = w
+            want = ra._add_chunk(ra._zero_stats(K, (K, cfg.sketch_dim), w.device), w)
+            want = want._replace(sketch=ra._count_sketch(w, c, cfg.sketch_dim, cfg.seed))
+            part = ra._zero_stats(K, (K, cfg.sketch_dim), w.device)
+            for vals, pos in self.pieces(bufs, c):
+                g = vals.float()
+                part = ra._add_chunk(part, g)
+                part = part._replace(sketch=part.sketch + ra._sketch_coords(
+                    vals, pos + c * L, cfg, hashes))
+            flat = torch.cat([x.reshape(-1) for x in part])
+            got = all_reduce_in_rank_order(flat, self.model.tp.group)
+            ref = torch.cat([x.reshape(-1) for x in want])
+            err = float(((got - ref).abs() / (ref.abs() + 1e-3)).max())
+            if err > ARCTIC_STATS_RTOL:
+                raise AssertionError(f"arctic chunk {c}: the ranks' statistics at {err} of "
+                                     "the whole chunk's")
+            worst = max(worst, err)
+        self.stats_err = worst
+
+    def hold(self, grads, info):
+        import torch.distributed as dist
+
+        from repro_torch.distributed import robust_allreduce as ra
+
+        torch = self.torch
+        w = info["weights"].float()
+        mine = torch.cat([w] + [info[k].float() for k in MASKS if k in info])
+        every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, mine)
+        if any(not torch.equal(e, every[0]) for e in every):
+            raise AssertionError(f"arctic: the ranks' weights and masks differ: {every}")
+        bufs = grads if isinstance(grads, tuple) else (grads,)
+        worst = 0.0
+        wsum = torch.clamp(w.sum(), min=1e-12)
+        for c, chunk in self.whole.items():
+            got, _ = self.whole_chunk(tuple(b[None] for b in bufs), c, 1)
+            x = chunk.to(torch.bfloat16)
+            if float(w.sum()) > 0:
+                want = ra._rank_sum(x * (w / wsum)[:, None].to(torch.bfloat16))
+            else:
+                want = ra._rank_sum(x) / x.shape[0]
+            err = (got[0] - want.float()).abs()
+            if bool((err > 2.0 ** -7 * want.float().abs() + 1e-30).any()):
+                raise AssertionError(f"arctic chunk {c}: the aggregate {float(err.max())} "
+                                     "from the chunk's weighted sum")
+            worst = max(worst, float(err.max()))
+        self.errs.append(dict(stats_rel=self.stats_err, aggregate=worst))
+        self.whole = {}
+
+
+def arctic_child(rank, S, store_path, out_dir, backend) -> None:
+    """One rank of the four-card Arctic run: Arctic at ``ARCTIC_LAYERS``
+    layer(s), full width, bf16 parameters, Adafactor, the flat layout, M =
+    S on ``nccl``, K = ``ARCTIC_K`` emulated, noise on one, S = 1025,
+    ``ARCTIC_STEPS`` steps under ``ArcticHold``."""
+    import os
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    res = {"rank": rank}
+    try:
+        from repro_torch.configs.registry import get_config
+        from repro_torch.core import flatten as F
+        from repro_torch.core.wfagg import WFAggConfig
+        from repro_torch.data.synthetic import TokenStream
+        from repro_torch.launch.mesh import make_test_mesh
+        from repro_torch.train import trainer as tr
+
+        dist.init_process_group(backend, store=dist.FileStore(store_path, S), rank=rank,
+                                world_size=S)
+        try:
+            cfg = dataclasses.replace(get_config(ARCTIC_ARCH), n_layers=ARCTIC_LAYERS)
+            mesh = make_test_mesh(data=ARCTIC_K, model=S, model_group=dist.group.WORLD)
+            tc = train_config("wfagg", layout="flat", attack="noise", n_malicious=1,
+                              wfagg=WFAggConfig(f=1, transient=3, window=3))
+            t0 = time.perf_counter()
+            state = tr.init_train_state(cfg, tc, torch.Generator(device="cuda").manual_seed(0),
+                                        mesh)
+            torch.cuda.synchronize()
+            rep = {"init_s": round(time.perf_counter() - t0, 1),
+                   "param_dtype": cfg.param_dtype, "optimizer": cfg.optimizer,
+                   "P_rank": [b.numel() for b in F.layout_split(state.params)],
+                   "state_gib": round(torch.cuda.memory_allocated() / 2 ** 30, 2)}
+            obs = ArcticHold(torch, tc, state.params, mesh)
+            rep["P"] = obs.P
+            step = tr.build_train_step(cfg, tc, mesh, observe=obs)
+            stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, ARCTIC_K)
+            losses, weights = [], []
+            for i in range(ARCTIC_STEPS):
+                b = stream.batch(i, device="cuda")
+                obs.start()
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+                weights.append([round(float(x), 4) for x in m["weights"]])
+            if not all(map(math.isfinite, losses)):
+                raise AssertionError(f"arctic: non-finite loss {losses}")
+            dtypes = sorted({str(p.dtype) for p in state.params.parameters()})
+            rep.update(losses=losses, weights=weights, ms=obs.steps, holds=obs.errs,
+                       chunks=obs.chunks, dtypes=dtypes)
+            res["report"] = rep
+        finally:
+            dist.destroy_process_group()
+    except Exception:   # noqa: BLE001 - the parent fails the run on it
+        import traceback
+        res["error"] = traceback.format_exc()
+    pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def run_arctic_cards(torch) -> dict:
+    """Arctic's plan on the four cards (``arctic_child``, one ``nccl`` rank
+    a card): per rank each step's phase ms and peak, the sampled-chunk
+    holds; the parameters stay bf16; the ranks' losses equal."""
+    import tempfile
+
+    S = torch.cuda.device_count()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_arctic_")
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, "nccl", S, child=arctic_child, tmp=tmp, timeout=ARCTIC_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    card = gpu_line()
+    reps = [r["report"] for r in ranks]
+    if any(r["losses"] != reps[0]["losses"] for r in reps):
+        raise AssertionError(f"arctic: the ranks' losses differ: {[r['losses'] for r in reps]}")
+    if any(r["dtypes"] != ["torch.bfloat16"] for r in reps):
+        raise AssertionError(f"arctic: parameters in {[r['dtypes'] for r in reps]}")
+    r0 = reps[0]
+    print(f"  {card}: {ARCTIC_ARCH} at {ARCTIC_LAYERS} of 35 layers, full width, "
+          f"{r0['param_dtype']} parameters, {r0['optimizer']}, the flat layout, M = {S}, K = "
+          f"{ARCTIC_K} (noise on one), S = {TRAIN_SEQ}: P = {r0['P']:,}, a rank's P_s / P_r "
+          f"{r0['P_rank']}, its state {r0['state_gib']} GiB after init ({r0['init_s']} s); the "
+          f"ranks {seconds:.1f} s")
+    for i, r in enumerate(reps):
+        print(f"  rank {i}: loss "
+              f"{[round(x, 4) for x in r['losses']]}, weights {r['weights'][-1]}; ms a step "
+              f"(grads, attack, flat all-reduce, optimizer, peak GiB) {r['ms']}; sampled "
+              f"chunks {r['chunks']} held {r['holds']}")
+    peak = max(s["peak_gib"] for r in reps for s in r["ms"])
+    print(f"  arctic peak a card {peak} GiB ({card})")
+    return {"card": card, "seconds": round(seconds, 1), "peak_gib": peak, "per_rank": reps}
+
+
 def main(argv=()) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only not in ("distributed", "cards", "train", "moe", "ssm", "encdec", "tp",
-                             "grid", "tpfam", "tpfamcards", "tpcards"):
+                             "grid", "tpfam", "tpfamcards", "tpcards", "bf16"):
         print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm|encdec|tp|grid|"
-              "tpfam|tpfamcards|tpcards]", file=sys.stderr)
+              "tpfam|tpfamcards|tpcards|bf16]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8516,7 +9296,7 @@ def main(argv=()) -> int:
     if only == "tp":
         print(f"[3] the model axis alone (--only tp): {TP_ARCH} on {TP_M} gloo ranks sharing "
               "the card; no kernels or ok line")
-        launches, report = run_tp_path(torch)
+        launches, report = run_tp_path(torch, serve_layers=TP_SERVE_LAYERS)
         print(json.dumps({"tp": {"launches": {k: c for k, c in launches.items() if c},
                                  "report": report}}))
         return 0
@@ -8535,6 +9315,13 @@ def main(argv=()) -> int:
         print(json.dumps({"tpfam": {"launches": {k: c for k, c in launches.items() if c},
                                     "max_abs_err": errs, "report": report}}))
         return 0
+    if only == "bf16":
+        print("[3] bf16 parameters and a padded layout's head slots alone (--only bf16): no "
+              "kernels or ok line")
+        launches, report = run_bf16_path(torch)
+        print(json.dumps({"bf16": {"launches": {k: c for k, c in launches.items() if c},
+                                   "report": report}}))
+        return 0
     if only == "tpfamcards":
         print(f"[3] the families on one nccl rank per card alone (--only tpfamcards): "
               f"{torch.cuda.device_count()} cards; no kernels or ok line")
@@ -8544,8 +9331,10 @@ def main(argv=()) -> int:
                                          "report": report}}))
         return 0
     if only == "tpcards":
-        print(f"[3] the model axis on one nccl rank per card alone (--only tpcards): {TP_ARCH} "
-              f"at M = {torch.cuda.device_count()}" + (
+        print(f"[3] the model axis on one nccl rank per card alone (--only tpcards): " + (
+                  f"{ARCTIC_ARCH} at {ARCTIC_LAYERS} layer, full width, bf16, Adafactor, flat, "
+                  "M = 4, then " if torch.cuda.device_count() == 4 else "") +
+              f"{TP_ARCH} at M = {torch.cuda.device_count()}" + (
                   f", then {CARDS_TP_ARCH} uncut at M = 4, stacked and flat"
                   if torch.cuda.device_count() == 4 else "") + "; no kernels or ok line")
         print(json.dumps({"tpcards": run_tp_cards(torch)}))
@@ -8812,13 +9601,18 @@ def main(argv=()) -> int:
         if name in timed:
             timed[name]["distributed"] = t
 
+    # the flat layout on FLAT_K data ranks at M = 1 runs under --only train: the
+    # grid part's flat run drives the same chunked all-reduce over the data
+    # group at Qwen's width (taken out of the whole script beside the bf16 /
+    # pad-slot part, its time: 74.5 s of a 1,000 s run)
     print(f"{at()} training: the robust-DP trainer on {TRAIN_ARCH} at full width (stacked "
-          f"layout, K={TRAIN_K}), the flat layout on {FLAT_K} gloo ranks, the launcher")
-    train_launches, _ = run_train_path(torch)
+          f"layout, K={TRAIN_K}), the launcher")
+    train_launches, _ = run_train_path(torch, flat_ranks=False)
 
     print(f"{at()} the MoE family: kernel 8 at the MoE prefills' shapes; DeepSeek-V2-Lite uncut, "
-          "Moonlight (16 layers) and Arctic (2 layers) served; DeepSeek-V2-Lite (2 layers) "
-          f"trained on the stacked robust-DP trainer, K={MOE_TRAIN_K}")
+          f"Moonlight ({MOE_SERVE[1][1]} layers) and Arctic (2 layers) served; "
+          f"DeepSeek-V2-Lite (2 layers) trained on the stacked robust-DP trainer, "
+          f"K={MOE_TRAIN_K}")
     moe_launches, moe_errs, moe_flash, _ = run_moe_path(torch)
     errs["flash_attention"] += moe_errs
     timed["flash_attention"]["moe_shapes"] = moe_flash
@@ -8838,12 +9632,13 @@ def main(argv=()) -> int:
     encdec_launches, _ = run_encdec_path(torch)
 
     print(f"{at()} the model axis: {TP_ARCH} split over {TP_M} gloo ranks sharing the "
-          f"card: served uncut (prefill 2 x 8192 through kernel 8 on each rank's heads, "
+          f"card: served at {TP_SERVE_LAYERS} of 24 layers (prefill 2 x 8192 through kernel 8 "
+          f"on each rank's heads, "
           f"decode) and trained at {TP_TRAIN_LAYERS} layers (K={TRAIN_K}, WFAgg on fused and "
           "fused_two_launch, Alt-WFAgg, the mean; kernels 4, 6 and 7 on each rank's blocks; "
           "the flat layout's WFAgg and mean, no kernel; min_max with gather_dtype bfloat16 "
           "and Adafactor)")
-    tp_launches, tp_report = run_tp_path(torch)
+    tp_launches, tp_report = run_tp_path(torch, serve_layers=TP_SERVE_LAYERS)
     for name, t in tp_report["kernels"].items():
         timed[name]["model_axis"] = t
 
@@ -8862,15 +9657,23 @@ def main(argv=()) -> int:
     print(f"{at()} the MoE, SSM and hybrid families on the model axis: DeepSeek-V2-Lite, "
           f"Zamba2-1.2B, Falcon-Mamba-7B and Arctic at full width, cut in depth, split over "
           f"{FAM_M} gloo ranks sharing the card (served; the first three trained at K = "
-          f"{FAM_K}); {FAM_GRID[0]} ({FAM_GRID[1]} layers) on the {GRID_K} x {GRID_M} grid; "
+          f"{FAM_K}); {FAM_GRID[0]} ({FAM_GRID[1]} layers) trained on the {GRID_K} x {GRID_M} "
+          "grid; "
           "kernels 4, 6, 7 and 8 at their shapes")
-    fam_launches, fam_errs, fam_report = run_tpfam(torch)
+    fam_launches, fam_errs, fam_report = run_tpfam(torch, grid_serve=False)
     for name, t in fam_report["kernels"].items():
         timed[name]["families"] = t
     for name, t in fam_report["grid_kernels"].items():
         timed[name]["families_grid"] = t
     for name, e in fam_errs.items():
         errs[name] += e if isinstance(e, list) else [e]
+
+    print(f"{at()} bf16 parameters and a padded layout's head slots: the reduced Arctic in "
+          f"bf16 with Adafactor at M = 1 (kernel 1), on 2 gloo ranks (kernels 4, 6 and 7 on "
+          f"blocks) and the 2 x 2 grid, both layouts; the padded config (7 heads in 8 slots) "
+          f"on 4 gloo ranks, both layouts; K = {BF16_K} under noise, {BF16_STEPS} steps, each "
+          "held to the one-process route")
+    bf16_launches, _ = run_bf16_path(torch)
 
     # each kernel's launches on the main paths that run it: the round kernel
     # on the DFL WFAgg and Alt-WFAgg runs, kernels 2 and 3 on the two
@@ -8891,14 +9694,15 @@ def main(argv=()) -> int:
     # training's kernels 4, 6 and 7, summed over the ranks; the grid's kernel
     # 8 (each rank's prefill) and its training's kernels 4, 6 and 7, summed
     # over the ranks; the families' kernel 8 (Zamba2's and Arctic's prefills on
-    # the model axis, Zamba2's on the grid) and kernels 4, 6 and 7 of their
-    # training, summed over the ranks
+    # the model axis) and kernels 4, 6 and 7 of their
+    # training, summed over the ranks; the bf16 / pad-slot part's kernel 1 (M =
+    # 1, stacked) and kernels 4, 6 and 7 (its ranks' stacked runs)
     launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
                 + adaptive_launches[name] + table_launches[name]
                 + gathered_launches[name] + serve_launches[name] + dist_launches[name]
                 + train_launches[name] + moe_launches[name] + ssm_launches[name]
                 + encdec_launches[name] + tp_launches[name] + grid_launches[name]
-                + fam_launches[name] for name in KERNELS}
+                + fam_launches[name] + bf16_launches[name] for name in KERNELS}
     # the model axis's and the grid's prefills run on the tensor-core kernel
     # only (checked per rank), so their kernel-8 launches are all tensor-core
     timed["flash_attention"]["launches_tc"] = (serve_launches["flash_attention[tensor_core]"]

@@ -261,6 +261,26 @@ def split_cuts(model: nn.Module) -> List[Optional[Tuple[object, int]]]:
     return out
 
 
+def pad_tails(model: nn.Module) -> List[Optional[Tuple[int, int]]]:
+    """Per leaf of ``module_tree(model)``, in ravel order, (dim, live) where
+    this model rank's block of it holds pad head slots of a padded layout
+    (``distributed.sharding.padded_heads``): along ``dim`` (a stacked leaf's
+    L axis counted) the block's first ``live`` entries are live and the
+    rest pad slots, which the whole leaf does not have; None for a leaf
+    without pad slots."""
+    tp = getattr(model, "tp", None)
+    out = []
+    for (path, ps), c in zip(leaf_params(model), split_cuts(model)):
+        if c is None or not c[0].padded:
+            out.append(None)
+            continue
+        cut, n = c
+        nb = leaf_shape(path, ps)[cut.dim]
+        live = max(0, min(nb, n - tp.rank * nb))
+        out.append((cut.dim, live) if live < nb else None)
+    return out
+
+
 class CoordPlace(NamedTuple):
     """Where a leaf's block, as a model rank holds it in one of its buffers,
     sits in the whole model's ravel (``layout_flat`` order): the block is
@@ -269,7 +289,10 @@ class CoordPlace(NamedTuple):
     of ``n`` values, which is cut into ``runs`` runs each split into
     ``parts`` blocks, and the rank holds block ``part`` of each run (a
     ``distributed.sharding.Cut``); a leaf the rank holds whole has outer
-    1, n its size, inner 1, one run, one part."""
+    1, n its size, inner 1, one run, one part.  A padded cut (head slots
+    of a padded layout) splits the dim padded to ``padded`` values: the
+    block's entries past the n live ones are pad slots, which have no
+    place in the whole ravel."""
 
     start: int
     size: int
@@ -280,6 +303,7 @@ class CoordPlace(NamedTuple):
     runs: int = 1
     parts: int = 1
     part: int = 0
+    padded: int = 0
 
 
 def coord_places(model: nn.Module) -> Tuple[List[List[CoordPlace]], int]:
@@ -303,16 +327,13 @@ def coord_places(model: nn.Module) -> Tuple[List[List[CoordPlace]], int]:
             place = CoordPlace(starts[b], size, offset, 1, size, 1)
         else:
             cut, n = c
-            if cut.padded:
-                raise NotImplementedError(
-                    f"{'/'.join(map(str, path))}: a padded layout's head slots have no place "
-                    "in the whole model's ravel")
             d = cut.dim
-            if shape[d] * axis.size != n:
+            if shape[d] * axis.size != (cut.padded or n):
                 raise ValueError(f"{'/'.join(map(str, path))}: a block of {shape[d]} of {n} "
                                  f"values at model = {axis.size}")
             place = CoordPlace(starts[b], size, offset, math.prod(shape[:d]), n,
-                               math.prod(shape[d + 1:]), cut.runs, axis.size, axis.rank)
+                               math.prod(shape[d + 1:]), cut.runs, axis.size, axis.rank,
+                               cut.padded)
         places[b].append(place)
         starts[b] += size
         offset += place.outer * place.n * place.inner
@@ -322,14 +343,15 @@ def coord_places(model: nn.Module) -> Tuple[List[List[CoordPlace]], int]:
 def global_index(places: Sequence[CoordPlace], a: int, b: int, device=None) -> Tensor:
     """The whole model's ravel index (int64) of columns [a, b) of a rank's
     buffer whose leaves sit at ``places`` (``coord_places``), computed from
-    each leaf's place: one transient of b - a ints."""
+    each leaf's place, -1 for a pad head slot: one transient of b - a
+    ints."""
     out = []
     for pl in places:
         lo, hi = max(a, pl.start), min(b, pl.start + pl.size)
         if lo >= hi:
             continue
         e = torch.arange(lo - pl.start, hi - pl.start, dtype=torch.int64, device=device)
-        nb = pl.n // pl.parts                   # the block's extent of the cut dim
+        nb = (pl.padded or pl.n) // pl.parts    # the block's extent of the cut dim
         run = nb // pl.runs                     # its extent of one run
         o = torch.div(e, nb * pl.inner, rounding_mode="floor")
         r = e - o * (nb * pl.inner)
@@ -337,7 +359,8 @@ def global_index(places: Sequence[CoordPlace], a: int, b: int, device=None) -> T
         i = r - j * pl.inner
         jr = torch.div(j, run, rounding_mode="floor")
         wj = jr * (pl.n // pl.runs) + pl.part * run + (j - jr * run)
-        out.append(pl.offset + (o * pl.n + wj) * pl.inner + i)
+        idx = pl.offset + (o * pl.n + wj) * pl.inner + i
+        out.append(torch.where(wj < pl.n, idx, torch.full_like(idx, -1)) if pl.padded else idx)
     if not out:
         return torch.zeros((0,), dtype=torch.int64, device=device)
     return torch.cat(out) if len(out) > 1 else out[0]

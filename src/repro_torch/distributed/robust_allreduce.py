@@ -88,8 +88,9 @@ left whole over it (the reference's ``prune_spec``), as (K, D) matrices
 per column group (``core.flatten.unravel_fsdp``).  On them:
 
   per block   the coordinate-wise attacks (IPM, ALIE, sign flip); noise
-              draws each leaf's normals as one process does and keeps the
-              rank's part (one leaf the transient); kernel 4 with
+              reads each of the rank's coordinates from the whole leaf's
+              chunk of normals, as one process draws it (one chunk the
+              largest draw); kernel 4 with
               ``prev``'s column block and kernel 6 where a rule needs the
               Gram, on the column groups this rank counts: a coordinate
               more than one rank holds is counted by exactly one of them
@@ -124,6 +125,26 @@ per coordinate.  ``gather_dtype`` on the stacked routes rounds each block
 before the D/C statistics and the Gram (kernels 4 and 6 on a rounded
 copy, then kernel 7), WFAgg-T's sums staying float32.
 
+**The noise attack** draws its normals a chunk at a time: chunk c of the
+whole vector (flat) or of a candidate's whole leaf (stacked), of
+``chunk_size`` values, from a ``torch.Generator`` seeded by the
+generator's seed and the chunk's indices (``noise_chunk``), as
+``sketch_hash`` seeds its chunks; a rank reads its coordinates' values
+from the chunks they fall in.  No draw exceeds one chunk, and ranks equal
+one process bit for bit.  These are the port's own draws, not the
+reference's ``jax.random`` bits.
+
+**bfloat16 candidates** follow the reference's casts: the statistics and
+the count-sketch read them as float32, the median and trimmed mean round
+back to the candidates' dtype, and a sum over candidates (the flat
+route's weighted sum, the mean, IPM's and ALIE's benign moments) adds in
+float32 in rank order and rounds once, as the reference's bf16 ``psum``
+does under ``shard_map`` (``_rank_sum``).  The stacked routes read float32
+rows.  Pad head slots of a padded layout (``sharding.padded_heads``) have
+no place in the whole vector: the flat route's sketch skips them, the
+attacks leave them as they are, and their zero columns add nothing to a
+statistic or a weighted sum.
+
 ``state_from_jax`` turns the reference's state (as numpy arrays) into the
 port's.
 """
@@ -147,7 +168,7 @@ from repro_torch.core.flatten import CoordPlace, global_index, unravel_rows
 from repro_torch.core.trust import wfagg_scores
 from repro_torch.core.wfagg import (
     TemporalState, WFAggConfig, wfagg_t_decide, wfagg_t_select)
-from repro_torch.distributed.sharding import as_cut, take_block
+from repro_torch.distributed.sharding import as_cut
 from repro_torch.distributed.spmd import (
     all_gather_rows, all_reduce_in_rank_order, psum_stats)
 from repro_torch.kernels.pairwise_dist.ops import pairwise_gram
@@ -192,10 +213,13 @@ class ModelShards(NamedTuple):
     dim of the unbatched leaf split over the model axis (an int, or a
     ``distributed.sharding.Cut`` where the rank's block is not one plain
     block of it), None for a replicated leaf (``core.flatten.split_dims``,
-    ``split_cuts``)."""
+    ``split_cuts``); ``whole``, per leaf, the whole unbatched leaf's shape
+    where a block holds pad head slots (empty: each cut dim is its block's
+    times M, no pad slots)."""
 
     axis: Any
     split_dims: Tuple[Optional[int], ...]
+    whole: Tuple[Tuple[int, ...], ...] = ()
 
 
 class GridShards(NamedTuple):
@@ -203,15 +227,19 @@ class GridShards(NamedTuple):
     the ranks whose partial statistics add up to the whole candidates'
     (every rank of the grid); per leaf in tree order its column group
     (``leaf_groups``) and per group whether this rank counts it
-    (``counted``); for the noise attack, per leaf the cuts of its whole
-    (K, ...) normals to this rank's part: ``cuts``, (dim of the unbatched
-    leaf or its ``sharding.Cut``, parts, this rank's part) in the order
-    they apply."""
+    (``counted``); per leaf the cuts of the whole leaf to this rank's
+    block: ``cuts``, (dim of the unbatched leaf or its ``sharding.Cut``,
+    parts, this rank's part) in the order they apply; ``whole``, per leaf,
+    the whole unbatched leaf's shape (empty: each cut dim is its block's
+    times its parts).  A padded cut's block holds pad head slots past the
+    whole leaf's extent of its dim: they have no place in the whole
+    leaf, and the attacks leave them as they are (zero)."""
 
     group: Any
     leaf_groups: Tuple[int, ...]
     counted: Tuple[bool, ...]
     cuts: Tuple[Tuple[Tuple[int, int, int], ...], ...]
+    whole: Tuple[Tuple[int, ...], ...] = ()
 
 
 def _as_grid(shards) -> GridShards:
@@ -225,7 +253,8 @@ def _as_grid(shards) -> GridShards:
         leaf_groups=tuple(0 if d is not None else 1 for d in shards.split_dims),
         counted=(True, axis.rank == 0),
         cuts=tuple(() if d is None else ((d, axis.size, axis.rank),)
-                   for d in shards.split_dims))
+                   for d in shards.split_dims),
+        whole=shards.whole)
 
 
 class AggState(NamedTuple):
@@ -530,64 +559,89 @@ def apply_stacked_attack(
     noise: Any = None,
     in_place: bool = False,
     model_shards: Optional[ModelShards] = None,
+    chunk_size: int = 1 << 22,
+    dtype: Optional[torch.dtype] = None,
 ) -> Any:
     """Model-poisoning attacks on stacked candidates, leaf by leaf through
     ``core.attacks.apply_matrix_attack`` (the one copy of the masked-stack
     attack math, shared with ``dfl.engine``).  ``in_place`` writes each
     attacked leaf back into ``stacked`` as it goes (one leaf's transient),
-    so candidates that are views of one (K, P) matrix stay so.
+    so candidates that are views of one (K, P) matrix stay so.  ``dtype``
+    (e.g. the parameters' bfloat16 where the candidates are float32 rows
+    that hold bfloat16 gradients) is the dtype the attack computes in, as
+    the reference attacks the parameters' dtype; the result is written in
+    the leaves' own.
 
-    The noise attack draws each leaf's standard normals from ``generator``
-    in leaf order, or takes them from ``noise`` (a tree like ``stacked``),
-    so two packages can be fed the same draws.  ``prev`` optionally carries
+    The noise attack draws each malicious candidate's normals leaf by leaf
+    in chunks of ``chunk_size`` values of the whole leaf's ravel, chunk c
+    of candidate k's row of leaf i from a ``torch.Generator`` seeded by
+    (``generator``'s seed, i, k, c) (``noise_chunk``), float32, added in
+    ``dtype``; or takes them from ``noise`` (a tree like ``stacked``), so
+    two packages can be fed the same draws.  ``prev`` optionally carries
     the previous-round stacked candidates (e.g. ``TreeAggState.prev``) so
     the adaptive attacks see a prev-only ``DefenseView`` (band_rider then
     falls back to mimicry, as in the reference).
 
     On the model axis or the grid (``model_shards``) the coordinate-wise
     attacks (IPM, ALIE, sign flip) act on the rank's block alone; noise
-    draws each whole leaf's normals in leaf order, as one process does,
-    and keeps the rank's block (one leaf's transient), so its draws are
-    one process's.  ``band_rider`` sees a view without temporal bands, so
-    it takes its ALIE-style fallback, which is per coordinate.
-    ``min_max`` reads whole-leaf sums: per leaf its two rounds of partial
-    sums (``core.attacks.min_max_direction`` / ``min_max_partials``) are
-    added over ``model_shards.group`` in rank order, each rank
-    contributing where it counts the leaf's column group (zeros where it
-    does not), so that every rank solves the leaf's closed form on the
-    same bits; a group of None is one process."""
+    reads each of the rank's coordinates from its whole-leaf chunk (its
+    place in the whole leaf from the cuts), so its draws are one
+    process's, one chunk the largest transient.  Pad head slots (a padded
+    cut's block past the whole leaf) keep their values.  ``band_rider``
+    sees a view without temporal bands, so it takes its ALIE-style
+    fallback, which is per coordinate.  ``min_max`` reads whole-leaf sums:
+    per leaf its two rounds of partial sums (``core.attacks.
+    min_max_direction`` / ``min_max_partials``) are added over
+    ``model_shards.group`` in rank order, each rank contributing where it
+    counts the leaf's column group (zeros where it does not), so that
+    every rank solves the leaf's closed form on the same bits; a group of
+    None is one process."""
     if attack in ("none", "label_flip"):
         return stacked
     acfg = atk.AttackConfig(name=attack, noise_mu=noise_mu, noise_sigma=noise_sigma,
                             alie_zmax=alie_zmax)
     leaves = _leaves(stacked)
     reducers = [None] * len(leaves)
+    grid = None
     if model_shards is not None and (isinstance(model_shards, GridShards)
                                      or model_shards.axis is not None):
         grid = _as_grid(model_shards)
-        if attack == "noise" and noise is None:
-            noise = _unflatten(stacked, [_noise_block(l, cuts, generator) for l, cuts in
-                                         zip(leaves, grid.cuts)])
         if attack == "min_max" and grid.group is not None:
             reducers = [_leaf_reducer(grid.group, grid.counted[g]) for g in grid.leaf_groups]
+    cuts = grid.cuts if grid is not None else ((),) * len(leaves)
+    wholes = grid.whole if grid is not None and grid.whole else (None,) * len(leaves)
+    mal = malicious.to(torch.bool)
+    if attack == "noise" and noise is None:
+        seed = generator.initial_seed() if generator is not None else torch.initial_seed()
+        bad = [k for k, b in enumerate(mal.tolist()) if b]
+        out = [_noise_leaf(leaf, bad, c, w, (seed, i), chunk_size, noise_mu, noise_sigma,
+                           dtype, in_place)
+               for i, (leaf, c, w) in enumerate(zip(leaves, cuts, wholes))]
+        return _unflatten(stacked, out)
     prev_leaves = _leaves(prev) if prev is not None else [None] * len(leaves)
     noise_leaves = _leaves(noise) if noise is not None else [None] * len(leaves)
-    mal = malicious.to(torch.bool)
     out = []
-    for leaf, pl, z, red in zip(leaves, prev_leaves, noise_leaves, reducers):
+    for leaf, pl, z, red, c, w in zip(leaves, prev_leaves, noise_leaves, reducers, cuts,
+                                      wholes):
+        src = leaf.to(dtype) if dtype is not None else leaf
         m = mal.reshape((-1,) + (1,) * (leaf.ndim - 1))
-        if attack == "noise" and z is not None:
-            new = torch.where(m, leaf + noise_mu + noise_sigma * z, leaf)
+        if attack == "noise":
+            new = torch.where(m, src + noise_mu + noise_sigma * z.to(src.dtype), src)
         elif attack == "min_max" and red is not None:
-            c = atk.min_max_attack(leaf.reshape(leaf.shape[0], -1), mal, acfg, reduce=red)
-            new = torch.where(m, c.reshape(leaf.shape).to(leaf.dtype), leaf)
+            c_ = atk.min_max_attack(src.reshape(src.shape[0], -1), mal, acfg, reduce=red)
+            new = torch.where(m, c_.reshape(src.shape).to(src.dtype), src)
         else:
             new = atk.apply_matrix_attack(
-                attack, leaf, mal, generator, acfg,
+                attack, src, mal, generator, acfg,
                 view=(atk.DefenseView(prev=pl) if pl is not None else None))
+        live = _live_mask(leaf, c, w)
+        if live is not None:
+            new = torch.where(live, new, src)
         if in_place:
             leaf.copy_(new)
             new = leaf
+        elif new.dtype != leaf.dtype:
+            new = new.to(leaf.dtype)
         out.append(new)
     return _unflatten(stacked, out)
 
@@ -598,17 +652,146 @@ def _leaf_reducer(group, counted: bool):
     return lambda x: all_reduce_in_rank_order(x if counted else torch.zeros_like(x), group)
 
 
-def _noise_block(leaf: Tensor, cuts, generator) -> Tensor:
-    """Standard normals of the whole (K, ...) leaf, drawn as one process
-    does, cut to the rank's block by each (dim of the unbatched leaf,
-    parts, part) of ``cuts``."""
-    shape = list(leaf.shape)
-    for dim, parts, _ in cuts:
-        shape[as_cut(dim).dim + 1] *= parts
-    z = torch.randn(shape, generator=generator, dtype=leaf.dtype, device=leaf.device)
-    for dim, parts, part in cuts:
-        z = take_block(z, as_cut(dim).shifted(1), parts, part)
-    return z.contiguous() if cuts else z
+def _seed(*parts: int) -> int:
+    """One generator seed from integers (a seed, then indices), mixed as
+    ``sketch_hash`` mixes (seed, chunk)."""
+    s = 0
+    for x in parts:
+        s = (s * 1_000_003 + int(x)) % (2 ** 63)
+    return s
+
+
+def noise_chunk(seed: int, n: int, device) -> Tensor:
+    """(n,) float32 standard normals from a ``torch.Generator`` on
+    ``device`` seeded by ``seed``: one chunk of the noise attack's draws,
+    the same on every rank."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((n,), generator=g, dtype=torch.float32, device=device)
+
+
+def _chunk_draws(key: Tuple[int, ...], chunk: int, device):
+    """``draw(c)``: chunk c of the noise stream ``key`` (``chunk`` values
+    seeded by (*key, c)), the last one kept: a rank's coordinates meet a
+    stream's chunks in increasing order."""
+    memo: Dict[int, Tensor] = {}
+
+    def draw(c: int) -> Tensor:
+        if c not in memo:
+            memo.clear()
+            memo[c] = noise_chunk(_seed(*key, c), chunk, device)
+        return memo[c]
+    return draw
+
+
+def _normals_at(gidx: Tensor, chunk: int, draw) -> Tuple[Tensor, Tensor]:
+    """The stream's float32 normals at whole ravel indices ``gidx`` (int64,
+    increasing where placed; -1 for a pad slot, which has no place: 0
+    there), and the mask of the placed ones."""
+    placed = gidx >= 0
+    out = torch.zeros(gidx.shape, dtype=torch.float32, device=gidx.device)
+    v = gidx[placed]
+    ci = torch.div(v, chunk, rounding_mode="floor")
+    cis, counts = torch.unique_consecutive(ci, return_counts=True)
+    parts, off = [], 0
+    for c, n in zip(cis.tolist(), counts.tolist()):
+        parts.append(draw(c)[v[off:off + n] - c * chunk])
+        off += n
+    if parts:
+        out[placed] = torch.cat(parts) if len(parts) > 1 else parts[0]
+    return out, placed
+
+
+def _dim_maps(block: Tuple[int, ...], cuts, whole) -> Tuple[List[int], Dict[int, Tensor]]:
+    """The whole leaf's shape (``whole``, or each cut dim its block's times
+    its parts) and, per cut dim, the whole leaf's index of each of the
+    block's entries along it (-1 for a pad slot past the whole extent)."""
+    shape = list(whole) if whole is not None else list(block)
+    if whole is None:
+        for c, parts, _ in cuts:
+            shape[as_cut(c).dim] *= parts
+    maps = {}
+    for c, parts, part in cuts:
+        cut = as_cut(c)
+        d, nb, n = cut.dim, block[cut.dim], shape[cut.dim]
+        j = torch.arange(nb, dtype=torch.int64)
+        if cut.runs > 1:
+            run = nb // cut.runs
+            jr = torch.div(j, run, rounding_mode="floor")
+            w = jr * (n // cut.runs) + part * run + (j - jr * run)
+        else:
+            w = part * nb + j
+        maps[d] = torch.where(w < n, w, torch.full_like(w, -1))
+    return shape, maps
+
+
+def _block_index(block: Tuple[int, ...], cuts, whole, a: int, b: int, device) -> Tensor:
+    """The whole leaf's ravel index (int64) of entries [a, b) of the ravel
+    of a rank's block (unbatched shape ``block``) cut from the whole leaf
+    by ``cuts``; -1 at pad head slots.  One transient of b - a ints."""
+    e = torch.arange(a, b, dtype=torch.int64, device=device)
+    if not cuts:
+        return e
+    shape, maps = _dim_maps(block, cuts, whole)
+    idx = torch.zeros_like(e)
+    pad = torch.zeros(e.shape, dtype=torch.bool, device=device)
+    bstride = math.prod(block)
+    wstride = math.prod(shape)
+    rem = e
+    for d in range(len(block)):
+        bstride //= block[d]
+        wstride //= shape[d]
+        q = torch.div(rem, bstride, rounding_mode="floor")
+        rem = rem - q * bstride
+        w = maps[d].to(device)[q] if d in maps else q
+        idx += w * wstride
+        pad |= w < 0
+    return torch.where(pad, torch.full_like(idx, -1), idx)
+
+
+def _live_mask(leaf: Tensor, cuts, whole) -> Optional[Tensor]:
+    """Where a candidate block (K, *block) of a padded cut is live: a mask
+    broadcasting along the cut dim (False at the pad head slots), or None
+    for a block without pad slots."""
+    if whole is None or not any(as_cut(c).padded for c, _, _ in cuts):
+        return None
+    _, maps = _dim_maps(tuple(leaf.shape[1:]), cuts, whole)
+    mask = None
+    for d, w in maps.items():
+        if bool((w < 0).any()):
+            m = (w >= 0).to(leaf.device).reshape((1,) * (d + 1) + (-1,)
+                                                 + (1,) * (leaf.ndim - d - 2))
+            mask = m if mask is None else mask & m
+    return mask
+
+
+def _noise_leaf(leaf: Tensor, bad: List[int], cuts, whole, key: Tuple[int, ...],
+                chunk: int, mu: float, sigma: float, dtype, in_place: bool) -> Tensor:
+    """The noise attack on one (K, *block) candidate leaf: row k of each
+    malicious candidate plus ``mu + sigma * z``, z its whole-leaf chunks'
+    normals at the block's places (``_normals_at``), pad slots kept."""
+    out = leaf if in_place else leaf.clone()
+    try:
+        rows, back = out.view(out.shape[0], -1), None
+    except RuntimeError:        # a leaf whose rows do not flatten in place
+        rows, back = out.reshape(out.shape[0], -1).clone(), out
+    block = tuple(leaf.shape[1:])
+    n = rows.shape[1]
+    for k in bad:
+        draw = _chunk_draws(key + (k,), chunk, leaf.device)
+        for a in range(0, n, chunk):
+            b = min(n, a + chunk)
+            piece = rows[k, a:b]
+            src = piece.to(dtype) if dtype is not None else piece
+            if cuts:
+                z, placed = _normals_at(_block_index(block, cuts, whole, a, b, leaf.device),
+                                        chunk, draw)
+                new = torch.where(placed, src + mu + sigma * z.to(src.dtype), src)
+            else:
+                new = src + mu + sigma * draw(a // chunk)[:b - a].to(src.dtype)
+            piece.copy_(new)
+    if back is not None:
+        back.copy_(rows.view(back.shape))
+    return out
 
 
 def robust_allreduce_stacked(
@@ -941,11 +1124,16 @@ def _all_gather(x: Tensor, axis: Axis) -> Tensor:
 
 def _rank_sum(parts: Tensor) -> Tensor:
     """Sum over the leading candidate axis, one candidate after another in
-    rank order (the same float32 adds on every rank and in the emulation)."""
-    acc = parts[0]
+    rank order (the same float32 adds on every rank and in the emulation).
+    Candidates in a narrower float (bfloat16) are added in float32 and the
+    sum rounded to their dtype once, as the reference's ``psum`` under
+    ``shard_map`` rounds a bfloat16 sum (its ``vmap``ped form rounds at
+    each add instead)."""
+    wide = torch.float32 if parts.dtype in (torch.bfloat16, torch.float16) else parts.dtype
+    acc = parts[0].to(wide)
     for p in parts[1:]:
-        acc = acc + p
-    return acc
+        acc = acc + p.to(wide)
+    return acc.to(parts.dtype)
 
 
 def pmean(x: Tensor, axis: Axis) -> Tensor:
@@ -1045,6 +1233,9 @@ def _sketch_coords(piece: Tensor, gidx: Tensor, cfg: RobustAggConfig, hashes) ->
     ``piece`` (..., n), each under its whole-vector chunk and in-chunk
     position (``gidx``, their indices in the whole ravel): the terms the
     M = 1 sketch of the whole vector takes from them (it is linear)."""
+    placed = gidx >= 0
+    if not bool(placed.all()):         # pad head slots: no place, no term
+        piece, gidx = piece[..., placed], gidx[placed]
     L = cfg.chunk_size
     ci = torch.div(gidx, L, rounding_mode="floor")
     pos = gidx - ci * L
@@ -1221,16 +1412,22 @@ def apply_distributed_attack(
     """Transform the worker's gradient if it is malicious (``flat`` as in
     ``robust_allreduce``).  The omniscient attacks (ALIE, IPM) take the
     benign cohort's mean (and variance) per coordinate from the gathered
-    chunks, summed in rank order.  The noise attack adds the same draw from
-    ``generator`` on every malicious worker, as the reference's shared key
-    does: seed it alike on every rank.  ``in_place`` writes the result into
-    ``flat`` chunk by chunk (no second (K, P)) and returns it.
+    chunks, summed in rank order (``_rank_sum``: a bfloat16 sum rounded
+    once), computed in the gradient's dtype as the reference does.  The
+    noise attack adds the same draws on every malicious worker, as the
+    reference's shared key does: chunk c of the whole vector (``chunk_size``
+    coordinates) from a ``torch.Generator`` seeded by (``generator``'s
+    seed, c) (``noise_chunk``), float32, added in the gradient's dtype; seed
+    ``generator`` alike on every rank.  One chunk of normals is the largest
+    draw.  ``in_place`` writes the result into ``flat`` chunk by chunk (no
+    second (K, P)) and returns it.
 
     On the model axis (``model_shards``, ``flat`` the rank's buffers) every
-    attack is per coordinate and acts on the rank's buffers; noise draws the
-    whole (P,) vector's normals as one process does (one transient of P
-    floats) and gives each of the rank's coordinates its value there
-    (``core.flatten.global_index``, a chunk at a time)."""
+    attack is per coordinate and acts on the rank's buffers; noise gives
+    each of the rank's coordinates its whole-vector chunk's value there
+    (``core.flatten.global_index``, a chunk at a time), so the ranks' draws
+    are one process's.  Pad head slots (no place in the whole vector) keep
+    their values under every attack."""
     if attack in ("none", "label_flip"):
         return flat
     bufs = _buffers(flat)
@@ -1242,26 +1439,33 @@ def apply_distributed_attack(
     if attack not in ("noise", "sign_flip") and not (attack.startswith("ipm")
                                                     or attack == "alie"):
         raise ValueError(f"unknown attack {attack!r}")
-    z = None
+    draw = None
     if attack == "noise":
-        # the whole vector's normals, drawn as one process draws them
-        P = model_shards.size if model_shards is not None else bufs[0].shape[-1]
-        z = torch.randn((P,), generator=generator, device=dev, dtype=bufs[0].dtype)
+        seed = generator.initial_seed() if generator is not None else torch.initial_seed()
+        draw = _chunk_draws((seed,), chunk_size, dev)
     benign_w = (~mal).to(bufs[0].dtype)[:, None]
     n_benign = torch.clamp(K - mal.sum(), min=1).to(bufs[0].dtype)
     outs = []
     for i, buf in enumerate(bufs):
         out = buf if in_place else torch.empty_like(buf)
+        places = model_shards.places[i] if model_shards is not None else None
+        pads = places is not None and any(pl.padded for pl in places)
         P = buf.shape[-1]
         for a in range(0, P, chunk_size):
             b = min(P, a + chunk_size)
             piece = buf[..., a:b]
+            hit = bad
+            gidx = (global_index(places, a, b, dev)
+                    if places is not None and (pads or draw is not None) else None)
+            if pads:
+                hit = bad & (gidx >= 0)
             if attack == "noise":
-                zc = z[a:b] if model_shards is None else z[global_index(
-                    model_shards.places[i], a, b, dev)]
-                new = torch.where(bad, piece + noise_mu + noise_sigma * zc, piece)
+                zc = draw(a // chunk_size)[:b - a] if gidx is None else \
+                    _normals_at(gidx, chunk_size, draw)[0]
+                new = torch.where(hit, piece + noise_mu + noise_sigma * zc.to(piece.dtype),
+                                  piece)
             elif attack == "sign_flip":
-                new = torch.where(bad, -piece, piece)
+                new = torch.where(hit, -piece, piece)
             else:
                 g = _all_gather(piece, axis)
                 mu = _rank_sum(g * benign_w) / n_benign
@@ -1271,7 +1475,7 @@ def apply_distributed_attack(
                     var = _rank_sum(benign_w * (g - mu) ** 2) / n_benign
                     mal_val = mu - alie_zmax * torch.sqrt(var)
                 del g
-                new = torch.where(bad, mal_val, piece)
+                new = torch.where(hit, mal_val, piece)
             out[..., a:b] = new
             del new
         outs.append(out)

@@ -39,7 +39,7 @@ import numpy as np
 import torch.distributed as dist
 
 # what the model axis and the grid do not run yet: the encoder-decoder and VLM
-# layers' TP and FSDP forms, and training with the head slots of a padded layout
+# layers' TP and FSDP forms
 TP_QUEUE = "ROADMAP queue 1, item 12.8"
 
 

@@ -39,7 +39,16 @@ the model group:
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --model-parallel 2 \
         --candidates 4 --layout flat --chunk-size 4194304
-``--production-mesh`` builds the reference's 16 x 16 (2 x 16 x 16) grid
+
+Arctic's own plan, bfloat16 parameters and Adafactor on the flat layout,
+at one of its 35 layers over 4 cards (each rank emulating the K
+candidates on its model block):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch arctic-480b \
+        --n-layers 1 --layout flat --model-parallel 4 --candidates 4
+
+``--param-dtype`` and ``--optimizer`` override the config's (a
+``--reduced`` config is float32 with SGD).  ``--production-mesh`` builds the reference's 16 x 16 (2 x 16 x 16) grid
 from 256 (512) ranks.  Rank 0 prints and writes the checkpoints, gathered
 to the whole model's format.  It runs on the card; ``main(argv,
 device="cpu")`` runs it on the host.
@@ -76,6 +85,10 @@ def build_everything(args):
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     if args.vocab:
         cfg = dataclasses.replace(cfg, vocab_size=args.vocab)
+    if args.param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
+    if args.optimizer:
+        cfg = dataclasses.replace(cfg, optimizer=args.optimizer)
 
     world = dist.get_world_size() if dist.is_initialized() else 1
     pods = 2 if args.multi_pod else 1
@@ -128,6 +141,10 @@ def main(argv=None, device=None) -> None:
     ap.add_argument("--d-ff", type=int, default=0)
     ap.add_argument("--n-layers", type=int, default=0)
     ap.add_argument("--vocab", type=int, default=0)
+    ap.add_argument("--param-dtype", default="", choices=("", "float32", "bfloat16"),
+                    help="the parameters' dtype (default: the config's)")
+    ap.add_argument("--optimizer", default="", choices=("", "sgd", "adamw", "adafactor"),
+                    help="the optimizer (default: the config's)")
     ap.add_argument("--mode", default="robust_dp", choices=("robust_dp", "gspmd"))
     ap.add_argument("--agg", default="wfagg",
                     choices=("mean", "median", "trimmed_mean", "krum",

@@ -98,10 +98,14 @@ class LeafBlock(NamedTuple):
     """A parameter leaf of which this rank holds a block: the whole leaf's
     (logical) ``shape``, and per cut dim ``(dim, group)``, the process
     group whose ranks hold the other blocks along it (a leaf cut over the
-    model axis and the data axis has two)."""
+    model axis and the data axis has two); ``live``, where the block holds
+    pad head slots of a padded layout, ``(dim, n)``: its first n entries
+    along dim are live, the rest pad slots the whole leaf does not have
+    (``core.flatten.pad_tails``)."""
 
     shape: Tuple[int, ...]
     cuts: Tuple[Tuple[int, Any], ...] = ()
+    live: Optional[Tuple[int, int]] = None
 
 
 def _mean(x: Tensor, dims: Tuple[int, ...], n: int, groups, keepdim: bool = False) -> Tensor:
@@ -128,7 +132,9 @@ def adafactor(decay: float = 0.99, eps: float = 1e-30, clip_threshold: float = 1
     where the leaf is cut on it, over dim -2 and ``vr``'s over its last
     where it is cut on -2, the update clip's RMS over the whole leaf) adds
     the block's sum over that cut's group; ``vr`` and ``vc`` are the
-    blocks of the whole leaf's factors (whole along a dim they reduce)."""
+    blocks of the whole leaf's factors (whole along a dim they reduce).  A
+    block's pad head slots (``LeafBlock.live``) take no part in its sums
+    (the means count the whole leaf's live values) and get updates of 0."""
     def factored(shape) -> bool:
         return (len(shape) >= 2 and shape[-1] >= min_dim_factored
                 and shape[-2] >= min_dim_factored)
@@ -159,6 +165,12 @@ def adafactor(decay: float = 0.99, eps: float = 1e-30, clip_threshold: float = 1
             on = lambda d: [grp for dim, grp in cuts if dim == d]  # noqa: E731
             gf = g.to(F32)
             g2 = torch.square(gf) + eps
+            if blk is not None and blk.live is not None:
+                d, n = blk.live
+                live = (torch.arange(g.shape[d], device=g.device) < n).reshape(
+                    (-1,) + (1,) * (g.ndim - d - 1))
+                gf = torch.where(live, gf, 0.0)
+                g2 = torch.where(live, g2, 0.0)
             if factored(shape):
                 vr = decay * v["vr"] + (1 - decay) * _mean(g2, (-1,), shape[-1], on(nd - 1))
                 vc = decay * v["vc"] + (1 - decay) * _mean(g2, (-2,), shape[-2], on(nd - 2))

@@ -6,9 +6,10 @@ Layout:  <dir>/<name>.npz   flat arrays keyed by tree path
 
 A tree is any nesting of dicts, NamedTuples, tuples and lists whose leaves
 are tensors, numpy arrays or Python numbers; ``None`` leaves are skipped.
-Tensors are saved through ``.cpu().numpy()`` and come back on the device
-and in the dtype of the matching leaf of the ``like`` tree; numbers come
-back as the ``like`` leaf's Python type.
+Tensors are saved through ``.cpu().numpy()`` (a bfloat16 one as float32,
+which holds it exactly) and come back on the device and in the dtype of
+the matching leaf of the ``like`` tree; numbers come back as the ``like``
+leaf's Python type.
 """
 from __future__ import annotations
 
@@ -41,6 +42,10 @@ def _items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            # numpy has no bfloat16: stored as float32 (exact), cast back to
+            # the ``like`` leaf's dtype on restore, as the reference does
+            leaf = leaf.to(torch.float32)
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 

@@ -80,10 +80,26 @@ flat all-reduce runs over the data group on the rank's two buffers, the
 statistics summed over the model group (``flat_step``).  Adafactor runs
 on blocks everywhere (``optim.LeafBlock``: its leaf-wide means add the
 block's sums over the cut's group).  The encoder-decoder and VLM families
-and training on a padded layout's head slots stay refused on the model
-axis and the grid (ROADMAP queue 1, item 12.8).  ``state_shardings`` /
-``batch_shardings`` give the reference's specs (plain tuples,
-``distributed.sharding``).
+stay refused on the model axis and the grid (ROADMAP queue 1, item 12.8).
+``state_shardings`` / ``batch_shardings`` give the reference's specs (plain
+tuples, ``distributed.sharding``).
+
+**bfloat16 parameters** (``cfg.param_dtype``, Arctic's plan with
+Adafactor) follow the reference's casts: the flat layout's candidates are
+the parameters' dtype (the reference ravels bf16 gradients), the stacked
+layout's float32 rows holding them (its ``_concat_candidates``), attacked
+in the parameters' dtype and their aggregate rounded to it; the
+optimizers keep float32 moments and round the update to the leaf's dtype.
+
+**Pad head slots.**  Where M does not divide a padded-head config's query
+heads, a rank holds ``pad_heads_to / M`` head slots of the padded layout
+(``distributed.sharding.padded_heads``), the last ones pad slots the whole
+model does not have.  Their gradients are written as 0
+(``loss_and_grad``), the attacks leave them so, they have no place in the
+flat layout's whole vector (``core.flatten.coord_places``: no sketch term,
+no noise), a zero column adds nothing to the statistics or the weighted
+sum, and the optimizer's leaf-wide sums skip them
+(``optim.LeafBlock.live``): their parameters stay exactly 0.
 """
 from __future__ import annotations
 
@@ -106,7 +122,7 @@ from repro_torch.distributed.logical import use_sharding
 from repro_torch.distributed.robust_allreduce import RobustAggConfig, TreeAggState
 from repro_torch.kernels.common import resolve_device
 from repro_torch.distributed.spmd import all_gather_rows, all_to_all_rows
-from repro_torch.launch.mesh import TP_QUEUE, Mesh, data_axis, model_size
+from repro_torch.launch.mesh import Mesh, data_axis, model_size
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim.optimizers import LeafBlock, make_optimizer, warmup_cosine
@@ -138,14 +154,6 @@ class TrainState(NamedTuple):
     opt_state: Any
     agg_state: Optional[Any]   # AggState (flat) | TreeAggState (stacked) | None
     step: Tensor               # int32, on the host
-
-
-def _check_params(cfg: ArchConfig) -> None:
-    if cfg.param_dtype != "float32":
-        raise NotImplementedError(
-            f"training with {cfg.param_dtype} parameters ({cfg.name}) is not ported yet: "
-            "it is Arctic's multi-card plan, whose optimizers and robust all-reduce keep "
-            "f32 here (ROADMAP queue 1, item 12)")
 
 
 def _n_candidates(mesh: Optional[Mesh], tc: TrainConfig) -> int:
@@ -193,11 +201,6 @@ def _check(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh) -> None:
         raise ValueError("a grid with a pod axis runs pod x data candidates: multi_pod")
     if size > 1 or grid:
         L.check_family(cfg, size, grid=grid)
-        if shd.padded_heads(cfg, size):
-            raise NotImplementedError(
-                f"{cfg.name}: training on model = {size}, whose ranks hold head slots of the "
-                f"padded layout ({cfg.n_heads} heads padded to {cfg.pad_heads_to}): the pad "
-                f"slots would take attacked and aggregated values; serving only ({TP_QUEUE})")
 
 
 def _layout(model, mesh: Optional[Mesh]):
@@ -236,7 +239,6 @@ def init_train_state(cfg: ArchConfig, tc: TrainConfig,
     it on the ``meta`` device, shapes and dtypes only (the reference's
     ``eval_shape``); on the model axis it then needs the model group only
     for the rank."""
-    _check_params(cfg)
     dev = torch.device("meta") if abstract else resolve_device(device)
     if mesh is not None:
         _check(cfg, tc, mesh)
@@ -308,24 +310,38 @@ def _model_cuts(model) -> List[Optional[shd.Cut]]:
 
 def opt_blocks(model) -> Optional[List[Optional[LeafBlock]]]:
     """Per leaf (ravel order) the optimizer's ``LeafBlock`` where this rank
-    holds a block of it: the whole leaf's shape and the groups its model
-    cut (the model group) and its FSDP block (the data group) lie over;
-    None for a leaf held whole, and for a whole model."""
+    holds a block of it: the whole leaf's shape, the groups its model cut
+    (the model group) and its FSDP block (the data group) lie over, and
+    the block's pad head slots (``core.flatten.pad_tails``); None for a
+    leaf held whole, and for a whole model."""
     tp = getattr(model, "tp", None)
     if tp is None and not model.fsdp_blocks:
         return None
     out = []
+    for shape, c, ddim, tail in zip(whole_shapes(model), F.split_cuts(model),
+                                    _data_dims(model), F.pad_tails(model)):
+        cuts = []
+        if c is not None:
+            cuts.append((c[0].dim, tp.group))
+        if ddim is not None:
+            cuts.append((ddim, model.dp.group))
+        out.append(LeafBlock(shape, tuple(cuts), tail) if cuts else None)
+    return out
+
+
+def whole_shapes(model) -> List[Tuple[int, ...]]:
+    """Per leaf (ravel order) the whole leaf's shape, of which a rank holds
+    a block: its model cut's dim the whole extent (a padded layout's live
+    heads, not its slots), its FSDP dim times the data axis."""
+    out = []
     for (path, ps), c, ddim in zip(F.leaf_params(model), F.split_cuts(model),
                                    _data_dims(model)):
         shape = list(F.leaf_shape(path, ps))
-        cuts = []
         if c is not None:
             shape[c[0].dim] = c[1]
-            cuts.append((c[0].dim, tp.group))
         if ddim is not None:
             shape[ddim] *= model.fsdp.size
-            cuts.append((ddim, model.dp.group))
-        out.append(LeafBlock(tuple(shape), tuple(cuts)) if cuts else None)
+        out.append(tuple(shape))
     return out
 
 
@@ -448,7 +464,6 @@ def state_from_jax(state, cfg: ArchConfig, device=None, mesh: Optional[Mesh] = N
     blocks when ``tc`` holds them so (``fsdp_params``, gspmd), and ``prev``
     to the rank's column block."""
     tc = tc or TrainConfig()
-    _check_params(cfg)
     dev = resolve_device(device)
     model = M.params_from_jax(state.params, cfg, dev, mesh=mesh,
                               fsdp=_fsdp_state(tc) if _on_grid(mesh, tc) else None)
@@ -499,13 +514,26 @@ def _param_groups(model) -> List[List[torch.nn.Parameter]]:
     return [[p for _, ps in groups for p in ps] for groups in split_groups(model)]
 
 
+def _pad_slots(model) -> Dict[int, Tuple[int, int]]:
+    """Per parameter (by id) whose block holds pad head slots, (dim of the
+    parameter, live entries along it) (``core.flatten.pad_tails``)."""
+    out = {}
+    for (path, ps), tail in zip(F.leaf_params(model), F.pad_tails(model)):
+        if tail is not None:
+            d = tail[0] - (1 if path[0] in F.STACKED else 0)
+            out.update({id(p): (d, tail[1]) for p in ps})
+    return out
+
+
 def loss_and_grad(cfg: ArchConfig, model, batch: Dict[str, Tensor],
                   out=None) -> Tuple[Tensor, Any]:
     """The loss on ``batch`` and its gradient as one (P,) float32 vector in
-    ravel order, written into ``out`` when given.  A loss that does not
-    reach the parameters (chunked CE over fewer positions than a chunk)
-    has gradient 0, as in the reference.  On the model axis the gradient is
-    a pair, (P_s,) of the split leaves and (P_r,) of the replicated ones
+    ravel order, written into ``out`` when given (in ``out``'s dtype: each
+    parameter's gradient copied into its slice, one at a time).  A loss
+    that does not reach the parameters (chunked CE over fewer positions
+    than a chunk) has gradient 0, as in the reference; so have the pad
+    head slots of a padded layout.  On the model axis the gradient is a
+    pair, (P_s,) of the split leaves and (P_r,) of the replicated ones
     (``out`` a pair too), each in ravel order."""
     groups = _param_groups(model)
     params = [p for g in groups for p in g]
@@ -514,20 +542,32 @@ def loss_and_grad(cfg: ArchConfig, model, batch: Dict[str, Tensor],
             p.requires_grad_(True)
         try:
             loss, _ = M.loss_fn(cfg, model, batch)
-            grads = (torch.autograd.grad(loss, params, allow_unused=True)
+            grads = (list(torch.autograd.grad(loss, params, allow_unused=True))
                      if loss.requires_grad else [None] * len(params))
         finally:
             for p in params:
                 p.requires_grad_(False)
-    parts = [(g if g is not None else torch.zeros_like(p)).reshape(-1).to(torch.float32)
-             for g, p in zip(grads, params)]
+    dev = params[0].device
     outs = out if isinstance(out, tuple) else (out,) * len(groups)
-    vecs, i = [], 0
+    outs = tuple(torch.empty((sum(p.numel() for p in g),), dtype=torch.float32, device=dev)
+                 if o is None else o for g, o in zip(groups, outs))
+    pads = _pad_slots(model)
+    i = 0
     for g, o in zip(groups, outs):
-        vecs.append(torch.cat(parts[i:i + len(g)], out=o) if g else
-                    torch.zeros((0,), dtype=torch.float32, device=params[0].device))
-        i += len(g)
-    return loss.detach(), vecs[0] if len(vecs) == 1 else tuple(vecs)
+        off = 0
+        for p in g:
+            dst = o[off:off + p.numel()].view(p.shape)
+            if grads[i] is None:
+                dst.zero_()
+            else:
+                dst.copy_(grads[i])
+                grads[i] = None
+            if id(p) in pads:
+                d, live = pads[id(p)]
+                dst.narrow(d, live, p.shape[d] - live).zero_()
+            off += p.numel()
+            i += 1
+    return loss.detach(), outs[0] if len(outs) == 1 else outs
 
 
 def _worker_grad(cfg: ArchConfig, model, batch: Dict[str, Tensor], mb: int,
@@ -577,7 +617,6 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
     gradient in its natural buffers, ``losses``), "exchange"
     (``candidates``, the column block's tree), "attack", "allreduce" and
     "optimizer", for gspmd too."""
-    _check_params(cfg)
     _check(cfg, tc, mesh)
     lr_fn = warmup_cosine(tc.lr, tc.warmup, tc.total_steps)
     K = _n_candidates(mesh, tc)
@@ -587,6 +626,9 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
     see = observe or (lambda phase, **values: None)
     attacking = tc.attack not in ("none", "label_flip") and tc.n_malicious > 0
     flipping = tc.attack == "label_flip" and tc.n_malicious > 0
+    # the parameters' dtype: the stacked candidates are float32 rows of
+    # gradients in it, attacked in it, their aggregate rounded to it
+    pdtype = getattr(torch, cfg.param_dtype)
 
     def rows_of(batch: Dict[str, Tensor], k: int) -> Dict[str, Tensor]:
         b = batch["tokens"].shape[0] // K
@@ -641,17 +683,19 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
             stacked = unravel_rows(G[0], module_tree(model))
         else:
             stacked = unravel_rows_split(G, model)
-            shards = ra.ModelShards(tp, tuple(_model_cuts(model)))
+            shards = ra.ModelShards(tp, tuple(_model_cuts(model)), tuple(whole_shapes(model)))
         del G
         see("grads", candidates=stacked, losses=losses)
         if attacking:
             mal = torch.as_tensor(mal_np, device=tokens.device)
             ra.apply_stacked_attack(stacked, mal, tc.attack,
                                     attack_generator(state.step, tokens.device),
-                                    in_place=True, model_shards=shards)
+                                    in_place=True, model_shards=shards,
+                                    chunk_size=tc.agg.chunk_size, dtype=pdtype)
         see("attack", candidates=stacked, agg_state=state.agg_state)
         grads, new_agg, info = ra.robust_allreduce_stacked(stacked, tc.agg, state.agg_state,
                                                            model_shards=shards)
+        grads = _rounded(grads, pdtype)
         see("allreduce", grads=grads, agg_state=new_agg, info=info)
         return finish(state, grads, new_agg, info, losses.mean(), grad_norm(grads, model))
 
@@ -662,7 +706,8 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
         dax = mesh.data_axis()
         axis = ra.Emulated(K) if dax is None else dax.group
         mine = range(K) if dax is None else [dax.rank]
-        G = tuple(torch.empty((len(mine), b.numel()), dtype=torch.float32, device=dev)
+        # the candidates in the parameters' dtype, as the reference ravels them
+        G = tuple(torch.empty((len(mine), b.numel()), dtype=b.dtype, device=dev)
                   for b in bufs)
         del bufs
         losses = torch.stack([_worker_grad(cfg, model, rows_of(batch, k), tc.microbatches,
@@ -697,10 +742,11 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
         model = state.params
         _layout(model, mesh)
         loss, g = loss_and_grad(cfg, model, batch)
+        g = _rounded(g, pdtype)
         see("grads", candidates=g, losses=loss[None])
         if tp is None:
             return finish(state, unravel_like(g, module_tree(model)), None, {}, loss,
-                          torch.sqrt((g ** 2).sum()))
+                          torch.sqrt((g.to(torch.float32) ** 2).sum()))
         grads = tree_map(lambda l: l[0], unravel_rows_split(tuple(v[None] for v in g), model))
         return finish(state, grads, None, {}, loss, grad_norm(grads, model))
 
@@ -730,11 +776,13 @@ def build_train_step(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh,
         if attacking:
             ra.apply_stacked_attack(cand, torch.as_tensor(mal_np, device=dev), tc.attack,
                                     attack_generator(state.step, dev), in_place=True,
-                                    model_shards=shards)
+                                    model_shards=shards, chunk_size=tc.agg.chunk_size,
+                                    dtype=pdtype)
         see("attack", candidates=cand, agg_state=state.agg_state)
         agg_cfg = RobustAggConfig(method="mean") if tc.mode == "gspmd" else tc.agg
         grads, new_agg, info = ra.robust_allreduce_stacked(cand, agg_cfg, state.agg_state,
                                                            model_shards=shards)
+        grads = _rounded(grads, pdtype)
         del cand
         see("allreduce", grads=grads, agg_state=new_agg, info=info)
         gn = grid_norm(grads, shards)
@@ -815,4 +863,15 @@ def grid_shards(model, mesh: Mesh) -> ra.GridShards:
             c.append((ddim, dax.size, dax.rank))
         cuts.append(tuple(c))
     return ra.GridShards(group=mesh.grid_group(), leaf_groups=tuple(F.fsdp_leaf_groups(model)),
-                         counted=counted, cuts=tuple(cuts))
+                         counted=counted, cuts=tuple(cuts), whole=tuple(whole_shapes(model)))
+
+
+def _rounded(tree, dtype: torch.dtype):
+    """``tree``'s float32 leaves rounded to ``dtype`` (the parameters'), as
+    the reference's gradients and aggregates are in it; the same tree for
+    float32."""
+    if dtype == torch.float32:
+        return tree
+    if isinstance(tree, tuple):
+        return tuple(_rounded(t, dtype) for t in tree)
+    return tree_map(lambda g: g.to(dtype), tree)

@@ -21,6 +21,8 @@ TIMEOUT_S = 120
 
 def _np(x):
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:            # numpy has none: float32 holds it
+            x = x.float()
         return x.detach().cpu().numpy().copy()   # never a view of live storage
     if isinstance(x, dict):
         return {k: _np(v) for k, v in x.items()}
@@ -919,6 +921,185 @@ def task_flatmesh(rank, S, K, M, flat=(), train=(), stacked=(), adafactor=None, 
     return out
 
 
+def task_bf16pad(rank, S, runs, mesh_shape, fsdp_min_dim=64, noise=None, opt=()):
+    """bf16 parameters and a padded layout's head slots on a mesh of S
+    ranks: ``mesh_shape`` (K, M), a K x M grid when K > 1 (``make_grid``,
+    the FSDP threshold lowered to ``fsdp_min_dim``), else the model axis
+    of M = S with each run's K candidates emulated.  What each rank
+    returns (whole trees gathered, as float32 numpy):
+
+      runs   per run (``cfg``, ``tc``, ``K``, ``state`` the reference's
+             initial state as numpy, ``batches``, ``route``): per step the
+             loss, weights, masks, grad_norm, the gathered parameters, the
+             largest |value| of the rank's pad head slots in its
+             parameters and in its candidate rows (``pad``); with
+             ``route`` (the model axis) also the whole candidates after
+             the attack (K, P) in ravel order, the agg state going in and
+             the gathered aggregate (P,);
+      noise  (``noise``: ``cfg``, ``params``, ``tree`` whole candidates
+             (K, ...), ``K``, ``chunk``) the noise attack of seed 7 on
+             the rank's blocks, stacked (the column block on a grid) and
+             flat (the model axis), gathered whole, and the largest
+             ``torch.randn`` draw it made;
+      opt    per entry of ``opt`` (``cfg``, ``state``, ``grads`` a whole
+             aggregate tree, ``lr``, ``tc``): the rank's optimizer on its
+             blocks of ``grads`` from ``state``, the parameters after
+             ``p + u`` gathered whole."""
+    import types
+
+    from repro_torch.core import flatten as F
+    from repro_torch.distributed import robust_allreduce as ra
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_grid, make_test_mesh
+    from repro_torch.models import model as Mo
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import trainer as tr
+
+    Kg, M = mesh_shape
+    grid = Kg > 1
+    if grid:
+        shd._FSDP_MIN_DIM = fsdp_min_dim
+
+    def mesh_of(K):
+        if grid:
+            return make_grid(Kg, M)
+        return make_test_mesh(data=K, model=M, model_group=dist.group.WORLD)
+
+    def state_of(cfg, tc, mesh, js):
+        agg = None if js["agg_state"] is None else types.SimpleNamespace(**js["agg_state"])
+        return tr.state_from_jax(types.SimpleNamespace(
+            params=js["params"], opt_state=js["opt_state"], agg_state=agg,
+            step=js["step"]), cfg, device="cpu", mesh=mesh, tc=tc)
+
+    def whole(leaves, model, mesh, lead):
+        return _gather_leaves(leaves, model, mesh, lead=lead)
+
+    def ravel(leaves, K=None):
+        return np.concatenate([x.reshape(K, -1) if K else x.reshape(-1) for x in leaves], -1)
+
+    def pad_max(tree, tails, lead):
+        m = 0.0
+        for leaf, t in zip(F.tree_leaves(tree), tails):
+            if t is not None:
+                d, live = t
+                tail = leaf.narrow(lead + d, live, leaf.shape[lead + d] - live)
+                m = max(m, float(tail.abs().max()) if tail.numel() else 0.0)
+        return m
+
+    out = {"runs": []}
+    for run in runs:
+        cfg, tc, K = run["cfg"], run["tc"], run["K"]
+        mesh = mesh_of(K)
+        st = state_of(cfg, tc, mesh, run["state"])
+        model = st.params
+        tails = F.pad_tails(model)
+        seen = {}
+
+        def observe(phase, **v):
+            if phase == "grads" and not grid:
+                seen["pad_grads"] = pad_max(v["candidates"], tails, 1) if isinstance(
+                    v["candidates"], dict) else pad_max(F.unravel_rows_split(
+                        tuple(v["candidates"]), model), tails, 1)
+            if phase == "attack" and run.get("route"):
+                c = v["candidates"]
+                if isinstance(c, dict):
+                    seen["cands"] = ravel(whole(F.tree_leaves(c), model, mesh, 1), K)
+                else:
+                    seen["cands"] = _whole_rows(model, mesh, c)
+                a = v["agg_state"]
+                seen["state"] = None if a is None else (
+                    {f: _np(getattr(a.temporal, f)) for f in a.temporal._fields}
+                    if hasattr(a, "temporal") else
+                    {f: _np(getattr(a, f)) for f in ("hist_s", "hist_b", "count", "t")})
+            if phase == "allreduce":
+                seen["info"] = v["info"]
+                if run.get("route"):
+                    g = v["grads"]
+                    if isinstance(g, dict):
+                        seen["agg"] = ravel(whole(F.tree_leaves(g), model, mesh, 0))
+                    else:
+                        seen["agg"] = ravel(_tp_gather(model, mesh, g))
+
+        step = tr.build_train_step(cfg, tc, mesh, observe=observe)
+        steps = []
+        for b in run["batches"]:
+            seen.clear()
+            st, m = step(st, {"tokens": torch.as_tensor(b).long()})
+            info = seen["info"]
+            rec = {"loss": float(m["loss"]), "weights": _np(m["weights"]),
+                   "grad_norm": float(m["grad_norm"]),
+                   "masks": {k: _np(info[k]) for k in ("mask_d", "mask_c", "mask_t")
+                             if k in info},
+                   "params": [_np(x) for x in F.tree_leaves(tr.full_params(st.params, mesh))],
+                   "pad": (pad_max(F.module_tree(st.params), tails, 0),
+                           seen.get("pad_grads", 0.0)),
+                   "pad_leaves": sum(t is not None for t in tails),
+                   "dtypes": sorted({str(p.dtype) for p in st.params.parameters()})}
+            for k in ("cands", "state", "agg"):
+                if k in seen:
+                    rec[k] = seen[k]
+            steps.append(rec)
+        out["runs"].append(steps)
+    if noise is not None:
+        cfg, K = noise["cfg"], noise["K"]
+        mesh = mesh_of(K)
+        model = Mo.params_from_jax(noise["params"], cfg, "cpu", mesh=mesh,
+                                   fsdp=True if grid else None)
+        mal = torch.tensor([k % 2 == 1 for k in range(K)])
+        draws = []
+        randn = torch.randn
+
+        def counted(*a, **kw):
+            x = randn(*a, **kw)
+            draws.append(x.numel())
+            return x
+        torch.randn = counted
+        try:
+            if grid:
+                shards = tr.grid_shards(model, mesh)
+                cand = _grid_column_block(model, noise["tree"], K)
+                ra.apply_stacked_attack(cand, mal, "noise", torch.Generator().manual_seed(7),
+                                        in_place=True, model_shards=shards,
+                                        chunk_size=noise["chunk"])
+                out["noise"] = {"stacked": _grid_whole(model, mesh, cand, 1)}
+            else:
+                F.layout_split(model)
+                shards = ra.ModelShards(mesh.model_axis(), tuple(tr._model_cuts(model)),
+                                        tuple(tr.whole_shapes(model)))
+                cand = _tp_candidates(model, noise["tree"], K, rank)
+                ra.apply_stacked_attack(cand, mal, "noise", torch.Generator().manual_seed(7),
+                                        in_place=True, model_shards=shards,
+                                        chunk_size=noise["chunk"])
+                stacked = whole(F.tree_leaves(cand), model, mesh, 1)
+                mats = _tp_mats(model, noise["tree"], K, rank)
+                ra.apply_distributed_attack(
+                    mats, ra.Emulated(K), mal, "noise", torch.Generator().manual_seed(7),
+                    chunk_size=noise["chunk"], in_place=True,
+                    model_shards=tr.flat_shards(model, mesh))
+                out["noise"] = {"stacked": stacked, "flat": _whole_rows(model, mesh, mats)}
+        finally:
+            torch.randn = randn
+        out["noise"]["largest_draw"] = max(draws)
+    out["opt"] = []
+    for o in opt:
+        cfg, tc = o["cfg"], o["tc"]
+        mesh = mesh_of(o["K"])
+        st = state_of(cfg, tc, mesh, o["state"])
+        params = F.module_tree(st.params)
+        dims = tr._data_dims(st.params) if st.params.fsdp_blocks else None
+        grads = tr._cut(_as_tensors(o["grads"]), params, st.params, data=dims)
+        grads = F.tree_map(lambda g, p: torch.as_tensor(np.asarray(g, np.float32)).to(p.dtype),
+                           grads, params)
+        opt_ = make_optimizer(cfg.optimizer, blocks=tr.opt_blocks(st.params))
+        upd, _ = opt_.update(grads, st.opt_state, params,
+                             torch.as_tensor(o["lr"], dtype=torch.float32))
+        with torch.no_grad():
+            for p, u in zip(F.tree_leaves(params), F.tree_leaves(upd)):
+                p.add_(u.to(p.dtype))
+        out["opt"].append([_np(x) for x in F.tree_leaves(tr.full_params(st.params, mesh))])
+    return out
+
+
 def _all_gather(x, group):
     from repro_torch.distributed.spmd import all_gather_in_rank_order
     return all_gather_in_rank_order(x.contiguous(), group)
@@ -932,7 +1113,7 @@ def _cache_leaves(tree, prefix=()):
     return [(prefix, tree)] if isinstance(tree, torch.Tensor) else []
 
 
-TASKS = {"fam": task_fam, "round": task_round, "scan": task_scan, "engine": task_engine,
+TASKS = {"bf16pad": task_bf16pad, "fam": task_fam, "round": task_round, "scan": task_scan, "engine": task_engine,
          "group_size": task_group_size, "flat": task_flat, "tp": task_tp, "grid": task_grid,
          "flatmesh": task_flatmesh}
 

@@ -113,12 +113,16 @@ def test_distributed_attack_matches_reference(attack):
 
 
 def test_noise_attack_adds_one_draw_on_every_malicious_worker():
+    """The same draws on each malicious row: whole-vector chunk c of
+    ``chunk_size`` normals from a generator seeded by (the generator's
+    seed, c) (``noise_chunk``), the vector's last chunk cut to its end."""
     K = 4
     x = torch.as_tensor(_rounds(K, n=1)[0])
     mal = torch.tensor([False, True, False, True])
     g = torch.Generator().manual_seed(4)
-    got = tra.apply_distributed_attack(x, tra.Emulated(K), mal, "noise", g)
-    z = torch.randn((D,), generator=torch.Generator().manual_seed(4))
+    got = tra.apply_distributed_attack(x, tra.Emulated(K), mal, "noise", g, chunk_size=CHUNK)
+    z = torch.cat([tra.noise_chunk(tra._seed(4, c), CHUNK, "cpu")
+                   for c in range(-(-D // CHUNK))])[:D]
     want = x + 0.1 + 0.1 * z[None]      # one draw, added on each malicious row
     assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
     assert torch.equal(got[0], x[0]) and torch.equal(got[2], x[2])

@@ -262,9 +262,11 @@ def test_other_families_raise():
     hybrid families since theirs: tests/test_torch_ssm*.py, and as an
     override of a config without a Mamba variant they raise ValueError),
     and ``NOT_PORTED`` is empty.  What still raises: the paper's CNN as a
-    language model, training with bf16 parameters (ROADMAP queue 1, item
-    12), and the encoder-decoder and VLM families on the model axis or a
-    grid (item 12.8; the dense, MoE, SSM and hybrid families run there)."""
+    language model, and the encoder-decoder and VLM families on the model
+    axis or a grid (ROADMAP queue 1, item 12.8; the dense, MoE, SSM and
+    hybrid families run there).  Training with bf16 parameters (item 12.4)
+    builds its state and step: tests/test_torch_bf16_train.py holds it to
+    the reference."""
     from repro.configs.registry import ARCHS as JARCHS
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.train import trainer as tr
@@ -300,11 +302,9 @@ def test_other_families_raise():
             tlayers.check_family(c, grid=True)
     bf16 = dataclasses.replace(tregistry.get_config("arctic-480b").reduced(),
                                param_dtype="bfloat16")
-    for call in (lambda: tr.init_train_state(bf16, tr.TrainConfig(),
-                                             mesh=make_test_mesh(data=2), device="cpu"),
-                 lambda: tr.build_train_step(bf16, tr.TrainConfig(), make_test_mesh(data=2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-            call()
+    st = tr.init_train_state(bf16, tr.TrainConfig(), mesh=make_test_mesh(data=2), device="cpu")
+    assert all(p.dtype == torch.bfloat16 for p in st.params.parameters())
+    assert callable(tr.build_train_step(bf16, tr.TrainConfig(), make_test_mesh(data=2)))
 
 
 def test_port_init_is_seeded_and_finite():

@@ -469,14 +469,14 @@ def test_caches_hold_a_rank_share(tp2, grid):
 
 
 def test_refusals_name_their_items():
-    """Still refused at M > 1: the encoder-decoder and VLM families, and
-    training on the head slots of a padded layout (12.8)."""
+    """Still refused at M > 1: the encoder-decoder and VLM families (12.8).
+    Training on the head slots of a padded layout builds its step (item
+    12.4: tests/test_torch_pad_slots.py holds it at M = 4)."""
     for arch in ("seamless-m4t-medium", "llava-next-34b"):
         with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
             TL.check_family(get_config(arch).reduced(), 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-        tr.build_train_step(_cfgs("padded")[1], _tcs("mean", "none", 0)[1],
-                            Mesh(shape={"data": 2, "model": 4}))
+    assert tr._check(_cfgs("padded")[1], _tcs("mean", "none", 0)[1],
+                     Mesh(shape={"data": 2, "model": 4})) is None
     for key in FAMILIES:
         TL.check_family(_cfgs(key)[1], 2)
         TL.check_family(_cfgs(key)[1], 1, grid=True)
