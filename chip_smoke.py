@@ -14,6 +14,7 @@ an NVIDIA H100.
     python3 chip_smoke.py --only tpfam         # phase 1, then the families split over ranks
     python3 chip_smoke.py --only tpfamcards    # phase 1, then the families on every card
     python3 chip_smoke.py --only tpcards       # phase 1, then the model axis on every card
+    python3 chip_smoke.py --only many          # phase 1, then K > 32 and the CFL-100 server
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero (and
 prints no result) without them or outside a checkout of the repository.
@@ -25,7 +26,9 @@ rank per visible card (2 or more), the deployment sharding is for; with
 ``--only train`` the training part alone, as one JSON line; with ``--only
 moe`` the MoE part alone, with ``--only ssm`` the SSM part alone, with
 ``--only encdec`` the encoder-decoder and VLM part alone, and with ``--only
-tp`` the model-axis part alone, each as one JSON line.  ``--only cards``
+tp`` the model-axis part alone, and with ``--only many`` the checks of
+kernels 4, 5 and 6 at more than 32 candidates and the CFL server over 100
+clients alone, each as one JSON line.  ``--only cards``
 also runs the model-axis part on one ``nccl`` rank per card (and, on four,
 StableLM-3B uncut at M = 4).
 Phases, each of which fails the run:
@@ -39,7 +42,8 @@ Phases, each of which fails the run:
      and the thread-block cluster size (CTAs per node) of kernels 1 and 2;
      and, for kernels 4 and 5 at their timed shapes, the stages of the
      ``cp.async`` ring, the tile width, the CTAs per SM and per node and
-     the network's width; and kernel 3's plan (nodes a CTA, tile, stages,
+     the network's width (at K > 32 the wide path's tile and sort width);
+     kernel 6's output tiles and splits of D at K > 32; and kernel 3's plan (nodes a CTA, tile, stages,
      shared memory and CTAs at its timed and checked shapes);
   2. hold each kernel against its plain PyTorch version on the card (a
      mask of kernel 1 or 2 that differs from the plain version's must be a
@@ -135,6 +139,17 @@ Phases, each of which fails the run:
      (with ``prev[idx]`` bit-identical to the matrix-prev launch; with a
      per-edge prev of their own, masks bit-equal to the plain versions),
      timed at N=64, K=16, d=2^20 and at the paper's shape;
+     then more than 32 candidates (``check_many_candidates``): kernel 4's
+     wide path at K = 33, 64, 100 and 1,024, at d = 50,890 (with and
+     without prev and the centers) and 44,426 (D % 4 = 2), two
+     bit-identical rows and a NaN row; kernel 5 at N=8, K=48 with per-edge
+     prev; kernel 6's output tiles at K = 33, 100, 1,024 (d = 50,890) and
+     D = 37; by the bounds above (the Gram also exactly symmetric, twin rows
+     at distance 0, Multi-Krum and Clustering masks bit-equal), then kernels
+     4, 6 and 7 timed at K = 100 and 1,024 (d = 50,890) and K = 64, D =
+     2^22 beside their bounds, plain versions and ``torch.mm`` /
+     ``addmv``, and kernel 5 at its shape; kernels 4 and 5 bit for bit
+     against ``ref.robust_stats_kernel_order`` at K = 33, 100 and 48 too;
      then kernel 8, flash attention (``flash_attn.cu``: bf16 on the tensor
      cores, f32 on the CUDA cores), each case twice: through the wrapper
      the prefill calls (``ops.flash_attention`` on (B, H, S, hd) views) and
@@ -173,7 +188,14 @@ Phases, each of which fails the run:
        Alt-WFAgg (one of each of the three), each replayed round by round
        against the reference backend on the card, and the centralized
        IPM-100 claim (WFAgg and Alt-WFAgg each > mean + 0.2) on the MLP,
-       from Table I;
+       from Table I; then a CFL server over 100 clients (``run_cfl_many``:
+       MLP, ``make_topology(100, 4, 10, "ring")``, IPM-100 from the 10
+       Byzantine clients, 4 rounds each of WFAgg, Alt-WFAgg, Multi-Krum and
+       the mean; one launch of kernel 4 (its wide path, K = 100) and one of
+       kernel 7 a round, plus one of kernel 6 under Alt-WFAgg; every robust
+       run replayed round by round against the reference backend; the
+       steady round's ms and the final accuracies against the paper's CFL
+       claim printed, the claim reported, not enforced);
      - dynamic topologies and chaos transport (``run_dynamic_experiment``,
        the same model, topology and attack, 6 rounds): WFAgg on ``fused``
        under ``churn`` (6 round-kernel launches, none of the ``prev_idx``
@@ -752,12 +774,13 @@ def cfl_candidates(torch, K, D, seed):
     return u, prev, dup
 
 
-def compare_robust_stats(torch, K, D, seed, with_prev, need_center) -> float:
+def compare_robust_stats(torch, K, D, seed, with_prev, need_center,
+                         candidates=cfl_candidates) -> float:
     from repro_torch.core import trust
     from repro_torch.core.wfagg import WFAggConfig
     from repro_torch.kernels.robust_stats import ops
 
-    u, prev, dup = cfl_candidates(torch, K, D, seed)
+    u, prev, dup = candidates(torch, K, D, seed)
     p = prev if with_prev else None
     got = ops.robust_stats(u, p, need_center=need_center)
     want = ops.robust_stats_plain(u, p, need_center=need_center)
@@ -787,13 +810,13 @@ def compare_robust_stats(torch, K, D, seed, with_prev, need_center) -> float:
     return max(errs)
 
 
-def compare_gram(torch, K, D, seed) -> float:
+def compare_gram(torch, K, D, seed, candidates=cfl_candidates) -> float:
     from repro_torch.core import trust
     from repro_torch.core.wfagg import alt_wfagg_config
     from repro_torch.kernels.pairwise_dist import ops
     from repro_torch.kernels.robust_stats.ops import robust_stats_plain
 
-    u, _, dup = cfl_candidates(torch, K, D, seed)
+    u, _, dup = candidates(torch, K, D, seed)
     gram, norm2 = ops.pairwise_gram(u)
     gp, np_ = ops.pairwise_gram_plain(u)
     torch.cuda.synchronize()
@@ -1461,6 +1484,11 @@ def print_cluster_sizes() -> None:
 STATS_SHAPES = (
     ("kernel 4, K=20 d=44426, prev", 1, CFL_K, CFL_D, True, False),
     ("kernel 4, K=32 D=2^22, prev", 1, BIG_K, BIG_D, True, False),
+    ("kernel 4, K=33 d=50890, prev", 1, 33, 50890, True, False),
+    ("kernel 4, K=100 d=50890, prev (the CFL-100 server)", 1, 100, 50890, True, False),
+    ("kernel 4, K=1024 d=50890, prev + centers", 1, 1024, 50890, True, True),
+    ("kernel 4, K=64 D=2^22, prev", 1, 64, 1 << 22, True, False),
+    ("kernel 5, N=8 K=48 d=50890, per-edge prev", 8, 48, 50890, True, False),
     ("kernel 5, N=20 K=8 d=44448, per-edge prev", 20, 8, 44448, True, False),
     ("kernel 5, N=64 K=16 d=2^20, per-edge prev", 64, 16, 1 << 20, True, False),
     ("kernel 5, N=64 K=16 d=2^20, centers", 64, 16, 1 << 20, False, True),
@@ -1499,15 +1527,29 @@ def print_combine_times(timed: dict) -> None:
 def print_stats_plans() -> None:
     """How ``robust_stats.cu`` (kernels 4 and 5) runs at the timed shapes:
     the stages of its ``cp.async`` ring, the tile width, the CTAs an SM
-    holds (the instance's occupancy) and the CTAs per node."""
+    holds (the instance's occupancy) and the CTAs per node; and how
+    ``pairwise_gram.cu`` (kernel 6) tiles the Gram above K = 32."""
+    import torch
+
+    from repro_torch.kernels.pairwise_dist import kernel as pk
     from repro_torch.kernels.robust_stats import kernel as rk
 
     for label, N, K, D, with_prev, centers in STATS_SHAPES:
         p = rk.stats_plan(N, K, D, with_prev, centers, "cuda")
+        if p["path"] == "wide":
+            print(f"    {label}: wide path, {p['tile']}-coordinate tiles sorted by a "
+                  f"bitonic network of {p['kp']} wires (64-rank runs in registers), "
+                  f"{p['ctas_per_sm']} CTAs per SM, {p['blocks']} CTAs per node")
+            continue
         net = f"network width {p['kp']}" + (", specialised on K" if p["specialised"]
                                            else ", +inf padding")
         print(f"    {label}: {p['stages']} stages of {p['tile']}-coordinate tiles, "
               f"{p['ctas_per_sm']} CTAs per SM, {p['blocks']} CTAs per node, {net}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for K, D in MANY_GRAM + tuple(t for t in MANY_TIMED if t not in MANY_GRAM):
+        p = pk.gram_plan(K, D, sms)
+        print(f"    kernel 6, K={K} D={D}: {p['tile_pairs']} pairs of 64 x 64 output tiles x "
+              f"{p['blocks']} splits of D, partials {p['blocks'] * K * K * 4 / 2**20:.2f} MiB")
 
 
 def print_round_kernel_times(big: dict, paper: dict) -> None:
@@ -1530,10 +1572,16 @@ def print_round_kernel_times(big: dict, paper: dict) -> None:
 
 
 def network_compare_exchanges(K: int) -> int:
-    """Compare-exchanges of robust_stats.cu's median network on K wires: the
-    odd-even merge sort on 8, 16 or 32 wires less those that touch a wire
-    past K (``ref.network_pairs``, counted here so that the timers also run
-    on a tree without it)."""
+    """Compare-exchanges of robust_stats.cu's median network on K wires: at
+    K <= 32 the odd-even merge sort on 8, 16 or 32 wires less those that
+    touch a wire past K (``ref.network_pairs``, counted here so that the
+    timers also run on a tree without it); above, the wide path's bitonic
+    sort of KP = K rounded up to a power of two wires, KP/2 a stage over
+    log2(KP) (log2(KP) + 1) / 2 stages."""
+    if K > 32:
+        kp = 1 << (K - 1).bit_length()
+        lg = kp.bit_length() - 1
+        return kp // 2 * lg * (lg + 1) // 2
     kp = 8 if K <= 8 else 16 if K <= 16 else 32
     lg = kp.bit_length() - 1
     return sum(lo >= k % p and (lo - k % p) % (2 * k) < k and lo + k < K
@@ -2123,10 +2171,12 @@ def check_stats_kernel_order(torch) -> None:
     the wrappers take: every center and statistic equal, NaN in the same
     places.  Kernel 4 at its timed shapes (K=20 d=44,426, where D % 4 = 2
     and the copies are 8 bytes; K=32 D=2^22) with prev, and with the
-    centers at K=20 and K=7; kernel 5 at its timed shapes (N=20 K=8 d
-    padded to 44,448; N=64 K=16 d=2^20 with per-edge prev, and without
-    prev with the centers) and unpadded at d=44,426, each with a NaN row
-    (node 3) and tied rows."""
+    centers at K=20 and K=7, and on the wide path at K=33 and K=100 (d =
+    50,890 and 44,426, with and without prev and the centers); kernel 5 at
+    its timed shapes (N=20 K=8 d padded to 44,448; N=64 K=16 d=2^20 with
+    per-edge prev, and without prev with the centers), unpadded at
+    d=44,426 and on the wide path at N=8 K=48 d=50,890, each with a NaN
+    row (node 3) and tied rows."""
     from repro_torch.kernels.robust_stats import kernel as rk
     from repro_torch.kernels.robust_stats.ref import robust_stats_kernel_order
 
@@ -2149,7 +2199,11 @@ def check_stats_kernel_order(torch) -> None:
     for K, D, with_prev, centers, seed in ((CFL_K, CFL_D, True, False, 71),
                                            (CFL_K, CFL_D, True, True, 72),
                                            (BIG_K, BIG_D, True, False, 73),
-                                           (7, 20011, False, True, 74)):
+                                           (7, 20011, False, True, 74),
+                                           (33, 50890, True, True, 79),
+                                           (33, 44426, False, False, 80),
+                                           (100, 50890, True, False, 81),
+                                           (100, 44426, True, True, 82)):
         u, prev, _ = cfl_candidates(torch, K, D, seed)
         p = prev if with_prev else None
         blocks = rk.stats_plan(1, K, D, with_prev, centers, "cuda")["blocks"]
@@ -2163,7 +2217,8 @@ def check_stats_kernel_order(torch) -> None:
     for N, K, d, with_prev, centers, seed in ((20, 8, 44448, True, False, 75),
                                               (20, 8, 44426, True, True, 76),
                                               (64, 16, 1 << 20, True, False, 77),
-                                              (64, 16, 1 << 20, False, True, 78)):
+                                              (64, 16, 1 << 20, False, True, 78),
+                                              (*MANY_BATCH, True, True, 83)):
         u, prev, _ = gathered_candidates(torch, N, K, d, seed, nan_node=3)
         p = prev if with_prev else None
         blocks = rk.stats_plan(N, K, d, with_prev, centers, "cuda")["blocks"]
@@ -2177,6 +2232,172 @@ def check_stats_kernel_order(torch) -> None:
         torch.cuda.empty_cache()
     print(f"  kernels 4 and 5 == ref.robust_stats_kernel_order bit for bit ({n_vals} "
           f"centers and statistics in {n_cases} launches, NaN in the same places)")
+
+# ---------------------------------------------------------------------------
+# phase 2: more than 32 candidates (kernels 4 and 5's wide path, kernel 6's
+# output tiles)
+# ---------------------------------------------------------------------------
+
+MANY_K = (33, 64, 100, 1024)        # kernel 4 on the wide path
+MANY_D = (50890, 44426)             # the Table I MLP; LeNet-5, D % 4 = 2
+MANY_GRAM = ((33, 50890), (100, 50890), (1024, 50890), (33, 37), (100, 37))
+MANY_TIMED = ((100, 50890), (1024, 50890), (64, 1 << 22))
+MANY_BATCH = (8, 48, 50890)         # kernel 5: N, K, d with per-edge prev
+
+
+def many_candidates(torch, K, D, seed):
+    """A server's K > 32 received models on the card, spread so that the
+    filters' scores sit apart by more than float32 sums in another order
+    can move them: row k near a common model at a noise scale of 0.05 (1 +
+    k / 8), two bit-identical attacker rows (0 and ``dup``) sending -3 x
+    the model, and each row's previous model (the attackers' identical)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.randn((D,), generator=g, device="cuda")
+    scale = 0.05 * (1 + torch.arange(K, device="cuda", dtype=torch.float32) / 8)
+    u = torch.randn((K, D), generator=g, device="cuda").mul_(scale[:, None]).add_(base)
+    prev = u + 0.05 * torch.randn((K, D), generator=g, device="cuda")
+    dup = max(1, K // 5)
+    u[0] = u[dup] = -3.0 * base
+    prev[dup] = prev[0]
+    return u, prev, dup
+
+
+def compare_nan_row(torch, K, D, seed) -> float:
+    """Kernel 4 with a NaN in row 1, column 7: the median and trimmed mean
+    NaN in that column alone and the plain version's elsewhere (the median
+    bit-equal), every distance to the median NaN as in the plain version,
+    the other sums within the statistics' tolerance, NaN in the same
+    places."""
+    from repro_torch.kernels.robust_stats import ops
+
+    u, prev, _ = many_candidates(torch, K, D, seed)
+    u[1, 7] = float("nan")
+    got = ops.robust_stats(u, prev)
+    want = ops.robust_stats_plain(u, prev)
+    torch.cuda.synchronize()
+    label = f"robust_stats K={K} D={D} with a NaN row"
+    if not same_bits(torch, got.med, want.med) or int(torch.isnan(got.med).sum()) != 1:
+        raise AssertionError(f"{label}: median differs from the plain version")
+    torch.testing.assert_close(got.trim, want.trim, rtol=1e-5, atol=1e-6, equal_nan=True)
+    errs = []
+    for name in STAT_FIELDS:
+        g, w = getattr(got, name), getattr(want, name)
+        torch.testing.assert_close(g, w, rtol=STAT_RTOL, atol=STAT_ATOL, equal_nan=True)
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"{label}: {name} NaN in other places than the plain")
+        fin = torch.isfinite(w)
+        if fin.any():
+            errs.append(float((g - w)[fin].abs().max()))
+    if not torch.isnan(got.dist2).all():
+        raise AssertionError(f"{label}: the NaN row left a finite distance")
+    print(f"  {label}: median bit-equal (column 7 NaN alone), NaN in the same places, "
+          f"max|err| {max(errs):.3g}")
+    return max(errs)
+
+
+def check_many_candidates(torch) -> tuple:
+    """Kernels 4, 5 and 6 at K > 32 against their plain versions, then
+    timed.  Kernel 4 at every K of ``MANY_K`` and d of ``MANY_D``, with and
+    without prev and the centers (at D % 4 = 2 the two extremes), and with
+    a NaN row; kernel 5 at N=8, K=48 with per-edge prev (a NaN row and tied
+    rows, with and without the centers); kernel 6 at ``MANY_GRAM``; each
+    held by the bounds of the K <= 32 checks (the median bit-equal, the
+    trimmed mean rtol 1e-5, the statistics rtol 1e-4 / atol 1e-3, the Gram
+    rtol 1e-4 and exactly symmetric, WFAgg-D/C, Multi-Krum and Clustering
+    masks bit-equal, twin rows tied).  Kernels 4 and 6 (and 7 beside them)
+    then timed at ``MANY_TIMED`` and kernel 5 at its shape.  Returns (max
+    errors by kernel, times by kernel and shape)."""
+    errs = {"robust_stats": [], "robust_stats_batch": [], "pairwise_gram": []}
+    for K in MANY_K:
+        for D in MANY_D:
+            combos = (((True, True), (True, False), (False, True), (False, False))
+                      if D == MANY_D[0] else ((True, True), (False, False)))
+            errs["robust_stats"] += [compare_robust_stats(
+                torch, K, D, 90 + K, with_prev, centers, candidates=many_candidates)
+                for with_prev, centers in combos]
+        errs["robust_stats"].append(compare_nan_row(torch, K, MANY_D[0], 91 + K))
+    Nb, Kb, db = MANY_BATCH
+    for centers in (False, True):
+        u, prev, tie = gathered_candidates(torch, Nb, Kb, db, 92 + centers, nan_node=3)
+        errs["robust_stats_batch"].append(compare_robust_stats_batch(
+            torch, f"robust_stats_batch N={Nb} K={Kb} d={db} prev=True centers={centers}",
+            u, prev, tie, 3, centers))
+    for K, D in MANY_GRAM:
+        errs["pairwise_gram"].append(compare_gram(torch, K, D, 93 + K,
+                                                  candidates=many_candidates))
+    timed = {"robust_stats": {}, "pairwise_gram": {}, "weighted_agg": {}}
+    for K, D in MANY_TIMED:
+        for name, t in time_cfl_kernels(torch, K, D, seed=94 + K).items():
+            timed[name][f"K={K} D={D}"] = t
+        torch.cuda.empty_cache()
+    u, prev, _ = gathered_candidates(torch, Nb, Kb, db, 95)
+    timed["robust_stats_batch"] = {
+        f"N={Nb} K={Kb} d={db} per-edge prev": time_robust_stats_batch(torch, u, prev, False)}
+    return errs, timed
+
+
+# ---------------------------------------------------------------------------
+# phase 3: a CFL server over 100 clients
+# ---------------------------------------------------------------------------
+
+CFL_MANY = (100, 4, 10)        # clients (K = N at the server), ring degree, Byzantine
+CFL_MANY_ROUNDS = 4
+CFL_MANY_RULES = ("wfagg", "alt_wfagg", "multi_krum", "mean")
+
+
+def run_cfl_many(torch) -> tuple:
+    """The paper's centralised column at the field's usual round size
+    (FedAvg samples 100 clients): ``run_experiment(centralized=True)``,
+    MLP, ``make_topology(100, 4, 10, "ring")``, IPM-100 from the 10
+    Byzantine clients, ``CFL_MANY_ROUNDS`` rounds of each of
+    ``CFL_MANY_RULES``, each with the launch counts set to 0 just before and
+    read just after: exactly one launch of kernel 4 and one of kernel 7 a
+    round under WFAgg and Alt-WFAgg (kernel 4's wide path, K = 100), plus
+    one of kernel 6 under Alt-WFAgg, none under Multi-Krum and the mean.
+    Every robust run is replayed round by round against the reference
+    backend (``check_cfl_against_reference``).  Prints each run's benign
+    accuracy per round, round ms and steady round ms (the median of rounds
+    2..R), and the final accuracies against the paper's CFL claim (> mean +
+    0.2), which is reported, not enforced.  Returns (launches by kernel,
+    final benign accuracy by rule)."""
+    import numpy as np
+
+    from repro_torch.core.topology import make_topology
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.dfl.engine import DFLConfig, run_experiment
+
+    N, degree, n_mal = CFL_MANY
+    topo, data = make_topology(N, degree, n_mal, "ring"), SyntheticImages()
+    total, accs = dict.fromkeys(KERNELS, 0), {}
+    for agg in CFL_MANY_RULES:
+        cfg = DFLConfig(aggregator=agg, attack="ipm_100", model="mlp", centralized=True)
+        zero_counts()
+        o = run_experiment(cfg, topo, data, rounds=CFL_MANY_ROUNDS)
+        counts = read_counts()
+        want = dict.fromkeys(KERNELS, 0)
+        if agg in ("wfagg", "alt_wfagg"):
+            want["robust_stats"] = want["weighted_agg"] = CFL_MANY_ROUNDS
+            want["pairwise_gram"] = CFL_MANY_ROUNDS if agg == "alt_wfagg" else 0
+        if counts != want:
+            raise AssertionError(f"CFL-{N} {agg}: launches {counts}, expected {want}")
+        if not all(np.isfinite(e["acc_all"]).all() for e in o["trace"]):
+            raise AssertionError(f"CFL-{N} {agg}: non-finite accuracy")
+        for k in KERNELS:
+            total[k] += counts[k]
+        s = o["series"]
+        accs[agg] = o["final"]["acc_benign_mean"]
+        print(f"  CFL-{N} {agg:10s} benign acc per round "
+              f"{[round(a, 4) for a in s['acc_benign_mean']]}, round ms "
+              f"{[round(1e3 * t, 2) for t in s['round_seconds']]}, steady round "
+              f"{1e3 * statistics.median(s['round_seconds'][1:]):.2f} ms; launches "
+              f"{dict((k, v) for k, v in counts.items() if v)}")
+        if agg != "mean":
+            check_cfl_against_reference(torch, cfg, topo, data, CFL_MANY_ROUNDS)
+    held = {agg: accs[agg] > accs["mean"] + 0.2 for agg in ("wfagg", "alt_wfagg")}
+    print(f"  CFL-{N} IPM-100 claim (> mean + 0.2; reported): " + ", ".join(
+        f"{agg} {a:.4f}" for agg, a in accs.items()) + "; " + ", ".join(
+        f"{agg} {'holds' if h else 'MISSES'}" for agg, h in held.items()))
+    return total, accs
 
 
 def compare_per_edge(torch, label, N, K, d, idx, valid, seed, dup) -> dict:
@@ -7275,7 +7496,8 @@ GRID_GRAD_RMS = 5e-2
 GRID_DECODE, GRID_DECODE_TIMED = 4, 2
 GRID_TIMEOUT_S = 600
 # Qwen on the grid at 12 of its 24 layers, served and trained (cut in this
-# slice beside its flat run, the whole script's time)
+# slice beside its flat run, the whole script's time; 8 layers took as long:
+# the ranks' start, the first step and the embedding's gathers are the time)
 GRID_LAYERS = 12
 CARDS_GRID_ARCH = "stablelm-3b"   # --only cards: K = 4 x M = 1 on four nccl cards
 CARDS_GRID_STEPS = 3
@@ -9229,9 +9451,9 @@ def main(argv=()) -> int:
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only not in ("distributed", "cards", "train", "moe", "ssm", "encdec", "tp",
-                             "grid", "tpfam", "tpfamcards", "tpcards", "bf16"):
+                             "grid", "tpfam", "tpfamcards", "tpcards", "bf16", "many"):
         print("usage: chip_smoke.py [--only distributed|cards|train|moe|ssm|encdec|tp|grid|"
-              "tpfam|tpfamcards|tpcards|bf16]", file=sys.stderr)
+              "tpfam|tpfamcards|tpcards|bf16|many]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -9264,6 +9486,18 @@ def main(argv=()) -> int:
     print_cluster_sizes()
     print_stats_plans()
     print_combine_plans()
+    if only == "many":
+        print("[2] more than 32 candidates alone (--only many): kernels 4, 5 and 6 against "
+              "their plain versions and timed, kernels 4 and 5 against their order's "
+              "emulation, then the CFL server over 100 clients; no kernels or ok line")
+        errs, timed = check_many_candidates(torch)
+        check_stats_kernel_order(torch)
+        print(f"[3] CFL over {CFL_MANY[0]} clients")
+        launches, accs = run_cfl_many(torch)
+        print(json.dumps({"many": {"launches": {k: c for k, c in launches.items() if c},
+                                   "max_abs_err": {k: max(v) for k, v in errs.items()},
+                                   "timed": timed, "final_acc": accs}}))
+        return 0
     if only == "distributed":
         print("[3] distributed alone (--only distributed): no kernels or ok line")
         launches, errs, timed = run_distributed(torch)
@@ -9447,6 +9681,11 @@ def main(argv=()) -> int:
     print("[2] kernel 5 (the gathered statistics) and the per-edge prev variants of the "
           "round and statistics kernels")
     errs["robust_stats_batch"], k5 = check_kernel5(torch)
+    print("[2] more than 32 candidates: kernels 4 and 5's wide path and kernel 6's output "
+          "tiles against their plain versions, then timed")
+    many_errs, many_timed = check_many_candidates(torch)
+    for name, e in many_errs.items():
+        errs[name] += e
     check_stats_kernel_order(torch)
     (main_shape, main_t), *rest = [(s_, t) for s_, t in k5.items() if s_[0] == 64] + [
         (s_, t) for s_, t in k5.items() if s_[0] != 64]
@@ -9454,6 +9693,8 @@ def main(argv=()) -> int:
                               f"centers={s_[4]}")
     timed["robust_stats_batch"] = dict(main_t, shape=shape_label(main_shape),
                                        other_shapes={shape_label(s_): t for s_, t in rest})
+    for name, t in many_timed.items():
+        timed[name]["many_candidates"] = t
     errs["wfagg_round_indexed[per_edge_prev]"] = []
     errs["robust_stats_indexed[per_edge_prev]"] = []
     for label, N, K, d, idx, valid, seed in slates:
@@ -9573,6 +9814,11 @@ def main(argv=()) -> int:
     if not (accs["wfagg"] > accs["mean"] + 0.2 and accs["alt_wfagg"] > accs["mean"] + 0.2):
         raise AssertionError(f"CFL IPM-100 claim does not hold: {accs}")
 
+    print(f"{at()} CFL over {CFL_MANY[0]} clients: run_experiment(centralized=True), MLP, "
+          f"{CFL_MANY[1]}-regular ring, {CFL_MANY[2]} Byzantine under IPM-100, "
+          f"{CFL_MANY_ROUNDS} rounds of {', '.join(CFL_MANY_RULES)}")
+    cfl_many_launches, _ = run_cfl_many(torch)
+
     print(f"{at()} dynamic topologies and chaos transport: run_dynamic_experiment, "
           f"LeNet-5, the same topology, IPM-100, {ROUNDS} rounds")
     dyn_launches = run_dynamic_paths(torch, topo, data)
@@ -9680,7 +9926,8 @@ def main(argv=()) -> int:
     # two-launch runs, the CFL kernels on the two CFL runs, the dynamic and
     # chaos runs (the prev_idx variants on the chaos runs only), the
     # adaptive phase (the gate grid's wfagg cells, the backend-parity runs,
-    # the flight run, CFL under min_max), Table I's
+    # the flight run, CFL under min_max), the CFL server over 100 clients
+    # (kernels 4 and 7, and 6 under Alt-WFAgg), Table I's
     # WFAgg and Alt-WFAgg runs, and the gathered path (kernel 5; the
     # per-edge variants on the indexed calls fed its state), kernel 8 on the
     # full-width prefills, and the trainer's kernels 1, 4 and 6 (the stacked
@@ -9697,7 +9944,8 @@ def main(argv=()) -> int:
     # the model axis) and kernels 4, 6 and 7 of their
     # training, summed over the ranks; the bf16 / pad-slot part's kernel 1 (M =
     # 1, stacked) and kernels 4, 6 and 7 (its ranks' stacked runs)
-    launches = {name: dfl_launches[name] + cfl_launches[name] + dyn_launches[name]
+    launches = {name: dfl_launches[name] + cfl_launches[name] + cfl_many_launches[name]
+                + dyn_launches[name]
                 + adaptive_launches[name] + table_launches[name]
                 + gathered_launches[name] + serve_launches[name] + dist_launches[name]
                 + train_launches[name] + moe_launches[name] + ssm_launches[name]

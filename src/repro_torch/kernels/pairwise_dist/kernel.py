@@ -3,15 +3,16 @@
 ``csrc/pairwise_gram.cu`` replaces the Pallas TPU kernel
 ``_pairwise_kernel`` / ``pairwise_pallas``
 (``src/repro/kernels/pairwise_dist/kernel.py:17`` / ``:29``): the (K, K)
-Gram and the (K,) squared norms of a (K, D) candidate matrix.  It is
-bound by the bytes it reads (the matrix, once) at the K it serves: a
-double-buffered ``cp.async`` stream of 256-coordinate tiles, reduced in
-4 x 4 register blocks of Gram entries, with every entry summed by the same
-expression tree so that bit-identical rows stay tied (see the source's
-header).  Any D and any float alignment: the kernel picks 16-, 8- or
-4-byte loads itself.  Built with ``nvcc`` at first use
-(``kernels.common.build``) and called through ``ctypes`` on PyTorch's
-current stream; nothing runs at import.
+Gram and the (K,) squared norms of a (K, D) candidate matrix, K up to
+``MAX_K`` = 1,024.  At K <= 32 it is bound by the bytes it reads (the
+matrix, once): a double-buffered ``cp.async`` stream of 256-coordinate
+tiles, reduced in 4 x 4 register blocks of Gram entries.  Above, by its
+operations: 64 x 64 output tiles of the upper triangle, each CTA one tile
+pair and one of ``splits`` slices of D (``gram_plan``).  Every entry is
+summed by the same expression tree so that bit-identical rows stay tied
+(see the source's header).  Any D and any float alignment.  Built with
+``nvcc`` at first use (``kernels.common.build``) and called through
+``ctypes`` on PyTorch's current stream; nothing runs at import.
 """
 from __future__ import annotations
 
@@ -24,9 +25,13 @@ import torch
 from repro_torch.kernels import common
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "pairwise_gram.cu"
-MAX_K = 32
-TILE = 256       # coordinates per tile of pairwise_gram.cu (kTile)
+MAX_K = 1024
+BLOCKED_MAX_K = 32  # the register-blocked stream's K; above it the output tiles
+TILE = 256       # coordinates per tile of the stream (kTile)
 PER_SM = 2       # CTAs per SM (64 KiB of shared memory each at K = 32)
+TILE_K = 64      # Gram entries a side of an output tile above 32 (kTileK)
+CHUNK = 16       # coordinates a step of the tiled path (kChunk)
+TILES_PER_SM = 4  # the tiled path's CTAs per SM (256 threads of 63 registers, 17 KiB)
 
 # Kernel launches so far in this process: bumped once per launch, right
 # where the kernel is launched.
@@ -40,6 +45,22 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.restype = I
 
 
+def gram_plan(K: int, D: int, sms: int) -> dict:
+    """How ``pairwise_gram.cu`` runs K candidates over D coordinates on a
+    card of ``sms`` SMs: ``path`` ("blocked" at K <= 32, "tiles" above),
+    ``blocks`` (the stream's CTAs, or the splits of D), and on the tiled
+    path ``tile_pairs`` (of the upper triangle of 64 x 64 tiles): the
+    splits are the card's resident CTAs over the pairs, rounded down so the
+    grid runs in one wave, at least 1 and at most one per 16 coordinates,
+    so the partials, ``blocks`` K^2 floats, stay a few MB whatever K."""
+    if K <= BLOCKED_MAX_K:
+        return dict(path="blocked", blocks=max(1, min(-(-D // TILE), PER_SM * sms)))
+    nt = -(-K // TILE_K)
+    pairs = nt * (nt + 1) // 2
+    splits = max(1, min(-(-D // CHUNK), TILES_PER_SM * sms // pairs))
+    return dict(path="tiles", blocks=splits, tile_pairs=pairs)
+
+
 def pairwise_gram_cuda(updates: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the Gram kernel on the tensor's CUDA device and stream.
     Returns ``(gram (K, K), norm2 (K,))``, allocated here; the Gram is
@@ -51,11 +72,12 @@ def pairwise_gram_cuda(updates: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if not 1 <= K <= MAX_K:
         raise ValueError(f"the pairwise_gram kernel takes 1 <= K <= {MAX_K} "
-                         f"candidates, got K={K}")
+                         f"candidates, got K={K} (ROADMAP queue 2, item E)")
     common.check_tensor("updates", updates, torch.float32, (K, D), dev)
     fn = common.load(SOURCE, _bind).pairwise_gram_launch
     f32 = dict(dtype=torch.float32, device=dev)
-    n_blocks = common.grid_blocks(dev, -(-D // TILE), per_sm=PER_SM)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_blocks = gram_plan(K, D, sms)["blocks"]
     partials = torch.empty((n_blocks, K * K), **f32)
     gram = torch.empty((K, K), **f32)
     norm2 = torch.empty((K,), **f32)

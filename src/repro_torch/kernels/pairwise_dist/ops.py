@@ -27,14 +27,10 @@ def pairwise_gram_plain(updates: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
 
 def pairwise_gram(updates: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """((K, K) Gram matrix, (K,) squared norms) of ``updates (K, d)`` in one
-    pass.  K <= 32 on every device (the kernel's limit)."""
+    pass.  Any K on the CPU; K <= ``kernel.MAX_K`` (1,024) on the card,
+    where the kernel raises past it."""
     if updates.ndim != 2:
         raise ValueError(f"updates must be (K, d), got {tuple(updates.shape)}")
-    K = updates.shape[0]
-    if K > kernel.MAX_K:
-        raise ValueError(
-            f"pairwise_gram takes at most {kernel.MAX_K} candidates, got K={K} "
-            "(CFL with more than 32 nodes: ROADMAP queue 2, item 6)")
     dev = updates.device
     if dev.type == "cpu":
         return pairwise_gram_plain(updates)

@@ -7,7 +7,7 @@
 // d_axis=0 by robust_stats_pallas (kernel.py:136, the single-node wfagg()
 // and the CFL server) and d_axis=1 by robust_stats_batch_pallas
 // (kernel.py:652, the gathered wfagg_batch).  For node n's candidates
-// u_k (k < K <= 32) and, optionally, their previous-round rows p_k (a
+// u_k (k < K <= 1024) and, optionally, their previous-round rows p_k (a
 // per-edge (N, K, D) tensor) it computes
 //   med[d]     coordinate-wise median (mean of the two middles for even K)
 //   trim[d]    beta-trimmed mean: mean of the sorted values t .. K-t-1
@@ -25,7 +25,12 @@
 // operations (a sorting network per coordinate, about 15 flops per
 // candidate coordinate) take a third of that or less.
 //
-// Design:
+// Two paths: K <= 32 sorts each coordinate in registers (the register
+// path, below); K > 32 sorts a tile's columns in shared memory (the wide
+// path, after it).  Both deal D to B CTAs per node and end with the same
+// fixed-order finish.
+//
+// Design of the register path:
 //   * Grid (B, N): B CTAs of 256 threads per node, B N about the CTAs the
 //     card holds at once (the wrapper sizes B from this kernel's occupancy,
 //     robust_stats_plan), so one node (kernel 4) fills the card as N = 64
@@ -74,9 +79,45 @@
 // (the ring of 3 stages of 2K rows takes 125-200 KB), so at the CFL shape
 // (174 tiles) each CTA waits out one or two tiles' latency; with the
 // centers the full network and the trimmed sum make it issue-bound; the
-// copies are issued by every thread (no TMA, no producer warp).  K > 32 is
-// refused: the network takes any power-of-two width KP, but a stage of 2 x
-// 64 rows of 256 coordinates (133 KB) would need a narrower tile.
+// copies are issued by every thread (no TMA, no producer warp).  The network
+// takes any power-of-two width KP, but a stage of 2 x 64 rows of 256
+// coordinates (133 KB) would need a narrower tile: K > 32 takes the wide
+// path.
+//
+// Design of the wide path (K = 33 .. 1024; a simple kernel that is right,
+// not yet a fast one):
+//   * The same grid (B, N) of 256 threads; CTA b takes the node's tiles b,
+//     b + B, ... of T coordinates, T = wide_tile(K): the widest power of two
+//     up to 256 at which a (KP, T) sort buffer fits 64 KB (KP = K rounded up
+//     to a power of two: T = 256 up to K = 64, 128 to 128, 64 to 256, 32 to
+//     512, 16 to 1,024).
+//   * Per tile: thread (column c, run s) loads ranks 64 s .. 64 s + 63 of
+//     column c straight into registers (KP T = 16,384 = 64 x 256 at every
+//     K; plain loads, any alignment; rows K .. KP-1 +inf, columns past D 0);
+//     a per-column NaN flag as in the register path; every column sorted by
+//     a bitonic network (fminf / fmaxf): steps up to 64 ranks inside each
+//     run, in registers, and above them the stages that pair two runs
+//     through the (KP, T) buffer in shared memory (1 at KP = 128, 10 at
+//     1,024), the rest again in registers; the runs written back to the
+//     buffer, rank-major; thread t < T takes column t's
+//     median, its mednorm2 term and, with the centers, its trimmed sum in
+//     rank order, in double (a float32 sum of ~800 ranks drifts ~2e-6 from
+//     the plain version's mean, past the trimmed mean's rtol 1e-5 where it
+//     is near 0), divided in double and rounded once.
+//   * The sums: G = wide_group(K) threads per candidate (the largest power of
+//     two with G K <= 256), so a thread owns at most 4 candidates (K =
+//     1,024) and keeps their running sums in registers over all its tiles;
+//     group g adds columns g, g + G, ... of each tile in order (read from
+//     global memory a second time, mostly from L2), and at the end the G
+//     groups, neighbouring lanes, are added by an xor butterfly.  The same
+//     terms as the register path, without fused multiply-adds:
+//     ref.robust_stats_kernel_order emulates this order too, and two
+//     bit-identical rows get bit-identical sums.
+//   * One CTA an SM (__launch_bounds__(256, 1)): a thread's run and its sums
+//     take 255 registers without spilling (at two an SM, 128 registers
+//     spilled 840 bytes and the CTAs ran slower, PERF.md section 6).
+//   * Each CTA's totals to its row of (N, B, 6K+1), then the last-CTA ticket,
+//     as the register path.
 //
 // No fast-math: the padding is +inf and NaN must be detected.
 
@@ -98,6 +139,11 @@ constexpr int kMaxStages = 6;
 constexpr int kInFlightBytes = 32 << 10;  // tiles in flight per CTA, at least
 constexpr int kMaxSmemBytes = 204 << 10;  // the ring and the med rows
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNetworkMaxK = 32;          // the register path's K
+constexpr int kWideMaxK = 1024;           // the wide path's
+constexpr int kWideSortBytes = 64 << 10;  // the wide sort buffer, at most ...
+constexpr int kWideMinTile = 16;          // ... (K = 1,024: 16 columns)
+constexpr int kWideMaxTile = 256;
 
 // fields of a partial row: F_COUNT blocks of K, then mednorm2 (the output
 // is (F_COUNT + 1, K) per node, mednorm2 at [F_COUNT, 0], zeros after it)
@@ -206,6 +252,40 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const float* u, const fl
     const float* src = (r < K ? u + (size_t)r * D : p + (size_t)(r - K) * D) + off;
     tile_stream::cp_async<VEC>(dst + 4u * (uint32_t)(r * kRow + col), src, in);
   }
+}
+
+// The last of a node's B CTAs, by a ticket (one atomicAdd on a per-node
+// counter, not on a sum), adds the node's B rows of F floats in block order
+// into its (F_COUNT + 1) K outputs (F = F_COUNT K + 1) (the fields, then mednorm2 and zeros) and
+// resets the counter.  Every thread of the CTA calls it once the CTA's row is
+// written; `last` is a __shared__ flag of the kernel.
+__device__ __forceinline__ void finish_node(const float* partials, unsigned* tickets,
+                                            float* out, size_t node, int B, int K,
+                                            int F, bool& last) {
+  const int tid = threadIdx.x;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + node, 1u) == (unsigned)(B - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* rows0 = partials + node * B * (size_t)F;
+  const int n_out = (F_COUNT + 1) * K;  // the fields, then mednorm2 and zeros
+  for (int q = tid; q < n_out; q += kThreads) {
+    float t = 0.f;
+    int r = 0;
+    // 32 loads in flight, then their adds in block order
+    for (; q < F && r + 32 <= B; r += 32) {
+      float v[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) v[e] = __ldcg(rows0 + (size_t)(r + e) * F + q);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) t = __fadd_rn(t, v[e]);
+    }
+    for (; q < F && r < B; ++r) t = __fadd_rn(t, __ldcg(rows0 + (size_t)r * F + q));
+    out[node * n_out + q] = t;
+  }
+  if (tid == 0) tickets[node] = 0u;
 }
 
 template <int KP, int KS, bool kCenter>
@@ -351,29 +431,7 @@ stats_kernel(const Args a) {
   }
 
   // ---- the node's totals: the last of its B CTAs adds the rows in order ----
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(a.tickets + node, 1u) == (unsigned)(B - 1);
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const float* rows0 = a.partials + node * B * (size_t)F;
-  const int n_out = (F_COUNT + 1) * K;  // the fields, then mednorm2 and zeros
-  for (int q = tid; q < n_out; q += kThreads) {
-    float t = 0.f;
-    int r = 0;
-    // 32 loads in flight, then their adds in block order
-    for (; q < F && r + 32 <= B; r += 32) {
-      float v[32];
-#pragma unroll
-      for (int e = 0; e < 32; ++e) v[e] = __ldcg(rows0 + (size_t)(r + e) * F + q);
-#pragma unroll
-      for (int e = 0; e < 32; ++e) t = __fadd_rn(t, v[e]);
-    }
-    for (; q < F && r < B; ++r) t = __fadd_rn(t, __ldcg(rows0 + (size_t)r * F + q));
-    a.out[node * n_out + q] = t;
-  }
-  if (tid == 0) a.tickets[node] = 0u;
+  finish_node(a.partials, a.tickets, a.out, node, B, K, F, last);
 }
 
 using Kernel = void (*)(const Args);
@@ -393,6 +451,245 @@ Kernel pick_t(int K) {
 
 Kernel pick(int K, bool centers) { return centers ? pick_t<true>(K) : pick_t<false>(K); }
 
+// ---- the wide path (K > 32) ------------------------------------------------
+
+struct WideArgs {
+  const float* u;        // (N, K, D)
+  const float* prev;     // (N, K, D) or null
+  float* med;            // (N, D) or null (centers not wanted)
+  float* trim;           // (N, D) or null
+  float* partials;       // (N, B, F_COUNT K + 1): each CTA's totals
+  unsigned* tickets;     // (N,): 0 on entry, 0 again on exit
+  float* out;            // (N, F_COUNT + 1, K): mednorm2 at [n, F_COUNT, 0]
+  int K;
+  int kp;                // the sort width: K rounded up to a power of two
+  long long D;
+  int n_trim;
+  int tile;              // T coordinates per tile (wide_tile)
+};
+
+__host__ int wide_width(int K) {
+  int kp = 1;
+  while (kp < K) kp <<= 1;
+  return kp;
+}
+
+__host__ int wide_tile(int K) {
+  const size_t kp = (size_t)wide_width(K);
+  int t = kWideMaxTile;
+  while (t > kWideMinTile && kp * t * sizeof(float) > (size_t)kWideSortBytes) t >>= 1;
+  return t;
+}
+
+// a column's ranks a thread sorts in registers: KP T = 64 KB / 4 B = 16,384 =
+// kWideRun x 256 threads at every K of the wide path
+constexpr int kWideRun = 64;
+constexpr int kWideLogRun = 6;
+
+// compare-exchange of positions x < y: the smaller value to x when up
+__device__ __forceinline__ void cex(float& x, float& y, bool up) {
+  const float mn = fminf(x, y), mx = fmaxf(x, y);
+  x = up ? mn : mx;
+  y = up ? mx : mn;
+}
+
+// stages j = 32 .. 1 of bitonic step k on a thread's run of ranks base ..
+// base + 63 (every loop unrolled: the run stays in registers)
+__device__ __forceinline__ void run_merge(float (&v)[kWideRun], int base, int k) {
+#pragma unroll
+  for (int lj = kWideLogRun - 1; lj >= 0; --lj)
+#pragma unroll
+    for (int e = 0; e < kWideRun; ++e)
+      if ((e & (1 << lj)) == 0) cex(v[e], v[e + (1 << lj)], ((base + e) & k) == 0);
+}
+
+// threads per candidate in the sums: G, the largest power of two with
+// G K <= 256 (4 at K <= 64, 2 to 128, 1 above)
+__host__ __device__ int wide_group(int K) {
+  int g = 1;
+  while (2 * g * K <= kThreads) g *= 2;
+  return g;
+}
+
+// the sort buffer (KP, T), the med row (T) and the NaN flags (T)
+__host__ size_t wide_smem_bytes(int K) {
+  const int t = wide_tile(K);
+  return ((size_t)wide_width(K) * t + t) * sizeof(float) + (size_t)t * sizeof(int);
+}
+
+constexpr int kWideSlots = (kWideMaxK + kThreads - 1) / kThreads;  // candidates a thread, at most
+
+template <bool kCenter>
+__global__ void __launch_bounds__(kThreads, 1) wide_stats_kernel(const WideArgs a) {
+  extern __shared__ float4 smem4[];
+  float* srt = reinterpret_cast<float*>(smem4);  // (KP, T), rank-major
+  const int K = a.K, KP = a.kp, T = a.tile;
+  float* sMed = srt + (size_t)KP * T;            // (T,)
+  int* sNan = reinterpret_cast<int*>(sMed + T);  // (T,)
+  __shared__ float red[kWarps];
+  __shared__ bool last;
+
+  const long long D = a.D;
+  const bool has_prev = a.prev != nullptr;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t node = blockIdx.y;
+  const int b = blockIdx.x, B = gridDim.x;
+  const float* u = a.u + node * K * (size_t)D;
+  const float* p = has_prev ? a.prev + node * K * (size_t)D : nullptr;
+  const long long n_tiles = (D + T - 1) / T;
+  const int my = b < n_tiles ? (int)((n_tiles - 1 - b) / B + 1) : 0;
+  // the sort: thread (column col, run s) holds ranks base .. base + 63 of
+  // column col; KP / 64 = 256 / T runs a column
+  const int col = tid & (T - 1), base = (tid / T) * kWideRun;
+  // the sums: thread (slot base tid / G, group g) owns candidates tid / G +
+  // s 256 / G and adds columns g, g + G, ... of every tile
+  const int G = wide_group(K), g = tid & (G - 1), k0 = tid / G, kstep = kThreads / G;
+
+  float acc[kWideSlots][F_COUNT];
+#pragma unroll
+  for (int q = 0; q < kWideSlots; ++q)
+#pragma unroll
+    for (int f = 0; f < F_COUNT; ++f) acc[q][f] = 0.f;
+  if (tid < T) sNan[tid] = 0;
+  float mn2 = 0.f;
+
+  for (int i = 0; i < my; ++i) {
+    const long long c0 = (b + (long long)i * B) * T;
+    const bool in = c0 + col < D;
+    __syncthreads();  // the last tile's sums have read sMed; the buffer is free
+    // this thread's run of column col: rows base .. base + 63 (past K +inf,
+    // past D zeros: median 0, adds +0), loaded straight into registers
+    float v[kWideRun];
+    bool nan = false;
+#pragma unroll
+    for (int e = 0; e < kWideRun; ++e) {
+      const int r = base + e;
+      v[e] = r < K ? (in ? __ldg(u + (size_t)r * D + c0 + col) : 0.f) : INFINITY;
+      nan |= v[e] != v[e];
+    }
+    if (nan) sNan[col] = 1;
+    // every column sorted ascending by the bitonic network: steps k <= 64
+    // inside each run, in registers; above, the stages j >= 64 pair a run
+    // with another (through shared memory) and the rest run in registers
+#pragma unroll
+    for (int lk = 1; lk <= kWideLogRun; ++lk)
+#pragma unroll
+      for (int lj = lk - 1; lj >= 0; --lj)
+#pragma unroll
+        for (int e = 0; e < kWideRun; ++e)
+          if ((e & (1 << lj)) == 0)
+            cex(v[e], v[e + (1 << lj)], ((base + e) & (1 << lk)) == 0);
+    for (int k = 2 * kWideRun; k <= KP; k <<= 1) {
+      const bool up = (base & k) == 0;
+      for (int j = k >> 1; j >= kWideRun; j >>= 1) {
+#pragma unroll
+        for (int e = 0; e < kWideRun; ++e) srt[(base + e) * T + col] = v[e];
+        __syncthreads();
+        const bool lower = (base & j) == 0;  // this run holds the pairs' lower ranks
+#pragma unroll
+        for (int e = 0; e < kWideRun; ++e) {
+          const float w = srt[((base ^ j) + e) * T + col];
+          v[e] = lower == up ? fminf(v[e], w) : fmaxf(v[e], w);
+        }
+        __syncthreads();
+      }
+      run_merge(v, base, k);
+    }
+#pragma unroll
+    for (int e = 0; e < kWideRun; ++e) srt[(base + e) * T + col] = v[e];
+    __syncthreads();
+    // column tid: the median, its mednorm2 term, the trimmed sum in rank order
+    if (tid < T) {
+      const bool bad = sNan[tid] != 0;
+      sNan[tid] = 0;  // no one reads it again before the next tile's loads
+      const float mlo = srt[((K - 1) >> 1) * T + tid], mhi = srt[(K >> 1) * T + tid];
+      float med = (K & 1) ? mhi : __fmul_rn(0.5f, __fadd_rn(mlo, mhi));
+      if (bad) med = __int_as_float(0x7fc00000);
+      sMed[tid] = med;
+      add_term(mn2, med, med);
+      if constexpr (kCenter) {
+        const long long j = c0 + tid;
+        if (j < D) {
+          // up to 1,024 ranks: summed in double, so the trimmed mean stays
+          // within a float32 rounding of the exact one
+          double tsum = 0.0;
+          for (int r = a.n_trim; r < K - a.n_trim; ++r) tsum += (double)srt[r * T + tid];
+          const float tr = (float)(tsum / (double)(K - 2 * a.n_trim));
+          a.med[node * D + j] = med;
+          a.trim[node * D + j] = bad ? __int_as_float(0x7fc00000) : tr;
+        }
+      }
+    }
+    __syncthreads();
+    // the tile's sums: each owned candidate's columns g, g + G, ... in order,
+    // read from global memory again (mostly from L2), eight loads in flight
+    // (T / G is a multiple of 8: 16 at K = 1,024, 32 or 64 below)
+#pragma unroll
+    for (int q = 0; q < kWideSlots; ++q) {
+      const int k = k0 + q * kstep;
+      if (k >= K) continue;
+      const float* x_row = u + (size_t)k * D + c0;
+      const float* p_row = has_prev ? p + (size_t)k * D + c0 : nullptr;
+      for (int c = g; c < T; c += 8 * G) {
+        float xs[8], ps[8];
+#pragma unroll
+        for (int h = 0; h < 8; ++h) {
+          const int cc = c + h * G;
+          const bool inc = c0 + cc < D;
+          xs[h] = inc ? __ldg(x_row + cc) : 0.f;
+          ps[h] = inc && has_prev ? __ldg(p_row + cc) : 0.f;
+        }
+#pragma unroll
+        for (int h = 0; h < 8; ++h) {
+          const float x = xs[h], m = sMed[c + h * G];
+          const float dd = __fsub_rn(x, m);
+          add_term(acc[q][F_D2], dd, dd);
+          add_term(acc[q][F_DM], x, m);
+          add_term(acc[q][F_N2], x, x);
+          if (has_prev) {
+            const float pv = ps[h];
+            const float dp = __fsub_rn(x, pv);
+            add_term(acc[q][F_PD2], dp, dp);
+            add_term(acc[q][F_PDT], x, pv);
+            add_term(acc[q][F_PN2], pv, pv);
+          }
+        }
+      }
+    }
+  }
+
+  // ---- this CTA's totals, in a fixed order, to its own row ----------------
+  // a candidate's G groups by an xor butterfly over their G neighbouring lanes
+  const int F = F_COUNT * K + 1;
+  float* row = a.partials + (node * B + b) * (size_t)F;
+#pragma unroll
+  for (int q = 0; q < kWideSlots; ++q) {
+    const int k = k0 + q * kstep;
+#pragma unroll
+    for (int f = 0; f < F_COUNT; ++f) {
+      float v = acc[q][f];
+      for (int o = G >> 1; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
+      if (g == 0 && k < K) row[f * K + k] = v;
+    }
+  }
+  const float m2 = warp_sum(mn2);
+  if (lane == 0) red[warp] = m2;
+  __syncthreads();
+  if (tid == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t = __fadd_rn(t, red[w]);
+    row[F_COUNT * K] = t;
+  }
+  finish_node(a.partials, a.tickets, a.out, node, B, K, F, last);
+}
+
+using WideKernel = void (*)(const WideArgs);
+
+WideKernel pick_wide(bool centers) {
+  return centers ? wide_stats_kernel<true> : wide_stats_kernel<false>;
+}
+
 // stages of the ring: enough to keep kInFlightBytes of tiles in flight (a
 // tile is read while stages - 2 are in flight), within kMaxSmemBytes
 int plan_stages(int K, bool has_prev) {
@@ -408,7 +705,17 @@ size_t smem_bytes(int K, bool has_prev, int stages) {
   return ((size_t)stages * (has_prev ? 2 : 1) * K * kRow + 2 * kTile) * sizeof(float);
 }
 
-bool valid_shape(int K, int N) { return K >= 1 && K <= 32 && N >= 1 && N <= 65535; }
+bool valid_shape(int K, int N) { return K >= 1 && K <= kWideMaxK && N >= 1 && N <= 65535; }
+
+int launch_wide(const WideArgs& w, bool centers, int N, int n_blocks, cudaStream_t stream) {
+  const WideKernel kernel = pick_wide(centers);
+  const size_t smem = wide_smem_bytes(w.K);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(n_blocks, N), kThreads, smem, stream>>>(w);
+  return (int)cudaGetLastError();
+}
 
 int launch_any(const float* u, const float* prev, float* med, float* trim, float* partials,
                unsigned* tickets, float* out, int N, int K, long long D, int n_trim,
@@ -416,6 +723,10 @@ int launch_any(const float* u, const float* prev, float* med, float* trim, float
   if (!valid_shape(K, N) || D <= 0 || n_blocks <= 0 || n_trim < 0 || K - 2 * n_trim < 1 ||
       (med == nullptr) != (trim == nullptr) || tickets == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (K > kNetworkMaxK)
+    return launch_wide(WideArgs{u, prev, med, trim, partials, tickets, out, K, wide_width(K), D,
+                                n_trim, wide_tile(K)},
+                       med != nullptr, N, n_blocks, (cudaStream_t)stream);
   const bool has_prev = prev != nullptr;
   Args a{u, prev, med, trim, partials, tickets, out, K, D, n_trim,
          plan_stages(K, has_prev), tile_stream::copy_width(D, {u, prev})};
@@ -436,7 +747,8 @@ int launch_any(const float* u, const float* prev, float* med, float* trim, float
 // wanted; prev may be null.  tickets is a zeroed (N,) uint32 buffer the
 // kernel leaves zeroed; partials holds each CTA's totals.
 //
-// One matrix u (K, D), prev (K, D); med / trim (D,); partials is
+// K <= 1024 (K > 32 on the wide path).  One matrix u (K, D), prev (K, D);
+// med / trim (D,); partials is
 // (n_blocks, 6K+1); out is (7, K): rows dist2, dotmed, norm2, prev_dist2,
 // prev_dot, prev_norm2 (0 without prev), then mednorm2 and K - 1 zeros.
 extern "C" int robust_stats_launch(const float* u, const float* prev, float* med,
@@ -459,15 +771,19 @@ extern "C" int robust_stats_batch_launch(const float* u, const float* prev, floa
 }
 
 // The launch plan for K candidates on the current device, launching
-// nothing: plan[0] the ring's stages, plan[1] the tile width in
-// coordinates, plan[2] the CTAs one SM holds at once (the occupancy of the
-// instance the launch would take), plan[3] the network's template width and
-// plan[4] 1 where the instance is specialised on K (no padding wires).
+// nothing: plan[0] the ring's stages (1 on the wide path: no ring),
+// plan[1] the tile width in coordinates, plan[2] the CTAs one SM holds at
+// once (the occupancy of the instance the launch would take), plan[3] the
+// network's template width (the wide path's sort width), plan[4] 1 where
+// the instance is specialised on K (no padding wires) and plan[5] 1 on the
+// wide path (K > 32).
 extern "C" int robust_stats_plan(int K, int has_prev, int need_center, int* plan) {
   if (!valid_shape(K, 1)) return (int)cudaErrorInvalidValue;
-  const int stages = plan_stages(K, has_prev != 0);
-  const Kernel kernel = pick(K, need_center != 0);
-  const size_t smem = smem_bytes(K, has_prev != 0, stages);
+  const bool wide = K > kNetworkMaxK;
+  const int stages = wide ? 1 : plan_stages(K, has_prev != 0);
+  const void* kernel = wide ? (const void*)pick_wide(need_center != 0)
+                            : (const void*)pick(K, need_center != 0);
+  const size_t smem = wide ? wide_smem_bytes(K) : smem_bytes(K, has_prev != 0, stages);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -475,9 +791,10 @@ extern "C" int robust_stats_plan(int K, int has_prev, int need_center, int* plan
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   plan[0] = stages;
-  plan[1] = kTile;
+  plan[1] = wide ? wide_tile(K) : kTile;
   plan[2] = per_sm;
-  plan[3] = K <= 8 ? 8 : K <= 16 ? 16 : 32;
-  plan[4] = K == 8 || K == 16 || K == 20 || K == 32;
+  plan[3] = wide ? wide_width(K) : K <= 8 ? 8 : K <= 16 ? 16 : 32;
+  plan[4] = !wide && (K == 8 || K == 16 || K == 20 || K == 32);
+  plan[5] = wide;
   return 0;
 }

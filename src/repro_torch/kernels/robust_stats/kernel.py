@@ -31,11 +31,15 @@
   ``wfagg()`` and the CFL server call it; and ``robust_stats_batch_pallas``
   (``kernel.py:652``, ``d_axis=1``, kernel 5), the same for every node of
   a gathered (N, K, D) tensor, as the gathered ``wfagg_batch`` calls it.
-  Bound by bytes.  B CTAs per node (B N about the CTAs the card holds,
-  from the instance's occupancy: ``stats_plan``) stream the node's tiles
-  through a ring of ``cp.async`` stages, sort each coordinate with an
-  odd-even merge network of ``fminf``/``fmaxf`` and a per-column NaN flag,
-  sum every term in float32 without fused multiply-adds (so
+  Any K up to ``MAX_K`` = 1,024.  B CTAs per node (B N about the CTAs the
+  card holds, from the instance's occupancy: ``stats_plan``) take the
+  node's tiles; at K <= 32 (the register path, bound by bytes) they
+  stream them through a ring of ``cp.async`` stages and sort each
+  coordinate with an odd-even merge network of ``fminf``/``fmaxf`` in
+  registers; at K > 32 (the wide path) they sort a tile's columns with a
+  bitonic network, each column's 64-rank runs in registers and only the
+  stages pairing runs in shared memory.  Both keep a per-column NaN flag, sum
+  every term in float32 without fused multiply-adds (so
   ``ref.robust_stats_kernel_order`` reproduces the sums bit for bit), and
   the last CTA of a node, by a ticket, adds the CTAs' totals in block
   order: one launch per call.
@@ -64,8 +68,12 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "wfagg_round.cu"
 STATS_SOURCE = CSRC / "robust_stats.cu"
 INDEXED_SOURCE = CSRC / "robust_stats_indexed.cu"
-MAX_K = 32
+MAX_K = 1024         # kernels 4 and 5 (robust_stats.cu: the wide path above 32)
+INDEXED_MAX_K = 32   # kernels 1 and 2 (wfagg_round.cu, robust_stats_indexed.cu)
 MAX_NODES = 65535  # nodes are the grid's y axis in kernels 1, 2 and 5
+# where the kernels' limits are lifted next
+PART_2 = "ROADMAP queue 2, item E (part 2)"
+BEYOND = "ROADMAP queue 2, item E"
 
 # Kernel launches so far in this process, one counter per kernel: bumped
 # once per launch, right where the kernel is launched.  A run that must
@@ -158,24 +166,28 @@ def stats_plan(N: int, K: int, D: int, has_prev: bool, need_center: bool,
                device) -> dict:
     """How ``robust_stats.cu`` runs N nodes of K candidates over D
     coordinates on ``device``, as its C side decides it (builds the
-    library if needed, launches nothing): ``stages`` of its ``cp.async``
-    ring, ``tile`` coordinates per tile, ``ctas_per_sm`` (the occupancy of
-    the instance), ``kp`` (the network's template width), ``specialised``
-    (no padding wires) and ``blocks``, the CTAs per node: the card's
-    resident CTAs shared among the N nodes, at least 1 and at most one per
-    tile, rounded down so the grid runs in one wave."""
+    library if needed, launches nothing): ``path`` ("network", the
+    register path at K <= 32, or "wide", the wide path above),
+    ``stages`` of its ``cp.async`` ring (1 on the wide path, which has
+    none), ``tile`` coordinates per tile, ``ctas_per_sm`` (the occupancy of
+    the instance), ``kp`` (the network's template width, or the wide
+    path's sort width), ``specialised`` (no padding wires) and ``blocks``,
+    the CTAs per node: the card's resident CTAs shared among the N nodes,
+    at least 1 and at most one per tile, rounded down so the grid runs in
+    one wave."""
     dev = torch.device(device)
     key = (K, bool(has_prev), bool(need_center), dev)
     plan = _plans.get(key)
     if plan is None:
         fn = common.load(STATS_SOURCE, _bind_stats).robust_stats_plan
-        out = (ctypes.c_int * 5)()
+        out = (ctypes.c_int * 6)()
         with torch.cuda.device(dev):
             err = fn(K, int(bool(has_prev)), int(bool(need_center)), out)
         common.launch_error("robust_stats_plan", err)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = dict(stages=out[0], tile=out[1], ctas_per_sm=out[2], kp=out[3],
-                    specialised=bool(out[4]), resident=out[2] * sms)
+        plan = dict(path="wide" if out[5] else "network", stages=out[0], tile=out[1],
+                    ctas_per_sm=out[2], kp=out[3], specialised=bool(out[4]),
+                    resident=out[2] * sms)
         _plans[key] = plan
     n_tiles = -(-D // plan["tile"])
     return dict(plan, blocks=max(1, min(n_tiles, plan["resident"] // N)))
@@ -259,8 +271,9 @@ def wfagg_round_indexed_cuda(
     dev = models.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"the round kernel takes 1 <= K <= {MAX_K}, got K={K}")
+    if not 1 <= K <= INDEXED_MAX_K:
+        raise ValueError(f"the round kernel takes 1 <= K <= {INDEXED_MAX_K}, got K={K} "
+                         f"({PART_2})")
     if not 1 <= N <= MAX_NODES:
         raise ValueError(f"the round kernel takes 1 <= N <= {MAX_NODES} nodes, "
                          f"got N={N}")
@@ -329,9 +342,9 @@ def robust_stats_indexed_cuda(
     dev = models.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"the indexed statistics kernel takes 1 <= K <= {MAX_K}, "
-                         f"got K={K}")
+    if not 1 <= K <= INDEXED_MAX_K:
+        raise ValueError(f"the indexed statistics kernel takes 1 <= K <= {INDEXED_MAX_K}, "
+                         f"got K={K} ({PART_2})")
     if not 1 <= N <= MAX_NODES:
         raise ValueError(f"the indexed statistics kernel takes 1 <= N <= {MAX_NODES} "
                          f"nodes, got N={N}")
@@ -378,7 +391,7 @@ def robust_stats_cuda(
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if not 1 <= K <= MAX_K:
         raise ValueError(f"the robust_stats kernel takes 1 <= K <= {MAX_K} "
-                         f"candidates, got K={K}")
+                         f"candidates, got K={K} ({BEYOND})")
     _check("updates", updates, torch.float32, (K, D), dev)
     if prev is not None:
         _check("prev", prev, torch.float32, (K, D), dev)
@@ -408,7 +421,7 @@ def robust_stats_batch_cuda(
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if not 1 <= K <= MAX_K:
         raise ValueError(f"the robust_stats_batch kernel takes 1 <= K <= {MAX_K} "
-                         f"candidates, got K={K}")
+                         f"candidates, got K={K} ({BEYOND})")
     if not 1 <= N <= MAX_NODES:
         raise ValueError(f"the robust_stats_batch kernel takes 1 <= N <= {MAX_NODES} "
                          f"nodes, got N={N}")

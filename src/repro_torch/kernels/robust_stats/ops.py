@@ -48,15 +48,11 @@ def robust_stats(
     """Median / trimmed-mean / WFAgg filter statistics over (K, d) in one
     pass.  With ``prev`` the WFAgg-T temporal tail (prev_dist2 / prev_dot /
     prev_norm2) comes too; ``need_center=False`` skips the (d,)-sized
-    median and trimmed mean (``med``/``trim`` come back None).  K <= 32 on
-    every device (the kernel's limit)."""
+    median and trimmed mean (``med``/``trim`` come back None).  Any K on
+    the CPU; K <= ``kernel.MAX_K`` (1,024) on the card, where the kernel
+    raises past it."""
     if updates.ndim != 2:
         raise ValueError(f"updates must be (K, d), got {tuple(updates.shape)}")
-    K = updates.shape[0]
-    if K > kernel.MAX_K:
-        raise ValueError(
-            f"robust_stats takes at most {kernel.MAX_K} candidates, got K={K} "
-            "(CFL with more than 32 nodes: ROADMAP queue 2, item 4)")
     if prev is not None and prev.shape != updates.shape:
         raise ValueError(f"prev has shape {tuple(prev.shape)}, expected "
                          f"{tuple(updates.shape)}")
@@ -79,15 +75,10 @@ def robust_stats_batch(
     """``robust_stats`` for every node of a gossip round at once, over the
     gathered (N, K, d) tensor: one launch of the batched kernel.  Every
     ``RobustStats`` field gains a leading N axis (``mednorm2`` (N,);
-    ``med``/``trim`` (N, d), None without ``need_center``).  K <= 32 on
-    every device (the kernel's limit)."""
+    ``med``/``trim`` (N, d), None without ``need_center``).  Any K on the
+    CPU; K <= ``kernel.MAX_K`` (1,024) on the card."""
     if updates.ndim != 3:
         raise ValueError(f"updates must be (N, K, d), got {tuple(updates.shape)}")
-    K = updates.shape[1]
-    if K > kernel.MAX_K:
-        raise ValueError(
-            f"robust_stats_batch takes at most {kernel.MAX_K} candidates, got K={K} "
-            "(ROADMAP queue 2, item 4)")
     if prev is not None and prev.shape != updates.shape:
         raise ValueError(f"prev has shape {tuple(prev.shape)}, expected "
                          f"{tuple(updates.shape)}")
@@ -127,6 +118,14 @@ def _check_prev(models: torch.Tensor, prev: Optional[torch.Tensor],
                          f"{tuple(models.shape)}")
 
 
+def _check_degree(name: str, K: int) -> None:
+    """The gather-free kernels (1, 2 and 3) take K <= 32 neighbours; the
+    gossip round at a larger degree is refused on every device alike."""
+    if K > kernel.INDEXED_MAX_K:
+        raise ValueError(f"{name} takes at most {kernel.INDEXED_MAX_K} neighbours, got "
+                         f"K={K} ({kernel.PART_2})")
+
+
 def _i32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.to(torch.int32).contiguous()
 
@@ -153,12 +152,11 @@ def robust_stats_indexed(
     transport's last served payload of each edge; or a per-edge (N, K, d)
     tensor, the gathered path's state), and with ``need_gram``
     each node's (K, K) candidate Gram in ``gram``.  Statistics of padded
-    slots are finite values the caller masks with ``valid``.  K <= 32."""
+    slots are finite values the caller masks with ``valid``.  K <= 32 on
+    every device (kernels 1 and 2's limit)."""
     N, K = neighbor_idx.shape
     M, d = models.shape
-    if K > kernel.MAX_K:
-        raise ValueError(f"robust_stats_indexed takes at most {kernel.MAX_K} "
-                         f"neighbours, got K={K}")
+    _check_degree("robust_stats_indexed", K)
     dev = models.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"robust_stats_indexed runs on cuda or cpu, not {dev}")
@@ -220,8 +218,10 @@ def wfagg_round_indexed(
     (``mednorm2`` (N,); with a Multi-Krum or Clustering filter the (N, K, K)
     Gram too); the caller pushes the WFAgg-T ring buffers from its temporal
     tail.  ``mean_fallback`` selects the all-rejected behaviour: local
-    model (DFL, Eq. 3) or uniform valid mean.
+    model (DFL, Eq. 3) or uniform valid mean.  K <= 32 on every device
+    (kernel 1's limit).
     """
+    _check_degree("wfagg_round_indexed", neighbor_idx.shape[1])
     if tbands is not None and prev is None:
         raise ValueError(
             "tbands requires prev: the in-kernel WFAgg-T band compare "

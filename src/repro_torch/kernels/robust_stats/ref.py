@@ -129,10 +129,13 @@ def _fma(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
 
 
 def _butterfly(x: Tensor) -> Tensor:
-    """The xor butterfly over the last (32-lane) axis: lane 0's sum."""
-    lanes = torch.arange(32, device=x.device)
-    for o in (16, 8, 4, 2, 1):
+    """The xor butterfly over the last axis (32 lanes, or any power of
+    two): lane 0's sum."""
+    lanes = torch.arange(x.shape[-1], device=x.device)
+    o = x.shape[-1] // 2
+    while o:
         x = x + x[..., lanes ^ o]
+        o //= 2
     return x[..., 0]
 
 
@@ -313,12 +316,73 @@ def robust_stats_batch_ref(updates: Tensor, prev: Optional[Tensor] = None,
     return center_stats(u, med, trim, prev)
 
 
+NETWORK_MAX_K = 32          # K of csrc/robust_stats.cu's register network; above: the wide path
+WIDE_SORT_BYTES = 64 << 10  # the wide path's sort buffer, at most (kWideSortBytes) ...
+WIDE_MIN_TILE = 16
+WIDE_MAX_TILE = 256
+
+
+def wide_width(K: int) -> int:
+    """The wide path's sort width: K rounded up to a power of two (the rows
+    past K hold +inf)."""
+    return 1 << (K - 1).bit_length()
+
+
+def wide_tile(K: int) -> int:
+    """Coordinates per tile of the wide path (``wide_tile`` in
+    ``csrc/robust_stats.cu``): the widest power of two up to 256 whose
+    (width, tile) sort buffer fits ``WIDE_SORT_BYTES`` (16 at K = 1,024)."""
+    t = WIDE_MAX_TILE
+    while t > WIDE_MIN_TILE and wide_width(K) * t * 4 > WIDE_SORT_BYTES:
+        t //= 2
+    return t
+
+
+def wide_group(K: int) -> int:
+    """Threads per candidate in the wide path's sums (``wide_group`` in
+    ``csrc/robust_stats.cu``): the largest power of two G with G K <=
+    256."""
+    g = 1
+    while 2 * g * K <= 256:
+        g *= 2
+    return g
+
+
+def bitonic_sort(wires: Tensor) -> Tensor:
+    """Columns of ``wires (..., KP, D)`` (KP a power of two) sorted along
+    the KP axis by the wide path's bitonic network: stage (k, j) pairs row
+    ``lo = 2j (p // j) + p % j`` with ``lo + j`` for p < KP/2, the smaller
+    value to ``lo`` where ``lo & k == 0`` (ascending blocks) and to ``lo +
+    j`` otherwise, with ``torch.fmin`` / ``torch.fmax`` (a NaN is dropped,
+    as ``fminf`` / ``fmaxf`` drop it).  The kernel runs the same stages,
+    those inside a 64-rank run in registers; a network's output does not
+    depend on where its compare-exchanges run."""
+    KP = wires.shape[-2]
+    p = torch.arange(KP // 2, device=wires.device)
+    k = 2
+    while k <= KP:
+        j = k // 2
+        while j >= 1:
+            lo = 2 * j * (p // j) + p % j
+            hi = lo + j
+            up = ((lo & k) == 0)[:, None]
+            a, b = wires[..., lo, :], wires[..., hi, :]
+            mn, mx = torch.fmin(a, b), torch.fmax(a, b)
+            out = torch.empty_like(wires)
+            out[..., lo, :] = torch.where(up, mn, mx)
+            out[..., hi, :] = torch.where(up, mx, mn)
+            wires = out
+            j //= 2
+        k *= 2
+    return wires
+
+
 def network_pairs(K: int) -> list:
     """The compare-exchanges ``(lo, hi)`` of ``csrc/robust_stats.cu``'s
-    median network on K wires, in its order (``odd_even_sort``): Batcher's
-    odd-even merge sort on the template width (8, 16 or 32), every one
-    ascending (the smaller value to ``lo``), less those that touch a
-    padding wire ``>= K`` (they leave +inf in place)."""
+    median network on K <= 32 wires, in its order (``odd_even_sort``):
+    Batcher's odd-even merge sort on the template width (8, 16 or 32),
+    every one ascending (the smaller value to ``lo``), less those that
+    touch a padding wire ``>= K`` (they leave +inf in place)."""
     kp = 8 if K <= 8 else 16 if K <= 16 else 32
     lg = kp.bit_length() - 1
     pairs = []
@@ -344,19 +408,33 @@ def robust_stats_kernel_order(
     """``robust_stats_batch_ref`` of ``updates (N, K, D)`` (or ``(K, D)``,
     kernel 4's single matrix, then every field without the N axis)
     computed in the order of the CUDA kernels 4 and 5
-    (``csrc/robust_stats.cu``) with ``blocks`` CTAs per node: the median
-    network of ``network_pairs`` with ``torch.fmin`` / ``torch.fmax`` (a
-    NaN is dropped) and a per-column NaN flag that makes ``med`` and
-    ``trim`` NaN; ``trim`` the sorted ranks t .. K-t-1 added in rank order
-    and divided; D in tiles of 256 coordinates, CTA b taking tiles b, b +
-    B, ... (B = min(blocks, tiles)); per slot, lane i adding coordinates
-    4i .. 4i + 3 and 128 + 4i .. 128 + 4i + 3 of a tile, each term the
-    float32 value the plain version forms, into float32 running sums (no
-    fused multiply-add); the 32 lanes by an xor butterfly; mednorm2 per
-    thread (one coordinate of each tile), by warp butterflies and the 8
-    warps in order; then the B CTAs in block order.  Every operation is a
-    float32 operation the kernel also performs, so on the same inputs the
-    results equal the kernel's bit for bit."""
+    (``csrc/robust_stats.cu``) with ``blocks`` CTAs per node.
+
+    K <= 32, the register path: the median network of ``network_pairs``
+    with ``torch.fmin`` / ``torch.fmax`` (a NaN is dropped) and a
+    per-column NaN flag that makes ``med`` and ``trim`` NaN; ``trim`` the
+    sorted ranks t .. K-t-1 added in rank order and divided; D in tiles of
+    256 coordinates, CTA b taking tiles b, b + B, ... (B = min(blocks,
+    tiles)); per slot, lane i adding coordinates 4i .. 4i + 3 and 128 + 4i
+    .. 128 + 4i + 3 of a tile, each term the float32 value the plain
+    version forms, into float32 running sums (no fused multiply-add); the
+    32 lanes by an xor butterfly; mednorm2 per thread (one coordinate of
+    each tile), by warp butterflies and the 8 warps in order; then the B
+    CTAs in block order.
+
+    K > 32, the wide path: each column's K values and ``wide_width(K) -
+    K`` rows of +inf through ``bitonic_sort``, the same NaN flag and
+    median, the trimmed sum in rank order in float64, divided there and
+    rounded to float32 once; D in tiles of ``wide_tile(K)`` coordinates dealt to
+    the CTAs as above; per slot, ``wide_group(K)`` = G groups, group g
+    adding coordinates g, g + G, ... of each of its CTA's tiles in order into
+    one float32 running sum, the G groups by an xor butterfly; mednorm2 per
+    thread (thread t the tile's coordinate t), by warp butterflies and the
+    warps in order; then the B CTAs in block order.
+
+    Every operation is a float32 (the wide trimmed sum: float64) operation
+    the kernel also performs, so on the same inputs the results equal the
+    kernel's bit for bit."""
     single = updates.ndim == 2
     u = updates.to(torch.float32)
     pe = None if prev is None else prev.to(torch.float32)
@@ -364,54 +442,82 @@ def robust_stats_kernel_order(
         u = u[None]
         pe = None if pe is None else pe[None]
     N, K, D = u.shape
+    wide = K > NETWORK_MAX_K
 
-    # the median network and the NaN flag
-    wires = list(u.unbind(1))
-    for lo, hi in network_pairs(K):
-        a, b = wires[lo], wires[hi]
-        wires[lo], wires[hi] = torch.fmin(a, b), torch.fmax(a, b)
+    # the median network (or the bitonic sort) and the NaN flag
+    if wide:
+        inf = torch.full((N, wide_width(K) - K, D), torch.inf, device=u.device)
+        wires = list(bitonic_sort(torch.cat([u, inf], 1)).unbind(1))
+    else:
+        wires = list(u.unbind(1))
+        for lo, hi in network_pairs(K):
+            a, b = wires[lo], wires[hi]
+            wires[lo], wires[hi] = torch.fmin(a, b), torch.fmax(a, b)
     nan = torch.isnan(u).any(1)                          # (N, D)
     med = wires[K // 2] if K % 2 == 1 else 0.5 * (wires[K // 2 - 1] + wires[K // 2])
     med = torch.where(nan, torch.nan, med)
     trim = None
     if need_center:
         t = trim_count(K, beta)
-        tsum = torch.zeros_like(med)
+        # the register path sums in float32, the wide path in double
+        acc = torch.float64 if wide else torch.float32
+        tsum = torch.zeros_like(med, dtype=acc)
         for r in range(t, K - t):
-            tsum = tsum + wires[r]
-        trim = torch.where(nan, torch.nan, tsum / torch.full_like(tsum, K - 2 * t))
+            tsum = tsum + wires[r].to(acc)
+        trim = (tsum / torch.full_like(tsum, K - 2 * t)).float()
+        trim = torch.where(nan, torch.nan, trim)
 
-    n_tiles = -(-D // KERNEL_TILE)
+    T = wide_tile(K) if wide else KERNEL_TILE
+    n_tiles = -(-D // T)
     B = min(blocks, n_tiles)
     my = -(-n_tiles // B)                                # tiles of CTA 0, the most
-    pad = my * B * KERNEL_TILE - D
+    pad = my * B * T - D
     exists = (torch.arange(my)[:, None] * B + torch.arange(B)[None, :]) < n_tiles
     exists = exists.to(u.device)
     tiles = lambda x: torch.nn.functional.pad(x, (0, pad)).reshape(  # noqa: E731
-        *x.shape[:-1], my, B, KERNEL_TILE)
+        *x.shape[:-1], my, B, T)
     U, M = tiles(u), tiles(med)                          # (N, K, my, B, T), (N, my, B, T)
     P = None if pe is None else tiles(pe)
-    lane = lambda X, i, q, e: X[..., i, :, :].reshape(  # noqa: E731
-        *X.shape[:-3], B, 2, 32, 4)[..., q, :, e]
     n_fields = 6 if P is not None else 3
-    acc = torch.zeros((n_fields, N, K, B, 32), dtype=torch.float32, device=u.device)
-    mn2 = torch.zeros((N, B, KERNEL_TILE), dtype=torch.float32, device=u.device)
-    for i in range(my):
-        live = exists[i][:, None]                        # (B, 1)
-        mi = M[:, i]                                     # (N, B, T)
-        mn2 = torch.where(live, mn2 + mi * mi, mn2)
-        for q in range(2):
-            for e in range(4):
-                x, m = lane(U, i, q, e), lane(M, i, q, e)[:, None]
-                dd = x - m
-                terms = [dd * dd, x * m, x * x]
-                if P is not None:
-                    p = lane(P, i, q, e)
-                    dp = x - p
-                    terms += [dp * dp, x * p, p * p]
-                acc = torch.where(live, acc + torch.stack(terms), acc)
-    fields = _in_order(_butterfly(acc))                  # (n_fields, N, K)
-    warps = _butterfly(mn2.reshape(N, B, KERNEL_WARPS, 32))
+
+    def terms(x, m, p):
+        dd = x - m
+        out = [dd * dd, x * m, x * x]
+        if p is not None:
+            dp = x - p
+            out += [dp * dp, x * p, p * p]
+        return torch.stack(out)
+
+    mn2 = torch.zeros((N, B, T), dtype=torch.float32, device=u.device)
+    if wide:
+        G = wide_group(K)
+        acc = torch.zeros((n_fields, N, K, B, G), dtype=torch.float32, device=u.device)
+        for i in range(my):
+            live = exists[i][:, None]                    # (B, 1)
+            mi = M[:, i]                                 # (N, B, T)
+            mn2 = torch.where(live, mn2 + mi * mi, mn2)
+            for c in range(0, T, G):
+                x, m = U[..., i, :, c:c + G], mi[:, None, :, c:c + G]
+                p = None if P is None else P[..., i, :, c:c + G]
+                acc = torch.where(live, acc + terms(x, m, p), acc)
+        fields = _in_order(_butterfly(acc))              # (n_fields, N, K)
+    else:
+        lane = lambda X, i, q, e: X[..., i, :, :].reshape(  # noqa: E731
+            *X.shape[:-3], B, 2, 32, 4)[..., q, :, e]
+        acc = torch.zeros((n_fields, N, K, B, 32), dtype=torch.float32, device=u.device)
+        for i in range(my):
+            live = exists[i][:, None]                    # (B, 1)
+            mi = M[:, i]                                 # (N, B, T)
+            mn2 = torch.where(live, mn2 + mi * mi, mn2)
+            for q in range(2):
+                for e in range(4):
+                    x, m = lane(U, i, q, e), lane(M, i, q, e)[:, None]
+                    p = None if P is None else lane(P, i, q, e)
+                    acc = torch.where(live, acc + terms(x, m, p), acc)
+        fields = _in_order(_butterfly(acc))              # (n_fields, N, K)
+    if T < 32:                                           # warp 0's other lanes add 0
+        mn2 = torch.nn.functional.pad(mn2, (0, 32 - T))
+    warps = _butterfly(mn2.reshape(N, B, -1, 32))
     mednorm2 = _in_order(_in_order(warps))
     tail = tuple(fields[3:]) if P is not None else (None, None, None)
     st = RobustStats(med if need_center else None, trim, fields[0], fields[1],

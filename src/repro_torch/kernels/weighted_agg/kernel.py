@@ -34,7 +34,7 @@ from repro_torch.kernels import common
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "weighted_agg.cu"
 INDEXED_SOURCE = CSRC / "weighted_agg_indexed.cu"
-MAX_K = 32
+MAX_K = 32             # kernel 3 (weighted_agg_indexed.cu); kernel 7 takes any K
 MAX_NODES = 65535      # groups are the grid's y axis of weighted_agg_indexed.cu
 
 # combine_plan's choices.  weighted_agg_indexed.cu owns the shared-memory
@@ -178,7 +178,8 @@ def weighted_agg_indexed_cuda(wvec: torch.Tensor,    # (N, K) f32, eff_alpha * w
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if not 1 <= K <= MAX_K or not 1 <= N <= MAX_NODES or D < 1:
         raise ValueError(f"the weighted_agg_indexed kernel takes 1 <= K <= {MAX_K}, "
-                         f"1 <= N <= {MAX_NODES} and D >= 1, got N={N}, K={K}, D={D}")
+                         f"1 <= N <= {MAX_NODES} and D >= 1, got N={N}, K={K}, D={D} "
+                         "(ROADMAP queue 2, item E (part 2))")
     for name, t, dtype, shape in (
             ("wvec", wvec, torch.float32, (N, K)), ("lcoef", lcoef, torch.float32, (N,)),
             ("local", local, torch.float32, (N, D)),

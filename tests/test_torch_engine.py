@@ -223,12 +223,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
                         neighbor_idx=torch.zeros((4, 2), dtype=torch.int64))
 
 
-@pytest.mark.parametrize("what", ["wfagg_d", "krum_irregular", "centralized",
-                                  "dynamic", "mesh", "gathered"])
+@pytest.mark.parametrize("what", ["wfagg_d", "krum_irregular", "degree_33",
+                                  "dynamic", "mesh"])
 def test_later_slices_raise(what):
     """Paths that still raise.  Those of later slices name their ROADMAP
-    item: more than 32 candidates (a CFL server over 33 nodes, a gathered
-    slate of 33).  Sharding without an initialised process group of
+    item: a gossip round on the single-launch backend at degree 33 (the
+    gather-free kernels take K <= 32 until item E's part 2; a CFL server
+    over 36 nodes and a gathered slate of 36 compute, held in
+    ``test_torch_many_paths.py``).  Sharding without an initialised process group of
     ``mesh_model_shards`` ranks raises ValueError (``distributed/spmd.py``;
     with a group it runs, ``test_torch_spmd.py``).  Those the reference
     itself refuses raise as it does: a standalone WFAgg filter has no
@@ -252,22 +254,17 @@ def test_later_slices_raise(what):
         assert fn(tengine.init_dfl_state(krum, irregular, device="cpu")).rnd == 1
         cfg, topo = tengine.DFLConfig(aggregator="wfagg_c"), irregular
         match = "no valid-mask-aware form"
-    elif what == "centralized":
-        cfg = tengine.DFLConfig(centralized=True, aggregator="wfagg", batches_per_round=1)
-        topo = make_topology(33, 4, 2, "ring")
-        exc, match = ValueError, "ROADMAP queue 2, item 4"
+    elif what == "degree_33":
+        cfg = tengine.DFLConfig(aggregator="wfagg", model="mlp", batches_per_round=1,
+                                wfagg_backend="fused")
+        topo = make_topology(34, 33, 2, "complete")
+        exc, match = ValueError, r"ROADMAP queue 2, item E \(part 2\)"
     elif what == "mesh":
         cfg = tengine.DFLConfig(mesh_model_shards=2)
         exc, match = ValueError, "initialised torch.distributed"
     elif what == "dynamic":
         cfg, kw = tengine.DFLConfig(aggregator="wfagg_t"), {"dynamic": True}
         match = "no valid-mask-aware form"
-    elif what == "gathered":
-        exc = ValueError
     with pytest.raises(exc, match=match):
-        if what == "gathered":
-            u = torch.zeros((4, 33, 8))
-            twf.wfagg_batch(u[:, 0], u, None, twf.WFAggConfig(), device="cpu")
-        else:
-            fn = tengine.build_round_fn(cfg, topo, data, device="cpu", **kw)
-            fn(tengine.init_dfl_state(cfg, topo, device="cpu"))
+        fn = tengine.build_round_fn(cfg, topo, data, device="cpu", **kw)
+        fn(tengine.init_dfl_state(cfg, topo, device="cpu"))

@@ -142,9 +142,14 @@ def test_robust_stats_batch_nan_row_propagates_like_the_pallas_network():
 
 
 def test_robust_stats_batch_limits_and_device_dispatch():
+    """A gathered slate of 33 computes; the round kernel of the indexed
+    form still refuses degree 33 (ROADMAP queue 2, item E, part 2)."""
     u = torch.as_tensor(_gathered(2, 33, 64, seed=1)[0])
-    with pytest.raises(ValueError, match="at most 32"):
-        tops.robust_stats_batch(u)
+    st = tops.robust_stats_batch(u)
+    assert st.dist2.shape == (2, 33) and torch.isfinite(st.dist2).all()
+    idx = torch.zeros((2, 33), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"item E \(part 2\)"):
+        tops.wfagg_round_indexed(u[:, 0], u[0], idx, None, twf.WFAggConfig())
     with pytest.raises(ValueError, match="prev has shape"):
         tops.robust_stats_batch(u[:, :4], prev=u[:, :3])
     with pytest.raises(ValueError, match=r"\(N, K, d\)"):

@@ -119,9 +119,14 @@ def test_weighted_agg_matches_pallas_kernel(weights):
 
 
 def test_limits_and_device_dispatch():
+    """A Gram of 33 candidates computes; the gather-free combine (kernel 3)
+    still refuses 33 neighbours (ROADMAP queue 2, item E, part 2)."""
     u = torch.as_tensor(models(33, 64, seed=1))
-    with pytest.raises(ValueError, match="at most 32"):
-        pops.pairwise_gram(u)
+    g, n = pops.pairwise_gram(u)
+    assert g.shape == (33, 33) and torch.equal(g, g.T)
+    with pytest.raises(ValueError, match=r"item E \(part 2\)"):
+        wops.weighted_agg_indexed(u[:2], u, torch.zeros((2, 33), dtype=torch.int32),
+                                  torch.ones((2, 33)))
     with pytest.raises(ValueError, match="cuda or cpu"):
         pops.pairwise_gram(u[:4].to("meta"))
     with pytest.raises(ValueError, match="CUDA tensors"):
