@@ -4,7 +4,7 @@
 // (src/repro/kernels/robust_stats/kernel.py:191), launched by
 // robust_stats_indexed_pallas (kernel.py:271): phase 0 of the round kernel
 // alone, the statistics launch of the two-launch backend.  For every
-// receiving node n with neighbour rows u_k = models[idx[n, k]] (k < K <= 32),
+// receiving node n with neighbour rows u_k = models[idx[n, k]] (k < K <= 1024),
 // read through the index table (the (N, K, D) gossip tensor never exists),
 // it computes the valid-masked coordinate-wise median med and
 //   dist2[n, k]  sum_d (u_k - med)^2     dotmed[n, k]  sum_d u_k * med
@@ -32,6 +32,8 @@
 // distributed shared memory and writes the node's outputs.  One launch: the
 // cluster replaces the earlier per-CTA partials buffer and the second,
 // finishing launch.  Identical rows get bit-identical sums and Gram rows.
+// Above K = 32 the body is indexed_wide.cuh's (the same cluster, columns
+// sorted in shared memory, the Gram by output tiles), still one launch.
 // What it still leaves on the table: each node reads its rows itself, and
 // only L2 serves a row to the other nodes that read it; the median network
 // sorts every padded wire; every term of the sums is converted to double.
@@ -46,6 +48,7 @@
 #include <stdint.h>
 
 #include "indexed_phase0.cuh"
+#include "indexed_wide.cuh"
 
 namespace {
 
@@ -98,6 +101,33 @@ cudaError_t launch_width(const phase0::Inputs& in, float* out, float* gram, int 
                          : launch<KP, false>(in, out, gram, N, stream);
 }
 
+// K = 33 .. 1024: the wide route of indexed_wide.cuh (its Gram written to the
+// output by the cluster), then rank 0 writes the node's statistics
+template <bool kGram>
+__global__ void __launch_bounds__(kThreads, 1)
+robust_stats_indexed_wide_kernel(const phase0::Inputs in, float* __restrict__ out,
+                                 float* __restrict__ gram) {
+  extern __shared__ __align__(16) float smem[];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int K = in.K, n = blockIdx.y, ns = F_COUNT * K + 1;
+  const phase0w::Layout L(K);
+  const phase0w::Smem sm(smem, L, K);
+  phase0w::node_totals<kGram>(in, sm, cluster, kGram ? gram + (size_t)n * K * K : nullptr);
+  if (cluster.block_rank() == 0) {
+    __syncthreads();
+    // [dist2 | dotmed | norm2 | prev_dist2 | prev_dot | prev_norm2 | mednorm2]
+    for (int q = threadIdx.x; q < ns; q += kThreads) out[(size_t)n * ns + q] = sm.tot[q];
+  }
+  cluster.sync();  // rank 0 has read every rank's totals
+}
+
+template <bool kGram>
+cudaError_t launch_wide(const phase0::Inputs& in, float* out, float* gram, int N,
+                        cudaStream_t stream) {
+  return phase0::cluster_launch(robust_stats_indexed_wide_kernel<kGram>,
+                                phase0w::smem_bytes(in.K), N, in.D, stream, in, out, gram);
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Launches one kernel on `stream`,
@@ -105,17 +135,21 @@ cudaError_t launch_width(const phase0::Inputs& in, float* out, float* gram, int 
 // launch.  prev, prev_idx and gram may be null (prev_idx needs prev; null
 // reads prev through idx).  out is (N, 6K + 1): [dist2 | dotmed | norm2 |
 // prev_dist2 | prev_dot | prev_norm2 | mednorm2] per node (the prev fields are
-// 0 without prev); gram is (N, K, K).
+// 0 without prev); gram is (N, K, K).  K <= 32 takes the register route, 33
+// .. 1024 the wide route.
 extern "C" int robust_stats_indexed_launch(const float* models, const int32_t* idx,
                                            const uint8_t* valid, const float* prev,
                                            const int32_t* prev_idx, float* out, float* gram,
                                            int N, int K, long long D, void* stream) {
-  if (N <= 0 || N > 65535 || K <= 0 || K > 32 || D <= 0 ||
+  if (N <= 0 || N > 65535 || K <= 0 || K > phase0w::kMaxK || D <= 0 ||
       (prev_idx != nullptr && prev == nullptr))
     return (int)cudaErrorInvalidValue;
   const phase0::Inputs in{models, idx, valid, prev, prev_idx, K, D,
                           tile_stream::copy_width(D, {models, prev})};
   const cudaStream_t s = (cudaStream_t)stream;
+  if (K > phase0w::kNarrowK)
+    return (int)(gram != nullptr ? launch_wide<true>(in, out, gram, N, s)
+                                 : launch_wide<false>(in, out, gram, N, s));
   if (K <= 8) return (int)launch_width<8>(in, out, gram, N, s);
   if (K <= 16) return (int)launch_width<16>(in, out, gram, N, s);
   return (int)launch_width<32>(in, out, gram, N, s);

@@ -11,7 +11,11 @@
   then combines its own tiles (the rows a second time).  With an Alt-WFAgg
   filter (Multi-Krum, Clustering) the Gram variant also accumulates each
   node's (K, K) Gram in register blocks and runs those filters in the
-  epilogue.  The ``prev_idx`` variant (chaos transport) reads ``prev``
+  epilogue.  Above K = 32 (to ``INDEXED_MAX_K`` = 1,024) the wide route
+  sorts a tile's columns in shared memory, writes the Gram by output
+  tiles and scores on rank 0's whole CTA (Clustering's merges in an
+  (N, K, K) device scratch allocated here); still one launch.  The
+  ``prev_idx`` variant (chaos transport) reads ``prev``
   through its own (N, K) table instead of the neighbour table; the
   per-edge variant (a per-edge (N, K, D) ``prev``, the state the gathered
   path carries) is the same launch on that tensor viewed as (N*K, D),
@@ -23,7 +27,8 @@
   the same ``prev_idx`` and per-edge variants), the statistics launch of
   the two-launch backend, in one launch; bound by bytes.  Both sources run
   one phase-0 body, ``csrc/indexed_phase0.cuh`` (with
-  ``csrc/valid_median.cuh`` and ``kernels/csrc/tile_stream.cuh``).
+  ``csrc/valid_median.cuh`` and ``kernels/csrc/tile_stream.cuh``), and
+  above K = 32 ``csrc/indexed_wide.cuh``.
 * ``csrc/robust_stats.cu`` replaces ``_robust_stats_kernel`` in both of
   its launches: ``robust_stats_pallas`` (``kernel.py:70`` / ``:136``,
   ``d_axis=0``, kernel 4), the median, trimmed mean and WFAgg filter
@@ -62,17 +67,17 @@ from repro_torch.core import trust
 from repro_torch.kernels import common
 from repro_torch.kernels.common import check_tensor as _check
 from repro_torch.kernels.common import ptr as _ptr
-from repro_torch.kernels.robust_stats.ref import RobustStats, trim_count
+from repro_torch.kernels.robust_stats.ref import INDEXED_NARROW_K, RobustStats, trim_count
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "wfagg_round.cu"
 STATS_SOURCE = CSRC / "robust_stats.cu"
 INDEXED_SOURCE = CSRC / "robust_stats_indexed.cu"
 MAX_K = 1024         # kernels 4 and 5 (robust_stats.cu: the wide path above 32)
-INDEXED_MAX_K = 32   # kernels 1 and 2 (wfagg_round.cu, robust_stats_indexed.cu)
+INDEXED_MAX_K = 1024  # kernels 1 and 2 (wfagg_round.cu, robust_stats_indexed.cu:
+#                       the wide route of indexed_wide.cuh above 32)
 MAX_NODES = 65535  # nodes are the grid's y axis in kernels 1, 2 and 5
 # where the kernels' limits are lifted next
-PART_2 = "ROADMAP queue 2, item E (part 2)"
 BEYOND = "ROADMAP queue 2, item E"
 
 # Kernel launches so far in this process, one counter per kernel: bumped
@@ -92,7 +97,7 @@ indexed_per_edge_launches = 0  # robust_stats_indexed.cu, per-edge prev
 def _bind_round(lib: ctypes.CDLL) -> None:
     fn = lib.wfagg_round_indexed_launch
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([P] * 20 + [I, I, ctypes.c_longlong, I, F, F, F, F, F, I,
+    fn.argtypes = ([P] * 21 + [I, I, ctypes.c_longlong, I, F, F, F, F, F, I,
                                 I, I, I, P])
     fn.restype = I
 
@@ -263,17 +268,19 @@ def wfagg_round_indexed_cuda(
     ``(out (N, D), weights (N, K), mask_d, mask_c, mask_t ((N, K) bool),
     stats)`` with ``stats`` a ``RobustStats`` of (N, K) / (N,) fields and,
     when ``cfg`` names a Multi-Krum or Clustering filter (the Gram
-    variant), the (N, K, K) Gram in ``stats.gram``.
+    variant), the (N, K, K) Gram in ``stats.gram``.  Above K = 32 with a
+    Clustering filter an (N, K, K) scratch of its merges is allocated here
+    too.
     """
     global launches, prev_idx_launches, per_edge_launches
     M, D = models.shape
     N, K = neighbor_idx.shape
     dev = models.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if not 1 <= K <= INDEXED_MAX_K:
         raise ValueError(f"the round kernel takes 1 <= K <= {INDEXED_MAX_K}, got K={K} "
-                         f"({PART_2})")
+                         f"({BEYOND})")
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if not 1 <= N <= MAX_NODES:
         raise ValueError(f"the round kernel takes 1 <= N <= {MAX_NODES} nodes, "
                          f"got N={N}")
@@ -298,6 +305,7 @@ def wfagg_round_indexed_cuda(
     tail = ([torch.empty((N, K), **f32) for _ in range(3)]
             if prev is not None else [None, None, None])
     gram = (torch.empty((N, K, K), **f32) if dist_krum or sim_cluster else None)
+    scratch = torch.empty((N, K, K), **f32) if sim_cluster and K > INDEXED_NARROW_K else None
     floor = float(np.float32(cfg.accept_threshold - 1e-9))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -305,7 +313,7 @@ def wfagg_round_indexed_cuda(
                  _ptr(prev), _ptr(prev_idx), _ptr(tbands), _ptr(out), _ptr(weights),
                  *(_ptr(m) for m in masks), _ptr(dist2), _ptr(dotmed),
                  _ptr(norm2), _ptr(mednorm2), *(_ptr(t) for t in tail),
-                 _ptr(gram), N, K, D, int(cfg.f), float(cfg.tau1),
+                 _ptr(gram), _ptr(scratch), N, K, D, int(cfg.f), float(cfg.tau1),
                  float(cfg.tau2), float(cfg.tau3), floor, float(alpha),
                  int(bool(mean_fallback)), dist_krum, sim_cluster, krum_m, stream)
     common.launch_error("wfagg_round_indexed", err)
@@ -340,11 +348,11 @@ def robust_stats_indexed_cuda(
     M, D = models.shape
     N, K = neighbor_idx.shape
     dev = models.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if not 1 <= K <= INDEXED_MAX_K:
         raise ValueError(f"the indexed statistics kernel takes 1 <= K <= {INDEXED_MAX_K}, "
-                         f"got K={K} ({PART_2})")
+                         f"got K={K} ({BEYOND})")
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if not 1 <= N <= MAX_NODES:
         raise ValueError(f"the indexed statistics kernel takes 1 <= N <= {MAX_NODES} "
                          f"nodes, got N={N}")

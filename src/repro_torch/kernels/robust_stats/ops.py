@@ -118,14 +118,6 @@ def _check_prev(models: torch.Tensor, prev: Optional[torch.Tensor],
                          f"{tuple(models.shape)}")
 
 
-def _check_degree(name: str, K: int) -> None:
-    """The gather-free kernels (1, 2 and 3) take K <= 32 neighbours; the
-    gossip round at a larger degree is refused on every device alike."""
-    if K > kernel.INDEXED_MAX_K:
-        raise ValueError(f"{name} takes at most {kernel.INDEXED_MAX_K} neighbours, got "
-                         f"K={K} ({kernel.PART_2})")
-
-
 def _i32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.to(torch.int32).contiguous()
 
@@ -152,11 +144,11 @@ def robust_stats_indexed(
     transport's last served payload of each edge; or a per-edge (N, K, d)
     tensor, the gathered path's state), and with ``need_gram``
     each node's (K, K) candidate Gram in ``gram``.  Statistics of padded
-    slots are finite values the caller masks with ``valid``.  K <= 32 on
-    every device (kernels 1 and 2's limit)."""
+    slots are finite values the caller masks with ``valid``.  Any K on the
+    CPU; K <= ``kernel.INDEXED_MAX_K`` (1,024) on the card, where the
+    kernel raises past it."""
     N, K = neighbor_idx.shape
     M, d = models.shape
-    _check_degree("robust_stats_indexed", K)
     dev = models.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"robust_stats_indexed runs on cuda or cpu, not {dev}")
@@ -218,10 +210,10 @@ def wfagg_round_indexed(
     (``mednorm2`` (N,); with a Multi-Krum or Clustering filter the (N, K, K)
     Gram too); the caller pushes the WFAgg-T ring buffers from its temporal
     tail.  ``mean_fallback`` selects the all-rejected behaviour: local
-    model (DFL, Eq. 3) or uniform valid mean.  K <= 32 on every device
-    (kernel 1's limit).
+    model (DFL, Eq. 3) or uniform valid mean.  Any K on the CPU; K <=
+    ``kernel.INDEXED_MAX_K`` (1,024) on the card, where the kernel raises
+    past it.
     """
-    _check_degree("wfagg_round_indexed", neighbor_idx.shape[1])
     if tbands is not None and prev is None:
         raise ValueError(
             "tbands requires prev: the in-kernel WFAgg-T band compare "

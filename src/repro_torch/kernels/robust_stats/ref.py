@@ -119,6 +119,8 @@ def robust_stats_indexed_ref(
 KERNEL_TILE = 256                # coordinates per tile (kTile)
 KERNEL_WARPS = 8                 # warps per CTA (kWarps)
 KERNEL_GROUPS = KERNEL_TILE // 4  # float4 groups of a tile row (kGroups)
+INDEXED_NARROW_K = 32            # the register route's K (kNarrowK); above: the wide route
+GRAM_CHUNK = 16                  # the wide route's Gram: coordinates a step (kGramChunk)
 
 
 def _fma(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
@@ -167,23 +169,35 @@ def robust_stats_indexed_kernel_order(
     by warp butterflies and the 8 warps in order; the Gram, in float32,
     per slice s of the S of each 4 x 4 block
     pair (float4 groups s, s + S, ... of each tile, one fmaf chain over
-    all tiles), the slices in order; then the C ranks in order.  A plain
-    version of the order, for the CPU tests; the sums equal the kernel's
-    but for a rare double rounding of the Gram's ``_fma``."""
+    all tiles), the slices in order; then the C ranks in order.
+
+    K > 32, the wide route (``csrc/indexed_wide.cuh``): the same cluster
+    of C ranks over tiles of ``wide_tile(K)`` coordinates; per slot,
+    ``wide_group(K)`` = G groups, group g adding columns g, g + G, ... of
+    each of its rank's tiles in order into running float64 sums, the G
+    groups in order; mednorm2 per thread as above; the Gram per rank one
+    fmaf chain an entry over the rank's coordinates in order (rank r
+    takes the 16-coordinate chunks [r P, (r + 1) P), P = ceil(chunks /
+    C)), the ranks in order.
+
+    A plain version of the order, for the CPU tests; the sums equal the
+    kernel's but for a rare double rounding of the Gram's ``_fma``."""
     idx = neighbor_idx.long()
     u = models[idx].to(torch.float32)                  # (N, K, D)
     N, K, D = u.shape
     v = (torch.ones((N, K), dtype=torch.bool, device=u.device) if valid is None
          else valid.to(torch.bool))
-    n_tiles = -(-D // KERNEL_TILE)
-    C = min(cluster, n_tiles)
+    wide = K > INDEXED_NARROW_K
+    T = wide_tile(K) if wide else KERNEL_TILE
+    C = min(cluster, -(-D // KERNEL_TILE))             # the cluster: 256-coordinate tiles
+    n_tiles = -(-D // T)
     my = -(-n_tiles // C)                              # tiles of rank 0, the most
-    pad = my * C * KERNEL_TILE - D
+    pad = my * C * T - D
     # tile t = i C + r of rank r exists while t < n_tiles: (my, C)
     exists = (torch.arange(my)[:, None] * C + torch.arange(C)[None, :]) < n_tiles
     exists = exists.to(u.device)
     tiles = lambda x: torch.nn.functional.pad(x, (0, pad)).reshape(  # noqa: E731
-        *x.shape[:-1], my, C, KERNEL_TILE)
+        *x.shape[:-1], my, C, T)
     med = valid_median(u, v)
     U, M = tiles(u), tiles(med)                        # (N, K, my, C, T), (N, my, C, T)
     P = None
@@ -192,6 +206,8 @@ def robust_stats_indexed_kernel_order(
             raise ValueError("prev_idx requires a matrix-form prev")
         pidx = idx if prev_idx is None else prev_idx.long()
         P = tiles((prev[pidx] if prev.ndim == 2 else prev).to(torch.float32))
+    if wide:
+        return _indexed_wide_order(u, U, M, P, exists, need_gram, C)
 
     # per-slot sums: fields (N, K, C, 32 lanes), float64
     lane = lambda X, i, p, e: X[..., i, :, :].reshape(  # noqa: E731
@@ -233,6 +249,47 @@ def robust_stats_indexed_kernel_order(
                     x = xg[..., e]                               # (N, K, C, S)
                     G = torch.where(live, _fma(x[:, :, None], x[:, None, :], G), G)
         gram = _in_order(_in_order(G))                 # slices, then ranks
+    tail = tuple(fields[3:]) if P is not None else (None, None, None)
+    return RobustStats(None, None, fields[0], fields[1], fields[2], mednorm2, *tail, gram)
+
+
+def _indexed_wide_order(u: Tensor, U: Tensor, M: Tensor, P: Optional[Tensor],
+                        exists: Tensor, need_gram: bool, C: int) -> RobustStats:
+    """The wide route's order (``robust_stats_indexed_kernel_order`` above
+    K = 32) on the tiled rows ``U (N, K, my, C, T)``, the tiled median ``M
+    (N, my, C, T)`` and prev ``P``."""
+    N, K, D = u.shape
+    T, G = U.shape[-1], wide_group(K)
+    n_fields = 6 if P is not None else 3
+    acc = torch.zeros((n_fields, N, K, C, G), dtype=torch.float64, device=u.device)
+    mn2 = torch.zeros((N, C, KERNEL_TILE), dtype=torch.float64, device=u.device)
+    for i in range(U.shape[-3]):
+        live = exists[i][:, None]                      # (C, 1)
+        for c in range(0, T, G):
+            x, m = U[..., i, :, c:c + G], M[:, i, :, c:c + G][:, None]
+            dd = x - m
+            terms = [dd * dd, x * m, x * x]
+            if P is not None:
+                q = P[..., i, :, c:c + G]
+                dp = x - q
+                terms += [dp * dp, x * q, q * q]
+            acc = torch.where(live, acc + torch.stack(terms).double(), acc)
+        mi = M[:, i]                                   # (N, C, T)
+        mn2[..., :T] = torch.where(live, mn2[..., :T] + (mi * mi).double(), mn2[..., :T])
+    fields = _in_order(_in_order(acc)).float()         # groups, then ranks
+    warps = _butterfly(mn2.reshape(N, C, KERNEL_WARPS, 32))
+    mednorm2 = _in_order(_in_order(warps)).float()
+
+    gram = None
+    if need_gram:
+        n_chunks = -(-D // GRAM_CHUNK)
+        span = -(-n_chunks // C) * GRAM_CHUNK          # coordinates of a rank
+        X = torch.nn.functional.pad(u, (0, C * span - D)).reshape(N, K, C, span)
+        Gr = torch.zeros((N, K, K, C), device=u.device)
+        for q in range(span):
+            x = X[..., q]                              # (N, K, C)
+            Gr = _fma(x[:, :, None], x[:, None, :], Gr)
+        gram = _in_order(Gr)                           # ranks
     tail = tuple(fields[3:]) if P is not None else (None, None, None)
     return RobustStats(None, None, fields[0], fields[1], fields[2], mednorm2, *tail, gram)
 

@@ -53,6 +53,13 @@
 //     pairs are one broadcast 16-byte shared read, a row's values one
 //     conflict-free vector read; the output goes straight to device memory
 //     in vectors of the copy width.
+//   * Any K up to 1,024.  Where even one node's distinct rows (min(M, K) + 1)
+//     do not fit three stages of the narrowest tile (K above ~600 over as
+//     many rows), the direct route takes over: grid (B, N), each CTA one
+//     node's share of D in vectors of the copy width, its K weights and row
+//     pointers in shared memory, the rows read from device memory in slot
+//     order (nothing to share when a group is one node).  The same order of
+//     operations: bit for bit the plain version too.
 // What it leaves on the table: the sums (shared memory carries every (node,
 // slot) value once, 4 N K D bytes) overlap the copies and the stores, but
 // not wholly; every CTA of a group repeats the set-up (G (K + 1) keys).  No
@@ -70,7 +77,8 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxK = 32;
+constexpr int kMaxK = 1024;
+constexpr int kDirectThreads = 256;    // the direct route's CTA
 constexpr int kMaxSmemBytes = 232448;  // 227 KB, what one CTA may use
 constexpr int kEmpty = -1;
 
@@ -266,7 +274,47 @@ combine_indexed_kernel(const Args a) {
   }
 }
 
+// The direct route: node blockIdx.y's out over vectors blockIdx.x, blockIdx.x
+// + B, ... of VEC coordinates a thread, in slot order from device memory.
+template <int VEC>
+__global__ void __launch_bounds__(kDirectThreads)
+combine_direct_kernel(const Args a) {
+  __shared__ float sw[kMaxK];
+  __shared__ const float* srow[kMaxK];
+  const int K = a.K, n = blockIdx.y, tid = threadIdx.x;
+  const long long D = a.D;
+  for (int k = tid; k < K; k += kDirectThreads) {
+    sw[k] = a.wvec[(size_t)n * K + k];
+    srow[k] = a.models + (size_t)a.idx[(size_t)n * K + k] * D;
+  }
+  const float lc = a.lcoef[n];
+  __syncthreads();
+  const float* loc = a.local + (size_t)n * D;
+  float* o = a.out + (size_t)n * D;
+  const long long step = (long long)gridDim.x * kDirectThreads * VEC;
+  // D % VEC == 0: a vector is all in or all out
+  for (long long j = ((long long)blockIdx.x * kDirectThreads + tid) * VEC; j < D; j += step) {
+    float r[VEC], x[VEC];
+    tile_stream::load_vec<VEC>(r, loc + j);
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) r[t] = __fmul_rn(lc, r[t]);
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      tile_stream::load_vec<VEC>(x, srow[k] + j);
+      const float w = sw[k];
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) r[t] = __fadd_rn(r[t], __fmul_rn(w, x[t]));
+    }
+    tile_stream::store_vec<VEC>(o + j, r);
+  }
+}
+
 using Kernel = void (*)(const Args);
+
+Kernel pick_direct(int vec) {
+  return vec == 4 ? combine_direct_kernel<4>
+                  : vec == 2 ? combine_direct_kernel<2> : combine_direct_kernel<1>;
+}
 
 template <int TV>
 Kernel pick_vec(int vec) {
@@ -288,11 +336,14 @@ size_t smem_bytes(int rows, int group, int K, int tile, int stages) {
 }
 
 // what the kernel itself needs of a plan: an instance for the tile, a ring
-// of at least two stages, groups on the grid's y axis
+// of at least two stages, groups on the grid's y axis; tile 0 is the direct
+// route (one node a group)
 bool launchable(int N, int K, int M, int group, int tile, int stages) {
-  return N >= 1 && N <= 65535 && K >= 1 && K <= kMaxK && M >= 1 &&
-         (long long)M + N < 0x7fffffffLL && group >= 1 && group <= N &&
-         (tile == 32 || tile == 64 || tile == 128) && stages >= 2;
+  const bool shape = N >= 1 && N <= 65535 && K >= 1 && K <= kMaxK && M >= 1 &&
+                     (long long)M + N < 0x7fffffffLL;
+  if (tile == 0) return shape && group == 1;
+  return shape && group >= 1 && group <= N && (tile == 32 || tile == 64 || tile == 128) &&
+         stages >= 2;
 }
 
 }  // namespace
@@ -300,8 +351,9 @@ bool launchable(int N, int K, int M, int group, int tile, int stages) {
 // Plain C entry point (bound with ctypes).  Launches one kernel on `stream`,
 // does not synchronise, allocates nothing; returns the cudaError_t of the
 // launch.  idx holds rows of models; group, tile and stages are
-// kernel.combine_plan's, n_blocks the CTAs per group.  Any alignment of
-// the float rows is taken (the copy width follows it).
+// kernel.combine_plan's (tile 0: the direct route, n_blocks CTAs a node),
+// n_blocks the CTAs per group.  Any alignment of the float rows is taken (the
+// copy width follows it).
 extern "C" int weighted_agg_indexed_launch(const float* wvec, const float* lcoef,
                                            const float* local, const float* models,
                                            const int32_t* idx, float* out, int N, int K,
@@ -309,6 +361,12 @@ extern "C" int weighted_agg_indexed_launch(const float* wvec, const float* lcoef
                                            int stages, int n_blocks, void* stream) {
   if (!launchable(N, K, M, group, tile, stages) || D <= 0 || n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
+  if (tile == 0) {
+    const Args a{wvec, lcoef, local, models, idx, out, N, K, M, D, 1, 0, 0,
+                 tile_stream::copy_width(D, {local, models, out}), false};
+    pick_direct(a.vec)<<<dim3(n_blocks, N), kDirectThreads, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   const int rows = (M < group * K ? M : group * K) + group;
   const size_t smem = smem_bytes(rows, group, K, tile, stages);
   if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
@@ -325,8 +383,12 @@ extern "C" int weighted_agg_indexed_launch(const float* wvec, const float* lcoef
 }
 
 // The CTAs one SM holds at once of the instance for this tile (16-byte
-// copies) at `smem` bytes of dynamic shared memory; launches nothing.
+// copies) at `smem` bytes of dynamic shared memory (tile 0: the direct
+// route's, smem ignored); launches nothing.
 extern "C" int weighted_agg_indexed_occupancy(int tile, int smem, int* per_sm) {
+  if (tile == 0)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, pick_direct(4),
+                                                              kDirectThreads, 0);
   if ((tile != 32 && tile != 64 && tile != 128) || smem <= 0 || smem > kMaxSmemBytes)
     return (int)cudaErrorInvalidValue;
   const Kernel kernel = pick(tile, 4);

@@ -12,7 +12,9 @@
   the rows read through the table (the combine launch of the two-launch
   backend).  A CTA combines a group of G nodes over its D-tiles and
   stages each distinct row the group's table reaches once per tile
-  (``combine_plan``).
+  (``combine_plan``); any K up to ``MAX_K`` = 1,024, and where one node's
+  distinct rows do not fit, the direct route reads them in slot order
+  from device memory.
 
 Both add each slot's float32 product in slot order without fused
 multiply-adds, so each equals its plain version (``ops.py``) bit for
@@ -34,8 +36,11 @@ from repro_torch.kernels import common
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "weighted_agg.cu"
 INDEXED_SOURCE = CSRC / "weighted_agg_indexed.cu"
-MAX_K = 32             # kernel 3 (weighted_agg_indexed.cu); kernel 7 takes any K
+MAX_K = 1024           # kernel 3 (weighted_agg_indexed.cu); kernel 7 takes any K
 MAX_NODES = 65535      # groups are the grid's y axis of weighted_agg_indexed.cu
+BEYOND = "ROADMAP queue 2, item E"   # where kernel 3's limit is lifted next
+DIRECT_THREADS = 256   # the direct route's CTA (kDirectThreads)
+DIRECT_VEC = 4         # coordinates a thread of it takes at once, at most
 
 # combine_plan's choices.  weighted_agg_indexed.cu owns the shared-memory
 # layout (_smem_bytes restates its sum) and checks only what it needs: an
@@ -90,7 +95,11 @@ def combine_plan(M: int, N: int, K: int, D: int, device=None) -> dict:
     * ``stages``: the fewest (at least 3) that keep 32 KB in flight (one
       tile read while stages - 1 are in flight), at most 8, within
       ``SMEM_BYTES`` with the slots' (weight, row) pairs; ``smem`` bytes;
-    * ``n_tiles`` D-tiles.
+    * ``n_tiles`` D-tiles;
+    * ``route`` "staged"; or "direct" where one node's rows do not fit three
+      stages of the narrowest tile (K above ~600 over as many rows): one node
+      a group, ``tile`` and ``stages`` 0, no shared ring (``smem`` 0), and
+      ``n_tiles`` the CTA-wide spans of ``DIRECT_THREADS`` vectors.
 
     With a CUDA ``device`` (the library built if needed, nothing launched)
     also ``ctas_per_sm``, the occupancy of that tile's instance at that
@@ -98,7 +107,8 @@ def combine_plan(M: int, N: int, K: int, D: int, device=None) -> dict:
     CTAs shared among the groups, at least 1, at most one per tile."""
     if not (M >= 1 and 1 <= N <= MAX_NODES and 1 <= K <= MAX_K and D >= 1):
         raise ValueError(f"combine_plan takes M >= 1, 1 <= N <= {MAX_NODES}, "
-                         f"1 <= K <= {MAX_K} and D >= 1, got M={M}, N={N}, K={K}, D={D}")
+                         f"1 <= K <= {MAX_K} and D >= 1, got M={M}, N={N}, K={K}, D={D} "
+                         f"({BEYOND})")
 
     def rows(g):
         return min(M, g * K) + g
@@ -106,25 +116,30 @@ def combine_plan(M: int, N: int, K: int, D: int, device=None) -> dict:
     def fits(g, tile, stages):
         return _smem_bytes(rows(g), g, K, tile, stages) <= SMEM_BYTES
 
-    lo, hi = 1, N                      # fits() falls as G grows
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        lo, hi = (mid, hi) if fits(mid, TILES[-1], MIN_STAGES) else (lo, mid - 1)
-    g = lo
-    tile = next(t for t in TILES if fits(g, t, MIN_STAGES))
-    stage = 4 * rows(g) * tile
-    stages = min(MAX_STAGES, max(MIN_STAGES, 1 + -(-IN_FLIGHT_BYTES // stage)))
-    while stages > MIN_STAGES and not fits(g, tile, stages):
-        stages -= 1
-    plan = dict(group=g, n_groups=-(-N // g), rows=rows(g), tile=tile, stages=stages,
-                smem=_smem_bytes(rows(g), g, K, tile, stages), n_tiles=-(-D // tile))
+    if not fits(1, TILES[-1], MIN_STAGES):
+        plan = dict(route="direct", group=1, n_groups=N, rows=rows(1), tile=0, stages=0,
+                    smem=0, n_tiles=-(-D // (DIRECT_THREADS * DIRECT_VEC)))
+    else:
+        lo, hi = 1, N                  # fits() falls as G grows
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if fits(mid, TILES[-1], MIN_STAGES) else (lo, mid - 1)
+        g = lo
+        tile = next(t for t in TILES if fits(g, t, MIN_STAGES))
+        stage = 4 * rows(g) * tile
+        stages = min(MAX_STAGES, max(MIN_STAGES, 1 + -(-IN_FLIGHT_BYTES // stage)))
+        while stages > MIN_STAGES and not fits(g, tile, stages):
+            stages -= 1
+        plan = dict(route="staged", group=g, n_groups=-(-N // g), rows=rows(g), tile=tile,
+                    stages=stages, smem=_smem_bytes(rows(g), g, K, tile, stages),
+                    n_tiles=-(-D // tile))
     if device is None or torch.device(device).type != "cuda":
         return plan
     dev = torch.device(device)
     out = (ctypes.c_int * 1)()
     with torch.cuda.device(dev):
         err = common.load(INDEXED_SOURCE, _bind_indexed).weighted_agg_indexed_occupancy(
-            tile, plan["smem"], out)
+            plan["tile"], plan["smem"], out)
     common.launch_error("weighted_agg_indexed_occupancy", err)
     resident = max(1, out[0]) * torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(plan, ctas_per_sm=out[0],
@@ -174,12 +189,12 @@ def weighted_agg_indexed_cuda(wvec: torch.Tensor,    # (N, K) f32, eff_alpha * w
     N, K = neighbor_idx.shape
     M, D = models.shape
     dev = models.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if not 1 <= K <= MAX_K or not 1 <= N <= MAX_NODES or D < 1:
         raise ValueError(f"the weighted_agg_indexed kernel takes 1 <= K <= {MAX_K}, "
                          f"1 <= N <= {MAX_NODES} and D >= 1, got N={N}, K={K}, D={D} "
-                         "(ROADMAP queue 2, item E (part 2))")
+                         f"({BEYOND})")
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     for name, t, dtype, shape in (
             ("wvec", wvec, torch.float32, (N, K)), ("lcoef", lcoef, torch.float32, (N,)),
             ("local", local, torch.float32, (N, D)),

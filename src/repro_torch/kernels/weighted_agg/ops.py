@@ -77,7 +77,8 @@ def weighted_agg_indexed(local: torch.Tensor, models: torch.Tensor,
     a_n) local[n] + a_n sum_k w'_nk models[idx[n, k]]`` with ``local (N,
     d)``, ``models (M, d)``, ``neighbor_idx (N, K)`` and trust ``weights
     (N, K)`` (0 on invalid slots).  A node whose weights sum to zero keeps
-    its local model.  K <= 32 on every device (kernel 3's limit)."""
+    its local model.  Any K on the CPU; K <= ``kernel.MAX_K`` (1,024) on the
+    card, where the kernel raises past it."""
     N, K = neighbor_idx.shape
     M, d = models.shape
     if local.shape != (N, d) or weights.shape != (N, K):
@@ -85,9 +86,6 @@ def weighted_agg_indexed(local: torch.Tensor, models: torch.Tensor,
                          f"(N, K), weights (N, K); got {tuple(local.shape)}, "
                          f"{tuple(models.shape)}, {tuple(neighbor_idx.shape)}, "
                          f"{tuple(weights.shape)}")
-    if K > kernel.MAX_K:
-        raise ValueError(f"weighted_agg_indexed takes at most {kernel.MAX_K} "
-                         f"neighbours, got K={K} (ROADMAP queue 2, item E (part 2))")
     dev = models.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"weighted_agg_indexed runs on cuda or cpu, not {dev}")

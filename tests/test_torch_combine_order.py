@@ -217,6 +217,6 @@ def test_combine_plan_takes_the_whole_slate(M, N, K, D):
 
 def test_combine_plan_splits_a_deep_stack_and_rejects_unported_shapes():
     assert wkernel.combine_plan(628, 48, 32, 20011)["group"] < 48
-    for M, N, K in ((64, 64, 33), (64, 65536, 8), (0, 4, 2)):
+    for M, N, K in ((64, 64, 1025), (64, 65536, 8), (0, 4, 2)):
         with pytest.raises(ValueError, match="combine_plan takes"):
             wkernel.combine_plan(M, N, K, 100)

@@ -39,6 +39,7 @@ from repro_torch.core.topology import make_topology, paper_topology
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.dfl import dynamics as tdyn
 from repro_torch.dfl import engine as tengine
+from repro_torch.kernels.robust_stats import kernel as tkernel
 from repro_torch.models.lenet import params_from_jax, ravel
 
 from _torch_fixtures import jax_batches
@@ -227,10 +228,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
                                   "dynamic", "mesh"])
 def test_later_slices_raise(what):
     """Paths that still raise.  Those of later slices name their ROADMAP
-    item: a gossip round on the single-launch backend at degree 33 (the
-    gather-free kernels take K <= 32 until item E's part 2; a CFL server
-    over 36 nodes and a gathered slate of 36 compute, held in
-    ``test_torch_many_paths.py``).  Sharding without an initialised process group of
+    item: the gather-free kernels past 1,025 neighbours (at degree 33 the
+    round computes, on the single-launch backend as on the two-launch one,
+    and the kernel refuses K = 1,025, naming item E; the DFL round above 32
+    is held against the reference in ``test_torch_many_neighbours_dfl.py``).
+    Sharding without an initialised process group of
     ``mesh_model_shards`` ranks raises ValueError (``distributed/spmd.py``;
     with a group it runs, ``test_torch_spmd.py``).  Those the reference
     itself refuses raise as it does: a standalone WFAgg filter has no
@@ -243,6 +245,11 @@ def test_later_slices_raise(what):
     cfg = tengine.DFLConfig()
     kw = {}
     exc, match = NotImplementedError, "ROADMAP"
+
+    def call():
+        fn = tengine.build_round_fn(cfg, topo, data, device="cpu", **kw)
+        fn(tengine.init_dfl_state(cfg, topo, device="cpu"))
+
     irregular = make_topology(10, 4, 2, "erdos_renyi", seed=3)
     assert not irregular.is_regular
     if what == "wfagg_d":
@@ -255,10 +262,25 @@ def test_later_slices_raise(what):
         cfg, topo = tengine.DFLConfig(aggregator="wfagg_c"), irregular
         match = "no valid-mask-aware form"
     elif what == "degree_33":
-        cfg = tengine.DFLConfig(aggregator="wfagg", model="mlp", batches_per_round=1,
-                                wfagg_backend="fused")
         topo = make_topology(34, 33, 2, "complete")
-        exc, match = ValueError, r"ROADMAP queue 2, item E \(part 2\)"
+        outs = {}
+        for backend in ("fused", "fused_two_launch"):
+            c = tengine.DFLConfig(aggregator="wfagg", model="mlp", batches_per_round=1,
+                                  wfagg_backend=backend)
+            fn = tengine.build_round_fn(c, topo, data, device="cpu", telemetry=True)
+            outs[backend] = fn(tengine.init_dfl_state(c, topo, device="cpu"))
+        (s1, r1), (s2, r2) = outs["fused"], outs["fused_two_launch"]
+        assert torch.equal(r1.verdict, r2.verdict) and (r1.verdict & 1).any()
+        torch.testing.assert_close(ravel(s1.node_params), ravel(s2.node_params), rtol=1e-6,
+                                   atol=1e-6)
+        exc, match = ValueError, r"K=1025 \(ROADMAP queue 2, item E\)"
+
+        def call():
+            m = torch.zeros((4, 8))
+            tkernel.wfagg_round_indexed_cuda(
+                m[:1], m, torch.zeros((1, 1025), dtype=torch.int32),
+                torch.ones((1, 1025), dtype=torch.bool), None, None, twf.WFAggConfig(), 0.8,
+                False)
     elif what == "mesh":
         cfg = tengine.DFLConfig(mesh_model_shards=2)
         exc, match = ValueError, "initialised torch.distributed"
@@ -266,5 +288,4 @@ def test_later_slices_raise(what):
         cfg, kw = tengine.DFLConfig(aggregator="wfagg_t"), {"dynamic": True}
         match = "no valid-mask-aware form"
     with pytest.raises(exc, match=match):
-        fn = tengine.build_round_fn(cfg, topo, data, device="cpu", **kw)
-        fn(tengine.init_dfl_state(cfg, topo, device="cpu"))
+        call()

@@ -142,14 +142,26 @@ def test_robust_stats_batch_nan_row_propagates_like_the_pallas_network():
 
 
 def test_robust_stats_batch_limits_and_device_dispatch():
-    """A gathered slate of 33 computes; the round kernel of the indexed
-    form still refuses degree 33 (ROADMAP queue 2, item E, part 2)."""
+    """A gathered slate of 33 computes, and so does the round of the
+    indexed form at degree 33 (on the CPU its plain version, the round
+    kernel's wide route on the card); the round kernel refuses 1,025
+    neighbours, naming where its limit is lifted next."""
     u = torch.as_tensor(_gathered(2, 33, 64, seed=1)[0])
     st = tops.robust_stats_batch(u)
     assert st.dist2.shape == (2, 33) and torch.isfinite(st.dist2).all()
-    idx = torch.zeros((2, 33), dtype=torch.int32)
-    with pytest.raises(ValueError, match=r"item E \(part 2\)"):
-        tops.wfagg_round_indexed(u[:, 0], u[0], idx, None, twf.WFAggConfig())
+    idx = torch.arange(33, dtype=torch.int32).repeat(2, 1)
+    cfg = twf.WFAggConfig()
+    got = tops.wfagg_round_indexed(u[:, 0], u[0], idx, None, cfg)
+    want = tops.wfagg_round_indexed_plain(u[:, 0], u[0], idx,
+                                          torch.ones((2, 33), dtype=torch.bool), cfg)
+    for g, w in zip(got[:5], want[:5]):
+        assert torch.equal(g, w)
+    assert torch.isfinite(got[0]).all() and got[2].any()
+    big = torch.zeros((1, 1025), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"K=1025 \(ROADMAP queue 2, item E\)"):
+        tkernel.wfagg_round_indexed_cuda(u[:1, 0], u[0], big,
+                                         torch.ones((1, 1025), dtype=torch.bool), None,
+                                         None, cfg, cfg.alpha, False)
     with pytest.raises(ValueError, match="prev has shape"):
         tops.robust_stats_batch(u[:, :4], prev=u[:, :3])
     with pytest.raises(ValueError, match=r"\(N, K, d\)"):

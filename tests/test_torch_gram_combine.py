@@ -21,6 +21,7 @@ from repro.kernels.pairwise_dist.ops import pairwise_sq_dists as jpairwise_sq_di
 from repro.kernels.pairwise_dist.ref import pairwise_dist_ref as jpairwise_dist_ref
 from repro.kernels.weighted_agg.ops import weighted_agg as jweighted_agg
 from repro.kernels.weighted_agg.ref import weighted_agg_ref as jweighted_agg_ref
+from repro_torch.core import trust as ttrust
 from repro_torch.kernels.pairwise_dist import kernel as pkernel
 from repro_torch.kernels.pairwise_dist import ops as pops
 from repro_torch.kernels.pairwise_dist.ref import pairwise_dist_ref
@@ -119,14 +120,21 @@ def test_weighted_agg_matches_pallas_kernel(weights):
 
 
 def test_limits_and_device_dispatch():
-    """A Gram of 33 candidates computes; the gather-free combine (kernel 3)
-    still refuses 33 neighbours (ROADMAP queue 2, item E, part 2)."""
+    """A Gram of 33 candidates computes, and so does the gather-free
+    combine (kernel 3) over 33 neighbours: on the CPU its plain version
+    (the kernel on the card); kernel 3 refuses 1,025 neighbours, naming
+    where its limit is lifted next."""
     u = torch.as_tensor(models(33, 64, seed=1))
     g, n = pops.pairwise_gram(u)
     assert g.shape == (33, 33) and torch.equal(g, g.T)
-    with pytest.raises(ValueError, match=r"item E \(part 2\)"):
-        wops.weighted_agg_indexed(u[:2], u, torch.zeros((2, 33), dtype=torch.int32),
-                                  torch.ones((2, 33)))
+    idx = torch.arange(33, dtype=torch.int32).repeat(2, 1)
+    w = torch.rand((2, 33), generator=torch.Generator().manual_seed(2))
+    got = wops.weighted_agg_indexed(u[:2], u, idx, w)
+    wvec, lcoef = ttrust.combine_coefficients(w, 0.8)
+    assert torch.equal(got, wops.weighted_agg_indexed_plain(wvec, lcoef, u[:2], u, idx))
+    with pytest.raises(ValueError, match=r"K=1025.*\(ROADMAP queue 2, item E\)"):
+        wkernel.weighted_agg_indexed_cuda(torch.ones((1, 1025)), torch.ones(1), u[:1], u,
+                                          torch.zeros((1, 1025), dtype=torch.int32))
     with pytest.raises(ValueError, match="cuda or cpu"):
         pops.pairwise_gram(u[:4].to("meta"))
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -226,7 +226,7 @@ def test_wide_plan_arithmetic():
         [64, 64, 128, 128, 512, 1024]
     assert [tref.wide_tile(K) for K in (33, 64, 100, 128, 200, 257, 1024)] == \
         [256, 256, 128, 128, 64, 32, 16]
-    assert tkernel.MAX_K == 1024 and tkernel.INDEXED_MAX_K == 32
+    assert tkernel.MAX_K == 1024 and tkernel.INDEXED_MAX_K == 1024
 
 
 @pytest.mark.parametrize("KP", [64, 128, 1024])

@@ -16,8 +16,9 @@ against the JAX package or the port's reference backend.
   ``fused_two_launch`` (kernels 4, 6 and 7) against the port's
   ``reference`` backend over three rounds with state: weights within
   3e-5, outputs within rtol 1e-4 / atol 3e-5, masks bit-equal; its
-  ``fused`` route (kernel 1 at N = 1) still refuses K = 40, naming ROADMAP
-  queue 2, item E (part 2).
+  ``fused`` route (kernel 1 at N = 1, its plain version on the CPU)
+  computes at K = 40 and equals the ``reference`` backend, and kernel 1
+  refuses K = 1,025, naming ROADMAP queue 2, item E.
 
 The reference's round compiles its Pallas statistics at K = 36 (~15 s a
 jit), so each CFL aggregator and the gathered form compile it once."""
@@ -38,6 +39,7 @@ from repro_torch.core.topology import make_topology
 from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.dfl import engine as tengine
 from repro_torch.distributed import robust_allreduce as tra
+from repro_torch.kernels.robust_stats import kernel as tkernel
 from repro_torch.models.lenet import params_from_jax, ravel
 
 from _torch_fixtures import jax_batches
@@ -171,6 +173,16 @@ def test_stacked_allreduce_over_40_candidates(method):
                 assert torch.equal(i_f[m], i_r[m]), (r, m)
             assert not i_f["mask_d"][[3, 11, 19, 27]].any()   # the distance filter's
     if stateful:
-        with pytest.raises(ValueError, match=r"ROADMAP queue 2, item E \(part 2\)"):
-            tra.robust_allreduce_stacked(gr, dataclasses.replace(cr, backend="fused"),
-                                         tra.init_tree_agg_state(cr, K, like))
+        cu = dataclasses.replace(cr, backend="fused")
+        o_u, _, i_u = tra.robust_allreduce_stacked(gr, cu, tra.init_tree_agg_state(cr, K, like))
+        o_r, _, i_r = tra.robust_allreduce_stacked(gr, cr, tra.init_tree_agg_state(cr, K, like))
+        for m in MASKS:
+            assert torch.equal(i_u[m], i_r[m]), m
+        for k in g:
+            np.testing.assert_allclose(o_u[k].numpy(), o_r[k].numpy(), rtol=1e-4,
+                                       atol=OUT_ATOL, err_msg=f"fused {k}")
+        with pytest.raises(ValueError, match=r"K=1025 \(ROADMAP queue 2, item E\)"):
+            big = torch.zeros((1, 1025), dtype=torch.int32)
+            tkernel.wfagg_round_indexed_cuda(torch.zeros((1, 4)), torch.zeros((4, 4)), big,
+                                             torch.ones((1, 1025), dtype=torch.bool), None,
+                                             None, cr.wfagg, 1.0, True)

@@ -24,6 +24,7 @@ from repro_torch.core import trust as ttrust
 from repro_torch.core.wfagg import WFAggConfig as TConfig
 from repro_torch.kernels.robust_stats import kernel as tkernel
 from repro_torch.kernels.robust_stats import ops as tops
+from repro_torch.kernels.robust_stats.ref import robust_stats_indexed_ref
 from repro_torch.kernels.robust_stats.ref import robust_stats_ref as trobust_stats_ref
 
 from _torch_fixtures import models
@@ -119,13 +120,22 @@ def test_nan_column_propagates_like_the_pallas_network():
 
 def test_limits_and_device_dispatch():
     """More than 32 candidates compute (the plain version on the CPU; the
-    kernel's wide path on the card); the gather-free statistics of the
-    gossip round still refuse them, naming where that is lifted."""
+    kernel's wide path on the card), and so do the gather-free statistics
+    of the gossip round (on the CPU their plain version, kernel 2's wide
+    route on the card); kernel 2 refuses 1,025 neighbours, naming where its
+    limit is lifted next."""
     u = torch.as_tensor(models(33, 64, seed=1))
     st = tops.robust_stats(u)
     assert st.dist2.shape == (33,) and torch.isfinite(st.med).all()
-    with pytest.raises(ValueError, match=r"item E \(part 2\)"):
-        tops.robust_stats_indexed(u, torch.zeros((2, 33), dtype=torch.int32))
+    idx = torch.arange(33, dtype=torch.int32).repeat(2, 1)
+    got = tops.robust_stats_indexed(u, idx, need_gram=True)
+    want = robust_stats_indexed_ref(u, idx, None, None, need_gram=True)
+    for name in ("dist2", "dotmed", "norm2", "mednorm2", "gram"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    with pytest.raises(ValueError, match=r"K=1025 \(ROADMAP queue 2, item E\)"):
+        tkernel.robust_stats_indexed_cuda(u, torch.zeros((1, 1025), dtype=torch.int32),
+                                          torch.ones((1, 1025), dtype=torch.bool), None,
+                                          False)
     with pytest.raises(ValueError, match="prev has shape"):
         tops.robust_stats(u[:4], prev=u[:3])
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -19,13 +19,18 @@ statistics rtol 1e-4 / atol 1e-3, the statistics' tolerance of the chip
 check (float32 sums in another order).  Bit-identical candidates keep
 bit-identical sums, a NaN makes its column's centers and its node's sums
 NaN, and a row whose squared norm overflows float32 keeps norm2 = +inf
-with no NaN, as the plain version."""
+with no NaN, as the plain version.
+
+Kernels 1 and 2's wide route (``csrc/indexed_wide.cuh``, K > 32), emulated
+by ``ref.robust_stats_indexed_kernel_order``, at K = 33 and 100 against the
+JAX package's oracle statistics, with its tie invariant."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.robust_stats import ops as jops
+from repro_torch.core import trust as ttrust
 from repro_torch.kernels.robust_stats import ref as tref
 
 from _torch_fixtures import models
@@ -174,3 +179,70 @@ def test_kernel_order_overflow_stays_inf():
                                    atol=ATOL, err_msg=name)
     assert torch.isinf(got.norm2[4]) and torch.isinf(got.dist2[4])
     assert torch.isfinite(got.norm2[torch.arange(K) != 4]).all()
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 2 above 32 neighbours: the wide route of
+# csrc/indexed_wide.cuh, emulated by ref.robust_stats_indexed_kernel_order
+# ---------------------------------------------------------------------------
+
+def _wide_slate(K, D, prev_form, seed, N=5):
+    """N nodes reading K of M = K + 10 rows (node 1 of degree 0, the other
+    slates with a few invalid slots), rows 0 and 4 bit-identical and read by
+    every node, row 2 its own prev; prev in ``prev_form``."""
+    rng = np.random.default_rng(seed)
+    M = K + 10
+    m = models(M, D, seed)
+    m[4] = m[0]
+    idx = np.stack([rng.choice(M, K, replace=False) for _ in range(N)]).astype(np.int32)
+    idx[:, :3] = (0, 4, 2)
+    valid = rng.random((N, K)) < 0.9
+    valid[:, :3] = True
+    valid[1] = False
+    prev = m + np.float32(0.1) * models(M, D, seed + 1, shift=0.0)
+    prev[2] = m[2]
+    pidx = None
+    if prev_form == "prev_idx":
+        pidx = idx.copy()
+        pidx[:, 3:] = rng.integers(0, M, (N, K - 3))
+    if prev_form == "per_edge":
+        prev = prev[idx]
+    return m, idx, valid, prev, pidx
+
+
+def _t(x):
+    return None if x is None else torch.as_tensor(x)
+
+
+@pytest.mark.parametrize("K,D,C,prev_form", [
+    (33, 1002, 3, "matrix"), (33, 300, 1, "per_edge"), (100, 2050, 8, "prev_idx"),
+    (100, 301, 2, "matrix")])
+def test_indexed_wide_order_matches_reference(K, D, C, prev_form):
+    """The wide route's order at K = 33 (tiles of 256, sums by 4 groups a
+    slot) and K = 100 (tiles of 128, 2 groups), over C ranks that do not
+    divide the tiles and D % 4 != 0, against the JAX package's oracle: the
+    statistics rtol 1e-4 / atol 1e-3, the Gram too, symmetric; the tied rows
+    0 and 4 bit-identical statistics and Gram rows with G[a,a] == G[a,b] ==
+    G[b,b] (a squared distance of exactly 0); row 2, re-served as its own
+    prev, a cosine of exactly 1."""
+    m, idx, valid, prev, pidx = _wide_slate(K, D, prev_form, seed=K + D)
+    got = tref.robust_stats_indexed_kernel_order(_t(m), _t(idx), _t(valid), _t(prev), True,
+                                                 _t(pidx), cluster=C)
+    want = jops.robust_stats_indexed(jnp.asarray(m), jnp.asarray(idx), jnp.asarray(valid),
+                                     jnp.asarray(prev), need_gram=True, use_kernel=False,
+                                     prev_idx=None if pidx is None else jnp.asarray(pidx))
+    for name in FIELDS:
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)), rtol=RTOL, atol=ATOL,
+                                   err_msg=name)
+    np.testing.assert_allclose(got.gram.numpy(), np.asarray(want.gram), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got.gram, got.gram.transpose(1, 2))
+    for name in ("dist2", "dotmed", "norm2"):
+        x = getattr(got, name)
+        assert torch.equal(x[:, 0], x[:, 1]), name
+    g = got.gram
+    assert torch.equal(g[:, 0], g[:, 1])
+    assert torch.equal(g[:, 0, 0], g[:, 0, 1]) and torch.equal(g[:, 0, 1], g[:, 1, 1])
+    assert (ttrust.sq_dists_from_gram(g)[:, 0, 1] == 0).all()
+    assert (got.prev_dist2[:, 2] == 0).all()            # prev_idx keeps slot 2's own row
+    assert (got.cosine_to_prev()[:, 2] == 0).all()
