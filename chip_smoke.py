@@ -450,23 +450,30 @@ Phases, each of which fails the run:
        their plain versions and timed.  ``--only grid`` runs phase 1 and
        this part alone; ``--only cards`` on four cards adds StableLM-3B
        uncut at K = 4 x M = 1 and Qwen at K = 2 x M = 2 on ``nccl``.  Last,
-       the MoE, SSM and hybrid families split over ranks (``FAM_JOBS``):
+       the other families split over ranks (``FAM_JOBS``):
        one process's references first (prompts, prefill tails, decode
        logits, every MoE call's routing, an f32 truth where the parameters
        are f32, candidate 0's step-1 gradient with its routing), then two
        ``gloo`` ranks sharing the card serve DeepSeek-V2-Lite (2 layers,
-       MLA and the MoE, 2 x 4096, no kernel 8), Zamba2-1.2B (4 layers, 2 x
+       MLA and the MoE, 2 x 4096, no kernel 8), Zamba2-1.2B (2 layers, 2 x
        8192, kernel 8 on each rank's 16 heads once a group), Falcon-Mamba-7B
-       (2 layers) and Arctic (1 layer, bf16, 28 live heads a rank padded to
-       32, kernel 8 at hd 128) with the reference's routing replayed and
-       the gathered logits held by the dense rule or ``SSM_TRUTH``'s,
-       routing flips as near-ties, decode over ``FAM_DECODE`` teacher-forced
-       tokens likewise; and train the first three at K = 4 (IPM-100 on one,
-       WFAgg f = 1) with ``TP_RUNS``' holds (an MoE's step-1 candidate
-       through the reference's routing); then Zamba2 (2 layers) on the 4 x
-       2 grid with the grid part's holds (``SSM_TRUTH`` where the dense
-       rule does not hold); then kernels 4, 6, 7 and 8 at the new shapes
-       held against their plain versions and timed.  ``--only tpfam`` runs
+       (2 layers), Arctic (1 layer, bf16, 28 live heads a rank padded to
+       32, kernel 8 at hd 128), SeamlessM4T-medium (2 + 2 layers, 2 x 8192
+       frames and tokens, kernel 8 in the decoder's causal self-attention
+       only, its decode caches holding the rank's encoding of
+       ``ENC_LEN_DECODE`` frames) and LLaVA-NeXT-34B (1 layer, 576 patches
+       through the split projector, 28 live heads a rank padded to 32) with
+       the reference's routing replayed and the gathered logits held by the
+       dense rule or ``SSM_TRUTH``'s, routing flips as near-ties, decode
+       over ``FAM_DECODE`` teacher-forced tokens likewise; and train
+       DeepSeek, Zamba2, Falcon-Mamba and Seamless at K = 4 (IPM-100 on
+       one, WFAgg f = 1; Seamless's candidates on their rows of the frames)
+       with ``TP_RUNS``' holds (an MoE's step-1 candidate through the
+       reference's routing); then Zamba2 and Seamless (2 layers) on the 4
+       x 2 grid, one rank group, with the grid part's holds
+       (``SSM_TRUTH`` where the dense rule does not hold); then kernels 4,
+       6, 7 and 8 at the new shapes held against their plain versions and
+       timed.  ``--only tpfam`` runs
        phase 1 and this part alone; ``--only cards`` on four cards adds
        Moonlight uncut served and DeepSeek-V2-Lite (6 layers) and
        Falcon-Mamba-7B (32 layers) trained at M = 4 on ``nccl``, which
@@ -476,8 +483,11 @@ Phases, each of which fails the run:
        x 2 grid, both layouts, and the 7-of-8-head config on 4 ranks, each
        step's gathered candidates through the one-process route, the pad
        slots exactly 0; ``--only bf16`` runs phase 1 and this part alone.
-       ``--only tpcards`` on four cards first trains Arctic at 1 of 35
-       layers, full width, bf16, Adafactor, flat, M = 4
+       ``--only tpcards`` on four cards first trains LLaVA-NeXT-34B at 1
+       of 60 layers, full width, Adafactor, stacked, M = 4, K = 6
+       (``run_llava_cards``: served at 1 x 8192 beside it, its peak a card
+       printed against ``LLAVA_CARDS_PREDICTED_GIB``), then Arctic at 1 of
+       35 layers, full width, bf16, Adafactor, flat, M = 4
        (``run_arctic_cards``).
 
 Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
@@ -6577,17 +6587,12 @@ def lm_decode_check(torch, cfg, params, batch, positions, prompt_len, one_call, 
     kernel launches."""
     import dataclasses
 
-    from repro_torch.models import model as M
     from repro_torch.train.serve import build_decode_step, build_prefill
 
     extra = {} if frames is None else {"frames": frames}
 
     def new_cache(ccfg, total):
-        c = M.init_cache(ccfg, batch, total, enc_len=0 if frames is None else frames.shape[1])
-        if frames is not None:
-            with torch.inference_mode():
-                c["enc_out"].copy_(M._encode(ccfg, params, frames))
-        return c
+        return encoded_cache(torch, ccfg, params, batch, total, frames=frames)
 
     cache = new_cache(cfg, positions)
     cache_gib = sum(t.numel() * t.element_size() for t in
@@ -7052,10 +7057,11 @@ class TPObserver:
                 self.route(v["candidates"], v["agg_state"])
             elif self.hold and phase == "allreduce":
                 self.compare(v["grads"], v["info"])
-            if phase == "allreduce" and self.hold_ada:
+            if phase == "allreduce" and self.hold_ada and not self.steps:
                 from repro_torch.core import flatten as F
 
-                # the step's aggregate and the parameters before the update
+                # step 1's aggregate and the parameters before the update
+                # (``hold_adafactor`` updates from a zero state, step 1's)
                 self.adafactor = (v["grads"], [x.clone() for x in
                                                F.tree_leaves(F.module_tree(self.model))])
             # the hold's own launches and collectives are not the step's
@@ -7067,7 +7073,7 @@ class TPObserver:
 
     grads_route = None
     batch = None
-    hold_ada = False          # hold each Adafactor update to one process's
+    hold_ada = False          # hold the first Adafactor update to one process's
     adafactor = None          # (aggregate, old parameters) while an Adafactor step is held
     adafactor_err = None
     mesh = None
@@ -7497,7 +7503,8 @@ def tp_train(torch, cfg, M_, rank, runs, grads_file=None, hold=True, K=TRAIN_K,
 
     mesh = make_test_mesh(data=K, model=M_, model_group=dist.group.WORLD)
     stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, K)
-    batches = [stream.batch(i, device="cuda") for i in range(max(r[2] for r in runs))]
+    batches = with_modal(torch, cfg, [stream.batch(i, device="cuda")
+                                      for i in range(max(r[2] for r in runs))])
     launches = dict.fromkeys(KERNELS, 0)
     report = {}
     clock = CollectiveClock(torch)
@@ -7744,7 +7751,9 @@ def run_tp_path(torch, backend="gloo", S=TP_M, serve_layers=None) -> tuple:
 def run_tp_cards(torch) -> dict:
     """``--only cards``' model-axis part: Qwen1.5-0.5B on M = the number of
     cards (``nccl``, one rank a card) with the one-card part's checks; with
-    four cards also ``CARDS_TP_ARCH`` uncut at M = 4, K = 8, WFAgg-T on
+    four cards first LLaVA-NeXT-34B trained (``run_llava_cards``) and
+    Arctic's plan (``run_arctic_cards``), then ``CARDS_TP_ARCH`` uncut at
+    M = 4, K = 8, WFAgg-T on
     ``fused``, ``CARDS_TP_STEPS`` steps under IPM-100, its train state
     existing only across the cards (peak per card and step time; no
     one-card hold fits), on the stacked layout and then on the flat layout
@@ -7754,10 +7763,16 @@ def run_tp_cards(torch) -> dict:
 
     S = torch.cuda.device_count()
     out = {}
+    launches = dict.fromkeys(KERNELS, 0)
     if S == 4:
-        # first: the run this slice adds, and the largest
+        # first the largest runs: LLaVA-NeXT-34B trained, Arctic's plan
+        la, out["llava"] = run_llava_cards(torch)
+        for k in KERNELS:
+            launches[k] += la[k]
         out["arctic"] = run_arctic_cards(torch)
-    launches, rep = run_tp_path(torch, "nccl", S)
+    la, rep = run_tp_path(torch, "nccl", S)
+    for k in KERNELS:
+        launches[k] += la[k]
     out["qwen"] = rep
     if S == 4:
         tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
@@ -7876,9 +7891,11 @@ GRID_F = 1                     # WFAgg's f at K = 4: the one attacker
 # TP_GRAD_RMS: a wrong block, row or gather is an O(1) error
 GRID_GRAD_RMS = 5e-2
 # decode on the grid: a teacher-forced sequence of this many tokens a row
-# (each step gathers every layer's weights over the data group), the last
-# GRID_DECODE_TIMED steps timed
-GRID_DECODE, GRID_DECODE_TIMED = 4, 2
+# (each step gathers every layer's weights over the data group, ~2.6 s a
+# step on gloo ranks sharing one H100), the last GRID_DECODE_TIMED steps
+# timed (4 tokens, 2 timed, until the encoder-decoder and VLM rows of the
+# families' part, the whole script's time)
+GRID_DECODE, GRID_DECODE_TIMED = 2, 1
 GRID_TIMEOUT_S = 600
 # Qwen on the grid at 12 of its 24 layers, served and trained (cut in this
 # slice beside its flat run, the whole script's time; 8 layers took as long:
@@ -8231,7 +8248,8 @@ def grid_train(torch, cfg, mesh, rank, runs, grads_file=None, hold=True, arch_tc
 
     K = mesh.shape["data"]
     stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, K)
-    batches = [stream.batch(i, device="cuda") for i in range(max(r[2] for r in runs))]
+    batches = with_modal(torch, cfg, [stream.batch(i, device="cuda")
+                                      for i in range(max(r[2] for r in runs))])
     launches = dict.fromkeys(KERNELS, 0)
     report = {}
     clock = GridClock(torch)
@@ -8334,6 +8352,18 @@ def grid_child(rank, S, store_path, out_dir, backend) -> None:
             for k in KERNELS:
                 launches[k] += la[k]
             res["launches"] = {"grid": launches}
+            # further models trained in the same rank group (its start is most
+            # of a grid part's time)
+            res["more"] = []
+            for more in job.get("more", ()):
+                del cfg
+                gc.collect()
+                torch.cuda.empty_cache()
+                cfg = job_config(get_config, more)
+                la, train = grid_train(torch, cfg, mesh, rank, [tuple(r) for r in more["runs"]],
+                                       grads_file=more["grads"], hold=job["hold"])
+                res["more"].append({"rank": rank, "report": {"train": train},
+                                    "launches": {"grid": la}})
         finally:
             dist.destroy_process_group()
     except Exception:   # noqa: BLE001 - the parent fails the run on it
@@ -8342,15 +8372,16 @@ def grid_child(rank, S, store_path, out_dir, backend) -> None:
     pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
 
 
-def grid_reference(torch, out_dir, arch, K, serve=True, layers=None) -> None:
+def grid_reference(torch, out_dir, arch, K, serve=True, layers=None, suffix="") -> None:
     """What the grid's ranks are held to in one process, computed here
     before they start and freed: the seed-0 model's prefill tail (K rows
     of 8192, one at a time, the last ``PREFILL_TAIL`` positions, f32), the
     decode logits of the same ``GRID_DECODE`` teacher-forced tokens at
     batch K against 32,768 slots, and the K candidate gradients of the
-    first training batch (a (K, P) float32 file in ravel order); ``layers``
-    cuts the model's depth.  An SSM or hybrid model's prefill and decode
-    also in f32 activations (``*_truth.pt``)."""
+    first training batch (a (K, P) float32 file in ravel order,
+    ``grads_one<suffix>.f32``; the modal rows beside the tokens,
+    ``with_modal``); ``layers`` cuts the model's depth.  An SSM or hybrid
+    model's prefill and decode also in f32 activations (``*_truth.pt``)."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -8401,13 +8432,14 @@ def grid_reference(torch, out_dir, arch, K, serve=True, layers=None) -> None:
             torch.save(torch.cat(out, dim=1), pathlib.Path(out_dir, "decode_f32.pt"))
             del cache, step
     P = layout_flat(params).numel()
-    batch = TokenStream(cfg.vocab_size, TRAIN_SEQ, K).batch(0, device="cuda")
+    batch = with_modal(torch, cfg, [TokenStream(cfg.vocab_size, TRAIN_SEQ, K).batch(
+        0, device="cuda")])[0]
     rows = batch["tokens"].shape[0] // K
-    with open(pathlib.Path(out_dir, "grads_one.f32"), "wb") as f:
+    with open(pathlib.Path(out_dir, f"grads_one{suffix}.f32"), "wb") as f:
         G = torch.empty((P,), dtype=torch.float32, device="cuda")
         for k in range(K):
-            tr.loss_and_grad(cfg, params, {"tokens": batch["tokens"][k * rows:(k + 1) * rows]},
-                             G)
+            tr.loss_and_grad(cfg, params, {n: v[k * rows:(k + 1) * rows]
+                                           for n, v in batch.items()}, G)
             f.write(G.cpu().numpy().tobytes())
     del params, G
     gc.collect()
@@ -8523,14 +8555,15 @@ def check_grid_kernels(torch, K, D, heads, where="a grid rank's") -> tuple:
         print(f"  {name} at {where} shape {t['shape']}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"library {lib}; max |kernel - plain| {errs[name]:.3g}")
-    errs["flash_attention"] = compare_flash(torch, 1, heads, PREFILL_S, PREFILL_S, 64, True,
-                                            "bfloat16", 128, 72)
-    out["flash_attention"] = time_flash(torch, 1, heads, PREFILL_S, 64, seed=73)
+    if heads:
+        errs["flash_attention"] = compare_flash(torch, 1, heads, PREFILL_S, PREFILL_S, 64, True,
+                                                "bfloat16", 128, 72)
+        out["flash_attention"] = time_flash(torch, 1, heads, PREFILL_S, 64, seed=73)
     return errs, out
 
 
 def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH,
-                  layers=GRID_LAYERS, runs=GRID_RUNS, serve=True) -> tuple:
+                  layers=GRID_LAYERS, runs=GRID_RUNS, serve=True, more=()) -> tuple:
     """The data axis as processes on one card: K x M ``gloo`` ranks share
     it (a ``FileStore``), a grid (``make_grid``) of ``arch`` uncut (seed 0)
     whose ranks each hold their FSDP blocks: serving (``grid_serve``) and
@@ -8539,8 +8572,10 @@ def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH,
     process (``grid_reference``) and to the reference backend's route; then
     kernels 4, 6, 7 and 8 at a rank's shapes (``check_grid_kernels``).
     ``layers`` cuts the model's depth, ``runs`` replaces ``GRID_RUNS``;
-    without ``serve`` the ranks only train.  Returns (launches summed over
-    the ranks, errors, report)."""
+    without ``serve`` the ranks only train; ``more`` ((arch, layers, runs),
+    ...) trains further models after it in the same ranks, each held to
+    its own one-process gradients (the report's ``more``).  Returns
+    (launches summed over the ranks, errors, report)."""
     import tempfile
 
     from repro_torch.configs.registry import get_config
@@ -8551,21 +8586,32 @@ def run_grid_path(torch, backend="gloo", K=GRID_K, M_=GRID_M, arch=GRID_ARCH,
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     grid_reference(torch, tmp, arch, K, serve=serve, layers=layers)
+    for j, (a, n, _) in enumerate(more):
+        grid_reference(torch, tmp, a, K, serve=False, layers=n, suffix=f"_{j}")
     ref_s = time.perf_counter() - t0
     pathlib.Path(tmp, "grid_job.json").write_text(json.dumps(dict(
         arch=arch, layers=layers, K=K, M=M_, serve=serve, runs=runs, hold=True,
-        grads=str(pathlib.Path(tmp, "grads_one.f32")))))
+        grads=str(pathlib.Path(tmp, "grads_one.f32")),
+        more=[dict(arch=a, layers=n, runs=r, grads=str(pathlib.Path(tmp, f"grads_one_{j}.f32")))
+              for j, (a, n, r) in enumerate(more)])))
     t0 = time.perf_counter()
     try:
         ranks = run_ranks(torch, backend, K * M_, child=grid_child, tmp=tmp,
                           timeout=GRID_TIMEOUT_S)
     finally:
-        for name in ("grads_one.f32", "prefill_tail.pt", "decode.pt", "prefill_tail_truth.pt",
-                     "decode_truth.pt", "decode_f32.pt"):
+        for name in ["grads_one.f32", "prefill_tail.pt", "decode.pt", "prefill_tail_truth.pt",
+                     "decode_truth.pt", "decode_f32.pt"] + [f"grads_one_{j}.f32"
+                                                           for j in range(len(more))]:
             pathlib.Path(tmp, name).unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    launches, rep = report_grid(ranks, card, ref_s, seconds, arch, K, M_,
-                                "gloo, one card" if backend == "gloo" else "nccl")
+    where = "gloo, one card" if backend == "gloo" else "nccl"
+    launches, rep = report_grid(ranks, card, ref_s, seconds, arch, K, M_, where)
+    rep["more"] = {}
+    for j, (a, _, _) in enumerate(more):
+        la, rep["more"][a] = report_grid([r["more"][j] for r in ranks], card, ref_s, seconds,
+                                         a, K, M_, where)
+        for k in KERNELS:
+            launches[k] += la[k]
     D = ranks[0]["report"]["train"]["wfagg fused"]["widths"][0]
     errs, rep["kernels"] = check_grid_kernels(torch, K, D, get_config(arch).n_heads // M_)
     return launches, errs, rep
@@ -8692,24 +8738,35 @@ FAM_DECODE_B, FAM_DECODE = 4, 6    # decode batch and teacher-forced tokens
 # DeepSeek-V2-Lite served and trained at 2 of 27 layers (1 dense prefix + 1
 # MoE; served at 4 until the bf16 / pad-slot part, the whole script's time;
 # the one-card MoE step's depth: K = 4 candidates hold 2K + 7 copies of a
-# 1.03e9-parameter model on one card); Zamba2 served at 4 of 38 (two groups)
-# and trained at 2 (4 until the bf16 / pad-slot part); Falcon-Mamba at 2 of
+# 1.03e9-parameter model on one card); Zamba2 served and trained at 2 of 38
+# (one group; served at 4 until the encoder-decoder and VLM rows below, and
+# trained at 4 until the bf16 / pad-slot part: the whole script's time; the
+# SSM part serves it at 8 layers, four groups); Falcon-Mamba at 2 of
 # 64; Arctic (bf16 parameters, 128 experts)
 # at 1 of 35, served only: one card cannot hold its training, which
 # ``run_arctic_cards`` runs on four (--only tpcards), the bf16 trainer on one
-# card ``run_bf16_path``
+# card ``run_bf16_path``; SeamlessM4T-medium (arXiv:2308.11596) at 2 + 2 of
+# its 12 + 12 layers, served at 2 x 8192 (frames and tokens; its decode
+# against ENC_LEN_DECODE encoded frames) and trained; LLaVA-NeXT-34B at 1 of
+# 60 layers, served at 1 x 8192 (576 patches and 7,616 tokens) only: two
+# ranks of its K = 4 step would hold 2K + 7 copies of ~2.9 GiB each on the
+# one card, which ``run_llava_cards`` trains on four (--only tpcards)
 FAM_JOBS = (
     ("deepseek-v2-lite-16b", 2, (2, 4096), True, 2,
      (("wfagg", "fused", 2), ("mean", "fused", 2))),
-    ("zamba2-1.2b", 4, (2, 8192), True, 2, (("wfagg", "fused", 2), ("mean", "fused", 2))),
+    ("zamba2-1.2b", 2, (2, 8192), True, 2, (("wfagg", "fused", 2), ("mean", "fused", 2))),
     ("falcon-mamba-7b", 2, (2, 8192), True, 2, (("wfagg", "fused", 2),)),
     ("arctic-480b", 1, (1, 8192), False, 0, ()),
+    ("seamless-m4t-medium", 2, (2, 8192), True, 2, (("wfagg", "fused", 2), ("mean", "fused", 2))),
+    ("llava-next-34b", 1, (1, 8192), True, 0, ()),
 )
-# Zamba2 on the GRID_K x GRID_M grid, 2 of 38 layers (4 until the bf16 / pad-slot
-# part, the whole script's time), served and trained; the whole script only
-# trains it there since the bf16 / pad-slot part (its time; the grid part
-# serves Qwen on the grid, the model-axis part Zamba2 split over ranks)
-FAM_GRID = ("zamba2-1.2b", 2, (("wfagg", "fused", 1),))
+# (arch, layers, runs) on the GRID_K x GRID_M grid, trained, one rank group:
+# Zamba2 at 2 of 38 layers (4 until the bf16 / pad-slot part, the whole
+# script's time; the whole script only trains it there since that part: the
+# grid part serves Qwen on the grid, the model-axis part Zamba2 split over
+# ranks), then Seamless at 2 + 2 layers (the frames' rows a data rank's)
+FAM_GRID = (("zamba2-1.2b", 2, (("wfagg", "fused", 1),)),
+            ("seamless-m4t-medium", 2, (("wfagg", "fused", 1),)))
 FAM_TIMEOUT_S = 900
 # --only cards at four cards: Moonlight uncut served at M = 4; DeepSeek-V2-Lite at
 # 6 of 27 layers (8 would hold ~68 GB of its 2K + 7 copies a card, too close
@@ -8722,13 +8779,77 @@ CARDS_FAM_JOBS = (
 )
 
 
+def cut_depth(cfg, layers):
+    """``cfg`` cut to ``layers`` layers (an encoder-decoder's encoder too;
+    None: uncut)."""
+    import dataclasses
+
+    if not layers:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers, n_enc_layers=(
+        layers if cfg.is_encoder_decoder else cfg.n_enc_layers))
+
+
 def job_config(get_config, job):
     """A job's config: ``job["arch"]`` cut to ``job["layers"]`` layers (None:
     uncut)."""
-    import dataclasses
+    return cut_depth(get_config(job["arch"]), job.get("layers"))
 
-    cfg = get_config(job["arch"])
-    return dataclasses.replace(cfg, n_layers=job["layers"]) if job.get("layers") else cfg
+
+MODAL_SEED = 2000              # the modal inputs of training batch i: seed MODAL_SEED + i
+
+
+def modal_inputs(torch, cfg, B, S, seed) -> dict:
+    """What an encoder-decoder or a VLM takes beside B rows of tokens, drawn
+    on the card from ``seed`` in the activation dtype (every process draws
+    the same): ``frames`` (B, S, d) or ``patch_embeds`` (B, n_modal,
+    ``MODAL_EMBED_DIM``); nothing for the other families."""
+    from repro_torch.models.model import MODAL_EMBED_DIM
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    if cfg.is_encoder_decoder:
+        return {"frames": torch.randn((B, S, cfg.d_model), generator=g, device="cuda",
+                                      dtype=dt)}
+    if cfg.modality == "vision":
+        return {"patch_embeds": torch.randn((B, cfg.n_modal_tokens, MODAL_EMBED_DIM),
+                                            generator=g, device="cuda", dtype=dt)}
+    return {}
+
+
+def prompt_batch(torch, cfg, shape, g, seed) -> dict:
+    """A prefill batch of ``shape`` (B, S) positions: an encoder-decoder's S
+    frames beside S tokens, a VLM's ``n_modal_tokens`` patches before S -
+    n_modal tokens (``modal_inputs`` from ``seed``), the tokens from
+    ``g``."""
+    B, S = shape
+    n_tok = S - (cfg.n_modal_tokens if cfg.modality == "vision" else 0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, n_tok), generator=g, device="cuda",
+                           dtype=torch.int32)
+    return {"tokens": tokens, **modal_inputs(torch, cfg, B, S, seed)}
+
+
+def with_modal(torch, cfg, batches) -> list:
+    """Training batches (tokens) with the modal inputs of their rows beside
+    them (``modal_inputs``, batch i from seed ``MODAL_SEED + i``)."""
+    return [dict(b, **modal_inputs(torch, cfg, b["tokens"].shape[0], b["tokens"].shape[1],
+                                   MODAL_SEED + i)) for i, b in enumerate(batches)]
+
+
+def encoded_cache(torch, cfg, params, B, total, mesh=None, frames=None) -> dict:
+    """A decode cache of ``total`` positions at batch B (on ``mesh``: the
+    rank's share); an encoder-decoder's holds ``_encode``'s output of
+    ``frames`` (B, S_enc, d; this rank's rows of them on a grid), as the
+    caller must fill it."""
+    from repro_torch.models import model as M
+
+    cache = M.init_cache(cfg, B, total, mesh=mesh,
+                         enc_len=0 if frames is None else frames.shape[1])
+    if frames is not None:
+        a, n = M.local_rows(B, mesh)
+        with torch.inference_mode():
+            cache["enc_out"].copy_(M._encode(cfg, params, frames[a:a + n]))
+    return cache
 
 
 def flash_layers(cfg) -> int:
@@ -8742,25 +8863,30 @@ def flash_layers(cfg) -> int:
     return cfg.n_layers
 
 
-def fam_jobs(rows, hold=True) -> list:
+def fam_jobs(rows, hold=True, K=FAM_K) -> list:
     return [dict(arch=a, layers=sl, prefill=pf, decode=dec, train_layers=tl, runs=runs,
-                 hold=hold) for a, sl, pf, dec, tl, runs in rows]
+                 hold=hold, K=K) for a, sl, pf, dec, tl, runs in rows]
 
 
 def fam_reference(torch, out_dir, i, job) -> None:
     """What job ``i``'s ranks are held to in one process, computed here
-    before they start and freed: the prompts and the prefill's last
-    ``PREFILL_TAIL`` positions' logits (f32), the decode logits of
-    ``FAM_DECODE`` teacher-forced tokens at batch ``FAM_DECODE_B`` against
-    32,768 slots, each with the routing of every MoE call (probabilities
-    and picks, ``RouteRecorder``), and candidate 0's gradient of the first
-    training batch at the training depth (one row of ravel order)."""
+    before they start and freed: the prompts (with an encoder-decoder's
+    frames or a VLM's patch embeddings, ``prompt_batch``) and the
+    prefill's last ``PREFILL_TAIL`` positions' logits (f32), the decode
+    logits of ``FAM_DECODE`` teacher-forced tokens at batch
+    ``FAM_DECODE_B`` against 32,768 slots (an encoder-decoder's caches
+    holding the encoded ``ENC_LEN_DECODE`` frames, saved for the ranks),
+    each with the routing of every MoE call (probabilities and picks,
+    ``RouteRecorder``), and candidate 0's gradient of the first training
+    batch at the training depth (one row of ravel order; its modal rows
+    beside the tokens, ``with_modal``)."""
     import contextlib
     import dataclasses
 
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import DECODE_32K
     from repro_torch.core.flatten import layout_flat
+    from repro_torch.data.specs import ENC_LEN_DECODE
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.models import model as M
     from repro_torch.train import serve as sv
@@ -8772,35 +8898,43 @@ def fam_reference(torch, out_dir, i, job) -> None:
         moe = bool(cfg.n_experts)
         params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
         g = torch.Generator(device="cuda").manual_seed(1)
-        prompts = torch.randint(0, cfg.vocab_size, job["prefill"], generator=g, device="cuda",
-                                dtype=torch.int32)
+        batch = prompt_batch(torch, cfg, job["prefill"], g, MODAL_SEED - 1)
         # the f32 truth (SSM_TRUTH, MOE_TRUTH): the model in f32 activations,
         # the bf16 route's routing replayed; none beside bf16 parameters, and
         # none for Falcon-Mamba at 2 layers, whose model-axis route sits at a
-        # third of the dense rule from one process (measured on one H100)
+        # third of the dense rule from one process (measured on one H100);
+        # LLaVA's as the one-card part holds it (ENCDEC_SERVE's "truth" rule)
         truth = (cfg.param_dtype == "float32" and cfg.dtype != "float32"
-                 and cfg.family in ("moe", "hybrid"))
+                 and cfg.family in ("moe", "hybrid", "vlm"))
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         with (RouteRecorder() if moe else contextlib.nullcontext()) as rec:
-            logits = sv.build_prefill(cfg)(params, {"tokens": prompts})
-        out = {"prompts": prompts.cpu(), "tail": logits[:, -PREFILL_TAIL:].float().cpu(),
+            logits = sv.build_prefill(cfg)(params, batch)
+        out = {"batch": {k: v.cpu() for k, v in batch.items()},
+               "tail": logits[:, -PREFILL_TAIL:].float().cpu(),
                "route": [tuple(t.cpu() for t in c) for c in rec.calls] if moe else None}
         del logits
         if truth:
             with (RouteRecorder([c[1] for c in rec.calls]) if moe
                   else contextlib.nullcontext()):
-                out["truth"] = sv.build_prefill(cfg32)(params, {"tokens": prompts})[
-                    :, -PREFILL_TAIL:].cpu()
+                out["truth"] = sv.build_prefill(cfg32)(params, batch)[:, -PREFILL_TAIL:].cpu()
         torch.save(out, d / f"fam{i}_prefill.pt")
-        del out, rec
+        del out, rec, batch
         if job["decode"]:
             seq = torch.randint(0, cfg.vocab_size, (FAM_DECODE_B, FAM_DECODE), generator=g,
                                 device="cuda", dtype=torch.int32)
             out = {"seq": seq.cpu()}
+            # an encoder-decoder's caches hold the encoded frames, which the
+            # ranks encode again on their blocks
+            frames = (torch.randn((FAM_DECODE_B, ENC_LEN_DECODE, cfg.d_model), generator=g,
+                                  device="cuda", dtype=getattr(torch, cfg.dtype))
+                      if cfg.is_encoder_decoder else None)
+            if frames is not None:
+                out["frames"] = frames.cpu()
             for c, key in ((cfg, "logits"), (cfg32, "truth")):
                 if key == "truth" and not truth:
                     continue
-                cache = M.init_cache(c, FAM_DECODE_B, DECODE_32K.seq_len)
+                cache = encoded_cache(torch, c, params, FAM_DECODE_B, DECODE_32K.seq_len,
+                                      frames=frames)
                 step = sv.build_decode_step(c)
                 lgs = []
                 replay = ([r[1].to("cuda") for r in out["route"]] if key == "truth" and moe
@@ -8815,23 +8949,25 @@ def fam_reference(torch, out_dir, i, job) -> None:
                         else None
                 del cache, rec
             torch.save(out, d / f"fam{i}_decode.pt")
-            del out
+            del out, frames
         del params
         gc.collect()
         torch.cuda.empty_cache()
     if job["train_layers"] and job["hold"]:
-        cfg = dataclasses.replace(get_config(job["arch"]), n_layers=job["train_layers"])
+        cfg = cut_depth(get_config(job["arch"]), job["train_layers"])
         params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
         P = layout_flat(params).numel()
-        batch = TokenStream(cfg.vocab_size, TRAIN_SEQ, FAM_K).batch(0, device="cuda")
-        rows = batch["tokens"].shape[0] // FAM_K
+        K = job.get("K", FAM_K)
+        batch = with_modal(torch, cfg, [TokenStream(cfg.vocab_size, TRAIN_SEQ, K).batch(
+            0, device="cuda")])[0]
+        rows = batch["tokens"].shape[0] // K
         G = torch.empty((P,), dtype=torch.float32, device="cuda")
         # an MoE's routing recorded (remat off: each layer routes once) for
         # the ranks to replay in their step-1 hold (TPObserver.replayed_grads)
         moe = bool(cfg.n_experts)
         with (RouteRecorder() if moe else contextlib.nullcontext()) as rec:
             tr.loss_and_grad(dataclasses.replace(cfg, remat=False) if moe else cfg, params,
-                             {"tokens": batch["tokens"][:rows]}, G)
+                             {k: v[:rows] for k, v in batch.items()}, G)
         with open(d / f"fam{i}_grads.f32", "wb") as f:
             f.write(G.cpu().numpy().tobytes())
         if moe:
@@ -8854,13 +8990,16 @@ def fam_serve(torch, cfg, mesh, out_dir, rank, i, job) -> tuple:
     positions' logits gathered and, on rank 0, held to one process's by
     the dense rule, with every routing difference a near-tie
     (``routing_diff``); decode of the same teacher-forced tokens against
-    32,768 slots (0 launches), its routing replayed, held likewise.
-    Returns (launches, report)."""
+    32,768 slots (0 launches; an encoder-decoder's caches holding the
+    rank's encoding of one process's frames), its routing replayed, held
+    likewise.  The prompts carry an encoder-decoder's frames or a VLM's
+    patch embeddings (``prompt_batch``).  Returns (launches, report)."""
     import contextlib
 
     import torch.distributed as dist
 
     from repro_torch.configs.shapes import DECODE_32K
+    from repro_torch.data.specs import ENC_LEN_DECODE
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import model as M
     from repro_torch.train import serve as sv
@@ -8885,17 +9024,16 @@ def fam_serve(torch, cfg, mesh, out_dir, rank, i, job) -> tuple:
     g = torch.Generator(device="cuda").manual_seed(1)
     if (d / f"fam{i}_prefill.pt").exists():
         ref = torch.load(d / f"fam{i}_prefill.pt")
-        prompts = ref["prompts"].to("cuda")
+        batch = {k: v.to("cuda") for k, v in ref["batch"].items()}
     else:       # no one-process model fits: held to nothing but its own checks
         ref = None
-        prompts = torch.randint(0, cfg.vocab_size, job["prefill"], generator=g, device="cuda",
-                                dtype=torch.int32)
+        batch = prompt_batch(torch, cfg, job["prefill"], g, MODAL_SEED - 1)
     moe = moe and ref is not None
     clock = CollectiveClock(torch)
     try:
         prefill = sv.build_prefill(cfg, mesh=mesh, gather=False)
         zero_counts()
-        warm = prefill(params, {"tokens": prompts})
+        warm = prefill(params, batch)
         del warm
         clock.take()
         torch.cuda.reset_peak_memory_stats()
@@ -8903,7 +9041,7 @@ def fam_serve(torch, cfg, mesh, out_dir, rank, i, job) -> tuple:
         torch.cuda.synchronize()
         t = time.perf_counter()
         with (RouteRecorder(replay) if moe else contextlib.nullcontext()) as rec:
-            logits = prefill(params, {"tokens": prompts})
+            logits = prefill(params, batch)
             torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t)
         rep["prefill_collectives"] = clock.take()
@@ -8915,7 +9053,7 @@ def fam_serve(torch, cfg, mesh, out_dir, rank, i, job) -> tuple:
             raise AssertionError(f"{cfg.name} prefill launches {counts} ({tc} tensor-core), "
                                  f"expected {n_flash} over two calls, all tensor-core")
         launches = dict(counts, **{"flash_attention[tensor_core]": tc})
-        B, S = prompts.shape
+        B, S = job["prefill"]
         rep["prefill_ms"] = round(ms, 2)
         rep["prefill_tokens_per_s"] = round(B * S / ms * 1e3, 1)
         tail = shd.gather_tensor(logits[:, -PREFILL_TAIL:].contiguous(),
@@ -8939,7 +9077,15 @@ def fam_serve(torch, cfg, mesh, out_dir, rank, i, job) -> tuple:
             seq = ref["seq"].to("cuda") if ref is not None else torch.randint(
                 0, cfg.vocab_size, (FAM_DECODE_B, FAM_DECODE), generator=g, device="cuda",
                 dtype=torch.int32)
-            cache = M.init_cache(cfg, FAM_DECODE_B, DECODE_32K.seq_len, mesh=mesh)
+            frames = None
+            if cfg.is_encoder_decoder:
+                frames = ref["frames"].to("cuda") if ref is not None else torch.randn(
+                    (FAM_DECODE_B, ENC_LEN_DECODE, cfg.d_model), generator=g, device="cuda",
+                    dtype=getattr(torch, cfg.dtype))
+            # the encoder on the rank's blocks fills the cache (untimed)
+            cache = encoded_cache(torch, cfg, params, FAM_DECODE_B, DECODE_32K.seq_len, mesh,
+                                  frames)
+            del frames
             step = sv.build_decode_step(cfg, mesh=mesh)
             replay = [c[1].to("cuda") for c in ref["route"]] if moe else None
             zero_counts()
@@ -9005,14 +9151,12 @@ def fam_child(rank, S, store_path, out_dir, backend) -> None:
     """One rank of the families' model-axis part: joins the ``backend``
     group of S ranks (on card ``rank`` modulo the cards); per job of
     ``out_dir``/``fam_job.json`` the serving part, then the training part
-    (``tp_train`` at ``FAM_K`` candidates); writes its launches and
+    (``tp_train`` at the job's K candidates); writes its launches and
     reports as JSON."""
     import os
 
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     jobs = json.loads(pathlib.Path(out_dir, "fam_job.json").read_text())
-    import dataclasses
-
     import torch
     import torch.distributed as dist
 
@@ -9037,13 +9181,12 @@ def fam_child(rank, S, store_path, out_dir, backend) -> None:
                         launches[k] += la[k]
                     out["tc"] = la["flash_attention[tensor_core]"]
                 if job["train_layers"]:
-                    cfg = dataclasses.replace(get_config(job["arch"]),
-                                              n_layers=job["train_layers"])
+                    cfg = cut_depth(get_config(job["arch"]), job["train_layers"])
                     grads = pathlib.Path(out_dir, f"fam{i}_grads.f32")
                     la, out["report"]["train"] = tp_train(
                         torch, cfg, S, rank, [tuple(r) for r in job["runs"]],
                         grads_file=str(grads) if grads.exists() else None, hold=job["hold"],
-                        K=FAM_K, n_mal=FAM_MALICIOUS, f=FAM_MALICIOUS)
+                        K=job["K"], n_mal=FAM_MALICIOUS, f=FAM_MALICIOUS)
                     for k in KERNELS:
                         launches[k] += la[k]
                 out["launches"] = {"tp": launches}
@@ -9056,10 +9199,10 @@ def fam_child(rank, S, store_path, out_dir, backend) -> None:
     pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
 
 
-def run_fam_path(torch, backend="gloo", S=FAM_M, rows=FAM_JOBS, hold=True) -> tuple:
-    """The MoE, SSM and hybrid families on the model axis: S ranks (``gloo``
-    sharing the one card, or ``nccl`` one a card) serve and train each job
-    of ``rows`` at full width (``fam_serve``, ``tp_train``), held to one
+def run_fam_path(torch, backend="gloo", S=FAM_M, rows=FAM_JOBS, hold=True, K=FAM_K) -> tuple:
+    """The families on the model axis: S ranks (``gloo`` sharing the one
+    card, or ``nccl`` one a card) serve and train each job of ``rows`` at
+    full width (``fam_serve``, ``tp_train`` at K candidates), held to one
     process (``fam_reference``, with ``hold``) and to the reference
     backend's route.  Returns (launches summed over the ranks and jobs,
     report)."""
@@ -9067,7 +9210,7 @@ def run_fam_path(torch, backend="gloo", S=FAM_M, rows=FAM_JOBS, hold=True) -> tu
 
     card = gpu_line()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fam_")
-    jobs = fam_jobs(rows, hold)
+    jobs = fam_jobs(rows, hold, K)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -9106,11 +9249,11 @@ def run_fam_path(torch, backend="gloo", S=FAM_M, rows=FAM_JOBS, hold=True) -> tu
                       f"{s_['prefill_peak_gib']} GiB{dec}; peak {s_['peak_gib']} GiB")
                 launches["flash_attention[tensor_core]"] += p.get("tc", 0)
         if job["train_layers"]:
-            print(f"  {job['arch']} trained at {job['train_layers']} layers, K = {FAM_K}:")
+            print(f"  {job['arch']} trained at {job['train_layers']} layers, K = {K}:")
             la, rep["train"] = report_tp([{"rank": r, "report": {"train": p["report"]["train"]},
                                            "launches": p["launches"]}
                                           for r, p in enumerate(per)],
-                                         card, 0.0, seconds, job["arch"], where, K=FAM_K,
+                                         card, 0.0, seconds, job["arch"], where, K=K,
                                          n_mal=FAM_MALICIOUS)
         for p in per:
             for k, c in p["launches"]["tp"].items():
@@ -9119,20 +9262,32 @@ def run_fam_path(torch, backend="gloo", S=FAM_M, rows=FAM_JOBS, hold=True) -> tu
     return launches, report
 
 
-def check_fam_kernels(torch, D) -> tuple:
+def check_fam_kernels(torch, P_s) -> tuple:
     """Kernels 4, 6 and 7 at the families' largest model-axis launch shape
-    (the DeepSeek step's (``FAM_K``, D = P_s) split matrix) and kernel 8
-    at a rank's heads of Arctic's prefill (B = 1, 28 live heads padded to
-    32, hd 128) and of Zamba2's shared block (B = 2, 16 heads, hd 64),
-    each held against its plain version and timed beside its bound and
-    the PyTorch call (``check_grid_kernels``, ``compare_flash``,
+    (the DeepSeek step's (``FAM_K``, D = P_s) split matrix) and at the
+    Seamless step's (``P_s``: arch -> D), and kernel 8 at a rank's heads of
+    Arctic's and LLaVA's prefill at M = 2 (B = 1, 28 live heads padded to
+    32, hd 128), of LLaVA's at M = 4 on four cards (B = 1, 14 live heads
+    padded to 16, hd 128) and of Zamba2's shared block (B = 2, 16 heads,
+    hd 64), each held against its plain version and timed beside its
+    bound and the PyTorch call (``check_grid_kernels``, ``compare_flash``,
     ``time_flash``).  Returns (errors, times)."""
-    errs, out = check_grid_kernels(torch, FAM_K, D, 16, where="the families' model-axis")
+    errs, out = check_grid_kernels(torch, FAM_K, P_s["deepseek-v2-lite-16b"], 16,
+                                   where="the families' model-axis")
     errs["flash_attention"] = [errs["flash_attention"]]
     out["flash_attention"] = {"zamba2_rank": time_flash(torch, 2, 16, PREFILL_S, 64, seed=81)}
     errs["flash_attention"].append(compare_flash(torch, 1, 32, PREFILL_S, PREFILL_S, 128, True,
                                                  "bfloat16", 128, 82))
     out["flash_attention"]["arctic_rank"] = time_flash(torch, 1, 32, PREFILL_S, 128, seed=83)
+    errs["flash_attention"].append(compare_flash(torch, 1, 16, PREFILL_S, PREFILL_S, 128, True,
+                                                 "bfloat16", 128, 84))
+    out["flash_attention"]["llava_rank_m4"] = time_flash(torch, 1, 16, PREFILL_S, 128, seed=85)
+    serrs, seamless = check_grid_kernels(torch, FAM_K, P_s["seamless-m4t-medium"], None,
+                                         where="Seamless's model-axis")
+    for name, t in seamless.items():
+        out[name] = {"deepseek_rank": out[name], "seamless_rank": t}
+        errs[name] = (errs[name] if isinstance(errs[name], list) else [errs[name]]) + [
+            serrs[name]]
     return errs, out
 
 
@@ -9143,15 +9298,16 @@ def run_tpfam(torch, grid_serve=True) -> tuple:
     shapes (``check_fam_kernels``).  Returns (launches summed over both,
     errors, report)."""
     launches, report = run_fam_path(torch)
-    arch, layers, runs = FAM_GRID
-    print(f"  {arch} ({layers} layers) on the {GRID_K} x {GRID_M} grid, "
-          f"{'served and ' if grid_serve else ''}trained:")
+    (arch, layers, runs), *more = FAM_GRID
+    print(f"  {' then '.join(f'{j[0]} ({j[1]} layers)' for j in FAM_GRID)} on the {GRID_K} x "
+          f"{GRID_M} grid, {'the first served and ' if grid_serve else ''}trained:")
     la, gerrs, report["grid"] = run_grid_path(torch, arch=arch, layers=layers, runs=runs,
-                                              serve=grid_serve)
+                                              serve=grid_serve, more=more)
     for k in KERNELS:
         launches[k] += la[k]
-    train = report["deepseek-v2-lite-16b"]["train"]["per_rank"][0]["train"]
-    errs, report["kernels"] = check_fam_kernels(torch, train["wfagg fused"]["P"][0])
+    P_s = {a: report[a]["train"]["per_rank"][0]["train"]["wfagg fused"]["P"][0]
+           for a in ("deepseek-v2-lite-16b", "seamless-m4t-medium")}
+    errs, report["kernels"] = check_fam_kernels(torch, P_s)
     report["grid_kernels"] = report["grid"].pop("kernels")
     for name, e in gerrs.items():
         errs.setdefault(name, [])
@@ -9798,6 +9954,48 @@ def arctic_child(rank, S, store_path, out_dir, backend) -> None:
     pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
 
 
+# --only tpcards at four cards: LLaVA-NeXT-34B at full width, 1 of its 60
+# layers (5.71 GiB of f32 parameters a copy: one card holds the stacked
+# layout's 2K + 7 copies only at K = 2), M = 4 (14 live heads a rank padded
+# to 16), K = 6 candidates under IPM-100 on one, Adafactor (its config's),
+# the stacked layout, WFAgg on fused, held to one process and to the
+# reference backend's route; served beside it at 1 x 8192 (576 patches and
+# 7,616 tokens)
+LLAVA_CARDS_K = 6
+LLAVA_CARDS_STEPS = 3
+LLAVA_CARDS_JOBS = (("llava-next-34b", 1, (1, 8192), True, 1,
+                     (("wfagg", "fused", LLAVA_CARDS_STEPS),)),)
+# the peak a card predicted before the first run: ROADMAP's 2K + 7 copies of
+# a rank's quarter of the 5.71 GiB model (19 x 1.43 GiB), plus the holds'
+LLAVA_CARDS_PREDICTED_GIB = 27
+
+
+def run_llava_cards(torch) -> tuple:
+    """LLaVA-NeXT-34B on the four cards (``run_fam_path`` on one ``nccl``
+    rank a card, ``LLAVA_CARDS_JOBS``): served and trained, held to one
+    process (its prefill, decode and step-1 gradient fit one card) and to
+    the reference backend's route; the peak a card printed against
+    ``LLAVA_CARDS_PREDICTED_GIB``; then kernels 4, 6 and 7 at a rank's
+    (K, P_s) block, held and timed (``check_grid_kernels``).  Returns
+    (launches, report)."""
+    S = torch.cuda.device_count()
+    launches, rep = run_fam_path(torch, "nccl", S, LLAVA_CARDS_JOBS, hold=True,
+                                 K=LLAVA_CARDS_K)
+    job = rep["llava-next-34b"]
+    per = job["per_rank"]
+    peak = max(max(p["train"]["wfagg fused"]["peak_gib"]) for p in per)
+    serve_peak = max(p["serve"]["peak_gib"] for p in per)
+    card = gpu_line()
+    print(f"  llava-next-34b at 1 of 60 layers, M = {S}, K = {LLAVA_CARDS_K}, Adafactor, "
+          f"stacked: training peak a card {peak} GiB (predicted ~{LLAVA_CARDS_PREDICTED_GIB} "
+          f"GiB before the first run), serving peak {serve_peak} GiB ({card})")
+    P_s = per[0]["train"]["wfagg fused"]["P"][0]
+    errs, kernels = check_grid_kernels(torch, LLAVA_CARDS_K, P_s, None,
+                                       where="LLaVA's model-axis (four cards)")
+    return launches, dict(rep, peak_gib=peak, serve_peak_gib=serve_peak, kernels=kernels,
+                          max_abs_err=errs)
+
+
 def run_arctic_cards(torch) -> dict:
     """Arctic's plan on the four cards (``arctic_child``, one ``nccl`` rank
     a card): per rank each step's phase ms and peak, the sampled-chunk
@@ -9940,9 +10138,10 @@ def main(argv=()) -> int:
                                    "max_abs_err": errs, "report": report}}))
         return 0
     if only == "tpfam":
-        print(f"[3] the MoE, SSM and hybrid families on the model axis and the grid alone "
-              f"(--only tpfam): {FAM_M} gloo ranks sharing the card, then {FAM_GRID[0]} on "
-              f"{GRID_K} x {GRID_M}; no kernels or ok line")
+        print(f"[3] the families on the model axis and the grid alone (--only tpfam): "
+              f"{FAM_M} gloo ranks sharing the card, then "
+              f"{' and '.join(j[0] for j in FAM_GRID)} on {GRID_K} x {GRID_M}; no kernels or "
+              "ok line")
         launches, errs, report = run_tpfam(torch)
         print(json.dumps({"tpfam": {"launches": {k: c for k, c in launches.items() if c},
                                     "max_abs_err": errs, "report": report}}))
@@ -9964,8 +10163,10 @@ def main(argv=()) -> int:
         return 0
     if only == "tpcards":
         print(f"[3] the model axis on one nccl rank per card alone (--only tpcards): " + (
-                  f"{ARCTIC_ARCH} at {ARCTIC_LAYERS} layer, full width, bf16, Adafactor, flat, "
-                  "M = 4, then " if torch.cuda.device_count() == 4 else "") +
+                  f"llava-next-34b at 1 layer, full width, Adafactor, stacked, M = 4, K = "
+                  f"{LLAVA_CARDS_K}, then {ARCTIC_ARCH} at {ARCTIC_LAYERS} layer, full width, "
+                  "bf16, Adafactor, flat, M = 4, then " if torch.cuda.device_count() == 4
+                  else "") +
               f"{TP_ARCH} at M = {torch.cuda.device_count()}" + (
                   f", then {CARDS_TP_ARCH} uncut at M = 4, stacked and flat"
                   if torch.cuda.device_count() == 4 else "") + "; no kernels or ok line")
@@ -10316,12 +10517,12 @@ def main(argv=()) -> int:
     for name, e in grid_errs.items():
         errs[name].append(e)
 
-    print(f"{at()} the MoE, SSM and hybrid families on the model axis: DeepSeek-V2-Lite, "
-          f"Zamba2-1.2B, Falcon-Mamba-7B and Arctic at full width, cut in depth, split over "
-          f"{FAM_M} gloo ranks sharing the card (served; the first three trained at K = "
-          f"{FAM_K}); {FAM_GRID[0]} ({FAM_GRID[1]} layers) trained on the {GRID_K} x {GRID_M} "
-          "grid; "
-          "kernels 4, 6, 7 and 8 at their shapes")
+    print(f"{at()} the families on the model axis: DeepSeek-V2-Lite, Zamba2-1.2B, "
+          f"Falcon-Mamba-7B, Arctic, SeamlessM4T-medium and LLaVA-NeXT-34B at full width, cut "
+          f"in depth, split over {FAM_M} gloo ranks sharing the card (served; DeepSeek, "
+          f"Zamba2, Falcon-Mamba and Seamless trained at K = {FAM_K}); "
+          f"{' and '.join(f'{j[0]} ({j[1]} layers)' for j in FAM_GRID)} trained on the "
+          f"{GRID_K} x {GRID_M} grid; kernels 4, 6, 7 and 8 at their shapes")
     fam_launches, fam_errs, fam_report = run_tpfam(torch, grid_serve=False)
     for name, t in fam_report["kernels"].items():
         timed[name]["families"] = t

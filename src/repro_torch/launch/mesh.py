@@ -38,11 +38,6 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch.distributed as dist
 
-# what the model axis and the grid do not run yet: the encoder-decoder and VLM
-# layers' TP and FSDP forms
-TP_QUEUE = "ROADMAP queue 1, item 12.8"
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """This process's place on the ``model`` axis: the group of M ranks, M

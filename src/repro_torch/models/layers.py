@@ -58,8 +58,11 @@ same leaves, ``activation_rules``' ``"expert"`` and ``"inner"``):
   not, a rank holds ``pad_heads_to / M`` head slots of the padded layout
   (``distributed.sharding.tp_cut``), the pad slots' q, k and v zero.
 
-``check_family`` refuses the encoder-decoder and VLM layers at M > 1 and
-on a grid.
+The encoder-decoder's and the VLM's layers take the same forms: the
+encoder's blocks are dense blocks, a cross-attention (``kv_source``) splits
+its heads as the self-attention does, the replicated encoder output's
+gradient summed over the model axis by its ``copy_to_model``; the VLM's
+projector is split as an MLP is (``models.model._project``).
 """
 from __future__ import annotations
 
@@ -72,7 +75,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.logical import shard
-from repro_torch.launch.mesh import TP_QUEUE
 from repro_torch.kernels.flash_attn.ops import flash_attention
 
 # the families of ``repro.models.model``: ``vlm`` and ``audio`` (the
@@ -129,25 +131,12 @@ def _dense_init_(p: torch.Tensor, generator: torch.Generator, scale=None) -> Non
     _draw_(p, draw)
 
 
-TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def check_family(cfg: ArchConfig, model_parallel: int = 1, grid: bool = False) -> None:
+def check_family(cfg: ArchConfig) -> None:
     """Raise for what the reference's model cannot run: a family that is
     not a language model (the paper's CNN is ``models.lenet``), an SSM or
     hybrid config without a Mamba variant or, hybrid, whose layers do not
-    split into whole groups; and, at ``model_parallel`` > 1 or on a grid
-    (``grid``: the data axis as processes, FSDP blocks), the
-    encoder-decoder and VLM families (their cross-attention, encoder and
-    projector layers have no TP or FSDP form yet)."""
-    if (model_parallel > 1 or grid) and (cfg.family not in TP_FAMILIES
-                                         or cfg.is_encoder_decoder
-                                         or cfg.modality == "vision"):
-        where = f"model = {model_parallel}" if model_parallel > 1 else "a grid"
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on {where}: the model axis and the grid run the "
-            f"dense, MoE, SSM and hybrid families; the encoder-decoder and VLM layers' "
-            f"TP and FSDP forms are {TP_QUEUE}")
+    split into whole groups.  Every language-model family runs on the
+    model axis and on the grid."""
     if cfg.family in ("ssm", "hybrid"):
         if cfg.ssm_variant not in ("mamba1", "mamba2"):
             raise ValueError(f"{cfg.name}: the {cfg.family!r} family needs ssm_variant "

@@ -37,25 +37,30 @@ dense prefix blocks, the encoder's blocks), the Mamba layer and the
 hybrid's group are recomputed in the backward (the reference's
 ``jax.checkpoint`` of its scanned bodies): the same values, less memory.
 
-On a mesh with a ``model`` axis of M > 1 a dense, MoE, SSM or hybrid
-model is cut (``cut_model_``): each rank holds its blocks of the one-card
-model (the tensor-parallel layers of ``models.layers`` and
-``models.ssm``), the logits are its vocabulary block, and the
-cross-entropy meets across the model group (``_nll``: the max, the sum of
-exponentials and the target's logit from the rank that holds it), chunked
-or not as at M = 1.  The hybrid's shared block holds its ``in_proj``'s
-d/M output columns; their outputs are gathered over the model group
-before the block (``layers.gather_from_model``).
+On a mesh with a ``model`` axis of M > 1 a model of any family is cut
+(``cut_model_``): each rank holds its blocks of the one-card model (the
+tensor-parallel layers of ``models.layers`` and ``models.ssm``), the
+logits are its vocabulary block, and the cross-entropy meets across the
+model group (``_nll``: the max, the sum of exponentials and the target's
+logit from the rank that holds it), chunked or not as at M = 1.  The
+hybrid's shared block holds its ``in_proj``'s d/M output columns; their
+outputs are gathered over the model group before the block
+(``layers.gather_from_model``).  The encoder-decoder's ``enc_in_proj``
+and ``enc_norm`` are replicated and its encoder blocks are dense blocks:
+the encoder output is whole on every rank, and each cross-attention
+takes its heads' K and V from it.  The VLM's projector is split as an
+MLP: ``w1`` by columns, ``w2`` by rows (``_project``).
 
 On a grid (``launch.mesh``: the data axis as processes) the model is also
 cut over ``data`` (``shard_data_``): each rank keeps the FSDP blocks of
 its model block (``core.flatten.layout_fsdp``, the reference's
 ``param_specs(fsdp=True)``).  The forward gathers each layer's weights
 over the data group just before that layer and frees them after it (the
-reference's "weights all-gather per layer"): the embedding, each prefix
-block, block or Mamba layer, the final norm, the unembedding, one at a
-time (``_gathered``); the hybrid's shared block is gathered at each of
-its uses, once a group.  The trainer gathers the whole model block once
+reference's "weights all-gather per layer"): the embedding, the
+encoder's input projection, each encoder block and its final norm, the
+projector, each prefix block, block or Mamba layer, the final norm, the
+unembedding, one at a time (``_gathered``); the hybrid's shared block is
+gathered at each of its uses, once a group.  The trainer gathers the whole model block once
 per step (``whole_block``).
 """
 from __future__ import annotations
@@ -166,7 +171,8 @@ class SharedAttention(nn.Module):
 
 class Projector(nn.Module):
     """The VLM's modal ``projector``: ``w1 (MODAL_EMBED_DIM, d)``, ``w2 (d,
-    d)``."""
+    d)``; on the model axis (``tp``) ``w1``'s d/M columns and ``w2``'s d/M
+    rows."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, device=None):
         super().__init__()
@@ -225,11 +231,12 @@ class DecoderLM(nn.Module):
         if cfg.is_encoder_decoder:
             self.enc_in_proj = L._param((cfg.d_model, cfg.d_model), device, L._pdtype(cfg))
             L._dense_init_(self.enc_in_proj, generator)
-            self.enc_layers = nn.ModuleList(Block(cfg, generator, device)
-                                            for _ in range(cfg.n_enc_layers))
+            self.enc_layers = nn.ModuleList(keep(f"enc_layers.{i}", Block(cfg, generator, device))
+                                            for i in range(cfg.n_enc_layers))
             self.enc_norm = L.Norm(cfg, cfg.d_model, device)
-            self.layers = nn.ModuleList(Block(cfg, generator, device, cross=True)
-                                        for _ in range(cfg.n_layers))
+            self.layers = nn.ModuleList(keep(f"layers.{i}",
+                                             Block(cfg, generator, device, cross=True))
+                                        for i in range(cfg.n_layers))
             return
         n_prefix = _n_prefix(cfg)
         if n_prefix:
@@ -240,7 +247,7 @@ class DecoderLM(nn.Module):
         self.layers = nn.ModuleList(keep(f"layers.{i}", Block(cfg, generator, device, kind))
                                     for i in range(cfg.n_layers - n_prefix))
         if _has_projector(cfg):
-            self.projector = Projector(cfg, generator, device)
+            self.projector = keep("projector", Projector(cfg, generator, device))
 
     def _keep(self, prefix: str, mod: nn.Module) -> nn.Module:
         """``mod`` (the submodule at ``prefix``), its parameters cut to the
@@ -303,14 +310,17 @@ def cut_model_(cfg: ArchConfig, model: DecoderLM, mesh, rank: Optional[int] = No
             mod.tp = axis if "model" in model.tp_specs[f"{name}.embed"] else None
         elif isinstance(mod, SharedAttention):
             mod.tp = axis if "model" in model.tp_specs[f"{name}.in_proj"] else None
+        elif isinstance(mod, Projector):
+            mod.tp = axis if "model" in model.tp_specs[f"{name}.w1"] else None
     model.tp = axis
     return model
 
 
 def _check_split(cfg: ArchConfig, M: int) -> None:
-    """Raise for a model the model axis of M cannot cut: a family without a
-    TP form, a Mamba mixer whose channels or heads M does not divide."""
-    L.check_family(cfg, M)
+    """Raise for a model the model axis of M cannot cut: a config the
+    reference cannot run, a Mamba mixer whose channels or heads M does not
+    divide."""
+    L.check_family(cfg)
     if cfg.family in ("ssm", "hybrid") and (cfg.d_inner_ % M or (
             cfg.ssm_variant == "mamba2" and cfg.n_ssm_heads % M)):
         raise NotImplementedError(
@@ -349,7 +359,6 @@ def shard_data_(cfg: ArchConfig, model: DecoderLM, mesh,
     dax = None if mesh is None else mesh.data_axis()
     if dax is None or blocks is None:
         return model
-    L.check_family(cfg, model_size(mesh), grid=True)
     model.dp = dax
     layout = fsdp_layout(cfg, model, mesh)
     if blocks:
@@ -387,17 +396,19 @@ def whole_block(model: DecoderLM):
 
 
 @contextlib.contextmanager
-def _gathered(model: DecoderLM, *mods: nn.Module):
-    """The modules' parameters whole for the enclosed use: their FSDP
-    blocks gathered over the data group in rank order (one all-gather) and
-    freed after it.  A model that holds its whole block: as it is."""
+def _gathered(model: DecoderLM, *mods):
+    """The parameters of the modules (or the parameters) ``mods`` whole for
+    the enclosed use: their FSDP blocks gathered over the data group in
+    rank order (one all-gather) and freed after it.  A model that holds
+    its whole block: as it is."""
     if not model.fsdp_blocks:
         yield
         return
     from repro_torch.distributed.spmd import all_gather_rows
 
     dims = model.fsdp_dims
-    ps = [p for m in mods for p in m.parameters() if id(p) in dims]
+    ps = [p for m in mods for p in (m.parameters() if isinstance(m, nn.Module) else (m,))
+          if id(p) in dims]
     blocks = [p.data for p in ps]
     if ps:
         K = model.dp.size
@@ -559,23 +570,33 @@ def _encode(cfg: ArchConfig, params: DecoderLM, frames: torch.Tensor) -> torch.T
     """The encoder-decoder's encoder: ``frames @ enc_in_proj``, the
     non-causal dense ``enc_layers`` (positions 0 .. S_enc - 1) and
     ``enc_norm``, (B, S_enc, d) in the activation dtype.  ``decode_step``
-    reads it from ``cache["enc_out"]``, which the caller fills."""
+    reads it from ``cache["enc_out"]``, which the caller fills.  On the
+    model axis the replicated ``enc_in_proj``'s gradient is whole on every
+    rank: the first block's ``copy_to_model`` sums its input's gradient
+    over the model group."""
     dt = _dtype(cfg)
     frames = frames.to(dt)
-    h = frames @ params.enc_in_proj.to(dt)
+    with _gathered(params, params.enc_in_proj):
+        h = frames @ params.enc_in_proj.to(dt)
     pos = torch.arange(frames.shape[1], device=h.device).expand(frames.shape[:2])
     for lp in params.enc_layers:
-        h, _ = _block(cfg, lp, h, pos, None, None, causal=False)
-    return L.norm_fwd(params.enc_norm, h)
+        with _gathered(params, lp):
+            h, _ = _block(cfg, lp, h, pos, None, None, causal=False)
+    with _gathered(params, params.enc_norm):
+        return L.norm_fwd(params.enc_norm, h)
 
 
 def _project(cfg: ArchConfig, params: DecoderLM, patch_embeds: torch.Tensor) -> torch.Tensor:
     """The VLM's ``gelu(pe @ w1) @ w2``: ``jax.nn.gelu``'s default is the tanh
-    form."""
+    form.  On the model axis the GELU runs on the rank's d/M columns of
+    ``pe @ w1`` and the row-split ``w2``'s partial sums are all-reduced."""
     dt = _dtype(cfg)
     proj = params.projector
-    pe = F.gelu(patch_embeds.to(dt) @ proj.w1.to(dt), approximate="tanh")
-    return pe @ proj.w2.to(dt)
+    tp = getattr(proj, "tp", None)
+    with _gathered(params, proj):
+        pe = L.copy_to_model(patch_embeds.to(dt), tp)
+        pe = F.gelu(pe @ proj.w1.to(dt), approximate="tanh")
+        return L.reduce_from_model(pe @ proj.w2.to(dt), tp)
 
 
 def _hidden(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
@@ -584,6 +605,8 @@ def _hidden(cfg: ArchConfig, params: DecoderLM, batch: Dict[str, torch.Tensor],
     encoder-decoder's decoder over ``tokens`` cross-attending to the
     encoded ``frames``; otherwise the projected ``patch_embeds``, if given,
     before the token embeddings, the positions over the whole sequence."""
+    # a batch without ``frames`` raises KeyError here, as the reference's
+    # forward does (its launcher feeds tokens only)
     enc_out = _encode(cfg, params, batch["frames"]) if cfg.is_encoder_decoder else None
     with _gathered(params, params.embedding):
         h = L.embed_fwd(params.embedding, batch["tokens"], _dtype(cfg))
@@ -731,7 +754,7 @@ def init_cache(cfg: ArchConfig, batch: int, total_len: int, dtype=None,
     heads); MLA's latent cache whole (replicated); on a grid ``batch`` is the global
     batch and the cache holds this rank's rows of it (``local_rows``)."""
     M = model_size(mesh)
-    L.check_family(cfg, M, grid=mesh is not None and mesh.data_axis() is not None)
+    L.check_family(cfg)
     batch = local_rows(batch, mesh)[1]
     dev = resolve_device(device)
     dt = dtype or _dtype(cfg)
@@ -827,7 +850,7 @@ def params_from_jax(tree: Params, cfg: ArchConfig, device=None, mesh=None,
     keeps its blocks (``cut_model_``), and on a grid its data rank its FSDP
     blocks (``shard_data_``, as ``init_params``)."""
     dev = resolve_device(device)
-    L.check_family(cfg, model_size(mesh))
+    L.check_family(cfg)
     stacks = {"layers": cfg.n_layers - _n_prefix(cfg)}
     if cfg.is_encoder_decoder:
         stacks["enc_layers"] = cfg.n_enc_layers

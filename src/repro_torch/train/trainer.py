@@ -39,8 +39,8 @@ a leaf-wide statistic spans all L layers as in the reference, and
 created without gradients (``requires_grad=False``); a worker's gradient
 is taken by enabling them for its backward alone.
 
-**The model axis.**  On a mesh with ``model`` = M > 1 (a dense, MoE, SSM
-or hybrid model) every process is one tensor-parallel rank and runs all K candidates on
+**The model axis.**  On a mesh with ``model`` = M > 1 (a model of any
+family) every process is one tensor-parallel rank and runs all K candidates on
 its shard of the model (``models.model.cut_model_``), its parameters
 views of two buffers (``core.flatten.layout_split``: the split leaves and
 the replicated ones), its candidate gradients two (K, P_s) and (K, P_r)
@@ -79,9 +79,9 @@ each rank takes its candidate's gradient on its whole model block and the
 flat all-reduce runs over the data group on the rank's two buffers, the
 statistics summed over the model group (``flat_step``).  Adafactor runs
 on blocks everywhere (``optim.LeafBlock``: its leaf-wide means add the
-block's sums over the cut's group).  The encoder-decoder and VLM families
-stay refused on the model axis and the grid (ROADMAP queue 1, item 12.8).
-``state_shardings`` / ``batch_shardings`` give the reference's specs (plain
+block's sums over the cut's group).  Every family runs there, the
+encoder-decoder and the VLM too: each candidate takes its rows of the
+``frames`` or ``patch_embeds`` beside its tokens.  ``state_shardings`` / ``batch_shardings`` give the reference's specs (plain
 tuples, ``distributed.sharding``).
 
 **bfloat16 parameters** (``cfg.param_dtype``, Arctic's plan with
@@ -195,12 +195,9 @@ def _check(cfg: ArchConfig, tc: TrainConfig, mesh: Mesh) -> None:
         raise ValueError("gspmd mode supports mean aggregation only")
     if tc.multi_pod and "pod" not in mesh.shape:
         raise ValueError("multi_pod needs a mesh with a pod axis")
-    size = model_size(mesh)
-    grid = _on_grid(mesh, tc)
-    if grid and mesh.shape.get("pod") and not tc.multi_pod:
+    L.check_family(cfg)
+    if _on_grid(mesh, tc) and mesh.shape.get("pod") and not tc.multi_pod:
         raise ValueError("a grid with a pod axis runs pod x data candidates: multi_pod")
-    if size > 1 or grid:
-        L.check_family(cfg, size, grid=grid)
 
 
 def _layout(model, mesh: Optional[Mesh]):

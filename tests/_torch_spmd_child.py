@@ -535,13 +535,28 @@ def task_grid(rank, S, K, M, cfg, params, parts, runs=(), cands=None, methods=()
     return out
 
 
-def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launcher=None):
-    """The MoE, SSM and hybrid families on a mesh of S ranks: ``mesh_shape``
-    (K, M), a K x M grid when K > 1 (``launch.mesh.make_grid``, the FSDP
-    threshold lowered to ``fsdp_min_dim``), else the model axis of M = S.
-    Per run of ``runs`` (a dict: ``cfg``, the reference's initial
-    ``params`` as numpy, ``tokens``, ``prompts``, ``parts``, and
-    ``train``'s ``tc`` / ``state`` / ``batches`` / ``K``), what rank 0
+def _batch(tokens, extra=None, rows=None):
+    """A batch of ``tokens`` (numpy) and the numpy entries of ``extra``
+    (``frames``, ``patch_embeds``) as tensors; ``rows`` (first, count): those
+    rows of every entry."""
+    b = {"tokens": torch.as_tensor(tokens).long(),
+         **{k: torch.as_tensor(v) for k, v in (extra or {}).items()}}
+    if rows is not None:
+        b = {k: v[rows[0]:rows[0] + rows[1]] for k, v in b.items()}
+    return b
+
+
+def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launcher=None,
+             sketch=None, launcher_raises=None):
+    """The MoE, SSM, hybrid, encoder-decoder and VLM families on a mesh of S
+    ranks: ``mesh_shape`` (K, M), a K x M grid when K > 1
+    (``launch.mesh.make_grid``, the FSDP threshold lowered to
+    ``fsdp_min_dim``), else the model axis of M = S.  Per run of ``runs``
+    (a dict: ``cfg``, the reference's initial ``params`` as numpy,
+    ``tokens``, ``prompts``, ``parts``, ``train``'s and ``flat``'s ``tc`` /
+    ``state`` / ``batches`` / ``K``, and, for the encoder-decoder and the
+    VLM, ``extra`` / ``prompt_extra`` and the training runs' ``extras``:
+    the ``frames`` or ``patch_embeds`` beside the tokens), what rank 0
     returns, gathered whole where a rank holds a block:
 
       forward    the logits of ``tokens`` and the aux loss;
@@ -555,14 +570,19 @@ def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launc
       train      per step loss, grad_norm, weights, masks and the params;
                  the last params saved at ``ckpt`` (rank 0) and the
                  checkpoint ``load`` loaded back;
+      flat       ``flat``'s steps (a flat-layout ``tc``), as ``train``'s;
       serve      the prefill logits of ``prompts`` (flash branch at a
                  lowered threshold, kernel 8's plain version), and the
                  decode of the prompts' first ``decode_len`` tokens then 4
-                 greedy steps.
+                 greedy steps (an encoder-decoder's cache holding the
+                 encoded ``frames`` of the prompts: ``enc_out``).
     ``remat_check``: a run index whose gradients are taken again with
     ``cfg.remat`` on (``grads_remat``).  ``launcher``: (arch, checkpoint
     directory) for ``launch.train.main`` with ``--model-parallel M``, 2
-    reduced steps, the last checkpointed."""
+    reduced steps, the last checkpointed; ``launcher_raises``: an arch
+    whose launcher run's error is returned (``launcher_error``).
+    ``sketch``: the count-sketch's buckets and signs per whole-vector
+    chunk (numpy), installed as ``robust_allreduce.sketch_hash``."""
     import dataclasses
     import types
 
@@ -576,6 +596,9 @@ def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launc
     from repro_torch.train import serve as sv
     from repro_torch.train import trainer as tr
 
+    if sketch is not None:
+        table = {ci: (torch.as_tensor(b), torch.as_tensor(sg)) for ci, (b, sg) in sketch.items()}
+        ra.sketch_hash = lambda n, m, seed, ci, device: table[ci]
     K, M = mesh_shape
     grid = K > 1
     if grid:
@@ -583,6 +606,30 @@ def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launc
         mesh = make_grid(K, M)
     else:
         mesh = make_test_mesh(data=1, model=M, model_group=dist.group.WORLD)
+
+    def trajectory(cfg, t):
+        js = t["state"]
+        agg = None if js["agg_state"] is None else types.SimpleNamespace(**js["agg_state"])
+        tmesh = mesh if grid else make_test_mesh(data=t["K"], model=M,
+                                                 model_group=dist.group.WORLD)
+        st = tr.state_from_jax(types.SimpleNamespace(
+            params=js["params"], opt_state=js["opt_state"], agg_state=agg,
+            step=js["step"]), cfg, device="cpu", mesh=tmesh, tc=t["tc"])
+        seen = {}
+        step = tr.build_train_step(cfg, t["tc"], tmesh,
+                                   observe=lambda phase, **v: seen.update({phase: v}))
+        steps = []
+        extras = t.get("extras") or [None] * len(t["batches"])
+        for b, x in zip(t["batches"], extras):
+            st, m = step(st, _batch(b, x))
+            info = seen["allreduce"]["info"]
+            steps.append({"loss": float(m["loss"]), "weights": _np(m["weights"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "masks": {k: _np(info[k]) for k in ("mask_d", "mask_c",
+                                                              "mask_t") if k in info},
+                          "params": _tp_tree_np(tr.full_params(st.params, tmesh))})
+        return st, tmesh, steps
+
     results = []
     for i, run in enumerate(runs):
         cfg, params, parts = run["cfg"], run["params"], run["parts"]
@@ -592,17 +639,16 @@ def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launc
             out["split_dims"] = F.split_dims(model)
         if "forward" in parts:
             L.SDPA_CHUNK_THRESHOLD = 8192
-            tok = torch.as_tensor(run["tokens"]).long()
-            a, n = Mo.local_rows(tok.shape[0], mesh)
-            logits, aux = Mo.forward(cfg, model, {"tokens": tok[a:a + n]})
-            out["logits"] = _np(sv._gathered(logits, mesh, tok.shape[0]))
-            out["aux"] = float(aux) if n == tok.shape[0] else None
+            B = run["tokens"].shape[0]
+            logits, aux = Mo.forward(cfg, model, _batch(run["tokens"], run.get("extra"),
+                                                        Mo.local_rows(B, mesh)))
+            out["logits"] = _np(sv._gathered(logits, mesh, B))
+            out["aux"] = float(aux) if Mo.local_rows(B, mesh)[1] == B else None
         if "grads" in parts:
             for key, c in (("grads", cfg), ("grads_remat", dataclasses.replace(cfg, remat=True))):
                 if key == "grads_remat" and remat_check != i:
                     continue
-                loss, g = tr.loss_and_grad(c, model, {"tokens": torch.as_tensor(
-                    run["tokens"]).long()})
+                loss, g = tr.loss_and_grad(c, model, _batch(run["tokens"], run.get("extra")))
                 out[key] = (float(loss), _tp_gather(model, mesh, g))
         if "roundtrip" in parts:
             whole = tr.full_params(model, mesh)
@@ -635,28 +681,11 @@ def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launc
                 [ra._concat_candidates(groups[j]) if groups[j] else torch.zeros((Kc, 0))
                  for j in mine], [None] * len(mine)), shards.group)
             out["stats"] = {f: _np(getattr(st, f)[0]) for f in ("dist2", "norm2", "gram")}
+        if "flat" in parts:
+            out["flat"] = trajectory(cfg, run["flat"])[2]
         if "train" in parts:
             t = run["train"]
-            js = t["state"]
-            agg = None if js["agg_state"] is None else types.SimpleNamespace(**js["agg_state"])
-            tmesh = mesh if grid else make_test_mesh(data=t["K"], model=M,
-                                                     model_group=dist.group.WORLD)
-            st = tr.state_from_jax(types.SimpleNamespace(
-                params=js["params"], opt_state=js["opt_state"], agg_state=agg,
-                step=js["step"]), cfg, device="cpu", mesh=tmesh, tc=t["tc"])
-            seen = {}
-            step = tr.build_train_step(cfg, t["tc"], tmesh,
-                                       observe=lambda phase, **v: seen.update({phase: v}))
-            steps = []
-            for b in t["batches"]:
-                st, m = step(st, {"tokens": torch.as_tensor(b).long()})
-                info = seen["allreduce"]["info"]
-                steps.append({"loss": float(m["loss"]), "weights": _np(m["weights"]),
-                              "grad_norm": float(m["grad_norm"]),
-                              "masks": {k: _np(info[k]) for k in ("mask_d", "mask_c",
-                                                                  "mask_t") if k in info},
-                              "params": _tp_tree_np(tr.full_params(st.params, tmesh))})
-            out["train"] = steps
+            st, tmesh, out["train"] = trajectory(cfg, t)
             whole = tr.full_params(st.params, tmesh)
             if rank == 0:
                 ckpt.save_checkpoint(t["ckpt"], "fam", whole, {"mesh": [K, M]})
@@ -667,11 +696,17 @@ def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launc
         if "serve" in parts:
             L.SDPA_CHUNK_THRESHOLD = 128
             model = Mo.params_from_jax(params, cfg, "cpu", mesh=mesh)
-            p = torch.as_tensor(run["prompts"]).long()
-            out["prefill"] = _np(sv.build_prefill(cfg, device="cpu", mesh=mesh)(
-                model, {"tokens": p}))
-            p = p[:, :run["decode_len"]]
-            cache = Mo.init_cache(cfg, p.shape[0], p.shape[1] + 4, device="cpu", mesh=mesh)
+            pb = _batch(run["prompts"], run.get("prompt_extra"))
+            out["prefill"] = _np(sv.build_prefill(cfg, device="cpu", mesh=mesh)(model, pb))
+            p = pb["tokens"][:, :run["decode_len"]]
+            frames = pb.get("frames")
+            cache = Mo.init_cache(cfg, p.shape[0], p.shape[1] + 4, device="cpu", mesh=mesh,
+                                  enc_len=0 if frames is None else frames.shape[1])
+            if frames is not None:
+                # the caller fills the encoder output (the reference never does)
+                a, n = Mo.local_rows(p.shape[0], mesh)
+                with torch.no_grad():
+                    cache["enc_out"].copy_(Mo._encode(cfg, model, frames[a:a + n]))
             out["cache"] = {"/".join(map(str, k)): tuple(v.shape)
                             for k, v in _cache_leaves(cache)}
             dec = sv.build_decode_step(cfg, device="cpu", mesh=mesh)
@@ -685,12 +720,23 @@ def task_fam(rank, S, runs, mesh_shape, fsdp_min_dim=64, remat_check=None, launc
                 tok = lg[:, -1].argmax(-1, keepdim=True)
             out["decode"] = logits
         results.append(out)
-    if launcher:
+    if launcher or launcher_raises:
         from repro_torch.launch import train as T
-        T.main(["--arch", launcher[0], "--reduced", "--candidates", "4", "--steps", "2",
-                "--seq-len", "32", "--global-batch", "4", "--agg-backend", "fused",
-                "--attack", "ipm_100", "--n-malicious", "1", "--model-parallel", str(M),
-                "--ckpt-dir", launcher[1], "--ckpt-every", "2"], device="cpu")
+
+        def launch(arch, ckpt_dir):
+            T.main(["--arch", arch, "--reduced", "--candidates", "4", "--steps", "2",
+                    "--seq-len", "32", "--global-batch", "4", "--agg-backend", "fused",
+                    "--attack", "ipm_100", "--n-malicious", "1", "--model-parallel", str(M),
+                    "--ckpt-dir", ckpt_dir, "--ckpt-every", "2"], device="cpu")
+
+        if launcher:
+            launch(*launcher)
+        if launcher_raises:
+            try:
+                launch(launcher_raises, "")
+                results.append({"launcher_error": None})
+            except Exception as e:   # noqa: BLE001 - the test reads which
+                results.append({"launcher_error": repr(e)})
     return results
 
 

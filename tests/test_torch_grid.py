@@ -445,12 +445,13 @@ def test_prefill_and_decode_match_one_process(which, request, monkeypatch):
 
 
 def test_grid_refusals(monkeypatch):
-    """What the grid still refuses (ROADMAP queue 1, item 12.8: the
-    encoder-decoder and VLM families) and a grid without its groups; and
-    what it now runs: the flat layout at model > 1 (item 12.2c), Adafactor
-    and band_rider on a rank's column block, which takes its
-    per-coordinate fallback (its ``torch.roll`` branch, which reads the
-    whole vector, is never reached)."""
+    """What the grid still refuses (the paper's CNN as a language model,
+    and a grid without its groups); and what it now runs: the
+    encoder-decoder and VLM families (ROADMAP queue 1, item 12.8;
+    tests/test_torch_tp_encdec.py holds them), the flat layout at model > 1
+    (item 12.2c), Adafactor and band_rider on a rank's column block, which
+    takes its per-coordinate fallback (its ``torch.roll`` branch, which
+    reads the whole vector, is never reached)."""
     from repro_torch.core import attacks as tatk
     from repro_torch.launch.mesh import Mesh
 
@@ -470,11 +471,12 @@ def test_grid_refusals(monkeypatch):
     assert tr._check(dataclasses.replace(cfg, optimizer="adafactor"),
                      tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
                      Axis({"data": 2, "model": 1})) is None
+    stacked = tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked"))
     for arch in ("seamless-m4t-medium", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-            tr._check(get_config(arch).reduced(),
-                      tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
-                      Axis({"data": 2, "model": 1}))
+        for shape in ({"data": 2, "model": 1}, {"data": 2, "model": 2}):
+            assert tr._check(get_config(arch).reduced(), stacked, Axis(shape)) is None
+    with pytest.raises(NotImplementedError, match="not a language model"):
+        tr._check(get_config("lenet-mnist"), stacked, Axis({"data": 2, "model": 1}))
     shards = tra.GridShards(group=None, leaf_groups=(0,), counted=(True,), cuts=((),))
     x = torch.randn((4, 3), generator=torch.Generator().manual_seed(0))
     mal = torch.tensor([False, True, False, False])

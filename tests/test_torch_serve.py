@@ -262,9 +262,10 @@ def test_other_families_raise():
     hybrid families since theirs: tests/test_torch_ssm*.py, and as an
     override of a config without a Mamba variant they raise ValueError),
     and ``NOT_PORTED`` is empty.  What still raises: the paper's CNN as a
-    language model, and the encoder-decoder and VLM families on the model
-    axis or a grid (ROADMAP queue 1, item 12.8; the dense, MoE, SSM and
-    hybrid families run there).  Training with bf16 parameters (item 12.4)
+    language model, on one card, on the model axis and on a grid.  Every
+    other family runs on the model axis and on a grid, the encoder-decoder
+    and VLM since ROADMAP queue 1, item 12.8
+    (tests/test_torch_tp_encdec.py).  Training with bf16 parameters (item 12.4)
     builds its state and step: tests/test_torch_bf16_train.py holds it to
     the reference."""
     from repro.configs.registry import ARCHS as JARCHS
@@ -289,17 +290,23 @@ def test_other_families_raise():
                  lambda: TM.init_cache(lenet, 1, 8, device="cpu")):
         with pytest.raises(NotImplementedError, match="not a language model"):
             call()
+    from repro_torch.launch.mesh import DataAxis, Mesh
+
+    class Grid(Mesh):     # the data axis as processes, no live group reached
+        def data_axis(self):
+            return DataAxis(None, self.shape["data"], 0)
+
+    meshes = (Mesh(shape={"data": 2, "model": 2}), Grid(shape={"data": 2, "model": 2}))
     for name in JARCHS:
         c = tregistry.get_config(name)
         if c.family == "cnn":
+            for mesh in meshes:
+                with pytest.raises(NotImplementedError, match="not a language model"):
+                    tr._check(c, tr.TrainConfig(), mesh)
             continue
-        if c.is_encoder_decoder or c.modality == "vision":
-            for kw in ({"model_parallel": 2}, {"grid": True}):
-                with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-                    tlayers.check_family(c, **kw)
-        else:
-            tlayers.check_family(c, 2)
-            tlayers.check_family(c, grid=True)
+        tlayers.check_family(c)
+        for mesh in meshes:
+            assert tr._check(c, tr.TrainConfig(), mesh) is None
     bf16 = dataclasses.replace(tregistry.get_config("arctic-480b").reduced(),
                                param_dtype="bfloat16")
     st = tr.init_train_state(bf16, tr.TrainConfig(), mesh=make_test_mesh(data=2), device="cpu")

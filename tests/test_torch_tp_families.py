@@ -469,14 +469,26 @@ def test_caches_hold_a_rank_share(tp2, grid):
 
 
 def test_refusals_name_their_items():
-    """Still refused at M > 1: the encoder-decoder and VLM families (12.8).
-    Training on the head slots of a padded layout builds its step (item
-    12.4: tests/test_torch_pad_slots.py holds it at M = 4)."""
-    for arch in ("seamless-m4t-medium", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-            TL.check_family(get_config(arch).reduced(), 2)
-    assert tr._check(_cfgs("padded")[1], _tcs("mean", "none", 0)[1],
-                     Mesh(shape={"data": 2, "model": 4})) is None
-    for key in FAMILIES:
-        TL.check_family(_cfgs(key)[1], 2)
-        TL.check_family(_cfgs(key)[1], 1, grid=True)
+    """Every language-model family runs at M > 1 and on a grid: the
+    encoder-decoder and VLM since their slice (ROADMAP queue 1, item 12.8;
+    tests/test_torch_tp_encdec.py holds them), as the MoE, SSM and hybrid
+    families here.  Training on the head slots of a padded layout builds
+    its step (item 12.4: tests/test_torch_pad_slots.py holds it at M = 4).
+    What stays refused: the paper's CNN as a language model."""
+    from repro_torch.launch.mesh import DataAxis
+
+    class Grid(Mesh):     # the data axis as processes, no live group reached
+        def data_axis(self):
+            return DataAxis(None, self.shape["data"], 0)
+
+    tc = _tcs("mean", "none", 0)[1]
+    meshes = (Mesh(shape={"data": 2, "model": 2}), Grid(shape={"data": 2, "model": 2}))
+    cfgs = [get_config(arch).reduced() for arch in ("seamless-m4t-medium", "llava-next-34b")]
+    for cfg in cfgs + [_cfgs(key)[1] for key in FAMILIES]:
+        TL.check_family(cfg)
+        for mesh in meshes:
+            assert tr._check(cfg, tc, mesh) is None
+    assert tr._check(_cfgs("padded")[1], tc, Mesh(shape={"data": 2, "model": 4})) is None
+    for mesh in meshes:
+        with pytest.raises(NotImplementedError, match="not a language model"):
+            tr._check(get_config("lenet-mnist"), tc, mesh)

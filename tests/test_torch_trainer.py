@@ -303,15 +303,18 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 
 def test_multi_card_trainer_refused():
     """What the multi-card trainer still refuses, and what it now runs: a
-    model axis without its process group and a family without a TP form
-    on it (the encoder-decoder; the MoE, SSM and hybrid families have
-    theirs: tests/test_torch_tp_families.py) raise, as does gspmd with a
-    robust rule; the flat layout on the model axis (ROADMAP queue 1, item
-    12.2c), Adafactor on a grid and the adaptive attacks on a rank's
-    blocks run (tests/test_torch_flat_tp.py holds their values).
-    ``fsdp_params`` is served since the grid (the data axis as processes):
-    with the data axis in one process the state is whole, as before."""
-    from repro_torch.launch.mesh import DataAxis, Mesh
+    model axis without its process group and a config that is not a
+    language model (the paper's CNN) raise, as does gspmd with a robust
+    rule; every family builds its step on the model axis and on a grid,
+    the encoder-decoder and the VLM too (ROADMAP queue 1, item 12.8:
+    tests/test_torch_tp_encdec.py holds their values; the MoE, SSM and
+    hybrid families: tests/test_torch_tp_families.py); the flat layout on
+    the model axis (item 12.2c), Adafactor on a grid and the adaptive
+    attacks on a rank's blocks run (tests/test_torch_flat_tp.py holds
+    their values).  ``fsdp_params`` is served since the grid (the data
+    axis as processes): with the data axis in one process the state is
+    whole, as before."""
+    from repro_torch.launch.mesh import DataAxis, Mesh, ModelAxis
 
     _, cfg = _cfgs()
     mesh = make_test_mesh(data=2)
@@ -321,16 +324,21 @@ def test_multi_card_trainer_refused():
     tp_mesh = Mesh(shape={"data": 2, "model": 2})     # the group is never reached
     flat = tr.TrainConfig(agg=tra.RobustAggConfig(layout="flat"))
     assert tr._check(cfg, flat, tp_mesh) is None
-    encdec = get_config("seamless-m4t-medium").reduced()
-    with pytest.raises(NotImplementedError, match="queue 1, item 12.8"):
-        tr.build_train_step(encdec, tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked")),
-                            tp_mesh)
 
-    class Grid(Mesh):     # the data axis as processes, no live group reached
+    class TP(Mesh):       # the model axis without a live group
+        def model_axis(self):
+            return ModelAxis(None, self.shape["model"], 0)
+
+    class Grid(TP):       # the data axis as processes, no live group reached
         def data_axis(self):
             return DataAxis(None, self.shape["data"], 0)
 
     stacked = tr.TrainConfig(agg=tra.RobustAggConfig(layout="stacked"))
+    for arch in ("seamless-m4t-medium", "llava-next-34b"):
+        for mesh in (TP(shape={"data": 2, "model": 2}), Grid(shape={"data": 2, "model": 2})):
+            assert callable(tr.build_train_step(get_config(arch).reduced(), stacked, mesh))
+    with pytest.raises(NotImplementedError, match="not a language model"):
+        tr.build_train_step(get_config("lenet-mnist"), stacked, tp_mesh)
     assert tr._check(dataclasses.replace(cfg, optimizer="adafactor"), stacked,
                      Grid(shape={"data": 2, "model": 1})) is None
     # min_max on a rank's blocks: a group of None is one process
